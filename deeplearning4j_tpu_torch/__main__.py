@@ -1,0 +1,6 @@
+import sys
+
+from deeplearning4j_tpu_torch.cli import main
+
+if __name__ == "__main__":
+    sys.exit(main())
