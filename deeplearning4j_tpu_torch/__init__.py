@@ -2,9 +2,14 @@
 
 A package of its own beside the JAX package, which stays the reference: it
 imports ``torch`` and never ``jax`` nor anything of ``deeplearning4j_tpu``.
-This slice serves the transformer LM (``models/transformer.py``) through
-the continuous-batching engine (``serving/``), with prefill and decode
-attention on hand-written CUDA kernels (``ops/``, sources in ``csrc/``).
+It trains the transformer LM on one device (``models/transformer.py``:
+``transformer_train_step``, ``python -m deeplearning4j_tpu_torch train``)
+and serves it through the continuous-batching engine (``serving/``), with
+attention on hand-written CUDA kernels (``ops/``, sources in ``csrc/``):
+the flash forward and backward for training and prefill, flash decode for
+serving. Later slices: int8 and paged decode, training on a mesh
+(``torch.distributed``), MoE, checkpointing, the rest of the serving
+features and the DL4J-era framework.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no GPU and no explicit CPU device they raise. CPU tensors take each

@@ -1,5 +1,7 @@
-"""Decoder-only transformer LM — the serving slice of the port of
-``deeplearning4j_tpu/models/transformer.py``.
+"""Decoder-only transformer LM — the port of
+``deeplearning4j_tpu/models/transformer.py``: training (forward, loss,
+optimizer, single-device train step) and serving (KV-cached decode and
+generate).
 
 Layouts are the reference's, so the tests compare like with like:
 
@@ -22,25 +24,46 @@ otherwise; decode attention calls the flash decode kernel
 block. The projection, MLP and head matmuls are ``torch.matmul``, as the
 reference leaves them to XLA.
 
-Not in this slice: int8 decode (``decode_int8``) and MoE (``n_experts``)
-raise ``NotImplementedError``; training, beam search, speculative decoding,
-LoRA and tensor parallelism are later slices.
+Training attention runs the flash forward and backward kernels under
+``torch.autograd`` (``flash_attention_trainable``) when ``use_flash``; the
+loss is the memory-fused CE (``ops/fused_ce``); ``remat`` maps to
+``torch.utils.checkpoint``. The optimizer is a copy of optax's arithmetic
+(``adamw``, ``clip_by_global_norm``, ``warmup_cosine_decay_schedule``), so
+no optax is needed.
+
+Not in these slices: int8 decode (``decode_int8``), MoE (``n_experts``) and
+sequence parallelism raise ``NotImplementedError``; training on a mesh
+(tensor parallelism, FSDP) comes with the ``torch.distributed`` slice; beam
+search, speculative decoding, LoRA, checkpointing and tensor-parallel
+serving are later slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.ops.attention import attention, dtype_scalar
-from deeplearning4j_tpu_torch.ops.flash_attention import flash_attention
+from deeplearning4j_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_trainable,
+)
+from deeplearning4j_tpu_torch.ops.fused_ce import (
+    cross_entropy_with_integer_labels,
+)
 from deeplearning4j_tpu_torch.ops.flash_decode import flash_decode_attention
 
 _DTYPE_NAMES = {
@@ -262,8 +285,9 @@ _DECODE_PAD_T = 8
 
 
 def _flash_seq_ok(t: int) -> bool:
-    """Prompt lengths bulk prefill sends to the flash kernel (the
-    reference's rule: 8-aligned and either <= 128 or a multiple of 128)."""
+    """Sequence lengths the flash kernels take from the training block
+    (which raises otherwise) and bulk prefill (which falls back to dense):
+    the reference's rule, 8-aligned and either <= 128 or a multiple of 128."""
     return t % 8 == 0 and (t <= 128 or t % 128 == 0)
 
 
@@ -325,6 +349,334 @@ def _write_rows(positions, kv_all):
     Tpad until it is retired, and its write must stay in its own slab (the
     reference's scatter drops it; the next admission rewrites the slab)."""
     return positions.long().clamp(max=kv_all.shape[3] - 1)
+
+
+# -- training ------------------------------------------------------------------
+
+def _check_trainable(cfg: TransformerConfig, mesh) -> None:
+    """Raise for what the single-device training path does not cover."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "training on a mesh (data/tensor parallelism, FSDP) comes with "
+            "the torch.distributed slice of the port; pass mesh=None"
+        )
+    if cfg.n_experts:
+        raise NotImplementedError(
+            "MoE (n_experts > 0) comes with a later slice of the port"
+        )
+    if cfg.sequence_parallel:
+        raise NotImplementedError(
+            "sequence parallelism (ring attention) comes with the "
+            "torch.distributed slice of the port"
+        )
+    if cfg.rope and cfg.head_dim % 2:
+        raise ValueError(
+            f"rope needs an even head_dim, got {cfg.head_dim} "
+            f"(d_model {cfg.d_model} / n_heads {cfg.n_heads})"
+        )
+    if cfg.remat and cfg.remat_policy not in ("dots_no_batch", "full"):
+        raise ValueError(
+            f"unknown remat_policy {cfg.remat_policy!r} "
+            "(expected 'dots_no_batch' or 'full')"
+        )
+
+
+def _train_block(cfg: TransformerConfig, x, p):
+    """One block over the whole sequence (x: (B, T, D)), attention in the
+    (B, H, T, K) layout: the reference's ``block`` (transformer.py:776)
+    without its MoE and sequence-parallel branches."""
+    h_in = _layer_norm(x, p["ln1_scale"], p["ln1_bias"])
+    q, k_r, v_r = _project_qkv(cfg, p, h_in)
+    b, h, t, kd = q.shape
+    if cfg.rope:
+        cos, sin = _rope_tables(torch.arange(t, device=x.device), kd,
+                                q.dtype, x.device)
+        q = _apply_rope(q, cos, sin)
+        k_r = _apply_rope(k_r, cos, sin)
+    k_h, v_h = _expand_kv(cfg, k_r, v_r)
+    if cfg.use_flash:
+        if not _flash_seq_ok(t):
+            raise ValueError(
+                f"use_flash needs a seq len that is a multiple of 8 and "
+                f"either <= 128 or a multiple of 128, got {t}"
+            )
+        o = flash_attention_trainable(q, k_h, v_h, causal=True,
+                                      layout="bhtd")
+    else:
+        o = attention(q, k_h, v_h, causal=True, layout="bhtd")
+    x = x + o.transpose(1, 2).reshape(b, t, h * kd) @ p["wo"].to(
+        x.dtype).reshape(h * kd, -1)
+    h_in = _layer_norm(x, p["ln2_scale"], p["ln2_bias"])
+    return x + _mlp(p, h_in)
+
+
+#: forward ops whose outputs the "dots_no_batch" remat policy keeps: the
+#: weight matmuls (the reference's ``dots_with_no_batch_dims_saveable``) and
+#: the flash forward (the residuals it names "flash_out"/"flash_lse"), so the
+#: backward never reruns the forward kernel. Everything else is recomputed,
+#: the dense attention's batched products included (the reference also keeps
+#: the dense output by name; a PyTorch policy sees ops, not names).
+_SAVED_UNDER_REMAT = (
+    torch.ops.aten.mm.default,
+    torch.ops.aten.addmm.default,
+    torch.ops.dl4j.flash_attn_fwd.default,
+)
+
+
+def _dots_no_batch_policy(ctx, func, *args, **kwargs):
+    if func in _SAVED_UNDER_REMAT:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _block_body(cfg: TransformerConfig):
+    """``body(x, p) -> x``: the block, under ``torch.utils.checkpoint`` when
+    ``cfg.remat`` ("full" recomputes the whole block in the backward,
+    "dots_no_batch" keeps :data:`_SAVED_UNDER_REMAT`)."""
+    block = functools.partial(_train_block, cfg)
+    if not cfg.remat:
+        return block
+    if cfg.remat_policy == "full":
+        return lambda x, p: checkpoint(block, x, p, use_reentrant=False)
+    context = functools.partial(create_selective_checkpoint_contexts,
+                                _dots_no_batch_policy)
+    return lambda x, p: checkpoint(block, x, p, use_reentrant=False,
+                                   context_fn=context)
+
+
+def transformer_apply(cfg: TransformerConfig, mesh=None,
+                      upcast_logits: bool = True):
+    """Build ``apply(params, tokens) -> (logits (B, T, V), aux_loss)``,
+    causal: the reference's ``transformer_apply`` (transformer.py:726) on
+    one device. ``upcast_logits=False`` keeps the logits in the compute
+    dtype, for the fused CE. ``scan_layers`` is accepted and changes
+    nothing: a Python loop over the layers is the only form here."""
+    _check_trainable(cfg, mesh)
+    body = _block_body(cfg)
+
+    def apply(params, tokens):
+        t = tokens.shape[1]
+        x = (F.embedding(tokens, params["embed"]) + params["pos"][:t]).to(
+            cfg.compute_dtype)
+        names = list(params["blocks"])
+        # one unbind per stacked leaf: its backward stacks the layers'
+        # grads once instead of scattering each layer into a zero tensor
+        for layer in zip(*(params["blocks"][n].unbind(0) for n in names)):
+            x = body(x, dict(zip(names, layer)))
+        x = _layer_norm(x, params["lnf_scale"], params["lnf_bias"])
+        # the head in the compute dtype (a bf16-output product at bf16, as
+        # the reference's training head; serving's _head_logits upcasts)
+        logits = x @ params["head"].to(x.dtype)
+        if upcast_logits:
+            logits = logits.float()
+        # dense blocks only (MoE raises), so the aux loss is zero
+        return logits, torch.zeros((), device=x.device)
+
+    return apply
+
+
+def transformer_loss(cfg: TransformerConfig, mesh=None):
+    """Next-token cross-entropy: ``loss(params, tokens)`` with tokens
+    (B, T+1), through the fused CE on compute-dtype logits (the reference's
+    non-sequence-parallel branch, transformer.py:926)."""
+    apply = transformer_apply(cfg, mesh, upcast_logits=False)
+
+    def loss(params, tokens):
+        logits, aux = apply(params, tokens[:, :-1])
+        ce = cross_entropy_with_integer_labels(logits, tokens[:, 1:]).mean()
+        return ce + cfg.aux_coef * aux
+
+    return loss
+
+
+def _leaves(tree, prefix=()):
+    """(path, leaf) pairs of a nested dict, in its order."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _tree(pairs):
+    """The nested dict of (path, leaf) pairs."""
+    out: dict = {}
+    for path, leaf in pairs:
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return out
+
+
+def value_and_grad(loss_fn, params, tokens):
+    """``(loss, grads)``: the loss (a 0-dim tensor, detached) and its
+    gradient with respect to every leaf of ``params``, as a tree of the same
+    shape (``jax.value_and_grad`` of ``loss_fn``). Marks the leaves as
+    requiring grad."""
+    leaves = list(_leaves(params))
+    for _, p in leaves:
+        p.requires_grad_(True)
+    loss = loss_fn(params, tokens)
+    grads = torch.autograd.grad(loss, [p for _, p in leaves])
+    return loss.detach(), _tree(zip((path for path, _ in leaves), grads))
+
+
+# param leaves exempt from AdamW weight decay (the reference's _NO_DECAY,
+# transformer.py:2108): norm scales/biases, biases and the position table
+_NO_DECAY = frozenset({
+    "ln1_scale", "ln1_bias", "ln2_scale", "ln2_bias",
+    "lnf_scale", "lnf_bias", "b1", "b2", "pos",
+})
+
+
+def _decay_mask(params):
+    """True where AdamW weight decay applies (matmul weights only), as a
+    tree of the params' shape. Matched by leaf name: the stacked layer axis
+    makes block biases 2-D, so a rank test would misclassify them."""
+    return _tree((path, path[-1] not in _NO_DECAY)
+                 for path, _ in _leaves(params))
+
+
+def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
+                                 warmup_steps: int, decay_steps: int,
+                                 end_value: float = 0.0
+                                 ) -> Callable[[int], float]:
+    """optax's ``warmup_cosine_decay_schedule``: linear from ``init_value``
+    to ``peak_value`` over ``warmup_steps``, then cosine decay to
+    ``end_value`` at ``decay_steps``; a function of the update count."""
+    cos_steps = decay_steps - warmup_steps
+    if cos_steps <= 0:
+        raise ValueError(
+            f"decay_steps ({decay_steps}) must exceed warmup_steps "
+            f"({warmup_steps})"
+        )
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+
+    def schedule(count: int) -> float:
+        if count < warmup_steps:
+            frac = 1 - count / warmup_steps
+            return (init_value - peak_value) * frac + peak_value
+        c = min(count - warmup_steps, cos_steps)
+        cosine = 0.5 * (1 + math.cos(math.pi * c / cos_steps))
+        return peak_value * ((1 - alpha) * cosine + alpha)
+
+    return schedule
+
+
+#: optax.adamw's moment decays and epsilon (the reference never sets them)
+_ADAM_B1, _ADAM_B2, _ADAM_EPS = 0.9, 0.999, 1e-8
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamW:
+    """optax's ``adamw`` (``scale_by_adam``, ``add_decayed_weights``,
+    ``scale_by_learning_rate``), behind ``clip_by_global_norm`` when
+    ``clip_norm`` is set, in the same arithmetic. The defaults are optax's
+    (b1 0.9, b2 0.999, eps 1e-8, ``weight_decay`` 1e-4, every leaf
+    decayed). ``learning_rate`` is a
+    constant or a function of the update count, read before the update (so
+    a warm-up from 0 makes the first update a no-op, as in optax).
+
+    Unlike optax it updates the params and its state in place: the state is
+    ``{"count": int, "mu": tree, "nu": tree}``."""
+
+    learning_rate: float | Callable[[int], float]
+    weight_decay: float = 1e-4
+    mask: Callable[[dict], dict] | None = None
+    clip_norm: float | None = None
+
+    def init(self, params):
+        zeros = [(path, torch.zeros_like(p)) for path, p in _leaves(params)]
+        return {"count": 0, "mu": _tree(zeros),
+                "nu": _tree((path, torch.zeros_like(z)) for path, z in zeros)}
+
+    @torch.no_grad()
+    def update_(self, params, grads, state) -> None:
+        """One update of ``params`` (and ``state``) in place from ``grads``,
+        a tree of the params' shape."""
+        count = state["count"]
+        ps = [p for _, p in _leaves(params)]
+        gs = [g for _, g in _leaves(grads)]
+        mus = [m for _, m in _leaves(state["mu"])]
+        nus = [n for _, n in _leaves(state["nu"])]
+        decays = ([d for _, d in _leaves(self.mask(params))]
+                  if self.mask is not None else [True] * len(ps))
+        if self.clip_norm is not None:
+            # optax scales by max_norm / g_norm only at g_norm >= max_norm,
+            # with no epsilon (torch's clip_grad_norm_ adds 1e-6)
+            g_norm = torch.sqrt(sum(g.square().sum() for g in gs))
+            keep = g_norm < self.clip_norm
+            gs = [torch.where(keep, g, (g / g_norm) * self.clip_norm)
+                  for g in gs]
+        lr = (self.learning_rate(count) if callable(self.learning_rate)
+              else self.learning_rate)
+        b1, b2 = _ADAM_B1, _ADAM_B2
+        bc1 = 1 - b1 ** (count + 1)
+        bc2 = 1 - b2 ** (count + 1)
+        for p, g, mu, nu, decay in zip(ps, gs, mus, nus, decays):
+            mu.copy_((1 - b1) * g + b1 * mu)
+            nu.copy_((1 - b2) * g.square() + b2 * nu)
+            u = (mu / bc1) / (torch.sqrt(nu / bc2) + _ADAM_EPS)
+            if decay:
+                u = u + self.weight_decay * p
+            p.add_(u * -lr)
+        state["count"] = count + 1
+
+
+def lm_optimizer(peak_lr: float = 3e-4, total_steps: int = 10_000,
+                 warmup_steps: int | None = None, clip_norm: float = 1.0,
+                 weight_decay: float = 0.01) -> AdamW:
+    """The reference's LM recipe (transformer.py:2126): global-norm clipping
+    and AdamW on a linear-warmup / cosine-decay schedule, weight decay
+    masked off norms, biases and the position table."""
+    warmup = warmup_steps if warmup_steps is not None else max(
+        1, total_steps // 20)
+    sched = warmup_cosine_decay_schedule(
+        init_value=0.0, peak_value=peak_lr, warmup_steps=warmup,
+        # tiny runs (total_steps <= warmup) must still construct
+        decay_steps=max(total_steps, warmup + 1), end_value=peak_lr * 0.1,
+    )
+    return AdamW(sched, weight_decay=weight_decay, mask=_decay_mask,
+                 clip_norm=clip_norm)
+
+
+def transformer_train_step(mesh, cfg: TransformerConfig, optimizer=None,
+                           fsdp: bool = False, device=None):
+    """The reference's ``transformer_train_step`` (transformer.py:2157) on
+    one device (``mesh`` must be None). Returns ``(step, init_state,
+    shard_tokens)``:
+
+    - ``step(params, opt_state, tokens) -> (params, opt_state, loss)``
+      updates params and optimizer state in place (the reference donates
+      both) and returns them with the loss as a 0-dim tensor (no host sync);
+    - ``init_state(seed=0) -> (params, opt_state)`` on the step's device;
+    - ``shard_tokens(tokens)`` puts a (B, T+1) int array on that device.
+
+    The default optimizer is ``AdamW(3e-4)``, as the reference defaults to
+    ``optax.adamw(3e-4)``."""
+    if fsdp:
+        raise NotImplementedError(
+            "fsdp (ZeRO-3 sharding over the data axis) comes with the "
+            "torch.distributed slice of the port"
+        )
+    optimizer = optimizer or AdamW(3e-4)
+    loss_fn = transformer_loss(cfg, mesh)
+    dev = resolve_device(device)
+
+    def init_state(seed: int = 0):
+        params = init_params(cfg, seed=seed, device=dev)
+        return params, optimizer.init(params)
+
+    def shard_tokens(tokens):
+        return torch.as_tensor(tokens).to(device=dev, dtype=torch.long)
+
+    def step(params, opt_state, tokens):
+        loss, grads = value_and_grad(loss_fn, params, tokens)
+        optimizer.update_(params, grads, opt_state)
+        return params, opt_state, loss
+
+    return step, init_state, shard_tokens
 
 
 # -- chunked cached forward (dense attention against the cache) ----------------

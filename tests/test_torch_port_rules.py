@@ -100,21 +100,27 @@ def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
 
     calls = []
     monkeypatch.setattr(fa, "_launch", lambda *a: calls.append("fa"))
+    monkeypatch.setattr(fa, "_launch_bwd", lambda *a: calls.append("fa_bwd"))
     monkeypatch.setattr(fd, "_launch", lambda *a: calls.append("fd"))
     monkeypatch.setattr(fa, "flash_attention_fwd_plain",
+                        lambda *a: pytest.fail("plain path on CUDA"))
+    monkeypatch.setattr(fa, "flash_attention_bwd_plain",
                         lambda *a: pytest.fail("plain path on CUDA"))
     monkeypatch.setattr(fd, "flash_decode_attention_plain",
                         lambda *a: pytest.fail("plain path on CUDA"))
     q = torch.empty((2, 8, 16), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         fa.flash_attention_fwd(q, q, q, True)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fa.flash_attention_bwd(q, q, q, q, q, q, True)
 
     class FakeCuda:
         device = torch.device("cuda", 0)
 
     fa.flash_attention_fwd(FakeCuda(), None, None, True)
+    fa.flash_attention_bwd(FakeCuda(), None, None, None, None, None, True)
     fd.flash_decode_attention(FakeCuda(), None, 0, 1)
-    assert calls == ["fa", "fd"]
+    assert calls == ["fa", "fa_bwd", "fd"]
 
 
 def test_chip_smoke_alone_fails(tmp_path):
