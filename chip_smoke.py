@@ -7,15 +7,26 @@ Phases, in order; any failure exits non-zero without printing a result:
 
 1. build every CUDA kernel of ``deeplearning4j_tpu_torch/csrc`` with nvcc
    (all sources at once) and print the build time and the card;
-2. hold each kernel against its plain PyTorch version on the card, in bf16
-   at the shapes the serving and training paths give it, and time kernel,
-   plain version, bound and one library call (a yardstick the port never
-   calls);
+2. hold each kernel against its plain PyTorch version on the card, at the
+   shapes the serving and training paths give it, and time kernel, plain
+   version, bound and one library call (a yardstick the port never calls;
+   none computes int8 or paged decode). The decode kernel runs in bf16 and
+   int8 mode; the paged decode kernel in both modes at block sizes 8 and
+   64 over shuffled tables with an aliased block, also held BITWISE against
+   the slab kernel over the gathered slab;
 3. serve the GPT-2-small configuration (random weights from a seed) through
    ``ServingEngine``: about eight greedy requests, some past the 128-token
    prefill bucket, with every kernel's launch count set to 0 just before and
    read just after; two streams are held against the port's
    ``transformer_generate``;
+3b. the same with int8 weights and the int8 KV cache (``decode_int8``,
+   ``quantize_decode_params``): the int8 mode of the decode kernel must
+   launch, two streams are held against ``transformer_generate`` on the
+   quantized model;
+3c. the runs of 3 and 3b again with the KV cache block-paged (block size
+   8): the engine must come up paged, the paged kernel must launch and the
+   slab decode kernel not, every stream must be byte-identical to its slab
+   run's, and every block must come back;
 4. answer three ``POST /v1/generate`` and a ``GET /healthz`` through
    ``ServingServer`` on an ephemeral port, then stop it;
 5. train the reference bench's "transformer" preset (GPT-2-small widths,
@@ -48,11 +59,19 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 
+#: H100 SXM published dense int8 tensor rate (operations/s)
+INT8_OPS = 1979e12
+
 #: stated tolerances, kernel vs plain version on the same bf16 inputs: the
 #: kernel's online softmax rounds its probabilities to bf16 against the
 #: running max of each 64-row tile, the plain version against the row max
 ATTN_TOL = 2e-2
 LSE_TOL = 1e-3
+#: int8 decode kernels vs their plain versions, in bf16 steps of the
+#: output: the same integer products, divisions and roundings in the same
+#: order; only l, the sum of a tile's softmax weights, is added up in
+#: another order, which can move the output's bf16 rounding by one step
+INT8_STEPS = 1
 #: flash backward vs its plain version, per gradient: the reference's own
 #: on-device gate for its flash backward (bench.py:392); bf16 gradients,
 #: summed in other orders
@@ -92,9 +111,10 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, flops: float,
+          peak: float = BF16_FLOPS) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -245,10 +265,147 @@ def _decode_case(b: int, g: int, hkv: int, kd: int, nl: int, tpad: int,
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
 
 
+def _int8_err(out, ref) -> tuple[float, float]:
+    """max |out - ref|, and max |out - ref| in units of one bf16 step (ulp)
+    of ref's binade."""
+    import torch
+
+    r = ref.float()
+    err = (out.float() - r).abs()
+    step = torch.ldexp(torch.ones_like(r), torch.frexp(r).exponent - 8)
+    return err.max().item(), (err / step).max().item()
+
+
+def _int8_store(gen, shape):
+    import torch
+
+    kv = torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                       dtype=torch.int8)
+    scales = torch.rand(shape[:4] + (1,), generator=gen, device="cuda") * 0.02
+    return kv, scales
+
+
+def _int8_bytes(rows: int, hk: int, b: int, g: int) -> int:
+    """What int8 decode must move: each visible K and V row once (int8 plus
+    a 4-byte scale), q read and out written in bf16, pos."""
+    return 2 * rows * (hk + 4) + 2 * b * g * hk * 2 + 4 * b
+
+
+def _decode_int8_case(b: int, g: int, hkv: int, kd: int, nl: int, tpad: int,
+                      layer: int, pos: list[int]) -> dict:
+    """Kernel #3 in int8 mode against its plain version."""
+    import torch
+
+    from deeplearning4j_tpu_torch.ops import flash_decode as fd
+
+    hk = hkv * kd
+    gen = torch.Generator(device="cuda").manual_seed(4000 + hk + g)
+    q = torch.randn((b, g, hk), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    cache, scales = _int8_store(gen, (nl, 2, b, tpad, hk))
+    p = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    out = fd.flash_decode_attention(q, cache, p, hkv, layer,
+                                    kv_scales=scales)
+    ref = fd.flash_decode_attention_plain(q, cache, p, hkv, layer,
+                                          kv_scales=scales)
+    torch.cuda.synchronize()
+    err, steps = _int8_err(out, ref)
+    ok = bool(torch.isfinite(out.float()).all()) and steps <= INT8_STEPS
+    ms = time_ms(lambda: fd.flash_decode_attention(q, cache, p, hkv, layer,
+                                                   kv_scales=scales))
+    plain_ms = time_ms(lambda: fd.flash_decode_attention_plain(
+        q, cache, p, hkv, layer, kv_scales=scales), iters=10)
+    rows = sum(min(x + 1, tpad) for x in pos)
+    b_ms, b_by = bound(_int8_bytes(rows, hk, b, g), 4 * rows * hk * g,
+                       INT8_OPS)
+    log(f"kernel flash_decode_int8 B={b} G={g} Hkv*K={hk} nl={nl} "
+        f"Tpad={tpad} layer={layer} pos={pos}: max_abs_err {err:.3e}, "
+        f"{steps:.3f} bf16 steps (tol {INT8_STEPS}), ms {ms:.4f}, plain_ms "
+        f"{plain_ms:.4f}, bound_ms "
+        f"{b_ms:.6f} ({b_by}), library_ms none -> {'ok' if ok else 'FAIL'}")
+    return dict(ok=ok, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def _paged_case(int8: bool, bs: int, pos: list[int], b: int = 8,
+                hkv: int = 6, kd: int = 128, nl: int = 12, tpad: int = 640,
+                layer: int = 7) -> dict:
+    """Kernel #4 against its plain version and BITWISE against kernel #3
+    over the gathered slab: shuffled tables over a pool with spare blocks,
+    one block aliased by rows 0 and 1, the sentinel zeroed."""
+    import torch
+
+    from deeplearning4j_tpu_torch.ops import flash_decode as fd
+
+    hk = hkv * kd
+    bps = tpad // bs
+    gen = torch.Generator(device="cuda").manual_seed(5000 + bs + int8)
+    q = torch.randn((b, 1, hk), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    n_blocks = b * bps + 9
+    perm = torch.randperm(n_blocks - 1, generator=gen, device="cuda") + 1
+    tables = perm[:b * bps].reshape(b, bps).to(torch.int32).contiguous()
+    tables[1, 0] = tables[0, 0]
+    shape = (nl, 2, n_blocks, bs, hk)
+    if int8:
+        blocks, scales = _int8_store(gen, shape)
+    else:
+        blocks = torch.randn(shape, generator=gen, device="cuda",
+                             dtype=torch.bfloat16)
+        scales = None
+    blocks[:, :, 0] = 0
+    p = torch.tensor(pos, dtype=torch.int32, device="cuda")
+
+    def run():
+        return fd.flash_decode_attention_paged(q, blocks, tables, p, hkv,
+                                               layer, block_scales=scales)
+
+    def plain():
+        return fd.flash_decode_attention_paged_plain(
+            q, blocks, tables, p, hkv, layer, block_scales=scales)
+
+    out, ref = run(), plain()
+    slab = fd._gather_rows(blocks, tables, layer).contiguous()
+    sslab = (None if scales is None
+             else fd._gather_rows(scales, tables, layer).contiguous())
+    slab_out = fd.flash_decode_attention(q, slab, p, hkv, 0,
+                                         kv_scales=sslab)
+    torch.cuda.synchronize()
+    bitwise = torch.equal(out, slab_out)
+    finite = bool(torch.isfinite(out.float()).all())
+    if int8:
+        err, steps = _int8_err(out, ref)
+        ok = finite and steps <= INT8_STEPS
+        tol = f"{steps:.3f} bf16 steps, tol {INT8_STEPS}"
+    else:
+        err = (out.float() - ref.float()).abs().max().item()
+        ok = finite and err <= ATTN_TOL
+        tol = f"tol {ATTN_TOL}"
+    ms = time_ms(run)
+    plain_ms = time_ms(plain, iters=10)
+    rows = sum(min(x + 1, tpad) for x in pos)
+    tab = 4 * sum(-(-min(x + 1, tpad) // bs) for x in pos)
+    if int8:
+        nbytes = _int8_bytes(rows, hk, b, 1) + tab
+        b_ms, b_by = bound(nbytes, 4 * rows * hk, INT8_OPS)
+    else:
+        b_ms, b_by = bound(2 * rows * hk * 2 + 2 * b * hk * 2 + 4 * b + tab,
+                           4 * rows * hk)
+    ok = ok and bitwise
+    log(f"kernel flash_decode_paged {'int8' if int8 else 'bf16'} bs={bs} "
+        f"B={b} Hkv*K={hk} nl={nl} Tpad={tpad} layer={layer}: max_abs_err "
+        f"{err:.3e} ({tol}), bitwise == slab kernel on the gathered slab "
+        f"{bitwise}, ms {ms:.4f}, plain_ms {plain_ms:.4f}, bound_ms "
+        f"{b_ms:.6f} ({b_by}), library_ms none -> {'ok' if ok else 'FAIL'}")
+    return dict(ok=ok, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
 def phase_kernels() -> dict[str, dict]:
     """Kernel vs plain version at the slices' shapes. Returns, per kernel,
     the numbers of its main-path case (the last one listed: the training
-    shape for the flash kernels)."""
+    shape for the flash kernels, GPT-2-small serving for the decode
+    kernels, int8 at block size 8 for the paged one)."""
     attn = [_attn_case(t, True) for t in (8, 64)]
     attn.append(_attn_case(128, False))
     attn.append(_attn_case(128, True))
@@ -261,13 +418,21 @@ def phase_kernels() -> dict[str, dict]:
         _decode_case(4, 3, 2, 128, 2, 256, 1, [0, 17, 100, 255]),
         _decode_case(8, 1, 6, 128, 12, 640, 7, pos),
     ]
+    dec8 = [
+        _decode_int8_case(4, 3, 2, 128, 2, 256, 1, [0, 17, 100, 255]),
+        _decode_int8_case(8, 1, 6, 128, 12, 640, 7, pos),
+    ]
+    paged = [_paged_case(int8, bs, pos) for bs in (64, 8)
+             for int8 in (False, True)]
     for name, cases in (("flash_attn_fwd", attn), ("flash_attn_bwd", bwd),
-                        ("flash_decode", dec)):
+                        ("flash_decode", dec), ("flash_decode_int8", dec8),
+                        ("flash_decode_paged", paged)):
         if not all(c["ok"] for c in cases):
             raise SystemExit(f"kernel {name} disagrees with its plain "
                              f"version")
     return {"flash_attn_fwd": attn[-1], "flash_attn_bwd": bwd[-1],
-            "flash_decode": dec[-1]}
+            "flash_decode": dec[-1], "flash_decode_int8": dec8[-1],
+            "flash_decode_paged": paged[-1]}
 
 
 # -- phase 3 -----------------------------------------------------------------
@@ -283,7 +448,22 @@ KERNELS = {
     "flash_decode": dict(
         source="deeplearning4j_tpu_torch/csrc/flash_decode.cu",
         replaces="deeplearning4j_tpu/ops/pallas_kernels.py:502"),
+    "flash_decode_int8": dict(
+        source="deeplearning4j_tpu_torch/csrc/flash_decode.cu",
+        replaces="deeplearning4j_tpu/ops/pallas_kernels.py:502"),
+    "flash_decode_paged": dict(
+        source="deeplearning4j_tpu_torch/csrc/flash_decode.cu",
+        replaces="deeplearning4j_tpu/ops/pallas_kernels.py:783"),
 }
+
+
+def reset_launches() -> None:
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.ops import flash_decode as fd
+
+    fa.reset_launches()
+    fd.reset_launches()
+
 
 def read_launches() -> dict[str, int]:
     """Every kernel's launch count since its last reset."""
@@ -291,16 +471,20 @@ def read_launches() -> dict[str, int]:
     from deeplearning4j_tpu_torch.ops import flash_decode as fd
 
     return {"flash_attn_fwd": fa.launches, "flash_attn_bwd": fa.bwd_launches,
-            "flash_decode": fd.launches}
+            "flash_decode": fd.launches,
+            "flash_decode_int8": fd.int8_launches,
+            "flash_decode_paged": fd.paged_launches}
 
 
 #: prompt lengths of the served requests: bucketed prefill (<= 128, the
 #: flash kernel) and chunked prefill past the 128-token bucket
 PROMPT_LENGTHS = (16, 40, 77, 128, 130, 200, 257, 300)
 MAX_NEW = 32
+#: rows per KV block of the paged runs (the reference's default)
+BLOCK_SIZE = 8
 
 
-def gpt2s_config():
+def gpt2s_config(**kw):
     import torch
 
     from deeplearning4j_tpu_torch.cli import PRESETS
@@ -309,7 +493,20 @@ def gpt2s_config():
     p = dict(PRESETS["gpt2s"])
     p.pop("bf16")
     return TransformerConfig(**p, use_flash=True,
-                             compute_dtype=torch.bfloat16)
+                             compute_dtype=torch.bfloat16, **kw)
+
+
+def serve_model(int8: bool):
+    """GPT-2-small with random weights from seed 0: bf16, or int8 weights
+    and the int8 KV cache (the reference's ``--int8 full``)."""
+    from deeplearning4j_tpu_torch.models.transformer import (
+        init_params,
+        quantize_decode_params,
+    )
+
+    cfg = gpt2s_config(decode_int8=int8)
+    params = init_params(cfg, seed=0)
+    return cfg, quantize_decode_params(params, cfg) if int8 else params
 
 
 def _generate(gen, params, prompt):
@@ -339,40 +536,35 @@ def _parity(prompt, ref, logits, stream) -> str:
     return "near-tie: " + msg
 
 
-def phase_serve():
-    """The slice: GPT-2-small through ServingEngine, greedy. Returns the
-    engine (reused by the server phase) and each kernel's launch count."""
+def _serve_run(tag: str, cfg, params, *, must_launch, must_not_launch=(),
+               refs=None, paged: bool = False):
+    """Drive ``ServingEngine`` once through the 8 requests (every launch
+    count set to 0 just before, read just after), check every stream, and
+    print the run's numbers. Returns (engine, launches, streams)."""
     import numpy as np
     import torch
 
-    from deeplearning4j_tpu_torch.models.transformer import (
-        init_params,
-        transformer_generate,
-    )
-    from deeplearning4j_tpu_torch.ops import flash_attention as fa
-    from deeplearning4j_tpu_torch.ops import flash_decode as fd
     from deeplearning4j_tpu_torch.serving import Request, ServingEngine
 
-    cfg = gpt2s_config()
     t0 = time.perf_counter()
-    params = init_params(cfg, seed=0)
     engine = ServingEngine(cfg, params, n_slots=8, max_total=640,
-                           decode_horizon=4, temperature=0.0)
+                           decode_horizon=4, temperature=0.0, paged=paged,
+                           block_size=BLOCK_SIZE)
+    if paged and not engine._paged:
+        raise SystemExit(f"{tag}: the engine did not come up paged")
     rng = np.random.default_rng(0)
     reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, n),
                     max_new=MAX_NEW) for n in PROMPT_LENGTHS]
-    # the reference streams first: generate also warms the card (library
-    # handles, allocator, kernel libraries) before the engine is timed
-    gen = transformer_generate(cfg)
-    refs = {i: _generate(gen, params, reqs[i].prompt) for i in (1, 5)}
     torch.cuda.synchronize()
-    log(f"serve: GPT-2-small ({cfg.d_model}d x {cfg.n_layers}L, "
-        f"{cfg.n_heads}x{cfg.head_dim} heads, vocab {cfg.vocab_size}, bf16) "
-        f"8 slots, max_total 640 (Tpad {engine.pool.tpad}), K=4; set-up "
-        f"{time.perf_counter() - t0:.1f} s")
+    layout = (f"paged, {engine.pool.n_blocks} blocks x {BLOCK_SIZE} rows"
+              if paged else "slab")
+    log(f"{tag}: GPT-2-small ({cfg.d_model}d x {cfg.n_layers}L, "
+        f"{cfg.n_heads}x{cfg.head_dim} heads, vocab {cfg.vocab_size}, bf16"
+        f"{', int8 weights + int8 KV cache' if cfg.decode_int8 else ''}) "
+        f"8 slots, max_total 640 (Tpad {engine.pool.tpad}, {layout}), K=4; "
+        f"set-up {time.perf_counter() - t0:.1f} s")
 
-    fa.reset_launches()
-    fd.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     for r in reqs:
         engine.submit(r)
@@ -380,10 +572,16 @@ def phase_serve():
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()
-    log(f"serve: launches on the main path {launches}")
-    for name in ("flash_attn_fwd", "flash_decode"):
+    log(f"{tag}: launches on the main path {launches}")
+    for name in must_launch:
         if launches[name] <= 0:
-            raise SystemExit(f"kernel {name} never launched on the main path")
+            raise SystemExit(f"{tag}: kernel {name} never launched on the "
+                             f"main path")
+    for name in must_not_launch:
+        if launches[name]:
+            raise SystemExit(f"{tag}: kernel {name} launched "
+                             f"{launches[name]} times; this path must not "
+                             f"run it")
     for r in reqs:
         out = results[r.id]
         if (r.status.value != "finished"
@@ -392,10 +590,10 @@ def phase_serve():
             raise SystemExit(f"request {r.id} ({len(r.prompt)} prompt "
                              f"tokens) came back wrong: {r.status}, "
                              f"{out.shape}")
-    for i, (ref, logits) in refs.items():
+    for i, (ref, logits) in (refs or {}).items():
         r = reqs[i]
         verdict = _parity(r.prompt, ref, logits, results[r.id])
-        log(f"serve: parity vs transformer_generate, prompt "
+        log(f"{tag}: parity vs transformer_generate, prompt "
             f"{len(r.prompt)}: {verdict}")
     # decode phase: from the first request's first token to the last
     # request's last token
@@ -404,7 +602,7 @@ def phase_serve():
                for r in reqs)
     decode_tok_s = len(reqs) * (MAX_NEW - 1) / (last - first)
     s = engine.metrics.summary()
-    log(f"serve: {s['n_generated']} tokens for {len(reqs)} requests in "
+    log(f"{tag}: {s['n_generated']} tokens for {len(reqs)} requests in "
         f"{wall:.3f} s -> {s['n_generated'] / wall:.1f} generated tok/s, "
         f"decode phase {decode_tok_s:.1f} tok/s; "
         f"TTFT p50 {s['ttft_p50_s'] * 1e3:.2f} ms p99 "
@@ -413,7 +611,57 @@ def phase_serve():
         f"prefill {s['prefill_s'] * 1e3:.1f} ms total; "
         f"occupancy {s['occupancy_mean']:.2f} slots; "
         f"{s['steps']} horizons")
-    return engine, launches
+    return engine, launches, [results[r.id] for r in reqs]
+
+
+def phase_serve(int8: bool = False):
+    """Phases 3 and 3b: GPT-2-small through the slab ``ServingEngine``,
+    greedy, two streams held against ``transformer_generate`` on the same
+    model (generated first: that also warms the card before the engine is
+    timed). Returns the engine (phase 4 reuses the bf16 one), the launch
+    counts and the streams."""
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.models.transformer import (
+        transformer_generate,
+    )
+
+    cfg, params = serve_model(int8)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in PROMPT_LENGTHS]
+    gen = transformer_generate(cfg)
+    refs = {i: _generate(gen, params, prompts[i]) for i in (1, 5)}
+    torch.cuda.synchronize()
+    decode = "flash_decode_int8" if int8 else "flash_decode"
+    return _serve_run("serve int8" if int8 else "serve", cfg, params,
+                      must_launch=("flash_attn_fwd", decode), refs=refs)
+
+
+def phase_serve_paged(int8: bool, slab_streams) -> dict[str, int]:
+    """Phase 3c: the run of phase 3 (or 3b) on a block-paged cache. Every
+    stream must be byte-identical to the slab run's, the paged kernel must
+    launch and neither slab decode mode may, and every block must come
+    back. Returns the launch counts."""
+    import numpy as np
+
+    cfg, params = serve_model(int8)
+    tag = "serve paged int8" if int8 else "serve paged"
+    engine, launches, streams = _serve_run(
+        tag, cfg, params, paged=True,
+        must_launch=("flash_attn_fwd", "flash_decode_paged"),
+        must_not_launch=("flash_decode", "flash_decode_int8"))
+    same = [np.array_equal(a, b) for a, b in zip(streams, slab_streams)]
+    log(f"{tag}: streams byte-identical to the slab run: {sum(same)}/"
+        f"{len(same)}; blocks in use after the run "
+        f"{engine.pool.n_blocks_in_use}")
+    if not all(same):
+        raise SystemExit(f"{tag}: streams differ from the slab engine's "
+                         f"(prompts {[n for n, ok in zip(PROMPT_LENGTHS, same) if not ok]})")
+    if engine.pool.n_blocks_in_use:
+        raise SystemExit(f"{tag}: {engine.pool.n_blocks_in_use} blocks "
+                         f"still in use after every request finished")
+    return launches
 
 
 # -- phase 4 -----------------------------------------------------------------
@@ -498,8 +746,6 @@ def phase_train(card: str) -> dict[str, int]:
         lm_optimizer,
         transformer_train_step,
     )
-    from deeplearning4j_tpu_torch.ops import flash_attention as fa
-    from deeplearning4j_tpu_torch.ops import flash_decode as fd
 
     cfg = bench_config()
     t0 = time.perf_counter()
@@ -520,8 +766,7 @@ def phase_train(card: str) -> dict[str, int]:
         f"params), lm_optimizer(total_steps={TRAIN_STEPS}); set-up and "
         f"{TRAIN_WARMUP} warm-up steps {time.perf_counter() - t0:.1f} s")
 
-    fa.reset_launches()
-    fd.reset_launches()
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for _ in range(TRAIN_STEPS - TRAIN_WARMUP):
@@ -625,11 +870,19 @@ def main() -> int:
     log(f"card: {card}")
     phase_build()
     measured = phase_kernels()
-    engine, serve_launches = phase_serve()
+    engine, serve_launches, streams = phase_serve()
     phase_server(engine)
     del engine
+    _, int8_launches, int8_streams = phase_serve(int8=True)
+    by_phase = {
+        "serve": serve_launches,
+        "serve_int8": int8_launches,
+        "serve_paged": phase_serve_paged(False, streams),
+        "serve_paged_int8": phase_serve_paged(True, int8_streams),
+    }
+    torch.cuda.empty_cache()  # the serving engines' caches go back
     phase_train_parity()
-    by_phase = {"serve": serve_launches, "train": phase_train(card)}
+    by_phase["train"] = phase_train(card)
     kernels = [
         dict(name=name, route="cuda", **KERNELS[name],
              launches=sum(p[name] for p in by_phase.values()),

@@ -9,13 +9,16 @@ every 20 steps, ``final loss``, a sampled continuation), on one device.
 through ``ServingEngine`` + ``ServingServer``; the model flags are the JAX
 CLI's (``--seq-len``, ``--d-model``, ``--n-layers``, ``--n-heads``,
 ``--bf16``), plus ``--preset gpt2s`` for the GPT-2-small geometry and
-``--flash`` for the flash prefill kernel. Runs on ``cuda`` unless
-``--device cpu`` is given.
+``--flash`` for the flash prefill kernel. ``--int8 weights|full`` serves
+int8 weights (over a float cache, or with the int8 KV cache too) and
+``--paged [--block-size N]`` a block-paged KV pool, as the reference's
+flags do. Runs on ``cuda`` unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 
 import torch
@@ -145,7 +148,10 @@ def cmd_train(args) -> int:
 
 
 def cmd_serve(args) -> int:
-    from deeplearning4j_tpu_torch.models.transformer import init_params
+    from deeplearning4j_tpu_torch.models.transformer import (
+        init_params,
+        quantize_decode_params,
+    )
     from deeplearning4j_tpu_torch.serving import (
         RequestScheduler,
         ServingEngine,
@@ -157,7 +163,15 @@ def cmd_serve(args) -> int:
               file=sys.stderr)
         return 2
     cfg = _cfg_from_args(args)
+    if args.int8 != "off" and cfg.n_experts:
+        print("--int8 does not cover MoE experts", file=sys.stderr)
+        return 2
+    cfg = dataclasses.replace(cfg, decode_int8=(args.int8 == "full"))
     params = init_params(cfg, seed=args.seed, device=args.device)
+    if args.int8 != "off":
+        params = quantize_decode_params(params, cfg)
+        print(f"int8 serving mode: {args.int8} ("
+              f"{'weights + kv cache' if args.int8 == 'full' else 'weights over a bf16/f32 cache'})")
     engine = ServingEngine(
         cfg, params, n_slots=args.slots, max_total=args.max_total,
         temperature=args.temperature,
@@ -165,7 +179,17 @@ def cmd_serve(args) -> int:
         decode_horizon=args.decode_horizon,
         scheduler=RequestScheduler(max_queue_depth=args.max_queue),
         rng_seed=args.seed, device=args.device,
+        paged=args.paged, block_size=args.block_size,
     )
+    if args.paged:
+        if engine._paged:
+            print(f"paged KV: {engine.pool.n_blocks} blocks x "
+                  f"{engine.pool.block_size} tokens (shared pool, "
+                  f"refcounted block tables)")
+        else:
+            print("paged KV DISABLED (parity probe failed or block size "
+                  "does not divide tokens/slot); slab slots",
+                  file=sys.stderr)
     server = ServingServer(engine, host=args.host, port=args.port,
                            request_timeout_s=args.request_timeout)
     host, port = server.address
@@ -245,6 +269,17 @@ def build_parser() -> argparse.ArgumentParser:
     v.add_argument("--n-experts", type=int, default=0,
                    help="MoE experts (a later slice: > 0 raises)")
     v.add_argument("--bf16", action="store_true")
+    v.add_argument("--int8", default="off", choices=["off", "weights", "full"],
+                   help="int8 weights over a float cache, or the fully "
+                   "quantized path (int8 KV cache and decode kernel too)")
+    v.add_argument("--paged", action="store_true",
+                   help="block-paged KV: slots hold int32 block tables over "
+                   "one shared refcounted pool instead of fixed slabs; "
+                   "gated by a one-time bitwise parity probe, falls back "
+                   "to slab slots")
+    v.add_argument("--block-size", type=int, default=None, metavar="T",
+                   help="tokens per KV block with --paged (default 8; must "
+                   "divide tokens-per-slot)")
     v.set_defaults(fn=cmd_serve)
     return ap
 

@@ -1,7 +1,8 @@
-"""Device resolution shared by the port's entry points."""
+"""Device resolution and host-to-device uploads shared by the port."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -19,3 +20,13 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device``. On CUDA the copy goes through pinned
+    memory without blocking: a pageable upload would wait for all the work
+    queued ahead of it and stall a pipelined caller."""
+    t = torch.from_numpy(arr)
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)

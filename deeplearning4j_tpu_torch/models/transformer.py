@@ -24,6 +24,22 @@ otherwise; decode attention calls the flash decode kernel
 block. The projection, MLP and head matmuls are ``torch.matmul``, as the
 reference leaves them to XLA.
 
+int8 decode (the reference's ``--int8``): :func:`quantize_decode_params`
+stores the streamed weights int8 with per-output-channel scales, and
+:func:`_w` dequantizes them at each use (eager PyTorch writes a dequantized
+copy per use: correct, but the bytes are not yet the int8 bytes).
+``decode_int8`` adds the int8 KV cache, ``{"kv": int8 (nl, 2, B, Tpad,
+Hkv*K), "scale": f32 (nl, 2, B, Tpad, 1)}`` with one scale per row, and the
+int8 mode of the decode kernel.
+
+Block-paged KV (the serving engine's ``paged=True``): the cache is a pool
+of fixed-size blocks, ``{"blocks": pool leaves (nl, 2, n_blocks, bs, ...),
+"tables": (B, Tpad/bs) int32}``. The ``paged_*`` views move rows between
+the pool and slab-shaped scratch caches; the decode step writes each new
+row through the table and calls the paged decode kernel on the pool, never
+gathering a slab. Block 0 is the all-zero sentinel and is re-zeroed after
+every write that can reach it.
+
 Training attention runs the flash forward and backward kernels under
 ``torch.autograd`` (``flash_attention_trainable``) when ``use_flash``; the
 loss is the memory-fused CE (``ops/fused_ce``); ``remat`` maps to
@@ -31,8 +47,8 @@ loss is the memory-fused CE (``ops/fused_ce``); ``remat`` maps to
 (``adamw``, ``clip_by_global_norm``, ``warmup_cosine_decay_schedule``), so
 no optax is needed.
 
-Not in these slices: int8 decode (``decode_int8``), MoE (``n_experts``) and
-sequence parallelism raise ``NotImplementedError``; training on a mesh
+Not in these slices: MoE (``n_experts``) and sequence parallelism raise
+``NotImplementedError``; training on a mesh
 (tensor parallelism, FSDP) comes with the ``torch.distributed`` slice; beam
 search, speculative decoding, LoRA, checkpointing and tensor-parallel
 serving are later slices.
@@ -64,7 +80,11 @@ from deeplearning4j_tpu_torch.ops.flash_attention import (
 from deeplearning4j_tpu_torch.ops.fused_ce import (
     cross_entropy_with_integer_labels,
 )
-from deeplearning4j_tpu_torch.ops.flash_decode import flash_decode_attention
+from deeplearning4j_tpu_torch.ops.flash_decode import (
+    _div127,
+    flash_decode_attention,
+    flash_decode_attention_paged,
+)
 
 _DTYPE_NAMES = {
     "float32": torch.float32,
@@ -146,11 +166,6 @@ class TransformerConfig:
 
 def check_supported(cfg: TransformerConfig) -> None:
     """Raise for configurations a later slice of the port covers."""
-    if cfg.decode_int8:
-        raise NotImplementedError(
-            "decode_int8 (int8 KV cache and the int8 mode of the decode "
-            "kernel) comes with a later slice of the port"
-        )
     if cfg.n_experts:
         raise NotImplementedError(
             "MoE (n_experts > 0) comes with a later slice of the port"
@@ -204,42 +219,96 @@ def init_params(cfg: TransformerConfig, seed: int = 0, device=None):
     }
 
 
+# block-weight leaves quantized for int8 decode, with the axes their
+# matmuls reduce (the scale is per OUTPUT channel: max|w| over the
+# contraction axes); the head contracts d (axis 0). The reference's
+# _INT8_BLOCK_AXES (transformer.py:199).
+_INT8_BLOCK_AXES = {
+    "wqkv": (1,), "wq": (1,), "wkv": (1,),
+    "wo": (1, 2), "w1": (1,), "w2": (1,),
+}
+_INT8_SCALES = frozenset(n + "_scale" for n in _INT8_BLOCK_AXES)
+
+
+def _quantize_int8(w: torch.Tensor, axes):
+    """(int8 values, f32 scales with ``axes`` kept): scale = max(max|w|,
+    1e-8) / 127 and round half to even, in w's dtype, as the reference."""
+    amax = w.abs().amax(dim=axes, keepdim=True)
+    scale = _div127(amax.clamp_min(1e-8))
+    q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
+    return q, scale.float()
+
+
+def quantize_decode_params(params, cfg: TransformerConfig):
+    """Weight-only int8 quantization of the decode-streamed weights (block
+    projections and MLP, the head) with per-output-channel scales: each
+    quantized leaf ``name`` is stored int8 beside an f32 ``name_scale``
+    leaf; embeddings, positions and norms stay float. The reference's
+    ``quantize_decode_params`` (transformer.py:212). Pair it with
+    ``decode_int8=True`` for the int8 KV cache too; with ``decode_int8``
+    off, :func:`_w` dequantizes the weights over a float cache."""
+    if cfg.n_experts:
+        raise NotImplementedError(
+            "int8 decode quantization does not cover MoE experts")
+    blocks = dict(params["blocks"])
+    for name, axes in _INT8_BLOCK_AXES.items():
+        if name in blocks:
+            blocks[name], blocks[name + "_scale"] = _quantize_int8(
+                blocks[name], axes)
+    out = dict(params)
+    out["blocks"] = blocks
+    out["head"], out["head_scale"] = _quantize_int8(params["head"], (0,))
+    return out
+
+
+def _scale_shape(shape, axes):
+    return tuple(1 if i in axes else n for i, n in enumerate(shape))
+
+
 def params_from_jax(np_tree, cfg: TransformerConfig, device=None):
     """The reference's params pytree, given as nested dicts of numpy
     arrays (e.g. ``jax.tree.map(np.asarray, params)``), as the port's
-    tensors on ``device``. Shapes are checked against ``cfg``; int8 or MoE
-    leaves raise ``NotImplementedError`` (later slices)."""
+    tensors on ``device``. Shapes are checked against ``cfg``. A quantized
+    tree (:func:`quantize_decode_params`) keeps its int8 leaves and their
+    f32 ``*_scale`` siblings; MoE leaves raise ``NotImplementedError`` (a
+    later slice)."""
     check_supported(cfg)
     dev = resolve_device(device)
 
     def conv(name, x, shape):
         a = np.asarray(x)
-        if a.dtype == np.int8:
-            raise NotImplementedError(
-                f"int8-quantized leaf {name!r}: int8 decode comes with a "
-                "later slice of the port"
-            )
         if tuple(a.shape) != tuple(shape):
             raise ValueError(f"param {name}: shape {a.shape}, expected "
                              f"{shape}")
-        return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
+        dt = np.int8 if a.dtype == np.int8 else np.float32
+        return torch.from_numpy(np.array(a, dtype=dt)).to(dev)
+
+    def quantizable(tree, name, shape, axes):
+        """A leaf and, when it is int8, its scale sibling."""
+        out = {name: conv(name, tree[name], shape)}
+        if out[name].dtype == torch.int8:
+            sname = name + "_scale"
+            out[sname] = conv(sname, tree[sname], _scale_shape(shape, axes))
+        return out
 
     blocks_in = np_tree["blocks"]
     if "moe" in blocks_in:
         raise NotImplementedError("MoE params come with a later slice")
-    shapes = _block_shapes(cfg)
-    extra = set(blocks_in) - set(shapes)
+    blocks = {}
+    for name, shape in _block_shapes(cfg).items():
+        blocks.update(quantizable(blocks_in, name, shape,
+                                  _INT8_BLOCK_AXES.get(name, ())))
+    extra = set(blocks_in) - set(blocks)
     if extra:
         raise ValueError(f"unexpected block params {sorted(extra)}")
     d = cfg.d_model
     return {
         "embed": conv("embed", np_tree["embed"], (cfg.vocab_size, d)),
         "pos": conv("pos", np_tree["pos"], (cfg.max_len, d)),
-        "blocks": {name: conv(name, blocks_in[name], shape)
-                   for name, shape in shapes.items()},
+        "blocks": blocks,
         "lnf_scale": conv("lnf_scale", np_tree["lnf_scale"], (d,)),
         "lnf_bias": conv("lnf_bias", np_tree["lnf_bias"], (d,)),
-        "head": conv("head", np_tree["head"], (d, cfg.vocab_size)),
+        **quantizable(np_tree, "head", (d, cfg.vocab_size), (0,)),
     }
 
 
@@ -259,6 +328,16 @@ def _layer_norm(x, scale, bias, eps: float = 1e-5):
     d = x.shape[-1]
     return F.layer_norm(x.float(), (d,), scale.float(), bias.float(),
                         eps).to(x.dtype)
+
+
+def _w(p, name: str, dtype):
+    """Weight leaf ``name`` at the compute dtype; an int8 leaf is
+    dequantized with its ``name_scale`` sibling (f32 product, then the
+    cast), as the reference's ``_w`` (transformer.py:249)."""
+    w = p[name]
+    if w.dtype == torch.int8:
+        return (w.float() * p[name + "_scale"]).to(dtype)
+    return w.to(dtype)
 
 
 def _rope_tables(positions, head_dim: int, dtype, device,
@@ -297,12 +376,12 @@ def _project_qkv(cfg: TransformerConfig, p, h_in):
     b, t, d = h_in.shape
     kd = cfg.head_dim
     if cfg.kv_heads != cfg.n_heads:
-        q = (h_in @ p["wq"].to(h_in.dtype).reshape(d, -1)).view(
+        q = (h_in @ _w(p, "wq", h_in.dtype).reshape(d, -1)).view(
             b, t, cfg.n_heads, kd).transpose(1, 2)
-        kv = (h_in @ p["wkv"].to(h_in.dtype).reshape(d, -1)).view(
+        kv = (h_in @ _w(p, "wkv", h_in.dtype).reshape(d, -1)).view(
             b, t, 2, cfg.kv_heads, kd).permute(2, 0, 3, 1, 4)
         return q, kv[0], kv[1]
-    qkv = (h_in @ p["wqkv"].to(h_in.dtype).reshape(d, -1)).view(
+    qkv = (h_in @ _w(p, "wqkv", h_in.dtype).reshape(d, -1)).view(
         b, t, 3, cfg.n_heads, kd).permute(2, 0, 3, 1, 4)
     return qkv[0], qkv[1], qkv[2]
 
@@ -318,9 +397,9 @@ def _expand_kv(cfg: TransformerConfig, k_r, v_r):
 def _mlp(p, h_in):
     """Dense FFN: tanh-approximated gelu, as ``jax.nn.gelu`` defaults."""
     dt = h_in.dtype
-    h = h_in @ p["w1"].to(dt) + p["b1"].to(dt)
+    h = h_in @ _w(p, "w1", dt) + p["b1"].to(dt)
     h = F.gelu(h, approximate="tanh")
-    return h @ p["w2"].to(dt) + p["b2"].to(dt)
+    return h @ _w(p, "w2", dt) + p["b2"].to(dt)
 
 
 def _head_logits(x, head):
@@ -679,14 +758,150 @@ def transformer_train_step(mesh, cfg: TransformerConfig, optimizer=None,
     return step, init_state, shard_tokens
 
 
+# -- KV caches: slab or int8 dict, slab or block pool ---------------------------
+
+def kv_map(fn, *caches):
+    """Apply ``fn`` leafwise over caches of one structure: a float cache
+    tensor, or the int8 ``{"kv", "scale"}`` dict (``fn`` sees the int8
+    rows, then their scale planes). Returns the same structure."""
+    if isinstance(caches[0], dict):
+        return {k: fn(*(c[k] for c in caches)) for k in ("kv", "scale")}
+    return fn(*caches)
+
+
+def _kv_planes(caches):
+    """(rows, scales) of a cache or pool: the int8 dict's two leaves, or a
+    float tensor and None."""
+    if isinstance(caches, dict):
+        return caches["kv"], caches["scale"]
+    return caches, None
+
+
+def is_paged(caches) -> bool:
+    """A block-paged cache ``{"blocks": pool, "tables": (B, bps)}``."""
+    return isinstance(caches, dict) and "tables" in caches
+
+
+def _quantize_rows(rows):
+    """Per-row int8 quantization of new cache rows (..., Hkv*K) -> (int8
+    rows, f32 scales (..., 1)): one scale over all packed heads of a row,
+    the reference's ``quantize_kv_rows`` (transformer.py:955)."""
+    return _quantize_int8(rows.float(), (-1,))
+
+
+def _row_values(caches, rows):
+    """(leaf, values) pairs for writing float ``rows`` into ``caches``:
+    quantized rows and scales into an int8 dict, else the rows cast to the
+    cache dtype."""
+    kv, sc = _kv_planes(caches)
+    if sc is None:
+        return [(kv, rows.to(kv.dtype))]
+    q_rows, s_rows = _quantize_rows(rows)
+    return [(kv, q_rows), (sc, s_rows)]
+
+
+def _layer_view(caches, i: int, dtype):
+    """Layer ``i``'s K and V planes (B, Tpad, Hkv*K) at ``dtype``; an int8
+    cache is dequantized (f32 product, then the cast, as the reference's
+    ``_block_chunk``)."""
+    kv, sc = _kv_planes(caches)
+    if sc is None:
+        return kv[i, 0], kv[i, 1]
+    return tuple((kv[i, j].float() * sc[i, j]).to(dtype) for j in (0, 1))
+
+
+# -- block-paged KV views --------------------------------------------------------
+#
+# The paged pool keeps KV as fixed-size blocks addressed by per-slot int32
+# tables (serving/cache_pool.py PagedKVPool); entry j of a table row maps
+# rows [j*bs, (j+1)*bs). These views move rows between the pool and
+# slab-shaped scratch caches (prefill, chunks, the parity probe), leafwise
+# over int8 dicts, in place. Block 0 is the all-zero SENTINEL: unallocated
+# entries name it, rows past a slot's coverage land in it, and every write
+# that can reach it re-zeroes it. The reference's paged views
+# (transformer.py:1390-1454).
+
+def paged_gather(blocks, tables):
+    """Contiguous (nl, 2, B, bps*bs, ...) slab of every table row's blocks,
+    in table order (sentinel entries give zero rows)."""
+    idx = tables.reshape(-1).long()
+
+    def g(x):
+        nl, two, _, bs, w = x.shape
+        return x[:, :, idx].reshape(nl, two, tables.shape[0],
+                                    tables.shape[1] * bs, w)
+    return kv_map(g, blocks)
+
+
+def paged_scatter(blocks, tables, view):
+    """Write a slab view back into the blocks its tables name, then re-zero
+    the sentinel. Aliased blocks receive identical bytes from every
+    writer."""
+    idx = tables.reshape(-1).long()
+
+    def s(x, v):
+        nl, two, _, bs, w = x.shape
+        x[:, :, idx] = v.reshape(nl, two, idx.numel(), bs, w)
+        x[:, :, 0] = 0
+        return x
+    return kv_map(s, blocks, view)
+
+
+def paged_slot_gather(blocks, table_row):
+    """One slot's batch-1 slab: the blocks of one (bps,) table row."""
+    return paged_gather(blocks, table_row[None])
+
+
+def paged_slot_scatter(blocks, table_row, slab):
+    """Land a batch-1 slab covering all Tpad rows (zeros past the prompt
+    included, so a reused block keeps no stale row) in the blocks one
+    table row names, then re-zero the sentinel."""
+    return paged_scatter(blocks, table_row[None], slab)
+
+
+def paged_block_copy(blocks, src: int, dst: int):
+    """Copy block ``src``'s rows to block ``dst`` in every leaf (``src=0``
+    zeroes ``dst``)."""
+    def c(x):
+        x[:, :, dst] = x[:, :, src]
+        return x
+    return kv_map(c, blocks)
+
+
+def _paged_write_index(caches, pos):
+    """Where one decode step writes in a paged cache, the same in every
+    layer: (block, row) per batch row, row ``pos[b]`` living at block
+    ``tables[b, pos // bs]``, row ``pos % bs``. A dead slot at pos == Tpad
+    (past its table) gets the sentinel, as does an unallocated entry."""
+    tables = caches["tables"]
+    b, bps = tables.shape
+    bs = _kv_planes(caches["blocks"])[0].shape[3]
+    p = torch.as_tensor(pos, device=tables.device).long().expand(b)
+    ent = p // bs
+    blk = tables[torch.arange(b, device=tables.device),
+                 ent.clamp(max=bps - 1)].long()
+    return torch.where(ent < bps, blk, 0), p % bs
+
+
+def _write_paged_rows(blocks, i: int, where, rows):
+    """Write one decode step's rows (2, B, Hkv*K) into layer ``i`` of the
+    pool at ``where`` (:func:`_paged_write_index`), then re-zero the
+    sentinel, which dead and uncovered rows may have hit."""
+    blk, row = where
+    for x, v in _row_values(blocks, rows):
+        x[i][:, blk, row] = v
+        x[i, :, 0] = 0
+
+
 # -- chunked cached forward (dense attention against the cache) ----------------
 
 def _block_chunk(cfg: TransformerConfig, x, p, kv_all, i: int, pos0):
     """One block over C consecutive cached positions (x: (B, C, D), rows
-    pos0..pos0+C-1): projection, RoPE, cache write (in place), dense
-    masked attention against the cache, MLP. ``pos0`` is an int or a (B,)
-    tensor of per-row starts. Divides the logits by ``sqrt(kd)`` as the
-    reference does (the kernels multiply by the scale instead)."""
+    pos0..pos0+C-1): projection, RoPE, cache write (in place; quantized
+    rows into an int8 cache), dense masked attention against the
+    (dequantized) cache, MLP. ``pos0`` is an int or a (B,) tensor of
+    per-row starts. Divides the logits by ``sqrt(kd)`` as the reference
+    does (the kernels multiply by the scale instead)."""
     b, c, _ = x.shape
     kd = cfg.head_dim
     grp = cfg.n_heads // cfg.kv_heads
@@ -705,13 +920,14 @@ def _block_chunk(cfg: TransformerConfig, x, p, kv_all, i: int, pos0):
     rows = torch.stack([
         k_r.transpose(1, 2).reshape(b, c, -1),
         v_r.transpose(1, 2).reshape(b, c, -1),
-    ]).to(kv_all.dtype)  # (2, B, C, Hkv*K)
-    if vec_pos:
-        bidx = torch.arange(b, device=x.device)[:, None]
-        kv_all[i][:, bidx, _write_rows(positions, kv_all)] = rows
-    else:
-        kv_all[i, :, :, int(pos0):int(pos0) + c] = rows
-    ck, cv = kv_all[i, 0], kv_all[i, 1]
+    ])  # (2, B, C, Hkv*K)
+    for buf, vals in _row_values(kv_all, rows):
+        if vec_pos:
+            bidx = torch.arange(b, device=x.device)[:, None]
+            buf[i][:, bidx, _write_rows(positions, buf)] = vals
+        else:
+            buf[i, :, :, int(pos0):int(pos0) + c] = vals
+    ck, cv = _layer_view(kv_all, i, x.dtype)
     tpad = ck.shape[1]
     ck4 = ck.view(b, tpad, cfg.kv_heads, kd)
     cv4 = cv.view(b, tpad, cfg.kv_heads, kd)
@@ -724,7 +940,7 @@ def _block_chunk(cfg: TransformerConfig, x, p, kv_all, i: int, pos0):
     w_att = torch.softmax(att, dim=-1)
     o = torch.einsum("bhgct,bthk->bhgck", w_att, cv4)
     o_flat = o.permute(0, 3, 1, 2, 4).reshape(b, c, cfg.n_heads * kd)
-    x = x + o_flat @ p["wo"].to(x.dtype).reshape(cfg.n_heads * kd, -1)
+    x = x + o_flat @ _w(p, "wo", x.dtype).reshape(cfg.n_heads * kd, -1)
     h_in = _layer_norm(x, p["ln2_scale"], p["ln2_bias"])
     return x + _mlp(p, h_in), kv_all
 
@@ -751,7 +967,7 @@ def _chunk_builder(cfg: TransformerConfig):
             else:
                 x = x[:, int(last_idx)]
         x = _layer_norm(x, params["lnf_scale"], params["lnf_bias"])
-        return _head_logits(x, params["head"]), caches
+        return _head_logits(x, _w(params, "head", x.dtype)), caches
 
     return forward_chunk
 
@@ -761,25 +977,27 @@ def _chunk_builder(cfg: TransformerConfig):
 def _decode_builder(cfg: TransformerConfig):
     """Shared KV-cache decode machinery: ``(forward_one, init_caches,
     prefill, cast_params)``, as the reference's ``_decode_builder``
-    (transformer.py:936) returns."""
+    (transformer.py:936) returns. ``forward_one`` also takes a block-paged
+    cache (see the module doc)."""
     check_supported(cfg)
     kd = cfg.head_dim
     grp = cfg.n_heads // cfg.kv_heads
 
     def write_kv_rows(kv_all, i: int, pos, kv_row):
         """Write one decode step's rows ``kv_row`` (2, B, Hkv*K) into layer
-        ``i`` of the stacked cache, in place. An int ``pos`` writes every
-        row at that position (generate); a (B,) tensor scatters each row
-        at its own position (the serving engine's per-slot depths)."""
-        rows = kv_row.to(kv_all.dtype)
-        if isinstance(pos, torch.Tensor) and pos.dim() == 1:
-            bidx = torch.arange(rows.shape[1], device=rows.device)
-            kv_all[i][:, bidx, _write_rows(pos, kv_all)] = rows
-        else:
-            kv_all[i, :, :, int(pos)] = rows
+        ``i`` of the stacked cache (quantized into an int8 cache), in
+        place. An int ``pos`` writes every row at that position (generate);
+        a (B,) tensor scatters each row at its own position (the serving
+        engine's per-slot depths)."""
+        for buf, vals in _row_values(kv_all, kv_row):
+            if isinstance(pos, torch.Tensor) and pos.dim() == 1:
+                bidx = torch.arange(vals.shape[1], device=vals.device)
+                buf[i][:, bidx, _write_rows(pos, buf)] = vals
+            else:
+                buf[i, :, :, int(pos)] = vals
         return kv_all
 
-    def block_decode(x, p, kv_all, i: int, pos):
+    def block_decode(x, p, kv_all, i: int, pos, where=None):
         if not cfg.decode_kernel:
             # the dense path IS the C=1 chunk block (one code path)
             y, kv_all = _block_chunk(cfg, x[:, None, :], p, kv_all, i, pos)
@@ -787,13 +1005,13 @@ def _decode_builder(cfg: TransformerConfig):
         b, d = x.shape
         h_in = _layer_norm(x, p["ln1_scale"], p["ln1_bias"])
         if cfg.kv_heads != cfg.n_heads:
-            q = (h_in @ p["wq"].to(x.dtype).reshape(d, -1)).view(
+            q = (h_in @ _w(p, "wq", x.dtype).reshape(d, -1)).view(
                 b, cfg.n_heads, kd)
-            kv = (h_in @ p["wkv"].to(x.dtype).reshape(d, -1)).view(
+            kv = (h_in @ _w(p, "wkv", x.dtype).reshape(d, -1)).view(
                 b, 2, cfg.kv_heads, kd)
             k, v = kv[:, 0], kv[:, 1]
         else:
-            qkv = (h_in @ p["wqkv"].to(x.dtype).reshape(d, -1)).view(
+            qkv = (h_in @ _w(p, "wqkv", x.dtype).reshape(d, -1)).view(
                 b, 3, cfg.n_heads, kd)
             q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]
         if cfg.rope:
@@ -802,63 +1020,94 @@ def _decode_builder(cfg: TransformerConfig):
                 cos, sin = cos[:, None, :], sin[:, None, :]
             q = _apply_rope(q, cos, sin)
             k = _apply_rope(k, cos, sin)
-        write_kv_rows(kv_all, i, pos,
-                      torch.stack([k.reshape(b, -1), v.reshape(b, -1)]))
+        rows = torch.stack([k.reshape(b, -1), v.reshape(b, -1)])
         # query head h = kv*G + g: group into (B, G, Hkv*K), each group
         # packed head-major
         qp = (q.reshape(b, cfg.kv_heads, grp, kd).transpose(1, 2)
               .reshape(b, grp, cfg.kv_heads * kd).contiguous())
-        # the kernel takes the WHOLE stacked cache and the layer index —
-        # slicing here would copy a layer's cache per call
-        o = flash_decode_attention(qp, kv_all, pos, cfg.kv_heads, layer=i)
+        # the kernels take the WHOLE stacked cache or pool and the layer
+        # index — slicing here would copy a layer's cache per call
+        if is_paged(kv_all):
+            blocks, tables = kv_all["blocks"], kv_all["tables"]
+            _write_paged_rows(blocks, i, where, rows)
+            kv_buf, sc_buf = _kv_planes(blocks)
+            o = flash_decode_attention_paged(qp, kv_buf, tables, pos,
+                                             cfg.kv_heads, layer=i,
+                                             block_scales=sc_buf)
+        else:
+            write_kv_rows(kv_all, i, pos, rows)
+            kv_buf, sc_buf = _kv_planes(kv_all)
+            o = flash_decode_attention(qp, kv_buf, pos, cfg.kv_heads,
+                                       layer=i, kv_scales=sc_buf)
         o_flat = (o.reshape(b, grp, cfg.kv_heads, kd).transpose(1, 2)
                   .reshape(b, cfg.n_heads * kd))
-        x = x + o_flat @ p["wo"].to(x.dtype).reshape(cfg.n_heads * kd, -1)
+        x = x + o_flat @ _w(p, "wo", x.dtype).reshape(cfg.n_heads * kd, -1)
         h_in = _layer_norm(x, p["ln2_scale"], p["ln2_bias"])
         return x + _mlp(p, h_in), kv_all
 
     def forward_one(params, caches, token, pos):
         """One position through all layers -> (logits (B, V) f32, caches).
         ``pos`` is an int (every row at one depth) or a (B,) tensor."""
+        if is_paged(caches) and not cfg.decode_kernel:
+            # the dense chunk block reads whole slabs: gather the view,
+            # step it, scatter it back (the reference's make_paged_fwd1)
+            view = paged_gather(caches["blocks"], caches["tables"])
+            logits, view = forward_one(params, view, token, pos)
+            paged_scatter(caches["blocks"], caches["tables"], view)
+            return logits, caches
         x = (params["embed"][token] + _pos_rows(params, pos, cfg.max_len)
              ).to(cfg.compute_dtype)
+        where = _paged_write_index(caches, pos) if is_paged(caches) else None
         for i in range(cfg.n_layers):
-            x, caches = block_decode(x, _layer(params, i), caches, i, pos)
+            x, caches = block_decode(x, _layer(params, i), caches, i, pos,
+                                     where)
         x = _layer_norm(x, params["lnf_scale"], params["lnf_bias"])
-        return _head_logits(x, params["head"]), caches
+        return _head_logits(x, _w(params, "head", x.dtype)), caches
 
     def cast_params(params):
-        """One-time cast of the streamed weights (every block tensor and
-        the head) to the compute dtype; embeddings, positions and the
-        final norm stay f32."""
+        """One-time cast of the streamed float weights (every block tensor
+        and the head) to the compute dtype; embeddings, positions and the
+        final norm stay f32. int8 leaves and their f32 scales (NOT the
+        ``ln1_scale``/``ln2_scale`` norms) pass through untouched."""
+        def cast(name, a):
+            if a.dtype == torch.int8 or name in _INT8_SCALES:
+                return a
+            return a.to(cfg.compute_dtype)
         out = dict(params)
-        out["blocks"] = {name: a.to(cfg.compute_dtype)
+        out["blocks"] = {name: cast(name, a)
                          for name, a in params["blocks"].items()}
-        out["head"] = params["head"].to(cfg.compute_dtype)
+        out["head"] = cast("head", params["head"])
         return out
 
     def init_caches(batch: int, total: int, device):
-        """Zeroed stacked cache (nl, 2, batch, Tpad, Hkv*K): Tpad is
-        ``total`` rounded up to 8 rows, or to 512 above 1024 rows."""
+        """Zeroed stacked cache (nl, 2, batch, Tpad, Hkv*K) at the compute
+        dtype, or with ``decode_int8`` the dict ``{"kv": int8, "scale":
+        f32 (nl, 2, batch, Tpad, 1)}``. Tpad is ``total`` rounded up to 8
+        rows, or to 512 above 1024 rows."""
         if total <= 1024:
             tpad = -(-total // _DECODE_PAD_T) * _DECODE_PAD_T
         else:
             tpad = -(-total // 512) * 512
-        return torch.zeros(
-            (cfg.n_layers, 2, batch, tpad, cfg.kv_heads * kd),
-            dtype=cfg.compute_dtype, device=device,
-        )
+        shape = (cfg.n_layers, 2, batch, tpad, cfg.kv_heads * kd)
+        if cfg.decode_int8:
+            return {
+                "kv": torch.zeros(shape, dtype=torch.int8, device=device),
+                "scale": torch.zeros(shape[:4] + (1,), dtype=torch.float32,
+                                     device=device),
+            }
+        return torch.zeros(shape, dtype=cfg.compute_dtype, device=device)
 
     def prefill(params, caches, prompt, last_idx=None):
         """Bulk prefill: one causal forward over the prompt (B, Tp) writes
-        rows 0..Tp-1 of every layer's cache (in place) and returns
+        rows 0..Tp-1 of every layer's cache (in place; quantized rows into
+        an int8 cache, while attention uses the float k/v) and returns
         (caches, logits (B, V) f32) at ``last_idx`` (default Tp-1; an int
         or a (B,) tensor)."""
         b, tp = prompt.shape
         if tp == 0:
             return caches, torch.zeros((b, cfg.vocab_size),
                                        dtype=torch.float32,
-                                       device=caches.device)
+                                       device=prompt.device)
         x = (params["embed"][prompt] + params["pos"][:tp]).to(
             cfg.compute_dtype)
         if cfg.rope:
@@ -873,17 +1122,19 @@ def _decode_builder(cfg: TransformerConfig):
             if cfg.rope:
                 q = _apply_rope(q, cos, sin)
                 k_r = _apply_rope(k_r, cos, sin)
-            caches[i, :, :, :tp] = torch.stack([
+            rows = torch.stack([
                 k_r.transpose(1, 2).reshape(b, tp, -1),
                 v_r.transpose(1, 2).reshape(b, tp, -1),
-            ]).to(caches.dtype)
+            ])
+            for buf, vals in _row_values(caches, rows):
+                buf[i, :, :, :tp] = vals
             k_h, v_h = _expand_kv(cfg, k_r, v_r)
             if use_flash:
                 o = flash_attention(q, k_h, v_h, causal=True)
             else:
                 o = attention(q, k_h, v_h, causal=True, layout="bhtd")
-            x = x + o.transpose(1, 2).reshape(b, tp, -1) @ p["wo"].to(
-                x.dtype).reshape(cfg.n_heads * kd, -1)
+            x = x + o.transpose(1, 2).reshape(b, tp, -1) @ _w(
+                p, "wo", x.dtype).reshape(cfg.n_heads * kd, -1)
             h_in = _layer_norm(x, p["ln2_scale"], p["ln2_bias"])
             x = x + _mlp(p, h_in)
         if last_idx is None:
@@ -893,7 +1144,7 @@ def _decode_builder(cfg: TransformerConfig):
         else:
             x_last = x[:, int(last_idx)]
         x_last = _layer_norm(x_last, params["lnf_scale"], params["lnf_bias"])
-        return caches, _head_logits(x_last, params["head"])
+        return caches, _head_logits(x_last, _w(params, "head", x_last.dtype))
 
     return forward_one, init_caches, prefill, cast_params
 

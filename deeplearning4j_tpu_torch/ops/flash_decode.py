@@ -1,25 +1,36 @@
-"""Flash decode attention over the packed, stacked KV cache: the
-hand-written CUDA kernel (``csrc/flash_decode.cu``) and its plain PyTorch
-version.
+"""Flash decode attention over the packed, stacked KV cache (kernel #3) and
+over a block-paged pool (kernel #4): the hand-written CUDA kernels
+(``csrc/flash_decode.cu``) and their plain PyTorch versions.
 
 Replaces ``_flash_decode_kernel`` (deeplearning4j_tpu/ops/pallas_kernels.py
-:502, launched by ``flash_decode_attention`` :645) in its bf16/f32 mode. The
-reference calls it from ``block_decode`` (models/transformer.py:1066) in
-every decode substep of every layer; the int8 mode (``kv_scales``) is not on
-this slice's path and is not ported here.
+:502, launched by ``flash_decode_attention`` :645) in its bf16/f32 mode and
+its int8 mode (``kv_scales``), and ``_paged_decode_kernel`` (:783, launched
+by ``flash_decode_attention_paged`` :794) in both modes. The reference
+calls the slab kernel from ``block_decode`` (models/transformer.py:1066) in
+every decode substep of every layer; the port's paged decode step calls the
+paged kernel the same way (the reference's own engine gathers a slab view
+and runs the slab kernel instead).
 
-What bounds it on the H100, and what the design does: HBM bytes. A call must
-read the visible K and V rows of one layer, ``sum_b (pos[b]+1) * Hkv*K * 2``
-elements, at a few flops per element. The kernel streams every visible row
-once per (batch row, KV head) block, serves all G query heads of the group
-from one read (the reference's GQA fold), reads layer ``layer`` straight out
-of the stacked buffer through strides (no slice copy), and never touches a
-tile past ``pos[b]``. Its grid is only B x Hkv blocks (48 at 8 slots x 6
-heads on a 132-SM card); splitting T across blocks is the first redesign
-item.
+What bounds them on the H100, and what the design does: HBM bytes. A call
+must read the visible K and V rows of one layer (int8 mode: one byte an
+element plus a 4-byte scale a row; paged: plus the table ints) at a few
+operations per element. Every visible row is streamed once per block, layer
+``layer`` is read straight out of the stacked buffer through strides (no
+slice copy), and no tile past ``pos[b]`` is touched. bf16/f32 mode runs a
+block per (batch row, KV head), 48 at 8 slots x 6 heads; int8 mode a block
+per batch row (8 blocks), because its softmax-weight scale spans every head
+of a tile. Neither grid fills a 132-SM card; splitting T across blocks is
+the first redesign item.
 
-Dispatch: a CPU tensor runs :func:`flash_decode_attention_plain`; a CUDA
-tensor launches the kernel or raises. There is no fallback between them.
+The tile is part of the function in int8 mode (one softmax-weight scale per
+tile), so the functions take ``block_t``: the kernels are built for
+:data:`TILE` rows and raise ``ValueError`` for another; the plain versions
+take any multiple of 8. The paged kernel tiles at :data:`TILE` rows for any
+block size, so over a pool it is bitwise the slab kernel over the gathered
+slab.
+
+Dispatch: a CPU tensor runs the plain version; a CUDA tensor launches the
+kernel or raises. There is no fallback between them.
 """
 
 from __future__ import annotations
@@ -31,16 +42,26 @@ import torch
 
 from deeplearning4j_tpu_torch.ops import _build
 
-#: kernel launches since the last reset (counted where the kernel launches)
+#: launches since the last reset, counted where each kernel launches:
+#: kernel #3 in bf16/f32 mode, kernel #3 in int8 mode, kernel #4 (both
+#: modes)
 launches = 0
+int8_launches = 0
+paged_launches = 0
+
+#: cache rows per online-softmax step of the CUDA kernels (``DT`` in
+#: csrc/flash_decode.cu), the plain versions' default tile
+TILE = 64
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 256
+#: int8 mode keeps the G x Hkv softmax lanes of a batch row in one block
+_MAX_INT8_LANES = 64
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    global launches, int8_launches, paged_launches
+    launches = int8_launches = paged_launches = 0
 
 
 def _pos_vector(pos, b: int, device) -> torch.Tensor:
@@ -54,20 +75,101 @@ def _pos_vector(pos, b: int, device) -> torch.Tensor:
     return torch.full((b,), int(pos), dtype=torch.int32, device=device)
 
 
+def _tile(block_t) -> int:
+    bt = TILE if block_t is None else int(block_t)
+    if bt <= 0 or bt % 8:
+        raise ValueError(f"block_t must be a positive multiple of 8, got "
+                         f"{block_t}")
+    return bt
+
+
+def _quant8(x: torch.Tensor) -> torch.Tensor:
+    """Round half to even and clip to +-127 (the values, kept in x's
+    float dtype)."""
+    return torch.clamp(torch.round(x), -127, 127)
+
+
+def _div127(x: torch.Tensor) -> torch.Tensor:
+    """x / 127 rounded as one IEEE division, on every device. On CUDA,
+    PyTorch divides by a Python number by multiplying with its reciprocal,
+    which is off in the last bit for some x; the scales then quantize q and
+    the softmax weights differently from the kernel (and the reference)."""
+    return x / torch.full((), 127.0, device=x.device)
+
+
+def _plain_int8(q, kv8, scales, p, n_kv_heads: int, layer: int,
+                block_t: int) -> torch.Tensor:
+    """The reference's quantized arithmetic (pallas_kernels.py:576-642),
+    tile by tile. Integer dot products are exact (summed in f64, cast to
+    f32 as the reference casts its int32 sums)."""
+    b, g, hk = q.shape
+    t = kv8.shape[3]
+    kd = hk // n_kv_heads
+    scale = torch.tensor(1.0 / math.sqrt(kd), dtype=torch.float32)
+    qf = q.float()
+    # one q scale per group over ALL heads
+    qsc = _div127(qf.abs().amax(-1, keepdim=True).clamp_min(1e-8))
+    qi = _quant8(qf / qsc).reshape(b, g, n_kv_heads, kd).double()
+    qsc = qsc[..., None]  # (B, G, 1, 1)
+    k8 = kv8[layer, 0].reshape(b, t, n_kv_heads, kd)
+    v8 = kv8[layer, 1].reshape(b, t, n_kv_heads, kd)
+    ksc = scales[layer, 0, :, :, 0] * scale  # (B, T): ksc * scale
+    vsc = scales[layer, 1, :, :, 0]
+    m = torch.full((b, g, n_kv_heads), float("-inf"), device=q.device)
+    l = torch.zeros((b, g, n_kv_heads), device=q.device)
+    acc = torch.zeros((b, g, n_kv_heads, kd), device=q.device)
+    rows = torch.arange(t, device=q.device)
+    for t0 in range(0, t, block_t):
+        t1 = min(t0 + block_t, t)
+        dots = torch.einsum("bghk,bthk->bght", qi,
+                            k8[:, t0:t1].double()).float()
+        s = dots * ksc[:, None, None, t0:t1] * qsc
+        s = s.masked_fill((rows[t0:t1][None] > p[:, None])[:, None, None],
+                          float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1))
+        pr = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l_new = corr * l + pr.sum(-1)
+        # one softmax-weight scale per (batch row, tile) over every row
+        # and every (g, h) lane
+        pv = pr * vsc[:, None, None, t0:t1]
+        psc = _div127(pv.amax(dim=(1, 2, 3)).clamp_min(1e-30))[
+            :, None, None, None]
+        p8 = _quant8(pv / psc)
+        o = torch.einsum("bght,bthk->bghk", p8.double(),
+                         v8[:, t0:t1].double()).float()
+        acc_new = acc * corr[..., None] + o * psc
+        # tiles past pos[b] are never read
+        live = (t0 <= p)[:, None, None]
+        m = torch.where(live, m_new, m)
+        l = torch.where(live, l_new, l)
+        acc = torch.where(live[..., None], acc_new, acc)
+    o = acc / l.clamp_min(1e-30)[..., None]
+    return o.reshape(b, g, hk).to(q.dtype)
+
+
 def flash_decode_attention_plain(q: torch.Tensor, kvcache: torch.Tensor,
-                                 pos, n_kv_heads: int, layer: int = 0
+                                 pos, n_kv_heads: int, layer: int = 0,
+                                 block_t: int | None = None,
+                                 kv_scales: torch.Tensor | None = None
                                  ) -> torch.Tensor:
-    """Plain version of the kernel, same signature and layouts: q
+    """Plain version of kernel #3, same signature and layouts: q
     (B, G, Hkv*K), kvcache (n_layers, 2, B, T, Hkv*K), pos scalar or (B,)
     -> (B, G, Hkv*K) in q's dtype.
 
-    f32 scores (scale applied after the dot, as the reference does), rows
-    past ``pos[b]`` masked, f32 softmax, probabilities cast to the cache
-    dtype for the PV product with f32 accumulation."""
+    bf16/f32 mode: f32 scores (scale applied after the dot, as the
+    reference does), rows past ``pos[b]`` masked, f32 softmax against the
+    row max, probabilities cast to the cache dtype for the PV product with
+    f32 accumulation (``block_t`` changes nothing here). int8 mode
+    (``kv_scales`` (n_layers, 2, B, T, 1) f32 beside an int8 cache): the
+    reference's quantized online softmax over ``block_t``-row tiles."""
     b, g, hk = q.shape
     t = kvcache.shape[3]
     kd = hk // n_kv_heads
+    bt = _tile(block_t)
     p = _pos_vector(pos, b, q.device).long()
+    if kv_scales is not None:
+        return _plain_int8(q, kvcache, kv_scales, p, n_kv_heads, layer, bt)
     k = kvcache[layer, 0].reshape(b, t, n_kv_heads, kd).float()
     v = kvcache[layer, 1].reshape(b, t, n_kv_heads, kd)
     qh = q.reshape(b, g, n_kv_heads, kd).float()
@@ -83,79 +185,200 @@ def flash_decode_attention_plain(q: torch.Tensor, kvcache: torch.Tensor,
     return o.reshape(b, g, hk).to(q.dtype)
 
 
-def _check_cuda_args(q, kvcache, n_kv_heads, layer):
-    if q.dim() != 3 or kvcache.dim() != 5:
-        raise ValueError(
-            f"flash_decode_attention needs q (B, G, Hkv*K) and kvcache "
-            f"(n_layers, 2, B, T, Hkv*K), got {tuple(q.shape)}, "
-            f"{tuple(kvcache.shape)}"
-        )
+def _gather_rows(x: torch.Tensor, tables: torch.Tensor, layer: int):
+    """Layer ``layer`` of a block pool (n_layers, 2, n_blocks, bs, W) as the
+    contiguous (1, 2, B, bps*bs, W) slab its (B, bps) tables name."""
+    b, bps = tables.shape
+    v = x[layer][:, tables.reshape(-1).long()]
+    return v.reshape(1, 2, b, bps * x.shape[3], x.shape[4])
+
+
+def flash_decode_attention_paged_plain(
+    q: torch.Tensor, blocks: torch.Tensor, tables: torch.Tensor, pos,
+    n_kv_heads: int, layer: int = 0, block_t: int | None = None,
+    block_scales: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Plain version of kernel #4: gather the rows the tables name (row t
+    of batch row b is ``blocks[layer, :, tables[b, t // bs], t % bs]``) and
+    run :func:`flash_decode_attention_plain` on that slab, so it is bitwise
+    the slab plain version over the gathered cache."""
+    kv = _gather_rows(blocks, tables, layer)
+    sc = (None if block_scales is None
+          else _gather_rows(block_scales, tables, layer))
+    return flash_decode_attention_plain(q, kv, pos, n_kv_heads, 0, block_t,
+                                        sc)
+
+
+# -- CUDA ----------------------------------------------------------------------
+
+def _check_common(q, n_kv_heads: int, kv_scales, what: str):
+    if q.dim() != 3:
+        raise ValueError(f"{what} needs q (B, G, Hkv*K), got "
+                         f"{tuple(q.shape)}")
     b, g, hk = q.shape
-    nl, two, cb, _, chk = kvcache.shape
-    if two != 2 or cb != b or chk != hk:
-        raise ValueError(
-            f"kvcache {tuple(kvcache.shape)} does not match q "
-            f"{tuple(q.shape)}"
-        )
     if hk % n_kv_heads or hk // n_kv_heads > _MAX_HEAD_DIM:
         raise ValueError(
             f"Hkv*K = {hk} with {n_kv_heads} KV heads: head_dim must divide "
             f"it and be <= {_MAX_HEAD_DIM}"
         )
-    if not 0 <= layer < nl:
-        raise ValueError(f"layer {layer} outside the {nl}-layer cache")
-    if q.dtype != kvcache.dtype or q.dtype not in _DTYPES:
-        raise TypeError(
-            f"flash_decode_attention takes f32 or bf16 q and cache of one "
-            f"dtype, got {q.dtype}, {kvcache.dtype}"
-        )
-    if q.device != kvcache.device:
-        raise ValueError("q and kvcache must be on the same device")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"{what} takes f32 or bf16 q, got {q.dtype}")
     if q.device.index != torch.cuda.current_device():
         raise ValueError(
-            f"flash_decode_attention launches on the current device "
+            f"{what} launches on the current device "
             f"(cuda:{torch.cuda.current_device()}), got tensors on {q.device}"
         )
-    if not q.is_contiguous() or not kvcache.is_contiguous():
-        raise ValueError("flash_decode_attention needs contiguous q and "
-                         "kvcache")
+    if kv_scales is not None and ((hk // n_kv_heads) % 4
+                                  or g * n_kv_heads > _MAX_INT8_LANES):
+        raise ValueError(
+            f"{what} int8 mode needs head_dim % 4 == 0 and G * Hkv <= "
+            f"{_MAX_INT8_LANES}, got head_dim {hk // n_kv_heads}, "
+            f"G * Hkv {g * n_kv_heads}"
+        )
 
 
-def _kernel():
+def _check_store(q, store, scales, what: str) -> None:
+    """The cache or block pool (n_layers, 2, N, R, Hkv*K), and its scale
+    planes (n_layers, 2, N, R, 1) f32 in int8 mode."""
+    if store.dim() != 5 or store.shape[1] != 2 or store.shape[4] != q.shape[2]:
+        raise ValueError(f"{what}: cache {tuple(store.shape)} does not match "
+                         f"q {tuple(q.shape)}")
+    if scales is None:
+        if store.dtype != q.dtype:
+            raise TypeError(f"{what} takes q and cache of one dtype, got "
+                            f"{q.dtype}, {store.dtype}")
+    else:
+        if store.dtype != torch.int8 or scales.dtype != torch.float32:
+            raise TypeError(f"{what} int8 mode takes an int8 cache and f32 "
+                            f"scales, got {store.dtype}, {scales.dtype}")
+        if tuple(scales.shape) != tuple(store.shape[:4]) + (1,):
+            raise ValueError(f"{what}: scales {tuple(scales.shape)} do not "
+                             f"match the cache {tuple(store.shape)}")
+    for x in (store,) + (() if scales is None else (scales,)):
+        if x.device != q.device:
+            raise ValueError(f"{what}: every operand must be on {q.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{what} needs contiguous operands")
+    if not q.is_contiguous():
+        raise ValueError(f"{what} needs a contiguous q")
+
+
+def _kernel(name: str, n_ptrs: int, n_ints: int):
     lib = _build.library("flash_decode")
-    fn = lib.dl4j_flash_decode
+    fn = getattr(lib, name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    return lib, fn
+    tile = lib.dl4j_flash_decode_tile
+    tile.argtypes, tile.restype = [], ctypes.c_int
+    return lib, fn, tile()
 
 
-def _launch(q, kvcache, pos, n_kv_heads, layer):
-    global launches
-    _check_cuda_args(q, kvcache, n_kv_heads, layer)
+def _check_tile(block_t, built: int) -> None:
+    if block_t is not None and int(block_t) != built:
+        raise ValueError(f"the CUDA decode kernels are built for block_t = "
+                         f"{built} rows, got {block_t}")
+
+
+def _launch(q, kvcache, pos, n_kv_heads, layer, block_t=None,
+            kv_scales=None):
+    global launches, int8_launches
+    what = "flash_decode_attention"
+    _check_common(q, n_kv_heads, kv_scales, what)
+    _check_store(q, kvcache, kv_scales, what)
     b, g, hk = q.shape
+    if kvcache.shape[2] != b:
+        raise ValueError(f"{what}: cache batch {kvcache.shape[2]} != q batch "
+                         f"{b}")
+    if not 0 <= layer < kvcache.shape[0]:
+        raise ValueError(f"layer {layer} outside the {kvcache.shape[0]}-layer "
+                         f"cache")
+    lib, fn, built = _kernel("dl4j_flash_decode", 5, 6)
+    _check_tile(block_t, built)
     kd = hk // n_kv_heads
     p = _pos_vector(pos, b, q.device)
-    lib, fn = _kernel()
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), kvcache.data_ptr(), p.data_ptr(), out.data_ptr(),
-             b, g, n_kv_heads, kd, kvcache.shape[3], layer,
-             1.0 / math.sqrt(kd), _DTYPES[q.dtype], stream)
-    _build.check(lib, err, "flash_decode")
-    launches += 1
+    int8 = kv_scales is not None
+    err = fn(q.data_ptr(), kvcache.data_ptr(),
+             kv_scales.data_ptr() if int8 else None, p.data_ptr(),
+             out.data_ptr(), b, g, n_kv_heads, kd, kvcache.shape[3], layer,
+             1.0 / math.sqrt(kd), _DTYPES[q.dtype], int(int8), stream)
+    _build.check(lib, err, what)
+    if int8:
+        int8_launches += 1
+    else:
+        launches += 1
+    return out
+
+
+def _launch_paged(q, blocks, tables, pos, n_kv_heads, layer, block_t=None,
+                  block_scales=None):
+    global paged_launches
+    what = "flash_decode_attention_paged"
+    _check_common(q, n_kv_heads, block_scales, what)
+    _check_store(q, blocks, block_scales, what)
+    b, g, hk = q.shape
+    if (tables.dim() != 2 or tables.shape[0] != b
+            or tables.dtype != torch.int32 or tables.device != q.device
+            or not tables.is_contiguous()):
+        raise ValueError(f"{what} needs contiguous int32 tables (B, bps) on "
+                         f"{q.device}, got {tuple(tables.shape)} "
+                         f"{tables.dtype} on {tables.device}")
+    if not 0 <= layer < blocks.shape[0]:
+        raise ValueError(f"layer {layer} outside the {blocks.shape[0]}-layer "
+                         f"pool")
+    lib, fn, built = _kernel("dl4j_flash_decode_paged", 6, 8)
+    _check_tile(block_t, built)
+    kd = hk // n_kv_heads
+    p = _pos_vector(pos, b, q.device)
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    int8 = block_scales is not None
+    err = fn(q.data_ptr(), blocks.data_ptr(),
+             block_scales.data_ptr() if int8 else None, tables.data_ptr(),
+             p.data_ptr(), out.data_ptr(), b, g, n_kv_heads, kd,
+             blocks.shape[2], blocks.shape[3], tables.shape[1], layer,
+             1.0 / math.sqrt(kd), _DTYPES[q.dtype], int(int8), stream)
+    _build.check(lib, err, what)
+    paged_launches += 1
     return out
 
 
 def flash_decode_attention(q: torch.Tensor, kvcache: torch.Tensor, pos,
-                           n_kv_heads: int, layer: int = 0) -> torch.Tensor:
+                           n_kv_heads: int, layer: int = 0,
+                           block_t: int | None = None,
+                           kv_scales: torch.Tensor | None = None
+                           ) -> torch.Tensor:
     """One decode step of causal attention against the packed stacked
     cache (the reference's public layouts; see the module doc). ``pos`` is
-    an int, a 0-d tensor, or a (B,) int tensor of per-row positions."""
+    an int, a 0-d tensor, or a (B,) int tensor of per-row positions;
+    ``kv_scales`` selects int8 mode."""
     if q.device.type == "cpu":
         return flash_decode_attention_plain(q, kvcache, pos, n_kv_heads,
-                                            layer)
+                                            layer, block_t, kv_scales)
     if q.device.type == "cuda":
-        return _launch(q, kvcache, pos, n_kv_heads, layer)
+        return _launch(q, kvcache, pos, n_kv_heads, layer, block_t,
+                       kv_scales)
     raise ValueError(f"flash_decode_attention: unsupported device {q.device}")
+
+
+def flash_decode_attention_paged(q: torch.Tensor, blocks: torch.Tensor,
+                                 tables: torch.Tensor, pos, n_kv_heads: int,
+                                 layer: int = 0, block_t: int | None = None,
+                                 block_scales: torch.Tensor | None = None
+                                 ) -> torch.Tensor:
+    """One decode step against a block-paged pool: ``blocks`` (n_layers, 2,
+    n_blocks, bs, Hkv*K), ``tables`` (B, T/bs) int32 block ids (0 is the
+    all-zero sentinel), ``block_scales`` (n_layers, 2, n_blocks, bs, 1) f32
+    in int8 mode. The same function as :func:`flash_decode_attention` over
+    the gathered slab."""
+    if q.device.type == "cpu":
+        return flash_decode_attention_paged_plain(
+            q, blocks, tables, pos, n_kv_heads, layer, block_t, block_scales)
+    if q.device.type == "cuda":
+        return _launch_paged(q, blocks, tables, pos, n_kv_heads, layer,
+                             block_t, block_scales)
+    raise ValueError(
+        f"flash_decode_attention_paged: unsupported device {q.device}")

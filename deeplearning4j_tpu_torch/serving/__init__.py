@@ -1,7 +1,10 @@
-"""Continuous-batching serving for the port: slot pool, scheduler,
-engine, metrics and the HTTP server."""
+"""Continuous-batching serving for the port: slot and block-paged pools,
+scheduler, engine, metrics and the HTTP server."""
 
-from deeplearning4j_tpu_torch.serving.cache_pool import KVSlotPool
+from deeplearning4j_tpu_torch.serving.cache_pool import (
+    KVSlotPool,
+    PagedKVPool,
+)
 from deeplearning4j_tpu_torch.serving.engine import ServingEngine
 from deeplearning4j_tpu_torch.serving.metrics import ServingMetrics
 from deeplearning4j_tpu_torch.serving.scheduler import (
@@ -14,7 +17,7 @@ from deeplearning4j_tpu_torch.serving.scheduler import (
 from deeplearning4j_tpu_torch.serving.server import ServingServer
 
 __all__ = [
-    "AdmissionError", "Backpressure", "KVSlotPool", "Request",
+    "AdmissionError", "Backpressure", "KVSlotPool", "PagedKVPool", "Request",
     "RequestScheduler", "RequestStatus", "ServingEngine", "ServingMetrics",
     "ServingServer",
 ]

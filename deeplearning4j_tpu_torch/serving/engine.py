@@ -38,29 +38,51 @@ by Gumbel-max with noise that is a pure function of (slot seed, position),
 so a stream does not depend on batch composition or K. It is not the
 reference's threefry stream.
 
-Left for later slices: parity probes, paged KV, the prefix cache,
-piggyback, the grammar/sampling surface, LoRA, tensor parallelism,
-disaggregated prefill and crash replay.
+int8 serving needs nothing of the engine: a quantized params tree
+(``quantize_decode_params``) and ``decode_int8`` make the pooled cache the
+int8 ``{"kv", "scale"}`` dict, which every program here takes leafwise.
+
+Block-paged KV (``paged=True``): the pool is a ``PagedKVPool`` of fixed-size
+blocks with per-slot int32 tables. Admission allocates ``ceil((prompt +
+max_new) / block_size)`` blocks (a request waits in the queue while they do
+not fit). In both layouts a prompt is prefilled at batch 1 into a slab the
+pool hands out and the pool then lands it: the slab pool hands out the
+slot's own rows, the paged pool a scratch slab it scatters into the slot's
+blocks. The paged decode step writes through the tables and runs the paged
+decode kernel on the pool. The pool uploads its device copy of the tables
+whenever they changed, between horizons, never inside one. Paging is
+gated, as in the reference, by a one-time probe (``paged_parity="auto"``):
+three decode steps over shuffled tables with an aliased block must give
+logits bitwise equal to the slab step's, or the engine logs
+``paged_parity_probe_failed`` and serves from slabs. An exception in the
+probe propagates.
+
+Left for later slices: the prefix cache, piggyback, the grammar/sampling
+surface, LoRA, tensor parallelism, disaggregated prefill and crash replay.
 """
 
 from __future__ import annotations
 
+import logging
 import threading
 import time
 
 import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch.device import resolve_device
+from deeplearning4j_tpu_torch.device import resolve_device, upload
 from deeplearning4j_tpu_torch.models.transformer import (
     TransformerConfig,
     _chunk_builder,
     _decode_builder,
+    _kv_planes,
     _top_k_filter,
     check_supported,
+    kv_map,
+    paged_slot_scatter,
     params_to,
 )
-from deeplearning4j_tpu_torch.serving.cache_pool import KVSlotPool
+from deeplearning4j_tpu_torch.serving.cache_pool import KVSlotPool, PagedKVPool
 from deeplearning4j_tpu_torch.serving.metrics import ServingMetrics
 from deeplearning4j_tpu_torch.serving.scheduler import (
     AdmissionError,
@@ -78,6 +100,8 @@ PREFILL_MAX_BUCKET = 128
 RESULTS_CAP = 1024
 
 _M32 = 0xFFFFFFFF
+
+_log = logging.getLogger(__name__)
 
 
 def _mul32(x, c: int):
@@ -127,8 +151,9 @@ def build_step_program(fwd1, horizon: int, temperature: float,
                 toks = (filt / temperature + noise).argmax(dim=-1).to(
                     torch.int32)
             # inactive slots decode token 0 at their frozen position; the
-            # row they write stays in their own slab and the next
-            # admission rewrites the whole slab
+            # row they write stays in their own slab (paged: their blocks,
+            # or the re-zeroed sentinel) and the next admission rewrites
+            # the whole slab
             toks = torch.where(active, toks, 0)
             logits, caches = fwd1(params, caches, toks, pos)
             pos = torch.where(active, pos + 1, pos)
@@ -151,7 +176,7 @@ def build_deact_program():
 
 
 def build_insert_program():
-    """Seat a slot's device state after its slab holds the prompt: pending
+    """Seat a slot's device state after its rows hold the prompt: pending
     logits row, position, active bit, budget and EOS id."""
 
     def insert(caches, logits, pos, active, budget, eos, lg, slot: int,
@@ -167,20 +192,14 @@ def build_insert_program():
 
 
 def build_prefill_program(do_prefill):
-    """Admission for one prompt bucket: zero the slot's slab (no row of the
-    previous occupant survives), prefill the padded prompt at batch 1
-    straight into it, and seat the slot state. ``last_idx`` is the true
-    last prompt row; the padded rows are causally invisible to it."""
-    insert = build_insert_program()
+    """Admission for one prompt bucket: prefill the padded prompt into a
+    batch-1 slab (written in place); returns the (1, V) logits at
+    ``last_idx``, the true last prompt row (the padded rows are causally
+    invisible to it)."""
 
-    def prefill(caches, logits, pos, active, budget, eos, params, prompt,
-                last_idx: int, slot: int, pos0: int, max_new: int,
-                eos_tok: int):
-        slab = caches[:, :, slot:slot + 1]
-        slab.zero_()
+    def prefill(params, slab, prompt, last_idx: int):
         _, lg = do_prefill(params, slab, prompt, last_idx=last_idx)
-        return insert(caches, logits, pos, active, budget, eos, lg, slot,
-                      pos0, max_new, eos_tok)
+        return slab, lg
 
     return prefill
 
@@ -232,7 +251,11 @@ class ServingEngine:
     Sampling settings are engine-wide; ``temperature=0`` decodes greedily.
     ``decode_horizon`` (K) decode steps are fused into one dispatch.
     Prompts are padded to power-of-two buckets up to
-    ``PREFILL_MAX_BUCKET`` and chunked beyond it.
+    ``PREFILL_MAX_BUCKET`` and chunked beyond it. ``paged`` stores the KV
+    cache in ``block_size``-row blocks (default 8; a size that does not
+    divide Tpad disables paging) once the parity probe passes;
+    ``paged_parity=True`` trusts the layout without the probe. Serving
+    from slabs is ``paged=False``.
     """
 
     def __init__(
@@ -248,6 +271,9 @@ class ServingEngine:
         scheduler: RequestScheduler | None = None,
         rng_seed: int = 0,
         device=None,
+        paged: bool = False,
+        block_size: int | None = None,
+        paged_parity: bool | str = "auto",
     ):
         check_supported(cfg)
         self.device = resolve_device(device)
@@ -258,10 +284,36 @@ class ServingEngine:
         self.top_k = top_k
         self.decode_horizon = max(1, int(decode_horizon))
 
-        fwd1, _, do_prefill, cast_params = _decode_builder(cfg)
+        fwd1, init_caches, do_prefill, cast_params = _decode_builder(cfg)
+        self._fwd1, self._init_caches = fwd1, init_caches
+        self._do_prefill = do_prefill
         # one-time weight cast: every step reads the compute-dtype weights
+        # (int8 leaves and their scales stay as they are)
         self.params = cast_params(params_to(params, self.device))
-        self.pool = KVSlotPool(cfg, n_slots, self.max_total, self.device)
+
+        if paged_parity not in ("auto", True):
+            raise ValueError(f'paged_parity is "auto" or True, got '
+                             f'{paged_parity!r}')
+        self._paged = False
+        self._block_size = int(block_size or 8)
+        if paged:
+            tpad = _kv_planes(init_caches(
+                1, self.max_total, torch.device("meta")))[0].shape[3]
+            if self._block_size > tpad or tpad % self._block_size:
+                _log.warning("paged_disabled_bad_block_size block_size=%d "
+                             "tpad=%d", self._block_size, tpad)
+            elif (paged_parity is True
+                  or self._probe_paged_parity(self._block_size)):
+                self._paged = True
+            else:
+                _log.warning("paged_parity_probe_failed block_size=%d",
+                             self._block_size)
+        if self._paged:
+            self.pool = PagedKVPool(cfg, n_slots, self.max_total,
+                                    self.device,
+                                    block_size=self._block_size)
+        else:
+            self.pool = KVSlotPool(cfg, n_slots, self.max_total, self.device)
         # NOT `scheduler or ...`: an empty scheduler is falsy (__len__)
         self.scheduler = scheduler if scheduler is not None else (
             RequestScheduler(max_total_tokens=self.max_total)
@@ -279,6 +331,20 @@ class ServingEngine:
         reg.gauge("serve_kv_occupancy",
                   "Active fraction of the KV slot pool.").set_function(
             lambda: self.pool.occupancy)
+        if self._paged:
+            reg.gauge("serve_kv_blocks",
+                      "Allocatable KV blocks in the paged pool (sentinel "
+                      "excluded).").set_function(
+                lambda: self.pool.n_blocks - 1)
+            reg.gauge("serve_kv_blocks_free",
+                      "KV blocks on the paged pool's free heap."
+                      ).set_function(lambda: self.pool.n_free_blocks)
+            reg.gauge("serve_kv_blocks_in_use",
+                      "KV blocks held by slot tables.").set_function(
+                lambda: self.pool.n_blocks_in_use)
+            reg.gauge("serve_kv_block_size",
+                      "Rows per KV block (paged layout granule)."
+                      ).set_function(lambda: self.pool.block_size)
 
         # power-of-two prompt buckets: the largest respects the positional
         # table and the slab row count
@@ -319,13 +385,10 @@ class ServingEngine:
         self.prefill_dispatches = 0
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
-        """A host array on the engine's device. On CUDA the copy goes
-        through pinned memory without blocking: a pageable upload would
-        wait for every horizon queued ahead of it and stall the pipeline."""
-        t = torch.from_numpy(arr)
-        if self.device.type != "cuda":
-            return t
-        return t.pin_memory().to(self.device, non_blocking=True)
+        """A host array on the engine's device, pinned and non-blocking on
+        CUDA (a pageable upload would wait for every horizon queued ahead
+        of it)."""
+        return upload(arr, self.device)
 
     # -- buckets -------------------------------------------------------------
 
@@ -487,41 +550,52 @@ class ServingEngine:
     # -- admission -----------------------------------------------------------
 
     def _state(self):
-        return (self.pool.caches, self._logits, self._dpos, self._dactive,
+        return (self.pool.operand(), self._logits, self._dpos, self._dactive,
                 self._dbudget, self._deos)
+
+    def _paged_ensure_blocks(self, slot: int, n_tokens: int) -> None:
+        """Grow ``slot``'s block coverage to ``n_tokens`` rows (clamped to
+        Tpad) with fresh private blocks; a no-op when covered."""
+        n_tokens = min(int(n_tokens), self.pool.tpad)
+        need = self.pool.blocks_needed(n_tokens)
+        have = int(np.count_nonzero(self.pool.table(slot)))
+        if need > have:
+            self.pool.alloc_slot_blocks(slot, n_tokens, start=have)
+
+    def _admissible(self, req: Request) -> bool:
+        """Paged admission gate: the request's blocks fit the free heap."""
+        return self.pool.can_admit(len(req.prompt) + req.max_new)
 
     def _prefill_into_slot(self, seq: np.ndarray, slot: int, budget: int,
                            eos_tok: int) -> None:
-        """Land ``seq`` in ``slot`` through the bucketed prefill path and
-        seat the slot's device state: one dispatch for a bucket-sized
-        prompt, one per chunk beyond the largest bucket."""
+        """Land ``seq`` in ``slot`` and seat the slot's device state: the
+        prompt is prefilled at batch 1 into the slab the pool hands out,
+        one dispatch for a bucket-sized prompt, one per chunk beyond the
+        largest bucket, and the pool lands the slab in the slot's rows.
+        Paged: the slot's blocks (every row it can write) are allocated
+        first."""
         n = int(len(seq))
-        dev = self.device
-        if n == 0:
-            # empty prompt: decode starts from uniform logits over a
-            # zeroed slab
-            self.pool.slab(slot).zero_()
-            lg = torch.zeros((1, self.cfg.vocab_size), dtype=torch.float32,
-                             device=dev)
-            self._insert_fn(*self._state(), lg, slot, 0, budget, eos_tok)
-            return
-        if n <= self._max_bucket:
-            b = self._bucket_for(n)
-            pad = np.zeros((1, b), np.int64)
+        if self._paged:
+            self._paged_ensure_blocks(slot, n + budget)
+        slab = self.pool.prefill_slab(slot)
+        if n and n <= self._max_bucket:
+            pad = np.zeros((1, self._bucket_for(n)), np.int64)
             pad[0, :n] = seq
+            slab, lg = self._prefill_fn(self.params, slab, self._upload(pad),
+                                        n - 1)
             self.prefill_dispatches += 1
-            self._prefill_fn(*self._state(), self.params, self._upload(pad),
-                             n - 1, slot, n, budget, eos_tok)
-            return
-        slab = self.pool.slab(slot)
-        slab.zero_()
-        lg = None
-        for t0, ln, b in self._chunk_schedule(n):
-            pad = np.zeros((1, b), np.int64)
-            pad[0, :ln] = seq[t0:t0 + ln]
-            slab, lg = self._chunk_fn(self.params, slab, self._upload(pad),
-                                      t0, ln - 1)
-            self.prefill_dispatches += 1
+        else:
+            # empty prompt: decode starts from uniform logits over a zeroed
+            # slab
+            lg = torch.zeros((1, self.cfg.vocab_size), dtype=torch.float32,
+                             device=self.device)
+            for t0, ln, b in (self._chunk_schedule(n) if n else ()):
+                pad = np.zeros((1, b), np.int64)
+                pad[0, :ln] = seq[t0:t0 + ln]
+                slab, lg = self._chunk_fn(self.params, slab,
+                                          self._upload(pad), t0, ln - 1)
+                self.prefill_dispatches += 1
+        self.pool.land(slot, slab)
         self._insert_fn(*self._state(), lg, slot, n, budget, eos_tok)
 
     def _seat(self, req: Request, slot: int, prefill_s: float) -> None:
@@ -539,10 +613,11 @@ class ServingEngine:
         """Pop queued requests into free slots, in order, one prefill each.
         A failure mid-admission requeues the popped request (it is never
         dropped between pop and seating)."""
+        admissible = self._admissible if self._paged else None
         while self.pool.n_free and len(self.scheduler):
             self._admitting += 1
             try:
-                req = self.scheduler.pop()
+                req = self.scheduler.pop(admissible=admissible)
                 if req is None:
                     return
                 if req.cancelled:
@@ -566,6 +641,60 @@ class ServingEngine:
             finally:
                 self._admitting -= 1
 
+    # -- paged parity probe ------------------------------------------------------
+
+    @torch.no_grad()
+    def _probe_paged_parity(self, block_size: int) -> bool:
+        """One-time probe gating the paged layout (the reference's
+        ``_probe_paged_parity``, engine.py:3640): does the paged decode step
+        reproduce the slab step's logits bitwise? Both legs run batch 2
+        over the same prefilled rows, the paged one through SHUFFLED tables
+        with one block ALIASED by both rows, for 3 greedy steps. Runs on
+        scratch state before the pool exists. The probe's cache is at least
+        one block long (the reference's is 32 rows, which refuses a block
+        size above 32)."""
+        total = int(min(self.max_total, max(32, block_size)))
+        n = min(8, total - 4)
+        if n < 1:
+            return False
+        dev = self.device
+        seq = ((1 + np.arange(n)) % self.cfg.vocab_size)[None]
+        tmp = self._init_caches(1, total, dev)
+        _, lg = self._do_prefill(self.params, tmp,
+                                 torch.from_numpy(seq).to(dev))
+        kv, _ = _kv_planes(tmp)
+        tpad = kv.shape[3]
+        if tpad % block_size:
+            return False
+        bps = tpad // block_size
+        # slab leg: the prefilled slab in both rows of a 2-slot cache
+        slab = self._init_caches(2, total, dev)
+        for s in (0, 1):
+            kv_map(lambda c, t: c[:, :, s:s + 1].copy_(t), slab, tmp)
+        # paged leg: the same rows through shuffled tables, rows 0 and 1
+        # sharing one block
+        tables = (np.random.default_rng(0).permutation(2 * bps) + 1).reshape(
+            2, bps).astype(np.int32)
+        tables[1, 0] = tables[0, 0]
+        blocks = kv_map(lambda t: torch.zeros(
+            (t.shape[0], 2, 2 * bps + 1, block_size, t.shape[4]),
+            dtype=t.dtype, device=dev), tmp)
+        dtab = torch.from_numpy(tables).to(dev)
+        for s in (0, 1):
+            paged_slot_scatter(blocks, dtab[s], tmp)
+        paged = {"blocks": blocks, "tables": dtab}
+        slg = plg = torch.cat([lg, lg])
+        pos = torch.full((2,), n, dtype=torch.int32, device=dev)
+        for _ in range(3):
+            slg, _ = self._fwd1(self.params, slab,
+                                slg.argmax(-1).to(torch.int32), pos)
+            plg, _ = self._fwd1(self.params, paged,
+                                plg.argmax(-1).to(torch.int32), pos)
+            pos = pos + 1
+            if not torch.equal(slg, plg):
+                return False
+        return True
+
     # -- decode ----------------------------------------------------------------
 
     def _readback(self, toks: torch.Tensor):
@@ -588,9 +717,10 @@ class ServingEngine:
         seeds = (None if self.temperature == 0
                  else self._upload(self._slot_seeds.copy()))
         t_call = time.perf_counter()
-        (self.pool.caches, self._logits, self._dpos, self._dactive,
-         self._dbudget, toks) = self._step_fn(
-            self.params, self.pool.caches, self._logits, self._dpos,
+        # the caches are updated in place
+        (_, self._logits, self._dpos, self._dactive, self._dbudget,
+         toks) = self._step_fn(
+            self.params, self.pool.operand(), self._logits, self._dpos,
             self._dactive, self._dbudget, self._deos, seeds,
         )
         host, event = self._readback(toks)

@@ -171,10 +171,14 @@ class RequestScheduler:
                         n += 1
         return n
 
-    def pop(self) -> Request | None:
-        """Next request by strict priority, or None when idle."""
+    def pop(self, admissible=None) -> Request | None:
+        """Next request by strict priority, or None when idle. With
+        ``admissible`` (a predicate the engine passes, e.g. "its KV blocks
+        fit"), a class whose head fails it yields nothing and the next
+        class is tried: a blocked high-priority request must not idle the
+        engine, and FIFO order within a class is kept."""
         with self._lock:
             for q in self._queues:
-                if q:
+                if q and (admissible is None or admissible(q[0])):
                     return q.popleft()
         return None

@@ -3,10 +3,13 @@
 CUDA card.
 
     python3 scripts/torch_serve_profile.py [--horizons 12] [--out PATH]
+        [--int8 off|weights|full] [--paged [--block-size 8]]
 
 Builds the GPT-2-small serving engine of ``chip_smoke.py`` (bf16, 8 slots,
-max_total 640, K = 4, greedy, random weights from seed 0), fills every slot
-with a 128-token prompt and a budget long enough to stay in decode, then:
+max_total 640, K = 4, greedy, random weights from seed 0; ``--int8``
+quantizes the weights, ``full`` also the KV cache; ``--paged`` block-pages
+the cache), fills every slot with a 128-token prompt and a budget long
+enough to stay in decode, then:
 
 - times ``--horizons`` engine steps on the host clock (each step dispatches
   one K-substep horizon for 8 slots and reads back the previous one) and
@@ -33,7 +36,7 @@ ROOT = Path(__file__).resolve().parent.parent
 
 def _group(name: str) -> str:
     if "flash_decode" in name:
-        return "flash_decode kernel"
+        return "flash_decode kernel (#3 or #4)"
     if "flash_fwd" in name:
         return "flash_attn_fwd kernel"
     low = name.lower()
@@ -50,6 +53,12 @@ def main() -> int:
     ap.add_argument("--horizons", type=int, default=12)
     ap.add_argument("--out", default=None, metavar="PATH",
                     help="also write the numbers as JSON to PATH")
+    ap.add_argument("--int8", default="off", choices=["off", "weights", "full"],
+                    help="int8 weights over a bf16 cache, or with the int8 "
+                    "KV cache too")
+    ap.add_argument("--paged", action="store_true",
+                    help="block-paged KV cache")
+    ap.add_argument("--block-size", type=int, default=8)
     args = ap.parse_args()
 
     import numpy as np
@@ -60,16 +69,29 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from chip_smoke import gpt2s_config
-    from deeplearning4j_tpu_torch.models.transformer import init_params
+    from deeplearning4j_tpu_torch.models.transformer import (
+        init_params,
+        quantize_decode_params,
+    )
     from deeplearning4j_tpu_torch.serving import Request, ServingEngine
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
-    cfg = gpt2s_config()
-    engine = ServingEngine(cfg, init_params(cfg, seed=0), n_slots=8,
-                           max_total=640, decode_horizon=4, temperature=0.0)
+    cfg = gpt2s_config(decode_int8=args.int8 == "full")
+    params = init_params(cfg, seed=0)
+    if args.int8 != "off":
+        params = quantize_decode_params(params, cfg)
+    engine = ServingEngine(cfg, params, n_slots=8, max_total=640,
+                           decode_horizon=4, temperature=0.0,
+                           paged=args.paged, block_size=args.block_size)
+    if args.paged and not engine._paged:
+        print("torch_serve_profile: the engine did not come up paged",
+              file=sys.stderr)
+        return 1
+    mode = (f"int8 {args.int8}, " if args.int8 != "off" else "") + (
+        f"paged bs {args.block_size}" if args.paged else "slab")
     rng = np.random.default_rng(0)
     budget = 4 * (3 * args.horizons + 8)
     for _ in range(8):
@@ -118,8 +140,8 @@ def main() -> int:
     n_sub = args.horizons * k
     out = {
         "card": card,
-        "config": "GPT-2-small bf16, 8 slots, max_total 640, K=4, greedy, "
-                  "prompts 128",
+        "config": f"GPT-2-small bf16 ({mode}), 8 slots, max_total 640, K=4, "
+                  f"greedy, prompts 128",
         "horizons": args.horizons,
         "decode_tok_per_s": tok_s,
         "ms_per_substep": ms_substep,
@@ -135,6 +157,7 @@ def main() -> int:
         ],
     }
     print(f"card: {card}")
+    print(f"mode: {mode}")
     print(f"steady decode: {tok_s:.1f} tok/s, {ms_substep:.3f} ms per "
           f"substep (8 slots, K={k}, {args.horizons} horizons, host clock)")
     print(f"device busy share of the traced steps: "

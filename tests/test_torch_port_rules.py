@@ -94,25 +94,33 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
     """A CUDA tensor goes to the kernel wrapper, never to the plain version:
-    with the wrapper's launch replaced, the dispatcher must call it."""
+    with the wrapper's launch replaced, the dispatcher must call it (the
+    decode kernel in its bf16 and int8 modes, the paged decode kernel)."""
     from deeplearning4j_tpu_torch.ops import flash_attention as fa
     from deeplearning4j_tpu_torch.ops import flash_decode as fd
 
     calls = []
     monkeypatch.setattr(fa, "_launch", lambda *a: calls.append("fa"))
     monkeypatch.setattr(fa, "_launch_bwd", lambda *a: calls.append("fa_bwd"))
-    monkeypatch.setattr(fd, "_launch", lambda *a: calls.append("fd"))
+    monkeypatch.setattr(fd, "_launch", lambda *a: calls.append(
+        "fd" if a[-1] is None else "fd_int8"))
+    monkeypatch.setattr(fd, "_launch_paged", lambda *a: calls.append(
+        "fd_paged" if a[-1] is None else "fd_paged_int8"))
     monkeypatch.setattr(fa, "flash_attention_fwd_plain",
                         lambda *a: pytest.fail("plain path on CUDA"))
     monkeypatch.setattr(fa, "flash_attention_bwd_plain",
                         lambda *a: pytest.fail("plain path on CUDA"))
     monkeypatch.setattr(fd, "flash_decode_attention_plain",
                         lambda *a: pytest.fail("plain path on CUDA"))
+    monkeypatch.setattr(fd, "flash_decode_attention_paged_plain",
+                        lambda *a: pytest.fail("plain path on CUDA"))
     q = torch.empty((2, 8, 16), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         fa.flash_attention_fwd(q, q, q, True)
     with pytest.raises(ValueError, match="unsupported device"):
         fa.flash_attention_bwd(q, q, q, q, q, q, True)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fd.flash_decode_attention_paged(q, q, q, 0, 1)
 
     class FakeCuda:
         device = torch.device("cuda", 0)
@@ -120,7 +128,12 @@ def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
     fa.flash_attention_fwd(FakeCuda(), None, None, True)
     fa.flash_attention_bwd(FakeCuda(), None, None, None, None, None, True)
     fd.flash_decode_attention(FakeCuda(), None, 0, 1)
-    assert calls == ["fa", "fa_bwd", "fd"]
+    fd.flash_decode_attention(FakeCuda(), None, 0, 1, kv_scales=object())
+    fd.flash_decode_attention_paged(FakeCuda(), None, None, 0, 1)
+    fd.flash_decode_attention_paged(FakeCuda(), None, None, 0, 1,
+                                    block_scales=object())
+    assert calls == ["fa", "fa_bwd", "fd", "fd_int8", "fd_paged",
+                     "fd_paged_int8"]
 
 
 def test_chip_smoke_alone_fails(tmp_path):
