@@ -13,7 +13,11 @@ Phases, in order; any failure exits non-zero without printing a result:
    none computes int8 or paged decode). The decode kernel runs in bf16 and
    int8 mode; the paged decode kernel in both modes at block sizes 8 and
    64 over shuffled tables with an aliased block, also held BITWISE against
-   the slab kernel over the gathered slab;
+   the slab kernel over the gathered slab; the fused embedding dot (#5)
+   with its range flag at Word2Vec's batch (4,096 pairs, D 100) for L 16
+   and for phase 6's longest Huffman path, and with masked rows and dots
+   planted at 6 -+ 1e-3 (no library call computes it: the time of
+   ``torch.bmm`` for the dot alone is printed beside it);
 3. serve the GPT-2-small configuration (random weights from a seed) through
    ``ServingEngine``: about eight greedy requests, some past the 128-token
    prefill bucket, with every kernel's launch count set to 0 just before and
@@ -37,7 +41,18 @@ Phases, in order; any failure exits non-zero without printing a result:
    after; the loss must be finite and fall. Then, on a 2-layer model of the
    same widths at T 1024, B 2: flash vs dense attention (loss within 1e-2
    relative, every gradient leaf at cosine >= 0.99) and remat on vs off
-   (bitwise equal: every kernel of the path is deterministic).
+   (bitwise equal: every kernel of the path is deterministic);
+6. word2vec: Word2Vec.fit at full width (word2vec.c's size 100 and window
+   5, batches of 4,096 pairs, HS) on a synthetic corpus of text8's shape
+   (4,000 sentences of 1,000 tokens, Zipf(1.0) over 71,290 word types,
+   seed 0); the same model with ``negative=5`` on the first 500 sentences
+   (the per-batch HS+NS path); a small fit (the reference tests' topic
+   corpus, D 32, 4 epochs) on the card and on the CPU from the same tables
+   (within the CPU tests' tolerance) and twice on the card (bitwise equal,
+   the first with TF32 allowed); the reference's topic-similarity check on
+   the card; ParagraphVectors.fit_labeled with HS, and with HS+NS. Kernel
+   #5's launch count is set to 0 before every run and must be > 0 after;
+   the full-width tables must be finite with max |syn0| under 1,000.
 
 The last lines are the kernel table as one JSON object, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -62,6 +77,9 @@ BF16_FLOPS = 989e12
 #: H100 SXM published dense int8 tensor rate (operations/s)
 INT8_OPS = 1979e12
 
+#: H100 SXM published f32 rate outside the tensor cores (FLOP/s)
+F32_FLOPS = 67e12
+
 #: stated tolerances, kernel vs plain version on the same bf16 inputs: the
 #: kernel's online softmax rounds its probabilities to bf16 against the
 #: running max of each 64-row tile, the plain version against the row max
@@ -80,6 +98,14 @@ GRAD_REL, GRAD_ABS = 0.02, 0.01
 #: (cuBLAS reduces an M=1 and an M=8 product in different orders) when the
 #: generate side's top-2 logit gap at that position is below this
 NEAR_TIE = 0.1
+#: kernel #5 vs its plain version (f32): the dot is summed in another order
+#: (the reference's own test holds its kernel to XLA at 1e-5)
+EMB_TOL = 1e-5
+#: word2vec fit on the card vs on the CPU from the same tables: the CPU
+#: tests' bar for the port against the JAX package (last-bit differences of
+#: the sums carried through every later batch, in a configuration that does
+#: not amplify them)
+W2V_TOL = 1e-4
 
 
 def log(*a):
@@ -401,11 +427,66 @@ def _paged_case(int8: bool, bs: int, pos: list[int], b: int = 8,
                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
-def phase_kernels() -> dict[str, dict]:
+def _emb_dot_case(b: int, L: int, d: int, planted: bool = False,
+                  iters: int = 50) -> dict:
+    """Kernel #5 and its range flag against the plain version: HS-shaped
+    inputs (each row's path a random length, the rest masked; dots of a
+    few units, some saturated), and with ``planted`` a quarter of the rows
+    masked out whole and dots planted at 6 -+ 1e-3."""
+    import torch
+
+    from deeplearning4j_tpu_torch.ops import emb_dot
+
+    gen = torch.Generator(device="cuda").manual_seed(6000 + L + planted)
+    h = torch.randn((b, d), generator=gen, device="cuda") * 0.5
+    w = torch.randn((b, L, d), generator=gen, device="cuda") * 0.5
+    lens = torch.randint(1, L + 1, (b, 1), generator=gen, device="cuda")
+    mask = (torch.arange(L, device="cuda")[None] < lens).float()
+    if planted:
+        mask[: b // 4] = 0.0
+        sel = torch.randint(0, 4, (b, L), generator=gen, device="cuda")
+        target = torch.tensor([6 - 1e-3, -(6 - 1e-3), 6 + 1e-3, -(6 + 1e-3)],
+                              dtype=torch.float64, device="cuda")[sel]
+        h64 = h.double()
+        w = (h64 / (h64 * h64).sum(-1, keepdim=True))[:, None, :] * target[
+            ..., None]
+        w = w.float().contiguous()
+    f, in_range = emb_dot.fused_embedding_dot_range(h, w, mask)
+    f_ref, in_ref = emb_dot.fused_embedding_dot_range_plain(h, w, mask)
+    torch.cuda.synchronize()
+    err = (f - f_ref).abs().max().item()
+    flags_equal = torch.equal(in_range, in_ref)
+    ok = bool(torch.isfinite(f).all()) and err <= EMB_TOL and flags_equal
+    if planted:
+        ok = ok and torch.equal(in_range, (target.abs() < 6).float())
+    saturated = int((in_range == 0).sum())
+    ms = time_ms(lambda: emb_dot.fused_embedding_dot_range(h, w, mask), iters)
+    plain_ms = time_ms(
+        lambda: emb_dot.fused_embedding_dot_range_plain(h, w, mask), iters)
+    hv = h[:, :, None]
+    bmm_ms = time_ms(lambda: torch.bmm(w, hv), iters)
+    # reads w, h and mask, writes f and the flag (f32); an FMA per element
+    # of w
+    b_ms, b_by = bound(4 * (b * L * d + b * d + 3 * b * L), 2 * b * L * d,
+                       F32_FLOPS)
+    log(f"kernel emb_dot B={b} L={L} D={d}"
+        f"{' planted |dot| = 6 -+ 1e-3, masked rows' if planted else ''}: "
+        f"max_abs_err {err:.3e} (tol {EMB_TOL}), range flags equal "
+        f"{flags_equal} ({saturated} saturated of {b * L}), ms {ms:.4f}, "
+        f"plain_ms {plain_ms:.4f}, bound_ms {b_ms:.6f} ({b_by}), "
+        f"library_ms none (torch.bmm of the dot alone: {bmm_ms:.4f}) -> "
+        f"{'ok' if ok else 'FAIL'}")
+    return dict(ok=ok, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                bmm_dot_ms=bmm_ms)
+
+
+def phase_kernels(w2v_code_len: int) -> dict[str, dict]:
     """Kernel vs plain version at the slices' shapes. Returns, per kernel,
     the numbers of its main-path case (the last one listed: the training
     shape for the flash kernels, GPT-2-small serving for the decode
-    kernels, int8 at block size 8 for the paged one)."""
+    kernels, int8 at block size 8 for the paged one, phase 6's longest
+    Huffman path for the fused embedding dot)."""
     attn = [_attn_case(t, True) for t in (8, 64)]
     attn.append(_attn_case(128, False))
     attn.append(_attn_case(128, True))
@@ -424,15 +505,18 @@ def phase_kernels() -> dict[str, dict]:
     ]
     paged = [_paged_case(int8, bs, pos) for bs in (64, 8)
              for int8 in (False, True)]
+    emb = [_emb_dot_case(W2V_BATCH, 16, W2V_DIM),
+           _emb_dot_case(W2V_BATCH, w2v_code_len, W2V_DIM, planted=True),
+           _emb_dot_case(W2V_BATCH, w2v_code_len, W2V_DIM)]
     for name, cases in (("flash_attn_fwd", attn), ("flash_attn_bwd", bwd),
                         ("flash_decode", dec), ("flash_decode_int8", dec8),
-                        ("flash_decode_paged", paged)):
+                        ("flash_decode_paged", paged), ("emb_dot", emb)):
         if not all(c["ok"] for c in cases):
             raise SystemExit(f"kernel {name} disagrees with its plain "
                              f"version")
     return {"flash_attn_fwd": attn[-1], "flash_attn_bwd": bwd[-1],
             "flash_decode": dec[-1], "flash_decode_int8": dec8[-1],
-            "flash_decode_paged": paged[-1]}
+            "flash_decode_paged": paged[-1], "emb_dot": emb[-1]}
 
 
 # -- phase 3 -----------------------------------------------------------------
@@ -454,26 +538,33 @@ KERNELS = {
     "flash_decode_paged": dict(
         source="deeplearning4j_tpu_torch/csrc/flash_decode.cu",
         replaces="deeplearning4j_tpu/ops/pallas_kernels.py:783"),
+    "emb_dot": dict(
+        source="deeplearning4j_tpu_torch/csrc/emb_dot.cu",
+        replaces="deeplearning4j_tpu/ops/pallas_kernels.py:906"),
 }
 
 
 def reset_launches() -> None:
+    from deeplearning4j_tpu_torch.ops import emb_dot
     from deeplearning4j_tpu_torch.ops import flash_attention as fa
     from deeplearning4j_tpu_torch.ops import flash_decode as fd
 
     fa.reset_launches()
     fd.reset_launches()
+    emb_dot.reset_launches()
 
 
 def read_launches() -> dict[str, int]:
     """Every kernel's launch count since its last reset."""
+    from deeplearning4j_tpu_torch.ops import emb_dot
     from deeplearning4j_tpu_torch.ops import flash_attention as fa
     from deeplearning4j_tpu_torch.ops import flash_decode as fd
 
     return {"flash_attn_fwd": fa.launches, "flash_attn_bwd": fa.bwd_launches,
             "flash_decode": fd.launches,
             "flash_decode_int8": fd.int8_launches,
-            "flash_decode_paged": fd.paged_launches}
+            "flash_decode_paged": fd.paged_launches,
+            "emb_dot": emb_dot.launches}
 
 
 #: prompt lengths of the served requests: bucketed prefill (<= 128, the
@@ -849,6 +940,261 @@ def phase_train_parity() -> None:
             raise SystemExit(f"remat {policy} changed the loss or grads")
 
 
+# -- phase 6 -----------------------------------------------------------------
+
+#: the full-width corpus has text8's shape: word2vec.c cuts text8 into
+#: 1,000-word sentences, and text8 has 71,290 word types at min-count 5;
+#: 4,000 sentences (4 M of its 17 M tokens) keep the smoke's time
+W2V_SENTENCES, W2V_SENT_LEN, W2V_TYPES = 4000, 1000, 71290
+#: word2vec.c's size and window; Word2Vec's own batch and learning rate
+W2V_DIM, W2V_WINDOW, W2V_BATCH, W2V_LR = 100, 5, 4096, 0.025
+#: sentences of the HS+NS run (the per-batch path)
+W2V_NS_SENTENCES = 500
+#: ceiling on max |syn0| after a full-width fit. Batched HS on this corpus
+#: is chaotic (a 1e-6 change of syn0 moves over a thousand rows by more
+#: than 1e-3 within 30 sentences), so the value is not reproducible, but it
+#: stays in the tens (the JAX package reaches 66.3 on the CPU from
+#: numpy-seeded tables); clipping saturated dots instead of skipping them
+#: reaches 1e14 within 30 sentences (scripts/torch_w2v_reference.py)
+W2V_SYN0_CEILING = 1000.0
+
+
+def zipf_corpus(n_sent: int, n_tok: int, n_types: int,
+                seed: int = 0) -> list[str]:
+    """``n_sent`` sentences of ``n_tok`` words ``w<rank>``, the ranks drawn
+    from Zipf(1.0) over ``n_types`` types."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, n_types + 1)
+    ranks = rng.choice(n_types, size=(n_sent, n_tok), p=p / p.sum())
+    names = np.array([f"w{r}" for r in range(n_types)])
+    return [" ".join(names[row]) for row in ranks]
+
+
+def topic_corpus(n: int, seed: int = 0) -> list[str]:
+    """The reference tests' two-topic corpus (tests/test_nlp.py:28):
+    day/sun/light/... vs night/moon/dark/... with filler words."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    day = ["day", "sun", "light", "morning", "bright", "noon"]
+    night = ["night", "moon", "dark", "evening", "stars", "midnight"]
+    fillers = ["the", "a", "was", "very", "and", "it", "sky", "time"]
+    sents = []
+    for _ in range(n):
+        topic = day if rng.random() < 0.5 else night
+        words = list(rng.choice(topic, size=4)) + list(
+            rng.choice(fillers, size=3))
+        rng.shuffle(words)
+        sents.append(" ".join(words))
+    return sents
+
+
+def w2v_full_model():
+    """The full-width Word2Vec (HS) with its vocabulary built, and its
+    corpus. Phase 2 needs the vocabulary's longest Huffman path."""
+    from deeplearning4j_tpu_torch.models.word2vec import Word2Vec
+    from deeplearning4j_tpu_torch.nlp.sentence_iterator import (
+        CollectionSentenceIterator,
+    )
+
+    t0 = time.perf_counter()
+    corpus = zipf_corpus(W2V_SENTENCES, W2V_SENT_LEN, W2V_TYPES)
+    t1 = time.perf_counter()
+    model = Word2Vec(layer_size=W2V_DIM, window=W2V_WINDOW,
+                     batch_pairs=W2V_BATCH, lr=W2V_LR, min_word_frequency=1,
+                     epochs=1)
+    model.build_vocab(CollectionSentenceIterator(corpus))
+    log(f"word2vec: corpus {W2V_SENTENCES} sentences x {W2V_SENT_LEN} "
+        f"tokens, Zipf(1.0) over {W2V_TYPES} types, seed 0, in "
+        f"{t1 - t0:.1f} s; build_vocab {time.perf_counter() - t1:.1f} s: "
+        f"V {len(model.cache)}, max code length "
+        f"{model.cache.max_code_length}")
+    return model, corpus
+
+
+def _w2v_run(tag: str, fn):
+    """Run ``fn`` with every launch count set to 0 just before and read
+    just after; kernel #5 must have launched. Returns (launches, seconds
+    on the host clock, fn's result)."""
+    import torch
+
+    reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_launches()
+    if launches["emb_dot"] <= 0:
+        raise SystemExit(f"{tag}: kernel emb_dot never launched")
+    return launches, secs, out
+
+
+def _counted_fit(model, sentences) -> int:
+    """``model.fit(sentences)``; returns the number of skip-gram pairs its
+    pair enumerator produced."""
+    from deeplearning4j_tpu_torch import native_io
+
+    real = native_io.sg_pairs_chunk
+    pairs = 0
+
+    def counted(*a):
+        nonlocal pairs
+        ins, tgts = real(*a)
+        pairs += len(ins)
+        return ins, tgts
+
+    native_io.sg_pairs_chunk = counted
+    try:
+        model.fit(sentences)
+    finally:
+        native_io.sg_pairs_chunk = real
+    return pairs
+
+
+def _bounded(tag: str, model) -> float:
+    """Every table finite and max |syn0| under W2V_SYN0_CEILING (the guard
+    against clipping saturated dots instead of skipping them)."""
+    import torch
+
+    for name in ("syn0", "syn1", "syn1neg"):
+        if not bool(torch.isfinite(getattr(model, name)).all()):
+            raise SystemExit(f"{tag}: {name} is not finite")
+    top = model.syn0.abs().max().item()
+    if not top < W2V_SYN0_CEILING:
+        raise SystemExit(f"{tag}: max |syn0| {top} is not < "
+                         f"{W2V_SYN0_CEILING}")
+    return top
+
+
+def _w2v_fit_run(tag: str, model, sentences, card: str) -> dict[str, int]:
+    launches, secs, pairs = _w2v_run(tag, lambda: _counted_fit(model,
+                                                              sentences))
+    top = _bounded(tag, model)
+    log(f"{tag}: V {len(model.cache)}, max code length "
+        f"{model.cache.max_code_length}, {pairs} pairs, "
+        f"{launches['emb_dot']} HS batches of {model.batch_pairs}; fit "
+        f"{secs:.2f} s -> {pairs / secs:.1f} pairs/s (host clock, "
+        f"tokenizing and pair enumeration included; {card}); max |syn0| "
+        f"{top:.4f}; launches {launches}")
+    return launches
+
+
+def phase_word2vec(model, corpus, card: str) -> dict[str, dict[str, int]]:
+    """Phase 6. Returns each run's launch counts."""
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.models.paragraph_vectors import (
+        ParagraphVectors,
+    )
+    from deeplearning4j_tpu_torch.models.word2vec import (
+        Word2Vec,
+        word2vec_state_from_jax,
+    )
+    from deeplearning4j_tpu_torch.nlp.sentence_iterator import (
+        CollectionSentenceIterator,
+    )
+
+    runs = {"w2v_full": _w2v_fit_run(
+        "w2v full width (HS)", model, CollectionSentenceIterator(corpus),
+        card)}
+
+    ns = Word2Vec(layer_size=W2V_DIM, window=W2V_WINDOW,
+                  batch_pairs=W2V_BATCH, lr=W2V_LR, min_word_frequency=1,
+                  epochs=1, negative=5)
+    sub = CollectionSentenceIterator(corpus[:W2V_NS_SENTENCES])
+    ns.build_vocab(sub)
+    runs["w2v_hs_ns"] = _w2v_fit_run(
+        f"w2v HS+NS ({W2V_NS_SENTENCES} sentences, negative 5)", ns, sub,
+        card)
+    del ns
+
+    # card vs CPU from the same tables, and the card twice. Batches of 256:
+    # at 1,024 pairs every one of the 20 words recurs ~50 times a batch, the
+    # fit is chaotic and the card and CPU fits ended 2.5 apart; at 256 the
+    # same fit holds the CPU tests' bar against the JAX package
+    # (tests/test_torch_word2vec.py, case "smoke_topic")
+    topic = topic_corpus(300)
+    cfg = dict(layer_size=32, window=5, epochs=4, lr=0.05, seed=1,
+               batch_pairs=256)
+    probe = Word2Vec(device="cpu", **cfg)
+    probe.build_vocab(CollectionSentenceIterator(topic))
+    v, d = len(probe.cache), cfg["layer_size"]
+    rng = np.random.default_rng(0)
+    tables = (((rng.random((v, d)) - 0.5) / d).astype(np.float32),
+              np.zeros((v - 1, d), np.float32), np.zeros((v, d), np.float32))
+
+    def fit_on(device):
+        m = Word2Vec(device=device, **cfg)
+        m.build_vocab(CollectionSentenceIterator(topic))
+        st = word2vec_state_from_jax(*tables, device=device)
+        m.syn0, m.syn1, m.syn1neg = st["syn0"], st["syn1"], st["syn1neg"]
+        m.fit(CollectionSentenceIterator(topic))
+        return m
+
+    host = fit_on("cpu")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True  # the step must not care
+    try:
+        runs["w2v_card_tf32"], _, first = _w2v_run("w2v card vs cpu",
+                                                   lambda: fit_on("cuda"))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    runs["w2v_card_repeat"], _, again = _w2v_run("w2v card repeat",
+                                                 lambda: fit_on("cuda"))
+    errs = {n: (getattr(first, n).cpu() - getattr(host, n)).abs().max().item()
+            for n in ("syn0", "syn1")}
+    bitwise = all(torch.equal(getattr(first, n), getattr(again, n))
+                  for n in ("syn0", "syn1", "syn1neg"))
+    log(f"w2v card vs cpu (topic corpus, V {v}, D {d}, 4 epochs, batches "
+        f"of {cfg['batch_pairs']}, same tables): max |card - cpu| syn0 "
+        f"{errs['syn0']:.3e}, syn1 {errs['syn1']:.3e} (tol {W2V_TOL}); "
+        f"card repeat (TF32 allowed in the first run, not in the second) "
+        f"bitwise equal: {bitwise}; launches per card run "
+        f"{runs['w2v_card_repeat']['emb_dot']}")
+    if max(errs.values()) > W2V_TOL or not bitwise:
+        raise SystemExit("word2vec on the card disagrees with the CPU or "
+                         "with itself")
+
+    q = Word2Vec(layer_size=32, window=5, epochs=24, lr=0.05, seed=1)
+    runs["w2v_quality"], secs, _ = _w2v_run(
+        "w2v quality", lambda: q.fit(CollectionSentenceIterator(
+            topic_corpus(400))))
+    same, cross = q.similarity("day", "sun"), q.similarity("day", "moon")
+    log(f"w2v quality (the reference test's fit: 400 sentences, D 32, 24 "
+        f"epochs, {secs:.2f} s): similarity(day, sun) {same:.4f} > "
+        f"similarity(day, moon) {cross:.4f}: {same > cross}; nearest to "
+        f"night {q.words_nearest('night', top=5)}")
+    if not same > cross:
+        raise SystemExit("word2vec on the card did not learn the topics")
+
+    gen = np.random.default_rng(5)
+    docs = []
+    for _ in range(100):
+        docs.append(("daytime", " ".join(gen.choice(
+            ["day", "sun", "light", "bright"], 5))))
+        docs.append(("nighttime", " ".join(gen.choice(
+            ["night", "moon", "dark", "stars"], 5))))
+    for tag, kw in (("pv_hs", dict(train_words=False)),
+                    ("pv_hs_ns", dict(train_words=True, negative=5))):
+        pv = ParagraphVectors(layer_size=16, epochs=12, lr=0.05, seed=6,
+                              **kw)
+        runs[tag], secs, _ = _w2v_run(tag, lambda: pv.fit_labeled(docs))
+        finite = bool(torch.isfinite(pv.syn0_labels).all())
+        guess = (pv.infer_nearest_label("sun light bright day"),
+                 pv.infer_nearest_label("moon stars dark night"))
+        log(f"{tag} ({'label pass only' if not pv.train_words else 'words and labels'}"
+            f", {secs:.2f} s): kernel #5 launches {runs[tag]['emb_dot']}, "
+            f"labels finite {finite}, nearest labels {guess}")
+        if not finite:
+            raise SystemExit(f"{tag}: label vectors not finite")
+        if pv.train_words and guess != ("daytime", "nighttime"):
+            raise SystemExit(f"{tag}: documents classified as {guess}")
+    return runs
+
+
 def main() -> int:
     try:
         import torch
@@ -869,7 +1215,8 @@ def main() -> int:
     card = card_line()
     log(f"card: {card}")
     phase_build()
-    measured = phase_kernels()
+    w2v_model, w2v_corpus = w2v_full_model()
+    measured = phase_kernels(w2v_model.cache.max_code_length)
     engine, serve_launches, streams = phase_serve()
     phase_server(engine)
     del engine
@@ -883,6 +1230,8 @@ def main() -> int:
     torch.cuda.empty_cache()  # the serving engines' caches go back
     phase_train_parity()
     by_phase["train"] = phase_train(card)
+    by_phase.update(phase_word2vec(w2v_model, w2v_corpus, card))
+    del w2v_model
     kernels = [
         dict(name=name, route="cuda", **KERNELS[name],
              launches=sum(p[name] for p in by_phase.values()),

@@ -15,10 +15,15 @@ import torch
 
 import deeplearning4j_tpu_torch
 from deeplearning4j_tpu_torch.device import resolve_device
+from deeplearning4j_tpu_torch.models.paragraph_vectors import ParagraphVectors
 from deeplearning4j_tpu_torch.models.transformer import (
     TransformerConfig,
     init_params,
     params_from_jax,
+)
+from deeplearning4j_tpu_torch.models.word2vec import (
+    Word2Vec,
+    word2vec_state_from_jax,
 )
 from deeplearning4j_tpu_torch.serving import ServingEngine
 
@@ -90,12 +95,23 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         params_from_jax(np_tree, cfg)
     assert params_from_jax(np_tree, cfg, device="cpu")["head"].shape == (
         16, 32)
+    for cls in (Word2Vec, ParagraphVectors):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cls(layer_size=8)
+        assert cls(layer_size=8, device="cpu").device.type == "cpu"
+    tables = [np.zeros((3, 4), np.float32)] * 3
+    with pytest.raises(RuntimeError, match="CUDA"):
+        word2vec_state_from_jax(*tables)
+    assert word2vec_state_from_jax(*tables, device="cpu")["syn0"].shape == (
+        3, 4)
 
 
 def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
     """A CUDA tensor goes to the kernel wrapper, never to the plain version:
     with the wrapper's launch replaced, the dispatcher must call it (the
-    decode kernel in its bf16 and int8 modes, the paged decode kernel)."""
+    decode kernel in its bf16 and int8 modes, the paged decode kernel, the
+    fused embedding dot)."""
+    from deeplearning4j_tpu_torch.ops import emb_dot
     from deeplearning4j_tpu_torch.ops import flash_attention as fa
     from deeplearning4j_tpu_torch.ops import flash_decode as fd
 
@@ -106,6 +122,8 @@ def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
         "fd" if a[-1] is None else "fd_int8"))
     monkeypatch.setattr(fd, "_launch_paged", lambda *a: calls.append(
         "fd_paged" if a[-1] is None else "fd_paged_int8"))
+    monkeypatch.setattr(emb_dot, "_launch",
+                        lambda *a: (calls.append("emb_dot"), None))
     monkeypatch.setattr(fa, "flash_attention_fwd_plain",
                         lambda *a: pytest.fail("plain path on CUDA"))
     monkeypatch.setattr(fa, "flash_attention_bwd_plain",
@@ -114,6 +132,8 @@ def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
                         lambda *a: pytest.fail("plain path on CUDA"))
     monkeypatch.setattr(fd, "flash_decode_attention_paged_plain",
                         lambda *a: pytest.fail("plain path on CUDA"))
+    monkeypatch.setattr(emb_dot, "fused_embedding_dot_range_plain",
+                        lambda *a: pytest.fail("plain path on CUDA"))
     q = torch.empty((2, 8, 16), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         fa.flash_attention_fwd(q, q, q, True)
@@ -121,6 +141,8 @@ def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
         fa.flash_attention_bwd(q, q, q, q, q, q, True)
     with pytest.raises(ValueError, match="unsupported device"):
         fd.flash_decode_attention_paged(q, q, q, 0, 1)
+    with pytest.raises(ValueError, match="unsupported device"):
+        emb_dot.fused_embedding_dot(q, q, q)
 
     class FakeCuda:
         device = torch.device("cuda", 0)
@@ -132,8 +154,10 @@ def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
     fd.flash_decode_attention_paged(FakeCuda(), None, None, 0, 1)
     fd.flash_decode_attention_paged(FakeCuda(), None, None, 0, 1,
                                     block_scales=object())
+    emb_dot.fused_embedding_dot(FakeCuda(), None, None)
+    emb_dot.fused_embedding_dot_range(FakeCuda(), None, None)
     assert calls == ["fa", "fa_bwd", "fd", "fd_int8", "fd_paged",
-                     "fd_paged_int8"]
+                     "fd_paged_int8", "emb_dot", "emb_dot"]
 
 
 def test_chip_smoke_alone_fails(tmp_path):
