@@ -193,9 +193,20 @@ def _attn_case(t: int, causal: bool, bh: int = 6, d: int = 128,
         f"(tol {LSE_TOL}), ms {ms:.4f}, plain_ms {plain_ms:.4f}, "
         f"bound_ms {b_ms:.6f} ({b_by}), library_ms {lib_ms:.4f} "
         f"-> {'ok' if ok else 'FAIL'}")
+    _log_rate("flash_attn_fwd", fa.fwd_body(q.dtype, d),
+              4 * bh * pairs * d, ms, b_ms, lib_ms)
     return dict(ok=ok, max_abs_err=max(err, lse_err), ms=ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=lib_ms)
+
+
+def _log_rate(name: str, body: str, flops: float, ms: float, b_ms: float,
+              lib_ms: float) -> None:
+    """The body a flash call took, its rate on the work the function needs,
+    its share of the bound, and its factor over the library call."""
+    log(f"  {name} body {body}: {flops / ms / 1e9:.1f} TFLOP/s of needed "
+        f"work, {b_ms / ms:.4f} of the bound, {ms / lib_ms:.3f}x the "
+        f"library call")
 
 
 def _bwd_case(t: int, causal: bool, bh: int = 6, d: int = 128,
@@ -247,6 +258,8 @@ def _bwd_case(t: int, causal: bool, bh: int = 6, d: int = 128,
         f"per gradient), deterministic {same}, ms {ms:.4f}, plain_ms "
         f"{plain_ms:.4f}, bound_ms {b_ms:.6f} ({b_by}), library_ms "
         f"{lib_ms:.4f} -> {'ok' if ok and same else 'FAIL'}")
+    _log_rate("flash_attn_bwd", fa.bwd_body(q.dtype, d),
+              10 * bh * pairs * d, ms, b_ms, lib_ms)
     return dict(ok=ok and same, max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
 

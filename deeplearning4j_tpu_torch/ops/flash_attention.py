@@ -6,17 +6,21 @@ through both.
 The forward replaces ``_flash_fwd_stream_kernel``
 (deeplearning4j_tpu/ops/pallas_kernels.py :125, called through
 ``_flash_fwd_call`` :179): bulk prefill calls it forward-only
-(models/transformer.py:1310) and the training block under autograd. The
+(models/transformer.py:1133) and the training block under autograd (:482). The
 backward replaces ``_flash_bwd_fused_kernel`` (:213, called through
 ``_flash_bwd_rule`` :358).
 
 What bounds them on the H100, and what the design does: at the serving
 shapes (B*H = 6, T <= 128, D = 128, bf16) one forward call moves well under
 a megabyte and is bound by launch and latency. At the training shape (B*H =
-144, T = 1024, D = 128) both are bound by operations (the tensor-core rate);
-the kernels run plain f32 FMA loops out of shared memory, so they are far
-from it. Both keep every intermediate on chip and skip tiles above the causal
-diagonal; see the sources for the tile layouts.
+144, T = 1024, D = 128) both are bound by the bf16 tensor-core rate. In bf16
+at head dims 64 and 128 both kernels run every product on the tensor cores
+(``wgmma``, f32 accumulators in registers) over tiles that TMA loads into a
+shared-memory ring; f32 inputs and the other head dims take FMA bodies. The
+choice is a static table on (dtype, D) in each source, which
+:func:`fwd_body` / :func:`bwd_body` read back from the built library. Both
+keep every intermediate on chip and skip tiles above the causal diagonal;
+see the sources for the tile layouts.
 
 Dispatch: a CPU tensor runs the plain version; a CUDA tensor launches the
 kernel or raises. There is no fallback from one to the other.
@@ -74,33 +78,59 @@ def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,
 
 def _check_cuda_args(what: str, **xs):
     """Raise on what the kernels do not take: tensors of one (BH, T, D)
-    shape and one f32/bf16 dtype, contiguous, on the current device, with a
-    head dim the kernels are built for."""
+    shape and one f32/bf16 dtype, contiguous and 16-byte aligned, on the
+    current device, with a head dim the kernels are built for. The common
+    case costs a few attribute reads: the serving prefill's call is bound
+    by the host."""
     q = next(iter(xs.values()))
-    shapes = {tuple(x.shape) for x in xs.values()}
-    if len(shapes) != 1 or q.dim() != 3:
+    shape, dtype, device = q.shape, q.dtype, q.device
+    for x in xs.values():
+        if x.shape != shape or x.dtype != dtype or x.device != device:
+            _raise_mismatch(what, xs)
+    if len(shape) != 3:
         raise ValueError(f"{what} needs {', '.join(xs)} of one (BH, T, D) "
-                         f"shape, got {sorted(shapes)}")
-    dtypes = {x.dtype for x in xs.values()}
-    if len(dtypes) != 1 or q.dtype not in _DTYPES:
+                         f"shape, got {tuple(shape)}")
+    if dtype not in _DTYPES:
         raise TypeError(f"{what} takes f32 or bf16 {', '.join(xs)} of one "
-                        f"dtype, got {sorted(map(str, dtypes))}")
-    if len({x.device for x in xs.values()}) != 1:
-        raise ValueError(f"{', '.join(xs)} must be on the same device")
-    if q.device.index != torch.cuda.current_device():
+                        f"dtype, got {dtype}")
+    if device.index != torch.cuda.current_device():
         raise ValueError(
             f"{what} launches on the current device "
-            f"(cuda:{torch.cuda.current_device()}), got tensors on {q.device}"
+            f"(cuda:{torch.cuda.current_device()}), got tensors on {device}"
         )
-    if q.shape[-1] not in _HEAD_DIMS:
+    if shape[-1] not in _HEAD_DIMS:
         raise ValueError(f"{what} kernel takes head_dim in {_HEAD_DIMS}, "
-                         f"got {q.shape[-1]}")
-    if q.shape[0] > 65535:
+                         f"got {shape[-1]}")
+    if shape[0] > 65535:
         raise ValueError(f"{what} kernel takes at most 65535 (batch x head) "
-                         f"rows (the grid's y extent), got {q.shape[0]}")
+                         f"rows (the grid's y extent), got {shape[0]}")
     for name, x in xs.items():
         if not x.is_contiguous():
             raise ValueError(f"{what} needs contiguous {name}")
+        # the tensor-core bodies load tiles by TMA, which takes 16-byte-
+        # aligned bases only
+        if x.data_ptr() % 16:
+            raise ValueError(f"{what} needs a 16-byte-aligned {name}, got "
+                             f"address {x.data_ptr():#x}")
+
+
+def _raise_mismatch(what: str, xs: dict) -> None:
+    shapes = {tuple(x.shape) for x in xs.values()}
+    if len(shapes) != 1:
+        raise ValueError(f"{what} needs {', '.join(xs)} of one (BH, T, D) "
+                         f"shape, got {sorted(shapes)}")
+    dtypes = {x.dtype for x in xs.values()}
+    if len(dtypes) != 1:
+        raise TypeError(f"{what} takes f32 or bf16 {', '.join(xs)} of one "
+                        f"dtype, got {sorted(map(str, dtypes))}")
+    raise ValueError(f"{', '.join(xs)} must be on the same device")
+
+
+def _current_stream(x: torch.Tensor) -> int:
+    """The raw handle of the current stream on x's device, without building
+    the Stream object ``torch.cuda.current_stream(dev).cuda_stream`` does:
+    the serving prefill's call is bound by the host, not the kernel."""
+    return torch._C._cuda_getCurrentRawStream(x.device.index)
 
 
 def _kernel():
@@ -113,6 +143,17 @@ def _kernel():
     return lib, fn
 
 
+#: names of the bodies the C libraries' ``*_body`` queries return
+_BODIES = ("fma", "wgmma")
+
+
+def fwd_body(dtype: torch.dtype, d: int) -> str:
+    """The body the forward kernel takes for this dtype and head dim
+    (``dl4j_flash_attn_fwd_body``): "wgmma" (tensor cores) or "fma"."""
+    fn = _build.library("flash_attn_fwd").dl4j_flash_attn_fwd_body
+    return _BODIES[fn(_DTYPES[dtype], d)]
+
+
 def _launch(q, k, v, causal):
     global launches
     _check_cuda_args("flash_attention_fwd", q=q, k=k, v=v)
@@ -120,7 +161,7 @@ def _launch(q, k, v, causal):
     lib, fn = _kernel()
     o = torch.empty_like(q)
     lse = torch.empty((bh, t, 1), dtype=torch.float32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    stream = _current_stream(q)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
              lse.data_ptr(), bh, t, d, 1.0 / math.sqrt(d), int(causal),
              _DTYPES[q.dtype], stream)
@@ -158,7 +199,9 @@ def flash_attention_bwd_delta(o: torch.Tensor, do: torch.Tensor
     """delta_i = <dO_i, O_i> in f32, (BH, T, 1): the softmax normalizer
     correction. A plain reduction, as the reference computes it outside its
     kernel (``_flash_bwd_rule`` :371)."""
-    return (do.float() * o.float()).sum(dim=-1, keepdim=True)
+    # bf16 x bf16 products are exact in f32, so promoting one side (do
+    # computes in f32 against the f32 o) gives the same sums as casting both
+    return (do * o.float()).sum(dim=-1, keepdim=True)
 
 
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
@@ -197,10 +240,17 @@ def _bwd_kernel():
     lib = _build.library("flash_attn_bwd")
     fn = lib.dl4j_flash_attn_bwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib, fn
+
+
+def bwd_body(dtype: torch.dtype, d: int) -> str:
+    """The bodies the backward kernel takes for this dtype and head dim
+    (``dl4j_flash_attn_bwd_body``): "wgmma" (tensor cores) or "fma"."""
+    fn = _build.library("flash_attn_bwd").dl4j_flash_attn_bwd_body
+    return _BODIES[fn(_DTYPES[dtype], d)]
 
 
 def _launch_bwd(q, k, v, o, lse, do, causal):
@@ -216,11 +266,14 @@ def _launch_bwd(q, k, v, o, lse, do, causal):
     lib, fn = _bwd_kernel()
     delta = flash_attention_bwd_delta(o, do)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    # the tensor-core bodies' dQ pass writes the scaled q here for their
+    # dK/dV pass to stream
+    qs = torch.empty_like(q) if bwd_body(q.dtype, d) == "wgmma" else None
+    stream = _current_stream(q)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-             dv.data_ptr(), bh, t, d, 1.0 / math.sqrt(d), int(causal),
-             _DTYPES[q.dtype], stream)
+             dv.data_ptr(), None if qs is None else qs.data_ptr(), bh, t, d,
+             1.0 / math.sqrt(d), int(causal), _DTYPES[q.dtype], stream)
     _build.check(lib, err, "flash_attn_bwd")
     bwd_launches += 1
     return dq, dk, dv

@@ -93,3 +93,48 @@ def test_flash_kernel_matches_plain_on_card(cuda_device, t):
     assert fa.launches == before + 1
     assert (o.float() - o_ref.float()).abs().max().item() <= ATOL_BF16
     assert (lse - lse_ref).abs().max().item() <= 1e-3
+
+
+# sequence lengths ragged for both 64- and 128-row tiles, within the flash
+# rule of the transformer (8-aligned, <= 128 or a multiple of 128)
+CARD_T = (8, 24, 72, 120, 128, 256, 384)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", fa._HEAD_DIMS)
+@pytest.mark.parametrize("t", CARD_T)
+def test_flash_kernel_bf16_every_head_dim_on_card(cuda_device, t, d, causal):
+    """Every head dim the wrapper takes, BH 3 (a ragged tile that read the
+    next head's rows would show), and a second call bitwise equal."""
+    g = torch.Generator(device=cuda_device).manual_seed(7 * t + d + causal)
+    q, k, v = (torch.randn((3, t, d), generator=g, device=cuda_device,
+                           dtype=torch.bfloat16) for _ in range(3))
+    o, lse = fa.flash_attention_fwd(q, k, v, causal)
+    o2, lse2 = fa.flash_attention_fwd(q, k, v, causal)
+    o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert torch.isfinite(o.float()).all()
+    assert (o.float() - o_ref.float()).abs().max().item() <= ATOL_BF16
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+
+
+@pytest.mark.cuda
+def test_flash_forward_body_table_on_card(cuda_device):
+    """The static (dtype, D) table: bf16 at D 64 and 128 on the tensor
+    cores, everything else on the FMA body."""
+    for d in fa._HEAD_DIMS:
+        assert fa.fwd_body(torch.float32, d) == "fma"
+        assert fa.fwd_body(torch.bfloat16, d) == (
+            "wgmma" if d in (64, 128) else "fma")
+
+
+@pytest.mark.cuda
+def test_flash_kernel_rejects_misaligned_base_on_card(cuda_device):
+    buf = torch.zeros(3 * 64 * 128 + 1, device=cuda_device,
+                      dtype=torch.bfloat16)
+    q = buf[1:].view(3, 64, 128)  # 2 bytes past an aligned base
+    k = v = torch.zeros_like(q)
+    with pytest.raises(ValueError, match="16-byte-aligned q"):
+        fa.flash_attention_fwd(q, k, v, True)

@@ -148,3 +148,42 @@ def test_flash_backward_kernel_matches_plain_on_card(cuda_device, dtype,
         tol = (1e-4 * r.abs().max().item() + 1e-5 if dtype == "f32"
                else REL_BF16 * r.abs().max().item() + ABS_BF16)
         assert (x.float() - r).abs().max().item() <= tol, name
+
+
+# sequence lengths ragged for both 64- and 128-row tiles, within the flash
+# rule of the transformer (8-aligned, <= 128 or a multiple of 128)
+CARD_T = (8, 24, 72, 120, 128, 256, 384)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", fa._HEAD_DIMS)
+@pytest.mark.parametrize("t", CARD_T)
+def test_flash_backward_bf16_every_head_dim_on_card(cuda_device, t, d,
+                                                    causal):
+    """Every head dim the wrapper takes, BH 3 (a ragged tile that read the
+    next head's rows would show), and a second call bitwise equal."""
+    g = torch.Generator(device=cuda_device).manual_seed(11 * t + d + causal)
+    q, k, v, do = (torch.randn((3, t, d), generator=g, device=cuda_device,
+                               dtype=torch.bfloat16) for _ in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v, causal)
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    refs = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    for name, x, x_ref, x2 in zip("qkv", grads, refs, again):
+        assert torch.equal(x, x2), f"d{name} is not reproducible"
+        assert torch.isfinite(x.float()).all(), name
+        r = x_ref.float()
+        tol = REL_BF16 * r.abs().max().item() + ABS_BF16
+        assert (x.float() - r).abs().max().item() <= tol, name
+
+
+@pytest.mark.cuda
+def test_flash_backward_body_table_on_card(cuda_device):
+    """The static (dtype, D) table: bf16 at D 64 and 128 on the tensor
+    cores, everything else on the FMA bodies."""
+    for d in fa._HEAD_DIMS:
+        assert fa.bwd_body(torch.float32, d) == "fma"
+        assert fa.bwd_body(torch.bfloat16, d) == (
+            "wgmma" if d in (64, 128) else "fma")

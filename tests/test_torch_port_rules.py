@@ -4,6 +4,7 @@ script stands on the port alone."""
 
 import ast
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -171,3 +172,57 @@ def test_chip_smoke_alone_fails(tmp_path):
                          timeout=300)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+# -- the flash kernels' sources ------------------------------------------------
+
+_FLASH = {"flash_attn_fwd": "flash_fwd", "flash_attn_bwd": "flash_bwd"}
+
+
+def _with_headers(stem: str) -> str:
+    """A kernel source and every local header it includes."""
+    csrc = PKG / "csrc"
+    text = (csrc / f"{stem}.cu").read_text()
+    for hdr in re.findall(r'#include "([^"]+)"', text):
+        text += (csrc / hdr).read_text()
+    return text
+
+
+@pytest.mark.parametrize("stem", sorted(_FLASH))
+def test_flash_bf16_bodies_issue_tensor_core_instructions(stem):
+    """The bf16 bodies at D 64 and 128 multiply on the tensor cores: the
+    static (dtype, D) table picks them, each product goes through a wgmma
+    wrapper, and the wrappers are wgmma (or mma.sync) instructions."""
+    src = (PKG / "csrc" / f"{stem}.cu").read_text()
+    table = re.search(r"Body body_of\(int dtype, int d\) \{(.*?)\n\}", src,
+                      re.S)
+    assert table and "kBF16" in table.group(1) and "d == 64" in table.group(1)
+    assert "d == 128" in table.group(1) and "kWgmma" in table.group(1)
+    wgmma_kernels = re.findall(r"(\w+_wgmma_kernel)\(", src)
+    assert wgmma_kernels, "no tensor-core body"
+    assert re.search(r"\bwgmma_(ss|rs_tb)<", src)
+    full = _with_headers(stem)
+    assert "wgmma.mma_async" in full or "mma.sync" in full
+    assert f"extern \"C\" int dl4j_{stem}_body(" in src
+
+
+@pytest.mark.parametrize("stem", sorted(_FLASH))
+def test_flash_sources_have_no_float_atomics(stem):
+    """The backward's determinism (remat on vs off bitwise equal) rests on
+    every sum running in one thread in a fixed order: no float atomics and
+    no bulk reductions into global memory, in the source or its headers."""
+    full = _with_headers(stem)
+    for banned in ("atomicAdd", "red.global", "red.add", "cp.reduce.async",
+                   "atom.global.add"):
+        assert banned not in full, banned
+
+
+@pytest.mark.parametrize("stem", sorted(_FLASH))
+def test_flash_kernel_symbols_keep_their_names(stem):
+    """scripts/torch_train_profile.py groups device time by these
+    substrings of the kernels' names."""
+    src = (PKG / "csrc" / f"{stem}.cu").read_text()
+    names = re.findall(r"__global__ void(?: __launch_bounds__\([^)]*\))?\s+"
+                       r"(\w+)\(", src)
+    assert len(names) >= 2
+    assert all(_FLASH[stem] in n for n in names), names
