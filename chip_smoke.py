@@ -11,7 +11,15 @@ Phases, in order; any failure exits non-zero without printing a result:
    shapes the serving and training paths give it, and time kernel, plain
    version, bound and one library call (a yardstick the port never calls;
    none computes int8 or paged decode). The decode kernel runs in bf16 and
-   int8 mode; the paged decode kernel in both modes at block sizes 8 and
+   int8 mode, also at positions on either side of its split edges, in int8
+   at the reference's default tile (one 640-row tile) and at 64 rows, with
+   a tile too long for its scores to stay in shared memory (they go to the
+   wrapper's scratch tensor), and each row of a B 8 launch again alone
+   (B 1), bitwise; the decode kernels are timed eagerly (``ms``, as every
+   kernel) and on the device alone (``graph_ms``: a CUDA graph of
+   launches, since one call's host path outlasts the kernel), with the
+   grid and cluster of their launch; the paged decode kernel in both modes
+   at block sizes 8 and
    64 over shuffled tables with an aliased block, also held BITWISE against
    the slab kernel over the gathered slab; the fused embedding dot (#5)
    with its range flag at Word2Vec's batch (4,096 pairs, D 100) for L 16
@@ -82,7 +90,8 @@ F32_FLOPS = 67e12
 
 #: stated tolerances, kernel vs plain version on the same bf16 inputs: the
 #: kernel's online softmax rounds its probabilities to bf16 against the
-#: running max of each 64-row tile, the plain version against the row max
+#: running max of each tile (the flash kernels) or of each 32-row stage of
+#: a T split (the decode kernel), the plain version against the row max
 ATTN_TOL = 2e-2
 LSE_TOL = 1e-3
 #: int8 decode kernels vs their plain versions, in bf16 steps of the
@@ -137,6 +146,35 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int = 20, reps: int = 10, warmup: int = 3) -> float:
+    """Device time of one call of ``fn``: ``iters`` calls captured in one
+    CUDA graph, replayed ``reps`` times between CUDA events, so the host's
+    launch path (the Python wrapper, ctypes) is left out. For calls that
+    the host, not the card, bounds when launched one by one."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * iters)
+
+
 def bound(nbytes: float, flops: float,
           peak: float = BF16_FLOPS) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -155,10 +193,42 @@ def phase_build() -> float:
     log(f"build: {', '.join(built) or 'cached'} in {secs:.2f} s "
         f"({', '.join(_build.sources())})")
     for stem, text in sorted(_build.build_logs.items()):
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log(f"  ptxas[{stem}] {line.strip()}")
+        for name, used, frame in _ptxas_entries(text):
+            log(f"  ptxas[{stem}] {name}: {used}; {frame}")
     return secs
+
+
+def _ptxas_entries(text: str) -> list[tuple[str, str, str]]:
+    """(kernel, registers line, stack and spill line) of every entry
+    function in a ``ptxas -v`` log, the names demangled where the toolkit's
+    ``cu++filt`` is found."""
+    import re
+    import shutil
+
+    from deeplearning4j_tpu_torch.ops import _build
+
+    rows, cur, frame = [], None, ""
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            cur, frame = m.group(1), ""
+        elif "stack frame" in line:
+            frame = line.strip()
+        elif "Used" in line and "registers" in line and cur:
+            rows.append([cur, line.split(":", 1)[-1].strip(), frame])
+            cur = None
+    filt = (shutil.which("cu++filt", path=str(Path(_build.nvcc()).parent))
+            or shutil.which("c++filt"))
+    if filt and rows:
+        out = subprocess.run([filt], input="\n".join(r[0] for r in rows),
+                             capture_output=True, text=True, timeout=60)
+        names = out.stdout.splitlines()
+        if out.returncode == 0 and len(names) == len(rows):
+            for r, n in zip(rows, names):
+                n = re.sub(r"\(anonymous namespace\)::|<unnamed>::", "", n)
+                n = n.replace("(bool)0", "false").replace("(bool)1", "true")
+                r[0] = n.removeprefix("void ").split("(", 1)[0]
+    return [tuple(r) for r in rows]
 
 
 # -- phase 2 -----------------------------------------------------------------
@@ -279,11 +349,13 @@ def _decode_case(b: int, g: int, hkv: int, kd: int, nl: int, tpad: int,
                         dtype=torch.bfloat16)
     p = torch.tensor(pos, dtype=torch.int32, device="cuda")
     out = fd.flash_decode_attention(q, cache, p, hkv, layer)
+    grid, cluster = fd.last_launch()
     ref = fd.flash_decode_attention_plain(q, cache, p, hkv, layer)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
     ok = bool(torch.isfinite(out.float()).all()) and err <= ATTN_TOL
-    ms = time_ms(lambda: fd.flash_decode_attention(q, cache, p, hkv, layer))
+    run = lambda: fd.flash_decode_attention(q, cache, p, hkv, layer)  # noqa
+    ms, dev_ms = time_ms(run), graph_ms(run)
     plain_ms = time_ms(
         lambda: fd.flash_decode_attention_plain(q, cache, p, hkv, layer))
     q4 = q.view(b, g, hkv, kd).permute(0, 2, 1, 3)
@@ -291,17 +363,21 @@ def _decode_case(b: int, g: int, hkv: int, kd: int, nl: int, tpad: int,
     v4 = cache[layer, 1].view(b, tpad, hkv, kd).permute(0, 2, 1, 3)
     mask = (torch.arange(tpad, device="cuda")[None, :] <= p[:, None].long())
     mask = mask[:, None, None, :]
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q4, k4, v4, attn_mask=mask))
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q4, k4, v4, attn_mask=mask)
+    lib_ms, lib_dev_ms = time_ms(sdpa), graph_ms(sdpa)
     rows = sum(min(x + 1, tpad) for x in pos)
     b_ms, b_by = bound(2 * rows * hk * 2 + 2 * b * g * hk * 2 + 4 * b,
                        4 * rows * hk * g)
     log(f"kernel flash_decode B={b} G={g} Hkv*K={hk} nl={nl} Tpad={tpad} "
         f"layer={layer} pos={pos}: max_abs_err {err:.3e} (tol {ATTN_TOL}), "
-        f"ms {ms:.4f}, plain_ms {plain_ms:.4f}, bound_ms {b_ms:.6f} "
-        f"({b_by}), library_ms {lib_ms:.4f} -> {'ok' if ok else 'FAIL'}")
+        f"ms {ms:.4f} (graph_ms {dev_ms:.4f}; grid {grid}, cluster "
+        f"{cluster}), plain_ms {plain_ms:.4f}, bound_ms {b_ms:.6f} "
+        f"({b_by}), library_ms {lib_ms:.4f} (graph_ms {lib_dev_ms:.4f}) "
+        f"-> {'ok' if ok else 'FAIL'}")
     return dict(ok=ok, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                graph_ms=dev_ms, library_graph_ms=lib_dev_ms)
 
 
 def _int8_err(out, ref) -> tuple[float, float]:
@@ -331,8 +407,10 @@ def _int8_bytes(rows: int, hk: int, b: int, g: int) -> int:
 
 
 def _decode_int8_case(b: int, g: int, hkv: int, kd: int, nl: int, tpad: int,
-                      layer: int, pos: list[int]) -> dict:
-    """Kernel #3 in int8 mode against its plain version."""
+                      layer: int, pos: list[int],
+                      block_t: int | None = None) -> dict:
+    """Kernel #3 in int8 mode against its plain version, at ``block_t``
+    (default: the reference's tile for this cache)."""
     import torch
 
     from deeplearning4j_tpu_torch.ops import flash_decode as fd
@@ -343,27 +421,70 @@ def _decode_int8_case(b: int, g: int, hkv: int, kd: int, nl: int, tpad: int,
                     dtype=torch.bfloat16)
     cache, scales = _int8_store(gen, (nl, 2, b, tpad, hk))
     p = torch.tensor(pos, dtype=torch.int32, device="cuda")
-    out = fd.flash_decode_attention(q, cache, p, hkv, layer,
+    bt = block_t or fd.default_block_t(tpad, hk, 1)
+    out = fd.flash_decode_attention(q, cache, p, hkv, layer, block_t,
                                     kv_scales=scales)
-    ref = fd.flash_decode_attention_plain(q, cache, p, hkv, layer,
+    grid, cluster = fd.last_launch()
+    scores = ("scratch" if fd._needs_scratch(g, hkv, bt, tpad)
+              else "shared memory")
+    ref = fd.flash_decode_attention_plain(q, cache, p, hkv, layer, block_t,
                                           kv_scales=scales)
     torch.cuda.synchronize()
     err, steps = _int8_err(out, ref)
     ok = bool(torch.isfinite(out.float()).all()) and steps <= INT8_STEPS
-    ms = time_ms(lambda: fd.flash_decode_attention(q, cache, p, hkv, layer,
-                                                   kv_scales=scales))
+    run = lambda: fd.flash_decode_attention(  # noqa: E731
+        q, cache, p, hkv, layer, block_t, kv_scales=scales)
+    ms, dev_ms = time_ms(run), graph_ms(run)
     plain_ms = time_ms(lambda: fd.flash_decode_attention_plain(
-        q, cache, p, hkv, layer, kv_scales=scales), iters=10)
+        q, cache, p, hkv, layer, block_t, kv_scales=scales), iters=10)
     rows = sum(min(x + 1, tpad) for x in pos)
     b_ms, b_by = bound(_int8_bytes(rows, hk, b, g), 4 * rows * hk * g,
                        INT8_OPS)
     log(f"kernel flash_decode_int8 B={b} G={g} Hkv*K={hk} nl={nl} "
-        f"Tpad={tpad} layer={layer} pos={pos}: max_abs_err {err:.3e}, "
-        f"{steps:.3f} bf16 steps (tol {INT8_STEPS}), ms {ms:.4f}, plain_ms "
-        f"{plain_ms:.4f}, bound_ms "
+        f"Tpad={tpad} layer={layer} pos={pos} block_t={bt}"
+        f"{' (the reference default)' if block_t is None else ''}: "
+        f"max_abs_err {err:.3e}, {steps:.3f} bf16 steps (tol {INT8_STEPS}), "
+        f"ms {ms:.4f} (graph_ms {dev_ms:.4f}; grid {grid}, cluster "
+        f"{cluster}; scores in {scores}), plain_ms {plain_ms:.4f}, bound_ms "
         f"{b_ms:.6f} ({b_by}), library_ms none -> {'ok' if ok else 'FAIL'}")
     return dict(ok=ok, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                graph_ms=dev_ms)
+
+
+def _batch_case(int8: bool, pos: list[int], hkv: int = 6, kd: int = 128,
+                nl: int = 12, tpad: int = 640, layer: int = 7) -> dict:
+    """Every row of a B 8 launch of kernel #3 decoded again alone (B 1):
+    bitwise equal, and a second B 8 launch bitwise equal to the first."""
+    import torch
+
+    from deeplearning4j_tpu_torch.ops import flash_decode as fd
+
+    b, hk = len(pos), hkv * kd
+    gen = torch.Generator(device="cuda").manual_seed(7000 + int8)
+    q = torch.randn((b, 1, hk), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    if int8:
+        cache, scales = _int8_store(gen, (nl, 2, b, tpad, hk))
+    else:
+        cache = torch.randn((nl, 2, b, tpad, hk), generator=gen,
+                            device="cuda", dtype=torch.bfloat16)
+        scales = None
+    p = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    out = fd.flash_decode_attention(q, cache, p, hkv, layer,
+                                    kv_scales=scales)
+    again = torch.equal(out, fd.flash_decode_attention(
+        q, cache, p, hkv, layer, kv_scales=scales))
+    alone = [torch.equal(out[i], fd.flash_decode_attention(
+        q[i:i + 1].contiguous(), cache[:, :, i:i + 1].contiguous(),
+        p[i:i + 1], hkv, layer,
+        kv_scales=None if scales is None
+        else scales[:, :, i:i + 1].contiguous())[0]) for i in range(b)]
+    ok = again and all(alone)
+    log(f"kernel flash_decode{'_int8' if int8 else ''} B 1 vs B 8 pos={pos}: "
+        f"rows bitwise equal {sum(alone)}/{b}, run vs run bitwise {again} "
+        f"-> {'ok' if ok else 'FAIL'}")
+    return dict(ok=ok)
 
 
 def _paged_case(int8: bool, bs: int, pos: list[int], b: int = 8,
@@ -403,7 +524,9 @@ def _paged_case(int8: bool, bs: int, pos: list[int], b: int = 8,
         return fd.flash_decode_attention_paged_plain(
             q, blocks, tables, p, hkv, layer, block_scales=scales)
 
-    out, ref = run(), plain()
+    out = run()
+    grid, cluster = fd.last_launch()
+    ref = plain()
     slab = fd._gather_rows(blocks, tables, layer).contiguous()
     sslab = (None if scales is None
              else fd._gather_rows(scales, tables, layer).contiguous())
@@ -420,7 +543,7 @@ def _paged_case(int8: bool, bs: int, pos: list[int], b: int = 8,
         err = (out.float() - ref.float()).abs().max().item()
         ok = finite and err <= ATTN_TOL
         tol = f"tol {ATTN_TOL}"
-    ms = time_ms(run)
+    ms, dev_ms = time_ms(run), graph_ms(run)
     plain_ms = time_ms(plain, iters=10)
     rows = sum(min(x + 1, tpad) for x in pos)
     tab = 4 * sum(-(-min(x + 1, tpad) // bs) for x in pos)
@@ -434,10 +557,12 @@ def _paged_case(int8: bool, bs: int, pos: list[int], b: int = 8,
     log(f"kernel flash_decode_paged {'int8' if int8 else 'bf16'} bs={bs} "
         f"B={b} Hkv*K={hk} nl={nl} Tpad={tpad} layer={layer}: max_abs_err "
         f"{err:.3e} ({tol}), bitwise == slab kernel on the gathered slab "
-        f"{bitwise}, ms {ms:.4f}, plain_ms {plain_ms:.4f}, bound_ms "
-        f"{b_ms:.6f} ({b_by}), library_ms none -> {'ok' if ok else 'FAIL'}")
+        f"{bitwise}, ms {ms:.4f} (graph_ms {dev_ms:.4f}; grid {grid}, "
+        f"cluster {cluster}), plain_ms {plain_ms:.4f}, bound_ms {b_ms:.6f} "
+        f"({b_by}), library_ms none -> {'ok' if ok else 'FAIL'}")
     return dict(ok=ok, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                graph_ms=dev_ms)
 
 
 def _emb_dot_case(b: int, L: int, d: int, planted: bool = False,
@@ -494,6 +619,12 @@ def _emb_dot_case(b: int, L: int, d: int, planted: bool = False,
                 bmm_dot_ms=bmm_ms)
 
 
+#: decode positions on either side of the kernels' split edges (rows per
+#: split a multiple of 8 of (pos + 1) / 16: 8 -> 16 past pos 127, one
+#: 32-row stage -> two past pos 511), and the first and last row
+SPLIT_EDGE_POS = [0, 7, 8, 127, 128, 511, 512, 639]
+
+
 def phase_kernels(w2v_code_len: int) -> dict[str, dict]:
     """Kernel vs plain version at the slices' shapes. Returns, per kernel,
     the numbers of its main-path case (the last one listed: the training
@@ -510,10 +641,18 @@ def phase_kernels(w2v_code_len: int) -> dict[str, dict]:
     pos = [0, 639] + [rng.randrange(1, 639) for _ in range(6)]
     dec = [
         _decode_case(4, 3, 2, 128, 2, 256, 1, [0, 17, 100, 255]),
+        _decode_case(8, 1, 6, 128, 12, 640, 7, SPLIT_EDGE_POS),
+        _batch_case(False, pos),
         _decode_case(8, 1, 6, 128, 12, 640, 7, pos),
     ]
     dec8 = [
         _decode_int8_case(4, 3, 2, 128, 2, 256, 1, [0, 17, 100, 255]),
+        _decode_int8_case(8, 1, 6, 128, 12, 640, 7, SPLIT_EDGE_POS),
+        _decode_int8_case(8, 1, 6, 128, 12, 640, 7, pos, block_t=64),
+        # one 1,592-row tile (the rule's cap at Hkv*K 768) over 48 lanes:
+        # 200 rows a block, whose scores go to the wrapper's scratch tensor
+        _decode_int8_case(2, 4, 12, 64, 2, 1592, 1, [1591, 700]),
+        _batch_case(True, pos),
         _decode_int8_case(8, 1, 6, 128, 12, 640, 7, pos),
     ]
     paged = [_paged_case(int8, bs, pos) for bs in (64, 8)

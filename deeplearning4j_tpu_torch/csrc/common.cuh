@@ -10,6 +10,10 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <map>
+#include <mutex>
+#include <utility>
+
 namespace dl4j {
 
 // dtype codes passed from the Python wrappers
@@ -52,12 +56,24 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-// opt a kernel into more than 48 KB of dynamic shared memory when needed
+// opt a kernel into more than 48 KB of dynamic shared memory when needed;
+// the largest size granted per (kernel, device) is kept, so a launch's
+// host path sets the attribute only when it grows
 template <typename K>
 inline cudaError_t allow_smem(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  static std::mutex mu;
+  static std::map<std::pair<const void*, int>, size_t> granted;
+  std::lock_guard<std::mutex> lock(mu);
+  size_t& have = granted[{reinterpret_cast<const void*>(kernel), dev}];
+  if (have >= bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess) have = bytes;
+  return err;
 }
 
 }  // namespace dl4j

@@ -14,20 +14,26 @@ and runs the slab kernel instead).
 What bounds them on the H100, and what the design does: HBM bytes. A call
 must read the visible K and V rows of one layer (int8 mode: one byte an
 element plus a 4-byte scale a row; paged: plus the table ints) at a few
-operations per element. Every visible row is streamed once per block, layer
-``layer`` is read straight out of the stacked buffer through strides (no
-slice copy), and no tile past ``pos[b]`` is touched. bf16/f32 mode runs a
-block per (batch row, KV head), 48 at 8 slots x 6 heads; int8 mode a block
-per batch row (8 blocks), because its softmax-weight scale spans every head
-of a tile. Neither grid fills a 132-SM card; splitting T across blocks is
-the first redesign item.
+operations per byte. Layer ``layer`` is read straight out of the stacked
+buffer through strides (no slice copy), no row past ``pos[b]`` is touched,
+and every block streams its rows through a ring of ``cp.async`` stages.
+bf16/f32 mode splits each row's visible rows over a cluster of 8 blocks
+per (batch row, KV head) (:func:`last_launch` reads a launch's grid and
+cluster) and combines their partials through distributed shared memory;
+int8 mode spreads each tile of
+a batch row over a cluster of blocks that exchange the lane maxima, the
+softmax-weight scale and the int32 P V sums the same way (its scale spans
+every head and row of a tile). Split boundaries depend on ``pos[b]`` and
+``block_t`` alone, so a row decodes bitwise the same at any batch size and
+the paged kernel over a pool is bitwise the slab kernel over the gathered
+slab.
 
 The tile is part of the function in int8 mode (one softmax-weight scale per
-tile), so the functions take ``block_t``: the kernels are built for
-:data:`TILE` rows and raise ``ValueError`` for another; the plain versions
-take any multiple of 8. The paged kernel tiles at :data:`TILE` rows for any
-block size, so over a pool it is bitwise the slab kernel over the gathered
-slab.
+tile). Its default is the reference's (:func:`default_block_t`, a copy of
+``pallas_kernels.py:682-712``): at GPT-2-small's width one tile over the
+whole cache. Kernels and plain versions take any ``block_t`` that is a
+positive multiple of 8 (the last tile may be short); in bf16/f32 mode it
+changes nothing.
 
 Dispatch: a CPU tensor runs the plain version; a CUDA tensor launches the
 kernel or raises. There is no fallback between them.
@@ -36,6 +42,7 @@ kernel or raises. There is no fallback between them.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -49,13 +56,9 @@ launches = 0
 int8_launches = 0
 paged_launches = 0
 
-#: cache rows per online-softmax step of the CUDA kernels (``DT`` in
-#: csrc/flash_decode.cu), the plain versions' default tile
-TILE = 64
-
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 256
-#: int8 mode keeps the G x Hkv softmax lanes of a batch row in one block
+#: int8 mode keeps the G x Hkv softmax lanes of a batch row in each block
 _MAX_INT8_LANES = 64
 
 
@@ -75,12 +78,36 @@ def _pos_vector(pos, b: int, device) -> torch.Tensor:
     return torch.full((b,), int(pos), dtype=torch.int32, device=device)
 
 
-def _tile(block_t) -> int:
-    bt = TILE if block_t is None else int(block_t)
-    if bt <= 0 or bt % 8:
-        raise ValueError(f"block_t must be a positive multiple of 8, got "
-                         f"{block_t}")
-    return bt
+@functools.lru_cache(maxsize=64)
+def default_block_t(t: int, hk: int, itemsize: int) -> int:
+    """The reference's default decode tile (pallas_kernels.py:682-712): as
+    few tiles as its VMEM budget allows, at most 14 MiB / (hk * eff_bytes *
+    4) rows (eff_bytes 3 for an int8 cache, else the item size), then the
+    smallest tile count that divides T into 8-aligned tiles. ``t`` is the
+    logical cache length (``bps * bs`` for a block pool)."""
+    if t <= 0 or t % 8:
+        raise ValueError(f"cache T must be a positive multiple of 8, got {t}")
+    eff_bytes = 3 if itemsize == 1 else itemsize
+    cap = max(8, (14 * 1024 * 1024) // (hk * eff_bytes * 4))
+    n_t = -(-t // cap)
+    while t % n_t or (t // n_t) % 8:
+        n_t += 1
+    return t // n_t
+
+
+def _tile(block_t, store: torch.Tensor, t: int, int8: bool) -> int:
+    """The int8 tile: ``block_t``, or the reference's default for this
+    cache (logical length ``t``); a given ``block_t`` is checked in both
+    modes."""
+    if block_t is not None:
+        bt = int(block_t)
+        if bt <= 0 or bt % 8:
+            raise ValueError(f"block_t must be a positive multiple of 8, "
+                             f"got {block_t}")
+        return bt
+    if not int8:
+        return 0  # the bf16/f32 function has no tile
+    return default_block_t(t, store.shape[-1], store.element_size())
 
 
 def _quant8(x: torch.Tensor) -> torch.Tensor:
@@ -162,11 +189,12 @@ def flash_decode_attention_plain(q: torch.Tensor, kvcache: torch.Tensor,
     row max, probabilities cast to the cache dtype for the PV product with
     f32 accumulation (``block_t`` changes nothing here). int8 mode
     (``kv_scales`` (n_layers, 2, B, T, 1) f32 beside an int8 cache): the
-    reference's quantized online softmax over ``block_t``-row tiles."""
+    reference's quantized online softmax over ``block_t``-row tiles, by
+    default :func:`default_block_t` of this cache."""
     b, g, hk = q.shape
     t = kvcache.shape[3]
     kd = hk // n_kv_heads
-    bt = _tile(block_t)
+    bt = _tile(block_t, kvcache, t, kv_scales is not None)
     p = _pos_vector(pos, b, q.device).long()
     if kv_scales is not None:
         return _plain_int8(q, kvcache, kv_scales, p, n_kv_heads, layer, bt)
@@ -270,15 +298,41 @@ def _kernel(name: str, n_ptrs: int, n_ints: int):
         fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [
             ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    tile = lib.dl4j_flash_decode_tile
-    tile.argtypes, tile.restype = [], ctypes.c_int
-    return lib, fn, tile()
+    return lib, fn
 
 
-def _check_tile(block_t, built: int) -> None:
-    if block_t is not None and int(block_t) != built:
-        raise ValueError(f"the CUDA decode kernels are built for block_t = "
-                         f"{built} rows, got {block_t}")
+def last_launch() -> tuple[tuple[int, int, int], tuple[int, int, int]]:
+    """(grid, cluster) of this thread's last launch of either decode
+    kernel, as the library passed them to ``cudaLaunchKernelEx``."""
+    fn = _build.library("flash_decode").dl4j_flash_decode_last_launch
+    fn.argtypes, fn.restype = [ctypes.c_void_p], None
+    dims = (ctypes.c_int * 6)()
+    fn(dims)
+    return tuple(dims[:3]), tuple(dims[3:])
+
+
+@functools.lru_cache(maxsize=64)
+def _needs_scratch(g: int, n_kv_heads: int, block_t: int, t: int) -> bool:
+    """Whether int8 mode keeps a tile's scores in the wrapper's scratch
+    tensor (the rows a block takes do not fit in its shared memory)."""
+    need = _build.library("flash_decode").dl4j_flash_decode_int8_scratch
+    need.argtypes, need.restype = [ctypes.c_int] * 4, ctypes.c_int
+    return bool(need(g, n_kv_heads, block_t, t))
+
+
+def _scratch(q, n_kv_heads: int, t: int, block_t: int, int8: bool, store):
+    """int8 mode's score scratch, (B, T, G*Hkv + 1) f32, where the scores of
+    a block's rows do not fit in shared memory (the kernel allocates
+    nothing); an int8 store must start 4-byte aligned."""
+    if not int8:
+        return None
+    if store.data_ptr() % 4:
+        raise ValueError("the int8 cache must start 4-byte aligned")
+    b, g, _ = q.shape
+    if not _needs_scratch(g, n_kv_heads, block_t, t):
+        return None
+    return torch.empty((b, t, g * n_kv_heads + 1), dtype=torch.float32,
+                       device=q.device)
 
 
 def _launch(q, kvcache, pos, n_kv_heads, layer, block_t=None,
@@ -294,17 +348,20 @@ def _launch(q, kvcache, pos, n_kv_heads, layer, block_t=None,
     if not 0 <= layer < kvcache.shape[0]:
         raise ValueError(f"layer {layer} outside the {kvcache.shape[0]}-layer "
                          f"cache")
-    lib, fn, built = _kernel("dl4j_flash_decode", 5, 6)
-    _check_tile(block_t, built)
+    int8 = kv_scales is not None
+    t = kvcache.shape[3]
+    bt = _tile(block_t, kvcache, t, int8)
+    lib, fn = _kernel("dl4j_flash_decode", 6, 7)
     kd = hk // n_kv_heads
     p = _pos_vector(pos, b, q.device)
+    scr = _scratch(q, n_kv_heads, t, bt, int8, kvcache)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    int8 = kv_scales is not None
     err = fn(q.data_ptr(), kvcache.data_ptr(),
              kv_scales.data_ptr() if int8 else None, p.data_ptr(),
-             out.data_ptr(), b, g, n_kv_heads, kd, kvcache.shape[3], layer,
-             1.0 / math.sqrt(kd), _DTYPES[q.dtype], int(int8), stream)
+             None if scr is None else scr.data_ptr(), out.data_ptr(), b, g,
+             n_kv_heads, kd, t, layer, bt, 1.0 / math.sqrt(kd),
+             _DTYPES[q.dtype], int(int8), stream)
     _build.check(lib, err, what)
     if int8:
         int8_launches += 1
@@ -329,18 +386,22 @@ def _launch_paged(q, blocks, tables, pos, n_kv_heads, layer, block_t=None,
     if not 0 <= layer < blocks.shape[0]:
         raise ValueError(f"layer {layer} outside the {blocks.shape[0]}-layer "
                          f"pool")
-    lib, fn, built = _kernel("dl4j_flash_decode_paged", 6, 8)
-    _check_tile(block_t, built)
+    int8 = block_scales is not None
+    t = tables.shape[1] * blocks.shape[3]  # the logical T of every row
+    bt = _tile(block_t, blocks, t, int8)
+    lib, fn = _kernel("dl4j_flash_decode_paged", 7, 9)
     kd = hk // n_kv_heads
     p = _pos_vector(pos, b, q.device)
+    scr = _scratch(q, n_kv_heads, t, bt, int8, blocks)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    int8 = block_scales is not None
     err = fn(q.data_ptr(), blocks.data_ptr(),
              block_scales.data_ptr() if int8 else None, tables.data_ptr(),
-             p.data_ptr(), out.data_ptr(), b, g, n_kv_heads, kd,
-             blocks.shape[2], blocks.shape[3], tables.shape[1], layer,
-             1.0 / math.sqrt(kd), _DTYPES[q.dtype], int(int8), stream)
+             p.data_ptr(), None if scr is None else scr.data_ptr(),
+             out.data_ptr(),
+             b, g, n_kv_heads, kd, blocks.shape[2], blocks.shape[3],
+             tables.shape[1], layer, bt, 1.0 / math.sqrt(kd),
+             _DTYPES[q.dtype], int(int8), stream)
     _build.check(lib, err, what)
     paged_launches += 1
     return out

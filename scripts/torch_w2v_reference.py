@@ -4,7 +4,8 @@ full-width configuration of ``chip_smoke.py``'s phase 6, from the same
 tables.
 
     JAX_PLATFORMS=cpu python3 scripts/torch_w2v_reference.py \
-        [--sentences N] [--perturb EPS] [--clip] [--out PATH]
+        [--sentences N] [--perturb EPS [--perturb-port]] [--clip]
+        [--out PATH]
 
 Both sides train ``Word2Vec(layer_size=100, window=5, batch_pairs=4096,
 lr=0.025, min_word_frequency=1, epochs=1)`` (HS) on the first N sentences
@@ -16,7 +17,8 @@ port and the reference the largest difference and the rows that differ by
 more than 1e-3.
 
 ``--perturb EPS`` adds a reference fit from syn0 * (1 + EPS): how far a
-last-bit difference carries at this batch size. ``--clip`` adds a port fit
+last-bit difference carries at this batch size; ``--perturb-port`` adds
+the same nudged fit on the port's side. ``--clip`` adds a port fit
 that clips saturated dots instead of skipping them (the fault the
 reference's ``test_word2vec_many_epochs_stays_bounded`` guards against).
 
@@ -99,6 +101,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--sentences", type=int, default=4000)
     ap.add_argument("--perturb", type=float, default=None, metavar="EPS")
+    ap.add_argument("--perturb-port", action="store_true")
     ap.add_argument("--clip", action="store_true")
     ap.add_argument("--out", default=None, metavar="PATH")
     args = ap.parse_args()
@@ -124,6 +127,9 @@ def main() -> int:
         nudged = (syn0 * np.float32(1 + args.perturb)).astype(np.float32)
         out["reference_perturbed"], pert = _fit("reference", corpus, nudged)
         out["perturbed_vs_reference"] = _apart(pert, ref)
+        if args.perturb_port:
+            out["port_perturbed"], pport = _fit("port", corpus, nudged)
+            out["port_perturbed_vs_port"] = _apart(pport, port)
     if args.clip:
         out["port_clip"], _ = _fit("port", corpus, syn0, clip=True)
     line = json.dumps(out)

@@ -17,8 +17,8 @@ from deeplearning4j_tpu_torch.ops import flash_decode as fd
 # f32 on both sides: only the summation order differs
 ATOL = 1e-5
 # bf16 kernel vs plain on the card: the kernel rounds its softmax weights
-# to bf16 against each 64-row tile's running max, the plain version against
-# the row max
+# to bf16 against the running max of each 32-row stage of its split, the
+# plain version against the row max
 ATOL_BF16 = 2e-2
 
 
@@ -97,3 +97,52 @@ def test_decode_kernel_matches_plain_on_card(cuda_device, g, hkv):
     ref = fd.flash_decode_attention_plain(q, cache, pos, hkv, layer=3)
     assert fd.launches == before + 1
     assert (out.float() - ref.float()).abs().max().item() <= ATOL_BF16
+
+
+def _card_inputs(device, g, hkv, seed, b=8, nl=4, t=640, kd=128):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn((b, g, hkv * kd), generator=gen, device=device,
+                    dtype=torch.bfloat16)
+    cache = torch.randn((nl, 2, b, t, hkv * kd), generator=gen,
+                        device=device, dtype=torch.bfloat16)
+    return q, cache
+
+
+#: n = pos + 1 on either side of the kernel's split edges (rows per split a
+#: multiple of 8 of n / 16: 8 -> 16 at n 129; one 32-row stage -> two at
+#: n 513), and 0
+SPLIT_EDGE_POS = [0, 7, 8, 127, 128, 511, 512, 639]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,hkv", [(1, 6), (3, 2)])
+def test_decode_kernel_split_edges_on_card(cuda_device, g, hkv):
+    q, cache = _card_inputs(cuda_device, g, hkv, seed=40 + g)
+    pos = torch.tensor(SPLIT_EDGE_POS, dtype=torch.int32, device=cuda_device)
+    out = fd.flash_decode_attention(q, cache, pos, hkv, layer=1)
+    ref = fd.flash_decode_attention_plain(q, cache, pos, hkv, layer=1)
+    assert (out.float() - ref.float()).abs().max().item() <= ATOL_BF16
+    # the tile changes nothing in this mode; a non-multiple of 8 is refused
+    assert torch.equal(out, fd.flash_decode_attention(q, cache, pos, hkv,
+                                                      layer=1, block_t=8))
+    with pytest.raises(ValueError, match="block_t"):
+        fd.flash_decode_attention(q, cache, pos, hkv, layer=1, block_t=12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_kernel_rows_are_batch_independent_on_card(cuda_device,
+                                                           dtype):
+    """Each row decodes bitwise the same alone (B 1) as in the batch of 8,
+    and a second launch repeats the first bitwise."""
+    q, cache = _card_inputs(cuda_device, 1, 6, seed=50)
+    q, cache = q.to(dtype), cache.to(dtype)
+    pos = torch.tensor(SPLIT_EDGE_POS, dtype=torch.int32, device=cuda_device)
+    out = fd.flash_decode_attention(q, cache, pos, 6, layer=2)
+    assert torch.equal(out, fd.flash_decode_attention(q, cache, pos, 6,
+                                                      layer=2))
+    for i in range(q.shape[0]):
+        one = fd.flash_decode_attention(
+            q[i:i + 1].contiguous(), cache[:, :, i:i + 1].contiguous(),
+            pos[i:i + 1], 6, layer=2)
+        assert torch.equal(one[0], out[i])

@@ -4,12 +4,15 @@ inputs and weights:
 - ``quantize_decode_params`` bitwise per leaf, and ``params_from_jax`` of a
   quantized tree;
 - the int8 mode of kernel #3's plain version against the reference's
-  Pallas kernel in interpret mode, at ``block_t`` 8 and one tile over T;
+  Pallas kernel in interpret mode, at ``block_t`` 8 and one tile over T,
+  and at both sides' default tiles past 64 rows; the default tile rule
+  against the reference's;
 - ``_decode_builder`` logits (prefill and decode steps) with the int8 KV
   cache over quantized weights, and the weights-only split;
 - greedy streams of the port's int8 engine against the reference's int8
-  engine;
-- on the card, the CUDA int8 mode against its plain version.
+  engine, at max_len 32 and 128;
+- on the card, the CUDA int8 mode against its plain version (at split
+  edges and several tiles), B 1 against B 8 and run against run bitwise.
 
 The reference is imported by fixtures, so the CUDA cases also run where JAX
 is not installed (``pytest --noconftest -m cuda`` on the card's machine).
@@ -87,26 +90,94 @@ def test_int8_plain_matches_pallas(ref, b, g, hkv, t, pos, layer, one_tile):
 
 
 def test_int8_default_tile_is_one_tile_up_to_64_rows():
-    """At T <= 64 the port's default tile (64 rows) is one tile over T, the
-    reference's default at these widths; past 64 rows the tiling changes
-    the function (one softmax-weight scale per tile)."""
+    """The port's default int8 tile is the reference's rule
+    (:func:`fd.default_block_t`): at these widths one tile over the whole
+    128-row cache. Up to 64 rows that is also the 64-row tiling; past 64
+    rows the tiling changes the function (one softmax-weight scale per
+    tile), and the default is the one-tile function."""
     q, qcache, scales = _int8_inputs(2, 1, 2, 16, 128, nl=1, seed=8)
+    assert fd.default_block_t(128, 32, 1) == 128
     args = (torch.from_numpy(q), torch.from_numpy(qcache))
     sc = torch.from_numpy(scales)
     for pos in (40, 63):
         a = fd.flash_decode_attention(*args, pos, 2, kv_scales=sc)
         b = fd.flash_decode_attention(*args, pos, 2, block_t=64, kv_scales=sc)
-        assert torch.equal(a, b)
+        c = fd.flash_decode_attention(*args, pos, 2, block_t=128,
+                                      kv_scales=sc)
+        assert torch.equal(a, b) and torch.equal(a, c)
     a = fd.flash_decode_attention(*args, 127, 2, kv_scales=sc)
     b = fd.flash_decode_attention(*args, 127, 2, block_t=128, kv_scales=sc)
-    assert not torch.equal(a, b)
+    c = fd.flash_decode_attention(*args, 127, 2, block_t=64, kv_scales=sc)
+    assert torch.equal(a, b) and not torch.equal(a, c)
 
 
-def _card_case(device, g, hkv, seed):
+@pytest.mark.parametrize(
+    "t,g,hkv,kd",
+    [
+        (256, 1, 2, 16),
+        (640, 2, 3, 16),
+    ],
+)
+def test_int8_default_tile_matches_reference_default(ref, t, g, hkv, kd):
+    """The port's int8 decode at its default tile against the reference's
+    at ITS default ``block_t`` (neither side passes one), with positions
+    past 64 rows: a 64-row default tile is a different function there."""
+    jnp, flash_decode_attention = ref
+    q, qcache, scales = _int8_inputs(4, g, hkv, kd, t, nl=1, seed=t + hkv)
+    pos = np.array([0, 64, 65, t - 1], np.int32)
+    out_ref = flash_decode_attention(
+        jnp.asarray(q), jnp.asarray(qcache), jnp.asarray(pos), hkv,
+        interpret=True, kv_scales=jnp.asarray(scales))
+    out = fd.flash_decode_attention(
+        torch.from_numpy(q), torch.from_numpy(qcache), torch.from_numpy(pos),
+        hkv, kv_scales=torch.from_numpy(scales))
+    assert np.abs(np.asarray(out_ref) - out.numpy()).max() <= ATOL
+
+
+class _Stop(Exception):
+    pass
+
+
+@pytest.mark.parametrize(
+    "t,hk,dtype",
+    [
+        (24, 32, "float32"),
+        (640, 768, "int8"),
+        (640, 2048, "int8"),
+        (8704, 256, "int8"),
+        (8704, 256, "bfloat16"),
+        (1000, 2048, "bfloat16"),
+        (1024, 4096, "float32"),
+    ],
+)
+def test_default_block_t_is_the_references(ref, monkeypatch, t, hk, dtype):
+    """:func:`fd.default_block_t` against the tile the reference's
+    ``flash_decode_attention`` picks for the same cache (read off the grid
+    it hands to ``pallas_call``, which is stopped before it runs)."""
+    jnp, flash_decode_attention = ref
+    pk = pytest.importorskip("deeplearning4j_tpu.ops.pallas_kernels")
+    seen = {}
+
+    def stop(kernel, *, grid, **kw):
+        seen["n_t"] = grid[1]
+        raise _Stop
+
+    monkeypatch.setattr(pk.pl, "pallas_call", stop)
+    cache = jnp.zeros((1, 2, 1, t, hk), getattr(jnp, dtype))
+    scales = (jnp.zeros((1, 2, 1, t, 1), jnp.float32) if dtype == "int8"
+              else None)
+    with pytest.raises(_Stop):
+        flash_decode_attention(jnp.zeros((1, 1, hk), jnp.float32), cache, 0,
+                               1, kv_scales=scales)
+    itemsize = np.dtype(jnp.dtype(getattr(jnp, dtype))).itemsize
+    assert fd.default_block_t(t, hk, itemsize) == t // seen["n_t"]
+
+
+def _card_case(device, g, hkv, seed, b=8):
     """GPT-2-small's decode shape in int8 (B 8, 12 layers, Tpad 640, head
     dim 128), positions 0 and 639 among them."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    b, kd, nl, t = 8, 128, 12, 640
+    kd, nl, t = 128, 12, 640
     q = torch.randn((b, g, hkv * kd), generator=gen, device=device,
                     dtype=torch.bfloat16)
     cache = torch.randint(-127, 128, (nl, 2, b, t, hkv * kd), generator=gen,
@@ -117,8 +188,15 @@ def _card_case(device, g, hkv, seed):
     return q, cache, scales, pos
 
 
+def _steps(out, ref):
+    """max |out - ref| in bf16 steps (ulps) of ref's binade."""
+    r = ref.float()
+    step = torch.ldexp(torch.ones_like(r), torch.frexp(r).exponent - 8)
+    return ((out.float() - r).abs() / step).max().item()
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("g,hkv", [(1, 6), (3, 2)])
+@pytest.mark.parametrize("g,hkv", [(1, 6), (3, 2), (1, 12)])
 def test_int8_kernel_matches_plain_on_card(cuda_device, g, hkv):
     q, cache, scales, pos = _card_case(cuda_device, g, hkv, seed=10 + g)
     before = (fd.launches, fd.int8_launches)
@@ -127,12 +205,79 @@ def test_int8_kernel_matches_plain_on_card(cuda_device, g, hkv):
     assert (fd.launches, fd.int8_launches) == (before[0], before[1] + 1)
     ref = fd.flash_decode_attention_plain(q, cache, pos, hkv, layer=7,
                                           kv_scales=scales)
-    r = ref.float()
-    step = torch.ldexp(torch.ones_like(r), torch.frexp(r).exponent - 8)
-    assert ((out.float() - r).abs() / step).max().item() <= INT8_STEPS
+    assert _steps(out, ref) <= INT8_STEPS
+    # a tile that is not a multiple of 8 is refused; 8 is honoured
     with pytest.raises(ValueError, match="block_t"):
-        fd.flash_decode_attention(q, cache, pos, hkv, layer=7, block_t=8,
+        fd.flash_decode_attention(q, cache, pos, hkv, layer=7, block_t=12,
                                   kv_scales=scales)
+    out8 = fd.flash_decode_attention(q, cache, pos, hkv, layer=7, block_t=8,
+                                     kv_scales=scales)
+    ref8 = fd.flash_decode_attention_plain(q, cache, pos, hkv, layer=7,
+                                           block_t=8, kv_scales=scales)
+    assert _steps(out8, ref8) <= INT8_STEPS
+
+
+#: n = pos + 1 on either side of the kernels' split edges (rows per split a
+#: multiple of 8 of n / 16: 8 -> 16 at n 129, 32 -> 40 at n 513), and 0
+SPLIT_EDGE_POS = [0, 7, 8, 127, 128, 511, 512, 639]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_t", [None, 320, 64, 8])
+def test_int8_kernel_split_edges_on_card(cuda_device, block_t):
+    """Kernel vs plain at positions on either side of every split edge,
+    at the default tile (640 here), a tile the rule yields at hk 2048
+    (320) and smaller ones (64, and 8 = the reference's paged tiling at
+    block size 8)."""
+    q, cache, scales, _ = _card_case(cuda_device, 1, 6, seed=21)
+    pos = torch.tensor(SPLIT_EDGE_POS, dtype=torch.int32, device=cuda_device)
+    out = fd.flash_decode_attention(q, cache, pos, 6, layer=3,
+                                    block_t=block_t, kv_scales=scales)
+    ref = fd.flash_decode_attention_plain(q, cache, pos, 6, layer=3,
+                                          block_t=block_t, kv_scales=scales)
+    assert _steps(out, ref) <= INT8_STEPS
+
+
+@pytest.mark.cuda
+def test_int8_kernel_scores_in_scratch_on_card(cuda_device):
+    """A tile whose scores do not fit in shared memory (G 8 x Hkv 8 lanes,
+    one 2048-row tile: 256 rows a block) goes through the wrapper's scratch
+    tensor: kernel vs plain as at the serving shape."""
+    gen = torch.Generator(device=cuda_device).manual_seed(41)
+    b, g, hkv, kd, t = 2, 8, 8, 16, 2048
+    assert fd.default_block_t(t, hkv * kd, 1) == t
+    q = torch.randn((b, g, hkv * kd), generator=gen, device=cuda_device,
+                    dtype=torch.bfloat16)
+    cache = torch.randint(-127, 128, (1, 2, b, t, hkv * kd), generator=gen,
+                          device=cuda_device, dtype=torch.int8)
+    scales = torch.rand((1, 2, b, t, 1), generator=gen,
+                        device=cuda_device) * 0.02
+    assert fd._scratch(q, hkv, t, t, True, cache) is not None
+    pos = torch.tensor([t - 1, 1000], dtype=torch.int32, device=cuda_device)
+    out = fd.flash_decode_attention(q, cache, pos, hkv, kv_scales=scales)
+    ref = fd.flash_decode_attention_plain(q, cache, pos, hkv,
+                                          kv_scales=scales)
+    assert _steps(out, ref) <= INT8_STEPS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,hkv", [(1, 6), (3, 2)])
+def test_int8_kernel_rows_are_batch_independent_on_card(cuda_device, g, hkv):
+    """Each row decodes bitwise the same alone (B 1) as in the batch of 8,
+    and a second launch repeats the first bitwise."""
+    q, cache, scales, _ = _card_case(cuda_device, g, hkv, seed=31)
+    pos = torch.tensor(SPLIT_EDGE_POS, dtype=torch.int32, device=cuda_device)
+    out = fd.flash_decode_attention(q, cache, pos, hkv, layer=5,
+                                    kv_scales=scales)
+    again = fd.flash_decode_attention(q, cache, pos, hkv, layer=5,
+                                      kv_scales=scales)
+    assert torch.equal(out, again)
+    for i in range(q.shape[0]):
+        one = fd.flash_decode_attention(
+            q[i:i + 1].contiguous(), cache[:, :, i:i + 1].contiguous(),
+            pos[i:i + 1], hkv, layer=5,
+            kv_scales=scales[:, :, i:i + 1].contiguous())
+        assert torch.equal(one[0], out[i])
 
 
 # -- weights, decode builder and engine against the reference -------------------
@@ -159,11 +304,12 @@ def _configs(jt):
     }
 
 
-def _pair(jt, name, decode_int8, seed=0):
+def _pair(jt, name, decode_int8, seed=0, **kw):
     """Reference config + float params, and the port's counterparts."""
     import jax
 
-    jcfg = dataclasses.replace(_configs(jt)[name], decode_int8=decode_int8)
+    jcfg = dataclasses.replace(_configs(jt)[name], decode_int8=decode_int8,
+                               **kw)
     jparams = jt.init_transformer(jax.random.key(seed), jcfg)
     tcfg = pt.TransformerConfig.from_json(jcfg.to_json())
     tparams = pt.params_from_jax(_np_tree(jparams), tcfg, device="cpu")
@@ -293,23 +439,26 @@ def test_int8_dense_chunk_path(jt):
 NEAR_TIE = 1e-4
 
 
-def test_int8_engine_matches_reference_engine(jt):
+def _engine_parity(jt, max_len, prompt_range, new_range, seed):
     """Greedy streams of the reference's int8 engine and the port's, on the
-    reference test's config (GQA + RoPE, full int8), the same requests and
-    weights; both engines' streams also equal the port's generate."""
+    reference test's config (GQA + RoPE, full int8) at ``max_len``, the
+    same requests and weights; both engines' streams also equal the port's
+    generate."""
     from deeplearning4j_tpu.serving import Request as JRequest
     from deeplearning4j_tpu.serving import ServingEngine as JEngine
     from deeplearning4j_tpu_torch.serving import Request, ServingEngine
 
-    jcfg, jparams, tcfg, tparams = _pair(jt, "gqa_rope", decode_int8=True)
+    jcfg, jparams, tcfg, tparams = _pair(jt, "gqa_rope", decode_int8=True,
+                                         max_len=max_len)
     jq = jt.quantize_decode_params(jparams, jcfg)
     tq = pt.quantize_decode_params(tparams, tcfg)
-    rng = np.random.default_rng(3)
+    rng = np.random.default_rng(seed)
     specs = []
     for _ in range(5):
-        tp = int(rng.integers(3, 10))
+        tp = int(rng.integers(*prompt_range))
         specs.append((rng.integers(0, 64, (tp,)).astype(np.int32),
-                      int(rng.integers(4, min(12, 32 - tp)))))
+                      int(rng.integers(new_range[0],
+                                       min(new_range[1], max_len - tp)))))
     jengine = JEngine(jcfg, jq, n_slots=2, temperature=0.0)
     jreqs = [JRequest(prompt=p, max_new=m) for p, m in specs]
     for r in jreqs:
@@ -333,3 +482,17 @@ def test_int8_engine_matches_reference_engine(jt):
             i = int(diff[0]) - len(r.prompt)
             top2 = np.sort(logits[i, 0].numpy())[-2:]
             assert top2[1] - top2[0] < NEAR_TIE, (r.id, i, top2)
+    return specs
+
+
+def test_int8_engine_matches_reference_engine(jt):
+    """The reference engine test's setting: max_len 32 (one tile either
+    way)."""
+    _engine_parity(jt, 32, (3, 10), (4, 12), seed=3)
+
+
+def test_int8_engine_matches_reference_engine_past_64_rows(jt):
+    """max_len 128: prompts of 50-80 tokens decode past row 64, where the
+    reference's one-tile default and a 64-row tiling differ."""
+    specs = _engine_parity(jt, 128, (50, 80), (16, 40), seed=4)
+    assert max(len(p) + m for p, m in specs) > 80

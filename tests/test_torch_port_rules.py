@@ -177,6 +177,9 @@ def test_chip_smoke_alone_fails(tmp_path):
 # -- the flash kernels' sources ------------------------------------------------
 
 _FLASH = {"flash_attn_fwd": "flash_fwd", "flash_attn_bwd": "flash_bwd"}
+#: every source whose kernels' names a profile script groups by substring
+#: (scripts/torch_train_profile.py, scripts/torch_serve_profile.py:38)
+_NAMED = {**_FLASH, "flash_decode": "flash_decode"}
 
 
 def _with_headers(stem: str) -> str:
@@ -206,23 +209,26 @@ def test_flash_bf16_bodies_issue_tensor_core_instructions(stem):
     assert f"extern \"C\" int dl4j_{stem}_body(" in src
 
 
-@pytest.mark.parametrize("stem", sorted(_FLASH))
+@pytest.mark.parametrize("stem", sorted(_NAMED))
 def test_flash_sources_have_no_float_atomics(stem):
-    """The backward's determinism (remat on vs off bitwise equal) rests on
-    every sum running in one thread in a fixed order: no float atomics and
-    no bulk reductions into global memory, in the source or its headers."""
+    """The backward's determinism (remat on vs off bitwise equal) and the
+    decode kernels' (paged bitwise slab, B 1 bitwise B 8) rest on every sum
+    running in one thread, or across a cluster in rank order, in a fixed
+    order: no float atomics and no bulk reductions into global memory, in
+    the source or its headers."""
     full = _with_headers(stem)
     for banned in ("atomicAdd", "red.global", "red.add", "cp.reduce.async",
                    "atom.global.add"):
         assert banned not in full, banned
 
 
-@pytest.mark.parametrize("stem", sorted(_FLASH))
+@pytest.mark.parametrize("stem", sorted(_NAMED))
 def test_flash_kernel_symbols_keep_their_names(stem):
-    """scripts/torch_train_profile.py groups device time by these
-    substrings of the kernels' names."""
+    """scripts/torch_train_profile.py and scripts/torch_serve_profile.py
+    group device time by these substrings of the kernels' names."""
     src = (PKG / "csrc" / f"{stem}.cu").read_text()
     names = re.findall(r"__global__ void(?: __launch_bounds__\([^)]*\))?\s+"
                        r"(\w+)\(", src)
     assert len(names) >= 2
-    assert all(_FLASH[stem] in n for n in names), names
+    assert len(names) == src.count("__global__"), names
+    assert all(_NAMED[stem] in n for n in names), names
