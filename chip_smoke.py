@@ -22,10 +22,15 @@ Phases, in order; any failure exits non-zero without printing a result:
    at block sizes 8 and
    64 over shuffled tables with an aliased block, also held BITWISE against
    the slab kernel over the gathered slab; the fused embedding dot (#5)
-   with its range flag at Word2Vec's batch (4,096 pairs, D 100) for L 16
-   and for phase 6's longest Huffman path, and with masked rows and dots
-   planted at 6 -+ 1e-3 (no library call computes it: the time of
-   ``torch.bmm`` for the dot alone is printed beside it);
+   in its dense mode (the reference's function and the range flag) at
+   Word2Vec's batch (4,096 pairs, D 100) for L 16 and for phase 6's
+   longest Huffman path, and with masked rows and dots planted at 6 -+
+   1e-3 (no library call computes it: the time of ``torch.bmm`` for the
+   dot alone is printed beside it); and in its fused mode (the HS step's
+   gathers, dots, g, grad_in and delta rows, written at the scatter
+   plan's positions) at the same batch for L 16, for the longest path with
+   planted dots and masked rows, and on phase 6's first batch, each also
+   timed on the device alone (``graph_ms``) and run twice, bitwise;
 3. serve the GPT-2-small configuration (random weights from a seed) through
    ``ServingEngine``: about eight greedy requests, some past the 128-token
    prefill bucket, with every kernel's launch count set to 0 just before and
@@ -227,6 +232,7 @@ def _ptxas_entries(text: str) -> list[tuple[str, str, str]]:
             for r, n in zip(rows, names):
                 n = re.sub(r"\(anonymous namespace\)::|<unnamed>::", "", n)
                 n = n.replace("(bool)0", "false").replace("(bool)1", "true")
+                n = re.sub(r"\(int\)(-?\d+)", r"\1", n)
                 r[0] = n.removeprefix("void ").split("(", 1)[0]
     return [tuple(r) for r in rows]
 
@@ -598,7 +604,8 @@ def _emb_dot_case(b: int, L: int, d: int, planted: bool = False,
     if planted:
         ok = ok and torch.equal(in_range, (target.abs() < 6).float())
     saturated = int((in_range == 0).sum())
-    ms = time_ms(lambda: emb_dot.fused_embedding_dot_range(h, w, mask), iters)
+    run = lambda: emb_dot.fused_embedding_dot_range(h, w, mask)  # noqa: E731
+    ms, dev_ms = time_ms(run, iters), graph_ms(run)
     plain_ms = time_ms(
         lambda: emb_dot.fused_embedding_dot_range_plain(h, w, mask), iters)
     hv = h[:, :, None]
@@ -610,13 +617,145 @@ def _emb_dot_case(b: int, L: int, d: int, planted: bool = False,
     log(f"kernel emb_dot B={b} L={L} D={d}"
         f"{' planted |dot| = 6 -+ 1e-3, masked rows' if planted else ''}: "
         f"max_abs_err {err:.3e} (tol {EMB_TOL}), range flags equal "
-        f"{flags_equal} ({saturated} saturated of {b * L}), ms {ms:.4f}, "
-        f"plain_ms {plain_ms:.4f}, bound_ms {b_ms:.6f} ({b_by}), "
+        f"{flags_equal} ({saturated} saturated of {b * L}), ms {ms:.4f} "
+        f"(graph_ms {dev_ms:.4f}), plain_ms {plain_ms:.4f}, bound_ms {b_ms:.6f} ({b_by}), "
         f"library_ms none (torch.bmm of the dot alone: {bmm_ms:.4f}) -> "
         f"{'ok' if ok else 'FAIL'}")
     return dict(ok=ok, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                bmm_dot_ms=bmm_ms)
+                graph_ms=dev_ms, bmm_dot_ms=bmm_ms)
+
+
+def _emb_dot_hs_batch(kind: str, model, corpus, gen):
+    """A fused-mode batch at phase 6's width (B 4,096, D 100): (S, v,
+    inputs, codes, points, mask, planted dots or None). ``L16``: a random
+    table of phase 6's size (V + V - 1 rows), random inputs and paths of
+    16 entries, each row a random prefix; ``planted``: phase 6's longest
+    path, a quarter of the rows masked out whole, every entry its own syn1
+    row with its dot planted at 6 -+ 1e-3; ``phase6``: phase 6's first
+    batch of pairs (the fit's first chunk) and its Huffman paths over a
+    random table of its size."""
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch import native_io
+
+    b, d = W2V_BATCH, W2V_DIM
+    nv = len(model.cache)
+    L = model.cache.max_code_length
+    dev = "cuda"
+    t = None
+    if kind == "phase6":
+        codes, points, mask = model._huffman()
+        ids = [np.asarray(model.cache.encode(model.tokenize(s)), np.int32)
+               for s in corpus[:1]]
+        ins, tgts = native_io.sg_pairs_chunk(ids, model.window, model.seed)
+        if len(ins) < b:
+            raise SystemExit(f"phase 6's first chunk holds {len(ins)} pairs, "
+                             f"fewer than a batch")
+        inputs = torch.from_numpy(ins[:b].astype(np.int64)).to(dev)
+        tg = torch.from_numpy(tgts[:b].astype(np.int64)).to(dev)
+        codes, points, mask = codes[tg], points[tg], mask[tg]
+        S = torch.randn((2 * nv - 1, d), generator=gen, device=dev) * 0.5
+        return S, nv, inputs, codes, points, mask, t
+    if kind == "L16":
+        L = 16
+        S = torch.randn((2 * nv - 1, d), generator=gen, device=dev) * 0.5
+        v = nv
+        inputs = torch.randint(0, nv, (b,), generator=gen, device=dev)
+        points = torch.randint(0, nv - 1, (b, L), generator=gen, device=dev)
+    else:  # planted
+        v = b
+        S = torch.randn((b + b * L, d), generator=gen, device=dev) * 0.5
+        inputs = torch.randperm(b, generator=gen, device=dev)
+        points = torch.randperm(b * L, generator=gen, device=dev).view(b, L)
+    codes = torch.randint(0, 2, (b, L), generator=gen, device=dev).float()
+    lens = torch.randint(1, L + 1, (b, 1), generator=gen, device=dev)
+    mask = (torch.arange(L, device=dev)[None] < lens).float()
+    if kind == "planted":
+        mask[: b // 4] = 0.0
+        sel = torch.randint(0, 4, (b, L), generator=gen, device=dev)
+        t = torch.tensor([6 - 1e-3, -(6 - 1e-3), 6 + 1e-3, -(6 + 1e-3)],
+                         dtype=torch.float64, device=dev)[sel]
+        h64 = S[inputs].double()
+        unit = h64 / (h64 * h64).sum(-1, keepdim=True)
+        S[v + points] = (unit[:, None, :] * t[..., None]).float()
+    return S, v, inputs, codes, points, mask, t
+
+
+def _emb_dot_hs_case(kind: str, model, corpus, iters: int = 50) -> dict:
+    """Kernel #5's fused mode as the HS step calls it (``dest`` from the
+    scatter plan) against its plain version: every kept entry (grad_in and
+    the delta rows of valid path entries) within EMB_TOL, written into a
+    NaN-filled buffer; the range flags equal (a kept path entry's delta row
+    is exactly zero where its dot is saturated; with planted dots, exactly
+    where |t| > 6); the masked entries left unwritten (NaN); a second
+    launch bitwise equal. Bound: each distinct row read once, the index
+    arrays, and the kept delta rows written once (logged beside it: the
+    bound with each row read per use, which the result line leaves out as
+    it holds only measured numbers and ``bound_ms``)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models import word2vec as w2v
+    from deeplearning4j_tpu_torch.ops import emb_dot
+
+    gen = torch.Generator(device="cuda").manual_seed(
+        7000 + ("L16", "planted", "phase6").index(kind))
+    S, v, inputs, codes, points, mask, t = _emb_dot_hs_batch(
+        kind, model, corpus, gen)
+    b, L = points.shape
+    d = S.shape[1]
+    lr = W2V_LR
+    rows = torch.cat([inputs, (v + points).reshape(-1)])
+    keep = torch.cat([torch.ones_like(inputs, dtype=torch.bool),
+                      mask.reshape(-1) > 0])
+    plan = w2v._scatter_plan(rows, keep, S.shape[0], inverse=True)
+    dest = plan.dest
+    at = dest[keep]
+    args = (S, v, inputs, codes, points, mask, lr)
+    nan = torch.full((len(rows), d), float("nan"), device="cuda")
+    out = emb_dot.fused_hs_rows(*args, dest=dest, out=nan)
+    again = emb_dot.fused_hs_rows(*args, dest=dest)
+    ref = emb_dot.fused_hs_rows_plain(*args, dest=dest)
+    torch.cuda.synchronize()
+    err = (out[at] - ref[at]).abs().max().item()
+    unwritten = bool(torch.isnan(out[dest[~keep]]).all())
+    bitwise = torch.equal(out[at], again[at])
+    zero = (out[at][b:] == 0).all(-1)
+    flags_equal = torch.equal(zero, (ref[at][b:] == 0).all(-1))
+    if t is not None:
+        want = (t.abs() > 6).reshape(-1)[mask.reshape(-1) > 0]
+        flags_equal = flags_equal and torch.equal(zero, want)
+    ok = (bool(torch.isfinite(out[at]).all()) and err <= EMB_TOL
+          and unwritten and bitwise and flags_equal)
+    run = lambda: emb_dot.fused_hs_rows(*args, dest=dest)  # noqa: E731
+    ms, dev_ms = time_ms(run, iters), graph_ms(run)
+    plain_ms = time_ms(
+        lambda: emb_dot.fused_hs_rows_plain(*args, dest=dest), iters)
+    n_valid = int((mask > 0).sum())
+    kept = b + n_valid
+    distinct = int(torch.unique(rows[keep]).numel())
+    # inputs and dest of the inputs; mask of every entry; points, codes and
+    # dest of the valid ones; the kept delta rows written
+    idx_bytes = 16 * b + 4 * b * L + 20 * n_valid
+    out_bytes = 4 * d * kept
+    flops = 5 * n_valid * d  # dot, grad_in (FMA each), g * h
+    b_ms, b_by = bound(4 * d * distinct + idx_bytes + out_bytes, flops,
+                       F32_FLOPS)
+    use_ms, use_by = bound(4 * d * kept + idx_bytes + out_bytes, flops,
+                           F32_FLOPS)
+    saturated = int(zero.sum())
+    log(f"kernel emb_dot fused HS rows ({kind}) B={b} L={L} D={d}: "
+        f"{n_valid} valid path entries of {b * L}, {distinct} distinct rows; "
+        f"max_abs_err {err:.3e} at dest (tol {EMB_TOL}), masked entries "
+        f"unwritten {unwritten}, range flags equal {flags_equal} ({saturated} "
+        f"saturated), bitwise repeat {bitwise}, ms {ms:.4f} (graph_ms "
+        f"{dev_ms:.4f}), plain_ms {plain_ms:.4f}, bound_ms {b_ms:.6f} "
+        f"({b_by}; per use {use_ms:.6f}, {use_by}), library_ms none -> "
+        f"{'ok' if ok else 'FAIL'}")
+    return dict(ok=ok, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                graph_ms=dev_ms, mode="fused")
 
 
 #: decode positions on either side of the kernels' split edges (rows per
@@ -625,12 +764,12 @@ def _emb_dot_case(b: int, L: int, d: int, planted: bool = False,
 SPLIT_EDGE_POS = [0, 7, 8, 127, 128, 511, 512, 639]
 
 
-def phase_kernels(w2v_code_len: int) -> dict[str, dict]:
+def phase_kernels(w2v_model, w2v_corpus) -> dict[str, dict]:
     """Kernel vs plain version at the slices' shapes. Returns, per kernel,
     the numbers of its main-path case (the last one listed: the training
     shape for the flash kernels, GPT-2-small serving for the decode
-    kernels, int8 at block size 8 for the paged one, phase 6's longest
-    Huffman path for the fused embedding dot)."""
+    kernels, int8 at block size 8 for the paged one, the fused mode on
+    phase 6's first batch for the fused embedding dot)."""
     attn = [_attn_case(t, True) for t in (8, 64)]
     attn.append(_attn_case(128, False))
     attn.append(_attn_case(128, True))
@@ -657,9 +796,12 @@ def phase_kernels(w2v_code_len: int) -> dict[str, dict]:
     ]
     paged = [_paged_case(int8, bs, pos) for bs in (64, 8)
              for int8 in (False, True)]
+    code_len = w2v_model.cache.max_code_length
     emb = [_emb_dot_case(W2V_BATCH, 16, W2V_DIM),
-           _emb_dot_case(W2V_BATCH, w2v_code_len, W2V_DIM, planted=True),
-           _emb_dot_case(W2V_BATCH, w2v_code_len, W2V_DIM)]
+           _emb_dot_case(W2V_BATCH, code_len, W2V_DIM, planted=True),
+           _emb_dot_case(W2V_BATCH, code_len, W2V_DIM)]
+    emb += [_emb_dot_hs_case(kind, w2v_model, w2v_corpus)
+            for kind in ("L16", "planted", "phase6")]
     for name, cases in (("flash_attn_fwd", attn), ("flash_attn_bwd", bwd),
                         ("flash_decode", dec), ("flash_decode_int8", dec8),
                         ("flash_decode_paged", paged), ("emb_dot", emb)):
@@ -1368,7 +1510,7 @@ def main() -> int:
     log(f"card: {card}")
     phase_build()
     w2v_model, w2v_corpus = w2v_full_model()
-    measured = phase_kernels(w2v_model.cache.max_code_length)
+    measured = phase_kernels(w2v_model, w2v_corpus)
     engine, serve_launches, streams = phase_serve()
     phase_server(engine)
     del engine

@@ -5,14 +5,16 @@ Training pairs are enumerated on the host (``native_io.sg_pairs_chunk``),
 batched, and every batch is one update of the tables in f32, computed from
 the pre-batch table as in the reference:
 
-- gather the input rows and the rows of each target's Huffman path (HS) or
-  of the target and its negatives (NS);
-- HS: kernel #5 (``ops/emb_dot.py``, hand-written CUDA on the card) gives
-  f = sigmoid(clip(dot)) * mask and the flag |dot| < 6 in one pass; NS: the
-  dots in plain PyTorch, saturated to 1/0 out of range as the reference does;
+- HS: kernel #5's fused mode (``ops/emb_dot.py``, hand-written CUDA on the
+  card) gathers the input row and the rows of the target's Huffman path,
+  computes f = sigmoid(clip(dot)) * mask, the flag |dot| < 6, g, grad_in
+  and the g ⊗ h rows in one pass, and writes the deltas where the scatter
+  reads them; NS: the rows of the target and its negatives gathered and
+  their dots taken in plain PyTorch, saturated to 1/0 out of range as the
+  reference does;
 - scatter-add the row updates. Colliding rows accumulate rather than race,
-  deterministically (:func:`_scatter_add_rows`), so two fits from the same
-  seed on the card are bitwise equal.
+  deterministically (:func:`_scatter_plan`, :func:`_scatter_apply`), so two
+  fits from the same seed on the card are bitwise equal.
 
 The reference folds 128 HS batches into one device dispatch (``_hs_scan``)
 to amortize a TPU's dispatch cost; here each batch runs eagerly as it is
@@ -33,6 +35,7 @@ syn0, as in the reference. ``fit_distributed`` (a mesh) is a later slice.
 from __future__ import annotations
 
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -42,10 +45,7 @@ from deeplearning4j_tpu_torch.device import resolve_device, upload
 from deeplearning4j_tpu_torch.nlp.sentence_iterator import SentenceIterator
 from deeplearning4j_tpu_torch.nlp.tokenization import DefaultTokenizer
 from deeplearning4j_tpu_torch.nlp.vocab import VocabCache
-from deeplearning4j_tpu_torch.ops.emb_dot import (
-    MAX_EXP,
-    fused_embedding_dot_range,
-)
+from deeplearning4j_tpu_torch.ops.emb_dot import MAX_EXP, fused_hs_rows
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -85,33 +85,65 @@ def _scatter_add_rows(S: torch.Tensor, rows: torch.Tensor,
         S.index_add_(0, rows, deltas)
 
 
-def _sorted_scatter_add(S, rows, deltas, keep=None) -> None:
-    """:func:`_scatter_add_rows` for any device, without atomics on floats:
-    sort the rows stably, sum each row's run in pieces of ``_PIECE`` in
-    order and then the pieces in order (two ``segment_reduce`` passes, one
-    thread per output element), and write each row once. At least one
+class _ScatterPlan(NamedTuple):
+    """The index-only half of :func:`_sorted_scatter_add`."""
+
+    perm: torch.Tensor  # entry at each sorted position
+    dest: torch.Tensor | None  # sorted position of each entry (perm^-1)
+    lengths: torch.Tensor  # entries in each piece, in sorted order
+    pieces: torch.Tensor  # pieces in each kept run
+    row: torch.Tensor  # the row each write goes to
+    slot: torch.Tensor  # the run sum each write carries
+
+
+def _scatter_plan(rows: torch.Tensor, keep: torch.Tensor | None,
+                  n_rows: int, inverse: bool = False) -> _ScatterPlan:
+    """Sort the rows stably (skipped entries last) and cut each row's run
+    into pieces of ``_PIECE``; with ``inverse``, also the sorted position
+    of every entry (``dest``), where a producer can write its delta so
+    that :func:`_scatter_apply` reads it in sorted order. At least one
     entry must be kept (the HS and NS steps keep every input)."""
     n, dev = rows.numel(), rows.device
-    key = rows if keep is None else torch.where(keep, rows, S.shape[0])
+    key = rows if keep is None else torch.where(keep, rows, n_rows)
     r, perm = torch.sort(key, stable=True)  # skipped entries last
-    real = (r < S.shape[0]).long()
+    real = (r < n_rows).long()
     pos = torch.arange(n, device=dev)
     start = torch.searchsorted(r, r)  # where each entry's run starts
     cut = (pos - start) % _PIECE == 0  # a piece starts
     zeros = torch.zeros(n, dtype=torch.int64, device=dev)
-    sums = torch.segment_reduce(
-        deltas[perm], "sum", unsafe=True,
-        lengths=zeros.index_add(0, torch.cumsum(cut, 0) - 1, real))
+    lengths = zeros.index_add(0, torch.cumsum(cut, 0) - 1, real)
     run = torch.cumsum(pos == start, 0) - 1
     pieces = zeros.index_add(0, run, cut * real)
-    sums = torch.segment_reduce(sums, "sum", lengths=pieces, unsafe=True)
     # the kept runs come first; every slot past them repeats one of them
     # (row and sum), so each write to a row carries the same value and no
     # row takes many writes
     used = pieces > 0
     slot = torch.where(used, pos, pos % used.sum())
     row = zeros.index_put((run,), r)[slot]
-    S.index_put_((row,), S[row] + sums[slot])
+    dest = torch.empty_like(perm).scatter_(0, perm, pos) if inverse else None
+    return _ScatterPlan(perm, dest, lengths, pieces, row, slot)
+
+
+def _scatter_apply(S: torch.Tensor, plan: _ScatterPlan,
+                   sorted_deltas: torch.Tensor) -> None:
+    """Add deltas already in the plan's sorted order to S, in place: each
+    row's run summed in pieces in order, then the pieces in order (two
+    ``segment_reduce`` passes, one thread per output element), each row
+    written once. Only the kept entries (the first ``lengths.sum()``
+    sorted positions) are read."""
+    sums = torch.segment_reduce(sorted_deltas, "sum", unsafe=True,
+                                lengths=plan.lengths)
+    sums = torch.segment_reduce(sums, "sum", lengths=plan.pieces,
+                                unsafe=True)
+    S.index_put_((plan.row,), S[plan.row] + sums[plan.slot])
+
+
+def _sorted_scatter_add(S, rows, deltas, keep=None) -> None:
+    """:func:`_scatter_add_rows` for any device, without atomics on floats:
+    :func:`_scatter_plan`, then :func:`_scatter_apply` on the deltas in
+    sorted order."""
+    plan = _scatter_plan(rows, keep, S.shape[0])
+    _scatter_apply(S, plan, deltas[plan.perm])
 
 
 def _hs_math_merged(S, v, inputs, codes, points, mask, lr):
@@ -123,22 +155,32 @@ def _hs_math_merged(S, v, inputs, codes, points, mask, lr):
     f32, points int64); lr a float. Saturated dots are skipped, not clipped
     (the reference's exp-table range check): clipping keeps updating
     saturated pairs with a constant-magnitude g, which feeds an oscillating
-    syn0 <-> syn1 instability on small corpora trained for many epochs."""
-    h = S[inputs]  # (B, D)
-    rows = v + points  # (B, L)
-    w1 = S[rows]  # (B, L, D)
-    f, in_range = fused_embedding_dot_range(h, w1, mask)
-    g = (1.0 - codes - f) * lr * mask * in_range  # (B, L)
-    grad_in = (g[:, :, None] * w1).sum(1)
-    # one scatter for the input rows and the path rows, as the reference's;
-    # the padding of the paths (mask 0) adds exact zeros
-    _scatter_add_rows(
-        S, torch.cat([inputs, rows.reshape(-1)]),
-        torch.cat([grad_in, (g[:, :, None] * h[:, None, :]).reshape(
-            -1, S.shape[1])]),
-        torch.cat([torch.ones_like(inputs, dtype=torch.bool),
-                   mask.reshape(-1) > 0]))
+    syn0 <-> syn1 instability on small corpora trained for many epochs.
+
+    One scatter for the input rows and the path rows, as the reference's,
+    of the deltas of kernel #5's fused mode (:func:`fused_hs_rows`). The
+    card takes :func:`_hs_sorted_update`; the CPU adds the plain version's
+    deltas in index order with ``index_add_`` (the padding of the paths,
+    mask 0, adds exact zeros)."""
+    if S.is_cuda:
+        _hs_sorted_update(S, v, inputs, codes, points, mask, lr)
+    else:
+        S.index_add_(0, torch.cat([inputs, (v + points).reshape(-1)]),
+                     fused_hs_rows(S, v, inputs, codes, points, mask, lr))
     return S
+
+
+def _hs_sorted_update(S, v, inputs, codes, points, mask, lr) -> None:
+    """:func:`_hs_math_merged` on the sorted scatter: the plan of the
+    scatter's rows, the fused kernel writing each kept delta at its sorted
+    position (``dest``), then the apply, which sums the deltas where they
+    were written."""
+    rows = torch.cat([inputs, (v + points).reshape(-1)])
+    keep = torch.cat([torch.ones_like(inputs, dtype=torch.bool),
+                      mask.reshape(-1) > 0])
+    plan = _scatter_plan(rows, keep, S.shape[0], inverse=True)
+    _scatter_apply(S, plan, fused_hs_rows(S, v, inputs, codes, points, mask,
+                                          lr, dest=plan.dest))
 
 
 def _ns_math_merged(S, v, inputs, targets, negatives, lr):

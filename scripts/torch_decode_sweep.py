@@ -31,62 +31,17 @@ CUDA card.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import random
-import re
-import subprocess
 import sys
 from pathlib import Path
+
+from _sweep import build_variants, parse_variant
 
 ROOT = Path(__file__).resolve().parent.parent
 
 DEFAULT_VARIANTS = ("source:", "cluster4:SPLITS=4,CL8=4",
                     "cluster16:SPLITS=16,CL8=16", "scratch:SCORES8=0")
-
-
-def _parse(spec: str) -> tuple[str, dict[str, int]]:
-    name, _, consts = spec.partition(":")
-    subs = {}
-    for item in filter(None, consts.split(",")):
-        key, _, val = item.partition("=")
-        subs[key.strip()] = int(val)
-    return name, subs
-
-
-def _build(variants: dict[str, dict[str, int]]):
-    """Build every variant at once; returns {name: (library, ptxas log)}."""
-    from deeplearning4j_tpu_torch.ops import _build as b
-
-    src = (b.CSRC / "flash_decode.cu").read_text()
-    b.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = {}
-    for name, subs in variants.items():
-        text = src
-        for const, val in subs.items():
-            text, n = re.subn(rf"constexpr int {const} = \d+;",
-                              f"constexpr int {const} = {val};", text)
-            if n != 1:
-                raise SystemExit(f"torch_decode_sweep: no {const} in the "
-                                 f"source")
-        cu = b.BUILD_DIR / f"flash_decode_sweep_{name}.cu"
-        so = b.BUILD_DIR / f"flash_decode_sweep_{name}.so"
-        cu.write_text(text)
-        cmd = [b.nvcc(), *b.NVCC_FLAGS, "-I", str(b.CSRC), "-o", str(so),
-               str(cu)]
-        jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                       stderr=subprocess.STDOUT, text=True),
-                      so)
-    libs = {}
-    for name, (proc, so) in jobs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise SystemExit(f"nvcc failed for variant {name}:\n{log}")
-        lib = ctypes.CDLL(str(so))
-        lib.dl4j_error_string.argtypes = [ctypes.c_int]
-        lib.dl4j_error_string.restype = ctypes.c_char_p
-        libs[name] = (lib, log)
-    return libs
 
 
 def main() -> int:
@@ -106,8 +61,12 @@ def main() -> int:
     from deeplearning4j_tpu_torch.ops import flash_decode as fd
 
     card = smoke.card_line()
-    variants = dict(_parse(v) for v in (args.variant or DEFAULT_VARIANTS))
-    libs = _build(variants)
+    variants = dict(parse_variant(v)
+                    for v in (args.variant or DEFAULT_VARIANTS))
+    try:
+        libs = build_variants("flash_decode", variants)
+    except ValueError as e:
+        raise SystemExit(f"torch_decode_sweep: {e}") from None
     gen = torch.Generator(device="cuda").manual_seed(1)
     bsz, hkv, kd, nl, t, layer = 8, 6, 128, 12, 640, 7
     hk = hkv * kd

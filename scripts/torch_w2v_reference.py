@@ -73,15 +73,17 @@ def _fit(side: str, corpus: list[str], syn0: np.ndarray,
         m.syn0, m.syn1, m.syn1neg = st["syn0"], st["syn1"], st["syn1neg"]
     real = None
     if clip:  # the range flag forced to 1: saturated dots clipped
-        real = w2v.fused_embedding_dot_range
-        w2v.fused_embedding_dot_range = lambda h, w, mask: (
+        from deeplearning4j_tpu_torch.ops import emb_dot
+
+        real = emb_dot.fused_embedding_dot_range_plain
+        emb_dot.fused_embedding_dot_range_plain = lambda h, w, mask: (
             real(h, w, mask)[0], torch.ones_like(mask))
     t0 = time.perf_counter()
     try:
         m.fit(CollectionSentenceIterator(corpus))
     finally:
         if real is not None:
-            w2v.fused_embedding_dot_range = real
+            emb_dot.fused_embedding_dot_range_plain = real
     secs = time.perf_counter() - t0
     s0, s1 = np.asarray(m.syn0), np.asarray(m.syn1)
     top = np.abs(s0).max(1)

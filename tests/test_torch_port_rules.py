@@ -111,7 +111,7 @@ def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
     """A CUDA tensor goes to the kernel wrapper, never to the plain version:
     with the wrapper's launch replaced, the dispatcher must call it (the
     decode kernel in its bf16 and int8 modes, the paged decode kernel, the
-    fused embedding dot)."""
+    fused embedding dot in its dense and fused modes)."""
     from deeplearning4j_tpu_torch.ops import emb_dot
     from deeplearning4j_tpu_torch.ops import flash_attention as fa
     from deeplearning4j_tpu_torch.ops import flash_decode as fd
@@ -133,7 +133,11 @@ def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
                         lambda *a: pytest.fail("plain path on CUDA"))
     monkeypatch.setattr(fd, "flash_decode_attention_paged_plain",
                         lambda *a: pytest.fail("plain path on CUDA"))
+    monkeypatch.setattr(emb_dot, "_launch_hs",
+                        lambda *a: calls.append("emb_dot_hs"))
     monkeypatch.setattr(emb_dot, "fused_embedding_dot_range_plain",
+                        lambda *a: pytest.fail("plain path on CUDA"))
+    monkeypatch.setattr(emb_dot, "fused_hs_rows_plain",
                         lambda *a: pytest.fail("plain path on CUDA"))
     q = torch.empty((2, 8, 16), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
@@ -144,6 +148,8 @@ def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
         fd.flash_decode_attention_paged(q, q, q, 0, 1)
     with pytest.raises(ValueError, match="unsupported device"):
         emb_dot.fused_embedding_dot(q, q, q)
+    with pytest.raises(ValueError, match="unsupported device"):
+        emb_dot.fused_hs_rows(q, 0, q, q, q, q, 0.1)
 
     class FakeCuda:
         device = torch.device("cuda", 0)
@@ -157,8 +163,9 @@ def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
                                     block_scales=object())
     emb_dot.fused_embedding_dot(FakeCuda(), None, None)
     emb_dot.fused_embedding_dot_range(FakeCuda(), None, None)
+    emb_dot.fused_hs_rows(FakeCuda(), 0, None, None, None, None, 0.1)
     assert calls == ["fa", "fa_bwd", "fd", "fd_int8", "fd_paged",
-                     "fd_paged_int8", "emb_dot", "emb_dot"]
+                     "fd_paged_int8", "emb_dot", "emb_dot", "emb_dot_hs"]
 
 
 def test_chip_smoke_alone_fails(tmp_path):

@@ -403,7 +403,10 @@ def test_sorted_scatter_add_matches_index_add(n, use_keep):
     """The card's scatter, run here on CPU tensors: the same sums as the
     CPU's in-order index_add_ within f32 rounding of sums of up to 1,300
     unit normals, skipped entries ignored, untouched rows bitwise kept, and
-    the same bits on a second run."""
+    the same bits on a second run. Its two halves, the index-only plan and
+    the apply, give the same bits from deltas written at the plan's sorted
+    positions (``dest``) into a NaN-filled buffer, the skipped entries left
+    NaN: the apply never reads them."""
     base, rows, deltas, keep = _colliding_updates(n, 40, 7, seed=n)
     want = base.clone()
     w2v._scatter_add_rows(want, rows, deltas)
@@ -413,6 +416,15 @@ def test_sorted_scatter_add_matches_index_add(n, use_keep):
         w2v._sorted_scatter_add(S, rows, deltas, keep if use_keep else None)
         outs.append(S)
     assert torch.equal(outs[0], outs[1])
+    plan = w2v._scatter_plan(rows, keep if use_keep else None, len(base),
+                             inverse=True)
+    assert torch.equal(plan.perm[plan.dest], torch.arange(n))
+    kept = keep if use_keep else torch.ones(n, dtype=torch.bool)
+    buf = torch.full_like(deltas, float("nan"))
+    buf[plan.dest[kept]] = deltas[kept]
+    S = base.clone()
+    w2v._scatter_apply(S, plan, buf)
+    assert torch.equal(S, outs[0])
     np.testing.assert_allclose(outs[0].numpy(), want.numpy(), atol=1e-4,
                                rtol=0)
     untouched = torch.ones(len(base), dtype=torch.bool)
