@@ -8,7 +8,10 @@ Phases, in order; any failure exits non-zero without printing a result:
 1. build every CUDA kernel of ``deeplearning4j_tpu_torch/csrc`` with nvcc
    (all sources at once) and print the build time and the card;
 2. hold each kernel against its plain PyTorch version on the card, at the
-   shapes the serving and training paths give it, and time kernel, plain
+   shapes the serving, training and decode-variant paths give it (phases
+   3-7 record the shape of every launch of #1-#4 and fail on one not held
+   here; #5 is held at phase 6's first full-width batch), and time
+   kernel, plain
    version, bound and one library call (a yardstick the port never calls;
    none computes int8 or paged decode). The decode kernel runs in bf16 and
    int8 mode, also at positions on either side of its split edges, in int8
@@ -65,7 +68,29 @@ Phases, in order; any failure exits non-zero without printing a result:
    the first with TF32 allowed); the reference's topic-similarity check on
    the card; ParagraphVectors.fit_labeled with HS, and with HS+NS. Kernel
    #5's launch count is set to 0 before every run and must be > 0 after;
-   the full-width tables must be finite with max |syn0| under 1,000.
+   the full-width tables must be finite with max |syn0| under 1,000;
+7. decode variants and checkpoints, at full width: ``cli.main(["train",
+   "--preset", "gpt2s", ..., "--checkpoint-dir", D, "--save-every",
+   "2"])`` for 4 steps (both checkpoints there, step 4 and the preset's
+   config in the meta, the restored params bitwise the npz arrays, each
+   write and the restore timed), then ``generate --beam 4`` and ``generate
+   --int8 full --temperature 0`` from D (the reference's printed lines;
+   flash prefill and the decode kernel, int8 mode in the second, must
+   launch); beam search (B 1, W 4, prompt 128, 32 new) on phase 3's model
+   in bf16 and int8 full: W 1 bitwise greedy generate, scores sorted and
+   equal bitwise to the beams' own tokens teacher-forced through the same
+   decode program (a planted stale cache must fail this check), and each
+   within a stated tolerance of its sequence's log-likelihood by f32
+   ``transformer_apply``, ms a beam step; speculative decoding at the
+   reference bench's spec row (GQA 6/2 heads, rope, prompt 512, 64 new, k
+   4, the int8-weight self-draft): greedy held against generate (at the
+   first divergence generate's top-2 gap must be at most twice the largest
+   logit difference between the two programs there), sampled runs equal
+   per generator seed, exactly one host sync a round (PyTorch's sync debug
+   mode), rounds and acceptance, and tokens/s of speculative vs plain
+   generate, 5 runs a side in turns. Phase 2 holds every shape these
+   runs launch #1, #2 and #3 at, among them the draft steps' (B 1, G 3,
+   Hkv 2, K 128, Tpad 584).
 
 The last lines are the kernel table as one JSON object, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -73,6 +98,7 @@ power limit, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import random
 import subprocess
@@ -239,6 +265,95 @@ def _ptxas_entries(text: str) -> list[tuple[str, str, str]]:
 
 # -- phase 2 -----------------------------------------------------------------
 
+#: (kernel, shape) of every case phase 2 held against a plain version;
+#: the run fails on a launch of #1-#4 in phases 3-7 at a shape that is not
+#: among them
+CHECKED_SHAPES: set[tuple] = set()
+
+
+def _attn_key(name: str, q, causal: bool) -> tuple:
+    return (name, tuple(q.shape), str(q.dtype), bool(causal))
+
+
+def _decode_key(q, kvcache, n_kv_heads: int, block_t, kv_scales) -> tuple:
+    """A decode launch's kernel mode, q and cache shapes, dtype, KV heads
+    and tile (``_tile``: the int8 tile; 0 for the bf16/f32 mode)."""
+    from deeplearning4j_tpu_torch.ops import flash_decode as fd
+
+    int8 = kv_scales is not None
+    return ("flash_decode_int8" if int8 else "flash_decode", tuple(q.shape),
+            tuple(kvcache.shape), str(q.dtype), int(n_kv_heads),
+            fd._tile(block_t, kvcache, kvcache.shape[3], int8))
+
+
+def _paged_key(q, blocks, tables, n_kv_heads: int, block_t,
+               block_scales) -> tuple:
+    """A paged decode launch's mode, q and table shapes, block size,
+    layers, row width, dtype, KV heads and tile; the pool's block count
+    only sizes the allocation the tables index."""
+    from deeplearning4j_tpu_torch.ops import flash_decode as fd
+
+    int8 = block_scales is not None
+    t = tables.shape[1] * blocks.shape[3]
+    return ("flash_decode_paged", tuple(q.shape), tuple(tables.shape),
+            blocks.shape[3], blocks.shape[0], blocks.shape[4], str(q.dtype),
+            int(n_kv_heads), int8, fd._tile(block_t, blocks, t, int8))
+
+
+@contextlib.contextmanager
+def launched_shapes():
+    """Yields a set that gathers the key (``_attn_key``, ``_decode_key``,
+    ``_paged_key``) of every launch of kernels #1-#4 (both decode modes)
+    made inside the block: the wrappers' launch functions are wrapped, the
+    launches and their counts left as they are."""
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.ops import flash_decode as fd
+
+    seen: set[tuple] = set()
+    fwd, bwd, dec = fa._launch, fa._launch_bwd, fd._launch
+    paged = fd._launch_paged
+
+    def on_fwd(q, k, v, causal):
+        seen.add(_attn_key("flash_attn_fwd", q, causal))
+        return fwd(q, k, v, causal)
+
+    def on_bwd(q, k, v, o, lse, do, causal):
+        seen.add(_attn_key("flash_attn_bwd", q, causal))
+        return bwd(q, k, v, o, lse, do, causal)
+
+    def on_dec(q, kvcache, pos, n_kv_heads, layer, block_t=None,
+               kv_scales=None):
+        seen.add(_decode_key(q, kvcache, n_kv_heads, block_t, kv_scales))
+        return dec(q, kvcache, pos, n_kv_heads, layer, block_t, kv_scales)
+
+    def on_paged(q, blocks, tables, pos, n_kv_heads, layer, block_t=None,
+                 block_scales=None):
+        seen.add(_paged_key(q, blocks, tables, n_kv_heads, block_t,
+                            block_scales))
+        return paged(q, blocks, tables, pos, n_kv_heads, layer, block_t,
+                     block_scales)
+
+    fa._launch, fa._launch_bwd, fd._launch = on_fwd, on_bwd, on_dec
+    fd._launch_paged = on_paged
+    try:
+        yield seen
+    finally:
+        fa._launch, fa._launch_bwd, fd._launch = fwd, bwd, dec
+        fd._launch_paged = paged
+
+
+def check_launched(tag: str, seen: set[tuple]) -> None:
+    """Fails unless phase 2 held every key in ``seen`` against the plain
+    version."""
+    unchecked = sorted(seen - CHECKED_SHAPES)
+    log(f"{tag}: kernels #1-#4 launched at {len(seen)} (kernel, shape) "
+        f"keys, {len(seen) - len(unchecked)} of them held against the plain "
+        f"version in phase 2")
+    if unchecked:
+        raise SystemExit(f"{tag}: launches at shapes phase 2 never held "
+                         f"against the plain version: {unchecked}")
+
+
 def _attn_case(t: int, causal: bool, bh: int = 6, d: int = 128,
                iters: int = 50) -> dict:
     import torch
@@ -251,6 +366,7 @@ def _attn_case(t: int, causal: bool, bh: int = 6, d: int = 128,
                            dtype=torch.bfloat16) for _ in range(3))
     o, lse = fa.flash_attention_fwd(q, k, v, causal)
     o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, causal)
+    CHECKED_SHAPES.add(_attn_key("flash_attn_fwd", q, causal))
     torch.cuda.synchronize()
     err = (o.float() - o_ref.float()).abs().max().item()
     lse_err = (lse - lse_ref).abs().max().item()
@@ -302,6 +418,7 @@ def _bwd_case(t: int, causal: bool, bh: int = 6, d: int = 128,
     grads = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
     again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
     refs = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+    CHECKED_SHAPES.add(_attn_key("flash_attn_bwd", q, causal))
     torch.cuda.synchronize()
     ok, worst, same = True, 0.0, True
     for x, r, x2 in zip(grads, refs, again):
@@ -357,6 +474,7 @@ def _decode_case(b: int, g: int, hkv: int, kd: int, nl: int, tpad: int,
     out = fd.flash_decode_attention(q, cache, p, hkv, layer)
     grid, cluster = fd.last_launch()
     ref = fd.flash_decode_attention_plain(q, cache, p, hkv, layer)
+    CHECKED_SHAPES.add(_decode_key(q, cache, hkv, None, None))
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
     ok = bool(torch.isfinite(out.float()).all()) and err <= ATTN_TOL
@@ -435,6 +553,7 @@ def _decode_int8_case(b: int, g: int, hkv: int, kd: int, nl: int, tpad: int,
               else "shared memory")
     ref = fd.flash_decode_attention_plain(q, cache, p, hkv, layer, block_t,
                                           kv_scales=scales)
+    CHECKED_SHAPES.add(_decode_key(q, cache, hkv, block_t, scales))
     torch.cuda.synchronize()
     err, steps = _int8_err(out, ref)
     ok = bool(torch.isfinite(out.float()).all()) and steps <= INT8_STEPS
@@ -533,6 +652,7 @@ def _paged_case(int8: bool, bs: int, pos: list[int], b: int = 8,
     out = run()
     grid, cluster = fd.last_launch()
     ref = plain()
+    CHECKED_SHAPES.add(_paged_key(q, blocks, tables, hkv, None, scales))
     slab = fd._gather_rows(blocks, tables, layer).contiguous()
     sslab = (None if scales is None
              else fd._gather_rows(scales, tables, layer).contiguous())
@@ -773,19 +893,62 @@ def phase_kernels(w2v_model, w2v_corpus) -> dict[str, dict]:
     attn = [_attn_case(t, True) for t in (8, 64)]
     attn.append(_attn_case(128, False))
     attn.append(_attn_case(128, True))
+    # prefills (6 heads of 128): phase 4's 20-token prompt (bucket 32),
+    # phase 3's generate on 40 tokens; phase 7's: the CLI's 16-byte prompt,
+    # the speculative prefill's 128-aligned prefix (384 of 511 rows), the
+    # spec cell's plain generate (512); phase 5's 2-layer parity at B 2
+    # and phase 7's train at batch CKPT_BATCH
+    attn += [_attn_case(t, True)
+             for t in (32, 40, GEN_PROMPT, 384, SPEC_PROMPT)]
+    attn.append(_attn_case(TRAIN_SEQ, True, bh=2 * 6, iters=20))
+    attn.append(_attn_case(TRAIN_SEQ, True, bh=CKPT_BATCH * 6, iters=20))
     attn.append(_attn_case(TRAIN_SEQ, True, bh=TRAIN_BATCH * 6, iters=20))
     bwd = [_bwd_case(128, causal) for causal in (True, False)]
+    bwd.append(_bwd_case(TRAIN_SEQ, True, bh=2 * 6, iters=20))
+    bwd.append(_bwd_case(TRAIN_SEQ, True, bh=CKPT_BATCH * 6, iters=20))
     bwd.append(_bwd_case(TRAIN_SEQ, True, bh=TRAIN_BATCH * 6, iters=20))
     rng = random.Random(0)
     pos = [0, 639] + [rng.randrange(1, 639) for _ in range(6)]
+    # phase 7's decode shapes on GPT-2-small (Hkv 6, K 128, 12 layers):
+    # Tpad 64 (the CLI's 16-byte prompt and 48 new: train's closing sample
+    # and greedy generate at B 1, generate --beam 4 at B 4) and Tpad 160
+    # (beam search, prompt 128 + 32 new: W 1 and greedy at B 1, W 4 at
+    # B 4; its 1-token timing runs at 136), beam rows all at one position;
+    # the spec cell (6 query heads over 2 KV heads of 128): plain generate
+    # at Tpad 576 (512 + 64) and the draft steps at 584 (512 + 64 + k + 1,
+    # rounded to 8)
+    gen_t, beam_t = GEN_PROMPT + GEN_NEW, BEAM_PROMPT + BEAM_NEW
+    beam1_t, spec_t = BEAM_PROMPT + 8, SPEC_PROMPT + SPEC_NEW
+    # phases 3-3b: the engine's paged-parity probe (B 2, Tpad 32, rows 8
+    # to 10) and generate on prompts 1 and 5 (Tpad 72 and 232)
+    serve_ts = [PROMPT_LENGTHS[i] + MAX_NEW for i in (1, 5)]
     dec = [
         _decode_case(4, 3, 2, 128, 2, 256, 1, [0, 17, 100, 255]),
+        _decode_case(2, 1, 6, 128, 12, 32, 7, [8, 10]),
+        *[_decode_case(1, 1, 6, 128, 12, t, 7, [t - 1]) for t in serve_ts],
+        _decode_case(1, 1, 6, 128, 12, gen_t, 7, [gen_t - 1]),
+        _decode_case(4, 1, 6, 128, 12, gen_t, 7, [GEN_PROMPT] * 4),
+        _decode_case(1, 1, 6, 128, 12, beam_t, 7, [beam_t - 1]),
+        _decode_case(4, 1, 6, 128, 12, beam_t, 7, [beam_t - 1] * 4),
+        _decode_case(4, 1, 6, 128, 12, beam1_t, 7, [BEAM_PROMPT] * 4),
+        _decode_case(1, 3, 2, 128, 12, spec_t, 7, [spec_t - 1]),
+        _decode_case(1, 3, 2, 128, 12, spec_t + 8, 7, [spec_t - 1]),
         _decode_case(8, 1, 6, 128, 12, 640, 7, SPLIT_EDGE_POS),
         _batch_case(False, pos),
         _decode_case(8, 1, 6, 128, 12, 640, 7, pos),
     ]
     dec8 = [
         _decode_int8_case(4, 3, 2, 128, 2, 256, 1, [0, 17, 100, 255]),
+        _decode_int8_case(2, 1, 6, 128, 12, 32, 7, [8, 10]),
+        *[_decode_int8_case(1, 1, 6, 128, 12, t, 7, [t - 1])
+          for t in serve_ts],
+        # phase 7's int8 decode shapes: generate --int8 full (B 1, Tpad 64)
+        # and the int8 beam (B 1 and 4, Tpad 160; B 4 at 136 timing one
+        # token), each at the reference's tile for its cache
+        _decode_int8_case(1, 1, 6, 128, 12, gen_t, 7, [gen_t - 1]),
+        _decode_int8_case(1, 1, 6, 128, 12, beam_t, 7, [beam_t - 1]),
+        _decode_int8_case(4, 1, 6, 128, 12, beam_t, 7, [BEAM_PROMPT] * 4),
+        _decode_int8_case(4, 1, 6, 128, 12, beam1_t, 7, [BEAM_PROMPT] * 4),
         _decode_int8_case(8, 1, 6, 128, 12, 640, 7, SPLIT_EDGE_POS),
         _decode_int8_case(8, 1, 6, 128, 12, 640, 7, pos, block_t=64),
         # one 1,592-row tile (the rule's cap at Hkv*K 768) over 48 lanes:
@@ -794,8 +957,11 @@ def phase_kernels(w2v_model, w2v_corpus) -> dict[str, dict]:
         _batch_case(True, pos),
         _decode_int8_case(8, 1, 6, 128, 12, 640, 7, pos),
     ]
-    paged = [_paged_case(int8, bs, pos) for bs in (64, 8)
+    # the probe's paged leg (B 2, Tpad 32), then the serve shape
+    paged = [_paged_case(int8, 8, [8, 10], b=2, tpad=32)
              for int8 in (False, True)]
+    paged += [_paged_case(int8, bs, pos) for bs in (64, 8)
+              for int8 in (False, True)]
     code_len = w2v_model.cache.max_code_length
     emb = [_emb_dot_case(W2V_BATCH, 16, W2V_DIM),
            _emb_dot_case(W2V_BATCH, code_len, W2V_DIM, planted=True),
@@ -1489,6 +1655,508 @@ def phase_word2vec(model, corpus, card: str) -> dict[str, dict[str, int]]:
     return runs
 
 
+# -- phase 7 -----------------------------------------------------------------
+
+#: phase 7a: the train command that writes the two checkpoints
+CKPT_BATCH = 8
+CKPT_TRAIN = ["train", "--model", "transformer", "--preset", "gpt2s",
+              "--flash", "--remat", "--steps", "4", "--batch",
+              str(CKPT_BATCH), "--seq-len", str(TRAIN_SEQ), "--save-every",
+              "2"]
+#: the CLI's default prompt ("the quick brown ", 16 bytes) and --max-new,
+#: as train's closing sample and phase 7b's generate run them
+GEN_PROMPT, GEN_NEW = 16, 48
+#: beam search on the serve smoke's model: B 1, W 4, prompt 128, 32 new
+BEAM_W, BEAM_PROMPT, BEAM_NEW = 4, 128, 32
+#: a beam's score (the decode's summed log-probs) vs its sequence's
+#: log-likelihood by ``transformer_apply`` in f32 on the weights the decode
+#: used, in nats per generated token: bf16 compute, and in int8 mode the
+#: int8 KV cache, against f32 (on the H100 the four beams' largest gap is
+#: 0.11 nats over 32 tokens in bf16, 0.14 in int8; with the planted stale
+#: cache of ``planted_stale_cache`` 0.72 and 2.01)
+BEAM_LL_TOL = 0.01
+#: speculative decoding at the reference bench's spec row (bench.py:752,
+#: _decode_bench_cfg(batch=1, gqa=True)): prompt 512, 64 new, k 4, the
+#: int8-weight self-draft; the timed runs sample at temperature 1, top-k 40
+SPEC_PROMPT, SPEC_NEW, SPEC_K, SPEC_TOP_K = 512, 64, 4, 40
+#: timed runs a side, spec and plain generate in turns
+SPEC_RUNS = 5
+
+
+def _printable(line: str) -> str:
+    return "".join(c if c.isprintable() else f"\\x{ord(c):02x}"
+                   for c in line)
+
+
+def _cli(tag: str, argv: list[str]) -> tuple[dict[str, int], str]:
+    """``cli.main(argv)`` in this process with every launch count set to 0
+    just before and read just after; its standard output is captured and
+    logged. Exits unless it returns 0. Returns (launches, output)."""
+    import io
+
+    import torch
+
+    from deeplearning4j_tpu_torch import cli
+
+    buf = io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_launches()
+    out = buf.getvalue()
+    log(f"{tag}: `{' '.join(argv)}` -> exit {rc} in {secs:.2f} s; "
+        f"launches {launches}")
+    for line in out.splitlines():
+        log(f"  | {_printable(line)}")
+    if rc != 0:
+        raise SystemExit(f"{tag}: exit code {rc}")
+    return launches, out
+
+
+def _expect_output(tag: str, out: str, lines: list[str]) -> None:
+    """``out`` must be the printed ``lines``, each a regular expression
+    (a decoded byte stream may hold line breaks of its own)."""
+    import re
+
+    if not re.fullmatch("\n".join(lines) + "\n", out, re.S):
+        raise SystemExit(f"{tag}: printed {out!r}, expected lines matching "
+                         f"{lines!r}")
+
+
+def _must_launch(tag: str, launches: dict[str, int], names) -> None:
+    for name in names:
+        if launches[name] <= 0:
+            raise SystemExit(f"{tag}: kernel {name} never launched")
+
+
+def phase_checkpoint(workdir: Path, card: str) -> dict[str, dict[str, int]]:
+    """Phase 7a-b: ``train --checkpoint-dir`` at full width, the two
+    checkpoints read back bitwise, then ``generate`` from them (beam 4, and
+    greedy int8 full). Returns the launches of each run."""
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch import cli
+    from deeplearning4j_tpu_torch.models.transformer import (
+        TransformerConfig,
+        param_shapes,
+    )
+    from deeplearning4j_tpu_torch.parallel import checkpoint as ckpt
+
+    d = workdir / "ckpt"
+    argv = CKPT_TRAIN + ["--checkpoint-dir", str(d)]
+    # time each checkpoint write inside the train command
+    writes, save = [], ckpt.save
+
+    def timed_save(*a, **kw):
+        t0 = time.perf_counter()
+        out = save(*a, **kw)
+        writes.append(time.perf_counter() - t0)
+        return out
+
+    ckpt.save = timed_save
+    try:
+        train, _ = _cli("checkpoint train", argv)
+    finally:
+        ckpt.save = save
+    _must_launch("checkpoint train", train,
+                 ("flash_attn_fwd", "flash_attn_bwd"))
+    names = sorted(f.name for f in d.iterdir())
+    meta = ckpt.CheckpointManager(d).read_meta()
+    want = cli._cfg_from_args(cli.build_parser().parse_args(argv))
+    got = TransformerConfig.from_json(meta["config"])
+    path = d / "ckpt_4.npz"
+    log(f"checkpoint: files {names}, {path.stat().st_size / 2**20:.1f} MiB "
+        f"each; writes {', '.join(f'{w:.3f}' for w in writes)} s (host "
+        f"clock, device-to-host copy included; {card}); meta step "
+        f"{meta['step']}, loss {meta['loss']:.4f}, config == the preset's: "
+        f"{got == want}")
+    if (names != ["ckpt_2.npz", "ckpt_4.npz"] or meta["step"] != 4
+            or got != want or len(writes) != 2):
+        raise SystemExit("checkpoint: wrong files, step or config")
+    t0 = time.perf_counter()
+    params, _ = ckpt.restore(path, param_shapes(got))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    with np.load(path) as z:
+        flat = {k: z[k] for k in z.files if k != "__manifest__"}
+    same = [k for k, leaf in ckpt.flat_leaves(params)
+            if torch.equal(leaf.cpu(), torch.from_numpy(flat[k]))]
+    log(f"checkpoint: restore {restore_s:.3f} s onto the card; "
+        f"{len(same)}/{len(flat)} leaves equal the npz arrays bitwise")
+    if len(same) != len(flat):
+        raise SystemExit("checkpoint: restored params differ from the file")
+    del params, flat
+
+    beam, out = _cli("generate beam", [
+        "generate", "--checkpoint-dir", str(d), "--beam", "4",
+        "--max-new", "48"])
+    _expect_output("generate beam", out, [r"restored step 4 from \S+"] + [
+        rf"beam {w} \(logp -?\d+\.\d\d\): the quick brown .*"
+        for w in range(4)])
+    _must_launch("generate beam", beam, ("flash_attn_fwd", "flash_decode"))
+    greedy, out = _cli("generate int8", [
+        "generate", "--checkpoint-dir", str(d), "--int8", "full",
+        "--temperature", "0"])
+    _expect_output("generate int8", out, [
+        r"restored step 4 from \S+",
+        r"int8 serving mode: full \(weights \+ kv cache\)",
+        r"sample: the quick brown .*"])
+    _must_launch("generate int8", greedy,
+                 ("flash_attn_fwd", "flash_decode_int8"))
+    return {"train_ckpt": train,
+            "generate_ckpt": {k: beam[k] + greedy[k] for k in beam}}
+
+
+def _dequantized(params):
+    """The f32 weights an int8 tree stands for: every int8 leaf times its
+    ``*_scale`` sibling (norm scales such as ``ln1_scale`` have no int8
+    leaf beside them and stay)."""
+    import torch
+
+    def deq(tree):
+        return {n: (a.float() * tree[n + "_scale"]
+                    if a.dtype == torch.int8 else a)
+                for n, a in tree.items()
+                if not (n.endswith("_scale") and n[:-len("_scale")] in tree)}
+
+    out = deq({k: v for k, v in params.items() if k != "blocks"})
+    out["blocks"] = deq(params["blocks"])
+    return out
+
+
+def _ll_gap(cfg, params, int8: bool, toks, scores) -> float:
+    """max over the beams of |score - its sequence's log-likelihood by
+    ``transformer_apply`` in f32 on the weights the decode used|."""
+    import dataclasses
+
+    import torch
+
+    from deeplearning4j_tpu_torch.models.transformer import transformer_apply
+
+    ref_cfg = dataclasses.replace(cfg, compute_dtype=torch.float32,
+                                  use_flash=False, decode_int8=False)
+    with torch.no_grad():
+        logits, _ = transformer_apply(ref_cfg)(
+            _dequantized(params) if int8 else params, toks[0])
+    tp = toks.shape[2] - BEAM_NEW
+    logp = torch.log_softmax(logits, dim=-1)[:, tp - 1:-1]
+    ll = logp.gather(-1, toks[0, :, tp:, None])[..., 0].sum(-1)
+    return (scores[0] - ll).abs().max().item()
+
+
+def _teacher_forced(cfg, params, prompt, toks):
+    """Each beam's summed log-probs with its own tokens fed through the
+    decode program the beam search runs (the prompt prefilled at B 1, its
+    rows tiled to W, then one decode step a token at B W), added in the
+    beam's order. A row's logits do not depend on the other rows, so this
+    equals the beam's scores bitwise when every cache row and score
+    followed its beam's parents."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models.transformer import (
+        _decode_builder,
+        kv_map,
+    )
+
+    fwd1, init_caches, prefill, cast = _decode_builder(cfg)
+    params = cast(params)
+    _, w, total = toks.shape
+    tp = prompt.shape[1]
+    with torch.no_grad():
+        caches, logits = prefill(params, init_caches(1, total, prompt.device),
+                                 prompt)
+        caches = kv_map(lambda a: a.repeat_interleave(w, dim=2), caches)
+        logp = torch.log_softmax(logits, dim=-1).expand(w, -1)
+        score = torch.zeros(w, device=prompt.device)
+        for i in range(tp, total):
+            tok = toks[0, :, i]
+            score = score + logp.gather(-1, tok[:, None])[:, 0]
+            logits, caches = fwd1(params, caches, tok, i)
+            logp = torch.log_softmax(logits, dim=-1)
+    return score
+
+
+@contextlib.contextmanager
+def planted_stale_cache():
+    """A planted fault for phase 7c's checks: inside the block, beam search
+    reorders its token history but not its caches (``kv_map``'s calls
+    after the first, the W tiling, return the cache unchanged)."""
+    from deeplearning4j_tpu_torch.models import transformer as tm
+
+    real, calls = tm.kv_map, []
+
+    def stale(fn, *caches):
+        calls.append(fn)
+        return real(fn, *caches) if len(calls) == 1 else caches[0]
+
+    tm.kv_map = stale
+    try:
+        yield
+    finally:
+        tm.kv_map = real
+
+
+def phase_beam(int8: bool, card: str) -> dict[str, int]:
+    """Phase 7c: beam search, B 1, W 4, prompt 128, 32 new, on the serve
+    smoke's model (bf16, or int8 full). W 1 must equal greedy generate
+    bitwise; the W 4 scores must be sorted, equal bitwise the beams' own
+    tokens teacher-forced through the same decode program, and each lie
+    within BEAM_LL_TOL a token of its sequence's log-likelihood. A run
+    with a planted stale cache must fail the teacher-forced check; its
+    log-likelihood gap is logged beside the sound run's. Returns the W 4
+    run's launches."""
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.models.transformer import (
+        transformer_beam_search,
+        transformer_generate,
+    )
+
+    tag = "beam int8" if int8 else "beam"
+    cfg, params = serve_model(int8)
+    prompt = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (1, BEAM_PROMPT))).cuda()
+    beam = transformer_beam_search(cfg)
+    greedy = transformer_generate(cfg)(params, prompt, BEAM_NEW,
+                                       temperature=0.0)
+    w1, _ = beam(params, prompt, 1, BEAM_NEW)
+    reset_launches()
+    toks, scores = beam(params, prompt, BEAM_W, BEAM_NEW)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    times = {}
+    for n in (1, BEAM_NEW):
+        runs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            beam(params, prompt, BEAM_W, n)
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t0)
+        times[n] = float(np.median(runs))
+    step_ms = (times[BEAM_NEW] - times[1]) / (BEAM_NEW - 1) * 1e3
+    gap = _ll_gap(cfg, params, int8, toks, scores)
+    forced = _teacher_forced(cfg, params, prompt, toks)
+    forced_same = torch.equal(forced, scores[0])
+    with planted_stale_cache():
+        bad_toks, bad_scores = beam(params, prompt, BEAM_W, BEAM_NEW)
+    bad_forced = _teacher_forced(cfg, params, prompt, bad_toks)
+    bad_seen = not torch.equal(bad_forced, bad_scores[0])
+    bad_gap = _ll_gap(cfg, params, int8, bad_toks, bad_scores)
+    same = torch.equal(w1[:, 0], greedy)
+    ordered = bool((scores[0, :-1] >= scores[0, 1:]).all())
+    log(f"{tag}: B 1, W {BEAM_W}, prompt {BEAM_PROMPT}, {BEAM_NEW} new; "
+        f"W 1 == greedy generate bitwise: {same}; scores "
+        f"{[round(x, 4) for x in scores[0].tolist()]} sorted {ordered}; "
+        f"== teacher-forced bitwise: {forced_same} (max |diff| "
+        f"{(forced - scores[0]).abs().max().item():.3g}); max |score - "
+        f"log-likelihood (f32 transformer_apply)| {gap:.4f} (tol "
+        f"{BEAM_LL_TOL * BEAM_NEW:.2f} = {BEAM_LL_TOL} a token); planted "
+        f"stale cache: teacher-forced check fails {bad_seen} (max |diff| "
+        f"{(bad_forced - bad_scores[0]).abs().max().item():.4g}), "
+        f"log-likelihood gap {bad_gap:.4f}; {step_ms:.3f} ms a beam step "
+        f"((median of 3 at {BEAM_NEW} new - median of 3 at 1) / "
+        f"{BEAM_NEW - 1}, host clock; {card}); launches {launches}")
+    if (not same or not ordered or not forced_same
+            or gap > BEAM_LL_TOL * BEAM_NEW):
+        raise SystemExit(f"{tag}: beam search failed its checks")
+    if not bad_seen:
+        raise SystemExit(f"{tag}: the teacher-forced check passed a beam "
+                         f"search with a stale cache")
+    _must_launch(tag, launches, ("flash_attn_fwd", "flash_decode_int8"
+                                 if int8 else "flash_decode"))
+    return launches
+
+
+def spec_config():
+    import torch
+
+    from deeplearning4j_tpu_torch.models.transformer import TransformerConfig
+
+    return TransformerConfig(
+        vocab_size=50304, d_model=768, n_heads=6, n_layers=12, d_ff=3072,
+        max_len=SPEC_PROMPT + SPEC_NEW + 1, use_flash=True, n_kv_heads=2,
+        rope=True, compute_dtype=torch.bfloat16)
+
+
+def _count_syncs(fn):
+    """(fn's result, the host syncs it made, where they were made): PyTorch's
+    sync debug mode warns at every synchronizing CUDA call; each warning's
+    place is the innermost three frames of the Python stack that made it.
+    Switching the mode itself warns once; that warning is not fn's."""
+    import collections
+    import traceback
+    import warnings
+
+    import torch
+
+    where = collections.Counter()
+    inside = False
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if inside and "synchroniz" in str(message):
+            frames = [f for f in traceback.extract_stack()[:-1]
+                      if Path(f.filename).name != "warnings.py"][-3:]
+            where[" < ".join(f"{Path(f.filename).name}:{f.lineno}"
+                             for f in reversed(frames))] += 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            inside = True
+            out = fn()
+            inside = False
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum(where.values()), dict(where)
+
+
+def phase_spec(card: str) -> dict[str, int]:
+    """Phase 7d: speculative decoding at the bench's spec geometry with
+    the int8-weight self-draft. Greedy: held against generate by the
+    logit-difference rule; sampled: repeatable per generator seed; the
+    rounds, acceptance, host syncs a round and tokens/s against plain
+    generate. Returns the greedy run's launches."""
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.models.transformer import (
+        init_params,
+        quantize_decode_params,
+        transformer_generate,
+        transformer_speculative_generate,
+    )
+
+    cfg = spec_config()
+    params = init_params(cfg, seed=0)
+    draft = quantize_decode_params(params, cfg)
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, SPEC_PROMPT))).cuda()
+    spec = transformer_speculative_generate(cfg)
+    gen = transformer_generate(cfg)
+    ref, ref_logits = gen(params, prompt, SPEC_NEW, temperature=0.0,
+                          return_logits=True)
+    torch.cuda.synchronize()
+    reset_launches()
+    (out, logits, stats), syncs, where = _count_syncs(lambda: spec(
+        params, draft, prompt, SPEC_NEW, draft_k=SPEC_K, temperature=0.0,
+        return_logits=True, return_stats=True))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    delta = (logits - ref_logits).abs().amax(dim=(1, 2))
+    diff = (out[0] != ref[0]).nonzero()
+    if diff.numel():
+        j = int(diff[0]) - SPEC_PROMPT
+        top2 = torch.topk(ref_logits[j, 0], 2).values
+        gap = (top2[0] - top2[1]).item()
+        ok = gap <= 2 * delta[j].item()
+        verdict = (f"first divergence at generated position {j}: generate's "
+                   f"top-2 gap {gap:.4g}, max |delta logit| there "
+                   f"{delta[j].item():.4g} (bar: gap <= 2 x that); max "
+                   f"|delta logit| before it "
+                   f"{delta[:j].max().item() if j else 0.0:.4g}")
+    else:
+        ok = True
+        verdict = (f"identical to generate over {SPEC_NEW} tokens; max "
+                   f"|delta logit| {delta.max().item():.4g}")
+    spec_tokens = out[0, SPEC_PROMPT:]
+    taken = bool((logits.argmax(-1)[:, 0] == spec_tokens).all())
+    rounds = stats["rounds"]
+    log(f"spec: {cfg.d_model}d x {cfg.n_layers}L, vocab {cfg.vocab_size}, "
+        f"{cfg.n_heads} heads over {cfg.kv_heads} KV heads of "
+        f"{cfg.head_dim}, rope, max_len {cfg.max_len}, bf16, int8-weight "
+        f"self-draft, B 1, prompt "
+        f"{SPEC_PROMPT}, {SPEC_NEW} new, k {SPEC_K}; greedy: {verdict}; "
+        f"each token the argmax of its verify logits {taken}; {rounds} "
+        f"rounds, accepted a round {stats['accepted']} (mean "
+        f"{np.mean(stats['accepted']):.3f}), host syncs {syncs} "
+        f"({syncs / rounds:.3f} a round, at {where}); launches {launches}")
+    if not ok or not taken:
+        raise SystemExit("spec: the greedy stream left generate's by more "
+                         "than the logit difference explains")
+    if syncs != rounds:
+        raise SystemExit(f"spec: {syncs} host syncs in {rounds} rounds; one "
+                         f"a round expected")
+    _must_launch("spec", launches, ("flash_attn_fwd", "flash_decode"))
+
+    def sampled(seed, stats=False):
+        return spec(params, draft, prompt, SPEC_NEW, draft_k=SPEC_K,
+                    temperature=1.0, top_k=SPEC_TOP_K,
+                    generator=torch.Generator(device="cuda").manual_seed(
+                        seed), return_stats=stats)
+
+    (a, a_stats), a_syncs, a_where = _count_syncs(
+        lambda: sampled(1, stats=True))
+    b, c = sampled(1), sampled(2)
+    same, differ = torch.equal(a, b), not torch.equal(a, c)
+    log(f"spec sampled (temperature 1, top-k {SPEC_TOP_K}): seed 1 twice "
+        f"equal {same}, seed 2 differs {differ}; {a_stats['rounds']} rounds, "
+        f"accepted a round mean {np.mean(a_stats['accepted']):.3f}, host "
+        f"syncs {a_syncs / a_stats['rounds']:.3f} a round (at {a_where})")
+    if not same or not differ or a_syncs != a_stats["rounds"]:
+        raise SystemExit("spec sampled: not repeatable per seed, or more "
+                         "than one host sync a round")
+
+    walls = {"spec": [], "generate": []}
+    rounds_timed = []
+    for i in range(SPEC_RUNS):
+        order = ("spec", "generate") if i % 2 == 0 else ("generate", "spec")
+        for side in order:
+            g = torch.Generator(device="cuda").manual_seed(100 + i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if side == "spec":
+                _, st = spec(params, draft, prompt, SPEC_NEW, draft_k=SPEC_K,
+                             temperature=1.0, top_k=SPEC_TOP_K, generator=g,
+                             return_stats=True)
+                rounds_timed.append(st["rounds"])
+            else:
+                gen(params, prompt, SPEC_NEW, temperature=1.0,
+                    top_k=SPEC_TOP_K, generator=g)
+            torch.cuda.synchronize()
+            walls[side].append(time.perf_counter() - t0)
+    rate = {k: [SPEC_NEW / w for w in v] for k, v in walls.items()}
+    log("spec vs generate, B 1, sampled, tokens/s (64 new over the whole "
+        f"call, prefill included; host clock, {SPEC_RUNS} runs a side in "
+        f"turns; {card}): " + "; ".join(
+            f"{k} median {np.median(v):.2f} (range {min(v):.2f}-"
+            f"{max(v):.2f})" for k, v in rate.items())
+        + f"; spec rounds per timed run {rounds_timed}")
+    return launches
+
+
+def phase_decode_variants(card: str) -> dict[str, dict[str, int]]:
+    """Phase 7: checkpoint train and generate, beam search and
+    speculative decoding; reports its wall seconds. The checkpoints go to
+    an ignored directory of the checkout, removed at the end."""
+    import shutil
+
+    import torch
+
+    t0 = time.perf_counter()
+    workdir = ROOT / ".scratch" / "chip_smoke_phase7"
+    shutil.rmtree(workdir, ignore_errors=True)
+    with launched_shapes() as seen:
+        try:
+            runs = phase_checkpoint(workdir, card)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        torch.cuda.empty_cache()
+        runs["beam"] = phase_beam(False, card)
+        runs["beam_int8"] = phase_beam(True, card)
+        runs["spec"] = phase_spec(card)
+    torch.cuda.empty_cache()
+    log(f"phase 7: {time.perf_counter() - t0:.1f} s wall")
+    check_launched("phase 7", seen)
+    return runs
+
+
 def main() -> int:
     try:
         import torch
@@ -1511,21 +2179,24 @@ def main() -> int:
     phase_build()
     w2v_model, w2v_corpus = w2v_full_model()
     measured = phase_kernels(w2v_model, w2v_corpus)
-    engine, serve_launches, streams = phase_serve()
-    phase_server(engine)
-    del engine
-    _, int8_launches, int8_streams = phase_serve(int8=True)
-    by_phase = {
-        "serve": serve_launches,
-        "serve_int8": int8_launches,
-        "serve_paged": phase_serve_paged(False, streams),
-        "serve_paged_int8": phase_serve_paged(True, int8_streams),
-    }
-    torch.cuda.empty_cache()  # the serving engines' caches go back
-    phase_train_parity()
-    by_phase["train"] = phase_train(card)
-    by_phase.update(phase_word2vec(w2v_model, w2v_corpus, card))
+    with launched_shapes() as early:
+        engine, serve_launches, streams = phase_serve()
+        phase_server(engine)
+        del engine
+        _, int8_launches, int8_streams = phase_serve(int8=True)
+        by_phase = {
+            "serve": serve_launches,
+            "serve_int8": int8_launches,
+            "serve_paged": phase_serve_paged(False, streams),
+            "serve_paged_int8": phase_serve_paged(True, int8_streams),
+        }
+        torch.cuda.empty_cache()  # the serving engines' caches go back
+        phase_train_parity()
+        by_phase["train"] = phase_train(card)
+        by_phase.update(phase_word2vec(w2v_model, w2v_corpus, card))
+    check_launched("phases 3-6", early)
     del w2v_model
+    by_phase.update(phase_decode_variants(card))
     kernels = [
         dict(name=name, route="cuda", **KERNELS[name],
              launches=sum(p[name] for p in by_phase.values()),

@@ -1,18 +1,27 @@
-"""Command line of the port: ``python -m deeplearning4j_tpu_torch serve`` and
-``... train --model transformer``.
+"""Command line of the port: ``python -m deeplearning4j_tpu_torch train
+--model transformer``, ``... generate`` and ``... serve``.
 
 ``train`` trains the byte-level char LM on ``--text`` (or an offline demo
 corpus) with the reference's flags and recipe (``lm_optimizer``, a loss line
-every 20 steps, ``final loss``, a sampled continuation), on one device.
+every 20 steps, ``final loss``, a sampled continuation), on one device;
+``--checkpoint-dir`` saves npz checkpoints (``parallel/checkpoint.py``)
+every ``--save-every`` steps with the loss and the model config in their
+meta, as the reference does.
 
-``serve --demo`` serves a random-init transformer (weights from ``--seed``)
-through ``ServingEngine`` + ``ServingServer``; the model flags are the JAX
-CLI's (``--seq-len``, ``--d-model``, ``--n-layers``, ``--n-heads``,
-``--bf16``), plus ``--preset gpt2s`` for the GPT-2-small geometry and
-``--flash`` for the flash prefill kernel. ``--int8 weights|full`` serves
-int8 weights (over a float cache, or with the int8 KV cache too) and
-``--paged [--block-size N]`` a block-paged KV pool, as the reference's
-flags do. Runs on ``cuda`` unless ``--device cpu`` is given.
+``generate --checkpoint-dir`` restores the newest checkpoint (its config
+from the meta) and samples, or beam-searches with ``--beam W``, a
+continuation of the byte-level ``--prompt``.
+
+``serve`` serves a checkpoint (``--checkpoint-dir``) or a random-init
+transformer (``--demo``, weights from ``--seed``) through ``ServingEngine``
++ ``ServingServer``; the model flags are the JAX CLI's (``--seq-len``,
+``--d-model``, ``--n-layers``, ``--n-heads``, ``--bf16``), plus ``--preset
+gpt2s`` (or ``transformer``, the JAX bench's name) for the GPT-2-small
+geometry and ``--flash`` for the flash prefill kernel. ``--int8
+weights|full`` serves int8 weights (over a float cache, or with the int8
+KV cache too) and ``--paged [--block-size N]`` a block-paged KV pool, as
+the reference's flags do. Every command runs on ``cuda`` unless ``--device
+cpu`` is given.
 """
 
 from __future__ import annotations
@@ -57,8 +66,6 @@ def _cfg_from_args(args):
 
 #: flags of the reference's ``train`` that later slices of the port cover
 _LATER = {
-    "checkpoint_dir": "--checkpoint-dir (checkpointing) comes with the "
-                      "checkpoint slice",
     "status_port": "--status-port (the status REST / ClusterService) comes "
                    "with the cluster slice",
     "fsdp": "--fsdp comes with the torch.distributed slice",
@@ -66,6 +73,11 @@ _LATER = {
     "coordinator": "--coordinator (multi-process training) comes with the "
                    "torch.distributed slice",
 }
+
+#: why ``--checkpoint-backend orbax`` exits 2
+_ORBAX = ("--checkpoint-backend orbax is JAX's sharded checkpointer; the "
+          "port's sharded format (torch.distributed.checkpoint) comes with "
+          "the torch.distributed slice. Use npz.")
 
 #: the reference's offline demo corpus (deeplearning4j_tpu/cli.py)
 _DEMO_TEXT = (
@@ -82,6 +94,7 @@ def cmd_train(args) -> int:
         transformer_generate,
         transformer_train_step,
     )
+    from deeplearning4j_tpu_torch.parallel.checkpoint import CheckpointManager
 
     if args.model != "transformer":
         print(f"--model {args.model} comes with the DL4J-era slice of the "
@@ -117,6 +130,13 @@ def cmd_train(args) -> int:
         print(f"--seq-len ({args.seq_len}) exceeds the model's max_len "
               f"({cfg.max_len})", file=sys.stderr)
         return 2
+    mgr = None
+    if args.checkpoint_dir:
+        if args.checkpoint_backend == "orbax":
+            print(_ORBAX, file=sys.stderr)
+            return 2
+        mgr = CheckpointManager(args.checkpoint_dir,
+                                save_every=args.save_every)
     step, init_state, shard_tokens = transformer_train_step(
         None, cfg, optimizer=lm_optimizer(total_steps=args.steps),
         device=args.device,
@@ -127,13 +147,23 @@ def cmd_train(args) -> int:
     for i in range(args.steps):
         starts = rng.integers(0, len(arr) - args.seq_len - 1, args.batch)
         toks = np.stack([arr[s:s + args.seq_len + 1] for s in starts])
-        params, opt_state, loss = step(params, opt_state, shard_tokens(toks))
-        # read the loss (a host sync) only on the print cadence
-        if (i + 1) % 20 == 0:
-            print(f"step {i + 1}/{args.steps} loss {float(loss):.4f}",
-                  flush=True)
+        params, opt_state, step_loss = step(params, opt_state,
+                                            shard_tokens(toks))
+        # read the loss (a host sync) only on the print and save cadence
+        on_cadence = (i + 1) % 20 == 0 or (
+            mgr is not None and (i + 1) % args.save_every == 0)
+        if on_cadence or i + 1 == args.steps:
+            loss = float(step_loss)
+            if (i + 1) % 20 == 0:
+                print(f"step {i + 1}/{args.steps} loss {loss:.4f}",
+                      flush=True)
+        if mgr is not None:
+            # the config rides in the meta, so generate and serve rebuild
+            # the model without the training flags
+            mgr.maybe_save(i + 1, params,
+                           {"loss": loss, "config": cfg.to_json()})
     if loss is not None:
-        print(f"final loss {float(loss):.4f}")
+        print(f"final loss {loss:.4f}")
 
     if cfg.max_len >= 32:
         gen = transformer_generate(cfg)
@@ -147,31 +177,129 @@ def cmd_train(args) -> int:
     return 0
 
 
-def cmd_serve(args) -> int:
+def _decode_model(args):
+    """The model the decode commands run: the newest checkpoint of
+    ``--checkpoint-dir`` (its config from the meta; the model flags for a
+    checkpoint without one, as the reference's ``_restore_decode_model``)
+    or, with ``serve --demo``, random weights from ``--seed``; then
+    ``--int8 off|weights|full``. Returns ``(cfg, params)`` or an exit
+    code."""
+    from pathlib import Path
+
     from deeplearning4j_tpu_torch.models.transformer import (
+        TransformerConfig,
         init_params,
+        param_shapes,
         quantize_decode_params,
     )
+    from deeplearning4j_tpu_torch.parallel.checkpoint import CheckpointManager
+
+    if getattr(args, "demo", False):
+        cfg = _cfg_from_args(args)
+
+        def load(c):
+            return init_params(c, seed=args.seed, device=args.device)
+    else:
+        if args.checkpoint_backend == "orbax":
+            print(_ORBAX, file=sys.stderr)
+            return 2
+        # a read-only command creates no directory for a mistyped path (the
+        # manager makes its directory)
+        missing = f"no checkpoint found in {args.checkpoint_dir}"
+        if not Path(args.checkpoint_dir).is_dir():
+            print(missing, file=sys.stderr)
+            return 1
+        mgr = CheckpointManager(args.checkpoint_dir)
+        meta = mgr.read_meta()
+        if meta is None:
+            print(missing, file=sys.stderr)
+            return 1
+        if "config" in meta:
+            cfg = TransformerConfig.from_json(meta["config"])
+        else:
+            # a checkpoint without its config: the model flags must match
+            # the training run's (restore raises on a shape that differs)
+            cfg = _cfg_from_args(args)
+
+        def load(c):
+            params, meta = mgr.restore_latest(param_shapes(c),
+                                              device=args.device)
+            print(f"restored step {meta.get('step')} from "
+                  f"{args.checkpoint_dir}")
+            return params
+    if args.int8 != "off" and cfg.n_experts:
+        print("--int8 does not cover MoE experts", file=sys.stderr)
+        return 2
+    cfg = dataclasses.replace(cfg, decode_int8=(args.int8 == "full"))
+    params = load(cfg)
+    if args.int8 != "off":
+        params = quantize_decode_params(params, cfg)
+        print(f"int8 serving mode: {args.int8} ("
+              f"{'weights + kv cache' if args.int8 == 'full' else 'weights over a bf16/f32 cache'})")
+    return cfg, params
+
+
+def cmd_generate(args) -> int:
+    """Sample (or beam-search) a continuation of ``--prompt`` from the
+    newest checkpoint, byte-level as ``train``, printing the reference's
+    lines."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.models.transformer import (
+        transformer_beam_search,
+        transformer_generate,
+    )
+
+    model = _decode_model(args)
+    if isinstance(model, int):
+        return model
+    cfg, params = model
+    prompt_bytes = args.prompt.encode("latin-1", errors="replace")
+    room = cfg.max_len - len(prompt_bytes)
+    if room <= 0:
+        print(f"--prompt is {len(prompt_bytes)} bytes; max_len "
+              f"({cfg.max_len}) leaves no room to decode", file=sys.stderr)
+        return 2
+    max_new = min(args.max_new, room)
+    dev = params["embed"].device
+    prompt = torch.tensor(list(prompt_bytes), dtype=torch.long,
+                          device=dev)[None]
+
+    def text(toks) -> str:
+        return bytes((toks % 256).cpu().numpy().astype(np.uint8)).decode(
+            "latin-1")
+
+    if args.beam:
+        toks, scores = transformer_beam_search(cfg)(
+            params, prompt, beam_width=args.beam, max_new=max_new)
+        for w in range(args.beam):
+            print(f"beam {w} (logp {float(scores[0, w]):.2f}):",
+                  text(toks[0, w]))
+    else:
+        out = transformer_generate(cfg)(
+            params, prompt, max_new, temperature=args.temperature,
+            top_k=args.top_k if args.top_k > 0 else None,
+            generator=torch.Generator(device=dev).manual_seed(args.seed))
+        print("sample:", text(out[0]))
+    return 0
+
+
+def cmd_serve(args) -> int:
     from deeplearning4j_tpu_torch.serving import (
         RequestScheduler,
         ServingEngine,
         ServingServer,
     )
 
-    if not args.demo:
-        print("serve needs --demo (checkpoint loading is a later slice)",
-              file=sys.stderr)
+    if not (args.demo or args.checkpoint_dir):
+        print("serve needs --checkpoint-dir (or --demo)", file=sys.stderr)
         return 2
-    cfg = _cfg_from_args(args)
-    if args.int8 != "off" and cfg.n_experts:
-        print("--int8 does not cover MoE experts", file=sys.stderr)
-        return 2
-    cfg = dataclasses.replace(cfg, decode_int8=(args.int8 == "full"))
-    params = init_params(cfg, seed=args.seed, device=args.device)
-    if args.int8 != "off":
-        params = quantize_decode_params(params, cfg)
-        print(f"int8 serving mode: {args.int8} ("
-              f"{'weights + kv cache' if args.int8 == 'full' else 'weights over a bf16/f32 cache'})")
+    model = _decode_model(args)
+    if isinstance(model, int):
+        return model
+    cfg, params = model
+    origin = ("demo mode: random-init model" if args.demo
+              else f"checkpoint {args.checkpoint_dir}")
     engine = ServingEngine(
         cfg, params, n_slots=args.slots, max_total=args.max_total,
         temperature=args.temperature,
@@ -193,7 +321,7 @@ def cmd_serve(args) -> int:
     server = ServingServer(engine, host=args.host, port=args.port,
                            request_timeout_s=args.request_timeout)
     host, port = server.address
-    print(f"demo mode: random-init model ({cfg.d_model}d, {cfg.n_layers}L, "
+    print(f"{origin} ({cfg.d_model}d, {cfg.n_layers}L, "
           f"vocab {cfg.vocab_size}, {cfg.compute_dtype}) on {engine.device}")
     print(f"serving on http://{host}:{port}  ({args.slots} slots, "
           f"{engine.max_total} tokens/slot, decode horizon "
@@ -201,6 +329,39 @@ def cmd_serve(args) -> int:
           flush=True)
     server.serve_forever(drain_s=args.drain_s)
     return 0
+
+
+def _add_checkpoint_flags(ap, required: bool) -> None:
+    ap.add_argument("--checkpoint-dir", required=required, default=None,
+                    help="restore the newest checkpoint of this directory")
+    ap.add_argument("--checkpoint-backend", default="npz",
+                    choices=["npz", "orbax"],
+                    help="orbax (JAX's sharded format) exits 2")
+
+
+def _add_int8_flag(ap) -> None:
+    ap.add_argument("--int8", default="off",
+                    choices=["off", "weights", "full"],
+                    help="int8 weights over a float cache, or the fully "
+                    "quantized path (int8 KV cache and decode kernel too)")
+
+
+def _add_model_flags(ap) -> None:
+    """The decode commands' model flags. With a checkpoint they are read
+    only when its meta holds no config, and must then match training's."""
+    ap.add_argument("--preset", choices=sorted(PRESETS), default=None,
+                    help="model geometry preset (overrides the flags "
+                    "below; with a checkpoint, only when it holds no "
+                    "config)")
+    ap.add_argument("--flash", action="store_true",
+                    help="bulk prefill through the flash attention kernel")
+    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--d-model", type=int, default=128)
+    ap.add_argument("--n-layers", type=int, default=2)
+    ap.add_argument("--n-heads", type=int, default=4)
+    ap.add_argument("--n-experts", type=int, default=0,
+                    help="MoE experts (a later slice: > 0 raises)")
+    ap.add_argument("--bf16", action="store_true")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -235,14 +396,41 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--tp", type=int, default=1,
                    help="tensor-parallel ways (a later slice: > 1 exits 2)")
     t.add_argument("--fsdp", action="store_true", help="(a later slice)")
-    t.add_argument("--checkpoint-dir", default=None, help="(a later slice)")
+    t.add_argument("--checkpoint-dir", default=None,
+                   help="save npz checkpoints here (ckpt_<step>.npz, the "
+                   "newest 3 kept)")
+    t.add_argument("--checkpoint-backend", default="npz",
+                   choices=["npz", "orbax"],
+                   help="orbax (JAX's sharded format) exits 2")
+    t.add_argument("--save-every", type=int, default=50)
     t.add_argument("--status-port", type=int, default=None,
                    help="(a later slice)")
     t.add_argument("--coordinator", default=None, help="(a later slice)")
     t.set_defaults(fn=cmd_train)
+
+    g = sub.add_parser("generate",
+                       help="sample from a trained checkpoint (byte-level; "
+                       "--beam W for beam search, --int8 for int8 decode)")
+    _add_checkpoint_flags(g, required=True)
+    g.add_argument("--device", default=None,
+                   help="torch device (default cuda; 'cpu' runs the plain "
+                   "versions of the kernels)")
+    g.add_argument("--prompt", default="the quick brown ")
+    g.add_argument("--max-new", type=int, default=48)
+    g.add_argument("--temperature", type=float, default=0.8)
+    g.add_argument("--top-k", type=int, default=40,
+                   help="0 disables top-k filtering")
+    g.add_argument("--beam", type=int, default=0,
+                   help="beam width; 0 = sampled decode")
+    g.add_argument("--seed", type=int, default=0)
+    _add_int8_flag(g)
+    _add_model_flags(g)
+    g.set_defaults(fn=cmd_generate)
+
     v = sub.add_parser("serve", help="continuous-batching HTTP serving")
     v.add_argument("--demo", action="store_true",
                    help="serve a random-init model (weights from --seed)")
+    _add_checkpoint_flags(v, required=False)
     v.add_argument("--device", default=None,
                    help="torch device (default cuda; 'cpu' runs the plain "
                    "versions of the kernels)")
@@ -258,20 +446,8 @@ def build_parser() -> argparse.ArgumentParser:
     v.add_argument("--request-timeout", type=float, default=300.0)
     v.add_argument("--decode-horizon", type=int, default=4)
     v.add_argument("--drain-s", type=float, default=5.0)
-    v.add_argument("--preset", choices=sorted(PRESETS), default=None,
-                   help="model geometry preset (overrides the flags below)")
-    v.add_argument("--flash", action="store_true",
-                   help="bulk prefill through the flash attention kernel")
-    v.add_argument("--seq-len", type=int, default=128)
-    v.add_argument("--d-model", type=int, default=128)
-    v.add_argument("--n-layers", type=int, default=2)
-    v.add_argument("--n-heads", type=int, default=4)
-    v.add_argument("--n-experts", type=int, default=0,
-                   help="MoE experts (a later slice: > 0 raises)")
-    v.add_argument("--bf16", action="store_true")
-    v.add_argument("--int8", default="off", choices=["off", "weights", "full"],
-                   help="int8 weights over a float cache, or the fully "
-                   "quantized path (int8 KV cache and decode kernel too)")
+    _add_model_flags(v)
+    _add_int8_flag(v)
     v.add_argument("--paged", action="store_true",
                    help="block-paged KV: slots hold int32 block tables over "
                    "one shared refcounted pool instead of fixed slabs; "

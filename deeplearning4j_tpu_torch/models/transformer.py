@@ -47,11 +47,14 @@ loss is the memory-fused CE (``ops/fused_ce``); ``remat`` maps to
 (``adamw``, ``clip_by_global_norm``, ``warmup_cosine_decay_schedule``), so
 no optax is needed.
 
+Decode variants: greedy and sampled ``transformer_generate``, beam search
+(``transformer_beam_search``) and speculative decoding
+(``transformer_speculative_generate``), all on the same decode builder.
+
 Not in these slices: MoE (``n_experts``) and sequence parallelism raise
 ``NotImplementedError``; training on a mesh
-(tensor parallelism, FSDP) comes with the ``torch.distributed`` slice; beam
-search, speculative decoding, LoRA, checkpointing and tensor-parallel
-serving are later slices.
+(tensor parallelism, FSDP) comes with the ``torch.distributed`` slice;
+LoRA and tensor-parallel serving are later slices.
 """
 
 from __future__ import annotations
@@ -184,6 +187,16 @@ def _block_shapes(cfg: TransformerConfig) -> dict[str, tuple[int, ...]]:
         "wo": (nl, h, k, d), "ln2_scale": (nl, d), "ln2_bias": (nl, d),
         "w1": (nl, d, f), "b1": (nl, f), "w2": (nl, f, d), "b2": (nl, d),
     }
+
+
+def param_shapes(cfg: TransformerConfig) -> dict:
+    """The float params tree of ``cfg`` with a shape tuple at every leaf:
+    a restore template that allocates nothing."""
+    check_supported(cfg)
+    d, v = cfg.d_model, cfg.vocab_size
+    return {"embed": (v, d), "pos": (cfg.max_len, d),
+            "blocks": _block_shapes(cfg), "lnf_scale": (d,),
+            "lnf_bias": (d,), "head": (d, v)}
 
 
 def init_params(cfg: TransformerConfig, seed: int = 0, device=None):
@@ -1159,31 +1172,67 @@ def _check_decode_len(cfg: TransformerConfig, tp: int, max_new: int) -> int:
 
 
 def _top_k_filter(logits, top_k: int | None):
-    """Top-k threshold filter: logits below the k-th largest become -inf
-    (ties at the threshold are kept, as the reference keeps them)."""
+    """Top-k threshold filter: logits below the k-th largest become -inf;
+    logits EQUAL to the k-th are kept, as the reference keeps them. One
+    filter for every sampler of the port (generate, speculative decoding's
+    draft and verify sides, the serving engine), as in the reference
+    (transformer.py:1607).
+
+    The threshold is exact. The reference's ``approx_top_k`` flag picks
+    ``lax.approx_max_k``, which XLA lowers to the exact top-k off the TPU
+    (over (4, 50,304) f32 at k 40 the two thresholds are equal), so the
+    exact threshold is the reference's function with or without the flag
+    on any other device: recall 1.0, which meets its ~0.95 contract. The
+    port's entry points accept the flag and ignore it."""
     if top_k is None:
         return logits
     kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
     return logits.masked_fill(logits < kth, float("-inf"))
 
 
+def _filtered_probs(logits, temperature: float, top_k: int | None):
+    """The sampling distribution as f32 probabilities: the top-k filter,
+    then the temperature softmax; at ``temperature=0`` a one-hot argmax,
+    taken before any filter. Speculative decoding's draft and verify
+    sides share it, so the acceptance ratio compares the filtered
+    distributions the plain sampler draws from (the reference's
+    ``_filtered_probs``, transformer.py:1624)."""
+    logits = logits.float()
+    if temperature == 0:
+        return F.one_hot(logits.argmax(dim=-1), logits.shape[-1]).float()
+    logits = _top_k_filter(logits, top_k)
+    return torch.softmax(logits / temperature, dim=-1)
+
+
+def _draw(probs, generator=None):
+    """One index per row of ``probs`` (..., V), drawn with ``generator``:
+    the draw ``torch.multinomial(probs, 1)`` makes (an Exp(1) variate per
+    entry, then the argmax of probs / variate; same generator, same
+    tokens), without multinomial's two validating host syncs. Rows must
+    be finite and non-negative with a positive sum."""
+    e = torch.empty_like(probs).exponential_(1, generator=generator)
+    return (probs / e).argmax(dim=-1)
+
+
 def transformer_generate(cfg: TransformerConfig):
     """Autoregressive sampling with the KV cache. Returns
     ``generate(params, prompt, max_new, temperature=1.0, top_k=None,
-    generator=None, return_logits=False) -> tokens (B, Tp + max_new)``
-    (plus the (max_new, B, V) sampling logits with ``return_logits``).
+    generator=None, return_logits=False, approx_top_k=False) -> tokens
+    (B, Tp + max_new)`` (plus the (max_new, B, V) sampling logits with
+    ``return_logits``).
 
     Runs on the device ``params`` live on. ``temperature=0`` decodes
     greedily (argmax, first index on ties, as the reference); sampled
     decoding draws with the explicit ``generator`` (a ``torch.Generator``
     on the params' device) — its stream is not the reference's threefry
-    stream."""
+    stream. ``approx_top_k`` is accepted and ignored: the exact threshold
+    is the reference's function off the TPU (:func:`_top_k_filter`)."""
     forward_one, init_caches, do_prefill, cast_params = _decode_builder(cfg)
 
     @torch.no_grad()
     def generate(params, prompt, max_new: int, temperature: float = 1.0,
                  top_k: int | None = None, generator=None,
-                 return_logits: bool = False):
+                 return_logits: bool = False, approx_top_k: bool = False):
         b, tp = prompt.shape
         total = _check_decode_len(cfg, tp, max_new)
         params = cast_params(params)
@@ -1198,8 +1247,8 @@ def transformer_generate(cfg: TransformerConfig):
             if temperature == 0:
                 tok = filt.argmax(dim=-1)
             else:
-                probs = torch.softmax(filt / temperature, dim=-1)
-                tok = torch.multinomial(probs, 1, generator=generator)[:, 0]
+                tok = _draw(torch.softmax(filt / temperature, dim=-1),
+                            generator)
             tok = tok.to(prompt.dtype)
             toks.append(tok)
             logits, caches = forward_one(params, caches, tok, tp + i)
@@ -1208,5 +1257,226 @@ def transformer_generate(cfg: TransformerConfig):
         if return_logits:
             return out, torch.stack(seen)
         return out
+
+    return generate
+
+
+def _stable_top_k(x, k: int):
+    """(values, indices) of the ``k`` largest entries of the last axis,
+    largest first, ties to the LOWER index as ``lax.top_k`` breaks them: a
+    stable descending sort (``torch.topk`` promises no order among
+    ties)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def transformer_beam_search(cfg: TransformerConfig):
+    """KV-cached beam search, the reference's ``transformer_beam_search``
+    (transformer.py:1530). Returns ``beam(params, prompt, beam_width,
+    max_new) -> (tokens (B, W, Tp + max_new), log_probs (B, W))``, beams
+    sorted best first; runs on the device ``params`` live on.
+
+    The prompt is prefilled once at batch B and its cache rows tiled to
+    B*W beams (``repeat_interleave``). Each step scores the W*V
+    continuations of every batch row, keeps the top W (ties to the lower
+    flat index, as ``lax.top_k``), reorders the token history and every
+    cache leaf (both int8 planes in ``decode_int8`` mode) to the surviving
+    parents, and decodes the W new tokens as one batch of B*W rows. At
+    the first step beams 1..W-1 score -inf, so all W picks come from beam
+    0. The final order is a stable sort of the scores."""
+    forward_one, init_caches, do_prefill, cast_params = _decode_builder(cfg)
+
+    @torch.no_grad()
+    def beam(params, prompt, beam_width: int, max_new: int):
+        b, tp = prompt.shape
+        w, v = int(beam_width), cfg.vocab_size
+        total = _check_decode_len(cfg, tp, max_new)
+        params = cast_params(params)
+        dev = params["embed"].device
+        prompt = prompt.to(dev)
+        caches, logits = do_prefill(params, init_caches(b, total, dev),
+                                    prompt)
+        # (nl, 2, B*W, Tpad, ...): beam j of row r at r*W + j
+        caches = kv_map(lambda a: a.repeat_interleave(w, dim=2), caches)
+        logp = torch.log_softmax(logits, dim=-1)[:, None].expand(b, w, v)
+        scores = torch.full((b, w), float("-inf"), device=dev)
+        scores[:, 0] = 0.0
+        tokens = torch.zeros((b, w, max_new), dtype=prompt.dtype,
+                             device=dev)
+        rows = torch.arange(b, device=dev)[:, None] * w
+        for i in range(max_new):
+            cand = (scores[:, :, None] + logp).reshape(b, w * v)
+            scores, flat_idx = _stable_top_k(cand, w)
+            parent = flat_idx // v
+            tok = (flat_idx % v).to(tokens.dtype)
+            tokens = torch.take_along_dim(tokens, parent[:, :, None], dim=1)
+            tokens[:, :, i] = tok
+            # a new contiguous stacked cache: the decode kernel takes the
+            # whole buffer, not a view
+            flat_parent = (rows + parent).reshape(-1)
+            caches = kv_map(lambda a: a.index_select(2, flat_parent), caches)
+            logits, caches = forward_one(params, caches, tok.reshape(-1),
+                                         tp + i)
+            logp = torch.log_softmax(logits, dim=-1).reshape(b, w, v)
+        order = torch.argsort(-scores, dim=1, stable=True)
+        scores = torch.take_along_dim(scores, order, dim=1)
+        tokens = torch.take_along_dim(tokens, order[:, :, None], dim=1)
+        full = torch.cat([prompt[:, None].expand(b, w, tp), tokens], dim=2)
+        return full, scores
+
+    return beam
+
+
+def _accept_round(ps, qs, ds, u, pick):
+    """One round's rejection sampling (the reference's, transformer.py:
+    2012-2040): draft tokens ``ds`` (B, k) drawn from the draft's ``qs``
+    (B, k, V), the target's ``ps`` (B, k+1, V) over the same slots plus
+    the bonus slot, uniforms ``u`` (B, k). Accepts d_i while ``u * max(q,
+    1e-30) < p`` (division-free ``u < p/q``); ``n`` (B,) counts the
+    accepted prefix (a cumulative product). The correction token is drawn
+    by ``pick`` from the residual max(p_n - q_n, 0) / Z at slot n; with
+    n = k the zero-padded q row makes that p itself (the bonus token), and
+    a zero residual falls back to p_n, so every row drawn from is a valid
+    distribution. Returns ``(n, correction)``."""
+    b, k = ds.shape
+    v = ps.shape[-1]
+    p_d = ps[:, :k].gather(-1, ds[..., None])[..., 0]
+    q_d = qs.gather(-1, ds[..., None])[..., 0]
+    accept = u * q_d.clamp_min(1e-30) < p_d
+    n = accept.long().cumprod(dim=1).sum(dim=1)
+    qs_pad = torch.cat([qs, qs.new_zeros((b, 1, v))], dim=1)
+    at_n = n[:, None, None].expand(b, 1, v)
+    pn = ps.gather(1, at_n)[:, 0]
+    qn = qs_pad.gather(1, at_n)[:, 0]
+    resid = (pn - qn).clamp_min(0.0)
+    rs = resid.sum(dim=-1, keepdim=True)
+    resid = torch.where(rs > 0, resid / rs, pn)
+    return n, pick(resid)
+
+
+def transformer_speculative_generate(
+        cfg: TransformerConfig, draft_cfg: TransformerConfig | None = None):
+    """Speculative decoding, the reference's
+    ``transformer_speculative_generate`` (transformer.py:1843): a draft
+    model proposes ``draft_k`` tokens, the target verifies them in one
+    chunked forward, and rejection sampling keeps the output a sample of
+    the target's filtered distribution as the verify program computes it
+    (at temperature 0: the target's greedy chain, up to near-ties between
+    the verify chunk's dense attention and the serial decode kernel). The
+    production draft is the target's own weights in int8
+    (``quantize_decode_params(params, cfg)`` with ``draft_cfg=None``).
+
+    Returns ``generate(params, draft_params, prompt, max_new, draft_k=4,
+    temperature=1.0, top_k=None, approx_top_k=False, generator=None,
+    return_stats=False, return_logits=False) -> tokens (1, Tp +
+    max_new)``; ``return_logits`` adds the verify logits each emitted
+    token was taken from, (max_new, 1, V) as ``transformer_generate``
+    returns its own, and ``return_stats`` then adds ``{"rounds": n,
+    "accepted": [n_i per round]}``. Batch 1 only (acceptance is ragged
+    across rows) and prompts of >= 2 tokens. ``approx_top_k`` is accepted
+    and ignored (:func:`_top_k_filter`).
+
+    As in the reference: caches padded by k+1 rows; a lag-one prefill
+    (the last prompt token is fed by the first round), its 128-aligned
+    prefix through bulk prefill (the flash kernel) and the rest through
+    the chunk; each round a 2-token catch-up chunk on the draft as its
+    first step (it rewrites the rows of d_k and of the last correction,
+    which the draft never fed), k-1 serial draft steps (the decode
+    kernel), one verify chunk over [c_prev, d_1..d_k], then
+    :func:`_accept_round`. The reference keeps the cursor on the device
+    inside one ``lax.while_loop``; here it is on the host: one host sync a
+    round, reading the accepted count.
+
+    Sampling draws from ``generator`` in a fixed order each round: d_1,
+    the k-1 later draft tokens, u (B, k), the correction token (at
+    temperature 0 only u is drawn)."""
+    draft_cfg = draft_cfg or cfg
+    _, t_init, t_prefill, t_cast = _decode_builder(cfg)
+    t_chunk = _chunk_builder(cfg)
+    d_fwd1, d_init, d_prefill, d_cast = _decode_builder(draft_cfg)
+    d_chunk = _chunk_builder(draft_cfg)
+
+    @torch.no_grad()
+    def generate(params, draft_params, prompt, max_new: int,
+                 draft_k: int = 4, temperature: float = 1.0,
+                 top_k: int | None = None, approx_top_k: bool = False,
+                 generator=None, return_stats: bool = False,
+                 return_logits: bool = False):
+        b, tp = prompt.shape
+        if b != 1:
+            raise ValueError(
+                "speculative decode is the B=1 latency path (acceptance "
+                "lengths are ragged across batch rows)")
+        if tp < 2:
+            raise ValueError(
+                "speculative decode needs a prompt of >= 2 tokens (each "
+                "round's first draft step is a 2-token catch-up chunk)")
+        k = int(draft_k)
+        if k < 1:
+            raise ValueError(f"draft_k must be >= 1, got {draft_k}")
+        total = _check_decode_len(cfg, tp, max_new)
+        _check_decode_len(draft_cfg, tp, max_new)
+        params = t_cast(params)
+        draft_params = d_cast(draft_params)
+        dev = params["embed"].device
+        prompt = prompt.to(dev)
+        caches_t = t_init(b, total + k + 1, dev)
+        caches_d = d_init(b, total + k + 1, dev)
+        pre = tp - 1
+        aligned = pre - (pre % 128) if pre > 128 else pre
+        if aligned:
+            t_prefill(params, caches_t, prompt[:, :aligned])
+            d_prefill(draft_params, caches_d, prompt[:, :aligned])
+        if pre - aligned:
+            rest = prompt[:, aligned:pre]
+            t_chunk(params, caches_t, rest, aligned)
+            d_chunk(draft_params, caches_d, rest, aligned)
+
+        def probs(logits):
+            return _filtered_probs(logits, temperature, top_k)
+
+        def pick(p):
+            if temperature == 0:
+                return p.argmax(dim=-1)
+            return _draw(p, generator)
+
+        buf = torch.zeros((b, total + k + 1), dtype=prompt.dtype,
+                          device=dev)
+        buf[:, :tp] = prompt
+        c_prev2, c_prev = prompt[:, -2], prompt[:, -1]
+        pos, accepted, seen = tp, [], []
+        while pos < total:
+            pair = torch.stack([c_prev2, c_prev], dim=1)
+            lg2, _ = d_chunk(draft_params, caches_d, pair, pos - 2)
+            qs = [probs(lg2[:, 1])]
+            ds = [pick(qs[0])]
+            for i in range(1, k):
+                lg, _ = d_fwd1(draft_params, caches_d, ds[-1], pos - 1 + i)
+                qs.append(probs(lg))
+                ds.append(pick(qs[-1]))
+            ds_t = torch.stack(ds, dim=1).to(prompt.dtype)
+            vlg, _ = t_chunk(params, caches_t,
+                             torch.cat([c_prev[:, None], ds_t], dim=1),
+                             pos - 1)
+            u = torch.rand((b, k), generator=generator, device=dev)
+            n_dev, ctok = _accept_round(probs(vlg), torch.stack(qs, dim=1),
+                                        ds_t, u, pick)
+            n = int(n_dev[0])  # the round's one host sync
+            ctok = ctok.to(prompt.dtype)
+            buf[:, pos:pos + n] = ds_t[:, :n]
+            buf[:, pos + n] = ctok
+            if return_logits:
+                seen.append(vlg[:, :n + 1])
+            # the token two behind the new cursor: d_n, or c_prev (n = 0)
+            c_prev2 = ds_t[:, n - 1] if n else c_prev
+            c_prev = ctok
+            pos += n + 1
+            accepted.append(n)
+        out = [buf[:, :total]]
+        if return_logits:
+            out.append(torch.cat(seen, dim=1)[:, :max_new].transpose(0, 1))
+        if return_stats:
+            out.append({"rounds": len(accepted), "accepted": accepted})
+        return out[0] if len(out) == 1 else tuple(out)
 
     return generate

@@ -249,6 +249,10 @@ class ServingEngine:
     device and cast once to the compute dtype). The engine runs on
     ``device`` — ``cuda`` unless the caller passes ``device="cpu"``.
     Sampling settings are engine-wide; ``temperature=0`` decodes greedily.
+    ``approx_top_k`` is the reference's flag, accepted and ignored: off
+    the TPU its threshold is the exact one, which the port computes
+    either way (``_top_k_filter``). The reference also turns its grammar
+    surface off under the flag; the port has no grammar surface yet.
     ``decode_horizon`` (K) decode steps are fused into one dispatch.
     Prompts are padded to power-of-two buckets up to
     ``PREFILL_MAX_BUCKET`` and chunked beyond it. ``paged`` stores the KV
@@ -267,6 +271,7 @@ class ServingEngine:
         max_total: int | None = None,
         temperature: float = 0.0,
         top_k: int | None = None,
+        approx_top_k: bool = False,
         decode_horizon: int = 1,
         scheduler: RequestScheduler | None = None,
         rng_seed: int = 0,

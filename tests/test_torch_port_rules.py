@@ -21,11 +21,15 @@ from deeplearning4j_tpu_torch.models.transformer import (
     TransformerConfig,
     init_params,
     params_from_jax,
+    transformer_beam_search,
+    transformer_speculative_generate,
 )
 from deeplearning4j_tpu_torch.models.word2vec import (
     Word2Vec,
     word2vec_state_from_jax,
 )
+from deeplearning4j_tpu_torch.parallel import checkpoint as ckpt
+from deeplearning4j_tpu_torch.parallel.checkpoint import CheckpointManager
 from deeplearning4j_tpu_torch.serving import ServingEngine
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -76,7 +80,7 @@ def test_no_jax_import_statement(path):
     assert not roots & {"jax", "jaxlib", "deeplearning4j_tpu", "optax"}
 
 
-def test_entry_points_raise_without_cuda(monkeypatch):
+def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     """With no card and no explicit ``device="cpu"``, the entry points
     raise instead of carrying on quietly on the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -105,6 +109,24 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         word2vec_state_from_jax(*tables)
     assert word2vec_state_from_jax(*tables, device="cpu")["syn0"].shape == (
         3, 4)
+    # checkpoints restore onto the card unless the caller names the CPU
+    mgr = CheckpointManager(tmp_path)
+    mgr.maybe_save(1, params)
+    for restore in (lambda: ckpt.restore(tmp_path / "ckpt_1.npz", params),
+                    lambda: mgr.restore_latest(params)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            restore()
+    assert mgr.restore_latest(params, device="cpu")[0]["head"].shape == (
+        16, 32)
+    # beam search and speculative decoding run where the params live, so
+    # the card is required where params are made (init_params, restore,
+    # params_from_jax, above); with the CPU's params they run on the CPU
+    prompt = torch.zeros((1, 3), dtype=torch.long)
+    toks, _ = transformer_beam_search(cfg)(params, prompt, 2, 2)
+    assert toks.device.type == "cpu" and toks.shape == (1, 2, 5)
+    toks = transformer_speculative_generate(cfg)(params, params, prompt, 2,
+                                                 temperature=0.0)
+    assert toks.device.type == "cpu" and toks.shape == (1, 5)
 
 
 def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):

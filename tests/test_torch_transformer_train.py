@@ -214,7 +214,8 @@ def test_train_cli_runs_on_cpu():
 
 
 @pytest.mark.parametrize("flag", [["--tp", "2"], ["--fsdp"],
-                                  ["--checkpoint-dir", "ck"],
+                                  ["--checkpoint-dir", "ck",
+                                   "--checkpoint-backend", "orbax"],
                                   ["--model", "lenet"]])
 def test_train_cli_names_the_later_slice(flag):
     from deeplearning4j_tpu_torch import cli
