@@ -9,9 +9,9 @@ Phases, in order; any failure exits non-zero without printing a result:
    (all sources at once) and print the build time and the card;
 2. hold each kernel against its plain PyTorch version on the card, at the
    shapes the serving, training and decode-variant paths give it (phases
-   3-7 record the shape of every launch of #1-#4 and fail on one not held
-   here; #5 is held at phase 6's first full-width batch), and time
-   kernel, plain
+   3-8 record the shape of every launch of #1-#5 and fail on one not held
+   here; #5 at every (B, L, D) of phase 6's fits, from their vocabularies
+   built beforehand), and time kernel, plain
    version, bound and one library call (a yardstick the port never calls;
    none computes int8 or paged decode). The decode kernel runs in bf16 and
    int8 mode, also at positions on either side of its split edges, in int8
@@ -92,6 +92,26 @@ Phases, in order; any failure exits non-zero without printing a result:
    runs launch #1, #2 and #3 at, among them the draft steps' (B 1, G 3,
    Hkv 2, K 128, Tpad 584).
 
+8. the serving engine's features at GPT-2-small's width (phase 3's model,
+   8 slots, max_total 640, K 4): (a) the prefix cache on 32 greedy
+   requests in 4 waves of 8 behind two shared system prompts of 96 and 256
+   tokens (8 exact repeats), in bf16 slab, bf16 paged and int8 full slab,
+   each with the cache off and on (streams byte-identical, the probe
+   passing, full and partial hits, blocks in use = the segments'), a
+   two-slab region (evictions while segments are pinned), and, measured
+   beside the engine's route, the 8-row route it did not take (hits,
+   dispatches, TTFT, streams equal to the cache-off run's); (b) recovery by
+   replay on phase 3's prompts plus 4 repeats, greedy and sampled, slab and
+   paged, stepwise and "auto" replay, under a crash at step check 6, a
+   crash at the prefill check of a cache hit, seeded transients and a
+   permanent fault at one prefill (every other stream equals the
+   uninterrupted run's; recover() timed); (c) piggyback on and off, slab
+   and paged, with 6 slots decoding 128-token prompts when two 512-token
+   prompts arrive, and a crash while one is pending (the same bytes, 1
+   host sync a horizon, the decoding slots' TPOT and longest gap); (d)
+   ``ServingServer`` over a crash (/healthz 200, the uninterrupted tokens)
+   and over crashes at every check with ``max_restarts=1`` (503, FAILED).
+
 The last lines are the kernel table as one JSON object, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -104,6 +124,7 @@ import random
 import subprocess
 import sys
 import time
+import urllib.error
 import urllib.request
 from pathlib import Path
 
@@ -266,7 +287,7 @@ def _ptxas_entries(text: str) -> list[tuple[str, str, str]]:
 # -- phase 2 -----------------------------------------------------------------
 
 #: (kernel, shape) of every case phase 2 held against a plain version;
-#: the run fails on a launch of #1-#4 in phases 3-7 at a shape that is not
+#: the run fails on a launch of #1-#5 in phases 3-8 at a shape that is not
 #: among them
 CHECKED_SHAPES: set[tuple] = set()
 
@@ -300,18 +321,26 @@ def _paged_key(q, blocks, tables, n_kv_heads: int, block_t,
             int(n_kv_heads), int8, fd._tile(block_t, blocks, t, int8))
 
 
+def _emb_key(mode: str, b: int, L: int, d: int) -> tuple:
+    """A launch of #5: its mode (``dense`` or ``fused``) and (B, L, D)."""
+    return ("emb_dot", mode, int(b), int(L), int(d))
+
+
 @contextlib.contextmanager
 def launched_shapes():
     """Yields a set that gathers the key (``_attn_key``, ``_decode_key``,
-    ``_paged_key``) of every launch of kernels #1-#4 (both decode modes)
-    made inside the block: the wrappers' launch functions are wrapped, the
-    launches and their counts left as they are."""
+    ``_paged_key``, ``_emb_key``) of every launch of kernels #1-#5 (both
+    decode modes, both #5 modes) made inside the block: the wrappers'
+    launch functions are wrapped, the launches and their counts left as
+    they are."""
+    from deeplearning4j_tpu_torch.ops import emb_dot
     from deeplearning4j_tpu_torch.ops import flash_attention as fa
     from deeplearning4j_tpu_torch.ops import flash_decode as fd
 
     seen: set[tuple] = set()
     fwd, bwd, dec = fa._launch, fa._launch_bwd, fd._launch
     paged = fd._launch_paged
+    dense, fused = emb_dot._launch, emb_dot._launch_hs
 
     def on_fwd(q, k, v, causal):
         seen.add(_attn_key("flash_attn_fwd", q, causal))
@@ -333,20 +362,30 @@ def launched_shapes():
         return paged(q, blocks, tables, pos, n_kv_heads, layer, block_t,
                      block_scales)
 
+    def on_dense(h, w_rows, mask):
+        seen.add(_emb_key("dense", *w_rows.shape))
+        return dense(h, w_rows, mask)
+
+    def on_fused(S, v, inputs, codes, points, mask, lr, dest, out):
+        seen.add(_emb_key("fused", *points.shape, S.shape[1]))
+        return fused(S, v, inputs, codes, points, mask, lr, dest, out)
+
     fa._launch, fa._launch_bwd, fd._launch = on_fwd, on_bwd, on_dec
     fd._launch_paged = on_paged
+    emb_dot._launch, emb_dot._launch_hs = on_dense, on_fused
     try:
         yield seen
     finally:
         fa._launch, fa._launch_bwd, fd._launch = fwd, bwd, dec
         fd._launch_paged = paged
+        emb_dot._launch, emb_dot._launch_hs = dense, fused
 
 
 def check_launched(tag: str, seen: set[tuple]) -> None:
     """Fails unless phase 2 held every key in ``seen`` against the plain
     version."""
-    unchecked = sorted(seen - CHECKED_SHAPES)
-    log(f"{tag}: kernels #1-#4 launched at {len(seen)} (kernel, shape) "
+    unchecked = sorted(seen - CHECKED_SHAPES, key=str)
+    log(f"{tag}: kernels #1-#5 launched at {len(seen)} (kernel, shape) "
         f"keys, {len(seen) - len(unchecked)} of them held against the plain "
         f"version in phase 2")
     if unchecked:
@@ -715,6 +754,7 @@ def _emb_dot_case(b: int, L: int, d: int, planted: bool = False,
         w = (h64 / (h64 * h64).sum(-1, keepdim=True))[:, None, :] * target[
             ..., None]
         w = w.float().contiguous()
+    CHECKED_SHAPES.add(_emb_key("dense", b, L, d))
     f, in_range = emb_dot.fused_embedding_dot_range(h, w, mask)
     f_ref, in_ref = emb_dot.fused_embedding_dot_range_plain(h, w, mask)
     torch.cuda.synchronize()
@@ -746,12 +786,12 @@ def _emb_dot_case(b: int, L: int, d: int, planted: bool = False,
                 graph_ms=dev_ms, bmm_dot_ms=bmm_ms)
 
 
-def _emb_dot_hs_batch(kind: str, model, corpus, gen):
+def _emb_dot_hs_batch(kind: str, model, corpus, gen, shape=None):
     """A fused-mode batch at phase 6's width (B 4,096, D 100): (S, v,
     inputs, codes, points, mask, planted dots or None). ``L16``: a random
     table of phase 6's size (V + V - 1 rows), random inputs and paths of
-    16 entries, each row a random prefix; ``planted``: phase 6's longest
-    path, a quarter of the rows masked out whole, every entry its own syn1
+    16 entries (or of ``shape``'s (B, L, D)), each row a random prefix;
+    ``planted``: phase 6's longest path, a quarter of the rows masked out whole, every entry its own syn1
     row with its dot planted at 6 -+ 1e-3; ``phase6``: phase 6's first
     batch of pairs (the fit's first chunk) and its Huffman paths over a
     random table of its size."""
@@ -779,7 +819,7 @@ def _emb_dot_hs_batch(kind: str, model, corpus, gen):
         S = torch.randn((2 * nv - 1, d), generator=gen, device=dev) * 0.5
         return S, nv, inputs, codes, points, mask, t
     if kind == "L16":
-        L = 16
+        b, L, d = shape or (b, 16, d)
         S = torch.randn((2 * nv - 1, d), generator=gen, device=dev) * 0.5
         v = nv
         inputs = torch.randint(0, nv, (b,), generator=gen, device=dev)
@@ -803,7 +843,8 @@ def _emb_dot_hs_batch(kind: str, model, corpus, gen):
     return S, v, inputs, codes, points, mask, t
 
 
-def _emb_dot_hs_case(kind: str, model, corpus, iters: int = 50) -> dict:
+def _emb_dot_hs_case(kind: str, model, corpus, iters: int = 50,
+                     shape=None) -> dict:
     """Kernel #5's fused mode as the HS step calls it (``dest`` from the
     scatter plan) against its plain version: every kept entry (grad_in and
     the delta rows of valid path entries) within EMB_TOL, written into a
@@ -813,18 +854,22 @@ def _emb_dot_hs_case(kind: str, model, corpus, iters: int = 50) -> dict:
     launch bitwise equal. Bound: each distinct row read once, the index
     arrays, and the kept delta rows written once (logged beside it: the
     bound with each row read per use, which the result line leaves out as
-    it holds only measured numbers and ``bound_ms``)."""
+    it holds only measured numbers and ``bound_ms``). With ``shape``, a
+    random batch at one (B, L, D) a phase-6 fit launches #5 at
+    (``phase6_emb_dot_keys``), checked and not timed."""
     import torch
 
     from deeplearning4j_tpu_torch.models import word2vec as w2v
     from deeplearning4j_tpu_torch.ops import emb_dot
 
     gen = torch.Generator(device="cuda").manual_seed(
-        7000 + ("L16", "planted", "phase6").index(kind))
+        7000 + ("L16", "planted", "phase6").index(kind) if shape is None
+        else 7100 + sum(shape))
     S, v, inputs, codes, points, mask, t = _emb_dot_hs_batch(
-        kind, model, corpus, gen)
+        kind, model, corpus, gen, shape)
     b, L = points.shape
     d = S.shape[1]
+    CHECKED_SHAPES.add(_emb_key("fused", b, L, d))
     lr = W2V_LR
     rows = torch.cat([inputs, (v + points).reshape(-1)])
     keep = torch.cat([torch.ones_like(inputs, dtype=torch.bool),
@@ -848,6 +893,13 @@ def _emb_dot_hs_case(kind: str, model, corpus, iters: int = 50) -> dict:
         flags_equal = flags_equal and torch.equal(zero, want)
     ok = (bool(torch.isfinite(out[at]).all()) and err <= EMB_TOL
           and unwritten and bitwise and flags_equal)
+    if shape is not None:
+        log(f"kernel emb_dot fused HS rows, phase 6 shape B={b} L={L} "
+            f"D={d}: max_abs_err {err:.3e} at dest (tol {EMB_TOL}), masked "
+            f"entries unwritten {unwritten}, range flags equal "
+            f"{flags_equal}, bitwise repeat {bitwise} -> "
+            f"{'ok' if ok else 'FAIL'}")
+        return dict(ok=ok)
     run = lambda: emb_dot.fused_hs_rows(*args, dest=dest)  # noqa: E731
     ms, dev_ms = time_ms(run, iters), graph_ms(run)
     plain_ms = time_ms(
@@ -966,6 +1018,9 @@ def phase_kernels(w2v_model, w2v_corpus) -> dict[str, dict]:
     emb = [_emb_dot_case(W2V_BATCH, 16, W2V_DIM),
            _emb_dot_case(W2V_BATCH, code_len, W2V_DIM, planted=True),
            _emb_dot_case(W2V_BATCH, code_len, W2V_DIM)]
+    # every shape phase 6's fits launch the fused mode at, first
+    emb += [_emb_dot_hs_case("L16", w2v_model, w2v_corpus, shape=key)
+            for key in phase6_emb_dot_keys(w2v_model, w2v_corpus)]
     emb += [_emb_dot_hs_case(kind, w2v_model, w2v_corpus)
             for kind in ("L16", "planted", "phase6")]
     for name, cases in (("flash_attn_fwd", attn), ("flash_attn_bwd", bwd),
@@ -1451,6 +1506,90 @@ def topic_corpus(n: int, seed: int = 0) -> list[str]:
     return sents
 
 
+#: the card-vs-CPU fits of phase 6. Batches of 256: at 1,024 pairs every
+#: one of the 20 words recurs ~50 times a batch, the fit is chaotic and the
+#: card and CPU fits ended 2.5 apart; at 256 the same fit holds the CPU
+#: tests' bar against the JAX package (tests/test_torch_word2vec.py, case
+#: "smoke_topic")
+W2V_TOPIC_CFG = dict(layer_size=32, window=5, epochs=4, lr=0.05, seed=1,
+                     batch_pairs=256)
+#: phase 6's ParagraphVectors runs: the label pass alone, then words and
+#: labels with negative sampling
+PV_RUNS = (("pv_hs", dict(train_words=False)),
+           ("pv_hs_ns", dict(train_words=True, negative=5)))
+
+
+def w2v_ns_model(corpus, device=None):
+    """Phase 6's HS+NS model, vocabulary built on its sentences."""
+    from deeplearning4j_tpu_torch.models.word2vec import Word2Vec
+    from deeplearning4j_tpu_torch.nlp.sentence_iterator import (
+        CollectionSentenceIterator,
+    )
+
+    ns = Word2Vec(layer_size=W2V_DIM, window=W2V_WINDOW,
+                  batch_pairs=W2V_BATCH, lr=W2V_LR, min_word_frequency=1,
+                  epochs=1, negative=5, device=device)
+    ns.build_vocab(CollectionSentenceIterator(corpus[:W2V_NS_SENTENCES]))
+    return ns
+
+
+def w2v_quality_model(device=None):
+    """The reference test's topic fit (D 32, 24 epochs)."""
+    from deeplearning4j_tpu_torch.models.word2vec import Word2Vec
+
+    return Word2Vec(layer_size=32, window=5, epochs=24, lr=0.05, seed=1,
+                    device=device)
+
+
+def pv_docs() -> list[tuple[str, str]]:
+    """Phase 6's labeled documents: 100 each of two topics."""
+    import numpy as np
+
+    gen = np.random.default_rng(5)
+    docs = []
+    for _ in range(100):
+        docs.append(("daytime", " ".join(gen.choice(
+            ["day", "sun", "light", "bright"], 5))))
+        docs.append(("nighttime", " ".join(gen.choice(
+            ["night", "moon", "dark", "stars"], 5))))
+    return docs
+
+
+def pv_model(kw: dict, device=None):
+    from deeplearning4j_tpu_torch.models.paragraph_vectors import (
+        ParagraphVectors,
+    )
+
+    return ParagraphVectors(layer_size=16, epochs=12, lr=0.05, seed=6,
+                            device=device, **kw)
+
+
+def phase6_emb_dot_keys(model, corpus) -> list[tuple[int, int, int]]:
+    """(B, L, D) of every fused #5 launch phase 6's fits make: each fit's
+    batch of pairs (the last one padded to it), its vocabulary's longest
+    Huffman path and its layer size. The vocabularies are built here on
+    the host from the same constructors, so phase 2 can hold each shape
+    before phase 6 runs it."""
+    from deeplearning4j_tpu_torch.models.word2vec import Word2Vec
+    from deeplearning4j_tpu_torch.nlp.sentence_iterator import (
+        CollectionSentenceIterator,
+    )
+
+    fits = [model, w2v_ns_model(corpus, device="cpu")]
+    topic = Word2Vec(device="cpu", **W2V_TOPIC_CFG)
+    topic.build_vocab(CollectionSentenceIterator(topic_corpus(300)))
+    quality = w2v_quality_model(device="cpu")
+    quality.build_vocab(CollectionSentenceIterator(topic_corpus(400)))
+    fits += [topic, quality]
+    sents = CollectionSentenceIterator([s for _, s in pv_docs()])
+    for _, kw in PV_RUNS:
+        pv = pv_model(kw, device="cpu")
+        pv.build_vocab(sents)
+        fits.append(pv)
+    return sorted({(m.batch_pairs, m.cache.max_code_length, m.layer_size)
+                   for m in fits})
+
+
 def w2v_full_model():
     """The full-width Word2Vec (HS) with its vocabulary built, and its
     corpus. Phase 2 needs the vocabulary's longest Huffman path."""
@@ -1546,9 +1685,6 @@ def phase_word2vec(model, corpus, card: str) -> dict[str, dict[str, int]]:
     import numpy as np
     import torch
 
-    from deeplearning4j_tpu_torch.models.paragraph_vectors import (
-        ParagraphVectors,
-    )
     from deeplearning4j_tpu_torch.models.word2vec import (
         Word2Vec,
         word2vec_state_from_jax,
@@ -1561,24 +1697,16 @@ def phase_word2vec(model, corpus, card: str) -> dict[str, dict[str, int]]:
         "w2v full width (HS)", model, CollectionSentenceIterator(corpus),
         card)}
 
-    ns = Word2Vec(layer_size=W2V_DIM, window=W2V_WINDOW,
-                  batch_pairs=W2V_BATCH, lr=W2V_LR, min_word_frequency=1,
-                  epochs=1, negative=5)
+    ns = w2v_ns_model(corpus)
     sub = CollectionSentenceIterator(corpus[:W2V_NS_SENTENCES])
-    ns.build_vocab(sub)
     runs["w2v_hs_ns"] = _w2v_fit_run(
         f"w2v HS+NS ({W2V_NS_SENTENCES} sentences, negative 5)", ns, sub,
         card)
     del ns
 
-    # card vs CPU from the same tables, and the card twice. Batches of 256:
-    # at 1,024 pairs every one of the 20 words recurs ~50 times a batch, the
-    # fit is chaotic and the card and CPU fits ended 2.5 apart; at 256 the
-    # same fit holds the CPU tests' bar against the JAX package
-    # (tests/test_torch_word2vec.py, case "smoke_topic")
+    # card vs CPU from the same tables, and the card twice
     topic = topic_corpus(300)
-    cfg = dict(layer_size=32, window=5, epochs=4, lr=0.05, seed=1,
-               batch_pairs=256)
+    cfg = W2V_TOPIC_CFG
     probe = Word2Vec(device="cpu", **cfg)
     probe.build_vocab(CollectionSentenceIterator(topic))
     v, d = len(probe.cache), cfg["layer_size"]
@@ -1618,7 +1746,7 @@ def phase_word2vec(model, corpus, card: str) -> dict[str, dict[str, int]]:
         raise SystemExit("word2vec on the card disagrees with the CPU or "
                          "with itself")
 
-    q = Word2Vec(layer_size=32, window=5, epochs=24, lr=0.05, seed=1)
+    q = w2v_quality_model()
     runs["w2v_quality"], secs, _ = _w2v_run(
         "w2v quality", lambda: q.fit(CollectionSentenceIterator(
             topic_corpus(400))))
@@ -1630,17 +1758,9 @@ def phase_word2vec(model, corpus, card: str) -> dict[str, dict[str, int]]:
     if not same > cross:
         raise SystemExit("word2vec on the card did not learn the topics")
 
-    gen = np.random.default_rng(5)
-    docs = []
-    for _ in range(100):
-        docs.append(("daytime", " ".join(gen.choice(
-            ["day", "sun", "light", "bright"], 5))))
-        docs.append(("nighttime", " ".join(gen.choice(
-            ["night", "moon", "dark", "stars"], 5))))
-    for tag, kw in (("pv_hs", dict(train_words=False)),
-                    ("pv_hs_ns", dict(train_words=True, negative=5))):
-        pv = ParagraphVectors(layer_size=16, epochs=12, lr=0.05, seed=6,
-                              **kw)
+    docs = pv_docs()
+    for tag, kw in PV_RUNS:
+        pv = pv_model(kw)
         runs[tag], secs, _ = _w2v_run(tag, lambda: pv.fit_labeled(docs))
         finite = bool(torch.isfinite(pv.syn0_labels).all())
         guess = (pv.infer_nearest_label("sun light bright day"),
@@ -1983,38 +2103,48 @@ def spec_config():
         rope=True, compute_dtype=torch.bfloat16)
 
 
-def _count_syncs(fn):
-    """(fn's result, the host syncs it made, where they were made): PyTorch's
-    sync debug mode warns at every synchronizing CUDA call; each warning's
-    place is the innermost three frames of the Python stack that made it.
-    Switching the mode itself warns once; that warning is not fn's."""
+@contextlib.contextmanager
+def counted_syncs():
+    """Counts the host syncs made inside the block (PyTorch's sync debug
+    mode warns at every synchronizing CUDA call), except while
+    ``box["paused"]`` is set. Yields the box: ``n`` the syncs, ``where``
+    the innermost three frames of each."""
     import collections
     import traceback
     import warnings
 
     import torch
 
-    where = collections.Counter()
-    inside = False
+    box = {"n": 0, "paused": 0, "where": collections.Counter()}
 
     def record(message, category, filename, lineno, file=None, line=None):
-        if inside and "synchroniz" in str(message):
-            frames = [f for f in traceback.extract_stack()[:-1]
-                      if Path(f.filename).name != "warnings.py"][-3:]
-            where[" < ".join(f"{Path(f.filename).name}:{f.lineno}"
-                             for f in reversed(frames))] += 1
+        if box["paused"] or "synchroniz" not in str(message):
+            return
+        frames = [f for f in traceback.extract_stack()[:-1]
+                  if Path(f.filename).name != "warnings.py"][-3:]
+        box["n"] += 1
+        box["where"][" < ".join(f"{Path(f.filename).name}:{f.lineno}"
+                                for f in reversed(frames))] += 1
 
     with warnings.catch_warnings():
         warnings.simplefilter("always")
         warnings.showwarning = record
+        box["paused"] += 1  # switching the mode warns: not the block's
         torch.cuda.set_sync_debug_mode("warn")
+        box["paused"] -= 1
         try:
-            inside = True
-            out = fn()
-            inside = False
+            yield box
         finally:
+            box["paused"] += 1
             torch.cuda.set_sync_debug_mode("default")
-    return out, sum(where.values()), dict(where)
+
+
+def _count_syncs(fn):
+    """(fn's result, the host syncs it made, where they were made), by
+    ``counted_syncs``."""
+    with counted_syncs() as box:
+        out = fn()
+    return out, box["n"], dict(box["where"])
 
 
 def phase_spec(card: str) -> dict[str, int]:
@@ -2157,6 +2287,616 @@ def phase_decode_variants(card: str) -> dict[str, dict[str, int]]:
     return runs
 
 
+# -- phase 8 -----------------------------------------------------------------
+
+#: phase 8a: the two shared system prompts, the suffix lengths after each,
+#: and the traffic: 4 waves of 8 requests, 32 new tokens each, 8 of the 32
+#: exact repeats of a prompt of the wave before
+SYS_PROMPTS = {96: (8, 32), 256: (32, 96)}
+PREFIX_WAVES, PREFIX_WAVE, PREFIX_NEW = 4, 8, 32
+PREFIX_REPEATS = {(1, 2), (1, 5), (2, 1), (2, 4), (2, 7), (3, 0), (3, 3),
+                  (3, 6)}
+#: phase 8b: the seeded transient rate and the scripted faults' checks
+CHAOS_RATE, CRASH_STEP, POISON_PREFILL, CRASH_PREFILL = 0.05, 6, 2, 8
+#: phase 8b: the requests phase 3 serves, then 4 exact repeats of them
+RECOVERY_REPEATS = (1, 5, 7, 3)
+#: phase 8c: 6 decoding slots of 128-token prompts, two 512-token prompts
+#: arriving after 8 horizons, 64 new tokens each; the crash run's step
+#: check, counted from the long prompts' arrival (the second one's chunks
+#: are pending there)
+PB_SHORT, PB_LONG, PB_NEW, PB_ARRIVAL, PB_CRASH = 6, 2, 64, 8, 2
+
+
+def phase8_engine(cfg, params, cls=None, **kw):
+    """Phase 8's engine: the serve smoke's geometry (8 slots, max_total
+    640, K 4), greedy unless asked; ``cls`` a subclass to build instead."""
+    from deeplearning4j_tpu_torch.serving import ServingEngine
+
+    kw.setdefault("temperature", 0.0)
+    return (cls or ServingEngine)(cfg, params, n_slots=8, max_total=640,
+                                  decode_horizon=4, block_size=BLOCK_SIZE,
+                                  **kw)
+
+
+def fine_grain_engine_cls():
+    """The prefix route the engine did not take, built only to measure it
+    (phase 8a): with the cache on, a prompt of at most one bucket is
+    computed in min-bucket (8-row) chunk windows instead of kernel #1's
+    one-program prefill, and its segments serve partial hits at that
+    8-row grain; the hit's suffix takes the same 8-row windows, so hit and
+    miss rows agree by construction. Longer prompts keep the engine's
+    route. The cache-off engine still prefills short prompts with #1, so
+    its streams need not equal this route's."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.serving import ServingEngine
+
+    class FineGrainEngine(ServingEngine):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.prefix_cache.min_seg_len = self._min_bucket
+            # segments whose rows took 8-row windows, by id
+            self.fine_segs = {}
+
+        def _fine(self, n):
+            return 0 < n <= self._max_bucket
+
+        def _compute_rows(self, slab, seq, start=0):
+            n = int(len(seq))
+            if not self._fine(n):
+                return super()._compute_rows(slab, seq, start)
+            g, lg = self._min_bucket, None
+            for t0 in range(start, n, g):
+                ln = min(g, n - t0)
+                pad = np.zeros((1, g), np.int64)
+                pad[0, :ln] = seq[t0:t0 + ln]
+                slab, lg = self._chunk_fn(self.params, slab,
+                                          self._upload(pad), t0, ln - 1)
+                self.prefill_dispatches += 1
+            return lg
+
+        def _classify_plan(self, pl):
+            n = len(pl.req.prompt)
+            if not self._fine(n) or not self._prefix_reuse_ok():
+                return super()._classify_plan(pl)
+            seg, m = self.prefix_cache.lookup(pl.req.prompt)
+            L = 0
+            if seg is not None and m == n and seg.logits is not None:
+                pl.kind, L = "full", n
+            elif seg is not None and self.fine_segs.get(id(seg)) is seg:
+                L = min(m, n - 1) // self._min_bucket * self._min_bucket
+                pl.kind = "partial" if L else "miss"
+            if pl.kind == "miss":
+                self.metrics.record_prefix_lookup("miss", 0)
+                return
+            pl.seg, pl.matched = seg, L
+            self.prefix_cache.pin(seg)
+            self.metrics.record_prefix_lookup("hit_" + pl.kind, L)
+
+        def _maybe_insert_prefix(self, pl):
+            st = self._slots[pl.slot]
+            k = len(st.segs)
+            super()._maybe_insert_prefix(pl)
+            if self._fine(len(pl.req.prompt)):
+                for seg in st.segs[k:]:
+                    self.fine_segs[id(seg)] = seg
+
+    return FineGrainEngine
+
+
+def _must(tag: str, ok: bool, msg: str) -> None:
+    if not ok:
+        raise SystemExit(f"{tag}: {msg}")
+
+
+def _launch_check(tag: str, launches: dict[str, int], must, must_not=()):
+    log(f"{tag}: launches {launches}")
+    for name in must:
+        _must(tag, launches[name] > 0, f"kernel {name} never launched")
+    for name in must_not:
+        _must(tag, launches[name] == 0,
+              f"kernel {name} launched {launches[name]} times")
+
+
+def _add(total: dict[str, int], launches: dict[str, int]) -> None:
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _segment_blocks(engine) -> int:
+    return len({b for s in engine.prefix_cache._segments
+                for b in s.block_ids})
+
+
+def prefix_traffic(vocab: int):
+    """Phase 8a's waves of prompts (token ids from a seeded generator)."""
+    import numpy as np
+
+    rng = np.random.default_rng(8)
+    systems = {n: rng.integers(0, vocab, n) for n in SYS_PROMPTS}
+    waves = []
+    for w in range(PREFIX_WAVES):
+        wave = []
+        for i in range(PREFIX_WAVE):
+            if (w, i) in PREFIX_REPEATS:
+                prev = waves[w - 1]
+                wave.append(prev[int(rng.integers(0, len(prev)))].copy())
+                continue
+            n = list(SYS_PROMPTS)[i % 2]
+            lo, hi = SYS_PROMPTS[n]
+            sfx = rng.integers(0, vocab, int(rng.integers(lo, hi + 1)))
+            wave.append(np.concatenate([systems[n], sfx]))
+        waves.append(wave)
+    return waves
+
+
+def _prefix_run(tag, cfg, params, waves, *, paged=False, **kw):
+    """Serve phase 8a's waves (each run to completion before the next is
+    submitted) with every count set to 0 just before and read just after.
+    Returns (engine, streams, launches)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.serving import Request
+
+    engine = phase8_engine(cfg, params, paged=paged, **kw)
+    _must(tag, engine._paged == paged, "the engine did not come up paged")
+    torch.cuda.synchronize()
+    streams = []
+    reset_launches()
+    for wave in waves:
+        reqs = [Request(prompt=p, max_new=PREFIX_NEW) for p in wave]
+        for r in reqs:
+            engine.submit(r)
+        res = engine.run()
+        for r in reqs:
+            _must(tag, r.status.value == "finished"
+                  and res[r.id].shape == (len(r.prompt) + PREFIX_NEW,),
+                  f"request {r.id} came back {r.status}")
+            streams.append(res[r.id])
+    torch.cuda.synchronize()
+    return engine, streams, read_launches()
+
+
+def phase8_prefix(card: str) -> dict[str, int]:
+    """Phase 8a: the prefix cache at full width in bf16 slab, bf16 paged
+    and int8 full slab, each with the cache off and on (byte-identical
+    streams, full and partial hits, the probe passing), and bf16 slab with
+    a two-slab region (evictions while segments are pinned)."""
+    import numpy as np
+    import torch
+
+    total: dict[str, int] = {}
+    modes = (("bf16 slab", False, False), ("bf16 paged", False, True),
+             ("int8 full slab", True, False))
+    for name, int8, paged in modes:
+        tag = f"phase 8a {name}"
+        cfg, params = serve_model(int8)
+        waves = prefix_traffic(cfg.vocab_size)
+        decode = ("flash_decode_paged" if paged else
+                  "flash_decode_int8" if int8 else "flash_decode")
+        off, s_off, l_off = _prefix_run(tag, cfg, params, waves,
+                                        paged=paged)
+        _launch_check(tag + " cache off", l_off,
+                      ("flash_attn_fwd", decode))
+        m_off = off.metrics.summary()
+        pf_off = off.prefill_dispatches
+        del off
+        runs = [("", {})]
+        if name == "bf16 slab":
+            runs.append((" region 2 x 640", dict(prefix_cache_tokens=1280)))
+        for sub, kw in runs:
+            t = tag + " cache on" + sub
+            on, s_on, l_on = _prefix_run(t, cfg, params, waves,
+                                         paged=paged, prefix_cache=True,
+                                         **kw)
+            _launch_check(t, l_on, ("flash_attn_fwd", decode),
+                          ("flash_decode",) if paged else ())
+            _add(total, l_on)
+            m = on.metrics
+            s = m.summary()
+            pc = on.prefix_cache
+            same = [np.array_equal(a, b) for a, b in zip(s_off, s_on)]
+            log(f"{t}: probe {on._prefix_ok_memo} "
+                f"({on.prefix_probe_detail or 'hit rows bitwise the miss '
+                'path'}); hits full {m.n_prefix_hits_full} partial "
+                f"{m.n_prefix_hits_partial} of {s.get('prefix_lookups', 0)} "
+                f"lookups; tokens saved {m.prefix_tokens_saved}; prefill "
+                f"dispatches on {on.prefill_dispatches} off {pf_off}; "
+                f"segments {pc.n_segments}, evictions {m.n_prefix_evictions}"
+                f", inserts declined {pc.n_insert_declined}; TTFT p50 "
+                f"{s['ttft_p50_s'] * 1e3:.2f} ms p99 "
+                f"{s['ttft_p99_s'] * 1e3:.2f} ms (off {m_off['ttft_p50_s'] * 1e3:.2f} "
+                f"/ {m_off['ttft_p99_s'] * 1e3:.2f} ms); streams "
+                f"byte-identical to the cache-off run {sum(same)}/{len(same)}"
+                f" [{card}]")
+            _must(t, on._prefix_ok_memo is True,
+                  f"the prefix probe declined: {on.prefix_probe_detail}")
+            _must(t, all(same), f"streams differ from the cache-off run "
+                  f"(requests {[i for i, ok in enumerate(same) if not ok]})")
+            if sub:
+                _must(t, m.n_prefix_evictions > 0, "no segment was evicted")
+            else:
+                _must(t, m.n_prefix_hits_full > 0
+                      and m.n_prefix_hits_partial > 0, "no hit of one kind")
+            if paged:
+                held = _segment_blocks(on)
+                log(f"{t}: blocks in use {on.pool.n_blocks_in_use}, held by "
+                    f"segments {held} [{card}]")
+                _must(t, on.pool.n_blocks_in_use == held,
+                      "blocks in use beyond the segments' own")
+            del on
+        if name == "bf16 slab":
+            _fine_grain_run(tag, cfg, params, waves, s_off, m_off, pf_off,
+                            card)
+        torch.cuda.empty_cache()
+    return total
+
+
+def _fine_grain_run(tag, cfg, params, waves, s_off, m_off, pf_off, card):
+    """Phase 8a's measurement of the 8-row route (fine_grain_engine_cls)
+    beside the engine's: its hits, tokens saved, prefill dispatches, TTFT
+    and how many streams equal the cache-off run's. Launches here are not
+    part of the main path's count."""
+    import numpy as np
+
+    t = tag + " cache on, 8-row route (measured, not served)"
+    fine, s_fine, _ = _prefix_run(t, cfg, params, waves, prefix_cache=True,
+                                  cls=fine_grain_engine_cls())
+    m, s = fine.metrics, fine.metrics.summary()
+    same = [np.array_equal(a, b) for a, b in zip(s_off, s_fine)]
+    n = len(same)
+    log(f"{t}: hits full {m.n_prefix_hits_full} partial "
+        f"{m.n_prefix_hits_partial} of {n} requests (partial share "
+        f"{m.n_prefix_hits_partial / n:.4f}); tokens saved "
+        f"{m.prefix_tokens_saved}; prefill dispatches {fine.prefill_dispatches}"
+        f" (off {pf_off}); TTFT p50 {s['ttft_p50_s'] * 1e3:.2f} ms p99 "
+        f"{s['ttft_p99_s'] * 1e3:.2f} ms (off {m_off['ttft_p50_s'] * 1e3:.2f}"
+        f" / {m_off['ttft_p99_s'] * 1e3:.2f} ms); streams byte-identical to "
+        f"the cache-off run {sum(same)}/{n} [{card}]")
+    _must(t, m.n_prefix_hits_partial > 0, "the 8-row route made no partial "
+          "hit")
+
+
+def recovery_traffic(vocab: int):
+    """Phase 8b's prompts: phase 3's, then exact repeats of four of them."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, vocab, n) for n in PROMPT_LENGTHS]
+    return prompts + [prompts[i].copy() for i in RECOVERY_REPEATS]
+
+
+def _recovery_run(tag, cfg, params, prompts, faults=None, **kw):
+    """Serve phase 8b's requests; returns (engine, requests, results,
+    launches, [(recover s, slots replayed)])."""
+    import torch
+
+    from deeplearning4j_tpu_torch.serving import Request
+
+    engine = phase8_engine(cfg, params, prefix_cache=True, faults=faults,
+                           **kw)
+    recoveries = []
+    recover = engine.recover
+
+    def timed_recover():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = recover()
+        torch.cuda.synchronize()
+        recoveries.append((time.perf_counter() - t0, n))
+        return n
+
+    engine.recover = timed_recover
+    reqs = [Request(prompt=p, max_new=MAX_NEW) for p in prompts]
+    torch.cuda.synchronize()
+    reset_launches()
+    for r in reqs:
+        engine.submit(r)
+    res = engine.run()
+    torch.cuda.synchronize()
+    return engine, reqs, res, read_launches(), recoveries
+
+
+def phase8_recovery(card: str) -> dict[str, int]:
+    """Phase 8b: recovery by replay at full width with the prefix cache on,
+    slab and paged, stepwise and "auto" replay, greedy and sampled (T 0.8,
+    top-k 40). Faults: a crash at step check 6, a crash at the prefill
+    check of a request classified as a cache hit, seeded transients at the
+    step site, a permanent fault at one request's prefill. Every stream
+    but the poisoned one equals an uninterrupted run's over the same
+    requests without the poisoned one (it never drew a seed)."""
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.serving import FaultInjector
+
+    total: dict[str, int] = {}
+    cfg, params = serve_model(False)
+    prompts = recovery_traffic(cfg.vocab_size)
+    kept = [p for i, p in enumerate(prompts) if i != POISON_PREFILL]
+    for paged in (False, True):
+        for sampling in (dict(temperature=0.0),
+                         dict(temperature=0.8, top_k=40)):
+            mode = (f"{'paged' if paged else 'slab'}, "
+                    f"{'T 0.8 top-k 40' if sampling['temperature'] else 'greedy'}")
+            _, rreqs, rres, _, _ = _recovery_run(
+                f"phase 8b {mode} reference", cfg, params, kept,
+                paged=paged, **sampling)
+            ref = [rres[r.id] for r in rreqs]
+            for replay in (False, "auto"):
+                tag = f"phase 8b {mode}, chunked_replay={replay}"
+                faults = (FaultInjector(0, transient_rate=CHAOS_RATE,
+                                        sites=("step",))
+                          .plan("step", CRASH_STEP, "crash")
+                          .plan("prefill", POISON_PREFILL, "permanent")
+                          .plan("prefill", CRASH_PREFILL, "crash"))
+                hit_at_crash = []
+                eng, reqs, res, launches, recs = _recovery_run(
+                    tag, cfg, params, prompts, faults=faults, paged=paged,
+                    chunked_replay=replay, **sampling)
+                _launch_check(tag, launches,
+                              ("flash_attn_fwd", "flash_decode_paged"
+                               if paged else "flash_decode"))
+                _add(total, launches)
+                failed = [i for i, r in enumerate(reqs)
+                          if r.status.value != "finished"]
+                got = [res[r.id] for i, r in enumerate(reqs)
+                       if i != POISON_PREFILL]
+                same = [np.array_equal(a, b) for a, b in zip(ref, got)]
+                m = eng.metrics
+                log(f"{tag}: restarts {m.n_restarts}, retries "
+                    f"{m.n_retries}, recover() s "
+                    f"{[round(t, 4) for t, _ in recs]}, slots replayed "
+                    f"{[n for _, n in recs]}, mode {eng.last_recover_mode}, "
+                    f"chunked-replay probe {eng._chunked_ok}; full hits "
+                    f"{m.n_prefix_hits_full}; failed {failed} "
+                    f"({reqs[POISON_PREFILL].error}); streams identical to "
+                    f"the uninterrupted run {sum(same)}/{len(same)} [{card}]")
+                _must(tag, failed == [POISON_PREFILL]
+                      and "permanent" in (reqs[POISON_PREFILL].error or ""),
+                      "the poisoned request is not the only one FAILED")
+                _must(tag, m.n_restarts == 2, "not both crashes recovered")
+                _must(tag, m.n_prefix_hits_full > 0,
+                      "no admission hit the cache")
+                _must(tag, all(same), "streams differ from the "
+                      "uninterrupted run")
+                _must(tag, (eng.last_recover_mode == "chunked") ==
+                      bool(replay and eng._chunked_ok),
+                      "replay took the wrong mode")
+                del eng
+            torch.cuda.empty_cache()
+    return total
+
+
+def _piggyback_run(tag, cfg, params, *, paged, piggyback, crash=False):
+    """Phase 8c's traffic: 6 decoding 128-token prompts, then after 8
+    horizons two 512-token ones. Returns (streams, launches, syncs per
+    horizon, TPOT p99 of the 6, the longest gap between two token blocks
+    of one of them, the engine)."""
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.serving import FaultInjector, Request
+
+    engine = phase8_engine(cfg, params, paged=paged, piggyback=piggyback)
+    _must(tag, engine._paged == paged, "the engine did not come up paged")
+    _must(tag, engine._piggyback == piggyback, "piggyback is not as asked")
+    rng = np.random.default_rng(3)
+    short = [Request(prompt=rng.integers(0, cfg.vocab_size, 128),
+                     max_new=PB_NEW) for _ in range(PB_SHORT)]
+    long = [Request(prompt=rng.integers(0, cfg.vocab_size, 512),
+                    max_new=PB_NEW) for _ in range(PB_LONG)]
+    arrivals = {r.id: [] for r in short}
+    counts = {"horizons": 0, "readbacks": 0, "pending_at_crash": None}
+    process, recover = engine._process, engine.recover
+
+    def on_process(h):
+        process(h)
+        now = time.perf_counter()
+        counts["horizons"] += 1
+        counts["readbacks"] += h.event is not None  # the event's sync
+        for _, st in h.snaps:
+            if st.req.id in arrivals:
+                arrivals[st.req.id].append(now)
+
+    engine._process = on_process
+    torch.cuda.synchronize()
+    reset_launches()
+    with counted_syncs() as box:
+        def paused_recover():
+            counts["pending_at_crash"] = len(engine._pending)
+            box["paused"] += 1
+            try:
+                return recover()
+            finally:
+                box["paused"] -= 1
+
+        engine.recover = paused_recover
+        for r in short:
+            engine.submit(r)
+        for _ in range(PB_ARRIVAL):
+            engine.step()
+        if crash:
+            engine.faults = FaultInjector().plan("step", PB_CRASH, "crash")
+        for r in long:
+            engine.submit(r)
+        res = engine.run()
+        torch.cuda.synchronize()
+    launches = read_launches()
+    for r in short + long:
+        _must(tag, r.status.value == "finished", f"request {r.id} "
+              f"came back {r.status}")
+    if crash:
+        _must(tag, engine.metrics.n_restarts == 1, "the crash never fired")
+        _must(tag, not piggyback or counts["pending_at_crash"],
+              "no prefill was pending at the crash")
+    tpot = [r.timing["decode_s"] / (PB_NEW - 1) for r in short]
+    gap = max(float(np.diff(t).max()) for t in arrivals.values())
+    per = (box["n"] + counts["readbacks"]) / counts["horizons"]
+    if box["n"]:
+        log(f"{tag}: syncs beyond the readback at {dict(box['where'])}")
+    return ([res[r.id] for r in short + long], launches, per,
+            float(np.percentile(tpot, 99)), gap, engine)
+
+
+def phase8_piggyback(card: str) -> dict[str, int]:
+    """Phase 8c: piggyback on and off at full width, slab and paged, and a
+    run that crashes while a long prompt's chunks are pending: the same
+    bytes, one host sync a horizon."""
+    import numpy as np
+    import torch
+
+    total: dict[str, int] = {}
+    cfg, params = serve_model(False)
+    for paged in (False, True):
+        layout = "paged" if paged else "slab"
+        decode = "flash_decode_paged" if paged else "flash_decode"
+        out = {}
+        for pb, crash in ((False, False), (True, False), (True, True)):
+            if crash and paged:
+                continue
+            tag = (f"phase 8c {layout}, piggyback {'on' if pb else 'off'}"
+                   f"{', crash mid-prefill' if crash else ''}")
+            streams, launches, per, tpot99, gap, eng = _piggyback_run(
+                tag, cfg, params, paged=paged, piggyback=pb, crash=crash)
+            _launch_check(tag, launches, ("flash_attn_fwd", decode))
+            _add(total, launches)
+            m = eng.metrics
+            log(f"{tag}: {m.n_prefill_chunks} chunks ({m.prefill_chunk_tokens} "
+                f"tokens) deferred, decode stall {m.decode_stall_seconds:.4f}"
+                f" s; host syncs per horizon {per:.3f}; decoding slots' TPOT"
+                f" p99 {tpot99 * 1e3:.3f} ms, longest gap between token "
+                f"blocks {gap * 1e3:.2f} ms; restarts {m.n_restarts} "
+                f"[{card}]")
+            _must(tag, per == 1.0, f"{per:.3f} host syncs a horizon")
+            if pb:
+                _must(tag, m.n_prefill_chunks > 0, "no chunk was deferred")
+            out[(pb, crash)] = streams
+            del eng
+            torch.cuda.empty_cache()
+        for key, streams in out.items():
+            same = [np.array_equal(a, b)
+                    for a, b in zip(out[(False, False)], streams)]
+            _must(f"phase 8c {layout} {key}", all(same),
+                  f"streams differ from the blocking run ({sum(same)}/"
+                  f"{len(same)} identical)")
+        log(f"phase 8c {layout}: every run's streams byte-identical to the "
+            f"blocking run's")
+    return total
+
+
+def _post_status(url: str, body: dict) -> tuple[int, dict]:
+    req = urllib.request.Request(
+        url, data=json.dumps(body).encode(), method="POST",
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _health(base: str) -> tuple[int, dict]:
+    try:
+        with urllib.request.urlopen(base + "/healthz", timeout=60) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def phase8_server(card: str) -> dict[str, int]:
+    """Phase 8d: ``ServingServer`` supervising the engine. A scripted crash
+    is recovered (/healthz stays 200, the request returns the
+    uninterrupted tokens); crashes at every check with ``max_restarts=1``
+    kill the engine (503, the waiting request FAILED)."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.serving import (
+        FaultInjector,
+        Request,
+        ServingServer,
+    )
+
+    tag = "phase 8d"
+    cfg, params = serve_model(False)
+    engine = phase8_engine(cfg, params, prefix_cache=True)
+    prompt = np.random.default_rng(4).integers(0, cfg.vocab_size, 150)
+    ref = Request(prompt=prompt, max_new=16)
+    engine.submit(ref)
+    want = engine.run()[ref.id].tolist()
+    torch.cuda.synchronize()
+    reset_launches()
+    engine.faults = FaultInjector().plan("step", 2, "crash")
+    server = ServingServer(engine, port=0).start()
+    try:
+        base = "http://%s:%d" % server.address
+        status, body = _post_status(base + "/v1/generate",
+                                    {"prompt": prompt.tolist(),
+                                     "max_new": 16})
+        code, health = _health(base)
+        log(f"{tag}: a crash under the server: HTTP {status}, tokens "
+            f"{'identical to' if body.get('tokens') == want else 'DIFFER from'}"
+            f" the uninterrupted run's; /healthz {code} restarts "
+            f"{health['restarts']} ok {health['ok']} [{card}]")
+        _must(tag, status == 200 and body["tokens"] == want,
+              "the request did not return the uninterrupted tokens")
+        _must(tag, code == 200 and health["ok"] and health["restarts"] == 1,
+              f"/healthz after the recovery: {code} {health}")
+    finally:
+        server.stop(drain_s=10.0)
+    launches = read_launches()
+    engine.faults = FaultInjector().plan("step", 0, "crash", times=10**9)
+    server = ServingServer(engine, port=0, max_restarts=1).start()
+    try:
+        base = "http://%s:%d" % server.address
+        out = {}
+        t = threading.Thread(target=lambda: out.update(resp=_post_status(
+            base + "/v1/generate", {"prompt": prompt.tolist(),
+                                    "max_new": 16})))
+        t.start()
+        deadline = time.time() + 120
+        code, health = _health(base)
+        while code == 200 and time.time() < deadline:
+            time.sleep(0.05)
+            code, health = _health(base)
+        t.join(timeout=120)
+        status, body = out.get("resp", (None, {}))
+        after, _ = _post_status(base + "/v1/generate",
+                                {"prompt": [1, 2], "max_new": 2})
+        log(f"{tag}: crashes at every check, max_restarts 1: /healthz {code}"
+            f" ({health['last_error']}); the waiting request HTTP {status} "
+            f"{body.get('status')}; a new request HTTP {after} [{card}]")
+        _must(tag, code == 503 and not health["engine_alive"],
+              "/healthz did not turn 503")
+        _must(tag, status == 500 and body.get("status") == "failed",
+              "the waiting request was not FAILED")
+        _must(tag, after == 503, "a request to a dead engine was accepted")
+    finally:
+        server.stop()
+    return launches
+
+
+def phase_serving_features(card: str) -> dict[str, dict[str, int]]:
+    """Phase 8: the serving engine's prefix cache, crash recovery and
+    piggyback prefill at GPT-2-small's width; reports its wall seconds and
+    fails on a launch of #1-#5 at a shape phase 2 did not hold."""
+    import torch
+
+    t0 = time.perf_counter()
+    with launched_shapes() as seen:
+        runs = {"prefix": phase8_prefix(card)}
+        runs["recovery"] = phase8_recovery(card)
+        runs["piggyback"] = phase8_piggyback(card)
+        runs["server_recovery"] = phase8_server(card)
+    torch.cuda.empty_cache()
+    log(f"phase 8: {time.perf_counter() - t0:.1f} s wall [{card}]")
+    check_launched("phase 8", seen)
+    return runs
+
+
 def main() -> int:
     try:
         import torch
@@ -2197,6 +2937,7 @@ def main() -> int:
     check_launched("phases 3-6", early)
     del w2v_model
     by_phase.update(phase_decode_variants(card))
+    by_phase.update(phase_serving_features(card))
     kernels = [
         dict(name=name, route="cuda", **KERNELS[name],
              launches=sum(p[name] for p in by_phase.values()),

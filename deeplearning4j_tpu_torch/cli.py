@@ -19,9 +19,12 @@ transformer (``--demo``, weights from ``--seed``) through ``ServingEngine``
 gpt2s`` (or ``transformer``, the JAX bench's name) for the GPT-2-small
 geometry and ``--flash`` for the flash prefill kernel. ``--int8
 weights|full`` serves int8 weights (over a float cache, or with the int8
-KV cache too) and ``--paged [--block-size N]`` a block-paged KV pool, as
-the reference's flags do. Every command runs on ``cuda`` unless ``--device
-cpu`` is given.
+KV cache too) and ``--paged [--block-size N]`` a block-paged KV pool,
+``--prefix-cache [--prefix-cache-tokens N] [--prefix-affinity-tokens K]``
+the prefix cache, ``--piggyback [--prefill-budget N]`` the deferred
+prefill, and ``--chaos-rate P [--chaos-seed S]`` seeded transient faults
+(retried, or recovered by replay), as the reference's flags do. Every command runs on ``cuda`` unless
+``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -286,6 +289,7 @@ def cmd_generate(args) -> int:
 
 def cmd_serve(args) -> int:
     from deeplearning4j_tpu_torch.serving import (
+        FaultInjector,
         RequestScheduler,
         ServingEngine,
         ServingServer,
@@ -300,14 +304,25 @@ def cmd_serve(args) -> int:
     cfg, params = model
     origin = ("demo mode: random-init model" if args.demo
               else f"checkpoint {args.checkpoint_dir}")
+    faults = None
+    if args.chaos_rate > 0:
+        faults = FaultInjector(seed=args.chaos_seed,
+                               transient_rate=args.chaos_rate)
+        print(f"chaos mode: transient faults at rate {args.chaos_rate} "
+              f"(seed {args.chaos_seed})")
     engine = ServingEngine(
         cfg, params, n_slots=args.slots, max_total=args.max_total,
         temperature=args.temperature,
         top_k=args.top_k if args.top_k > 0 else None,
         decode_horizon=args.decode_horizon,
-        scheduler=RequestScheduler(max_queue_depth=args.max_queue),
-        rng_seed=args.seed, device=args.device,
+        prefix_cache=args.prefix_cache,
+        prefix_cache_tokens=args.prefix_cache_tokens,
+        scheduler=RequestScheduler(
+            max_queue_depth=args.max_queue,
+            prefix_affinity_tokens=args.prefix_affinity_tokens),
+        rng_seed=args.seed, faults=faults, device=args.device,
         paged=args.paged, block_size=args.block_size,
+        piggyback=args.piggyback, prefill_budget=args.prefill_budget,
     )
     if args.paged:
         if engine._paged:
@@ -318,11 +333,19 @@ def cmd_serve(args) -> int:
             print("paged KV DISABLED (parity probe failed or block size "
                   "does not divide tokens/slot); slab slots",
                   file=sys.stderr)
+    if args.piggyback:
+        print(f"piggyback prefill: chunked admission behind decode "
+              f"dispatches ({engine.prefill_budget} tokens/horizon budget)")
     server = ServingServer(engine, host=args.host, port=args.port,
                            request_timeout_s=args.request_timeout)
     host, port = server.address
     print(f"{origin} ({cfg.d_model}d, {cfg.n_layers}L, "
           f"vocab {cfg.vocab_size}, {cfg.compute_dtype}) on {engine.device}")
+    if engine.prefix_cache is not None:
+        pc = engine.prefix_cache
+        print(f"prefix cache: {pc.capacity_tokens} tokens "
+              f"({pc.n_region_slots} segments, "
+              f"{pc.nbytes() / 1e6:.1f} MB region)")
     print(f"serving on http://{host}:{port}  ({args.slots} slots, "
           f"{engine.max_total} tokens/slot, decode horizon "
           f"{engine.decode_horizon}, queue depth {args.max_queue})",
@@ -456,6 +479,41 @@ def build_parser() -> argparse.ArgumentParser:
     v.add_argument("--block-size", type=int, default=None, metavar="T",
                    help="tokens per KV block with --paged (default 8; must "
                    "divide tokens-per-slot)")
+    v.add_argument("--prefix-cache", action="store_true",
+                   help="radix-tree KV prefix cache: admissions whose "
+                   "prompt shares a cached prefix copy those KV rows "
+                   "instead of recomputing them (gated by a one-time "
+                   "bitwise parity probe; falls back to full prefill). "
+                   "Hit rate and saved prefill tokens appear in "
+                   "/metrics")
+    v.add_argument("--prefix-cache-tokens", type=int, default=None,
+                   metavar="N",
+                   help="device-side prefix-cache capacity in tokens "
+                   "(default: slots x tokens-per-slot, i.e. a region "
+                   "as large as the slot pool)")
+    v.add_argument("--prefix-affinity-tokens", type=int, default=0,
+                   metavar="K",
+                   help="scheduler promotes a queued request whose "
+                   "first K prompt tokens match the previous admission "
+                   "(same priority class only), so shared-prefix "
+                   "requests land in the same admission batch; 0 = "
+                   "plain FIFO")
+    v.add_argument("--piggyback", action="store_true",
+                   help="chunked-prefill piggyback: long prompts are "
+                   "split into pow2 chunks and ride along with decode "
+                   "dispatches (one fused program per horizon) instead "
+                   "of stalling active streams behind a blocking "
+                   "prefill. Token-budgeted per horizon; byte-identical "
+                   "streams, gated by a one-time parity probe")
+    v.add_argument("--prefill-budget", type=int, default=None,
+                   metavar="N",
+                   help="piggyback prefill token budget per decode "
+                   "horizon (default: 2x the largest prefill bucket)")
+    v.add_argument("--chaos-rate", type=float, default=0.0,
+                   help="inject transient faults at engine boundaries "
+                   "at this per-step probability (smoke-tests the "
+                   "supervised retry/replay path; see serving/faults.py)")
+    v.add_argument("--chaos-seed", type=int, default=0)
     v.set_defaults(fn=cmd_serve)
     return ap
 

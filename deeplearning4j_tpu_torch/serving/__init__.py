@@ -1,12 +1,20 @@
 """Continuous-batching serving for the port: slot and block-paged pools,
-scheduler, engine, metrics and the HTTP server."""
+the prefix cache, scheduler, engine, fault injection, metrics and the HTTP
+server."""
 
 from deeplearning4j_tpu_torch.serving.cache_pool import (
     KVSlotPool,
     PagedKVPool,
 )
 from deeplearning4j_tpu_torch.serving.engine import ServingEngine
+from deeplearning4j_tpu_torch.serving.faults import (
+    EngineCrash,
+    FaultInjector,
+    PermanentFault,
+    TransientFault,
+)
 from deeplearning4j_tpu_torch.serving.metrics import ServingMetrics
+from deeplearning4j_tpu_torch.serving.prefix_cache import PrefixCache, Segment
 from deeplearning4j_tpu_torch.serving.scheduler import (
     AdmissionError,
     Backpressure,
@@ -17,7 +25,8 @@ from deeplearning4j_tpu_torch.serving.scheduler import (
 from deeplearning4j_tpu_torch.serving.server import ServingServer
 
 __all__ = [
-    "AdmissionError", "Backpressure", "KVSlotPool", "PagedKVPool", "Request",
-    "RequestScheduler", "RequestStatus", "ServingEngine", "ServingMetrics",
-    "ServingServer",
+    "AdmissionError", "Backpressure", "EngineCrash", "FaultInjector",
+    "KVSlotPool", "PagedKVPool", "PermanentFault", "PrefixCache", "Request",
+    "RequestScheduler", "RequestStatus", "Segment", "ServingEngine",
+    "ServingMetrics", "ServingServer", "TransientFault",
 ]

@@ -27,7 +27,8 @@ from deeplearning4j_tpu_torch.models.transformer import (
     _decode_builder,
     _kv_planes,
     kv_map,
-    paged_slot_scatter,
+    paged_block_copy,
+    paged_scatter,
 )
 
 
@@ -39,6 +40,8 @@ def _nbytes(caches) -> int:
 class KVSlotPool:
     """Free-list of decode-cache slots over one device allocation.
     ``caches`` is a float tensor, or ``{"kv", "scale"}`` in int8 mode."""
+
+    is_paged = False
 
     def __init__(self, cfg: TransformerConfig, n_slots: int, max_total: int,
                  device: torch.device):
@@ -120,12 +123,32 @@ class KVSlotPool:
         survives)."""
         return kv_map(lambda x: x.zero_(), self.slab(slot))
 
-    def land(self, slot: int, slab) -> None:
+    def land(self, slot: int, slab, start: int = 0) -> None:
         """Make a prefilled :meth:`prefill_slab` ``slot``'s rows: here they
         already are."""
 
+    def write_slab(self, slot: int, slab, start: int = 0) -> None:
+        """Copy rows ``start``.. of a batch-1 scratch slab into ``slot``'s
+        rows."""
+        kv_map(lambda d, s: d[:, :, :, start:].copy_(s[:, :, :, start:]),
+               self.slab(slot), slab)
+
+    def alloc_region(self, n_slots: int):
+        """A second cache allocation with the pool's per-slot layout (Tpad
+        rows, dtype, int8 scale planes), zeroed: a region slab and a pool
+        slab are interchangeable. The prefix cache keeps its segments in
+        one; the pool owns the layout, the cache owns the slots."""
+        if n_slots < 1:
+            raise ValueError(f"n_slots must be >= 1, got {n_slots}")
+        return self._init_caches(n_slots, self._max_total, self._device)
+
+    def region_nbytes(self, n_slots: int) -> int:
+        """Device bytes of an ``alloc_region(n_slots)``, from shapes."""
+        return self._nbytes // self.n_slots * n_slots
+
     def reinit(self) -> None:
-        """Re-create the pooled cache, zeroed; slot bookkeeping stays."""
+        """Re-create the pooled cache, zeroed (crash recovery: the old
+        buffers are assumed corrupt); slot bookkeeping stays."""
         self.caches = self._alloc_caches()
 
     def nbytes(self) -> int:
@@ -146,11 +169,11 @@ class PagedKVPool(KVSlotPool):
       all-zero SENTINEL block (block ids are 1-based);
     - admission allocates ``ceil((prompt + max_new) / block_size)`` blocks
       instead of a whole slab;
-    - blocks are reference-counted, so a cached prefix can be byte-shared by
+    - blocks are reference-counted, so a cached prefix is byte-shared by
       aliasing its ids into another slot's table (:meth:`alias_into_slot`,
-      :meth:`alloc_blocks`, :meth:`incref`, :meth:`decref` serve the prefix
-      cache of a later slice); a block returns to the free heap when its
-      count reaches zero.
+      :meth:`alloc_blocks`, :meth:`incref`, :meth:`decref` serve the
+      prefix cache); a block returns to the free heap when its count
+      reaches zero.
 
     Block ids are handed out lowest-id-first (a heap), so tables are
     deterministic. ``block_size`` is a power of two dividing Tpad; the pool
@@ -159,6 +182,8 @@ class PagedKVPool(KVSlotPool):
     of the tables in :meth:`operand` is uploaded again exactly when they
     changed.
     """
+
+    is_paged = True
 
     def __init__(self, cfg: TransformerConfig, n_slots: int, max_total: int,
                  device: torch.device, *, block_size: int = 8):
@@ -228,6 +253,11 @@ class PagedKVPool(KVSlotPool):
         with self._lock:
             return self._tables.copy()
 
+    def slot_blocks(self, slot: int) -> list[int]:
+        """The non-sentinel block ids ``slot``'s table names, in order."""
+        with self._lock:
+            return [int(b) for b in self._tables[slot] if b]
+
     def refcount(self, block_id: int) -> int:
         with self._lock:
             return int(self._refs[block_id])
@@ -253,12 +283,36 @@ class PagedKVPool(KVSlotPool):
         prompt."""
         return self._init_caches(1, self._max_total, self._device)
 
-    def land(self, slot: int, slab) -> None:
-        """Scatter a prefilled scratch slab into the blocks ``slot``'s table
-        row names: zeros past the prompt included, so a reused block keeps
-        no stale row; pad rows past the slot's coverage land in the
-        sentinel, which is re-zeroed."""
-        paged_slot_scatter(self.caches, self.operand()["tables"][slot], slab)
+    def land(self, slot: int, slab, start: int = 0) -> None:
+        """Scatter a prefilled scratch slab's rows ``start``.. into the
+        blocks ``slot``'s table row names from entry ``start //
+        block_size`` on: zeros past the prompt included, so a reused block
+        keeps no stale row; pad rows past the slot's coverage land in the
+        sentinel, which is re-zeroed. ``start`` (block-aligned) skips the
+        entries a prefix hit aliased: a slot writes only its own blocks."""
+        if start % self.block_size:
+            raise ValueError(f"start {start} is not a multiple of the block "
+                             f"size {self.block_size}")
+        j = start // self.block_size
+        paged_scatter(self.caches, self.operand()["tables"][slot:slot + 1, j:],
+                      kv_map(lambda x: x[:, :, :, start:], slab))
+
+    def write_slab(self, slot: int, slab, start: int = 0) -> None:
+        """Scatter a batch-1 scratch slab into ``slot``'s blocks (as
+        :meth:`land`)."""
+        self.land(slot, slab, start)
+
+    def copy_block(self, src: int, dst: int) -> None:
+        """Copy block ``src``'s rows into block ``dst``."""
+        paged_block_copy(self.caches, src, dst)
+
+    def zero_blocks(self, block_ids) -> None:
+        """Zero the named blocks (sentinel entries skipped) in one indexed
+        fill a leaf; the index goes up pinned and non-blocking."""
+        ids = np.asarray([b for b in block_ids if b], np.int64)
+        if ids.size:
+            idx = upload(ids, self._device)
+            kv_map(lambda x: x.index_fill_(2, idx, 0), self.caches)
 
     # -- allocation / sharing --------------------------------------------------
 

@@ -1,5 +1,5 @@
 """Continuous-batching decode engine — pipelined, multi-step hot path (port
-of ``deeplearning4j_tpu/serving/engine.py``, single-device slab path).
+of ``deeplearning4j_tpu/serving/engine.py``, single-device path).
 
 The engine owns ``n_slots`` KV-cache slots (one pooled allocation, see
 :mod:`cache_pool`) and batches DECODE STEPS, ``decode_horizon`` (K) of them
@@ -7,7 +7,7 @@ per dispatch. Every :meth:`ServingEngine.step`:
 
 1. retires cancelled / deadline-expired slots;
 2. admits queued requests into free slots: the prompt is right-padded to a
-   power-of-two bucket (up to ``PREFILL_MAX_BUCKET``) and prefilled straight
+   power-of-two bucket (up to ``prefill_max_bucket``) and prefilled straight
    into the slot's slab of the pooled cache; longer prompts are chunked
    through ``forward_chunk`` at the same bucket sizes;
 3. DISPATCHES the K fused decode substeps for all slots, then
@@ -23,8 +23,9 @@ without blocking and an event marks its arrival (CUDA's stream order gives
 the overlap that the reference's async dispatch gives).
 
 Programs (``build_*_program``) are plain functions on tensors. Unlike the
-reference's pure jitted programs they update the pooled cache and the slot
-state IN PLACE, in stream order behind any in-flight horizon.
+reference's pure jitted programs they update the pooled cache, the prefix
+region and the slot state IN PLACE, in stream order behind any in-flight
+horizon.
 
 Greedy determinism: at ``temperature=0`` the step program takes the argmax
 of the same ``_top_k_filter``ed logits ``transformer_generate`` uses, so
@@ -33,10 +34,12 @@ agree bitwise (on the CPU, and on the card except where the library's
 matmul reduces a batch of 1 and of n_slots in different orders).
 
 Sampled decoding: each slot gets a seed from the engine's
-``torch.Generator`` at admission, in admission order, and token i is drawn
-by Gumbel-max with noise that is a pure function of (slot seed, position),
-so a stream does not depend on batch composition or K. It is not the
-reference's threefry stream.
+``torch.Generator`` in admission order (drawn at seating; with piggyback,
+for every admission when its plan executes, so a deferred seating keeps
+the blocking order), and token i is drawn by Gumbel-max with noise that is
+a pure function of (slot seed, position), so a stream does not depend on
+batch composition, K, deferral or crash replay. It is not the reference's
+threefry stream.
 
 int8 serving needs nothing of the engine: a quantized params tree
 (``quantize_decode_params``) and ``decode_int8`` make the pooled cache the
@@ -45,20 +48,72 @@ int8 ``{"kv", "scale"}`` dict, which every program here takes leafwise.
 Block-paged KV (``paged=True``): the pool is a ``PagedKVPool`` of fixed-size
 blocks with per-slot int32 tables. Admission allocates ``ceil((prompt +
 max_new) / block_size)`` blocks (a request waits in the queue while they do
-not fit). In both layouts a prompt is prefilled at batch 1 into a slab the
-pool hands out and the pool then lands it: the slab pool hands out the
-slot's own rows, the paged pool a scratch slab it scatters into the slot's
-blocks. The paged decode step writes through the tables and runs the paged
-decode kernel on the pool. The pool uploads its device copy of the tables
-whenever they changed, between horizons, never inside one. Paging is
-gated, as in the reference, by a one-time probe (``paged_parity="auto"``):
-three decode steps over shuffled tables with an aliased block must give
-logits bitwise equal to the slab step's, or the engine logs
-``paged_parity_probe_failed`` and serves from slabs. An exception in the
-probe propagates.
+not fit, after cached prefixes were handed back). In both layouts a prompt
+is prefilled at batch 1 into a slab the pool hands out and the pool then
+lands it: the slab pool hands out the slot's own rows, the paged pool a
+scratch slab it scatters into the slot's blocks. The paged decode step
+writes through the tables and runs the paged decode kernel on the pool.
+The pool uploads its device copy of the tables whenever they changed,
+between horizons, never inside one. Paging is gated, as in the reference,
+by a one-time probe (``paged_parity="auto"``): three decode steps over
+shuffled tables with an aliased block must give logits bitwise equal to
+the slab step's, or the engine logs ``paged_parity_probe_failed`` and
+serves from slabs. An exception in the probe propagates.
 
-Left for later slices: the prefix cache, piggyback, the grammar/sampling
-surface, LoRA, tensor parallelism, disaggregated prefill and crash replay.
+Prefix cache (``prefix_cache=True``, :mod:`prefix_cache`): a radix tree
+over segments of cached prompt rows — in slab mode a region with the
+pool's slab layout, in paged mode refcounted pool blocks (full blocks
+aliased off the donor slot, a partial tail block copied). A FULL hit (the
+whole prompt cached with its last-row logits) admits by copy and runs no
+prefill program. A PARTIAL hit reuses the rows below ``L``, the match
+rounded down to the hit grain, and chunk-computes the rest. The hit path
+reproduces the miss path BY CONSTRUCTION: the grain is the largest prefill
+bucket B (and a whole number of blocks when paged), so ``L`` is a multiple
+of B; a prompt longer than B is computed in the windows [0, B), [B, 2B),
+... of ``_chunk_schedule`` whether or not a prefix was cached, and a
+partial hit reads only rows of segments whose donor prompt took those
+windows (``Segment.partial_ok``). Its rows below ``L`` therefore came from
+the same chunk program over the same tokens and windows as the miss path's
+rows, and its windows from ``L`` on are the miss path's own windows. Rows
+past a window's end hold another prompt's rows; the chunk and decode
+attentions mask them to exact zeros. Short prompts keep the single flash
+prefill (kernel #1) with the cache on or off, and their segments serve
+full hits only. The construction-time probe (``_probe_prefix_parity``)
+checks this bitwise — KV rows and logits of a miss against a hit on a
+segment from a prompt that diverges after ``L`` — and when it fails every
+lookup is a miss.
+
+Supervision (``faults``, a :class:`~.faults.FaultInjector`): the engine
+checks the "prefill" site once per admission and the "step" site before
+each horizon's dispatch. A ``TransientFault`` retries with capped
+exponential backoff (``max_retries``, ``retry_backoff_s``,
+``max_backoff_s``); one that persists, or a ``PermanentFault``,
+quarantines the request it names (FAILED, slot freed) and any other
+escalates to ``EngineCrash``. :meth:`recover` then rebuilds every
+device-side object — the pool, the prefix region, the slot state, the
+paged tables — and replays each live slot from its host record: STEPWISE
+(re-prefill the prompt through the admission path, then teacher-force the
+recorded tokens through the decode step, exact by construction) or
+CHUNKED (one pass over prompt + tokens; ``chunked_replay="auto"`` probes
+it bitwise against stepwise once and falls back). The un-synced horizon
+and its event are dropped, deferred piggyback admissions are requeued in
+order with their seeds, and :meth:`run` recovers up to ``max_restarts``
+times.
+
+Piggyback (``piggyback=True``): an admission whose uncached suffix exceeds
+one bucket is deferred. Its chunks run under a per-horizon token budget
+(``prefill_budget``, default 2x the largest bucket), enqueued after each
+horizon's decode dispatch and token copy, so the copy never waits on
+them; the slot is seated after its last chunk and decodes from the next
+horizon on. The chunk programs, windows and scratch slab are the blocking
+path's, so streams are byte-identical by construction. (The reference
+fuses the last budgeted chunk into the decode dispatch and probes the
+fused program; eager PyTorch has no such fusion, so the port runs the
+chunk program itself and has nothing to probe.)
+
+Left for later slices: batched admission, the adaptive horizon, persisted
+probe verdicts, the flight recorder and tracer, KV wire import/export, the
+grammar/sampling surface, LoRA and tensor parallelism.
 """
 
 from __future__ import annotations
@@ -66,6 +121,7 @@ from __future__ import annotations
 import logging
 import threading
 import time
+from collections import deque
 
 import numpy as np
 import torch
@@ -79,11 +135,19 @@ from deeplearning4j_tpu_torch.models.transformer import (
     _top_k_filter,
     check_supported,
     kv_map,
+    paged_slot_gather,
     paged_slot_scatter,
     params_to,
 )
 from deeplearning4j_tpu_torch.serving.cache_pool import KVSlotPool, PagedKVPool
+from deeplearning4j_tpu_torch.serving.faults import (
+    EngineCrash,
+    FaultInjector,
+    PermanentFault,
+    TransientFault,
+)
 from deeplearning4j_tpu_torch.serving.metrics import ServingMetrics
+from deeplearning4j_tpu_torch.serving.prefix_cache import PrefixCache, Segment
 from deeplearning4j_tpu_torch.serving.scheduler import (
     AdmissionError,
     Backpressure,
@@ -94,7 +158,7 @@ from deeplearning4j_tpu_torch.serving.scheduler import (
 
 #: device EOS id for requests without one (never equals a sampled token)
 _NO_EOS = -1
-#: largest power-of-two prompt bucket; longer prompts are chunked
+#: default largest power-of-two prompt bucket; longer prompts are chunked
 PREFILL_MAX_BUCKET = 128
 #: finished streams kept for ``results`` / ``pop_result`` (oldest evicted)
 RESULTS_CAP = 1024
@@ -165,11 +229,25 @@ def build_step_program(fwd1, horizon: int, temperature: float,
     return step
 
 
+def build_replay_program(fwd1):
+    """Teacher-forced decode step for stepwise crash recovery: feed the
+    RECORDED tokens (no sampling) and keep the pending-logits rows of slots
+    whose record is exhausted — those rows must stay what the slot's last
+    real step produced."""
+
+    def rstep(params, caches, logits, toks, pos, replaying):
+        new_logits, caches = fwd1(params, caches, toks, pos)
+        return caches, torch.where(replaying[:, None], new_logits, logits)
+
+    return rstep
+
+
 def build_deact_program():
-    """Clear one slot's active bit (retirement between horizons)."""
+    """Clear one slot's active bit (retirement between horizons; by
+    ``fill_``, no host sync)."""
 
     def deact(active, slot: int):
-        active[slot] = False
+        active[slot].fill_(False)
         return active
 
     return deact
@@ -177,18 +255,67 @@ def build_deact_program():
 
 def build_insert_program():
     """Seat a slot's device state after its rows hold the prompt: pending
-    logits row, position, active bit, budget and EOS id."""
+    logits row, position, active bit, budget and EOS id. The host scalars
+    go in by ``fill_`` (a kernel argument): an item assignment would copy
+    them from pageable memory, a host sync."""
 
     def insert(caches, logits, pos, active, budget, eos, lg, slot: int,
                pos0: int, max_new: int, eos_tok: int):
         logits[slot] = lg[0]
-        pos[slot] = pos0
-        active[slot] = True
-        budget[slot] = max_new
-        eos[slot] = eos_tok
+        pos[slot].fill_(pos0)
+        active[slot].fill_(True)
+        budget[slot].fill_(max_new)
+        eos[slot].fill_(eos_tok)
         return caches, logits, pos, active, budget, eos
 
     return insert
+
+
+def build_hit_insert_program():
+    """FULL-hit admission in slab mode: copy a segment's whole slab from
+    the region into the slot's rows, land the segment's stored last-row
+    logits and seat the slot's state — no prompt row computed."""
+    insert = build_insert_program()
+
+    def hit(caches, logits, pos, active, budget, eos, region, seg_lg,
+            seg: int, slot: int, pos0: int, max_new: int, eos_tok: int):
+        kv_map(lambda c, r: c[:, :, slot].copy_(r[:, :, seg]), caches,
+               region)
+        return insert(caches, logits, pos, active, budget, eos, seg_lg,
+                      slot, pos0, max_new, eos_tok)
+
+    return hit
+
+
+def build_seg_fetch_program():
+    """Segment fetch: one region slot's slab as a batch-1 slab, copied into
+    ``out`` (a slot's rows) or, without it, into a new scratch slab."""
+
+    def fetch(region, seg: int, out=None):
+        if out is None:
+            return kv_map(lambda r: r[:, :, seg:seg + 1].clone(), region)
+        kv_map(lambda o, r: o.copy_(r[:, :, seg:seg + 1]), out, region)
+        return out
+
+    return fetch
+
+
+def build_seg_store_program():
+    """Segment store (insert-on-completion): copy a pool slot's slab into
+    the region at the segment's index."""
+
+    def store(region, caches, seg: int, slot: int):
+        kv_map(lambda r, c: r[:, :, seg].copy_(c[:, :, slot]), region,
+               caches)
+        return region
+
+    return store
+
+
+def build_logit_row_program():
+    """The (1, V) pending-logits row of one slot, copied at insert time so
+    a later FULL hit replays the exact prefill logits."""
+    return lambda lg, slot: lg[slot:slot + 1].clone()
 
 
 def build_prefill_program(do_prefill):
@@ -217,15 +344,55 @@ def build_chunk_program(fwd_chunk):
 
 
 class _SlotState:
-    """Host-side record for one occupied slot."""
+    """Host-side record for one occupied slot: what replay rebuilds it
+    from."""
 
-    __slots__ = ("req", "tokens", "t_first_token", "gen")
+    __slots__ = ("req", "tokens", "t_first_token", "gen", "seed", "segs")
 
-    def __init__(self, req: Request, gen: int):
+    def __init__(self, req: Request, gen: int, seed: int):
         self.req = req
         self.tokens: list[int] = []
         self.t_first_token: float | None = None
         self.gen = gen  # pool generation at admission (reuse detection)
+        self.seed = seed  # sampling seed (re-seated by replay)
+        # prefix-cache segments this request pins (the one its admission
+        # read and the ones its prompt inserted), unpinned at retirement
+        self.segs: list[Segment] = []
+
+
+class _AdmitPlan:
+    """One admission: the popped request, its acquired slot and its
+    prefix-cache class (``kind`` miss/partial/full, ``seg`` the pinned
+    source segment, ``matched`` the reused rows)."""
+
+    __slots__ = ("req", "slot", "kind", "seg", "matched", "handled",
+                 "prefill_s")
+
+    def __init__(self, req: Request, slot: int):
+        self.req = req
+        self.slot = slot
+        self.kind = "miss"
+        self.seg: Segment | None = None
+        self.matched = 0
+        # seated, retired or deferred: a failed round does not requeue it
+        # (recover() requeues the deferred ones)
+        self.handled = False
+        self.prefill_s = 0.0
+
+
+class _PendingPrefill:
+    """A deferred (piggyback) admission: its plan, the chunk windows still
+    to run, the batch-1 scratch slab they write and the last chunk's (1, V)
+    logits."""
+
+    __slots__ = ("plan", "chunks", "slab", "lg", "t_start")
+
+    def __init__(self, plan: _AdmitPlan, chunks, slab, t_start: float):
+        self.plan = plan
+        self.chunks = chunks
+        self.slab = slab
+        self.lg = None
+        self.t_start = t_start
 
 
 class _Inflight:
@@ -242,6 +409,10 @@ class _Inflight:
         self.t_dispatch = t_dispatch
 
 
+def _eos_of(req: Request) -> int:
+    return _NO_EOS if req.eos_token is None else int(req.eos_token)
+
+
 class ServingEngine:
     """Fixed-shape pipelined continuous-batching decode loop.
 
@@ -255,11 +426,17 @@ class ServingEngine:
     surface off under the flag; the port has no grammar surface yet.
     ``decode_horizon`` (K) decode steps are fused into one dispatch.
     Prompts are padded to power-of-two buckets up to
-    ``PREFILL_MAX_BUCKET`` and chunked beyond it. ``paged`` stores the KV
+    ``prefill_max_bucket`` and chunked beyond it. ``paged`` stores the KV
     cache in ``block_size``-row blocks (default 8; a size that does not
     divide Tpad disables paging) once the parity probe passes;
-    ``paged_parity=True`` trusts the layout without the probe. Serving
-    from slabs is ``paged=False``.
+    ``paged_parity=True`` trusts the layout without the probe.
+
+    ``prefix_cache`` caches prompt rows (``prefix_cache_tokens``, default
+    one slab per slot); ``prefix_affinity_tokens`` makes the default
+    scheduler admit same-prefix requests together. ``faults``,
+    ``max_retries``, ``retry_backoff_s``, ``max_backoff_s`` and
+    ``chunked_replay`` set supervision and replay; ``piggyback`` and
+    ``prefill_budget`` the deferred prefill (see the module doc).
     """
 
     def __init__(
@@ -273,12 +450,23 @@ class ServingEngine:
         top_k: int | None = None,
         approx_top_k: bool = False,
         decode_horizon: int = 1,
+        prefill_max_bucket: int = PREFILL_MAX_BUCKET,
+        chunked_replay: bool | str = "auto",
+        prefix_cache: bool = False,
+        prefix_cache_tokens: int | None = None,
+        prefix_affinity_tokens: int = 0,
         scheduler: RequestScheduler | None = None,
         rng_seed: int = 0,
+        faults: FaultInjector | None = None,
+        max_retries: int = 3,
+        retry_backoff_s: float = 0.01,
+        max_backoff_s: float = 0.25,
         device=None,
         paged: bool = False,
         block_size: int | None = None,
         paged_parity: bool | str = "auto",
+        piggyback: bool = False,
+        prefill_budget: int | None = None,
     ):
         check_supported(cfg)
         self.device = resolve_device(device)
@@ -288,6 +476,14 @@ class ServingEngine:
         self.temperature = temperature
         self.top_k = top_k
         self.decode_horizon = max(1, int(decode_horizon))
+        if chunked_replay not in ("auto", True, False):
+            raise ValueError(f'chunked_replay is "auto", True or False, got '
+                             f'{chunked_replay!r}')
+        self.chunked_replay = chunked_replay
+        self.faults = faults
+        self.max_retries = max_retries
+        self.retry_backoff_s = retry_backoff_s
+        self.max_backoff_s = max_backoff_s
 
         fwd1, init_caches, do_prefill, cast_params = _decode_builder(cfg)
         self._fwd1, self._init_caches = fwd1, init_caches
@@ -321,12 +517,84 @@ class ServingEngine:
             self.pool = KVSlotPool(cfg, n_slots, self.max_total, self.device)
         # NOT `scheduler or ...`: an empty scheduler is falsy (__len__)
         self.scheduler = scheduler if scheduler is not None else (
-            RequestScheduler(max_total_tokens=self.max_total)
+            RequestScheduler(max_total_tokens=self.max_total,
+                             prefix_affinity_tokens=prefix_affinity_tokens)
         )
         if self.scheduler.max_total_tokens is None:
             self.scheduler.max_total_tokens = self.max_total
         self.metrics = ServingMetrics()
         self.metrics.decode_horizon = self.decode_horizon
+
+        # power-of-two prompt buckets: the largest respects the positional
+        # table and the slab row count
+        limit = min(int(prefill_max_bucket), cfg.max_len, self.pool.tpad)
+        mb = 1
+        while mb * 2 <= limit:
+            mb *= 2
+        self._max_bucket = mb
+        self._min_bucket = min(8, mb)
+
+        self._step_fn = build_step_program(
+            fwd1, self.decode_horizon, temperature, top_k)
+        self._replay_fn = build_replay_program(fwd1)
+        self._prefill_fn = build_prefill_program(do_prefill)
+        self._chunk_fn = build_chunk_program(_chunk_builder(cfg))
+        self._insert_fn = build_insert_program()
+        self._deact_fn = build_deact_program()
+        self._hit_insert_fn = build_hit_insert_program()
+        self._seg_fetch_fn = build_seg_fetch_program()
+        self._seg_store_fn = build_seg_store_program()
+        self._logit_row_fn = build_logit_row_program()
+
+        # per-slot decode state, DEVICE-resident
+        self._reset_device_state()
+        # per-slot sampling seeds, drawn in admission order from the
+        # engine's generator (host-side; snapshotted per dispatch)
+        self._rng = torch.Generator().manual_seed(rng_seed)
+        self._slot_seeds = np.zeros((n_slots,), np.int64)
+        # piggyback engines draw every plan's seed when it executes, so a
+        # seating deferred across horizons keeps the blocking order; a
+        # requeued admission keeps its seed
+        self._presplit_seeds: dict[str, int] = {}
+
+        self._slots: list[_SlotState | None] = [None] * n_slots
+        self._inflight: _Inflight | None = None
+        self._results_lock = threading.Lock()
+        self._results: dict[str, np.ndarray] = {}  # guarded-by: _results_lock
+        self._admitting = 0
+        #: programs that computed prompt rows (bucketed prefills + chunks);
+        #: probes do not count
+        self.prefill_dispatches = 0
+        self.last_recover_mode: str | None = None
+        self._chunked_ok: bool | None = None  # replay probe memo
+        self._prefix_ok_memo: bool | None = None  # hit-path probe memo
+        #: where the prefix probe's two paths first differ (or None)
+        self.prefix_probe_detail: str | None = None
+
+        # partial hits reuse rows below a multiple of the largest bucket
+        # (and of the block size when paged): see the module doc
+        self._hit_grain = (max(self._max_bucket, self._block_size)
+                           if self._paged else self._max_bucket)
+        self.prefix_cache: PrefixCache | None = None
+        if prefix_cache:
+            self.prefix_cache = PrefixCache(
+                self.pool,
+                (prefix_cache_tokens if prefix_cache_tokens is not None
+                 else n_slots * self.pool.tpad),
+                on_evict=self._on_prefix_evict,
+                # branch-point segments shorter than the grain never serve
+                min_seg_len=self._hit_grain,
+            )
+
+        self._piggyback = bool(piggyback)
+        self.prefill_budget = max(1, int(
+            prefill_budget if prefill_budget is not None
+            else 2 * self._max_bucket))
+        self._pending: deque[_PendingPrefill] = deque()
+        self._pb_did_work = False
+        self._register_gauges(piggyback)
+
+    def _register_gauges(self, piggyback: bool) -> None:
         reg = self.metrics.registry
         reg.gauge("serve_queue_depth", "Queued requests.").set_function(
             lambda: len(self.scheduler))
@@ -345,55 +613,57 @@ class ServingEngine:
                       "KV blocks on the paged pool's free heap."
                       ).set_function(lambda: self.pool.n_free_blocks)
             reg.gauge("serve_kv_blocks_in_use",
-                      "KV blocks held by slot tables.").set_function(
-                lambda: self.pool.n_blocks_in_use)
+                      "KV blocks held by slot tables or cached segments."
+                      ).set_function(lambda: self.pool.n_blocks_in_use)
             reg.gauge("serve_kv_block_size",
                       "Rows per KV block (paged layout granule)."
                       ).set_function(lambda: self.pool.block_size)
+        if piggyback:
+            reg.gauge("serve_prefill_budget_tokens",
+                      "Chunk tokens the piggyback scheduler may spend per "
+                      "decode horizon (--prefill-budget).").set_function(
+                lambda: self.prefill_budget)
+            reg.gauge("serve_prefill_pending",
+                      "Admissions whose prefill is deferred across "
+                      "horizons (holding a slot, not yet seated)."
+                      ).set_function(lambda: len(self._pending))
+        pc = self.prefix_cache
+        if pc is not None:
+            reg.gauge("serve_prefix_segments", "Cached prefix segments."
+                      ).set_function(lambda: pc.n_segments)
+            reg.gauge("serve_prefix_segments_pinned",
+                      "Segments pinned by in-flight requests (not "
+                      "evictable).").set_function(lambda: pc.n_pinned)
+            reg.gauge("serve_prefix_tokens_cached",
+                      "Prompt tokens held in cached segments."
+                      ).set_function(lambda: pc.tokens_cached)
+            reg.gauge("serve_prefix_capacity_tokens",
+                      "Prefix-cache capacity in tokens.").set_function(
+                lambda: pc.capacity_tokens)
+            reg.gauge("serve_prefix_region_bytes",
+                      "Device bytes of the prefix-cache segments."
+                      ).set_function(lambda: pc.nbytes())
 
-        # power-of-two prompt buckets: the largest respects the positional
-        # table and the slab row count
-        limit = min(PREFILL_MAX_BUCKET, cfg.max_len, self.pool.tpad)
-        mb = 1
-        while mb * 2 <= limit:
-            mb *= 2
-        self._max_bucket = mb
-        self._min_bucket = min(8, mb)
-
-        self._step_fn = build_step_program(
-            fwd1, self.decode_horizon, temperature, top_k)
-        self._prefill_fn = build_prefill_program(do_prefill)
-        self._chunk_fn = build_chunk_program(_chunk_builder(cfg))
-        self._insert_fn = build_insert_program()
-        self._deact_fn = build_deact_program()
-
-        # per-slot decode state, DEVICE-resident
-        dev = self.device
-        self._logits = torch.zeros((n_slots, cfg.vocab_size),
-                                   dtype=torch.float32, device=dev)
-        self._dpos = torch.zeros((n_slots,), dtype=torch.int32, device=dev)
-        self._dactive = torch.zeros((n_slots,), dtype=torch.bool, device=dev)
-        self._dbudget = torch.zeros((n_slots,), dtype=torch.int32, device=dev)
-        self._deos = torch.full((n_slots,), _NO_EOS, dtype=torch.int32,
-                                device=dev)
-        # per-slot sampling seeds, drawn at admission from the engine's
-        # generator (host-side; snapshotted per dispatch)
-        self._rng = torch.Generator().manual_seed(rng_seed)
-        self._slot_seeds = np.zeros((n_slots,), np.int64)
-
-        self._slots: list[_SlotState | None] = [None] * n_slots
-        self._inflight: _Inflight | None = None
-        self._results_lock = threading.Lock()
-        self._results: dict[str, np.ndarray] = {}  # guarded-by: _results_lock
-        self._admitting = 0
-        #: programs that computed prompt rows (bucketed prefills + chunks)
-        self.prefill_dispatches = 0
+    def _on_prefix_evict(self, seg: Segment) -> None:
+        self.metrics.record_prefix_eviction()
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         """A host array on the engine's device, pinned and non-blocking on
         CUDA (a pageable upload would wait for every horizon queued ahead
         of it)."""
         return upload(arr, self.device)
+
+    def _reset_device_state(self) -> None:
+        """Fresh per-slot device state: pending logits, positions, active
+        bits, budgets and EOS ids."""
+        n, dev = self.n_slots, self.device
+        self._logits = torch.zeros((n, self.cfg.vocab_size),
+                                   dtype=torch.float32, device=dev)
+        self._dpos = torch.zeros((n,), dtype=torch.int32, device=dev)
+        self._dactive = torch.zeros((n,), dtype=torch.bool, device=dev)
+        self._dbudget = torch.zeros((n,), dtype=torch.int32, device=dev)
+        self._deos = torch.full((n,), _NO_EOS, dtype=torch.int32,
+                                device=dev)
 
     # -- buckets -------------------------------------------------------------
 
@@ -404,14 +674,20 @@ class ServingEngine:
             b *= 2
         return b
 
-    def _chunk_schedule(self, n: int) -> list[tuple[int, int, int]]:
-        """(offset, real_len, bucket) chunks covering a prompt of n rows
-        through the bucket sizes. Every write window [offset,
+    def _chunk_schedule(self, n: int, start: int = 0
+                        ) -> list[tuple[int, int, int]]:
+        """(offset, real_len, bucket) chunks covering a prompt's rows
+        start..n-1 through the bucket sizes. Every write window [offset,
         offset+bucket) fits Tpad: when a padded tail would spill, the
         remainder is cut into exact power-of-two pieces plus one minimal
-        padded tail."""
+        padded tail. ``start`` > 0 is a partial hit's suffix: the caller
+        aligns it to the hit grain, so its windows are the ones the same
+        prompt's schedule from 0 takes from ``start`` on."""
+        if start % self._min_bucket:
+            raise AssertionError(
+                f"chunk start {start} not {self._min_bucket}-aligned")
         tpad = self.pool.tpad
-        sched, t0, rem = [], 0, n
+        sched, t0, rem = [], start, n - start
         while rem > self._max_bucket:
             sched.append((t0, self._max_bucket, self._max_bucket))
             t0 += self._max_bucket
@@ -465,26 +741,33 @@ class ServingEngine:
 
     @property
     def idle(self) -> bool:
-        """No request queued, mid-admission, decoding or awaiting
-        readback."""
+        """No request queued, mid-admission, deferred, decoding or
+        awaiting readback (a deferred admission holds its slot)."""
         return (self.pool.n_active == 0 and self._admitting == 0
                 and len(self.scheduler) == 0 and self._inflight is None)
 
     def cancel(self, req_id: str) -> bool:
-        """Cancel a queued or decoding request (honored within one
-        horizon); False when the id is unknown."""
+        """Cancel a queued, deferred or decoding request (honored within
+        one horizon); False when the id is unknown."""
         for st in self._slots:
             if st is not None and st.req.id == req_id:
                 st.req.cancel()
                 return True
+        for rec in self._pending:
+            if rec.plan.req.id == req_id:
+                rec.plan.req.cancel()
+                return True
         return self.scheduler.cancel(req_id)
 
     def preempt_all(self) -> int:
-        """Cancel every live and queued request; returns how many."""
+        """Cancel every live, deferred and queued request; returns how
+        many."""
         n = 0
-        for st in self._slots:
-            if st is not None and not st.req.cancelled:
-                st.req.cancel()
+        reqs = [st.req for st in self._slots if st is not None]
+        reqs += [rec.plan.req for rec in self._pending]
+        for req in reqs:
+            if not req.cancelled:
+                req.cancel()
                 n += 1
         return n + self.scheduler.cancel_all()
 
@@ -517,6 +800,10 @@ class ServingEngine:
         else:
             self.metrics.record_outcome(status)
         self.pool.release(slot)
+        if self.prefix_cache is not None:
+            for seg in st.segs:
+                self.prefix_cache.unpin(seg)
+        st.segs = []
         self._slots[slot] = None
         if deactivate:
             self._dactive = self._deact_fn(self._dactive, slot)
@@ -525,21 +812,46 @@ class ServingEngine:
 
     def _retire_unadmitted(self, req: Request, status: RequestStatus,
                            error: str | None = None) -> None:
+        self._presplit_seeds.pop(req.id, None)
         req.status = status
         req.error = error
         self.metrics.record_outcome(status)
         if req.done is not None:
             req.done.set()
 
+    def _drop_pending(self, rec: _PendingPrefill, status: RequestStatus,
+                      error: str | None = None) -> None:
+        """Release a deferred admission's slot and pinned segment and
+        retire its request without seating it."""
+        pl = rec.plan
+        if pl.seg is not None and self.prefix_cache is not None:
+            self.prefix_cache.unpin(pl.seg)
+            pl.seg = None
+        self.pool.release(pl.slot)
+        self._retire_unadmitted(pl.req, status, error)
+
     def fail_all(self, error: str) -> None:
-        """Fail every live and queued request (slot freed, ``done`` set)."""
+        """Fail every live, deferred and queued request (slot freed,
+        ``done`` set). Device state is left as it is: nothing will be
+        dispatched to it again."""
         now = time.perf_counter()
         self._inflight = None
+        while self._pending:
+            self._drop_pending(self._pending.popleft(), RequestStatus.FAILED,
+                               error)
         for slot, st in enumerate(self._slots):
             if st is not None:
                 self._retire(slot, RequestStatus.FAILED, now, error=error)
         while (req := self.scheduler.pop()) is not None:
             self._retire_unadmitted(req, RequestStatus.FAILED, error)
+
+    def _slot_of(self, req_id: str | None) -> int | None:
+        if req_id is None:
+            return None
+        for slot, st in enumerate(self._slots):
+            if st is not None and st.req.id == req_id:
+                return slot
+        return None
 
     def _sweep_lifecycle(self, now: float) -> None:
         for slot, st in enumerate(self._slots):
@@ -551,102 +863,464 @@ class ServingEngine:
             elif st.req.expired(now):
                 self._retire(slot, RequestStatus.EXPIRED, now,
                              deactivate=True)
+        # a deferred admission holds a slot too: sweep it on the same
+        # cadence
+        if self._pending:
+            kept: deque[_PendingPrefill] = deque()
+            for rec in self._pending:
+                req = rec.plan.req
+                if req.cancelled or req.expired(now):
+                    self._drop_pending(rec, RequestStatus.CANCELLED
+                                       if req.cancelled
+                                       else RequestStatus.EXPIRED)
+                else:
+                    kept.append(rec)
+            self._pending = kept
 
-    # -- admission -----------------------------------------------------------
+    # -- admission: rows -------------------------------------------------------
 
     def _state(self):
         return (self.pool.operand(), self._logits, self._dpos, self._dactive,
                 self._dbudget, self._deos)
 
+    def _compute_rows(self, slab, seq: np.ndarray, start: int = 0):
+        """Compute rows [start, n) of ``seq`` into the batch-1 ``slab``
+        (written in place; rows below ``start`` must hold the prefix) and
+        return the (1, V) logits of its last row. A whole prompt of at most
+        one bucket takes one bucketed prefill (kernel #1 when ``use_flash``);
+        anything else the chunk windows of ``_chunk_schedule`` — a prompt
+        longer than a bucket takes the same windows from 0 as from a
+        grain-aligned ``start``. An empty prompt gives uniform logits."""
+        n = int(len(seq))
+        if start == 0 and 0 < n <= self._max_bucket:
+            pad = np.zeros((1, self._bucket_for(n)), np.int64)
+            pad[0, :n] = seq
+            slab, lg = self._prefill_fn(self.params, slab, self._upload(pad),
+                                        n - 1)
+            self.prefill_dispatches += 1
+            return lg
+        lg = torch.zeros((1, self.cfg.vocab_size), dtype=torch.float32,
+                         device=self.device)
+        for t0, ln, b in (self._chunk_schedule(n, start) if n else ()):
+            pad = np.zeros((1, b), np.int64)
+            pad[0, :ln] = seq[t0:t0 + ln]
+            slab, lg = self._chunk_fn(self.params, slab, self._upload(pad),
+                                      t0, ln - 1)
+            self.prefill_dispatches += 1
+        return lg
+
     def _paged_ensure_blocks(self, slot: int, n_tokens: int) -> None:
         """Grow ``slot``'s block coverage to ``n_tokens`` rows (clamped to
-        Tpad) with fresh private blocks; a no-op when covered."""
+        Tpad) with fresh private blocks; a no-op when covered (aliased
+        prefix entries stay)."""
         n_tokens = min(int(n_tokens), self.pool.tpad)
         need = self.pool.blocks_needed(n_tokens)
         have = int(np.count_nonzero(self.pool.table(slot)))
         if need > have:
             self.pool.alloc_slot_blocks(slot, n_tokens, start=have)
 
-    def _admissible(self, req: Request) -> bool:
-        """Paged admission gate: the request's blocks fit the free heap."""
-        return self.pool.can_admit(len(req.prompt) + req.max_new)
-
-    def _prefill_into_slot(self, seq: np.ndarray, slot: int, budget: int,
-                           eos_tok: int) -> None:
-        """Land ``seq`` in ``slot`` and seat the slot's device state: the
-        prompt is prefilled at batch 1 into the slab the pool hands out,
-        one dispatch for a bucket-sized prompt, one per chunk beyond the
-        largest bucket, and the pool lands the slab in the slot's rows.
-        Paged: the slot's blocks (every row it can write) are allocated
-        first."""
-        n = int(len(seq))
+    def _prefill_seq_into_slot(self, seq: np.ndarray, slot: int, budget: int,
+                               eos_tok: int) -> None:
+        """The miss path: land ``seq`` (a prompt, or prompt + replayed
+        tokens) in ``slot`` and seat the slot's device state at position
+        ``len(seq)`` with ``budget`` tokens left. The rows are computed at
+        batch 1 into the slab the pool hands out and the pool lands it.
+        Paged: the slot's blocks (every row it can write) come first."""
         if self._paged:
-            self._paged_ensure_blocks(slot, n + budget)
+            self._paged_ensure_blocks(slot, len(seq) + budget)
         slab = self.pool.prefill_slab(slot)
-        if n and n <= self._max_bucket:
-            pad = np.zeros((1, self._bucket_for(n)), np.int64)
-            pad[0, :n] = seq
-            slab, lg = self._prefill_fn(self.params, slab, self._upload(pad),
-                                        n - 1)
-            self.prefill_dispatches += 1
-        else:
-            # empty prompt: decode starts from uniform logits over a zeroed
-            # slab
-            lg = torch.zeros((1, self.cfg.vocab_size), dtype=torch.float32,
-                             device=self.device)
-            for t0, ln, b in (self._chunk_schedule(n) if n else ()):
-                pad = np.zeros((1, b), np.int64)
-                pad[0, :ln] = seq[t0:t0 + ln]
-                slab, lg = self._chunk_fn(self.params, slab,
-                                          self._upload(pad), t0, ln - 1)
-                self.prefill_dispatches += 1
+        lg = self._compute_rows(slab, seq)
         self.pool.land(slot, slab)
-        self._insert_fn(*self._state(), lg, slot, n, budget, eos_tok)
+        self._insert_fn(*self._state(), lg, slot, int(len(seq)), budget,
+                        eos_tok)
 
-    def _seat(self, req: Request, slot: int, prefill_s: float) -> None:
-        """Host bookkeeping that makes an admitted request a live slot
-        (the sampling seed is drawn here, in admission order)."""
-        self._slot_seeds[slot] = int(
-            torch.randint(0, 1 << 31, (1,), generator=self._rng))
-        self._slots[slot] = _SlotState(req, self.pool.generation(slot))
+    def _check_prefill_faults(self, req: Request) -> bool:
+        """The admission fault boundary, one check per admission, under
+        transient-retry supervision. False when the request is poisoned
+        (the caller fails it); ``EngineCrash`` propagates."""
+        if self.faults is None:
+            return True
+        attempt, backoff = 0, self.retry_backoff_s
+        while True:
+            try:
+                self.faults.check("prefill", req_id=req.id)
+                return True
+            except TransientFault as e:
+                self.metrics.record_retry()
+                attempt += 1
+                if attempt > self.max_retries:
+                    req.error = (f"transient prefill fault persisted past "
+                                 f"{self.max_retries} retries: {e}")
+                    return False
+                time.sleep(backoff)
+                backoff = min(backoff * 2, self.max_backoff_s)
+            except PermanentFault as e:
+                req.error = str(e)
+                return False
+
+    # -- admission: prefix cache -----------------------------------------------
+
+    def _prefix_reuse_ok(self) -> bool:
+        if self.prefix_cache is None:
+            return False
+        if self._prefix_ok_memo is None:
+            self._prefix_ok_memo = self._probe_prefix_parity()
+            if not self._prefix_ok_memo:
+                _log.warning("prefix_parity_probe_failed %s",
+                             self.prefix_probe_detail)
+        return self._prefix_ok_memo
+
+    def _classify_plan(self, pl: _AdmitPlan) -> None:
+        """Prefix-cache lookup for one admission. A FULL hit (the whole
+        prompt cached with its logits) admits by copy; a PARTIAL hit reuses
+        the rows below the match rounded down to the hit grain, from a
+        segment whose rows the chunk windows computed, and chunk-computes
+        the rest. The source segment is pinned until retirement."""
+        cache = self.prefix_cache
+        n = len(pl.req.prompt)
+        if cache is None or n == 0 or not self._prefix_reuse_ok():
+            return
+        seg, m = cache.lookup(pl.req.prompt)
+        if seg is None:
+            self.metrics.record_prefix_lookup("miss", 0)
+            return
+        if m == n and seg.logits is not None:
+            pl.kind, pl.seg, pl.matched = "full", seg, n
+        else:
+            L = min(m, n - 1)
+            L -= L % self._hit_grain
+            if L <= 0 or not seg.partial_ok:
+                self.metrics.record_prefix_lookup("miss", 0)
+                return
+            pl.kind, pl.seg, pl.matched = "partial", seg, L
+        cache.pin(seg)
+        self.metrics.record_prefix_lookup(
+            "hit_full" if pl.kind == "full" else "hit_partial", pl.matched)
+
+    def _paged_seg_slab(self, seg: Segment):
+        """Paged segment fetch (the reference's
+        ``build_paged_seg_fetch_program``): a cached segment's blocks
+        gathered into a new batch-1 scratch slab through a sentinel-padded
+        table row, so rows past its blocks come back zero."""
+        row = np.zeros((self.pool.blocks_per_slot,), np.int32)
+        row[:len(seg.block_ids)] = seg.block_ids
+        return paged_slot_gather(self.pool.caches, self._upload(row))
+
+    def _alias_hit_blocks(self, pl: _AdmitPlan, covered: int) -> None:
+        """Share the segment's FULL blocks over rows [0, covered) into the
+        slot's table (a refcount bump), then cover the rest of the slot's
+        writable rows with private blocks: rows the slot writes land only
+        in its own blocks."""
+        full = covered // self.pool.block_size
+        if full:
+            self.pool.alias_into_slot(pl.slot, pl.seg.block_ids[:full])
+        self._paged_ensure_blocks(pl.slot,
+                                  len(pl.req.prompt) + pl.req.max_new)
+
+    def _admit_full_hit(self, pl: _AdmitPlan) -> None:
+        """Admission by copy: the segment's rows and stored logits; no
+        prefill program. Paged: the full blocks are aliased, the partial
+        tail block is copied into the slot's first private block and the
+        rest of its private blocks are zeroed (as a miss lands them)."""
+        req, n = pl.req, len(pl.req.prompt)
+        if self._paged:
+            self._alias_hit_blocks(pl, n)
+            full, tail = divmod(n, self.pool.block_size)
+            row = self.pool.table(pl.slot)
+            if tail:
+                self.pool.copy_block(pl.seg.block_ids[full], int(row[full]))
+            self.pool.zero_blocks(row[full + (tail > 0):])
+            self._insert_fn(*self._state(), pl.seg.logits, pl.slot, n,
+                            req.max_new, _eos_of(req))
+            return
+        self._hit_insert_fn(*self._state(), self.prefix_cache.region,
+                            pl.seg.logits, pl.seg.slot, pl.slot, n,
+                            req.max_new, _eos_of(req))
+
+    def _admit_partial_hit(self, pl: _AdmitPlan) -> None:
+        """The segment's rows below ``matched``, then the suffix windows:
+        in slab mode on the slot's own rows, paged on a gathered scratch
+        slab whose rows from ``matched`` on land in the slot's private
+        blocks (the matched rows by aliasing)."""
+        req, n, L = pl.req, len(pl.req.prompt), pl.matched
+        if self._paged:
+            self._alias_hit_blocks(pl, L)
+            slab = self._paged_seg_slab(pl.seg)
+        else:
+            slab = self._seg_fetch_fn(self.prefix_cache.region, pl.seg.slot,
+                                      out=self.pool.slab(pl.slot))
+        lg = self._compute_rows(slab, req.prompt, start=L)
+        self.pool.land(pl.slot, slab, start=L)
+        self._insert_fn(*self._state(), lg, pl.slot, n, req.max_new,
+                        _eos_of(req))
+
+    def _maybe_insert_prefix(self, pl: _AdmitPlan) -> None:
+        """Insert-on-completion: cache the seated prompt's rows as a new
+        segment (plus at most one branch-point segment), before any decode
+        step touches the slot, with the (1, V) logits row when the segment
+        spans the whole prompt. The creating request pins them until
+        retirement."""
+        cache = self.prefix_cache
+        n = len(pl.req.prompt)
+        if (cache is None or pl.kind == "full" or n < self._min_bucket
+                or not self._prefix_reuse_ok()):
+            return
+        for seg in cache.insert(pl.req.prompt):
+            if self._paged:
+                if not self._paged_store_segment(seg, pl.slot):
+                    # the tail block did not fit: un-cache rather than
+                    # leave a segment without rows
+                    cache.drop(seg)
+                    continue
+            else:
+                self._seg_store_fn(cache.region, self.pool.caches, seg.slot,
+                                   pl.slot)
+            if seg.length == n:
+                seg.logits = self._logit_row_fn(self._logits, pl.slot)
+            # the donor's rows came from the chunk windows iff its prompt
+            # exceeds one bucket (see the module doc)
+            seg.partial_ok = n > self._max_bucket
+            self._slots[pl.slot].segs.append(seg)
+            self.metrics.record_prefix_insert()
+
+    def _paged_store_segment(self, seg: Segment, slot: int) -> bool:
+        """Back a new segment with block references off the donor slot:
+        incref its full blocks below the segment's length (the donor writes
+        only later rows) and copy the partial tail block, if any, into a
+        cache-owned block. False, with no reference taken, when that block
+        cannot be allocated."""
+        bs = self.pool.block_size
+        row = self.pool.table(slot)
+        full, tail = divmod(seg.length, bs)
+        try:
+            tail_ids = self.pool.alloc_blocks(1) if tail else []
+        except RuntimeError:
+            return False
+        ids = [int(b) for b in row[:full]]
+        self.pool.incref(ids)
+        if tail:  # the reference's build_block_copy_program
+            self.pool.copy_block(int(row[full]), tail_ids[0])
+        seg.block_ids = ids + tail_ids
+        return True
+
+    # -- admission -------------------------------------------------------------
+
+    def _seat(self, pl: _AdmitPlan) -> None:
+        """Host bookkeeping that makes an executed plan a live slot (the
+        sampling seed is drawn here, in admission order, unless piggyback
+        drew it when the plan executed)."""
+        req, slot = pl.req, pl.slot
+        seed = self._presplit_seeds.pop(req.id, None)
+        if seed is None:
+            seed = self._draw_seed()
+        self._slot_seeds[slot] = seed
+        st = _SlotState(req, self.pool.generation(slot), seed)
+        if pl.seg is not None:
+            st.segs.append(pl.seg)
+        self._slots[slot] = st
+        pl.handled = True
         req.status = RequestStatus.RUNNING
-        self.metrics.record_prefill(prefill_s)
+        self.metrics.record_prefill(pl.prefill_s)
         if req.arrival_time is not None:
             self.metrics.record_admitted(time.perf_counter() - req.arrival_time)
 
+    def _draw_seed(self) -> int:
+        return int(torch.randint(0, 1 << 31, (1,), generator=self._rng))
+
+    def _admissible_fn(self):
+        """The paged admission gate: a request's blocks, beyond those this
+        round already promised, fit the free heap — after handing cached
+        prefix blocks back (live traffic outranks cached prefixes).
+        Returns (gate or None, the promised-blocks counter)."""
+        reserved = [0]
+        if not self._paged:
+            return None, reserved
+
+        def admissible(r: Request) -> bool:
+            need = self.pool.blocks_needed(len(r.prompt) + r.max_new)
+            while need + reserved[0] > self.pool.n_free_blocks:
+                if (self.prefix_cache is None
+                        or not self.prefix_cache.reclaim()):
+                    return False
+            return True
+
+        return admissible, reserved
+
     def _admit(self, now: float) -> None:
-        """Pop queued requests into free slots, in order, one prefill each.
-        A failure mid-admission requeues the popped request (it is never
-        dropped between pop and seating)."""
-        admissible = self._admissible if self._paged else None
-        while self.pool.n_free and len(self.scheduler):
-            self._admitting += 1
-            try:
-                req = self.scheduler.pop(admissible=admissible)
+        """Pop queued requests into free slots (with prefix affinity, the
+        previous prompt as hint), classify each against the prefix cache,
+        then execute. A failure mid-round requeues every plan not yet
+        seated, in order, with its slot and segment pin released: no popped
+        request is dropped."""
+        if not (self.pool.n_free and len(self.scheduler)):
+            return
+        self._admitting += 1
+        plans: list[_AdmitPlan] = []
+        admissible, reserved = self._admissible_fn()
+        try:
+            hint = None
+            while self.pool.n_free and len(self.scheduler):
+                req = self.scheduler.pop(affinity_hint=hint,
+                                         admissible=admissible)
                 if req is None:
-                    return
+                    break
                 if req.cancelled:
                     self._retire_unadmitted(req, RequestStatus.CANCELLED)
                     continue
                 if req.expired(now):
                     self._retire_unadmitted(req, RequestStatus.EXPIRED)
                     continue
-                slot = self.pool.acquire()
-                try:
-                    t0 = time.perf_counter()
-                    eos_tok = (_NO_EOS if req.eos_token is None
-                               else int(req.eos_token))
-                    self._prefill_into_slot(req.prompt, slot, req.max_new,
-                                            eos_tok)
-                    self._seat(req, slot, time.perf_counter() - t0)
-                except BaseException:
-                    self.pool.release(slot)
-                    self.scheduler.requeue(req)
-                    raise
-            finally:
-                self._admitting -= 1
+                plans.append(_AdmitPlan(req, self.pool.acquire()))
+                if self._paged:
+                    reserved[0] += self.pool.blocks_needed(
+                        len(req.prompt) + req.max_new)
+                hint = req.prompt
+            for pl in plans:
+                self._classify_plan(pl)
+            self._execute_plans(plans)
+        except BaseException:
+            undone = [pl for pl in reversed(plans) if not pl.handled]
+            for pl in undone:
+                if pl.seg is not None:
+                    self.prefix_cache.unpin(pl.seg)
+                    pl.seg = None
+                self.pool.release(pl.slot)
+                self.scheduler.requeue(pl.req)
+            # a plan that executed set its slot's active bit
+            for pl in undone:
+                self._dactive = self._deact_fn(self._dactive, pl.slot)
+            raise
+        finally:
+            self._admitting -= 1
 
-    # -- paged parity probe ------------------------------------------------------
+    def _execute_plans(self, plans: list[_AdmitPlan]) -> None:
+        # the fault boundary first, in admission order
+        live: list[_AdmitPlan] = []
+        for pl in plans:
+            if self._check_prefill_faults(pl.req):
+                live.append(pl)
+                continue
+            if pl.seg is not None:
+                self.prefix_cache.unpin(pl.seg)
+                pl.seg = None
+            self.pool.release(pl.slot)
+            pl.handled = True
+            self._retire_unadmitted(pl.req, RequestStatus.FAILED,
+                                    pl.req.error)
+        deferred: set[int] = set()
+        if self._piggyback:
+            # every plan's seed now, in admission order: the blocking
+            # engine's seating order
+            for pl in live:
+                if pl.req.id not in self._presplit_seeds:
+                    self._presplit_seeds[pl.req.id] = self._draw_seed()
+            # defer only prompts whose uncached suffix exceeds one bucket:
+            # whatever the blocking path serves in one prefill stays there
+            for pl in live:
+                cached = pl.matched if pl.kind == "partial" else 0
+                if (pl.kind != "full"
+                        and len(pl.req.prompt) - cached > self._max_bucket):
+                    self._enqueue_piggyback(pl)
+                    deferred.add(id(pl))
+        occupied = any(st is not None for st in self._slots)
+        t_exec = time.perf_counter()
+        for pl in live:
+            if id(pl) in deferred:
+                continue
+            t0 = time.perf_counter()
+            if pl.kind == "full":
+                self._admit_full_hit(pl)
+            elif pl.kind == "partial":
+                self._admit_partial_hit(pl)
+            else:
+                self._prefill_seq_into_slot(pl.req.prompt, pl.slot,
+                                            pl.req.max_new, _eos_of(pl.req))
+            pl.prefill_s = time.perf_counter() - t0
+        # admission prefill run while slots decode is the stall piggyback
+        # bounds; measured with it on and off
+        if occupied:
+            self.metrics.record_decode_stall(time.perf_counter() - t_exec)
+        # seat in admission order (the seed order), then cache prefixes
+        for pl in live:
+            if id(pl) not in deferred:
+                self._seat(pl)
+        for pl in live:
+            if id(pl) not in deferred:
+                self._maybe_insert_prefix(pl)
+
+    # -- piggyback -------------------------------------------------------------
+
+    def _enqueue_piggyback(self, pl: _AdmitPlan) -> None:
+        """Defer an admission: its scratch slab (the segment's rows for a
+        partial hit), its chunk windows and, paged, its private blocks.
+        The cached prefix is aliased only at completion: an unseated slot's
+        frozen-position decode writes must never reach a shared block."""
+        req = pl.req
+        L = pl.matched if pl.kind == "partial" else 0
+        if self._paged:
+            self.pool.alloc_slot_blocks(
+                pl.slot, min(len(req.prompt) + req.max_new, self.pool.tpad),
+                start=L // self.pool.block_size)
+            slab = (self._paged_seg_slab(pl.seg) if pl.kind == "partial"
+                    else self._init_caches(1, self.max_total, self.device))
+        elif pl.kind == "partial":
+            slab = self._seg_fetch_fn(self.prefix_cache.region, pl.seg.slot)
+        else:
+            slab = self._init_caches(1, self.max_total, self.device)
+        self._pending.append(_PendingPrefill(
+            pl, deque(self._chunk_schedule(len(req.prompt), start=L)), slab,
+            time.perf_counter()))
+        pl.handled = True
+
+    def _run_pending_chunk(self, rec: _PendingPrefill) -> int:
+        """Run the head chunk of ``rec``; returns its real tokens."""
+        t0, ln, b = rec.chunks[0]
+        pad = np.zeros((1, b), np.int64)
+        pad[0, :ln] = rec.plan.req.prompt[t0:t0 + ln]
+        rec.slab, rec.lg = self._chunk_fn(self.params, rec.slab,
+                                          self._upload(pad), t0, ln - 1)
+        rec.chunks.popleft()
+        self.prefill_dispatches += 1
+        self.metrics.record_prefill_chunk(ln)
+        return ln
+
+    def _complete_pending(self, rec: _PendingPrefill) -> None:
+        """Every chunk ran: land the scratch slab, seat the slot and cache
+        the prefix — from here the admission is a blocking one's."""
+        pl = rec.plan
+        req = pl.req
+        start = 0
+        if self._paged and pl.kind == "partial":
+            # the matched rows by aliasing; the slab lands from there on
+            start = pl.matched
+            self.pool.alias_into_slot(
+                pl.slot, pl.seg.block_ids[:start // self.pool.block_size])
+        self.pool.write_slab(pl.slot, rec.slab, start=start)
+        self._insert_fn(*self._state(), rec.lg, pl.slot, len(req.prompt),
+                        req.max_new, _eos_of(req))
+        pl.prefill_s = time.perf_counter() - rec.t_start
+        self._seat(pl)
+        self._maybe_insert_prefix(pl)
+
+    def _advance_piggyback(self, decoding: bool) -> None:
+        """Spend up to ``prefill_budget`` chunk tokens on the deferred FIFO,
+        oldest first, seating each admission whose last chunk ran. The
+        first chunk runs even over budget, so the oldest deferred admission
+        advances each horizon. ``decoding``: a horizon was just dispatched,
+        and the next one waits behind these chunks."""
+        spent = 0
+        t_wall = time.perf_counter()
+        while self._pending and spent < self.prefill_budget:
+            rec = self._pending[0]
+            self._pb_did_work = True
+            spent += self._run_pending_chunk(rec)
+            if not rec.chunks:
+                self._complete_pending(rec)
+                self._pending.popleft()
+        if decoding and spent:
+            self.metrics.record_decode_stall(time.perf_counter() - t_wall)
+
+    # -- parity probes -----------------------------------------------------------
 
     @torch.no_grad()
     def _probe_paged_parity(self, block_size: int) -> bool:
@@ -700,6 +1374,117 @@ class ServingEngine:
                 return False
         return True
 
+    @torch.no_grad()
+    def _probe_prefix_parity(self) -> bool:
+        """One-time probe gating hit-path reuse (the reference's
+        ``_probe_prefix_parity``, engine.py:3188): are a cached prefix's
+        rows plus the chunk-computed suffix bitwise the miss path — KV rows
+        AND logits? The miss path computes a ``G + 3``-token prompt (``G``
+        the hit grain; fewer rows when ``max_total`` is shorter, and
+        nothing to compare when no prompt can pass ``G``) into a zeroed
+        slab; the segment is stored from a
+        donor prompt sharing the first ``G`` tokens and diverging after
+        them (so the hit reads another prompt's rows past ``G``, as a real
+        branch hit does); the hit path fetches it and computes rows [G,
+        G + 3). On a mismatch ``prefix_probe_detail`` names the first leaf,
+        layer and row that differ and the largest difference."""
+        G = self._hit_grain
+        n = min(G + 3, self.max_total)
+        if n <= G:
+            # no prompt is longer than the grain: every hit is a full
+            # hit, a copy of the same prompt's rows, and nothing computes
+            return True
+        disp = self.prefill_dispatches
+        try:
+            vs = self.cfg.vocab_size
+            seq = ((1 + np.arange(n)) % vs).astype(np.int32)
+            donor = seq.copy()
+            donor[G:] = (seq[G:] + 1) % vs
+
+            def scratch():
+                return self._init_caches(1, self.max_total, self.device)
+
+            miss = scratch()
+            lg_a = self._compute_rows(miss, seq)
+            dslab = scratch()
+            self._compute_rows(dslab, donor)
+            region = self.pool.alloc_region(1)
+            self._seg_store_fn(region, dslab, 0, 0)
+            hit = self._seg_fetch_fn(region, 0)
+            lg_c = self._compute_rows(hit, seq, start=G)
+            names = ("rows", "scales")
+            for name, a, c in zip(names, _kv_planes(miss), _kv_planes(hit)):
+                if a is None:
+                    continue
+                a, c = a[:, :, 0, :n], c[:, :, 0, :n]
+                if not torch.equal(a, c):
+                    bad = (a != c).nonzero()[0].tolist()
+                    d = (a.float() - c.float()).abs().max().item()
+                    self.prefix_probe_detail = (
+                        f"KV {name} differ first at layer {bad[0]}, "
+                        f"{'kv'[bad[1]]}, row {bad[2]}; max |d| {d:.3e}")
+                    return False
+            if not torch.equal(lg_a, lg_c):
+                d = (lg_a - lg_c).abs().max().item()
+                self.prefix_probe_detail = (f"logits differ; max |d| "
+                                            f"{d:.3e}")
+                return False
+            self.prefix_probe_detail = None
+            return True
+        finally:
+            self.prefill_dispatches = disp
+
+    @torch.no_grad()
+    def _probe_chunked_parity(self) -> bool:
+        """One-time probe for ``chunked_replay="auto"`` (the reference's
+        ``_probe_chunked_parity``, engine.py:5072): does one pass over a
+        sequence reproduce, bitwise, the logits of a shorter pass plus
+        teacher-forced decode steps? Runs on the abandoned pre-recovery
+        state and leaves it zeroed."""
+        length = int(min(self._max_bucket + 1, self.max_total))
+        k = length - 2
+        if k < 1:
+            return False
+        disp = self.prefill_dispatches
+        try:
+            seq = ((1 + np.arange(length)) % self.cfg.vocab_size).astype(
+                np.int32)
+            self.pool.reinit()
+            self._reset_device_state()
+            self._prefill_seq_into_slot(seq, 0, 1, _NO_EOS)
+            la = self._logits[0].clone()
+            self.pool.reinit()
+            self._reset_device_state()
+            # budget length - k: in paged mode the teacher-forced rows
+            # must land in allocated blocks
+            self._prefill_seq_into_slot(seq[:k], 0, max(1, length - k),
+                                        _NO_EOS)
+            pos = np.zeros((self.n_slots,), np.int32)
+            replaying = np.zeros((self.n_slots,), bool)
+            replaying[0] = True
+            for j in range(k, length):
+                toks = np.zeros((self.n_slots,), np.int32)
+                toks[0] = seq[j]
+                pos[0] = j
+                _, self._logits = self._replay_fn(
+                    self.params, self.pool.operand(), self._logits,
+                    self._upload(toks), self._upload(pos.copy()),
+                    self._upload(replaying.copy()))
+            ok = torch.equal(la, self._logits[0])
+            self.pool.reinit()
+            self._reset_device_state()
+            return ok
+        finally:
+            self.prefill_dispatches = disp
+
+    def _use_chunked_replay(self) -> bool:
+        if self.chunked_replay != "auto":
+            return bool(self.chunked_replay)
+        if self._chunked_ok is None:
+            self._chunked_ok = self._probe_chunked_parity()
+            _log.info("chunked_replay_probe ok=%s", self._chunked_ok)
+        return self._chunked_ok
+
     # -- decode ----------------------------------------------------------------
 
     def _readback(self, toks: torch.Tensor):
@@ -714,20 +1499,57 @@ class ServingEngine:
         return host, event
 
     def _dispatch(self) -> _Inflight | None:
-        """Dispatch one K-substep horizon for every occupied slot; returns
-        the in-flight record without waiting for its tokens."""
+        """Dispatch one K-substep horizon for every occupied slot under
+        transient-retry supervision and start its token block's copy to the
+        host; returns the in-flight record without waiting for its tokens.
+        A persistent or permanent fault quarantines the request it names,
+        any other escalates to ``EngineCrash``."""
         if not any(st is not None for st in self._slots):
             return None
         # greedy steps draw nothing: no seed upload
         seeds = (None if self.temperature == 0
                  else self._upload(self._slot_seeds.copy()))
+        attempt, backoff = 0, self.retry_backoff_s
         t_call = time.perf_counter()
-        # the caches are updated in place
-        (_, self._logits, self._dpos, self._dactive, self._dbudget,
-         toks) = self._step_fn(
-            self.params, self.pool.operand(), self._logits, self._dpos,
-            self._dactive, self._dbudget, self._deos, seeds,
-        )
+        while True:
+            try:
+                if self.faults is not None:
+                    self.faults.check("step")
+                # the operand inside the loop: a quarantine below rewrites
+                # a paged table row
+                args = (self.params, self.pool.operand(), self._logits,
+                        self._dpos, self._dactive, self._dbudget, self._deos,
+                        seeds)
+                # the caches are updated in place
+                (_, self._logits, self._dpos, self._dactive,
+                 self._dbudget, toks) = self._step_fn(*args)
+                break
+            except TransientFault as e:
+                self.metrics.record_retry()
+                attempt += 1
+                if attempt <= self.max_retries:
+                    time.sleep(backoff)
+                    backoff = min(backoff * 2, self.max_backoff_s)
+                    continue
+                slot = self._slot_of(e.req_id)
+                if slot is None:
+                    raise EngineCrash(
+                        f"transient step fault persisted past "
+                        f"{self.max_retries} retries: {e}") from e
+                self._retire(slot, RequestStatus.FAILED, time.perf_counter(),
+                             error=str(e), deactivate=True)
+                if not any(st is not None for st in self._slots):
+                    return None
+                attempt, backoff = 0, self.retry_backoff_s
+            except PermanentFault as e:
+                slot = self._slot_of(e.req_id)
+                if slot is None:
+                    raise EngineCrash(f"permanent step fault names no live "
+                                      f"request: {e}") from e
+                self._retire(slot, RequestStatus.FAILED, time.perf_counter(),
+                             error=str(e), deactivate=True)
+                if not any(st is not None for st in self._slots):
+                    return None
         host, event = self._readback(toks)
         snaps = [(s, st) for s, st in enumerate(self._slots)
                  if st is not None]
@@ -771,18 +1593,113 @@ class ServingEngine:
     @torch.no_grad()
     def step(self) -> bool:
         """One horizon boundary: sweep, admit, dispatch the next horizon,
-        then read back and process the previous one. Returns False when
-        there was nothing to do."""
+        read back and process the previous one, then run deferred prefill
+        chunks. Returns False when
+        there was nothing to do. Raises ``EngineCrash`` when the loop
+        cannot go on (the caller recovers with :meth:`recover`)."""
         now = time.perf_counter()
         self._sweep_lifecycle(now)
         self._admit(now)
+        self._pb_did_work = False
         prev, self._inflight = self._inflight, self._dispatch()
         if prev is not None:
             self._process(prev)
-        return prev is not None or self._inflight is not None
+        # deferred prefills behind the new horizon: its token copy does
+        # not wait on their chunks, and a failure here loses no horizon
+        if self._pending:
+            self._advance_piggyback(decoding=self._inflight is not None)
+        return (prev is not None or self._inflight is not None
+                or self._pb_did_work)
 
-    def run(self) -> dict[str, np.ndarray]:
-        """Step until every queued/active request is terminal."""
+    def run(self, *, max_restarts: int = 5) -> dict[str, np.ndarray]:
+        """Step until every queued/active request is terminal, recovering
+        from up to ``max_restarts`` crashes by replay before one
+        propagates."""
+        restarts = 0
         while not self.idle:
-            self.step()
+            try:
+                self.step()
+            except EngineCrash:
+                if restarts >= max_restarts:
+                    raise
+                restarts += 1
+                self.recover()
         return self.results
+
+    # -- crash recovery --------------------------------------------------------
+
+    @torch.no_grad()
+    def recover(self) -> int:
+        """Rebuild the engine's device state by deterministic replay after a
+        crash. The un-synced horizon (its pinned buffer and event) is
+        dropped unread: its tokens were never recorded, so the replayed run
+        makes them again. Deferred admissions go back to the queue front in
+        order, keeping their seeds. The pool, the prefix region and tree,
+        the paged tables and the slot state are re-created zeroed; each
+        live slot is rebuilt from its host record by chunked or stepwise
+        replay (``chunked_replay``). Queued requests are untouched.
+        Returns the number of slots replayed."""
+        self.metrics.record_restart()
+        self._inflight = None
+        for rec in reversed(self._pending):
+            pl = rec.plan
+            if pl.seg is not None and self.prefix_cache is not None:
+                self.prefix_cache.unpin(pl.seg)
+                pl.seg = None
+            self.pool.release(pl.slot)
+            self.scheduler.requeue(pl.req)
+        self._pending.clear()
+        live = [(s, st) for s, st in enumerate(self._slots)
+                if st is not None]
+        chunked = bool(live) and self._use_chunked_replay()
+        self.pool.reinit()
+        self._reset_device_state()
+        if self.prefix_cache is not None:
+            # after pool.reinit: paged segments' block counts are gone
+            self.prefix_cache.reinit()
+            for _, st in live:
+                st.segs = []
+        for slot, st in live:
+            self._slot_seeds[slot] = st.seed
+        self.last_recover_mode = (None if not live
+                                  else "chunked" if chunked else "stepwise")
+        if chunked:
+            for slot, st in live:
+                req = st.req
+                seq = np.concatenate([req.prompt,
+                                      np.asarray(st.tokens, np.int32)])
+                self._prefill_seq_into_slot(
+                    seq, slot, req.max_new - len(st.tokens), _eos_of(req))
+            return len(live)
+        pos = np.zeros((self.n_slots,), np.int32)
+        for slot, st in live:
+            req = st.req
+            self._prefill_seq_into_slot(req.prompt, slot, req.max_new,
+                                        _eos_of(req))
+            pos[slot] = len(req.prompt)
+        for j in range(max((len(st.tokens) for _, st in live), default=0)):
+            toks = np.zeros((self.n_slots,), np.int32)
+            replaying = np.zeros((self.n_slots,), bool)
+            for slot, st in live:
+                if j < len(st.tokens):
+                    toks[slot] = st.tokens[j]
+                    replaying[slot] = True
+            _, self._logits = self._replay_fn(
+                self.params, self.pool.operand(), self._logits,
+                self._upload(toks), self._upload(pos.copy()),
+                self._upload(replaying))
+            pos += replaying
+        # replay drove positions from the host: seat the device state on
+        # the rebuilt trajectory
+        active = np.zeros((self.n_slots,), bool)
+        budget = np.zeros((self.n_slots,), np.int32)
+        eos = np.full((self.n_slots,), _NO_EOS, np.int32)
+        for slot, st in live:
+            active[slot] = True
+            budget[slot] = st.req.max_new - len(st.tokens)
+            eos[slot] = _eos_of(st.req)
+        self._dpos = self._upload(pos)
+        self._dactive = self._upload(active)
+        self._dbudget = self._upload(budget)
+        self._deos = self._upload(eos)
+        return len(live)

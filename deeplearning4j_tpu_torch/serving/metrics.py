@@ -14,7 +14,14 @@ percentiles. The series:
 - ``queue_depth`` — queued requests, sampled per horizon;
 - ``queue_delay`` — submit-to-admission wait;
 - ``sync_wait`` / ``overlap`` — per readback, how long the host blocked on
-  the token copy vs how long it worked while the horizon ran.
+  the token copy vs how long it worked while the horizon ran;
+- prefix cache: lookups by outcome, tokens saved, inserts, evictions;
+- supervision: transient-fault retries, replay restarts;
+- piggyback: prefill chunks run for deferred admissions (and their
+  tokens), and decode stall, the wall time occupied slots waited on
+  admission prefill work (measured with piggyback on and off).
+
+Series names are the reference's, so its dashboards carry over.
 """
 
 from __future__ import annotations
@@ -48,6 +55,17 @@ class ServingMetrics:
         self.n_cancelled = 0
         self.n_expired = 0
         self.n_backpressure = 0
+        self.n_retries = 0
+        self.n_restarts = 0
+        self.n_prefix_hits_full = 0
+        self.n_prefix_hits_partial = 0
+        self.n_prefix_misses = 0
+        self.prefix_tokens_saved = 0
+        self.n_prefix_inserts = 0
+        self.n_prefix_evictions = 0
+        self.n_prefill_chunks = 0
+        self.prefill_chunk_tokens = 0
+        self.decode_stall_seconds = 0.0
         self.prefill_seconds = 0.0
         self._step = 0
         reg = self.registry
@@ -65,6 +83,38 @@ class ServingMetrics:
         self._c_backpressure = reg.counter(
             "serve_backpressure_total",
             "Submits rejected at max queue depth (HTTP 429).",
+        )
+        self._c_retries = reg.counter(
+            "serve_retries_total", "Transient-fault boundary retries.",
+        )
+        self._c_restarts = reg.counter(
+            "serve_restarts_total", "Engine rebuilds by deterministic replay.",
+        )
+        self._c_prefix_lookups = reg.counter(
+            "serve_prefix_lookups_total",
+            "Prefix-cache lookups by outcome (hit_full|hit_partial|miss).",
+            ("result",),
+        )
+        self._c_prefix_saved = reg.counter(
+            "serve_prefix_tokens_saved_total",
+            "Prompt tokens served from cached KV instead of prefill.",
+        )
+        self._c_prefix_inserts = reg.counter(
+            "serve_prefix_inserts_total", "Prefix segments cached.",
+        )
+        self._c_prefix_evictions = reg.counter(
+            "serve_prefix_evictions_total",
+            "Prefix segments evicted (LRU, never pinned ones).",
+        )
+        self._c_prefill_chunks = reg.counter(
+            "serve_prefill_chunks_total",
+            "Bounded prefill chunks executed for deferred piggyback "
+            "admissions.",
+        )
+        self._c_decode_stall = reg.counter(
+            "serve_decode_stall_seconds_total",
+            "Wall seconds occupied decode slots sat stalled behind "
+            "admission prefill work.",
         )
         self._h_ttft = reg.histogram(
             "serve_ttft_seconds", "Time to first token, from scheduler arrival.",
@@ -114,6 +164,51 @@ class ServingMetrics:
         self.n_backpressure += 1
         self._c_backpressure.inc()
 
+    def record_retry(self) -> None:
+        """One transient-fault retry at an engine boundary."""
+        self.n_retries += 1
+        self._c_retries.inc()
+
+    def record_restart(self) -> None:
+        """One engine-state rebuild by deterministic replay."""
+        self.n_restarts += 1
+        self._c_restarts.inc()
+
+    def record_prefix_lookup(self, result: str, saved_tokens: int) -> None:
+        """One admission-time prefix-cache lookup: ``result`` is
+        ``hit_full``/``hit_partial``/``miss``, ``saved_tokens`` the prompt
+        tokens the hit served from cached KV (0 on a miss)."""
+        self._c_prefix_lookups.inc(result=result)
+        if result == "hit_full":
+            self.n_prefix_hits_full += 1
+        elif result == "hit_partial":
+            self.n_prefix_hits_partial += 1
+        else:
+            self.n_prefix_misses += 1
+        if saved_tokens:
+            self.prefix_tokens_saved += int(saved_tokens)
+            self._c_prefix_saved.inc(int(saved_tokens))
+
+    def record_prefix_insert(self) -> None:
+        self.n_prefix_inserts += 1
+        self._c_prefix_inserts.inc()
+
+    def record_prefix_eviction(self) -> None:
+        self.n_prefix_evictions += 1
+        self._c_prefix_evictions.inc()
+
+    def record_prefill_chunk(self, tokens: int) -> None:
+        """One bounded prefill chunk run for a deferred (piggyback)
+        admission."""
+        self.n_prefill_chunks += 1
+        self.prefill_chunk_tokens += int(tokens)
+        self._c_prefill_chunks.inc()
+
+    def record_decode_stall(self, seconds: float) -> None:
+        """Wall time occupied decode slots waited on admission prefill."""
+        self.decode_stall_seconds += float(seconds)
+        self._c_decode_stall.inc(float(seconds))
+
     def record_outcome(self, status) -> None:
         """A non-FINISHED terminal outcome (``RequestStatus`` or its value)."""
         s = getattr(status, "value", status)
@@ -138,7 +233,24 @@ class ServingMetrics:
             "steps": self._step,
             "decode_horizon": self.decode_horizon,
             "prefill_s": self.prefill_seconds,
+            "n_retries": self.n_retries,
+            "n_restarts": self.n_restarts,
         }
+        lookups = (self.n_prefix_hits_full + self.n_prefix_hits_partial
+                   + self.n_prefix_misses)
+        if lookups:
+            out["prefix_lookups"] = lookups
+            out["prefix_hit_rate"] = (
+                (self.n_prefix_hits_full + self.n_prefix_hits_partial)
+                / lookups)
+            out["prefix_tokens_saved"] = self.prefix_tokens_saved
+            out["prefix_inserts"] = self.n_prefix_inserts
+            out["prefix_evictions"] = self.n_prefix_evictions
+        if self.n_prefill_chunks:
+            out["prefill_chunks"] = self.n_prefill_chunks
+            out["prefill_chunk_tokens"] = self.prefill_chunk_tokens
+        if self.decode_stall_seconds > 0:
+            out["decode_stall_s"] = self.decode_stall_seconds
         for name, xs in (("ttft", self.ttft), ("tpot", self.tpot),
                          ("queue_delay", self.queue_delay)):
             if xs:

@@ -3,7 +3,10 @@
 tenancy, grammar/sampling-surface fields or KV-wire request kinds).
 
 Strict priority across classes (class 0 drains before class 1), FIFO within
-a class. Admission control happens at ``submit``:
+a class, with optional prefix affinity (``prefix_affinity_tokens``): ``pop``
+may promote the oldest queued request of the front class whose first k
+prompt tokens match the prompt just admitted, so shared-prefix requests
+land in one admission round. Admission control happens at ``submit``:
 
 - ``Backpressure`` when the queue is at ``max_queue_depth`` (HTTP 429);
 - ``AdmissionError`` when ``len(prompt) + max_new`` cannot fit a cache slot
@@ -108,10 +111,11 @@ class RequestScheduler:
 
     def __init__(self, max_queue_depth: int = 128,
                  max_total_tokens: int | None = None,
-                 n_priorities: int = 3):
+                 n_priorities: int = 3, prefix_affinity_tokens: int = 0):
         self.max_queue_depth = max_queue_depth
         self.max_total_tokens = max_total_tokens
         self.n_priorities = n_priorities
+        self.prefix_affinity_tokens = int(prefix_affinity_tokens)
         self._lock = threading.Lock()
         self._queues = [deque() for _ in range(n_priorities)]  # guarded-by: _lock
 
@@ -171,14 +175,46 @@ class RequestScheduler:
                         n += 1
         return n
 
-    def pop(self, admissible=None) -> Request | None:
-        """Next request by strict priority, or None when idle. With
-        ``admissible`` (a predicate the engine passes, e.g. "its KV blocks
-        fit"), a class whose head fails it yields nothing and the next
-        class is tried: a blocked high-priority request must not idle the
-        engine, and FIFO order within a class is kept."""
+    def _affinity_pop_unlocked(self, q, key, admissible):  # lint: holds _lock
+        """The oldest admissible request of ``q`` whose first ``len(key)``
+        prompt tokens are ``key``, removed from ``q``; or None."""
+        k = len(key)
+        best = None
+        for i, req in enumerate(q):
+            if (len(req.prompt) >= k
+                    and tuple(int(t) for t in req.prompt[:k]) == key
+                    and (admissible is None or admissible(req))
+                    and (best is None
+                         or req.arrival_time < q[best].arrival_time)):
+                best = i
+        if best is None:
+            return None
+        req = q[best]
+        del q[best]
+        return req
+
+    def pop(self, affinity_hint: np.ndarray | None = None,
+            admissible=None) -> Request | None:
+        """Next request by strict priority, or None when idle. Within the
+        front non-empty class: with ``prefix_affinity_tokens`` k > 0 and an
+        ``affinity_hint`` (the prompt just admitted), the oldest request
+        sharing the hint's first k tokens goes first; otherwise the head.
+        With ``admissible`` (a predicate the engine passes, e.g. "its KV
+        blocks fit"), a class whose head fails it yields nothing and the
+        next class is tried: a blocked high-priority request must not idle
+        the engine, and FIFO order within a class is kept."""
+        k = self.prefix_affinity_tokens
+        key = (tuple(int(t) for t in affinity_hint[:k])
+               if k > 0 and affinity_hint is not None
+               and len(affinity_hint) >= k else None)
         with self._lock:
             for q in self._queues:
-                if q and (admissible is None or admissible(q[0])):
+                if not q:
+                    continue
+                if key is not None:
+                    req = self._affinity_pop_unlocked(q, key, admissible)
+                    if req is not None:
+                        return req
+                if admissible is None or admissible(q[0]):
                     return q.popleft()
         return None

@@ -13,13 +13,23 @@ Endpoints:
   can never fit a slot, 503 while stopping or after the engine died, 408 /
   499 / 500 for expired / cancelled / failed requests, 504 when the
   handler times out (the request is cancelled in the engine).
-- ``GET /healthz`` — 200 while the engine loop is alive, 503 once it died.
+- ``GET /healthz`` — 200 while the engine loop is alive (recovering
+  included), 503 once it died or while the watchdog finds it hung; the
+  payload carries ``hung``, ``beat_age_s`` and ``restarts``.
 - ``GET /metrics`` — Prometheus text of the engine's metrics registry.
 
 ``stop(drain_s)`` stops admission, gives in-flight work up to ``drain_s``
-seconds, cancels what is left, and shuts the listener down. An exception
-escaping ``engine.step()`` kills the engine loop: every waiting request is
-failed and ``/healthz`` turns 503 (crash replay is a later slice).
+seconds, cancels what is left, and shuts the listener down.
+
+Supervision (the reference's ``_engine_loop``, server.py:1364): an
+exception escaping ``engine.step()`` is recovered by
+``engine.recover()`` (deterministic replay; waiting callers keep waiting
+and get the uninterrupted stream). After ``max_restarts`` consecutive
+crashes, or when recovery itself raises, the engine is dead: every waiting
+request is failed and ``/healthz`` turns 503. The loop stamps a heartbeat
+at every iteration; a loop whose beat is older than ``hang_threshold_s``
+while the engine has work is reported hung (a thread can be alive but
+wedged inside a device call).
 """
 
 from __future__ import annotations
@@ -64,9 +74,14 @@ class ServingServer:
     """Engine + HTTP front end; ``start()`` does not block."""
 
     def __init__(self, engine: ServingEngine, host: str = "127.0.0.1",
-                 port: int = 0, request_timeout_s: float = 300.0):
+                 port: int = 0, request_timeout_s: float = 300.0,
+                 max_restarts: int = 5, hang_threshold_s: float = 120.0):
         self.engine = engine
         self.request_timeout_s = request_timeout_s
+        self.max_restarts = max_restarts
+        self.hang_threshold_s = hang_threshold_s
+        # watchdog heartbeat: stamped at the top of every loop iteration
+        self._last_beat: float | None = None
         self._stop = threading.Event()
         self._draining = threading.Event()
         self._dead = threading.Event()
@@ -121,14 +136,34 @@ class ServingServer:
     def _byte_vocab(self) -> bool:
         return self.engine.cfg.vocab_size <= 256
 
+    def _hung(self, now: float | None = None) -> tuple[bool, float | None]:
+        """(hung?, beat age in s): the loop thread is alive but its
+        heartbeat is older than ``hang_threshold_s`` while the engine has
+        work (an idle loop beats at every sleep poll)."""
+        if self._last_beat is None:
+            return False, None
+        age = (now if now is not None else time.monotonic()) - self._last_beat
+        hung = (age > self.hang_threshold_s
+                and self._engine_thread.is_alive()
+                and not self._stop.is_set()
+                and not self.engine.idle)
+        return hung, age
+
     def _health(self) -> dict:
         alive = not self._dead.is_set() and (
             self._engine_thread.is_alive() or not self._engine_thread.ident)
+        hung, beat_age = self._hung()
+        if hung:
+            alive = False  # wedged in a device call counts as not live
         return {
             "ok": alive,
             "engine_alive": alive,
+            "hung": hung,
+            "beat_age_s": beat_age,
+            "hang_threshold_s": self.hang_threshold_s,
             "draining": self._draining.is_set(),
             "last_error": self.last_error,
+            "restarts": self.engine.metrics.n_restarts,
             "queue_depth": len(self.engine.scheduler),
             "idle": self.engine.idle,
             "device": str(self.engine.device),
@@ -185,19 +220,41 @@ class ServingServer:
         _send_json(handler, 200, out)
 
     def _engine_loop(self) -> None:
+        consecutive = 0
         while not self._stop.is_set():
+            self._last_beat = time.monotonic()
             try:
                 progressed = self.engine.step()
-            except Exception as e:  # a dead engine must not hang callers
+                consecutive = 0
+            except Exception as e:  # EngineCrash or an engine bug
                 self.last_error = f"{type(e).__name__}: {e}"
                 traceback.print_exc()
-                self._dead.set()
-                self.engine.fail_all(f"engine dead: {self.last_error}")
-                return
+                consecutive += 1
+                if consecutive > self.max_restarts:
+                    self._die()
+                    return
+                try:
+                    self.engine.recover()
+                except Exception as e2:  # recovery itself is broken
+                    self.last_error = (f"recover failed: "
+                                       f"{type(e2).__name__}: {e2}")
+                    traceback.print_exc()
+                    self._die()
+                    return
+                continue
             if not progressed:
                 if self._draining.is_set():
                     return
                 time.sleep(0.002)
+
+    def _die(self) -> None:
+        """Unrecoverable: mark the engine dead and fail every waiting
+        caller (a dead engine must not hang them)."""
+        self._dead.set()
+        try:
+            self.engine.fail_all(f"engine dead: {self.last_error}")
+        except Exception:
+            traceback.print_exc()  # state may be corrupt; handlers time out
 
     def start(self) -> "ServingServer":
         self._engine_thread.start()
