@@ -33,7 +33,13 @@ Phases, in order; any failure exits non-zero without printing a result:
    gathers, dots, g, grad_in and delta rows, written at the scatter
    plan's positions) at the same batch for L 16, for the longest path with
    planted dots and masked rows, and on phase 6's first batch, each also
-   timed on the device alone (``graph_ms``) and run twice, bitwise;
+   timed on the device alone (``graph_ms``) and run twice, bitwise; and
+   the threefry draw kernel the port adds (``csrc/sample.cu``, the
+   reference's ``jax.random.categorical``) against ``categorical_plain``,
+   tokens and winning values bitwise, in engine mode (8 slot keys folded with
+   positions 0 to 639, a grammar-masked row, a planted exact tie) and flat
+   mode (B 1 and 4, and on speculative decoding's log-probabilities), at
+   V 50,304; phases 3-9 record the shape of every draw launch too;
 3. serve the GPT-2-small configuration (random weights from a seed) through
    ``ServingEngine``: about eight greedy requests, some past the 128-token
    prefill bucket, with every kernel's launch count set to 0 just before and
@@ -86,7 +92,7 @@ Phases, in order; any failure exits non-zero without printing a result:
    4, the int8-weight self-draft): greedy held against generate (at the
    first divergence generate's top-2 gap must be at most twice the largest
    logit difference between the two programs there), sampled runs equal
-   per generator seed, exactly one host sync a round (PyTorch's sync debug
+   per key seed, exactly one host sync a round (PyTorch's sync debug
    mode), rounds and acceptance, and tokens/s of speculative vs plain
    generate, 5 runs a side in turns. Phase 2 holds every shape these
    runs launch #1, #2 and #3 at, among them the draft steps' (B 1, G 3,
@@ -111,6 +117,20 @@ Phases, in order; any failure exits non-zero without printing a result:
    host sync a horizon, the decoding slots' TPOT and longest gap); (d)
    ``ServingServer`` over a crash (/healthz 200, the uninterrupted tokens)
    and over crashes at every check with ``max_restarts=1`` (503, FAILED).
+   The sampled runs draw on the reference's threefry key stream.
+9. the sampling surface (``sampling_surface=True``) at that width: (a) 16
+   unconstrained requests, greedy and T 0.8 top-k 40, slab and paged bs
+   8, byte-identical to the plain engine's (the masked parity probe
+   passing), slab runs in turns for tok/s, masked vs plain; (b) 8 regex
+   and 8 JSON-schema requests (the README's schema, EOS 0, T 0 and 0.8):
+   every token DFA-permitted, every stream ending in EOS at an accepting
+   state, every JSON output valid, the compile cache's hits and misses;
+   (c) top-p 1e-6 equal to greedy, stop sequences cutting the greedy
+   stream exactly, a logit bias forcing a token, logprob records; (d) a
+   crash mid-run with constrained sampled requests in flight (streams and
+   logprob records equal the uninterrupted run's); (e) the port on the card
+   against the port on the CPU at 2 layers of that width in f32, T 0.8
+   (streams identical, or the near-tie gap at the first divergence).
 
 The last lines are the kernel table as one JSON object, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -287,8 +307,8 @@ def _ptxas_entries(text: str) -> list[tuple[str, str, str]]:
 # -- phase 2 -----------------------------------------------------------------
 
 #: (kernel, shape) of every case phase 2 held against a plain version;
-#: the run fails on a launch of #1-#5 in phases 3-8 at a shape that is not
-#: among them
+#: the run fails on a launch of #1-#5 or the draw in phases 3-9 at a shape
+#: that is not among them
 CHECKED_SHAPES: set[tuple] = set()
 
 
@@ -326,21 +346,30 @@ def _emb_key(mode: str, b: int, L: int, d: int) -> tuple:
     return ("emb_dot", mode, int(b), int(L), int(d))
 
 
+def _draw_key(logits, pos) -> tuple:
+    """A launch of the threefry draw: its mode (``rows``: per-row keys
+    folded with a position; ``flat``: one key over the array) and (R, V)."""
+    return ("threefry_draw", "flat" if pos is None else "rows",
+            *map(int, logits.shape))
+
+
 @contextlib.contextmanager
 def launched_shapes():
     """Yields a set that gathers the key (``_attn_key``, ``_decode_key``,
-    ``_paged_key``, ``_emb_key``) of every launch of kernels #1-#5 (both
-    decode modes, both #5 modes) made inside the block: the wrappers'
-    launch functions are wrapped, the launches and their counts left as
-    they are."""
+    ``_paged_key``, ``_emb_key``, ``_draw_key``) of every launch of kernels
+    #1-#5 (both decode modes, both #5 modes) and of the threefry draw made
+    inside the block: the wrappers' launch functions are wrapped, the
+    launches and their counts left as they are."""
     from deeplearning4j_tpu_torch.ops import emb_dot
     from deeplearning4j_tpu_torch.ops import flash_attention as fa
     from deeplearning4j_tpu_torch.ops import flash_decode as fd
+    from deeplearning4j_tpu_torch.ops import threefry
 
     seen: set[tuple] = set()
     fwd, bwd, dec = fa._launch, fa._launch_bwd, fd._launch
     paged = fd._launch_paged
     dense, fused = emb_dot._launch, emb_dot._launch_hs
+    draw = threefry._launch
 
     def on_fwd(q, k, v, causal):
         seen.add(_attn_key("flash_attn_fwd", q, causal))
@@ -370,22 +399,29 @@ def launched_shapes():
         seen.add(_emb_key("fused", *points.shape, S.shape[1]))
         return fused(S, v, inputs, codes, points, mask, lr, dest, out)
 
+    def on_draw(logits, keys, pos):
+        seen.add(_draw_key(logits, pos))
+        return draw(logits, keys, pos)
+
     fa._launch, fa._launch_bwd, fd._launch = on_fwd, on_bwd, on_dec
     fd._launch_paged = on_paged
     emb_dot._launch, emb_dot._launch_hs = on_dense, on_fused
+    threefry._launch = on_draw
     try:
         yield seen
     finally:
         fa._launch, fa._launch_bwd, fd._launch = fwd, bwd, dec
         fd._launch_paged = paged
         emb_dot._launch, emb_dot._launch_hs = dense, fused
+        threefry._launch = draw
 
 
 def check_launched(tag: str, seen: set[tuple]) -> None:
     """Fails unless phase 2 held every key in ``seen`` against the plain
     version."""
     unchecked = sorted(seen - CHECKED_SHAPES, key=str)
-    log(f"{tag}: kernels #1-#5 launched at {len(seen)} (kernel, shape) "
+    log(f"{tag}: kernels #1-#5 and the draw launched at {len(seen)} "
+        f"(kernel, shape) "
         f"keys, {len(seen) - len(unchecked)} of them held against the plain "
         f"version in phase 2")
     if unchecked:
@@ -933,6 +969,94 @@ def _emb_dot_hs_case(kind: str, model, corpus, iters: int = 50,
 #: decode positions on either side of the kernels' split edges (rows per
 #: split a multiple of 8 of (pos + 1) / 16: 8 -> 16 past pos 127, one
 #: 32-row stage -> two past pos 511), and the first and last row
+#: operations of the threefry draw a logit: 72 for the threefry rounds and
+#: key injections, 2 for the counter, 6 for bits -> uniform (xor, shift,
+#: or, subtract, add, max), 4 for -log(-log(u)), the add of the logit and
+#: the compare of the argmax
+DRAW_OPS = 86
+#: phase 2's engine-mode draw: one position a slot (0 to 639), a
+#: grammar-masked row (all -inf but 3 tokens) and a planted exact tie (two
+#: tokens at 1e30, where the Gumbel noise vanishes: the lower id wins)
+DRAW_POS = [0, 1, 127, 128, 300, 511, 600, 639]
+DRAW_MASKED_ROW, DRAW_ALLOWED = 1, (5, 700, 50000)
+DRAW_TIE_ROW, DRAW_TIE = 2, (100, 4000)
+
+
+def _draw_case(r: int, v: int, flat: bool, spec: bool = False,
+               iters: int = 50) -> dict:
+    """The threefry draw kernel against ``categorical_plain`` on the same
+    card tensors: tokens and winning values bitwise. Engine mode (``flat``
+    False): R slot keys split from key(s) for s < R, folded with
+    ``DRAW_POS``, with the masked row and the planted tie; flat mode: one
+    key over (R, V); ``spec``: the logits speculative decoding draws from,
+    log(p + 1e-30) of a top-40 temperature-1 softmax."""
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.ops import threefry
+
+    gen = torch.Generator(device="cuda").manual_seed(7000 + r + flat + spec)
+    logits = torch.randn((r, v), generator=gen, device="cuda") * 3.0
+    if spec:
+        p = torch.softmax(logits, dim=-1)
+        kth = torch.topk(p, 40).values[:, -1:]
+        p = torch.where(p < kth, 0.0, p)
+        logits = torch.log(p / p.sum(-1, keepdim=True) + 1e-30)
+    dev = torch.device("cuda")
+    if flat:
+        keys, pos = threefry.device_keys(threefry.key(11), dev), None
+    else:
+        keys = threefry.device_keys(
+            [threefry.split(s)[1] for s in range(r)], dev)
+        pos = torch.tensor(DRAW_POS[:r], dtype=torch.int32, device=dev)
+        allowed = torch.tensor(DRAW_ALLOWED, device=dev)
+        row = torch.full((v,), float("-inf"), device=dev)
+        row[allowed] = logits[DRAW_MASKED_ROW, allowed]
+        logits[DRAW_MASKED_ROW] = row
+        logits[DRAW_TIE_ROW, list(DRAW_TIE)] = 1e30
+    logits = logits.contiguous()
+    CHECKED_SHAPES.add(_draw_key(logits, pos))
+    tok, val = threefry.draw(logits, keys, pos)
+    tok_ref, val_ref = threefry.categorical_plain(logits, keys, pos)
+    torch.cuda.synchronize()
+    same_tok = torch.equal(tok, tok_ref)
+    same_val = torch.equal(val.view(torch.int32), val_ref.view(torch.int32))
+    err = (val - val_ref).abs().max().item()
+    ok = same_tok and same_val
+    if not flat:
+        ok = (ok and int(tok[DRAW_TIE_ROW]) == DRAW_TIE[0]
+              and int(tok[DRAW_MASKED_ROW]) in DRAW_ALLOWED)
+    run = lambda: threefry.draw(logits, keys, pos)  # noqa: E731
+    ms, dev_ms = time_ms(run, iters), graph_ms(run)
+    plain_ms = time_ms(
+        lambda: threefry.categorical_plain(logits, keys, pos), iters)
+    # reads the logits, the keys (and positions), writes a token and a
+    # value a row; DRAW_OPS a logit, against the f32 rate outside the
+    # tensor cores (the guide's table has no int32 row)
+    nbytes = 4 * r * v + 16 * (r if pos is not None else 1) + 4 * r * (
+        pos is not None) + 8 * r
+    b_ms, b_by = bound(nbytes, DRAW_OPS * r * v, F32_FLOPS)
+    what = ("flat, one key" + (" (spec: log(p + 1e-30))" if spec else "")
+            if flat else f"rows, pos {DRAW_POS[:r]}, masked row "
+            f"{DRAW_MASKED_ROW}, tie at {DRAW_TIE}")
+    log(f"kernel threefry_draw R={r} V={v} {what}: tokens equal {same_tok}, "
+        f"values bitwise {same_val} (max_abs_err {err:.3e}), ms {ms:.4f} "
+        f"(graph_ms {dev_ms:.4f}), plain_ms {plain_ms:.4f}, bound_ms "
+        f"{b_ms:.6f} ({b_by}), library_ms none -> {'ok' if ok else 'FAIL'}")
+    return dict(ok=ok, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                graph_ms=dev_ms)
+
+
+def phase_draw() -> list[dict]:
+    """Phase 2's draw cases; the last is the engine's (R 8, V 50,304)."""
+    vocab = 50304
+    return [_draw_case(1, vocab, flat=True),
+            _draw_case(4, vocab, flat=True),
+            _draw_case(1, vocab, flat=True, spec=True),
+            _draw_case(8, vocab, flat=False)]
+
+
 SPLIT_EDGE_POS = [0, 7, 8, 127, 128, 511, 512, 639]
 
 
@@ -1023,15 +1147,18 @@ def phase_kernels(w2v_model, w2v_corpus) -> dict[str, dict]:
             for key in phase6_emb_dot_keys(w2v_model, w2v_corpus)]
     emb += [_emb_dot_hs_case(kind, w2v_model, w2v_corpus)
             for kind in ("L16", "planted", "phase6")]
+    draws = phase_draw()
     for name, cases in (("flash_attn_fwd", attn), ("flash_attn_bwd", bwd),
                         ("flash_decode", dec), ("flash_decode_int8", dec8),
-                        ("flash_decode_paged", paged), ("emb_dot", emb)):
+                        ("flash_decode_paged", paged), ("emb_dot", emb),
+                        ("threefry_draw", draws)):
         if not all(c["ok"] for c in cases):
             raise SystemExit(f"kernel {name} disagrees with its plain "
                              f"version")
     return {"flash_attn_fwd": attn[-1], "flash_attn_bwd": bwd[-1],
             "flash_decode": dec[-1], "flash_decode_int8": dec8[-1],
-            "flash_decode_paged": paged[-1], "emb_dot": emb[-1]}
+            "flash_decode_paged": paged[-1], "emb_dot": emb[-1],
+            "threefry_draw": draws[-1]}
 
 
 # -- phase 3 -----------------------------------------------------------------
@@ -1056,6 +1183,11 @@ KERNELS = {
     "emb_dot": dict(
         source="deeplearning4j_tpu_torch/csrc/emb_dot.cu",
         replaces="deeplearning4j_tpu/ops/pallas_kernels.py:906"),
+    # a kernel the port adds: the reference draws in XLA, not in Pallas
+    "threefry_draw": dict(
+        source="deeplearning4j_tpu_torch/csrc/sample.cu",
+        replaces="XLA's jax.random.categorical "
+                 "(deeplearning4j_tpu/serving/engine.py:293)"),
 }
 
 
@@ -1063,10 +1195,12 @@ def reset_launches() -> None:
     from deeplearning4j_tpu_torch.ops import emb_dot
     from deeplearning4j_tpu_torch.ops import flash_attention as fa
     from deeplearning4j_tpu_torch.ops import flash_decode as fd
+    from deeplearning4j_tpu_torch.ops import threefry
 
     fa.reset_launches()
     fd.reset_launches()
     emb_dot.reset_launches()
+    threefry.reset_launches()
 
 
 def read_launches() -> dict[str, int]:
@@ -1074,12 +1208,13 @@ def read_launches() -> dict[str, int]:
     from deeplearning4j_tpu_torch.ops import emb_dot
     from deeplearning4j_tpu_torch.ops import flash_attention as fa
     from deeplearning4j_tpu_torch.ops import flash_decode as fd
+    from deeplearning4j_tpu_torch.ops import threefry
 
     return {"flash_attn_fwd": fa.launches, "flash_attn_bwd": fa.bwd_launches,
             "flash_decode": fd.launches,
             "flash_decode_int8": fd.int8_launches,
             "flash_decode_paged": fd.paged_launches,
-            "emb_dot": emb_dot.launches}
+            "emb_dot": emb_dot.launches, "threefry_draw": threefry.launches}
 
 
 #: prompt lengths of the served requests: bucketed prefill (<= 128, the
@@ -2150,9 +2285,10 @@ def _count_syncs(fn):
 def phase_spec(card: str) -> dict[str, int]:
     """Phase 7d: speculative decoding at the bench's spec geometry with
     the int8-weight self-draft. Greedy: held against generate by the
-    logit-difference rule; sampled: repeatable per generator seed; the
+    logit-difference rule; sampled: repeatable per key seed; the
     rounds, acceptance, host syncs a round and tokens/s against plain
-    generate. Returns the greedy run's launches."""
+    generate. Returns the greedy run's launches and the first sampled
+    run's."""
     import numpy as np
     import torch
 
@@ -2217,18 +2353,24 @@ def phase_spec(card: str) -> dict[str, int]:
 
     def sampled(seed, stats=False):
         return spec(params, draft, prompt, SPEC_NEW, draft_k=SPEC_K,
-                    temperature=1.0, top_k=SPEC_TOP_K,
-                    generator=torch.Generator(device="cuda").manual_seed(
-                        seed), return_stats=stats)
+                    temperature=1.0, top_k=SPEC_TOP_K, key=seed,
+                    return_stats=stats)
 
+    torch.cuda.synchronize()
+    reset_launches()
     (a, a_stats), a_syncs, a_where = _count_syncs(
         lambda: sampled(1, stats=True))
+    torch.cuda.synchronize()
+    sampled_launches = read_launches()
+    _must_launch("spec sampled", sampled_launches,
+                 ("flash_decode", "threefry_draw"))
     b, c = sampled(1), sampled(2)
     same, differ = torch.equal(a, b), not torch.equal(a, c)
     log(f"spec sampled (temperature 1, top-k {SPEC_TOP_K}): seed 1 twice "
         f"equal {same}, seed 2 differs {differ}; {a_stats['rounds']} rounds, "
         f"accepted a round mean {np.mean(a_stats['accepted']):.3f}, host "
-        f"syncs {a_syncs / a_stats['rounds']:.3f} a round (at {a_where})")
+        f"syncs {a_syncs / a_stats['rounds']:.3f} a round (at {a_where}); "
+        f"launches {sampled_launches}")
     if not same or not differ or a_syncs != a_stats["rounds"]:
         raise SystemExit("spec sampled: not repeatable per seed, or more "
                          "than one host sync a round")
@@ -2238,17 +2380,16 @@ def phase_spec(card: str) -> dict[str, int]:
     for i in range(SPEC_RUNS):
         order = ("spec", "generate") if i % 2 == 0 else ("generate", "spec")
         for side in order:
-            g = torch.Generator(device="cuda").manual_seed(100 + i)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             if side == "spec":
                 _, st = spec(params, draft, prompt, SPEC_NEW, draft_k=SPEC_K,
-                             temperature=1.0, top_k=SPEC_TOP_K, generator=g,
+                             temperature=1.0, top_k=SPEC_TOP_K, key=100 + i,
                              return_stats=True)
                 rounds_timed.append(st["rounds"])
             else:
                 gen(params, prompt, SPEC_NEW, temperature=1.0,
-                    top_k=SPEC_TOP_K, generator=g)
+                    top_k=SPEC_TOP_K, key=100 + i)
             torch.cuda.synchronize()
             walls[side].append(time.perf_counter() - t0)
     rate = {k: [SPEC_NEW / w for w in v] for k, v in walls.items()}
@@ -2258,7 +2399,7 @@ def phase_spec(card: str) -> dict[str, int]:
             f"{k} median {np.median(v):.2f} (range {min(v):.2f}-"
             f"{max(v):.2f})" for k, v in rate.items())
         + f"; spec rounds per timed run {rounds_timed}")
-    return launches
+    return launches, sampled_launches
 
 
 def phase_decode_variants(card: str) -> dict[str, dict[str, int]]:
@@ -2280,7 +2421,7 @@ def phase_decode_variants(card: str) -> dict[str, dict[str, int]]:
         torch.cuda.empty_cache()
         runs["beam"] = phase_beam(False, card)
         runs["beam_int8"] = phase_beam(True, card)
-        runs["spec"] = phase_spec(card)
+        runs["spec"], runs["spec_sampled"] = phase_spec(card)
     torch.cuda.empty_cache()
     log(f"phase 7: {time.perf_counter() - t0:.1f} s wall")
     check_launched("phase 7", seen)
@@ -2897,6 +3038,375 @@ def phase_serving_features(card: str) -> dict[str, dict[str, int]]:
     return runs
 
 
+# -- phase 9 -----------------------------------------------------------------
+
+#: phase 9: 16 unconstrained requests (phase 3's prompt lengths twice)
+SURF_NEW = 32
+#: 9b: the regexes (finite languages: every stream must end in EOS) and
+#: the README's schema, EOS token 0
+SURF_REGEXES = ("(yes|no)", "(yes|no|maybe)!?", "[a-c]{2,5}",
+                "-?[0-9]{1,3}", "(red|green|blue)", "[A-Z][a-z]{1,4}",
+                "(0|[1-9][0-9]?)", "(on|off)")
+SURF_SCHEMA = {"type": "object",
+               "properties": {"ok": {"type": "boolean"},
+                              "tag": {"enum": ["a", "b"]}},
+               "required": ["ok", "tag"]}
+SURF_EOS, SURF_CONSTRAINED_NEW = 0, 40
+#: 9d: the crash's step check
+SURF_CRASH = 3
+#: 9e: the 2-layer model's requests (prompt lengths), new tokens each
+CROSS_PROMPTS, CROSS_NEW = (16, 24, 33, 40, 48, 57, 64, 72), 16
+
+
+def surface_prompts(vocab: int):
+    import numpy as np
+
+    rng = np.random.default_rng(9)
+    return [rng.integers(0, vocab, n) for n in PROMPT_LENGTHS * 2]
+
+
+def _surface_run(tag, cfg, params, reqs, **kw):
+    """Serve ``reqs`` on phase 8's engine geometry with every count set to
+    0 just before and read just after. Returns (engine, results, launches,
+    generated tokens/s over the run, host clock)."""
+    import torch
+
+    engine = phase8_engine(cfg, params, **kw)
+    if kw.get("sampling_surface"):
+        _must(tag, engine._surface, "the masked parity probe failed")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    for r in reqs:
+        engine.submit(r)
+    res = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    new = sum(len(res[r.id]) - len(r.prompt) for r in reqs)
+    return engine, res, read_launches(), new / wall
+
+
+def _plain_reqs(prompts, **kw):
+    from deeplearning4j_tpu_torch.serving import Request
+
+    return [Request(prompt=p, max_new=SURF_NEW, **kw) for p in prompts]
+
+
+def phase9_parity(card: str, cfg, params, total) -> None:
+    """9a: unconstrained traffic through the armed engine equals the plain
+    engine's bytes, greedy and T 0.8 top-k 40, slab and paged bs 8; slab
+    runs in turns (plain, masked, masked, plain) for tok/s."""
+    import numpy as np
+
+    prompts = surface_prompts(cfg.vocab_size)
+    for paged in (False, True):
+        for sampling in (dict(temperature=0.0),
+                         dict(temperature=0.8, top_k=40)):
+            sampled = sampling["temperature"] > 0
+            mode = (f"{'paged' if paged else 'slab'}, "
+                    f"{'T 0.8 top-k 40' if sampled else 'greedy'}")
+            tag = f"phase 9a {mode}"
+            order = ((False, True, True, False) if not paged
+                     else (False, True))
+            streams, rates = {}, {False: [], True: []}
+            for surface in order:
+                eng, res, launches, rate = _surface_run(
+                    tag, cfg, params, reqs := _plain_reqs(prompts),
+                    paged=paged, sampling_surface=surface, **sampling)
+                _must(tag, eng._paged == paged, "not paged")
+                _launch_check(f"{tag} {'masked' if surface else 'plain'}",
+                              launches, ("flash_attn_fwd",
+                                         "flash_decode_paged" if paged
+                                         else "flash_decode")
+                              + (("threefry_draw",) if sampled else ()),
+                              () if sampled else ("threefry_draw",))
+                _add(total, launches)
+                rates[surface].append(rate)
+                got = [res[r.id] for r in reqs]
+                if surface in streams:
+                    _must(tag, all(np.array_equal(a, b) for a, b in
+                                   zip(streams[surface], got)),
+                          "a repeated run differs")
+                streams[surface] = got
+                del eng
+            same = [np.array_equal(a, b)
+                    for a, b in zip(streams[False], streams[True])]
+            log(f"{tag}: masked vs plain streams identical "
+                f"{sum(same)}/{len(same)}; tok/s plain "
+                f"{[round(x, 2) for x in rates[False]]}, masked "
+                f"{[round(x, 2) for x in rates[True]]} (16 requests, "
+                f"{SURF_NEW} new; host clock) [{card}]")
+            _must(tag, all(same), "masked streams differ from the plain "
+                  "engine's")
+
+
+def _constrained_reqs(n_regex=8, n_json=8, max_new=SURF_CONSTRAINED_NEW):
+    """9b's requests: the regexes then the README's schema, alternating
+    T 0 and T 0.8 a request (the engine's T is 0)."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.serving import Request
+
+    rng = np.random.default_rng(10)
+    fmts = ([{"type": "regex", "regex": rx} for rx in SURF_REGEXES[:n_regex]]
+            + [{"type": "json_schema", "schema": SURF_SCHEMA}] * n_json)
+    return [Request(prompt=rng.integers(1, 256, 8 + 3 * i), max_new=max_new,
+                    eos_token=SURF_EOS, response_format=f,
+                    temperature=0.8 if i % 2 else None)
+            for i, f in enumerate(fmts)]
+
+
+def _check_constrained(tag, res, reqs) -> list[str]:
+    """Every token DFA-permitted, the stream ends in EOS at an accepting
+    state, and a schema's output parses and validates. Returns the
+    decoded outputs."""
+    import json
+
+    from deeplearning4j_tpu_torch.serving.grammar import validate_json_value
+
+    outs = []
+    for r in reqs:
+        toks = [int(t) for t in res[r.id][len(r.prompt):]]
+        cg = r._grammar
+        st = cg.start
+        for t in toks[:-1]:
+            _must(tag, cg.trans[st, t] >= 0,
+                  f"request {r.id}: token {t} not permitted in state {st}")
+            st = int(cg.trans[st, t])
+        _must(tag, toks and toks[-1] == SURF_EOS and cg.accepting[st],
+              f"request {r.id} did not end in EOS at an accepting state")
+        text = bytes(toks[:-1]).decode("latin-1")
+        if r.response_format["type"] == "json_schema":
+            _must(tag, validate_json_value(json.loads(text), SURF_SCHEMA),
+                  f"request {r.id}: {text!r} does not validate")
+        outs.append(text)
+    return outs
+
+
+def phase9_constrained(card: str, cfg, params, total) -> None:
+    """9b: 8 regex and 8 JSON-schema requests, greedy and T 0.8."""
+    tag = "phase 9b"
+    reqs = _constrained_reqs()
+    eng, res, launches, _ = _surface_run(tag, cfg, params, reqs,
+                                         sampling_surface=True)
+    _launch_check(tag, launches, ("flash_attn_fwd", "flash_decode",
+                                  "threefry_draw"))
+    _add(total, launches)
+    outs = _check_constrained(tag, res, reqs)
+    m = eng.metrics._c_grammar_compiles
+    log(f"{tag}: {len(reqs)} constrained requests, every token permitted "
+        f"and every output valid: {outs}; compiles miss "
+        f"{m.value(result='miss'):.0f}, hit {m.value(result='hit'):.0f}; "
+        f"table rows {eng._gtable.rows_used} [{card}]")
+
+
+def phase9_controls(card: str, cfg, params, total) -> None:
+    """9c: stop, logit bias, logprobs and top-p 1e-6 (equal to greedy) on
+    a T 0.8 top-k 40 engine."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.serving import Request
+
+    tag = "phase 9c"
+    prompts = surface_prompts(cfg.vocab_size)[:8]
+    _, ref, _, _ = _surface_run(f"{tag} greedy", cfg, params,
+                                greedy := _plain_reqs(prompts),
+                                temperature=0.0)
+    ref = [[int(t) for t in ref[r.id][len(r.prompt):]] for r in greedy]
+    stops = [ref[i][3:5] for i in (2, 3)]
+    reqs = ([Request(prompt=p, max_new=SURF_NEW, top_p=1e-6)
+             for p in prompts[:2]]
+            + [Request(prompt=prompts[i], max_new=SURF_NEW, temperature=0.0,
+                       stop=[st]) for i, st in zip((2, 3), stops)]
+            + [Request(prompt=p, max_new=SURF_NEW, logit_bias={7: 1000.0})
+               for p in prompts[4:6]]
+            + [Request(prompt=p, max_new=SURF_NEW, temperature=0.0,
+                       logprobs=True, top_logprobs=3) for p in prompts[6:]])
+    eng, res, launches, _ = _surface_run(tag, cfg, params, reqs,
+                                         sampling_surface=True,
+                                         temperature=0.8, top_k=40)
+    _launch_check(tag, launches, ("flash_decode", "threefry_draw"))
+    _add(total, launches)
+    got = [[int(t) for t in res[r.id][len(r.prompt):]] for r in reqs]
+    top_p_ok = got[0] == ref[0] and got[1] == ref[1]
+    stop_ok = True
+    for j, (i, st) in enumerate(zip((2, 3), stops)):
+        cut = next(c for c in range(len(ref[i]) - 1)
+                   if ref[i][c:c + 2] == st)
+        stop_ok &= got[2 + j] == ref[i][:cut]
+    hits = eng.metrics._c_stop_hits.value()
+    bias_ok = all(g == [7] * SURF_NEW for g in got[4:6])
+    lp_ok = True
+    for r, g, want in zip(reqs[6:], got[6:], ref[6:]):
+        recs = r.logprobs_out
+        lp_ok &= g == want and len(recs) == len(g)
+        for tok, rec in zip(g, recs):
+            tops = rec["top_logprobs"]
+            lps = [t["logprob"] for t in tops]
+            lp_ok &= (rec["token"] == tok and rec["logprob"] <= 0.0
+                      and tops[0]["token"] == tok and len(tops) == 3
+                      and lps == sorted(lps, reverse=True)
+                      and np.isclose(tops[0]["logprob"], rec["logprob"]))
+    log(f"{tag}: top-p 1e-6 equals greedy {top_p_ok}; stops cut exactly "
+        f"{stop_ok} ({hits:.0f} stop hits); logit bias {{7: 1000}} forces "
+        f"7 {bias_ok}; logprobs records consistent {lp_ok} (first: "
+        f"{reqs[6].logprobs_out[0]}) [{card}]")
+    _must(tag, top_p_ok and stop_ok and hits == 2 and bias_ok and lp_ok,
+          "a sampling control misbehaved")
+
+
+def phase9_recovery(card: str, cfg, params, total) -> None:
+    """9d: a crash mid-run with constrained sampled requests in flight;
+    streams equal the uninterrupted run's."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.serving import FaultInjector, Request
+
+    tag = "phase 9d"
+    prompts = surface_prompts(cfg.vocab_size)[:4]
+
+    def make():
+        reqs = _constrained_reqs(n_regex=2, n_json=2)
+        for r in reqs:
+            r.temperature = None  # the engine's T 0.8
+        reqs += _plain_reqs(prompts)
+        reqs.append(Request(prompt=prompts[0], max_new=SURF_NEW,
+                            logit_bias={9: 5.0}, logprobs=True))
+        return reqs
+
+    kw = dict(sampling_surface=True, temperature=0.8, top_k=40,
+              prefix_cache=True)
+    _, ref, _, _ = _surface_run(f"{tag} uninterrupted", cfg, params,
+                                ref_reqs := make(), **kw)
+    eng, res, launches, _ = _surface_run(
+        tag, cfg, params, reqs := make(),
+        faults=FaultInjector().plan("step", SURF_CRASH, "crash"), **kw)
+    _add(total, launches)
+    same = [np.array_equal(ref[a.id], res[b.id])
+            for a, b in zip(ref_reqs, reqs)]
+    _check_constrained(tag, res, reqs[:4])
+    log(f"{tag}: restarts {eng.metrics.n_restarts} (mode "
+        f"{eng.last_recover_mode}); streams identical to the "
+        f"uninterrupted run {sum(same)}/{len(same)}; the logprob records "
+        f"equal {reqs[-1].logprobs_out == ref_reqs[-1].logprobs_out} "
+        f"[{card}]")
+    _must(tag, eng.metrics.n_restarts == 1 and all(same)
+          and reqs[-1].logprobs_out == ref_reqs[-1].logprobs_out,
+          "the recovered run differs from the uninterrupted one")
+
+
+def phase9_cross(card: str, total) -> None:
+    """9e: the port on the card against the port on the CPU, at 2 layers
+    of GPT-2-small's width in f32 (the kernels' f32 paths left out:
+    ``use_flash`` and ``decode_kernel`` off, so the card's only kernel is
+    the draw), T 0.8 top-k 40, 8 requests. The streams are identical, or at
+    the first divergence both sides drew under the same key and position
+    and the CPU side's perturbed top-2 gap is at most 2 |delta| + 1e-5,
+    |delta| the largest difference between the two sides' scaled logits
+    (the near-tie rule of ``tests/test_torch_sampled_parity.py``); it
+    fails otherwise."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.models.transformer import init_params
+    from deeplearning4j_tpu_torch.ops import threefry
+    from deeplearning4j_tpu_torch.serving import Request, ServingEngine
+
+    tag = "phase 9e"
+    cfg = dataclasses.replace(gpt2s_config(), n_layers=2, use_flash=False,
+                              decode_kernel=False,
+                              compute_dtype=torch.float32)
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in CROSS_PROMPTS]
+    params = init_params(cfg, seed=0, device="cpu")
+
+    def run(device, ps, max_new):
+        eng = ServingEngine(cfg, params, n_slots=8, max_total=128,
+                            decode_horizon=4, temperature=0.8, top_k=40,
+                            device=device)
+        reqs = [Request(prompt=p, max_new=max_new) for p in ps]
+        reset_launches()
+        for r in reqs:
+            eng.submit(r)
+        res = eng.run()
+        return [res[r.id] for r in reqs], read_launches()
+
+    t0 = time.perf_counter()
+    card_out, launches = run("cuda", prompts, CROSS_NEW)
+    _launch_check(tag, launches, ("threefry_draw",))
+    _add(total, launches)
+    cpu_out, _ = run("cpu", prompts, CROSS_NEW)
+    same = [np.array_equal(a, b) for a, b in zip(card_out, cpu_out)]
+    notes = []
+    for i in (i for i, ok in enumerate(same) if not ok):
+        j = int(np.nonzero(card_out[i] != cpu_out[i])[0][0])
+        # the draw's inputs at the divergence, one request alone (a
+        # stream does not depend on its batch), on each side
+        seen = {}
+        at = j  # the draw of stream index j runs at position j
+        for dev, fn in (("cuda", "_launch"), ("cpu", "categorical_plain")):
+            orig = getattr(threefry, fn)
+
+            def spy(logits, keys, pos, orig=orig, dev=dev):
+                if dev not in seen and int(pos[0]) == at:
+                    seen[dev] = (logits[0].float().cpu(), keys[0].cpu(),
+                                 pos[:1].cpu())
+                return orig(logits, keys, pos)
+
+            setattr(threefry, fn, spy)
+            try:
+                run(dev, [prompts[i]], j - len(prompts[i]) + 1)
+            finally:
+                setattr(threefry, fn, orig)
+        lg, keys, pos = seen["cpu"]
+        pert = (threefry.gumbel_from_bits(threefry.random_bits_rows(
+            threefry.fold_in_rows(keys[None], pos), lg.shape[0]))[0] + lg)
+        top2 = torch.topk(pert, 2).values
+        gap = (top2[0] - top2[1]).item()
+        delta = (seen["cuda"][0] - lg).abs()
+        delta = delta[torch.isfinite(delta)].max().item()
+        note = (f"request {i} at token {j - len(prompts[i])}: CPU perturbed "
+                f"top-2 gap {gap:.3g}, max |delta scaled logit| card vs CPU "
+                f"{delta:.3g}")
+        notes.append(note)
+        _must(tag, torch.equal(seen["cuda"][1], keys)
+              and torch.equal(seen["cuda"][2], pos),
+              f"{note}: the card drew under another key or position")
+        _must(tag, gap <= 2 * delta + 1e-5,
+              f"{note}: a divergence that is not a near-tie")
+    log(f"{tag}: 2 layers x {cfg.d_model}d f32, T 0.8 top-k 40, card vs CPU "
+        f"streams identical {sum(same)}/{len(same)}"
+        f"{'; ' + '; '.join(notes) if notes else ''} "
+        f"({time.perf_counter() - t0:.1f} s) [{card}]")
+
+
+def phase_surface(card: str) -> dict[str, dict[str, int]]:
+    """Phase 9: the sampling surface at GPT-2-small's width (phase 3's
+    model, 8 slots, max_total 640, K 4); fails on a launch at a shape
+    phase 2 did not hold."""
+    import torch
+
+    t0 = time.perf_counter()
+    cfg, params = serve_model(False)
+    runs = {k: {} for k in ("surface_parity", "surface_constrained",
+                            "surface_controls", "surface_recovery",
+                            "surface_cross")}
+    with launched_shapes() as seen:
+        phase9_parity(card, cfg, params, runs["surface_parity"])
+        phase9_constrained(card, cfg, params, runs["surface_constrained"])
+        phase9_controls(card, cfg, params, runs["surface_controls"])
+        phase9_recovery(card, cfg, params, runs["surface_recovery"])
+        del params
+        torch.cuda.empty_cache()
+        phase9_cross(card, runs["surface_cross"])
+    torch.cuda.empty_cache()
+    log(f"phase 9: {time.perf_counter() - t0:.1f} s wall [{card}]")
+    check_launched("phase 9", seen)
+    return runs
+
+
 def main() -> int:
     try:
         import torch
@@ -2938,6 +3448,7 @@ def main() -> int:
     del w2v_model
     by_phase.update(phase_decode_variants(card))
     by_phase.update(phase_serving_features(card))
+    by_phase.update(phase_surface(card))
     kernels = [
         dict(name=name, route="cuda", **KERNELS[name],
              launches=sum(p[name] for p in by_phase.values()),

@@ -22,9 +22,13 @@ weights|full`` serves int8 weights (over a float cache, or with the int8
 KV cache too) and ``--paged [--block-size N]`` a block-paged KV pool,
 ``--prefix-cache [--prefix-cache-tokens N] [--prefix-affinity-tokens K]``
 the prefix cache, ``--piggyback [--prefill-budget N]`` the deferred
-prefill, and ``--chaos-rate P [--chaos-seed S]`` seeded transient faults
-(retried, or recovered by replay), as the reference's flags do. Every command runs on ``cuda`` unless
-``--device cpu`` is given.
+prefill, ``--chaos-rate P [--chaos-seed S]`` seeded transient faults
+(retried, or recovered by replay), and ``--sampling-surface
+[--grammar-states N] [--grammar-cache DIR]`` the per-request sampling and
+grammar surface, as the reference's flags do. Sampling takes the
+reference's threefry key stream: ``generate --seed S`` is ``key(S)``,
+``serve --seed S`` the engine's master key. Every command runs on
+``cuda`` unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -171,10 +175,9 @@ def cmd_train(args) -> int:
     if cfg.max_len >= 32:
         gen = transformer_generate(cfg)
         dev = params["embed"].device
-        g = torch.Generator(device=dev).manual_seed(1)
         out = gen(params, torch.from_numpy(arr[None, :16]).to(dev),
                   min(cfg.max_len - 16, 48), temperature=0.8, top_k=40,
-                  generator=g)
+                  key=1)
         text = bytes((out[0] % 256).cpu().numpy().astype(np.uint8))
         print("sample:", text.decode("latin-1"))
     return 0
@@ -252,6 +255,7 @@ def cmd_generate(args) -> int:
         transformer_beam_search,
         transformer_generate,
     )
+    from deeplearning4j_tpu_torch.ops import threefry
 
     model = _decode_model(args)
     if isinstance(model, int):
@@ -282,7 +286,7 @@ def cmd_generate(args) -> int:
         out = transformer_generate(cfg)(
             params, prompt, max_new, temperature=args.temperature,
             top_k=args.top_k if args.top_k > 0 else None,
-            generator=torch.Generator(device=dev).manual_seed(args.seed))
+            key=threefry.key(args.seed))
         print("sample:", text(out[0]))
     return 0
 
@@ -323,6 +327,9 @@ def cmd_serve(args) -> int:
         rng_seed=args.seed, faults=faults, device=args.device,
         paged=args.paged, block_size=args.block_size,
         piggyback=args.piggyback, prefill_budget=args.prefill_budget,
+        sampling_surface=args.sampling_surface,
+        grammar_states=args.grammar_states,
+        grammar_cache=args.grammar_cache,
     )
     if args.paged:
         if engine._paged:
@@ -336,6 +343,15 @@ def cmd_serve(args) -> int:
     if args.piggyback:
         print(f"piggyback prefill: chunked admission behind decode "
               f"dispatches ({engine.prefill_budget} tokens/horizon budget)")
+    if args.sampling_surface:
+        if engine._surface:
+            print(f"sampling surface: grammar-constrained decoding + "
+                  f"per-request temperature/top_k/top_p/stop/logit_bias/"
+                  f"logprobs ({engine._gtable.capacity} DFA table rows)")
+        else:
+            print("sampling surface DISABLED (masked parity probe failed "
+                  "or approx-top-k engine); per-request sampling fields "
+                  "will 400", file=sys.stderr)
     server = ServingServer(engine, host=args.host, port=args.port,
                            request_timeout_s=args.request_timeout)
     host, port = server.address
@@ -509,6 +525,21 @@ def build_parser() -> argparse.ArgumentParser:
                    metavar="N",
                    help="piggyback prefill token budget per decode "
                    "horizon (default: 2x the largest prefill bucket)")
+    v.add_argument("--sampling-surface", action="store_true",
+                   help="enable the sampling surface: grammar-constrained "
+                   "decoding (response_format with a JSON schema or "
+                   "regex), per-request temperature/top_k/top_p, stop "
+                   "sequences, logit_bias and logprobs. One masked step "
+                   "serves every request mix; unconstrained streams stay "
+                   "byte-identical, gated by a one-time parity probe")
+    v.add_argument("--grammar-states", type=int, default=256, metavar="N",
+                   help="device DFA table rows shared by all seated "
+                   "grammars (default: 256); compiles whose DFA exceeds "
+                   "the free budget are rejected with 400")
+    v.add_argument("--grammar-cache", type=str, default=None,
+                   metavar="DIR",
+                   help="on-disk grammar compile cache directory "
+                   "(default: in-memory LRU only)")
     v.add_argument("--chaos-rate", type=float, default=0.0,
                    help="inject transient faults at engine boundaries "
                    "at this per-step probability (smoke-tests the "

@@ -74,7 +74,8 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
-from deeplearning4j_tpu_torch.device import resolve_device
+from deeplearning4j_tpu_torch.device import resolve_device, upload
+from deeplearning4j_tpu_torch.ops import threefry
 from deeplearning4j_tpu_torch.ops.attention import attention, dtype_scalar
 from deeplearning4j_tpu_torch.ops.flash_attention import (
     flash_attention,
@@ -1204,40 +1205,52 @@ def _filtered_probs(logits, temperature: float, top_k: int | None):
     return torch.softmax(logits / temperature, dim=-1)
 
 
-def _draw(probs, generator=None):
-    """One index per row of ``probs`` (..., V), drawn with ``generator``:
-    the draw ``torch.multinomial(probs, 1)`` makes (an Exp(1) variate per
-    entry, then the argmax of probs / variate; same generator, same
-    tokens), without multinomial's two validating host syncs. Rows must
-    be finite and non-negative with a positive sum."""
-    e = torch.empty_like(probs).exponential_(1, generator=generator)
-    return (probs / e).argmax(dim=-1)
+def _step_keys(key, n: int) -> list[threefry.Key]:
+    """The subkeys of ``n`` steps of ``key, sub = split(key)``: the
+    reference's per-step chain, on the host."""
+    k, subs = threefry.as_key(key), []
+    for _ in range(n):
+        k, sub = threefry.split(k)
+        subs.append(sub)
+    return subs
 
 
 def transformer_generate(cfg: TransformerConfig):
     """Autoregressive sampling with the KV cache. Returns
     ``generate(params, prompt, max_new, temperature=1.0, top_k=None,
-    generator=None, return_logits=False, approx_top_k=False) -> tokens
+    key=None, return_logits=False, approx_top_k=False) -> tokens
     (B, Tp + max_new)`` (plus the (max_new, B, V) sampling logits with
     ``return_logits``).
 
     Runs on the device ``params`` live on. ``temperature=0`` decodes
-    greedily (argmax, first index on ties, as the reference); sampled
-    decoding draws with the explicit ``generator`` (a ``torch.Generator``
-    on the params' device) — its stream is not the reference's threefry
-    stream. ``approx_top_k`` is accepted and ignored: the exact threshold
-    is the reference's function off the TPU (:func:`_top_k_filter`)."""
+    greedily (argmax, first index on ties, as the reference). Sampled
+    decoding takes the reference's ``key`` (an int seed or (2,) uint32 key
+    data; required) and consumes it as the reference does: ``key, sub =
+    split(key)`` each step (on the host, uploaded once), then
+    ``categorical(sub, filtered / temperature)`` over the (B, V) logits
+    through the threefry draw kernel. ``approx_top_k`` is accepted and
+    ignored: the exact threshold is the reference's function off the TPU
+    (:func:`_top_k_filter`)."""
     forward_one, init_caches, do_prefill, cast_params = _decode_builder(cfg)
 
     @torch.no_grad()
     def generate(params, prompt, max_new: int, temperature: float = 1.0,
-                 top_k: int | None = None, generator=None,
+                 top_k: int | None = None, key=None,
                  return_logits: bool = False, approx_top_k: bool = False):
         b, tp = prompt.shape
         total = _check_decode_len(cfg, tp, max_new)
         params = cast_params(params)
         dev = params["embed"].device
         prompt = prompt.to(dev)
+        if temperature != 0:
+            if key is None:
+                raise ValueError("sampled decoding needs a key (an int seed "
+                                 "or threefry key data)")
+            keys = threefry.device_keys(_step_keys(key, max_new), dev)
+            # a device scalar (a true division, as the reference's; made
+            # on the device, no copy from the host)
+            temp = torch.full((), temperature, dtype=torch.float32,
+                              device=dev)
         caches, logits = do_prefill(params, init_caches(b, total, dev),
                                     prompt)
         toks, seen = [], []
@@ -1247,8 +1260,7 @@ def transformer_generate(cfg: TransformerConfig):
             if temperature == 0:
                 tok = filt.argmax(dim=-1)
             else:
-                tok = _draw(torch.softmax(filt / temperature, dim=-1),
-                            generator)
+                tok = threefry.categorical(filt / temp, keys[i])
             tok = tok.to(prompt.dtype)
             toks.append(tok)
             logits, caches = forward_one(params, caches, tok, tp + i)
@@ -1367,7 +1379,7 @@ def transformer_speculative_generate(
     (``quantize_decode_params(params, cfg)`` with ``draft_cfg=None``).
 
     Returns ``generate(params, draft_params, prompt, max_new, draft_k=4,
-    temperature=1.0, top_k=None, approx_top_k=False, generator=None,
+    temperature=1.0, top_k=None, approx_top_k=False, key=None,
     return_stats=False, return_logits=False) -> tokens (1, Tp +
     max_new)``; ``return_logits`` adds the verify logits each emitted
     token was taken from, (max_new, 1, V) as ``transformer_generate``
@@ -1387,9 +1399,14 @@ def transformer_speculative_generate(
     inside one ``lax.while_loop``; here it is on the host: one host sync a
     round, reading the accepted count.
 
-    Sampling draws from ``generator`` in a fixed order each round: d_1,
-    the k-1 later draft tokens, u (B, k), the correction token (at
-    temperature 0 only u is drawn)."""
+    Sampling consumes the reference's ``key`` (an int seed or (2,) uint32
+    key data) as it does: each round ``key, kd1, kdr, ku, kc = split(key,
+    5)``; d_1 draws with kd1, draft step i with ``kdr, ks = split(kdr)``'s
+    ks, u is ``uniform(ku, (B, k))``, the correction token draws with kc,
+    each draw ``categorical(log(p + 1e-30))`` through the threefry draw
+    kernel. The chain is computed on the host (u too: (1, k) floats) and
+    uploaded; at temperature 0 the draws are argmaxes and only u is
+    used."""
     draft_cfg = draft_cfg or cfg
     _, t_init, t_prefill, t_cast = _decode_builder(cfg)
     t_chunk = _chunk_builder(cfg)
@@ -1400,7 +1417,7 @@ def transformer_speculative_generate(
     def generate(params, draft_params, prompt, max_new: int,
                  draft_k: int = 4, temperature: float = 1.0,
                  top_k: int | None = None, approx_top_k: bool = False,
-                 generator=None, return_stats: bool = False,
+                 key=None, return_stats: bool = False,
                  return_logits: bool = False):
         b, tp = prompt.shape
         if b != 1:
@@ -1435,10 +1452,16 @@ def transformer_speculative_generate(
         def probs(logits):
             return _filtered_probs(logits, temperature, top_k)
 
-        def pick(p):
+        def pick(p, kk):
             if temperature == 0:
                 return p.argmax(dim=-1)
-            return _draw(p, generator)
+            return threefry.categorical(torch.log(p + 1e-30),
+                                        threefry.device_keys(kk, dev))
+
+        if temperature != 0 and key is None:
+            raise ValueError("sampled decoding needs a key (an int seed or "
+                             "threefry key data)")
+        key = threefry.as_key(0 if key is None else key)
 
         buf = torch.zeros((b, total + k + 1), dtype=prompt.dtype,
                           device=dev)
@@ -1446,21 +1469,23 @@ def transformer_speculative_generate(
         c_prev2, c_prev = prompt[:, -2], prompt[:, -1]
         pos, accepted, seen = tp, [], []
         while pos < total:
+            key, kd1, kdr, ku, kc = threefry.split(key, 5)
             pair = torch.stack([c_prev2, c_prev], dim=1)
             lg2, _ = d_chunk(draft_params, caches_d, pair, pos - 2)
             qs = [probs(lg2[:, 1])]
-            ds = [pick(qs[0])]
+            ds = [pick(qs[0], kd1)]
             for i in range(1, k):
+                kdr, ks = threefry.split(kdr)
                 lg, _ = d_fwd1(draft_params, caches_d, ds[-1], pos - 1 + i)
                 qs.append(probs(lg))
-                ds.append(pick(qs[-1]))
+                ds.append(pick(qs[-1], ks))
             ds_t = torch.stack(ds, dim=1).to(prompt.dtype)
             vlg, _ = t_chunk(params, caches_t,
                              torch.cat([c_prev[:, None], ds_t], dim=1),
                              pos - 1)
-            u = torch.rand((b, k), generator=generator, device=dev)
+            u = upload(threefry.uniform(ku, (b, k)).numpy(), dev)
             n_dev, ctok = _accept_round(probs(vlg), torch.stack(qs, dim=1),
-                                        ds_t, u, pick)
+                                        ds_t, u, lambda p: pick(p, kc))
             n = int(n_dev[0])  # the round's one host sync
             ctok = ctok.to(prompt.dtype)
             buf[:, pos:pos + n] = ds_t[:, :n]

@@ -1,6 +1,6 @@
 """Continuous-batching serving for the port: slot and block-paged pools,
-the prefix cache, scheduler, engine, fault injection, metrics and the HTTP
-server."""
+the prefix cache, scheduler, engine, the grammar and sampling surface,
+fault injection, metrics and the HTTP server."""
 
 from deeplearning4j_tpu_torch.serving.cache_pool import (
     KVSlotPool,
@@ -12,6 +12,12 @@ from deeplearning4j_tpu_torch.serving.faults import (
     FaultInjector,
     PermanentFault,
     TransientFault,
+)
+from deeplearning4j_tpu_torch.serving.grammar import (
+    GrammarCache,
+    GrammarError,
+    GrammarTable,
+    StopMatcher,
 )
 from deeplearning4j_tpu_torch.serving.metrics import ServingMetrics
 from deeplearning4j_tpu_torch.serving.prefix_cache import PrefixCache, Segment
@@ -26,7 +32,8 @@ from deeplearning4j_tpu_torch.serving.server import ServingServer
 
 __all__ = [
     "AdmissionError", "Backpressure", "EngineCrash", "FaultInjector",
-    "KVSlotPool", "PagedKVPool", "PermanentFault", "PrefixCache", "Request",
+    "GrammarCache", "GrammarError", "GrammarTable", "KVSlotPool",
+    "PagedKVPool", "PermanentFault", "PrefixCache", "Request",
     "RequestScheduler", "RequestStatus", "Segment", "ServingEngine",
-    "ServingMetrics", "ServingServer", "TransientFault",
+    "ServingMetrics", "ServingServer", "StopMatcher", "TransientFault",
 ]

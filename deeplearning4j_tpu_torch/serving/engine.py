@@ -33,13 +33,35 @@ streams equal each request decoded alone wherever the two paths' logits
 agree bitwise (on the CPU, and on the card except where the library's
 matmul reduces a batch of 1 and of n_slots in different orders).
 
-Sampled decoding: each slot gets a seed from the engine's
-``torch.Generator`` in admission order (drawn at seating; with piggyback,
-for every admission when its plan executes, so a deferred seating keeps
-the blocking order), and token i is drawn by Gumbel-max with noise that is
-a pure function of (slot seed, position), so a stream does not depend on
-batch composition, K, deferral or crash replay. It is not the reference's
-threefry stream.
+Sampled decoding is the reference's key stream (:mod:`..ops.threefry`):
+the engine's master key is ``key(rng_seed)``; each slot gets ``key, sub =
+split(key)``'s ``sub`` in admission order (split at seating; with
+piggyback, for every admission when its plan executes, so a deferred
+seating keeps the blocking order), and token i of a slot is
+``categorical(fold_in(slot_key, position), filtered / temperature)``,
+drawn by the threefry draw kernel. A stream is a pure function of (slot
+key, position): it does not depend on batch composition, K, deferral or
+crash replay, and it is the reference engine's stream for the same seed
+and admission order wherever the two frameworks' logits agree.
+
+Sampling surface (``sampling_surface=True``, the reference's): per-request
+temperature, top-k, top-p, stop sequences, logit bias, logprobs and a
+``response_format`` grammar (a regex or a JSON schema compiled to a
+token-level DFA, :mod:`.grammar`). Every decode dispatch then runs the
+masked step: the grammar mask of each slot's FSM state, the logit bias,
+the logprob source, the per-slot top-k, temperature and top-p, and the
+draw, each behind a ``where`` at its neutral value, with the FSM advanced
+in-program off the chosen token. A stage no live slot uses this horizon
+(the host knows every slot's settings) is skipped, which gives the same
+bits as the ``where``. Logprobs ride the one token readback as a packed
+int32 aux block; stop sequences are matched on the host at readback. The
+surface is gated by a construction-time probe (``masked_parity="auto"``):
+the masked step with every stage computed on neutral settings must equal
+the base step bitwise, greedy and sampled, with the FSM held at 0, or the
+engine logs ``masked_parity_probe_failed`` and serves without it. Under
+``approx_top_k`` the surface stays off (``sampling_surface_disabled``),
+as in the reference. Requests that use the surface are rejected at submit
+by an engine without it.
 
 int8 serving needs nothing of the engine: a quantized params tree
 (``quantize_decode_params``) and ``decode_int8`` make the pooled cache the
@@ -97,7 +119,7 @@ recorded tokens through the decode step, exact by construction) or
 CHUNKED (one pass over prompt + tokens; ``chunked_replay="auto"`` probes
 it bitwise against stepwise once and falls back). The un-synced horizon
 and its event are dropped, deferred piggyback admissions are requeued in
-order with their seeds, and :meth:`run` recovers up to ``max_restarts``
+order with their keys, and :meth:`run` recovers up to ``max_restarts``
 times.
 
 Piggyback (``piggyback=True``): an admission whose uncached suffix exceeds
@@ -112,12 +134,13 @@ fused program; eager PyTorch has no such fusion, so the port runs the
 chunk program itself and has nothing to probe.)
 
 Left for later slices: batched admission, the adaptive horizon, persisted
-probe verdicts, the flight recorder and tracer, KV wire import/export, the
-grammar/sampling surface, LoRA and tensor parallelism.
+probe verdicts, the flight recorder and tracer, KV wire import/export,
+streaming responses, LoRA and tensor parallelism.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import threading
 import time
@@ -132,6 +155,7 @@ from deeplearning4j_tpu_torch.models.transformer import (
     _chunk_builder,
     _decode_builder,
     _kv_planes,
+    _stable_top_k,
     _top_k_filter,
     check_supported,
     kv_map,
@@ -139,12 +163,23 @@ from deeplearning4j_tpu_torch.models.transformer import (
     paged_slot_scatter,
     params_to,
 )
+from deeplearning4j_tpu_torch.ops import threefry
 from deeplearning4j_tpu_torch.serving.cache_pool import KVSlotPool, PagedKVPool
 from deeplearning4j_tpu_torch.serving.faults import (
     EngineCrash,
     FaultInjector,
     PermanentFault,
     TransientFault,
+)
+from deeplearning4j_tpu_torch.serving.grammar import (
+    MAX_LOGIT_BIAS,
+    MAX_TOP_LOGPROBS,
+    GrammarCache,
+    GrammarError,
+    GrammarTable,
+    StopMatcher,
+    default_token_bytes,
+    parse_response_format,
 )
 from deeplearning4j_tpu_torch.serving.metrics import ServingMetrics
 from deeplearning4j_tpu_torch.serving.prefix_cache import PrefixCache, Segment
@@ -163,57 +198,32 @@ PREFILL_MAX_BUCKET = 128
 #: finished streams kept for ``results`` / ``pop_result`` (oldest evicted)
 RESULTS_CAP = 1024
 
-_M32 = 0xFFFFFFFF
-
 _log = logging.getLogger(__name__)
-
-
-def _mul32(x, c: int):
-    """(x * c) mod 2**32 for int64 tensors holding 32-bit values, with no
-    intermediate above 2**49."""
-    lo = x * (c & 0xFFFF)
-    hi = ((x * (c >> 16)) & 0xFFFF) << 16
-    return (lo + hi) & _M32
-
-
-def _hash32(x):
-    """A 32-bit integer mixer (lowbias32) on int64 tensors."""
-    x = x & _M32
-    x = x ^ (x >> 16)
-    x = _mul32(x, 0x7FEB352D)
-    x = x ^ (x >> 15)
-    x = _mul32(x, 0x846CA68B)
-    return x ^ (x >> 16)
-
-
-def _gumbel_noise(seeds, pos, vocab: int):
-    """(S, vocab) Gumbel noise, a pure function of each slot's seed, its
-    position and the token id."""
-    v = torch.arange(vocab, device=seeds.device, dtype=torch.int64)[None]
-    h = _hash32(_hash32(_hash32(v) ^ pos.long()[:, None]) ^ seeds[:, None])
-    u = ((h >> 8).double() + 0.5) * (1.0 / (1 << 24))
-    return -torch.log(-torch.log(u)).float()
 
 
 # -- program factories ----------------------------------------------------------
 
 def build_step_program(fwd1, horizon: int, temperature: float,
-                       top_k: int | None):
+                       top_k: int | None, device):
     """K fused decode substeps. The carry — caches (updated in place),
     pending logits, positions, active mask, remaining budget — stays on the
     device; a slot that emits its EOS or spends its budget stops advancing
-    for the rest of the horizon."""
+    for the rest of the horizon. Sampled tokens are
+    ``categorical(fold_in(key_s, pos_s), filtered / temperature)`` with the
+    slots' (S, 2) key words ``keys``."""
+    # a device scalar: a true division (CUDA multiplies by the reciprocal
+    # of a host number), as the reference's and the masked step's
+    temp = torch.full((), float(temperature), dtype=torch.float32,
+                      device=device)
 
-    def step(params, caches, logits, pos, active, budget, eos, seeds):
+    def step(params, caches, logits, pos, active, budget, eos, keys):
         toks_all = []
         for _ in range(horizon):
             filt = _top_k_filter(logits, top_k)
             if temperature == 0:
                 toks = filt.argmax(dim=-1).to(torch.int32)
             else:
-                noise = _gumbel_noise(seeds, pos, filt.shape[-1])
-                toks = (filt / temperature + noise).argmax(dim=-1).to(
-                    torch.int32)
+                toks = threefry.categorical(filt / temp, keys, pos)
             # inactive slots decode token 0 at their frozen position; the
             # row they write stays in their own slab (paged: their blocks,
             # or the re-zeroed sentinel) and the next admission rewrites
@@ -227,6 +237,145 @@ def build_step_program(fwd1, horizon: int, temperature: float,
         return caches, logits, pos, active, budget, torch.stack(toks_all, 1)
 
     return step
+
+
+@dataclasses.dataclass(frozen=True)
+class SurfaceUse:
+    """Which masked-step stages some live slot uses this horizon (the host
+    knows every slot's settings). A stage left out is one whose ``where``
+    would return its input bitwise; the parity probe runs them all."""
+
+    mask: bool = True
+    bias: bool = True
+    top_k: bool = True
+    top_p: bool = True
+    sample: bool = True
+    logprobs: bool = True
+
+
+def _dyn_top_k_filter(logits, top_ks):
+    """Per-slot top-k with a k vector (the reference's, engine.py:439): the
+    kth largest value as the ascending sort's entry V - k, the threshold
+    ``_top_k_filter`` takes, so the rows are bitwise its rows. k 0 is the
+    no-filter sentinel, folded out."""
+    vs = logits.shape[-1]
+    srt = torch.sort(logits, dim=-1).values
+    idx = (vs - top_ks.long()).clamp(0, vs - 1)
+    kth = srt.gather(1, idx[:, None])
+    filt = logits.masked_fill(logits < kth, float("-inf"))
+    return torch.where((top_ks > 0)[:, None], filt, logits)
+
+
+def _top_p_filter(scaled, top_ps):
+    """Per-slot nucleus filter on the temperature-scaled logits (the
+    reference's, engine.py:455): keep the smallest descending-probability
+    prefix whose mass reaches top_p (the crossing token kept). p 1 is the
+    no-filter sentinel, folded out."""
+    srt = torch.sort(scaled, dim=-1, descending=True).values
+    probs = torch.softmax(srt, dim=-1)
+    keep = (torch.cumsum(probs, dim=-1) - probs) < top_ps[:, None]
+    cut = torch.where(keep, srt, float("inf")).amin(dim=-1, keepdim=True)
+    out = scaled.masked_fill(scaled < cut, float("-inf"))
+    return torch.where((top_ps < 1.0)[:, None], out, scaled)
+
+
+def _masked_draw(logits, pos, active, gstate, keys, temps, top_ks, top_ps,
+                 bias_idx, bias_val, mask_words, n_logprobs: int,
+                 use: SurfaceUse):
+    """One masked substep's draw, in the reference's order (engine.py:472):
+    grammar mask, logit bias, the logprob source, per-slot top-k,
+    temperature, top-p, then greedy or sampled. Every control sits behind a
+    ``where`` at its neutral value (state 0, no bias rows, k 0, p 1, the
+    engine's temperature), so a slot that uses none of them draws the base
+    step's token. Greedy slots still feed their row to the draw (the
+    kernel draws every row) and ``where(temps > 0)`` picks.
+
+    Returns ``(toks, aux)``: with ``use.logprobs`` aux is the packed int32
+    row ``[tok, bits(chosen logprob), top ids..., bits(top logprobs)...]``
+    (ties to the lower id, as ``lax.top_k``), else ``toks[:, None]``."""
+    vs = logits.shape[-1]
+    base = logits
+    if use.mask:
+        # each slot's packed row for its FSM state, 32 tokens a word; row
+        # 0 is the all-permitted sentinel and gstate > 0 folds it out
+        rows = mask_words[gstate.long()]
+        shifts = torch.arange(32, dtype=torch.int32, device=rows.device)
+        bits = (rows[:, :, None] >> shifts) & 1
+        allowed = bits.reshape(rows.shape[0], -1)[:, :vs] != 0
+        base = base.masked_fill((gstate > 0)[:, None] & ~allowed,
+                                float("-inf"))
+    if use.bias:
+        # idx < 0 are padding; the has_bias fold keeps -0.0 logits (base +
+        # 0.0 would make them +0.0)
+        has_bias = (bias_idx >= 0).any(dim=-1, keepdim=True)
+        idx = bias_idx.clamp(0, vs - 1).long()
+        val = torch.where(bias_idx >= 0, bias_val, 0.0)
+        delta = torch.zeros_like(base).scatter_add_(1, idx, val)
+        base = torch.where(has_bias, base + delta, base)
+    # the logprob source: the masked and biased distribution, before the
+    # sampler's shaping
+    lp = torch.log_softmax(base, dim=-1) if use.logprobs else None
+    filt = _dyn_top_k_filter(base, top_ks) if use.top_k else base
+    toks = filt.argmax(dim=-1).to(torch.int32)
+    if use.sample:
+        safe_t = torch.where(temps > 0, temps, 1.0)
+        scaled = filt / safe_t[:, None]
+        final = _top_p_filter(scaled, top_ps) if use.top_p else scaled
+        sampled = threefry.categorical(final.contiguous(), keys, pos)
+        toks = torch.where(temps > 0, sampled, toks)
+    toks = torch.where(active, toks, 0)
+    if not use.logprobs:
+        return toks, toks[:, None]
+    lp_cho = lp.gather(1, toks[:, None].long())
+    tv, ti = _stable_top_k(lp, n_logprobs)
+    aux = torch.cat([toks[:, None], lp_cho.view(torch.int32),
+                     ti.to(torch.int32), tv.contiguous().view(torch.int32)],
+                    dim=1)
+    return toks, aux
+
+
+def build_masked_step_program(fwd1, horizon: int, n_logprobs: int):
+    """The grammar-constrained, per-request-sampling variant of
+    ``build_step_program`` (the reference's, engine.py:537): the same K
+    substeps with each slot's FSM state ``gstate`` threaded through them.
+    Each substep masks before the draw and advances the state off the
+    chosen token in-program (``trans_tab`` holds 0 for a disallowed
+    transition; inactive and unconstrained slots hold their state), so a
+    horizon of K > 1 stays constrained with no host round trip. Returns the
+    packed aux block (slots, K, A) in place of the token block; [:, :, 0]
+    is the tokens."""
+
+    def mstep(params, caches, logits, pos, active, budget, eos, gstate,
+              keys, temps, top_ks, top_ps, bias_idx, bias_val, mask_words,
+              trans_tab, use: SurfaceUse):
+        aux_all = []
+        for _ in range(horizon):
+            toks, aux = _masked_draw(logits, pos, active, gstate, keys,
+                                     temps, top_ks, top_ps, bias_idx,
+                                     bias_val, mask_words, n_logprobs, use)
+            if use.mask:
+                nxt = trans_tab[gstate.long(), toks.long()]
+                gstate = torch.where(active & (gstate > 0), nxt, gstate)
+            logits, caches = fwd1(params, caches, toks, pos)
+            pos = torch.where(active, pos + 1, pos)
+            budget = torch.where(active, budget - 1, budget)
+            active = active & (toks != eos) & (budget > 0)
+            aux_all.append(aux)
+        return (caches, logits, pos, active, budget, gstate,
+                torch.stack(aux_all, 1))
+
+    return mstep
+
+
+def build_gstate_set_program():
+    """Seat one slot's grammar state (admission; by ``fill_``, no host
+    sync)."""
+
+    def gstate_set(gstate, slot: int, val: int):
+        gstate[slot].fill_(val)
+        return gstate
+
+    return gstate_set
 
 
 def build_replay_program(fwd1):
@@ -347,17 +496,26 @@ class _SlotState:
     """Host-side record for one occupied slot: what replay rebuilds it
     from."""
 
-    __slots__ = ("req", "tokens", "t_first_token", "gen", "seed", "segs")
+    __slots__ = ("req", "tokens", "t_first_token", "gen", "key_data", "segs",
+                 "gkey", "gstate0", "stop_matcher", "lp_out")
 
-    def __init__(self, req: Request, gen: int, seed: int):
+    def __init__(self, req: Request, gen: int, key_data: threefry.Key):
         self.req = req
         self.tokens: list[int] = []
         self.t_first_token: float | None = None
         self.gen = gen  # pool generation at admission (reuse detection)
-        self.seed = seed  # sampling seed (re-seated by replay)
+        # the slot's sampling key (re-seated by replay)
+        self.key_data = key_data
         # prefix-cache segments this request pins (the one its admission
         # read and the ones its prompt inserted), unpinned at retirement
         self.segs: list[Segment] = []
+        # sampling-surface state: the seated grammar's key and absolute
+        # start state (recovery re-walks the table over the tokens), the
+        # stop matcher and the logprob records
+        self.gkey: str | None = None
+        self.gstate0 = 0
+        self.stop_matcher: StopMatcher | None = None
+        self.lp_out: list | None = None
 
 
 class _AdmitPlan:
@@ -409,6 +567,14 @@ class _Inflight:
         self.t_dispatch = t_dispatch
 
 
+def _leaves(tree) -> list[torch.Tensor]:
+    """The tensors of a caches operand (a tensor, or nested dicts of
+    them), in key order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [t for k in sorted(tree) for t in _leaves(tree[k])]
+
+
 def _eos_of(req: Request) -> int:
     return _NO_EOS if req.eos_token is None else int(req.eos_token)
 
@@ -419,11 +585,15 @@ class ServingEngine:
     ``params`` is the float params tree (any device; moved to the engine's
     device and cast once to the compute dtype). The engine runs on
     ``device`` — ``cuda`` unless the caller passes ``device="cpu"``.
-    Sampling settings are engine-wide; ``temperature=0`` decodes greedily.
-    ``approx_top_k`` is the reference's flag, accepted and ignored: off
-    the TPU its threshold is the exact one, which the port computes
-    either way (``_top_k_filter``). The reference also turns its grammar
-    surface off under the flag; the port has no grammar surface yet.
+    Sampling settings are engine-wide; ``temperature=0`` decodes greedily;
+    ``rng_seed`` seeds the master key. ``approx_top_k`` is the reference's
+    flag, accepted and ignored by the sampler: off the TPU its threshold is
+    the exact one, which the port computes either way (``_top_k_filter``);
+    as in the reference it keeps the sampling surface off.
+    ``sampling_surface`` arms the per-request surface (``grammar_states``
+    DFA table rows, ``grammar_cache`` a compile-cache directory or a
+    :class:`GrammarCache`) behind the ``masked_parity`` probe ("auto";
+    True trusts it, False leaves the surface off).
     ``decode_horizon`` (K) decode steps are fused into one dispatch.
     Prompts are padded to power-of-two buckets up to
     ``prefill_max_bucket`` and chunked beyond it. ``paged`` stores the KV
@@ -467,6 +637,10 @@ class ServingEngine:
         paged_parity: bool | str = "auto",
         piggyback: bool = False,
         prefill_budget: int | None = None,
+        sampling_surface: bool = False,
+        masked_parity: bool | str = "auto",
+        grammar_states: int = 256,
+        grammar_cache: str | GrammarCache | None = None,
     ):
         check_supported(cfg)
         self.device = resolve_device(device)
@@ -535,7 +709,7 @@ class ServingEngine:
         self._min_bucket = min(8, mb)
 
         self._step_fn = build_step_program(
-            fwd1, self.decode_horizon, temperature, top_k)
+            fwd1, self.decode_horizon, temperature, top_k, self.device)
         self._replay_fn = build_replay_program(fwd1)
         self._prefill_fn = build_prefill_program(do_prefill)
         self._chunk_fn = build_chunk_program(_chunk_builder(cfg))
@@ -548,14 +722,14 @@ class ServingEngine:
 
         # per-slot decode state, DEVICE-resident
         self._reset_device_state()
-        # per-slot sampling seeds, drawn in admission order from the
-        # engine's generator (host-side; snapshotted per dispatch)
-        self._rng = torch.Generator().manual_seed(rng_seed)
-        self._slot_seeds = np.zeros((n_slots,), np.int64)
-        # piggyback engines draw every plan's seed when it executes, so a
+        # the master key; each admission splits a slot key off it, in
+        # admission order (host-side; snapshotted per dispatch)
+        self._key = threefry.key(rng_seed)
+        self._slot_keys: list[threefry.Key] = [(0, 0)] * n_slots
+        # piggyback engines split every plan's key when it executes, so a
         # seating deferred across horizons keeps the blocking order; a
-        # requeued admission keeps its seed
-        self._presplit_seeds: dict[str, int] = {}
+        # requeued admission keeps its key
+        self._presplit_keys: dict[str, threefry.Key] = {}
 
         self._slots: list[_SlotState | None] = [None] * n_slots
         self._inflight: _Inflight | None = None
@@ -593,6 +767,56 @@ class ServingEngine:
         self._pending: deque[_PendingPrefill] = deque()
         self._pb_did_work = False
         self._register_gauges(piggyback)
+        self._init_surface(sampling_surface, masked_parity, grammar_states,
+                           grammar_cache, approx_top_k)
+
+    def _init_surface(self, requested: bool, masked_parity, grammar_states,
+                      grammar_cache, approx_top_k: bool) -> None:
+        """The sampling surface's host mirrors (written at seating,
+        snapshotted per dispatch, re-seated at recovery; ``_slot_gstate``
+        holds each slot's seat state, the live state is the device's
+        ``_dgstate``), then the probe that arms it."""
+        n = self.n_slots
+        self._surface = False
+        self._gtable: GrammarTable | None = None
+        self.grammar_cache: GrammarCache | None = None
+        self._n_logprobs = min(MAX_TOP_LOGPROBS, self.cfg.vocab_size)
+        self._masked_fn = build_masked_step_program(
+            self._fwd1, self.decode_horizon, self._n_logprobs)
+        self._gstate_set_fn = build_gstate_set_program()
+        # device copies of the grammar table, uploaded when the host
+        # table's version moves (seats happen between horizons)
+        self._gtab_version = -1
+        self._dmask_tab = self._dtrans_tab = None
+        self._slot_gstate = np.zeros((n,), np.int32)
+        self._slot_temps = np.full((n,), self.temperature, np.float32)
+        self._slot_topks = np.full((n,), int(self.top_k or 0), np.int32)
+        self._slot_topps = np.ones((n,), np.float32)
+        self._slot_bias_idx = np.full((n, MAX_LOGIT_BIAS), -1, np.int32)
+        self._slot_bias_val = np.zeros((n, MAX_LOGIT_BIAS), np.float32)
+        if not requested or masked_parity is False:
+            return
+        if approx_top_k:
+            # the reference's rule: approx_max_k has no per-slot k form
+            # with the same ties, so surface requests are rejected
+            _log.warning("sampling_surface_disabled reason=approx_top_k")
+            return
+        self._gtable = GrammarTable(max(2, int(grammar_states)),
+                                    self.cfg.vocab_size)
+        if masked_parity is not True and not self._probe_masked_parity():
+            self._gtable = None
+            _log.warning("masked_parity_probe_failed fallback=sampling "
+                         "surface disabled")
+            return
+        self._surface = True
+        self._token_bytes = default_token_bytes(self.cfg.vocab_size)
+        self.grammar_cache = (grammar_cache
+                              if isinstance(grammar_cache, GrammarCache)
+                              else GrammarCache(grammar_cache))
+        self.metrics.registry.gauge(
+            "serve_grammar_table_rows",
+            "Grammar DFA table rows in use (incl. the unconstrained "
+            "sentinel row).").set_function(lambda: self._gtable.rows_used)
 
     def _register_gauges(self, piggyback: bool) -> None:
         reg = self.metrics.registry
@@ -655,7 +879,7 @@ class ServingEngine:
 
     def _reset_device_state(self) -> None:
         """Fresh per-slot device state: pending logits, positions, active
-        bits, budgets and EOS ids."""
+        bits, budgets, EOS ids and grammar states."""
         n, dev = self.n_slots, self.device
         self._logits = torch.zeros((n, self.cfg.vocab_size),
                                    dtype=torch.float32, device=dev)
@@ -664,6 +888,7 @@ class ServingEngine:
         self._dbudget = torch.zeros((n,), dtype=torch.int32, device=dev)
         self._deos = torch.full((n,), _NO_EOS, dtype=torch.int32,
                                 device=dev)
+        self._dgstate = torch.zeros((n,), dtype=torch.int32, device=dev)
 
     # -- buckets -------------------------------------------------------------
 
@@ -723,11 +948,39 @@ class ServingEngine:
                 f"({self.cfg.vocab_size})")
         if len(req.prompt) and int(req.prompt.min()) < 0:
             raise AdmissionError(f"request {req.id}: negative token id")
+        if req.uses_sampling_surface:
+            self._check_surface_request(req)
         try:
             return self.scheduler.submit(req)
         except Backpressure:
             self.metrics.record_backpressure()
             raise
+
+    def _check_surface_request(self, req: Request) -> None:
+        """Submit-time checks of a request that uses the sampling surface;
+        compiles (or finds) its grammar."""
+        if not self._surface:
+            raise AdmissionError(
+                f"request {req.id}: sampling-surface fields (temperature/"
+                f"top_k/top_p/stop/logit_bias/logprobs/response_format) "
+                f"need an engine built with sampling_surface=True")
+        if req.response_format is None:
+            return
+        if req.eos_token is None:
+            raise AdmissionError(
+                f"request {req.id}: response_format requires eos_token "
+                f"(grammars terminate by permitting EOS in accepting "
+                f"states)")
+        kind, spec = parse_response_format(req.response_format)
+        try:
+            cg, how = self.grammar_cache.get_or_compile(
+                kind, spec, self._token_bytes, req.eos_token,
+                max_states=self._gtable.capacity - 1)
+        except GrammarError as e:
+            self.metrics.record_grammar_compile("error")
+            raise AdmissionError(f"request {req.id}: {e}") from None
+        self.metrics.record_grammar_compile(how)
+        req._grammar = cg
 
     @property
     def results(self) -> dict[str, np.ndarray]:
@@ -804,6 +1057,8 @@ class ServingEngine:
             for seg in st.segs:
                 self.prefix_cache.unpin(seg)
         st.segs = []
+        if self._surface:
+            self._clear_surface(slot, st)
         self._slots[slot] = None
         if deactivate:
             self._dactive = self._deact_fn(self._dactive, slot)
@@ -812,7 +1067,7 @@ class ServingEngine:
 
     def _retire_unadmitted(self, req: Request, status: RequestStatus,
                            error: str | None = None) -> None:
-        self._presplit_seeds.pop(req.id, None)
+        self._presplit_keys.pop(req.id, None)
         req.status = status
         req.error = error
         self.metrics.record_outcome(status)
@@ -1107,16 +1362,18 @@ class ServingEngine:
 
     def _seat(self, pl: _AdmitPlan) -> None:
         """Host bookkeeping that makes an executed plan a live slot (the
-        sampling seed is drawn here, in admission order, unless piggyback
-        drew it when the plan executed)."""
+        sampling key is split here, in admission order, unless piggyback
+        split it when the plan executed)."""
         req, slot = pl.req, pl.slot
-        seed = self._presplit_seeds.pop(req.id, None)
-        if seed is None:
-            seed = self._draw_seed()
-        self._slot_seeds[slot] = seed
-        st = _SlotState(req, self.pool.generation(slot), seed)
+        kd = self._presplit_keys.pop(req.id, None)
+        if kd is None:
+            kd = self._split_key()
+        self._slot_keys[slot] = kd
+        st = _SlotState(req, self.pool.generation(slot), kd)
         if pl.seg is not None:
             st.segs.append(pl.seg)
+        if self._surface:
+            self._seat_surface(slot, st, req)
         self._slots[slot] = st
         pl.handled = True
         req.status = RequestStatus.RUNNING
@@ -1124,8 +1381,93 @@ class ServingEngine:
         if req.arrival_time is not None:
             self.metrics.record_admitted(time.perf_counter() - req.arrival_time)
 
-    def _draw_seed(self) -> int:
-        return int(torch.randint(0, 1 << 31, (1,), generator=self._rng))
+    def _split_key(self) -> threefry.Key:
+        """``self._key, sub = split(self._key)``; returns ``sub``."""
+        self._key, sub = threefry.split(self._key)
+        return sub
+
+    def _sampler_rows(self, slot: int, req: Request) -> None:
+        """A slot's sampler mirrors from its request (the engine's values
+        where it sets none)."""
+        self._slot_temps[slot] = (req.temperature if req.temperature
+                                  is not None else self.temperature)
+        self._slot_topks[slot] = (req.top_k if req.top_k is not None
+                                  else int(self.top_k or 0))
+        self._slot_topps[slot] = req.top_p if req.top_p is not None else 1.0
+        self._slot_bias_idx[slot] = -1
+        self._slot_bias_val[slot] = 0.0
+        for j, (ti, tv) in enumerate(sorted((req.logit_bias or {}).items())):
+            self._slot_bias_idx[slot, j] = ti
+            self._slot_bias_val[slot, j] = tv
+
+    def _seat_surface(self, slot: int, st: _SlotState, req: Request) -> None:
+        """Seat a slot's sampling-surface rows: the sampler mirrors, the
+        compiled grammar in the combined table and the device FSM state.
+        A grammar that cannot be seated now (table rows pinned by live
+        requests) cancels the request, and the slot never decodes
+        unconstrained: its active bit is cleared at once."""
+        self._sampler_rows(slot, req)
+        start = 0
+        if req._grammar is not None:
+            try:
+                start = self._gtable.seat(req._grammar)
+                st.gkey = req._grammar.key
+            except GrammarError as e:
+                req.error = str(e)
+                req.cancel()
+                self._dactive = self._deact_fn(self._dactive, slot)
+                _log.warning("grammar_seat_failed req_id=%s error=%s",
+                             req.id, e)
+        st.gstate0 = int(start)
+        self._slot_gstate[slot] = start
+        self._dgstate = self._gstate_set_fn(self._dgstate, slot, int(start))
+        st.stop_matcher = StopMatcher(req.stop) if req.stop else None
+        st.lp_out = [] if req.logprobs else None
+
+    def _clear_surface(self, slot: int, st: _SlotState) -> None:
+        """Retirement's inverse of ``_seat_surface``: release the grammar
+        and reset the mirrors to the engine's values. The device FSM row is
+        left: an inactive slot's state is inert (its tokens are forced to
+        0, its advance gated on active) and the next seat rewrites it."""
+        if st.gkey is not None:
+            self._gtable.release(st.gkey)
+            st.gkey = None
+        self._slot_gstate[slot] = 0
+        self._slot_temps[slot] = self.temperature
+        self._slot_topks[slot] = int(self.top_k or 0)
+        self._slot_topps[slot] = 1.0
+        self._slot_bias_idx[slot] = -1
+        self._slot_bias_val[slot] = 0.0
+        if st.lp_out is not None:
+            st.req.logprobs_out = st.lp_out
+
+    def _reseat_surface(self, slot: int, st: _SlotState) -> None:
+        """Recovery's re-seat of a live slot's surface state: the sampler
+        mirrors from the request, the FSM state re-walked from the seat
+        state over the recorded tokens, the stop matcher rebuilt by
+        pushing them again (a live record holds no completed match)."""
+        self._sampler_rows(slot, st.req)
+        g = int(st.gstate0)
+        for t in st.tokens:
+            g = self._gtable.advance(g, int(t))
+        self._slot_gstate[slot] = g
+        if st.stop_matcher is not None:
+            st.stop_matcher = StopMatcher(st.req.stop)
+            for t in st.tokens:
+                st.stop_matcher.push(int(t))
+
+    def _grammar_device_tables(self):
+        """Device copies of the combined mask and transition tables, made
+        again exactly when the host table's version moved (seats and
+        evictions happen between horizons, so a dispatch never races
+        this). The copies are of snapshots: the host table changes in
+        place."""
+        gt = self._gtable
+        if self._gtab_version != gt.version:
+            self._dmask_tab = self._upload(gt.mask_words.view(np.int32).copy())
+            self._dtrans_tab = self._upload(gt.trans.copy())
+            self._gtab_version = gt.version
+        return self._dmask_tab, self._dtrans_tab
 
     def _admissible_fn(self):
         """The paged admission gate: a request's blocks, beyond those this
@@ -1209,11 +1551,11 @@ class ServingEngine:
                                     pl.req.error)
         deferred: set[int] = set()
         if self._piggyback:
-            # every plan's seed now, in admission order: the blocking
+            # every plan's key now, in admission order: the blocking
             # engine's seating order
             for pl in live:
-                if pl.req.id not in self._presplit_seeds:
-                    self._presplit_seeds[pl.req.id] = self._draw_seed()
+                if pl.req.id not in self._presplit_keys:
+                    self._presplit_keys[pl.req.id] = self._split_key()
             # defer only prompts whose uncached suffix exceeds one bucket:
             # whatever the blocking path serves in one prefill stays there
             for pl in live:
@@ -1240,7 +1582,7 @@ class ServingEngine:
         # bounds; measured with it on and off
         if occupied:
             self.metrics.record_decode_stall(time.perf_counter() - t_exec)
-        # seat in admission order (the seed order), then cache prefixes
+        # seat in admission order (the key order), then cache prefixes
         for pl in live:
             if id(pl) not in deferred:
                 self._seat(pl)
@@ -1375,6 +1717,59 @@ class ServingEngine:
         return True
 
     @torch.no_grad()
+    def _probe_masked_parity(self) -> bool:
+        """One-time probe gating the sampling surface (the reference's
+        ``_probe_masked_parity``, engine.py:3323): does the masked step,
+        every stage computed on neutral settings (FSM state 0, no bias
+        rows, the engine's top-k and temperature, p 1, logprobs gathered),
+        reproduce the base step bitwise — every decode-state leaf, the
+        caches and the tokens — with the FSM held at 0? Both run K
+        substeps from the same scratch state, sampled with the same keys
+        (greedy engines draw too, and pick the argmax)."""
+        n, vs, dev = self.n_slots, self.cfg.vocab_size, self.device
+
+        def state():
+            if self._paged:
+                caches = {"blocks": kv_map(torch.zeros_like,
+                                           self.pool.caches),
+                          "tables": torch.zeros(
+                              (n, self.pool.blocks_per_slot),
+                              dtype=torch.int32, device=dev)}
+            else:
+                caches = self._init_caches(n, self.max_total, dev)
+            lg = torch.arange(n * vs, dtype=torch.float32,
+                              device=dev).reshape(n, vs) % 7.0
+            return (caches, lg,
+                    torch.arange(n, dtype=torch.int32, device=dev) % 3,
+                    torch.ones((n,), dtype=torch.bool, device=dev),
+                    torch.full((n,), 5, dtype=torch.int32, device=dev),
+                    torch.full((n,), _NO_EOS, dtype=torch.int32,
+                               device=dev))
+
+        keys = threefry.device_keys(
+            np.arange(2 * n).reshape(n, 2), dev)
+        out_a = self._step_fn(self.params, *state(), keys)
+        out_b = self._masked_fn(
+            self.params, *state(),
+            torch.zeros((n,), dtype=torch.int32, device=dev), keys,
+            torch.full((n,), self.temperature, dtype=torch.float32,
+                       device=dev),
+            torch.full((n,), int(self.top_k or 0), dtype=torch.int32,
+                       device=dev),
+            torch.ones((n,), dtype=torch.float32, device=dev),
+            torch.full((n, MAX_LOGIT_BIAS), -1, dtype=torch.int32,
+                       device=dev),
+            torch.zeros((n, MAX_LOGIT_BIAS), dtype=torch.float32,
+                        device=dev),
+            *self._grammar_device_tables(), SurfaceUse())
+        return (all(torch.equal(a, b) for a, b in zip(
+                    _leaves(out_a[0]), _leaves(out_b[0])))
+                and all(torch.equal(a, b)
+                        for a, b in zip(out_a[1:5], out_b[1:5]))
+                and torch.equal(out_a[5], out_b[6][:, :, 0])
+                and not bool(out_b[5].any()))
+
+    @torch.no_grad()
     def _probe_prefix_parity(self) -> bool:
         """One-time probe gating hit-path reuse (the reference's
         ``_probe_prefix_parity``, engine.py:3188): are a cached prefix's
@@ -1506,23 +1901,15 @@ class ServingEngine:
         any other escalates to ``EngineCrash``."""
         if not any(st is not None for st in self._slots):
             return None
-        # greedy steps draw nothing: no seed upload
-        seeds = (None if self.temperature == 0
-                 else self._upload(self._slot_seeds.copy()))
         attempt, backoff = 0, self.retry_backoff_s
         t_call = time.perf_counter()
         while True:
             try:
                 if self.faults is not None:
                     self.faults.check("step")
-                # the operand inside the loop: a quarantine below rewrites
-                # a paged table row
-                args = (self.params, self.pool.operand(), self._logits,
-                        self._dpos, self._dactive, self._dbudget, self._deos,
-                        seeds)
-                # the caches are updated in place
-                (_, self._logits, self._dpos, self._dactive,
-                 self._dbudget, toks) = self._step_fn(*args)
+                # inside the loop: a quarantine below rewrites a paged
+                # table row and the slot's surface rows
+                toks = self._run_step()
                 break
             except TransientFault as e:
                 self.metrics.record_retry()
@@ -1556,6 +1943,56 @@ class ServingEngine:
         self.metrics.record_step(len(snaps), len(self.scheduler))
         return _Inflight(host, event, snaps, t_call)
 
+    def _surface_use(self) -> SurfaceUse:
+        """The masked-step stages some live slot uses (from the host
+        mirrors, which seats change only between horizons)."""
+        live = [st for st in self._slots if st is not None]
+        return SurfaceUse(
+            mask=any(st.gkey is not None for st in live),
+            bias=bool((self._slot_bias_idx >= 0).any()),
+            top_k=bool((self._slot_topks > 0).any()),
+            top_p=bool((self._slot_topps < 1.0).any()),
+            sample=bool((self._slot_temps > 0).any()),
+            logprobs=any(st.lp_out is not None for st in live))
+
+    def _run_step(self) -> torch.Tensor:
+        """Dispatch the horizon's step program on the engine's state (the
+        caches are updated in place): the base step, or the masked step
+        when the surface is armed. Returns the (slots, K) token block, or
+        the masked step's aux block."""
+        if not self._surface:
+            # greedy steps draw nothing: no key upload
+            keys = (None if self.temperature == 0
+                    else threefry.device_keys(self._slot_keys, self.device))
+            (_, self._logits, self._dpos, self._dactive, self._dbudget,
+             toks) = self._step_fn(
+                self.params, self.pool.operand(), self._logits, self._dpos,
+                self._dactive, self._dbudget, self._deos, keys)
+            return toks
+        use = self._surface_use()
+        (_, self._logits, self._dpos, self._dactive, self._dbudget,
+         self._dgstate, aux) = self._masked_fn(
+            self.params, self.pool.operand(), self._logits, self._dpos,
+            self._dactive, self._dbudget, self._deos, self._dgstate,
+            *self._surface_operands(use), use)
+        return aux
+
+    def _surface_operands(self, use: SurfaceUse) -> tuple:
+        """The masked step's per-slot operands for ``use``: a stage left
+        out gets None (nothing uploaded for it)."""
+        up = self._upload
+        keys = (threefry.device_keys(self._slot_keys, self.device)
+                if use.sample else None)
+        mask_tab, trans_tab = (self._grammar_device_tables() if use.mask
+                               else (None, None))
+        return (keys,
+                up(self._slot_temps.copy()) if use.sample else None,
+                up(self._slot_topks.copy()) if use.top_k else None,
+                up(self._slot_topps.copy()) if use.top_p else None,
+                up(self._slot_bias_idx.copy()) if use.bias else None,
+                up(self._slot_bias_val.copy()) if use.bias else None,
+                mask_tab, trans_tab)
+
     def _process(self, horizon: _Inflight) -> None:
         """Wait for a horizon's token block and do the host bookkeeping:
         append tokens (replaying the device's EOS/budget stopping rule),
@@ -1565,6 +2002,12 @@ class ServingEngine:
         if horizon.event is not None:
             horizon.event.synchronize()
         toks_host = horizon.toks.numpy()
+        aux_host = None
+        if toks_host.ndim == 3:
+            # the masked step's aux block: [:, :, 0] the tokens, then the
+            # bit patterns of the logprob rows (one readback all the same)
+            aux_host = toks_host if toks_host.shape[2] > 1 else None
+            toks_host = toks_host[:, :, 0]
         now = time.perf_counter()
         self.metrics.record_readback(
             sync_wait_s=now - t_sync,
@@ -1584,11 +2027,38 @@ class ServingEngine:
                         self.metrics.record_first_token(
                             now - req.arrival_time)
                 st.tokens.append(tok)
+                if st.lp_out is not None and aux_host is not None:
+                    st.lp_out.append(self._logprob_record(
+                        aux_host[slot, k], tok, req.top_logprobs))
+                if st.stop_matcher is not None:
+                    _, stripped = st.stop_matcher.push(tok)
+                    if stripped:
+                        # the matched stop sequence is not output: the
+                        # device did not freeze the slot, so deactivate
+                        del st.tokens[-stripped:]
+                        if st.lp_out is not None:
+                            del st.lp_out[-stripped:]
+                        self.metrics.record_stop_hit()
+                        self._retire(slot, RequestStatus.FINISHED, now,
+                                     deactivate=True)
+                        break
                 if tok == req.eos_token or len(st.tokens) >= req.max_new:
                     finished = True
                     break  # the device mask froze this slot here too
             if finished:
                 self._retire(slot, RequestStatus.FINISHED, now)
+
+    def _logprob_record(self, row: np.ndarray, tok: int, n_top: int) -> dict:
+        """One token's logprob record from its aux row: the chosen token's
+        logprob and, with ``n_top``, the top alternatives."""
+        nl = self._n_logprobs
+        rec = {"token": tok, "logprob": float(row[1:2].view(np.float32)[0])}
+        if n_top:
+            ids = row[2:2 + nl][:n_top]
+            vals = row[2 + nl:2 + 2 * nl].view(np.float32)[:n_top]
+            rec["top_logprobs"] = [{"token": int(i), "logprob": float(v)}
+                                   for i, v in zip(ids, vals)]
+        return rec
 
     @torch.no_grad()
     def step(self) -> bool:
@@ -1634,7 +2104,7 @@ class ServingEngine:
         crash. The un-synced horizon (its pinned buffer and event) is
         dropped unread: its tokens were never recorded, so the replayed run
         makes them again. Deferred admissions go back to the queue front in
-        order, keeping their seeds. The pool, the prefix region and tree,
+        order, keeping their keys. The pool, the prefix region and tree,
         the paged tables and the slot state are re-created zeroed; each
         live slot is rebuilt from its host record by chunked or stepwise
         replay (``chunked_replay``). Queued requests are untouched.
@@ -1660,7 +2130,13 @@ class ServingEngine:
             for _, st in live:
                 st.segs = []
         for slot, st in live:
-            self._slot_seeds[slot] = st.seed
+            self._slot_keys[slot] = st.key_data
+            if self._surface:
+                self._reseat_surface(slot, st)
+        if self._surface:
+            # the device tables shared the crash: upload them again
+            self._gtab_version = -1
+            self._dgstate = self._upload(self._slot_gstate.copy())
         self.last_recover_mode = (None if not live
                                   else "chunked" if chunked else "stepwise")
         if chunked:

@@ -116,6 +116,17 @@ class ServingMetrics:
             "Wall seconds occupied decode slots sat stalled behind "
             "admission prefill work.",
         )
+        self._c_grammar_compiles = reg.counter(
+            "serve_grammar_compiles_total",
+            "Grammar constraint resolutions at submit, by result "
+            "(hit = LRU/disk cache, miss = fresh DFA compile, "
+            "error = rejected 400).", ("result",),
+        )
+        self._c_stop_hits = reg.counter(
+            "serve_stop_hits_total",
+            "Requests finished by a stop-sequence match (host-side "
+            "suffix match at readback).",
+        )
         self._h_ttft = reg.histogram(
             "serve_ttft_seconds", "Time to first token, from scheduler arrival.",
         )
@@ -163,6 +174,14 @@ class ServingMetrics:
     def record_backpressure(self) -> None:
         self.n_backpressure += 1
         self._c_backpressure.inc()
+
+    def record_grammar_compile(self, result: str) -> None:
+        """One grammar constraint resolution (hit|miss|error)."""
+        self._c_grammar_compiles.inc(result=result)
+
+    def record_stop_hit(self) -> None:
+        """One request finished by a stop-sequence match."""
+        self._c_stop_hits.inc()
 
     def record_retry(self) -> None:
         """One transient-fault retry at an engine boundary."""

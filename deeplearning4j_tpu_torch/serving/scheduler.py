@@ -1,6 +1,6 @@
 """Request queue for the serving engine (port of
 ``deeplearning4j_tpu/serving/scheduler.py``, trimmed to this slice: no
-tenancy, grammar/sampling-surface fields or KV-wire request kinds).
+tenancy, streaming or KV-wire request kinds).
 
 Strict priority across classes (class 0 drains before class 1), FIFO within
 a class, with optional prefix affinity (``prefix_affinity_tokens``): ``pop``
@@ -26,6 +26,15 @@ import time
 from collections import deque
 
 import numpy as np
+
+from deeplearning4j_tpu_torch.serving.grammar import (
+    MAX_LOGIT_BIAS,
+    MAX_STOP_LEN,
+    MAX_STOP_SEQUENCES,
+    MAX_TOP_LOGPROBS,
+    GrammarError,
+    parse_response_format,
+)
 
 
 class RequestStatus(str, enum.Enum):
@@ -60,13 +69,36 @@ class Request:
     generate, an optional ``eos_token`` that retires the slot early,
     ``priority`` (0 most urgent) and an optional ``deadline_s`` measured
     from scheduler arrival. ``cancel()`` may be called from any thread; the
-    engine honors it within one horizon."""
+    engine honors it within one horizon.
+
+    Sampling-surface fields (engines built with ``sampling_surface=True``;
+    see :mod:`.grammar`): ``temperature`` / ``top_k`` / ``top_p`` override
+    the engine-wide sampler (None = the engine's); ``stop`` is a list of
+    token-id sequences matched on the host at readback (the match is
+    stripped from the stream); ``logit_bias`` maps token id -> additive
+    logit; ``logprobs`` asks for per-token logprobs and ``top_logprobs``
+    for the top alternatives a position; ``response_format`` constrains the
+    output to a regex or a JSON schema (a token-level DFA mask)."""
 
     prompt: np.ndarray
     max_new: int
     priority: int = 1
     eos_token: int | None = None
     deadline_s: float | None = None
+    temperature: float | None = None
+    top_k: int | None = None
+    top_p: float | None = None
+    stop: list | None = None
+    logit_bias: dict | None = None
+    logprobs: bool = False
+    top_logprobs: int = 0
+    response_format: dict | str | None = None
+    #: resolved by the engine at submit: the compiled grammar
+    _grammar: object = dataclasses.field(default=None, repr=False,
+                                         compare=False)
+    #: set by the engine at retirement: per-token logprob records
+    logprobs_out: list | None = dataclasses.field(default=None, repr=False,
+                                                  compare=False)
     id: str = dataclasses.field(default_factory=_next_id)
     arrival_time: float | None = None
     status: RequestStatus = RequestStatus.QUEUED
@@ -88,6 +120,60 @@ class Request:
             raise AdmissionError(
                 f"deadline_s must be >= 0, got {self.deadline_s}"
             )
+        if self.temperature is not None and self.temperature < 0:
+            raise AdmissionError(
+                f"temperature must be >= 0, got {self.temperature}")
+        if self.top_k is not None and self.top_k < 1:
+            raise AdmissionError(f"top_k must be >= 1, got {self.top_k}")
+        if self.top_p is not None and not 0.0 < self.top_p <= 1.0:
+            raise AdmissionError(f"top_p must be in (0, 1], got {self.top_p}")
+        if self.stop is not None:
+            self.stop = [[int(t) for t in np.asarray(s).reshape(-1)]
+                         for s in self.stop]
+            if len(self.stop) > MAX_STOP_SEQUENCES:
+                raise AdmissionError(
+                    f"at most {MAX_STOP_SEQUENCES} stop sequences, got "
+                    f"{len(self.stop)}")
+            for s in self.stop:
+                if not 1 <= len(s) <= MAX_STOP_LEN:
+                    raise AdmissionError(
+                        f"stop sequences must be 1..{MAX_STOP_LEN} tokens, "
+                        f"got {len(s)}")
+        if self.logit_bias is not None:
+            try:
+                self.logit_bias = {int(k): float(v)
+                                   for k, v in self.logit_bias.items()}
+            except (TypeError, ValueError, AttributeError):
+                raise AdmissionError(
+                    "logit_bias must map token ids to numbers") from None
+            if len(self.logit_bias) > MAX_LOGIT_BIAS:
+                raise AdmissionError(
+                    f"at most {MAX_LOGIT_BIAS} logit_bias entries, got "
+                    f"{len(self.logit_bias)}")
+            if any(k < 0 for k in self.logit_bias):
+                raise AdmissionError("logit_bias token ids must be >= 0")
+        if not 0 <= int(self.top_logprobs) <= MAX_TOP_LOGPROBS:
+            raise AdmissionError(
+                f"top_logprobs must be 0..{MAX_TOP_LOGPROBS}, got "
+                f"{self.top_logprobs}")
+        self.top_logprobs = int(self.top_logprobs)
+        if self.top_logprobs:
+            self.logprobs = True
+        if self.response_format is not None:
+            try:
+                parse_response_format(self.response_format)
+            except GrammarError as e:
+                raise AdmissionError(f"bad response_format: {e}") from None
+
+    @property
+    def uses_sampling_surface(self) -> bool:
+        """Any sampling-surface field set? Such requests decode through the
+        engine's masked step (an engine without ``sampling_surface=True``
+        rejects them at submit)."""
+        return (self.temperature is not None or self.top_k is not None
+                or self.top_p is not None or bool(self.stop)
+                or bool(self.logit_bias) or self.logprobs
+                or self.response_format is not None)
 
     def cancel(self) -> None:
         """Request best-effort cancellation (thread-safe, idempotent)."""

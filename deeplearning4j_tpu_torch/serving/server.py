@@ -7,10 +7,15 @@ engine loop; handler threads block on the request's ``done`` event.
 Endpoints:
 
 - ``POST /v1/generate`` — body ``{"prompt": [ints] | "text", "max_new":
-  int, "priority"?: int, "eos_token"?: int, "deadline_s"?: float}``;
-  returns ``{"id", "tokens", "text"?, "timing"?}`` (text only for byte
-  vocabularies, vocab <= 256). 429 on backpressure, 400 on a request that
-  can never fit a slot, 503 while stopping or after the engine died, 408 /
+  int, "priority"?: int, "eos_token"?: int, "deadline_s"?: float}``, and on
+  an engine with the sampling surface ``"temperature"``, ``"top_k"``,
+  ``"top_p"``, ``"stop"`` (a string or a list of strings or token lists;
+  strings only for byte vocabularies), ``"logit_bias"``, ``"logprobs"``,
+  ``"top_logprobs"``, ``"response_format"``; returns ``{"id", "tokens",
+  "text"?, "timing"?, "logprobs"?}`` (text only for byte vocabularies,
+  vocab <= 256). 429 on backpressure, 400 on a request that can never fit
+  a slot or sets surface fields the engine does not serve, 503 while
+  stopping or after the engine died, 408 /
   499 / 500 for expired / cancelled / failed requests, 504 when the
   handler times out (the request is cancelled in the engine).
 - ``GET /healthz`` — 200 while the engine loop is alive (recovering
@@ -181,6 +186,15 @@ class ServingServer:
         return Request(
             prompt=[int(t) for t in prompt],
             max_new=int(body.get("max_new", 16)),
+            temperature=(float(body["temperature"]) if "temperature" in body
+                         else None),
+            top_k=int(body["top_k"]) if "top_k" in body else None,
+            top_p=float(body["top_p"]) if "top_p" in body else None,
+            stop=self._parse_stop(body.get("stop")),
+            logit_bias=body.get("logit_bias"),
+            logprobs=bool(body.get("logprobs", False)),
+            top_logprobs=int(body.get("top_logprobs", 0)),
+            response_format=body.get("response_format"),
             priority=int(body.get("priority", 1)),
             eos_token=(int(body["eos_token"]) if "eos_token" in body
                        else None),
@@ -188,6 +202,29 @@ class ServingServer:
                         else None),
             done=threading.Event(),
         )
+
+    def _parse_stop(self, stop) -> list[list[int]] | None:
+        """``stop`` as token lists: a string or a list of strings (byte
+        vocabularies only) or token lists."""
+        if stop is None:
+            return None
+        if isinstance(stop, str):
+            stop = [stop]
+        if not isinstance(stop, list):
+            raise ValueError("'stop' must be a string or a list of "
+                             "strings/token lists")
+        out = []
+        for s in stop:
+            if isinstance(s, str):
+                if not self._byte_vocab():
+                    raise ValueError("string stop sequences need a "
+                                     "byte-level model (vocab <= 256)")
+                s = list(s.encode("latin-1", errors="replace"))
+            if not isinstance(s, list) or not s:
+                raise ValueError("each stop sequence must be a non-empty "
+                                 "string or token list")
+            out.append([int(t) for t in s])
+        return out
 
     def _handle_generate(self, handler, body: dict) -> None:
         try:
@@ -215,6 +252,8 @@ class ServingServer:
         if req.timing is not None:
             out["timing"] = {k: round(float(v), 6)
                              for k, v in req.timing.items()}
+        if req.logprobs and req.logprobs_out is not None:
+            out["logprobs"] = req.logprobs_out
         if self._byte_vocab():
             out["text"] = bytes(t % 256 for t in toks).decode("latin-1")
         _send_json(handler, 200, out)

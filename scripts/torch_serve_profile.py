@@ -4,12 +4,15 @@ CUDA card.
 
     python3 scripts/torch_serve_profile.py [--horizons 12] [--out PATH]
         [--int8 off|weights|full] [--paged [--block-size 8]]
+        [--temperature 0] [--top-k 0] [--sampling-surface]
 
 Builds the GPT-2-small serving engine of ``chip_smoke.py`` (bf16, 8 slots,
-max_total 640, K = 4, greedy, random weights from seed 0; ``--int8``
-quantizes the weights, ``full`` also the KV cache; ``--paged`` block-pages
-the cache), fills every slot with a 128-token prompt and a budget long
-enough to stay in decode, then:
+max_total 640, K = 4, random weights from seed 0; greedy unless
+``--temperature`` and ``--top-k`` ask for sampled decode, which draws
+through the threefry draw kernel; ``--sampling-surface`` dispatches the
+masked step; ``--int8`` quantizes the weights, ``full`` also the KV cache;
+``--paged`` block-pages the cache), fills every slot with a 128-token
+prompt and a budget long enough to stay in decode, then:
 
 - times ``--horizons`` engine steps on the host clock (each step dispatches
   one K-substep horizon for 8 slots and reads back the previous one) and
@@ -37,6 +40,8 @@ ROOT = Path(__file__).resolve().parent.parent
 def _group(name: str) -> str:
     if "flash_decode" in name:
         return "flash_decode kernel (#3 or #4)"
+    if "threefry_draw" in name:
+        return "threefry draw kernel"
     if "flash_fwd" in name:
         return "flash_attn_fwd kernel"
     low = name.lower()
@@ -59,6 +64,10 @@ def main() -> int:
     ap.add_argument("--paged", action="store_true",
                     help="block-paged KV cache")
     ap.add_argument("--block-size", type=int, default=8)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--top-k", type=int, default=0, help="0 disables")
+    ap.add_argument("--sampling-surface", action="store_true",
+                    help="arm the sampling surface (the masked step)")
     args = ap.parse_args()
 
     import numpy as np
@@ -83,15 +92,28 @@ def main() -> int:
     params = init_params(cfg, seed=0)
     if args.int8 != "off":
         params = quantize_decode_params(params, cfg)
+    # the surface flag only when asked: the script also profiles older
+    # checkouts (copied into one), whose engine may not take it
+    surface = {"sampling_surface": True} if args.sampling_surface else {}
     engine = ServingEngine(cfg, params, n_slots=8, max_total=640,
-                           decode_horizon=4, temperature=0.0,
-                           paged=args.paged, block_size=args.block_size)
+                           decode_horizon=4, temperature=args.temperature,
+                           top_k=args.top_k or None,
+                           paged=args.paged, block_size=args.block_size,
+                           **surface)
     if args.paged and not engine._paged:
         print("torch_serve_profile: the engine did not come up paged",
               file=sys.stderr)
         return 1
-    mode = (f"int8 {args.int8}, " if args.int8 != "off" else "") + (
-        f"paged bs {args.block_size}" if args.paged else "slab")
+    if args.sampling_surface and not engine._surface:
+        print("torch_serve_profile: the masked parity probe failed",
+              file=sys.stderr)
+        return 1
+    sampler = (f"T {args.temperature} top-k {args.top_k or 'none'}"
+               if args.temperature else "greedy")
+    mode = ((f"int8 {args.int8}, " if args.int8 != "off" else "")
+            + (f"paged bs {args.block_size}" if args.paged else "slab")
+            + f", {sampler}"
+            + (", sampling surface" if args.sampling_surface else ""))
     rng = np.random.default_rng(0)
     budget = 4 * (3 * args.horizons + 8)
     for _ in range(8):
@@ -141,7 +163,7 @@ def main() -> int:
     out = {
         "card": card,
         "config": f"GPT-2-small bf16 ({mode}), 8 slots, max_total 640, K=4, "
-                  f"greedy, prompts 128",
+                  f"prompts 128",
         "horizons": args.horizons,
         "decode_tok_per_s": tok_s,
         "ms_per_substep": ms_substep,

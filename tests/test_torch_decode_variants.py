@@ -17,6 +17,7 @@ import torch
 
 from deeplearning4j_tpu.models import transformer as jt
 from deeplearning4j_tpu_torch.models import transformer as pt
+from deeplearning4j_tpu_torch.ops import threefry
 from deeplearning4j_tpu_torch.serving import Request, ServingEngine
 
 # f32 beam scores: sums of a few f32 log-probs, each within the decode
@@ -81,18 +82,6 @@ def test_filtered_probs_matches_reference(temperature, top_k):
     ref = np.asarray(jt._filtered_probs(jnp.asarray(x), temperature, top_k))
     out = pt._filtered_probs(torch.from_numpy(x), temperature, top_k)
     np.testing.assert_allclose(out.numpy(), ref, atol=1e-7, rtol=1e-6)
-
-
-def test_draw_is_multinomials_draw():
-    """The sync-free draw takes the same tokens from the same generator as
-    ``torch.multinomial(probs, 1)``."""
-    p = torch.softmax(torch.randn(5, 300, generator=torch.Generator()
-                                  .manual_seed(0)), dim=-1)
-    for seed in range(4):
-        a = torch.multinomial(p, 1, generator=torch.Generator().manual_seed(
-            seed))[:, 0]
-        b = pt._draw(p, torch.Generator().manual_seed(seed))
-        assert torch.equal(a, b)
 
 
 def test_engine_approx_top_k_flag():
@@ -273,9 +262,7 @@ def test_speculative_sampled_determinism_and_guards():
     sg = functools.partial(pt.transformer_speculative_generate(cfg),
                            max_new=24, draft_k=4, temperature=1.0, top_k=8)
     prompt = torch.from_numpy(_prompt(1, 6, 64, seed=7))
-    a, b, c = (sg(params, qdraft, prompt,
-                  generator=torch.Generator().manual_seed(s))
-               for s in (1, 1, 2))
+    a, b, c = (sg(params, qdraft, prompt, key=s) for s in (1, 1, 2))
     assert torch.equal(a, b)
     assert not torch.equal(a, c)
     assert a.shape == (1, 30)
@@ -295,12 +282,15 @@ def test_acceptance_round_gives_the_target_distribution():
     v, n = 6, 200_000
     p = torch.from_numpy(rng.dirichlet(np.ones(v)).astype(np.float32))
     q = torch.from_numpy(rng.dirichlet(np.ones(v)).astype(np.float32))
-    gen = torch.Generator().manual_seed(0)
-    d = pt._draw(q.expand(n, v), gen)
-    u = torch.rand((n, 1), generator=gen)
+    kd, ku, kc = (threefry.device_keys(k, torch.device("cpu"))
+                  for k in threefry.split(0, 3))
+    d = threefry.categorical(torch.log(q + 1e-30).expand(n, v).contiguous(),
+                             kd).long()
+    u = threefry.uniform(ku, (n, 1))
     ps = p.expand(n, 2, v)
-    acc, ctok = pt._accept_round(ps, q.expand(n, 1, v), d[:, None], u,
-                                 lambda r: pt._draw(r, gen))
+    acc, ctok = pt._accept_round(
+        ps, q.expand(n, 1, v), d[:, None], u,
+        lambda r: threefry.categorical(torch.log(r + 1e-30), kc).long())
     out = torch.where(acc == 1, d, ctok)
     emp = torch.bincount(out, minlength=v).double() / n
     assert (emp - p.double()).abs().sum() < 0.02, (emp, p)

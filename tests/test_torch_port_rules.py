@@ -133,10 +133,12 @@ def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
     """A CUDA tensor goes to the kernel wrapper, never to the plain version:
     with the wrapper's launch replaced, the dispatcher must call it (the
     decode kernel in its bf16 and int8 modes, the paged decode kernel, the
-    fused embedding dot in its dense and fused modes)."""
+    fused embedding dot in its dense and fused modes, the threefry draw in
+    both of its modes)."""
     from deeplearning4j_tpu_torch.ops import emb_dot
     from deeplearning4j_tpu_torch.ops import flash_attention as fa
     from deeplearning4j_tpu_torch.ops import flash_decode as fd
+    from deeplearning4j_tpu_torch.ops import threefry
 
     calls = []
     monkeypatch.setattr(fa, "_launch", lambda *a: calls.append("fa"))
@@ -161,6 +163,10 @@ def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
                         lambda *a: pytest.fail("plain path on CUDA"))
     monkeypatch.setattr(emb_dot, "fused_hs_rows_plain",
                         lambda *a: pytest.fail("plain path on CUDA"))
+    monkeypatch.setattr(threefry, "_launch", lambda *a: (calls.append(
+        "draw" if a[-1] is None else "draw_rows"), None))
+    monkeypatch.setattr(threefry, "categorical_plain",
+                        lambda *a: pytest.fail("plain path on CUDA"))
     q = torch.empty((2, 8, 16), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         fa.flash_attention_fwd(q, q, q, True)
@@ -172,6 +178,8 @@ def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
         emb_dot.fused_embedding_dot(q, q, q)
     with pytest.raises(ValueError, match="unsupported device"):
         emb_dot.fused_hs_rows(q, 0, q, q, q, q, 0.1)
+    with pytest.raises(ValueError, match="unsupported device"):
+        threefry.draw(q[0], q)
 
     class FakeCuda:
         device = torch.device("cuda", 0)
@@ -186,8 +194,11 @@ def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
     emb_dot.fused_embedding_dot(FakeCuda(), None, None)
     emb_dot.fused_embedding_dot_range(FakeCuda(), None, None)
     emb_dot.fused_hs_rows(FakeCuda(), 0, None, None, None, None, 0.1)
+    threefry.draw(FakeCuda(), None)
+    threefry.categorical(FakeCuda(), None, object())
     assert calls == ["fa", "fa_bwd", "fd", "fd_int8", "fd_paged",
-                     "fd_paged_int8", "emb_dot", "emb_dot", "emb_dot_hs"]
+                     "fd_paged_int8", "emb_dot", "emb_dot", "emb_dot_hs",
+                     "draw", "draw_rows"]
 
 
 def test_chip_smoke_alone_fails(tmp_path):

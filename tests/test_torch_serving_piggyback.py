@@ -183,7 +183,7 @@ def test_piggyback_crash_with_pending_records_requeues_them():
     eng.recover()
     assert not eng._pending
     assert len(eng.scheduler) == queued + len(pending)
-    assert all(rid in eng._presplit_seeds for rid in pending)
+    assert all(rid in eng._presplit_keys for rid in pending)
     res = eng.run()
     got = {r.id: np.asarray(res[r.id]) for r in reqs}
     assert all(r.status.value == "finished" for r in reqs)
@@ -301,7 +301,7 @@ def test_piggyback_keeps_one_host_sync_per_horizon(monkeypatch):
     """Every read of a tensor's value on the host during the steps of a
     piggyback run with chunks pending (with the prefix cache and seeded
     transient faults) is the horizon's token block: one per processed
-    horizon. Host scalars made on the host (a seed draw, the attention's
+    horizon. Host scalars made on the host (a key split, the attention's
     scale constant) are not reads of device values and are left out. On
     the card ``chip_smoke.py`` phase 8c counts the device syncs."""
     eng = _piggy(faults=FaultInjector(0, transient_rate=0.05),
@@ -319,13 +319,13 @@ def test_piggyback_keeps_one_host_sync_per_horizon(monkeypatch):
 
     for name in _CONVERSIONS:
         monkeypatch.setattr(torch.Tensor, name, counting(name))
-    process, draw = eng._process, eng._draw_seed
+    process, split = eng._process, eng._split_key
 
     def on_process(h):
         counts["horizons"] += 1
         return process(h)
 
-    def quiet(fn):  # host scalars (a seed draw, a scale constant)
+    def quiet(fn):  # host scalars (a key split, a scale constant)
         def f(*a, **kw):
             counts["quiet"] += 1
             try:
@@ -335,7 +335,7 @@ def test_piggyback_keeps_one_host_sync_per_horizon(monkeypatch):
         return f
 
     monkeypatch.setattr(eng, "_process", on_process)
-    monkeypatch.setattr(eng, "_draw_seed", quiet(draw))
+    monkeypatch.setattr(eng, "_split_key", quiet(split))
     monkeypatch.setattr(pt, "dtype_scalar", quiet(pt.dtype_scalar))
     reqs = _requests()
     for r in reqs:

@@ -205,15 +205,16 @@ def test_greedy_generate_tokens(name):
 
 
 def test_sampled_generate_follows_its_generator():
-    """Sampled decoding draws only from the explicit generator: equal seeds
-    give equal streams, and every token stays inside the top-k filter."""
+    """Sampled decoding draws only from its explicit threefry key: equal
+    keys give equal streams, and every token stays inside the top-k
+    filter."""
     cfg = pt.TransformerConfig(vocab_size=32, d_model=32, n_heads=2,
                                n_layers=1, d_ff=64, max_len=32)
     params = pt.init_params(cfg, seed=1, device="cpu")
     gen = pt.transformer_generate(cfg)
     prompt = torch.arange(4)[None]
     outs = [gen(params, prompt, 10, temperature=1.0, top_k=4,
-                generator=torch.Generator().manual_seed(s),
+                key=s,
                 return_logits=True) for s in (7, 7, 8)]
     assert torch.equal(outs[0][0], outs[1][0])
     assert not torch.equal(outs[0][0], outs[2][0])
