@@ -39,7 +39,7 @@ Phases, in order; any failure exits non-zero without printing a result:
    tokens and winning values bitwise, in engine mode (8 slot keys folded with
    positions 0 to 639, a grammar-masked row, a planted exact tie) and flat
    mode (B 1 and 4, and on speculative decoding's log-probabilities), at
-   V 50,304; phases 3-9 record the shape of every draw launch too;
+   V 50,304; phases 3-10 record the shape of every draw launch too;
 3. serve the GPT-2-small configuration (random weights from a seed) through
    ``ServingEngine``: about eight greedy requests, some past the 128-token
    prefill bucket, with every kernel's launch count set to 0 just before and
@@ -131,6 +131,25 @@ Phases, in order; any failure exits non-zero without printing a result:
    logprob records equal the uninterrupted run's); (e) the port on the card
    against the port on the CPU at 2 layers of that width in f32, T 0.8
    (streams identical, or the near-tie gap at the first divergence).
+10. the front end, tenancy and batched LoRA at that width: (a) SSE
+   through ``ServingServer``, slab then paged: 8 greedy, 8 T 0.8 top-k 40
+   and one stop-sequence request, streamed and not, on fresh
+   sampling-surface engines fed in one order (the SSE tokens are the
+   non-streamed tails byte for byte, 1 host sync a horizon either way),
+   the caller's TTFT (first SSE token frame) beside the engine's, and a
+   client that disconnects mid-stream (its slot freed within one horizon
+   of the cancel); (b) ``/drain`` (``/readyz`` and new submits 503, the
+   in-flight request finishing), ``/undrain``, and ``/metrics.json``'s
+   keys against the reference server's; (c) a LoRA bank of 4 adapters of
+   rank 4 from ``key(0)``: the adapter-0 probe passing on the card,
+   adapter-0 streams equal to a bank-free engine's, a mixed batch
+   (adapters 0-3 over 8 slots) equal to four single-adapter engines,
+   greedy (slab, paged) and sampled (slab), but at a reported greedy
+   near-tie, decode through kernels #3/#4; (d) three tenants from a JSON
+   file (one flooding, one capped at 2 slots, one metered): the others
+   finish well ahead of FIFO, 429 on the quota, 401 on an unknown key, the
+   per-tenant series; (e) sampled mixed-adapter streams through a crash
+   equal to the uninterrupted run, each streamed once.
 
 The last lines are the kernel table as one JSON object, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -307,7 +326,7 @@ def _ptxas_entries(text: str) -> list[tuple[str, str, str]]:
 # -- phase 2 -----------------------------------------------------------------
 
 #: (kernel, shape) of every case phase 2 held against a plain version;
-#: the run fails on a launch of #1-#5 or the draw in phases 3-9 at a shape
+#: the run fails on a launch of #1-#5 or the draw in phases 3-10 at a shape
 #: that is not among them
 CHECKED_SHAPES: set[tuple] = set()
 
@@ -1101,6 +1120,8 @@ def phase_kernels(w2v_model, w2v_corpus) -> dict[str, dict]:
     dec = [
         _decode_case(4, 3, 2, 128, 2, 256, 1, [0, 17, 100, 255]),
         _decode_case(2, 1, 6, 128, 12, 32, 7, [8, 10]),
+        # the LoRA probe's decode steps (phase 10): B 1, Tpad 32
+        _decode_case(1, 1, 6, 128, 12, 32, 7, [8]),
         *[_decode_case(1, 1, 6, 128, 12, t, 7, [t - 1]) for t in serve_ts],
         _decode_case(1, 1, 6, 128, 12, gen_t, 7, [gen_t - 1]),
         _decode_case(4, 1, 6, 128, 12, gen_t, 7, [GEN_PROMPT] * 4),
@@ -1349,7 +1370,7 @@ def _serve_run(tag: str, cfg, params, *, must_launch, must_not_launch=(),
         f"TTFT p50 {s['ttft_p50_s'] * 1e3:.2f} ms p99 "
         f"{s['ttft_p99_s'] * 1e3:.2f} ms; TPOT p50 "
         f"{s['tpot_p50_s'] * 1e3:.3f} ms p99 {s['tpot_p99_s'] * 1e3:.3f} ms; "
-        f"prefill {s['prefill_s'] * 1e3:.1f} ms total; "
+        f"prefill {s['phase_seconds']['prefill'] * 1e3:.1f} ms total; "
         f"occupancy {s['occupancy_mean']:.2f} slots; "
         f"{s['steps']} horizons")
     return engine, launches, [results[r.id] for r in reqs]
@@ -2482,17 +2503,18 @@ def fine_grain_engine_cls():
         def _fine(self, n):
             return 0 < n <= self._max_bucket
 
-        def _compute_rows(self, slab, seq, start=0):
+        def _compute_rows(self, slab, seq, start=0, adapter=0):
             n = int(len(seq))
             if not self._fine(n):
-                return super()._compute_rows(slab, seq, start)
+                return super()._compute_rows(slab, seq, start, adapter)
             g, lg = self._min_bucket, None
             for t0 in range(start, n, g):
                 ln = min(g, n - t0)
                 pad = np.zeros((1, g), np.int64)
                 pad[0, :ln] = seq[t0:t0 + ln]
                 slab, lg = self._chunk_fn(self.params, slab,
-                                          self._upload(pad), t0, ln - 1)
+                                          self._upload(pad), t0, ln - 1,
+                                          self._adapter_row(adapter))
                 self.prefill_dispatches += 1
             return lg
 
@@ -3407,6 +3429,615 @@ def phase_surface(card: str) -> dict[str, dict[str, int]]:
     return runs
 
 
+# -- phase 10 ----------------------------------------------------------------
+
+#: 10a: new tokens a streamed request; the stop request's engine-wide T 0
+STREAM_NEW = 32
+#: 10c: the bank of ``serve --lora-adapters 4 --lora-rank 4 --lora-seed 0``
+LORA_N, LORA_RANK, LORA_SEED = 4, 4, 0
+#: 10d: the tenants (weights 1, 2, 1; the second capped at 2 slots, the
+#: third's bucket holding two requests of 10d's cost, 64 + 16 tokens)
+TENANT_NEW, TENANT_PROMPT = 16, 64
+TENANTS = {"tenants": [
+    {"id": "flood", "api_key": "k-flood", "weight": 1},
+    {"id": "capped", "api_key": "k-capped", "weight": 2, "max_slots": 2},
+    {"id": "metered", "api_key": "k-metered", "weight": 1,
+     "rate_tokens_per_s": 1, "burst_tokens": 2 * (TENANT_PROMPT + TENANT_NEW)},
+]}
+#: 10e: the crash's step check
+LORA_CRASH = 3
+#: the keys of the reference server's ``/metrics.json`` on a single-tenant
+#: engine without the prefix cache, after traffic (its program attribution,
+#: a tracer feature of a later slice, left out), and those its summary adds
+#: when their events happen (``tests/test_torch_streaming.py`` holds the
+#: port's against the reference server's on the CPU)
+REF_METRICS_JSON_KEYS = {
+    "n_finished", "n_generated", "n_retries", "n_restarts", "n_failed",
+    "n_cancelled", "n_expired", "steps", "decode_horizon", "ttft_p50_s",
+    "ttft_p99_s", "tpot_p50_s", "tpot_p99_s", "queue_delay_p50_s",
+    "queue_delay_p99_s", "sync_wait_mean_s", "dispatch_overlap_frac",
+    "occupancy_mean", "queue_depth_max", "phase_seconds", "phase_frac",
+    "n_slots", "slots_active", "queue_depth", "draining", "engine_alive",
+    "last_error"}
+REF_METRICS_JSON_OPTIONAL = {"decode_stall_s", "rejections", "tenants"}
+
+
+def _sse_request(base: str, body: dict, headers=None):
+    """POST ``body`` with ``"stream": true``; returns (the frames, seconds
+    from the send to the first token frame)."""
+    import http.client
+    from urllib.parse import urlparse
+
+    u = urlparse(base)
+    conn = http.client.HTTPConnection(u.hostname, u.port, timeout=600)
+    t0 = time.perf_counter()
+    conn.request("POST", "/v1/generate",
+                 body=json.dumps(dict(body, stream=True)),
+                 headers={"Content-Type": "application/json",
+                          **(headers or {})})
+    resp = conn.getresponse()
+    if resp.status != 200:
+        raise SystemExit(f"a streamed request got HTTP {resp.status}")
+    frames, t_first = [], None
+    while True:
+        line = resp.readline()
+        if not line:
+            break
+        if line.startswith(b"data: "):
+            frames.append(json.loads(line[len(b"data: "):]))
+            if t_first is None and "token" in frames[-1]:
+                t_first = time.perf_counter() - t0
+    conn.close()
+    return frames, t_first
+
+
+def _submitted(engine) -> int:
+    """Requests the engine has queued or seated (a request mid-admission
+    counts later, never twice)."""
+    return len(engine.scheduler) + len(engine.metrics.queue_delay)
+
+
+def _in_order(engine, calls) -> list:
+    """Run each HTTP call on its own thread, the next one started only once
+    the engine holds the previous request: the scheduler's FIFO order (the
+    order slot keys are split in) is the order of ``calls``. Returns the
+    calls' results in order."""
+    import threading
+
+    out = [None] * len(calls)
+    threads = []
+    for i, call in enumerate(calls):
+        base = _submitted(engine)
+
+        def run(i=i, call=call):
+            out[i] = call()
+
+        t = threading.Thread(target=run)
+        t.start()
+        threads.append(t)
+        deadline = time.time() + 120
+        while _submitted(engine) <= base and time.time() < deadline:
+            if out[i] is not None:
+                break  # answered before it was seen queued (a reject)
+            time.sleep(0.0005)
+    for t in threads:
+        t.join(timeout=600)
+    return out
+
+
+def _stream_bodies(vocab: int) -> list[dict]:
+    """10a's requests: 8 greedy and 8 at T 0.8 top-k 40 over phase 3's
+    prompt lengths, and one greedy request with a stop sequence taken from
+    its own greedy stream (filled in by the caller)."""
+    import numpy as np
+
+    rng = np.random.default_rng(10)
+    out = []
+    for sampled in (False, True):
+        for n in PROMPT_LENGTHS:
+            b = {"prompt": rng.integers(0, vocab, n).tolist(),
+                 "max_new": STREAM_NEW}
+            if sampled:
+                b.update(temperature=0.8, top_k=40)
+            out.append(b)
+    return out
+
+
+def _serve_and_count(engine, fn):
+    """Run ``fn`` against a started server of ``engine`` with the launch
+    counts set to 0 and the host syncs counted; returns (fn's result,
+    launches, host syncs a horizon)."""
+    import torch
+
+    counts = {"horizons": 0, "readbacks": 0}
+    process = engine._process
+
+    def on_process(h):
+        process(h)
+        counts["horizons"] += 1
+        counts["readbacks"] += h.event is not None
+
+    engine._process = on_process
+    torch.cuda.synchronize()
+    reset_launches()
+    try:
+        with counted_syncs() as box:
+            out = fn()
+            torch.cuda.synchronize()
+    finally:
+        engine._process = process
+    per = (box["n"] + counts["readbacks"]) / max(1, counts["horizons"])
+    if box["n"]:
+        log(f"syncs beyond the readback at {dict(box['where'])}")
+    return out, read_launches(), per
+
+
+def phase10_streaming(card: str, cfg, params, total) -> None:
+    """10a: SSE at full width, slab then paged: 8 greedy and 8 sampled
+    requests and a stop-sequence request, streamed and not, on fresh
+    sampling-surface engines fed in the same order; the SSE tokens are
+    the non-streamed tails byte for byte, streaming adds no host sync a
+    horizon, the caller's TTFT beside the engine's, and a client that
+    disconnects frees its slot within one horizon of its cancel."""
+    import socket
+
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.serving import ServingServer
+
+    bodies = _stream_bodies(cfg.vocab_size)
+    # the stop request: a pair of tokens of its own greedy stream
+    eng = phase8_engine(cfg, params, sampling_surface=True)
+    eng.submit(req := _plain_reqs([np.asarray(bodies[0]["prompt"])])[0])
+    tail = eng.run()[req.id][len(req.prompt):].tolist()
+    bodies.append(dict(bodies[0], stop=[tail[10:12]]))
+    del eng
+    for paged in (False, True):
+        layout = "paged" if paged else "slab"
+        tag = f"phase 10a {layout}"
+        got, syncs = {}, {}
+        for stream in (False, True):
+            engine = phase8_engine(cfg, params, paged=paged,
+                                   sampling_surface=True)
+            _must(tag, engine._surface and engine._paged == paged,
+                  "the engine did not come up as asked")
+            server = ServingServer(engine, port=0).start()
+            base = "http://%s:%d" % server.address
+            try:
+                if stream:
+                    calls = [lambda b=b: _sse_request(base, b)
+                             for b in bodies]
+                else:
+                    calls = [lambda b=b: _post_status(
+                        base + "/v1/generate", b) for b in bodies]
+                out, launches, per = _serve_and_count(
+                    engine, lambda: _in_order(engine, calls))
+                s = engine.metrics.summary()
+                ttft = np.asarray(engine.metrics.ttft.values)
+            finally:
+                server.stop(drain_s=10.0)
+            _launch_check(f"{tag} stream={stream}", launches,
+                          ("flash_attn_fwd", "threefry_draw",
+                           "flash_decode_paged" if paged else "flash_decode"))
+            _add(total, launches)
+            syncs[stream] = per
+            if stream:
+                toks = [[f["token"] for f in frames if "token" in f]
+                        for frames, _ in out]
+                finals = [frames[-1] for frames, _ in out]
+                _must(tag, all(f.get("done") and f["status"] == "finished"
+                               and f["n_tokens"] == len(t)
+                               for f, t in zip(finals, toks)),
+                      "a stream did not end with its final frame")
+                caller = np.asarray([t for _, t in out])
+                log(f"{tag}: TTFT at the caller (first SSE token frame) "
+                    f"p50 {np.percentile(caller, 50) * 1e3:.2f} ms p90 "
+                    f"{np.percentile(caller, 90) * 1e3:.2f} ms; the "
+                    f"engine's p50 {np.percentile(ttft, 50) * 1e3:.2f} ms "
+                    f"p90 {np.percentile(ttft, 90) * 1e3:.2f} ms "
+                    f"({len(bodies)} requests) [{card}]")
+            else:
+                _must(tag, all(c == 200 for c, _ in out),
+                      "a request failed")
+                toks = [r["tokens"][len(b["prompt"]):]
+                        for (_, r), b in zip(out, bodies)]
+            got[stream] = toks
+            log(f"{tag}, streaming {'on' if stream else 'off'}: host syncs "
+                f"per horizon {per:.3f} over {s['steps']} horizons; "
+                f"launches {launches} [{card}]")
+        same = [a == b for a, b in zip(got[False], got[True])]
+        log(f"{tag}: SSE tokens vs the non-streamed tails identical "
+            f"{sum(same)}/{len(same)} (8 greedy, 8 T 0.8 top-k 40, 1 with "
+            f"a stop sequence; the stop stream {len(got[True][-1])} tokens "
+            f"of {STREAM_NEW})")
+        _must(tag, all(same), "SSE tokens differ from the non-stream tail")
+        _must(tag, len(got[True][-1]) < STREAM_NEW,
+              "the stop sequence never fired")
+        _must(tag, syncs[True] == syncs[False] == 1.0,
+              f"host syncs a horizon: {syncs}")
+    # a client that disconnects mid-stream
+    tag = "phase 10a disconnect"
+    engine = phase8_engine(cfg, params)
+    server = ServingServer(engine, port=0).start()
+    try:
+        host, port = server.address
+        body = json.dumps({"prompt": bodies[0]["prompt"],
+                           "max_new": 400, "stream": True}).encode()
+        sock = socket.create_connection((host, port), timeout=120)
+        sock.sendall(b"POST /v1/generate HTTP/1.1\r\nHost: x\r\n"
+                     b"Content-Type: application/json\r\nContent-Length: "
+                     + str(len(body)).encode() + b"\r\n\r\n" + body)
+        buf = b""
+        while buf.count(b"data: ") < 2:
+            buf += sock.recv(4096)
+        sock.close()
+        deadline = time.time() + 60
+        at_cancel = None
+        while engine.pool.n_active and time.time() < deadline:
+            st = next((s for s in engine._slots if s is not None), None)
+            if at_cancel is None and st is not None and st.req.cancelled:
+                at_cancel = engine.metrics._step
+            time.sleep(0.0002)
+        freed = engine.metrics._step
+    finally:
+        server.stop(drain_s=10.0)
+    n = engine.metrics.n_cancelled
+    log(f"{tag}: the client closed after 2 frames; request cancelled "
+        f"({n}), slot freed {freed - (at_cancel or freed)} horizon(s) after "
+        f"the cancel, {engine.metrics.n_generated} tokens finished "
+        f"[{card}]")
+    _must(tag, n == 1 and engine.pool.n_active == 0,
+          "the slot was not freed")
+    _must(tag, at_cancel is None or freed - at_cancel <= 1,
+          "the slot outlived the cancel by more than one horizon")
+
+
+def phase10_front_end(card: str, cfg, params) -> None:
+    """10b: ``/drain`` turns ``/readyz`` to 503 and new submits to 503
+    while the in-flight request finishes; ``/undrain`` restores 200;
+    ``/metrics.json`` has the reference server's keys."""
+    import threading
+
+    from deeplearning4j_tpu_torch.serving import ServingServer
+
+    tag = "phase 10b"
+    engine = phase8_engine(cfg, params)
+    server = ServingServer(engine, port=0).start()
+    base = "http://%s:%d" % server.address
+
+    def get(path):
+        try:
+            with urllib.request.urlopen(base + path, timeout=60) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    try:
+        out = {}
+        t = threading.Thread(target=lambda: out.update(r=_post_status(
+            base + "/v1/generate", {"prompt": list(range(1, 41)),
+                                    "max_new": 200})))
+        t.start()
+        deadline = time.time() + 60
+        while engine.pool.n_active == 0 and time.time() < deadline:
+            time.sleep(0.001)
+        ready0 = get("/readyz")[0]
+        drain = _post_status(base + "/drain", {})
+        ready1, body1 = get("/readyz")
+        new = _post_status(base + "/v1/generate", {"prompt": [1, 2],
+                                                   "max_new": 2})
+        t.join(timeout=120)
+        code, res = out["r"]
+        undrain = _post_status(base + "/undrain", {})
+        ready2 = get("/readyz")[0]
+        after = _post_status(base + "/v1/generate", {"prompt": [1, 2],
+                                                     "max_new": 2})[0]
+        mj = get("/metrics.json")[1]
+    finally:
+        server.stop()
+    keys = set(mj)
+    log(f"{tag}: /readyz {ready0}; /drain {drain[0]} (in flight "
+        f"{drain[1]['in_flight']}); /readyz {ready1}; a new submit "
+        f"{new[0]}; the in-flight request {code} with "
+        f"{len(res.get('tokens', [])) - 40} tokens; /undrain {undrain[0]}; "
+        f"/readyz {ready2}; a submit {after}; /metrics.json "
+        f"{len(keys)} keys [{card}]")
+    _must(tag, ready0 == 200 and drain[0] == 200 and ready1 == 503
+          and not body1["ready"] and new[0] == 503, "drain did not hold")
+    _must(tag, code == 200 and len(res["tokens"]) == 240,
+          "the in-flight request did not finish")
+    _must(tag, undrain[0] == 200 and ready2 == 200 and after == 200,
+          "undrain did not restore readiness")
+    allowed = REF_METRICS_JSON_KEYS | REF_METRICS_JSON_OPTIONAL
+    _must(tag, REF_METRICS_JSON_KEYS <= keys <= allowed,
+          f"/metrics.json keys: missing "
+          f"{sorted(REF_METRICS_JSON_KEYS - keys)}, extra "
+          f"{sorted(keys - allowed)}")
+
+
+def _lora_reqs(prompts, adapters, **kw):
+    from deeplearning4j_tpu_torch.serving import Request
+
+    return [Request(prompt=p, max_new=SURF_NEW, adapter=int(a), **kw)
+            for p, a in zip(prompts, adapters)]
+
+
+def _lora_run(tag, cfg, params, reqs, **kw):
+    """Serve ``reqs`` on phase 8's geometry (a fresh engine); returns
+    (engine, streams, launches, generated tokens/s over the run)."""
+    import torch
+
+    engine = phase8_engine(cfg, params, **kw)
+    if kw.get("lora_bank") is not None:
+        _must(tag, engine.n_adapters == LORA_N,
+              "the LoRA probe failed on the card")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    for r in reqs:
+        engine.submit(r)
+    res = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    new = sum(len(res[r.id]) - len(r.prompt) for r in reqs)
+    return engine, [res[r.id] for r in reqs], read_launches(), new / wall
+
+
+def _near_tie(engine, stream, j: int, adapter: int) -> float:
+    """The top-2 logit gap of ``engine``'s model at stream position ``j``:
+    its admission path (the bucketed prefill or the chunk windows, at the
+    shapes phase 2 held) over the tokens before it, with ``adapter``."""
+    import torch
+
+    slab = engine._init_caches(1, engine.max_total, engine.device)
+    lg = engine._compute_rows(slab, stream[:j], adapter=adapter)
+    top2 = torch.topk(lg[0].float(), 2).values
+    return float(top2[0] - top2[1])
+
+
+def phase10_lora(card: str, cfg, params, total) -> None:
+    """10c: a bank of 4 adapters of rank 4 from key(0), slab and paged:
+    the probe passes on the card; adapter-0 streams equal a bank-free
+    engine's; a mixed batch (adapters 0-3 over 8 slots) equals four
+    single-adapter engines stream for stream, greedy (slab, paged) and
+    T 0.8 top-k 40 (slab), but where a greedy near-tie (top-2 gap <
+    NEAR_TIE) is reported; decode tok/s with and without the bank."""
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.models.transformer import init_lora_bank
+    from deeplearning4j_tpu_torch.ops import threefry
+
+    bank = init_lora_bank(threefry.key(LORA_SEED), cfg, LORA_N, LORA_RANK)
+    prompts = surface_prompts(cfg.vocab_size)[:8]
+    adapters = [i % LORA_N for i in range(8)]
+    for paged, sampling in ((False, {}), (True, {}),
+                            (False, dict(temperature=0.8, top_k=40))):
+        sampled = bool(sampling)
+        mode = (f"{'paged' if paged else 'slab'}, "
+                f"{'T 0.8 top-k 40' if sampled else 'greedy'}")
+        tag = f"phase 10c {mode}"
+        decode = "flash_decode_paged" if paged else "flash_decode"
+        kw = dict(paged=paged, **sampling)
+        t0 = time.perf_counter()
+        eng, mixed, launches, rate = _lora_run(
+            tag, cfg, params, _lora_reqs(prompts, adapters), lora_bank=bank,
+            **kw)
+        probe_s = time.perf_counter() - t0
+        _launch_check(tag, launches, ("flash_attn_fwd", decode)
+                      + (("threefry_draw",) if sampled else ()))
+        _add(total, launches)
+        _, base, blaunch, base_rate = _lora_run(
+            f"{tag} bank-free", cfg, params, _lora_reqs(prompts, [0] * 8),
+            **kw)
+        _add(total, blaunch)
+        _, zero, zlaunch, _ = _lora_run(
+            f"{tag} adapter 0", cfg, params, _lora_reqs(prompts, [0] * 8),
+            lora_bank=bank, **kw)
+        _add(total, zlaunch)
+        zero_same = [np.array_equal(a, b) for a, b in zip(base, zero)]
+        solo, notes = {}, []
+        for a in range(LORA_N):
+            e, solo[a], slaunch, _ = _lora_run(
+                f"{tag} adapter {a} alone", cfg, params,
+                _lora_reqs(prompts, [a] * 8), lora_bank=bank, **kw)
+            _add(total, slaunch)
+            for i in (i for i in range(8) if adapters[i] == a):
+                x, y = solo[a][i], mixed[i]
+                if np.array_equal(x, y):
+                    continue
+                j = int(np.nonzero(x != y)[0][0])
+                gap = _near_tie(e, x, j, a)
+                notes.append(f"request {i} (adapter {a}) at token "
+                             f"{j - len(prompts[i])}: top-2 gap {gap:.3g}")
+                _must(tag, not sampled and gap < NEAR_TIE,
+                      f"{notes[-1]}: not a greedy near-tie")
+            del e
+        same = sum(np.array_equal(solo[adapters[i]][i], mixed[i])
+                   for i in range(8))
+        differ = sum(not np.array_equal(mixed[i], base[i])
+                     for i in range(8) if adapters[i])
+        log(f"{tag}: bank {LORA_N} x rank {LORA_RANK} (key {LORA_SEED}), "
+            f"probe passed, engine set-up and run {probe_s:.1f} s; adapter-0 "
+            f"streams identical to the bank-free engine's "
+            f"{sum(zero_same)}/8; mixed batch vs single-adapter engines "
+            f"identical {same}/8{'; ' + '; '.join(notes) if notes else ''}; "
+            f"adapters 1-3 off the base stream {differ}/6; "
+            f"launches (mixed run) #1 {launches['flash_attn_fwd']}, "
+            f"{decode} {launches[decode]}, draw {launches['threefry_draw']};"
+            f" generated tok/s mixed {rate:.2f} vs bank-free {base_rate:.2f}"
+            f" (host clock, 8 requests x {SURF_NEW}) [{card}]")
+        _must(tag, all(zero_same), "adapter 0 is not the base model")
+        _must(tag, differ > 0, "the adapters did not act")
+        del eng
+        torch.cuda.empty_cache()
+
+
+def phase10_tenancy(card: str, cfg, params, total) -> None:
+    """10d: three tenants from a JSON file: one floods (24 requests ahead
+    of the others), the capped tenant (weight 2, 2 slots) and the metered
+    one (a bucket of two requests) still get their share; 429 on the
+    quota, 401 on an unknown key, the per-tenant series in ``/metrics``."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.serving import (
+        RequestScheduler,
+        ServingServer,
+        TenantRegistry,
+    )
+
+    tag = "phase 10d"
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "tenants.json"
+        path.write_text(json.dumps(TENANTS))
+        tenancy = TenantRegistry.from_file(path)
+    engine = phase8_engine(cfg, params, tenancy=tenancy,
+                           scheduler=RequestScheduler(tenancy=tenancy))
+    peak = {"capped": 0}
+    seat = engine._seat
+
+    def on_seat(pl):
+        seat(pl)
+        peak["capped"] = max(peak["capped"], sum(
+            1 for st in engine._slots
+            if st is not None and st.req.tenant_id == "capped"))
+
+    engine._seat = on_seat
+    rng = np.random.default_rng(12)
+    keys = ([("k-flood", i) for i in range(24)]
+            + [("k-capped", i) for i in range(6)]
+            + [("k-metered", i) for i in range(3)])
+    prompts = {k: rng.integers(0, cfg.vocab_size, TENANT_PROMPT).tolist()
+               for k in keys}
+    server = ServingServer(engine, port=0).start()
+    base = "http://%s:%d" % server.address
+    done_at = {}
+
+    def call(key, i):
+        req = urllib.request.Request(
+            base + "/v1/generate", method="POST",
+            headers={"X-API-Key": key, "Content-Type": "application/json"},
+            data=json.dumps({"prompt": prompts[(key, i)],
+                             "max_new": TENANT_NEW}).encode())
+        try:
+            with urllib.request.urlopen(req, timeout=600) as r:
+                code = r.status
+        except urllib.error.HTTPError as e:
+            code = e.code
+        done_at[(key, i)] = time.perf_counter()
+        return code
+
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        codes = _in_order(engine, [lambda k=k: call(*k) for k in keys])
+        launches = read_launches()
+        unknown = _post_status(base + "/v1/generate",
+                               {"prompt": [1, 2], "max_new": 2})[0]
+        with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+            prom = r.read().decode()
+    finally:
+        server.stop()
+    _add(total, launches)
+    ok = [k for k, c in zip(keys, codes) if c == 200]
+    order = sorted(ok, key=done_at.get)
+    pos = {k: i / (len(order) - 1) for i, k in enumerate(order)}
+    victims = [pos[k] for k in ok if k[0] != "k-flood"]
+    flood = [pos[k] for k in ok if k[0] == "k-flood"]
+    # FIFO would finish the 8 admitted non-flood requests last
+    fifo = float(np.mean(np.arange(len(ok) - 8, len(ok)) / (len(ok) - 1)))
+    series = all(f'serve_tenant_requests_total{{tenant="{t}",outcome='
+                 f'"finished"}}' in prom for t in ("flood", "capped",
+                                                   "metered"))
+    quota = 'serve_rejections_total{reason="quota",tenant="metered"} 1' in prom
+    log(f"{tag}: 24 flood, 6 capped, 3 metered requests (submitted in that "
+        f"order); HTTP codes flood {codes[:24].count(200)}x200, capped "
+        f"{codes[24:30]}, metered {codes[30:]}; mean completion position "
+        f"(0 first, 1 last) of the capped and metered requests "
+        f"{np.mean(victims):.3f} vs the flood's {np.mean(flood):.3f} (FIFO "
+        f"would put them at {fifo:.3f}); the capped tenant's "
+        f"peak slots {peak['capped']}; unknown key {unknown}; per-tenant "
+        f"series {series}, quota rejection labelled {quota} [{card}]")
+    _must(tag, codes[:30].count(200) == 30 and codes[30:] == [200, 200, 429],
+          f"HTTP codes {codes}")
+    _must(tag, np.mean(victims) < fifo - 0.2,
+          "the flood starved its classmates")
+    _must(tag, peak["capped"] == 2, f"capped peak {peak['capped']} slots")
+    _must(tag, unknown == 401 and series and quota,
+          "401, the per-tenant series or the quota label")
+
+
+def phase10_recovery(card: str, cfg, params, total) -> None:
+    """10e: sampled mixed-adapter streams (T 0.8 top-k 40) with one
+    injected crash equal the uninterrupted run, and no streamed token is
+    repeated (the stream queues against the results)."""
+    import queue
+
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.models.transformer import init_lora_bank
+    from deeplearning4j_tpu_torch.ops import threefry
+    from deeplearning4j_tpu_torch.serving import FaultInjector
+
+    tag = "phase 10e"
+    bank = init_lora_bank(threefry.key(LORA_SEED), cfg, LORA_N, LORA_RANK)
+    prompts = surface_prompts(cfg.vocab_size)[:8]
+    adapters = [i % LORA_N for i in range(8)]
+    kw = dict(lora_bank=bank, temperature=0.8, top_k=40)
+    _, ref, _, _ = _lora_run(f"{tag} uninterrupted", cfg, params,
+                             _lora_reqs(prompts, adapters), **kw)
+    reqs = _lora_reqs(prompts, adapters)
+    for r in reqs:
+        r.stream = queue.Queue()
+    eng, got, launches, _ = _lora_run(
+        tag, cfg, params, reqs,
+        faults=FaultInjector().plan("step", LORA_CRASH, "crash"), **kw)
+    _add(total, launches)
+    streamed = []
+    for r in reqs:
+        toks = []
+        while (t := r.stream.get_nowait()) is not None:
+            toks.append(t)
+        streamed.append(toks)
+    same = [np.array_equal(a, b) for a, b in zip(ref, got)]
+    tails = [s == g[len(p):].tolist()
+             for s, g, p in zip(streamed, got, prompts)]
+    log(f"{tag}: restarts {eng.metrics.n_restarts} (mode "
+        f"{eng.last_recover_mode}); streams identical to the uninterrupted "
+        f"run {sum(same)}/8; streamed tokens equal to the results' tails "
+        f"(none repeated) {sum(tails)}/8 [{card}]")
+    _must(tag, eng.metrics.n_restarts == 1 and all(same) and all(tails),
+          "the recovered run differs or repeated a token")
+
+
+def phase_front_end(card: str) -> dict[str, dict[str, int]]:
+    """Phase 10: streaming, the rest of the single-engine front end,
+    batched LoRA and tenancy at GPT-2-small's width (phase 3's model);
+    fails on a launch at a shape phase 2 did not hold."""
+    import torch
+
+    t0 = time.perf_counter()
+    cfg, params = serve_model(False)
+    runs = {k: {} for k in ("stream", "lora", "tenancy", "lora_recovery")}
+    with launched_shapes() as seen:
+        for name, fn in (("stream", phase10_streaming),
+                         ("lora", phase10_lora),
+                         ("tenancy", phase10_tenancy),
+                         ("lora_recovery", phase10_recovery)):
+            t1 = time.perf_counter()
+            fn(card, cfg, params, runs[name])
+            log(f"phase 10 {name}: {time.perf_counter() - t1:.1f} s")
+            if name == "stream":
+                phase10_front_end(card, cfg, params)
+            torch.cuda.empty_cache()
+    log(f"phase 10: {time.perf_counter() - t0:.1f} s wall [{card}]")
+    check_launched("phase 10", seen)
+    return runs
+
+
 def main() -> int:
     try:
         import torch
@@ -3449,6 +4080,7 @@ def main() -> int:
     by_phase.update(phase_decode_variants(card))
     by_phase.update(phase_serving_features(card))
     by_phase.update(phase_surface(card))
+    by_phase.update(phase_front_end(card))
     kernels = [
         dict(name=name, route="cuda", **KERNELS[name],
              launches=sum(p[name] for p in by_phase.values()),

@@ -25,7 +25,9 @@ the prefix cache, ``--piggyback [--prefill-budget N]`` the deferred
 prefill, ``--chaos-rate P [--chaos-seed S]`` seeded transient faults
 (retried, or recovered by replay), and ``--sampling-surface
 [--grammar-states N] [--grammar-cache DIR]`` the per-request sampling and
-grammar surface, as the reference's flags do. Sampling takes the
+grammar surface, ``--tenants PATH`` the tenant registry (a JSON file) and
+``--lora-adapters N [--lora-rank R] [--lora-seed S]`` a batched-LoRA bank
+of random demo adapters, as the reference's flags do. Sampling takes the
 reference's threefry key stream: ``generate --seed S`` is ``key(S)``,
 ``serve --seed S`` the engine's master key. Every command runs on
 ``cuda`` unless ``--device cpu`` is given.
@@ -292,20 +294,36 @@ def cmd_generate(args) -> int:
 
 
 def cmd_serve(args) -> int:
+    from deeplearning4j_tpu_torch.models.transformer import init_lora_bank
+    from deeplearning4j_tpu_torch.ops import threefry
     from deeplearning4j_tpu_torch.serving import (
         FaultInjector,
         RequestScheduler,
         ServingEngine,
         ServingServer,
+        TenantRegistry,
     )
 
     if not (args.demo or args.checkpoint_dir):
         print("serve needs --checkpoint-dir (or --demo)", file=sys.stderr)
         return 2
+    tenancy = None
+    if args.tenants:
+        tenancy = TenantRegistry.from_file(args.tenants)
+        print(f"tenancy: {len(tenancy)} tenants from {args.tenants} "
+              f"({', '.join(tenancy.tenant_ids())})")
     model = _decode_model(args)
     if isinstance(model, int):
         return model
     cfg, params = model
+    lora_bank = None
+    if args.lora_adapters > 0:
+        lora_bank = init_lora_bank(threefry.key(args.lora_seed), cfg,
+                                   n_adapters=args.lora_adapters,
+                                   rank=args.lora_rank, device=args.device)
+        print(f"batched LoRA: {args.lora_adapters} adapters "
+              f"(rank {args.lora_rank}, index 0 = base model); "
+              f"requests pick one via 'adapter' or the tenant default")
     origin = ("demo mode: random-init model" if args.demo
               else f"checkpoint {args.checkpoint_dir}")
     faults = None
@@ -323,14 +341,19 @@ def cmd_serve(args) -> int:
         prefix_cache_tokens=args.prefix_cache_tokens,
         scheduler=RequestScheduler(
             max_queue_depth=args.max_queue,
-            prefix_affinity_tokens=args.prefix_affinity_tokens),
+            prefix_affinity_tokens=args.prefix_affinity_tokens,
+            tenancy=tenancy),
         rng_seed=args.seed, faults=faults, device=args.device,
         paged=args.paged, block_size=args.block_size,
         piggyback=args.piggyback, prefill_budget=args.prefill_budget,
         sampling_surface=args.sampling_surface,
         grammar_states=args.grammar_states,
         grammar_cache=args.grammar_cache,
+        lora_bank=lora_bank, tenancy=tenancy,
     )
+    if lora_bank is not None and engine.n_adapters == 0:
+        print("batched LoRA DISABLED (adapter-0 parity probe failed); "
+              "serving the base model", file=sys.stderr)
     if args.paged:
         if engine._paged:
             print(f"paged KV: {engine.pool.n_blocks} blocks x "
@@ -545,6 +568,21 @@ def build_parser() -> argparse.ArgumentParser:
                    "at this per-step probability (smoke-tests the "
                    "supervised retry/replay path; see serving/faults.py)")
     v.add_argument("--chaos-seed", type=int, default=0)
+    v.add_argument("--tenants", default=None, metavar="PATH",
+                   help="JSON tenant registry: API keys (X-API-Key / "
+                   "Bearer), per-tenant priority and weighted-fair share, "
+                   "KV-slot caps, token-rate quotas (429), a default LoRA "
+                   "adapter and a p99-TPOT objective per tenant")
+    v.add_argument("--lora-adapters", type=int, default=0, metavar="N",
+                   help="load a batched-LoRA bank of N adapters (random "
+                   "demo factors; index 0 is the zero adapter, bitwise the "
+                   "base model); requests pick one with 'adapter' or their "
+                   "tenant's default. 0 = no bank")
+    v.add_argument("--lora-rank", type=int, default=4,
+                   help="rank of the demo LoRA factors")
+    v.add_argument("--lora-seed", type=int, default=0,
+                   help="seed of the demo LoRA bank (threefry key(seed), "
+                   "the reference's bank up to erfinv's last ulps)")
     v.set_defaults(fn=cmd_serve)
     return ap
 

@@ -51,10 +51,20 @@ Decode variants: greedy and sampled ``transformer_generate``, beam search
 (``transformer_beam_search``) and speculative decoding
 (``transformer_speculative_generate``), all on the same decode builder.
 
+Batched LoRA (the reference's, for the serving engine):
+:func:`init_lora_bank` stacks N adapters' low-rank factors for the q
+projection and the MLP's w1 projection; the decode, chunk and prefill
+passes take ``adapter`` (B,) int rows with the bank riding in
+``params["lora"]`` and add each row's delta (:func:`_lora_delta`): the q
+delta before RoPE, the MLP delta before the gelu, both outside attention,
+so decode keeps the decode kernels. Rows with adapter 0 SELECT the base
+activations (``torch.where``, never ``+ 0.0``, which would flip -0.0
+bits), so adapter 0 is bitwise the base model.
+
 Not in these slices: MoE (``n_experts``) and sequence parallelism raise
 ``NotImplementedError``; training on a mesh
 (tensor parallelism, FSDP) comes with the ``torch.distributed`` slice;
-LoRA and tensor-parallel serving are later slices.
+tensor-parallel serving is a later slice.
 """
 
 from __future__ import annotations
@@ -326,6 +336,114 @@ def params_from_jax(np_tree, cfg: TransformerConfig, device=None):
     }
 
 
+#: the batched-LoRA bank's leaves: (nl, N, in, rank) then (nl, N, rank, out)
+_LORA_LEAVES = ("a_q", "b_q", "a_mlp", "b_mlp")
+
+
+def _lora_shapes(cfg: TransformerConfig, n_adapters: int, rank: int):
+    nl, d = cfg.n_layers, cfg.d_model
+    hk = cfg.n_heads * cfg.head_dim
+    return {"a_q": (nl, n_adapters, d, rank),
+            "b_q": (nl, n_adapters, rank, hk),
+            "a_mlp": (nl, n_adapters, d, rank),
+            "b_mlp": (nl, n_adapters, rank, cfg.d_ff)}
+
+
+def init_lora_bank(key, cfg: TransformerConfig, n_adapters: int, rank: int,
+                   scale: float = 0.5, device=None):
+    """The reference's ``init_lora_bank`` (transformer.py:661): N adapters'
+    (A, B) factors for the q projection and the MLP's w1 projection of every
+    layer, stacked so one decode step gathers each slot's rows by index::
+
+        a_q   (nl, N, d_model, r)    b_q   (nl, N, r, n_heads*head_dim)
+        a_mlp (nl, N, d_model, r)    b_mlp (nl, N, r, d_ff)
+
+    f32 at rest; row 0 is the zero adapter; rows 1..N-1 are ``scale``
+    times standard normals, both factors nonzero so adapters differ out of
+    the box. ``key`` (a seed or key data) is split 4 ways, one key a
+    leaf, and the normals are JAX's: sqrt(2) * erfinv(u), u uniform on
+    [nextafter(-1, 0), 1) from the threefry bits. Bits and uniforms are
+    bitwise ``jax.random``'s; erfinv is the library's, which can differ
+    from XLA's in the last ulps."""
+    if cfg.n_experts:
+        raise ValueError("batched LoRA does not support MoE configs")
+    if n_adapters < 2:
+        raise ValueError(f"n_adapters must be >= 2 (index 0 is the zero "
+                         f"adapter), got {n_adapters}")
+    if rank < 1:
+        raise ValueError(f"rank must be >= 1, got {rank}")
+    dev = resolve_device(device)
+    ks = threefry.split(threefry.as_key(key), 4)
+    lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
+    sqrt2 = float(np.float32(np.sqrt(2.0)))
+
+    def factor(k, shape):
+        u = threefry.uniform(k, shape, float(lo), 1.0)
+        a = float(np.float32(scale)) * (sqrt2 * torch.erfinv(u))
+        a[:, 0] = 0.0  # adapter 0 = the zero adapter
+        return a.to(dev)
+
+    return {name: factor(k, shape) for k, (name, shape) in zip(
+        ks, _lora_shapes(cfg, n_adapters, rank).items())}
+
+
+def lora_bank_from_jax(np_tree, cfg: TransformerConfig, device=None):
+    """The reference's LoRA bank (``init_lora_bank``), given as a dict of
+    numpy arrays, as the port's f32 tensors on ``device``; shapes are
+    checked against ``cfg``."""
+    dev = resolve_device(device)
+    a = np.asarray(np_tree["a_q"])
+    if a.ndim != 4:
+        raise ValueError(f"lora a_q: expected (nl, N, D, r), got {a.shape}")
+    want = _lora_shapes(cfg, a.shape[1], a.shape[3])
+    out = {}
+    for name in _LORA_LEAVES:
+        x = np.asarray(np_tree[name], np.float32)
+        if tuple(x.shape) != want[name]:
+            raise ValueError(f"lora {name}: shape {x.shape}, expected "
+                             f"{want[name]}")
+        out[name] = torch.from_numpy(np.array(x)).to(dev)
+    return out
+
+
+def _lora_delta(h_in, a, b):
+    """Per-row low-rank delta: activations ``h_in`` (B, T, D) through each
+    row's gathered factors ``a`` (B, D, r) and ``b`` (B, r, O) -> (B, T, O):
+    two thin batched products over rank r (the reference's two einsums,
+    transformer.py:716)."""
+    dt = h_in.dtype
+    return torch.bmm(torch.bmm(h_in, a.to(dt)), b.to(dt))
+
+
+def _lora_select(params, adapter):
+    """Each row's LoRA factors in every layer, gathered once a forward pass
+    (``{leaf: (nl, B, ...)}``, one gather a leaf), and the rows that take a
+    delta (adapter != 0); None without ``adapter`` or without a bank."""
+    if adapter is None or "lora" not in params:
+        return None
+    idx = adapter.long()
+    return ({name: a[:, idx] for name, a in params["lora"].items()},
+            adapter > 0)
+
+
+def _lora_q(cfg: TransformerConfig, q, h_in, lora, i: int):
+    """Add each row's q delta (layer ``i`` of ``lora``, from
+    :func:`_lora_select`) to ``q`` (B, H, T, K), before RoPE; adapter-0
+    rows keep ``q``'s bits."""
+    rows, sel = lora
+    b, t = h_in.shape[:2]
+    dq = _lora_delta(h_in, rows["a_q"][i], rows["b_q"][i]).view(
+        b, t, cfg.n_heads, cfg.head_dim).transpose(1, 2)
+    return torch.where(sel[:, None, None, None], q + dq, q)
+
+
+def _lora_mlp(p, h_in, lora, i: int):
+    """The MLP with each row's pre-gelu delta (``h_in`` (B, T, D))."""
+    rows, sel = lora
+    dm = _lora_delta(h_in, rows["a_mlp"][i], rows["b_mlp"][i])
+    return _mlp(p, h_in, delta1=dm, sel=sel[:, None, None])
+
+
 def params_to(params, device):
     """The same tree with every tensor on ``device``."""
     if isinstance(params, dict):
@@ -408,10 +526,15 @@ def _expand_kv(cfg: TransformerConfig, k_r, v_r):
     return k_r.repeat_interleave(g, dim=1), v_r.repeat_interleave(g, dim=1)
 
 
-def _mlp(p, h_in):
-    """Dense FFN: tanh-approximated gelu, as ``jax.nn.gelu`` defaults."""
+def _mlp(p, h_in, delta1=None, sel=None):
+    """Dense FFN: tanh-approximated gelu, as ``jax.nn.gelu`` defaults.
+    ``delta1`` is a batched-LoRA delta added to the w1 projection before
+    the gelu on the rows ``sel`` selects; the other rows keep the base
+    activations' bits."""
     dt = h_in.dtype
     h = h_in @ _w(p, "w1", dt) + p["b1"].to(dt)
+    if delta1 is not None:
+        h = torch.where(sel, h + delta1, h)
     h = F.gelu(h, approximate="tanh")
     return h @ _w(p, "w2", dt) + p["b2"].to(dt)
 
@@ -909,13 +1032,16 @@ def _write_paged_rows(blocks, i: int, where, rows):
 
 # -- chunked cached forward (dense attention against the cache) ----------------
 
-def _block_chunk(cfg: TransformerConfig, x, p, kv_all, i: int, pos0):
+def _block_chunk(cfg: TransformerConfig, x, p, kv_all, i: int, pos0,
+                 lora=None):
     """One block over C consecutive cached positions (x: (B, C, D), rows
     pos0..pos0+C-1): projection, RoPE, cache write (in place; quantized
     rows into an int8 cache), dense masked attention against the
     (dequantized) cache, MLP. ``pos0`` is an int or a (B,) tensor of
     per-row starts. Divides the logits by ``sqrt(kd)`` as the reference
-    does (the kernels multiply by the scale instead)."""
+    does (the kernels multiply by the scale instead). ``lora`` (the rows'
+    factors from :func:`_lora_select`; layer ``i`` is read) adds each
+    row's LoRA deltas."""
     b, c, _ = x.shape
     kd = cfg.head_dim
     grp = cfg.n_heads // cfg.kv_heads
@@ -925,6 +1051,8 @@ def _block_chunk(cfg: TransformerConfig, x, p, kv_all, i: int, pos0):
         int(pos0) + steps)
     h_in = _layer_norm(x, p["ln1_scale"], p["ln1_bias"])
     q, k_r, v_r = _project_qkv(cfg, p, h_in)
+    if lora is not None:
+        q = _lora_q(cfg, q, h_in, lora, i)
     if cfg.rope:
         cos, sin = _rope_tables(positions, kd, x.dtype, x.device)
         if vec_pos:  # (B, C, hd/2): per-row tables over the head axis
@@ -956,17 +1084,22 @@ def _block_chunk(cfg: TransformerConfig, x, p, kv_all, i: int, pos0):
     o_flat = o.permute(0, 3, 1, 2, 4).reshape(b, c, cfg.n_heads * kd)
     x = x + o_flat @ _w(p, "wo", x.dtype).reshape(cfg.n_heads * kd, -1)
     h_in = _layer_norm(x, p["ln2_scale"], p["ln2_bias"])
+    if lora is not None:
+        return x + _lora_mlp(p, h_in, lora, i), kv_all
     return x + _mlp(p, h_in), kv_all
 
 
 def _chunk_builder(cfg: TransformerConfig):
-    """``forward_chunk(params, caches, toks (B, C), pos0, last_idx=None)``
-    advances C positions from the int ``pos0`` through every layer against
-    the cache (written in place) and returns (logits, caches): (B, C, V),
-    or (B, V) at ``last_idx`` (int or (B,) tensor)."""
+    """``forward_chunk(params, caches, toks (B, C), pos0, last_idx=None,
+    adapter=None)`` advances C positions from the int ``pos0`` through
+    every layer against the cache (written in place) and returns (logits,
+    caches): (B, C, V), or (B, V) at ``last_idx`` (int or (B,) tensor).
+    ``adapter`` (B,) rows apply the ``params["lora"]`` bank."""
     check_supported(cfg)
 
-    def forward_chunk(params, caches, toks, pos0: int, last_idx=None):
+    def forward_chunk(params, caches, toks, pos0: int, last_idx=None,
+                      adapter=None):
+        lora = _lora_select(params, adapter)
         b, c = toks.shape
         pos_rows = _pos_rows(
             params, int(pos0) + torch.arange(c, device=toks.device),
@@ -974,7 +1107,7 @@ def _chunk_builder(cfg: TransformerConfig):
         x = (params["embed"][toks] + pos_rows[None]).to(cfg.compute_dtype)
         for i in range(cfg.n_layers):
             x, caches = _block_chunk(cfg, x, _layer(params, i), caches, i,
-                                     pos0)
+                                     pos0, lora)
         if last_idx is not None:
             if isinstance(last_idx, torch.Tensor) and last_idx.dim() == 1:
                 x = x[torch.arange(b, device=x.device), last_idx.long()]
@@ -1011,10 +1144,11 @@ def _decode_builder(cfg: TransformerConfig):
                 buf[i, :, :, int(pos)] = vals
         return kv_all
 
-    def block_decode(x, p, kv_all, i: int, pos, where=None):
+    def block_decode(x, p, kv_all, i: int, pos, where=None, lora=None):
         if not cfg.decode_kernel:
             # the dense path IS the C=1 chunk block (one code path)
-            y, kv_all = _block_chunk(cfg, x[:, None, :], p, kv_all, i, pos)
+            y, kv_all = _block_chunk(cfg, x[:, None, :], p, kv_all, i, pos,
+                                     lora)
             return y[:, 0], kv_all
         b, d = x.shape
         h_in = _layer_norm(x, p["ln1_scale"], p["ln1_bias"])
@@ -1028,6 +1162,10 @@ def _decode_builder(cfg: TransformerConfig):
             qkv = (h_in @ _w(p, "wqkv", x.dtype).reshape(d, -1)).view(
                 b, 3, cfg.n_heads, kd)
             q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]
+        if lora is not None:
+            # the q delta before RoPE; attention below is the decode
+            # kernel's, unchanged (the delta lies outside it)
+            q = _lora_q(cfg, q[:, :, None], h_in[:, None], lora, i)[:, :, 0]
         if cfg.rope:
             cos, sin = _rope_tables(pos, kd, x.dtype, x.device)
             if isinstance(pos, torch.Tensor) and pos.dim() == 1:
@@ -1057,24 +1195,28 @@ def _decode_builder(cfg: TransformerConfig):
                   .reshape(b, cfg.n_heads * kd))
         x = x + o_flat @ _w(p, "wo", x.dtype).reshape(cfg.n_heads * kd, -1)
         h_in = _layer_norm(x, p["ln2_scale"], p["ln2_bias"])
+        if lora is not None:
+            return x + _lora_mlp(p, h_in[:, None], lora, i)[:, 0], kv_all
         return x + _mlp(p, h_in), kv_all
 
-    def forward_one(params, caches, token, pos):
+    def forward_one(params, caches, token, pos, adapter=None):
         """One position through all layers -> (logits (B, V) f32, caches).
-        ``pos`` is an int (every row at one depth) or a (B,) tensor."""
+        ``pos`` is an int (every row at one depth) or a (B,) tensor;
+        ``adapter`` (B,) rows apply the ``params["lora"]`` bank."""
         if is_paged(caches) and not cfg.decode_kernel:
             # the dense chunk block reads whole slabs: gather the view,
             # step it, scatter it back (the reference's make_paged_fwd1)
             view = paged_gather(caches["blocks"], caches["tables"])
-            logits, view = forward_one(params, view, token, pos)
+            logits, view = forward_one(params, view, token, pos, adapter)
             paged_scatter(caches["blocks"], caches["tables"], view)
             return logits, caches
+        lora = _lora_select(params, adapter)
         x = (params["embed"][token] + _pos_rows(params, pos, cfg.max_len)
              ).to(cfg.compute_dtype)
         where = _paged_write_index(caches, pos) if is_paged(caches) else None
         for i in range(cfg.n_layers):
             x, caches = block_decode(x, _layer(params, i), caches, i, pos,
-                                     where)
+                                     where, lora)
         x = _layer_norm(x, params["lnf_scale"], params["lnf_bias"])
         return _head_logits(x, _w(params, "head", x.dtype)), caches
 
@@ -1082,7 +1224,9 @@ def _decode_builder(cfg: TransformerConfig):
         """One-time cast of the streamed float weights (every block tensor
         and the head) to the compute dtype; embeddings, positions and the
         final norm stay f32. int8 leaves and their f32 scales (NOT the
-        ``ln1_scale``/``ln2_scale`` norms) pass through untouched."""
+        ``ln1_scale``/``ln2_scale`` norms) pass through untouched. A LoRA
+        bank is cast too: its deltas take the factors at the compute dtype,
+        and a cast before the row gather gives the bits of one after it."""
         def cast(name, a):
             if a.dtype == torch.int8 or name in _INT8_SCALES:
                 return a
@@ -1091,6 +1235,9 @@ def _decode_builder(cfg: TransformerConfig):
         out["blocks"] = {name: cast(name, a)
                          for name, a in params["blocks"].items()}
         out["head"] = cast("head", params["head"])
+        if "lora" in params:
+            out["lora"] = {name: a.to(cfg.compute_dtype)
+                           for name, a in params["lora"].items()}
         return out
 
     def init_caches(batch: int, total: int, device):
@@ -1111,12 +1258,13 @@ def _decode_builder(cfg: TransformerConfig):
             }
         return torch.zeros(shape, dtype=cfg.compute_dtype, device=device)
 
-    def prefill(params, caches, prompt, last_idx=None):
+    def prefill(params, caches, prompt, last_idx=None, adapter=None):
         """Bulk prefill: one causal forward over the prompt (B, Tp) writes
         rows 0..Tp-1 of every layer's cache (in place; quantized rows into
         an int8 cache, while attention uses the float k/v) and returns
         (caches, logits (B, V) f32) at ``last_idx`` (default Tp-1; an int
-        or a (B,) tensor)."""
+        or a (B,) tensor). ``adapter`` (B,) rows apply the
+        ``params["lora"]`` bank (attention stays the flash kernel's)."""
         b, tp = prompt.shape
         if tp == 0:
             return caches, torch.zeros((b, cfg.vocab_size),
@@ -1129,10 +1277,13 @@ def _decode_builder(cfg: TransformerConfig):
                 torch.arange(tp, device=x.device), kd, cfg.compute_dtype,
                 x.device)
         use_flash = cfg.use_flash and _flash_seq_ok(tp)
+        lora = _lora_select(params, adapter)
         for i in range(cfg.n_layers):
             p = _layer(params, i)
             h_in = _layer_norm(x, p["ln1_scale"], p["ln1_bias"])
             q, k_r, v_r = _project_qkv(cfg, p, h_in)
+            if lora is not None:
+                q = _lora_q(cfg, q, h_in, lora, i)
             if cfg.rope:
                 q = _apply_rope(q, cos, sin)
                 k_r = _apply_rope(k_r, cos, sin)
@@ -1150,7 +1301,8 @@ def _decode_builder(cfg: TransformerConfig):
             x = x + o.transpose(1, 2).reshape(b, tp, -1) @ _w(
                 p, "wo", x.dtype).reshape(cfg.n_heads * kd, -1)
             h_in = _layer_norm(x, p["ln2_scale"], p["ln2_bias"])
-            x = x + _mlp(p, h_in)
+            x = x + (_mlp(p, h_in) if lora is None
+                     else _lora_mlp(p, h_in, lora, i))
         if last_idx is None:
             x_last = x[:, -1]
         elif isinstance(last_idx, torch.Tensor) and last_idx.dim() == 1:

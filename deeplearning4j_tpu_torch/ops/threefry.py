@@ -147,14 +147,14 @@ def as_key(k) -> Key:
 
 
 def key(seed: int) -> Key:
-    """``jax.random.key_data(jax.random.key(seed))``: the seed's high and
-    low 32-bit words (a negative seed, which JAX holds as int32, has high
-    word 0)."""
+    """``jax.random.key_data(jax.random.key(seed))`` with 64-bit types
+    off, as the reference runs: ``(0, seed mod 2^32)`` for every seed in
+    [-2^63, 2^63); ``OverflowError`` outside that range, as JAX raises."""
     seed = int(seed)
-    if not -(1 << 31) <= seed < (1 << 63):
-        raise ValueError(f"seed {seed} outside the int64 range a key takes")
-    hi = (seed >> 32) & _M32 if seed >= 0 else 0
-    return (hi, seed & _M32)
+    if not -(1 << 63) <= seed < (1 << 63):
+        raise OverflowError(f"seed {seed} outside the int64 range a key "
+                            f"takes")
+    return (0, seed & _M32)
 
 
 def split(k, n: int = 2) -> list[Key]:

@@ -1,6 +1,6 @@
 """Continuous-batching serving for the port: slot and block-paged pools,
 the prefix cache, scheduler, engine, the grammar and sampling surface,
-fault injection, metrics and the HTTP server."""
+fault injection, tenancy, metrics and the HTTP server."""
 
 from deeplearning4j_tpu_torch.serving.cache_pool import (
     KVSlotPool,
@@ -29,11 +29,17 @@ from deeplearning4j_tpu_torch.serving.scheduler import (
     RequestStatus,
 )
 from deeplearning4j_tpu_torch.serving.server import ServingServer
+from deeplearning4j_tpu_torch.serving.tenancy import (
+    QuotaExceeded,
+    TenantConfig,
+    TenantRegistry,
+)
 
 __all__ = [
     "AdmissionError", "Backpressure", "EngineCrash", "FaultInjector",
     "GrammarCache", "GrammarError", "GrammarTable", "KVSlotPool",
-    "PagedKVPool", "PermanentFault", "PrefixCache", "Request",
-    "RequestScheduler", "RequestStatus", "Segment", "ServingEngine",
-    "ServingMetrics", "ServingServer", "StopMatcher", "TransientFault",
+    "PagedKVPool", "PermanentFault", "PrefixCache", "QuotaExceeded",
+    "Request", "RequestScheduler", "RequestStatus", "Segment",
+    "ServingEngine", "ServingMetrics", "ServingServer", "StopMatcher",
+    "TenantConfig", "TenantRegistry", "TransientFault",
 ]

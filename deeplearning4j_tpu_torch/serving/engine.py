@@ -133,9 +133,39 @@ fuses the last budgeted chunk into the decode dispatch and probes the
 fused program; eager PyTorch has no such fusion, so the port runs the
 chunk program itself and has nothing to probe.)
 
+Streaming (``Request.stream``, a ``queue.Queue``): each token is put on
+the request's queue when its horizon is read back (with a stop matcher,
+only what the matcher releases; the hold-back is released before the end),
+then ``None`` as the end-of-stream sentinel on every terminal path, after
+the terminal status is set. The tokens are on the host once a horizon is
+read back, so streaming adds no device sync; replay after a crash does
+not stream a token twice (the replayed tokens already streamed).
+
+Batched LoRA (``lora_bank``, :func:`~..models.transformer.init_lora_bank`):
+the bank rides in ``params["lora"]`` (cast once with the weights) and each
+slot carries an adapter index, a host mirror uploaded per dispatch, so one
+step serves every mix of adapters. The deltas lie outside attention (the q
+delta before RoPE, the MLP delta before the gelu), so LoRA decode runs the
+decode kernels and prefill the flash kernel. Row 0 is the zero adapter,
+whose rows select the base activations: a dispatch where every live slot
+holds adapter 0 skips the bank (the same bits). A construction-time probe
+(``lora_parity="auto"``, the reference's ``_probe_lora_zero``) checks that
+adapter 0 through the bank gives the bank-free model's logits bitwise
+over prefill and three greedy steps, or logs
+``lora_parity_probe_failed`` and serves without the bank. Prompts with
+adapter != 0 neither read nor feed the prefix cache (their KV depends on
+the adapter) and give no affinity hint.
+
+Tenancy (``tenancy``, a :class:`~.tenancy.TenantRegistry`): the default
+scheduler gets the registry (weighted DRR within a priority class, quotas
+at submit); admission holds each tenant under its ``max_slots`` (live and
+deferred slots plus this round's plans); outcomes, tokens and rejections
+are labelled by tenant, and each tenant's p99-TPOT objective is declared to
+the metrics.
+
 Left for later slices: batched admission, the adaptive horizon, persisted
 probe verdicts, the flight recorder and tracer, KV wire import/export,
-streaming responses, LoRA and tensor parallelism.
+embeddings and tensor parallelism.
 """
 
 from __future__ import annotations
@@ -190,6 +220,7 @@ from deeplearning4j_tpu_torch.serving.scheduler import (
     RequestScheduler,
     RequestStatus,
 )
+from deeplearning4j_tpu_torch.serving.tenancy import QuotaExceeded
 
 #: device EOS id for requests without one (never equals a sampled token)
 _NO_EOS = -1
@@ -210,13 +241,15 @@ def build_step_program(fwd1, horizon: int, temperature: float,
     device; a slot that emits its EOS or spends its budget stops advancing
     for the rest of the horizon. Sampled tokens are
     ``categorical(fold_in(key_s, pos_s), filtered / temperature)`` with the
-    slots' (S, 2) key words ``keys``."""
+    slots' (S, 2) key words ``keys``; ``adapters`` the slots' (S,) LoRA
+    rows (None: no bank, or adapter 0 everywhere)."""
     # a device scalar: a true division (CUDA multiplies by the reciprocal
     # of a host number), as the reference's and the masked step's
     temp = torch.full((), float(temperature), dtype=torch.float32,
                       device=device)
 
-    def step(params, caches, logits, pos, active, budget, eos, keys):
+    def step(params, caches, logits, pos, active, budget, eos, keys,
+             adapters=None):
         toks_all = []
         for _ in range(horizon):
             filt = _top_k_filter(logits, top_k)
@@ -229,7 +262,7 @@ def build_step_program(fwd1, horizon: int, temperature: float,
             # or the re-zeroed sentinel) and the next admission rewrites
             # the whole slab
             toks = torch.where(active, toks, 0)
-            logits, caches = fwd1(params, caches, toks, pos)
+            logits, caches = fwd1(params, caches, toks, pos, adapters)
             pos = torch.where(active, pos + 1, pos)
             budget = torch.where(active, budget - 1, budget)
             active = active & (toks != eos) & (budget > 0)
@@ -347,7 +380,7 @@ def build_masked_step_program(fwd1, horizon: int, n_logprobs: int):
 
     def mstep(params, caches, logits, pos, active, budget, eos, gstate,
               keys, temps, top_ks, top_ps, bias_idx, bias_val, mask_words,
-              trans_tab, use: SurfaceUse):
+              trans_tab, use: SurfaceUse, adapters=None):
         aux_all = []
         for _ in range(horizon):
             toks, aux = _masked_draw(logits, pos, active, gstate, keys,
@@ -356,7 +389,7 @@ def build_masked_step_program(fwd1, horizon: int, n_logprobs: int):
             if use.mask:
                 nxt = trans_tab[gstate.long(), toks.long()]
                 gstate = torch.where(active & (gstate > 0), nxt, gstate)
-            logits, caches = fwd1(params, caches, toks, pos)
+            logits, caches = fwd1(params, caches, toks, pos, adapters)
             pos = torch.where(active, pos + 1, pos)
             budget = torch.where(active, budget - 1, budget)
             active = active & (toks != eos) & (budget > 0)
@@ -384,8 +417,8 @@ def build_replay_program(fwd1):
     whose record is exhausted — those rows must stay what the slot's last
     real step produced."""
 
-    def rstep(params, caches, logits, toks, pos, replaying):
-        new_logits, caches = fwd1(params, caches, toks, pos)
+    def rstep(params, caches, logits, toks, pos, replaying, adapters=None):
+        new_logits, caches = fwd1(params, caches, toks, pos, adapters)
         return caches, torch.where(replaying[:, None], new_logits, logits)
 
     return rstep
@@ -471,10 +504,11 @@ def build_prefill_program(do_prefill):
     """Admission for one prompt bucket: prefill the padded prompt into a
     batch-1 slab (written in place); returns the (1, V) logits at
     ``last_idx``, the true last prompt row (the padded rows are causally
-    invisible to it)."""
+    invisible to it); ``adapter`` a (1,) LoRA row or None."""
 
-    def prefill(params, slab, prompt, last_idx: int):
-        _, lg = do_prefill(params, slab, prompt, last_idx=last_idx)
+    def prefill(params, slab, prompt, last_idx: int, adapter=None):
+        _, lg = do_prefill(params, slab, prompt, last_idx=last_idx,
+                           adapter=adapter)
         return slab, lg
 
     return prefill
@@ -485,8 +519,9 @@ def build_chunk_program(fwd_chunk):
     ``pos0`` into a batch-1 slab (written in place); returns the (1, V)
     logits at ``last_idx``."""
 
-    def chunk(params, slab, toks, pos0: int, last_idx: int):
-        lg, slab = fwd_chunk(params, slab, toks, pos0, last_idx=last_idx)
+    def chunk(params, slab, toks, pos0: int, last_idx: int, adapter=None):
+        lg, slab = fwd_chunk(params, slab, toks, pos0, last_idx=last_idx,
+                             adapter=adapter)
         return slab, lg
 
     return chunk
@@ -607,6 +642,12 @@ class ServingEngine:
     ``max_retries``, ``retry_backoff_s``, ``max_backoff_s`` and
     ``chunked_replay`` set supervision and replay; ``piggyback`` and
     ``prefill_budget`` the deferred prefill (see the module doc).
+
+    ``lora_bank`` (an :func:`init_lora_bank` bank) serves batched LoRA
+    behind the ``lora_parity`` probe ("auto"; True trusts it, False serves
+    without the bank); ``tenancy`` (a :class:`TenantRegistry`) serves
+    tenants (see the module doc; a caller's own ``scheduler`` should carry
+    the same registry).
     """
 
     def __init__(
@@ -641,6 +682,9 @@ class ServingEngine:
         masked_parity: bool | str = "auto",
         grammar_states: int = 256,
         grammar_cache: str | GrammarCache | None = None,
+        lora_bank=None,
+        lora_parity: bool | str = "auto",
+        tenancy=None,
     ):
         check_supported(cfg)
         self.device = resolve_device(device)
@@ -662,9 +706,19 @@ class ServingEngine:
         fwd1, init_caches, do_prefill, cast_params = _decode_builder(cfg)
         self._fwd1, self._init_caches = fwd1, init_caches
         self._do_prefill = do_prefill
+        if lora_parity not in ("auto", True, False):
+            raise ValueError(f'lora_parity is "auto", True or False, got '
+                             f'{lora_parity!r}')
+        self.n_adapters = 0
+        if lora_bank is not None and lora_parity is not False:
+            # the bank rides in params, cast with the weights
+            params = dict(params)
+            params["lora"] = lora_bank
+            self.n_adapters = int(lora_bank["a_q"].shape[1])
         # one-time weight cast: every step reads the compute-dtype weights
         # (int8 leaves and their scales stay as they are)
         self.params = cast_params(params_to(params, self.device))
+        self.tenancy = tenancy
 
         if paged_parity not in ("auto", True):
             raise ValueError(f'paged_parity is "auto" or True, got '
@@ -692,12 +746,22 @@ class ServingEngine:
         # NOT `scheduler or ...`: an empty scheduler is falsy (__len__)
         self.scheduler = scheduler if scheduler is not None else (
             RequestScheduler(max_total_tokens=self.max_total,
-                             prefix_affinity_tokens=prefix_affinity_tokens)
+                             prefix_affinity_tokens=prefix_affinity_tokens,
+                             tenancy=tenancy)
         )
         if self.scheduler.max_total_tokens is None:
             self.scheduler.max_total_tokens = self.max_total
         self.metrics = ServingMetrics()
         self.metrics.decode_horizon = self.decode_horizon
+        if self.n_adapters and lora_parity is not True:
+            if not self._probe_lora_zero():
+                _log.warning("lora_parity_probe_failed n_adapters=%d",
+                             self.n_adapters)
+                self.params = {k: v for k, v in self.params.items()
+                               if k != "lora"}
+                self.n_adapters = 0
+        # the slots' LoRA rows: a host mirror, uploaded per dispatch
+        self._slot_adapters = np.zeros((n_slots,), np.int32)
 
         # power-of-two prompt buckets: the largest respects the positional
         # table and the slab row count
@@ -822,6 +886,19 @@ class ServingEngine:
         reg = self.metrics.registry
         reg.gauge("serve_queue_depth", "Queued requests.").set_function(
             lambda: len(self.scheduler))
+        reg.gauge("serve_lora_adapters",
+                  "Rows in the batched-LoRA adapter bank (0 = base only; "
+                  "row 0 is always the zero adapter).").set_function(
+            lambda: self.n_adapters)
+        if self.tenancy is not None:
+            reg.gauge("serve_tenants", "Configured tenants in the registry."
+                      ).set_function(lambda: len(self.tenancy))
+            # per-tenant SLOs: every render derives
+            # serve_tenant_slo_burn{tenant} from the observed p99s
+            for tid in self.tenancy.tenant_ids():
+                t = self.tenancy.get(tid)
+                if t.slo_p99_tpot_s is not None:
+                    self.metrics.set_tenant_slo(tid, t.slo_p99_tpot_s)
         reg.gauge("serve_kv_slots_active",
                   "KV slots holding a live request.").set_function(
             lambda: self.pool.n_active)
@@ -941,7 +1018,13 @@ class ServingEngine:
     # -- public surface ------------------------------------------------------
 
     def submit(self, req: Request) -> str:
-        """Queue a request; raises ``Backpressure`` / ``AdmissionError``."""
+        """Queue a request; raises ``Backpressure`` (``QuotaExceeded`` when
+        its tenant's bucket is dry) or ``AdmissionError``. Rejections are
+        labelled by tenant and reason in the metrics."""
+        if req.adapter >= max(1, self.n_adapters):
+            raise AdmissionError(
+                f"request {req.id}: adapter {req.adapter} outside the "
+                f"loaded bank ({self.n_adapters} adapters)")
         if len(req.prompt) and int(req.prompt.max()) >= self.cfg.vocab_size:
             raise AdmissionError(
                 f"request {req.id}: token id outside the vocabulary "
@@ -952,8 +1035,11 @@ class ServingEngine:
             self._check_surface_request(req)
         try:
             return self.scheduler.submit(req)
-        except Backpressure:
+        except Backpressure as e:
             self.metrics.record_backpressure()
+            self.metrics.record_rejection(
+                "quota" if isinstance(e, QuotaExceeded) else "backpressure",
+                tenant=req.tenant_id)
             raise
 
     def _check_surface_request(self, req: Request) -> None:
@@ -1046,22 +1132,31 @@ class ServingEngine:
         self._store_result(req, st.tokens)
         if status is RequestStatus.FINISHED:
             decode_s = now - (st.t_first_token or now)
-            self.metrics.record_finished(len(st.tokens), decode_s)
+            self.metrics.record_finished(len(st.tokens), decode_s,
+                                         tenant=req.tenant_id)
             if st.t_first_token is not None and req.arrival_time is not None:
                 req.timing = {"ttft_s": st.t_first_token - req.arrival_time,
                               "decode_s": decode_s}
         else:
-            self.metrics.record_outcome(status)
+            self.metrics.record_outcome(status, tenant=req.tenant_id)
         self.pool.release(slot)
         if self.prefix_cache is not None:
             for seg in st.segs:
                 self.prefix_cache.unpin(seg)
         st.segs = []
         if self._surface:
+            if st.stop_matcher is not None and req.stream is not None:
+                # release the hold-back before the end-of-stream sentinel
+                # (empty when a stop match consumed it)
+                for t in st.stop_matcher.flush():
+                    req.stream.put(t)
             self._clear_surface(slot, st)
         self._slots[slot] = None
+        self._slot_adapters[slot] = 0
         if deactivate:
             self._dactive = self._deact_fn(self._dactive, slot)
+        if req.stream is not None:
+            req.stream.put(None)  # end-of-stream sentinel
         if req.done is not None:
             req.done.set()
 
@@ -1070,7 +1165,9 @@ class ServingEngine:
         self._presplit_keys.pop(req.id, None)
         req.status = status
         req.error = error
-        self.metrics.record_outcome(status)
+        self.metrics.record_outcome(status, tenant=req.tenant_id)
+        if req.stream is not None:
+            req.stream.put(None)  # end-of-stream sentinel
         if req.done is not None:
             req.done.set()
 
@@ -1138,20 +1235,30 @@ class ServingEngine:
         return (self.pool.operand(), self._logits, self._dpos, self._dactive,
                 self._dbudget, self._deos)
 
-    def _compute_rows(self, slab, seq: np.ndarray, start: int = 0):
+    def _adapter_row(self, adapter: int):
+        """A (1,) LoRA row operand for a batch-1 program; None for adapter
+        0 (its rows select the base activations: the same bits)."""
+        if not adapter:
+            return None
+        return self._upload(np.array([adapter], np.int32))
+
+    def _compute_rows(self, slab, seq: np.ndarray, start: int = 0,
+                      adapter: int = 0):
         """Compute rows [start, n) of ``seq`` into the batch-1 ``slab``
         (written in place; rows below ``start`` must hold the prefix) and
         return the (1, V) logits of its last row. A whole prompt of at most
         one bucket takes one bucketed prefill (kernel #1 when ``use_flash``);
         anything else the chunk windows of ``_chunk_schedule`` — a prompt
         longer than a bucket takes the same windows from 0 as from a
-        grain-aligned ``start``. An empty prompt gives uniform logits."""
+        grain-aligned ``start``. An empty prompt gives uniform logits.
+        ``adapter`` is the LoRA row the rows are computed with."""
         n = int(len(seq))
+        ad = self._adapter_row(adapter)
         if start == 0 and 0 < n <= self._max_bucket:
             pad = np.zeros((1, self._bucket_for(n)), np.int64)
             pad[0, :n] = seq
             slab, lg = self._prefill_fn(self.params, slab, self._upload(pad),
-                                        n - 1)
+                                        n - 1, ad)
             self.prefill_dispatches += 1
             return lg
         lg = torch.zeros((1, self.cfg.vocab_size), dtype=torch.float32,
@@ -1160,7 +1267,7 @@ class ServingEngine:
             pad = np.zeros((1, b), np.int64)
             pad[0, :ln] = seq[t0:t0 + ln]
             slab, lg = self._chunk_fn(self.params, slab, self._upload(pad),
-                                      t0, ln - 1)
+                                      t0, ln - 1, ad)
             self.prefill_dispatches += 1
         return lg
 
@@ -1175,7 +1282,7 @@ class ServingEngine:
             self.pool.alloc_slot_blocks(slot, n_tokens, start=have)
 
     def _prefill_seq_into_slot(self, seq: np.ndarray, slot: int, budget: int,
-                               eos_tok: int) -> None:
+                               eos_tok: int, adapter: int = 0) -> None:
         """The miss path: land ``seq`` (a prompt, or prompt + replayed
         tokens) in ``slot`` and seat the slot's device state at position
         ``len(seq)`` with ``budget`` tokens left. The rows are computed at
@@ -1184,7 +1291,7 @@ class ServingEngine:
         if self._paged:
             self._paged_ensure_blocks(slot, len(seq) + budget)
         slab = self.pool.prefill_slab(slot)
-        lg = self._compute_rows(slab, seq)
+        lg = self._compute_rows(slab, seq, adapter=adapter)
         self.pool.land(slot, slab)
         self._insert_fn(*self._state(), lg, slot, int(len(seq)), budget,
                         eos_tok)
@@ -1233,7 +1340,10 @@ class ServingEngine:
         the rest. The source segment is pinned until retirement."""
         cache = self.prefix_cache
         n = len(pl.req.prompt)
-        if cache is None or n == 0 or not self._prefix_reuse_ok():
+        # an adapter != 0 prompt's rows depend on the adapter: segments
+        # are the base model's only
+        if (cache is None or n == 0 or pl.req.adapter != 0
+                or not self._prefix_reuse_ok()):
             return
         seg, m = cache.lookup(pl.req.prompt)
         if seg is None:
@@ -1318,7 +1428,7 @@ class ServingEngine:
         cache = self.prefix_cache
         n = len(pl.req.prompt)
         if (cache is None or pl.kind == "full" or n < self._min_bucket
-                or not self._prefix_reuse_ok()):
+                or pl.req.adapter != 0 or not self._prefix_reuse_ok()):
             return
         for seg in cache.insert(pl.req.prompt):
             if self._paged:
@@ -1369,6 +1479,7 @@ class ServingEngine:
         if kd is None:
             kd = self._split_key()
         self._slot_keys[slot] = kd
+        self._slot_adapters[slot] = req.adapter
         st = _SlotState(req, self.pool.generation(slot), kd)
         if pl.seg is not None:
             st.segs.append(pl.seg)
@@ -1379,7 +1490,8 @@ class ServingEngine:
         req.status = RequestStatus.RUNNING
         self.metrics.record_prefill(pl.prefill_s)
         if req.arrival_time is not None:
-            self.metrics.record_admitted(time.perf_counter() - req.arrival_time)
+            self.metrics.record_admitted(
+                time.perf_counter() - req.arrival_time, tenant=req.tenant_id)
 
     def _split_key(self) -> threefry.Key:
         """``self._key, sub = split(self._key)``; returns ``sub``."""
@@ -1470,23 +1582,37 @@ class ServingEngine:
         return self._dmask_tab, self._dtrans_tab
 
     def _admissible_fn(self):
-        """The paged admission gate: a request's blocks, beyond those this
+        """The admission gate: paged, a request's blocks, beyond those this
         round already promised, fit the free heap — after handing cached
-        prefix blocks back (live traffic outranks cached prefixes).
-        Returns (gate or None, the promised-blocks counter)."""
+        prefix blocks back (live traffic outranks cached prefixes); with
+        tenancy, its tenant holds fewer than ``max_slots`` slots (live and
+        deferred ones plus this round's plans). Returns (gate or None, the
+        promised-blocks counter, the per-tenant slot counts)."""
         reserved = [0]
-        if not self._paged:
-            return None, reserved
+        used: dict[str, int] = {}
+        if self.tenancy is not None:
+            held = [st.req for st in self._slots if st is not None]
+            held += [rec.plan.req for rec in self._pending]
+            for r in held:
+                used[r.tenant_id] = used.get(r.tenant_id, 0) + 1
+        if not self._paged and self.tenancy is None:
+            return None, reserved, used
 
         def admissible(r: Request) -> bool:
-            need = self.pool.blocks_needed(len(r.prompt) + r.max_new)
-            while need + reserved[0] > self.pool.n_free_blocks:
-                if (self.prefix_cache is None
-                        or not self.prefix_cache.reclaim()):
+            if self._paged:
+                need = self.pool.blocks_needed(len(r.prompt) + r.max_new)
+                while need + reserved[0] > self.pool.n_free_blocks:
+                    if (self.prefix_cache is None
+                            or not self.prefix_cache.reclaim()):
+                        return False
+            if self.tenancy is not None:
+                t = self.tenancy.get(r.tenant_id)
+                if (t is not None and t.max_slots is not None
+                        and used.get(r.tenant_id, 0) >= t.max_slots):
                     return False
             return True
 
-        return admissible, reserved
+        return admissible, reserved, used
 
     def _admit(self, now: float) -> None:
         """Pop queued requests into free slots (with prefix affinity, the
@@ -1498,7 +1624,7 @@ class ServingEngine:
             return
         self._admitting += 1
         plans: list[_AdmitPlan] = []
-        admissible, reserved = self._admissible_fn()
+        admissible, reserved, used = self._admissible_fn()
         try:
             hint = None
             while self.pool.n_free and len(self.scheduler):
@@ -1513,10 +1639,13 @@ class ServingEngine:
                     self._retire_unadmitted(req, RequestStatus.EXPIRED)
                     continue
                 plans.append(_AdmitPlan(req, self.pool.acquire()))
+                used[req.tenant_id] = used.get(req.tenant_id, 0) + 1
                 if self._paged:
                     reserved[0] += self.pool.blocks_needed(
                         len(req.prompt) + req.max_new)
-                hint = req.prompt
+                # affinity helps adapter-0 traffic only (no other adapter
+                # reuses cached segments)
+                hint = req.prompt if req.adapter == 0 else None
             for pl in plans:
                 self._classify_plan(pl)
             self._execute_plans(plans)
@@ -1576,7 +1705,8 @@ class ServingEngine:
                 self._admit_partial_hit(pl)
             else:
                 self._prefill_seq_into_slot(pl.req.prompt, pl.slot,
-                                            pl.req.max_new, _eos_of(pl.req))
+                                            pl.req.max_new, _eos_of(pl.req),
+                                            pl.req.adapter)
             pl.prefill_s = time.perf_counter() - t0
         # admission prefill run while slots decode is the stall piggyback
         # bounds; measured with it on and off
@@ -1619,8 +1749,9 @@ class ServingEngine:
         t0, ln, b = rec.chunks[0]
         pad = np.zeros((1, b), np.int64)
         pad[0, :ln] = rec.plan.req.prompt[t0:t0 + ln]
-        rec.slab, rec.lg = self._chunk_fn(self.params, rec.slab,
-                                          self._upload(pad), t0, ln - 1)
+        rec.slab, rec.lg = self._chunk_fn(
+            self.params, rec.slab, self._upload(pad), t0, ln - 1,
+            self._adapter_row(rec.plan.req.adapter))
         rec.chunks.popleft()
         self.prefill_dispatches += 1
         self.metrics.record_prefill_chunk(ln)
@@ -1715,6 +1846,42 @@ class ServingEngine:
             if not torch.equal(slg, plg):
                 return False
         return True
+
+    @torch.no_grad()
+    def _probe_lora_zero(self) -> bool:
+        """One-time probe gating batched LoRA (the reference's
+        ``_probe_lora_zero``, engine.py:3594): with the bank riding in
+        params, does adapter 0 reproduce the bank-free model bitwise
+        through prefill and three greedy decode steps? The forward selects
+        the base activations for adapter-0 rows (never ``+ 0.0``, which
+        could flip -0.0 bits), so this should pass on any device; the probe
+        shows it on this one. Bitwise logits make greedy and sampled
+        adapter-0 streams the base model's."""
+        total = int(min(self.max_total, 32))
+        n = min(8, total - 4)
+        if n < 1:
+            return False
+        dev = self.device
+        prompt = torch.from_numpy(
+            ((1 + np.arange(n)) % self.cfg.vocab_size)[None]).to(dev)
+        base = {k: v for k, v in self.params.items() if k != "lora"}
+        ad = torch.zeros((1,), dtype=torch.int32, device=dev)
+
+        def stream(p):
+            caches = self._init_caches(1, total, dev)
+            caches, lg = self._do_prefill(p, caches, prompt, adapter=ad)
+            out = [lg]
+            pos = torch.full((1,), n, dtype=torch.int32, device=dev)
+            for _ in range(3):
+                lg, caches = self._fwd1(p, caches,
+                                        lg.argmax(-1).to(torch.int32), pos,
+                                        ad)
+                pos = pos + 1
+                out.append(lg)
+            return out
+
+        return all(torch.equal(a, b)
+                   for a, b in zip(stream(base), stream(self.params)))
 
     @torch.no_grad()
     def _probe_masked_parity(self) -> bool:
@@ -1960,6 +2127,7 @@ class ServingEngine:
         caches are updated in place): the base step, or the masked step
         when the surface is armed. Returns the (slots, K) token block, or
         the masked step's aux block."""
+        adapters = self._adapter_operand()
         if not self._surface:
             # greedy steps draw nothing: no key upload
             keys = (None if self.temperature == 0
@@ -1967,15 +2135,24 @@ class ServingEngine:
             (_, self._logits, self._dpos, self._dactive, self._dbudget,
              toks) = self._step_fn(
                 self.params, self.pool.operand(), self._logits, self._dpos,
-                self._dactive, self._dbudget, self._deos, keys)
+                self._dactive, self._dbudget, self._deos, keys, adapters)
             return toks
         use = self._surface_use()
         (_, self._logits, self._dpos, self._dactive, self._dbudget,
          self._dgstate, aux) = self._masked_fn(
             self.params, self.pool.operand(), self._logits, self._dpos,
             self._dactive, self._dbudget, self._deos, self._dgstate,
-            *self._surface_operands(use), use)
+            *self._surface_operands(use), use, adapters)
         return aux
+
+    def _adapter_operand(self):
+        """The slots' (S,) LoRA rows on the device, or None when every
+        slot holds adapter 0 (retired slots are reset to 0): those rows
+        select the base activations, so skipping the bank gives the same
+        bits."""
+        if not self._slot_adapters.any():
+            return None
+        return self._upload(self._slot_adapters.copy())
 
     def _surface_operands(self, use: SurfaceUse) -> tuple:
         """The masked step's per-slot operands for ``use``: a stage left
@@ -2030,8 +2207,16 @@ class ServingEngine:
                 if st.lp_out is not None and aux_host is not None:
                     st.lp_out.append(self._logprob_record(
                         aux_host[slot, k], tok, req.top_logprobs))
-                if st.stop_matcher is not None:
-                    _, stripped = st.stop_matcher.push(tok)
+                if st.stop_matcher is None:
+                    if req.stream is not None:
+                        # the token is on the host with this horizon's one
+                        # readback: streaming costs no device sync
+                        req.stream.put(tok)
+                else:
+                    emitted, stripped = st.stop_matcher.push(tok)
+                    if req.stream is not None:
+                        for t in emitted:
+                            req.stream.put(t)
                     if stripped:
                         # the matched stop sequence is not output: the
                         # device did not freeze the slot, so deactivate
@@ -2129,8 +2314,10 @@ class ServingEngine:
             self.prefix_cache.reinit()
             for _, st in live:
                 st.segs = []
+        self._slot_adapters[:] = 0
         for slot, st in live:
             self._slot_keys[slot] = st.key_data
+            self._slot_adapters[slot] = st.req.adapter
             if self._surface:
                 self._reseat_surface(slot, st)
         if self._surface:
@@ -2145,14 +2332,16 @@ class ServingEngine:
                 seq = np.concatenate([req.prompt,
                                       np.asarray(st.tokens, np.int32)])
                 self._prefill_seq_into_slot(
-                    seq, slot, req.max_new - len(st.tokens), _eos_of(req))
+                    seq, slot, req.max_new - len(st.tokens), _eos_of(req),
+                    req.adapter)
             return len(live)
         pos = np.zeros((self.n_slots,), np.int32)
         for slot, st in live:
             req = st.req
             self._prefill_seq_into_slot(req.prompt, slot, req.max_new,
-                                        _eos_of(req))
+                                        _eos_of(req), req.adapter)
             pos[slot] = len(req.prompt)
+        adapters = self._adapter_operand()
         for j in range(max((len(st.tokens) for _, st in live), default=0)):
             toks = np.zeros((self.n_slots,), np.int32)
             replaying = np.zeros((self.n_slots,), bool)
@@ -2163,7 +2352,7 @@ class ServingEngine:
             _, self._logits = self._replay_fn(
                 self.params, self.pool.operand(), self._logits,
                 self._upload(toks), self._upload(pos.copy()),
-                self._upload(replaying))
+                self._upload(replaying), adapters)
             pos += replaying
         # replay drove positions from the host: seat the device state on
         # the rebuilt trajectory

@@ -19,18 +19,36 @@ percentiles. The series:
 - supervision: transient-fault retries, replay restarts;
 - piggyback: prefill chunks run for deferred admissions (and their
   tokens), and decode stall, the wall time occupied slots waited on
-  admission prefill work (measured with piggyback on and off).
+  admission prefill work (measured with piggyback on and off);
+- ``phase_seconds``: every recorded second also attributed to one request
+  phase, ``queue`` (submit to admission), ``prefill``, ``decode``
+  (horizon dispatch to token-block arrival) and ``sync`` (the blocking
+  slice of decode), as the labelled histogram ``serve_phase_seconds``.
+
+Multi-tenant serving adds a ``tenant`` dimension: terminal outcomes,
+generated tokens and rejections get the tenant-labelled families
+``serve_tenant_requests_total``, ``serve_tenant_tokens_total`` and
+``serve_rejections_total``, per-tenant TPOT and queue-delay reservoirs feed
+a ``tenants`` block in ``summary()``, and a tenant with a p99-TPOT
+objective (``set_tenant_slo``) gets ``serve_tenant_slo_burn{tenant}`` =
+observed p99 / objective at every render. The per-tenant state is made on
+the first event that carries a tenant id, so a single-tenant engine pays
+nothing.
 
 Series names are the reference's, so its dashboards carry over.
 """
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 
 from deeplearning4j_tpu_torch.obs.registry import MetricsRegistry, Reservoir
 
 RESERVOIR_CAP = 4096
+#: the request phases the per-phase breakdown attributes time to
+PHASES = ("queue", "prefill", "decode", "sync")
 
 
 def _pct(res: Reservoir, p: float) -> float:
@@ -66,8 +84,16 @@ class ServingMetrics:
         self.n_prefill_chunks = 0
         self.prefill_chunk_tokens = 0
         self.decode_stall_seconds = 0.0
-        self.prefill_seconds = 0.0
+        self.phase_seconds = {p: 0.0 for p in PHASES}
         self._step = 0
+        self._reservoir_cap = reservoir_cap
+        # per-tenant state, made on the first event with a tenant id;
+        # handler threads record rejections while the engine thread
+        # records outcomes, so it moves under a lock
+        self._tlock = threading.Lock()
+        self._tenants: dict[str, dict] = {}  # guarded-by: _tlock
+        self.n_rejections: dict[str, int] = {}  # guarded-by: _tlock
+        self._tenant_slos: dict[str, float] = {}  # guarded-by: _tlock
         reg = self.registry
         self._c_requests = reg.counter(
             "serve_requests_total", "Terminal request outcomes by status.",
@@ -133,9 +159,46 @@ class ServingMetrics:
         self._h_tpot = reg.histogram(
             "serve_tpot_seconds", "Time per output token after the first.",
         )
-        self._h_prefill = reg.histogram(
-            "serve_prefill_seconds", "Admission prefill wall time per request.",
+        self._h_phase = reg.histogram(
+            "serve_phase_seconds",
+            "Per-event wall seconds by request phase "
+            "(queue|prefill|decode|sync).", ("phase",),
         )
+        self._c_rejections = reg.counter(
+            "serve_rejections_total",
+            "Submits shed before queueing, by reason "
+            "(backpressure|quota) and tenant.", ("reason", "tenant"),
+        )
+        self._c_tenant_requests = reg.counter(
+            "serve_tenant_requests_total",
+            "Terminal request outcomes by tenant.", ("tenant", "outcome"),
+        )
+        self._c_tenant_tokens = reg.counter(
+            "serve_tenant_tokens_total", "Tokens generated per tenant.",
+            ("tenant",),
+        )
+        self._g_slo_burn = reg.gauge(
+            "serve_tenant_slo_burn",
+            "Observed p99 TPOT / tenant SLO objective (> 1 = violating).",
+            ("tenant",),
+        )
+
+    def _tenant(self, tenant_id: str) -> dict:  # lint: holds _tlock
+        """Per-tenant counters and reservoirs (call holding ``_tlock``)."""
+        st = self._tenants.get(tenant_id)
+        if st is None:
+            st = self._tenants[tenant_id] = {
+                "tpot": Reservoir(self._reservoir_cap),
+                "queue_delay": Reservoir(self._reservoir_cap),
+                "n_finished": 0, "n_generated": 0, "n_rejected": 0,
+                "n_other": 0,
+            }
+        return st
+
+    def record_phase(self, phase: str, seconds: float) -> None:
+        """Attribute ``seconds`` of wall time to a request phase."""
+        self.phase_seconds[phase] += float(seconds)
+        self._h_phase.observe(float(seconds), phase=phase)
 
     def record_step(self, n_active: int, queue_depth: int) -> None:
         """One dispatched horizon with ``n_active`` slots decoding."""
@@ -144,36 +207,82 @@ class ServingMetrics:
         self._c_steps.inc()
         self._step += 1
 
-    def record_admitted(self, delay_s: float) -> None:
+    def record_admitted(self, delay_s: float, tenant: str = "") -> None:
         self.queue_delay.add(float(delay_s))
+        self.record_phase("queue", delay_s)
+        if tenant:
+            with self._tlock:
+                self._tenant(tenant)["queue_delay"].add(float(delay_s))
 
     def record_prefill(self, seconds: float) -> None:
-        self.prefill_seconds += float(seconds)
-        self._h_prefill.observe(seconds)
+        self.record_phase("prefill", seconds)
 
     def record_readback(self, sync_wait_s: float, overlap_s: float) -> None:
         self.sync_wait.add(float(sync_wait_s))
         self.overlap.add(float(overlap_s))
+        self.record_phase("decode", float(sync_wait_s) + float(overlap_s))
+        self.record_phase("sync", sync_wait_s)
 
     def record_first_token(self, ttft_s: float) -> None:
         self.ttft.add(float(ttft_s))
         self._h_ttft.observe(ttft_s)
 
-    def record_finished(self, n_tokens: int, decode_s: float) -> None:
+    def record_finished(self, n_tokens: int, decode_s: float,
+                        tenant: str = "") -> None:
         """Request retired with ``n_tokens`` generated, ``decode_s`` wall
         seconds after its first token."""
         self.n_finished += 1
         self.n_generated += n_tokens
         self._c_requests.inc(outcome="finished")
         self._c_tokens.inc(n_tokens)
+        tpot = None
         if n_tokens > 1:
             tpot = decode_s / (n_tokens - 1)
             self.tpot.add(tpot)
             self._h_tpot.observe(tpot)
+        if tenant:
+            self._c_tenant_requests.inc(tenant=tenant, outcome="finished")
+            self._c_tenant_tokens.inc(n_tokens, tenant=tenant)
+            with self._tlock:
+                st = self._tenant(tenant)
+                st["n_finished"] += 1
+                st["n_generated"] += n_tokens
+                if tpot is not None:
+                    st["tpot"].add(tpot)
 
     def record_backpressure(self) -> None:
         self.n_backpressure += 1
         self._c_backpressure.inc()
+
+    def record_rejection(self, reason: str, tenant: str = "") -> None:
+        """One submit shed before queueing (``backpressure`` = queue
+        depth, ``quota`` = the tenant's bucket dry), recorded beside
+        :meth:`record_backpressure`."""
+        self._c_rejections.inc(reason=reason, tenant=tenant)
+        with self._tlock:
+            self.n_rejections[reason] = self.n_rejections.get(reason, 0) + 1
+            if tenant:
+                self._tenant(tenant)["n_rejected"] += 1
+
+    def set_tenant_slo(self, tenant_id: str, p99_tpot_s: float) -> None:
+        """Declare a tenant's p99 TPOT objective (seconds): every render
+        then publishes ``serve_tenant_slo_burn{tenant}`` once the tenant
+        has TPOT samples."""
+        if p99_tpot_s <= 0:
+            raise ValueError("p99_tpot_s must be > 0")
+        with self._tlock:
+            self._tenant_slos[tenant_id] = float(p99_tpot_s)
+
+    def _update_slo_burn(self) -> None:
+        """Refresh the burn gauges from the per-tenant TPOT reservoirs (a
+        tenant without samples publishes nothing: a 0 would read as a
+        perfect SLO)."""
+        with self._tlock:
+            for tid, target in self._tenant_slos.items():
+                st = self._tenants.get(tid)
+                if st is not None and st["tpot"]:
+                    self._g_slo_burn.set(_pct(st["tpot"], 99) / target,
+                                         tenant=tid)
 
     def record_grammar_compile(self, result: str) -> None:
         """One grammar constraint resolution (hit|miss|error)."""
@@ -228,10 +337,14 @@ class ServingMetrics:
         self.decode_stall_seconds += float(seconds)
         self._c_decode_stall.inc(float(seconds))
 
-    def record_outcome(self, status) -> None:
+    def record_outcome(self, status, tenant: str = "") -> None:
         """A non-FINISHED terminal outcome (``RequestStatus`` or its value)."""
         s = getattr(status, "value", status)
         self._c_requests.inc(outcome=s)
+        if tenant:
+            self._c_tenant_requests.inc(tenant=tenant, outcome=s)
+            with self._tlock:
+                self._tenant(tenant)["n_other"] += 1
         if s == "failed":
             self.n_failed += 1
         elif s == "cancelled":
@@ -240,6 +353,7 @@ class ServingMetrics:
             self.n_expired += 1
 
     def render_prometheus(self) -> str:
+        self._update_slo_burn()
         return self.registry.render()
 
     def summary(self) -> dict:
@@ -251,7 +365,6 @@ class ServingMetrics:
             "n_expired": self.n_expired,
             "steps": self._step,
             "decode_horizon": self.decode_horizon,
-            "prefill_s": self.prefill_seconds,
             "n_retries": self.n_retries,
             "n_restarts": self.n_restarts,
         }
@@ -270,6 +383,12 @@ class ServingMetrics:
             out["prefill_chunk_tokens"] = self.prefill_chunk_tokens
         if self.decode_stall_seconds > 0:
             out["decode_stall_s"] = self.decode_stall_seconds
+        with self._tlock:
+            if self.n_rejections:
+                out["rejections"] = dict(self.n_rejections)
+            if self._tenants:
+                out["tenants"] = {tid: self._tenant_summary(tid)
+                                  for tid in sorted(self._tenants)}
         for name, xs in (("ttft", self.ttft), ("tpot", self.tpot),
                          ("queue_delay", self.queue_delay)):
             if xs:
@@ -283,4 +402,28 @@ class ServingMetrics:
         if self.occupancy:
             out["occupancy_mean"] = self.occupancy.mean
             out["queue_depth_max"] = int(self.queue_depth.max)
+        attributed = sum(self.phase_seconds.values())
+        if attributed > 0:
+            out["phase_seconds"] = dict(self.phase_seconds)
+            out["phase_frac"] = {p: v / attributed
+                                 for p, v in self.phase_seconds.items()}
         return out
+
+    def _tenant_summary(self, tid: str) -> dict:  # lint: holds _tlock
+        st = self._tenants[tid]
+        t = {"n_finished": st["n_finished"],
+             "n_generated": st["n_generated"]}
+        if st["n_rejected"]:
+            t["n_rejected"] = st["n_rejected"]
+        if st["n_other"]:
+            t["n_other_outcomes"] = st["n_other"]
+        if st["tpot"]:
+            t["tpot_p50_s"] = _pct(st["tpot"], 50)
+            t["tpot_p99_s"] = _pct(st["tpot"], 99)
+            slo = self._tenant_slos.get(tid)
+            if slo is not None:
+                t["slo_burn"] = t["tpot_p99_s"] / slo
+        if st["queue_delay"]:
+            t["queue_delay_p50_s"] = _pct(st["queue_delay"], 50)
+            t["queue_delay_p99_s"] = _pct(st["queue_delay"], 99)
+        return t

@@ -1,14 +1,24 @@
 """Request queue for the serving engine (port of
-``deeplearning4j_tpu/serving/scheduler.py``, trimmed to this slice: no
-tenancy, streaming or KV-wire request kinds).
+``deeplearning4j_tpu/serving/scheduler.py``, without the KV-wire request
+kinds).
 
-Strict priority across classes (class 0 drains before class 1), FIFO within
-a class, with optional prefix affinity (``prefix_affinity_tokens``): ``pop``
-may promote the oldest queued request of the front class whose first k
-prompt tokens match the prompt just admitted, so shared-prefix requests
-land in one admission round. Admission control happens at ``submit``:
+Strict priority across classes (class 0 drains before class 1) and, when
+a :class:`~.tenancy.TenantRegistry` is attached, DEFICIT ROUND-ROBIN
+across tenants within each class, weighted by tenant weight: each tenant
+banks ``drr_quantum * weight`` tokens of service credit per visit of the
+rotation and its head request is served once the credit covers the
+request's token cost (prompt + max_new), so one flooding tenant cannot
+starve its classmates. Without a registry every request lands in one
+implicit tenant and the order is FIFO within a class. With
+``prefix_affinity_tokens`` k > 0, ``pop`` may promote the oldest queued
+request of the front class whose first k prompt tokens match the prompt
+just admitted (charged to its tenant's deficit), so shared-prefix
+requests land in one admission round. Admission control happens at
+``submit``:
 
 - ``Backpressure`` when the queue is at ``max_queue_depth`` (HTTP 429);
+- ``QuotaExceeded`` (a ``Backpressure``) when the tenant's token-rate
+  bucket is dry (HTTP 429, labelled per tenant);
 - ``AdmissionError`` when ``len(prompt) + max_new`` cannot fit a cache slot
   (queueing it would deadlock admission).
 
@@ -21,6 +31,8 @@ from __future__ import annotations
 import dataclasses
 import enum
 import itertools
+import math
+import queue as queue_mod
 import threading
 import time
 from collections import deque
@@ -71,6 +83,13 @@ class Request:
     from scheduler arrival. ``cancel()`` may be called from any thread; the
     engine honors it within one horizon.
 
+    ``tenant_id`` keys the scheduler's weighted-fair tier and the
+    per-tenant metrics ("" = untenanted); ``adapter`` selects the LoRA
+    bank row the slot decodes with (0 = the base model). ``stream`` (a
+    ``queue.Queue``) receives each generated token as it reaches the host,
+    then ``None`` as the end-of-stream sentinel, after the terminal
+    status is set (the SSE front end drains it).
+
     Sampling-surface fields (engines built with ``sampling_surface=True``;
     see :mod:`.grammar`): ``temperature`` / ``top_k`` / ``top_p`` override
     the engine-wide sampler (None = the engine's); ``stop`` is a list of
@@ -85,6 +104,9 @@ class Request:
     priority: int = 1
     eos_token: int | None = None
     deadline_s: float | None = None
+    tenant_id: str = ""
+    adapter: int = 0
+    stream: queue_mod.Queue | None = None
     temperature: float | None = None
     top_k: int | None = None
     top_p: float | None = None
@@ -120,6 +142,8 @@ class Request:
             raise AdmissionError(
                 f"deadline_s must be >= 0, got {self.deadline_s}"
             )
+        if self.adapter < 0:
+            raise AdmissionError(f"adapter must be >= 0, got {self.adapter}")
         if self.temperature is not None and self.temperature < 0:
             raise AdmissionError(
                 f"temperature must be >= 0, got {self.temperature}")
@@ -175,6 +199,11 @@ class Request:
                 or bool(self.logit_bias) or self.logprobs
                 or self.response_format is not None)
 
+    def token_cost(self) -> int:
+        """Service cost in tokens, the unit the DRR tier and the tenant
+        token buckets meter (the per-slot budget's prompt + max_new)."""
+        return len(self.prompt) + self.max_new
+
     def cancel(self) -> None:
         """Request best-effort cancellation (thread-safe, idempotent)."""
         self._cancel_evt.set()
@@ -193,26 +222,98 @@ class Request:
 
 
 class RequestScheduler:
-    """Bounded multi-priority FIFO queue."""
+    """Bounded multi-priority queue: strict priority across classes,
+    weighted deficit round-robin across tenants within a class, FIFO
+    within a tenant."""
 
     def __init__(self, max_queue_depth: int = 128,
                  max_total_tokens: int | None = None,
-                 n_priorities: int = 3, prefix_affinity_tokens: int = 0):
+                 n_priorities: int = 3, prefix_affinity_tokens: int = 0,
+                 tenancy=None, drr_quantum: int = 64):
         self.max_queue_depth = max_queue_depth
         self.max_total_tokens = max_total_tokens
         self.n_priorities = n_priorities
         self.prefix_affinity_tokens = int(prefix_affinity_tokens)
+        self.tenancy = tenancy
+        if drr_quantum < 1:
+            raise ValueError(f"drr_quantum must be >= 1, got {drr_quantum}")
+        self.drr_quantum = drr_quantum
         self._lock = threading.Lock()
-        self._queues = [deque() for _ in range(n_priorities)]  # guarded-by: _lock
+        # per class: tenant_id -> deque (FIFO within a tenant)
+        self._queues = [{} for _ in range(n_priorities)]  # guarded-by: _lock
+        # per class, the DRR rotation: tenant order, the current index,
+        # banked deficits, whether the tenant at idx is owed its visit
+        # quantum ("fresh"), and "carry", deficit adjustments banked while
+        # a tenant is out of the rotation (applied when it enqueues
+        # again). Deficits reset when a tenant's queue empties.
+        self._drr = [
+            {"order": [], "idx": 0, "deficit": {}, "fresh": True,
+             "carry": {}}
+            for _ in range(n_priorities)
+        ]  # guarded-by: _lock
+
+    def _weight(self, tenant_id: str) -> float:
+        if self.tenancy is not None:
+            t = self.tenancy.get(tenant_id)
+            if t is not None:
+                return t.weight
+        return 1.0
+
+    def _depth_unlocked(self) -> int:  # lint: holds _lock
+        return sum(len(q) for per_class in self._queues
+                   for q in per_class.values())
 
     def __len__(self) -> int:
         with self._lock:
-            return sum(len(q) for q in self._queues)
+            return self._depth_unlocked()
+
+    def _enqueue_unlocked(self, req: Request,
+                          front: bool) -> None:  # lint: holds _lock
+        per_class = self._queues[req.priority]
+        drr = self._drr[req.priority]
+        tid = req.tenant_id
+        q = per_class.get(tid)
+        if q is None:
+            q = per_class[tid] = deque()
+            if tid not in drr["deficit"]:
+                drr["deficit"][tid] = drr["carry"].pop(tid, 0.0)
+            if not drr["order"]:
+                drr["fresh"] = True  # the class was idle: a new rotation
+            if front:
+                # the requeue of a tenant's only request: it re-enters
+                # the rotation at the current position, so it is next
+                drr["order"].insert(drr["idx"], tid)
+            else:
+                drr["order"].append(tid)
+        if front:
+            q.appendleft(req)
+        else:
+            q.append(req)
+
+    def _remove_tenant_if_empty(self, ci: int,
+                                tid: str) -> None:  # lint: holds _lock
+        per_class = self._queues[ci]
+        if per_class.get(tid):
+            return
+        per_class.pop(tid, None)
+        drr = self._drr[ci]
+        if tid in drr["order"]:
+            pos = drr["order"].index(tid)
+            was_current = pos == drr["idx"]
+            drr["order"].remove(tid)
+            if pos < drr["idx"]:
+                drr["idx"] -= 1
+            if drr["idx"] >= len(drr["order"]):
+                drr["idx"] = 0  # wrap: the rotation restarts at the front
+            if was_current:
+                # whoever now sits at idx is owed its visit quantum
+                drr["fresh"] = True
+        drr["deficit"].pop(tid, None)
 
     def submit(self, req: Request) -> str:
-        """Enqueue ``req``; returns its id. Raises ``Backpressure`` or
-        ``AdmissionError`` (see the module docstring)."""
-        total = len(req.prompt) + req.max_new
+        """Enqueue ``req``; returns its id. Raises ``Backpressure``,
+        ``QuotaExceeded`` or ``AdmissionError`` (see the module doc)."""
+        total = req.token_cost()
         if self.max_total_tokens is not None and total > self.max_total_tokens:
             raise AdmissionError(
                 f"request {req.id}: prompt+max_new ({total}) exceeds the "
@@ -223,84 +324,170 @@ class RequestScheduler:
                 f"priority {req.priority} outside [0, {self.n_priorities})"
             )
         with self._lock:
-            if sum(len(q) for q in self._queues) >= self.max_queue_depth:
+            if self._depth_unlocked() >= self.max_queue_depth:
                 raise Backpressure(
                     f"queue at max depth ({self.max_queue_depth})"
                 )
+            if self.tenancy is not None:
+                # after the depth check (a shed request burns no quota)
+                # and inside the lock (depth and charge are one decision)
+                self.tenancy.charge(req.tenant_id, req.token_cost())
             req.arrival_time = time.perf_counter()
             req.status = RequestStatus.QUEUED
-            self._queues[req.priority].append(req)
+            self._enqueue_unlocked(req, front=False)
         return req.id
 
     def requeue(self, req: Request) -> None:
         """Put a popped-but-not-admitted request back at the FRONT of its
-        class (it must never be dropped between pop and admission)."""
+        tenant's queue (it must never be dropped between pop and
+        admission), refunding the cost its pop charged."""
         with self._lock:
             req.status = RequestStatus.QUEUED
-            self._queues[req.priority].appendleft(req)
+            self._enqueue_unlocked(req, front=True)
+            drr = self._drr[req.priority]
+            drr["deficit"][req.tenant_id] = (
+                drr["deficit"].get(req.tenant_id, 0.0) + req.token_cost())
+
+    def adjust_deficit(self, req: Request, delta: float) -> None:
+        """Bank ``delta`` service credit for ``req``'s tenant in its class
+        (positive a refund, negative a charge); into the carry bank while
+        the tenant is out of the rotation."""
+        with self._lock:
+            drr = self._drr[req.priority]
+            tid = req.tenant_id
+            if tid in drr["deficit"]:
+                drr["deficit"][tid] += delta
+            else:
+                drr["carry"][tid] = drr["carry"].get(tid, 0.0) + delta
+
+    def _queued_unlocked(self):  # lint: holds _lock
+        return (req for per_class in self._queues
+                for q in per_class.values() for req in q)
 
     def cancel(self, req_id: str) -> bool:
         """Flag a still-queued request as cancelled (discarded at its
         admission turn). False when the id is not queued."""
         with self._lock:
-            for q in self._queues:
-                for req in q:
-                    if req.id == req_id:
-                        req.cancel()
-                        return True
+            for req in self._queued_unlocked():
+                if req.id == req_id:
+                    req.cancel()
+                    return True
         return False
 
     def cancel_all(self) -> int:
         """Flag every queued request as cancelled; returns how many."""
         n = 0
         with self._lock:
-            for q in self._queues:
-                for req in q:
-                    if not req.cancelled:
-                        req.cancel()
-                        n += 1
+            for req in self._queued_unlocked():
+                if not req.cancelled:
+                    req.cancel()
+                    n += 1
         return n
 
-    def _affinity_pop_unlocked(self, q, key, admissible):  # lint: holds _lock
-        """The oldest admissible request of ``q`` whose first ``len(key)``
-        prompt tokens are ``key``, removed from ``q``; or None."""
+    def _affinity_pop_unlocked(self, ci, key, admissible):  # lint: holds _lock
+        """The oldest admissible request of class ``ci`` whose first
+        ``len(key)`` prompt tokens are ``key``, across all tenants,
+        removed and charged to its tenant's deficit; or None."""
         k = len(key)
         best = None
-        for i, req in enumerate(q):
-            if (len(req.prompt) >= k
-                    and tuple(int(t) for t in req.prompt[:k]) == key
-                    and (admissible is None or admissible(req))
-                    and (best is None
-                         or req.arrival_time < q[best].arrival_time)):
-                best = i
+        for tid, q in self._queues[ci].items():
+            for i, req in enumerate(q):
+                if (len(req.prompt) >= k
+                        and tuple(int(t) for t in req.prompt[:k]) == key
+                        and (admissible is None or admissible(req))
+                        and (best is None
+                             or req.arrival_time < best[0].arrival_time)):
+                    best = (req, tid, i)
         if best is None:
             return None
-        req = q[best]
-        del q[best]
+        req, tid, i = best
+        del self._queues[ci][tid][i]
+        drr = self._drr[ci]
+        drr["deficit"][tid] = drr["deficit"].get(tid, 0.0) - req.token_cost()
+        self._remove_tenant_if_empty(ci, tid)
         return req
+
+    def _serve_head_unlocked(self, ci, tid):  # lint: holds _lock
+        req = self._queues[ci][tid].popleft()
+        self._drr[ci]["deficit"][tid] -= req.token_cost()
+        self._remove_tenant_if_empty(ci, tid)
+        return req
+
+    def _drr_pop_unlocked(self, ci, admissible):  # lint: holds _lock
+        """Deficit-round-robin pop from class ``ci``: a visit banks
+        ``quantum * weight``; a tenant's head is served once its credit
+        covers the head's cost, and the serving tenant stays current
+        while the credit lasts. Tenants whose head fails ``admissible``
+        are passed over, keeping their credit. When a whole rotation of
+        quanta serves nobody, the rounds the closest tenant still needs
+        are banked for everyone at once (the weight ratios kept), so the
+        next rotation serves."""
+        per_class = self._queues[ci]
+        drr = self._drr[ci]
+        order = drr["order"]
+        if not order:
+            return None
+        for _rotation in range(2):
+            any_admissible = False
+            # n + 1 visits: the current tenant's first visit may already
+            # have had its quantum
+            for _ in range(len(order) + 1):
+                tid = order[drr["idx"]]
+                if drr["fresh"]:
+                    drr["deficit"][tid] = (
+                        drr["deficit"].get(tid, 0.0)
+                        + self.drr_quantum * self._weight(tid))
+                    drr["fresh"] = False
+                req = per_class[tid][0]
+                if admissible is None or admissible(req):
+                    any_admissible = True
+                    if drr["deficit"][tid] >= req.token_cost():
+                        return self._serve_head_unlocked(ci, tid)
+                drr["idx"] = (drr["idx"] + 1) % len(order)
+                drr["fresh"] = True
+            if not any_admissible:
+                return None
+            boost = None
+            for tid in order:
+                req = per_class[tid][0]
+                if admissible is not None and not admissible(req):
+                    continue
+                need = req.token_cost() - drr["deficit"].get(tid, 0.0)
+                inc = self.drr_quantum * self._weight(tid)
+                rounds = max(0, math.ceil(need / inc) - 1)
+                if boost is None or rounds < boost:
+                    boost = rounds
+            if boost:
+                for tid in order:
+                    drr["deficit"][tid] = (
+                        drr["deficit"].get(tid, 0.0)
+                        + boost * self.drr_quantum * self._weight(tid))
+        return None  # unreachable: the second rotation serves
 
     def pop(self, affinity_hint: np.ndarray | None = None,
             admissible=None) -> Request | None:
         """Next request by strict priority, or None when idle. Within the
         front non-empty class: with ``prefix_affinity_tokens`` k > 0 and an
         ``affinity_hint`` (the prompt just admitted), the oldest request
-        sharing the hint's first k tokens goes first; otherwise the head.
-        With ``admissible`` (a predicate the engine passes, e.g. "its KV
-        blocks fit"), a class whose head fails it yields nothing and the
-        next class is tried: a blocked high-priority request must not idle
-        the engine, and FIFO order within a class is kept."""
+        sharing the hint's first k tokens goes first; otherwise the DRR
+        rotation picks. With ``admissible`` (a predicate the engine passes:
+        "its KV blocks fit", "its tenant is under its slot cap"), a class
+        where no request passes yields nothing and the next class is
+        tried: a blocked high-priority request must not idle the
+        engine."""
         k = self.prefix_affinity_tokens
         key = (tuple(int(t) for t in affinity_hint[:k])
                if k > 0 and affinity_hint is not None
                and len(affinity_hint) >= k else None)
         with self._lock:
-            for q in self._queues:
-                if not q:
+            for ci in range(self.n_priorities):
+                if not any(self._queues[ci].values()):
                     continue
                 if key is not None:
-                    req = self._affinity_pop_unlocked(q, key, admissible)
+                    req = self._affinity_pop_unlocked(ci, key, admissible)
                     if req is not None:
                         return req
-                if admissible is None or admissible(q[0]):
-                    return q.popleft()
+                req = self._drr_pop_unlocked(ci, admissible)
+                if req is not None:
+                    return req
         return None

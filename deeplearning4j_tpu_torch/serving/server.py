@@ -2,26 +2,52 @@
 ``deeplearning4j_tpu/serving/server.py``, trimmed to this slice).
 
 Stdlib ``ThreadingHTTPServer`` plus one background thread running the
-engine loop; handler threads block on the request's ``done`` event.
+engine loop; handler threads block on the request's ``done`` event, or,
+with ``"stream": true``, relay tokens as SSE frames off the request's
+stream queue (the tokens reach the host with each horizon's one readback:
+streaming adds no device sync).
+
+Multi-tenant mode: when the engine carries a
+:class:`~.tenancy.TenantRegistry`, every POST resolves its API key
+(``X-API-Key``, or ``Authorization: Bearer <key>``) to a tenant: an
+unknown key gets 401, a missing key the registry's anonymous tenant (401
+when it has none). The tenant supplies the default priority and LoRA
+adapter, and its token-rate quota's exhaustion is a 429.
 
 Endpoints:
 
 - ``POST /v1/generate`` — body ``{"prompt": [ints] | "text", "max_new":
-  int, "priority"?: int, "eos_token"?: int, "deadline_s"?: float}``, and on
+  int, "priority"?: int, "eos_token"?: int, "deadline_s"?: float,
+  "adapter"?: int, "stream"?: bool}``, and on
   an engine with the sampling surface ``"temperature"``, ``"top_k"``,
   ``"top_p"``, ``"stop"`` (a string or a list of strings or token lists;
   strings only for byte vocabularies), ``"logit_bias"``, ``"logprobs"``,
   ``"top_logprobs"``, ``"response_format"``; returns ``{"id", "tokens",
   "text"?, "timing"?, "logprobs"?}`` (text only for byte vocabularies,
-  vocab <= 256). 429 on backpressure, 400 on a request that can never fit
-  a slot or sets surface fields the engine does not serve, 503 while
-  stopping or after the engine died, 408 /
+  vocab <= 256). 429 on backpressure or tenant quota, 400 on a request
+  that can never fit a slot, names an adapter outside the LoRA bank or
+  sets surface fields the engine does not serve, 401 on an unknown API
+  key, 503 while draining, stopping or after the engine died, 408 /
   499 / 500 for expired / cancelled / failed requests, 504 when the
-  handler times out (the request is cancelled in the engine).
+  handler times out (the request is cancelled in the engine). With
+  ``"stream": true`` the answer is ``text/event-stream``: one ``data:
+  {"token", "text"?}`` frame a generated token, then ``data: {"id",
+  "status", "n_tokens", "done": true, "error"?, "logprobs"?}``; the
+  streamed tokens, concatenated, are the non-streamed ``tokens`` tail
+  byte for byte. A timeout sends ``{"error", "done": true}`` and cancels
+  the request; a client that disconnects cancels it too (its slot frees
+  within one horizon).
+- ``POST /drain`` / ``POST /undrain`` — pause or resume admission without
+  stopping the engine loop: new submits get 503 and ``/readyz`` 503 while
+  in-flight and queued work finishes. Idempotent.
 - ``GET /healthz`` — 200 while the engine loop is alive (recovering
   included), 503 once it died or while the watchdog finds it hung; the
   payload carries ``hung``, ``beat_age_s`` and ``restarts``.
+- ``GET /readyz`` — 200 only when healthy and not draining (what a load
+  balancer routes on).
 - ``GET /metrics`` — Prometheus text of the engine's metrics registry.
+- ``GET /metrics.json`` — ``ServingMetrics.summary()`` plus live engine
+  state, the prefix cache's stats and the tenants' bucket levels.
 
 ``stop(drain_s)`` stops admission, gives in-flight work up to ``drain_s``
 seconds, cancels what is left, and shuts the listener down.
@@ -40,6 +66,7 @@ wedged inside a device call).
 from __future__ import annotations
 
 import json
+import queue
 import threading
 import time
 import traceback
@@ -53,6 +80,9 @@ from deeplearning4j_tpu_torch.serving.scheduler import (
     Request,
     RequestStatus,
 )
+
+#: the tenant of a request whose API key the registry does not know
+_UNKNOWN_KEY = object()
 
 PROM_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
 
@@ -89,6 +119,9 @@ class ServingServer:
         self._last_beat: float | None = None
         self._stop = threading.Event()
         self._draining = threading.Event()
+        # admission pause by POST /drain: unlike stop()'s drain the loop
+        # keeps running, and /undrain resumes
+        self._paused = threading.Event()
         self._dead = threading.Event()
         self.last_error: str | None = None
         server = self
@@ -102,23 +135,39 @@ class ServingServer:
                 if path == "/healthz":
                     payload = server._health()
                     _send_json(self, 200 if payload["ok"] else 503, payload)
+                elif path == "/readyz":
+                    payload = server._health()
+                    ready = payload["ok"] and not payload["draining"]
+                    payload["ready"] = ready
+                    _send_json(self, 200 if ready else 503, payload)
                 elif path == "/metrics":
                     _send(self, 200,
                           server.engine.metrics.render_prometheus().encode(),
                           PROM_CONTENT_TYPE)
+                elif path == "/metrics.json":
+                    _send_json(self, 200, server._metrics_payload())
                 else:
                     _send_json(self, 404, {"error": "not found"})
 
             def do_POST(self):
-                if urlparse(self.path).path != "/v1/generate":
+                path = urlparse(self.path).path
+                if path in ("/drain", "/undrain"):
+                    server._handle_drain(self, path == "/drain")
+                    return
+                if path != "/v1/generate":
                     _send_json(self, 404, {"error": "not found"})
                     return
-                if server._draining.is_set() or server._stop.is_set():
+                if (server._draining.is_set() or server._paused.is_set()
+                        or server._stop.is_set()):
                     _send_json(self, 503, {"error": "draining"})
                     return
                 if server._dead.is_set():
                     _send_json(self, 503, {"error": "engine dead",
                                            "last_error": server.last_error})
+                    return
+                tenant = server._resolve_tenant(self)
+                if tenant is _UNKNOWN_KEY:
+                    _send_json(self, 401, {"error": "unknown API key"})
                     return
                 n = int(self.headers.get("Content-Length", 0))
                 try:
@@ -126,7 +175,7 @@ class ServingServer:
                 except json.JSONDecodeError:
                     _send_json(self, 400, {"error": "malformed JSON"})
                     return
-                server._handle_generate(self, body)
+                server._handle_generate(self, body, tenant)
 
         self._httpd = ThreadingHTTPServer((host, port), Handler)
         self._engine_thread = threading.Thread(
@@ -166,7 +215,7 @@ class ServingServer:
             "hung": hung,
             "beat_age_s": beat_age,
             "hang_threshold_s": self.hang_threshold_s,
-            "draining": self._draining.is_set(),
+            "draining": self._draining.is_set() or self._paused.is_set(),
             "last_error": self.last_error,
             "restarts": self.engine.metrics.n_restarts,
             "queue_depth": len(self.engine.scheduler),
@@ -174,7 +223,64 @@ class ServingServer:
             "device": str(self.engine.device),
         }
 
-    def _parse(self, body: dict) -> Request:
+    def _metrics_payload(self) -> dict:
+        """``/metrics.json``: the metrics summary and live engine state,
+        with the prefix cache's stats and the tenants' bucket levels."""
+        eng = self.engine
+        out = eng.metrics.summary()
+        out.update(
+            n_slots=eng.n_slots,
+            slots_active=eng.pool.n_active,
+            queue_depth=len(eng.scheduler),
+            draining=self._draining.is_set() or self._paused.is_set(),
+            engine_alive=(self._engine_thread.is_alive()
+                          and not self._dead.is_set()),
+            last_error=self.last_error,
+        )
+        if eng.prefix_cache is not None:
+            out["prefix_cache"] = eng.prefix_cache.stats()
+        if eng.tenancy is not None:
+            buckets = {}
+            for tid in eng.tenancy.tenant_ids():
+                lvl = eng.tenancy.bucket_level(tid)
+                if lvl is not None:
+                    buckets[tid] = round(lvl, 1)
+            out["tenancy"] = {"n_tenants": len(eng.tenancy),
+                              "bucket_levels": buckets}
+        return out
+
+    def _handle_drain(self, handler, draining: bool) -> None:
+        """``POST /drain`` / ``POST /undrain``: pause or resume admission,
+        the engine loop running on (idempotent both ways)."""
+        if draining:
+            self._paused.set()
+        else:
+            self._paused.clear()
+        _send_json(handler, 200, {
+            "draining": self._paused.is_set(),
+            "in_flight": self.engine.pool.n_active,
+            "queued": len(self.engine.scheduler),
+        })
+
+    def _resolve_tenant(self, handler):
+        """The request's tenant by its API key (``X-API-Key``, or
+        ``Authorization: Bearer <key>``): None without tenancy,
+        ``_UNKNOWN_KEY`` for a key the registry does not know (and for no
+        key when it has no anonymous tenant)."""
+        tenancy = self.engine.tenancy
+        if tenancy is None:
+            return None
+        key = handler.headers.get("X-API-Key")
+        if not key:
+            auth = handler.headers.get("Authorization", "")
+            if auth.startswith("Bearer "):
+                key = auth[len("Bearer "):]
+        t = tenancy.resolve_key(key)
+        return _UNKNOWN_KEY if t is None else t
+
+    def _parse(self, body: dict, tenant=None) -> Request:
+        """The request of a body; the tenant supplies the priority and the
+        LoRA adapter unless the body names its own."""
         prompt = body.get("prompt")
         if isinstance(prompt, str):
             if not self._byte_vocab():
@@ -195,11 +301,17 @@ class ServingServer:
             logprobs=bool(body.get("logprobs", False)),
             top_logprobs=int(body.get("top_logprobs", 0)),
             response_format=body.get("response_format"),
-            priority=int(body.get("priority", 1)),
+            priority=int(body.get(
+                "priority", tenant.priority if tenant is not None else 1)),
             eos_token=(int(body["eos_token"]) if "eos_token" in body
                        else None),
             deadline_s=(float(body["deadline_s"]) if "deadline_s" in body
                         else None),
+            adapter=int(body.get(
+                "adapter",
+                tenant.default_adapter if tenant is not None else 0)),
+            tenant_id=tenant.tenant_id if tenant is not None else "",
+            stream=queue.Queue() if body.get("stream") else None,
             done=threading.Event(),
         )
 
@@ -226,15 +338,18 @@ class ServingServer:
             out.append([int(t) for t in s])
         return out
 
-    def _handle_generate(self, handler, body: dict) -> None:
+    def _handle_generate(self, handler, body: dict, tenant=None) -> None:
         try:
-            req = self._parse(body)
+            req = self._parse(body, tenant)
             self.engine.submit(req)
         except Backpressure as e:
             _send_json(handler, 429, {"error": str(e)})
             return
         except (AdmissionError, ValueError, TypeError) as e:
             _send_json(handler, 400, {"error": str(e)})
+            return
+        if req.stream is not None:
+            self._stream_generate(handler, req)
             return
         if not req.done.wait(self.request_timeout_s):
             req.cancel()  # the slot stops decoding for a gone client
@@ -257,6 +372,58 @@ class ServingServer:
         if self._byte_vocab():
             out["text"] = bytes(t % 256 for t in toks).decode("latin-1")
         _send_json(handler, 200, out)
+
+    @staticmethod
+    def _sse(handler, payload: dict) -> None:
+        """One SSE ``data:`` frame, flushed."""
+        handler.wfile.write(b"data: " + json.dumps(payload).encode()
+                            + b"\n\n")
+        handler.wfile.flush()
+
+    def _stream_generate(self, handler, req: Request) -> None:
+        """SSE relay: a frame for each token as it lands on
+        ``req.stream``, then a final frame with the terminal status (the
+        engine sets it before the end-of-stream sentinel). A timeout
+        cancels the request; so does a client that disconnects."""
+        handler.send_response(200)
+        handler.send_header("Content-Type", "text/event-stream")
+        handler.send_header("Cache-Control", "no-cache")
+        handler.send_header("Connection", "close")
+        handler.end_headers()
+        deadline = time.monotonic() + self.request_timeout_s
+        byte_vocab = self._byte_vocab()
+        n = 0
+        try:
+            while True:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    req.cancel()
+                    self._sse(handler, {"error": "generation timed out",
+                                        "done": True})
+                    return
+                try:
+                    tok = req.stream.get(timeout=min(remaining, 1.0))
+                except queue.Empty:
+                    continue  # still decoding: check the deadline again
+                if tok is None:
+                    break  # the end-of-stream sentinel
+                n += 1
+                frame = {"token": int(tok)}
+                if byte_vocab:
+                    frame["text"] = chr(tok % 256)
+                self._sse(handler, frame)
+            final = {"id": req.id, "status": req.status.value,
+                     "n_tokens": n, "done": True}
+            if req.status is not RequestStatus.FINISHED and req.error:
+                final["error"] = req.error
+            if req.logprobs and req.logprobs_out is not None:
+                final["logprobs"] = req.logprobs_out
+            self._sse(handler, final)
+        except (BrokenPipeError, ConnectionResetError):
+            req.cancel()  # the client is gone: free its slot
+        finally:
+            # the stream delivered the tokens: drop the stored copy
+            self.engine.pop_result(req.id)
 
     def _engine_loop(self) -> None:
         consecutive = 0

@@ -5,14 +5,18 @@ CUDA card.
     python3 scripts/torch_serve_profile.py [--horizons 12] [--out PATH]
         [--int8 off|weights|full] [--paged [--block-size 8]]
         [--temperature 0] [--top-k 0] [--sampling-surface]
+        [--lora-adapters N [--lora-rank 4]]
 
 Builds the GPT-2-small serving engine of ``chip_smoke.py`` (bf16, 8 slots,
 max_total 640, K = 4, random weights from seed 0; greedy unless
 ``--temperature`` and ``--top-k`` ask for sampled decode, which draws
 through the threefry draw kernel; ``--sampling-surface`` dispatches the
 masked step; ``--int8`` quantizes the weights, ``full`` also the KV cache;
-``--paged`` block-pages the cache), fills every slot with a 128-token
-prompt and a budget long enough to stay in decode, then:
+``--paged`` block-pages the cache; ``--lora-adapters N`` loads a LoRA bank
+of N adapters, rank ``--lora-rank``, from ``threefry.key(0)``, and the
+slots take adapters 1..N-1 in turn, so every dispatch carries the bank),
+fills every slot with a 128-token prompt and a budget long enough to stay
+in decode, then:
 
 - times ``--horizons`` engine steps on the host clock (each step dispatches
   one K-substep horizon for 8 slots and reads back the previous one) and
@@ -68,6 +72,10 @@ def main() -> int:
     ap.add_argument("--top-k", type=int, default=0, help="0 disables")
     ap.add_argument("--sampling-surface", action="store_true",
                     help="arm the sampling surface (the masked step)")
+    ap.add_argument("--lora-adapters", type=int, default=0, metavar="N",
+                    help="serve a batched-LoRA bank of N adapters, the "
+                    "slots on adapters 1..N-1")
+    ap.add_argument("--lora-rank", type=int, default=4)
     args = ap.parse_args()
 
     import numpy as np
@@ -95,11 +103,20 @@ def main() -> int:
     # the surface flag only when asked: the script also profiles older
     # checkouts (copied into one), whose engine may not take it
     surface = {"sampling_surface": True} if args.sampling_surface else {}
+    if args.lora_adapters:
+        from deeplearning4j_tpu_torch.models.transformer import init_lora_bank
+        from deeplearning4j_tpu_torch.ops import threefry
+
+        surface["lora_bank"] = init_lora_bank(
+            threefry.key(0), cfg, args.lora_adapters, args.lora_rank)
     engine = ServingEngine(cfg, params, n_slots=8, max_total=640,
                            decode_horizon=4, temperature=args.temperature,
                            top_k=args.top_k or None,
                            paged=args.paged, block_size=args.block_size,
                            **surface)
+    if args.lora_adapters and engine.n_adapters != args.lora_adapters:
+        print("torch_serve_profile: the LoRA probe failed", file=sys.stderr)
+        return 1
     if args.paged and not engine._paged:
         print("torch_serve_profile: the engine did not come up paged",
               file=sys.stderr)
@@ -113,12 +130,17 @@ def main() -> int:
     mode = ((f"int8 {args.int8}, " if args.int8 != "off" else "")
             + (f"paged bs {args.block_size}" if args.paged else "slab")
             + f", {sampler}"
-            + (", sampling surface" if args.sampling_surface else ""))
+            + (", sampling surface" if args.sampling_surface else "")
+            + (f", LoRA {args.lora_adapters} x rank {args.lora_rank}"
+               if args.lora_adapters else ""))
     rng = np.random.default_rng(0)
     budget = 4 * (3 * args.horizons + 8)
-    for _ in range(8):
+    for i in range(8):
+        # the adapter only when asked, as the surface flag above
+        lora = ({"adapter": 1 + i % (args.lora_adapters - 1)}
+                if args.lora_adapters else {})
         engine.submit(Request(prompt=rng.integers(0, cfg.vocab_size, 128),
-                              max_new=budget))
+                              max_new=budget, **lora))
     for _ in range(4):  # admissions + warm-up horizons
         engine.step()
     torch.cuda.synchronize()

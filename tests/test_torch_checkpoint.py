@@ -16,6 +16,11 @@ from deeplearning4j_tpu.parallel import checkpoint as jckpt
 from deeplearning4j_tpu_torch.models import transformer as pt
 from deeplearning4j_tpu_torch.parallel import checkpoint as ckpt
 
+# one intra-op thread: the suite runs several pytest workers on one
+# host, where every worker's spinning thread pool would contend for the
+# cores
+torch.set_num_threads(1)
+
 # f32 logits of the two frameworks' forwards on the same weights
 LOGIT_ATOL = 1e-4
 

@@ -19,6 +19,11 @@ from deeplearning4j_tpu_torch import cli
 from deeplearning4j_tpu_torch.models.transformer import TransformerConfig
 from deeplearning4j_tpu_torch.parallel.checkpoint import CheckpointManager
 
+# one intra-op thread: the suite runs several pytest workers on one
+# host, where every worker's spinning thread pool would contend for the
+# cores
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parent.parent
 TRAIN = ["train", "--model", "transformer", "--device", "cpu", "--steps", "4",
          "--seq-len", "32", "--d-model", "32", "--n-layers", "1",

@@ -20,6 +20,11 @@ from deeplearning4j_tpu_torch.models import transformer as pt
 from deeplearning4j_tpu_torch.ops import threefry
 from deeplearning4j_tpu_torch.serving import Request, ServingEngine
 
+# one intra-op thread: the suite runs several pytest workers on one
+# host, where every worker's spinning thread pool would contend for the
+# cores
+torch.set_num_threads(1)
+
 # f32 beam scores: sums of a few f32 log-probs, each within the decode
 # tests' logit tolerance of the reference's
 SCORE_ATOL = 1e-4

@@ -15,6 +15,11 @@ import torch
 
 from deeplearning4j_tpu_torch.ops import emb_dot
 
+# one intra-op thread: the suite runs several pytest workers on one
+# host, where every worker's spinning thread pool would contend for the
+# cores
+torch.set_num_threads(1)
+
 # f32 on both sides: only the summation order of the dot differs (the
 # reference's own test holds its kernel to XLA at 1e-5)
 ATOL = 1e-5

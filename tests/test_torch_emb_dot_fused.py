@@ -20,6 +20,11 @@ import torch
 from deeplearning4j_tpu_torch.models import word2vec as w2v
 from deeplearning4j_tpu_torch.ops import emb_dot
 
+# one intra-op thread: the suite runs several pytest workers on one
+# host, where every worker's spinning thread pool would contend for the
+# cores
+torch.set_num_threads(1)
+
 # f32 on both sides: the dots and the grad_in sums are added up in other
 # orders (XLA's einsum vs an elementwise product summed; the kernel's
 # fmaf chain and shuffle tree), as for one batch update in

@@ -13,6 +13,11 @@ import torch
 
 from deeplearning4j_tpu_torch.ops import flash_attention as fa
 
+# one intra-op thread: the suite runs several pytest workers on one
+# host, where every worker's spinning thread pool would contend for the
+# cores
+torch.set_num_threads(1)
+
 # f32: the two sides differ only in summation order
 ATOL_F32 = 1e-5
 # bf16: outputs are bf16 (8 mantissa bits); one rounding step of a value

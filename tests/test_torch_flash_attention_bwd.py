@@ -15,6 +15,11 @@ import torch
 from deeplearning4j_tpu_torch.ops import flash_attention as fa
 from deeplearning4j_tpu_torch.ops.attention import attention
 
+# one intra-op thread: the suite runs several pytest workers on one
+# host, where every worker's spinning thread pool would contend for the
+# cores
+torch.set_num_threads(1)
+
 # f32: the two sides differ only in summation order
 ATOL_F32 = 1e-5
 # bf16: the reference's on-device gate for its flash backward (bench.py:392);

@@ -16,6 +16,11 @@ import torch
 
 from deeplearning4j_tpu_torch.ops import flash_decode as fd
 
+# one intra-op thread: the suite runs several pytest workers on one
+# host, where every worker's spinning thread pool would contend for the
+# cores
+torch.set_num_threads(1)
+
 # f32 on both sides: only the summation order (and exp's last bit) differs
 ATOL = 1e-5
 # bf16 kernel vs plain on the card: the kernel rounds its softmax weights

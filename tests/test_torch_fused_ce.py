@@ -10,6 +10,11 @@ import torch
 from deeplearning4j_tpu.ops import fused_ce as jce
 from deeplearning4j_tpu_torch.ops import fused_ce as tce
 
+# one intra-op thread: the suite runs several pytest workers on one
+# host, where every worker's spinning thread pool would contend for the
+# cores
+torch.set_num_threads(1)
+
 _DTYPES = {"f32": (jnp.float32, torch.float32),
            "bf16": (jnp.bfloat16, torch.bfloat16)}
 

@@ -27,6 +27,11 @@ import torch
 from deeplearning4j_tpu_torch.models import transformer as pt
 from deeplearning4j_tpu_torch.ops import flash_decode as fd
 
+# one intra-op thread: the suite runs several pytest workers on one
+# host, where every worker's spinning thread pool would contend for the
+# cores
+torch.set_num_threads(1)
+
 # f32 on both sides: the integer products are exact and every rounding
 # point is the reference's; the summation order and exp's last bit differ
 ATOL = 1e-5

@@ -19,7 +19,9 @@ from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.models.paragraph_vectors import ParagraphVectors
 from deeplearning4j_tpu_torch.models.transformer import (
     TransformerConfig,
+    init_lora_bank,
     init_params,
+    lora_bank_from_jax,
     params_from_jax,
     transformer_beam_search,
     transformer_speculative_generate,
@@ -31,6 +33,11 @@ from deeplearning4j_tpu_torch.models.word2vec import (
 from deeplearning4j_tpu_torch.parallel import checkpoint as ckpt
 from deeplearning4j_tpu_torch.parallel.checkpoint import CheckpointManager
 from deeplearning4j_tpu_torch.serving import ServingEngine
+
+# one intra-op thread: the suite runs several pytest workers on one
+# host, where every worker's spinning thread pool would contend for the
+# cores
+torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = Path(deeplearning4j_tpu_torch.__file__).resolve().parent
@@ -78,6 +85,28 @@ def _imported_roots(path: Path) -> set[str]:
 def test_no_jax_import_statement(path):
     roots = _imported_roots(path)
     assert not roots & {"jax", "jaxlib", "deeplearning4j_tpu", "optax"}
+
+
+def test_tenancy_and_lora_follow_the_rules(monkeypatch):
+    """``serving/tenancy.py`` is the port's own copy of the reference's
+    module (no JAX and nothing of the JAX package, so it is among the
+    files checked above), and the LoRA bank's entry points run on the card
+    unless the caller names the CPU."""
+    path = PKG / "serving" / "tenancy.py"
+    assert path in set(PKG.rglob("*.py"))
+    assert not _imported_roots(path) & {"jax", "jaxlib",
+                                        "deeplearning4j_tpu"}
+    cfg = TransformerConfig(vocab_size=32, d_model=16, n_heads=2,
+                            n_layers=1, d_ff=32, max_len=16)
+    bank = init_lora_bank(0, cfg, 2, 2, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_lora_bank(0, cfg, 2, 2)
+    np_bank = {k: v.numpy() for k, v in bank.items()}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lora_bank_from_jax(np_bank, cfg)
+    assert lora_bank_from_jax(np_bank, cfg, device="cpu")["a_q"].shape == (
+        1, 2, 16, 2)
 
 
 def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):

@@ -26,6 +26,11 @@ from deeplearning4j_tpu_torch.models import transformer as pt
 from deeplearning4j_tpu_torch.ops import threefry
 from deeplearning4j_tpu_torch.serving import Request, ServingEngine
 
+# one intra-op thread: the suite runs several pytest workers on one
+# host, where every worker's spinning thread pool would contend for the
+# cores
+torch.set_num_threads(1)
+
 #: the Gumbel noise's cross-framework difference (tests/test_torch_threefry)
 NOISE_TOL = 1e-5
 TEMP, TOP_K = 0.8, 40
@@ -144,8 +149,17 @@ def test_engine_sampled_matches_reference(horizon):
     """The port's engine against the reference engine: the same master
     key and request order give every slot the reference's key, and token
     i of a slot is drawn with fold_in(slot key, position)."""
+    _engine_against_reference(horizon, seed=3)
+
+
+def test_engine_sampled_matches_reference_wide_seed():
+    """A master seed past 2^32: JAX (64-bit types off) keeps only its low
+    word, and so does the port's ``key``."""
+    _engine_against_reference(1, seed=2**32 + 5)
+
+
+def _engine_against_reference(horizon, seed):
     jp, tcfg, tp_ = _pair()
-    seed = 3
     kw = dict(n_slots=4, max_total=64, temperature=TEMP, top_k=TOP_K,
               decode_horizon=horizon, rng_seed=seed)
     je = JEngine(JCFG, jp, adaptive_horizon=False, **kw)

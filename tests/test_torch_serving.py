@@ -34,6 +34,11 @@ from deeplearning4j_tpu_torch.serving import (
     ServingServer,
 )
 
+# one intra-op thread: the suite runs several pytest workers on one
+# host, where every worker's spinning thread pool would contend for the
+# cores
+torch.set_num_threads(1)
+
 # a greedy token may differ across frameworks only where the top-2 logit
 # gap is below this (f32 logits agree to ~1e-5 here)
 NEAR_TIE = 1e-4

@@ -42,6 +42,11 @@ from deeplearning4j_tpu_torch.serving import (
     TransientFault,
 )
 
+# one intra-op thread: the suite runs several pytest workers on one
+# host, where every worker's spinning thread pool would contend for the
+# cores
+torch.set_num_threads(1)
+
 CFG = pt.TransformerConfig(vocab_size=64, d_model=32, n_heads=4, n_layers=2,
                            d_ff=64, max_len=32)
 # a greedy token may differ across frameworks only where the top-2 logit

@@ -13,6 +13,11 @@ import torch
 
 from deeplearning4j_tpu_torch.ops import threefry
 
+# one intra-op thread: the suite runs several pytest workers on one
+# host, where every worker's spinning thread pool would contend for the
+# cores
+torch.set_num_threads(1)
+
 # Gumbel noise vs jax.random.gumbel: -log(-log(u)) of bitwise-equal
 # uniforms, through two logs that may each round one or two ulps apart
 GUMBEL_ATOL = 2e-6
@@ -44,11 +49,20 @@ def _u32(k) -> np.ndarray:
     return np.asarray(k, dtype=np.int64).astype(np.uint32)
 
 
-@pytest.mark.parametrize("seed", [0, 1, 42, 2**31 - 1])
+@pytest.mark.parametrize("seed", [0, 1, 42, 2**31 - 1, 2**32 + 5,
+                                  2**40 + 3, 2**63 - 1, -2**31 - 1, -2**40])
 def test_key_matches_jax(jax, seed):
     want = np.asarray(jax.random.key_data(jax.random.key(seed)))
     np.testing.assert_array_equal(_u32(threefry.key(seed)), want)
     assert all(type(w) is int for w in threefry.key(seed))
+
+
+@pytest.mark.parametrize("seed", [2**63, -2**63 - 1])
+def test_key_out_of_range_raises_as_jax(jax, seed):
+    with pytest.raises(OverflowError):
+        jax.random.key(seed)
+    with pytest.raises(OverflowError):
+        threefry.key(seed)
 
 
 @pytest.mark.parametrize("n", [2, 5])

@@ -17,6 +17,11 @@ import torch
 from deeplearning4j_tpu.models import transformer as jt
 from deeplearning4j_tpu_torch.models import transformer as pt
 
+# one intra-op thread: the suite runs several pytest workers on one
+# host, where every worker's spinning thread pool would contend for the
+# cores
+torch.set_num_threads(1)
+
 # f32 logits: the frameworks' matmuls sum in different orders
 LOGIT_ATOL = 1e-4
 # greedy tokens must agree unless the reference's top-2 gap is this small

@@ -24,6 +24,11 @@ from deeplearning4j_tpu.parallel.mesh import dp_mp_mesh
 from deeplearning4j_tpu_torch.models import transformer as pt
 from deeplearning4j_tpu_torch.ops import flash_attention as fa
 
+# one intra-op thread: the suite runs several pytest workers on one
+# host, where every worker's spinning thread pool would contend for the
+# cores
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parent.parent
 
 # f32: the frameworks sum in other orders; bf16: activations round at

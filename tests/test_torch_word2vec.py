@@ -29,6 +29,11 @@ from deeplearning4j_tpu_torch.nlp.sentence_iterator import (
     CollectionSentenceIterator,
 )
 
+# one intra-op thread: the suite runs several pytest workers on one
+# host, where every worker's spinning thread pool would contend for the
+# cores
+torch.set_num_threads(1)
+
 # one batch update, f32 on both sides: the dots and the grad_in sums are
 # added up in other orders (XLA's dot vs an elementwise product summed)
 STEP_ATOL = 1e-5
