@@ -27,7 +27,17 @@ prefill, ``--chaos-rate P [--chaos-seed S]`` seeded transient faults
 [--grammar-states N] [--grammar-cache DIR]`` the per-request sampling and
 grammar surface, ``--tenants PATH`` the tenant registry (a JSON file) and
 ``--lora-adapters N [--lora-rank R] [--lora-seed S]`` a batched-LoRA bank
-of random demo adapters, as the reference's flags do. Sampling takes the
+of random demo adapters, as the reference's flags do. ``--adaptive-horizon``
+drops the decode horizon to 1 while requests wait, ``--probe-cache PATH``
+persists probe verdicts (``off`` disables), ``--embed-models word2vec``
+serves ``POST /v1/embeddings`` over the reference's demo vocabulary, and
+the observability flags are the reference's: ``--trace-out PATH``
+[``--trace-capacity N``] (a Chrome trace written at shutdown),
+``--flight-dir DIR`` (postmortem bundles), ``--log-json`` (JSON log
+lines), ``--metrics-port P`` (the scrape sidecar), ``--profile-dir DIR``
+and ``--profile-steps N`` (``torch.profiler`` captures, also armed by
+``POST /profile?s=N``). ``trace-merge A.json B.json -o OUT`` stitches
+``--trace-out`` exports into one Perfetto document. Sampling takes the
 reference's threefry key stream: ``generate --seed S`` is ``key(S)``,
 ``serve --seed S`` the engine's master key. Every command runs on
 ``cuda`` unless ``--device cpu`` is given.
@@ -37,7 +47,9 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import sys
+import tempfile
 
 import torch
 
@@ -293,8 +305,65 @@ def cmd_generate(args) -> int:
     return 0
 
 
+#: the reference's tiny corpus for the ``--embed-models`` demo vocabulary
+_DEMO_SENTENCES = [
+    "the quick brown fox jumps over the lazy dog",
+    "a day in the life of a serving engine",
+    "music in the park makes the day go by",
+    "the fox and the dog share the park",
+    "continuous batching keeps the engine busy all day",
+]
+
+
+class HostTable:
+    """An embedding model's vectors as a host table: the engine serves
+    lookups at the admission boundary, so they never touch the device."""
+
+    def __init__(self, model):
+        self.cache = model.cache
+        self.table = model.syn0.cpu().numpy()
+
+    def get_word_vector(self, word: str):
+        i = self.cache.index_of(word)
+        return None if i < 0 else self.table[i]
+
+
+def _demo_embedders(names: list[str], device=None) -> dict:
+    """The reference's ``/v1/embeddings`` demo (its ``_demo_embedders``):
+    ``word2vec`` is ``Word2Vec(layer_size=16, seed=0)`` over
+    :data:`_DEMO_SENTENCES`, its vocabulary built and its table drawn
+    (the reference's bits), no training, on ``device``; served from a
+    host copy. Raises ``ValueError`` on another name (``glove`` comes with
+    a later slice of the port)."""
+    from deeplearning4j_tpu_torch.models.word2vec import Word2Vec
+
+    out = {}
+    for name in names:
+        name = name.strip().lower()
+        if not name:
+            continue
+        if name == "glove":
+            raise ValueError("--embed-models glove comes with a later slice "
+                             "of the port (GloVe); this slice serves "
+                             "word2vec")
+        if name != "word2vec":
+            raise ValueError(f"unknown embed model {name!r} (word2vec)")
+        m = Word2Vec(layer_size=16, seed=0, device=device)
+        m.build_vocab(_DEMO_SENTENCES)
+        m.reset_weights()
+        out[name] = HostTable(m)
+    return out
+
+
 def cmd_serve(args) -> int:
+    import logging
+
     from deeplearning4j_tpu_torch.models.transformer import init_lora_bank
+    from deeplearning4j_tpu_torch.obs import (
+        ProfileTrigger,
+        Tracer,
+        configure_json_logging,
+    )
     from deeplearning4j_tpu_torch.ops import threefry
     from deeplearning4j_tpu_torch.serving import (
         FaultInjector,
@@ -307,6 +376,18 @@ def cmd_serve(args) -> int:
     if not (args.demo or args.checkpoint_dir):
         print("serve needs --checkpoint-dir (or --demo)", file=sys.stderr)
         return 2
+    embedders = None
+    if args.embed_models:
+        try:
+            embedders = _demo_embedders(args.embed_models.split(","),
+                                        device=args.device)
+        except ValueError as e:
+            print(str(e), file=sys.stderr)
+            return 2
+        print(f"embeddings: POST /v1/embeddings over "
+              f"{', '.join(sorted(embedders))} (demo vocab)")
+    if args.log_json:
+        configure_json_logging(level=logging.INFO)
     tenancy = None
     if args.tenants:
         tenancy = TenantRegistry.from_file(args.tenants)
@@ -332,11 +413,23 @@ def cmd_serve(args) -> int:
                                transient_rate=args.chaos_rate)
         print(f"chaos mode: transient faults at rate {args.chaos_rate} "
               f"(seed {args.chaos_seed})")
+    tracer = Tracer(enabled=args.trace_out is not None,
+                    capacity=args.trace_capacity)
+    profile = ProfileTrigger(log_dir=args.profile_dir)
+    if args.profile_steps > 0:
+        d = profile.arm(args.profile_steps)
+        print(f"profiling first {args.profile_steps} steps -> {d}")
+    probe_cache = None
+    if args.probe_cache and args.probe_cache.lower() not in ("off", "none"):
+        probe_cache = os.path.expanduser(args.probe_cache)
     engine = ServingEngine(
         cfg, params, n_slots=args.slots, max_total=args.max_total,
         temperature=args.temperature,
         top_k=args.top_k if args.top_k > 0 else None,
         decode_horizon=args.decode_horizon,
+        adaptive_horizon=args.adaptive_horizon,
+        tracer=tracer, profile=profile, probe_cache=probe_cache,
+        embedders=embedders,
         prefix_cache=args.prefix_cache,
         prefix_cache_tokens=args.prefix_cache_tokens,
         scheduler=RequestScheduler(
@@ -376,8 +469,13 @@ def cmd_serve(args) -> int:
                   "or approx-top-k engine); per-request sampling fields "
                   "will 400", file=sys.stderr)
     server = ServingServer(engine, host=args.host, port=args.port,
-                           request_timeout_s=args.request_timeout)
+                           request_timeout_s=args.request_timeout,
+                           metrics_port=args.metrics_port,
+                           flight_dir=args.flight_dir)
     host, port = server.address
+    # the process track named after the bound address, so trace-merge
+    # tells the servers apart
+    tracer.process_name = f"serve {host}:{port}"
     print(f"{origin} ({cfg.d_model}d, {cfg.n_layers}L, "
           f"vocab {cfg.vocab_size}, {cfg.compute_dtype}) on {engine.device}")
     if engine.prefix_cache is not None:
@@ -385,11 +483,44 @@ def cmd_serve(args) -> int:
         print(f"prefix cache: {pc.capacity_tokens} tokens "
               f"({pc.n_region_slots} segments, "
               f"{pc.nbytes() / 1e6:.1f} MB region)")
+    if server.metrics_address is not None:
+        mh, mp = server.metrics_address
+        print(f"metrics sidecar on http://{mh}:{mp}/metrics")
     print(f"serving on http://{host}:{port}  ({args.slots} slots, "
           f"{engine.max_total} tokens/slot, decode horizon "
-          f"{engine.decode_horizon}, queue depth {args.max_queue})",
-          flush=True)
-    server.serve_forever(drain_s=args.drain_s)
+          f"{engine.decode_horizon}"
+          f"{' (adaptive)' if args.adaptive_horizon else ''}, "
+          f"queue depth {args.max_queue})", flush=True)
+    try:
+        server.serve_forever(drain_s=args.drain_s)
+    finally:
+        if args.trace_out:
+            out = tracer.export(args.trace_out)
+            print(f"trace: {tracer.n_events} events "
+                  f"({tracer.dropped} dropped) -> {out}", flush=True)
+    return 0
+
+
+def cmd_trace_merge(args) -> int:
+    """Stitch per-process Chrome-trace exports (each a ``serve
+    --trace-out``) into one Perfetto document: a process track per input,
+    timestamps rebased onto one wall-clock origin, and flow arrows where a
+    span's parent lives in another process."""
+    from deeplearning4j_tpu_torch.obs.collect import merge_trace_files
+
+    try:
+        merged = merge_trace_files(args.traces, out_path=args.out)
+    except (OSError, ValueError) as e:
+        print(f"trace-merge: {e}", file=sys.stderr)
+        return 2
+    evs = merged["traceEvents"]
+    n_pids = len({e["pid"] for e in evs})
+    n_spans = sum(1 for e in evs if e.get("ph") == "X")
+    n_flows = sum(1 for e in evs if e.get("ph") == "s")
+    print(f"merged {len(args.traces)} traces -> {args.out}: "
+          f"{n_pids} process tracks, {n_spans} spans, "
+          f"{n_flows} cross-process links "
+          f"(open at https://ui.perfetto.dev)")
     return 0
 
 
@@ -507,6 +638,44 @@ def build_parser() -> argparse.ArgumentParser:
     v.add_argument("--seed", type=int, default=0)
     v.add_argument("--request-timeout", type=float, default=300.0)
     v.add_argument("--decode-horizon", type=int, default=4)
+    v.add_argument("--adaptive-horizon", action="store_true",
+                   help="shrink the decode horizon to 1 while requests "
+                   "wait in the queue and restore --decode-horizon when it "
+                   "drains; token streams are unchanged")
+    v.add_argument("--trace-out", default=None, metavar="PATH",
+                   help="enable the request-lifecycle tracer and write a "
+                   "Chrome-trace/Perfetto JSON of its spans to PATH at "
+                   "shutdown")
+    v.add_argument("--trace-capacity", type=int, default=1 << 16,
+                   help="tracer ring-buffer size in events")
+    v.add_argument("--flight-dir", default=None, metavar="DIR",
+                   help="write flight-recorder bundles (redacted JSON "
+                   "postmortems) to DIR on an engine crash, a watchdog "
+                   "trip or SIGTERM; GET /debug/dump serves the live one")
+    v.add_argument("--log-json", action="store_true",
+                   help="structured JSON log lines on stderr, correlated "
+                   "by req_id and trace_id")
+    v.add_argument("--metrics-port", type=int, default=None,
+                   help="serve /metrics (and the other observability GETs) "
+                   "on a sidecar port")
+    v.add_argument("--profile-dir", default=None, metavar="DIR",
+                   help="directory torch.profiler captures land in "
+                   "(default: under the temporary directory)")
+    v.add_argument("--profile-steps", type=int, default=0,
+                   help="capture the FIRST N engine steps at startup (0: "
+                   "only on demand through POST /profile?s=N)")
+    v.add_argument("--probe-cache",
+                   default=os.path.join(tempfile.gettempdir(),
+                                        "dl4j_tpu_torch_probes.json"),
+                   metavar="PATH",
+                   help="persist parity-probe verdicts keyed by config, "
+                   "stack and geometry, so restarts skip the probes "
+                   "(default: a file in the temporary directory); 'off' "
+                   "disables")
+    v.add_argument("--embed-models", default=None, metavar="M[,M]",
+                   help="embedding models to serve at POST /v1/embeddings "
+                   "over a small demo vocabulary (word2vec; glove comes "
+                   "with a later slice)")
     v.add_argument("--drain-s", type=float, default=5.0)
     _add_model_flags(v)
     _add_int8_flag(v)
@@ -584,6 +753,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="seed of the demo LoRA bank (threefry key(seed), "
                    "the reference's bank up to erfinv's last ulps)")
     v.set_defaults(fn=cmd_serve)
+
+    m = sub.add_parser(
+        "trace-merge",
+        help="stitch per-process --trace-out exports into one Perfetto "
+        "trace with cross-process flow arrows")
+    m.add_argument("traces", nargs="+", metavar="TRACE.json",
+                   help="per-process Chrome-trace JSON files")
+    m.add_argument("-o", "--out", required=True, metavar="PATH",
+                   help="merged Perfetto JSON output path")
+    m.set_defaults(fn=cmd_trace_merge)
     return ap
 
 

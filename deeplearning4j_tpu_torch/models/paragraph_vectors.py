@@ -19,6 +19,7 @@ from deeplearning4j_tpu_torch.models.word2vec import (
     _f32,
     _host,
     _hs_math_merged,
+    _init_table,
     _ns_math_merged,
     skipgram_pairs,  # noqa: F401  (re-exported; public through this module)
 )
@@ -35,14 +36,10 @@ class ParagraphVectors(Word2Vec):
         self.syn0_labels: torch.Tensor | None = None
 
     def _reset_label_weights(self) -> None:
-        """Label vectors uniform in [-0.5, 0.5) / D from the port's own
-        generator, seeded with ``seed + 1`` (the reference draws from
-        ``jax.random``)."""
-        d = self.layer_size
-        gen = torch.Generator().manual_seed(self.seed + 1)
-        self.syn0_labels = (
-            (torch.rand((len(self.labels), d), generator=gen) - 0.5) / d
-        ).to(self.device)
+        """Label vectors (uniform(key(seed + 1), (n_labels, D)) - 0.5) / D,
+        the reference's table bit for bit."""
+        self.syn0_labels = _init_table(
+            self.seed + 1, (len(self.labels), self.layer_size), self.device)
 
     def fit_labeled(self, labeled_sentences) -> None:
         """labeled_sentences: iterable of (label, sentence) pairs (e.g. a

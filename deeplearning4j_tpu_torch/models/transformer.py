@@ -546,6 +546,26 @@ def _head_logits(x, head):
     return x.float() @ head.float()
 
 
+def _last_row_logits(params, x, last_idx, rowwise: bool = False):
+    """Logits (B, V) of each row's ``last_idx`` position of ``x`` (B, T, D):
+    the final norm, then the head. ``last_idx`` is an int or a (B,)
+    tensor. ``rowwise`` takes the head product one row at a time, at the
+    M 1 a batch-1 call runs it at: a library may reduce an M 1 and an M B
+    product in different orders (an M 1 product is a matrix-vector one),
+    and the batched admission programs must give each row a batch-1
+    prefill's bits."""
+    b = x.shape[0]
+    if isinstance(last_idx, torch.Tensor) and last_idx.dim() == 1:
+        x = x[torch.arange(b, device=x.device), last_idx.long()]
+    else:
+        x = x[:, int(last_idx)]
+    x = _layer_norm(x, params["lnf_scale"], params["lnf_bias"])
+    head = _w(params, "head", x.dtype)
+    if rowwise and b > 1:
+        return torch.cat([_head_logits(x[i:i + 1], head) for i in range(b)])
+    return _head_logits(x, head)
+
+
 def _layer(params, i: int):
     return {name: a[i] for name, a in params["blocks"].items()}
 
@@ -1093,12 +1113,14 @@ def _chunk_builder(cfg: TransformerConfig):
     """``forward_chunk(params, caches, toks (B, C), pos0, last_idx=None,
     adapter=None)`` advances C positions from the int ``pos0`` through
     every layer against the cache (written in place) and returns (logits,
-    caches): (B, C, V), or (B, V) at ``last_idx`` (int or (B,) tensor).
-    ``adapter`` (B,) rows apply the ``params["lora"]`` bank."""
+    caches): (B, C, V), or (B, V) at ``last_idx`` (int or (B,) tensor;
+    ``rowwise_head`` takes the head product a row at a time, see
+    :func:`_last_row_logits`). ``adapter`` (B,) rows apply the
+    ``params["lora"]`` bank."""
     check_supported(cfg)
 
     def forward_chunk(params, caches, toks, pos0: int, last_idx=None,
-                      adapter=None):
+                      adapter=None, rowwise_head: bool = False):
         lora = _lora_select(params, adapter)
         b, c = toks.shape
         pos_rows = _pos_rows(
@@ -1109,10 +1131,8 @@ def _chunk_builder(cfg: TransformerConfig):
             x, caches = _block_chunk(cfg, x, _layer(params, i), caches, i,
                                      pos0, lora)
         if last_idx is not None:
-            if isinstance(last_idx, torch.Tensor) and last_idx.dim() == 1:
-                x = x[torch.arange(b, device=x.device), last_idx.long()]
-            else:
-                x = x[:, int(last_idx)]
+            return _last_row_logits(params, x, last_idx,
+                                    rowwise_head), caches
         x = _layer_norm(x, params["lnf_scale"], params["lnf_bias"])
         return _head_logits(x, _w(params, "head", x.dtype)), caches
 
@@ -1258,13 +1278,15 @@ def _decode_builder(cfg: TransformerConfig):
             }
         return torch.zeros(shape, dtype=cfg.compute_dtype, device=device)
 
-    def prefill(params, caches, prompt, last_idx=None, adapter=None):
+    def prefill(params, caches, prompt, last_idx=None, adapter=None,
+                rowwise_head: bool = False):
         """Bulk prefill: one causal forward over the prompt (B, Tp) writes
         rows 0..Tp-1 of every layer's cache (in place; quantized rows into
         an int8 cache, while attention uses the float k/v) and returns
         (caches, logits (B, V) f32) at ``last_idx`` (default Tp-1; an int
-        or a (B,) tensor). ``adapter`` (B,) rows apply the
-        ``params["lora"]`` bank (attention stays the flash kernel's)."""
+        or a (B,) tensor; ``rowwise_head`` as :func:`_last_row_logits`).
+        ``adapter`` (B,) rows apply the ``params["lora"]`` bank (attention
+        stays the flash kernel's)."""
         b, tp = prompt.shape
         if tp == 0:
             return caches, torch.zeros((b, cfg.vocab_size),
@@ -1303,14 +1325,9 @@ def _decode_builder(cfg: TransformerConfig):
             h_in = _layer_norm(x, p["ln2_scale"], p["ln2_bias"])
             x = x + (_mlp(p, h_in) if lora is None
                      else _lora_mlp(p, h_in, lora, i))
-        if last_idx is None:
-            x_last = x[:, -1]
-        elif isinstance(last_idx, torch.Tensor) and last_idx.dim() == 1:
-            x_last = x[torch.arange(b, device=x.device), last_idx.long()]
-        else:
-            x_last = x[:, int(last_idx)]
-        x_last = _layer_norm(x_last, params["lnf_scale"], params["lnf_bias"])
-        return caches, _head_logits(x_last, _w(params, "head", x_last.dtype))
+        return caches, _last_row_logits(
+            params, x, tp - 1 if last_idx is None else last_idx,
+            rowwise_head)
 
     return forward_one, init_caches, prefill, cast_params
 

@@ -45,6 +45,7 @@ from deeplearning4j_tpu_torch.device import resolve_device, upload
 from deeplearning4j_tpu_torch.nlp.sentence_iterator import SentenceIterator
 from deeplearning4j_tpu_torch.nlp.tokenization import DefaultTokenizer
 from deeplearning4j_tpu_torch.nlp.vocab import VocabCache
+from deeplearning4j_tpu_torch.ops import threefry
 from deeplearning4j_tpu_torch.ops.emb_dot import MAX_EXP, fused_hs_rows
 
 
@@ -321,6 +322,15 @@ class _PairBuffer:
             self.count += len(ins)
 
 
+def _init_table(seed: int, shape, device) -> torch.Tensor:
+    """``(jax.random.uniform(key(seed), shape) - 0.5) / D`` bit for bit:
+    the threefry bits drawn on ``device`` (integer math), and the division
+    by a device scalar (CUDA divides by a host number as a product with its
+    reciprocal, which rounds otherwise)."""
+    u = threefry.uniform(threefry.key(seed), shape, device=device)
+    return (u - 0.5) / torch.full((), float(shape[-1]), device=u.device)
+
+
 class Word2Vec:
     """Skip-gram embeddings on ``device`` (``cuda`` unless the caller names
     another; raises without a card)."""
@@ -372,13 +382,11 @@ class Word2Vec:
             self._table = self.cache.unigram_table()
 
     def reset_weights(self) -> None:
-        """syn0 uniform in [-0.5, 0.5) / D from the port's own generator
-        (seeded with ``seed``; the reference draws from ``jax.random``),
-        syn1 and syn1neg zero."""
+        """syn0 = (uniform(key(seed), (V, D)) - 0.5) / D, the reference's
+        table bit for bit (``jax.random.uniform`` through the port's
+        threefry, drawn on the model's device), syn1 and syn1neg zero."""
         v, d = len(self.cache), self.layer_size
-        gen = torch.Generator().manual_seed(self.seed)
-        self.syn0 = ((torch.rand((v, d), generator=gen) - 0.5) / d).to(
-            self.device)
+        self.syn0 = _init_table(self.seed, (v, d), self.device)
         self.syn1 = torch.zeros((max(v - 1, 1), d), device=self.device)
         self.syn1neg = torch.zeros((v, d), device=self.device)
 

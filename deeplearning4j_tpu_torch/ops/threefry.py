@@ -170,19 +170,22 @@ def fold_in(k, data: int) -> Key:
     return threefry2x32(k0, k1, 0, int(data) & _M32)
 
 
-def random_bits(k, shape) -> torch.Tensor:
+def random_bits(k, shape, device=None) -> torch.Tensor:
     """``jax.random.bits(k, shape)`` (32-bit, in int64): ``bits1 ^ bits2``
-    over the row-major flat index as counter."""
+    over the row-major flat index as counter, computed on ``device`` (the
+    CPU by default; integer math, the same bits anywhere)."""
     shape = ((int(shape),) if np.isscalar(shape)
              else tuple(int(s) for s in shape))
     n = int(np.prod(shape, dtype=np.int64))
-    return random_bits_rows(torch.tensor([as_key(k)]), n).reshape(shape)
+    keys = torch.tensor([as_key(k)], dtype=torch.int64, device=device)
+    return random_bits_rows(keys, n).reshape(shape)
 
 
-def uniform(k, shape, minval: float = 0.0, maxval: float = 1.0
-            ) -> torch.Tensor:
-    """``jax.random.uniform(k, shape, float32, minval, maxval)``."""
-    return uniform_from_bits(random_bits(k, shape), minval, maxval)
+def uniform(k, shape, minval: float = 0.0, maxval: float = 1.0,
+            device=None) -> torch.Tensor:
+    """``jax.random.uniform(k, shape, float32, minval, maxval)`` on
+    ``device`` (the CPU by default)."""
+    return uniform_from_bits(random_bits(k, shape, device), minval, maxval)
 
 
 def _row_keys(logits, keys, pos):

@@ -1,6 +1,7 @@
 """Continuous-batching serving for the port: slot and block-paged pools,
-the prefix cache, scheduler, engine, the grammar and sampling surface,
-fault injection, tenancy, metrics and the HTTP server."""
+the prefix cache, scheduler (generation and embedding requests), engine,
+persisted probe verdicts, the grammar and sampling surface, fault
+injection, tenancy, metrics and the HTTP server."""
 
 from deeplearning4j_tpu_torch.serving.cache_pool import (
     KVSlotPool,
@@ -21,9 +22,11 @@ from deeplearning4j_tpu_torch.serving.grammar import (
 )
 from deeplearning4j_tpu_torch.serving.metrics import ServingMetrics
 from deeplearning4j_tpu_torch.serving.prefix_cache import PrefixCache, Segment
+from deeplearning4j_tpu_torch.serving.probe_cache import ProbeCache
 from deeplearning4j_tpu_torch.serving.scheduler import (
     AdmissionError,
     Backpressure,
+    EmbeddingRequest,
     Request,
     RequestScheduler,
     RequestStatus,
@@ -36,9 +39,11 @@ from deeplearning4j_tpu_torch.serving.tenancy import (
 )
 
 __all__ = [
-    "AdmissionError", "Backpressure", "EngineCrash", "FaultInjector",
+    "AdmissionError", "Backpressure", "EmbeddingRequest", "EngineCrash",
+    "FaultInjector",
     "GrammarCache", "GrammarError", "GrammarTable", "KVSlotPool",
-    "PagedKVPool", "PermanentFault", "PrefixCache", "QuotaExceeded",
+    "PagedKVPool", "PermanentFault", "PrefixCache", "ProbeCache",
+    "QuotaExceeded",
     "Request", "RequestScheduler", "RequestStatus", "Segment",
     "ServingEngine", "ServingMetrics", "ServingServer", "StopMatcher",
     "TenantConfig", "TenantRegistry", "TransientFault",

@@ -163,9 +163,60 @@ deferred slots plus this round's plans); outcomes, tokens and rejections
 are labelled by tenant, and each tenant's p99-TPOT objective is declared to
 the metrics.
 
-Left for later slices: batched admission, the adaptive horizon, persisted
-probe verdicts, the flight recorder and tracer, KV wire import/export,
-embeddings and tensor parallelism.
+Batched admission (``batch_admission="auto"``, the reference's): the
+misses of one admission round that pad to the same bucket are prefilled by
+ONE program (``build_batch_prefill_program``: a batch of nb rows, nb the
+group size rounded up to a power of two, pad rows repeating row 0, so
+kernel #1 runs at BH = heads x nb), and the partial hits that share a
+(suffix bucket, cached length) by one chunk program over their gathered
+segments (``build_batch_hit_program``). Only groups of two or more batch;
+the rest run serially in admission order, and seating (hence the key
+split) stays in admission order. Each row lands at its slot in place. A
+probe (``_probe_batch_parity``) gates every geometry (kind, bucket,
+padded rows) once, at its first use: the batched program must give the
+serial path's device state bitwise (KV rows, logits, positions, budgets),
+or groups of that geometry stay serial. The reference probes one
+geometry; the port probes each, since a library may pick its matmul by
+the row count. Paged engines stay serial, as in the reference.
+
+Adaptive horizon (``adaptive_horizon=True``): while the scheduler holds
+requests, horizons are dispatched at K = 1 (the next admission boundary
+one substep away); the configured K returns when the queue drains.
+Deferred piggyback admissions hold a slot already and are not queue
+pressure. The stopping rule is per substep, so streams do not depend on
+K; ``decode_horizon_current`` is the K of the last dispatch.
+
+Embeddings (``embedders``, name -> an object with
+``get_word_vector(word)``): an :class:`~.scheduler.EmbeddingRequest` rides
+the queue with generation and is served on the host at the admission
+boundary (no slot, no device dispatch; admissible with every slot taken),
+with its metrics, trace instant and log line.
+
+Persisted probe verdicts (``probe_cache``, a path or a
+:class:`~.probe_cache.ProbeCache`, only when given: the reference's
+``DL4J_TPU_PROBE_CACHE`` default is not read, since its test suite points
+it at one file for its own engines): every parity probe goes through
+``_probe_verdict``, keyed by the probe, the model config, the stack
+(torch, CUDA, device name, kernel sources) and the probe's geometry;
+``probes_run`` and ``probes_from_cache`` name which probes ran and which
+were read.
+
+Observability (the reference's): ``tracer`` (a disabled
+:class:`~..obs.trace.Tracer` by default: one attribute check a call)
+records the request lifecycle on the engine, scheduler and slot tracks;
+``flight`` (a :class:`~..obs.flight.FlightRecorder`, on by default: one
+``deque.append`` an admission and a horizon) keeps the recent events for
+a postmortem; ``attribution`` prices each program family
+(``_attr``/``_flush_attr``) from its dispatch call to the horizon readback
+that proves it complete, a host-clock upper bound with no sync of its
+own, in ``metrics.record_program``; ``profile`` (a
+:class:`~..obs.profiler.ProfileTrigger`) brackets every ``step()`` that
+has work (an idle server loop's polls are no engine steps). Probes and
+recovery replay count toward none of it. Log lines are
+:func:`~..obs.logs.log_event` records with the reference's event names.
+
+Left for later slices: KV wire import/export (and its tracer tracks) and
+tensor parallelism.
 """
 
 from __future__ import annotations
@@ -193,6 +244,16 @@ from deeplearning4j_tpu_torch.models.transformer import (
     paged_slot_scatter,
     params_to,
 )
+from deeplearning4j_tpu_torch.obs.flight import FlightRecorder
+from deeplearning4j_tpu_torch.obs.logs import log_event
+from deeplearning4j_tpu_torch.obs.profiler import ProfileTrigger
+from deeplearning4j_tpu_torch.obs.trace import (
+    ENGINE_TRACK,
+    SCHEDULER_TRACK,
+    Tracer,
+    new_span_id,
+    slot_track,
+)
 from deeplearning4j_tpu_torch.ops import threefry
 from deeplearning4j_tpu_torch.serving.cache_pool import KVSlotPool, PagedKVPool
 from deeplearning4j_tpu_torch.serving.faults import (
@@ -213,6 +274,7 @@ from deeplearning4j_tpu_torch.serving.grammar import (
 )
 from deeplearning4j_tpu_torch.serving.metrics import ServingMetrics
 from deeplearning4j_tpu_torch.serving.prefix_cache import PrefixCache, Segment
+from deeplearning4j_tpu_torch.serving.probe_cache import ProbeCache, probe_key
 from deeplearning4j_tpu_torch.serving.scheduler import (
     AdmissionError,
     Backpressure,
@@ -527,6 +589,58 @@ def build_chunk_program(fwd_chunk):
     return chunk
 
 
+def _land_rows(caches, logits, pos, active, budget, eos, tmp, lg, slots,
+               pos0, max_new, eos_toks):
+    """Land the first ``len(slots)`` rows of a batch's scratch slab and
+    logits at their slots and seat each slot's state, in place (pad rows
+    past them are dropped: each slot is written once)."""
+    n = slots.shape[0]
+    kv_map(lambda c, t: c.index_copy_(2, slots, t[:, :, :n]), caches, tmp)
+    logits.index_copy_(0, slots, lg[:n])
+    pos.index_copy_(0, slots, pos0)
+    active.index_fill_(0, slots, True)
+    budget.index_copy_(0, slots, max_new)
+    eos.index_copy_(0, slots, eos_toks)
+
+
+def build_batch_prefill_program(do_prefill, init_caches, max_total: int):
+    """BATCHED admission prefill (the reference's, engine.py:743): the
+    (nb, bucket) padded prompts of one group prefilled by one program into
+    an nb-row scratch slab (kernel #1 at BH = heads x nb, a vector
+    ``last_idx``; the head product row by row, at the batch-1 path's M 1),
+    then each real row's slab, logits row and state landed at its slot. ``slots``, ``pos0``, ``max_new``, ``eos_toks`` are (n,)
+    for the n <= nb real rows; ``adapters`` (nb,) LoRA rows or None."""
+
+    def bprefill(params, caches, logits, pos, active, budget, eos, prompts,
+                 last_idx, slots, pos0, max_new, eos_toks, adapters=None):
+        tmp = init_caches(prompts.shape[0], max_total, prompts.device)
+        _, lg = do_prefill(params, tmp, prompts, last_idx=last_idx,
+                           adapter=adapters, rowwise_head=True)
+        _land_rows(caches, logits, pos, active, budget, eos, tmp, lg, slots,
+                   pos0, max_new, eos_toks)
+
+    return bprefill
+
+
+def build_batch_hit_program(fwd_chunk):
+    """BATCHED partial-hit admission (the reference's, engine.py:781) for
+    requests sharing a cached length ``p0`` and a one-window suffix
+    bucket: one gather of each row's segment slab from the region, one
+    ``forward_chunk`` at ``p0`` over every suffix (vector ``last_idx``),
+    and each real row landed at its slot."""
+
+    def bhit(params, caches, logits, pos, active, budget, eos, region,
+             seg_idx, toks, p0: int, last_idx, slots, posf, max_new,
+             eos_toks, adapters=None):
+        tmp = kv_map(lambda r: r.index_select(2, seg_idx), region)
+        lg, tmp = fwd_chunk(params, tmp, toks, p0, last_idx=last_idx,
+                            adapter=adapters, rowwise_head=True)
+        _land_rows(caches, logits, pos, active, budget, eos, tmp, lg, slots,
+                   posf, max_new, eos_toks)
+
+    return bhit
+
+
 class _SlotState:
     """Host-side record for one occupied slot: what replay rebuilds it
     from."""
@@ -559,7 +673,7 @@ class _AdmitPlan:
     source segment, ``matched`` the reused rows)."""
 
     __slots__ = ("req", "slot", "kind", "seg", "matched", "handled",
-                 "prefill_s")
+                 "prefill_s", "t_pf")
 
     def __init__(self, req: Request, slot: int):
         self.req = req
@@ -571,6 +685,7 @@ class _AdmitPlan:
         # (recover() requeues the deferred ones)
         self.handled = False
         self.prefill_s = 0.0
+        self.t_pf = 0.0  # its prefill's start (the tracer's span)
 
 
 class _PendingPrefill:
@@ -608,6 +723,14 @@ def _leaves(tree) -> list[torch.Tensor]:
     if isinstance(tree, torch.Tensor):
         return [tree]
     return [t for k in sorted(tree) for t in _leaves(tree[k])]
+
+
+def _pow2(n: int) -> int:
+    """The smallest power of two >= n: a batched group's padded rows."""
+    nb = 1
+    while nb < n:
+        nb *= 2
+    return nb
 
 
 def _eos_of(req: Request) -> int:
@@ -648,6 +771,14 @@ class ServingEngine:
     without the bank); ``tenancy`` (a :class:`TenantRegistry`) serves
     tenants (see the module doc; a caller's own ``scheduler`` should carry
     the same registry).
+
+    ``batch_admission`` ("auto" behind its probe, True, False) coalesces
+    same-bucket admissions; ``adaptive_horizon`` drops K to 1 while
+    requests wait; ``embedders`` serves embedding lookups; ``probe_cache``
+    persists probe verdicts; ``metrics`` (a :class:`ServingMetrics`) and
+    ``results_cap`` (finished streams kept) as in the reference;
+    ``tracer``, ``flight``, ``attribution`` and ``profile`` are the
+    observability hooks (see the module doc).
     """
 
     def __init__(
@@ -661,17 +792,27 @@ class ServingEngine:
         top_k: int | None = None,
         approx_top_k: bool = False,
         decode_horizon: int = 1,
+        adaptive_horizon: bool = False,
         prefill_max_bucket: int = PREFILL_MAX_BUCKET,
         chunked_replay: bool | str = "auto",
+        batch_admission: bool | str = "auto",
         prefix_cache: bool = False,
         prefix_cache_tokens: int | None = None,
         prefix_affinity_tokens: int = 0,
         scheduler: RequestScheduler | None = None,
+        metrics: ServingMetrics | None = None,
         rng_seed: int = 0,
         faults: FaultInjector | None = None,
         max_retries: int = 3,
         retry_backoff_s: float = 0.01,
         max_backoff_s: float = 0.25,
+        results_cap: int = RESULTS_CAP,
+        tracer: Tracer | None = None,
+        flight: FlightRecorder | None = None,
+        attribution: bool = True,
+        profile: ProfileTrigger | None = None,
+        probe_cache: str | ProbeCache | None = None,
+        embedders=None,
         device=None,
         paged: bool = False,
         block_size: int | None = None,
@@ -694,10 +835,36 @@ class ServingEngine:
         self.temperature = temperature
         self.top_k = top_k
         self.decode_horizon = max(1, int(decode_horizon))
+        self.adaptive_horizon = bool(adaptive_horizon)
+        self.decode_horizon_current = self.decode_horizon
         if chunked_replay not in ("auto", True, False):
             raise ValueError(f'chunked_replay is "auto", True or False, got '
                              f'{chunked_replay!r}')
+        if batch_admission not in ("auto", True, False):
+            raise ValueError(f'batch_admission is "auto", True or False, '
+                             f'got {batch_admission!r}')
         self.chunked_replay = chunked_replay
+        self.batch_admission = batch_admission
+        self.results_cap = int(results_cap)
+        # attribution is armed at the END of construction (probes never
+        # count); _attr_suspend re-suspends it for runtime probes and
+        # recovery replay
+        self._attr_enabled = False
+        self._attr_suspend = 0
+        self._pending_attr: list[tuple[str, float]] = []
+        # on by default: a postmortem must exist before the incident
+        self.flight = flight if flight is not None else FlightRecorder()
+        # off by default: every record call is one attribute check
+        self.tracer = tracer if tracer is not None else Tracer(enabled=False)
+        self.profile = profile
+        self.embedders = dict(embedders or {})
+        self._probe_cache = (
+            probe_cache if isinstance(probe_cache, ProbeCache)
+            else ProbeCache(probe_cache) if probe_cache else None)
+        #: which probes dispatched on this engine and which were read
+        self.probes_run: list[str] = []
+        self.probes_from_cache: list[str] = []
+        self._steps = 0
         self.faults = faults
         self.max_retries = max_retries
         self.retry_backoff_s = retry_backoff_s
@@ -729,14 +896,19 @@ class ServingEngine:
             tpad = _kv_planes(init_caches(
                 1, self.max_total, torch.device("meta")))[0].shape[3]
             if self._block_size > tpad or tpad % self._block_size:
-                _log.warning("paged_disabled_bad_block_size block_size=%d "
-                             "tpad=%d", self._block_size, tpad)
-            elif (paged_parity is True
-                  or self._probe_paged_parity(self._block_size)):
+                log_event(_log, "paged_disabled_bad_block_size",
+                          level=logging.WARNING,
+                          block_size=self._block_size, tpad=tpad)
+            elif (paged_parity is True or self._probe_verdict(
+                    "paged_parity",
+                    lambda: self._probe_paged_parity(self._block_size),
+                    block_size=self._block_size, n_slots=n_slots,
+                    max_total=self.max_total, tpad=tpad, tp=1)):
                 self._paged = True
             else:
-                _log.warning("paged_parity_probe_failed block_size=%d",
-                             self._block_size)
+                log_event(_log, "paged_parity_probe_failed",
+                          level=logging.WARNING,
+                          block_size=self._block_size)
         if self._paged:
             self.pool = PagedKVPool(cfg, n_slots, self.max_total,
                                     self.device,
@@ -751,12 +923,15 @@ class ServingEngine:
         )
         if self.scheduler.max_total_tokens is None:
             self.scheduler.max_total_tokens = self.max_total
-        self.metrics = ServingMetrics()
+        self.metrics = metrics if metrics is not None else ServingMetrics()
         self.metrics.decode_horizon = self.decode_horizon
         if self.n_adapters and lora_parity is not True:
-            if not self._probe_lora_zero():
-                _log.warning("lora_parity_probe_failed n_adapters=%d",
-                             self.n_adapters)
+            if not self._probe_verdict(
+                    "lora_zero", self._probe_lora_zero,
+                    n_adapters=self.n_adapters, tp=1,
+                    max_total=self.max_total):
+                log_event(_log, "lora_parity_probe_failed",
+                          level=logging.WARNING, n_adapters=self.n_adapters)
                 self.params = {k: v for k, v in self.params.items()
                                if k != "lora"}
                 self.n_adapters = 0
@@ -772,11 +947,18 @@ class ServingEngine:
         self._max_bucket = mb
         self._min_bucket = min(8, mb)
 
+        # the step program of the configured K (and, with the adaptive
+        # horizon, of K 1: _step_fn_for)
         self._step_fn = build_step_program(
             fwd1, self.decode_horizon, temperature, top_k, self.device)
+        self._step_fns: dict[int, object] = {}
         self._replay_fn = build_replay_program(fwd1)
         self._prefill_fn = build_prefill_program(do_prefill)
-        self._chunk_fn = build_chunk_program(_chunk_builder(cfg))
+        fwd_chunk = _chunk_builder(cfg)
+        self._chunk_fn = build_chunk_program(fwd_chunk)
+        self._batch_prefill_fn = build_batch_prefill_program(
+            do_prefill, init_caches, self.max_total)
+        self._batch_hit_fn = build_batch_hit_program(fwd_chunk)
         self._insert_fn = build_insert_program()
         self._deact_fn = build_deact_program()
         self._hit_insert_fn = build_hit_insert_program()
@@ -806,6 +988,8 @@ class ServingEngine:
         self.last_recover_mode: str | None = None
         self._chunked_ok: bool | None = None  # replay probe memo
         self._prefix_ok_memo: bool | None = None  # hit-path probe memo
+        #: the batch probe's verdict by (kind, bucket, padded rows)
+        self.batch_verdicts: dict[tuple[str, int, int], bool] = {}
         #: where the prefix probe's two paths first differ (or None)
         self.prefix_probe_detail: str | None = None
 
@@ -833,6 +1017,57 @@ class ServingEngine:
         self._register_gauges(piggyback)
         self._init_surface(sampling_surface, masked_parity, grammar_states,
                            grammar_cache, approx_top_k)
+        # arm attribution last: everything dispatched above was a probe
+        self._attr_enabled = bool(attribution)
+
+    # -- per-program-family attribution ------------------------------------
+
+    def _attr(self, family: str, t0: float | None = None) -> None:
+        """Mark one dispatched program for attribution: ``(family, its
+        dispatch stamp)`` joins the pending list, priced by
+        ``_flush_attr`` at the next horizon readback that proves it
+        complete (stream order). One check and one append; never a sync."""
+        if self._attr_enabled and not self._attr_suspend:
+            self._pending_attr.append(
+                (family, t0 if t0 is not None else time.perf_counter()))
+
+    def _flush_attr(self, t_horizon: float, now: float) -> None:
+        """Attribute every pending program dispatched no later than the
+        horizon just read back (``t_horizon`` its dispatch stamp): each
+        gets ``now - t0``, dispatch call to proven complete, an upper bound
+        that includes the host work it overlapped. The entries are in time
+        order (one engine thread), so this is a prefix flush."""
+        n = 0
+        for family, t0 in self._pending_attr:
+            if t0 > t_horizon:
+                break
+            self.metrics.record_program(family, now - t0)
+            n += 1
+        if n:
+            del self._pending_attr[:n]
+
+    # -- persisted probe verdicts ------------------------------------------
+
+    def _probe_verdict(self, name: str, compute, **geometry) -> bool:
+        """Gate one parity probe through the verdict cache (when
+        configured): a verdict persisted for the same (probe, config,
+        stack, geometry) skips the probe's dispatches; a fresh verdict is
+        computed and persisted. ``probes_run`` / ``probes_from_cache``
+        record which way each probe went."""
+        key = None
+        if self._probe_cache is not None:
+            key = probe_key(name, self.cfg.to_json(), device=self.device,
+                            **geometry)
+            v = self._probe_cache.get(key)
+            if v is not None:
+                self.probes_from_cache.append(name)
+                log_event(_log, "parity_probe_cached", probe=name, ok=v)
+                return v
+        v = bool(compute())
+        self.probes_run.append(name)
+        if self._probe_cache is not None:
+            self._probe_cache.put(key, v)
+        return v
 
     def _init_surface(self, requested: bool, masked_parity, grammar_states,
                       grammar_cache, approx_top_k: bool) -> None:
@@ -847,6 +1082,7 @@ class ServingEngine:
         self._n_logprobs = min(MAX_TOP_LOGPROBS, self.cfg.vocab_size)
         self._masked_fn = build_masked_step_program(
             self._fwd1, self.decode_horizon, self._n_logprobs)
+        self._masked_fns: dict[int, object] = {}
         self._gstate_set_fn = build_gstate_set_program()
         # device copies of the grammar table, uploaded when the host
         # table's version moves (seats happen between horizons)
@@ -863,14 +1099,23 @@ class ServingEngine:
         if approx_top_k:
             # the reference's rule: approx_max_k has no per-slot k form
             # with the same ties, so surface requests are rejected
-            _log.warning("sampling_surface_disabled reason=approx_top_k")
+            log_event(_log, "sampling_surface_disabled",
+                      level=logging.WARNING, reason="approx_top_k")
             return
         self._gtable = GrammarTable(max(2, int(grammar_states)),
                                     self.cfg.vocab_size)
-        if masked_parity is not True and not self._probe_masked_parity():
+        if masked_parity is not True and not self._probe_verdict(
+                "masked_parity", self._probe_masked_parity,
+                n_slots=self.n_slots, max_total=self.max_total,
+                max_bucket=self._max_bucket, tp=1, paged=self._paged,
+                piggyback=self._piggyback, temperature=self.temperature,
+                top_k=self.top_k, horizon=self.decode_horizon,
+                grammar_states=self._gtable.capacity,
+                n_logprobs=self._n_logprobs):
             self._gtable = None
-            _log.warning("masked_parity_probe_failed fallback=sampling "
-                         "surface disabled")
+            log_event(_log, "masked_parity_probe_failed",
+                      level=logging.WARNING,
+                      fallback="sampling surface disabled")
             return
         self._surface = True
         self._token_bytes = default_token_bytes(self.cfg.vocab_size)
@@ -886,6 +1131,14 @@ class ServingEngine:
         reg = self.metrics.registry
         reg.gauge("serve_queue_depth", "Queued requests.").set_function(
             lambda: len(self.scheduler))
+        reg.gauge("serve_kv_slots",
+                  "KV slot pool size (decode batch width).").set_function(
+            lambda: self.n_slots)
+        reg.gauge("serve_decode_horizon_current",
+                  "Decode substeps fused into the next horizon dispatch "
+                  "(shrinks to 1 under adaptive_horizon while the queue is "
+                  "non-empty).").set_function(
+            lambda: self.decode_horizon_current)
         reg.gauge("serve_lora_adapters",
                   "Rows in the batched-LoRA adapter bank (0 = base only; "
                   "row 0 is always the zero adapter).").set_function(
@@ -947,6 +1200,7 @@ class ServingEngine:
 
     def _on_prefix_evict(self, seg: Segment) -> None:
         self.metrics.record_prefix_eviction()
+        self.tracer.instant(ENGINE_TRACK, "prefix_evict", length=seg.length)
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         """A host array on the engine's device, pinned and non-blocking on
@@ -1034,13 +1288,24 @@ class ServingEngine:
         if req.uses_sampling_surface:
             self._check_surface_request(req)
         try:
-            return self.scheduler.submit(req)
+            rid = self.scheduler.submit(req)
         except Backpressure as e:
+            reason = ("quota" if isinstance(e, QuotaExceeded)
+                      else "backpressure")
             self.metrics.record_backpressure()
-            self.metrics.record_rejection(
-                "quota" if isinstance(e, QuotaExceeded) else "backpressure",
-                tenant=req.tenant_id)
+            self.metrics.record_rejection(reason, tenant=req.tenant_id)
+            self.tracer.instant(SCHEDULER_TRACK, "backpressure",
+                                req_id=req.id)
+            log_event(_log, "request_rejected", level=logging.DEBUG,
+                      req_id=req.id, reason=reason,
+                      tenant=req.tenant_id or None)
             raise
+        self.tracer.instant(SCHEDULER_TRACK, "submit", req_id=rid)
+        log_event(_log, "request_submitted", level=logging.DEBUG,
+                  req_id=rid, prompt_len=len(req.prompt),
+                  max_new=req.max_new, tenant=req.tenant_id or None,
+                  trace_id=req.trace_id or None)
+        return rid
 
     def _check_surface_request(self, req: Request) -> None:
         """Submit-time checks of a request that uses the sampling surface;
@@ -1116,7 +1381,7 @@ class ServingEngine:
         stream = np.concatenate([req.prompt, np.asarray(tokens, np.int32)])
         with self._results_lock:
             self._results[req.id] = stream
-            while len(self._results) > RESULTS_CAP:
+            while len(self._results) > self.results_cap:
                 self._results.pop(next(iter(self._results)))
 
     def _retire(self, slot: int, status: RequestStatus, now: float,
@@ -1155,6 +1420,12 @@ class ServingEngine:
         self._slot_adapters[slot] = 0
         if deactivate:
             self._dactive = self._deact_fn(self._dactive, slot)
+        self.tracer.instant(slot_track(slot), status.value, ts=now,
+                            req_id=req.id, n_tokens=len(st.tokens))
+        log_event(_log, "request_retired", req_id=req.id, slot=slot,
+                  status=status.value, n_tokens=len(st.tokens), error=error,
+                  tenant=req.tenant_id or None,
+                  trace_id=req.trace_id or None)
         if req.stream is not None:
             req.stream.put(None)  # end-of-stream sentinel
         if req.done is not None:
@@ -1166,8 +1437,44 @@ class ServingEngine:
         req.status = status
         req.error = error
         self.metrics.record_outcome(status, tenant=req.tenant_id)
+        self.tracer.instant(SCHEDULER_TRACK, status.value, req_id=req.id)
+        log_event(_log, "request_retired", req_id=req.id, slot=None,
+                  status=status.value, n_tokens=0, error=error,
+                  tenant=req.tenant_id or None,
+                  trace_id=req.trace_id or None)
         if req.stream is not None:
             req.stream.put(None)  # end-of-stream sentinel
+        if req.done is not None:
+            req.done.set()
+
+    def _serve_embedding(self, req, now: float) -> None:
+        """Serve an :class:`~.scheduler.EmbeddingRequest` on the host at
+        the admission boundary (the reference's, engine.py:2556): no KV
+        slot and no device dispatch, a table lookup, with the request's
+        whole lifecycle (scheduler pop, per-tenant metrics, trace, log,
+        ``done``)."""
+        t0 = time.perf_counter()
+        emb = self.embedders.get(req.model)
+        if emb is None:
+            req.status = RequestStatus.FAILED
+            req.error = (f"unknown embedding model {req.model!r} "
+                         f"(loaded: {sorted(self.embedders) or 'none'})")
+            self.metrics.record_outcome(RequestStatus.FAILED)
+        else:
+            vectors = {}
+            for w in req.words:
+                v = emb.get_word_vector(w)
+                vectors[w] = None if v is None else np.asarray(v)
+            req.result = vectors
+            req.status = RequestStatus.FINISHED
+            self.metrics.record_embedding(
+                req.model, len(req.words), time.perf_counter() - t0,
+                tenant=req.tenant_id)
+        self.tracer.instant(SCHEDULER_TRACK, "embedding", req_id=req.id,
+                            model=req.model, n_words=len(req.words))
+        log_event(_log, "request_retired", req_id=req.id, slot=None,
+                  status=req.status.value, n_tokens=0, error=req.error,
+                  tenant=req.tenant_id or None, kind="embedding")
         if req.done is not None:
             req.done.set()
 
@@ -1257,6 +1564,7 @@ class ServingEngine:
         if start == 0 and 0 < n <= self._max_bucket:
             pad = np.zeros((1, self._bucket_for(n)), np.int64)
             pad[0, :n] = seq
+            self._attr("paged_prefill" if self._paged else "prefill")
             slab, lg = self._prefill_fn(self.params, slab, self._upload(pad),
                                         n - 1, ad)
             self.prefill_dispatches += 1
@@ -1266,6 +1574,7 @@ class ServingEngine:
         for t0, ln, b in (self._chunk_schedule(n, start) if n else ()):
             pad = np.zeros((1, b), np.int64)
             pad[0, :ln] = seq[t0:t0 + ln]
+            self._attr("chunk")
             slab, lg = self._chunk_fn(self.params, slab, self._upload(pad),
                                       t0, ln - 1, ad)
             self.prefill_dispatches += 1
@@ -1326,11 +1635,46 @@ class ServingEngine:
         if self.prefix_cache is None:
             return False
         if self._prefix_ok_memo is None:
-            self._prefix_ok_memo = self._probe_prefix_parity()
-            if not self._prefix_ok_memo:
-                _log.warning("prefix_parity_probe_failed %s",
-                             self.prefix_probe_detail)
+            self._prefix_ok_memo = self._probe_verdict(
+                "prefix_reuse", self._probe_prefix_parity,
+                n_slots=self.n_slots, max_total=self.max_total,
+                min_bucket=self._min_bucket, tpad=self.pool.tpad, tp=1,
+                hit_grain=self._hit_grain)
+            log_event(_log, "prefix_parity_probe",
+                      level=(logging.INFO if self._prefix_ok_memo
+                             else logging.WARNING),
+                      ok=self._prefix_ok_memo,
+                      detail=self.prefix_probe_detail)
+            self.tracer.instant(ENGINE_TRACK, "prefix_parity_probe",
+                                ok=self._prefix_ok_memo)
         return self._prefix_ok_memo
+
+    def _batch_admission_ok(self, kind: str, bucket: int, nb: int) -> bool:
+        """Batched admission's gate for one program geometry: ``kind``
+        ("miss" or "hit"), the bucket and the padded row count. Off in
+        paged engines (their admissions land through the pool's tables
+        one slot at a time, as in the reference) and with
+        ``batch_admission=False``; True trusts the programs; "auto" asks
+        the probe once for each geometry, since a library may pick its
+        matmul by the row count and so round one geometry and not
+        another."""
+        if self._paged or self.batch_admission is False:
+            return False
+        if self.batch_admission is True:
+            return True
+        key = (kind, bucket, nb)
+        if key not in self.batch_verdicts:
+            ok = self._probe_verdict(
+                "batch_admission",
+                lambda: self._probe_batch_parity(kind, bucket, nb),
+                n_slots=self.n_slots, max_total=self.max_total,
+                tpad=self.pool.tpad, hit_grain=self._hit_grain, tp=1,
+                kind=kind, bucket=bucket, rows=nb)
+            self.batch_verdicts[key] = ok
+            log_event(_log, "batch_parity_probe", ok=ok, kind=kind,
+                      bucket=bucket, rows=nb)
+            self.tracer.instant(ENGINE_TRACK, "batch_parity_probe", ok=ok)
+        return self.batch_verdicts[key]
 
     def _classify_plan(self, pl: _AdmitPlan) -> None:
         """Prefix-cache lookup for one admission. A FULL hit (the whole
@@ -1361,6 +1705,9 @@ class ServingEngine:
         cache.pin(seg)
         self.metrics.record_prefix_lookup(
             "hit_full" if pl.kind == "full" else "hit_partial", pl.matched)
+        self.tracer.instant(slot_track(pl.slot), "prefix_hit",
+                            req_id=pl.req.id, kind=pl.kind,
+                            cached_tokens=pl.matched, prompt_len=n)
 
     def _paged_seg_slab(self, seg: Segment):
         """Paged segment fetch (the reference's
@@ -1447,6 +1794,8 @@ class ServingEngine:
             seg.partial_ok = n > self._max_bucket
             self._slots[pl.slot].segs.append(seg)
             self.metrics.record_prefix_insert()
+            self.tracer.instant(ENGINE_TRACK, "prefix_insert",
+                                req_id=pl.req.id, length=seg.length)
 
     def _paged_store_segment(self, seg: Segment, slot: int) -> bool:
         """Back a new segment with block references off the donor slot:
@@ -1489,9 +1838,32 @@ class ServingEngine:
         pl.handled = True
         req.status = RequestStatus.RUNNING
         self.metrics.record_prefill(pl.prefill_s)
-        if req.arrival_time is not None:
-            self.metrics.record_admitted(
-                time.perf_counter() - req.arrival_time, tenant=req.tenant_id)
+        delay = (time.perf_counter() - req.arrival_time
+                 if req.arrival_time is not None else None)
+        if delay is not None:
+            self.metrics.record_admitted(delay, tenant=req.tenant_id)
+            self.tracer.span(SCHEDULER_TRACK, "queued", req.arrival_time,
+                             delay, req_id=req.id)
+        # the admission span joins the caller's trace when the request
+        # carries one (its parent the upstream span)
+        tctx = {}
+        if self.tracer.enabled and req.trace_id:
+            tctx = {"trace_id": req.trace_id, "span_id": new_span_id()}
+            if req.parent_span_id:
+                tctx["parent_span_id"] = req.parent_span_id
+        self.tracer.span(slot_track(slot), "prefill", pl.t_pf, pl.prefill_s,
+                         req_id=req.id, prompt_len=len(req.prompt),
+                         prefix=pl.kind, cached_tokens=pl.matched, **tctx)
+        self.flight.record("admit", req_id=req.id, slot=slot,
+                           prompt_len=len(req.prompt), prefix=pl.kind,
+                           tenant=req.tenant_id or None,
+                           trace_id=req.trace_id or None)
+        log_event(_log, "request_admitted", req_id=req.id, slot=slot,
+                  prompt_len=len(req.prompt), queue_delay_s=delay,
+                  prefill_s=round(pl.prefill_s, 6), prefix=pl.kind,
+                  cached_tokens=pl.matched, tenant=req.tenant_id or None,
+                  adapter=req.adapter or None,
+                  trace_id=req.trace_id or None)
 
     def _split_key(self) -> threefry.Key:
         """``self._key, sub = split(self._key)``; returns ``sub``."""
@@ -1528,8 +1900,8 @@ class ServingEngine:
                 req.error = str(e)
                 req.cancel()
                 self._dactive = self._deact_fn(self._dactive, slot)
-                _log.warning("grammar_seat_failed req_id=%s error=%s",
-                             req.id, e)
+                log_event(_log, "grammar_seat_failed", level=logging.WARNING,
+                          req_id=req.id, error=str(e))
         st.gstate0 = int(start)
         self._slot_gstate[slot] = start
         self._dgstate = self._gstate_set_fn(self._dgstate, slot, int(start))
@@ -1582,12 +1954,14 @@ class ServingEngine:
         return self._dmask_tab, self._dtrans_tab
 
     def _admissible_fn(self):
-        """The admission gate: paged, a request's blocks, beyond those this
-        round already promised, fit the free heap — after handing cached
-        prefix blocks back (live traffic outranks cached prefixes); with
-        tenancy, its tenant holds fewer than ``max_slots`` slots (live and
-        deferred ones plus this round's plans). Returns (gate or None, the
-        promised-blocks counter, the per-tenant slot counts)."""
+        """The admission gate: an embedding request always passes (it
+        takes no slot); any other needs a free slot; paged, its blocks,
+        beyond those this round already promised, fit the free heap —
+        after handing cached prefix blocks back (live traffic outranks
+        cached prefixes); with tenancy, its tenant holds fewer than
+        ``max_slots`` slots (live and deferred ones plus this round's
+        plans). Returns (gate, the promised-blocks counter, the per-tenant
+        slot counts)."""
         reserved = [0]
         used: dict[str, int] = {}
         if self.tenancy is not None:
@@ -1595,10 +1969,12 @@ class ServingEngine:
             held += [rec.plan.req for rec in self._pending]
             for r in held:
                 used[r.tenant_id] = used.get(r.tenant_id, 0) + 1
-        if not self._paged and self.tenancy is None:
-            return None, reserved, used
 
         def admissible(r: Request) -> bool:
+            if r.kind == "embedding":
+                return True
+            if not self.pool.n_free:
+                return False
             if self._paged:
                 need = self.pool.blocks_needed(len(r.prompt) + r.max_new)
                 while need + reserved[0] > self.pool.n_free_blocks:
@@ -1620,14 +1996,16 @@ class ServingEngine:
         then execute. A failure mid-round requeues every plan not yet
         seated, in order, with its slot and segment pin released: no popped
         request is dropped."""
-        if not (self.pool.n_free and len(self.scheduler)):
+        if not len(self.scheduler):
+            return
+        if not (self.pool.n_free or self.scheduler.has_kind("embedding")):
             return
         self._admitting += 1
         plans: list[_AdmitPlan] = []
         admissible, reserved, used = self._admissible_fn()
         try:
             hint = None
-            while self.pool.n_free and len(self.scheduler):
+            while len(self.scheduler):
                 req = self.scheduler.pop(affinity_hint=hint,
                                          admissible=admissible)
                 if req is None:
@@ -1638,6 +2016,9 @@ class ServingEngine:
                 if req.expired(now):
                     self._retire_unadmitted(req, RequestStatus.EXPIRED)
                     continue
+                if req.kind == "embedding":
+                    self._serve_embedding(req, now)
+                    continue
                 plans.append(_AdmitPlan(req, self.pool.acquire()))
                 used[req.tenant_id] = used.get(req.tenant_id, 0) + 1
                 if self._paged:
@@ -1646,6 +2027,8 @@ class ServingEngine:
                 # affinity helps adapter-0 traffic only (no other adapter
                 # reuses cached segments)
                 hint = req.prompt if req.adapter == 0 else None
+            if not plans:
+                return
             for pl in plans:
                 self._classify_plan(pl)
             self._execute_plans(plans)
@@ -1695,8 +2078,11 @@ class ServingEngine:
                     deferred.add(id(pl))
         occupied = any(st is not None for st in self._slots)
         t_exec = time.perf_counter()
+        batched = self._run_batched_groups(
+            [pl for pl in live if id(pl) not in deferred])
+        # the serial remainder, in admission order
         for pl in live:
-            if id(pl) in deferred:
+            if id(pl) in deferred or id(pl) in batched:
                 continue
             t0 = time.perf_counter()
             if pl.kind == "full":
@@ -1707,7 +2093,7 @@ class ServingEngine:
                 self._prefill_seq_into_slot(pl.req.prompt, pl.slot,
                                             pl.req.max_new, _eos_of(pl.req),
                                             pl.req.adapter)
-            pl.prefill_s = time.perf_counter() - t0
+            pl.t_pf, pl.prefill_s = t0, time.perf_counter() - t0
         # admission prefill run while slots decode is the stall piggyback
         # bounds; measured with it on and off
         if occupied:
@@ -1719,6 +2105,95 @@ class ServingEngine:
         for pl in live:
             if id(pl) not in deferred:
                 self._maybe_insert_prefix(pl)
+
+    # -- batched admission -------------------------------------------------------
+
+    def _run_batched_groups(self, plans: list[_AdmitPlan]) -> set[int]:
+        """Coalesce what can share a dispatch (the reference's grouping,
+        engine.py:4441): misses of at most one bucket keyed by their
+        bucket, partial hits whose suffix is one window keyed by (bucket,
+        cached length). Groups of two or more run batched, buckets in
+        ascending order; returns the ids of the plans they admitted."""
+        batched: set[int] = set()
+        if len(plans) < 2 or self._paged or self.batch_admission is False:
+            return batched
+        miss: dict[int, list[_AdmitPlan]] = {}
+        hit: dict[tuple[int, int], list[_AdmitPlan]] = {}
+        for pl in plans:
+            n = len(pl.req.prompt)
+            if pl.kind == "miss" and 0 < n <= self._max_bucket:
+                miss.setdefault(self._bucket_for(n), []).append(pl)
+            elif pl.kind == "partial":
+                sfx = n - pl.matched
+                if sfx <= self._max_bucket:
+                    b = self._bucket_for(sfx)
+                    if pl.matched + b <= self.pool.tpad:
+                        hit.setdefault((b, pl.matched), []).append(pl)
+        groups = ([("miss", self._batch_prefill_group, (b,), g)
+                   for b, g in sorted(miss.items())]
+                  + [("hit", self._batch_hit_group, key, g)
+                     for key, g in sorted(hit.items())])
+        for kind, fn, key, group in groups:
+            if len(group) < 2 or not self._batch_admission_ok(
+                    kind, key[0], _pow2(len(group))):
+                continue
+            t0 = time.perf_counter()
+            fn(*key, group)
+            dt = (time.perf_counter() - t0) / len(group)
+            for pl in group:
+                pl.t_pf, pl.prefill_s = t0, dt
+                batched.add(id(pl))
+        return batched
+
+    def _group_rows(self, group: list[_AdmitPlan]):
+        """The group's rows padded to a power of two (pad rows repeat the
+        first plan: kernel #1 and the products run at a few shapes) and
+        its real rows' slots, positions, budgets, EOS ids and LoRA rows."""
+        rows = group + [group[0]] * (_pow2(len(group)) - len(group))
+        adapters = np.array([pl.req.adapter for pl in rows], np.int32)
+        up = self._upload
+        return (rows,
+                up(np.array([pl.slot for pl in group], np.int64)),
+                up(np.array([len(pl.req.prompt) for pl in group], np.int32)),
+                up(np.array([pl.req.max_new for pl in group], np.int32)),
+                up(np.array([_eos_of(pl.req) for pl in group], np.int32)),
+                up(adapters) if adapters.any() else None)
+
+    def _batch_prefill_group(self, bucket: int,
+                             group: list[_AdmitPlan]) -> None:
+        """One program admits every miss in ``group`` (all padding to
+        ``bucket``)."""
+        rows, slots, pos0, max_new, eos, adapters = self._group_rows(group)
+        prompts = np.zeros((len(rows), bucket), np.int64)
+        for r, pl in enumerate(rows):
+            prompts[r, :len(pl.req.prompt)] = pl.req.prompt
+        last_idx = np.array([len(pl.req.prompt) - 1 for pl in rows],
+                            np.int64)
+        self.prefill_dispatches += 1
+        self._attr("batch_prefill")
+        self._batch_prefill_fn(self.params, *self._state(),
+                               self._upload(prompts), self._upload(last_idx),
+                               slots, pos0, max_new, eos, adapters)
+        self.metrics.record_batched_admissions(len(group))
+
+    def _batch_hit_group(self, bucket: int, L: int,
+                         group: list[_AdmitPlan]) -> None:
+        """One program admits every partial hit in ``group`` (cached
+        length ``L``, a one-window suffix padding to ``bucket``)."""
+        rows, slots, pos0, max_new, eos, adapters = self._group_rows(group)
+        toks = np.zeros((len(rows), bucket), np.int64)
+        for r, pl in enumerate(rows):
+            toks[r, :len(pl.req.prompt) - L] = pl.req.prompt[L:]
+        seg_idx = np.array([pl.seg.slot for pl in rows], np.int64)
+        last_idx = np.array([len(pl.req.prompt) - L - 1 for pl in rows],
+                            np.int64)
+        self.prefill_dispatches += 1
+        self._attr("batch_hit")
+        self._batch_hit_fn(self.params, *self._state(),
+                           self.prefix_cache.region, self._upload(seg_idx),
+                           self._upload(toks), L, self._upload(last_idx),
+                           slots, pos0, max_new, eos, adapters)
+        self.metrics.record_batched_admissions(len(group))
 
     # -- piggyback -------------------------------------------------------------
 
@@ -1739,22 +2214,35 @@ class ServingEngine:
             slab = self._seg_fetch_fn(self.prefix_cache.region, pl.seg.slot)
         else:
             slab = self._init_caches(1, self.max_total, self.device)
-        self._pending.append(_PendingPrefill(
+        rec = _PendingPrefill(
             pl, deque(self._chunk_schedule(len(req.prompt), start=L)), slab,
-            time.perf_counter()))
+            time.perf_counter())
+        self._pending.append(rec)
         pl.handled = True
+        self.flight.record("piggyback", phase="defer", req_id=req.id,
+                           slot=pl.slot, suffix_tokens=len(req.prompt) - L,
+                           n_chunks=len(rec.chunks))
+        self.tracer.instant(slot_track(pl.slot), "piggyback_defer",
+                            req_id=req.id, suffix_tokens=len(req.prompt) - L)
+        log_event(_log, "piggyback_defer", req_id=req.id, slot=pl.slot,
+                  prompt_len=len(req.prompt), cached_tokens=L,
+                  n_chunks=len(rec.chunks), tenant=req.tenant_id or None)
 
     def _run_pending_chunk(self, rec: _PendingPrefill) -> int:
         """Run the head chunk of ``rec``; returns its real tokens."""
         t0, ln, b = rec.chunks[0]
         pad = np.zeros((1, b), np.int64)
         pad[0, :ln] = rec.plan.req.prompt[t0:t0 + ln]
+        self._attr("chunk")
         rec.slab, rec.lg = self._chunk_fn(
             self.params, rec.slab, self._upload(pad), t0, ln - 1,
             self._adapter_row(rec.plan.req.adapter))
         rec.chunks.popleft()
         self.prefill_dispatches += 1
         self.metrics.record_prefill_chunk(ln)
+        self.flight.record("piggyback", phase="chunk", req_id=rec.plan.req.id,
+                           slot=rec.plan.slot, chunk_tokens=ln, fused=False,
+                           remaining=len(rec.chunks))
         return ln
 
     def _complete_pending(self, rec: _PendingPrefill) -> None:
@@ -1771,9 +2259,12 @@ class ServingEngine:
         self.pool.write_slab(pl.slot, rec.slab, start=start)
         self._insert_fn(*self._state(), rec.lg, pl.slot, len(req.prompt),
                         req.max_new, _eos_of(req))
+        pl.t_pf = rec.t_start
         pl.prefill_s = time.perf_counter() - rec.t_start
         self._seat(pl)
         self._maybe_insert_prefix(pl)
+        self.flight.record("piggyback", phase="seated", req_id=req.id,
+                           slot=pl.slot, prefill_s=round(pl.prefill_s, 6))
 
     def _advance_piggyback(self, decoding: bool) -> None:
         """Spend up to ``prefill_budget`` chunk tokens on the deferred FIFO,
@@ -1957,6 +2448,7 @@ class ServingEngine:
             # hit, a copy of the same prompt's rows, and nothing computes
             return True
         disp = self.prefill_dispatches
+        self._attr_suspend += 1  # probes count toward no attribution
         try:
             vs = self.cfg.vocab_size
             seq = ((1 + np.arange(n)) % vs).astype(np.int32)
@@ -1995,6 +2487,93 @@ class ServingEngine:
             return True
         finally:
             self.prefill_dispatches = disp
+            self._attr_suspend -= 1
+
+    def _scratch_state(self, n: int):
+        """A zeroed decode state of ``n`` slots (caches, logits, positions,
+        active bits, budgets, EOS ids) for a probe."""
+        dev = self.device
+        return (self._init_caches(n, self.max_total, dev),
+                torch.zeros((n, self.cfg.vocab_size), dtype=torch.float32,
+                            device=dev),
+                torch.zeros((n,), dtype=torch.int32, device=dev),
+                torch.zeros((n,), dtype=torch.bool, device=dev),
+                torch.zeros((n,), dtype=torch.int32, device=dev),
+                torch.full((n,), _NO_EOS, dtype=torch.int32, device=dev))
+
+    @staticmethod
+    def _states_equal(a, b) -> bool:
+        """Two scratch states bitwise equal, every leaf."""
+        return (all(torch.equal(x, y)
+                    for x, y in zip(_leaves(a[0]), _leaves(b[0])))
+                and all(torch.equal(x, y) for x, y in zip(a[1:], b[1:])))
+
+    @torch.no_grad()
+    def _probe_batch_parity(self, kind: str, bucket: int, nb: int) -> bool:
+        """Probe gating one geometry of batched admission (the reference's
+        ``_probe_batch_parity``, engine.py:3426, at every geometry the
+        engine runs): do ``nb`` rows through the batched program give
+        bitwise the device state (KV rows, logits rows, positions, active
+        bits, budgets, EOS ids) that the serial path gives row by row?
+        ``kind`` "miss": prompts of bucket ``bucket`` through the batched
+        prefill against each one's bucketed prefill; "hit": suffixes of
+        bucket ``bucket`` behind one cached prefix of the hit grain
+        through the batched hit program against each one's chunk window.
+        Runs on scratch state; a live engine's slots are untouched. A
+        geometry no request can take (too long for the slots) is
+        declined."""
+        L = self._hit_grain if kind == "hit" else 0
+        if (self.n_slots < 2 or bucket < 2 or L + bucket > self.max_total
+                or L + bucket > self.pool.tpad):
+            return False
+        if kind == "hit" and (self.prefix_cache is None
+                              or not self._prefix_reuse_ok()):
+            return False
+        disp = self.prefill_dispatches
+        self._attr_suspend += 1  # probes count toward no attribution
+        try:
+            vs, up, dev = self.cfg.vocab_size, self._upload, self.device
+            # nb suffixes of distinct lengths, all padding to ``bucket``
+            lens = [max(bucket - r, bucket // 2 + 1, 1) for r in range(nb)]
+            prefix = ((3 + np.arange(L)) % vs).astype(np.int32)
+            seqs = [np.concatenate([prefix, ((1 + r + np.arange(n)) % vs)
+                                    .astype(np.int32)])
+                    for r, n in enumerate(lens)]
+            region = None
+            if kind == "hit":
+                donor = self._init_caches(1, self.max_total, dev)
+                self._compute_rows(donor, prefix)
+                region = self.pool.alloc_region(1)
+                self._seg_store_fn(region, donor, 0, 0)
+            serial = self._scratch_state(nb)
+            for slot, seq in enumerate(seqs):
+                slab = (self._seg_fetch_fn(region, 0) if kind == "hit"
+                        else self._init_caches(1, self.max_total, dev))
+                lg = self._compute_rows(slab, seq, start=L)
+                kv_map(lambda c, t: c[:, :, slot:slot + 1].copy_(t),
+                       serial[0], slab)
+                self._insert_fn(*serial, lg, slot, len(seq), 2 + slot,
+                                _NO_EOS)
+            toks = np.zeros((nb, bucket), np.int64)
+            for r, seq in enumerate(seqs):
+                toks[r, :len(seq) - L] = seq[L:]
+            last = up(np.array([len(q) - L - 1 for q in seqs], np.int64))
+            rows = (up(np.arange(nb, dtype=np.int64)),
+                    up(np.array([len(q) for q in seqs], np.int32)),
+                    up(2 + np.arange(nb, dtype=np.int32)),
+                    up(np.full((nb,), _NO_EOS, np.int32)))
+            batched = self._scratch_state(nb)
+            if kind == "hit":
+                self._batch_hit_fn(self.params, *batched, region,
+                                   up(np.zeros((nb,), np.int64)), up(toks),
+                                   L, last, *rows)
+            else:
+                self._batch_prefill_fn(self.params, *batched, up(toks), last,
+                                       *rows)
+            return self._states_equal(serial, batched)
+        finally:
+            self.prefill_dispatches = disp
+            self._attr_suspend -= 1
 
     @torch.no_grad()
     def _probe_chunked_parity(self) -> bool:
@@ -2008,6 +2587,7 @@ class ServingEngine:
         if k < 1:
             return False
         disp = self.prefill_dispatches
+        self._attr_suspend += 1  # probes count toward no attribution
         try:
             seq = ((1 + np.arange(length)) % self.cfg.vocab_size).astype(
                 np.int32)
@@ -2038,13 +2618,17 @@ class ServingEngine:
             return ok
         finally:
             self.prefill_dispatches = disp
+            self._attr_suspend -= 1
 
     def _use_chunked_replay(self) -> bool:
         if self.chunked_replay != "auto":
             return bool(self.chunked_replay)
         if self._chunked_ok is None:
-            self._chunked_ok = self._probe_chunked_parity()
-            _log.info("chunked_replay_probe ok=%s", self._chunked_ok)
+            self._chunked_ok = self._probe_verdict(
+                "chunked_replay", self._probe_chunked_parity,
+                n_slots=self.n_slots, max_total=self.max_total,
+                max_bucket=self._max_bucket, tp=1, paged=self._paged)
+            log_event(_log, "chunked_replay_probe", ok=self._chunked_ok)
         return self._chunked_ok
 
     # -- decode ----------------------------------------------------------------
@@ -2068,6 +2652,12 @@ class ServingEngine:
         any other escalates to ``EngineCrash``."""
         if not any(st is not None for st in self._slots):
             return None
+        # adaptive horizon: while requests wait for a slot, the next
+        # admission boundary is one substep away; the configured K again
+        # once the queue drains (deferred admissions hold a slot already)
+        k = (1 if self.adaptive_horizon and len(self.scheduler)
+             else self.decode_horizon)
+        self.decode_horizon_current = k
         attempt, backoff = 0, self.retry_backoff_s
         t_call = time.perf_counter()
         while True:
@@ -2076,10 +2666,14 @@ class ServingEngine:
                     self.faults.check("step")
                 # inside the loop: a quarantine below rewrites a paged
                 # table row and the slot's surface rows
-                toks = self._run_step()
+                toks = self._run_step(k)
                 break
             except TransientFault as e:
                 self.metrics.record_retry()
+                self.tracer.instant(ENGINE_TRACK, "retry", site="step",
+                                    error=str(e))
+                self.flight.record("fault", fault="transient", site="step",
+                                   error=str(e), attempt=attempt + 1)
                 attempt += 1
                 if attempt <= self.max_retries:
                     time.sleep(backoff)
@@ -2096,6 +2690,8 @@ class ServingEngine:
                     return None
                 attempt, backoff = 0, self.retry_backoff_s
             except PermanentFault as e:
+                self.flight.record("fault", fault="permanent", site="step",
+                                   error=str(e))
                 slot = self._slot_of(e.req_id)
                 if slot is None:
                     raise EngineCrash(f"permanent step fault names no live "
@@ -2104,10 +2700,27 @@ class ServingEngine:
                              error=str(e), deactivate=True)
                 if not any(st is not None for st in self._slots):
                     return None
+            except EngineCrash as e:
+                # the last flight event before the postmortem names it
+                self.flight.record("fault", fault="crash", site="step",
+                                   error=str(e))
+                raise
         host, event = self._readback(toks)
+        now = time.perf_counter()
         snaps = [(s, st) for s, st in enumerate(self._slots)
                  if st is not None]
         self.metrics.record_step(len(snaps), len(self.scheduler))
+        self.tracer.span(ENGINE_TRACK, "dispatch", t_call, now - t_call,
+                         n_active=len(snaps))
+        fam = "masked_step" if self._surface else "step"
+        self._attr(("paged_" + fam) if self._paged else fam, t_call)
+        if self.flight.enabled:
+            self.flight.record(
+                "dispatch", k=k, n_active=len(snaps),
+                queue_depth=len(self.scheduler),
+                **({"blocks_in_use": self.pool.n_blocks_in_use,
+                    "blocks_free": self.pool.n_free_blocks}
+                   if self._paged else {}))
         return _Inflight(host, event, snaps, t_call)
 
     def _surface_use(self) -> SurfaceUse:
@@ -2122,24 +2735,44 @@ class ServingEngine:
             sample=bool((self._slot_temps > 0).any()),
             logprobs=any(st.lp_out is not None for st in live))
 
-    def _run_step(self) -> torch.Tensor:
-        """Dispatch the horizon's step program on the engine's state (the
-        caches are updated in place): the base step, or the masked step
-        when the surface is armed. Returns the (slots, K) token block, or
-        the masked step's aux block."""
+    def _step_fn_for(self, k: int):
+        """The step program of ``k`` substeps: the configured K's, or a
+        K-1 program built once (the adaptive horizon)."""
+        if k == self.decode_horizon:
+            return self._step_fn
+        if k not in self._step_fns:
+            self._step_fns[k] = build_step_program(
+                self._fwd1, k, self.temperature, self.top_k, self.device)
+        return self._step_fns[k]
+
+    def _masked_fn_for(self, k: int):
+        """The masked step program of ``k`` substeps (as
+        ``_step_fn_for``)."""
+        if k == self.decode_horizon:
+            return self._masked_fn
+        if k not in self._masked_fns:
+            self._masked_fns[k] = build_masked_step_program(
+                self._fwd1, k, self._n_logprobs)
+        return self._masked_fns[k]
+
+    def _run_step(self, k: int) -> torch.Tensor:
+        """Dispatch a ``k``-substep horizon's step program on the engine's
+        state (the caches are updated in place): the base step, or the
+        masked step when the surface is armed. Returns the (slots, k)
+        token block, or the masked step's aux block."""
         adapters = self._adapter_operand()
         if not self._surface:
             # greedy steps draw nothing: no key upload
             keys = (None if self.temperature == 0
                     else threefry.device_keys(self._slot_keys, self.device))
             (_, self._logits, self._dpos, self._dactive, self._dbudget,
-             toks) = self._step_fn(
+             toks) = self._step_fn_for(k)(
                 self.params, self.pool.operand(), self._logits, self._dpos,
                 self._dactive, self._dbudget, self._deos, keys, adapters)
             return toks
         use = self._surface_use()
         (_, self._logits, self._dpos, self._dactive, self._dbudget,
-         self._dgstate, aux) = self._masked_fn(
+         self._dgstate, aux) = self._masked_fn_for(k)(
             self.params, self.pool.operand(), self._logits, self._dpos,
             self._dactive, self._dbudget, self._deos, self._dgstate,
             *self._surface_operands(use), use, adapters)
@@ -2190,16 +2823,33 @@ class ServingEngine:
             sync_wait_s=now - t_sync,
             overlap_s=max(0.0, t_sync - horizon.t_dispatch),
         )
+        self.tracer.span(ENGINE_TRACK, "sync", t_sync, now - t_sync)
+        # the readback proved every program dispatched up to this
+        # horizon complete: price the pending attribution entries
+        if self._pending_attr:
+            self._flush_attr(horizon.t_dispatch, now)
+        # a slot's decode span: dispatch to arrival, clipped at the next
+        # horizon's dispatch (already made: pipelining), so one slot's
+        # decode spans stay disjoint
+        t_span_end = now
+        if (self._inflight is not None
+                and self._inflight.t_dispatch > horizon.t_dispatch):
+            t_span_end = min(now, self._inflight.t_dispatch)
         for slot, st in horizon.snaps:
             if (self._slots[slot] is not st
                     or st.gen != self.pool.generation(slot)):
                 continue  # retired/reused since dispatch: tokens dead
             req = st.req
+            self.tracer.span(slot_track(slot), "decode", horizon.t_dispatch,
+                             t_span_end - horizon.t_dispatch, req_id=req.id,
+                             k=int(toks_host.shape[1]))
             finished = False
             for k in range(toks_host.shape[1]):
                 tok = int(toks_host[slot, k])
                 if st.t_first_token is None:
                     st.t_first_token = now
+                    self.tracer.instant(slot_track(slot), "first_token",
+                                        ts=now, req_id=req.id)
                     if req.arrival_time is not None:
                         self.metrics.record_first_token(
                             now - req.arrival_time)
@@ -2252,19 +2902,41 @@ class ServingEngine:
         chunks. Returns False when
         there was nothing to do. Raises ``EngineCrash`` when the loop
         cannot go on (the caller recovers with :meth:`recover`)."""
+        # the profiler brackets steps with work: an idle server loop's
+        # polls are no engine steps
+        prof = self.profile if self.profile is not None and (
+            not self.idle or self._pending) else None
+        if prof is not None:
+            prof.step_start()
         now = time.perf_counter()
-        self._sweep_lifecycle(now)
-        self._admit(now)
-        self._pb_did_work = False
-        prev, self._inflight = self._inflight, self._dispatch()
-        if prev is not None:
-            self._process(prev)
-        # deferred prefills behind the new horizon: its token copy does
-        # not wait on their chunks, and a failure here loses no horizon
-        if self._pending:
-            self._advance_piggyback(decoding=self._inflight is not None)
-        return (prev is not None or self._inflight is not None
-                or self._pb_did_work)
+        try:
+            self._sweep_lifecycle(now)
+            self._admit(now)
+            self._pb_did_work = False
+            prev, self._inflight = self._inflight, self._dispatch()
+            if self._inflight is not None:
+                self._steps += 1
+            if prev is not None:
+                self._process(prev)
+            # deferred prefills behind the new horizon: its token copy
+            # does not wait on their chunks, and a failure here loses no
+            # horizon
+            if self._pending:
+                self._advance_piggyback(decoding=self._inflight is not None)
+        finally:
+            if prof is not None:
+                prof.step_end()
+        progressed = (prev is not None or self._inflight is not None
+                      or self._pb_did_work)
+        if self.tracer.enabled and progressed:
+            t_end = time.perf_counter()
+            self.tracer.span(ENGINE_TRACK, "step", now, t_end - now,
+                             n=self._steps)
+            self.tracer.counter(SCHEDULER_TRACK, "queue_depth",
+                                len(self.scheduler), ts=t_end)
+            self.tracer.counter(ENGINE_TRACK, "kv_slots_active",
+                                self.pool.n_active, ts=t_end)
+        return progressed
 
     def run(self, *, max_restarts: int = 5) -> dict[str, np.ndarray]:
         """Step until every queued/active request is terminal, recovering
@@ -2294,7 +2966,30 @@ class ServingEngine:
         live slot is rebuilt from its host record by chunked or stepwise
         replay (``chunked_replay``). Queued requests are untouched.
         Returns the number of slots replayed."""
+        t_rec = time.perf_counter()
         self.metrics.record_restart()
+        self.tracer.instant(ENGINE_TRACK, "crash", ts=t_rec)
+        self.flight.record(
+            "restart", n_live=sum(1 for st in self._slots if st is not None),
+            queue_depth=len(self.scheduler),
+            restarts=self.metrics.n_restarts)
+        # the pending attribution entries lost their completion proof with
+        # the abandoned state; replay is not serving time
+        self._pending_attr.clear()
+        self._attr_suspend += 1
+        try:
+            n = self._recover_inner()
+        finally:
+            self._attr_suspend -= 1
+        now = time.perf_counter()
+        self.tracer.span(ENGINE_TRACK, "recover", t_rec, now - t_rec,
+                         mode=self.last_recover_mode, n_replayed=n)
+        log_event(_log, "engine_recovered", mode=self.last_recover_mode,
+                  n_replayed=n, restarts=self.metrics.n_restarts,
+                  recover_s=round(now - t_rec, 6))
+        return n
+
+    def _recover_inner(self) -> int:
         self._inflight = None
         for rec in reversed(self._pending):
             pl = rec.plan

@@ -35,6 +35,16 @@ observed p99 / objective at every render. The per-tenant state is made on
 the first event that carries a tenant id, so a single-tenant engine pays
 nothing.
 
+Batched admission counts the admissions that shared a prefill dispatch
+(``serve_prefill_batched_total``); embedding lookups served at the
+admission boundary get ``serve_embeddings_total{model}`` and the
+``serve_embedding_seconds`` histogram. Per-program-family attribution
+(``record_program``) adds ``serve_program_seconds_total{family}`` and
+``serve_program_dispatches_total{family}``: the wall seconds from a
+program's dispatch call to the horizon readback that proves it complete,
+an upper bound on its device time, with no sync of its own (the
+reference's definition).
+
 Series names are the reference's, so its dashboards carry over.
 """
 
@@ -85,6 +95,13 @@ class ServingMetrics:
         self.prefill_chunk_tokens = 0
         self.decode_stall_seconds = 0.0
         self.phase_seconds = {p: 0.0 for p in PHASES}
+        # per-program-family attribution, recorded by the engine thread
+        # at readback (no lock, like phase_seconds)
+        self.program_seconds: dict[str, float] = {}
+        self.program_dispatches: dict[str, int] = {}
+        self.n_batched_admissions = 0
+        self.n_embeddings = 0
+        self.embed_latency = Reservoir(reservoir_cap)
         self._step = 0
         self._reservoir_cap = reservoir_cap
         # per-tenant state, made on the first event with a tenant id;
@@ -182,6 +199,29 @@ class ServingMetrics:
             "Observed p99 TPOT / tenant SLO objective (> 1 = violating).",
             ("tenant",),
         )
+        self._c_batched = reg.counter(
+            "serve_prefill_batched_total",
+            "Admissions coalesced into shared same-bucket prefill "
+            "dispatches.",
+        )
+        self._c_embeddings = reg.counter(
+            "serve_embeddings_total",
+            "Embedding requests served, by model.", ("model",),
+        )
+        self._h_embed = reg.histogram(
+            "serve_embedding_seconds",
+            "Embedding request service time (host-side lookup).",
+        )
+        self._c_prog_seconds = reg.counter(
+            "serve_program_seconds_total",
+            "Wall seconds attributed to program families at the "
+            "horizon-readback boundary (dispatch call to post-sync flush: "
+            "an upper bound that includes async overlap).", ("family",),
+        )
+        self._c_prog_dispatches = reg.counter(
+            "serve_program_dispatches_total",
+            "Program dispatches by family.", ("family",),
+        )
 
     def _tenant(self, tenant_id: str) -> dict:  # lint: holds _tlock
         """Per-tenant counters and reservoirs (call holding ``_tlock``)."""
@@ -199,6 +239,35 @@ class ServingMetrics:
         """Attribute ``seconds`` of wall time to a request phase."""
         self.phase_seconds[phase] += float(seconds)
         self._h_phase.observe(float(seconds), phase=phase)
+
+    def record_program(self, family: str, seconds: float) -> None:
+        """Attribute one program dispatch's wall interval (dispatch call to
+        the readback that proved it complete) to its family."""
+        self.program_seconds[family] = (
+            self.program_seconds.get(family, 0.0) + float(seconds))
+        self.program_dispatches[family] = (
+            self.program_dispatches.get(family, 0) + 1)
+        self._c_prog_seconds.inc(float(seconds), family=family)
+        self._c_prog_dispatches.inc(family=family)
+
+    def record_batched_admissions(self, n: int) -> None:
+        """``n`` admissions served by one shared prefill dispatch
+        (recorded once a coalesced group, n >= 2)."""
+        self.n_batched_admissions += int(n)
+        self._c_batched.inc(int(n))
+
+    def record_embedding(self, model: str, n_words: int, seconds: float,
+                         tenant: str = "") -> None:
+        """One embedding request served on the host (``n_words`` lookups
+        against the ``model`` embedder, no KV slot)."""
+        self.n_embeddings += 1
+        self.embed_latency.add(float(seconds))
+        self._c_embeddings.inc(model=model)
+        self._h_embed.observe(float(seconds))
+        if tenant:
+            self._c_tenant_requests.inc(tenant=tenant, outcome="embedding")
+            with self._tlock:
+                self._tenant(tenant)["n_finished"] += 1
 
     def record_step(self, n_active: int, queue_depth: int) -> None:
         """One dispatched horizon with ``n_active`` slots decoding."""
@@ -378,11 +447,16 @@ class ServingMetrics:
             out["prefix_tokens_saved"] = self.prefix_tokens_saved
             out["prefix_inserts"] = self.n_prefix_inserts
             out["prefix_evictions"] = self.n_prefix_evictions
+        if self.n_batched_admissions:
+            out["batched_admissions"] = self.n_batched_admissions
         if self.n_prefill_chunks:
             out["prefill_chunks"] = self.n_prefill_chunks
             out["prefill_chunk_tokens"] = self.prefill_chunk_tokens
         if self.decode_stall_seconds > 0:
             out["decode_stall_s"] = self.decode_stall_seconds
+        if self.n_embeddings:
+            out["n_embeddings"] = self.n_embeddings
+            out["embedding_p50_s"] = _pct(self.embed_latency, 50)
         with self._tlock:
             if self.n_rejections:
                 out["rejections"] = dict(self.n_rejections)
@@ -402,6 +476,11 @@ class ServingMetrics:
         if self.occupancy:
             out["occupancy_mean"] = self.occupancy.mean
             out["queue_depth_max"] = int(self.queue_depth.max)
+        if self.program_dispatches:
+            out["program_seconds"] = dict(sorted(
+                self.program_seconds.items()))
+            out["program_dispatches"] = dict(sorted(
+                self.program_dispatches.items()))
         attributed = sum(self.phase_seconds.values())
         if attributed > 0:
             out["phase_seconds"] = dict(self.phase_seconds)

@@ -1,6 +1,7 @@
 """Request queue for the serving engine (port of
 ``deeplearning4j_tpu/serving/scheduler.py``, without the KV-wire request
-kinds).
+kinds). Generation requests and embedding lookups
+(:class:`EmbeddingRequest`) share it.
 
 Strict priority across classes (class 0 drains before class 1) and, when
 a :class:`~.tenancy.TenantRegistry` is attached, DEFICIT ROUND-ROBIN
@@ -97,7 +98,11 @@ class Request:
     stripped from the stream); ``logit_bias`` maps token id -> additive
     logit; ``logprobs`` asks for per-token logprobs and ``top_logprobs``
     for the top alternatives a position; ``response_format`` constrains the
-    output to a regex or a JSON schema (a token-level DFA mask)."""
+    output to a regex or a JSON schema (a token-level DFA mask).
+
+    ``trace_id`` / ``parent_span_id`` carry the W3C trace context the HTTP
+    front end resolves (see :mod:`...obs.trace`): the engine's admission
+    span and the JSON log lines name them."""
 
     prompt: np.ndarray
     max_new: int
@@ -121,6 +126,8 @@ class Request:
     #: set by the engine at retirement: per-token logprob records
     logprobs_out: list | None = dataclasses.field(default=None, repr=False,
                                                   compare=False)
+    trace_id: str = ""
+    parent_span_id: str = ""
     id: str = dataclasses.field(default_factory=_next_id)
     arrival_time: float | None = None
     status: RequestStatus = RequestStatus.QUEUED
@@ -133,6 +140,8 @@ class Request:
         default_factory=threading.Event, init=False, repr=False,
         compare=False,
     )
+
+    kind = "generate"
 
     def __post_init__(self):
         self.prompt = np.asarray(self.prompt, np.int32).reshape(-1)
@@ -221,6 +230,37 @@ class Request:
         return (now - self.arrival_time) > self.deadline_s
 
 
+def _empty_prompt() -> np.ndarray:
+    return np.zeros(0, np.int32)
+
+
+@dataclasses.dataclass
+class EmbeddingRequest(Request):
+    """An embeddings lookup riding the same queue as generation. The
+    engine serves it at the admission boundary from a host-side embedding
+    model (no KV slot, no device dispatch), but it goes through the
+    scheduler (priority, DRR, quota, backpressure), the per-tenant metrics
+    and drain as a generation request does. ``result`` is filled with
+    ``{word: vector or None}`` before ``done`` is set."""
+
+    prompt: np.ndarray = dataclasses.field(default_factory=_empty_prompt)
+    max_new: int = 1
+    model: str = "word2vec"
+    words: tuple[str, ...] = ()
+    result: dict | None = None
+
+    kind = "embedding"
+
+    def __post_init__(self):
+        super().__post_init__()
+        self.words = tuple(str(w) for w in self.words)
+        if not self.words:
+            raise AdmissionError("embedding request needs >= 1 word")
+
+    def token_cost(self) -> int:
+        return len(self.words)
+
+
 class RequestScheduler:
     """Bounded multi-priority queue: strict priority across classes,
     weighted deficit round-robin across tenants within a class, FIFO
@@ -266,6 +306,13 @@ class RequestScheduler:
     def __len__(self) -> int:
         with self._lock:
             return self._depth_unlocked()
+
+    def has_kind(self, kind: str) -> bool:
+        """Any queued request of ``kind``? The engine's admission entry
+        check: embedding requests stay admissible with no free KV slot, so
+        a full pool must not skip admission while slotless work waits."""
+        with self._lock:
+            return any(req.kind == kind for req in self._queued_unlocked())
 
     def _enqueue_unlocked(self, req: Request,
                           front: bool) -> None:  # lint: holds _lock
@@ -313,8 +360,9 @@ class RequestScheduler:
     def submit(self, req: Request) -> str:
         """Enqueue ``req``; returns its id. Raises ``Backpressure``,
         ``QuotaExceeded`` or ``AdmissionError`` (see the module doc)."""
-        total = req.token_cost()
-        if self.max_total_tokens is not None and total > self.max_total_tokens:
+        total = len(req.prompt) + req.max_new
+        if (req.kind == "generate" and self.max_total_tokens is not None
+                and total > self.max_total_tokens):
             raise AdmissionError(
                 f"request {req.id}: prompt+max_new ({total}) exceeds the "
                 f"per-slot token budget ({self.max_total_tokens})"

@@ -45,9 +45,33 @@ Endpoints:
   payload carries ``hung``, ``beat_age_s`` and ``restarts``.
 - ``GET /readyz`` — 200 only when healthy and not draining (what a load
   balancer routes on).
-- ``GET /metrics`` — Prometheus text of the engine's metrics registry.
+- ``POST /v1/embeddings`` — body ``{"words": ["w", ...] | "w w ...",
+  "model"?: "word2vec", "priority"?: int}``; returns ``{"id", "model",
+  "vectors": {word: [floats] | null}}`` (null: out of vocabulary). The
+  lookups ride the generation queue (priority, tenancy, quotas, drain) and
+  are served on the host at the admission boundary, with no KV slot. 400
+  on empty or non-string ``words``, 503 when the engine loaded no
+  embedding model, 429 on backpressure, 504 on a timeout, 500 for an
+  unknown model.
+- ``GET /metrics`` — Prometheus text of the engine's metrics registry
+  (with ``serve_engine_alive`` and ``serve_draining``). Also served, with
+  the other observability GETs, on ``metrics_port`` when one is set: a
+  scrape sidecar that keeps answering while generate traffic saturates
+  the main listener.
 - ``GET /metrics.json`` — ``ServingMetrics.summary()`` plus live engine
   state, the prefix cache's stats and the tenants' bucket levels.
+- ``GET /debug/dump`` — the flight recorder's redacted postmortem bundle
+  (recent engine events, a metrics snapshot, the trace's tail).
+- ``POST /profile?s=N`` — arm a ``torch.profiler`` capture of the next N
+  engine steps (the engine's :class:`~..obs.profiler.ProfileTrigger`);
+  answers the capture's directory, 409 while a capture is armed, 400 for
+  N < 1, 503 without a trigger.
+
+Every request gets a W3C trace context: the caller's ``traceparent`` (its
+trace id, and its span as our parent) or a fresh trace id. The engine's
+admission span and log lines carry it, and each request ends with one
+structured ``access`` log line (status, trace context, tenant, which
+server answered).
 
 ``stop(drain_s)`` stops admission, gives in-flight work up to ``drain_s``
 seconds, cancels what is left, and shuts the listener down.
@@ -61,25 +85,38 @@ request is failed and ``/healthz`` turns 503. The loop stamps a heartbeat
 at every iteration; a loop whose beat is older than ``hang_threshold_s``
 while the engine has work is reported hung (a thread can be alive but
 wedged inside a device call).
+
+Postmortems (``flight_dir``): the flight
+bundle is written there on an engine crash (before recovery rebuilds the
+state), when the engine dies, at the first watchdog trip that ``/healthz``
+sees, and on SIGTERM under ``serve_forever``.
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import queue
+import signal
 import threading
 import time
 import traceback
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from urllib.parse import urlparse
+from pathlib import Path
+from urllib.parse import parse_qs, urlparse
 
+from deeplearning4j_tpu_torch.obs.logs import log_event
+from deeplearning4j_tpu_torch.obs.trace import new_trace_id, parse_traceparent
 from deeplearning4j_tpu_torch.serving.engine import ServingEngine
 from deeplearning4j_tpu_torch.serving.scheduler import (
     AdmissionError,
     Backpressure,
+    EmbeddingRequest,
     Request,
     RequestStatus,
 )
+
+_log = logging.getLogger(__name__)
 
 #: the tenant of a request whose API key the registry does not know
 _UNKNOWN_KEY = object()
@@ -105,16 +142,30 @@ def _send_json(handler, code: int, payload) -> None:
     _send(handler, code, json.dumps(payload).encode(), "application/json")
 
 
+class _QuietHandler(BaseHTTPRequestHandler):
+    def log_message(self, *a):
+        pass
+
+
 class ServingServer:
-    """Engine + HTTP front end; ``start()`` does not block."""
+    """Engine + HTTP front end; ``start()`` does not block.
+    ``metrics_port`` adds the scrape sidecar, ``flight_dir`` the
+    postmortem directory; ``profile`` (a ``ProfileTrigger``) is handed to
+    the engine, whose steps it brackets."""
 
     def __init__(self, engine: ServingEngine, host: str = "127.0.0.1",
                  port: int = 0, request_timeout_s: float = 300.0,
-                 max_restarts: int = 5, hang_threshold_s: float = 120.0):
+                 max_restarts: int = 5, hang_threshold_s: float = 120.0,
+                 metrics_port: int | None = None,
+                 flight_dir: str | None = None, profile=None):
         self.engine = engine
+        if profile is not None:
+            engine.profile = profile
         self.request_timeout_s = request_timeout_s
         self.max_restarts = max_restarts
         self.hang_threshold_s = hang_threshold_s
+        self.flight_dir = flight_dir
+        self._hang_dumped = False
         # watchdog heartbeat: stamped at the top of every loop iteration
         self._last_beat: float | None = None
         self._stop = threading.Event()
@@ -124,37 +175,30 @@ class ServingServer:
         self._paused = threading.Event()
         self._dead = threading.Event()
         self.last_error: str | None = None
+        # supervisor state on the engine's registry: one scrape carries both
+        reg = engine.metrics.registry
+        reg.gauge("serve_engine_alive",
+                  "1 while the supervised engine loop is considered live."
+                  ).set_function(lambda: float(self._health()["ok"]))
+        reg.gauge("serve_draining", "1 while the server is draining."
+                  ).set_function(lambda: float(
+                      self._draining.is_set() or self._paused.is_set()))
         server = self
 
-        class Handler(BaseHTTPRequestHandler):
-            def log_message(self, *a):
-                pass
-
+        class Handler(_QuietHandler):
             def do_GET(self):
-                path = urlparse(self.path).path
-                if path == "/healthz":
-                    payload = server._health()
-                    _send_json(self, 200 if payload["ok"] else 503, payload)
-                elif path == "/readyz":
-                    payload = server._health()
-                    ready = payload["ok"] and not payload["draining"]
-                    payload["ready"] = ready
-                    _send_json(self, 200 if ready else 503, payload)
-                elif path == "/metrics":
-                    _send(self, 200,
-                          server.engine.metrics.render_prometheus().encode(),
-                          PROM_CONTENT_TYPE)
-                elif path == "/metrics.json":
-                    _send_json(self, 200, server._metrics_payload())
-                else:
+                if not server._common_get(self):
                     _send_json(self, 404, {"error": "not found"})
 
             def do_POST(self):
                 path = urlparse(self.path).path
+                if path == "/profile":
+                    server._handle_profile(self)
+                    return
                 if path in ("/drain", "/undrain"):
                     server._handle_drain(self, path == "/drain")
                     return
-                if path != "/v1/generate":
+                if path not in ("/v1/generate", "/v1/embeddings"):
                     _send_json(self, 404, {"error": "not found"})
                     return
                 if (server._draining.is_set() or server._paused.is_set()
@@ -175,17 +219,118 @@ class ServingServer:
                 except json.JSONDecodeError:
                     _send_json(self, 400, {"error": "malformed JSON"})
                     return
-                server._handle_generate(self, body, tenant)
+                if path == "/v1/embeddings":
+                    server._handle_embeddings(self, body, tenant)
+                else:
+                    server._handle_generate(self, body, tenant)
 
         self._httpd = ThreadingHTTPServer((host, port), Handler)
+        # what the access log names as the server that answered
+        self.name = "%s:%d" % self._httpd.server_address[:2]
         self._engine_thread = threading.Thread(
             target=self._engine_loop, daemon=True, name="engine-loop")
         self._http_thread = threading.Thread(
             target=self._httpd.serve_forever, daemon=True, name="http-serve")
+        # the scrape sidecar: the observability GETs on their own port
+        self._metrics_httpd = None
+        self._metrics_thread = None
+        if metrics_port is not None:
+
+            class MetricsHandler(_QuietHandler):
+                def do_GET(self):
+                    if not server._common_get(self):
+                        _send_json(self, 404, {"error": "not found"})
+
+            self._metrics_httpd = ThreadingHTTPServer((host, metrics_port),
+                                                      MetricsHandler)
+            self._metrics_thread = threading.Thread(
+                target=self._metrics_httpd.serve_forever, daemon=True,
+                name="metrics-serve")
 
     @property
     def address(self) -> tuple[str, int]:
         return self._httpd.server_address[:2]
+
+    @property
+    def metrics_address(self) -> tuple[str, int] | None:
+        """(host, port) of the metrics sidecar, or None without one."""
+        if self._metrics_httpd is None:
+            return None
+        return self._metrics_httpd.server_address[:2]
+
+    def _common_get(self, handler) -> bool:
+        """The observability GETs, served on the main listener and on the
+        sidecar; False for an unknown path."""
+        path = urlparse(handler.path).path
+        if path == "/healthz":
+            payload = self._health()
+            _send_json(handler, 200 if payload["ok"] else 503, payload)
+        elif path == "/readyz":
+            payload = self._health()
+            ready = payload["ok"] and not payload["draining"]
+            payload["ready"] = ready
+            _send_json(handler, 200 if ready else 503, payload)
+        elif path == "/metrics":
+            _send(handler, 200,
+                  self.engine.metrics.render_prometheus().encode(),
+                  PROM_CONTENT_TYPE)
+        elif path == "/metrics.json":
+            _send_json(handler, 200, self._metrics_payload())
+        elif path == "/debug/dump":
+            _send_json(handler, 200, self.flight_bundle("debug_dump"))
+        else:
+            return False
+        return True
+
+    def flight_bundle(self, reason: str) -> dict:
+        """The flight recorder's redacted postmortem bundle: recent engine
+        events, a metrics snapshot and the trace's tail."""
+        return self.engine.flight.dump(
+            reason, metrics=self.engine.metrics, tracer=self.engine.tracer,
+            extra={"server": self.name, "health": self._health()})
+
+    def _dump_flight(self, reason: str) -> None:
+        """Write the bundle into ``flight_dir`` (nothing without one; never
+        raises: this runs on crash paths)."""
+        if not self.flight_dir:
+            return
+        try:
+            path = Path(self.flight_dir) / (
+                "flight-%s-%s-%d.json" % (self.name.replace(":", "-"),
+                                          reason, int(time.time() * 1000)))
+            self.engine.flight.dump_to(
+                path, reason, metrics=self.engine.metrics,
+                tracer=self.engine.tracer,
+                extra={"server": self.name, "last_error": self.last_error})
+            log_event(_log, "flight_dump", reason=reason, path=str(path))
+        except Exception as e:
+            log_event(_log, "flight_dump_failed", level=logging.ERROR,
+                      reason=reason, error=repr(e))
+
+    def _handle_profile(self, handler) -> None:
+        """``POST /profile?s=N``: arm a capture of the next N engine
+        steps."""
+        trigger = self.engine.profile
+        if trigger is None:
+            _send_json(handler, 503, {
+                "error": "no ProfileTrigger configured (start the server "
+                         "with profiling wired)"})
+            return
+        qs = parse_qs(urlparse(handler.path).query)
+        try:
+            n = int(qs.get("s", ["1"])[0])
+            if n < 1:
+                raise ValueError
+        except ValueError:
+            _send_json(handler, 400, {"error": "s must be an int >= 1"})
+            return
+        try:
+            capture_dir = trigger.arm(n)
+        except RuntimeError as e:  # a capture is armed already
+            _send_json(handler, 409, {"error": str(e)})
+            return
+        log_event(_log, "profile_armed", steps=n, dir=str(capture_dir))
+        _send_json(handler, 200, {"armed": n, "dir": str(capture_dir)})
 
     def _byte_vocab(self) -> bool:
         return self.engine.cfg.vocab_size <= 256
@@ -209,6 +354,11 @@ class ServingServer:
         hung, beat_age = self._hung()
         if hung:
             alive = False  # wedged in a device call counts as not live
+            if not self._hang_dumped:
+                # the wedged loop cannot dump itself: the probe that sees
+                # the trip does, once
+                self._hang_dumped = True
+                self._dump_flight("watchdog_hang")
         return {
             "ok": alive,
             "engine_alive": alive,
@@ -338,14 +488,51 @@ class ServingServer:
             out.append([int(t) for t in s])
         return out
 
+    @staticmethod
+    def _resolve_trace(handler, req: Request) -> None:
+        """W3C trace context: adopt the caller's ``traceparent`` (its trace
+        id, its span as our parent) or start a fresh trace, so the access
+        log and the engine's admission span always correlate."""
+        ctx = parse_traceparent(handler.headers.get("traceparent"))
+        if ctx is not None:
+            req.trace_id, req.parent_span_id = ctx
+        else:
+            req.trace_id = new_trace_id()
+
+    def _access_log(self, handler, req, http: int, status: str,
+                    **fields) -> None:
+        """The one structured access line a request: trace context,
+        tenant, and which server answered (``X-Served-By`` when a router
+        set it)."""
+        log_event(_log, "access", req_id=req.id, http=http, status=status,
+                  trace_id=req.trace_id or None,
+                  parent_span_id=req.parent_span_id or None,
+                  tenant=req.tenant_id or None,
+                  served_by=handler.headers.get("X-Served-By") or self.name,
+                  **fields)
+
+    def _completed(self, handler, req, http: int, status: str,
+                   **fields) -> None:
+        """``request_completed`` and the access line."""
+        log_event(_log, "request_completed", req_id=req.id, http=http,
+                  status=status, trace_id=req.trace_id or None, **fields)
+        self._access_log(handler, req, http, status, **fields)
+
     def _handle_generate(self, handler, body: dict, tenant=None) -> None:
         try:
             req = self._parse(body, tenant)
+        except (AdmissionError, ValueError, TypeError) as e:
+            _send_json(handler, 400, {"error": str(e)})
+            return
+        self._resolve_trace(handler, req)
+        try:
             self.engine.submit(req)
         except Backpressure as e:
+            self._access_log(handler, req, 429, "backpressure")
             _send_json(handler, 429, {"error": str(e)})
             return
         except (AdmissionError, ValueError, TypeError) as e:
+            self._access_log(handler, req, 400, "admission_error")
             _send_json(handler, 400, {"error": str(e)})
             return
         if req.stream is not None:
@@ -353,16 +540,21 @@ class ServingServer:
             return
         if not req.done.wait(self.request_timeout_s):
             req.cancel()  # the slot stops decoding for a gone client
+            self._completed(handler, req, 504, "timeout")
             _send_json(handler, 504, {"error": "generation timed out"})
             return
         if req.status is not RequestStatus.FINISHED:
             self.engine.pop_result(req.id)
-            _send_json(handler, _STATUS_HTTP.get(req.status, 500), {
+            code = _STATUS_HTTP.get(req.status, 500)
+            self._completed(handler, req, code, req.status.value)
+            _send_json(handler, code, {
                 "id": req.id, "status": req.status.value,
                 "error": req.error or req.status.value,
             })
             return
         toks = self.engine.pop_result(req.id).tolist()
+        self._completed(handler, req, 200, "finished",
+                        n_tokens=len(toks) - len(req.prompt))
         out = {"id": req.id, "tokens": toks}
         if req.timing is not None:
             out["timing"] = {k: round(float(v), 6)
@@ -398,6 +590,8 @@ class ServingServer:
                 remaining = deadline - time.monotonic()
                 if remaining <= 0:
                     req.cancel()
+                    self._completed(handler, req, 504, "timeout",
+                                    stream=True)
                     self._sse(handler, {"error": "generation timed out",
                                         "done": True})
                     return
@@ -419,11 +613,72 @@ class ServingServer:
             if req.logprobs and req.logprobs_out is not None:
                 final["logprobs"] = req.logprobs_out
             self._sse(handler, final)
+            self._completed(handler, req, 200, req.status.value, n_tokens=n,
+                            stream=True)
         except (BrokenPipeError, ConnectionResetError):
             req.cancel()  # the client is gone: free its slot
+            self._completed(handler, req, 499, "client_gone", n_tokens=n,
+                            stream=True)
         finally:
             # the stream delivered the tokens: drop the stored copy
             self.engine.pop_result(req.id)
+
+    def _handle_embeddings(self, handler, body: dict, tenant=None) -> None:
+        """``POST /v1/embeddings`` (the reference's, server.py:698)."""
+        words = body.get("words")
+        if isinstance(words, str):
+            words = words.split()
+        if (not isinstance(words, list) or not words
+                or not all(isinstance(w, str) for w in words)):
+            _send_json(handler, 400, {
+                "error": "'words' must be a non-empty list of strings"})
+            return
+        if not self.engine.embedders:
+            _send_json(handler, 503, {"error": "no embedding models loaded"})
+            return
+        try:
+            req = EmbeddingRequest(
+                words=tuple(words), model=str(body.get("model", "word2vec")),
+                priority=int(body.get(
+                    "priority", tenant.priority if tenant is not None
+                    else 1)),
+                tenant_id=tenant.tenant_id if tenant is not None else "",
+                done=threading.Event())
+        except (AdmissionError, ValueError, TypeError) as e:
+            _send_json(handler, 400, {"error": str(e)})
+            return
+        self._resolve_trace(handler, req)
+        try:
+            self.engine.submit(req)
+        except Backpressure as e:
+            self._access_log(handler, req, 429, "backpressure",
+                             kind="embedding")
+            _send_json(handler, 429, {"error": str(e)})
+            return
+        except AdmissionError as e:
+            self._access_log(handler, req, 400, "admission_error",
+                             kind="embedding")
+            _send_json(handler, 400, {"error": str(e)})
+            return
+        if not req.done.wait(self.request_timeout_s):
+            req.cancel()
+            self._completed(handler, req, 504, "timeout", kind="embedding")
+            _send_json(handler, 504, {"error": "embedding timed out"})
+            return
+        if req.status is not RequestStatus.FINISHED:
+            code = _STATUS_HTTP.get(req.status, 500)
+            self._completed(handler, req, code, req.status.value,
+                            kind="embedding")
+            _send_json(handler, code, {
+                "id": req.id, "status": req.status.value,
+                "error": req.error or req.status.value})
+            return
+        vectors = {w: (None if v is None else [float(x) for x in v])
+                   for w, v in req.result.items()}
+        self._completed(handler, req, 200, "finished", kind="embedding",
+                        n_words=len(words))
+        _send_json(handler, 200, {"id": req.id, "model": req.model,
+                                  "vectors": vectors})
 
     def _engine_loop(self) -> None:
         consecutive = 0
@@ -436,6 +691,8 @@ class ServingServer:
                 self.last_error = f"{type(e).__name__}: {e}"
                 traceback.print_exc()
                 consecutive += 1
+                # before recover(): the last look at the crashed state
+                self._dump_flight("engine_crash")
                 if consecutive > self.max_restarts:
                     self._die()
                     return
@@ -457,6 +714,7 @@ class ServingServer:
         """Unrecoverable: mark the engine dead and fail every waiting
         caller (a dead engine must not hang them)."""
         self._dead.set()
+        self._dump_flight("engine_dead")
         try:
             self.engine.fail_all(f"engine dead: {self.last_error}")
         except Exception:
@@ -465,6 +723,8 @@ class ServingServer:
     def start(self) -> "ServingServer":
         self._engine_thread.start()
         self._http_thread.start()
+        if self._metrics_thread is not None:
+            self._metrics_thread.start()
         return self
 
     def stop(self, drain_s: float = 0.0) -> None:
@@ -491,12 +751,28 @@ class ServingServer:
         if self._http_thread.ident:
             self._httpd.shutdown()
         self._httpd.server_close()
+        if self._metrics_httpd is not None:
+            if self._metrics_thread.ident:
+                self._metrics_httpd.shutdown()
+            self._metrics_httpd.server_close()
 
     def serve_forever(self, drain_s: float = 0.0) -> None:
-        """Blocking convenience for the CLI; Ctrl-C drains and exits."""
+        """Blocking convenience for the CLI; Ctrl-C and SIGTERM drain for
+        ``drain_s`` seconds and exit (SIGTERM writes a flight bundle
+        first)."""
         self.start()
+        done = threading.Event()
+
+        def on_sigterm(signum, frame):
+            self._dump_flight("sigterm")
+            done.set()
+
         try:
-            while True:
+            signal.signal(signal.SIGTERM, on_sigterm)
+        except ValueError:
+            pass  # not the main thread: Ctrl-C still works
+        try:
+            while not done.is_set():
                 time.sleep(1)
         except KeyboardInterrupt:
             pass

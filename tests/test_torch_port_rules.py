@@ -109,6 +109,35 @@ def test_tenancy_and_lora_follow_the_rules(monkeypatch):
         1, 2, 16, 2)
 
 
+def test_observability_and_embeddings_follow_the_rules(monkeypatch):
+    """The port's own copies of the reference's ``obs/`` modules and
+    ``serving/probe_cache.py`` (stdlib and numpy in the reference, JAX-free
+    here too; each is among the files checked above), and the new entry
+    points run on the card unless the caller names the CPU: the
+    ``/v1/embeddings`` demo model and an engine serving embeddings."""
+    for rel in ("obs/trace.py", "obs/flight.py", "obs/logs.py",
+                "obs/profiler.py", "obs/collect.py",
+                "serving/probe_cache.py"):
+        path = PKG / rel
+        assert path in set(PKG.rglob("*.py")), rel
+        assert not _imported_roots(path) & {"jax", "jaxlib",
+                                            "deeplearning4j_tpu"}, rel
+    from deeplearning4j_tpu_torch import cli
+
+    cfg = TransformerConfig(vocab_size=32, d_model=16, n_heads=2,
+                            n_layers=1, d_ff=32, max_len=16)
+    params = init_params(cfg, seed=0, device="cpu")
+    emb = cli._demo_embedders(["word2vec"], device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli._demo_embedders(["word2vec"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServingEngine(cfg, params, n_slots=1, embedders=emb,
+                      batch_admission=True, adaptive_horizon=True)
+    assert ServingEngine(cfg, params, n_slots=1, embedders=emb,
+                         device="cpu").device.type == "cpu"
+
+
 def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     """With no card and no explicit ``device="cpu"``, the entry points
     raise instead of carrying on quietly on the CPU."""

@@ -455,6 +455,7 @@ def test_cli_reports_paging_disabled(monkeypatch, capsys):
     class NoServer:
         def __init__(self, engine, **kw):
             self.address = ("127.0.0.1", 0)
+            self.metrics_address = None  # no sidecar
 
         def serve_forever(self, drain_s):
             pass

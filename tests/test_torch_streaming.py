@@ -459,9 +459,9 @@ def test_metrics_json_keys_equal_the_reference_servers():
     """The same configuration (prefix cache, two tenants, one with a
     quota) and the same traffic on the reference's server and the port's:
     ``/metrics.json`` has the same keys, top level, nested blocks and
-    per-tenant entries, and the same prefix-cache stats and rejections.
-    The reference's program-family attribution belongs to its tracer, a
-    later slice of the port: it is built without it."""
+    per-tenant entries (the program-family attribution's families among
+    them: both engines attribute, as they do by default), and the same
+    prefix-cache stats and rejections."""
     jparams = jt.init_transformer(jax.random.key(0), JCFG)
     tparams = pt.params_from_jax(jax.tree.map(np.asarray, jparams), CFG,
                                  device="cpu")
@@ -473,7 +473,7 @@ def test_metrics_json_keys_equal_the_reference_servers():
     jt_reg = tenants(JTenantConfig, JTenantRegistry)
     tt_reg = tenants(TenantConfig, TenantRegistry)
     je = JEngine(JCFG, jparams, n_slots=2, temperature=0.0,
-                 prefix_cache=True, attribution=False, tenancy=jt_reg,
+                 prefix_cache=True, tenancy=jt_reg,
                  scheduler=JScheduler(tenancy=jt_reg))
     te = ServingEngine(CFG, tparams, n_slots=2, temperature=0.0,
                        prefix_cache=True, device="cpu", tenancy=tt_reg,

@@ -5,9 +5,12 @@ epochs with a carried tail, subsampling, NS alone), the label pass of
 ParagraphVectors, and the WordVectors queries; then the reference's
 behavioural tests re-run on the port.
 
-The reference draws its initial tables from ``jax.random``, which the port
-cannot reproduce, so every parity test starts both sides from the same
-numpy tables (``word2vec_state_from_jax``). The reference is imported by a
+The initial tables are the reference's bit for bit (``jax.random.uniform``
+through the port's threefry: ``test_initial_tables_are_the_reference_bits``
+and ``test_label_tables_are_the_reference_bits``). The fit parity tests
+still start both sides from the same carried-over numpy tables
+(``word2vec_state_from_jax``), whose syn1 and syn1neg are nonzero, so every
+update path moves from the first batch. The reference is imported by a
 fixture, so the ``cuda`` case (a fit on the card against the same fit on
 the CPU, and repeated bitwise) also runs where JAX is not installed.
 """
@@ -482,6 +485,36 @@ def test_reset_weights_shapes_and_range():
     again.cache = m.cache
     again.reset_weights()
     assert torch.equal(again.syn0, m.syn0)
+
+
+@pytest.mark.parametrize("seed,n_sent,d", [(0, 20, 16), (7, 120, 100),
+                                            (2**32 + 5, 40, 8)])
+def test_initial_tables_are_the_reference_bits(ref, seed, n_sent, d):
+    """``reset_weights`` draws the reference's syn0 bit for bit (the same
+    vocabulary, ``(uniform(key(seed), (V, D)) - 0.5) / D``), with syn1 and
+    syn1neg zero as the reference's."""
+    sents = _synthetic_corpus(n_sent, seed=1)
+    port = Word2Vec(layer_size=d, seed=seed, device="cpu")
+    port.build_vocab(CollectionSentenceIterator(sents))
+    port.reset_weights()
+    r = ref.w2v.Word2Vec(layer_size=d, seed=seed)
+    r.build_vocab(ref.Sentences(sents))
+    r.reset_weights()
+    assert np.array_equal(port.syn0.numpy(), np.asarray(r.syn0))
+    for name in ("syn1", "syn1neg"):
+        assert getattr(port, name).shape == np.asarray(getattr(r, name)).shape
+        assert not getattr(port, name).any()
+
+
+def test_label_tables_are_the_reference_bits(ref):
+    """ParagraphVectors' label table is the reference's: ``(uniform(key(
+    seed + 1), (n_labels, D)) - 0.5) / D``, bit for bit."""
+    port = ParagraphVectors(layer_size=12, seed=3, device="cpu")
+    port.labels = {f"doc{i}": i for i in range(7)}
+    port._reset_label_weights()
+    want = (ref.jax.random.uniform(ref.jax.random.key(4), (7, 12))
+            - 0.5) / 12
+    assert np.array_equal(port.syn0_labels.numpy(), np.asarray(want))
 
 
 # -- the reference's behavioural tests (tests/test_nlp.py), on the port ------
