@@ -9,7 +9,7 @@ Phases, in order; any failure exits non-zero without printing a result:
    (all sources at once) and print the build time and the card;
 2. hold each kernel against its plain PyTorch version on the card, at the
    shapes the serving, training and decode-variant paths give it (phases
-   3-11 record the shape of every launch of #1-#5 and fail on one not held
+   3-12 record the shape of every launch of #1-#5 and fail on one not held
    here; #5 at every (B, L, D) of phase 6's fits, from their vocabularies
    built beforehand), and time kernel, plain
    version, bound and one library call (a yardstick the port never calls;
@@ -39,7 +39,7 @@ Phases, in order; any failure exits non-zero without printing a result:
    tokens and winning values bitwise, in engine mode (8 slot keys folded with
    positions 0 to 639, a grammar-masked row, a planted exact tie) and flat
    mode (B 1 and 4, and on speculative decoding's log-probabilities), at
-   V 50,304; phases 3-11 record the shape of every draw launch too; and
+   V 50,304; phases 3-12 record the shape of every draw launch too; and
    #1 at the batched admission's shapes: BH 12, 24 and 48 (groups of 2, 4
    and 8 prompts of 6 heads) at every prefill bucket (8 to 128), each
    6-row block of a BH 48 launch also bitwise a BH 6 launch of the same
@@ -176,6 +176,40 @@ Phases, in order; any failure exits non-zero without printing a result:
    kernels), ``trace-merge``; (e) ``serve``'s demo word2vec through
    ``/v1/embeddings`` (every vector the CPU model's, 400, 503), and
    generate streams unchanged by interleaved embedding requests.
+12. the fleet at that width, every server in this process on the one card
+   (TTFT numbers there are of a shared card): (a) the KV wire engine to
+   engine: prompts of 128-400 tokens exported by a prefill engine (128
+   through kernel #1, the rest through the chunk windows), framed,
+   decoded and ingested by a decode engine with the prefix cache; the
+   follow-up generates full-hit with 0 prefill dispatches (#1 silent
+   there) and the streams of a monolithic engine byte for byte, greedy
+   and T 0.8 top-k 40, in bf16 slab, bf16 paged (bs 8) and int8 full; the
+   disagg probe's verdict (a decline in bf16 slab fails), frame bytes and
+   encode, decode and ingest seconds per mode; (b) a ``FleetController``
+   over a prefill and a decode ``ServingServer`` beside a monolithic one
+   (threshold 128): long prompts take the transfer (0 prefill dispatches
+   on the decode side) with the monolithic tokens, a session follow-up
+   sticks, ``fleet_disagg_total``, ``fleet_sticky_total``,
+   ``serve_transfers_total{result="ok"}`` and
+   ``serve_kv_ingests_total{result="stored"}``, and the caller's TTFT
+   through the transfer against local prefill (measured only); (c) a
+   ``ReplicaRouter`` over two replicas: shared-prefix prompts pin to one,
+   others spread, a stopped replica's requests retry on the survivor and
+   its breaker opens, restarted it stays open under health polls and
+   only a forwarded request (the half-open probe, the survivor drained)
+   closes it; (d) ``POST /migrate`` mid-generation moves three live
+   sessions to another server (another master seed) and the original
+   clients get the uninterrupted run's streams byte for byte, greedy and
+   sampled; a sampling-surface session stays local; (e) a KV push
+   through a ``ChaosProxy`` that corrupts the request (refused, nothing
+   seated) and one that truncates the answer (``pushed: false``) fail
+   within their deadline, frames cut in half or with flipped header bytes
+   are 400s, and a controller whose decode member sits behind the proxy
+   falls back with the monolithic tokens; (f) the merged trace chains
+   controller dispatch -> export prefill -> transfer -> kv_ingest under
+   one trace id, with each transfer request's legs in ms. Every launch of
+   #1, #3/#4 and the draw in phase 12 is held by phase 2
+   (``check_launched``).
 
 The last lines are the kernel table as one JSON object, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -4730,6 +4764,611 @@ def phase_single_engine(card: str, workdir: Path) -> dict[str, dict[str, int]]:
     return runs
 
 
+# -- phase 12 ----------------------------------------------------------------
+
+#: 12a: exported prompt lengths (128, the hit grain, through #1's bucketed
+#: prefill; the rest past it, through the chunk windows), new tokens, seed
+WIRE_LENGTHS, WIRE_NEW = (128, 160, 224, 300, 400), 24
+#: 12b-12e: the controller's threshold (at least the port's hit grain, the
+#: largest prefill bucket: a shorter segment is not seatable), new tokens
+DISAGG_THRESHOLD, FLEET_NEW = 128, 16
+#: 12d: new tokens a migrated request, and the source's throttle a step
+#: check (so /migrate lands while the requests decode)
+MIGRATE_NEW, MIGRATE_DELAY_S = 64, 0.03
+
+
+def _wire_prompts(vocab: int, lengths, seed: int):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [rng.integers(1, vocab, n).astype(np.int32) for n in lengths]
+
+
+def _wire_frame(res: dict, gen=None) -> bytes:
+    from deeplearning4j_tpu_torch.serving.disagg import encode_segment
+
+    return encode_segment(config_hash=res["config_hash"],
+                          tokens=res["tokens"], leaves=res["leaves"],
+                          logits=res["logits"], layout=res["layout"],
+                          block_size=res["block_size"], gen=gen)
+
+
+def _counted(total: dict[str, int], fn):
+    """``fn()`` with every count set to 0 just before and read just after
+    (added to ``total``); returns (its result, the launches)."""
+    torch_sync()
+    reset_launches()
+    out = fn()
+    torch_sync()
+    launches = read_launches()
+    _add(total, launches)
+    return out, launches
+
+
+def _served(engine, reqs):
+    """Submit ``reqs`` and run the engine to idle; their streams."""
+    for r in reqs:
+        engine.submit(r)
+    res = engine.run()
+    return [res.get(r.id) for r in reqs]
+
+
+def phase12_wire(card: str, models, total) -> None:
+    """12a: prompts exported by a prefill engine, framed, decoded and
+    ingested by a decode engine with the prefix cache; the follow-up
+    generates full-hit (0 prefill dispatches, kernel #1 silent there) with
+    the streams of a monolithic engine, greedy and T 0.8 top-k 40, in bf16
+    slab, bf16 paged (bs 8) and int8 full; the disagg probe's verdict, the
+    frame bytes and the encode, decode and ingest seconds per mode."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.serving import (
+        KVExportRequest,
+        KVIngestRequest,
+        Request,
+    )
+    from deeplearning4j_tpu_torch.serving.disagg import decode_segment
+
+    tag = "phase 12a"
+    for mode in ("bf16 slab", "bf16 paged", "int8 full"):
+        cfg, params = models[mode == "int8 full"]
+        paged = mode == "bf16 paged"
+        decode_kernel = ("flash_decode_paged" if paged else
+                         "flash_decode_int8" if cfg.decode_int8
+                         else "flash_decode")
+        prompts = _wire_prompts(cfg.vocab_size, WIRE_LENGTHS, 12)
+        pf = phase8_engine(cfg, params, paged=paged)
+        exports = [KVExportRequest(prompt=p) for p in prompts]
+        t0 = time.perf_counter()
+        _, pf_l = _counted(total, lambda: _served(pf, exports))
+        export_s = time.perf_counter() - t0
+        _must(tag, all(r.status.value == "finished" for r in exports),
+              f"{mode}: an export failed: {[r.error for r in exports]}")
+        _must(tag, pf_l["flash_attn_fwd"] > 0,
+              f"{mode}: the 128-token export never ran kernel #1")
+        t0 = time.perf_counter()
+        frames = [_wire_frame(r.result) for r in exports]
+        encode_s = time.perf_counter() - t0
+        verdict = {"prefill": pf._disagg_ok()}
+        del pf
+        notes = []
+        for temp in (0.0, SAMPLE_T):
+            kw = dict(temperature=temp, top_k=SAMPLE_K if temp else None,
+                      rng_seed=12, paged=paged)
+            dc = phase8_engine(cfg, params, prefix_cache=True, **kw)
+            mono = phase8_engine(cfg, params, **kw)
+            t0 = time.perf_counter()
+            segs = [decode_segment(f, expect_hash=dc.config_hash)
+                    for f in frames]
+            decode_s = time.perf_counter() - t0
+            ingests = [KVIngestRequest(segment=s) for s in segs]
+            t0 = time.perf_counter()
+            _counted(total, lambda: _served(dc, ingests))
+            ingest_s = time.perf_counter() - t0
+            verdict["decode"] = dc._disagg_ok()
+            _must(tag, verdict["decode"] or mode != "bf16 slab",
+                  "the disagg probe declines in bf16 slab (the seat is a "
+                  "copy of the exported bytes)")
+            _must(tag, all(r.result["stored"] for r in ingests),
+                  f"{mode}: an ingest declined: "
+                  f"{[r.result['reason'] for r in ingests]}")
+            gens = [Request(prompt=p, max_new=WIRE_NEW) for p in prompts]
+            got, dc_l = _counted(total, lambda: _served(dc, gens))
+            _launch_check(f"{tag} {mode} T {temp} decode side", dc_l,
+                          [decode_kernel] + (["threefry_draw"] if temp
+                                             else []),
+                          ["flash_attn_fwd"])
+            _must(tag, dc.prefill_dispatches == 0,
+                  f"{mode}: {dc.prefill_dispatches} prefill dispatches on "
+                  f"the decode side")
+            refs = [Request(prompt=p, max_new=WIRE_NEW) for p in prompts]
+            ref, _ = _counted(total, lambda: _served(mono, refs))
+            same = sum(np.array_equal(a, b) for a, b in zip(ref, got))
+            notes.append(f"T {temp}: {same}/{len(prompts)} streams "
+                         f"byte-identical to the monolithic engine's")
+            _must(tag, same == len(prompts),
+                  f"{mode} T {temp}: transfer streams left the monolithic "
+                  f"ones")
+            del dc, mono
+        n = len(frames)
+        log(f"{tag} {mode}: disagg probe {verdict}; {n} frames of "
+            f"{len(frames[0])} bytes (prompts {list(WIRE_LENGTHS)}); "
+            f"export {export_s:.4f} s (prefill + host copy), encode "
+            f"{encode_s / n:.4f} s, decode {decode_s / n:.4f} s a frame, "
+            f"ingest {ingest_s:.4f} s for {n}; 0 prefill dispatches on the "
+            f"decode side; {'; '.join(notes)} [{card}]")
+        import torch
+
+        torch.cuda.empty_cache()
+
+
+def _fleet_post(addr, path: str, body: dict, timeout: float = 120.0,
+                headers=None):
+    """POST JSON; (status, answer, X-Served-By, wall s)."""
+    import http.client
+
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection(*addr, timeout=timeout)
+    try:
+        conn.request("POST", path, body=json.dumps(body).encode(),
+                     headers={"Content-Type": "application/json",
+                              **(headers or {})})
+        r = conn.getresponse()
+        raw = r.read()
+        try:
+            out = json.loads(raw)
+        except ValueError:
+            out = {"raw": raw[:200].decode("latin-1")}
+        return (r.status, out, r.getheader("X-Served-By"),
+                time.perf_counter() - t0)
+    finally:
+        conn.close()
+
+
+def _prom_value(text: str, series: str) -> float:
+    for line in text.splitlines():
+        if line.startswith(series + " "):
+            return float(line.split()[-1])
+    return float("nan")
+
+
+def _metrics_text(srv) -> str:
+    base = "http://%s:%d" % srv.address
+    with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+        return r.read().decode()
+
+
+def _wait_health(ctl, name: str, timeout: float = 30.0) -> None:
+    t0 = time.monotonic()
+    while ctl._member(name).last_health is None:
+        _must("phase 12", time.monotonic() - t0 < timeout,
+              f"no health poll of {name}")
+        time.sleep(0.02)
+
+
+def phase12_fleet(card: str, cfg, params, total) -> None:
+    """12b: one controller over a prefill and a decode ``ServingServer``
+    beside a monolithic one (disagg threshold 128): long prompts take the
+    transfer (0 prefill dispatches on the decode replica) with the
+    monolithic server's tokens, a session follow-up sticks, the fleet and
+    wire counters, and the caller's TTFT through the transfer against
+    local prefill (measured only; the servers share one card). 12e: a KV
+    push through a chaos proxy that corrupts (the receiver's HTTP layer
+    refuses it, nothing seated) and one that truncates the answer
+    (``pushed: false``) fail clean within the deadline; frames cut in half
+    or with flipped header bytes are 400s; a controller whose decode
+    member sits behind the proxy falls back with the monolithic tokens.
+    12f: the merged trace chains controller dispatch -> export prefill ->
+    transfer -> kv_ingest under one trace id."""
+    import collections
+    import http.client
+    import threading
+
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.obs import Tracer, merge_traces
+    from deeplearning4j_tpu_torch.obs.trace import (
+        format_traceparent,
+        new_span_id,
+        new_trace_id,
+    )
+    from deeplearning4j_tpu_torch.serving import (
+        ChaosProxy,
+        FleetController,
+        KVExportRequest,
+        ServingServer,
+    )
+
+    tag = "phase 12b"
+    tr = {k: Tracer(process_name=k) for k in ("prefill", "decode",
+                                              "controller")}
+    pf = ServingServer(phase8_engine(cfg, params, tracer=tr["prefill"]),
+                       port=0).start()
+    dc_eng = phase8_engine(cfg, params, prefix_cache=True,
+                           tracer=tr["decode"])
+    dc = ServingServer(dc_eng, port=0).start()
+    mono = ServingServer(phase8_engine(cfg, params), port=0).start()
+    ctl = ctl2 = proxy = None
+    torch_sync()
+    reset_launches()
+    try:
+        ctl = FleetController(
+            [pf.address + ("prefill",), dc.address + ("decode",)],
+            disagg_threshold=DISAGG_THRESHOLD, affinity_min_match=16,
+            health_interval_s=0.2, tracer=tr["controller"]).start()
+        prompts = _wire_prompts(cfg.vocab_size, (160, 257, 300), 13)
+        ttft = {"transfer": [], "local": []}
+        trace_ids = [new_trace_id() for _ in prompts]
+        for i, p in enumerate(prompts):
+            body = {"prompt": p.tolist(), "max_new": FLEET_NEW}
+            st, out, served, wall = _fleet_post(
+                ctl.address, "/v1/generate", {**body, "session": f"s{i}"},
+                headers={"traceparent": format_traceparent(
+                    trace_ids[i], new_span_id())})
+            _must(tag, st == 200 and served == dc.name,
+                  f"generate through the controller: {st} {served} {out}")
+            st2, ref, _, wall2 = _fleet_post(mono.address, "/v1/generate",
+                                             body)
+            _must(tag, st2 == 200 and out["tokens"] == ref["tokens"],
+                  f"prompt {i}: the transfer's tokens left the monolithic "
+                  f"server's")
+            ttft["transfer"].append(wall - out["timing"]["decode_s"])
+            ttft["local"].append(wall2 - ref["timing"]["decode_s"])
+        _must(tag, dc_eng.prefill_dispatches == 0,
+              f"{dc_eng.prefill_dispatches} prefill dispatches on the "
+              f"decode replica")
+        st, _, served, _ = _fleet_post(
+            ctl.address, "/v1/generate",
+            {"prompt": prompts[0][:32].tolist(), "max_new": 4,
+             "session": "s0"})
+        _must(tag, st == 200 and served == dc.name, "the session follow-up "
+              "left its replica")
+        prom = ctl.registry.render()
+        ptext, dtext = _metrics_text(pf), _metrics_text(dc)
+        counters = {
+            "fleet_disagg_total": _prom_value(prom, "fleet_disagg_total"),
+            "fleet_sticky_total": _prom_value(prom, "fleet_sticky_total"),
+            "fleet_transfer_fallback_total": _prom_value(
+                prom, "fleet_transfer_fallback_total"),
+            'serve_transfers_total{result="ok"}': _prom_value(
+                ptext, 'serve_transfers_total{result="ok"}'),
+            'serve_kv_ingests_total{result="stored"}': _prom_value(
+                dtext, 'serve_kv_ingests_total{result="stored"}'),
+        }
+        want = {"fleet_disagg_total": 3, "fleet_sticky_total": 1,
+                "fleet_transfer_fallback_total": 0,
+                'serve_transfers_total{result="ok"}': 3,
+                'serve_kv_ingests_total{result="stored"}': 3}
+        _must(tag, counters == want, f"counters {counters}, want {want}")
+        med = {k: float(np.median(v)) * 1e3 for k, v in ttft.items()}
+        log(f"{tag}: 3 long prompts ({[len(p) for p in prompts]} tokens) "
+            f"through the transfer, tokens equal to the monolithic "
+            f"server's, 0 prefill dispatches on the decode replica, the "
+            f"follow-up sticky; {counters}; caller TTFT p50 (wall - "
+            f"decode_s) transfer {med['transfer']:.2f} ms against local "
+            f"prefill {med['local']:.2f} ms (every value: "
+            f"{[round(x * 1e3, 2) for x in ttft['transfer']]} / "
+            f"{[round(x * 1e3, 2) for x in ttft['local']]}; the servers "
+            f"share one card and its default stream) [{card}]")
+
+        tag = "phase 12e"
+        proxy = ChaosProxy(dc.address, seed=12)
+        ctl2 = FleetController(
+            [pf.address + ("prefill",), ("127.0.0.1", proxy.port, "decode")],
+            disagg_threshold=DISAGG_THRESHOLD, health_interval_s=600.0
+        ).start()
+        _wait_health(ctl2, proxy.address)
+        deadline = {"X-Deadline-Ms": "20000"}
+        notes = []
+        for j, fault in enumerate(("corrupt", "truncate")):
+            p = _wire_prompts(cfg.vocab_size, (200,), 20 + j)[0].tolist()
+            stored0 = dc_eng.metrics.n_kv_ingests_stored
+            proxy.plan(fault, at=proxy.n_connections)
+            st, out, _, wall = _fleet_post(
+                pf.address, "/v1/prefill",
+                {"prompt": p, "push_to": proxy.address}, headers=deadline)
+            _must(tag, st == 200 and out.get("pushed") is False
+                  and wall < 20.0, f"{fault}: {st} {out} in {wall:.2f} s")
+            err = out.get("ingest", {}).get("error", "")
+            if fault == "corrupt":
+                # the mangled head gets an HTTP error or a closed
+                # connection, never a seat
+                _must(tag, bool(err)
+                      and dc_eng.metrics.n_kv_ingests_stored == stored0,
+                      f"corrupt push not refused: {err}")
+            proxy.plan(fault, at=proxy.n_connections)
+            st, gen, served, wall2 = _fleet_post(
+                ctl2.address, "/v1/generate",
+                {"prompt": p, "max_new": FLEET_NEW}, headers=deadline)
+            st2, ref, _, _ = _fleet_post(mono.address, "/v1/generate",
+                                         {"prompt": p, "max_new": FLEET_NEW})
+            _must(tag, st == 200 and gen["tokens"] == ref["tokens"]
+                  and wall2 < 20.0,
+                  f"{fault}: the fallback generate {st} in {wall2:.2f} s")
+            notes.append(f"{fault}: push {wall:.3f} s, pushed false "
+                         f"({err or 'no answer'}); generate through the "
+                         f"controller {wall2:.3f} s, monolithic tokens")
+        fallbacks = _prom_value(ctl2.registry.render(),
+                                "fleet_transfer_fallback_total")
+        _must(tag, fallbacks == 2, f"{fallbacks} transfer fallbacks, want 2")
+        req = KVExportRequest(prompt=np.asarray(p, np.int32),
+                              done=threading.Event())
+        pf.engine.submit(req)
+        _must(tag, req.done.wait(60), "the export never finished")
+        frame = _wire_frame(req.result)
+        mangled = bytearray(frame)
+        for i in range(10, 26):
+            mangled[i] ^= 0xFF
+        codes = []
+        for bad in (frame[:len(frame) // 2], bytes(mangled)):
+            conn = http.client.HTTPConnection(*dc.address, timeout=60)
+            try:
+                conn.request("POST", "/v1/kv_segment", body=bad)
+                codes.append(conn.getresponse().status)
+            finally:
+                conn.close()
+        _must(tag, codes == [400, 400], f"bad frames answered {codes}")
+        log(f"{tag}: {'; '.join(notes)}; fallbacks {fallbacks:g}; a frame "
+            f"cut in half and one with flipped header bytes answered "
+            f"{codes}; the proxy's counts {proxy.counts} [{card}]")
+    finally:
+        for s in (ctl, ctl2, proxy, pf, dc, mono):
+            if s is not None:
+                s.stop()
+    torch_sync()
+    _add(total, read_launches())
+
+    tag = "phase 12f"
+    merged = merge_traces([tr["controller"].chrome_trace(),
+                           tr["prefill"].chrome_trace(),
+                           tr["decode"].chrome_trace()])
+    evs = [e for e in merged["traceEvents"] if e.get("ph") == "X"]
+    by_span = {e["args"]["span_id"]: e for e in evs
+               if "span_id" in e.get("args", {})}
+    transfer = next((e for e in evs if e["name"] == "transfer"), None)
+    _must(tag, transfer is not None, "no transfer span")
+    export = by_span.get(transfer["args"].get("parent_span_id"))
+    ingest = next((e for e in evs if e["name"] == "kv_ingest"
+                   and e["args"].get("parent_span_id")
+                   == transfer["args"]["span_id"]), None)
+    dispatch = by_span.get((export or {}).get("args", {}).get(
+        "parent_span_id"))
+    tid = transfer["args"]["trace_id"]
+    chain = (export is not None and export["name"] == "prefill"
+             and export["args"].get("prefix") == "export"
+             and ingest is not None and dispatch is not None
+             and dispatch["name"] == "dispatch"
+             and export["args"]["trace_id"] == tid
+             and ingest["args"]["trace_id"] == tid
+             and dispatch["args"]["trace_id"] == tid)
+    _must(tag, chain, "the merged trace does not chain dispatch -> export "
+          "-> transfer -> kv_ingest")
+    # each transfer request's legs (ms): the controller's prefill-leg and
+    # decode-leg dispatches, the export's prefill, the push, the ingest
+    legs = []
+    for t in trace_ids:
+        mine = [e for e in evs if e.get("args", {}).get("trace_id") == t]
+        legs.append({
+            "/".join(str(x) for x in (e["name"], e["args"].get("leg")
+                                      or e["args"].get("prefix")) if x):
+            round(e["dur"] / 1e3, 2) for e in mine})
+    log(f"{tag}: merged trace of {len(evs)} spans over 3 processes; "
+        f"dispatch -> prefill(export) -> transfer -> kv_ingest under trace "
+        f"{tid[:8]}...; the transfer requests' spans (ms) {legs}; spans by "
+        f"name "
+        f"{dict(sorted(collections.Counter(e['name'] for e in evs).items()))}")
+
+
+def phase12_router(card: str, cfg, params, total) -> None:
+    """12c: a ``ReplicaRouter`` over two replicas with the prefix cache:
+    shared-prefix prompts pin to one replica, other prompts spread; a
+    stopped replica's requests retry on the survivor and its breaker
+    opens; restarted on its port, health polls leave the breaker open and,
+    once the survivor drains, a forwarded request (the half-open probe)
+    closes it."""
+    from deeplearning4j_tpu_torch.serving import ReplicaRouter, ServingServer
+    from deeplearning4j_tpu_torch.serving.rpc import CLOSED, OPEN
+
+    tag = "phase 12c"
+    servers = [ServingServer(phase8_engine(cfg, params, prefix_cache=True),
+                             port=0).start() for _ in range(2)]
+    router = ReplicaRouter([s.address for s in servers],
+                           affinity_min_match=16,
+                           health_interval_s=600.0).start()
+    revived = None
+    torch_sync()
+    reset_launches()
+    try:
+        spread = set()
+        for p in _wire_prompts(cfg.vocab_size, (24, 40, 56, 72), 30):
+            st, out, served, _ = _fleet_post(
+                router.address, "/v1/generate",
+                {"prompt": p.tolist(), "max_new": 8})
+            _must(tag, st == 200, f"{st} {out}")
+            spread.add(served)
+        system = _wire_prompts(cfg.vocab_size, (64,), 31)[0].tolist()
+        pinned = set()
+        for tail in _wire_prompts(cfg.vocab_size, (8, 12, 16, 20), 32):
+            st, out, served, _ = _fleet_post(
+                router.address, "/v1/generate",
+                {"prompt": system + tail.tolist(), "max_new": 8})
+            _must(tag, st == 200, f"{st} {out}")
+            pinned.add(served)
+        _must(tag, len(spread) == 2 and len(pinned) == 1,
+              f"spread over {spread}, shared prefix over {pinned}")
+        name = pinned.pop()
+        victim = next(s for s in servers if s.name == name)
+        survivor = next(s for s in servers if s is not victim)
+        host, port = victim.address
+        victim.stop()
+        retried = set()
+        for k in range(3):
+            st, _, served, _ = _fleet_post(
+                router.address, "/v1/generate",
+                {"prompt": system + [k + 1] * 4, "max_new": 4})
+            _must(tag, st == 200, f"retry {k}: {st}")
+            retried.add(served)
+        for _ in range(3):
+            router.poll_health()
+        state = router.replica_states()[name]
+        _must(tag, retried == {survivor.name} and not state["healthy"]
+              and state["breaker"]["state"] == OPEN,
+              f"after the stop: served by {retried}, {state}")
+        revived = ServingServer(phase8_engine(cfg, params), host=host,
+                                port=port).start()
+        router.poll_health()
+        state = router.replica_states()[name]
+        _must(tag, state["healthy"] and state["breaker"]["state"] == OPEN,
+              f"a health poll closed the breaker: {state}")
+        _fleet_post(survivor.address, "/drain", {})
+        router.poll_health()
+        t0 = time.monotonic()
+        probe_served = None
+        while router.replica_states()[name]["breaker"]["state"] != CLOSED:
+            _must(tag, time.monotonic() - t0 < 30.0, "the breaker never "
+                  "closed")
+            time.sleep(0.25)
+            st, _, probe_served, _ = _fleet_post(
+                router.address, "/v1/generate",
+                {"prompt": system[:16], "max_new": 4})
+        _fleet_post(survivor.address, "/undrain", {})
+        with urllib.request.urlopen("http://%s:%d/metrics" % router.address,
+                                    timeout=60) as r:
+            rtext = r.read().decode()
+        retries = _prom_value(rtext, "router_retries_total")
+        affinity = _prom_value(rtext, "router_affinity_total")
+        _must(tag, retries >= 1, f"router_retries_total {retries}")
+        log(f"{tag}: 4 distinct prompts over {len(spread)} replicas, 4 "
+            f"shared-prefix prompts on one ({name}); the stopped replica's "
+            f"3 requests served by the survivor, its breaker open; "
+            f"restarted, a health poll left it open; with the survivor "
+            f"drained the probe request (served by {probe_served}) closed "
+            f"it; router_retries_total {retries:g}, router_affinity_total "
+            f"{affinity:g} [{card}]")
+    finally:
+        for s in (router, *servers, revived):
+            if s is not None:
+                s.stop()
+    torch_sync()
+    _add(total, read_launches())
+
+
+def phase12_migrate(card: str, cfg, params, total) -> None:
+    """12d: ``POST /migrate`` mid-generation moves the live sessions of a
+    source server (throttled so they are still decoding) to a destination
+    with another master seed; the original clients get the uninterrupted
+    run's streams byte for byte, greedy and T 0.8 top-k 40. A session using
+    the sampling surface stays local (``export_sessions`` skips it)."""
+    import threading
+
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.serving import (
+        FaultInjector,
+        Request,
+        ServingServer,
+    )
+
+    tag = "phase 12d"
+    prompts = _wire_prompts(cfg.vocab_size, (64, 140, 200), 40)
+    notes = []
+    torch_sync()
+    reset_launches()
+    for temp in (0.0, SAMPLE_T):
+        kw = dict(temperature=temp, top_k=SAMPLE_K if temp else None)
+        src_eng = phase8_engine(cfg, params, rng_seed=5,
+                                faults=FaultInjector(delay_s=MIGRATE_DELAY_S),
+                                **kw)
+        dst_eng = phase8_engine(cfg, params, rng_seed=99, **kw)
+        dst = ServingServer(dst_eng, port=0).start()
+        src = ServingServer(src_eng, port=0,
+                            migrate_targets=("%s:%d" % dst.address,)).start()
+        outs: dict[int, tuple] = {}
+        threads = []
+        try:
+            for i, p in enumerate(prompts):
+                t = threading.Thread(target=lambda i=i, p=p: outs.update(
+                    {i: _fleet_post(src.address, "/v1/generate",
+                                    {"prompt": p.tolist(),
+                                     "max_new": MIGRATE_NEW})}))
+                t.start()
+                threads.append(t)
+                t0 = time.monotonic()
+                while sum(st is not None for st in src_eng._slots) <= i:
+                    _must(tag, time.monotonic() - t0 < 30, "not admitted")
+                    time.sleep(0.002)
+            t_mig = time.perf_counter()
+            st, res, _, _ = _fleet_post(src.address, "/migrate", {})
+            mig_s = time.perf_counter() - t_mig
+            for t in threads:
+                t.join(timeout=120)
+            _must(tag, st == 200 and res.get("exported") == len(prompts)
+                  and res.get("migrated") == len(prompts),
+                  f"/migrate answered {st} {res}")
+        finally:
+            src.stop()
+            dst.stop()
+        mono = phase8_engine(cfg, params, rng_seed=5, **kw)
+        ref = _served(mono, [Request(prompt=p, max_new=MIGRATE_NEW)
+                             for p in prompts])
+        same = sum(outs[i][0] == 200
+                   and np.array_equal(outs[i][1]["tokens"], ref[i])
+                   for i in range(len(prompts)))
+        _must(tag, same == len(prompts), f"T {temp}: {same}/{len(prompts)} "
+              f"migrated streams equal the uninterrupted run")
+        seated = dst_eng.metrics.n_migrations_seated
+        notes.append(f"T {temp}: {res['exported']} sessions exported and "
+                     f"seated ({seated}) in {mig_s:.3f} s, {same}/"
+                     f"{len(prompts)} streams the uninterrupted run's")
+        del src_eng, dst_eng, mono
+    eng = phase8_engine(cfg, params, sampling_surface=True)
+    req = Request(prompt=prompts[0], max_new=MIGRATE_NEW, top_k=SAMPLE_K)
+    eng.submit(req)
+    for _ in range(50):
+        eng.step()
+        st = next((s for s in eng._slots if s is not None), None)
+        if st is not None and len(st.tokens) >= 2:
+            break
+    local = eng.export_sessions()
+    _must(tag, local == [] and any(s is not None and s.req is req
+                                   for s in eng._slots),
+          "a sampling-surface session was exported")
+    eng.run()
+    torch_sync()
+    _add(total, read_launches())
+    log(f"{tag}: {'; '.join(notes)}; a sampling-surface session stayed "
+        f"local ({req.status.value}) [{card}]")
+
+
+def phase_fleet(card: str) -> dict[str, dict[str, int]]:
+    """Phase 12: the KV wire, the fleet controller, the router, live
+    migration and chaos at GPT-2-small's width (phase 3's model, 8 slots,
+    max_total 640, K 4); fails on a launch at a shape phase 2 did not
+    hold."""
+    import torch
+
+    t0 = time.perf_counter()
+    models = (serve_model(False), serve_model(True))
+    cfg, params = models[0]
+    runs = {k: {} for k in ("wire", "fleet", "router", "migrate")}
+    with launched_shapes() as seen:
+        for name, fn in (("wire", lambda c, t: phase12_wire(c, models, t)),
+                         ("fleet", lambda c, t: phase12_fleet(c, cfg, params,
+                                                              t)),
+                         ("router", lambda c, t: phase12_router(
+                             c, cfg, params, t)),
+                         ("migrate", lambda c, t: phase12_migrate(
+                             c, cfg, params, t))):
+            t1 = time.perf_counter()
+            fn(card, runs[name])
+            log(f"phase 12 {name}: {time.perf_counter() - t1:.1f} s")
+            torch.cuda.empty_cache()
+    log(f"phase 12: {time.perf_counter() - t0:.1f} s wall; launches "
+        f"{ {k: v for k, v in runs.items()} } [{card}]")
+    check_launched("phase 12", seen)
+    return {f"fleet_{k}": v for k, v in runs.items()}
+
+
 def main() -> int:
     try:
         import torch
@@ -4779,6 +5418,7 @@ def main() -> int:
         by_phase.update(phase_single_engine(card, workdir))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    by_phase.update(phase_fleet(card))
     kernels = [
         dict(name=name, route="cuda", **KERNELS[name],
              launches=sum(p[name] for p in by_phase.values()),

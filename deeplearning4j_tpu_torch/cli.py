@@ -27,7 +27,8 @@ prefill, ``--chaos-rate P [--chaos-seed S]`` seeded transient faults
 [--grammar-states N] [--grammar-cache DIR]`` the per-request sampling and
 grammar surface, ``--tenants PATH`` the tenant registry (a JSON file) and
 ``--lora-adapters N [--lora-rank R] [--lora-seed S]`` a batched-LoRA bank
-of random demo adapters, as the reference's flags do. ``--adaptive-horizon``
+of random demo adapters, and ``--migrate-target HOST:PORT`` (repeatable) the
+peers a drain migrates live sessions to, as the reference's flags do. ``--adaptive-horizon``
 drops the decode horizon to 1 while requests wait, ``--probe-cache PATH``
 persists probe verdicts (``off`` disables), ``--embed-models word2vec``
 serves ``POST /v1/embeddings`` over the reference's demo vocabulary, and
@@ -37,7 +38,11 @@ the observability flags are the reference's: ``--trace-out PATH``
 lines), ``--metrics-port P`` (the scrape sidecar), ``--profile-dir DIR``
 and ``--profile-steps N`` (``torch.profiler`` captures, also armed by
 ``POST /profile?s=N``). ``trace-merge A.json B.json -o OUT`` stitches
-``--trace-out`` exports into one Perfetto document. Sampling takes the
+``--trace-out`` exports into one Perfetto document. ``router --replica
+HOST:PORT ...`` runs the prefix-affinity replica router and ``controller
+--replica HOST:PORT=ROLE ...`` the disaggregated fleet controller (the
+reference's flags but ``--sanitize``; ``--port-file PATH`` writes the bound
+address); neither loads a model or imports ``torch``. Sampling takes the
 reference's threefry key stream: ``generate --seed S`` is ``key(S)``,
 ``serve --seed S`` the engine's master key. Every command runs on
 ``cuda`` unless ``--device cpu`` is given.
@@ -47,11 +52,11 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
 import sys
 import tempfile
-
-import torch
+import time
 
 #: GPT-2-small serving geometry (the JAX bench's "transformer" preset:
 #: 6 heads of 128, bf16, 50304-token vocabulary) with GPT-2's 1024 positions
@@ -64,6 +69,8 @@ PRESETS = {
 def _cfg_from_args(args):
     """ONE flags -> config recipe for train and serve, as the reference's
     ``_transformer_cfg_from_args``."""
+    import torch
+
     from deeplearning4j_tpu_torch.models.transformer import TransformerConfig
 
     remat = getattr(args, "remat", False)
@@ -109,6 +116,7 @@ _DEMO_TEXT = (
 
 def cmd_train(args) -> int:
     import numpy as np
+    import torch
 
     from deeplearning4j_tpu_torch.models.transformer import (
         lm_optimizer,
@@ -264,6 +272,7 @@ def cmd_generate(args) -> int:
     newest checkpoint, byte-level as ``train``, printing the reference's
     lines."""
     import numpy as np
+    import torch
 
     from deeplearning4j_tpu_torch.models.transformer import (
         transformer_beam_search,
@@ -471,7 +480,8 @@ def cmd_serve(args) -> int:
     server = ServingServer(engine, host=args.host, port=args.port,
                            request_timeout_s=args.request_timeout,
                            metrics_port=args.metrics_port,
-                           flight_dir=args.flight_dir)
+                           flight_dir=args.flight_dir,
+                           migrate_targets=tuple(args.migrate_target or ()))
     host, port = server.address
     # the process track named after the bound address, so trace-merge
     # tells the servers apart
@@ -492,13 +502,151 @@ def cmd_serve(args) -> int:
           f"{' (adaptive)' if args.adaptive_horizon else ''}, "
           f"queue depth {args.max_queue})", flush=True)
     try:
-        server.serve_forever(drain_s=args.drain_s)
+        kw = {}
+        if args.port_file:
+            kw["on_start"] = lambda: _write_port_file(args.port_file, host,
+                                                      port)
+        server.serve_forever(drain_s=args.drain_s, **kw)
     finally:
         if args.trace_out:
             out = tracer.export(args.trace_out)
             print(f"trace: {tracer.n_events} events "
                   f"({tracer.dropped} dropped) -> {out}", flush=True)
     return 0
+
+
+def _write_port_file(path: str, host: str, port: int) -> None:
+    """The bound address as JSON, written atomically (a harness polling
+    for the file never reads half of it)."""
+    tmp = f"{path}.tmp"
+    with open(tmp, "w", encoding="utf-8") as f:
+        json.dump({"host": host, "port": port}, f)
+    os.replace(tmp, path)
+
+
+def _announce_and_serve(svc, args, kind: str, tracer) -> int:
+    """Run a router or controller until Ctrl-C or SIGTERM: with
+    ``--port-file`` it writes its bound address there as JSON (atomically)
+    once listening; the trace goes to ``--trace-out`` at shutdown."""
+    host, port = svc.address
+    tracer.process_name = f"{kind} {host}:{port}"
+    try:
+        if args.port_file:
+            svc.start()
+            _write_port_file(args.port_file, host, port)
+            try:
+                while True:
+                    time.sleep(1)
+            except KeyboardInterrupt:
+                pass
+            finally:
+                svc.stop()
+        else:
+            svc.serve_forever()
+    finally:
+        if args.trace_out:
+            out = tracer.export(args.trace_out)
+            print(f"trace: {tracer.n_events} events "
+                  f"({tracer.dropped} dropped) -> {out}", flush=True)
+    return 0
+
+
+def cmd_router(args) -> int:
+    """The prefix-affinity replica router in front of N running ``serve``
+    processes (``serving/router.py``): it loads no model and imports no
+    torch."""
+    from deeplearning4j_tpu_torch.obs.logs import configure_json_logging
+    from deeplearning4j_tpu_torch.obs.trace import Tracer
+    from deeplearning4j_tpu_torch.serving.router import ReplicaRouter
+
+    if args.log_json:
+        configure_json_logging()
+    tracer = Tracer(enabled=args.trace_out is not None,
+                    capacity=args.trace_capacity, process_name="router")
+    try:
+        router = ReplicaRouter(
+            args.replica, host=args.host, port=args.port,
+            affinity_min_match=args.affinity_min_match,
+            health_interval_s=args.health_interval,
+            request_timeout_s=args.request_timeout, tracer=tracer,
+            flight_dir=args.flight_dir)
+    except ValueError as e:
+        print(f"router: {e}", file=sys.stderr)
+        return 2
+    host, port = router.address
+    names = ", ".join(r.name for r in router.replicas)
+    print(f"routing on http://{host}:{port} -> [{names}]  "
+          f"(affinity >= {args.affinity_min_match} tokens, "
+          f"health poll {args.health_interval:g}s)", flush=True)
+    return _announce_and_serve(router, args, "router", tracer)
+
+
+def cmd_controller(args) -> int:
+    """The disaggregated-fleet controller in front of N running ``serve``
+    processes with roles (``serving/controller.py``): prompts of
+    ``--disagg-threshold`` tokens or more (and at least the decode
+    replica's hit grain) prefill on a prefill replica and their KV segment
+    is pushed to the decode replica; the rest, and every failed transfer,
+    prefill on the decode replica."""
+    from deeplearning4j_tpu_torch.obs.logs import configure_json_logging
+    from deeplearning4j_tpu_torch.obs.trace import Tracer
+    from deeplearning4j_tpu_torch.serving.controller import (
+        FleetController,
+        RoleBalancer,
+    )
+
+    if args.log_json:
+        configure_json_logging()
+    tracer = Tracer(enabled=args.trace_out is not None,
+                    capacity=args.trace_capacity, process_name="controller")
+    try:
+        controller = FleetController(
+            args.replica, host=args.host, port=args.port,
+            disagg_threshold=args.disagg_threshold,
+            affinity_min_match=args.affinity_min_match,
+            health_interval_s=args.health_interval,
+            request_timeout_s=args.request_timeout,
+            rebalance=RoleBalancer(threshold=args.rebalance_threshold,
+                                   windows=args.rebalance_windows,
+                                   dwell_s=args.rebalance_dwell),
+            rebalance_enabled=not args.no_rebalance,
+            hedge_enabled=not args.no_hedge, journal=args.journal,
+            standby_of=args.standby_of, failover_after=args.failover_after,
+            tracer=tracer, flight_dir=args.flight_dir)
+    except ValueError as e:
+        print(f"controller: {e}", file=sys.stderr)
+        return 2
+    host, port = controller.address
+    roles = ", ".join(f"{m.name}={m.role}" for m in controller.members)
+    print(f"fleet control on http://{host}:{port} -> [{roles}]  "
+          f"(disagg >= {args.disagg_threshold} tokens, "
+          f"health poll {args.health_interval:g}s)", flush=True)
+    return _announce_and_serve(controller, args, "controller", tracer)
+
+
+def _add_fleet_flags(ap, what: str) -> None:
+    """The flags the router and the controller share (the reference's)."""
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=8000)
+    ap.add_argument("--affinity-min-match", type=int, default=8,
+                    help="shared-prefix tokens before affinity overrides "
+                    "least-loaded dispatch")
+    ap.add_argument("--health-interval", type=float, default=0.5,
+                    help="seconds between /healthz polls of each replica")
+    ap.add_argument("--request-timeout", type=float, default=300.0)
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help=f"enable the {what}'s dispatch tracer and write "
+                    "its Chrome trace to PATH on shutdown (merge with the "
+                    "replicas' by trace-merge)")
+    ap.add_argument("--trace-capacity", type=int, default=1 << 16,
+                    help="tracer ring-buffer size in events")
+    ap.add_argument("--flight-dir", default=None, metavar="DIR",
+                    help=f"write the {what}'s flight-recorder bundle to DIR "
+                    "on SIGTERM; GET /debug/dump serves the live one")
+    ap.add_argument("--log-json", action="store_true")
+    ap.add_argument("--port-file", default=None, metavar="PATH",
+                    help="write the bound address as JSON to PATH once "
+                    "listening (for harnesses using --port 0)")
 
 
 def cmd_trace_merge(args) -> int:
@@ -648,6 +796,14 @@ def build_parser() -> argparse.ArgumentParser:
                    "shutdown")
     v.add_argument("--trace-capacity", type=int, default=1 << 16,
                    help="tracer ring-buffer size in events")
+    v.add_argument("--port-file", default=None, metavar="PATH",
+                   help="write the bound address as JSON to PATH once "
+                   "listening (for harnesses using --port 0)")
+    v.add_argument("--migrate-target", action="append", default=None,
+                   metavar="HOST:PORT",
+                   help="peer replica eligible to re-seat this replica's "
+                   "in-flight sessions on drain (POST /migrate also takes "
+                   "explicit targets); repeat per peer")
     v.add_argument("--flight-dir", default=None, metavar="DIR",
                    help="write flight-recorder bundles (redacted JSON "
                    "postmortems) to DIR on an engine crash, a watchdog "
@@ -753,6 +909,57 @@ def build_parser() -> argparse.ArgumentParser:
                    help="seed of the demo LoRA bank (threefry key(seed), "
                    "the reference's bank up to erfinv's last ulps)")
     v.set_defaults(fn=cmd_serve)
+
+    r = sub.add_parser(
+        "router",
+        help="prefix-affinity router over N running serve replicas "
+        "(least-loaded dispatch, per-replica health, crash retry)")
+    r.add_argument("--replica", action="append", required=True,
+                   metavar="HOST:PORT",
+                   help="one backend serve address; repeat per replica")
+    _add_fleet_flags(r, "router")
+    r.set_defaults(fn=cmd_router)
+
+    c = sub.add_parser(
+        "controller",
+        help="disaggregated-fleet controller over N serve replicas with "
+        "prefill/decode roles (KV-segment transfer for long prompts, "
+        "session stickiness, role rebalancing, rolling-restart drains)")
+    c.add_argument("--replica", action="append", required=True,
+                   metavar="HOST:PORT[=ROLE]",
+                   help="one backend serve address with an optional role "
+                   "(prefill|decode|monolithic, default monolithic); "
+                   "repeat per replica")
+    _add_fleet_flags(c, "controller")
+    c.add_argument("--disagg-threshold", type=int, default=64, metavar="N",
+                   help="prompt length (tokens) from which a request takes "
+                   "the prefill -> transfer -> decode path; a decode "
+                   "replica's hit grain (the largest prefill bucket, from "
+                   "its /healthz) raises it for that replica")
+    c.add_argument("--rebalance-threshold", type=float, default=2.0,
+                   help="pressure ratio (queue depth + SLO burn) one role "
+                   "pool must exceed over the other before a role flip")
+    c.add_argument("--rebalance-windows", type=int, default=3,
+                   help="consecutive imbalanced samples before a flip")
+    c.add_argument("--rebalance-dwell", type=float, default=30.0,
+                   help="minimum seconds between role flips")
+    c.add_argument("--no-rebalance", action="store_true",
+                   help="no automatic role rebalancing (POST /fleet/role "
+                   "still moves roles)")
+    c.add_argument("--no-hedge", action="store_true",
+                   help="no hedged second attempt on the idempotent "
+                   "KV-transfer leg (generate legs are never hedged)")
+    c.add_argument("--journal", default=None, metavar="PATH",
+                   help="journal roles, stickiness and breaker state to "
+                   "PATH so a warm standby can take over")
+    c.add_argument("--standby-of", default=None, metavar="HOST:PORT",
+                   help="run as a warm standby of the primary at HOST:PORT "
+                   "(503 to all traffic), promoting from --journal after "
+                   "--failover-after missed health checks")
+    c.add_argument("--failover-after", type=int, default=3,
+                   help="consecutive missed primary health checks before a "
+                   "standby promotes itself")
+    c.set_defaults(fn=cmd_controller)
 
     m = sub.add_parser(
         "trace-merge",

@@ -165,9 +165,13 @@ def split(k, n: int = 2) -> list[Key]:
 
 
 def fold_in(k, data: int) -> Key:
-    """``jax.random.fold_in(k, data)``."""
+    """``jax.random.fold_in(k, data)``: ``data`` in [0, 2^32);
+    ``OverflowError`` outside it, as JAX raises with 64-bit types off."""
     k0, k1 = as_key(k)
-    return threefry2x32(k0, k1, 0, int(data) & _M32)
+    data = int(data)
+    if not 0 <= data <= _M32:
+        raise OverflowError(f"fold_in data {data} out of bounds for uint32")
+    return threefry2x32(k0, k1, 0, data)
 
 
 def random_bits(k, shape, device=None) -> torch.Tensor:

@@ -215,8 +215,27 @@ has work (an idle server loop's polls are no engine steps). Probes and
 recovery replay count toward none of it. Log lines are
 :func:`~..obs.logs.log_event` records with the reference's event names.
 
-Left for later slices: KV wire import/export (and its tracer tracks) and
-tensor parallelism.
+The KV wire and live migration (the reference's; frames in
+:mod:`.disagg`): a ``KVExportRequest`` prefills a prompt into a slot held
+for the export (kernel #1 or the chunk windows, the admission programs a
+monolithic engine runs) and copies the segment and its logits row to the
+host before the slot is freed; a ``KVIngestRequest`` (slotless) lands a
+decoded segment in the prefix cache (``build_seg_import_program`` in slab
+mode, fresh private blocks through ``paged_slot_scatter`` paged), so the
+follow-up generate full-hits with no prefill program. A segment shorter
+than the hit grain (the largest prefill bucket) is not seatable, and an
+export serves adapter 0 only. ``export_sessions`` parks every live slot
+as a frame with its generation state (after processing the in-flight
+horizon), and a ``KVSessionRequest`` seats one mid-generation, its key
+words installed verbatim (the master key is not split), so the stream
+continues byte for byte. The wire is gated by ``_probe_disagg_parity`` through
+``_probe_verdict`` ("disagg_wire"): a segment moved through real frame
+bytes must seat bitwise the direct prefill's state. The export is a
+``prefill`` span (``prefix="export"``) and the seat a ``kv_ingest`` span
+on the scheduler track; migrations leave ``migrate_out``/``migrate_in``
+on the slot tracks and in the flight recorder.
+
+Left for later slices: tensor parallelism.
 """
 
 from __future__ import annotations
@@ -256,6 +275,13 @@ from deeplearning4j_tpu_torch.obs.trace import (
 )
 from deeplearning4j_tpu_torch.ops import threefry
 from deeplearning4j_tpu_torch.serving.cache_pool import KVSlotPool, PagedKVPool
+from deeplearning4j_tpu_torch.serving.disagg import (
+    WireError,
+    decode_segment,
+    encode_segment,
+    model_config_hash,
+    slab_to_blocks,
+)
 from deeplearning4j_tpu_torch.serving.faults import (
     EngineCrash,
     FaultInjector,
@@ -290,6 +316,8 @@ _NO_EOS = -1
 PREFILL_MAX_BUCKET = 128
 #: finished streams kept for ``results`` / ``pop_result`` (oldest evicted)
 RESULTS_CAP = 1024
+#: request kinds that take no KV slot
+_SLOTLESS = ("embedding", "kv_ingest")
 
 _log = logging.getLogger(__name__)
 
@@ -562,6 +590,19 @@ def build_logit_row_program():
     return lambda lg, slot: lg[slot:slot + 1].clone()
 
 
+def build_seg_import_program():
+    """Wire-segment import (the reference's, engine.py:716): land a batch-1
+    slab that arrived over the KV wire in the region at the segment's
+    index, the segment store with the pool slot replaced by the wire
+    slab."""
+
+    def imp(region, slab, seg: int):
+        kv_map(lambda r, t: r[:, :, seg].copy_(t[:, :, 0]), region, slab)
+        return region
+
+    return imp
+
+
 def build_prefill_program(do_prefill):
     """Admission for one prompt bucket: prefill the padded prompt into a
     batch-1 slab (written in place); returns the (1, V) logits at
@@ -723,6 +764,14 @@ def _leaves(tree) -> list[torch.Tensor]:
     if isinstance(tree, torch.Tensor):
         return [tree]
     return [t for k in sorted(tree) for t in _leaves(tree[k])]
+
+
+def _as_tensor(arr) -> torch.Tensor:
+    """A decoded wire leaf (a numpy array, or a torch tensor for bf16) as
+    a CPU tensor."""
+    if isinstance(arr, torch.Tensor):
+        return arr
+    return torch.from_numpy(np.array(arr))
 
 
 def _pow2(n: int) -> int:
@@ -965,6 +1014,14 @@ class ServingEngine:
         self._seg_fetch_fn = build_seg_fetch_program()
         self._seg_store_fn = build_seg_store_program()
         self._logit_row_fn = build_logit_row_program()
+        self._seg_import_fn = build_seg_import_program()
+        #: request kinds served where the admission loop pops them
+        self._host_served = {"embedding": self._serve_embedding,
+                             "kv_ingest": self._serve_kv_ingest,
+                             "kv_export": self._serve_kv_export,
+                             "kv_session": self._serve_kv_session}
+        #: the model's identity on the KV wire (see .disagg)
+        self.config_hash = model_config_hash(cfg)
 
         # per-slot decode state, DEVICE-resident
         self._reset_device_state()
@@ -988,6 +1045,7 @@ class ServingEngine:
         self.last_recover_mode: str | None = None
         self._chunked_ok: bool | None = None  # replay probe memo
         self._prefix_ok_memo: bool | None = None  # hit-path probe memo
+        self._disagg_ok_memo: bool | None = None  # wire seat-path memo
         #: the batch probe's verdict by (kind, bucket, padded rows)
         self.batch_verdicts: dict[tuple[str, int, int], bool] = {}
         #: where the prefix probe's two paths first differ (or None)
@@ -1350,6 +1408,13 @@ class ServingEngine:
         return (self.pool.n_active == 0 and self._admitting == 0
                 and len(self.scheduler) == 0 and self._inflight is None)
 
+    @property
+    def hit_grain(self) -> int:
+        """The shortest prompt whose KV a full hit reuses: the largest
+        prefill bucket (and block size when paged). A wire segment
+        shorter than this is declined as not seatable."""
+        return self._hit_grain
+
     def cancel(self, req_id: str) -> bool:
         """Cancel a queued, deferred or decoding request (honored within
         one horizon); False when the id is unknown."""
@@ -1475,6 +1540,432 @@ class ServingEngine:
         log_event(_log, "request_retired", req_id=req.id, slot=None,
                   status=req.status.value, n_tokens=0, error=req.error,
                   tenant=req.tenant_id or None, kind="embedding")
+        if req.done is not None:
+            req.done.set()
+
+    # -- the KV wire ---------------------------------------------------------
+    #
+    # A PREFILL replica serves KVExportRequests: the prompt is prefilled
+    # into a slot held for the export through the same admission programs
+    # a monolithic admission runs (which makes the transfer byte-exact by
+    # construction), the segment and the pending logits row are copied to
+    # the host, and the slot is released without decoding. A DECODE
+    # replica serves KVIngestRequests: the decoded slab is checked against
+    # its own cache geometry and landed in the prefix cache (a region copy
+    # in slab mode, private blocks paged), so the follow-up generate
+    # full-hits with no prefill program. Both sides are gated by the
+    # disagg probe (``_disagg_ok``), and every ingest decline is soft.
+
+    def _slot_to_host(self, slot: int):
+        """(cache leaves, (1, V) logits row) of one slot, copied to host
+        memory before the caller frees the slot (the programs here write
+        the pool in place: the next admission would overwrite the rows).
+        The leaves are batch-1 slabs in key order, ``kv`` then ``scale``
+        for int8: the reference's ``jax.tree.leaves`` order."""
+        if self._paged:
+            slab = paged_slot_gather(self.pool.caches,
+                                     self.pool.operand()["tables"][slot])
+        else:
+            slab = self.pool.slab(slot)
+        # copy=True: on the CPU ``to`` would return the pool's own rows
+        leaves = [t.to("cpu", copy=True) for t in _leaves(slab)]
+        return leaves, self._logit_row_fn(self._logits, slot).to("cpu")
+
+    def _wire_layout(self, leaves) -> dict:
+        """The wire fields of a segment's host leaves: block-list leaves
+        and the block size when paged."""
+        if self._paged:
+            return {"leaves": slab_to_blocks(leaves, self._block_size),
+                    "layout": "paged", "block_size": self._block_size}
+        return {"leaves": leaves, "layout": "slab", "block_size": 0}
+
+    def _trace_ctx(self, req) -> dict:
+        """Span fields joining the request's trace (a fresh span id, the
+        upstream span as parent), or none when untraced."""
+        if not (self.tracer.enabled and req.trace_id):
+            return {}
+        tctx = {"trace_id": req.trace_id, "span_id": new_span_id()}
+        if req.parent_span_id:
+            tctx["parent_span_id"] = req.parent_span_id
+        return tctx
+
+    def _serve_kv_export(self, req, now: float) -> None:
+        """Serve a :class:`~.scheduler.KVExportRequest` (the reference's,
+        engine.py:2609): ``req.result`` gets the segment's host leaves,
+        logits row and layout, ready for :func:`~.disagg.encode_segment`
+        (framing happens on the HTTP thread)."""
+        t0 = time.perf_counter()
+        seq = np.asarray(req.prompt, np.int32)
+        n = int(len(seq))
+        if not self._disagg_ok():
+            self._retire_unadmitted(
+                req, RequestStatus.FAILED,
+                "disagg wire parity probe failed on this backend")
+            return
+        if n + 1 > self.max_total or n > self.pool.tpad:
+            self._retire_unadmitted(
+                req, RequestStatus.FAILED,
+                f"prompt of {n} tokens cannot be exported "
+                f"(max_total={self.max_total}, tpad={self.pool.tpad})")
+            return
+        slot = self.pool.acquire()
+        try:
+            self._prefill_seq_into_slot(seq, slot, 1, _NO_EOS)
+            leaves, lg = self._slot_to_host(slot)
+        except BaseException:
+            # a crash must not drop the popped request
+            self.pool.release(slot)
+            self.scheduler.requeue(req)
+            raise
+        # the slot was a staging area: clear the active bit the insert set
+        self._dactive = self._deact_fn(self._dactive, slot)
+        self.pool.release(slot)
+        req.result = {"config_hash": self.config_hash, "tokens": seq,
+                      "logits": lg, **self._wire_layout(leaves)}
+        req.status = RequestStatus.FINISHED
+        nbytes = (sum(t.numel() * t.element_size() for t in leaves)
+                  + lg.numel() * lg.element_size())
+        self.metrics.record_kv_export(n, nbytes, time.perf_counter() - t0,
+                                      tenant=req.tenant_id)
+        # an admission span named "prefill" (prefix "export"), so the
+        # merged fleet trace chains dispatch -> export -> transfer ->
+        # ingest; its id rides the result for the transfer span's parent
+        tctx = self._trace_ctx(req)
+        if tctx:
+            req.result["span_id"] = tctx["span_id"]
+        self.tracer.span(SCHEDULER_TRACK, "prefill", t0,
+                         time.perf_counter() - t0, req_id=req.id,
+                         prompt_len=n, prefix="export", nbytes=nbytes,
+                         **tctx)
+        log_event(_log, "request_retired", req_id=req.id, slot=None,
+                  status=req.status.value, n_tokens=n, error=None,
+                  tenant=req.tenant_id or None, kind="kv_export")
+        if req.done is not None:
+            req.done.set()
+
+    def _serve_kv_ingest(self, req, now: float) -> None:
+        """Seat a wire segment (``req.segment``, a
+        :func:`~.disagg.decode_segment` dict) in the prefix cache so the
+        follow-up generate full-hits (the reference's, engine.py:2700).
+        Slotless and soft: a decline reports ``{"stored": False,
+        "reason"}``."""
+        t0 = time.perf_counter()
+        seg_data = req.segment
+        tokens = np.asarray(seg_data["tokens"], np.int32)
+        n = int(len(tokens))
+        reason = None
+        if self.prefix_cache is None:
+            reason = "no prefix cache on this replica"
+        elif seg_data.get("config_hash") != self.config_hash:
+            reason = "model config hash mismatch"
+        elif n < self._hit_grain or n > self.pool.tpad:
+            reason = (f"segment of {n} tokens not seatable "
+                      f"(grain={self._hit_grain}, tpad={self.pool.tpad})")
+        elif not (self._prefix_reuse_ok() and self._disagg_ok()):
+            reason = "parity probes reject wire seating on this backend"
+        stored = False
+        if reason is None:
+            try:
+                slab, lg = self._wire_slab(seg_data)
+            except WireError as e:
+                reason = str(e)
+            else:
+                stored, reason = self._seat_wire_segment(tokens, slab, lg)
+        req.result = {"stored": stored, "reason": reason, "n_tokens": n}
+        req.status = RequestStatus.FINISHED
+        self.metrics.record_kv_ingest(
+            n, int(seg_data.get("nbytes", 0)), time.perf_counter() - t0,
+            stored=stored, tenant=req.tenant_id)
+        self.tracer.span(SCHEDULER_TRACK, "kv_ingest", t0,
+                         time.perf_counter() - t0, req_id=req.id,
+                         n_tokens=n, stored=stored, **self._trace_ctx(req))
+        log_event(_log, "request_retired", req_id=req.id, slot=None,
+                  status=req.status.value, n_tokens=n,
+                  error=None if stored else reason,
+                  tenant=req.tenant_id or None, kind="kv_ingest")
+        if req.done is not None:
+            req.done.set()
+
+    def _wire_slab(self, seg_data: dict):
+        """A decoded frame's slab and logits row checked against this
+        engine's cache geometry and uploaded: (the batch-1 caches operand,
+        the (1, V) f32 logits on the device). ``WireError`` (400) on any
+        disagreement: after the hash check, a corrupt or hand-made
+        frame."""
+        specs = _leaves(self._init_caches(1, self.max_total,
+                                          torch.device("meta")))
+        leaves = seg_data["leaves"]
+        if len(leaves) != len(specs):
+            raise WireError(f"frame has {len(leaves)} cache leaves, engine "
+                            f"expects {len(specs)}")
+        up = []
+        for i, (arr, spec) in enumerate(zip(leaves, specs)):
+            t = _as_tensor(arr)
+            if tuple(t.shape) != tuple(spec.shape) or t.dtype != spec.dtype:
+                raise WireError(f"leaf {i} is {t.dtype}{tuple(t.shape)}, "
+                                f"engine expects "
+                                f"{spec.dtype}{tuple(spec.shape)}")
+            up.append(t.to(self.device))
+        lg = _as_tensor(seg_data["logits"])
+        if (tuple(lg.shape) != (1, self.cfg.vocab_size)
+                or lg.dtype != torch.float32):
+            raise WireError(f"logits are {lg.dtype}{tuple(lg.shape)}, "
+                            f"engine expects float32(1, "
+                            f"{self.cfg.vocab_size})")
+        slab = {"kv": up[0], "scale": up[1]} if len(up) == 2 else up[0]
+        return slab, lg.to(self.device)
+
+    def _seat_wire_segment(self, tokens: np.ndarray, slab, lg
+                           ) -> tuple[bool, str | None]:
+        """Insert ``tokens`` in the prefix cache and back every new segment
+        with the wire slab's rows; ``(stored, reason)``, ``stored`` when
+        the whole prompt is seated with its logits row (a full hit)."""
+        cache = self.prefix_cache
+        n = int(len(tokens))
+        seg, matched = cache.lookup(tokens)
+        if seg is not None and matched == n and seg.logits is not None:
+            return True, "already cached"
+        segs = cache.insert(tokens)
+        if not segs:
+            return False, "cache declined (all segments pinned)"
+        stored = False
+        for seg in segs:
+            if self._paged:
+                if not self._back_paged_wire_segment(seg, slab):
+                    # blocks lost to admission pressure: un-cache rather
+                    # than leave a segment without rows
+                    cache.drop(seg)
+                    continue
+            else:
+                self._seg_import_fn(cache.region, slab, seg.slot)
+            if seg.length == n:
+                seg.logits = lg
+                stored = True
+            # the donor's rows came from the chunk windows iff its prompt
+            # exceeds one bucket, on the prefill replica as here
+            seg.partial_ok = n > self._max_bucket
+            self.metrics.record_prefix_insert()
+            self.tracer.instant(ENGINE_TRACK, "prefix_insert", source="wire",
+                                length=seg.length)
+            cache.unpin(seg)
+        return stored, None if stored else "segment backing failed"
+
+    def _back_paged_wire_segment(self, seg: Segment, slab) -> bool:
+        """Back one paged wire segment with fresh private blocks holding
+        the slab's rows (no donor slot to alias); False when the blocks do
+        not fit."""
+        need = self.pool.blocks_needed(seg.length)
+        try:
+            ids = self.pool.alloc_blocks(need)
+        except RuntimeError:
+            return False
+        paged_slot_scatter(self.pool.caches, self._block_row(ids), slab)
+        seg.block_ids = ids
+        return True
+
+    def _serve_kv_session(self, req, now: float) -> None:
+        """Seat a live migrated session (a
+        :class:`~.scheduler.KVSessionRequest`, the reference's
+        engine.py:2849) in a fresh slot mid-generation: the wire slab
+        covers rows [0, prompt + generated), seated at that position with
+        the remaining budget (the full-hit insert of the sequence so far),
+        and the decode loop continues the stream. The session's key words
+        are installed verbatim and this engine's master key is not split:
+        the slot continues the source's stream, and this engine's own
+        admissions keep their keys. Declines are soft (``result["seated"]
+        is False``)."""
+        t0 = time.perf_counter()
+        seg_data = req.segment
+        n0 = int(len(req.prompt))
+        g = len(req.gen_tokens)
+        m = n0 + g
+        budget = int(req.max_new) - g
+        kd = [int(w) for w in np.asarray(
+            () if req.key_data is None else req.key_data).reshape(-1)]
+        reason = None
+        if seg_data.get("config_hash") != self.config_hash:
+            reason = "model config hash mismatch"
+        elif not self._disagg_ok():
+            reason = "disagg wire parity probe failed on this backend"
+        elif int(len(seg_data["tokens"])) != m:
+            reason = (f"frame covers {len(seg_data['tokens'])} tokens, "
+                      f"session claims prompt {n0} + generated {g}")
+        elif n0 + int(req.max_new) > self.max_total or m > self.pool.tpad:
+            reason = (f"session of {m} tokens / budget {req.max_new} does "
+                      f"not fit (max_total={self.max_total}, "
+                      f"tpad={self.pool.tpad})")
+        elif budget < 1:
+            reason = "session has no remaining budget"
+        elif len(kd) != 2 or not all(0 <= w <= 0xFFFFFFFF for w in kd):
+            reason = f"sampling key has {len(kd)} words, engine uses 2"
+        if reason is None:
+            try:
+                slab, lg = self._wire_slab(seg_data)
+            except WireError as e:
+                reason = str(e)
+        if reason is not None:
+            req.result = {"seated": False, "reason": reason}
+            self.metrics.record_migration_in(
+                g, time.perf_counter() - t0, seated=False,
+                tenant=req.tenant_id)
+            self.flight.record("migrate_declined", req_id=req.id,
+                               reason=reason)
+            self._retire_unadmitted(req, RequestStatus.FAILED, reason)
+            return
+        slot = self.pool.acquire()
+        try:
+            if self._paged:
+                self._paged_ensure_blocks(slot, m + budget)
+            self.pool.write_slab(slot, slab)
+            self._insert_fn(*self._state(), lg, slot, m, budget,
+                            _eos_of(req))
+        except BaseException:
+            self.pool.release(slot)
+            self.scheduler.requeue(req)
+            raise
+        key = (kd[0], kd[1])
+        self._slot_keys[slot] = key
+        self._slot_adapters[slot] = req.adapter
+        st = _SlotState(req, self.pool.generation(slot), key)
+        st.tokens = list(req.gen_tokens)
+        st.t_first_token = now if g else None
+        if self._surface:
+            self._seat_surface(slot, st, req)
+        self._slots[slot] = st
+        req.status = RequestStatus.RUNNING
+        req.result = {"seated": True, "n_tokens": m}
+        self.metrics.record_migration_in(g, time.perf_counter() - t0,
+                                         seated=True, tenant=req.tenant_id)
+        self.tracer.span(slot_track(slot), "migrate_in", t0,
+                         time.perf_counter() - t0, req_id=req.id,
+                         n_tokens=m, **self._trace_ctx(req))
+        self.flight.record("migrate_seated", req_id=req.id, slot=slot,
+                           n_generated=g, budget=budget,
+                           tenant=req.tenant_id or None)
+        log_event(_log, "session_seated", req_id=req.id, slot=slot,
+                  prompt_len=n0, n_generated=g, budget=budget,
+                  tenant=req.tenant_id or None)
+
+    # -- live session migration ---------------------------------------------
+    #
+    # The server can export each live slot as a KV frame with its
+    # generation state (tokens so far, budget, key words) and re-seat it on
+    # another replica mid-generation. The exported rows [0, prompt +
+    # generated) are what a replay of prompt + tokens rebuilds, the pending
+    # logits row is the next token's input, and fold_in(key, position)
+    # needs only the key words and the position: the continuation is the
+    # same stream, greedy and sampled.
+
+    def export_sessions(self) -> list[dict]:
+        """Snapshot every live slot for migration and free it with no
+        terminal status (the request stays RUNNING, parked, until
+        :meth:`complete_migrated` or :meth:`fail_migrated` settles it).
+        Engine-loop thread only. The in-flight horizon is processed first,
+        so tokens so far and the logits row agree. A slot whose snapshot
+        fails stays live; slots using the sampling surface stay local."""
+        if self._inflight is not None:
+            inflight, self._inflight = self._inflight, None
+            self._process(inflight)
+        now = time.perf_counter()
+        out: list[dict] = []
+        for slot, st in enumerate(self._slots):
+            if st is None or st.req.kind not in ("generate", "kv_session"):
+                continue
+            req = st.req
+            if req.cancelled or req.expired(now):
+                continue  # the lifecycle sweep owns these
+            if req.uses_sampling_surface:
+                # grammar state, stop hold-back and bias rows do not
+                # travel on the wire: these drain locally
+                continue
+            t0 = time.perf_counter()
+            try:
+                leaves, lg = self._slot_to_host(slot)
+            except Exception as e:  # keep exporting the others
+                self.flight.record("migrate_export_failed", req_id=req.id,
+                                   slot=slot, error=str(e))
+                continue
+            out.append({
+                "req": req,
+                "n_streamed": len(st.tokens),
+                "config_hash": self.config_hash,
+                "tokens": np.concatenate(
+                    [req.prompt, np.asarray(st.tokens, np.int32)]),
+                "logits": lg,
+                **self._wire_layout(leaves),
+                "gen": {
+                    "n_prompt": int(len(req.prompt)),
+                    "tokens": [int(t) for t in st.tokens],
+                    "max_new": int(req.max_new),
+                    "eos_token": (None if req.eos_token is None
+                                  else int(req.eos_token)),
+                    "adapter": int(req.adapter),
+                    "key_data": [int(w) for w in st.key_data],
+                    "req_id": req.id,
+                },
+            })
+            # park: free the slot with no terminal status
+            self.pool.release(slot)
+            if self.prefix_cache is not None:
+                for seg in st.segs:
+                    self.prefix_cache.unpin(seg)
+            st.segs = []
+            if self._surface:
+                self._clear_surface(slot, st)
+            self._slots[slot] = None
+            self._slot_adapters[slot] = 0
+            self._dactive = self._deact_fn(self._dactive, slot)
+            self.metrics.record_migration_out(
+                len(st.tokens), time.perf_counter() - t0,
+                tenant=req.tenant_id)
+            self.tracer.instant(slot_track(slot), "migrate_out",
+                                req_id=req.id, n_tokens=len(st.tokens))
+            self.flight.record("migrate_out", req_id=req.id, slot=slot,
+                               n_generated=len(st.tokens),
+                               tenant=req.tenant_id or None)
+            log_event(_log, "session_exported", req_id=req.id, slot=slot,
+                      n_generated=len(st.tokens),
+                      tenant=req.tenant_id or None)
+        return out
+
+    def complete_migrated(self, req: Request, tokens,
+                          n_streamed: int = 0) -> None:
+        """Settle a parked request with the destination's finished stream
+        (prompt + every generated token). Any thread may call it: the slot
+        is long freed."""
+        toks = np.asarray(tokens, np.int32).reshape(-1)
+        new = [int(t) for t in toks[len(req.prompt):]]
+        req.status = RequestStatus.FINISHED
+        req.error = None
+        self._store_result(req, new)
+        self.metrics.record_migration_settled(ok=True, tenant=req.tenant_id)
+        self.flight.record("migrate_settled", req_id=req.id, ok=True,
+                           n_generated=len(new))
+        log_event(_log, "request_retired", req_id=req.id, slot=None,
+                  status=req.status.value, n_tokens=len(new), error=None,
+                  tenant=req.tenant_id or None, kind="migrated")
+        if req.stream is not None:
+            for t in new[int(n_streamed):]:
+                req.stream.put(t)
+            req.stream.put(None)  # end-of-stream sentinel
+        if req.done is not None:
+            req.done.set()
+
+    def fail_migrated(self, req: Request, error: str, partial=None) -> None:
+        """Settle a parked request whose migration did not land: CANCELLED
+        with the tokens generated before the export (the drain's preempt
+        outcome)."""
+        req.status = RequestStatus.CANCELLED
+        req.error = error
+        self._store_result(req, [int(t) for t in (partial or ())])
+        self.metrics.record_migration_settled(ok=False, tenant=req.tenant_id)
+        self.flight.record("migrate_settled", req_id=req.id, ok=False,
+                           error=error)
+        log_event(_log, "request_retired", req_id=req.id, slot=None,
+                  status=req.status.value, n_tokens=0, error=error,
+                  tenant=req.tenant_id or None, kind="migrated")
+        if req.stream is not None:
+            req.stream.put(None)  # end-of-stream sentinel
         if req.done is not None:
             req.done.set()
 
@@ -1709,14 +2200,18 @@ class ServingEngine:
                             req_id=pl.req.id, kind=pl.kind,
                             cached_tokens=pl.matched, prompt_len=n)
 
-    def _paged_seg_slab(self, seg: Segment):
-        """Paged segment fetch (the reference's
-        ``build_paged_seg_fetch_program``): a cached segment's blocks
-        gathered into a new batch-1 scratch slab through a sentinel-padded
-        table row, so rows past its blocks come back zero."""
+    def _block_row(self, block_ids) -> torch.Tensor:
+        """A sentinel-padded (bps,) table row naming ``block_ids``, on the
+        device."""
         row = np.zeros((self.pool.blocks_per_slot,), np.int32)
-        row[:len(seg.block_ids)] = seg.block_ids
-        return paged_slot_gather(self.pool.caches, self._upload(row))
+        row[:len(block_ids)] = block_ids
+        return self._upload(row)
+
+    def _paged_seg_slab(self, seg: Segment):
+        """A cached segment's blocks gathered into a new batch-1 scratch
+        slab (rows past its blocks come back zero)."""
+        return paged_slot_gather(self.pool.caches,
+                                 self._block_row(seg.block_ids))
 
     def _alias_hit_blocks(self, pl: _AdmitPlan, covered: int) -> None:
         """Share the segment's FULL blocks over rows [0, covered) into the
@@ -1846,14 +2341,10 @@ class ServingEngine:
                              delay, req_id=req.id)
         # the admission span joins the caller's trace when the request
         # carries one (its parent the upstream span)
-        tctx = {}
-        if self.tracer.enabled and req.trace_id:
-            tctx = {"trace_id": req.trace_id, "span_id": new_span_id()}
-            if req.parent_span_id:
-                tctx["parent_span_id"] = req.parent_span_id
         self.tracer.span(slot_track(slot), "prefill", pl.t_pf, pl.prefill_s,
                          req_id=req.id, prompt_len=len(req.prompt),
-                         prefix=pl.kind, cached_tokens=pl.matched, **tctx)
+                         prefix=pl.kind, cached_tokens=pl.matched,
+                         **self._trace_ctx(req))
         self.flight.record("admit", req_id=req.id, slot=slot,
                            prompt_len=len(req.prompt), prefix=pl.kind,
                            tenant=req.tenant_id or None,
@@ -1954,8 +2445,8 @@ class ServingEngine:
         return self._dmask_tab, self._dtrans_tab
 
     def _admissible_fn(self):
-        """The admission gate: an embedding request always passes (it
-        takes no slot); any other needs a free slot; paged, its blocks,
+        """The admission gate: an embedding lookup or a KV ingest always
+        passes (it takes no slot); any other needs a free slot; paged, its blocks,
         beyond those this round already promised, fit the free heap —
         after handing cached prefix blocks back (live traffic outranks
         cached prefixes); with tenancy, its tenant holds fewer than
@@ -1971,7 +2462,7 @@ class ServingEngine:
                 used[r.tenant_id] = used.get(r.tenant_id, 0) + 1
 
         def admissible(r: Request) -> bool:
-            if r.kind == "embedding":
+            if r.kind in _SLOTLESS:
                 return True
             if not self.pool.n_free:
                 return False
@@ -1998,7 +2489,8 @@ class ServingEngine:
         request is dropped."""
         if not len(self.scheduler):
             return
-        if not (self.pool.n_free or self.scheduler.has_kind("embedding")):
+        if not (self.pool.n_free
+                or any(self.scheduler.has_kind(k) for k in _SLOTLESS)):
             return
         self._admitting += 1
         plans: list[_AdmitPlan] = []
@@ -2016,8 +2508,12 @@ class ServingEngine:
                 if req.expired(now):
                     self._retire_unadmitted(req, RequestStatus.EXPIRED)
                     continue
-                if req.kind == "embedding":
-                    self._serve_embedding(req, now)
+                serve = self._host_served.get(req.kind)
+                if serve is not None:
+                    # served where it pops: a wire seat lands before any
+                    # decode admits, an export holds its slot only while
+                    # it prefills, a migrated session seats at once
+                    serve(req, now)
                     continue
                 plans.append(_AdmitPlan(req, self.pool.acquire()))
                 used[req.tenant_id] = used.get(req.tenant_id, 0) + 1
@@ -2500,6 +2996,72 @@ class ServingEngine:
                 torch.zeros((n,), dtype=torch.bool, device=dev),
                 torch.zeros((n,), dtype=torch.int32, device=dev),
                 torch.full((n,), _NO_EOS, dtype=torch.int32, device=dev))
+
+    @torch.no_grad()
+    def _probe_disagg_parity(self) -> bool:
+        """One-time probe gating the KV wire (the reference's
+        ``_probe_disagg_parity``, engine.py:3745): does a segment moved
+        prefill -> host copy -> ``encode_segment``/``decode_segment``
+        bytes -> upload -> region import -> zero-prefill hit insert give,
+        bitwise, the direct prefill's device state (KV rows, logits,
+        positions, budgets)? Paged engines also push the slab through the
+        block scatter and gather that ingest and export use. On a refusal
+        export and ingest decline and the fleet prefills locally."""
+        n = min(self._min_bucket + 3, self.max_total - 1, self.pool.tpad)
+        if n < 1:
+            return False
+        disp = self.prefill_dispatches
+        self._attr_suspend += 1  # probes count toward no attribution
+        try:
+            seq = ((1 + np.arange(n)) % self.cfg.vocab_size).astype(np.int32)
+            sa = self._scratch_state(1)
+            lg = self._compute_rows(sa[0], seq)
+            self._insert_fn(*sa, lg, 0, n, 1, _NO_EOS)
+            # the export side: the slab and the logits row to the host
+            leaves = [t.to("cpu", copy=True) for t in _leaves(sa[0])]
+            lg_host = self._logit_row_fn(sa[1], 0).to("cpu")
+            frame = encode_segment(config_hash=self.config_hash, tokens=seq,
+                                   logits=lg_host,
+                                   **self._wire_layout(leaves))
+            try:
+                dec = decode_segment(frame, expect_hash=self.config_hash)
+                slab, dlg = self._wire_slab(dec)
+            except WireError:
+                return False
+            if self._paged:
+                # land and fetch again through a scratch block store, as
+                # ingest and export do (block 0 the sentinel)
+                bs, bps = self._block_size, self.pool.tpad // self._block_size
+                blocks = kv_map(lambda x: torch.zeros(
+                    (x.shape[0], x.shape[1], bps + 1, bs, x.shape[4]),
+                    dtype=x.dtype, device=self.device), sa[0])
+                row = self._upload(np.arange(1, bps + 1, dtype=np.int32))
+                paged_slot_scatter(blocks, row, slab)
+                slab = paged_slot_gather(blocks, row)
+            region = self.pool.alloc_region(1)
+            self._seg_import_fn(region, slab, 0)
+            # the decode side's seat: the ordinary zero-prefill full hit
+            sc = self._scratch_state(1)
+            self._hit_insert_fn(*sc, region, dlg, 0, 0, n, 1, _NO_EOS)
+            return self._states_equal(sa, sc)
+        finally:
+            self.prefill_dispatches = disp
+            self._attr_suspend -= 1
+
+    def _disagg_ok(self) -> bool:
+        if self._disagg_ok_memo is None:
+            self._disagg_ok_memo = self._probe_verdict(
+                "disagg_wire", self._probe_disagg_parity,
+                n_slots=self.n_slots, max_total=self.max_total,
+                min_bucket=self._min_bucket, tpad=self.pool.tpad,
+                paged=self._paged, block_size=self._block_size, tp=1)
+            log_event(_log, "disagg_parity_probe",
+                      level=(logging.INFO if self._disagg_ok_memo
+                             else logging.WARNING),
+                      ok=self._disagg_ok_memo)
+            self.tracer.instant(ENGINE_TRACK, "disagg_parity_probe",
+                                ok=self._disagg_ok_memo)
+        return self._disagg_ok_memo
 
     @staticmethod
     def _states_equal(a, b) -> bool:

@@ -45,6 +45,15 @@ program's dispatch call to the horizon readback that proves it complete,
 an upper bound on its device time, with no sync of its own (the
 reference's definition).
 
+The KV wire and live migration (the reference's families):
+``serve_kv_exports_total``, ``serve_kv_export_bytes_total``,
+``serve_kv_ingests_total{result}``, ``serve_kv_ingest_bytes_total``,
+``serve_transfers_total{result}``, ``serve_transfer_bytes_total``,
+``serve_migrations_out_total``, ``serve_migrations_in_total{result}``,
+``serve_migrations_settled_total{result}`` and the export, ingest,
+transfer and seat histograms; ``summary()`` gains ``disagg`` and
+``migration`` blocks once either moved.
+
 Series names are the reference's, so its dashboards carry over.
 """
 
@@ -102,6 +111,31 @@ class ServingMetrics:
         self.n_batched_admissions = 0
         self.n_embeddings = 0
         self.embed_latency = Reservoir(reservoir_cap)
+        # the KV wire (see .disagg): exports = segments prefilled here for
+        # another replica, ingests = wire segments offered to the local
+        # prefix cache, transfers = pushes to a decode replica's
+        # /v1/kv_segment (recorded by the HTTP layer)
+        self.n_kv_exports = 0
+        self.kv_export_bytes = 0
+        self.n_kv_ingests_stored = 0
+        self.n_kv_ingests_declined = 0
+        self.kv_ingest_bytes = 0
+        self.n_transfers = 0
+        self.n_transfer_failures = 0
+        self.transfer_bytes = 0
+        self.transfer_seconds = 0.0
+        self.kv_export_latency = Reservoir(reservoir_cap)
+        self.kv_ingest_latency = Reservoir(reservoir_cap)
+        self.transfer_latency = Reservoir(reservoir_cap)
+        # live session migration: slots parked here and shipped out,
+        # sessions offered here (seated or declined), parked requests
+        # settled by the destination (ok) or the fallback (failed)
+        self.n_migrations_out = 0
+        self.n_migrations_seated = 0
+        self.n_migrations_declined = 0
+        self.n_migrations_settled_ok = 0
+        self.n_migrations_settled_failed = 0
+        self.migration_seat_latency = Reservoir(reservoir_cap)
         self._step = 0
         self._reservoir_cap = reservoir_cap
         # per-tenant state, made on the first event with a tenant id;
@@ -212,6 +246,52 @@ class ServingMetrics:
             "serve_embedding_seconds",
             "Embedding request service time (host-side lookup).",
         )
+        self._c_kv_exports = reg.counter(
+            "serve_kv_exports_total",
+            "KV segments prefilled here and exported for a decode "
+            "replica (disaggregated serving).")
+        self._c_kv_export_bytes = reg.counter(
+            "serve_kv_export_bytes_total",
+            "Raw segment bytes exported over the KV wire.")
+        self._h_kv_export = reg.histogram(
+            "serve_kv_export_seconds",
+            "Export service time: prefill + host snapshot.")
+        self._c_kv_ingests = reg.counter(
+            "serve_kv_ingests_total",
+            "Wire KV segments offered to the local prefix cache, by "
+            "result (stored|declined).", ("result",))
+        self._c_kv_ingest_bytes = reg.counter(
+            "serve_kv_ingest_bytes_total",
+            "Raw segment bytes received over the KV wire.")
+        self._h_kv_ingest = reg.histogram(
+            "serve_kv_ingest_seconds",
+            "Ingest service time: validate + device seat.")
+        self._c_transfers = reg.counter(
+            "serve_transfers_total",
+            "KV segment pushes to a decode replica, by result "
+            "(ok|failed).", ("result",))
+        self._c_transfer_bytes = reg.counter(
+            "serve_transfer_bytes_total",
+            "Frame bytes pushed to decode replicas over the KV wire.")
+        self._h_transfer = reg.histogram(
+            "serve_transfer_seconds",
+            "One KV segment push: POST /v1/kv_segment round trip.")
+        self._c_migrations_out = reg.counter(
+            "serve_migrations_out_total",
+            "Live sessions exported (parked) at drain for re-seating on "
+            "another replica.")
+        self._c_migrations_in = reg.counter(
+            "serve_migrations_in_total",
+            "Migrated live sessions offered to this engine, by result "
+            "(seated|declined).", ("result",))
+        self._c_migrations_settled = reg.counter(
+            "serve_migrations_settled_total",
+            "Parked requests resolved, by result (ok = destination "
+            "finished the stream, failed = fallback preemption).",
+            ("result",))
+        self._h_migration_seat = reg.histogram(
+            "serve_migration_seat_seconds",
+            "One migrated session seat: validate + device insert.")
         self._c_prog_seconds = reg.counter(
             "serve_program_seconds_total",
             "Wall seconds attributed to program families at the "
@@ -268,6 +348,82 @@ class ServingMetrics:
             self._c_tenant_requests.inc(tenant=tenant, outcome="embedding")
             with self._tlock:
                 self._tenant(tenant)["n_finished"] += 1
+
+    def record_kv_export(self, n_tokens: int, nbytes: int, seconds: float,
+                         tenant: str = "") -> None:
+        """One KV segment prefilled here for a decode replica."""
+        self.n_kv_exports += 1
+        self.kv_export_bytes += int(nbytes)
+        self.kv_export_latency.add(float(seconds))
+        self._c_kv_exports.inc()
+        self._c_kv_export_bytes.inc(int(nbytes))
+        self._h_kv_export.observe(seconds)
+        if tenant:
+            self._c_tenant_requests.inc(tenant=tenant, outcome="kv_export")
+            with self._tlock:
+                self._tenant(tenant)["n_finished"] += 1
+
+    def record_kv_ingest(self, n_tokens: int, nbytes: int, seconds: float,
+                         *, stored: bool, tenant: str = "") -> None:
+        """One wire segment offered to the local prefix cache; ``stored``
+        means the follow-up generate will full-hit."""
+        if stored:
+            self.n_kv_ingests_stored += 1
+        else:
+            self.n_kv_ingests_declined += 1
+        self.kv_ingest_bytes += int(nbytes)
+        self.kv_ingest_latency.add(float(seconds))
+        self._c_kv_ingests.inc(result="stored" if stored else "declined")
+        self._c_kv_ingest_bytes.inc(int(nbytes))
+        self._h_kv_ingest.observe(seconds)
+        if tenant:
+            self._c_tenant_requests.inc(tenant=tenant, outcome="kv_ingest")
+            with self._tlock:
+                self._tenant(tenant)["n_finished"] += 1
+
+    def record_transfer(self, nbytes: int, seconds: float, *,
+                        ok: bool = True) -> None:
+        """One KV segment push to a decode replica (the HTTP layer); a
+        failed push records its time but no bytes."""
+        self.n_transfers += 1
+        self.transfer_latency.add(float(seconds))
+        self.transfer_seconds += float(seconds)
+        self._c_transfers.inc(result="ok" if ok else "failed")
+        self._h_transfer.observe(seconds)
+        if ok:
+            self.transfer_bytes += int(nbytes)
+            self._c_transfer_bytes.inc(int(nbytes))
+        else:
+            self.n_transfer_failures += 1
+
+    def record_migration_out(self, n_generated: int, seconds: float,
+                             tenant: str = "") -> None:
+        """One live slot exported (parked) for migration."""
+        self.n_migrations_out += 1
+        self._c_migrations_out.inc()
+
+    def record_migration_in(self, n_generated: int, seconds: float, *,
+                            seated: bool, tenant: str = "") -> None:
+        """One migrated session offered to this engine (a decline is
+        soft: the source keeps its fail path)."""
+        if seated:
+            self.n_migrations_seated += 1
+        else:
+            self.n_migrations_declined += 1
+        self.migration_seat_latency.add(float(seconds))
+        self._c_migrations_in.inc(result="seated" if seated else "declined")
+        self._h_migration_seat.observe(seconds)
+        if tenant and seated:
+            self._c_tenant_requests.inc(tenant=tenant, outcome="migrated_in")
+
+    def record_migration_settled(self, *, ok: bool, tenant: str = "") -> None:
+        """One parked request resolved: by the destination's stream (ok)
+        or by the fallback to preemption."""
+        if ok:
+            self.n_migrations_settled_ok += 1
+        else:
+            self.n_migrations_settled_failed += 1
+        self._c_migrations_settled.inc(result="ok" if ok else "failed")
 
     def record_step(self, n_active: int, queue_depth: int) -> None:
         """One dispatched horizon with ``n_active`` slots decoding."""
@@ -457,6 +613,40 @@ class ServingMetrics:
         if self.n_embeddings:
             out["n_embeddings"] = self.n_embeddings
             out["embedding_p50_s"] = _pct(self.embed_latency, 50)
+        if (self.n_kv_exports or self.n_transfers
+                or self.n_kv_ingests_stored or self.n_kv_ingests_declined):
+            d = {
+                "kv_exports": self.n_kv_exports,
+                "kv_export_bytes": self.kv_export_bytes,
+                "kv_ingests_stored": self.n_kv_ingests_stored,
+                "kv_ingests_declined": self.n_kv_ingests_declined,
+                "kv_ingest_bytes": self.kv_ingest_bytes,
+                "transfers": self.n_transfers,
+                "transfer_failures": self.n_transfer_failures,
+                "transfer_bytes": self.transfer_bytes,
+            }
+            if self.kv_export_latency:
+                d["kv_export_p50_s"] = _pct(self.kv_export_latency, 50)
+            if self.transfer_latency:
+                d["transfer_p50_s"] = _pct(self.transfer_latency, 50)
+                if self.transfer_seconds > 0:
+                    d["transfer_bytes_per_s"] = (self.transfer_bytes
+                                                 / self.transfer_seconds)
+            out["disagg"] = d
+        if (self.n_migrations_out or self.n_migrations_seated
+                or self.n_migrations_declined):
+            d = {
+                "migrations_out": self.n_migrations_out,
+                "migrations_seated": self.n_migrations_seated,
+                "migrations_declined": self.n_migrations_declined,
+                "migrations_settled_ok": self.n_migrations_settled_ok,
+                "migrations_settled_failed":
+                    self.n_migrations_settled_failed,
+            }
+            if self.migration_seat_latency:
+                d["seat_p50_s"] = _pct(self.migration_seat_latency, 50)
+                d["seat_p99_s"] = _pct(self.migration_seat_latency, 99)
+            out["migration"] = d
         with self._tlock:
             if self.n_rejections:
                 out["rejections"] = dict(self.n_rejections)

@@ -261,6 +261,89 @@ class EmbeddingRequest(Request):
         return len(self.words)
 
 
+@dataclasses.dataclass
+class KVExportRequest(Request):
+    """Disaggregated-prefill work item (the reference's): prefill
+    ``prompt`` into a slot held for the export, copy the KV segment and the
+    pending logits row to the host and release the slot, with no decode.
+    It rides the generation queue (priority, DRR, quota, backpressure) and
+    needs a free slot as generation does. ``result`` holds the wire-ready
+    segment (see :mod:`.disagg`) before ``done`` is set. Adapter 0 only:
+    a frame carries no adapter, and an ingest lands its rows where every
+    adapter-0 prompt can hit them."""
+
+    max_new: int = 1  # the slot budget held during the export, never decoded
+    result: dict | None = None
+
+    kind = "kv_export"
+
+    def __post_init__(self):
+        super().__post_init__()
+        if len(self.prompt) == 0:
+            raise AdmissionError("kv_export needs a non-empty prompt")
+        if self.adapter != 0:
+            # the frame names no adapter, and the decode replica seats it
+            # in a prefix cache that adapter-0 prompts read
+            raise AdmissionError(
+                f"kv_export serves adapter 0 only (got adapter "
+                f"{self.adapter}): KV computed under an adapter never "
+                "enters a prefix cache")
+
+
+@dataclasses.dataclass
+class KVIngestRequest(Request):
+    """A wire-delivered KV segment awaiting a seat in the prefix cache
+    (the reference's). Slotless: the engine thread serves it at the
+    admission boundary, as an embedding lookup. ``segment`` is a
+    :func:`~.disagg.decode_segment` dict; ``result`` reports ``{"stored":
+    bool, "reason", "n_tokens"}`` before ``done`` is set. A decline is
+    soft: the sender falls back to local prefill."""
+
+    prompt: np.ndarray = dataclasses.field(default_factory=_empty_prompt)
+    max_new: int = 1
+    segment: dict | None = None
+    result: dict | None = None
+
+    kind = "kv_ingest"
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.segment is None:
+            raise AdmissionError("kv_ingest needs a decoded segment")
+
+    def token_cost(self) -> int:
+        return len(self.segment.get("tokens", ()))
+
+
+@dataclasses.dataclass
+class KVSessionRequest(Request):
+    """A live generation session migrating in from another replica (the
+    reference's): ``segment`` covers prompt + tokens so far,
+    ``gen_tokens`` are the tokens already emitted (seated, never
+    generated again), ``key_data`` the source slot's two sampling-key
+    words (seated verbatim, so ``fold_in(key, position)`` continues the
+    source's stream). ``prompt`` is the original prompt and ``max_new``
+    the original budget. It needs a slot; a decline is soft
+    (``result["seated"] is False``)."""
+
+    segment: dict | None = None
+    gen_tokens: tuple[int, ...] = ()
+    key_data: np.ndarray | None = None
+    result: dict | None = None
+
+    kind = "kv_session"
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.segment is None:
+            raise AdmissionError("kv_session needs a decoded segment")
+        self.gen_tokens = tuple(int(t) for t in self.gen_tokens)
+        if len(self.prompt) == 0:
+            raise AdmissionError("kv_session needs a non-empty prompt")
+        if self.max_new - len(self.gen_tokens) < 1:
+            raise AdmissionError("kv_session has no remaining budget")
+
+
 class RequestScheduler:
     """Bounded multi-priority queue: strict priority across classes,
     weighted deficit round-robin across tenants within a class, FIFO

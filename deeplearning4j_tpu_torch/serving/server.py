@@ -1,5 +1,5 @@
 """HTTP-JSON front end for the serving engine (port of
-``deeplearning4j_tpu/serving/server.py``, trimmed to this slice).
+``deeplearning4j_tpu/serving/server.py``).
 
 Stdlib ``ThreadingHTTPServer`` plus one background thread running the
 engine loop; handler threads block on the request's ``done`` event, or,
@@ -67,6 +67,35 @@ Endpoints:
   answers the capture's directory, 409 while a capture is armed, 400 for
   N < 1, 503 without a trigger.
 
+The KV wire and live migration (frames in :mod:`.disagg`):
+
+- ``POST /v1/prefill`` — body ``{"prompt", "push_to"?: "host:port",
+  "idem_key"?, "priority"?, "adapter"?}``: prefill only; the segment is
+  framed and, with ``push_to``, pushed to that replica's
+  ``/v1/kv_segment`` under a ``transfer`` span (its outgoing
+  ``traceparent`` names it). Answers ``{"id", "n_tokens", "nbytes",
+  "config_hash", "pushed"?, "ingest"?}``, never the frame; a failed push
+  is a 200 with ``"pushed": false`` (the caller prefills locally).
+- ``POST /v1/kv_segment`` — a binary frame seated in the prefix cache;
+  400/409 from the frame's checks, else 200 ``{"stored", "reason"}``; a
+  repeated ``X-Idempotency-Key`` is 409 (hedged copies are seated once).
+- ``POST /v1/kv_session`` — a frame with a live session's state (``gen``)
+  seated mid-generation and decoded to the end here; 200 with the full
+  token list, a soft 409 ``{"seated": false}`` on a decline, 400 without
+  ``gen``.
+- ``POST /migrate`` — body ``{"targets"?: [...]}`` (else
+  ``migrate_targets``): every live session is exported on the engine loop
+  and pushed to the first target that seats and completes it; its waiting
+  caller gets the destination's tokens, and what cannot move retires
+  CANCELLED with its partial tokens. Reachable while drained.
+  ``stop(drain_s > 0)`` migrates to ``migrate_targets`` at the drain
+  deadline before preempting.
+
+``X-Deadline-Ms`` (the remaining budget a router or controller forwards)
+caps every engine wait and shrinks on every outbound leg; ``/healthz``
+carries the engine's ``config_hash``, which a router or controller reads
+to mark a replica restarted onto another model incompatible.
+
 Every request gets a W3C trace context: the caller's ``traceparent`` (its
 trace id, and its span as our parent) or a fresh trace id. The engine's
 admission span and log lines carry it, and each request ends with one
@@ -74,7 +103,8 @@ structured ``access`` log line (status, trace context, tenant, which
 server answered).
 
 ``stop(drain_s)`` stops admission, gives in-flight work up to ``drain_s``
-seconds, cancels what is left, and shuts the listener down.
+seconds, migrates (see above) and cancels what is left, and shuts the
+listener down.
 
 Supervision (the reference's ``_engine_loop``, server.py:1364): an
 exception escaping ``engine.step()`` is recovered by
@@ -94,6 +124,7 @@ sees, and on SIGTERM under ``serve_forever``.
 
 from __future__ import annotations
 
+import http.client
 import json
 import logging
 import queue
@@ -101,19 +132,46 @@ import signal
 import threading
 import time
 import traceback
-from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from http.server import ThreadingHTTPServer
 from pathlib import Path
 from urllib.parse import parse_qs, urlparse
 
+import numpy as np
+
 from deeplearning4j_tpu_torch.obs.logs import log_event
-from deeplearning4j_tpu_torch.obs.trace import new_trace_id, parse_traceparent
+from deeplearning4j_tpu_torch.obs.trace import (
+    format_traceparent,
+    new_span_id,
+    new_trace_id,
+    parse_traceparent,
+)
+from deeplearning4j_tpu_torch.serving.disagg import (
+    WireError,
+    decode_segment,
+    encode_segment,
+)
 from deeplearning4j_tpu_torch.serving.engine import ServingEngine
+from deeplearning4j_tpu_torch.serving.rpc import (
+    DEADLINE_HEADER,
+    IDEMPOTENCY_HEADER,
+    Deadline,
+    IdempotencyRegistry,
+)
 from deeplearning4j_tpu_torch.serving.scheduler import (
     AdmissionError,
     Backpressure,
     EmbeddingRequest,
+    KVExportRequest,
+    KVIngestRequest,
+    KVSessionRequest,
     Request,
     RequestStatus,
+)
+from deeplearning4j_tpu_torch.utils.httpjson import (
+    QuietHandler,
+    read_json_body,
+    send_body,
+    send_json,
 )
 
 _log = logging.getLogger(__name__)
@@ -130,35 +188,34 @@ _STATUS_HTTP = {
 }
 
 
-def _send(handler, code: int, body: bytes, content_type: str) -> None:
-    handler.send_response(code)
-    handler.send_header("Content-Type", content_type)
-    handler.send_header("Content-Length", str(len(body)))
-    handler.end_headers()
-    handler.wfile.write(body)
-
-
-def _send_json(handler, code: int, payload) -> None:
-    _send(handler, code, json.dumps(payload).encode(), "application/json")
-
-
-class _QuietHandler(BaseHTTPRequestHandler):
-    def log_message(self, *a):
-        pass
-
-
 class ServingServer:
     """Engine + HTTP front end; ``start()`` does not block.
     ``metrics_port`` adds the scrape sidecar, ``flight_dir`` the
     postmortem directory; ``profile`` (a ``ProfileTrigger``) is handed to
-    the engine, whose steps it brackets."""
+    the engine, whose steps it brackets; ``migrate_targets`` (host:port)
+    are where a drain or ``POST /migrate`` moves live sessions."""
 
     def __init__(self, engine: ServingEngine, host: str = "127.0.0.1",
                  port: int = 0, request_timeout_s: float = 300.0,
                  max_restarts: int = 5, hang_threshold_s: float = 120.0,
                  metrics_port: int | None = None,
-                 flight_dir: str | None = None, profile=None):
+                 flight_dir: str | None = None, profile=None,
+                 migrate_targets: tuple[str, ...] = ()):
         self.engine = engine
+        # where live sessions go at the drain deadline (and on a POST
+        # /migrate with no targets), tried in order before preemption
+        self.migrate_targets = tuple(migrate_targets)
+        # receiver-side dedup of hedged or retried seat and ingest legs:
+        # a repeated X-Idempotency-Key is declined with 409
+        self._idem = IdempotencyRegistry()
+        # one-slot mailbox for session export: /migrate posts {"evt": ...}
+        # and the engine loop (the only thread that touches slot and
+        # device state) fills in "sessions" between steps; the loop takes
+        # the box under _box_lock, so a poster that gives up knows whether
+        # an export (which parks sessions) ran
+        self._migrate_box: dict | None = None  # guarded-by: _box_lock
+        self._box_lock = threading.Lock()
+        self._migrate_lock = threading.Lock()
         if profile is not None:
             engine.profile = profile
         self.request_timeout_s = request_timeout_s
@@ -185,10 +242,10 @@ class ServingServer:
                       self._draining.is_set() or self._paused.is_set()))
         server = self
 
-        class Handler(_QuietHandler):
+        class Handler(QuietHandler):
             def do_GET(self):
                 if not server._common_get(self):
-                    _send_json(self, 404, {"error": "not found"})
+                    send_json(self, 404, {"error": "not found"})
 
             def do_POST(self):
                 path = urlparse(self.path).path
@@ -198,29 +255,42 @@ class ServingServer:
                 if path in ("/drain", "/undrain"):
                     server._handle_drain(self, path == "/drain")
                     return
-                if path not in ("/v1/generate", "/v1/embeddings"):
-                    _send_json(self, 404, {"error": "not found"})
+                if path == "/migrate":
+                    # reachable while paused: a controller drains a
+                    # replica first, then asks it to migrate what is left
+                    server._handle_migrate(self)
+                    return
+                if path not in ("/v1/generate", "/v1/embeddings",
+                                "/v1/kv_segment", "/v1/prefill",
+                                "/v1/kv_session"):
+                    send_json(self, 404, {"error": "not found"})
                     return
                 if (server._draining.is_set() or server._paused.is_set()
                         or server._stop.is_set()):
-                    _send_json(self, 503, {"error": "draining"})
+                    send_json(self, 503, {"error": "draining"})
                     return
                 if server._dead.is_set():
-                    _send_json(self, 503, {"error": "engine dead",
+                    send_json(self, 503, {"error": "engine dead",
                                            "last_error": server.last_error})
                     return
                 tenant = server._resolve_tenant(self)
                 if tenant is _UNKNOWN_KEY:
-                    _send_json(self, 401, {"error": "unknown API key"})
+                    send_json(self, 401, {"error": "unknown API key"})
                     return
-                n = int(self.headers.get("Content-Length", 0))
-                try:
-                    body = json.loads(self.rfile.read(n) or b"{}")
-                except json.JSONDecodeError:
-                    _send_json(self, 400, {"error": "malformed JSON"})
+                if path == "/v1/kv_segment":  # a binary wire frame
+                    server._handle_kv_segment(self, tenant)
+                    return
+                if path == "/v1/kv_session":  # a frame with session state
+                    server._handle_kv_session(self, tenant)
+                    return
+                body = read_json_body(self)
+                if body is None:
+                    send_json(self, 400, {"error": "malformed JSON"})
                     return
                 if path == "/v1/embeddings":
                     server._handle_embeddings(self, body, tenant)
+                elif path == "/v1/prefill":
+                    server._handle_prefill(self, body, tenant)
                 else:
                     server._handle_generate(self, body, tenant)
 
@@ -236,10 +306,10 @@ class ServingServer:
         self._metrics_thread = None
         if metrics_port is not None:
 
-            class MetricsHandler(_QuietHandler):
+            class MetricsHandler(QuietHandler):
                 def do_GET(self):
                     if not server._common_get(self):
-                        _send_json(self, 404, {"error": "not found"})
+                        send_json(self, 404, {"error": "not found"})
 
             self._metrics_httpd = ThreadingHTTPServer((host, metrics_port),
                                                       MetricsHandler)
@@ -264,20 +334,20 @@ class ServingServer:
         path = urlparse(handler.path).path
         if path == "/healthz":
             payload = self._health()
-            _send_json(handler, 200 if payload["ok"] else 503, payload)
+            send_json(handler, 200 if payload["ok"] else 503, payload)
         elif path == "/readyz":
             payload = self._health()
             ready = payload["ok"] and not payload["draining"]
             payload["ready"] = ready
-            _send_json(handler, 200 if ready else 503, payload)
+            send_json(handler, 200 if ready else 503, payload)
         elif path == "/metrics":
-            _send(handler, 200,
+            send_body(handler, 200,
                   self.engine.metrics.render_prometheus().encode(),
                   PROM_CONTENT_TYPE)
         elif path == "/metrics.json":
-            _send_json(handler, 200, self._metrics_payload())
+            send_json(handler, 200, self._metrics_payload())
         elif path == "/debug/dump":
-            _send_json(handler, 200, self.flight_bundle("debug_dump"))
+            send_json(handler, 200, self.flight_bundle("debug_dump"))
         else:
             return False
         return True
@@ -312,7 +382,7 @@ class ServingServer:
         steps."""
         trigger = self.engine.profile
         if trigger is None:
-            _send_json(handler, 503, {
+            send_json(handler, 503, {
                 "error": "no ProfileTrigger configured (start the server "
                          "with profiling wired)"})
             return
@@ -322,15 +392,15 @@ class ServingServer:
             if n < 1:
                 raise ValueError
         except ValueError:
-            _send_json(handler, 400, {"error": "s must be an int >= 1"})
+            send_json(handler, 400, {"error": "s must be an int >= 1"})
             return
         try:
             capture_dir = trigger.arm(n)
         except RuntimeError as e:  # a capture is armed already
-            _send_json(handler, 409, {"error": str(e)})
+            send_json(handler, 409, {"error": str(e)})
             return
         log_event(_log, "profile_armed", steps=n, dir=str(capture_dir))
-        _send_json(handler, 200, {"armed": n, "dir": str(capture_dir)})
+        send_json(handler, 200, {"armed": n, "dir": str(capture_dir)})
 
     def _byte_vocab(self) -> bool:
         return self.engine.cfg.vocab_size <= 256
@@ -368,6 +438,11 @@ class ServingServer:
             "draining": self._draining.is_set() or self._paused.is_set(),
             "last_error": self.last_error,
             "restarts": self.engine.metrics.n_restarts,
+            # fleet fields: a router or controller routes on them (a
+            # replica restarted onto another model shows a new hash)
+            "config_hash": self.engine.config_hash,
+            # a controller sends no shorter prompt over the KV wire
+            "hit_grain": self.engine.hit_grain,
             "queue_depth": len(self.engine.scheduler),
             "idle": self.engine.idle,
             "device": str(self.engine.device),
@@ -406,7 +481,7 @@ class ServingServer:
             self._paused.set()
         else:
             self._paused.clear()
-        _send_json(handler, 200, {
+        send_json(handler, 200, {
             "draining": self._paused.is_set(),
             "in_flight": self.engine.pool.n_active,
             "queued": len(self.engine.scheduler),
@@ -499,6 +574,14 @@ class ServingServer:
         else:
             req.trace_id = new_trace_id()
 
+    def _deadline(self, handler) -> Deadline:
+        """The request's budget: the caller's ``X-Deadline-Ms`` (a router
+        or controller shrinks it on every hop), else the server's request
+        timeout. Every engine wait and outbound leg below takes its
+        timeout from it."""
+        return Deadline.from_header(handler.headers.get(DEADLINE_HEADER),
+                                    default_s=self.request_timeout_s)
+
     def _access_log(self, handler, req, http: int, status: str,
                     **fields) -> None:
         """The one structured access line a request: trace context,
@@ -522,32 +605,38 @@ class ServingServer:
         try:
             req = self._parse(body, tenant)
         except (AdmissionError, ValueError, TypeError) as e:
-            _send_json(handler, 400, {"error": str(e)})
+            send_json(handler, 400, {"error": str(e)})
             return
         self._resolve_trace(handler, req)
+        dl = self._deadline(handler)
+        if req.deadline_s is None and handler.headers.get(DEADLINE_HEADER):
+            # the wire budget becomes the engine-side expiry: a queued
+            # request whose budget lapsed retires EXPIRED
+            req.deadline_s = dl.remaining_s()
         try:
             self.engine.submit(req)
         except Backpressure as e:
             self._access_log(handler, req, 429, "backpressure")
-            _send_json(handler, 429, {"error": str(e)})
+            send_json(handler, 429, {"error": str(e)})
             return
         except (AdmissionError, ValueError, TypeError) as e:
             self._access_log(handler, req, 400, "admission_error")
-            _send_json(handler, 400, {"error": str(e)})
+            send_json(handler, 400, {"error": str(e)})
             return
+        wait_s = dl.timeout(self.request_timeout_s, floor=0.0)
         if req.stream is not None:
-            self._stream_generate(handler, req)
+            self._stream_generate(handler, req, wait_s)
             return
-        if not req.done.wait(self.request_timeout_s):
+        if not req.done.wait(wait_s):
             req.cancel()  # the slot stops decoding for a gone client
             self._completed(handler, req, 504, "timeout")
-            _send_json(handler, 504, {"error": "generation timed out"})
+            send_json(handler, 504, {"error": "generation timed out"})
             return
         if req.status is not RequestStatus.FINISHED:
             self.engine.pop_result(req.id)
             code = _STATUS_HTTP.get(req.status, 500)
             self._completed(handler, req, code, req.status.value)
-            _send_json(handler, code, {
+            send_json(handler, code, {
                 "id": req.id, "status": req.status.value,
                 "error": req.error or req.status.value,
             })
@@ -563,7 +652,7 @@ class ServingServer:
             out["logprobs"] = req.logprobs_out
         if self._byte_vocab():
             out["text"] = bytes(t % 256 for t in toks).decode("latin-1")
-        _send_json(handler, 200, out)
+        send_json(handler, 200, out)
 
     @staticmethod
     def _sse(handler, payload: dict) -> None:
@@ -572,7 +661,7 @@ class ServingServer:
                             + b"\n\n")
         handler.wfile.flush()
 
-    def _stream_generate(self, handler, req: Request) -> None:
+    def _stream_generate(self, handler, req: Request, wait_s: float) -> None:
         """SSE relay: a frame for each token as it lands on
         ``req.stream``, then a final frame with the terminal status (the
         engine sets it before the end-of-stream sentinel). A timeout
@@ -582,7 +671,7 @@ class ServingServer:
         handler.send_header("Cache-Control", "no-cache")
         handler.send_header("Connection", "close")
         handler.end_headers()
-        deadline = time.monotonic() + self.request_timeout_s
+        deadline = time.monotonic() + wait_s
         byte_vocab = self._byte_vocab()
         n = 0
         try:
@@ -630,11 +719,11 @@ class ServingServer:
             words = words.split()
         if (not isinstance(words, list) or not words
                 or not all(isinstance(w, str) for w in words)):
-            _send_json(handler, 400, {
+            send_json(handler, 400, {
                 "error": "'words' must be a non-empty list of strings"})
             return
         if not self.engine.embedders:
-            _send_json(handler, 503, {"error": "no embedding models loaded"})
+            send_json(handler, 503, {"error": "no embedding models loaded"})
             return
         try:
             req = EmbeddingRequest(
@@ -645,7 +734,7 @@ class ServingServer:
                 tenant_id=tenant.tenant_id if tenant is not None else "",
                 done=threading.Event())
         except (AdmissionError, ValueError, TypeError) as e:
-            _send_json(handler, 400, {"error": str(e)})
+            send_json(handler, 400, {"error": str(e)})
             return
         self._resolve_trace(handler, req)
         try:
@@ -653,23 +742,23 @@ class ServingServer:
         except Backpressure as e:
             self._access_log(handler, req, 429, "backpressure",
                              kind="embedding")
-            _send_json(handler, 429, {"error": str(e)})
+            send_json(handler, 429, {"error": str(e)})
             return
         except AdmissionError as e:
             self._access_log(handler, req, 400, "admission_error",
                              kind="embedding")
-            _send_json(handler, 400, {"error": str(e)})
+            send_json(handler, 400, {"error": str(e)})
             return
         if not req.done.wait(self.request_timeout_s):
             req.cancel()
             self._completed(handler, req, 504, "timeout", kind="embedding")
-            _send_json(handler, 504, {"error": "embedding timed out"})
+            send_json(handler, 504, {"error": "embedding timed out"})
             return
         if req.status is not RequestStatus.FINISHED:
             code = _STATUS_HTTP.get(req.status, 500)
             self._completed(handler, req, code, req.status.value,
                             kind="embedding")
-            _send_json(handler, code, {
+            send_json(handler, code, {
                 "id": req.id, "status": req.status.value,
                 "error": req.error or req.status.value})
             return
@@ -677,13 +766,430 @@ class ServingServer:
                    for w, v in req.result.items()}
         self._completed(handler, req, 200, "finished", kind="embedding",
                         n_words=len(words))
-        _send_json(handler, 200, {"id": req.id, "model": req.model,
+        send_json(handler, 200, {"id": req.id, "model": req.model,
                                   "vectors": vectors})
+
+    # -- the KV wire --------------------------------------------------------
+
+    def _read_frame(self, handler, what: str):
+        """The binary frame of a wire POST, decoded against this engine's
+        config hash; None after answering 400 or the frame's
+        ``WireError.status`` (409 for another model)."""
+        try:
+            length = int(handler.headers.get("Content-Length", "0"))
+            data = handler.rfile.read(length)
+        except (ValueError, OSError):
+            send_json(handler, 400, {"error": "unreadable body"})
+            return None
+        try:
+            return decode_segment(data, expect_hash=self.engine.config_hash)
+        except WireError as e:
+            log_event(_log, f"{what}_rejected", error=str(e), http=e.status,
+                      nbytes=len(data))
+            send_json(handler, e.status, {"error": str(e)})
+            return None
+
+    def _submit_and_wait(self, handler, req, kind: str,
+                         dl: Deadline) -> bool:
+        """Submit a wire request and wait for it within the budget; False
+        after answering 429, 400 or 504."""
+        self._resolve_trace(handler, req)
+        try:
+            self.engine.submit(req)
+        except Backpressure as e:
+            self._access_log(handler, req, 429, "backpressure", kind=kind)
+            send_json(handler, 429, {"error": str(e)})
+            return False
+        except AdmissionError as e:
+            self._access_log(handler, req, 400, "admission_error", kind=kind)
+            send_json(handler, 400, {"error": str(e)})
+            return False
+        if not req.done.wait(dl.timeout(self.request_timeout_s, floor=0.0)):
+            req.cancel()
+            self._access_log(handler, req, 504, "timeout", kind=kind)
+            send_json(handler, 504, {"error": f"{kind} timed out"})
+            return False
+        return True
+
+    def _answer_unfinished(self, handler, req, kind: str) -> None:
+        code = _STATUS_HTTP.get(req.status, 500)
+        self.engine.pop_result(req.id)
+        self._access_log(handler, req, code, req.status.value, kind=kind)
+        send_json(handler, code, {"id": req.id, "status": req.status.value,
+                                  "error": req.error or req.status.value})
+
+    def _tenant_fields(self, tenant) -> dict:
+        return {"priority": tenant.priority if tenant is not None else 1,
+                "tenant_id": tenant.tenant_id if tenant is not None else ""}
+
+    def _handle_kv_segment(self, handler, tenant) -> None:
+        """``POST /v1/kv_segment`` (the reference's, server.py:790): seat
+        one binary KV-segment frame in the prefix cache through the
+        engine's admission loop. 400/409 from the frame's checks;
+        otherwise 200 with ``{"stored", "reason"}`` (a decline is no
+        error). A repeated ``X-Idempotency-Key`` (a hedged copy) is 409."""
+        dl = self._deadline(handler)
+        idem = handler.headers.get(IDEMPOTENCY_HEADER, "")
+        if not self._idem.first_seen(idem):
+            log_event(_log, "kv_segment_duplicate", idem_key=idem)
+            send_json(handler, 409, {"error": "duplicate frame",
+                                     "duplicate": True, "stored": False})
+            return
+        seg = self._read_frame(handler, "kv_segment")
+        if seg is None:
+            return
+        req = KVIngestRequest(segment=seg, done=threading.Event(),
+                              **self._tenant_fields(tenant))
+        if not self._submit_and_wait(handler, req, "kv_ingest", dl):
+            return
+        if req.status is not RequestStatus.FINISHED:
+            self._answer_unfinished(handler, req, "kv_ingest")
+            return
+        self._access_log(handler, req, 200, "finished", kind="kv_ingest",
+                         stored=bool(req.result.get("stored")))
+        send_json(handler, 200, {"id": req.id, **req.result})
+
+    def _handle_kv_session(self, handler, tenant) -> None:
+        """``POST /v1/kv_session`` (the reference's, server.py:859): seat
+        one live migrated session (a frame whose ``gen`` block carries the
+        tokens so far, the key words and the budget) and decode it to the
+        end here. 200 answers the full token sequence; a seating decline
+        is a soft 409 (the sender keeps its fallback); a repeated
+        idempotency key is 409 with ``"duplicate": true``."""
+        dl = self._deadline(handler)
+        idem = handler.headers.get(IDEMPOTENCY_HEADER, "")
+        if not self._idem.first_seen(idem):
+            log_event(_log, "kv_session_duplicate", idem_key=idem)
+            send_json(handler, 409, {"error": "duplicate session frame",
+                                     "duplicate": True})
+            return
+        seg = self._read_frame(handler, "kv_session")
+        if seg is None:
+            return
+        gen = seg.get("gen")
+        if not isinstance(gen, dict):
+            send_json(handler, 400, {
+                "error": "frame carries no session state ('gen' header)"})
+            return
+        try:
+            n_prompt = int(gen["n_prompt"])
+            req = KVSessionRequest(
+                prompt=[int(t) for t in seg["tokens"][:n_prompt]],
+                max_new=int(gen["max_new"]),
+                eos_token=(None if gen.get("eos_token") is None
+                           else int(gen["eos_token"])),
+                adapter=int(gen.get("adapter", 0)),
+                segment=seg,
+                gen_tokens=tuple(int(t) for t in gen.get("tokens", ())),
+                key_data=np.asarray(gen.get("key_data", ()), np.int64),
+                done=threading.Event(), **self._tenant_fields(tenant))
+        except (AdmissionError, KeyError, TypeError, ValueError) as e:
+            send_json(handler, 400, {
+                "error": f"bad session state: {type(e).__name__}: {e}"})
+            return
+        if not self._submit_and_wait(handler, req, "kv_session", dl):
+            return
+        if (req.status is RequestStatus.FAILED
+                and isinstance(req.result, dict)
+                and not req.result.get("seated", True)):
+            # the engine cannot continue it byte for byte: the sender
+            # keeps the session on its own fallback
+            self._access_log(handler, req, 409, "declined",
+                             kind="kv_session",
+                             reason=req.result.get("reason"))
+            send_json(handler, 409, {
+                "id": req.id, "seated": False,
+                "reason": req.result.get("reason"),
+                "error": req.error or "session declined"})
+            return
+        if req.status is not RequestStatus.FINISHED:
+            self._answer_unfinished(handler, req, "kv_session")
+            return
+        toks = self.engine.pop_result(req.id).tolist()
+        self._access_log(handler, req, 200, "finished", kind="kv_session",
+                         n_tokens=len(toks) - len(req.prompt))
+        send_json(handler, 200, {"id": req.id, "status": "finished",
+                                 "tokens": toks,
+                                 "n_generated": len(toks) - len(req.prompt)})
+
+    def _handle_prefill(self, handler, body: dict, tenant) -> None:
+        """``POST /v1/prefill`` (the reference's, server.py:968):
+        prefill-only. The prompt's KV rows are framed for the wire and,
+        with ``"push_to": "host:port"``, pushed to that decode replica's
+        ``/v1/kv_segment`` (``idem_key`` rides as its idempotency key).
+        Answers the frame's metadata, never the frame; a failed push is a
+        200 with ``"pushed": false``, and the caller prefills locally."""
+        prompt = body.get("prompt")
+        if isinstance(prompt, str):
+            if not self._byte_vocab():
+                send_json(handler, 400, {
+                    "error": "text prompts need a byte-level model "
+                             "(vocab <= 256)"})
+                return
+            prompt = list(prompt.encode("latin-1", errors="replace"))
+        if not isinstance(prompt, list) or not prompt:
+            send_json(handler, 400, {
+                "error": "'prompt' must be a non-empty token list or a "
+                         "string"})
+            return
+        try:
+            req = KVExportRequest(
+                prompt=[int(t) for t in prompt],
+                priority=int(body.get(
+                    "priority", tenant.priority if tenant is not None
+                    else 1)),
+                adapter=int(body.get(
+                    "adapter", tenant.default_adapter if tenant is not None
+                    else 0)),
+                tenant_id=tenant.tenant_id if tenant is not None else "",
+                done=threading.Event())
+        except (AdmissionError, TypeError, ValueError) as e:
+            send_json(handler, 400, {"error": str(e)})
+            return
+        dl = self._deadline(handler)
+        if not self._submit_and_wait(handler, req, "kv_export", dl):
+            return
+        if req.status is not RequestStatus.FINISHED:
+            self._answer_unfinished(handler, req, "kv_export")
+            return
+        res = req.result
+        frame = encode_segment(
+            config_hash=res["config_hash"], tokens=res["tokens"],
+            leaves=res["leaves"], logits=res["logits"],
+            layout=res["layout"], block_size=res["block_size"])
+        out = {"id": req.id, "n_tokens": len(req.prompt),
+               "nbytes": len(frame), "config_hash": res["config_hash"]}
+        push_to = body.get("push_to")
+        if push_to:
+            pushed, info = self._push_segment(
+                str(push_to), frame, req, res.get("span_id"),
+                idem_key=str(body.get("idem_key") or ""), deadline=dl)
+            out["pushed"] = pushed
+            if info:
+                out["ingest"] = info
+        self._access_log(handler, req, 200, "finished", kind="kv_export",
+                         n_tokens=len(req.prompt), nbytes=len(frame))
+        send_json(handler, 200, out)
+
+    def _post_frame(self, target: str, path: str, frame: bytes, req,
+                    span_id: str, idem_key: str, deadline: Deadline | None,
+                    timeout_s: float) -> tuple[int, dict, str | None]:
+        """POST a frame to ``target`` (host:port) with the idempotency key,
+        the remaining budget and a ``traceparent`` naming ``span_id``;
+        ``(http status or 0, JSON answer, transport error or None)``."""
+        host, _, port = target.rpartition(":")
+        try:
+            conn = http.client.HTTPConnection(
+                host or "127.0.0.1", int(port),
+                timeout=(deadline.timeout(self.request_timeout_s)
+                         if deadline is not None else timeout_s))
+            headers = {"Content-Type": "application/octet-stream"}
+            if idem_key:
+                headers[IDEMPOTENCY_HEADER] = idem_key
+            if deadline is not None:
+                headers[DEADLINE_HEADER] = deadline.header_value()
+            if req.trace_id:
+                headers["traceparent"] = format_traceparent(req.trace_id,
+                                                            span_id)
+            try:
+                conn.request("POST", path, body=frame, headers=headers)
+                resp = conn.getresponse()
+                raw = resp.read()
+            finally:
+                conn.close()
+        except (OSError, ValueError, http.client.HTTPException) as e:
+            return 0, {}, repr(e)
+        try:
+            info = json.loads(raw.decode("utf-8"))
+        except (ValueError, UnicodeDecodeError):
+            info = {}
+        return resp.status, info if isinstance(info, dict) else {}, None
+
+    def _push_segment(self, target: str, frame: bytes, req,
+                      parent_span: str | None, *, idem_key: str = "",
+                      deadline: Deadline | None = None) -> tuple[bool, dict]:
+        """POST the frame to ``target``'s ``/v1/kv_segment``; ``(ok, the
+        ingest answer)``. A ``transfer`` span (the outgoing
+        ``traceparent`` names it as the ingest's parent) and the transfer
+        metrics are recorded either way."""
+        t0 = time.perf_counter()
+        span_id = new_span_id()
+        status, info, err = self._post_frame(
+            target, "/v1/kv_segment", frame, req, span_id, idem_key,
+            deadline, min(30.0, self.request_timeout_s))
+        ok = status == 200 and bool(info.get("stored"))
+        if err is None and status != 200:
+            err = "http %d: %s" % (status, info.get("error"))
+        dt = time.perf_counter() - t0
+        self.engine.metrics.record_transfer(len(frame), dt, ok=ok)
+        tctx = {}
+        if self.engine.tracer.enabled and req.trace_id:
+            tctx = {"trace_id": req.trace_id, "span_id": span_id}
+            if parent_span:
+                tctx["parent_span_id"] = parent_span
+        self.engine.tracer.span("transfer", "transfer", t0, dt,
+                                target=target, nbytes=len(frame), ok=ok,
+                                **tctx)
+        log_event(_log, "kv_transfer", target=target, nbytes=len(frame),
+                  ok=ok, seconds=round(dt, 6), error=err,
+                  stored=bool(info.get("stored")))
+        if err:
+            info = dict(info)
+            info["error"] = err
+        return ok, info
+
+    # -- live session migration ---------------------------------------------
+
+    def _handle_migrate(self, handler) -> None:
+        """``POST /migrate`` (the reference's, server.py:1126): export every
+        live session and seat each on one of ``{"targets": ["host:port",
+        ...]}`` (else ``migrate_targets``), completing the original
+        requests with the destination's tokens. What cannot move stays on
+        the ordinary drain path."""
+        body = read_json_body(handler)
+        if body is None:
+            body = {}
+        targets = body.get("targets") or list(self.migrate_targets)
+        if not isinstance(targets, (list, tuple)):
+            send_json(handler, 400, {"error": "'targets' must be a list"})
+            return
+        res = self._migrate_sessions([str(t) for t in targets],
+                                     self._deadline(handler))
+        send_json(handler, 200 if "error" not in res else 503, res)
+
+    def _migrate_sessions(self, targets: list[str],
+                          deadline: Deadline | None = None) -> dict:
+        """Export the live sessions on the engine loop and push each to the
+        first target that seats and completes it; the rest retire
+        CANCELLED with their partial tokens. Serialized: concurrent
+        ``/migrate`` posts and ``stop()`` share one mailbox."""
+        targets = [t for t in targets if t]
+        out = {"targets": list(targets), "exported": 0, "migrated": 0,
+               "failed": 0}
+        if not targets:
+            out["error"] = "no migration targets"
+            return out
+        with self._migrate_lock:
+            if not self._engine_thread.is_alive() or self._dead.is_set():
+                out["error"] = "engine not running"
+                return out
+            evt = threading.Event()
+            box: dict = {"evt": evt}
+            with self._box_lock:
+                self._migrate_box = box
+            t_end = time.monotonic() + (deadline.timeout(30.0)
+                                        if deadline is not None else 30.0)
+            # the loop exits once drained and idle: poll its liveness
+            while not evt.is_set() and time.monotonic() < t_end:
+                if (not self._engine_thread.is_alive()
+                        or self._dead.is_set()):
+                    break
+                evt.wait(0.05)
+            if not evt.is_set():
+                with self._box_lock:
+                    taken = self._migrate_box is not box
+                    self._migrate_box = None
+                if not taken:
+                    out["error"] = "engine loop unavailable for export"
+                    return out
+                # the loop took the box and is exporting: the export is
+                # bounded (one horizon's readback and a host copy a slot),
+                # and what it parks must be settled, or its callers wait
+                # for tokens nobody will send
+                while not evt.wait(0.05):
+                    if not self._engine_thread.is_alive():
+                        break
+                sessions = box.get("sessions") or []
+                for sess in sessions:
+                    self.engine.fail_migrated(
+                        sess["req"], "migration deadline expired during "
+                        "the export", partial=sess["gen"]["tokens"])
+                out["exported"] = out["failed"] = len(sessions)
+                out["error"] = "deadline expired during the export"
+                return out
+            if "error" in box:
+                out["error"] = box["error"]
+                return out
+            sessions = box.get("sessions") or []
+            out["exported"] = len(sessions)
+            for sess in sessions:
+                ok, info = self._push_session(sess, targets, deadline)
+                if ok:
+                    self.engine.complete_migrated(
+                        sess["req"], info["tokens"],
+                        n_streamed=sess["n_streamed"])
+                    out["migrated"] += 1
+                else:
+                    self.engine.fail_migrated(
+                        sess["req"],
+                        info.get("error") or "migration push failed",
+                        partial=sess["gen"]["tokens"])
+                    out["failed"] += 1
+        log_event(_log, "migrate", exported=out["exported"],
+                  migrated=out["migrated"], failed=out["failed"],
+                  n_targets=len(targets), error=out.get("error"))
+        return out
+
+    def _push_session(self, sess: dict, targets: list[str],
+                      deadline: Deadline | None = None) -> tuple[bool, dict]:
+        """POST one exported session's frame to each target's
+        ``/v1/kv_session`` until one seats and completes it (the
+        idempotency key is the request id's, so a retry racing a slow
+        earlier attempt is declined, never seated twice); ``(ok, answer)``
+        with the full token list when ok."""
+        req = sess["req"]
+        frame = encode_segment(
+            config_hash=sess["config_hash"], tokens=sess["tokens"],
+            leaves=sess["leaves"], logits=sess["logits"],
+            layout=sess["layout"], block_size=sess["block_size"],
+            gen=sess["gen"])
+        last: dict = {}
+        for target in targets:
+            t0 = time.perf_counter()
+            span_id = new_span_id()
+            status, info, err = self._post_frame(
+                target, "/v1/kv_session", frame, req, span_id,
+                "mig-" + req.id, deadline, self.request_timeout_s)
+            dt = time.perf_counter() - t0
+            ok = (err is None and status == 200
+                  and info.get("status") == "finished"
+                  and isinstance(info.get("tokens"), list))
+            if err is None and not ok:
+                err = "http %d: %s" % (status,
+                                       info.get("reason") or info.get("error"))
+            if self.engine.tracer.enabled and req.trace_id:
+                self.engine.tracer.span(
+                    "migrate_push", "transfer", t0, dt, target=target,
+                    nbytes=len(frame), ok=ok, trace_id=req.trace_id,
+                    span_id=span_id)
+            self.engine.flight.record("migrate_push", req_id=req.id,
+                                      target=target, ok=ok,
+                                      http=status or None, error=err)
+            log_event(_log, "session_migrate_push", req_id=req.id,
+                      target=target, nbytes=len(frame), ok=ok,
+                      seconds=round(dt, 6), error=err)
+            if ok:
+                return True, info
+            last = dict(info)
+            last["error"] = err
+        return False, last
 
     def _engine_loop(self) -> None:
         consecutive = 0
         while not self._stop.is_set():
             self._last_beat = time.monotonic()
+            box = None
+            if self._migrate_box is not None:
+                with self._box_lock:
+                    box, self._migrate_box = self._migrate_box, None
+            if box is not None:
+                # between steps every slot is quiescent: the export runs
+                # on this thread, which owns the slot and device state
+                try:
+                    box["sessions"] = self.engine.export_sessions()
+                except Exception as e:
+                    box["error"] = f"{type(e).__name__}: {e}"
+                box["evt"].set()
             try:
                 progressed = self.engine.step()
                 consecutive = 0
@@ -728,14 +1234,25 @@ class ServingServer:
         return self
 
     def stop(self, drain_s: float = 0.0) -> None:
-        """Stop admission, drain for up to ``drain_s`` seconds, cancel the
-        stragglers, then shut down."""
+        """Stop admission, drain for up to ``drain_s`` seconds, migrate the
+        live sessions to ``migrate_targets`` (when set and ``drain_s`` >
+        0), cancel the stragglers, then shut down."""
         self._draining.set()
         deadline = time.monotonic() + drain_s
         while (time.monotonic() < deadline
                and self._engine_thread.is_alive()
                and not self.engine.idle):
             time.sleep(0.005)
+        if (drain_s > 0 and self.migrate_targets
+                and self._engine_thread.is_alive()
+                and not self._dead.is_set() and not self.engine.idle):
+            # live sessions at the deadline move to another replica first;
+            # preemption below gets what migration could not seat
+            try:
+                self._migrate_sessions(list(self.migrate_targets))
+            except Exception as e:
+                log_event(_log, "migrate_on_stop_failed",
+                          error=f"{type(e).__name__}: {e}")
         if self._engine_thread.is_alive() and not self.engine.idle:
             self.engine.preempt_all()
             grace = time.monotonic() + 1.0
@@ -756,11 +1273,13 @@ class ServingServer:
                 self._metrics_httpd.shutdown()
             self._metrics_httpd.server_close()
 
-    def serve_forever(self, drain_s: float = 0.0) -> None:
+    def serve_forever(self, drain_s: float = 0.0, on_start=None) -> None:
         """Blocking convenience for the CLI; Ctrl-C and SIGTERM drain for
         ``drain_s`` seconds and exit (SIGTERM writes a flight bundle
-        first)."""
+        first). ``on_start`` is called once the server listens."""
         self.start()
+        if on_start is not None:
+            on_start()
         done = threading.Event()
 
         def on_sigterm(signum, frame):

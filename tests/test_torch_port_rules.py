@@ -64,7 +64,38 @@ def test_port_imports_no_jax_in_a_fresh_process():
                          env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 15
+    assert n_modules >= 48
+
+
+_FLEET = ("serving.disagg", "serving.rpc", "serving.netfaults",
+          "serving.router", "serving.controller", "utils.httpjson")
+
+_IMPORT_FLEET = """
+import importlib, sys
+for n in sys.argv[1:]:
+    importlib.import_module("deeplearning4j_tpu_torch." + n)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("torch", "jax", "jaxlib",
+                                    "deeplearning4j_tpu"))
+print(bad)
+assert not bad, bad
+"""
+
+
+def test_fleet_modules_import_no_torch_in_a_fresh_process():
+    """The KV wire, the RPC primitives, the chaos proxy, the router and
+    the controller (the port's own copies of the reference's stdlib
+    modules) load no model stack: no ``torch``, no JAX, nothing of the JAX
+    package, and so does the CLI module their commands run from."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "-c", _IMPORT_FLEET, *_FLEET,
+                          "cli"], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr + out.stdout
+    for rel in _FLEET:
+        path = PKG / (rel.replace(".", "/") + ".py")
+        assert path in set(PKG.rglob("*.py")), rel
 
 
 def _imported_roots(path: Path) -> set[str]:

@@ -78,11 +78,21 @@ def test_split_matches_jax(jax, n):
                                   np.asarray(jax.random.key_data(jsub)))
 
 
-@pytest.mark.parametrize("data", [0, 1, 639, 2**31 - 1])
+@pytest.mark.parametrize("data", [0, 1, 639, 2**31 - 1, 2**32 - 1])
 def test_fold_in_matches_jax(jax, data):
     want = np.asarray(jax.random.key_data(jax.random.fold_in(_jkey(jax),
                                                              data)))
     np.testing.assert_array_equal(_u32(threefry.fold_in(SEED, data)), want)
+
+
+@pytest.mark.parametrize("data", [2**32, -1])
+def test_fold_in_out_of_range_raises_as_jax(jax, data):
+    """Data outside [0, 2^32) is refused as JAX refuses it (64-bit types
+    off), not masked into range."""
+    with pytest.raises(OverflowError):
+        jax.random.fold_in(_jkey(jax), data)
+    with pytest.raises(OverflowError):
+        threefry.fold_in(SEED, data)
 
 
 @pytest.mark.parametrize("shape", [(7,), (50304,), (3, 50304)])
