@@ -210,6 +210,27 @@ Phases, in order; any failure exits non-zero without printing a result:
    one trace id, with each transfer request's legs in ms. Every launch of
    #1, #3/#4 and the draw in phase 12 is held by phase 2
    (``check_launched``).
+13. exact tensor-parallel serving at that width (phase 3's model and
+   prompts, 8 slots, max_total 640, K 4), every rank on the one card
+   (``tp_devices=["cuda:0"] * tp``), tp 1, 2 and 3 (GPT-2-small's 6 heads
+   do not divide among 4 ranks), the TP request's dense programs at every
+   width, one probe-verdict file for the phase: (a) bf16 slab, bf16 paged
+   (bs 8) and int8 full, greedy and T 0.8 top-k 40, at tp 1 and 2 (bf16
+   slab also at tp 3): the tp parity probe's verdict (a decline outside
+   ``TP_KNOWN_DECLINES`` fails bf16 slab; a decline is served trusted and
+   held to tp 1 at the near-tie rule), the streams against tp 1's
+   (byte-identical where the probe passed), no launch of #1, #3 or #4
+   and the draw on the sampled runs, tok/s and TPOT p50 per width; (b) the prefix cache behind a 256-token system prompt at
+   tp 2 (full and partial hits, the bytes of the cache off); (c) a crash at
+   step check 6 at tp 2, sampled (the uninterrupted streams); (d) a LoRA
+   bank of 4 x rank 4 at tp 2 against tp 1; (e) a regex and a JSON-schema
+   request through the masked step at tp 2 against tp 1; (f) a tp-2 frame
+   byte-equal to tp 1's and seated by a tp-1 engine (no prefill, the
+   monolithic stream); (g) tp 4 over the 6 heads falling back to tp 1
+   with the caller's config (kernels #1 and #3 launch again) and
+   ``cli.main(["serve", "--tp", "2", ...])`` exiting 2 on one card; (h)
+   device records and host ms a steady decode substep at each width
+   (``torch.profiler``).
 
 The last lines are the kernel table as one JSON object, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -5369,6 +5390,462 @@ def phase_fleet(card: str) -> dict[str, dict[str, int]]:
     return {f"fleet_{k}": v for k, v in runs.items()}
 
 
+# -- phase 13 ----------------------------------------------------------------
+
+#: 13: the widths served, every rank on the one card: GPT-2-small's 6
+#: heads divide among 2 and 3 ranks, not 4 (13g: a tp-4 request falls back
+#: to 1)
+TP_WIDTHS = (1, 2, 3)
+#: 13a's modes: (name, int8 full, paged, widths); tp 3 only in bf16 slab
+#: (the phase's time budget)
+TP_MODES = (("bf16 slab", False, False, TP_WIDTHS),
+            ("bf16 paged", False, True, TP_WIDTHS[:2]),
+            ("int8 full", True, False, TP_WIDTHS[:2]))
+#: (mode, tp) pairs whose parity probe declines on the card for a product
+#: PERF.md section 7 names; the phase then serves them trusted and holds
+#: them to tp 1 at the near-tie rule. A decline outside it fails the phase
+#: in bf16 slab and is reported in the others. None: the head product runs
+#: in fixed-width vocab column blocks (``_head_cols``), the one product
+#: cuBLAS rounded differently over a rank's narrower part
+#: (``scripts/torch_tp_products.py``).
+TP_KNOWN_DECLINES: frozenset = frozenset()
+#: 13b: the shared system prompt, suffix lengths, exact repeats; 13c: the
+#: crash's step check; 13h: steady-decode horizons profiled a width
+TP_SYSTEM, TP_SUFFIXES, TP_REPEATS = 256, (8, 16, 24, 32, 40, 48), 2
+TP_CRASH, TP_PROFILE_HORIZONS = 6, 3
+#: the probe-verdict file every phase-13 engine shares (its directory is
+#: made and removed by ``main``)
+TP_PROBES = ROOT / ".scratch" / "chip_smoke_phase13" / "probes.json"
+
+
+def _tp_engine(cfg, params, tp: int, **kw):
+    """Phase 13's engine: the serve smoke's geometry (8 slots, max_total
+    640, K 4) at tensor-parallel width ``tp``, every rank on cuda:0."""
+    from deeplearning4j_tpu_torch.serving import ServingEngine
+
+    kw.setdefault("temperature", 0.0)
+    return ServingEngine(cfg, params, n_slots=8, max_total=640,
+                         decode_horizon=4, block_size=BLOCK_SIZE, tp=tp,
+                         tp_devices=["cuda:0"] * tp if tp > 1 else None,
+                         probe_cache=str(TP_PROBES), **kw)
+
+
+def _slot_keys(seed: int, n: int) -> list:
+    """The first ``n`` slot keys an engine with master seed ``seed``
+    splits off, in admission order."""
+    from deeplearning4j_tpu_torch.ops import threefry
+
+    k, out = threefry.key(seed), []
+    for _ in range(n):
+        k, sub = threefry.split(k)
+        out.append(sub)
+    return out
+
+
+def _tp_run(tag, cfg, params, tp, prompts, *, must=(), **kw):
+    """Build a width-``tp`` engine and serve ``prompts`` (MAX_NEW new each)
+    with every count set to 0 just before and read just after; no prefill
+    or decode kernel may launch (the TP path and its tp-1 comparator are
+    dense). A declined probe is reported and, where TP_KNOWN_DECLINES
+    names it (or outside bf16 slab), the engine is built again trusted
+    (``tp_parity=True``). Returns (engine, probe verdict, streams,
+    launches, summary)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.serving import Request
+
+    mode = tag.split(",")[0].removeprefix("phase 13a ")
+    eng = _tp_engine(cfg, params, tp, **kw)
+    ok = eng.tp == tp
+    if tp > 1:
+        log(f"{tag}: tp parity probe {'passed' if ok else 'DECLINED'}"
+            f"{'' if ok else ' (' + str(eng.tp_probe_detail) + ')'}; "
+            f"probes run {eng.probes_run}, from the cache "
+            f"{eng.probes_from_cache}")
+    if not ok:
+        _must(tag, mode != "bf16 slab" or (mode, tp) in TP_KNOWN_DECLINES,
+              "the probe declined in bf16 slab for no recorded product")
+        del eng
+        eng = _tp_engine(cfg, params, tp, tp_parity=True, **kw)
+    streams, launches, wall = _timed_run(
+        eng, [Request(prompt=p, max_new=MAX_NEW) for p in prompts])
+    _launch_check(tag, launches, must,
+                  ("flash_attn_fwd", "flash_decode", "flash_decode_int8",
+                   "flash_decode_paged"))
+    torch.cuda.empty_cache()
+    s = eng.metrics.summary()
+    s["wall_s"] = wall
+    return eng, ok, streams, launches, s
+
+
+def phase13_parity(card: str, models, total, perf) -> dict:
+    """13a: bf16 slab, bf16 paged (bs 8) and int8 full, greedy and T 0.8
+    top-k 40, at tp 1 and 2 (bf16 slab also at 3): the probe's verdict and
+    the streams against tp 1's (byte-identical where the probe passed,
+    else at the near-tie rule); tok/s and TPOT p50 per width. Returns the
+    prompts, and the tp-2 bf16 slab T 0.8 streams for 13c."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, models[False][0].vocab_size, n)
+               for n in PROMPT_LENGTHS]
+    out = {"prompts": prompts}
+    for mode, int8, paged, widths in TP_MODES:
+        cfg, params = models[int8]
+        for sampled in (False, True):
+            kw = dict(paged=paged, **(dict(temperature=SAMPLE_T,
+                                           top_k=SAMPLE_K) if sampled
+                                      else {}))
+            smode = f"{mode}, {'T 0.8 top-k 40' if sampled else 'greedy'}"
+            ref = None
+            for tp in widths:
+                tag = f"phase 13a {smode}, tp {tp}"
+                t0 = time.perf_counter()
+                eng, ok, streams, launches, s = _tp_run(
+                    tag, cfg, params, tp, prompts,
+                    must=("threefry_draw",) if sampled else (), **kw)
+                _add(total, launches)
+                _must(tag, eng._paged == paged, "the paged probe failed")
+                if tp == 1:
+                    ref = (eng, streams)
+                else:
+                    same, notes = _against(
+                        tag, ref[0], ref[1], streams, prompts, sampled,
+                        _slot_keys(0, len(prompts)), ok)
+                    log(f"{tag}: streams byte-identical to tp 1 {same}/"
+                        f"{len(prompts)}"
+                        f"{'; ' + '; '.join(notes) if notes else ''}")
+                    if sampled and mode == "bf16 slab" and tp == 2:
+                        out["crash_ref"] = streams
+                log(f"{tag}: {s['n_generated']} tokens in "
+                    f"{s['wall_s']:.3f} s -> "
+                    f"{s['n_generated'] / s['wall_s']:.1f} generated tok/s; "
+                    f"TPOT p50 {s['tpot_p50_s'] * 1e3:.3f} ms p99 "
+                    f"{s['tpot_p99_s'] * 1e3:.3f} ms; TTFT p50 "
+                    f"{s['ttft_p50_s'] * 1e3:.2f} ms; draws "
+                    f"{launches['threefry_draw']}; "
+                    f"{time.perf_counter() - t0:.1f} s with set-up "
+                    f"[{card}]")
+                perf.setdefault(smode, {})[tp] = (
+                    s["n_generated"] / s["wall_s"], s["tpot_p50_s"] * 1e3)
+                del eng
+    return out
+
+
+def phase13_prefix(card: str, cfg, params, total) -> None:
+    """13b: at tp 2, prompts behind one 256-token system prompt with the
+    prefix cache off and on, in two waves: two prompts first (the second
+    one's insert cuts a branch-point segment at the system prompt), then
+    four more (partial hits there) and exact repeats of the first two
+    (full hits). The same bytes either way."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.serving import Request
+
+    rng = np.random.default_rng(13)
+    system = rng.integers(0, cfg.vocab_size, TP_SYSTEM)
+    prompts = [np.concatenate([system, rng.integers(0, cfg.vocab_size, n)])
+               for n in TP_SUFFIXES]
+    prompts += [p.copy() for p in prompts[:TP_REPEATS]]
+    runs = {}
+    for cache in (False, True):
+        tag = f"phase 13b tp 2, prefix cache {'on' if cache else 'off'}"
+        eng = _tp_engine(cfg, params, 2, prefix_cache=cache)
+        _must(tag, eng.tp == 2, "the tp parity probe declined")
+        streams, wall = [], 0.0
+        for wave in (prompts[:2], prompts[2:]):
+            got, launches, w = _timed_run(
+                eng, [Request(prompt=p, max_new=MAX_NEW) for p in wave])
+            _launch_check(tag, launches, (),
+                          ("flash_attn_fwd", "flash_decode"))
+            _add(total, launches)
+            streams += got
+            wall += w
+        m = eng.metrics
+        runs[cache] = streams
+        log(f"{tag}: probe {eng._prefix_ok_memo}; full hits "
+            f"{m.n_prefix_hits_full}, partial {m.n_prefix_hits_partial}, "
+            f"tokens saved {m.prefix_tokens_saved}; prefill dispatches "
+            f"{eng.prefill_dispatches}; TTFT p50 "
+            f"{m.summary()['ttft_p50_s'] * 1e3:.2f} ms; {wall:.3f} s "
+            f"[{card}]")
+        if cache:
+            _must(tag, m.n_prefix_hits_full == TP_REPEATS
+                  and m.n_prefix_hits_partial == len(TP_SUFFIXES) - 2,
+                  "the second wave did not hit the cache")
+    same = sum(np.array_equal(a, b) for a, b in zip(runs[False], runs[True]))
+    log(f"phase 13b: cache on vs off streams identical {same}/{len(prompts)}")
+    _must("phase 13b", same == len(prompts), "cache-on streams differ")
+
+
+def phase13_recovery(card: str, cfg, params, total, prompts, ref) -> None:
+    """13c: the tp-2 bf16 slab T 0.8 top-k 40 run under a crash at step
+    check 6: its streams equal the uninterrupted run's."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.serving import FaultInjector
+
+    tag = "phase 13c tp 2, crash at step check 6"
+    eng, _, streams, launches, s = _tp_run(
+        tag, cfg, params, 2, prompts, must=("threefry_draw",),
+        temperature=SAMPLE_T, top_k=SAMPLE_K,
+        faults=FaultInjector().plan("step", TP_CRASH, "crash"))
+    _add(total, launches)
+    same = sum(np.array_equal(a, b) for a, b in zip(ref, streams))
+    log(f"{tag}: restarts {eng.metrics.n_restarts}, mode "
+        f"{eng.last_recover_mode} (chunked-replay probe {eng._chunked_ok}); "
+        f"streams identical to the uninterrupted run {same}/{len(prompts)} "
+        f"[{card}]")
+    _must(tag, eng.tp == 2 and eng.metrics.n_restarts == 1
+          and same == len(prompts), "the recovered streams differ")
+
+
+def phase13_lora(card: str, cfg, params, total, prompts) -> None:
+    """13d: a bank of 4 adapters of rank 4 from key(0) at tp 2 against tp
+    1, adapters 0-3 over the 8 slots, greedy."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.models.transformer import init_lora_bank
+    from deeplearning4j_tpu_torch.ops import threefry
+    from deeplearning4j_tpu_torch.serving import Request
+
+    bank = init_lora_bank(threefry.key(0), cfg, 4, 4)
+    runs = {}
+    for tp in (1, 2):
+        tag = f"phase 13d LoRA 4 x rank 4, tp {tp}"
+        eng = _tp_engine(cfg, params, tp, lora_bank=bank)
+        _must(tag, eng.tp == tp and eng.n_adapters == 4,
+              "the tp or LoRA probe declined")
+        streams, launches, wall = _timed_run(eng, [
+            Request(prompt=p, max_new=MAX_NEW, adapter=i % 4)
+            for i, p in enumerate(prompts)])
+        _launch_check(tag, launches, (), ("flash_attn_fwd", "flash_decode"))
+        _add(total, launches)
+        runs[tp] = streams
+        log(f"{tag}: {wall:.3f} s [{card}]")
+    same = sum(np.array_equal(a, b) for a, b in zip(runs[1], runs[2]))
+    log(f"phase 13d: tp 2 vs tp 1 streams identical {same}/{len(prompts)}")
+    _must("phase 13d", same == len(prompts), "LoRA streams differ")
+
+
+def phase13_grammar(card: str, cfg, params, total) -> None:
+    """13e: one regex and one JSON-schema request (T 0 and T 0.8) beside
+    two plain ones through the masked step at tp 2 against tp 1."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.serving import Request
+
+    runs = {}
+    for tp in (1, 2):
+        tag = f"phase 13e grammar, tp {tp}"
+        eng = _tp_engine(cfg, params, tp, sampling_surface=True)
+        _must(tag, eng.tp == tp and eng._surface,
+              "the tp or masked probe declined")
+        rng = np.random.default_rng(14)
+        reqs = _constrained_reqs(n_regex=1, n_json=1) + [
+            Request(prompt=rng.integers(0, cfg.vocab_size, n), max_new=16)
+            for n in (40, 77)]
+        for r in reqs:
+            eng.submit(r)
+        res = eng.run()
+        _check_constrained(tag, res, reqs[:2])
+        runs[tp] = [res[r.id] for r in reqs]
+        outs = [bytes(int(t) for t in res[r.id][len(r.prompt):-1])
+                for r in reqs[:2]]
+        log(f"{tag}: constrained outputs {outs} [{card}]")
+    same = sum(np.array_equal(a, b) for a, b in zip(runs[1], runs[2]))
+    log(f"phase 13e: tp 2 vs tp 1 streams identical {same}/4")
+    _must("phase 13e", same == 4, "masked-step streams differ")
+
+
+def phase13_wire(card: str, cfg, params, total) -> None:
+    """13f: a 200-token prompt exported by a tp-2 engine: its frame is a
+    tp-1 engine's byte for byte, a tp-1 decode engine seats it and the
+    follow-up generate runs no prefill program with the monolithic
+    stream."""
+    import threading
+
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.serving import (
+        KVExportRequest,
+        KVIngestRequest,
+        Request,
+        decode_segment,
+        encode_segment,
+    )
+
+    def drain(eng, req):
+        eng.submit(req)
+        while not req.done.is_set():
+            eng.step()
+        return req
+
+    prompt = np.random.default_rng(15).integers(0, cfg.vocab_size, 200)
+    frames = {}
+    for tp in (1, 2):
+        eng = _tp_engine(cfg, params, tp)
+        _must("phase 13f", eng.tp == tp, "the tp parity probe declined")
+        res = drain(eng, KVExportRequest(prompt=prompt,
+                                         done=threading.Event())).result
+        frames[tp] = encode_segment(
+            config_hash=res["config_hash"], tokens=res["tokens"],
+            leaves=res["leaves"], logits=res["logits"], layout=res["layout"],
+            block_size=res["block_size"])
+    dc = _tp_engine(cfg, params, 1, prefix_cache=True)
+    ing = drain(dc, KVIngestRequest(
+        segment=decode_segment(frames[2], expect_hash=dc.config_hash),
+        done=threading.Event()))
+    got = drain(dc, Request(prompt=prompt, max_new=MAX_NEW,
+                            done=threading.Event()))
+    mono = _tp_engine(cfg, params, 1)
+    mono.submit(ref := Request(prompt=prompt, max_new=MAX_NEW))
+    want = mono.run()[ref.id]
+    same = np.array_equal(dc.pop_result(got.id), want)
+    log(f"phase 13f: frame bytes {len(frames[2])}, tp 2 == tp 1 "
+        f"{frames[1] == frames[2]}; seated {ing.result}; prefill "
+        f"dispatches after the seat {dc.prefill_dispatches}; stream equal "
+        f"to the monolithic one {same} [{card}]")
+    _must("phase 13f", frames[1] == frames[2] and ing.result["stored"]
+          and dc.prefill_dispatches == 0 and same,
+          "the tp-2 frame did not seat as a tp-1 one")
+
+
+def phase13_cli(kcfg, params, total) -> None:
+    """13g: an engine asked for tp 4 over the 6 heads serves at tp 1
+    (``tp_parity_probe_failed``, the layout's refusal) with the caller's
+    config, so kernels #1 and #3 launch again; ``serve --tp N`` with one
+    card more than the machine has (2 on one card) exits 2 with the
+    mesh's message."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch import cli
+    from deeplearning4j_tpu_torch.serving import Request
+
+    tag = "phase 13g tp 4 fallback"
+    eng = _tp_engine(kcfg, params, 4)
+    log(f"{tag}: tp 4 over {kcfg.n_heads} heads -> tp {eng.tp} "
+        f"({eng.tp_probe_detail})")
+    _must(tag, eng.tp == 1 and eng.tp_mesh is None and eng.cfg == kcfg,
+          "tp 4 over 6 heads did not fall back to tp 1 with the caller's "
+          "config")
+    rng = np.random.default_rng(17)
+    _, launches, _ = _timed_run(eng, [
+        Request(prompt=rng.integers(0, kcfg.vocab_size, n), max_new=8)
+        for n in (40, 128)])
+    _launch_check(tag, launches, ("flash_attn_fwd", "flash_decode"))
+    _add(total, launches)
+    del eng
+
+    n = max(2, torch.cuda.device_count() + 1)
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main(["serve", "--demo", "--preset", "gpt2s", "--tp",
+                       str(n), "--port", "0"])
+    log(f"phase 13g: serve --tp {n} on {torch.cuda.device_count()} "
+        f"card(s): exit {rc}, "
+        f"{err.getvalue().strip()!r}")
+    _must("phase 13g", rc == 2 and f"need {n} devices" in err.getvalue(),
+          f"serve --tp {n} did not exit 2 with the mesh's message")
+
+
+def phase13_profile(card: str, cfg, params, perf) -> None:
+    """13h: launches a decode substep at each width: 8 slots of 128-token
+    prompts in steady decode, TP_PROFILE_HORIZONS horizons under
+    ``torch.profiler`` (device records per substep), with the host's
+    ms a substep over the same horizons untraced."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from deeplearning4j_tpu_torch.serving import Request
+
+    rng = np.random.default_rng(16)
+    for tp in TP_WIDTHS:
+        eng = _tp_engine(cfg, params, tp)
+        if eng.tp != tp:  # a recorded decline (13a checked it): trusted
+            eng = _tp_engine(cfg, params, tp, tp_parity=True)
+        for _ in range(8):
+            eng.submit(Request(prompt=rng.integers(0, cfg.vocab_size, 128),
+                               max_new=4 * (3 * TP_PROFILE_HORIZONS + 4)))
+        for _ in range(3):
+            eng.step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TP_PROFILE_HORIZONS):
+            eng.step()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / (4 * TP_PROFILE_HORIZONS) * 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(TP_PROFILE_HORIZONS):
+                eng.step()
+            torch.cuda.synchronize()
+        recs = sum(ev.count for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA)
+        per = recs / (4 * TP_PROFILE_HORIZONS)
+        perf.setdefault("profile", {})[tp] = (per, ms)
+        log(f"phase 13h tp {tp}: {per:.2f} device records a decode substep "
+            f"({recs} over {4 * TP_PROFILE_HORIZONS} substeps), host "
+            f"{ms:.3f} ms a substep untraced, 8 slots [{card}]")
+        del eng
+        torch.cuda.empty_cache()
+
+
+def phase_tp(card: str) -> dict[str, dict[str, int]]:
+    """Phase 13: exact tensor-parallel serving at GPT-2-small's width
+    (phase 3's model and prompts, 8 slots, max_total 640, K 4) at tp 1, 2
+    and 3 on ``["cuda:0"] * tp``, every engine built from one
+    probe-verdict file (``TP_PROBES``); fails on a launch at a shape phase
+    2 did not hold."""
+    import dataclasses
+
+    import torch
+
+    t0 = time.perf_counter()
+    TP_PROBES.parent.mkdir(parents=True, exist_ok=True)
+    # the dense programs a TP request runs, at every width
+    models = {}
+    for int8 in (False, True):
+        cfg, params = serve_model(int8)
+        models[int8] = (dataclasses.replace(cfg, decode_kernel=False,
+                                            use_flash=False), params)
+    kcfg = serve_model(False)[0]
+    cfg, params = models[False]
+    total: dict[str, int] = {}
+    perf: dict = {}
+    with launched_shapes() as seen:
+        got = phase13_parity(card, models, total, perf)
+        for name, fn in (
+                ("prefix", lambda: phase13_prefix(card, cfg, params, total)),
+                ("recovery", lambda: phase13_recovery(
+                    card, cfg, params, total, got["prompts"],
+                    got["crash_ref"])),
+                ("lora", lambda: phase13_lora(card, cfg, params, total,
+                                              got["prompts"])),
+                ("grammar", lambda: phase13_grammar(card, cfg, params,
+                                                    total)),
+                ("wire", lambda: phase13_wire(card, cfg, params, total)),
+                ("cli", lambda: phase13_cli(kcfg, params, total)),
+                ("profile", lambda: phase13_profile(card, cfg, params,
+                                                    perf))):
+            t1 = time.perf_counter()
+            fn()
+            log(f"phase 13 {name}: {time.perf_counter() - t1:.1f} s")
+            torch.cuda.empty_cache()
+    summary = {m: {tp: f"{r[0]:.1f} tok/s, TPOT p50 {r[1]:.3f} ms"
+                   for tp, r in v.items()}
+               for m, v in perf.items() if m != "profile"}
+    log(f"phase 13: {time.perf_counter() - t0:.1f} s wall; tok/s and TPOT "
+        f"by width {summary}; decode substep records and host ms by width "
+        f"{perf.get('profile')} [{card}]")
+    check_launched("phase 13", seen)
+    return {"tp": total}
+
+
 def main() -> int:
     try:
         import torch
@@ -5419,6 +5896,11 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     by_phase.update(phase_fleet(card))
+    shutil.rmtree(TP_PROBES.parent, ignore_errors=True)
+    try:
+        by_phase.update(phase_tp(card))
+    finally:
+        shutil.rmtree(TP_PROBES.parent, ignore_errors=True)
     kernels = [
         dict(name=name, route="cuda", **KERNELS[name],
              launches=sum(p[name] for p in by_phase.values()),

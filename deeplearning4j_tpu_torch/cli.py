@@ -32,7 +32,9 @@ peers a drain migrates live sessions to, as the reference's flags do. ``--adapti
 drops the decode horizon to 1 while requests wait, ``--probe-cache PATH``
 persists probe verdicts (``off`` disables), ``--embed-models word2vec``
 serves ``POST /v1/embeddings`` over the reference's demo vocabulary, and
-the observability flags are the reference's: ``--trace-out PATH``
+``--tp N [--tp-parity auto|trust|off]`` serves tensor-parallel over the
+first N cards (exits 2 with fewer; with ``--device``, N ranks on that
+device), and the observability flags are the reference's: ``--trace-out PATH``
 [``--trace-capacity N``] (a Chrome trace written at shutdown),
 ``--flight-dir DIR`` (postmortem bundles), ``--log-json`` (JSON log
 lines), ``--metrics-port P`` (the scrape sidecar), ``--profile-dir DIR``
@@ -134,8 +136,9 @@ def cmd_train(args) -> int:
             print(msg, file=sys.stderr)
             return 2
     if args.tp > 1:
-        print("--tp (tensor parallelism) comes with the torch.distributed "
-              "slice", file=sys.stderr)
+        print("train --tp (tensor-parallel training) comes with the slice "
+              "that trains beyond one card (torch.distributed); serve --tp "
+              "serves tensor-parallel", file=sys.stderr)
         return 2
     if args.d_model % args.n_heads:
         print(f"--d-model ({args.d_model}) must be divisible by --n-heads "
@@ -385,6 +388,20 @@ def cmd_serve(args) -> int:
     if not (args.demo or args.checkpoint_dir):
         print("serve needs --checkpoint-dir (or --demo)", file=sys.stderr)
         return 2
+    tp_devices = None
+    if args.tp > 1:
+        from deeplearning4j_tpu_torch.parallel.mesh import (
+            model_parallel_mesh,
+        )
+
+        # the first N cards; --device puts every rank on that device
+        try:
+            tp_devices = list(model_parallel_mesh(
+                args.tp, [args.device] * args.tp if args.device
+                else None).devices)
+        except ValueError as e:
+            print(f"--tp {args.tp}: {e}", file=sys.stderr)
+            return 2
     embedders = None
     if args.embed_models:
         try:
@@ -451,8 +468,20 @@ def cmd_serve(args) -> int:
         sampling_surface=args.sampling_surface,
         grammar_states=args.grammar_states,
         grammar_cache=args.grammar_cache,
-        lora_bank=lora_bank, tenancy=tenancy,
+        lora_bank=lora_bank, tenancy=tenancy, tp=args.tp,
+        tp_parity={"auto": "auto", "trust": True, "off": False}[
+            args.tp_parity],
+        tp_devices=tp_devices,
     )
+    if args.tp > 1:
+        if engine.tp == args.tp:
+            print(f"tensor parallel: serving sharded over {engine.tp} "
+                  f"devices (model axis: "
+                  f"{', '.join(str(d) for d in engine.tp_mesh.devices)})")
+        else:
+            print("tensor parallel DISABLED (parity probe failed or "
+                  "geometry unsupported); serving on 1 device",
+                  file=sys.stderr)
     if lora_bank is not None and engine.n_adapters == 0:
         print("batched LoRA DISABLED (adapter-0 parity probe failed); "
               "serving the base model", file=sys.stderr)
@@ -735,7 +764,8 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--n-experts", type=int, default=0,
                    help="MoE experts (a later slice: > 0 exits 2)")
     t.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel ways (a later slice: > 1 exits 2)")
+                   help="tensor-parallel training ways (a later slice: > 1 "
+                   "exits 2; serve --tp serves tensor-parallel)")
     t.add_argument("--fsdp", action="store_true", help="(a later slice)")
     t.add_argument("--checkpoint-dir", default=None,
                    help="save npz checkpoints here (ckpt_<step>.npz, the "
@@ -835,6 +865,19 @@ def build_parser() -> argparse.ArgumentParser:
     v.add_argument("--drain-s", type=float, default=5.0)
     _add_model_flags(v)
     _add_int8_flag(v)
+    v.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel width: shard the serving programs "
+                   "(attention heads, MLP columns, vocab) and the KV pool "
+                   "over the first N cards (with --device, N ranks on that "
+                   "device). Gated by a construction-time bitwise parity "
+                   "probe (--tp-parity); needs N dividing n_heads and "
+                   "kv_heads; exits 2 with fewer than N cards. 1 = single "
+                   "device")
+    v.add_argument("--tp-parity", default="auto",
+                   choices=["auto", "trust", "off"],
+                   help="auto: probe TP against the single-device programs "
+                   "bitwise once at startup and fall back to tp=1 on a "
+                   "mismatch; trust: skip the probe; off: no TP")
     v.add_argument("--paged", action="store_true",
                    help="block-paged KV: slots hold int32 block tables over "
                    "one shared refcounted pool instead of fixed slabs; "

@@ -61,10 +61,37 @@ so decode keeps the decode kernels. Rows with adapter 0 SELECT the base
 activations (``torch.where``, never ``+ 0.0``, which would flip -0.0
 bits), so adapter 0 is bitwise the base model.
 
+Exact tensor-parallel serving (the reference's exact-TP layout,
+transformer.py:366-660): :func:`serving_tp_shardings` splits every column
+projection over a :class:`~..parallel.mesh.Mesh`'s model axis (wq/wqkv/wkv
+on heads, w1/b1 on d_ff, the head on vocab, the LoRA B factors on their
+output dim) and keeps the row projections wo and w2 replicated;
+:func:`place_serving_tp_params` makes each split leaf a
+:class:`~..parallel.mesh.Shards` of per-rank parts on the ranks' devices
+(replicated leaves on the first device); :func:`serving_tp_cache_sharding`
+splits the packed KV cache on its head-major minor dim and keeps the int8
+row-scale plane whole on every rank. ``_decode_builder(cfg, tp_mesh)`` and
+``_chunk_builder(cfg, tp_mesh)`` build the sharded programs. They are the
+single-device programs run over the ranks' views (:func:`_views`; without
+a mesh the one view is the params themselves): each rank projects its
+heads and d_ff columns, writes and attends over its own KV heads (dense
+attention: no kernel runs under TP, as in the reference), and every
+sharded activation is gathered (:func:`_tp_replicate`, an exact
+concatenation on the first device; the lone view's part as it is) before
+a replicated row projection, so every reduction keeps the single-device
+order: ``2 * n_layers + 1`` gathers a substep
+(:func:`tp_collective_contract`). The head product runs in fixed-width
+vocab column blocks (:func:`_head_cols`) at every width, so a rank's
+logits are the whole product's blocks at the same shape. int8 KV rows
+take one scale per row, the max over every rank's part. The LoRA B rows
+a pass selects are gathered once and each delta is computed whole, in the
+single-device order, then added shard-local: a small-K batched product
+may pick its kernel by its output width (MKL does), so per-shard B
+products would not be exact.
+
 Not in these slices: MoE (``n_experts``) and sequence parallelism raise
-``NotImplementedError``; training on a mesh
-(tensor parallelism, FSDP) comes with the ``torch.distributed`` slice;
-tensor-parallel serving is a later slice.
+``NotImplementedError``; training on a mesh (tensor parallelism, FSDP)
+comes with the ``torch.distributed`` slice.
 """
 
 from __future__ import annotations
@@ -99,6 +126,7 @@ from deeplearning4j_tpu_torch.ops.flash_decode import (
     flash_decode_attention,
     flash_decode_attention_paged,
 )
+from deeplearning4j_tpu_torch.parallel.mesh import Mesh, Shards, smap
 
 _DTYPE_NAMES = {
     "float32": torch.float32,
@@ -415,15 +443,23 @@ def _lora_delta(h_in, a, b):
     return torch.bmm(torch.bmm(h_in, a.to(dt)), b.to(dt))
 
 
-def _lora_select(params, adapter):
+def _lora_select(params, adapter, tp_mesh=None):
     """Each row's LoRA factors in every layer, gathered once a forward pass
     (``{leaf: (nl, B, ...)}``, one gather a leaf), and the rows that take a
-    delta (adapter != 0); None without ``adapter`` or without a bank."""
+    delta (adapter != 0); None without ``adapter`` or without a bank. A
+    sharded B factor's rows are gathered whole on the mesh's first device
+    (one :meth:`~..parallel.mesh.Mesh.gather` a factor)."""
     if adapter is None or "lora" not in params:
         return None
     idx = adapter.long()
-    return ({name: a[:, idx] for name, a in params["lora"].items()},
-            adapter > 0)
+    rows = {}
+    for name, a in params["lora"].items():
+        if isinstance(a, Shards):
+            rows[name] = _tp_replicate([s[:, idx.to(s.device)] for s in a],
+                                       tp_mesh)
+        else:
+            rows[name] = a[:, idx]
+    return rows, adapter > 0
 
 
 def _lora_q(cfg: TransformerConfig, q, h_in, lora, i: int):
@@ -437,18 +473,168 @@ def _lora_q(cfg: TransformerConfig, q, h_in, lora, i: int):
     return torch.where(sel[:, None, None, None], q + dq, q)
 
 
-def _lora_mlp(p, h_in, lora, i: int):
-    """The MLP with each row's pre-gelu delta (``h_in`` (B, T, D))."""
-    rows, sel = lora
-    dm = _lora_delta(h_in, rows["a_mlp"][i], rows["b_mlp"][i])
-    return _mlp(p, h_in, delta1=dm, sel=sel[:, None, None])
-
-
 def params_to(params, device):
     """The same tree with every tensor on ``device``."""
     if isinstance(params, dict):
         return {k: params_to(v, device) for k, v in params.items()}
     return params.to(device)
+
+
+# -- exact tensor-parallel serving: the layout ----------------------------------
+#
+# A layout is a tree of the params' (or the cache's) shape whose leaves are
+# an int, the axis split over the mesh's model axis, or None, replicated.
+
+def serving_tp_shardings(mesh: Mesh, cfg: TransformerConfig,
+                         lora: bool = False):
+    """The exact-TP serving layout (the reference's, transformer.py:366):
+    every column projection split, every row projection replicated. wq,
+    wqkv and wkv split on heads, w1 and b1 on d_ff, the head on vocab and,
+    with ``lora``, the B factors on their output dim (b_q's packed heads
+    head-major, as wq; b_mlp on d_ff, as w1); wo, w2, the norms, biases,
+    embeddings and A factors stay whole. Raises ``ValueError`` unless tp
+    divides n_heads and kv_heads, and for MoE."""
+    tp = mesh.size
+    if cfg.n_heads % tp or cfg.kv_heads % tp:
+        raise ValueError(
+            f"exact-TP serving needs tp ({tp}) dividing n_heads "
+            f"({cfg.n_heads}) and kv_heads ({cfg.kv_heads})")
+    if cfg.n_experts:
+        raise ValueError("exact-TP serving does not support MoE configs")
+    attn = ({"wq": 2, "wkv": 3} if cfg.kv_heads != cfg.n_heads
+            else {"wqkv": 3})
+    out = {
+        "embed": None, "pos": None,
+        "blocks": {"ln1_scale": None, "ln1_bias": None, **attn,
+                   "wo": None, "ln2_scale": None, "ln2_bias": None,
+                   "w1": 2, "b1": 1, "w2": None, "b2": None},
+        "lnf_scale": None, "lnf_bias": None, "head": 1,
+    }
+    if lora:
+        out["lora"] = {"a_q": None, "b_q": 3, "a_mlp": None, "b_mlp": 3}
+    return out
+
+
+def _quantized_leaf_sharding(axis, axes):
+    """An int8 leaf's scale follows its weight's split, but on the
+    quantized (size-1) axes (the reference's, transformer.py:326)."""
+    return None if axis is None or axis in axes else axis
+
+
+def _copy_to(x, device):
+    """An independent contiguous copy of ``x`` on ``device``."""
+    return torch.empty(x.shape, dtype=x.dtype, device=device).copy_(x)
+
+
+def _split(x, axis: int, mesh: Mesh) -> Shards:
+    """``x`` split over the mesh on ``axis``, a part on each rank."""
+    return Shards(_copy_to(p, d) for p, d in zip(
+        torch.tensor_split(x, mesh.size, dim=axis), mesh.devices))
+
+
+def place_serving_tp_params(mesh: Mesh, params, cfg: TransformerConfig):
+    """A float or int8-quantized params tree (a LoRA bank in
+    ``params["lora"]`` included) placed with :func:`serving_tp_shardings`:
+    every split leaf a :class:`Shards` of per-rank parts on the ranks'
+    devices, every replicated leaf on the first device. int8 ``*_scale``
+    leaves follow their weight (the reference's
+    ``place_serving_tp_params``, transformer.py:447)."""
+    specs = serving_tp_shardings(mesh, cfg, lora="lora" in params)
+    blocks = specs["blocks"]
+    for name, axes in _INT8_BLOCK_AXES.items():
+        if name + "_scale" in params["blocks"]:
+            blocks[name + "_scale"] = _quantized_leaf_sharding(
+                blocks[name], axes)
+    if "head_scale" in params:
+        specs["head_scale"] = _quantized_leaf_sharding(specs["head"], (0,))
+
+    def place(tree, spec, path):
+        if isinstance(tree, dict):
+            extra = set(tree) - set(spec)
+            if extra:
+                raise ValueError(f"no TP layout for {path}{sorted(extra)}")
+            return {k: place(v, spec[k], f"{path}{k}/")
+                    for k, v in tree.items()}
+        if spec is None:
+            return tree.to(mesh.devices[0])
+        return _split(tree, spec, mesh)
+
+    return place(params, specs, "")
+
+
+def serving_tp_cache_sharding(mesh: Mesh, cfg: TransformerConfig):
+    """The decode cache's layout under exact TP (the reference's,
+    transformer.py:470): the packed (nl, 2, B, Tpad, Hkv*K) rows split on
+    their head-major minor dim, each rank its own KV heads' rows; the int8
+    row-scale plane (one scale across all heads of a row) whole on every
+    rank."""
+    del mesh  # one model axis: the split is the same for any width
+    return {"kv": 4, "scale": None} if cfg.decode_int8 else 4
+
+
+def shard_cache(mesh: Mesh, caches, spec):
+    """An unsharded cache (a tensor or the int8 dict) placed with
+    ``spec`` (:func:`serving_tp_cache_sharding`): split leaves as
+    :class:`Shards`, replicated leaves as one copy on every rank."""
+    if isinstance(caches, dict):
+        return {k: shard_cache(mesh, caches[k], spec[k])
+                for k in ("kv", "scale")}
+    if spec is None:
+        return Shards(_copy_to(caches, d) for d in mesh.devices)
+    return _split(caches, spec, mesh)
+
+
+def unshard_cache(caches):
+    """A sharded cache whole again, on its first rank's device: the rows'
+    parts concatenated on the minor dim (rank order is head order), rank
+    0's copy of a scale plane. An unsharded cache comes back as it is."""
+    if isinstance(caches, dict):
+        sc = caches["scale"]
+        return {"kv": unshard_cache(caches["kv"]),
+                "scale": sc[0] if isinstance(sc, Shards) else sc}
+    if isinstance(caches, Shards):
+        return torch.cat([p.to(caches[0].device) for p in caches], dim=-1)
+    return caches
+
+
+def _tp_replicate(parts, tp_mesh: Mesh | None):
+    """The exact-TP gather (the reference's, transformer.py:587): a sharded
+    activation's rank parts concatenated on the first device, so the row
+    projection after it contracts in the single-device order. Without a
+    mesh the one view's part is the whole activation, returned as it
+    is."""
+    return parts[0] if tp_mesh is None else tp_mesh.gather(parts)
+
+
+def tp_collective_contract(cfg: TransformerConfig, n_substeps: int = 1,
+                           lora: bool = False) -> dict[str, int]:
+    """The gathers one TP program of ``n_substeps`` decode substeps makes
+    (the reference's ``tp_collective_contract``, transformer.py:606): the
+    attention output and the gelu hidden of every layer and the logits,
+    ``2 * n_layers + 1`` a substep; a pass whose slots use the LoRA bank
+    gathers its two B factors' rows once more. Any other count changes a
+    reduction's order."""
+    per = 2 * cfg.n_layers + 1 + (2 if lora else 0)
+    return {"gather": n_substeps * per}
+
+
+def _rank(tree, r: int):
+    """Rank ``r``'s view of a tree: each :class:`Shards` leaf its ``r``-th
+    part, every other leaf as it is."""
+    if isinstance(tree, dict):
+        return {k: _rank(v, r) for k, v in tree.items()}
+    if isinstance(tree, Shards):
+        return tree[r]
+    return tree
+
+
+def _views(tree, tp_mesh: Mesh | None, device):
+    """The (device, view) pairs one program runs over, rank order: under
+    exact TP each rank's device and :func:`_rank` view; without a mesh
+    the one view, ``tree`` itself on ``device``."""
+    if tp_mesh is None:
+        return [(device, tree)]
+    return [(d, _rank(tree, r)) for r, d in enumerate(tp_mesh.devices)]
 
 
 # -- shared math --------------------------------------------------------------
@@ -504,17 +690,18 @@ def _flash_seq_ok(t: int) -> bool:
 
 def _project_qkv(cfg: TransformerConfig, p, h_in):
     """h_in (B, T, D) -> q (B, H, T, K) and the unexpanded k, v
-    (B, Hkv, T, K)."""
+    (B, Hkv, T, K). The head counts are the weights' own: a rank's part
+    of a head-split weight projects that rank's heads."""
     b, t, d = h_in.shape
     kd = cfg.head_dim
     if cfg.kv_heads != cfg.n_heads:
         q = (h_in @ _w(p, "wq", h_in.dtype).reshape(d, -1)).view(
-            b, t, cfg.n_heads, kd).transpose(1, 2)
+            b, t, -1, kd).transpose(1, 2)
         kv = (h_in @ _w(p, "wkv", h_in.dtype).reshape(d, -1)).view(
-            b, t, 2, cfg.kv_heads, kd).permute(2, 0, 3, 1, 4)
+            b, t, 2, -1, kd).permute(2, 0, 3, 1, 4)
         return q, kv[0], kv[1]
     qkv = (h_in @ _w(p, "wqkv", h_in.dtype).reshape(d, -1)).view(
-        b, t, 3, cfg.n_heads, kd).permute(2, 0, 3, 1, 4)
+        b, t, 3, -1, kd).permute(2, 0, 3, 1, 4)
     return qkv[0], qkv[1], qkv[2]
 
 
@@ -526,16 +713,34 @@ def _expand_kv(cfg: TransformerConfig, k_r, v_r):
     return k_r.repeat_interleave(g, dim=1), v_r.repeat_interleave(g, dim=1)
 
 
-def _mlp(p, h_in, delta1=None, sel=None):
+def _mlp(p, h_in, lora=None, i: int = 0, tp_mesh: Mesh | None = None):
     """Dense FFN: tanh-approximated gelu, as ``jax.nn.gelu`` defaults.
-    ``delta1`` is a batched-LoRA delta added to the w1 projection before
-    the gelu on the rows ``sel`` selects; the other rows keep the base
-    activations' bits."""
+    ``lora`` (the rows' factors from :func:`_lora_select`; layer ``i`` is
+    read) adds each row's delta to the w1 projection before the gelu,
+    computed whole (the single-device order); adapter-0 rows keep the base
+    activations' bits. Under exact TP (the reference's ``_mlp`` with a
+    mesh, transformer.py:632) each rank projects its d_ff columns of
+    w1/b1 and takes those columns of the delta, and the hidden is gathered
+    before the gelu and the replicated w2. The gelu runs on the gathered
+    hidden (the reference's runs before the gather): an elementwise op
+    gives the same bits either way on a card, but a CPU kernel computes a
+    loop's vector-width tail in scalar code, and a rank's part puts other
+    elements in that tail."""
     dt = h_in.dtype
-    h = h_in @ _w(p, "w1", dt) + p["b1"].to(dt)
-    if delta1 is not None:
-        h = torch.where(sel, h + delta1, h)
-    h = F.gelu(h, approximate="tanh")
+    dm = sel = None
+    if lora is not None:
+        rows, sel = lora
+        dm = _lora_delta(h_in, rows["a_mlp"][i], rows["b_mlp"][i])
+        sel = sel[:, None, None]
+    hs, f0 = [], 0
+    for dev, p_r in _views(p, tp_mesh, h_in.device):
+        h = h_in.to(dev) @ _w(p_r, "w1", dt) + p_r["b1"].to(dt)
+        if dm is not None:
+            fr = h.shape[-1]
+            h = torch.where(sel.to(dev), h + dm[..., f0:f0 + fr].to(dev), h)
+            f0 += fr
+        hs.append(h)
+    h = F.gelu(_tp_replicate(hs, tp_mesh), approximate="tanh")
     return h @ _w(p, "w2", dt) + p["b2"].to(dt)
 
 
@@ -546,7 +751,48 @@ def _head_logits(x, head):
     return x.float() @ head.float()
 
 
-def _last_row_logits(params, x, last_idx, rowwise: bool = False):
+def _cat(xs, dim: int):
+    """``torch.cat`` that returns a lone tensor as it is (no copy)."""
+    return xs[0] if len(xs) == 1 else torch.cat(xs, dim=dim)
+
+
+def _head_cols(cfg: TransformerConfig) -> int:
+    """The head product's column block: the vocab over g = gcd(n_heads,
+    kv_heads), the widest block that divides the vocab part of every
+    width the TP layout takes (every such tp divides g), or the whole
+    vocab when g does not divide it."""
+    g = math.gcd(cfg.n_heads, cfg.kv_heads)
+    return cfg.vocab_size // g if cfg.vocab_size % g == 0 else (
+        cfg.vocab_size)
+
+
+def _head(cfg: TransformerConfig, params, x, tp_mesh: Mesh | None = None,
+          rowwise: bool = False):
+    """The logits (..., V) f32 of the normed ``x``: the head product
+    (:func:`_head_logits`) in blocks of :func:`_head_cols` vocab columns,
+    each block's operands contiguous, so the product runs at one shape
+    whatever the width: each rank takes its own blocks and the gathered
+    logits are the single-device ones (a library picks its kernel by the
+    output width, and cuBLAS picks another for a rank's narrower part).
+    ``rowwise`` takes each row at M 1 (see :func:`_last_row_logits`)."""
+    w = _head_cols(cfg)
+    leaves = {k: params[k] for k in ("head", "head_scale") if k in params}
+    parts = []
+    for dev, p in _views(leaves, tp_mesh, x.device):
+        head = _w(p, "head", x.dtype)
+        blocks = ([head[:, c:c + w].float().contiguous()
+                   for c in range(0, head.shape[-1], w)]
+                  if w < cfg.vocab_size else [head])
+        xr = x.to(dev)
+        rows = ([xr[j:j + 1] for j in range(xr.shape[0])]
+                if rowwise and xr.shape[0] > 1 else [xr])
+        parts.append(_cat([_cat([_head_logits(r, hb) for hb in blocks], -1)
+                           for r in rows], 0))
+    return _tp_replicate(parts, tp_mesh)
+
+
+def _last_row_logits(cfg: TransformerConfig, params, x, last_idx,
+                     rowwise: bool = False, tp_mesh: Mesh | None = None):
     """Logits (B, V) of each row's ``last_idx`` position of ``x`` (B, T, D):
     the final norm, then the head. ``last_idx`` is an int or a (B,)
     tensor. ``rowwise`` takes the head product one row at a time, at the
@@ -560,14 +806,12 @@ def _last_row_logits(params, x, last_idx, rowwise: bool = False):
     else:
         x = x[:, int(last_idx)]
     x = _layer_norm(x, params["lnf_scale"], params["lnf_bias"])
-    head = _w(params, "head", x.dtype)
-    if rowwise and b > 1:
-        return torch.cat([_head_logits(x[i:i + 1], head) for i in range(b)])
-    return _head_logits(x, head)
+    return _head(cfg, params, x, tp_mesh, rowwise)
 
 
 def _layer(params, i: int):
-    return {name: a[i] for name, a in params["blocks"].items()}
+    return {name: Shards(x[i] for x in a) if isinstance(a, Shards) else a[i]
+            for name, a in params["blocks"].items()}
 
 
 def _pos_rows(params, positions, max_len: int):
@@ -920,10 +1164,34 @@ def transformer_train_step(mesh, cfg: TransformerConfig, optimizer=None,
 def kv_map(fn, *caches):
     """Apply ``fn`` leafwise over caches of one structure: a float cache
     tensor, or the int8 ``{"kv", "scale"}`` dict (``fn`` sees the int8
-    rows, then their scale planes). Returns the same structure."""
+    rows, then their scale planes); under exact TP each leaf is a
+    :class:`Shards` and ``fn`` sees rank by rank the parts of one rank.
+    Returns the same structure."""
     if isinstance(caches[0], dict):
-        return {k: fn(*(c[k] for c in caches)) for k in ("kv", "scale")}
-    return fn(*caches)
+        return {k: _leaf_map(fn, [c[k] for c in caches])
+                for k in ("kv", "scale")}
+    return _leaf_map(fn, caches)
+
+
+def _leaf_map(fn, leaves):
+    """``fn`` over one leaf of caches of one structure, rank by rank when
+    it is sharded."""
+    if isinstance(leaves[0], Shards):
+        if not all(isinstance(x, Shards) for x in leaves):
+            raise TypeError("a sharded cache meets an unsharded one")
+        return Shards(fn(*parts) for parts in zip(*leaves))
+    return fn(*leaves)
+
+
+def kv_leaves(tree) -> list[torch.Tensor]:
+    """The tensors of a cache or caches operand (a tensor, or nested dicts
+    of them: rows then scales, blocks then tables), in key order, each
+    sharded leaf's ranks in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, Shards):
+        return list(tree)
+    return [t for k in sorted(tree) for t in kv_leaves(tree[k])]
 
 
 def _kv_planes(caches):
@@ -939,22 +1207,33 @@ def is_paged(caches) -> bool:
     return isinstance(caches, dict) and "tables" in caches
 
 
-def _quantize_rows(rows):
-    """Per-row int8 quantization of new cache rows (..., Hkv*K) -> (int8
-    rows, f32 scales (..., 1)): one scale over all packed heads of a row,
-    the reference's ``quantize_kv_rows`` (transformer.py:955)."""
-    return _quantize_int8(rows.float(), (-1,))
-
-
 def _row_values(caches, rows):
-    """(leaf, values) pairs for writing float ``rows`` into ``caches``:
-    quantized rows and scales into an int8 dict, else the rows cast to the
-    cache dtype."""
+    """Per view, the (leaf, values) pairs writing float new cache rows
+    into ``caches``: ``rows`` holds each view's rows (..., Hkv*K), or
+    under exact TP each rank's (..., Hkv/tp*K) for its part of a sharded
+    cache. The rows cast to the cache dtype, or int8 rows under ONE scale
+    per row over all packed heads (the reference's ``quantize_kv_rows``,
+    transformer.py:955; scale = max(max|row|, 1e-8) / 127, round half to
+    even, as :func:`_quantize_int8`). Under TP the max runs over every
+    rank's part, an exact cross-rank max, so the quantized rows and the
+    scale plane (written alike on every rank) are the single-device
+    bits."""
     kv, sc = _kv_planes(caches)
     if sc is None:
-        return [(kv, rows.to(kv.dtype))]
-    q_rows, s_rows = _quantize_rows(rows)
-    return [(kv, q_rows), (sc, s_rows)]
+        return [[(_rank(kv, r), x.to(_rank(kv, r).dtype))]
+                for r, x in enumerate(rows)]
+    amax = None
+    for x in rows:
+        a = x.float().abs().amax(dim=-1, keepdim=True).to(rows[0].device)
+        amax = a if amax is None else torch.maximum(amax, a)
+    scale = _div127(amax.clamp_min(1e-8))
+    out = []
+    for r, x in enumerate(rows):
+        s = scale.to(x.device)
+        q8 = torch.clamp(torch.round(x.float() / s), -127, 127).to(
+            torch.int8)
+        out.append([(_rank(kv, r), q8), (_rank(sc, r), s)])
+    return out
 
 
 def _layer_view(caches, i: int, dtype):
@@ -978,15 +1257,31 @@ def _layer_view(caches, i: int, dtype):
 # that can reach it re-zeroes it. The reference's paged views
 # (transformer.py:1390-1454).
 
+def _table_index(tables):
+    """``device -> the flattened long block index`` of a table (a tensor,
+    or under exact TP the :class:`Shards` of per-rank copies), each
+    device's made once."""
+    made = {}
+
+    def on(dev):
+        if dev not in made:
+            t = tables
+            if isinstance(t, Shards):
+                t = next((p for p in t if p.device == dev), t[0])
+            made[dev] = t.to(dev).reshape(-1).long()
+        return made[dev]
+    return on
+
+
 def paged_gather(blocks, tables):
     """Contiguous (nl, 2, B, bps*bs, ...) slab of every table row's blocks,
     in table order (sentinel entries give zero rows)."""
-    idx = tables.reshape(-1).long()
+    idx = _table_index(tables)
+    rows, bps = (tables[0] if isinstance(tables, Shards) else tables).shape
 
     def g(x):
         nl, two, _, bs, w = x.shape
-        return x[:, :, idx].reshape(nl, two, tables.shape[0],
-                                    tables.shape[1] * bs, w)
+        return x[:, :, idx(x.device)].reshape(nl, two, rows, bps * bs, w)
     return kv_map(g, blocks)
 
 
@@ -994,11 +1289,12 @@ def paged_scatter(blocks, tables, view):
     """Write a slab view back into the blocks its tables name, then re-zero
     the sentinel. Aliased blocks receive identical bytes from every
     writer."""
-    idx = tables.reshape(-1).long()
+    idx = _table_index(tables)
 
     def s(x, v):
         nl, two, _, bs, w = x.shape
-        x[:, :, idx] = v.reshape(nl, two, idx.numel(), bs, w)
+        ix = idx(x.device)
+        x[:, :, ix] = v.reshape(nl, two, ix.numel(), bs, w)
         x[:, :, 0] = 0
         return x
     return kv_map(s, blocks, view)
@@ -1006,14 +1302,14 @@ def paged_scatter(blocks, tables, view):
 
 def paged_slot_gather(blocks, table_row):
     """One slot's batch-1 slab: the blocks of one (bps,) table row."""
-    return paged_gather(blocks, table_row[None])
+    return paged_gather(blocks, smap(lambda t: t[None], table_row))
 
 
 def paged_slot_scatter(blocks, table_row, slab):
     """Land a batch-1 slab covering all Tpad rows (zeros past the prompt
     included, so a reused block keeps no stale row) in the blocks one
     table row names, then re-zero the sentinel."""
-    return paged_scatter(blocks, table_row[None], slab)
+    return paged_scatter(blocks, smap(lambda t: t[None], table_row), slab)
 
 
 def paged_block_copy(blocks, src: int, dst: int):
@@ -1045,83 +1341,142 @@ def _write_paged_rows(blocks, i: int, where, rows):
     pool at ``where`` (:func:`_paged_write_index`), then re-zero the
     sentinel, which dead and uncovered rows may have hit."""
     blk, row = where
-    for x, v in _row_values(blocks, rows):
+    for x, v in _row_values(blocks, [rows])[0]:
         x[i][:, blk, row] = v
         x[i, :, 0] = 0
 
 
 # -- chunked cached forward (dense attention against the cache) ----------------
 
-def _block_chunk(cfg: TransformerConfig, x, p, kv_all, i: int, pos0,
-                 lora=None):
-    """One block over C consecutive cached positions (x: (B, C, D), rows
-    pos0..pos0+C-1): projection, RoPE, cache write (in place; quantized
-    rows into an int8 cache), dense masked attention against the
-    (dequantized) cache, MLP. ``pos0`` is an int or a (B,) tensor of
-    per-row starts. Divides the logits by ``sqrt(kd)`` as the reference
-    does (the kernels multiply by the scale instead). ``lora`` (the rows'
-    factors from :func:`_lora_select`; layer ``i`` is read) adds each
-    row's LoRA deltas."""
-    b, c, _ = x.shape
-    kd = cfg.head_dim
-    grp = cfg.n_heads // cfg.kv_heads
+def _chunk_positions(pos0, c: int, device):
+    """(per-row starts?, positions): (C,) from an int ``pos0``, (B, C)
+    from a (B,) tensor of per-row starts."""
     vec_pos = isinstance(pos0, torch.Tensor) and pos0.dim() == 1
-    steps = torch.arange(c, device=x.device)
+    steps = torch.arange(c, device=device)
     positions = (pos0.long()[:, None] + steps) if vec_pos else (
         int(pos0) + steps)
-    h_in = _layer_norm(x, p["ln1_scale"], p["ln1_bias"])
-    q, k_r, v_r = _project_qkv(cfg, p, h_in)
-    if lora is not None:
-        q = _lora_q(cfg, q, h_in, lora, i)
-    if cfg.rope:
-        cos, sin = _rope_tables(positions, kd, x.dtype, x.device)
-        if vec_pos:  # (B, C, hd/2): per-row tables over the head axis
-            cos, sin = cos[:, None], sin[:, None]
-        q = _apply_rope(q, cos, sin)
-        k_r = _apply_rope(k_r, cos, sin)
-    rows = torch.stack([
-        k_r.transpose(1, 2).reshape(b, c, -1),
-        v_r.transpose(1, 2).reshape(b, c, -1),
-    ])  # (2, B, C, Hkv*K)
-    for buf, vals in _row_values(kv_all, rows):
+    return vec_pos, positions
+
+
+def _write_chunk(pairs, i: int, pos0, positions, vec_pos: bool) -> None:
+    """Write one chunk's (leaf, values (2, B, C, ...)) pairs into layer
+    ``i`` at its positions, in place."""
+    for buf, vals in pairs:
+        b, c = vals.shape[1], vals.shape[2]
         if vec_pos:
-            bidx = torch.arange(b, device=x.device)[:, None]
+            bidx = torch.arange(b, device=vals.device)[:, None]
             buf[i][:, bidx, _write_rows(positions, buf)] = vals
         else:
             buf[i, :, :, int(pos0):int(pos0) + c] = vals
-    ck, cv = _layer_view(kv_all, i, x.dtype)
+
+
+def _chunk_attention(q, kv_all, i: int, positions, vec_pos: bool, kd: int,
+                     dtype):
+    """Dense masked attention of ``q`` (B, H, C, K) against layer ``i`` of
+    the (dequantized) cache, whose packed heads are the query heads' KV
+    heads: -> (B, C, H*K), head-major. Divides the logits by ``sqrt(kd)``
+    as the reference does (the kernels multiply by the scale instead)."""
+    ck, cv = _layer_view(kv_all, i, dtype)
+    b, hq, c, _ = q.shape
     tpad = ck.shape[1]
-    ck4 = ck.view(b, tpad, cfg.kv_heads, kd)
-    cv4 = cv.view(b, tpad, cfg.kv_heads, kd)
-    qg = q.reshape(b, cfg.kv_heads, grp, c, kd)  # head = kv*G + g
+    hkv = ck.shape[2] // kd
+    ck4 = ck.view(b, tpad, hkv, kd)
+    cv4 = cv.view(b, tpad, hkv, kd)
+    qg = q.reshape(b, hkv, hq // hkv, c, kd)  # head = kv*G + g
     att = torch.einsum("bhgck,bthk->bhgct", qg, ck4) / dtype_scalar(
-        math.sqrt(kd), x.dtype)
-    mask = torch.arange(tpad, device=x.device) <= positions[..., None]
+        math.sqrt(kd), dtype)
+    mask = torch.arange(tpad, device=q.device) <= positions[..., None]
     mask = mask[:, None, None] if vec_pos else mask[None, None, None]
     att = att.masked_fill(~mask, float("-inf"))
     w_att = torch.softmax(att, dim=-1)
     o = torch.einsum("bhgct,bthk->bhgck", w_att, cv4)
-    o_flat = o.permute(0, 3, 1, 2, 4).reshape(b, c, cfg.n_heads * kd)
+    return o.permute(0, 3, 1, 2, 4).reshape(b, c, hq * kd)
+
+
+def _qkv(cfg: TransformerConfig, p, h_in, lora, i: int, rope,
+         tp_mesh: Mesh | None):
+    """Each view's q (B, H/tp, T, K), k and v (B, Hkv/tp, T, K) from its
+    wq/wqkv/wkv (tp 1 without a mesh), and its new KV rows (2, B, T,
+    Hkv/tp*K): the LoRA q delta computed whole (the single-device order)
+    and added to each view's heads before RoPE ``rope`` ((cos, sin) or
+    None); adapter-0 rows keep the base bits."""
+    b, t, _ = h_in.shape
+    dq = sel = None
+    if lora is not None:
+        rows, sel = lora
+        dq = _lora_delta(h_in, rows["a_q"][i], rows["b_q"][i]).view(
+            b, t, cfg.n_heads, cfg.head_dim).transpose(1, 2)
+    qs, kv_rows, h0 = [], [], 0
+    for dev, p_r in _views(p, tp_mesh, h_in.device):
+        q, k_r, v_r = _project_qkv(cfg, p_r, h_in.to(dev))
+        if dq is not None:
+            hr = q.shape[1]
+            q = torch.where(sel.to(dev)[:, None, None, None],
+                            q + dq[:, h0:h0 + hr].to(dev), q)
+            h0 += hr
+        if rope is not None:
+            cos, sin = rope[0].to(dev), rope[1].to(dev)
+            q = _apply_rope(q, cos, sin)
+            k_r = _apply_rope(k_r, cos, sin)
+        qs.append((q, k_r, v_r))
+        kv_rows.append(torch.stack([k_r.transpose(1, 2).reshape(b, t, -1),
+                                    v_r.transpose(1, 2).reshape(b, t, -1)]))
+    return qs, kv_rows
+
+
+def _block_chunk(cfg: TransformerConfig, x, p, kv_all, i: int, pos0,
+                 lora=None, tp_mesh: Mesh | None = None):
+    """One block over C consecutive cached positions (x: (B, C, D), rows
+    pos0..pos0+C-1): projection, RoPE, cache write (in place; quantized
+    rows into an int8 cache), dense masked attention against the
+    (dequantized) cache, MLP. ``pos0`` is an int or a (B,) tensor of
+    per-row starts. ``lora`` (the rows' factors from :func:`_lora_select`;
+    layer ``i`` is read) adds each row's LoRA deltas. ``tp_mesh`` runs it
+    over the ranks (the reference's ``_block_chunk`` with ``tp_mesh``,
+    transformer.py:1642): the residual stream, norms and row projections
+    on the first device; each rank projects, writes and attends over its
+    own heads; the attention output and the gelu hidden are gathered
+    before wo and w2."""
+    b, c, _ = x.shape
+    kd = cfg.head_dim
+    vec_pos, positions = _chunk_positions(pos0, c, x.device)
+    h_in = _layer_norm(x, p["ln1_scale"], p["ln1_bias"])
+    rope = None
+    if cfg.rope:
+        cos, sin = _rope_tables(positions, kd, x.dtype, x.device)
+        # (B, C, hd/2) per-row tables over the head axis
+        rope = (cos[:, None], sin[:, None]) if vec_pos else (cos, sin)
+    qs, kv_rows = _qkv(cfg, p, h_in, lora, i, rope, tp_mesh)
+    outs = []
+    for r, ((q, _, _), pairs) in enumerate(zip(qs,
+                                               _row_values(kv_all, kv_rows))):
+        pr = positions.to(q.device)
+        _write_chunk(pairs, i, pos0, pr, vec_pos)
+        outs.append(_chunk_attention(q, _rank(kv_all, r), i, pr, vec_pos, kd,
+                                     x.dtype))
+    o_flat = _tp_replicate(outs, tp_mesh)
     x = x + o_flat @ _w(p, "wo", x.dtype).reshape(cfg.n_heads * kd, -1)
     h_in = _layer_norm(x, p["ln2_scale"], p["ln2_bias"])
-    if lora is not None:
-        return x + _lora_mlp(p, h_in, lora, i), kv_all
-    return x + _mlp(p, h_in), kv_all
+    return x + _mlp(p, h_in, lora, i, tp_mesh), kv_all
 
 
-def _chunk_builder(cfg: TransformerConfig):
+def _chunk_builder(cfg: TransformerConfig, tp_mesh: Mesh | None = None):
     """``forward_chunk(params, caches, toks (B, C), pos0, last_idx=None,
     adapter=None)`` advances C positions from the int ``pos0`` through
     every layer against the cache (written in place) and returns (logits,
     caches): (B, C, V), or (B, V) at ``last_idx`` (int or (B,) tensor;
     ``rowwise_head`` takes the head product a row at a time, see
     :func:`_last_row_logits`). ``adapter`` (B,) rows apply the
-    ``params["lora"]`` bank."""
+    ``params["lora"]`` bank. ``tp_mesh`` builds the exact-TP program over
+    params placed by :func:`place_serving_tp_params` and a sharded cache;
+    its logits come back whole on the mesh's first device."""
     check_supported(cfg)
+    if tp_mesh is not None:
+        serving_tp_shardings(tp_mesh, cfg)  # raises for a bad geometry
 
     def forward_chunk(params, caches, toks, pos0: int, last_idx=None,
                       adapter=None, rowwise_head: bool = False):
-        lora = _lora_select(params, adapter)
+        lora = _lora_select(params, adapter, tp_mesh)
         b, c = toks.shape
         pos_rows = _pos_rows(
             params, int(pos0) + torch.arange(c, device=toks.device),
@@ -1129,26 +1484,41 @@ def _chunk_builder(cfg: TransformerConfig):
         x = (params["embed"][toks] + pos_rows[None]).to(cfg.compute_dtype)
         for i in range(cfg.n_layers):
             x, caches = _block_chunk(cfg, x, _layer(params, i), caches, i,
-                                     pos0, lora)
+                                     pos0, lora, tp_mesh)
         if last_idx is not None:
-            return _last_row_logits(params, x, last_idx,
-                                    rowwise_head), caches
+            return _last_row_logits(cfg, params, x, last_idx, rowwise_head,
+                                    tp_mesh), caches
         x = _layer_norm(x, params["lnf_scale"], params["lnf_bias"])
-        return _head_logits(x, _w(params, "head", x.dtype)), caches
+        return _head(cfg, params, x, tp_mesh), caches
 
     return forward_chunk
 
 
 # -- KV-cached decode ----------------------------------------------------------
 
-def _decode_builder(cfg: TransformerConfig):
+def _decode_builder(cfg: TransformerConfig, tp_mesh: Mesh | None = None):
     """Shared KV-cache decode machinery: ``(forward_one, init_caches,
     prefill, cast_params)``, as the reference's ``_decode_builder``
     (transformer.py:936) returns. ``forward_one`` also takes a block-paged
-    cache (see the module doc)."""
+    cache (see the module doc).
+
+    ``tp_mesh`` builds the exact-TP serving programs: params placed by
+    :func:`place_serving_tp_params`, caches from ``init_caches`` sharded
+    per :func:`serving_tp_cache_sharding`, every sharded activation
+    gathered before its row projection, logits whole on the mesh's first
+    device. It needs the dense decode (``decode_kernel=False``, as the
+    reference: its Pallas kernel cannot be partitioned), and its prefill
+    attention is dense too, so no kernel runs under TP."""
     check_supported(cfg)
     kd = cfg.head_dim
     grp = cfg.n_heads // cfg.kv_heads
+    if tp_mesh is not None:
+        if cfg.decode_kernel:
+            raise ValueError(
+                "tensor-parallel decode requires decode_kernel=False (the "
+                "decode kernel runs over the whole cache; the dense path "
+                "is the same numerics)")
+        serving_tp_shardings(tp_mesh, cfg)  # raises for a bad geometry
 
     def write_kv_rows(kv_all, i: int, pos, kv_row):
         """Write one decode step's rows ``kv_row`` (2, B, Hkv*K) into layer
@@ -1156,7 +1526,7 @@ def _decode_builder(cfg: TransformerConfig):
         place. An int ``pos`` writes every row at that position (generate);
         a (B,) tensor scatters each row at its own position (the serving
         engine's per-slot depths)."""
-        for buf, vals in _row_values(kv_all, kv_row):
+        for buf, vals in _row_values(kv_all, [kv_row])[0]:
             if isinstance(pos, torch.Tensor) and pos.dim() == 1:
                 bidx = torch.arange(vals.shape[1], device=vals.device)
                 buf[i][:, bidx, _write_rows(pos, buf)] = vals
@@ -1168,7 +1538,7 @@ def _decode_builder(cfg: TransformerConfig):
         if not cfg.decode_kernel:
             # the dense path IS the C=1 chunk block (one code path)
             y, kv_all = _block_chunk(cfg, x[:, None, :], p, kv_all, i, pos,
-                                     lora)
+                                     lora, tp_mesh)
             return y[:, 0], kv_all
         b, d = x.shape
         h_in = _layer_norm(x, p["ln1_scale"], p["ln1_bias"])
@@ -1216,7 +1586,7 @@ def _decode_builder(cfg: TransformerConfig):
         x = x + o_flat @ _w(p, "wo", x.dtype).reshape(cfg.n_heads * kd, -1)
         h_in = _layer_norm(x, p["ln2_scale"], p["ln2_bias"])
         if lora is not None:
-            return x + _lora_mlp(p, h_in[:, None], lora, i)[:, 0], kv_all
+            return x + _mlp(p, h_in[:, None], lora, i)[:, 0], kv_all
         return x + _mlp(p, h_in), kv_all
 
     def forward_one(params, caches, token, pos, adapter=None):
@@ -1230,7 +1600,7 @@ def _decode_builder(cfg: TransformerConfig):
             logits, view = forward_one(params, view, token, pos, adapter)
             paged_scatter(caches["blocks"], caches["tables"], view)
             return logits, caches
-        lora = _lora_select(params, adapter)
+        lora = _lora_select(params, adapter, tp_mesh)
         x = (params["embed"][token] + _pos_rows(params, pos, cfg.max_len)
              ).to(cfg.compute_dtype)
         where = _paged_write_index(caches, pos) if is_paged(caches) else None
@@ -1238,7 +1608,7 @@ def _decode_builder(cfg: TransformerConfig):
             x, caches = block_decode(x, _layer(params, i), caches, i, pos,
                                      where, lora)
         x = _layer_norm(x, params["lnf_scale"], params["lnf_bias"])
-        return _head_logits(x, _w(params, "head", x.dtype)), caches
+        return _head(cfg, params, x, tp_mesh), caches
 
     def cast_params(params):
         """One-time cast of the streamed float weights (every block tensor
@@ -1252,23 +1622,44 @@ def _decode_builder(cfg: TransformerConfig):
                 return a
             return a.to(cfg.compute_dtype)
         out = dict(params)
-        out["blocks"] = {name: cast(name, a)
+        out["blocks"] = {name: smap(lambda a, n=name: cast(n, a), a)
                          for name, a in params["blocks"].items()}
-        out["head"] = cast("head", params["head"])
+        out["head"] = smap(lambda a: cast("head", a), params["head"])
         if "lora" in params:
-            out["lora"] = {name: a.to(cfg.compute_dtype)
+            out["lora"] = {name: smap(lambda a: a.to(cfg.compute_dtype), a)
                            for name, a in params["lora"].items()}
         return out
+
+    def tp_caches(batch: int, tpad: int, device):
+        """The zeroed cache sharded per :func:`serving_tp_cache_sharding`:
+        each rank's (nl, 2, batch, Tpad, Hkv/tp*K) rows (and a whole scale
+        plane) on its device, or all on ``device`` when that is the meta
+        device (shapes only)."""
+        tp = tp_mesh.size
+        devs = ([torch.device("meta")] * tp
+                if torch.device(device).type == "meta" else tp_mesh.devices)
+        shape = (cfg.n_layers, 2, batch, tpad, cfg.kv_heads // tp * kd)
+        if cfg.decode_int8:
+            return {"kv": Shards(torch.zeros(shape, dtype=torch.int8,
+                                             device=d) for d in devs),
+                    "scale": Shards(torch.zeros(
+                        shape[:4] + (1,), dtype=torch.float32, device=d)
+                        for d in devs)}
+        return Shards(torch.zeros(shape, dtype=cfg.compute_dtype, device=d)
+                      for d in devs)
 
     def init_caches(batch: int, total: int, device):
         """Zeroed stacked cache (nl, 2, batch, Tpad, Hkv*K) at the compute
         dtype, or with ``decode_int8`` the dict ``{"kv": int8, "scale":
         f32 (nl, 2, batch, Tpad, 1)}``. Tpad is ``total`` rounded up to 8
-        rows, or to 512 above 1024 rows."""
+        rows, or to 512 above 1024 rows. Under TP the cache is sharded on
+        the mesh's devices (``device`` is read only as the meta device)."""
         if total <= 1024:
             tpad = -(-total // _DECODE_PAD_T) * _DECODE_PAD_T
         else:
             tpad = -(-total // 512) * 512
+        if tp_mesh is not None:
+            return tp_caches(batch, tpad, device)
         shape = (cfg.n_layers, 2, batch, tpad, cfg.kv_heads * kd)
         if cfg.decode_int8:
             return {
@@ -1294,40 +1685,35 @@ def _decode_builder(cfg: TransformerConfig):
                                        device=prompt.device)
         x = (params["embed"][prompt] + params["pos"][:tp]).to(
             cfg.compute_dtype)
+        rope = None
         if cfg.rope:
-            cos, sin = _rope_tables(
-                torch.arange(tp, device=x.device), kd, cfg.compute_dtype,
-                x.device)
-        use_flash = cfg.use_flash and _flash_seq_ok(tp)
-        lora = _lora_select(params, adapter)
+            rope = _rope_tables(torch.arange(tp, device=x.device), kd,
+                                cfg.compute_dtype, x.device)
+        # the flash kernel runs over the whole head set: one view only
+        use_flash = cfg.use_flash and _flash_seq_ok(tp) and tp_mesh is None
+        lora = _lora_select(params, adapter, tp_mesh)
         for i in range(cfg.n_layers):
             p = _layer(params, i)
             h_in = _layer_norm(x, p["ln1_scale"], p["ln1_bias"])
-            q, k_r, v_r = _project_qkv(cfg, p, h_in)
-            if lora is not None:
-                q = _lora_q(cfg, q, h_in, lora, i)
-            if cfg.rope:
-                q = _apply_rope(q, cos, sin)
-                k_r = _apply_rope(k_r, cos, sin)
-            rows = torch.stack([
-                k_r.transpose(1, 2).reshape(b, tp, -1),
-                v_r.transpose(1, 2).reshape(b, tp, -1),
-            ])
-            for buf, vals in _row_values(caches, rows):
-                buf[i, :, :, :tp] = vals
-            k_h, v_h = _expand_kv(cfg, k_r, v_r)
-            if use_flash:
-                o = flash_attention(q, k_h, v_h, causal=True)
-            else:
-                o = attention(q, k_h, v_h, causal=True, layout="bhtd")
-            x = x + o.transpose(1, 2).reshape(b, tp, -1) @ _w(
+            qs, kv_rows = _qkv(cfg, p, h_in, lora, i, rope, tp_mesh)
+            outs = []
+            for (q, k_r, v_r), pairs in zip(qs, _row_values(caches,
+                                                             kv_rows)):
+                for buf, vals in pairs:
+                    buf[i, :, :, :tp] = vals
+                k_h, v_h = _expand_kv(cfg, k_r, v_r)
+                if use_flash:
+                    o = flash_attention(q, k_h, v_h, causal=True)
+                else:
+                    o = attention(q, k_h, v_h, causal=True, layout="bhtd")
+                outs.append(o.transpose(1, 2).reshape(b, tp, -1))
+            x = x + _tp_replicate(outs, tp_mesh) @ _w(
                 p, "wo", x.dtype).reshape(cfg.n_heads * kd, -1)
             h_in = _layer_norm(x, p["ln2_scale"], p["ln2_bias"])
-            x = x + (_mlp(p, h_in) if lora is None
-                     else _lora_mlp(p, h_in, lora, i))
+            x = x + _mlp(p, h_in, lora, i, tp_mesh)
         return caches, _last_row_logits(
-            params, x, tp - 1 if last_idx is None else last_idx,
-            rowwise_head)
+            cfg, params, x, tp - 1 if last_idx is None else last_idx,
+            rowwise_head, tp_mesh)
 
     return forward_one, init_caches, prefill, cast_params
 

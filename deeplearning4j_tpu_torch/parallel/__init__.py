@@ -1,2 +1,2 @@
-"""Parallel-training support of the port; this slice has the npz
-checkpoints (``checkpoint``)."""
+"""Parallel support of the port: the npz checkpoints (``checkpoint``) and
+the device mesh of tensor-parallel serving (``mesh``)."""

@@ -11,6 +11,14 @@ bookkeeping only. Slots are handed out lowest-index-first so admission
 order is deterministic; a per-slot generation, bumped on acquire, lets the
 pipelined engine tell a token block of a previous occupant from the current
 one's.
+
+Under exact tensor parallelism (``tp_mesh``, the reference's
+``sharding=serving_tp_cache_sharding(...)``) every leaf is a
+:class:`~..parallel.mesh.Shards`: each rank's buffer ``(n_layers, 2,
+n_slots, Tpad, Hkv/tp*K)`` (blocks in the paged pool) on its device, the
+int8 scale plane whole on every rank; the paged pool uploads one copy of
+the block tables per rank device, together. Every pool operation runs per
+rank through ``kv_map``, and the byte counts sum every shard.
 """
 
 from __future__ import annotations
@@ -25,35 +33,37 @@ from deeplearning4j_tpu_torch.device import upload
 from deeplearning4j_tpu_torch.models.transformer import (
     TransformerConfig,
     _decode_builder,
-    _kv_planes,
+    kv_leaves,
     kv_map,
     paged_block_copy,
     paged_scatter,
 )
+from deeplearning4j_tpu_torch.parallel.mesh import Mesh, Shards, smap
 
 
 def _nbytes(caches) -> int:
-    return sum(x.numel() * x.element_size()
-               for x in _kv_planes(caches) if x is not None)
+    return sum(x.numel() * x.element_size() for x in kv_leaves(caches))
 
 
 class KVSlotPool:
     """Free-list of decode-cache slots over one device allocation.
-    ``caches`` is a float tensor, or ``{"kv", "scale"}`` in int8 mode."""
+    ``caches`` is a float tensor, or ``{"kv", "scale"}`` in int8 mode;
+    under ``tp_mesh`` each leaf a :class:`Shards` over the mesh."""
 
     is_paged = False
 
     def __init__(self, cfg: TransformerConfig, n_slots: int, max_total: int,
-                 device: torch.device):
+                 device: torch.device, *, tp_mesh: Mesh | None = None):
         if n_slots < 1:
             raise ValueError(f"n_slots must be >= 1, got {n_slots}")
-        _, self._init_caches, _, _ = _decode_builder(cfg)
+        _, self._init_caches, _, _ = _decode_builder(cfg, tp_mesh)
         self._max_total = max_total
         self._device = device
+        self.tp_mesh = tp_mesh
         self.n_slots = n_slots
         # the slab geometry first (shapes only, on the meta device): the
         # paged pool carves the same rows into blocks
-        self.tpad = _kv_planes(self._init_caches(
+        self.tpad = kv_leaves(self._init_caches(
             1, max_total, torch.device("meta")))[0].shape[3]
         self.caches = self._alloc_caches()
         # acquire/release run on the engine thread while the gauges read
@@ -186,13 +196,14 @@ class PagedKVPool(KVSlotPool):
     is_paged = True
 
     def __init__(self, cfg: TransformerConfig, n_slots: int, max_total: int,
-                 device: torch.device, *, block_size: int = 8):
+                 device: torch.device, *, block_size: int = 8,
+                 tp_mesh: Mesh | None = None):
         bs = int(block_size)
         if bs < 1 or bs & (bs - 1):
             raise ValueError(
                 f"block_size must be a power of two, got {block_size}")
         self.block_size = bs
-        super().__init__(cfg, n_slots, max_total, device)
+        super().__init__(cfg, n_slots, max_total, device, tp_mesh=tp_mesh)
         self._tables = np.zeros((n_slots, self.blocks_per_slot),
                                 np.int32)  # guarded-by: _lock
         self._refs = np.zeros((self.n_blocks,), np.int32)  # guarded-by: _lock
@@ -211,11 +222,13 @@ class PagedKVPool(KVSlotPool):
                 f"count Tpad={self.tpad}")
         self.blocks_per_slot = self.tpad // self.block_size
         self.n_blocks = self.n_slots * self.blocks_per_slot + 1
+        # an empty (batch 0) cache on the real devices names each leaf's
+        # dtype, width and device
         return kv_map(
             lambda s: torch.zeros(
                 (s.shape[0], s.shape[1], self.n_blocks, self.block_size,
-                 s.shape[4]), dtype=s.dtype, device=self._device),
-            self._init_caches(1, self._max_total, torch.device("meta")))
+                 s.shape[4]), dtype=s.dtype, device=s.device),
+            self._init_caches(0, self._max_total, self._device))
 
     # -- block accounting ------------------------------------------------------
 
@@ -274,9 +287,19 @@ class PagedKVPool(KVSlotPool):
             version = self.version
             tables = self._tables.copy() if version != self._dversion else None
         if tables is not None:
-            self._dtables = upload(tables, self._device)
+            if self.tp_mesh is None:
+                self._dtables = upload(tables, self._device)
+            else:
+                # one copy a rank device, uploaded together
+                on = {d: upload(tables, d)
+                      for d in dict.fromkeys(self.tp_mesh.devices)}
+                self._dtables = Shards(on[d] for d in self.tp_mesh.devices)
             self._dversion = version
         return {"blocks": self.caches, "tables": self._dtables}
+
+    def table_row(self, slot: int):
+        """The device copy of ``slot``'s table row (per rank under TP)."""
+        return smap(lambda t: t[slot], self.operand()["tables"])
 
     def prefill_slab(self, slot: int):
         """A fresh zeroed batch-1 scratch slab of Tpad rows for ``slot``'s
@@ -294,7 +317,9 @@ class PagedKVPool(KVSlotPool):
             raise ValueError(f"start {start} is not a multiple of the block "
                              f"size {self.block_size}")
         j = start // self.block_size
-        paged_scatter(self.caches, self.operand()["tables"][slot:slot + 1, j:],
+        paged_scatter(self.caches,
+                      smap(lambda t: t[slot:slot + 1, j:],
+                           self.operand()["tables"]),
                       kv_map(lambda x: x[:, :, :, start:], slab))
 
     def write_slab(self, slot: int, slab, start: int = 0) -> None:
@@ -312,7 +337,8 @@ class PagedKVPool(KVSlotPool):
         ids = np.asarray([b for b in block_ids if b], np.int64)
         if ids.size:
             idx = upload(ids, self._device)
-            kv_map(lambda x: x.index_fill_(2, idx, 0), self.caches)
+            kv_map(lambda x: x.index_fill_(2, idx.to(x.device), 0),
+                   self.caches)
 
     # -- allocation / sharing --------------------------------------------------
 

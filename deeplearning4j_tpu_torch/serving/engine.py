@@ -1,5 +1,6 @@
 """Continuous-batching decode engine — pipelined, multi-step hot path (port
-of ``deeplearning4j_tpu/serving/engine.py``, single-device path).
+of ``deeplearning4j_tpu/serving/engine.py``), on one device or tensor
+parallel over a device mesh.
 
 The engine owns ``n_slots`` KV-cache slots (one pooled allocation, see
 :mod:`cache_pool`) and batches DECODE STEPS, ``decode_horizon`` (K) of them
@@ -235,7 +236,32 @@ bytes must seat bitwise the direct prefill's state. The export is a
 on the scheduler track; migrations leave ``migrate_out``/``migrate_in``
 on the slot tracks and in the flight recorder.
 
-Left for later slices: tensor parallelism.
+Exact tensor parallelism (``tp``, ``tp_parity``, ``tp_devices``; the
+reference's exact-TP serving): ``tp`` > 1 resolves a model-axis
+:class:`~..parallel.mesh.Mesh` before anything is built (the first ``tp``
+cards unless ``tp_devices`` names them; a device may repeat), places the
+params with ``serving_tp_shardings`` (each column projection split over the
+ranks, each row projection whole) and shards the pool, the prefix region
+and every scratch slab on the packed KV's head-major minor dim. One
+process drives every rank, so every host-side feature above runs once and
+every program of the engine runs sharded: the step and masked step (the
+grammar, bias, top-k/p and the draw on the gathered logits), the bucketed,
+batched and chunked admissions, piggyback chunks, prefix hits, crash
+replay, and the wire's export, ingest and session seat (a TP slab is whole
+again before it is framed, so a TP engine's frame is the single-device
+engine's, and either seats the other's). No kernel runs under TP: as in
+the reference the decode and the prefill are dense (a TP engine turns
+``decode_kernel`` and ``use_flash`` off; the threefry draw still runs on
+the gathered logits). The bar is the reference's: TP=N streams
+byte-identical to TP=1 of the same dense config. It is gated by
+``_probe_tp_parity`` (``tp_parity="auto"``, through ``_probe_verdict``:
+every prompt bucket's prefill and chunk window and the decode at the
+engine's batch, dense against sharded); on a decline, or a geometry the
+layout refuses (tp not dividing the heads), the engine logs
+``tp_parity_probe_failed`` and serves at tp 1 with the caller's config,
+kernels included; ``True`` trusts the layout, ``False`` serves at tp 1.
+The probe key of every probe carries ``tp``, and ``serve_tp_degree``
+exports it.
 """
 
 from __future__ import annotations
@@ -258,10 +284,15 @@ from deeplearning4j_tpu_torch.models.transformer import (
     _stable_top_k,
     _top_k_filter,
     check_supported,
+    kv_leaves,
     kv_map,
     paged_slot_gather,
     paged_slot_scatter,
     params_to,
+    place_serving_tp_params,
+    serving_tp_cache_sharding,
+    shard_cache,
+    unshard_cache,
 )
 from deeplearning4j_tpu_torch.obs.flight import FlightRecorder
 from deeplearning4j_tpu_torch.obs.logs import log_event
@@ -274,6 +305,7 @@ from deeplearning4j_tpu_torch.obs.trace import (
     slot_track,
 )
 from deeplearning4j_tpu_torch.ops import threefry
+from deeplearning4j_tpu_torch.parallel.mesh import model_parallel_mesh
 from deeplearning4j_tpu_torch.serving.cache_pool import KVSlotPool, PagedKVPool
 from deeplearning4j_tpu_torch.serving.disagg import (
     WireError,
@@ -636,7 +668,8 @@ def _land_rows(caches, logits, pos, active, budget, eos, tmp, lg, slots,
     logits at their slots and seat each slot's state, in place (pad rows
     past them are dropped: each slot is written once)."""
     n = slots.shape[0]
-    kv_map(lambda c, t: c.index_copy_(2, slots, t[:, :, :n]), caches, tmp)
+    kv_map(lambda c, t: c.index_copy_(2, slots.to(c.device), t[:, :, :n]),
+           caches, tmp)
     logits.index_copy_(0, slots, lg[:n])
     pos.index_copy_(0, slots, pos0)
     active.index_fill_(0, slots, True)
@@ -673,7 +706,8 @@ def build_batch_hit_program(fwd_chunk):
     def bhit(params, caches, logits, pos, active, budget, eos, region,
              seg_idx, toks, p0: int, last_idx, slots, posf, max_new,
              eos_toks, adapters=None):
-        tmp = kv_map(lambda r: r.index_select(2, seg_idx), region)
+        tmp = kv_map(lambda r: r.index_select(2, seg_idx.to(r.device)),
+                     region)
         lg, tmp = fwd_chunk(params, tmp, toks, p0, last_idx=last_idx,
                             adapter=adapters, rowwise_head=True)
         _land_rows(caches, logits, pos, active, budget, eos, tmp, lg, slots,
@@ -758,20 +792,22 @@ class _Inflight:
         self.t_dispatch = t_dispatch
 
 
-def _leaves(tree) -> list[torch.Tensor]:
-    """The tensors of a caches operand (a tensor, or nested dicts of
-    them), in key order."""
-    if isinstance(tree, torch.Tensor):
-        return [tree]
-    return [t for k in sorted(tree) for t in _leaves(tree[k])]
-
-
 def _as_tensor(arr) -> torch.Tensor:
     """A decoded wire leaf (a numpy array, or a torch tensor for bf16) as
     a CPU tensor."""
     if isinstance(arr, torch.Tensor):
         return arr
     return torch.from_numpy(np.array(arr))
+
+
+def _max_bucket(prefill_max_bucket: int, max_len: int, tpad: int) -> int:
+    """The largest power-of-two prompt bucket: at most
+    ``prefill_max_bucket``, the positional table and the slab rows."""
+    limit = min(int(prefill_max_bucket), max_len, tpad)
+    mb = 1
+    while mb * 2 <= limit:
+        mb *= 2
+    return mb
 
 
 def _pow2(n: int) -> int:
@@ -827,7 +863,9 @@ class ServingEngine:
     persists probe verdicts; ``metrics`` (a :class:`ServingMetrics`) and
     ``results_cap`` (finished streams kept) as in the reference;
     ``tracer``, ``flight``, ``attribution`` and ``profile`` are the
-    observability hooks (see the module doc).
+    observability hooks; ``tp``, ``tp_parity`` ("auto", True, False) and
+    ``tp_devices`` (the mesh's devices, by default the first ``tp`` cards)
+    serve tensor-parallel (see the module doc).
     """
 
     def __init__(
@@ -875,8 +913,13 @@ class ServingEngine:
         lora_bank=None,
         lora_parity: bool | str = "auto",
         tenancy=None,
+        tp: int = 1,
+        tp_parity: bool | str = "auto",
+        tp_devices=None,
     ):
         check_supported(cfg)
+        if device is None and tp_devices is not None and int(tp) > 1:
+            device = tp_devices[0]  # the mesh's first device
         self.device = resolve_device(device)
         self.cfg = cfg
         self.n_slots = n_slots
@@ -919,7 +962,10 @@ class ServingEngine:
         self.retry_backoff_s = retry_backoff_s
         self.max_backoff_s = max_backoff_s
 
-        fwd1, init_caches, do_prefill, cast_params = _decode_builder(cfg)
+        cfg = self._init_tp(cfg, params, tp, tp_parity, tp_devices,
+                            prefill_max_bucket)
+        fwd1, init_caches, do_prefill, cast_params = _decode_builder(
+            cfg, self.tp_mesh)
         self._fwd1, self._init_caches = fwd1, init_caches
         self._do_prefill = do_prefill
         if lora_parity not in ("auto", True, False):
@@ -932,8 +978,11 @@ class ServingEngine:
             params["lora"] = lora_bank
             self.n_adapters = int(lora_bank["a_q"].shape[1])
         # one-time weight cast: every step reads the compute-dtype weights
-        # (int8 leaves and their scales stay as they are)
-        self.params = cast_params(params_to(params, self.device))
+        # (int8 leaves and their scales stay as they are); under TP after
+        # the split, so each rank casts its own part
+        self.params = cast_params(
+            params_to(params, self.device) if self.tp_mesh is None
+            else place_serving_tp_params(self.tp_mesh, params, cfg))
         self.tenancy = tenancy
 
         if paged_parity not in ("auto", True):
@@ -942,7 +991,7 @@ class ServingEngine:
         self._paged = False
         self._block_size = int(block_size or 8)
         if paged:
-            tpad = _kv_planes(init_caches(
+            tpad = kv_leaves(init_caches(
                 1, self.max_total, torch.device("meta")))[0].shape[3]
             if self._block_size > tpad or tpad % self._block_size:
                 log_event(_log, "paged_disabled_bad_block_size",
@@ -952,7 +1001,7 @@ class ServingEngine:
                     "paged_parity",
                     lambda: self._probe_paged_parity(self._block_size),
                     block_size=self._block_size, n_slots=n_slots,
-                    max_total=self.max_total, tpad=tpad, tp=1)):
+                    max_total=self.max_total, tpad=tpad, tp=self.tp)):
                 self._paged = True
             else:
                 log_event(_log, "paged_parity_probe_failed",
@@ -960,10 +1009,11 @@ class ServingEngine:
                           block_size=self._block_size)
         if self._paged:
             self.pool = PagedKVPool(cfg, n_slots, self.max_total,
-                                    self.device,
-                                    block_size=self._block_size)
+                                    self.device, block_size=self._block_size,
+                                    tp_mesh=self.tp_mesh)
         else:
-            self.pool = KVSlotPool(cfg, n_slots, self.max_total, self.device)
+            self.pool = KVSlotPool(cfg, n_slots, self.max_total, self.device,
+                                   tp_mesh=self.tp_mesh)
         # NOT `scheduler or ...`: an empty scheduler is falsy (__len__)
         self.scheduler = scheduler if scheduler is not None else (
             RequestScheduler(max_total_tokens=self.max_total,
@@ -977,7 +1027,7 @@ class ServingEngine:
         if self.n_adapters and lora_parity is not True:
             if not self._probe_verdict(
                     "lora_zero", self._probe_lora_zero,
-                    n_adapters=self.n_adapters, tp=1,
+                    n_adapters=self.n_adapters, tp=self.tp,
                     max_total=self.max_total):
                 log_event(_log, "lora_parity_probe_failed",
                           level=logging.WARNING, n_adapters=self.n_adapters)
@@ -989,12 +1039,9 @@ class ServingEngine:
 
         # power-of-two prompt buckets: the largest respects the positional
         # table and the slab row count
-        limit = min(int(prefill_max_bucket), cfg.max_len, self.pool.tpad)
-        mb = 1
-        while mb * 2 <= limit:
-            mb *= 2
-        self._max_bucket = mb
-        self._min_bucket = min(8, mb)
+        self._max_bucket = _max_bucket(prefill_max_bucket, cfg.max_len,
+                                       self.pool.tpad)
+        self._min_bucket = min(8, self._max_bucket)
 
         # the step program of the configured K (and, with the adaptive
         # horizon, of K 1: _step_fn_for)
@@ -1003,7 +1050,7 @@ class ServingEngine:
         self._step_fns: dict[int, object] = {}
         self._replay_fn = build_replay_program(fwd1)
         self._prefill_fn = build_prefill_program(do_prefill)
-        fwd_chunk = _chunk_builder(cfg)
+        fwd_chunk = _chunk_builder(cfg, self.tp_mesh)
         self._chunk_fn = build_chunk_program(fwd_chunk)
         self._batch_prefill_fn = build_batch_prefill_program(
             do_prefill, init_caches, self.max_total)
@@ -1127,6 +1174,46 @@ class ServingEngine:
             self._probe_cache.put(key, v)
         return v
 
+    def _init_tp(self, cfg: TransformerConfig, params, tp: int, tp_parity,
+                 tp_devices, prefill_max_bucket: int) -> TransformerConfig:
+        """Resolve tensor parallelism before anything is built (the
+        reference's, engine.py:1171-1203): ``tp`` > 1 builds the mesh
+        (``tp_devices``, by default the first ``tp`` cards; ``ValueError``
+        when fewer are visible) and, unless ``tp_parity`` is True, gates it
+        with ``_probe_tp_parity`` through ``_probe_verdict``; on a decline
+        the engine logs ``tp_parity_probe_failed`` and serves at tp 1.
+        ``tp_parity=False`` serves at tp 1 outright. Returns the config the
+        engine runs: the dense decode and prefill under TP (no kernel runs
+        under TP; the probe's single-device side is the same dense
+        program), and the caller's own config at tp 1, so a fallback
+        engine runs the kernels again."""
+        if tp_parity not in ("auto", True, False):
+            raise ValueError(f'tp_parity is "auto", True or False, got '
+                             f'{tp_parity!r}')
+        self.tp = max(1, int(tp))
+        self.tp_mesh = None
+        #: where the TP probe's two programs first differ (or None)
+        self.tp_probe_detail: str | None = None
+        if self.tp == 1 or tp_parity is False:
+            self.tp = 1
+            return cfg
+        dense = dataclasses.replace(cfg, decode_kernel=False, use_flash=False)
+        mesh = model_parallel_mesh(self.tp, tp_devices)
+        self.device = mesh.devices[0]
+        if tp_parity is True or self._probe_verdict(
+                "tp_parity",
+                lambda: self._probe_tp_parity(dense, params, mesh,
+                                              prefill_max_bucket),
+                tp=self.tp, n_slots=self.n_slots, max_total=self.max_total,
+                max_bucket=int(prefill_max_bucket)):
+            self.tp_mesh = mesh
+            self.cfg = dense
+            return dense
+        log_event(_log, "tp_parity_probe_failed", level=logging.WARNING,
+                  tp=self.tp, detail=self.tp_probe_detail)
+        self.tp = 1
+        return cfg
+
     def _init_surface(self, requested: bool, masked_parity, grammar_states,
                       grammar_cache, approx_top_k: bool) -> None:
         """The sampling surface's host mirrors (written at seating,
@@ -1165,7 +1252,7 @@ class ServingEngine:
         if masked_parity is not True and not self._probe_verdict(
                 "masked_parity", self._probe_masked_parity,
                 n_slots=self.n_slots, max_total=self.max_total,
-                max_bucket=self._max_bucket, tp=1, paged=self._paged,
+                max_bucket=self._max_bucket, tp=self.tp, paged=self._paged,
                 piggyback=self._piggyback, temperature=self.temperature,
                 top_k=self.top_k, horizon=self.decode_horizon,
                 grammar_states=self._gtable.capacity,
@@ -1197,6 +1284,10 @@ class ServingEngine:
                   "(shrinks to 1 under adaptive_horizon while the queue is "
                   "non-empty).").set_function(
             lambda: self.decode_horizon_current)
+        reg.gauge("serve_tp_degree",
+                  "Tensor-parallel width of the serving programs (1 = "
+                  "single device; a failed parity probe falls back to 1)."
+                  ).set_function(lambda: self.tp)
         reg.gauge("serve_lora_adapters",
                   "Rows in the batched-LoRA adapter bank (0 = base only; "
                   "row 0 is always the zero adapter).").set_function(
@@ -1564,11 +1655,14 @@ class ServingEngine:
         for int8: the reference's ``jax.tree.leaves`` order."""
         if self._paged:
             slab = paged_slot_gather(self.pool.caches,
-                                     self.pool.operand()["tables"][slot])
+                                     self.pool.table_row(slot))
         else:
             slab = self.pool.slab(slot)
-        # copy=True: on the CPU ``to`` would return the pool's own rows
-        leaves = [t.to("cpu", copy=True) for t in _leaves(slab)]
+        # copy=True: on the CPU ``to`` would return the pool's own rows;
+        # a TP slab is whole again first (rank order is head order, so the
+        # frame is the single-device frame)
+        leaves = [t.to("cpu", copy=True)
+                  for t in kv_leaves(unshard_cache(slab))]
         return leaves, self._logit_row_fn(self._logits, slot).to("cpu")
 
     def _wire_layout(self, leaves) -> dict:
@@ -1692,8 +1786,8 @@ class ServingEngine:
         the (1, V) f32 logits on the device). ``WireError`` (400) on any
         disagreement: after the hash check, a corrupt or hand-made
         frame."""
-        specs = _leaves(self._init_caches(1, self.max_total,
-                                          torch.device("meta")))
+        specs = kv_leaves(unshard_cache(self._init_caches(
+            1, self.max_total, torch.device("meta"))))
         leaves = seg_data["leaves"]
         if len(leaves) != len(specs):
             raise WireError(f"frame has {len(leaves)} cache leaves, engine "
@@ -1713,6 +1807,10 @@ class ServingEngine:
                             f"engine expects float32(1, "
                             f"{self.cfg.vocab_size})")
         slab = {"kv": up[0], "scale": up[1]} if len(up) == 2 else up[0]
+        if self.tp_mesh is not None:
+            slab = shard_cache(self.tp_mesh, slab,
+                               serving_tp_cache_sharding(self.tp_mesh,
+                                                         self.cfg))
         return slab, lg.to(self.device)
 
     def _seat_wire_segment(self, tokens: np.ndarray, slab, lg
@@ -2129,8 +2227,8 @@ class ServingEngine:
             self._prefix_ok_memo = self._probe_verdict(
                 "prefix_reuse", self._probe_prefix_parity,
                 n_slots=self.n_slots, max_total=self.max_total,
-                min_bucket=self._min_bucket, tpad=self.pool.tpad, tp=1,
-                hit_grain=self._hit_grain)
+                min_bucket=self._min_bucket, tpad=self.pool.tpad,
+                tp=self.tp, hit_grain=self._hit_grain)
             log_event(_log, "prefix_parity_probe",
                       level=(logging.INFO if self._prefix_ok_memo
                              else logging.WARNING),
@@ -2159,7 +2257,7 @@ class ServingEngine:
                 "batch_admission",
                 lambda: self._probe_batch_parity(kind, bucket, nb),
                 n_slots=self.n_slots, max_total=self.max_total,
-                tpad=self.pool.tpad, hit_grain=self._hit_grain, tp=1,
+                tpad=self.pool.tpad, hit_grain=self._hit_grain, tp=self.tp,
                 kind=kind, bucket=bucket, rows=nb)
             self.batch_verdicts[key] = ok
             log_event(_log, "batch_parity_probe", ok=ok, kind=kind,
@@ -2801,8 +2899,7 @@ class ServingEngine:
         tmp = self._init_caches(1, total, dev)
         _, lg = self._do_prefill(self.params, tmp,
                                  torch.from_numpy(seq).to(dev))
-        kv, _ = _kv_planes(tmp)
-        tpad = kv.shape[3]
+        tpad = kv_leaves(tmp)[0].shape[3]
         if tpad % block_size:
             return False
         bps = tpad // block_size
@@ -2817,7 +2914,7 @@ class ServingEngine:
         tables[1, 0] = tables[0, 0]
         blocks = kv_map(lambda t: torch.zeros(
             (t.shape[0], 2, 2 * bps + 1, block_size, t.shape[4]),
-            dtype=t.dtype, device=dev), tmp)
+            dtype=t.dtype, device=t.device), tmp)
         dtab = torch.from_numpy(tables).to(dev)
         for s in (0, 1):
             paged_slot_scatter(blocks, dtab[s], tmp)
@@ -2832,6 +2929,86 @@ class ServingEngine:
             pos = pos + 1
             if not torch.equal(slg, plg):
                 return False
+        return True
+
+    @torch.no_grad()
+    def _probe_tp_parity(self, cfg: TransformerConfig, params, mesh,
+                         prefill_max_bucket: int) -> bool:
+        """One-time probe gating tensor-parallel serving (the reference's
+        ``_probe_tp_parity``, engine.py:3540): do the SHARDED programs
+        give, bitwise, the single-device logits on scratch state, at the
+        shapes the engine runs? A library picks its product by the row
+        count and the output width, so the probe runs every prompt bucket
+        (the bucketed prefill at batch 1 and, behind it where the slab
+        has room, a chunk window of the bucket's rows, as chunked and
+        partial-hit admissions run), then three greedy decode steps at
+        the engine's batch (``n_slots`` rows) over the engine's slab rows.
+        The batched admission programs are held to these serial ones by
+        their own probe, on the same engine. The exact-TP layout keeps
+        every reduction's order, so this passes where each rank's products
+        are the matching columns of the whole product; bitwise logits make
+        greedy and sampled streams identical. A geometry the layout
+        refuses (tp not dividing the heads) or any error declines."""
+        total = self.max_total
+        dev = mesh.devices[0]
+        rows = self.n_slots
+        init_meta = _decode_builder(cfg)[1]
+        tpad = kv_leaves(init_meta(1, total, torch.device("meta")))[
+            0].shape[3]
+        mb = _max_bucket(prefill_max_bucket, cfg.max_len, tpad)
+        buckets = [b for b in (2 ** j for j in range(3, 31)) if b <= mb]
+        buckets = buckets or [mb]
+        n_dec = min(mb, total - 4)
+        if n_dec < 1:
+            return False
+        seq = torch.from_numpy(
+            ((1 + np.arange(2 * mb)) % cfg.vocab_size)[None]).to(dev)
+
+        def stream(tp_mesh):
+            fwd1, init_caches, do_prefill, cast_params = _decode_builder(
+                cfg, tp_mesh)
+            fwd_chunk = _chunk_builder(cfg, tp_mesh)
+            p = cast_params(
+                params_to(params, dev) if tp_mesh is None
+                else place_serving_tp_params(tp_mesh, params, cfg))
+            out = []
+            for b in buckets:
+                caches, lg = do_prefill(p, init_caches(1, total, dev),
+                                        seq[:, :b])
+                out.append((f"the prefill of {b} rows", lg))
+                if 2 * b <= tpad:
+                    lg, _ = fwd_chunk(p, caches, seq[:, b:2 * b], b,
+                                      last_idx=b - 1)
+                    out.append((f"a chunk of {b} rows at {b}", lg))
+            caches, lg = do_prefill(p, init_caches(1, total, dev),
+                                    seq[:, :n_dec])
+            caches = kv_map(lambda c: c.repeat(1, 1, rows, 1, 1), caches)
+            lg = lg.repeat(rows, 1)
+            pos = torch.full((rows,), n_dec, dtype=torch.int32, device=dev)
+            for j in range(3):
+                lg, caches = fwd1(p, caches, lg.argmax(-1).to(torch.int32),
+                                  pos)
+                pos = pos + 1
+                out.append((f"decode step {j + 1} at {rows} rows", lg))
+            return out
+
+        try:
+            ref = stream(None)
+            got = stream(mesh)
+        except Exception as e:
+            # conservative, as the reference: a geometry or device that
+            # cannot run the probe serves at tp 1 unless tp_parity=True
+            log_event(_log, "tp_parity_probe_error", level=logging.WARNING,
+                      error=repr(e))
+            self.tp_probe_detail = f"error: {e!r}"
+            return False
+        for (where, a), (_, b) in zip(ref, got):
+            if not torch.equal(a, b):
+                d = (a - b).abs().max().item()
+                self.tp_probe_detail = (f"logits differ first at {where}; "
+                                        f"max |d| {d:.3e}")
+                return False
+        self.tp_probe_detail = None
         return True
 
     @torch.no_grad()
@@ -2917,7 +3094,7 @@ class ServingEngine:
                         device=dev),
             *self._grammar_device_tables(), SurfaceUse())
         return (all(torch.equal(a, b) for a, b in zip(
-                    _leaves(out_a[0]), _leaves(out_b[0])))
+                    kv_leaves(out_a[0]), kv_leaves(out_b[0])))
                 and all(torch.equal(a, b)
                         for a, b in zip(out_a[1:5], out_b[1:5]))
                 and torch.equal(out_a[5], out_b[6][:, :, 0])
@@ -2963,7 +3140,8 @@ class ServingEngine:
             hit = self._seg_fetch_fn(region, 0)
             lg_c = self._compute_rows(hit, seq, start=G)
             names = ("rows", "scales")
-            for name, a, c in zip(names, _kv_planes(miss), _kv_planes(hit)):
+            for name, a, c in zip(names, _kv_planes(unshard_cache(miss)),
+                                  _kv_planes(unshard_cache(hit))):
                 if a is None:
                     continue
                 a, c = a[:, :, 0, :n], c[:, :, 0, :n]
@@ -3018,7 +3196,8 @@ class ServingEngine:
             lg = self._compute_rows(sa[0], seq)
             self._insert_fn(*sa, lg, 0, n, 1, _NO_EOS)
             # the export side: the slab and the logits row to the host
-            leaves = [t.to("cpu", copy=True) for t in _leaves(sa[0])]
+            leaves = [t.to("cpu", copy=True)
+                      for t in kv_leaves(unshard_cache(sa[0]))]
             lg_host = self._logit_row_fn(sa[1], 0).to("cpu")
             frame = encode_segment(config_hash=self.config_hash, tokens=seq,
                                    logits=lg_host,
@@ -3034,7 +3213,7 @@ class ServingEngine:
                 bs, bps = self._block_size, self.pool.tpad // self._block_size
                 blocks = kv_map(lambda x: torch.zeros(
                     (x.shape[0], x.shape[1], bps + 1, bs, x.shape[4]),
-                    dtype=x.dtype, device=self.device), sa[0])
+                    dtype=x.dtype, device=x.device), sa[0])
                 row = self._upload(np.arange(1, bps + 1, dtype=np.int32))
                 paged_slot_scatter(blocks, row, slab)
                 slab = paged_slot_gather(blocks, row)
@@ -3054,7 +3233,7 @@ class ServingEngine:
                 "disagg_wire", self._probe_disagg_parity,
                 n_slots=self.n_slots, max_total=self.max_total,
                 min_bucket=self._min_bucket, tpad=self.pool.tpad,
-                paged=self._paged, block_size=self._block_size, tp=1)
+                paged=self._paged, block_size=self._block_size, tp=self.tp)
             log_event(_log, "disagg_parity_probe",
                       level=(logging.INFO if self._disagg_ok_memo
                              else logging.WARNING),
@@ -3067,7 +3246,7 @@ class ServingEngine:
     def _states_equal(a, b) -> bool:
         """Two scratch states bitwise equal, every leaf."""
         return (all(torch.equal(x, y)
-                    for x, y in zip(_leaves(a[0]), _leaves(b[0])))
+                    for x, y in zip(kv_leaves(a[0]), kv_leaves(b[0])))
                 and all(torch.equal(x, y) for x, y in zip(a[1:], b[1:])))
 
     @torch.no_grad()
@@ -3189,7 +3368,7 @@ class ServingEngine:
             self._chunked_ok = self._probe_verdict(
                 "chunked_replay", self._probe_chunked_parity,
                 n_slots=self.n_slots, max_total=self.max_total,
-                max_bucket=self._max_bucket, tp=1, paged=self._paged)
+                max_bucket=self._max_bucket, tp=self.tp, paged=self._paged)
             log_event(_log, "chunked_replay_probe", ok=self._chunked_ok)
         return self._chunked_ok
 

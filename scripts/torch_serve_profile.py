@@ -5,7 +5,7 @@ CUDA card.
     python3 scripts/torch_serve_profile.py [--horizons 12] [--out PATH]
         [--int8 off|weights|full] [--paged [--block-size 8]]
         [--temperature 0] [--top-k 0] [--sampling-surface]
-        [--lora-adapters N [--lora-rank 4]]
+        [--lora-adapters N [--lora-rank 4]] [--tp N] [--dense]
 
 Builds the GPT-2-small serving engine of ``chip_smoke.py`` (bf16, 8 slots,
 max_total 640, K = 4, random weights from seed 0; greedy unless
@@ -14,7 +14,10 @@ through the threefry draw kernel; ``--sampling-surface`` dispatches the
 masked step; ``--int8`` quantizes the weights, ``full`` also the KV cache;
 ``--paged`` block-pages the cache; ``--lora-adapters N`` loads a LoRA bank
 of N adapters, rank ``--lora-rank``, from ``threefry.key(0)``, and the
-slots take adapters 1..N-1 in turn, so every dispatch carries the bank),
+slots take adapters 1..N-1 in turn, so every dispatch carries the bank;
+``--tp N`` serves tensor-parallel with every rank on cuda:0, which runs the
+dense decode and prefill, and ``--dense`` runs those at tp 1, the TP
+engines' single-device comparator),
 fills every slot with a 128-token prompt and a budget long enough to stay
 in decode, then:
 
@@ -76,6 +79,10 @@ def main() -> int:
                     help="serve a batched-LoRA bank of N adapters, the "
                     "slots on adapters 1..N-1")
     ap.add_argument("--lora-rank", type=int, default=4)
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel width, every rank on cuda:0")
+    ap.add_argument("--dense", action="store_true",
+                    help="the dense decode and prefill (no kernel) at tp 1")
     args = ap.parse_args()
 
     import numpy as np
@@ -97,6 +104,10 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
     cfg = gpt2s_config(decode_int8=args.int8 == "full")
+    if args.dense:
+        import dataclasses
+
+        cfg = dataclasses.replace(cfg, decode_kernel=False, use_flash=False)
     params = init_params(cfg, seed=0)
     if args.int8 != "off":
         params = quantize_decode_params(params, cfg)
@@ -109,6 +120,8 @@ def main() -> int:
 
         surface["lora_bank"] = init_lora_bank(
             threefry.key(0), cfg, args.lora_adapters, args.lora_rank)
+    if args.tp > 1:
+        surface.update(tp=args.tp, tp_devices=["cuda:0"] * args.tp)
     engine = ServingEngine(cfg, params, n_slots=8, max_total=640,
                            decode_horizon=4, temperature=args.temperature,
                            top_k=args.top_k or None,
@@ -116,6 +129,10 @@ def main() -> int:
                            **surface)
     if args.lora_adapters and engine.n_adapters != args.lora_adapters:
         print("torch_serve_profile: the LoRA probe failed", file=sys.stderr)
+        return 1
+    if getattr(engine, "tp", 1) != args.tp:
+        print(f"torch_serve_profile: the tp parity probe declined "
+              f"({engine.tp_probe_detail})", file=sys.stderr)
         return 1
     if args.paged and not engine._paged:
         print("torch_serve_profile: the engine did not come up paged",
@@ -132,7 +149,9 @@ def main() -> int:
             + f", {sampler}"
             + (", sampling surface" if args.sampling_surface else "")
             + (f", LoRA {args.lora_adapters} x rank {args.lora_rank}"
-               if args.lora_adapters else ""))
+               if args.lora_adapters else "")
+            + (f", tp {args.tp} on cuda:0" if args.tp > 1 else "")
+            + (", dense" if args.dense else ""))
     rng = np.random.default_rng(0)
     budget = 4 * (3 * args.horizons + 8)
     for i in range(8):
