@@ -43,7 +43,9 @@ Phases, in order; any failure exits non-zero without printing a result:
    #1 at the batched admission's shapes: BH 12, 24 and 48 (groups of 2, 4
    and 8 prompts of 6 heads) at every prefill bucket (8 to 128), each
    6-row block of a BH 48 launch also bitwise a BH 6 launch of the same
-   rows;
+   rows and #1 and #2 at phase 14's mesh ranks
+   (BH 8 at T 1024, BH 16 at T 64), each rank's rows of a BH 48 launch
+   bitwise the rank's own launch;
 3. serve the GPT-2-small configuration (random weights from a seed) through
    ``ServingEngine``: about eight greedy requests, some past the 128-token
    prefill bucket, with every kernel's launch count set to 0 just before and
@@ -231,6 +233,26 @@ Phases, in order; any failure exits non-zero without printing a result:
    ``cli.main(["serve", "--tp", "2", ...])`` exiting 2 on one card; (h)
    device records and host ms a steady decode substep at each width
    (``torch.profiler``).
+14. MoE and the training mesh: (a) MoE serving at GPT-2-small's width
+   (8 experts, top 2, dense decode over every expert; phase 3's
+   geometry, prompts and prefix cache on), bf16 slab and paged (bs 8),
+   greedy and T 0.8 top-k 40: greedy streams held against
+   ``transformer_generate`` (near-tie rule), paged byte-identical to slab,
+   #1, #3 and #4 launched; every parity probe's verdict on slab and paged
+   engines of the MoE and the dense model (the MoE verdicts must be the
+   dense model's, and all but chunked replay must pass); tok/s, TPOT p50
+   and device records a steady decode substep beside the dense model's;
+   (b) ``transformer_train_step`` on a (data, model) = (2, 3) mesh over
+   ``["cuda:0"] * 6``: those widths with 3 experts (one a model rank, top
+   2), seq 1024, batch 8, flash, remat, bf16, replicated and FSDP, one
+   warm-up and 6 timed steps each on one fixed batch from one init:
+   finite falling losses, FSDP within 2e-3 of replicated, #1 and #2 once
+   a layer on every rank (BH 8: 4 rows x 2 heads), ms a step and each
+   rank's parameter + AdamW bytes from the layout; (c) ``train --tp 3
+   --n-experts 3 --fsdp --device cuda:0`` at that width and 2 layers
+   writes a checkpoint and ``generate --checkpoint-dir`` restores it.
+   Phase 2 holds #1 and #2 at the ranks' shapes, and each rank's rows of
+   a whole-batch launch bitwise that rank's own launch (#1 and #2).
 
 The last lines are the kernel table as one JSON object, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -595,6 +617,46 @@ def _attn_rows_case(t: int, nb: int, heads: int = 6, d: int = 128) -> dict:
         f"{same}/{nb} blocks of {heads} rows bitwise a BH {heads} launch of "
         f"the same rows -> {'ok' if same == nb else 'FAIL'}")
     return dict(ok=same == nb)
+
+
+def _rank_rows_case(t: int, b: int, heads: int, dp: int, tp: int,
+                    d: int = 128) -> dict:
+    """#1 and #2 over each (data, model) rank's rows (its b/dp batch rows
+    x heads/tp heads, as a mesh step launches them) against one launch
+    over all b x heads rows: out, lse and dQ, dK, dV bitwise, rank for
+    rank (each (b, h) tile is computed on its own)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(4000 + t)
+    q, k, v, do = (torch.randn((b * heads, t, d), generator=g, device="cuda",
+                               dtype=torch.bfloat16) for _ in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v, True)
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, do, True)
+    fwd_same = bwd_same = 0
+    for di in range(dp):
+        for m in range(tp):
+            idx = torch.tensor(
+                [bi * heads + h
+                 for bi in range(di * b // dp, (di + 1) * b // dp)
+                 for h in range(m * heads // tp, (m + 1) * heads // tp)],
+                device="cuda")
+            qr, kr, vr, dor = (x[idx].contiguous() for x in (q, k, v, do))
+            o1, lse1 = fa.flash_attention_fwd(qr, kr, vr, True)
+            fwd_same += torch.equal(o[idx], o1) and torch.equal(lse[idx],
+                                                                lse1)
+            g1 = fa.flash_attention_bwd(qr, kr, vr, o1, lse1, dor, True)
+            bwd_same += all(torch.equal(x[idx], y)
+                            for x, y in zip(grads, g1))
+    n = dp * tp
+    ok = fwd_same == n and bwd_same == n
+    log(f"kernel flash_attn_fwd/bwd BH={b * heads} T={t} D={d} causal=True "
+        f"over a ({dp}, {tp}) mesh's ranks: forward {fwd_same}/{n}, "
+        f"backward {bwd_same}/{n} ranks' rows bitwise a launch over those "
+        f"rows alone (BH {b // dp * heads // tp}) -> "
+        f"{'ok' if ok else 'FAIL'}")
+    return dict(ok=ok)
 
 
 def _log_rate(name: str, body: str, flops: float, ms: float, b_ms: float,
@@ -1181,7 +1243,9 @@ def _draw_case(r: int, v: int, flat: bool, spec: bool = False,
 def phase_draw() -> list[dict]:
     """Phase 2's draw cases; the last is the engine's (R 8, V 50,304)."""
     vocab = 50304
-    return [_draw_case(1, vocab, flat=True),
+    # the byte-level CLI runs' samples (phase 14c: V 256) first
+    return [_draw_case(1, 256, flat=True),
+            _draw_case(1, vocab, flat=True),
             _draw_case(4, vocab, flat=True),
             _draw_case(1, vocab, flat=True, spec=True),
             _draw_case(8, vocab, flat=False)]
@@ -1214,10 +1278,21 @@ def phase_kernels(w2v_model, w2v_corpus) -> dict[str, dict]:
     attn += [_attn_case(t, True, bh=6 * nb, iters=20)
              for nb in BATCH_ROWS for t in PREFILL_BUCKETS]
     attn += [_attn_rows_case(t, 8) for t in PREFILL_BUCKETS]
+    # phase 14's mesh ranks: 14c's (dp 1, tp 3: 8 rows x 2 heads, T 64)
+    # and 14b's (dp 2, tp 3: 4 rows x 2 heads, T 1024), and each rank's
+    # rows of a whole-batch launch bitwise that rank's launch, #1 and #2
+    rank_bh = MESH_BATCH // MESH_DP * (6 // MESH_TP)
+    attn.append(_attn_case(CLI_MESH_SEQ, True,
+                           bh=CLI_MESH_BATCH * (6 // MESH_TP)))
+    attn.append(_attn_case(TRAIN_SEQ, True, bh=rank_bh, iters=20))
+    attn.append(_rank_rows_case(TRAIN_SEQ, MESH_BATCH, 6, MESH_DP, MESH_TP))
     attn.append(_attn_case(TRAIN_SEQ, True, bh=2 * 6, iters=20))
     attn.append(_attn_case(TRAIN_SEQ, True, bh=CKPT_BATCH * 6, iters=20))
     attn.append(_attn_case(TRAIN_SEQ, True, bh=TRAIN_BATCH * 6, iters=20))
     bwd = [_bwd_case(128, causal) for causal in (True, False)]
+    bwd.append(_bwd_case(CLI_MESH_SEQ, True,
+                         bh=CLI_MESH_BATCH * (6 // MESH_TP)))
+    bwd.append(_bwd_case(TRAIN_SEQ, True, bh=rank_bh, iters=20))
     bwd.append(_bwd_case(TRAIN_SEQ, True, bh=2 * 6, iters=20))
     bwd.append(_bwd_case(TRAIN_SEQ, True, bh=CKPT_BATCH * 6, iters=20))
     bwd.append(_bwd_case(TRAIN_SEQ, True, bh=TRAIN_BATCH * 6, iters=20))
@@ -1243,6 +1318,8 @@ def phase_kernels(w2v_model, w2v_corpus) -> dict[str, dict]:
         _decode_case(1, 1, 6, 128, 12, 32, 7, [8]),
         *[_decode_case(1, 1, 6, 128, 12, t, 7, [t - 1]) for t in serve_ts],
         _decode_case(1, 1, 6, 128, 12, gen_t, 7, [gen_t - 1]),
+        # phase 14c's generate on its 2-layer checkpoint
+        _decode_case(1, 1, 6, 128, CLI_MESH_LAYERS, gen_t, 1, [gen_t - 1]),
         _decode_case(4, 1, 6, 128, 12, gen_t, 7, [GEN_PROMPT] * 4),
         _decode_case(1, 1, 6, 128, 12, beam_t, 7, [beam_t - 1]),
         _decode_case(4, 1, 6, 128, 12, beam_t, 7, [beam_t - 1] * 4),
@@ -5846,6 +5923,335 @@ def phase_tp(card: str) -> dict[str, dict[str, int]]:
     return {"tp": total}
 
 
+# -- phase 14 ----------------------------------------------------------------
+
+#: 14a: the MoE serving model (GPT-2-small's widths, 8 experts, top 2);
+#: 14b: the mesh, experts (one a model rank) and steps; 14c: the CLI run's
+#: widths and depth
+MOE_EXPERTS, MOE_K = 8, 2
+MESH_DP, MESH_TP, MESH_BATCH, MESH_STEPS, MESH_WARMUP = 2, 3, 8, 6, 1
+MESH_FSDP_RTOL = 2e-3
+CLI_MESH_LAYERS, CLI_MESH_SEQ, CLI_MESH_BATCH = 2, 64, 8
+CLI_MESH_DIR = ROOT / ".scratch" / "chip_smoke_phase14"
+
+
+def _decode_records(engine, prompts, horizons: int = 3) -> tuple:
+    """Device records and host ms a steady decode substep (8 slots of
+    ``prompts``, ``horizons`` horizons under ``torch.profiler``, the host
+    ms over as many untraced)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from deeplearning4j_tpu_torch.serving import Request
+
+    k = engine.decode_horizon
+    for p in prompts:
+        engine.submit(Request(prompt=p, max_new=k * (3 * horizons + 4)))
+    for _ in range(3):
+        engine.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(horizons):
+        engine.step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / (k * horizons) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(horizons):
+            engine.step()
+        torch.cuda.synchronize()
+    recs = sum(ev.count for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA)
+    engine.run()
+    return recs / (k * horizons), ms
+
+
+def phase14_moe_serve(card: str, total) -> None:
+    """14a: MoE serving at GPT-2-small's width (8 experts, top 2, dense
+    decode over every expert), the serve smoke's geometry and prompts: bf16
+    slab and paged (bs 8), greedy and T 0.8 top-k 40; greedy streams held
+    against ``transformer_generate`` (near-tie rule), paged against slab
+    byte for byte; every probe's verdict; #1, #3 and #4 launched; tok/s,
+    TPOT p50 and device records a decode substep beside the dense
+    model's."""
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.models.transformer import (
+        init_params,
+        transformer_generate,
+    )
+    from deeplearning4j_tpu_torch.serving import Request, ServingEngine
+
+    cfg = gpt2s_config(n_experts=MOE_EXPERTS, moe_k=MOE_K)
+    params = init_params(cfg, seed=0)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in PROMPT_LENGTHS]
+    gen = transformer_generate(cfg)
+    refs = {i: _generate(gen, params, prompts[i]) for i in (1, 5)}
+
+    def engine(c, p, **kw):
+        return ServingEngine(c, p, n_slots=8, max_total=640,
+                             decode_horizon=4, block_size=BLOCK_SIZE,
+                             prefix_cache=True, **kw)
+
+    perf = {}
+    for sampled in (False, True):
+        kw = (dict(temperature=SAMPLE_T, top_k=SAMPLE_K) if sampled
+              else dict(temperature=0.0))
+        mode = "T 0.8 top-k 40" if sampled else "greedy"
+        slab = None
+        for paged in (False, True):
+            tag = f"phase 14a MoE {'paged bs 8' if paged else 'slab'}, {mode}"
+            eng = engine(cfg, params, paged=paged, **kw)
+            _must(tag, eng._paged == paged, "the paged probe failed")
+            streams, launches, wall = _timed_run(
+                eng, [Request(prompt=p, max_new=MAX_NEW) for p in prompts])
+            _add(total, launches)
+            _launch_check(tag, launches,
+                          ("flash_attn_fwd", "flash_decode_paged" if paged
+                           else "flash_decode"),
+                          ("flash_decode",) if paged else ())
+            s = eng.metrics.summary()
+            for i, (ref, logits) in refs.items():
+                if not sampled:
+                    log(f"{tag}: parity vs transformer_generate, prompt "
+                        f"{len(prompts[i])}: "
+                        f"{_parity(prompts[i], ref, logits, streams[i])}")
+            if slab is None:
+                slab = streams
+            else:
+                same = sum(np.array_equal(a, b)
+                           for a, b in zip(slab, streams))
+                _must(tag, same == len(prompts),
+                      f"paged streams equal the slab's {same}/"
+                      f"{len(prompts)}")
+                log(f"{tag}: streams byte-identical to slab "
+                    f"{same}/{len(prompts)}")
+            log(f"{tag}: {s['n_generated']} tokens in {wall:.3f} s -> "
+                f"{s['n_generated'] / wall:.1f} generated tok/s; TPOT p50 "
+                f"{s['tpot_p50_s'] * 1e3:.3f} ms p99 "
+                f"{s['tpot_p99_s'] * 1e3:.3f} ms; TTFT p50 "
+                f"{s['ttft_p50_s'] * 1e3:.2f} ms [{card}]")
+            perf[tag] = (s["n_generated"] / wall, s["tpot_p50_s"] * 1e3)
+            del eng
+            torch.cuda.empty_cache()
+    # every probe of the dense model, on fresh slab and paged engines of
+    # both models: the MoE model's verdicts must be the dense model's (the
+    # chunked-replay probe compares a chunk with decode steps, which no
+    # library promises bitwise, so it may decline for both), and the
+    # prefix, batching, paged and wire probes must pass
+    dense_cfg, dense_params = serve_model(False)
+    verdicts = {}
+    for name, c, p in (("dense", dense_cfg, dense_params),
+                       ("MoE", cfg, params)):
+        for paged in (False, True):
+            eng = engine(c, p, paged=paged, temperature=0.0)
+            v = {"prefix_reuse": eng._prefix_reuse_ok(),
+                 "chunked_replay": eng._use_chunked_replay(),
+                 "disagg_wire": eng._disagg_ok()}
+            if paged:
+                v["paged_parity"] = eng._paged
+            else:
+                v["batch_admission (miss, 128, 8)"] = (
+                    eng._batch_admission_ok("miss", 128, 8))
+            verdicts[name, paged] = v
+            log(f"phase 14a {name} {'paged' if paged else 'slab'} probe "
+                f"verdicts {v}; probes run {eng.probes_run}")
+            del eng
+            torch.cuda.empty_cache()
+    for paged in (False, True):
+        moe_v = verdicts["MoE", paged]
+        _must("phase 14a", moe_v == verdicts["dense", paged],
+              f"MoE verdicts {moe_v} differ from the dense model's "
+              f"{verdicts['dense', paged]}")
+        _must("phase 14a", all(ok for k, ok in moe_v.items()
+                               if k != "chunked_replay"),
+              f"a parity probe declined on the MoE model: {moe_v}")
+    # the dense model of phase 3 beside it: the same greedy slab run, then
+    # steady decode for both
+    eng = engine(dense_cfg, dense_params, temperature=0.0)
+    _, _, wall = _timed_run(
+        eng, [Request(prompt=p, max_new=MAX_NEW) for p in prompts])
+    s = eng.metrics.summary()
+    perf["phase 14a dense slab, greedy"] = (s["n_generated"] / wall,
+                                            s["tpot_p50_s"] * 1e3)
+    del eng
+    prof = {}
+    for name, c, p in (("dense", dense_cfg, dense_params),
+                       ("MoE", cfg, params)):
+        eng = engine(c, p, temperature=0.0)
+        prof[name] = _decode_records(
+            eng, [np.random.default_rng(16).integers(0, c.vocab_size, 128)
+                  for _ in range(8)])
+        del eng
+        torch.cuda.empty_cache()
+    log(f"phase 14a steady decode (8 slots, 128-token prompts, K 4): "
+        f"device records and host ms a substep "
+        f"{ {k: (round(r, 2), round(ms, 3)) for k, (r, ms) in prof.items()} }"
+        f"; serve runs (generated tok/s, TPOT p50 ms) "
+        f"{ {k: (round(a, 1), round(b, 3)) for k, (a, b) in perf.items()} }"
+        f" [{card}]")
+    del params, dense_params
+    torch.cuda.empty_cache()
+
+
+def mesh_config(n_layers: int = 12):
+    """14b's model: the bench preset's widths at seq 1024 (flash, remat,
+    bf16) with one expert a model rank, top 2."""
+    import dataclasses
+
+    return dataclasses.replace(bench_config(n_layers), n_experts=MESH_TP,
+                               moe_k=2)
+
+
+def phase14_mesh_train(card: str) -> dict[str, int]:
+    """14b: the training step on a (data, model) = (2, 3) mesh over
+    ``["cuda:0"] * 6``, MoE (3 experts, top 2) at GPT-2-small's widths,
+    seq 1024, batch 8, flash, remat, bf16, with the replicated layout and
+    with FSDP, one warm-up and 6 timed steps each on one fixed batch from
+    one init: finite falling losses, FSDP's within MESH_FSDP_RTOL of
+    replicated, #1 and #2 launched once a layer on every rank (BH 8: 4
+    rows x 2 heads), ms a step and each rank's parameter + optimizer bytes
+    from the layout. Returns the launches of both timed runs."""
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.models.transformer import (
+        layout_bytes,
+        lm_optimizer,
+        transformer_train_step,
+    )
+    from deeplearning4j_tpu_torch.parallel.mesh import dp_mp_mesh
+
+    cfg = mesh_config()
+    mesh = dp_mp_mesh(MESH_DP, MESH_TP, ["cuda:0"] * (MESH_DP * MESH_TP))
+    toks = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (MESH_BATCH, TRAIN_SEQ + 1))
+    losses, total = {}, {}
+    per_step = cfg.n_layers * MESH_DP * MESH_TP
+    for fsdp in (False, True):
+        tag = f"phase 14b {'fsdp' if fsdp else 'replicated'}"
+        t0 = time.perf_counter()
+        step, init_state, shard_tokens = transformer_train_step(
+            mesh, cfg, optimizer=lm_optimizer(total_steps=MESH_STEPS),
+            fsdp=fsdp)
+        params, opt_state = init_state(0)
+        ts = shard_tokens(toks)
+        ls = []
+        for _ in range(MESH_WARMUP):
+            params, opt_state, loss = step(params, opt_state, ts)
+            ls.append(loss)
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(MESH_STEPS):
+            params, opt_state, loss = step(params, opt_state, ts)
+            ls.append(loss)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / MESH_STEPS * 1e3
+        launches = read_launches()
+        _add(total, launches)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        ls = [float(x) for x in ls]
+        losses[fsdp] = ls
+        pb = layout_bytes(params)
+        ob = [layout_bytes(opt_state[m]) for m in ("mu", "nu")]
+        rank_bytes = {r: pb[r] + ob[0][r] + ob[1][r] for r in pb}
+        log(f"{tag}: ({MESH_DP}, {MESH_TP}) mesh on cuda:0 x "
+            f"{MESH_DP * MESH_TP}, {cfg.d_model}d x {cfg.n_layers}L, "
+            f"{cfg.n_heads}x{cfg.head_dim} heads, {cfg.n_experts} experts "
+            f"top {cfg.moe_k} (d_ff {cfg.d_ff}), vocab {cfg.vocab_size}, "
+            f"seq {TRAIN_SEQ}, batch {MESH_BATCH}, flash, remat "
+            f"{cfg.remat_policy}, bf16; set-up and {MESH_WARMUP} warm-up "
+            f"{setup:.1f} s")
+        log(f"{tag}: losses {' '.join(f'{x:.4f}' for x in ls)}")
+        log(f"{tag}: {ms:.2f} ms/step, "
+            f"{MESH_BATCH * TRAIN_SEQ / ms * 1e3:.1f} tokens/s, peak memory "
+            f"{peak:.2f} GiB (every rank on one card); params + AdamW "
+            f"bytes a rank from the layout "
+            f"{ {f'{d},{m}': b for (d, m), b in sorted(rank_bytes.items())} }"
+            f" ({sum(pb.values()) / 2**20:.1f} MiB of params over all ranks)"
+            f" [{card}]")
+        _launch_check(tag, launches, ("flash_attn_fwd", "flash_attn_bwd"))
+        for name in ("flash_attn_fwd", "flash_attn_bwd"):
+            _must(tag, launches[name] == MESH_STEPS * per_step,
+                  f"{name} launched {launches[name]} times, not once a "
+                  f"layer on each of the {MESH_DP * MESH_TP} ranks "
+                  f"({MESH_STEPS * per_step})")
+        _must(tag, all(np.isfinite(ls)) and ls[-1] < ls[0],
+              f"losses not finite or not falling: {ls}")
+        del params, opt_state, step
+        torch.cuda.empty_cache()
+    rel = max(abs(a - b) / abs(a) for a, b in zip(losses[False],
+                                                   losses[True]))
+    log(f"phase 14b: fsdp vs replicated losses, max rel diff {rel:.3e} "
+        f"(tol {MESH_FSDP_RTOL})")
+    _must("phase 14b", rel <= MESH_FSDP_RTOL,
+          "fsdp's losses leave the replicated layout's")
+    return total
+
+
+def phase14_cli(card: str) -> dict[str, int]:
+    """14c: ``train --tp 3 --n-experts 3 --fsdp --device cuda:0`` at
+    GPT-2-small's width, 2 layers, writes a checkpoint; ``generate
+    --checkpoint-dir`` on it exits 0 (dense decode over the experts)."""
+    shutil.rmtree(CLI_MESH_DIR, ignore_errors=True)
+    model = ["--d-model", "768", "--n-heads", "6", "--n-layers",
+             str(CLI_MESH_LAYERS), "--seq-len", str(CLI_MESH_SEQ)]
+    total: dict[str, int] = {}
+    try:
+        launches, out = _cli("phase 14c train", [
+            "train", "--model", "transformer", "--tp", str(MESH_TP),
+            "--n-experts", str(MESH_TP), "--fsdp", "--device", "cuda:0",
+            "--steps", "4", "--batch", str(CLI_MESH_BATCH), "--flash",
+            "--remat", "--bf16", "--checkpoint-dir", str(CLI_MESH_DIR),
+            "--save-every", "4", *model])
+        _add(total, launches)
+        _must("phase 14c", (CLI_MESH_DIR / "ckpt_4.npz").is_file(),
+              "no checkpoint written")
+        _must("phase 14c", "training on a (data, model) = (1, 3) mesh" in out,
+              "the run did not train on the mesh")
+        _must_launch("phase 14c train", launches,
+                     ("flash_attn_fwd", "flash_attn_bwd"))
+        launches, out = _cli("phase 14c generate", [
+            "generate", "--checkpoint-dir", str(CLI_MESH_DIR),
+            "--temperature", "0"])
+        _add(total, launches)
+        _must("phase 14c", "restored step 4" in out, "no restore line")
+        _must_launch("phase 14c generate", launches,
+                     ("flash_attn_fwd", "flash_decode"))
+    finally:
+        shutil.rmtree(CLI_MESH_DIR, ignore_errors=True)
+    return total
+
+
+def phase_moe_mesh(card: str) -> dict[str, dict[str, int]]:
+    """Phase 14: MoE serving on one card, then the transformer's training
+    step on a (data, model) mesh and through ``train --tp``; fails on a
+    launch at a shape phase 2 did not hold."""
+    import torch
+
+    t0 = time.perf_counter()
+    out: dict[str, dict[str, int]] = {"moe_serve": {}}
+    with launched_shapes() as seen:
+        for name, fn in (
+                ("a", lambda: phase14_moe_serve(card, out["moe_serve"])),
+                ("b", lambda: out.__setitem__("mesh_train",
+                                              phase14_mesh_train(card))),
+                ("c", lambda: out.__setitem__("mesh_cli",
+                                              phase14_cli(card)))):
+            t1 = time.perf_counter()
+            fn()
+            log(f"phase 14{name}: {time.perf_counter() - t1:.1f} s")
+            torch.cuda.empty_cache()
+    log(f"phase 14: {time.perf_counter() - t0:.1f} s wall [{card}]")
+    check_launched("phase 14", seen)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -5901,6 +6307,7 @@ def main() -> int:
         by_phase.update(phase_tp(card))
     finally:
         shutil.rmtree(TP_PROBES.parent, ignore_errors=True)
+    by_phase.update(phase_moe_mesh(card))
     kernels = [
         dict(name=name, route="cuda", **KERNELS[name],
              launches=sum(p[name] for p in by_phase.values()),

@@ -3,7 +3,10 @@
 
 ``train`` trains the byte-level char LM on ``--text`` (or an offline demo
 corpus) with the reference's flags and recipe (``lm_optimizer``, a loss line
-every 20 steps, ``final loss``, a sampled continuation), on one device;
+every 20 steps, ``final loss``, a sampled continuation), on one device or,
+with ``--tp N`` (``--n-experts N`` experts, one a model rank; ``--fsdp``),
+on a ``(data, model)`` mesh of ``dp = cards // N`` rows, as the reference
+does (``--device D`` puts the N ranks on D, ``dp = 1``);
 ``--checkpoint-dir`` saves npz checkpoints (``parallel/checkpoint.py``)
 every ``--save-every`` steps with the loss and the model config in their
 meta, as the reference does.
@@ -81,6 +84,7 @@ def _cfg_from_args(args):
         bf16 = p.pop("bf16") or args.bf16
         return TransformerConfig(
             **p, use_flash=args.flash, remat=remat,
+            n_experts=args.n_experts,
             compute_dtype=torch.bfloat16 if bf16 else torch.float32,
         )
     # the JAX CLI's flags -> config recipe (byte vocab, d_ff = 4 d_model,
@@ -98,16 +102,14 @@ def _cfg_from_args(args):
 _LATER = {
     "status_port": "--status-port (the status REST / ClusterService) comes "
                    "with the cluster slice",
-    "fsdp": "--fsdp comes with the torch.distributed slice",
-    "n_experts": "--n-experts (MoE) comes with a later slice",
-    "coordinator": "--coordinator (multi-process training) comes with the "
-                   "torch.distributed slice",
+    "coordinator": "--coordinator (multi-process training on "
+                   "torch.distributed) comes with the cluster slice",
 }
 
 #: why ``--checkpoint-backend orbax`` exits 2
 _ORBAX = ("--checkpoint-backend orbax is JAX's sharded checkpointer; the "
           "port's sharded format (torch.distributed.checkpoint) comes with "
-          "the torch.distributed slice. Use npz.")
+          "the cluster slice. Use npz.")
 
 #: the reference's offline demo corpus (deeplearning4j_tpu/cli.py)
 _DEMO_TEXT = (
@@ -121,11 +123,13 @@ def cmd_train(args) -> int:
     import torch
 
     from deeplearning4j_tpu_torch.models.transformer import (
+        gather_transformer_params,
         lm_optimizer,
         transformer_generate,
         transformer_train_step,
     )
     from deeplearning4j_tpu_torch.parallel.checkpoint import CheckpointManager
+    from deeplearning4j_tpu_torch.parallel.mesh import dp_mp_mesh
 
     if args.model != "transformer":
         print(f"--model {args.model} comes with the DL4J-era slice of the "
@@ -135,14 +139,19 @@ def cmd_train(args) -> int:
         if getattr(args, flag):
             print(msg, file=sys.stderr)
             return 2
-    if args.tp > 1:
-        print("train --tp (tensor-parallel training) comes with the slice "
-              "that trains beyond one card (torch.distributed); serve --tp "
-              "serves tensor-parallel", file=sys.stderr)
-        return 2
+    tp = max(1, args.tp)
     if args.d_model % args.n_heads:
         print(f"--d-model ({args.d_model}) must be divisible by --n-heads "
               f"({args.n_heads})", file=sys.stderr)
+        return 2
+    if args.n_heads % tp:
+        print(f"--n-heads ({args.n_heads}) must be divisible by --tp ({tp})",
+              file=sys.stderr)
+        return 2
+    if args.n_experts and args.n_experts != tp:
+        print(f"--n-experts ({args.n_experts}) must equal --tp ({tp}): "
+              "experts live one-per-device on the model axis",
+              file=sys.stderr)
         return 2
     if args.text:
         try:
@@ -169,15 +178,36 @@ def cmd_train(args) -> int:
             return 2
         mgr = CheckpointManager(args.checkpoint_dir,
                                 save_every=args.save_every)
+    # a mesh whenever a mesh feature is asked for: dp = cards // tp, as the
+    # reference (--device D: every rank on D, dp = 1)
+    mesh, dp = None, 1
+    if tp > 1 or args.fsdp or cfg.n_experts:
+        if args.device:
+            devices = [args.device] * tp
+        else:
+            have = torch.cuda.device_count() if (
+                torch.cuda.is_available()) else 0
+            dp, devices = max(1, have // tp), None
+        try:
+            mesh = dp_mp_mesh(dp, tp, devices)
+        except ValueError as e:
+            print(f"--tp {tp}: {e}", file=sys.stderr)
+            return 2
     step, init_state, shard_tokens = transformer_train_step(
-        None, cfg, optimizer=lm_optimizer(total_steps=args.steps),
-        device=args.device,
+        mesh, cfg, optimizer=lm_optimizer(total_steps=args.steps),
+        fsdp=args.fsdp, device=args.device,
     )
     params, opt_state = init_state(0)
+    if mesh is not None:
+        print(f"training on a (data, model) = ({dp}, {tp}) mesh"
+              f"{' with fsdp' if args.fsdp else ''}"
+              f"{f', {cfg.n_experts} experts' if cfg.n_experts else ''}",
+              flush=True)
+    batch = max(dp, args.batch - args.batch % dp)
     rng = np.random.default_rng(0)
     loss = None
     for i in range(args.steps):
-        starts = rng.integers(0, len(arr) - args.seq_len - 1, args.batch)
+        starts = rng.integers(0, len(arr) - args.seq_len - 1, batch)
         toks = np.stack([arr[s:s + args.seq_len + 1] for s in starts])
         params, opt_state, step_loss = step(params, opt_state,
                                             shard_tokens(toks))
@@ -199,6 +229,7 @@ def cmd_train(args) -> int:
 
     if cfg.max_len >= 32:
         gen = transformer_generate(cfg)
+        params = gather_transformer_params(params)
         dev = params["embed"].device
         out = gen(params, torch.from_numpy(arr[None, :16]).to(dev),
                   min(cfg.max_len - 16, 48), temperature=0.8, top_k=40,
@@ -730,14 +761,15 @@ def _add_model_flags(ap) -> None:
     ap.add_argument("--n-layers", type=int, default=2)
     ap.add_argument("--n-heads", type=int, default=4)
     ap.add_argument("--n-experts", type=int, default=0,
-                    help="MoE experts (a later slice: > 0 raises)")
+                    help="MoE experts (dense decode over every expert)")
     ap.add_argument("--bf16", action="store_true")
 
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="deeplearning4j_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
-    t = sub.add_parser("train", help="train the transformer LM (one device)")
+    t = sub.add_parser("train", help="train the transformer LM (one device "
+                       "or a (data, model) mesh)")
     t.add_argument("--model", default="lenet",
                    choices=["lenet", "alexnet", "transformer"],
                    help="only transformer in this slice")
@@ -762,11 +794,13 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--bf16", action="store_true",
                    help="bfloat16 compute (f32 params)")
     t.add_argument("--n-experts", type=int, default=0,
-                   help="MoE experts (a later slice: > 0 exits 2)")
+                   help="MoE experts, one a model rank (must equal --tp)")
     t.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel training ways (a later slice: > 1 "
-                   "exits 2; serve --tp serves tensor-parallel)")
-    t.add_argument("--fsdp", action="store_true", help="(a later slice)")
+                   help="model-axis ways of the (data, model) training "
+                   "mesh; dp = visible cards // tp (1 with --device)")
+    t.add_argument("--fsdp", action="store_true",
+                   help="also split params and optimizer state over the "
+                   "data axis (ZeRO-3)")
     t.add_argument("--checkpoint-dir", default=None,
                    help="save npz checkpoints here (ckpt_<step>.npz, the "
                    "newest 3 kept)")

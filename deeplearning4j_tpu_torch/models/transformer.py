@@ -1,7 +1,7 @@
 """Decoder-only transformer LM — the port of
 ``deeplearning4j_tpu/models/transformer.py``: training (forward, loss,
-optimizer, single-device train step) and serving (KV-cached decode and
-generate).
+optimizer, the train step on one device or a (data, model) mesh) and
+serving (KV-cached decode and generate).
 
 Layouts are the reference's, so the tests compare like with like:
 
@@ -89,9 +89,32 @@ single-device order, then added shard-local: a small-K batched product
 may pick its kernel by its output width (MKL does), so per-shard B
 products would not be exact.
 
-Not in these slices: MoE (``n_experts``) and sequence parallelism raise
-``NotImplementedError``; training on a mesh (tensor parallelism, FSDP)
-comes with the ``torch.distributed`` slice.
+MoE (``n_experts > 0``): the blocks' dense MLP becomes a routed expert
+FFN, params ``blocks["moe"]`` with the reference's ``MoEParams`` fields
+(``wg (nl, D, E)``, ``w1 (nl, E, D, F)``, ``b1``, ``w2``, ``b2``) as a
+dict. Every decode program (decode step, prefill, chunk: generate, beam,
+speculative, the engine, the paged path) runs ``moe_reference`` with gelu,
+dense over every expert (``parallel/expert_parallel``); training runs the
+capacity-bucketed ``moe_ffn`` on a mesh, experts one a model rank, as the
+reference requires.
+
+Training on a (data, model) mesh (the reference's mesh branches,
+transformer.py:726-934, 2074-2201), on one controller
+(``parallel/mesh.DeviceMesh``): :func:`transformer_shardings` is the
+Megatron layout (q/qkv column-parallel on heads, wo and w2 row-parallel,
+w1/b1 on d_ff, embed/pos on d_model, head on vocab, experts on the model
+axis) and :func:`fsdp_shardings` adds a data-axis split (ZeRO-3);
+:func:`place_transformer_params` lays a tree out as
+``parallel/mesh.MeshTensor`` leaves and :func:`gather_transformer_params`
+makes it whole. The batch (or, with ``sequence_parallel``, the sequence)
+is split over the data axis; each data row runs the block with its
+replicated activations on the row's first rank and each model rank
+projecting, attending (the flash kernels over its own heads) and
+multiplying over its own columns; row-parallel products sum their
+partials in rank order. A leaf split over the data axis is gathered at
+use, and autograd hands each part its gradient; a leaf used by several
+ranks sums their gradients. Sequence parallelism attends through the
+data ring (``parallel/sequence_parallel``).
 """
 
 from __future__ import annotations
@@ -126,7 +149,21 @@ from deeplearning4j_tpu_torch.ops.flash_decode import (
     flash_decode_attention,
     flash_decode_attention_paged,
 )
-from deeplearning4j_tpu_torch.parallel.mesh import Mesh, Shards, smap
+from deeplearning4j_tpu_torch.parallel import mesh as mesh_lib
+from deeplearning4j_tpu_torch.parallel.expert_parallel import (
+    MoEParams,
+    gelu,
+    moe_ffn_shard,
+    moe_reference,
+)
+from deeplearning4j_tpu_torch.parallel.mesh import (
+    DeviceMesh,
+    Mesh,
+    MeshTensor,
+    Shards,
+    smap,
+)
+from deeplearning4j_tpu_torch.parallel.sequence_parallel import ring_blocks
 
 _DTYPE_NAMES = {
     "float32": torch.float32,
@@ -206,32 +243,33 @@ class TransformerConfig:
         return cls(**d)
 
 
-def check_supported(cfg: TransformerConfig) -> None:
-    """Raise for configurations a later slice of the port covers."""
-    if cfg.n_experts:
-        raise NotImplementedError(
-            "MoE (n_experts > 0) comes with a later slice of the port"
-        )
-
-
-def _block_shapes(cfg: TransformerConfig) -> dict[str, tuple[int, ...]]:
+def _block_shapes(cfg: TransformerConfig) -> dict:
+    """The block leaves' shapes; MoE configs nest the expert FFN under
+    ``moe`` (the reference's ``MoEParams`` fields)."""
     d, h, k, f, nl = (cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff,
                       cfg.n_layers)
     if cfg.kv_heads == h:
         attn = {"wqkv": (nl, d, 3, h, k)}
     else:
         attn = {"wq": (nl, d, h, k), "wkv": (nl, d, 2, cfg.kv_heads, k)}
+    if cfg.n_experts:
+        e = cfg.n_experts
+        ffn = {"moe": {"wg": (nl, d, e), "w1": (nl, e, d, f),
+                       "b1": (nl, e, f), "w2": (nl, e, f, d),
+                       "b2": (nl, e, d)}}
+    else:
+        ffn = {"w1": (nl, d, f), "b1": (nl, f), "w2": (nl, f, d),
+               "b2": (nl, d)}
     return {
         "ln1_scale": (nl, d), "ln1_bias": (nl, d), **attn,
         "wo": (nl, h, k, d), "ln2_scale": (nl, d), "ln2_bias": (nl, d),
-        "w1": (nl, d, f), "b1": (nl, f), "w2": (nl, f, d), "b2": (nl, d),
+        **ffn,
     }
 
 
 def param_shapes(cfg: TransformerConfig) -> dict:
     """The float params tree of ``cfg`` with a shape tuple at every leaf:
     a restore template that allocates nothing."""
-    check_supported(cfg)
     d, v = cfg.d_model, cfg.vocab_size
     return {"embed": (v, d), "pos": (cfg.max_len, d),
             "blocks": _block_shapes(cfg), "lnf_scale": (d,),
@@ -243,7 +281,6 @@ def init_params(cfg: TransformerConfig, seed: int = 0, device=None):
     unit norm scales, zero biases), drawn from a numpy RNG so no JAX is
     needed. The draws differ from ``init_transformer``'s: hold weights
     across the frameworks with :func:`params_from_jax` instead."""
-    check_supported(cfg)
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     d, f = cfg.d_model, cfg.d_ff
@@ -253,14 +290,15 @@ def init_params(cfg: TransformerConfig, seed: int = 0, device=None):
         x = rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)
         return torch.from_numpy(x).to(dev)
 
-    blocks = {}
-    for name, shape in _block_shapes(cfg).items():
+    def block_leaf(name, shape):
         if name.endswith("_scale"):
-            blocks[name] = torch.ones(shape, device=dev)
-        elif name.endswith("_bias") or name in ("b1", "b2"):
-            blocks[name] = torch.zeros(shape, device=dev)
-        else:
-            blocks[name] = normal(shape, s_f if name == "w2" else s_d)
+            return torch.ones(shape, device=dev)
+        if name.endswith("_bias") or name in ("b1", "b2"):
+            return torch.zeros(shape, device=dev)
+        return normal(shape, s_f if name == "w2" else s_d)
+
+    blocks = _tree((path, block_leaf(path[-1], shape))
+                   for path, shape in _leaves(_block_shapes(cfg)))
     return {
         "embed": normal((cfg.vocab_size, d), 0.02),
         "pos": normal((cfg.max_len, d), 0.02),
@@ -322,9 +360,9 @@ def params_from_jax(np_tree, cfg: TransformerConfig, device=None):
     arrays (e.g. ``jax.tree.map(np.asarray, params)``), as the port's
     tensors on ``device``. Shapes are checked against ``cfg``. A quantized
     tree (:func:`quantize_decode_params`) keeps its int8 leaves and their
-    f32 ``*_scale`` siblings; MoE leaves raise ``NotImplementedError`` (a
-    later slice)."""
-    check_supported(cfg)
+    f32 ``*_scale`` siblings. The MoE leaves ``blocks["moe"]`` come as the
+    reference's ``MoEParams`` (``jax.tree.map(np.asarray, ...)`` keeps the
+    NamedTuple) or a dict, read by field name."""
     dev = resolve_device(device)
 
     def conv(name, x, shape):
@@ -343,11 +381,18 @@ def params_from_jax(np_tree, cfg: TransformerConfig, device=None):
             out[sname] = conv(sname, tree[sname], _scale_shape(shape, axes))
         return out
 
-    blocks_in = np_tree["blocks"]
-    if "moe" in blocks_in:
-        raise NotImplementedError("MoE params come with a later slice")
+    blocks_in = dict(np_tree["blocks"])
     blocks = {}
     for name, shape in _block_shapes(cfg).items():
+        if name == "moe":
+            if name not in blocks_in:
+                raise ValueError("missing block params ['moe']")
+            moe = blocks_in["moe"]
+            if not isinstance(moe, dict):  # the reference's MoEParams
+                moe = {f: getattr(moe, f) for f in MoEParams._fields}
+            blocks["moe"] = {f: conv(f"moe.{f}", moe[f], shape[f])
+                             for f in MoEParams._fields}
+            continue
         blocks.update(quantizable(blocks_in, name, shape,
                                   _INT8_BLOCK_AXES.get(name, ())))
     extra = set(blocks_in) - set(blocks)
@@ -744,6 +789,21 @@ def _mlp(p, h_in, lora=None, i: int = 0, tp_mesh: Mesh | None = None):
     return h @ _w(p, "w2", dt) + p["b2"].to(dt)
 
 
+def _ffn(cfg: TransformerConfig, p, h_in, lora=None, i: int = 0,
+         tp_mesh: Mesh | None = None):
+    """The block's FFN in the decode programs: :func:`_mlp`, or for an
+    MoE config ``moe_reference`` with gelu over the flattened rows, the
+    expert weights at the activations' dtype (the reference's decode
+    MoE, transformer.py:1079, :1322, :1754). The batched-LoRA bank and
+    exact TP refuse MoE configs, so neither reaches the MoE branch."""
+    if not cfg.n_experts:
+        return _mlp(p, h_in, lora, i, tp_mesh)
+    moe = MoEParams(**{k: v.to(h_in.dtype) for k, v in p["moe"].items()})
+    flat = h_in.reshape(-1, h_in.shape[-1])
+    return moe_reference(moe, flat, k=cfg.moe_k,
+                         activation=gelu).reshape(h_in.shape)
+
+
 def _head_logits(x, head):
     """Head matmul with f32 accumulation over the (bf16) operands: the
     operands are upcast for this one product so the logits keep f32
@@ -810,8 +870,11 @@ def _last_row_logits(cfg: TransformerConfig, params, x, last_idx,
 
 
 def _layer(params, i: int):
-    return {name: Shards(x[i] for x in a) if isinstance(a, Shards) else a[i]
-            for name, a in params["blocks"].items()}
+    def at(a):
+        if isinstance(a, dict):  # the MoE leaves
+            return {k: at(v) for k, v in a.items()}
+        return Shards(x[i] for x in a) if isinstance(a, Shards) else a[i]
+    return {name: at(a) for name, a in params["blocks"].items()}
 
 
 def _pos_rows(params, positions, max_len: int):
@@ -834,20 +897,15 @@ def _write_rows(positions, kv_all):
 # -- training ------------------------------------------------------------------
 
 def _check_trainable(cfg: TransformerConfig, mesh) -> None:
-    """Raise for what the single-device training path does not cover."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "training on a mesh (data/tensor parallelism, FSDP) comes with "
-            "the torch.distributed slice of the port; pass mesh=None"
-        )
-    if cfg.n_experts:
-        raise NotImplementedError(
-            "MoE (n_experts > 0) comes with a later slice of the port"
-        )
-    if cfg.sequence_parallel:
-        raise NotImplementedError(
-            "sequence parallelism (ring attention) comes with the "
-            "torch.distributed slice of the port"
+    """Raise for a configuration the training path refuses, with the
+    reference's wording (transformer.py:740-769)."""
+    if (cfg.n_experts or cfg.sequence_parallel) and mesh is None:
+        raise ValueError("MoE / sequence-parallel modes need a mesh")
+    if cfg.use_flash and cfg.sequence_parallel:
+        raise ValueError(
+            "use_flash and sequence_parallel are mutually exclusive: the "
+            "sequence-parallel path attends via the ring, not the local "
+            "flash kernel"
         )
     if cfg.rope and cfg.head_dim % 2:
         raise ValueError(
@@ -859,12 +917,26 @@ def _check_trainable(cfg: TransformerConfig, mesh) -> None:
             f"unknown remat_policy {cfg.remat_policy!r} "
             "(expected 'dots_no_batch' or 'full')"
         )
+    if cfg.n_experts and cfg.n_experts != mesh.axis_size(_MODEL):
+        raise ValueError(
+            f"n_experts ({cfg.n_experts}) must equal the mesh's model "
+            f"axis size ({mesh.axis_size(_MODEL)})"
+        )
+
+
+def _check_flash_seq(t: int) -> None:
+    if not _flash_seq_ok(t):
+        raise ValueError(
+            f"use_flash needs a seq len that is a multiple of 8 and "
+            f"either <= 128 or a multiple of 128, got {t}"
+        )
 
 
 def _train_block(cfg: TransformerConfig, x, p):
-    """One block over the whole sequence (x: (B, T, D)), attention in the
-    (B, H, T, K) layout: the reference's ``block`` (transformer.py:776)
-    without its MoE and sequence-parallel branches."""
+    """One block over the whole sequence (x: (B, T, D)) on one device,
+    attention in the (B, H, T, K) layout: the reference's ``block``
+    (transformer.py:776) without its MoE and sequence-parallel branches,
+    which need a mesh (:func:`_mesh_block`)."""
     h_in = _layer_norm(x, p["ln1_scale"], p["ln1_bias"])
     q, k_r, v_r = _project_qkv(cfg, p, h_in)
     b, h, t, kd = q.shape
@@ -875,11 +947,7 @@ def _train_block(cfg: TransformerConfig, x, p):
         k_r = _apply_rope(k_r, cos, sin)
     k_h, v_h = _expand_kv(cfg, k_r, v_r)
     if cfg.use_flash:
-        if not _flash_seq_ok(t):
-            raise ValueError(
-                f"use_flash needs a seq len that is a multiple of 8 and "
-                f"either <= 128 or a multiple of 128, got {t}"
-            )
+        _check_flash_seq(t)
         o = flash_attention_trainable(q, k_h, v_h, causal=True,
                                       layout="bhtd")
     else:
@@ -924,14 +992,345 @@ def _block_body(cfg: TransformerConfig):
                                    context_fn=context)
 
 
-def transformer_apply(cfg: TransformerConfig, mesh=None,
+# -- training on a (data, model) mesh ------------------------------------------
+#
+# A layout is a tree of the params' shape whose leaves are spec tuples, one
+# entry a dim: the mesh axis the dim is split over, or None (the reference's
+# PartitionSpecs, padded to the leaf's rank).
+
+_DATA, _MODEL = mesh_lib.DATA_AXIS, mesh_lib.MODEL_AXIS
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def transformer_shardings(mesh: DeviceMesh, cfg: TransformerConfig):
+    """The Megatron training layout over the mesh's model axis (the
+    reference's ``transformer_shardings``, transformer.py:261): wqkv and
+    wq column-parallel on heads, wkv on its head dim when kv_heads divides
+    the axis (else whole on every rank), wo and w2 row-parallel, w1 and b1
+    on d_ff, embed and pos on d_model, the head on the vocab, the experts
+    one a rank with the router whole. Raises ``ValueError`` unless the
+    axis divides n_heads."""
+    tp = mesh.axis_size(_MODEL)
+    if cfg.n_heads % tp:
+        raise ValueError(f"n_heads ({cfg.n_heads}) must be divisible by "
+                         f"the mesh's model axis ({tp})")
+    split = {
+        ("embed",): 1, ("pos",): 1, ("head",): 1,
+        ("blocks", "wqkv"): 3, ("blocks", "wq"): 2,
+        ("blocks", "wkv"): 3 if cfg.kv_heads % tp == 0 else None,
+        ("blocks", "wo"): 1, ("blocks", "w1"): 2, ("blocks", "b1"): 1,
+        ("blocks", "w2"): 1,
+        **{("blocks", "moe", f): 1 for f in ("w1", "b1", "w2", "b2")},
+    }
+    return _tree((path, tuple(_MODEL if i == split.get(path) else None
+                              for i in range(len(shape))))
+                 for path, shape in _leaves(param_shapes(cfg)))
+
+
+def fsdp_shardings(mesh: DeviceMesh, cfg: TransformerConfig):
+    """:func:`transformer_shardings` with each leaf also split over the
+    data axis on its first dim that the axis divides and the model axis
+    leaves whole (ZeRO-3; the reference's ``fsdp_shardings``,
+    transformer.py:2074). A leaf of fewer than ``2 * dp`` elements stays
+    whole."""
+    dp = mesh.axis_size(_DATA)
+    base = transformer_shardings(mesh, cfg)
+
+    def augment(spec, shape):
+        if math.prod(shape) < 2 * dp:
+            return spec
+        for i, (n, s) in enumerate(zip(shape, spec)):
+            if s is None and n % dp == 0 and n >= dp:
+                return spec[:i] + (_DATA,) + spec[i + 1:]
+        return spec
+
+    return _tree((path, augment(_at(base, path), shape))
+                 for path, shape in _leaves(param_shapes(cfg)))
+
+
+def place_transformer_params(mesh: DeviceMesh, params,
+                             cfg: TransformerConfig, fsdp: bool = False):
+    """A params tree laid out on ``mesh`` by :func:`transformer_shardings`
+    (or :func:`fsdp_shardings`): every leaf a
+    :class:`~..parallel.mesh.MeshTensor` whose parts are independent
+    copies on their ranks' devices (a laid-out leaf is gathered whole
+    first)."""
+    specs = (fsdp_shardings if fsdp else transformer_shardings)(mesh, cfg)
+
+    def put(path, leaf):
+        if isinstance(leaf, MeshTensor):
+            leaf = leaf.whole()
+        mt = mesh_lib.place(mesh, leaf.detach(), _at(specs, path))
+        return mt.like(p.clone(memory_format=torch.contiguous_format)
+                       for p in mt.flat())
+
+    return _tree((path, put(path, leaf)) for path, leaf in _leaves(params))
+
+
+def gather_transformer_params(params, device=None):
+    """A laid-out tree whole again: each :class:`MeshTensor` leaf gathered
+    on ``device`` (its mesh's first device by default), detached; any
+    other leaf as it is."""
+    return _tree((path, leaf.whole(device).detach()
+                  if isinstance(leaf, MeshTensor) else leaf)
+                 for path, leaf in _leaves(params))
+
+
+def layout_bytes(tree) -> dict[tuple[int, int], int]:
+    """Bytes rank ``(d, m)`` holds of a laid-out tree (params or an
+    optimizer moment): its part of a split leaf, the whole of a leaf the
+    layout keeps whole on it."""
+    out: dict[tuple[int, int], int] = {}
+    for _, leaf in _leaves(tree):
+        mesh = leaf.mesh
+        dp, tp = mesh.axis_size(_DATA), mesh.axis_size(_MODEL)
+        ds = leaf.dim_of(_DATA) is not None
+        ms = leaf.dim_of(_MODEL) is not None
+        for d in range(dp):
+            for m in range(tp):
+                p = leaf.parts[d if ds else 0][m if ms else 0]
+                out[d, m] = out.get((d, m), 0) + p.numel() * p.element_size()
+    return out
+
+
+def _held(mt: MeshTensor):
+    """A leaf as ``(rows, data_dim, model_split)``: its parts
+    ``rows[data part][model part]``, the dim its data parts concatenate on
+    (None: one row) and whether the model axis splits it."""
+    return mt.parts, mt.dim_of(_DATA), mt.dim_of(_MODEL) is not None
+
+
+def _layer_leaves(mt: MeshTensor, n_layers: int) -> list:
+    """Per layer, the :func:`_held` form of a block leaf's layer slice: a
+    leaf split over the data axis on its layer dim leaves each layer to
+    one data part (whole there: no gather at use)."""
+    rows, dd, msplit = _held(mt)
+    unb = [[p.unbind(0) for p in row] for row in rows]
+    if dd == 0:
+        per = rows[0][0].shape[0]
+        return [([[u[i % per] for u in unb[i // per]]], None, msplit)
+                for i in range(n_layers)]
+    dd = None if dd is None else dd - 1
+    return [([[u[i] for u in row] for row in unb], dd, msplit)
+            for i in range(n_layers)]
+
+
+def _local(leaf, m: int, dev):
+    """Model rank ``m``'s part of a :func:`_held` leaf, gathered over the
+    data axis (an exact concatenation) on ``dev``."""
+    rows, dd, msplit = leaf
+    j = m if msplit else 0
+    if dd is None:
+        return rows[0][j].to(dev)
+    return torch.cat([row[j].to(dev) for row in rows], dim=dd)
+
+
+def _mesh_block(cfg: TransformerConfig, mesh: DeviceMesh, xs, lp,
+                positions):
+    """One block over every data row of the mesh. ``xs[d]`` is row d's
+    (b, t, D) residual stream on its first rank's device, ``lp`` the
+    layer's :func:`_held` leaves, ``positions[d]`` the row's global
+    positions (t,). Each model rank projects and attends over its own
+    heads (the flash kernels over its (b, H/tp, t, K), the ring over the
+    data axis under sequence parallelism, dense otherwise) and multiplies
+    over its own d_ff columns or expert; the row-parallel products' partial
+    sums are added in rank order on the row's device. Returns ``(xs,
+    auxes)``: the MoE aux loss of each row (empty for the dense MLP)."""
+    tp = mesh.axis_size(_MODEL)
+    hs = cfg.n_heads // tp
+    dt = xs[0].dtype
+    attn_names = [n for n in ("wqkv", "wq", "wkv") if n in lp]
+    rows = [mesh.model_row(d).devices for d in range(len(xs))]
+    heads = {}
+    for d, x in enumerate(xs):
+        dev0 = x.device
+        h_in = _layer_norm(x, _local(lp["ln1_scale"], 0, dev0),
+                           _local(lp["ln1_bias"], 0, dev0))
+        for m, dev in enumerate(rows[d]):
+            p_m = {n: _local(lp[n], m, dev) for n in attn_names}
+            q, k_r, v_r = _project_qkv(cfg, p_m, h_in.to(dev))
+            if cfg.rope:
+                cos, sin = _rope_tables(positions[d].to(dev), cfg.head_dim,
+                                        q.dtype, dev)
+                q = _apply_rope(q, cos, sin)
+                k_r = _apply_rope(k_r, cos, sin)
+            k_h, v_h = _expand_kv(cfg, k_r, v_r)
+            if k_h.shape[1] != q.shape[1]:
+                # a whole wkv projects every KV head: keep rank m's
+                k_h = k_h[:, m * hs:(m + 1) * hs]
+                v_h = v_h[:, m * hs:(m + 1) * hs]
+            heads[d, m] = (q, k_h, v_h)
+    outs = {}
+    if cfg.sequence_parallel:
+        for m in range(tp):
+            qkv = [[heads[d, m][j].transpose(1, 2) for d in range(len(xs))]
+                   for j in range(3)]
+            for d, o in enumerate(ring_blocks(*qkv, causal=True)):
+                outs[d, m] = o.transpose(1, 2)
+    else:
+        for (d, m), (q, k_h, v_h) in heads.items():
+            if cfg.use_flash:
+                _check_flash_seq(q.shape[2])
+                outs[d, m] = flash_attention_trainable(
+                    q, k_h, v_h, causal=True, layout="bhtd")
+            else:
+                outs[d, m] = attention(q, k_h, v_h, causal=True,
+                                       layout="bhtd")
+    new_xs, auxes = [], []
+    for d, x in enumerate(xs):
+        dev0 = x.device
+        b, t, _ = x.shape
+        acc = None
+        for m, dev in enumerate(rows[d]):
+            wo = _local(lp["wo"], m, dev).to(dt)
+            part = (outs[d, m].transpose(1, 2).reshape(b, t, -1)
+                    @ wo.reshape(-1, wo.shape[-1])).to(dev0)
+            acc = part if acc is None else acc + part
+        x = x + acc
+        h_in = _layer_norm(x, _local(lp["ln2_scale"], 0, dev0),
+                           _local(lp["ln2_bias"], 0, dev0))
+        devs = rows[d]
+        if cfg.n_experts:
+            moe = lp["moe"]
+            experts = [tuple(_local(moe[f], m, dev)[0].to(dt)
+                             for f in ("w1", "b1", "w2", "b2"))
+                       for m, dev in enumerate(devs)]
+            y, aux = moe_ffn_shard(
+                h_in, _local(moe["wg"], 0, dev0).to(dt), experts, devs,
+                k=cfg.moe_k, capacity_factor=cfg.moe_capacity_factor,
+                activation=gelu)
+            auxes.append(aux)
+        else:
+            y = None
+            for m, dev in enumerate(devs):
+                hid = gelu(h_in.to(dev) @ _local(lp["w1"], m, dev).to(dt)
+                           + _local(lp["b1"], m, dev).to(dt))
+                part = (hid @ _local(lp["w2"], m, dev).to(dt)).to(dev0)
+                y = part if y is None else y + part
+            y = y + _local(lp["b2"], 0, dev0).to(dt)
+        new_xs.append(x + y)
+    return new_xs, auxes
+
+
+def _mesh_body(cfg: TransformerConfig, mesh: DeviceMesh):
+    """:func:`_mesh_block`, under ``torch.utils.checkpoint`` when
+    ``cfg.remat`` (as :func:`_block_body`)."""
+    block = functools.partial(_mesh_block, cfg, mesh)
+    if not cfg.remat:
+        return block
+    if cfg.remat_policy == "full":
+        return lambda *a: checkpoint(block, *a, use_reentrant=False)
+    context = functools.partial(create_selective_checkpoint_contexts,
+                                _dots_no_batch_policy)
+    return lambda *a: checkpoint(block, *a, use_reentrant=False,
+                                 context_fn=context)
+
+
+def _token_dim(cfg: TransformerConfig) -> int:
+    """The tokens' dim split over the data axis: the sequence under
+    sequence parallelism, else the batch."""
+    return 1 if cfg.sequence_parallel else 0
+
+
+def _token_rows(cfg: TransformerConfig, mesh: DeviceMesh, tokens):
+    """Each data row's tokens on its first rank's device: the parts of a
+    ``shard_tokens`` MeshTensor, or a whole (B, T) array split."""
+    if isinstance(tokens, MeshTensor):
+        return [row[0] for row in tokens.parts]
+    tokens = torch.as_tensor(tokens)
+    dp = mesh.axis_size(_DATA)
+    return [part.to(device=mesh.device(d, 0), dtype=torch.long)
+            for d, part in enumerate(torch.tensor_split(
+                tokens, dp, dim=_token_dim(cfg)))]
+
+
+def _laid_out(mesh: DeviceMesh, params, cfg: TransformerConfig):
+    """``params`` as the mesh programs read them: a laid-out tree as it
+    is, a whole one split by :func:`transformer_shardings` (views, so
+    gradients reach the whole leaves)."""
+    leaves = list(_leaves(params))
+    if all(isinstance(leaf, MeshTensor) for _, leaf in leaves):
+        return params
+    specs = transformer_shardings(mesh, cfg)
+    return _tree((path, mesh_lib.place(mesh, leaf, _at(specs, path)))
+                 for path, leaf in leaves)
+
+
+def _mesh_forward(cfg: TransformerConfig, mesh: DeviceMesh,
+                  upcast_logits: bool):
+    """``run(params, rows) -> (logits rows, aux)``: the transformer over
+    the mesh, ``rows[d]`` data row d's tokens, its logits (b, t, V) on
+    the row's first device; ``aux`` the MoE loss, summed over layers of
+    the mean over the data rows (0 without experts)."""
+    body = _mesh_body(cfg, mesh)
+
+    def run(params, rows):
+        params = _laid_out(mesh, params, cfg)
+        embed, pos = _held(params["embed"]), _held(params["pos"])
+        xs, positions = [], []
+        for d, tok in enumerate(rows):
+            devs = mesh.model_row(d).devices
+            dev0 = devs[0]
+            t = tok.shape[1]
+            off = d * t if cfg.sequence_parallel else 0
+            emb = _cat([F.embedding(tok.to(dv), _local(embed, m, dv)).to(
+                dev0) for m, dv in enumerate(devs)], -1)
+            prow = _cat([_local(pos, m, dv)[off:off + t].to(dev0)
+                         for m, dv in enumerate(devs)], -1)
+            xs.append((emb + prow).to(cfg.compute_dtype))
+            positions.append(off + torch.arange(t, device=dev0))
+        layers = [(path, _layer_leaves(mt, cfg.n_layers))
+                  for path, mt in _leaves(params["blocks"])]
+        aux = torch.zeros((), device=mesh.devices[0])
+        for i in range(cfg.n_layers):
+            xs, auxes = body(xs, _tree((path, ls[i]) for path, ls in layers),
+                             positions)
+            if auxes:
+                aux = aux + torch.stack([a.to(aux.device) for a in auxes]
+                                        ).mean().float()
+        head, lnf_s, lnf_b = (_held(params[n]) for n in
+                              ("head", "lnf_scale", "lnf_bias"))
+        logits = []
+        for d, x in enumerate(xs):
+            dev0 = x.device
+            x = _layer_norm(x, _local(lnf_s, 0, dev0), _local(lnf_b, 0, dev0))
+            lg = _cat([(x.to(dv) @ _local(head, m, dv).to(x.dtype)).to(dev0)
+                       for m, dv in enumerate(mesh.model_row(d).devices)],
+                      -1)
+            logits.append(lg.float() if upcast_logits else lg)
+        return logits, aux
+
+    return run
+
+
+def transformer_apply(cfg: TransformerConfig, mesh: DeviceMesh | None = None,
                       upcast_logits: bool = True):
     """Build ``apply(params, tokens) -> (logits (B, T, V), aux_loss)``,
-    causal: the reference's ``transformer_apply`` (transformer.py:726) on
-    one device. ``upcast_logits=False`` keeps the logits in the compute
+    causal: the reference's ``transformer_apply`` (transformer.py:726).
+    Without a mesh it runs on one device (MoE and sequence parallelism
+    need a mesh, as in the reference). On a ``(data, model)`` mesh the
+    params are a laid-out tree (:func:`place_transformer_params`; a whole
+    tree is split on the fly) and the tokens a whole (B, T) array or
+    ``shard_tokens``' parts; the logits come back whole on the mesh's
+    first device. ``upcast_logits=False`` keeps the logits in the compute
     dtype, for the fused CE. ``scan_layers`` is accepted and changes
     nothing: a Python loop over the layers is the only form here."""
     _check_trainable(cfg, mesh)
+    if mesh is not None:
+        run = _mesh_forward(cfg, mesh, upcast_logits)
+
+        def mesh_apply(params, tokens):
+            logits, aux = run(params, _token_rows(cfg, mesh, tokens))
+            dev = mesh.devices[0]
+            return torch.cat([lg.to(dev) for lg in logits],
+                             dim=_token_dim(cfg)), aux
+
+        return mesh_apply
     body = _block_body(cfg)
 
     def apply(params, tokens):
@@ -949,16 +1348,64 @@ def transformer_apply(cfg: TransformerConfig, mesh=None,
         logits = x @ params["head"].to(x.dtype)
         if upcast_logits:
             logits = logits.float()
-        # dense blocks only (MoE raises), so the aux loss is zero
+        # dense blocks only (MoE needs a mesh), so the aux loss is zero
         return logits, torch.zeros((), device=x.device)
 
     return apply
 
 
-def transformer_loss(cfg: TransformerConfig, mesh=None):
-    """Next-token cross-entropy: ``loss(params, tokens)`` with tokens
-    (B, T+1), through the fused CE on compute-dtype logits (the reference's
-    non-sequence-parallel branch, transformer.py:926)."""
+def _mesh_loss(cfg: TransformerConfig, mesh: DeviceMesh):
+    """The loss on a mesh: each data row's CE summed on its device, the
+    rows' sums added in rank order and divided by the token count.
+    Sequence parallelism keeps the model's T equal to the (divisible)
+    input length: targets are the tokens rolled by one and the last
+    position is masked (the reference's branch, transformer.py:913)."""
+    run = _mesh_forward(cfg, mesh, upcast_logits=False)
+    dp = mesh.axis_size(_DATA)
+
+    def loss(params, tokens):
+        dev = mesh.devices[0]
+        if cfg.sequence_parallel:
+            whole = (tokens.whole() if isinstance(tokens, MeshTensor)
+                     else torch.as_tensor(tokens)).long()
+            b, t = whole.shape
+            if t % dp:
+                raise ValueError(f"sequence parallelism needs the sequence "
+                                 f"({t}) divisible by the data axis ({dp})")
+            rows = _token_rows(cfg, mesh, whole)
+            targets = _token_rows(cfg, mesh, torch.roll(whole, -1, dims=1))
+            logits, aux = run(params, rows)
+            total = None
+            for d, (lg, tg) in enumerate(zip(logits, targets)):
+                tl = tg.shape[1]
+                ce_tok = cross_entropy_with_integer_labels(lg, tg)
+                mask = (d * tl + torch.arange(tl, device=lg.device)
+                        < t - 1).to(ce_tok.dtype)[None]
+                s = (ce_tok * mask).sum().to(dev)
+                total = s if total is None else total + s
+            ce = total / ((t - 1) * b)
+        else:
+            rows = _token_rows(cfg, mesh, tokens)
+            logits, aux = run(params, [r[:, :-1] for r in rows])
+            total, n = None, 0
+            for lg, r in zip(logits, rows):
+                s = cross_entropy_with_integer_labels(lg, r[:, 1:]).sum()
+                total = s.to(dev) if total is None else total + s.to(dev)
+                n += lg.shape[0] * lg.shape[1]
+            ce = total / n
+        return ce + cfg.aux_coef * aux
+
+    return loss
+
+
+def transformer_loss(cfg: TransformerConfig, mesh: DeviceMesh | None = None):
+    """Next-token cross-entropy plus the MoE aux term: ``loss(params,
+    tokens)`` with tokens (B, T+1) (under sequence parallelism (B, T),
+    the last position masked), through the fused CE on compute-dtype
+    logits (the reference's ``transformer_loss``, transformer.py:899)."""
+    if mesh is not None:
+        _check_trainable(cfg, mesh)
+        return _mesh_loss(cfg, mesh)
     apply = transformer_apply(cfg, mesh, upcast_logits=False)
 
     def loss(params, tokens):
@@ -989,17 +1436,35 @@ def _tree(pairs):
     return out
 
 
+def _parts(leaf) -> list[torch.Tensor]:
+    """The tensors a leaf is held in: a MeshTensor's parts, else itself."""
+    return leaf.flat() if isinstance(leaf, MeshTensor) else [leaf]
+
+
+def _map_parts(fn, tree):
+    """``tree`` with ``fn`` applied to every part of every leaf (a
+    MeshTensor keeps its layout)."""
+    return _tree((path, leaf.like(fn(p) for p in leaf.flat())
+                  if isinstance(leaf, MeshTensor) else fn(leaf))
+                 for path, leaf in _leaves(tree))
+
+
 def value_and_grad(loss_fn, params, tokens):
     """``(loss, grads)``: the loss (a 0-dim tensor, detached) and its
     gradient with respect to every leaf of ``params``, as a tree of the same
-    shape (``jax.value_and_grad`` of ``loss_fn``). Marks the leaves as
-    requiring grad."""
+    shape (``jax.value_and_grad`` of ``loss_fn``); a laid-out leaf's
+    gradient comes back in its parts. Marks the leaves as requiring
+    grad."""
     leaves = list(_leaves(params))
-    for _, p in leaves:
-        p.requires_grad_(True)
+    flat = [q for _, p in leaves for q in _parts(p)]
+    for q in flat:
+        q.requires_grad_(True)
     loss = loss_fn(params, tokens)
-    grads = torch.autograd.grad(loss, [p for _, p in leaves])
-    return loss.detach(), _tree(zip((path for path, _ in leaves), grads))
+    grads = iter(torch.autograd.grad(loss, flat))
+    return loss.detach(), _tree(
+        (path, p.like([next(grads) for _ in p.flat()])
+         if isinstance(p, MeshTensor) else next(grads))
+        for path, p in leaves)
 
 
 # param leaves exempt from AdamW weight decay (the reference's _NO_DECAY,
@@ -1067,27 +1532,33 @@ class AdamW:
     clip_norm: float | None = None
 
     def init(self, params):
-        zeros = [(path, torch.zeros_like(p)) for path, p in _leaves(params)]
-        return {"count": 0, "mu": _tree(zeros),
-                "nu": _tree((path, torch.zeros_like(z)) for path, z in zeros)}
+        """Zero moments in the params' layout (a laid-out leaf's moments
+        are laid out alike, so the state shards with the params)."""
+        return {"count": 0, "mu": _map_parts(torch.zeros_like, params),
+                "nu": _map_parts(torch.zeros_like, params)}
 
     @torch.no_grad()
     def update_(self, params, grads, state) -> None:
         """One update of ``params`` (and ``state``) in place from ``grads``,
-        a tree of the params' shape."""
+        a tree of the params' shape; elementwise over every part of a
+        laid-out leaf, the clip's global norm over all of them."""
         count = state["count"]
-        ps = [p for _, p in _leaves(params)]
-        gs = [g for _, g in _leaves(grads)]
-        mus = [m for _, m in _leaves(state["mu"])]
-        nus = [n for _, n in _leaves(state["nu"])]
-        decays = ([d for _, d in _leaves(self.mask(params))]
-                  if self.mask is not None else [True] * len(ps))
+        leaves = list(_leaves(params))
+        ps = [q for _, p in leaves for q in _parts(p)]
+        gs = [q for _, g in _leaves(grads) for q in _parts(g)]
+        mus = [q for _, m in _leaves(state["mu"]) for q in _parts(m)]
+        nus = [q for _, n in _leaves(state["nu"]) for q in _parts(n)]
+        flags = ([f for _, f in _leaves(self.mask(params))]
+                 if self.mask is not None else [True] * len(leaves))
+        decays = [f for f, (_, p) in zip(flags, leaves) for _ in _parts(p)]
         if self.clip_norm is not None:
             # optax scales by max_norm / g_norm only at g_norm >= max_norm,
             # with no epsilon (torch's clip_grad_norm_ adds 1e-6)
-            g_norm = torch.sqrt(sum(g.square().sum() for g in gs))
+            dev = gs[0].device
+            g_norm = torch.sqrt(sum(g.square().sum().to(dev) for g in gs))
             keep = g_norm < self.clip_norm
-            gs = [torch.where(keep, g, (g / g_norm) * self.clip_norm)
+            gs = [torch.where(keep.to(g.device), g,
+                              (g / g_norm.to(g.device)) * self.clip_norm)
                   for g in gs]
         lr = (self.learning_rate(count) if callable(self.learning_rate)
               else self.learning_rate)
@@ -1121,37 +1592,56 @@ def lm_optimizer(peak_lr: float = 3e-4, total_steps: int = 10_000,
                  clip_norm=clip_norm)
 
 
-def transformer_train_step(mesh, cfg: TransformerConfig, optimizer=None,
-                           fsdp: bool = False, device=None):
-    """The reference's ``transformer_train_step`` (transformer.py:2157) on
-    one device (``mesh`` must be None). Returns ``(step, init_state,
-    shard_tokens)``:
+def transformer_train_step(mesh: DeviceMesh | None, cfg: TransformerConfig,
+                           optimizer=None, fsdp: bool = False, device=None):
+    """The reference's ``transformer_train_step`` (transformer.py:2157):
+    on one device (``mesh=None``, on ``device``), or over a ``(data,
+    model)`` mesh with the params and optimizer state laid out by
+    :func:`transformer_shardings`, or by :func:`fsdp_shardings` with
+    ``fsdp``. Returns ``(step, init_state, shard_tokens)``:
 
     - ``step(params, opt_state, tokens) -> (params, opt_state, loss)``
       updates params and optimizer state in place (the reference donates
       both) and returns them with the loss as a 0-dim tensor (no host sync);
-    - ``init_state(seed=0) -> (params, opt_state)`` on the step's device;
-    - ``shard_tokens(tokens)`` puts a (B, T+1) int array on that device.
+    - ``init_state(seed=0) -> (params, opt_state)``, placed;
+    - ``shard_tokens(tokens)`` puts a (B, T+1) int array on the device, or
+      splits it over the mesh's data axis (by batch, or by sequence under
+      sequence parallelism).
 
     The default optimizer is ``AdamW(3e-4)``, as the reference defaults to
     ``optax.adamw(3e-4)``."""
-    if fsdp:
-        raise NotImplementedError(
-            "fsdp (ZeRO-3 sharding over the data axis) comes with the "
-            "torch.distributed slice of the port"
-        )
+    if fsdp and mesh is None:
+        raise ValueError("fsdp splits over a mesh's data axis: pass a mesh")
     optimizer = optimizer or AdamW(3e-4)
     loss_fn = transformer_loss(cfg, mesh)
-    dev = resolve_device(device)
+    if mesh is not None:
+        tspec = (None, _DATA) if cfg.sequence_parallel else (_DATA, None)
 
-    def init_state(seed: int = 0):
-        params = init_params(cfg, seed=seed, device=dev)
-        return params, optimizer.init(params)
+        def init_state(seed: int = 0):
+            params = place_transformer_params(
+                mesh, init_params(cfg, seed=seed, device=mesh.devices[0]),
+                cfg, fsdp)
+            return params, optimizer.init(params)
 
-    def shard_tokens(tokens):
-        return torch.as_tensor(tokens).to(device=dev, dtype=torch.long)
+        def shard_tokens(tokens):
+            whole = torch.as_tensor(tokens).to(device=mesh.devices[0],
+                                               dtype=torch.long)
+            return mesh_lib.place(mesh, whole, tspec)
+    else:
+        dev = resolve_device(device)
+
+        def init_state(seed: int = 0):
+            params = init_params(cfg, seed=seed, device=dev)
+            return params, optimizer.init(params)
+
+        def shard_tokens(tokens):
+            return torch.as_tensor(tokens).to(device=dev, dtype=torch.long)
 
     def step(params, opt_state, tokens):
+        if mesh is not None and not all(
+                isinstance(p, MeshTensor) for _, p in _leaves(params)):
+            raise TypeError("a mesh step takes params laid out on its mesh "
+                            "(init_state or place_transformer_params)")
         loss, grads = value_and_grad(loss_fn, params, tokens)
         optimizer.update_(params, grads, opt_state)
         return params, opt_state, loss
@@ -1457,7 +1947,7 @@ def _block_chunk(cfg: TransformerConfig, x, p, kv_all, i: int, pos0,
     o_flat = _tp_replicate(outs, tp_mesh)
     x = x + o_flat @ _w(p, "wo", x.dtype).reshape(cfg.n_heads * kd, -1)
     h_in = _layer_norm(x, p["ln2_scale"], p["ln2_bias"])
-    return x + _mlp(p, h_in, lora, i, tp_mesh), kv_all
+    return x + _ffn(cfg, p, h_in, lora, i, tp_mesh), kv_all
 
 
 def _chunk_builder(cfg: TransformerConfig, tp_mesh: Mesh | None = None):
@@ -1470,7 +1960,6 @@ def _chunk_builder(cfg: TransformerConfig, tp_mesh: Mesh | None = None):
     ``params["lora"]`` bank. ``tp_mesh`` builds the exact-TP program over
     params placed by :func:`place_serving_tp_params` and a sharded cache;
     its logits come back whole on the mesh's first device."""
-    check_supported(cfg)
     if tp_mesh is not None:
         serving_tp_shardings(tp_mesh, cfg)  # raises for a bad geometry
 
@@ -1509,7 +1998,6 @@ def _decode_builder(cfg: TransformerConfig, tp_mesh: Mesh | None = None):
     device. It needs the dense decode (``decode_kernel=False``, as the
     reference: its Pallas kernel cannot be partitioned), and its prefill
     attention is dense too, so no kernel runs under TP."""
-    check_supported(cfg)
     kd = cfg.head_dim
     grp = cfg.n_heads // cfg.kv_heads
     if tp_mesh is not None:
@@ -1587,7 +2075,7 @@ def _decode_builder(cfg: TransformerConfig, tp_mesh: Mesh | None = None):
         h_in = _layer_norm(x, p["ln2_scale"], p["ln2_bias"])
         if lora is not None:
             return x + _mlp(p, h_in[:, None], lora, i)[:, 0], kv_all
-        return x + _mlp(p, h_in), kv_all
+        return x + _ffn(cfg, p, h_in), kv_all
 
     def forward_one(params, caches, token, pos, adapter=None):
         """One position through all layers -> (logits (B, V) f32, caches).
@@ -1622,8 +2110,11 @@ def _decode_builder(cfg: TransformerConfig, tp_mesh: Mesh | None = None):
                 return a
             return a.to(cfg.compute_dtype)
         out = dict(params)
-        out["blocks"] = {name: smap(lambda a, n=name: cast(n, a), a)
-                         for name, a in params["blocks"].items()}
+        out["blocks"] = {
+            name: ({k: v.to(cfg.compute_dtype) for k, v in a.items()}
+                   if name == "moe" else smap(lambda a, n=name: cast(n, a),
+                                              a))
+            for name, a in params["blocks"].items()}
         out["head"] = smap(lambda a: cast("head", a), params["head"])
         if "lora" in params:
             out["lora"] = {name: smap(lambda a: a.to(cfg.compute_dtype), a)
@@ -1710,7 +2201,7 @@ def _decode_builder(cfg: TransformerConfig, tp_mesh: Mesh | None = None):
             x = x + _tp_replicate(outs, tp_mesh) @ _w(
                 p, "wo", x.dtype).reshape(cfg.n_heads * kd, -1)
             h_in = _layer_norm(x, p["ln2_scale"], p["ln2_bias"])
-            x = x + _mlp(p, h_in, lora, i, tp_mesh)
+            x = x + _ffn(cfg, p, h_in, lora, i, tp_mesh)
         return caches, _last_row_logits(
             cfg, params, x, tp - 1 if last_idx is None else last_idx,
             rowwise_head, tp_mesh)

@@ -5,7 +5,9 @@ what the other writes.
 A checkpoint is one ``np.savez`` archive: an entry per params leaf under
 its key path joined by ``//`` (``blocks//wqkv``, ``embed``, ``head``: the
 paths ``jax.tree_util.tree_flatten_with_path`` gives the reference's
-params dict), plus ``__manifest__``, a JSON string with ``format``
+params dict; the MoE leaves ``blocks//moe//.wg``, ``.w1``, ..., the keys
+the reference's ``MoEParams`` NamedTuple flattens to, whose fields print
+with a leading dot), plus ``__manifest__``, a JSON string with ``format``
 (``dl4j-tpu-ckpt-v1``), ``time``, ``treedef``, ``meta`` and the sorted
 ``keys``. The reference writes its ``PyTreeDef`` string as ``treedef``
 and never reads it back (``restore`` rebuilds the tree from ``like``);
@@ -14,7 +16,9 @@ slot. The write is atomic: a temporary file in the target directory,
 then ``os.replace``.
 
 Leaves are saved as host arrays, f32 or integer; a bf16 leaf raises
-(training params are f32). ``restore`` returns tensors on the card
+(training params are f32). A leaf laid out on a mesh
+(``parallel/mesh.MeshTensor``) is gathered whole first, as the
+reference's npz backend saves sharded params whole. ``restore`` returns tensors on the card
 unless the caller names another device.
 """
 
@@ -32,17 +36,32 @@ import torch
 
 from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.models.transformer import _leaves, _tree
+from deeplearning4j_tpu_torch.parallel.mesh import MeshTensor
 
 SEP = "//"
 FORMAT = "dl4j-tpu-ckpt-v1"
+
+#: tree nodes the reference holds as a NamedTuple: their fields' keys
+#: print as ``.name`` (``GetAttrKey``)
+_NAMEDTUPLE_NODES = frozenset({"moe"})
+
+
+def _key(path) -> str:
+    return SEP.join(f".{k}" if i and path[i - 1] in _NAMEDTUPLE_NODES
+                    else k for i, k in enumerate(path))
+
+
+def _keyed(tree) -> list[tuple[str, tuple, object]]:
+    """(key, path, leaf) triples of a nested dict, sorted by path."""
+    return [(_key(path), path, leaf)
+            for path, leaf in sorted(_leaves(tree), key=lambda kv: kv[0])]
 
 
 def flat_leaves(tree) -> list[tuple[str, object]]:
     """(key, leaf) pairs of a nested dict in the reference's flattening
     order (sorted keys at every level), each key its path joined by
     ``SEP``; any other value is a leaf."""
-    return [(SEP.join(path), leaf)
-            for path, leaf in sorted(_leaves(tree), key=lambda kv: kv[0])]
+    return [(key, leaf) for key, _, leaf in _keyed(tree)]
 
 
 def _describe(tree) -> str:
@@ -55,6 +74,8 @@ def _describe(tree) -> str:
 
 
 def _host_array(key: str, leaf) -> np.ndarray:
+    if isinstance(leaf, MeshTensor):
+        leaf = leaf.whole()
     if isinstance(leaf, torch.Tensor):
         if leaf.dtype == torch.bfloat16:
             raise TypeError(f"checkpoint leaf {key!r} is bfloat16; save the "
@@ -108,14 +129,14 @@ def restore(path: str | Path, like, device=None):
     pairs = []
     with np.load(path, allow_pickle=False) as z:
         meta = _read_manifest(z)["meta"]
-        for key, leaf in flat_leaves(like):
+        for key, path, leaf in _keyed(like):
             if key not in z.files:
                 raise KeyError(f"checkpoint missing leaf {key!r}")
             arr = z[key]
             if tuple(arr.shape) != _shape(leaf):
                 raise ValueError(f"shape mismatch for {key!r}: ckpt "
                                  f"{arr.shape} vs model {_shape(leaf)}")
-            pairs.append((key.split(SEP), torch.from_numpy(arr).to(dev)))
+            pairs.append((path, torch.from_numpy(arr).to(dev)))
     return _tree(pairs), meta
 
 

@@ -283,7 +283,6 @@ from deeplearning4j_tpu_torch.models.transformer import (
     _kv_planes,
     _stable_top_k,
     _top_k_filter,
-    check_supported,
     kv_leaves,
     kv_map,
     paged_slot_gather,
@@ -917,7 +916,6 @@ class ServingEngine:
         tp_parity: bool | str = "auto",
         tp_devices=None,
     ):
-        check_supported(cfg)
         if device is None and tp_devices is not None and int(tp) > 1:
             device = tp_devices[0]  # the mesh's first device
         self.device = resolve_device(device)

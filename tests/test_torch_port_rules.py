@@ -218,6 +218,64 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     assert toks.device.type == "cpu" and toks.shape == (1, 5)
 
 
+_IMPORT_MESH = """
+import importlib, sys
+for n in sys.argv[1:]:
+    importlib.import_module("deeplearning4j_tpu_torch." + n)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "deeplearning4j_tpu"))
+print(bad)
+assert not bad, bad
+"""
+
+
+def test_mesh_and_moe_follow_the_rules(monkeypatch, capsys):
+    """The expert-parallel, sequence-parallel and mesh modules import no
+    JAX in a fresh process; without a card, the mesh and MoE entry points
+    raise or exit unless the CPU is named; and on a mesh with ``use_flash``
+    every model rank's heads go through the flash kernel's wrapper (which
+    launches the kernel on a CUDA tensor), one call a rank and layer."""
+    from deeplearning4j_tpu_torch import cli
+    from deeplearning4j_tpu_torch.models import transformer as pt
+    from deeplearning4j_tpu_torch.parallel import expert_parallel as ep
+    from deeplearning4j_tpu_torch.parallel import mesh as mesh_lib
+
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run(
+        [sys.executable, "-c", _IMPORT_MESH, "parallel.expert_parallel",
+         "parallel.sequence_parallel", "parallel.mesh", "models.transformer"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr + out.stdout
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(ValueError, match="need 2 devices"):
+        mesh_lib.dp_mp_mesh(1, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ep.init_moe_params(0, 8, 16, 2)
+    model = ["--d-model", "16", "--n-layers", "1", "--n-heads", "2",
+             "--seq-len", "16"]
+    assert cli.main(["train", "--model", "transformer", "--tp", "2",
+                     "--steps", "1", *model]) == 2
+    assert "need 2 devices" in capsys.readouterr().err
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["serve", "--demo", "--n-experts", "2", "--port", "0",
+                  *model])
+    cfg = TransformerConfig(vocab_size=32, d_model=16, n_heads=4,
+                            n_layers=2, d_ff=32, max_len=16, use_flash=True)
+    mesh = mesh_lib.dp_mp_mesh(2, 2, ["cpu"] * 4)
+    seen = []
+    real = pt.flash_attention_trainable
+
+    def spy(q, k, v, causal, layout):
+        seen.append(tuple(q.shape))
+        return real(q, k, v, causal=causal, layout=layout)
+
+    monkeypatch.setattr(pt, "flash_attention_trainable", spy)
+    pt.transformer_loss(cfg, mesh)(pt.init_params(cfg, device="cpu"),
+                                   torch.zeros((4, 9), dtype=torch.long))
+    assert seen == [(2, 2, 8, 4)] * (2 * 2 * 2)
+
+
 def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
     """A CUDA tensor goes to the kernel wrapper, never to the plain version:
     with the wrapper's launch replaced, the dispatcher must call it (the

@@ -478,8 +478,8 @@ def test_reference_lora_bank_at_tp2_serves_the_reference_streams(jparams,
 
 def test_cli_tp_exits_2_without_the_cards(monkeypatch, capsys):
     """``serve --tp 2`` on a machine with fewer than 2 cards exits 2 with
-    the mesh's message before it builds anything; ``train --tp`` still
-    exits 2 (training beyond one card is a later slice)."""
+    the mesh's message before it builds anything; so does ``train --tp 2``
+    without ``--device`` (its (cards // 2, 2) mesh has no card)."""
     from deeplearning4j_tpu_torch import cli
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -490,9 +490,9 @@ def test_cli_tp_exits_2_without_the_cards(monkeypatch, capsys):
     assert "need 2 devices for a 'model' mesh, have 0" in (
         capsys.readouterr().err)
     assert cli.main(["train", "--model", "transformer", "--tp", "2",
-                     "--device", "cpu", "--steps", "1",
-                     *model]) == 2
-    assert "train --tp" in capsys.readouterr().err
+                     "--steps", "1", *model]) == 2
+    assert "need 2 devices for a (1, 2) mesh, have 0" in (
+        capsys.readouterr().err)
 
 
 def test_cli_serve_tp2_on_the_cpu_answers_tp1_tokens(tmp_path):

@@ -191,13 +191,17 @@ def test_three_train_steps_match_reference(which):
 def test_unported_training_modes_raise():
     cfg = pt.TransformerConfig(vocab_size=32, d_model=16, n_heads=2,
                                n_layers=1, d_ff=32, max_len=16)
+    # MoE and sequence parallelism train on a mesh only, as the
+    # reference's; fsdp splits over a mesh's data axis
     for bad in (dataclasses.replace(cfg, n_experts=2),
                 dataclasses.replace(cfg, sequence_parallel=True)):
-        with pytest.raises(NotImplementedError, match="slice"):
+        with pytest.raises(ValueError, match="need a mesh"):
             pt.transformer_apply(bad)
-    with pytest.raises(NotImplementedError, match="torch.distributed"):
-        pt.transformer_loss(cfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="torch.distributed"):
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        pt.transformer_loss(dataclasses.replace(
+            cfg, use_flash=True, sequence_parallel=True),
+            mesh=pt.mesh_lib.dp_mp_mesh(1, 1, ["cpu"]))
+    with pytest.raises(ValueError, match="pass a mesh"):
         pt.transformer_train_step(None, cfg, fsdp=True, device="cpu")
     with pytest.raises(ValueError, match="multiple of 8"):
         pt.transformer_loss(dataclasses.replace(cfg, use_flash=True))(
@@ -218,7 +222,8 @@ def test_train_cli_runs_on_cpu():
     assert "final loss" in out.stdout
 
 
-@pytest.mark.parametrize("flag", [["--tp", "2"], ["--fsdp"],
+@pytest.mark.parametrize("flag", [["--coordinator", "localhost:1"],
+                                  ["--status-port", "8081"],
                                   ["--checkpoint-dir", "ck",
                                    "--checkpoint-backend", "orbax"],
                                   ["--model", "lenet"]])
