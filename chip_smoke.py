@@ -45,7 +45,13 @@ Phases, in order; any failure exits non-zero without printing a result:
    6-row block of a BH 48 launch also bitwise a BH 6 launch of the same
    rows and #1 and #2 at phase 14's mesh ranks
    (BH 8 at T 1024, BH 16 at T 64), each rank's rows of a BH 48 launch
-   bitwise the rank's own launch;
+   bitwise the rank's own launch; and phase 15's: #1 at a mesh rank's
+   prefill (BH 8 at T 128), #1 and #2 at a training rank's (BH 8 at T
+   256), #3 at a mesh rank's decode (B 4, Hkv*K 256) and at the
+   single-device generate it is held against (B 8, Hkv*K 768), both Tpad
+   160, and the draw over 8 rows; and ``train --tp 3``'s closing sample
+   from its layout (#1 BH 2 at T 16, #3 B 1 over Hkv*K 256 at Tpad 64, 2
+   and 12 layers);
 3. serve the GPT-2-small configuration (random weights from a seed) through
    ``ServingEngine``: about eight greedy requests, some past the 128-token
    prefill bucket, with every kernel's launch count set to 0 just before and
@@ -253,6 +259,31 @@ Phases, in order; any failure exits non-zero without printing a result:
    writes a checkpoint and ``generate --checkpoint-dir`` restores it.
    Phase 2 holds #1 and #2 at the ranks' shapes, and each rank's rows of
    a whole-batch launch bitwise that rank's own launch (#1 and #2).
+15. the rest of the transformer's path: (a) GPT-2-small (phase 3's
+   geometry, bf16, flash) laid out by ``place_transformer_params`` on a
+   (2, 3) mesh over ``["cuda:0"] * 6``, in bf16 and int8 weights (the int8
+   scales' layout the reference's: wo_scale and w2_scale whole, w1_scale
+   on d_ff), 8 prompts of 128 tokens and 32 new, greedy, straight from the
+   layout: tokens identical to single-device ``transformer_generate`` or a
+   reported near-tie, int8 against bf16 agreement >= 0.5, #1 once a layer
+   on every rank and #3 once a layer, rank and step; a sampled run (T 0.8,
+   top-k 40, one key) against single-device generate's, measured; (b) two
+   ``train --coordinator 127.0.0.1:P --num-processes 2 --process-id I --tp
+   3 --device cuda:0`` processes (each a (1, 3) mesh on the card, gloo,
+   which stages the CUDA buckets through the host) at GPT-2-small's
+   widths (byte vocabulary, seq 256, batch 8, 6 steps, bf16, flash,
+   ``--checkpoint-backend orbax --save-every 6``), process 0 with
+   ``--status-port 0``: ``/statetracker/phase`` polled while they run
+   (``train``, then ``done``), ``status --port`` on it; both processes'
+   final losses equal and within 2e-3 of the one-process run of the same
+   recipe on ``dp_mp_mesh(2, 3, ["cuda:0"] * 6)``; #1 and #2 216 times in
+   each; ms a step both ways over steps 2-6 (saves left out), the
+   all-reduce's ms a step, and the bytes all-reduced a step; (c) the
+   one-process run's params saved on their (2, 3) layout by
+   ``AsyncShardedCheckpointManager`` and restored (bitwise, the same
+   specs), the two processes' checkpoint restored onto the (2, 3) layout
+   (every leaf within 2e-3 of the one-process params, |a - b| / |b|), and
+   ``generate --checkpoint-backend orbax`` on it.
 
 The last lines are the kernel table as one JSON object, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -1247,6 +1278,8 @@ def phase_draw() -> list[dict]:
     return [_draw_case(1, 256, flat=True),
             _draw_case(1, vocab, flat=True),
             _draw_case(4, vocab, flat=True),
+            # phase 15a's sampled generate over 8 prompts
+            _draw_case(P15_PROMPTS, vocab, flat=True),
             _draw_case(1, vocab, flat=True, spec=True),
             _draw_case(8, vocab, flat=False)]
 
@@ -1286,6 +1319,13 @@ def phase_kernels(w2v_model, w2v_corpus) -> dict[str, dict]:
                            bh=CLI_MESH_BATCH * (6 // MESH_TP)))
     attn.append(_attn_case(TRAIN_SEQ, True, bh=rank_bh, iters=20))
     attn.append(_rank_rows_case(TRAIN_SEQ, MESH_BATCH, 6, MESH_DP, MESH_TP))
+    # phase 15's ranks: 15a's mesh prefill (4 prompts x 2 heads at T 128)
+    # and 15b's training (4 rows x 2 heads at T 256, both ways)
+    attn.append(_attn_case(P15_PROMPT, True, bh=P15_RANK_BH))
+    # train's closing sample from a (1, 3) layout (14c, 15b's trainers):
+    # the CLI's 16-byte prompt over a rank's 2 heads
+    attn.append(_attn_case(GEN_PROMPT, True, bh=6 // MESH_TP))
+    attn.append(_attn_case(P15_SEQ, True, bh=P15_RANK_BH, iters=20))
     attn.append(_attn_case(TRAIN_SEQ, True, bh=2 * 6, iters=20))
     attn.append(_attn_case(TRAIN_SEQ, True, bh=CKPT_BATCH * 6, iters=20))
     attn.append(_attn_case(TRAIN_SEQ, True, bh=TRAIN_BATCH * 6, iters=20))
@@ -1293,6 +1333,7 @@ def phase_kernels(w2v_model, w2v_corpus) -> dict[str, dict]:
     bwd.append(_bwd_case(CLI_MESH_SEQ, True,
                          bh=CLI_MESH_BATCH * (6 // MESH_TP)))
     bwd.append(_bwd_case(TRAIN_SEQ, True, bh=rank_bh, iters=20))
+    bwd.append(_bwd_case(P15_SEQ, True, bh=P15_RANK_BH, iters=20))
     bwd.append(_bwd_case(TRAIN_SEQ, True, bh=2 * 6, iters=20))
     bwd.append(_bwd_case(TRAIN_SEQ, True, bh=CKPT_BATCH * 6, iters=20))
     bwd.append(_bwd_case(TRAIN_SEQ, True, bh=TRAIN_BATCH * 6, iters=20))
@@ -1326,6 +1367,17 @@ def phase_kernels(w2v_model, w2v_corpus) -> dict[str, dict]:
         _decode_case(4, 1, 6, 128, 12, beam1_t, 7, [BEAM_PROMPT] * 4),
         _decode_case(1, 3, 2, 128, 12, spec_t, 7, [spec_t - 1]),
         _decode_case(1, 3, 2, 128, 12, spec_t + 8, 7, [spec_t - 1]),
+        # phase 15a: a mesh rank's decode (4 rows, its 2 KV heads) and the
+        # single-device generate it is held against (8 rows), Tpad 160
+        _decode_case(P15_PROMPTS // MESH_DP, 1, 6 // MESH_TP, 128, 12,
+                     P15_TOTAL, 7, [P15_TOTAL - 1] * (P15_PROMPTS // MESH_DP)),
+        _decode_case(P15_PROMPTS, 1, 6, 128, 12, P15_TOTAL, 7,
+                     [P15_TOTAL - 1] * P15_PROMPTS),
+        # train's closing sample from a (1, 3) layout: a rank's 2 KV heads
+        # at B 1, Tpad 64, 2 layers (14c) and 12 (15b's trainers)
+        _decode_case(1, 1, 6 // MESH_TP, 128, CLI_MESH_LAYERS, gen_t, 1,
+                     [gen_t - 1]),
+        _decode_case(1, 1, 6 // MESH_TP, 128, 12, gen_t, 7, [gen_t - 1]),
         _decode_case(8, 1, 6, 128, 12, 640, 7, SPLIT_EDGE_POS),
         _batch_case(False, pos),
         _decode_case(8, 1, 6, 128, 12, 640, 7, pos),
@@ -6252,6 +6304,393 @@ def phase_moe_mesh(card: str) -> dict[str, dict[str, int]]:
     return out
 
 
+# -- phase 15 ----------------------------------------------------------------
+
+#: 15a: prompts, their length and new tokens; a rank's prefill BH (its 4
+#: rows x 2 heads); the cache rows; the sampled run's key
+P15_PROMPTS, P15_PROMPT, P15_NEW = 8, 128, 32
+P15_RANK_BH = P15_PROMPTS // 2 * (6 // 3)
+P15_TOTAL = P15_PROMPT + P15_NEW
+P15_KEY = 7
+#: int8 weights' greedy tokens against bf16's, on the layout (the
+#: reference's bar, __graft_entry__.py mode 9b)
+P15_INT8_AGREE = 0.5
+#: 15b: the trainers' widths and recipe (GPT-2-small widths, the byte
+#: vocabulary), the one-process run's loss and params bars
+P15_SEQ, P15_BATCH, P15_STEPS = 256, 8, 6
+P15_REL = 2e-3
+P15_DIR = ROOT / ".scratch" / "chip_smoke_phase15"
+P15_MODEL = ["--d-model", "768", "--n-layers", "12", "--n-heads", "6",
+             "--seq-len", str(P15_SEQ)]
+
+
+def _p15_parity(tag: str, toks, ref, ref_logits) -> str:
+    """The layout's greedy rows against single-device generate's: each row
+    identical, or its first mismatch at a near-tie of generate's logits
+    there (top-2 gap < NEAR_TIE)."""
+    import torch
+
+    notes = []
+    for r in range(toks.shape[0]):
+        diff = (toks[r, P15_PROMPT:] != ref[r, P15_PROMPT:]).nonzero()
+        if not len(diff):
+            continue
+        i = int(diff[0])
+        top2 = torch.topk(ref_logits[i, r].float(), 2).values.tolist()
+        gap = top2[0] - top2[1]
+        _must(tag, gap < NEAR_TIE,
+              f"row {r} leaves single-device generate at new token {i}: "
+              f"top-2 gap {gap:.4g} >= {NEAR_TIE}")
+        notes.append(f"row {r} near-tie at {i} (gap {gap:.4g})")
+    same = toks.shape[0] - len(notes)
+    return (f"{same}/{toks.shape[0]} rows identical"
+            + (f"; {'; '.join(notes)}" if notes else ""))
+
+
+def phase15_mesh_generate(card: str, total: dict) -> None:
+    """15a: GPT-2-small (phase 3's geometry, bf16, flash) laid out by
+    ``place_transformer_params`` on a (2, 3) mesh over ``["cuda:0"] * 6``,
+    bf16 and int8 weights: 8 prompts of 128 tokens, 32 new, greedy, held
+    against single-device ``transformer_generate``; the int8 scales'
+    layout; int8 against bf16 agreement; #1 once a layer on every rank and
+    #3 once a layer, rank and step; a sampled run (T 0.8, top-k 40, one
+    key) against single-device generate's, measured; ms a generate."""
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.models.transformer import (
+        init_params,
+        place_transformer_params,
+        quantize_decode_params,
+        transformer_generate,
+    )
+    from deeplearning4j_tpu_torch.parallel.mesh import dp_mp_mesh
+
+    cfg = gpt2s_config()
+    base = init_params(cfg, seed=0)
+    mesh = dp_mp_mesh(MESH_DP, MESH_TP, ["cuda:0"] * (MESH_DP * MESH_TP))
+    prompts = torch.from_numpy(np.random.default_rng(15).integers(
+        0, cfg.vocab_size, (P15_PROMPTS, P15_PROMPT))).cuda()
+    gen = transformer_generate(cfg)
+    ranks = MESH_DP * MESH_TP
+    new = {}
+    for name in ("bf16", "int8"):
+        tag = f"phase 15a {name} weights"
+        params = quantize_decode_params(base, cfg) if name == "int8" else base
+        laid = place_transformer_params(mesh, params, cfg)
+        if name == "int8":
+            want = {"wqkv_scale": (None, None, None, "model", None),
+                    "wo_scale": (None,) * 4, "w1_scale": (None, None,
+                                                          "model"),
+                    "w2_scale": (None,) * 3}
+            got = {k: laid["blocks"][k].spec for k in want}
+            got["head_scale"] = laid["head_scale"].spec
+            want["head_scale"] = (None, "model")
+            log(f"{tag}: scale layouts {got}")
+            _must(tag, got == want, f"scale layouts {got}, the reference's "
+                  f"{want}")
+        times = {}
+        for where, p in (("single device", params), ("(2, 3) layout", laid)):
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            out = gen(p, prompts, P15_NEW, temperature=0.0,
+                      return_logits=where == "single device")
+            torch.cuda.synchronize()
+            times[where] = (time.perf_counter() - t0) * 1e3
+            launches = read_launches()
+            if where == "single device":
+                ref, ref_logits = out
+            else:
+                toks = out
+                _add(total, launches)
+        log(f"{tag}: launches on the layout {launches}")
+        for kname, want_n in (("flash_attn_fwd", cfg.n_layers * ranks),
+                              ("flash_decode",
+                               cfg.n_layers * ranks * P15_NEW)):
+            _must(tag, launches[kname] == want_n,
+                  f"{kname} launched {launches[kname]} times, not once a "
+                  f"layer on each of the {ranks} ranks ({want_n})")
+        log(f"{tag}: greedy on the layout vs single-device generate: "
+            f"{_p15_parity(tag, toks, ref, ref_logits)}; ms a generate "
+            f"(8 x {P15_PROMPT} + {P15_NEW}) {times['(2, 3) layout']:.1f} "
+            f"on the layout, {times['single device']:.1f} single device "
+            f"[{card}]")
+        new[name] = toks[:, P15_PROMPT:]
+        del laid
+    agree = (new["int8"] == new["bf16"]).float().mean().item()
+    log(f"phase 15a: int8 vs bf16 greedy tokens on the layout agree "
+        f"{agree:.4f} (bar {P15_INT8_AGREE})")
+    _must("phase 15a", agree >= P15_INT8_AGREE, "int8 weights diverged")
+    laid = place_transformer_params(mesh, base, cfg)
+    kw = dict(temperature=SAMPLE_T, top_k=SAMPLE_K, key=P15_KEY)
+    got = gen(laid, prompts, P15_NEW, **kw)
+    ref = gen(base, prompts, P15_NEW, **kw)
+    match = (got[:, P15_PROMPT:] == ref[:, P15_PROMPT:]).float().mean()
+    first = (got[:, P15_PROMPT] == ref[:, P15_PROMPT]).sum().item()
+    log(f"phase 15a sampled (T {SAMPLE_T}, top-k {SAMPLE_K}, key "
+        f"{P15_KEY}): tokens equal to single-device generate's "
+        f"{match.item():.4f}, first new token {first}/{P15_PROMPTS} "
+        f"(measured: a draw flips where the two programs' logits differ "
+        f"by their summation order)")
+    del laid, base
+    torch.cuda.empty_cache()
+
+
+def _p15_one_process(card: str):
+    """15b's one-process run: the CLI's model, corpus and batch recipe
+    (``default_rng(0)``, batch 8) through ``transformer_train_step`` on
+    ``dp_mp_mesh(2, 3, ["cuda:0"] * 6)``. Returns (losses, params, ms a
+    step over the steps after the first, launches)."""
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch import cli
+    from deeplearning4j_tpu_torch.models.transformer import (
+        TransformerConfig,
+        lm_optimizer,
+        transformer_train_step,
+    )
+    from deeplearning4j_tpu_torch.parallel.mesh import dp_mp_mesh
+
+    cfg = TransformerConfig(vocab_size=256, d_model=768, n_heads=6,
+                            n_layers=12, d_ff=3072, max_len=P15_SEQ + 1,
+                            use_flash=True, compute_dtype=torch.bfloat16)
+    mesh = dp_mp_mesh(MESH_DP, MESH_TP, ["cuda:0"] * (MESH_DP * MESH_TP))
+    step, init_state, shard_tokens = transformer_train_step(
+        mesh, cfg, optimizer=lm_optimizer(total_steps=P15_STEPS))
+    params, opt_state = init_state(0)
+    arr = np.frombuffer(cli._DEMO_TEXT, np.uint8).astype(np.int64)
+    rng = np.random.default_rng(0)
+    losses, marks = [], []
+    reset_launches()
+    for _ in range(P15_STEPS):
+        starts = rng.integers(0, len(arr) - P15_SEQ - 1, P15_BATCH)
+        toks = np.stack([arr[s:s + P15_SEQ + 1] for s in starts])
+        params, opt_state, loss = step(params, opt_state, shard_tokens(toks))
+        losses.append(float(loss))
+        marks.append(time.perf_counter())
+    launches = read_launches()
+    ms = (marks[-1] - marks[0]) / (P15_STEPS - 1) * 1e3
+    log(f"phase 15b one process: (2, 3) mesh on cuda:0 x 6, {cfg.d_model}d "
+        f"x {cfg.n_layers}L, vocab {cfg.vocab_size}, seq {P15_SEQ}, batch "
+        f"{P15_BATCH}, flash, bf16: losses "
+        f"{' '.join(f'{x:.4f}' for x in losses)}; {ms:.2f} ms a step "
+        f"(steps 2-{P15_STEPS}); launches {launches} [{card}]")
+    return losses, params, ms, launches
+
+
+def _p15_trainers(card: str, ckdir: Path):
+    """Two ``train --coordinator`` processes (process 0 with
+    ``--status-port 0``), the status REST polled while they run and
+    ``status --port`` called on it. Returns both processes' output."""
+    import re
+    import socket
+    import threading
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    argv = ["train", "--model", "transformer", "--coordinator",
+            f"127.0.0.1:{port}", "--num-processes", "2", "--tp",
+            str(MESH_TP), "--device", "cuda:0", *P15_MODEL, "--batch",
+            str(P15_BATCH), "--steps", str(P15_STEPS), "--bf16", "--flash",
+            "--checkpoint-dir", str(ckdir), "--checkpoint-backend", "orbax",
+            "--save-every", str(P15_STEPS)]
+    procs, outs = [], [[], []]
+    phases, status_out = [], {}
+    found = threading.Event()
+    url = {}
+
+    def read(i, proc):
+        for line in proc.stdout:
+            outs[i].append(line)
+            m = re.search(r"status REST on (http://\S+/statetracker)", line)
+            if m:
+                url["base"] = m.group(1)
+                found.set()
+
+    t0 = time.perf_counter()
+    try:
+        for i in range(2):
+            extra = ["--status-port", "0"] if i == 0 else []
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "deeplearning4j_tpu_torch", *argv,
+                 "--process-id", str(i), *extra], cwd=ROOT, text=True,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+        readers = [threading.Thread(target=read, args=(i, p), daemon=True)
+                   for i, p in enumerate(procs)]
+        for r in readers:
+            r.start()
+        _must("phase 15b", found.wait(300), "no status REST line")
+        while procs[0].poll() is None:
+            try:
+                with urllib.request.urlopen(url["base"] + "/phase",
+                                            timeout=5) as r:
+                    ph = json.loads(r.read())
+            except (urllib.error.URLError, OSError):
+                break
+            if not phases or phases[-1] != ph:
+                phases.append(ph)
+                if ph == "train" and not status_out:
+                    status_out["out"] = _cli(
+                        "phase 15b status", ["status", "--port",
+                                             url["base"].split(":")[2]
+                                             .split("/")[0]])[1]
+            time.sleep(0.05)
+        for p in procs:
+            p.wait(timeout=600)
+        for r in readers:
+            r.join(timeout=60)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    secs = time.perf_counter() - t0
+    for i, (p, out) in enumerate(zip(procs, outs)):
+        log(f"phase 15b process {i}: exit {p.returncode} in {secs:.1f} s "
+            f"(both)")
+        for line in out:
+            log(f"  | {_printable(line.rstrip())}")
+        _must("phase 15b", p.returncode == 0, f"process {i} failed")
+    log(f"phase 15b: /statetracker/phase seen {phases}")
+    _must("phase 15b", phases[:1] == ["train"] and "done" in phases,
+          f"phases {phases}: not train, then done")
+    _must("phase 15b", '"phase": "train"' in status_out.get("out", ""),
+          "status --port did not print the trainer's state")
+    return ["".join(o) for o in outs]
+
+
+def _rel(a, b) -> float:
+    """|a - b| / |b| of two tensors (Frobenius norms, f32)."""
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+def phase15_cluster(card: str) -> dict[str, int]:
+    """15b and 15c: two trainer processes over gloo on the card against
+    the one-process run; the sharded checkpoints (live round trip,
+    elastic restore, ``generate --checkpoint-backend orbax``)."""
+    import re
+
+    import torch
+
+    from deeplearning4j_tpu_torch.models.transformer import _leaves
+    from deeplearning4j_tpu_torch.parallel.checkpoint import (
+        AsyncShardedCheckpointManager,
+    )
+
+    shutil.rmtree(P15_DIR, ignore_errors=True)
+    ckdir = P15_DIR / "two_process"
+    total: dict[str, int] = {}
+    try:
+        outs = _p15_trainers(card, ckdir)
+        finals, stats = [], []
+        for i, out in enumerate(outs):
+            m = re.search(r"^final loss ([0-9.]+)$", out, re.M)
+            _must("phase 15b", m is not None, f"process {i}: no final loss")
+            finals.append(m.group(1))
+            m = re.search(r"one bucket of (\d+) bytes all-reduced a step, "
+                          r"(\d+) bytes through the host; ([0-9.]+) ms a "
+                          r"step over steps 2-\d+ .*, ([0-9.]+) ms of it in "
+                          r"all_reduce_mean; kernel launches flash_attn_fwd "
+                          r"(\d+) flash_attn_bwd (\d+)", out)
+            _must("phase 15b", m is not None, f"process {i}: no stats line")
+            stats.append(m.groups())
+            want = P15_STEPS * 12 * MESH_TP
+            _must("phase 15b", int(m.group(5)) == want
+                  and int(m.group(6)) == want,
+                  f"process {i}: #1/#2 launched {m.group(5)}/{m.group(6)} "
+                  f"times, not once a layer on each of its {MESH_TP} ranks "
+                  f"a step ({want})")
+        _must("phase 15b", finals[0] == finals[1],
+              f"the processes' final losses differ: {finals}")
+        losses, params, ms, launches = _p15_one_process(card)
+        _add(total, launches)
+        rel = abs(float(finals[0]) - losses[-1]) / abs(losses[-1])
+        log(f"phase 15b: final loss {finals[0]} in both processes; one "
+            f"process {losses[-1]:.4f}; rel {rel:.3e} (bar {P15_REL}); ms a "
+            f"step over steps 2-{P15_STEPS} (host clock, saves left out): "
+            f"two processes {stats[0][2]} / {stats[1][2]}, of it in "
+            f"all_reduce_mean {stats[0][3]} / {stats[1][3]}; one process "
+            f"{ms:.2f}; all-reduced a step {stats[0][0]} bytes, through the "
+            f"host {stats[0][1]} [{card}]")
+        _must("phase 15b", rel <= P15_REL,
+              "the two processes' loss leaves the one-process run's")
+        # 15c: the live round trip on the (2, 3) layout
+        live = P15_DIR / "live"
+        t0 = time.perf_counter()
+        mgr = AsyncShardedCheckpointManager(live, keep=1)
+        _must("phase 15c", mgr.maybe_save(P15_STEPS, params, {"mode": 11}),
+              "save not queued")
+        queued = time.perf_counter() - t0
+        mgr.wait()
+        written = time.perf_counter() - t0
+        back, meta = mgr.restore_latest(params)
+        restored = time.perf_counter() - t0 - written
+        mgr.close()
+        held = dict(_leaves(params))
+        same = sum(back_leaf.spec == held[path].spec and all(
+            torch.equal(a, b) for a, b in zip(back_leaf.flat(),
+                                              held[path].flat()))
+            for path, back_leaf in _leaves(back))
+        log(f"phase 15c live round trip: {same}/{len(held)} leaves bitwise "
+            f"with the same spec; meta {meta}; queued in {queued:.3f} s, "
+            f"durable after {written:.3f} s, restored in {restored:.3f} s "
+            f"[{card}]")
+        _must("phase 15c", same == len(held) and meta["mode"] == 11,
+              "the live round trip changed a leaf or its layout")
+        # the elastic restore: 2 processes wrote it, 1 lays it out on (2, 3)
+        mgr = AsyncShardedCheckpointManager(ckdir)
+        res = mgr.restore_latest(params)
+        mgr.close()
+        _must("phase 15c", res is not None, "the trainers wrote nothing")
+        el, meta = res
+        worst = max((_rel(el_leaf.whole(), held[path].whole()), path)
+                    for path, el_leaf in _leaves(el))
+        log(f"phase 15c elastic restore (2 processes x (1, 3) -> 1 process "
+            f"x (2, 3)): step {meta['step']}; worst leaf {worst[1]} rel "
+            f"{worst[0]:.3e} (|a - b| / |b|, bar {P15_REL})")
+        _must("phase 15c", int(meta["step"]) == P15_STEPS
+              and worst[0] <= P15_REL,
+              "the elastic restore leaves the one-process params")
+        del params, back, el
+        torch.cuda.empty_cache()
+        launches, out = _cli("phase 15c generate", [
+            "generate", "--checkpoint-dir", str(ckdir),
+            "--checkpoint-backend", "orbax", "--temperature", "0"])
+        _add(total, launches)
+        _must("phase 15c", f"restored step {P15_STEPS} from" in out,
+              "no restore line")
+    finally:
+        shutil.rmtree(P15_DIR, ignore_errors=True)
+    return total
+
+
+def phase_mesh_cluster(card: str) -> dict[str, dict[str, int]]:
+    """Phase 15: generate from the training mesh's layout, multi-process
+    training on torch.distributed and sharded checkpoints; fails on a
+    launch at a shape phase 2 did not hold."""
+    import torch
+
+    t0 = time.perf_counter()
+    out: dict[str, dict[str, int]] = {"mesh_generate": {}}
+    with launched_shapes() as seen:
+        for name, fn in (
+                ("a", lambda: phase15_mesh_generate(card,
+                                                    out["mesh_generate"])),
+                ("b-c", lambda: out.__setitem__("cluster",
+                                                phase15_cluster(card)))):
+            t1 = time.perf_counter()
+            fn()
+            log(f"phase 15{name}: {time.perf_counter() - t1:.1f} s")
+            torch.cuda.empty_cache()
+    log(f"phase 15: {time.perf_counter() - t0:.1f} s wall [{card}]")
+    check_launched("phase 15", seen)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -6308,6 +6747,7 @@ def main() -> int:
     finally:
         shutil.rmtree(TP_PROBES.parent, ignore_errors=True)
     by_phase.update(phase_moe_mesh(card))
+    by_phase.update(phase_mesh_cluster(card))
     kernels = [
         dict(name=name, route="cuda", **KERNELS[name],
              launches=sum(p[name] for p in by_phase.values()),

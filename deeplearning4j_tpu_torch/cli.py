@@ -9,7 +9,15 @@ on a ``(data, model)`` mesh of ``dp = cards // N`` rows, as the reference
 does (``--device D`` puts the N ranks on D, ``dp = 1``);
 ``--checkpoint-dir`` saves npz checkpoints (``parallel/checkpoint.py``)
 every ``--save-every`` steps with the loss and the model config in their
-meta, as the reference does.
+meta, as the reference does, or with ``--checkpoint-backend orbax`` (the
+reference's flag value) sharded ``torch.distributed.checkpoint``
+directories, written off the training thread. ``--coordinator HOST:PORT
+--num-processes N --process-id I`` trains over a data axis across N
+processes (``torch.distributed``; npz is refused there, as the
+reference refuses it); ``--status-port P`` serves the trainer's
+``/statetracker`` status and control (a POSTed minibatch or early stop
+takes effect at the next step), and ``status --port P`` prints it. The
+closing sample is drawn straight from the training layout.
 
 ``generate --checkpoint-dir`` restores the newest checkpoint (its config
 from the meta) and samples, or beam-searches with ``--beam W``, a
@@ -98,19 +106,6 @@ def _cfg_from_args(args):
     )
 
 
-#: flags of the reference's ``train`` that later slices of the port cover
-_LATER = {
-    "status_port": "--status-port (the status REST / ClusterService) comes "
-                   "with the cluster slice",
-    "coordinator": "--coordinator (multi-process training on "
-                   "torch.distributed) comes with the cluster slice",
-}
-
-#: why ``--checkpoint-backend orbax`` exits 2
-_ORBAX = ("--checkpoint-backend orbax is JAX's sharded checkpointer; the "
-          "port's sharded format (torch.distributed.checkpoint) comes with "
-          "the cluster slice. Use npz.")
-
 #: the reference's offline demo corpus (deeplearning4j_tpu/cli.py)
 _DEMO_TEXT = (
     b"the quick brown fox jumps over the lazy dog. "
@@ -118,41 +113,83 @@ _DEMO_TEXT = (
 ) * 300
 
 
+def _start_status_rest(svc, args) -> None:
+    """The status and control REST server when ``--status-port`` is
+    given, with a reachable URL printed (a 0.0.0.0 bind shows as
+    loopback), as the reference's ``_start_status_rest``."""
+    if args.status_port is None:
+        return
+    port = svc.start_rest_api(args.status_port, host=args.status_host,
+                              auth_token=args.status_token)
+    shown = "127.0.0.1" if args.status_host == "0.0.0.0" else (
+        args.status_host)
+    print(f"status REST on http://{shown}:{port}/statetracker", flush=True)
+    if svc.auth_token is not None:
+        if args.status_token is not None:
+            # the operator knows the secret: it is not repeated onto stdout
+            print("control POSTs require X-Auth-Token (as passed via "
+                  "--status-token)")
+        else:
+            print(f"control POSTs require X-Auth-Token: "
+                  f"{svc.auth_token[:8]}… (full secret in "
+                  f"{svc.auth_token_file}, mode 0600)")
+
+
+def _train_checks(args) -> str | None:
+    """The flag checks ``train`` makes before it loads anything, as the
+    reference's; the message of the first that fails, or None."""
+    if args.model != "transformer":
+        return (f"--model {args.model} comes with the DL4J-era slice of the "
+                "port; this slice trains --model transformer")
+    tp = max(1, args.tp)
+    if args.d_model % args.n_heads:
+        return (f"--d-model ({args.d_model}) must be divisible by --n-heads "
+                f"({args.n_heads})")
+    if args.n_heads % tp:
+        return f"--n-heads ({args.n_heads}) must be divisible by --tp ({tp})"
+    if args.n_experts and args.n_experts != tp:
+        return (f"--n-experts ({args.n_experts}) must equal --tp ({tp}): "
+                "experts live one-per-device on the model axis")
+    if args.coordinator and (args.num_processes is None
+                             or args.process_id is None):
+        return "--coordinator needs --num-processes and --process-id"
+    if args.status_port is not None and not 0 <= args.status_port <= 65535:
+        return f"--status-port ({args.status_port}) must be in [0, 65535]"
+    if (args.checkpoint_dir and args.checkpoint_backend == "npz"
+            and args.coordinator and args.num_processes > 1):
+        # the reference's refusal (its npz backend cannot address a
+        # multi-process sharding), made before the processes meet
+        return ("npz checkpoints cannot address multi-process shardings; "
+                "use --checkpoint-backend orbax for distributed runs")
+    return None
+
+
 def cmd_train(args) -> int:
     import numpy as np
     import torch
 
+    from deeplearning4j_tpu_torch.device import synchronize
     from deeplearning4j_tpu_torch.models.transformer import (
-        gather_transformer_params,
         lm_optimizer,
         transformer_generate,
         transformer_train_step,
     )
-    from deeplearning4j_tpu_torch.parallel.checkpoint import CheckpointManager
-    from deeplearning4j_tpu_torch.parallel.mesh import dp_mp_mesh
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.parallel import mesh as mesh_lib
+    from deeplearning4j_tpu_torch.parallel.checkpoint import (
+        AsyncShardedCheckpointManager,
+        CheckpointManager,
+    )
+    from deeplearning4j_tpu_torch.parallel.cluster import (
+        ClusterService,
+        initialize_distributed,
+    )
 
-    if args.model != "transformer":
-        print(f"--model {args.model} comes with the DL4J-era slice of the "
-              "port; this slice trains --model transformer", file=sys.stderr)
+    msg = _train_checks(args)
+    if msg is not None:
+        print(msg, file=sys.stderr)
         return 2
-    for flag, msg in _LATER.items():
-        if getattr(args, flag):
-            print(msg, file=sys.stderr)
-            return 2
     tp = max(1, args.tp)
-    if args.d_model % args.n_heads:
-        print(f"--d-model ({args.d_model}) must be divisible by --n-heads "
-              f"({args.n_heads})", file=sys.stderr)
-        return 2
-    if args.n_heads % tp:
-        print(f"--n-heads ({args.n_heads}) must be divisible by --tp ({tp})",
-              file=sys.stderr)
-        return 2
-    if args.n_experts and args.n_experts != tp:
-        print(f"--n-experts ({args.n_experts}) must equal --tp ({tp}): "
-              "experts live one-per-device on the model axis",
-              file=sys.stderr)
-        return 2
     if args.text:
         try:
             data = open(args.text, "rb").read()
@@ -171,17 +208,20 @@ def cmd_train(args) -> int:
         print(f"--seq-len ({args.seq_len}) exceeds the model's max_len "
               f"({cfg.max_len})", file=sys.stderr)
         return 2
+    nproc = args.num_processes if args.coordinator else 1
+    if args.coordinator:
+        initialize_distributed(args.coordinator, args.num_processes,
+                               args.process_id, device=args.device)
     mgr = None
     if args.checkpoint_dir:
-        if args.checkpoint_backend == "orbax":
-            print(_ORBAX, file=sys.stderr)
-            return 2
-        mgr = CheckpointManager(args.checkpoint_dir,
-                                save_every=args.save_every)
+        mgr = (AsyncShardedCheckpointManager
+               if args.checkpoint_backend == "orbax" else CheckpointManager)(
+            args.checkpoint_dir, save_every=args.save_every)
     # a mesh whenever a mesh feature is asked for: dp = cards // tp, as the
-    # reference (--device D: every rank on D, dp = 1)
+    # reference (--device D: every rank on D, dp = 1); across processes
+    # the data axis is the processes' local axes end to end
     mesh, dp = None, 1
-    if tp > 1 or args.fsdp or cfg.n_experts:
+    if tp > 1 or args.fsdp or cfg.n_experts or nproc > 1:
         if args.device:
             devices = [args.device] * tp
         else:
@@ -189,7 +229,11 @@ def cmd_train(args) -> int:
                 torch.cuda.is_available()) else 0
             dp, devices = max(1, have // tp), None
         try:
-            mesh = dp_mp_mesh(dp, tp, devices)
+            mesh = (mesh_lib.hybrid_mesh({mesh_lib.DATA_AXIS: dp,
+                                          mesh_lib.MODEL_AXIS: tp},
+                                         {mesh_lib.DATA_AXIS: nproc},
+                                         devices)
+                    if nproc > 1 else mesh_lib.dp_mp_mesh(dp, tp, devices))
         except ValueError as e:
             print(f"--tp {tp}: {e}", file=sys.stderr)
             return 2
@@ -198,19 +242,50 @@ def cmd_train(args) -> int:
         fsdp=args.fsdp, device=args.device,
     )
     params, opt_state = init_state(0)
+    gdp = mesh.global_data_size if mesh is not None else 1
     if mesh is not None:
-        print(f"training on a (data, model) = ({dp}, {tp}) mesh"
+        across = (f" across {nproc} processes (process {args.process_id}: "
+                  f"data rows {args.process_id * dp}-"
+                  f"{(args.process_id + 1) * dp - 1})" if nproc > 1 else "")
+        print(f"training on a (data, model) = ({gdp}, {tp}) mesh"
               f"{' with fsdp' if args.fsdp else ''}"
-              f"{f', {cfg.n_experts} experts' if cfg.n_experts else ''}",
-              flush=True)
-    batch = max(dp, args.batch - args.batch % dp)
+              f"{f', {cfg.n_experts} experts' if cfg.n_experts else ''}"
+              f"{across}", flush=True)
+    svc = ClusterService()
+    svc.model_description = (
+        f"transformer d_model={cfg.d_model} n_layers={cfg.n_layers} "
+        f"n_heads={cfg.n_heads} d_ff={cfg.d_ff} vocab={cfg.vocab_size} "
+        f"seq_len={args.seq_len} experts={cfg.n_experts} fsdp={args.fsdp}")
+    _start_status_rest(svc, args)
+    svc.phase = "train"
+    batch = max(gdp, args.batch - args.batch % gdp)
+    svc.minibatch = batch
     rng = np.random.default_rng(0)
-    loss = None
+    loss = step_loss = None
+    fa.reset_launches()
+    # across processes: each step's host clock (the device synced at its
+    # end, the save after it left out) and its all-reduce's
+    step_s, reduce_s = [], []
     for i in range(args.steps):
+        t_step = time.perf_counter()
+        # live batch-size control: POST /statetracker/minibatch changes the
+        # sampled batch, rounded to the data axis (process 0's value in
+        # every process: the processes' batches must agree)
+        posted = max(gdp, svc.minibatch - svc.minibatch % gdp)
+        if mesh is not None:
+            posted = mesh_lib.broadcast_ints([posted], mesh)[0]
+        if posted != batch:
+            batch = posted
+            print(f"minibatch -> {batch} (REST)", flush=True)
         starts = rng.integers(0, len(arr) - args.seq_len - 1, batch)
         toks = np.stack([arr[s:s + args.seq_len + 1] for s in starts])
         params, opt_state, step_loss = step(params, opt_state,
                                             shard_tokens(toks))
+        if nproc > 1:
+            synchronize(mesh.devices[0])
+            step_s.append(time.perf_counter() - t_step)
+            reduce_s.append(step.stats["allreduce_s"])
+        svc.batches_so_far = i + 1
         # read the loss (a host sync) only on the print and save cadence
         on_cadence = (i + 1) % 20 == 0 or (
             mgr is not None and (i + 1) % args.save_every == 0)
@@ -219,23 +294,71 @@ def cmd_train(args) -> int:
             if (i + 1) % 20 == 0:
                 print(f"step {i + 1}/{args.steps} loss {loss:.4f}",
                       flush=True)
+            # True on patience exhausted and on a POSTed earlystop
+            # (process 0's verdict in every process)
+            stop = svc.report_loss(loss)
+            if mesh is not None:
+                stop = bool(mesh_lib.broadcast_ints([stop], mesh)[0])
+            if stop:
+                print("early stop triggered", flush=True)
+                break
         if mgr is not None:
             # the config rides in the meta, so generate and serve rebuild
             # the model without the training flags
             mgr.maybe_save(i + 1, params,
                            {"loss": loss, "config": cfg.to_json()})
+    if mgr is not None and hasattr(mgr, "wait"):
+        mgr.wait()  # queued sharded saves are durable before the exit
+    if loss is None and step_loss is not None:
+        loss = float(step_loss)
+    svc.phase = "done"
     if loss is not None:
-        print(f"final loss {loss:.4f}")
+        print(f"final loss {loss:.4f}", flush=True)
+    if nproc > 1:
+        import torch.distributed as dist
+
+        stats = step.stats
+        # steps 2..N: step 1 carries the process's first launches
+        first = 2 if len(step_s) > 1 else 1
+        n = len(step_s) - first + 1
+        ms = 1e3 * sum(step_s[first - 1:]) / n
+        ms_reduce = 1e3 * sum(reduce_s[first - 1:]) / n
+        print(f"data axis across {nproc} processes ({dist.get_backend()}): "
+              f"one bucket of {stats['bucket_bytes']} bytes all-reduced a "
+              f"step, {stats['host_bytes']} bytes through the host; "
+              f"{ms:.2f} ms a step over steps {first}-{len(step_s)} (host "
+              f"clock, device synced, saves left out), "
+              f"{ms_reduce:.2f} ms of it in all_reduce_mean; kernel "
+              f"launches flash_attn_fwd {fa.launches} flash_attn_bwd "
+              f"{fa.bwd_launches}", flush=True)
 
     if cfg.max_len >= 32:
+        # sampled straight from the training layout (no gather)
         gen = transformer_generate(cfg)
-        params = gather_transformer_params(params)
-        dev = params["embed"].device
+        dev = mesh.devices[0] if mesh is not None else params["embed"].device
         out = gen(params, torch.from_numpy(arr[None, :16]).to(dev),
                   min(cfg.max_len - 16, 48), temperature=0.8, top_k=40,
                   key=1)
         text = bytes((out[0] % 256).cpu().numpy().astype(np.uint8))
         print("sample:", text.decode("latin-1"))
+    if mgr is not None and hasattr(mgr, "close"):
+        mgr.close()
+    svc.stop_rest_api()
+    if args.coordinator:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+    return 0
+
+
+def cmd_status(args) -> int:
+    """A running trainer's ``GET /statetracker`` (``train --status-port``),
+    printed as indented JSON, as the reference's ``status``."""
+    import urllib.request
+
+    with urllib.request.urlopen(
+            f"http://{args.host}:{args.port}/statetracker", timeout=30) as r:
+        print(json.dumps(json.loads(r.read()), indent=2))
     return 0
 
 
@@ -254,7 +377,10 @@ def _decode_model(args):
         param_shapes,
         quantize_decode_params,
     )
-    from deeplearning4j_tpu_torch.parallel.checkpoint import CheckpointManager
+    from deeplearning4j_tpu_torch.parallel.checkpoint import (
+        AsyncShardedCheckpointManager,
+        CheckpointManager,
+    )
 
     if getattr(args, "demo", False):
         cfg = _cfg_from_args(args)
@@ -262,16 +388,15 @@ def _decode_model(args):
         def load(c):
             return init_params(c, seed=args.seed, device=args.device)
     else:
-        if args.checkpoint_backend == "orbax":
-            print(_ORBAX, file=sys.stderr)
-            return 2
         # a read-only command creates no directory for a mistyped path (the
-        # manager makes its directory)
+        # managers make their directory)
         missing = f"no checkpoint found in {args.checkpoint_dir}"
         if not Path(args.checkpoint_dir).is_dir():
             print(missing, file=sys.stderr)
             return 1
-        mgr = CheckpointManager(args.checkpoint_dir)
+        mgr = (AsyncShardedCheckpointManager
+               if args.checkpoint_backend == "orbax" else CheckpointManager)(
+            args.checkpoint_dir)
         meta = mgr.read_meta()
         if meta is None:
             print(missing, file=sys.stderr)
@@ -737,7 +862,9 @@ def _add_checkpoint_flags(ap, required: bool) -> None:
                     help="restore the newest checkpoint of this directory")
     ap.add_argument("--checkpoint-backend", default="npz",
                     choices=["npz", "orbax"],
-                    help="orbax (JAX's sharded format) exits 2")
+                    help="npz (both packages' format) or orbax, the "
+                    "reference's name for its sharded format: the port "
+                    "reads torch.distributed.checkpoint directories")
 
 
 def _add_int8_flag(ap) -> None:
@@ -802,15 +929,32 @@ def build_parser() -> argparse.ArgumentParser:
                    help="also split params and optimizer state over the "
                    "data axis (ZeRO-3)")
     t.add_argument("--checkpoint-dir", default=None,
-                   help="save npz checkpoints here (ckpt_<step>.npz, the "
-                   "newest 3 kept)")
+                   help="save checkpoints here (npz: ckpt_<step>.npz; "
+                   "orbax: <step>/; the newest 3 kept)")
     t.add_argument("--checkpoint-backend", default="npz",
                    choices=["npz", "orbax"],
-                   help="orbax (JAX's sharded format) exits 2")
+                   help="npz (whole leaves, both packages' format) or "
+                   "orbax, the reference's name for its sharded format: "
+                   "the port writes torch.distributed.checkpoint "
+                   "directories (each process its own parts, async)")
     t.add_argument("--save-every", type=int, default=50)
     t.add_argument("--status-port", type=int, default=None,
-                   help="(a later slice)")
-    t.add_argument("--coordinator", default=None, help="(a later slice)")
+                   help="serve GET /statetracker and the control POSTs "
+                   "(minibatch, earlystop, heartbeat, phase) here (0: any "
+                   "free port)")
+    t.add_argument("--status-host", default="127.0.0.1",
+                   help="interface of the status REST server (loopback by "
+                   "default; a routable one makes control POSTs need "
+                   "X-Auth-Token)")
+    t.add_argument("--status-token", default=None,
+                   help="shared secret for control POSTs (X-Auth-Token); "
+                   "generated into a 0600 file when binding non-loopback "
+                   "without one")
+    t.add_argument("--coordinator", default=None,
+                   help="host:port of process 0's torch.distributed "
+                   "rendezvous: train over a data axis across processes")
+    t.add_argument("--num-processes", type=int, default=None)
+    t.add_argument("--process-id", type=int, default=None)
     t.set_defaults(fn=cmd_train)
 
     g = sub.add_parser("generate",
@@ -1037,6 +1181,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="consecutive missed primary health checks before a "
                    "standby promotes itself")
     c.set_defaults(fn=cmd_controller)
+
+    st = sub.add_parser("status",
+                        help="print a running trainer's REST status")
+    st.add_argument("--port", type=int, required=True)
+    st.add_argument("--host", default="127.0.0.1")
+    st.set_defaults(fn=cmd_status)
 
     m = sub.add_parser(
         "trace-merge",

@@ -22,6 +22,13 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def synchronize(device: torch.device) -> None:
+    """Waits for the work queued on ``device`` (nothing to wait for off
+    CUDA): a host clock read after it covers that work."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     """A host array on ``device``. On CUDA the copy goes through pinned
     memory without blocking: a pageable upload would wait for all the work

@@ -115,6 +115,16 @@ partials in rank order. A leaf split over the data axis is gathered at
 use, and autograd hands each part its gradient; a leaf used by several
 ranks sums their gradients. Sequence parallelism attends through the
 data ring (``parallel/sequence_parallel``).
+
+Generate reads a laid-out tree as it is (:class:`_MeshDecode`, the
+reference's decode from its placed tree), float or int8
+(:func:`place_transformer_params` lays the ``*_scale`` leaves out after
+their weights): each data row decodes its prompt rows, each model rank
+projects, caches and attends over its own heads (kernels #1 and #3 per
+rank), the row-parallel partial products are summed in rank order and the
+vocab-split logits gathered before the draw. A data axis may span
+processes (``parallel/mesh.hybrid_mesh``): the train step then averages
+its gradients and loss over the processes in one bucket.
 """
 
 from __future__ import annotations
@@ -123,6 +133,7 @@ import dataclasses
 import functools
 import json
 import math
+import time
 from typing import Any, Callable
 
 import numpy as np
@@ -134,7 +145,11 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
-from deeplearning4j_tpu_torch.device import resolve_device, upload
+from deeplearning4j_tpu_torch.device import (
+    resolve_device,
+    synchronize,
+    upload,
+)
 from deeplearning4j_tpu_torch.ops import threefry
 from deeplearning4j_tpu_torch.ops.attention import attention, dtype_scalar
 from deeplearning4j_tpu_torch.ops.flash_attention import (
@@ -155,6 +170,7 @@ from deeplearning4j_tpu_torch.parallel.expert_parallel import (
     gelu,
     moe_ffn_shard,
     moe_reference,
+    moe_reference_shard,
 )
 from deeplearning4j_tpu_torch.parallel.mesh import (
     DeviceMesh,
@@ -726,6 +742,14 @@ def _apply_rope(x, cos, sin):
 _DECODE_PAD_T = 8
 
 
+def _cache_rows(total: int) -> int:
+    """A KV cache's rows (Tpad) for ``total`` positions: rounded up to
+    :data:`_DECODE_PAD_T`, or to 512 above 1024 rows."""
+    if total <= 1024:
+        return -(-total // _DECODE_PAD_T) * _DECODE_PAD_T
+    return -(-total // 512) * 512
+
+
 def _flash_seq_ok(t: int) -> bool:
     """Sequence lengths the flash kernels take from the training block
     (which raises otherwise) and bulk prefill (which falls back to dense):
@@ -1053,14 +1077,41 @@ def fsdp_shardings(mesh: DeviceMesh, cfg: TransformerConfig):
                  for path, shape in _leaves(param_shapes(cfg)))
 
 
+def _scale_spec(spec, axes):
+    """An int8 leaf's scale spec: its weight's, unsplit on the quantized
+    (size-1) axes (the reference's ``_quantized_leaf_sharding``,
+    transformer.py:326: a scale is one value over the whole reduction, so
+    it is whole along an axis its weight splits there)."""
+    return tuple(None if i in axes else a for i, a in enumerate(spec))
+
+
+def layout_specs(mesh: DeviceMesh, params, cfg: TransformerConfig,
+                 fsdp: bool = False):
+    """The spec of every leaf of ``params``: :func:`transformer_shardings`
+    (or :func:`fsdp_shardings`), and for a quantized tree
+    (:func:`quantize_decode_params`) each ``name_scale`` leaf its weight's
+    spec through :func:`_scale_spec` over ``_INT8_BLOCK_AXES`` (wo_scale
+    and w2_scale whole, w1_scale on its d_ff split, the qkv scales on
+    their heads), ``head_scale`` the head's unsplit on d_model."""
+    specs = (fsdp_shardings if fsdp else transformer_shardings)(mesh, cfg)
+    blocks = specs["blocks"]
+    for name, axes in _INT8_BLOCK_AXES.items():
+        if name + "_scale" in params["blocks"]:
+            blocks[name + "_scale"] = _scale_spec(blocks[name], axes)
+    if "head_scale" in params:
+        specs["head_scale"] = _scale_spec(specs["head"], (0,))
+    return specs
+
+
 def place_transformer_params(mesh: DeviceMesh, params,
                              cfg: TransformerConfig, fsdp: bool = False):
-    """A params tree laid out on ``mesh`` by :func:`transformer_shardings`
-    (or :func:`fsdp_shardings`): every leaf a
+    """A float or int8-quantized params tree laid out on ``mesh`` by
+    :func:`layout_specs`: every leaf a
     :class:`~..parallel.mesh.MeshTensor` whose parts are independent
     copies on their ranks' devices (a laid-out leaf is gathered whole
-    first)."""
-    specs = (fsdp_shardings if fsdp else transformer_shardings)(mesh, cfg)
+    first). The reference's ``place_transformer_params``
+    (transformer.py:339), so int8 decode runs on the layout bf16 does."""
+    specs = layout_specs(mesh, params, cfg, fsdp)
 
     def put(path, leaf):
         if isinstance(leaf, MeshTensor):
@@ -1130,91 +1181,151 @@ def _local(leaf, m: int, dev):
     return torch.cat([row[j].to(dev) for row in rows], dim=dd)
 
 
-def _mesh_block(cfg: TransformerConfig, mesh: DeviceMesh, xs, lp,
-                positions):
-    """One block over every data row of the mesh. ``xs[d]`` is row d's
-    (b, t, D) residual stream on its first rank's device, ``lp`` the
-    layer's :func:`_held` leaves, ``positions[d]`` the row's global
-    positions (t,). Each model rank projects and attends over its own
-    heads (the flash kernels over its (b, H/tp, t, K), the ring over the
-    data axis under sequence parallelism, dense otherwise) and multiplies
-    over its own d_ff columns or expert; the row-parallel products' partial
-    sums are added in rank order on the row's device. Returns ``(xs,
-    auxes)``: the MoE aux loss of each row (empty for the dense MLP)."""
+#: the block leaves each model rank multiplies with (and their int8 scales)
+_RANK_LEAVES = frozenset({"wqkv", "wq", "wkv", "wo", "w1", "b1", "w2"})
+_EXPERT_LEAVES = ("w1", "b1", "w2", "b2")
+
+
+def _group_kv(q, k, v):
+    """A rank's k, v repeated to its query heads (head = kv*G + g)."""
+    g = q.shape[1] // k.shape[1]
+    if g == 1:
+        return k, v
+    return k.repeat_interleave(g, dim=1), v.repeat_interleave(g, dim=1)
+
+
+def _mesh_layer(cfg: TransformerConfig, mesh: DeviceMesh, xs: dict,
+                rank_lp, row_lp, positions, attend, moe):
+    """One block over data rows ``xs`` (``xs[d]`` row d's (b, C, D)
+    residual stream on its first rank's device), written once for the
+    training step and the decode programs over the layout.
+
+    ``rank_lp(d, m)`` is rank (d, m)'s block leaves on its device (its
+    part of a split leaf, a whole one, any ``name_scale``; with experts,
+    ``"experts"``: its ``(w1, b1, w2, b2)`` as ``moe`` takes them),
+    ``row_lp(d)`` the row's replicated leaves (the norms, b2; with
+    experts, the router ``"wg"``) on the row's device, ``positions[d]``
+    the row's (C,) global positions. Each model rank projects its own heads (RoPE applied):
+    ``heads[d, m] = (q (b, hs, C, K), k, v)`` with its own KV heads, or its
+    query heads' expanded KV when the layout keeps wkv whole.
+    ``attend(heads)`` turns them into each rank's (b, C, hs*K) output (a
+    cache write is its business). wo and w2 are row-parallel: the ranks'
+    partial products are added in rank order on the row's device. The FFN
+    is each rank's d_ff columns, or ``moe(h_in, wg, experts, devices) ->
+    (y, aux)`` over the ranks' experts (aux None when it has none).
+    Returns ``(xs, auxes)``."""
     tp = mesh.axis_size(_MODEL)
     hs = cfg.n_heads // tp
-    dt = xs[0].dtype
-    attn_names = [n for n in ("wqkv", "wq", "wkv") if n in lp]
-    rows = [mesh.model_row(d).devices for d in range(len(xs))]
+    lps = {(d, m): rank_lp(d, m) for d in xs for m in range(tp)}
+    rows = {d: row_lp(d) for d in xs}
     heads = {}
-    for d, x in enumerate(xs):
-        dev0 = x.device
-        h_in = _layer_norm(x, _local(lp["ln1_scale"], 0, dev0),
-                           _local(lp["ln1_bias"], 0, dev0))
-        for m, dev in enumerate(rows[d]):
-            p_m = {n: _local(lp[n], m, dev) for n in attn_names}
-            q, k_r, v_r = _project_qkv(cfg, p_m, h_in.to(dev))
+    for d, x in xs.items():
+        h_in = _layer_norm(x, rows[d]["ln1_scale"], rows[d]["ln1_bias"])
+        for m in range(tp):
+            dev = mesh.device(d, m)
+            q, k, v = _project_qkv(cfg, lps[d, m], h_in.to(dev))
             if cfg.rope:
                 cos, sin = _rope_tables(positions[d].to(dev), cfg.head_dim,
                                         q.dtype, dev)
                 q = _apply_rope(q, cos, sin)
-                k_r = _apply_rope(k_r, cos, sin)
-            k_h, v_h = _expand_kv(cfg, k_r, v_r)
-            if k_h.shape[1] != q.shape[1]:
-                # a whole wkv projects every KV head: keep rank m's
-                k_h = k_h[:, m * hs:(m + 1) * hs]
-                v_h = v_h[:, m * hs:(m + 1) * hs]
-            heads[d, m] = (q, k_h, v_h)
-    outs = {}
-    if cfg.sequence_parallel:
-        for m in range(tp):
-            qkv = [[heads[d, m][j].transpose(1, 2) for d in range(len(xs))]
-                   for j in range(3)]
-            for d, o in enumerate(ring_blocks(*qkv, causal=True)):
-                outs[d, m] = o.transpose(1, 2)
-    else:
-        for (d, m), (q, k_h, v_h) in heads.items():
-            if cfg.use_flash:
-                _check_flash_seq(q.shape[2])
-                outs[d, m] = flash_attention_trainable(
-                    q, k_h, v_h, causal=True, layout="bhtd")
-            else:
-                outs[d, m] = attention(q, k_h, v_h, causal=True,
-                                       layout="bhtd")
-    new_xs, auxes = [], []
-    for d, x in enumerate(xs):
-        dev0 = x.device
-        b, t, _ = x.shape
+                k = _apply_rope(k, cos, sin)
+            if k.shape[1] > cfg.kv_heads // tp:
+                # a whole wkv projects every KV head: keep rank m's query
+                # heads' expanded KV
+                k, v = _expand_kv(cfg, k, v)
+                k = k[:, m * hs:(m + 1) * hs].contiguous()
+                v = v[:, m * hs:(m + 1) * hs].contiguous()
+            heads[d, m] = (q, k, v)
+    outs = attend(heads)
+    new_xs, auxes = {}, []
+    for d, x in xs.items():
+        dev0, dt, row = x.device, x.dtype, rows[d]
+        devs = [mesh.device(d, m) for m in range(tp)]
         acc = None
-        for m, dev in enumerate(rows[d]):
-            wo = _local(lp["wo"], m, dev).to(dt)
-            part = (outs[d, m].transpose(1, 2).reshape(b, t, -1)
-                    @ wo.reshape(-1, wo.shape[-1])).to(dev0)
+        for m in range(tp):
+            wo = _w(lps[d, m], "wo", dt)
+            part = (outs[d, m] @ wo.reshape(-1, wo.shape[-1])).to(dev0)
             acc = part if acc is None else acc + part
         x = x + acc
-        h_in = _layer_norm(x, _local(lp["ln2_scale"], 0, dev0),
-                           _local(lp["ln2_bias"], 0, dev0))
-        devs = rows[d]
+        h_in = _layer_norm(x, row["ln2_scale"], row["ln2_bias"])
         if cfg.n_experts:
-            moe = lp["moe"]
-            experts = [tuple(_local(moe[f], m, dev)[0].to(dt)
-                             for f in ("w1", "b1", "w2", "b2"))
-                       for m, dev in enumerate(devs)]
-            y, aux = moe_ffn_shard(
-                h_in, _local(moe["wg"], 0, dev0).to(dt), experts, devs,
-                k=cfg.moe_k, capacity_factor=cfg.moe_capacity_factor,
-                activation=gelu)
-            auxes.append(aux)
+            y, aux = moe(h_in, row["wg"].to(dt),
+                         [lps[d, m]["experts"] for m in range(tp)], devs)
+            if aux is not None:
+                auxes.append(aux)
         else:
             y = None
             for m, dev in enumerate(devs):
-                hid = gelu(h_in.to(dev) @ _local(lp["w1"], m, dev).to(dt)
-                           + _local(lp["b1"], m, dev).to(dt))
-                part = (hid @ _local(lp["w2"], m, dev).to(dt)).to(dev0)
+                lp = lps[d, m]
+                hid = gelu(h_in.to(dev) @ _w(lp, "w1", dt)
+                           + lp["b1"].to(dt))
+                part = (hid @ _w(lp, "w2", dt)).to(dev0)
                 y = part if y is None else y + part
-            y = y + _local(lp["b2"], 0, dev0).to(dt)
-        new_xs.append(x + y)
+            y = y + row["b2"].to(dt)
+        new_xs[d] = x + y
     return new_xs, auxes
+
+
+def _mesh_block(cfg: TransformerConfig, mesh: DeviceMesh, xs, lp,
+                positions):
+    """One training block over every data row of the mesh
+    (:func:`_mesh_layer`). ``xs[d]`` is row d's (b, t, D) residual stream
+    on its first rank's device, ``lp`` the layer's :func:`_held` leaves,
+    ``positions[d]`` the row's global positions (t,). Each rank attends
+    over its own heads with the flash kernels over its (b, H/tp, t, K),
+    the ring over the data axis under sequence parallelism, dense
+    otherwise; each rank runs its own expert over its capacity bucket
+    (``moe_ffn_shard``). Returns ``(xs, auxes)``: the MoE aux loss of each
+    row (empty for the dense MLP)."""
+    dt = xs[0].dtype
+
+    def rank_lp(d, m):
+        dev = mesh.device(d, m)
+        p = {n: _local(lp[n], m, dev) for n in lp
+             if n.removesuffix("_scale") in _RANK_LEAVES}
+        if cfg.n_experts:
+            p["experts"] = tuple(_local(lp["moe"][f], m, dev)[0].to(dt)
+                                 for f in _EXPERT_LEAVES)
+        return p
+
+    def row_lp(d):
+        dev0 = mesh.device(d, 0)
+        p = {n: _local(lp[n], 0, dev0) for n in lp if n != "moe"
+             and n.removesuffix("_scale") not in _RANK_LEAVES}
+        if cfg.n_experts:
+            p["wg"] = _local(lp["moe"]["wg"], 0, dev0)
+        return p
+
+    def attend(heads):
+        outs = {}
+        if cfg.sequence_parallel:
+            for m in range(mesh.axis_size(_MODEL)):
+                per = [(q, *_group_kv(q, k, v)) for q, k, v in
+                       (heads[d, m] for d in range(len(xs)))]
+                qkv = [[t[j].transpose(1, 2) for t in per] for j in range(3)]
+                for d, o in enumerate(ring_blocks(*qkv, causal=True)):
+                    outs[d, m] = o.reshape(*o.shape[:2], -1)
+            return outs
+        for (d, m), (q, k, v) in heads.items():
+            k, v = _group_kv(q, k, v)
+            if cfg.use_flash:
+                _check_flash_seq(q.shape[2])
+                o = flash_attention_trainable(q, k, v, causal=True,
+                                              layout="bhtd")
+            else:
+                o = attention(q, k, v, causal=True, layout="bhtd")
+            outs[d, m] = o.transpose(1, 2).reshape(q.shape[0], q.shape[2],
+                                                   -1)
+        return outs
+
+    def moe(h_in, wg, experts, devs):
+        return moe_ffn_shard(h_in, wg, experts, devs, k=cfg.moe_k,
+                             capacity_factor=cfg.moe_capacity_factor,
+                             activation=gelu)
+
+    out, auxes = _mesh_layer(cfg, mesh, dict(enumerate(xs)), rank_lp, row_lp,
+                             positions, attend, moe)
+    return list(out.values()), auxes
 
 
 def _mesh_body(cfg: TransformerConfig, mesh: DeviceMesh):
@@ -1608,12 +1719,30 @@ def transformer_train_step(mesh: DeviceMesh | None, cfg: TransformerConfig,
       splits it over the mesh's data axis (by batch, or by sequence under
       sequence parallelism).
 
+    On a mesh whose data axis spans processes (``parallel/mesh.
+    hybrid_mesh`` under ``torch.distributed``) every process passes the
+    same global batch to ``shard_tokens``, which keeps the process's rows
+    (B divisible by the global data axis); each process computes its rows'
+    gradients on its local mesh, then the gradients and the loss are
+    averaged over the processes in one flattened bucket
+    (``mesh_lib.all_reduce_mean``) before the AdamW update, so every
+    process holds the same params. ``step.stats`` then holds the last
+    step's ``bucket_bytes``, ``host_bytes`` (gloo on a card goes through
+    the host) and ``allreduce_s``, the host clock over the averaging with
+    the device synced on both sides. Every process draws the same init
+    from ``seed``.
+
     The default optimizer is ``AdamW(3e-4)``, as the reference defaults to
     ``optax.adamw(3e-4)``."""
     if fsdp and mesh is None:
         raise ValueError("fsdp splits over a mesh's data axis: pass a mesh")
     optimizer = optimizer or AdamW(3e-4)
     loss_fn = transformer_loss(cfg, mesh)
+    nproc = mesh.num_processes if mesh is not None else 1
+    if nproc > 1 and cfg.sequence_parallel:
+        raise ValueError("sequence parallelism rings over a data axis "
+                         "inside one process; across processes it is not "
+                         "ported")
     if mesh is not None:
         tspec = (None, _DATA) if cfg.sequence_parallel else (_DATA, None)
 
@@ -1624,8 +1753,17 @@ def transformer_train_step(mesh: DeviceMesh | None, cfg: TransformerConfig,
             return params, optimizer.init(params)
 
         def shard_tokens(tokens):
-            whole = torch.as_tensor(tokens).to(device=mesh.devices[0],
-                                               dtype=torch.long)
+            whole = torch.as_tensor(tokens)
+            if nproc > 1:
+                if whole.shape[0] % mesh.global_data_size:
+                    raise ValueError(
+                        f"the batch ({whole.shape[0]}) must divide over the "
+                        f"data axis across processes "
+                        f"({mesh.global_data_size})")
+                per = whole.shape[0] // nproc
+                whole = whole[mesh.process_index * per:
+                              (mesh.process_index + 1) * per]
+            whole = whole.to(device=mesh.devices[0], dtype=torch.long)
             return mesh_lib.place(mesh, whole, tspec)
     else:
         dev = resolve_device(device)
@@ -1643,9 +1781,20 @@ def transformer_train_step(mesh: DeviceMesh | None, cfg: TransformerConfig,
             raise TypeError("a mesh step takes params laid out on its mesh "
                             "(init_state or place_transformer_params)")
         loss, grads = value_and_grad(loss_fn, params, tokens)
+        if nproc > 1:
+            loss = loss.clone()
+            parts = ([q for _, g in _leaves(grads) for q in _parts(g)]
+                     + [loss.reshape(1)])
+            synchronize(loss.device)
+            t0 = time.perf_counter()
+            bucket, host = mesh_lib.all_reduce_mean(parts, mesh)
+            synchronize(loss.device)
+            step.stats = {"bucket_bytes": bucket, "host_bytes": host,
+                          "allreduce_s": time.perf_counter() - t0}
         optimizer.update_(params, grads, opt_state)
         return params, opt_state, loss
 
+    step.stats = {"bucket_bytes": 0, "host_bytes": 0, "allreduce_s": 0.0}
     return step, init_state, shard_tokens
 
 
@@ -2145,10 +2294,7 @@ def _decode_builder(cfg: TransformerConfig, tp_mesh: Mesh | None = None):
         f32 (nl, 2, batch, Tpad, 1)}``. Tpad is ``total`` rounded up to 8
         rows, or to 512 above 1024 rows. Under TP the cache is sharded on
         the mesh's devices (``device`` is read only as the meta device)."""
-        if total <= 1024:
-            tpad = -(-total // _DECODE_PAD_T) * _DECODE_PAD_T
-        else:
-            tpad = -(-total // 512) * 512
+        tpad = _cache_rows(total)
         if tp_mesh is not None:
             return tp_caches(batch, tpad, device)
         shape = (cfg.n_layers, 2, batch, tpad, cfg.kv_heads * kd)
@@ -2261,6 +2407,273 @@ def _step_keys(key, n: int) -> list[threefry.Key]:
     return subs
 
 
+# -- generate over the training layout --------------------------------------
+
+def _is_laid_out(params) -> bool:
+    return any(isinstance(leaf, MeshTensor) for _, leaf in _leaves(params))
+
+
+class _MeshDecode:
+    """Generate's programs over params laid out on a ``(data, model)``
+    mesh (:func:`place_transformer_params`, float or int8, FSDP or not):
+    the prompt's rows split over the data axis; in each data row the
+    residual stream, the norms and the row-parallel products' sums live
+    on the row's first rank, and each model rank projects its own heads,
+    keeps its own KV cache (its KV heads, or its query heads' expanded KV
+    when the layout keeps wkv whole), attends (kernel #1 in prefill where
+    ``use_flash`` and :func:`_flash_seq_ok` hold, #3 in decode when
+    ``decode_kernel``; dense otherwise), multiplies its wo rows, its d_ff
+    columns (or runs its experts, ``moe_reference_shard``) and its vocab
+    part of the head. wo and w2 are row-parallel: the ranks' partial
+    products are added in rank order on the row's device; the head's
+    vocab parts are concatenated. A leaf split over the data axis (FSDP)
+    is gathered at its rank (an exact concatenation), as the reference's
+    CLI gathers an FSDP tree before it samples. The leaves are cast once
+    as ``cast_params`` casts them."""
+
+    def __init__(self, cfg: TransformerConfig, params):
+        if cfg.decode_int8:
+            raise ValueError("generate over the training layout keeps a "
+                             "float KV cache: decode_int8 is not ported "
+                             "there (quantize the weights only)")
+        leaves = dict(_leaves(params))
+        self.cfg, self.mesh = cfg, next(iter(leaves.values())).mesh
+        if not all(isinstance(v, MeshTensor) and v.mesh is self.mesh
+                   for v in leaves.values()):
+            raise TypeError("generate takes a tree laid out on one mesh "
+                            "(every leaf a MeshTensor) or a whole tree")
+        self.held = {path: _held(mt) for path, mt in leaves.items()}
+        self.specs = {path: mt.spec for path, mt in leaves.items()}
+        self.tp = self.mesh.axis_size(_MODEL)
+        self.dp = self.mesh.axis_size(_DATA)
+        self.hs = cfg.n_heads // self.tp
+        kv_name = "wkv" if cfg.kv_heads != cfg.n_heads else "wqkv"
+        #: the rank's cache holds its own KV heads (G query heads each),
+        #: or, with wkv whole, its query heads' expanded KV (G = 1)
+        self.kv_split = self.held[("blocks", kv_name)][2]
+        self.kv_r = cfg.kv_heads // self.tp if self.kv_split else self.hs
+        self.grp = self.hs // self.kv_r
+        self._memo: dict = {}
+
+    def _cast(self, path, t):
+        name = path[-1]
+        if path[0] == "blocks":
+            if t.dtype == torch.int8 or (name in _INT8_SCALES
+                                         and path[1] != "moe"):
+                return t
+            return t.to(self.cfg.compute_dtype)
+        if path == ("head",) and t.dtype != torch.int8:
+            return t.to(self.cfg.compute_dtype)
+        return t
+
+    def leaf(self, path, m: int, dev):
+        """Model rank ``m``'s part of leaf ``path`` on ``dev``, gathered
+        over the data axis and cast (made once a device)."""
+        key = (path, m, torch.device(dev))
+        if key not in self._memo:
+            self._memo[key] = self._cast(path, _local(self.held[path], m,
+                                                      dev))
+        return self._memo[key]
+
+    def whole(self, path, dev):
+        """Leaf ``path`` whole on ``dev`` (its model parts concatenated)."""
+        if not self.held[path][2]:
+            return self.leaf(path, 0, dev)
+        key = (path, "whole", torch.device(dev))
+        if key not in self._memo:
+            self._memo[key] = torch.cat(
+                [self.leaf(path, m, dev) for m in range(self.tp)],
+                dim=self.specs[path].index(_MODEL))
+        return self._memo[key]
+
+    def rank_layer(self, d: int, m: int, i: int) -> dict:
+        """Rank (d, m)'s block leaves of layer ``i``: its part of a split
+        leaf, a whole one (wkv kept whole, the row-parallel scales) on its
+        device; with experts, its stacked experts."""
+        dev = self.mesh.device(d, m)
+        p = {path[-1]: self.leaf(path, m if self.held[path][2] else 0,
+                                 dev)[i]
+             for path in self.held if len(path) == 2
+             and path[0] == "blocks"
+             and path[-1].removesuffix("_scale") in _RANK_LEAVES}
+        if self.cfg.n_experts:
+            p["experts"] = tuple(self.leaf(("blocks", "moe", f), m, dev)[i]
+                                 for f in _EXPERT_LEAVES)
+        return p
+
+    def row_layer(self, d: int, i: int) -> dict:
+        """Data row d's replicated block leaves of layer ``i`` (norms, b2;
+        the MoE router) on its first rank's device."""
+        dev = self.mesh.device(d, 0)
+        p = {path[-1]: self.leaf(path, 0, dev)[i] for path in self.held
+             if len(path) == 2 and path[0] == "blocks"
+             and path[-1].removesuffix("_scale") not in _RANK_LEAVES}
+        if self.cfg.n_experts:
+            p["wg"] = self.leaf(("blocks", "moe", "wg"), 0, dev)[i]
+        return p
+
+    def init_caches(self, sizes, total: int):
+        """Per data row with ``sizes[d]`` rows (None for an empty row), each
+        rank's zeroed (nl, 2, b_d, Tpad, kv_r*K) cache at the compute dtype
+        (Tpad as ``init_caches``'s)."""
+        cfg = self.cfg
+        tpad = _cache_rows(total)
+        return [[torch.zeros((cfg.n_layers, 2, b, tpad,
+                              self.kv_r * cfg.head_dim),
+                             dtype=cfg.compute_dtype,
+                             device=self.mesh.device(d, m))
+                 for m in range(self.tp)] if b else None
+                for d, b in enumerate(sizes)]
+
+    def _head(self, d: int, x):
+        """Row d's logits (b, V) f32: each rank's vocab part, gathered."""
+        parts = []
+        for m in range(self.tp):
+            dev = self.mesh.device(d, m)
+            p = {"head": self.leaf(("head",), m, dev)}
+            if ("head_scale",) in self.held:
+                p["head_scale"] = self.leaf(("head_scale",), m, dev)
+            parts.append(_head_logits(x.to(dev), _w(p, "head", x.dtype))
+                         .to(x.device))
+        return _cat(parts, -1)
+
+    def _embed(self, d: int, toks, pos_rows):
+        dev0 = self.mesh.device(d, 0)
+        emb = self.whole(("embed",), dev0)
+        return (emb[toks] + pos_rows).to(self.cfg.compute_dtype)
+
+    def _moe(self, h_in, wg, experts, devs):
+        """Every expert over every token on its rank, each token its top k
+        (``moe_reference_shard``: no capacity, as the reference's decode)."""
+        y = moe_reference_shard(h_in.reshape(-1, h_in.shape[-1]), wg,
+                                experts, devs, k=self.cfg.moe_k,
+                                activation=gelu)
+        return y.reshape(h_in.shape), None
+
+    def _layers(self, d: int, x, positions, attend):
+        """Row d's (b, C, D) stream through every layer
+        (:func:`_mesh_layer`); ``attend(i, m, q, k, v)`` is rank m's
+        attention at layer ``i``, its cache write included."""
+        for i in range(self.cfg.n_layers):
+            out, _ = _mesh_layer(
+                self.cfg, self.mesh, {d: x},
+                lambda dd, m: self.rank_layer(dd, m, i),
+                lambda dd: self.row_layer(dd, i), {d: positions},
+                lambda heads: {k: attend(i, k[1], *qkv)
+                               for k, qkv in heads.items()},
+                self._moe)
+            x = out[d]
+        return self._final(d, x[:, -1])
+
+    def prefill(self, d: int, caches, prompt):
+        """Row d's prompt (b, Tp) through every layer, each rank writing
+        rows 0..Tp-1 of its cache; -> the last position's logits (b, V)."""
+        cfg = self.cfg
+        b, tp_len = prompt.shape
+        dev0 = self.mesh.device(d, 0)
+        x = self._embed(d, prompt, self.whole(("pos",), dev0)[:tp_len])
+        use_flash = cfg.use_flash and _flash_seq_ok(tp_len)
+
+        def attend(i, m, q, k, v):
+            cache = caches[m]
+            cache[i, 0, :, :tp_len] = k.transpose(1, 2).reshape(b, tp_len,
+                                                                -1)
+            cache[i, 1, :, :tp_len] = v.transpose(1, 2).reshape(b, tp_len,
+                                                                -1)
+            k, v = _group_kv(q, k, v)
+            if use_flash:
+                o = flash_attention(q, k, v, causal=True)
+            else:
+                o = attention(q, k, v, causal=True, layout="bhtd")
+            return o.transpose(1, 2).reshape(b, tp_len, -1)
+
+        return self._layers(d, x, torch.arange(tp_len, device=dev0), attend)
+
+    def _final(self, d: int, x):
+        dev0 = self.mesh.device(d, 0)
+        x = _layer_norm(x, self.whole(("lnf_scale",), dev0),
+                        self.whole(("lnf_bias",), dev0))
+        return self._head(d, x)
+
+    def step(self, d: int, caches, token, *, pos: int):
+        """Row d's tokens (b,) at position ``pos`` through every layer
+        against the ranks' caches (written in place) -> logits (b, V)."""
+        cfg = self.cfg
+        kd = cfg.head_dim
+        b = token.shape[0]
+        dev0 = self.mesh.device(d, 0)
+        pos_t = torch.full((1,), int(pos), device=dev0)
+        x = self._embed(d, token, _pos_rows(
+            {"pos": self.whole(("pos",), dev0)}, pos, cfg.max_len))
+
+        def attend(i, m, q, k, v):
+            cache = caches[m]
+            cache[i, 0, :, int(pos)] = k[:, :, 0].reshape(b, -1)
+            cache[i, 1, :, int(pos)] = v[:, :, 0].reshape(b, -1)
+            if not cfg.decode_kernel:
+                return _chunk_attention(q, cache, i, pos_t.to(q.device),
+                                        False, kd, q.dtype)
+            # query head h = kv*G + g: (b, G, kv_r*K), each group packed
+            # head-major, as the single-device decode
+            qp = (q[:, :, 0].reshape(b, self.kv_r, self.grp, kd)
+                  .transpose(1, 2).reshape(b, self.grp, -1).contiguous())
+            o = flash_decode_attention(qp, cache, int(pos), self.kv_r,
+                                       layer=i)
+            return (o.reshape(b, self.grp, self.kv_r, kd).transpose(1, 2)
+                    .reshape(b, 1, -1))
+
+        return self._layers(d, x[:, None], pos_t, attend)
+
+
+def _mesh_generate(cfg: TransformerConfig, params, prompt, max_new: int,
+                   temperature: float, top_k, key, return_logits: bool):
+    """``transformer_generate``'s loop over a laid-out tree
+    (:class:`_MeshDecode`): each data row prefills and decodes its prompt
+    rows; the rows' logits are gathered (an exact concatenation) on the
+    mesh's first device, where the filter and the draw run over the whole
+    batch with the single-device key stream, and each row's tokens go
+    back to its row."""
+    md = _MeshDecode(cfg, params)
+    mesh = md.mesh
+    dev = mesh.devices[0]
+    b, tp_len = prompt.shape
+    total = _check_decode_len(cfg, tp_len, max_new)
+    prompt = prompt.to(dev)
+    if temperature != 0:
+        if key is None:
+            raise ValueError("sampled decoding needs a key (an int seed or "
+                             "threefry key data)")
+        keys = threefry.device_keys(_step_keys(key, max_new), dev)
+        temp = torch.full((), temperature, dtype=torch.float32, device=dev)
+    sizes = [len(r) for r in torch.tensor_split(torch.arange(b), md.dp)]
+    live = [d for d in range(md.dp) if sizes[d]]
+    rows = torch.split(prompt, sizes)
+    caches = md.init_caches(sizes, total)
+
+    def gathered(fn, per_row):
+        return _cat([fn(d, caches[d], per_row[d].to(mesh.device(d, 0)))
+                     .to(dev) for d in live], 0)
+
+    logits = gathered(md.prefill, rows)
+    toks, seen = [], []
+    for i in range(max_new):
+        seen.append(logits)
+        filt = _top_k_filter(logits, top_k)
+        if temperature == 0:
+            tok = filt.argmax(dim=-1)
+        else:
+            tok = threefry.categorical(filt / temp, keys[i])
+        tok = tok.to(prompt.dtype)
+        toks.append(tok)
+        logits = gathered(functools.partial(md.step, pos=tp_len + i),
+                          torch.split(tok, sizes))
+    out = torch.cat([prompt, torch.stack(toks, dim=1)], dim=1) if toks \
+        else prompt
+    if return_logits:
+        return out, torch.stack(seen)
+    return out
+
+
 def transformer_generate(cfg: TransformerConfig):
     """Autoregressive sampling with the KV cache. Returns
     ``generate(params, prompt, max_new, temperature=1.0, top_k=None,
@@ -2276,13 +2689,23 @@ def transformer_generate(cfg: TransformerConfig):
     ``categorical(sub, filtered / temperature)`` over the (B, V) logits
     through the threefry draw kernel. ``approx_top_k`` is accepted and
     ignored: the exact threshold is the reference's function off the TPU
-    (:func:`_top_k_filter`)."""
+    (:func:`_top_k_filter`).
+
+    ``params`` may be laid out on a ``(data, model)`` mesh
+    (:func:`place_transformer_params`, float or int8 weights, FSDP or
+    not), as the reference decodes straight from its placed tree: the
+    programs then run over the layout (:class:`_MeshDecode`) and the
+    tokens come back on the mesh's first device, drawn with the same key
+    stream over the whole batch."""
     forward_one, init_caches, do_prefill, cast_params = _decode_builder(cfg)
 
     @torch.no_grad()
     def generate(params, prompt, max_new: int, temperature: float = 1.0,
                  top_k: int | None = None, key=None,
                  return_logits: bool = False, approx_top_k: bool = False):
+        if _is_laid_out(params):
+            return _mesh_generate(cfg, params, prompt, max_new, temperature,
+                                  top_k, key, return_logits)
         b, tp = prompt.shape
         total = _check_decode_len(cfg, tp, max_new)
         params = cast_params(params)

@@ -20,6 +20,14 @@ Leaves are saved as host arrays, f32 or integer; a bf16 leaf raises
 (``parallel/mesh.MeshTensor``) is gathered whole first, as the
 reference's npz backend saves sharded params whole. ``restore`` returns tensors on the card
 unless the caller names another device.
+
+:class:`AsyncShardedCheckpointManager` is the reference's orbax-backed
+manager of the same name on ``torch.distributed.checkpoint`` (DCP): each
+process writes only the parts its ranks hold, off the training thread,
+and a restore lays the values out on the caller's layout, which may
+differ from the writer's (2 processes write, 1 restores). Its format is
+not the reference's orbax format; npz stays the format both packages
+read.
 """
 
 from __future__ import annotations
@@ -27,8 +35,11 @@ from __future__ import annotations
 import json
 import os
 import re
+import shutil
 import tempfile
 import time
+import warnings
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -36,6 +47,7 @@ import torch
 
 from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.models.transformer import _leaves, _tree
+from deeplearning4j_tpu_torch.parallel import mesh as mesh_lib
 from deeplearning4j_tpu_torch.parallel.mesh import MeshTensor
 
 SEP = "//"
@@ -197,3 +209,220 @@ class CheckpointManager:
         with np.load(self.directory / f"ckpt_{s}.npz",
                      allow_pickle=False) as z:
             return _read_manifest(z)["meta"]
+
+
+#: the sharded format's name, in every manifest
+SHARDED_FORMAT = "dl4j-tpu-torch-dcp-v1"
+_MANIFEST = "manifest.json"
+
+
+def _part_key(key: str, i: int, j: int) -> str:
+    """The DCP key of a leaf's part: data part ``i``, model part ``j`` (0
+    along an axis the leaf's spec does not split)."""
+    return f"{key}[{i},{j}]"
+
+
+def _dist_group():
+    """``(process group for the writes, rank)``: a gloo group of its own
+    (the background write's collectives must not interleave with the
+    training step's on the default group), or ``(None, 0)`` in one
+    process."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()
+            and dist.get_world_size() > 1):
+        return None, 0
+    return dist.new_group(backend="gloo"), dist.get_rank()
+
+
+def _staged(params):
+    """This process's parts as host copies under their global keys, and
+    the manifest's entry of every leaf (shape, dtype, spec, the part count
+    along each split axis, each part's key and shape). Copied before the
+    call returns, so training may update the params in place while the
+    write runs."""
+    state, leaves = {}, {}
+    for key, leaf in flat_leaves(params):
+        if isinstance(leaf, MeshTensor):
+            spec, rows = list(leaf.spec), leaf.parts
+        else:
+            spec, rows = [None] * leaf.dim(), [[leaf]]
+        parts = {}
+        for i, row in enumerate(rows):
+            for j, part in enumerate(row):
+                pk = _part_key(key, i, j)
+                state[pk] = part.detach().to("cpu", copy=True)
+                parts[pk] = list(part.shape)
+        leaves[key] = {
+            "shape": list(leaf.shape), "dtype": str(rows[0][0].dtype),
+            "spec": spec, "dims": [len(rows), len(rows[0])], "parts": parts,
+        }
+    return state, leaves
+
+
+def _assemble(entry: dict, loaded: dict) -> torch.Tensor:
+    """A leaf whole from its loaded parts: the model parts of each data
+    part concatenated on the model-split dim, then the data parts on the
+    data-split dim (exact concatenations)."""
+    spec = entry["spec"]
+    dd = (spec.index(mesh_lib.DATA_AXIS) if mesh_lib.DATA_AXIS in spec
+          else None)
+    md = (spec.index(mesh_lib.MODEL_AXIS) if mesh_lib.MODEL_AXIS in spec
+          else None)
+    nd, nm = entry["dims"]
+    rows = []
+    for i in range(nd):
+        cols = [loaded[_part_key(entry["key"], i, j)] for j in range(nm)]
+        rows.append(torch.cat(cols, dim=md) if md is not None else cols[0])
+    return torch.cat(rows, dim=dd) if dd is not None else rows[0]
+
+
+class AsyncShardedCheckpointManager:
+    """The reference's ``AsyncShardedCheckpointManager`` (its
+    parallel/checkpoint.py:143) on ``torch.distributed.checkpoint``:
+    checkpoint ``step`` is the directory ``<directory>/<step>``, a DCP
+    checkpoint of every process's parts of a laid-out tree
+    (``parallel/mesh.MeshTensor`` leaves; a whole tensor is one part)
+    under keys that name the global part (``blocks//wqkv[0,1]``: data part
+    0, model part 1), so a part held by several processes (the data axis
+    across processes keeps the same shards in each) is written once, plus
+    ``manifest.json`` (process 0 writes it last: a step without one is not
+    a checkpoint), holding each leaf's shape, dtype, spec and part counts
+    and the meta.
+
+    The contract is the reference's: ``maybe_save`` queues the write on a
+    background thread on the ``save_every`` cadence and returns whether it
+    did (one write in flight: a new save waits for the last); ``wait()``
+    returns once the queued write is durable and the newest ``keep``
+    checkpoints are kept; ``close()`` waits too. ``restore_latest(like)``
+    lays the values out as ``like``'s leaves are (a MeshTensor's mesh and
+    spec, whatever the writer's; a tensor's device; a shape tuple on
+    ``device``), as the reference restores onto the live shardings.
+    Every process of a multi-process run constructs the manager (it makes
+    a gloo process group for the writes) and calls ``maybe_save`` at the
+    same steps."""
+
+    def __init__(self, directory: str | Path, keep: int = 3,
+                 save_every: int = 1):
+        self.directory = Path(directory).absolute()
+        self.directory.mkdir(parents=True, exist_ok=True)
+        self.keep = keep
+        self.save_every = save_every
+        self._group, self._rank = _dist_group()
+        self._pool = ThreadPoolExecutor(max_workers=1)
+        self._pending = None
+
+    def maybe_save(self, step: int, params, meta: dict | None = None
+                   ) -> bool:
+        """Queue an async save of ``params`` at ``step`` (meta gains
+        ``step``); False when the cadence skips it."""
+        if step % self.save_every != 0:
+            return False
+        self.wait()
+        state, leaves = _staged(params)
+        manifest = {"format": SHARDED_FORMAT, "time": time.time(),
+                    "step": step, "meta": {**(meta or {}), "step": step},
+                    "leaves": leaves}
+        self._pending = self._pool.submit(
+            self._write, self.directory / str(step), state, manifest)
+        return True
+
+    def _write(self, path: Path, state: dict, manifest: dict) -> None:
+        import torch.distributed as dist
+        import torch.distributed.checkpoint as dcp
+
+        if self._rank == 0:
+            shutil.rmtree(path, ignore_errors=True)
+        if self._group is not None:
+            dist.barrier(group=self._group)
+        with warnings.catch_warnings():
+            # one process: no_dist=True is the intent
+            warnings.simplefilter("ignore", UserWarning)
+            dcp.save(state, storage_writer=dcp.FileSystemWriter(path),
+                     process_group=self._group, no_dist=self._group is None)
+        if self._rank == 0:
+            fd, tmp = tempfile.mkstemp(dir=path, suffix=".tmp")
+            with os.fdopen(fd, "w") as f:
+                json.dump(manifest, f)
+            os.replace(tmp, path / _MANIFEST)
+        if self._group is not None:
+            dist.barrier(group=self._group)
+
+    def wait(self) -> None:
+        """Block until the queued save is durable, then keep the newest
+        ``keep`` checkpoints."""
+        if self._pending is None:
+            return
+        pending, self._pending = self._pending, None
+        pending.result()
+        if self._rank == 0:
+            for s in self._all_steps()[:-self.keep]:
+                shutil.rmtree(self.directory / str(s), ignore_errors=True)
+
+    def _all_steps(self) -> list[int]:
+        return sorted(int(p.name) for p in self.directory.iterdir()
+                      if p.name.isdigit() and (p / _MANIFEST).is_file())
+
+    def latest_step(self) -> int | None:
+        steps = self._all_steps()
+        return steps[-1] if steps else None
+
+    def _manifest(self, step: int) -> dict:
+        with open(self.directory / str(step) / _MANIFEST) as f:
+            return json.load(f)
+
+    def read_meta(self) -> dict | None:
+        """The newest checkpoint's meta, without a params template."""
+        s = self.latest_step()
+        return None if s is None else self._manifest(s)["meta"]
+
+    def restore_latest(self, like, device=None):
+        """``(params, meta)`` of the newest checkpoint laid out like
+        ``like`` (see the class doc), or None. ``KeyError`` for a leaf the
+        checkpoint lacks, ``ValueError`` for a shape that differs."""
+        import torch.distributed.checkpoint as dcp
+
+        s = self.latest_step()
+        if s is None:
+            return None
+        manifest = self._manifest(s)
+        entries = manifest["leaves"]
+        state = {}
+        order = [(_key(path), path, leaf) for path, leaf in _leaves(like)]
+        for key, _, leaf in order:
+            if key not in entries:
+                raise KeyError(f"checkpoint missing leaf {key!r}")
+            e = entries[key]
+            if tuple(e["shape"]) != _shape(leaf):
+                raise ValueError(f"shape mismatch for {key!r}: ckpt "
+                                 f"{tuple(e['shape'])} vs model "
+                                 f"{_shape(leaf)}")
+            dtype = getattr(torch, e["dtype"].removeprefix("torch."))
+            for pk, shape in e["parts"].items():
+                state[pk] = torch.empty(shape, dtype=dtype)
+        with warnings.catch_warnings():
+            # no_dist=True is the intent: every process reads the parts it
+            # lays out
+            warnings.simplefilter("ignore", UserWarning)
+            dcp.load(state, storage_reader=dcp.FileSystemReader(
+                self.directory / str(s)), no_dist=True)
+        pairs = []
+        for key, path, leaf in order:
+            whole = _assemble({**entries[key], "key": key}, state)
+            if isinstance(leaf, MeshTensor):
+                mt = mesh_lib.place(leaf.mesh,
+                                    whole.to(leaf.mesh.devices[0]),
+                                    leaf.spec)
+                out = mt.like(p.clone(memory_format=torch.contiguous_format)
+                              for p in mt.flat())
+            elif isinstance(leaf, torch.Tensor):
+                out = whole.to(leaf.device)
+            else:
+                out = whole.to(resolve_device(device))
+            pairs.append((path, out))
+        return _tree(pairs), manifest["meta"]
+
+    def close(self) -> None:
+        """Wait for the queued save, then stop the writer thread."""
+        self.wait()
+        self._pool.shutdown()

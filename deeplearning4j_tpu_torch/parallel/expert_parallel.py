@@ -30,7 +30,8 @@ The forms, as the reference's:
   outputs ("dense decode"), so a row's value depends on that row alone, as
   with the dense MLP (grouping rows by expert would make each expert
   product's row count, and with it the library's kernel, depend on the
-  batch's routing).
+  batch's routing). :func:`moe_reference_shard` is the same function with
+  the experts on their model ranks (generate over the training layout).
 
 Top-k is ``argmax`` (the first maximum, as ``jnp.argmax``) in the routing
 and a stable descending sort in :func:`moe_reference` (the lower index
@@ -377,6 +378,23 @@ def moe_apply(mesh, *, k: int = 2, capacity_factor: float = 2.0,
     return fn
 
 
+def _moe_select(gates, outs, k: int):
+    """Each row's top-``k`` experts' outputs ``outs`` (E, T, D), weighted
+    by their renormalized gates and summed in choice order (ties to the
+    lower expert id: a stable sort)."""
+    top_idx = torch.sort(gates, dim=1, descending=True,
+                         stable=True).indices[:, :k]
+    top_gates = gates.gather(1, top_idx)
+    if k > 1:  # k=1 keeps the raw gate multiplier (Switch)
+        top_gates = top_gates / top_gates.sum(dim=1, keepdim=True)
+    rows = torch.arange(gates.shape[0], device=gates.device)
+    y = None
+    for j in range(k):
+        v = top_gates[:, j, None] * outs[top_idx[:, j], rows]
+        y = v if y is None else y + v
+    return y
+
+
 def moe_reference(params: MoEParams, x: torch.Tensor, *, k: int = 2,
                   activation=relu) -> torch.Tensor:
     """The single-device MoE without a capacity (the reference's
@@ -384,16 +402,22 @@ def moe_reference(params: MoEParams, x: torch.Tensor, *, k: int = 2,
     ``x`` (T, D) -> (T, D). Every expert runs over every row, then each
     row takes its chosen outputs, weighted and summed in choice order."""
     gates = torch.softmax(x @ params.wg, dim=-1)
-    top_idx = torch.sort(gates, dim=1, descending=True,
-                         stable=True).indices[:, :k]
-    top_gates = gates.gather(1, top_idx)
-    if k > 1:  # k=1 keeps the raw gate multiplier (Switch)
-        top_gates = top_gates / top_gates.sum(dim=1, keepdim=True)
     h = activation(torch.matmul(x, params.w1) + params.b1[:, None])
     outs = torch.matmul(h, params.w2) + params.b2[:, None]  # (E, T, D)
-    rows = torch.arange(x.shape[0], device=x.device)
-    y = None
-    for j in range(k):
-        v = top_gates[:, j, None] * outs[top_idx[:, j], rows]
-        y = v if y is None else y + v
-    return y
+    return _moe_select(gates, outs, k)
+
+
+def moe_reference_shard(x: torch.Tensor, wg: torch.Tensor, experts, devices,
+                        *, k: int = 2, activation=relu) -> torch.Tensor:
+    """:func:`moe_reference` with the experts on their ranks: ``experts``
+    the ranks' stacked ``(w1 (e, D, H), b1, w2, b2)`` on ``devices``, rank
+    order. Each rank runs its experts over every row of ``x`` (T, D); the
+    outputs are gathered on x's device in expert order (an exact
+    concatenation) and each row takes its top-k there, as the whole
+    function does. The decode programs over the training layout run it."""
+    gates = torch.softmax(x @ wg.to(x.device), dim=-1)
+    outs = []
+    for (w1, b1, w2, b2), dev in zip(experts, devices):
+        h = activation(torch.matmul(x.to(dev), w1) + b1[:, None])
+        outs.append((torch.matmul(h, w2) + b2[:, None]).to(x.device))
+    return _moe_select(gates, torch.cat(outs, dim=0), k)

@@ -23,6 +23,19 @@ parts along each axis its spec splits, each on its rank's device (the
 first rank along an axis it does not split). A row of a ``(data,
 model)`` mesh is the model-axis :class:`Mesh` of serving
 (:meth:`DeviceMesh.model_row`).
+
+A data axis may span processes (``torch.distributed``): each process
+drives a ``(dp_local, tp)`` :class:`DeviceMesh` over its own devices, the
+global data axis is ``num_processes * dp_local`` and process ``p`` owns
+global data rows ``p * dp_local`` to ``(p + 1) * dp_local - 1``; the model
+axis stays inside a process (the layout of a multi-node GPU job: tensor
+parallelism inside a node, data parallelism across nodes).
+:func:`hybrid_mesh` builds it (the reference's multi-slice mesh: the DCN
+factor of the data axis is the processes). Across processes the one
+collective is :func:`all_reduce_mean`, one flattened bucket a call; a
+leaf split over the data axis (FSDP) is split over the local data axis
+only, the same shards in every process (HSDP: the losses are FSDP's, the
+bytes a process are not ZeRO-3's).
 """
 
 from __future__ import annotations
@@ -119,7 +132,8 @@ class DeviceMesh:
     fastest), as ``jax.sharding.Mesh`` over ``np.array(devs).reshape``.
     ``shape`` maps each axis name to its size."""
 
-    def __init__(self, devices, axis_names, dims):
+    def __init__(self, devices, axis_names, dims, num_processes: int = 1,
+                 process_index: int = 0):
         self.devices = tuple(torch.device(d) for d in devices)
         self.axis_names = tuple(axis_names)
         self.shape = dict(zip(self.axis_names, (int(n) for n in dims)))
@@ -127,6 +141,14 @@ class DeviceMesh:
             raise ValueError(f"a {self.shape} mesh takes "
                              f"{math.prod(self.shape.values())} devices, "
                              f"got {len(self.devices)}")
+        #: processes the data axis spans; ``shape`` is this process's part
+        self.num_processes = int(num_processes)
+        self.process_index = int(process_index)
+
+    @property
+    def global_data_size(self) -> int:
+        """The data axis over every process."""
+        return self.axis_size(DATA_AXIS) * self.num_processes
 
     @property
     def size(self) -> int:
@@ -155,7 +177,10 @@ class DeviceMesh:
         return Mesh(self.devices[d * tp:(d + 1) * tp])
 
     def __repr__(self) -> str:
-        return f"DeviceMesh({self.shape}, {[str(d) for d in self.devices]})"
+        procs = (f", process {self.process_index} of {self.num_processes}"
+                 if self.num_processes > 1 else "")
+        return (f"DeviceMesh({self.shape}, {[str(d) for d in self.devices]}"
+                f"{procs})")
 
 
 def dp_mp_mesh(dp: int, mp: int, devices=None) -> DeviceMesh:
@@ -166,6 +191,58 @@ def dp_mp_mesh(dp: int, mp: int, devices=None) -> DeviceMesh:
         raise ValueError(f"mesh axes must be >= 1, got ({dp}, {mp})")
     return DeviceMesh(_mesh_devices(dp * mp, devices, f"a ({dp}, {mp}) mesh"),
                       (DATA_AXIS, MODEL_AXIS), (dp, mp))
+
+
+def hybrid_mesh(ici: dict[str, int], dcn: dict[str, int] | None = None,
+                devices=None) -> DeviceMesh:
+    """The multi-slice mesh (the reference's ``hybrid_mesh``): axis ``a``
+    of size ``ici[a] * dcn.get(a, 1)``, the DCN factor outermost. Here a
+    slice is a process: in a run of ``torch.distributed`` with a DCN
+    factor, the data axis's DCN factor must be the process count and this
+    process holds the ``ici`` part over its own ``devices`` (by default its
+    first cards), global data rows ``rank * ici["data"]`` on; a DCN factor
+    on another axis raises (a model axis across processes is not ported).
+    In one process the mesh collapses to the plain mesh of the product
+    sizes over ``devices``. ``ValueError`` for a DCN axis the ICI axes
+    lack and for a device count that does not match, as the reference."""
+    names = tuple(ici)
+    unknown = set(dcn or {}) - set(names)
+    if unknown:
+        raise ValueError(
+            f"dcn axes {sorted(unknown)} not present in ici axes {names}")
+    ici_shape = tuple(int(n) for n in ici.values())
+    dcn_shape = tuple(int((dcn or {}).get(k, 1)) for k in names)
+    total = [i * d for i, d in zip(ici_shape, dcn_shape)]
+    import torch.distributed as dist
+
+    world = (dist.get_world_size()
+             if dist.is_available() and dist.is_initialized() else 1)
+    if world > 1 and any(d > 1 for d in dcn_shape):
+        across = {k: d for k, d in zip(names, dcn_shape) if d > 1}
+        if set(across) != {DATA_AXIS} or across[DATA_AXIS] != world:
+            raise ValueError(
+                f"across {world} processes the port splits the "
+                f"{DATA_AXIS!r} axis alone, by the process count: dcn "
+                f"{dict(across)} (a model axis across processes is not "
+                f"ported)")
+        local = math.prod(ici_shape)
+        return DeviceMesh(_hybrid_devices(local, devices, dict(ici)), names,
+                          ici_shape, num_processes=world,
+                          process_index=dist.get_rank())
+    n = math.prod(total)
+    return DeviceMesh(_hybrid_devices(n, devices, dict(zip(names, total))),
+                      names, total)
+
+
+def _hybrid_devices(n: int, devices, sizes: dict) -> list:
+    """``devices`` or the first ``n`` cards for :func:`hybrid_mesh`, in the
+    reference's wording when the count does not match."""
+    have = (len(list(devices)) if devices is not None
+            else torch.cuda.device_count() if torch.cuda.is_available()
+            else 0)
+    if have != n if devices is not None else have < n:
+        raise ValueError(f"need {n} devices for mesh {sizes}, have {have}")
+    return _mesh_devices(n, devices, f"mesh {sizes}")
 
 
 def _mesh_1d(axis: str, n_devices: int | None, devices) -> DeviceMesh:
@@ -263,3 +340,49 @@ def place(mesh: DeviceMesh, x: torch.Tensor, spec) -> MeshTensor:
         parts.append([c.to(mesh.device_at(**{DATA_AXIS: i, MODEL_AXIS: j}))
                       for j, c in enumerate(cols)])
     return MeshTensor(mesh, spec, parts)
+
+
+# -- the data axis across processes ------------------------------------------
+
+def all_reduce_mean(tensors, mesh: DeviceMesh) -> tuple[int, int]:
+    """Averages ``tensors`` (f32, any devices) in place over the processes
+    ``mesh``'s data axis spans: one flattened f32 bucket, one
+    ``all_reduce`` (sum) on the default process group, then a division by
+    the process count, so every process holds the same values. Gloo takes
+    a CUDA bucket and stages it through the host itself. Returns ``(bucket
+    bytes, bytes through the host)``: twice the bucket (down and back up)
+    for a CUDA bucket on gloo, else 0; (0, 0) in one process."""
+    if mesh.num_processes == 1:
+        return 0, 0
+    import torch.distributed as dist
+
+    dev = tensors[0].device
+    flat = torch.cat([t.detach().reshape(-1).to(device=dev,
+                                                dtype=torch.float32)
+                      for t in tensors])
+    nbytes = flat.numel() * flat.element_size()
+    dist.all_reduce(flat)
+    flat /= mesh.num_processes
+    off = 0
+    for t in tensors:
+        n = t.numel()
+        t.copy_(flat[off:off + n].view(t.shape))
+        off += n
+    host = (2 * nbytes if dev.type == "cuda" and dist.get_backend() == "gloo"
+            else 0)
+    return nbytes, host
+
+
+def broadcast_ints(values, mesh: DeviceMesh) -> list[int]:
+    """Process 0's ``values`` (ints) on every process of ``mesh``'s data
+    axis: a trainer's live controls (a POSTed minibatch, early stop) must
+    agree, or the processes' collectives part ways. ``values`` as they are
+    in one process."""
+    if mesh.num_processes == 1:
+        return [int(v) for v in values]
+    import torch.distributed as dist
+
+    dev = ("cuda" if dist.get_backend() == "nccl" else "cpu")
+    t = torch.tensor([int(v) for v in values], dtype=torch.int64, device=dev)
+    dist.broadcast(t, src=0)
+    return [int(v) for v in t.tolist()]

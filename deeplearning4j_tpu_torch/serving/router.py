@@ -4,7 +4,7 @@ serving replicas (the port's own copy of
 model and touches no device; plain locks stand for the reference's
 sanitizer-wrapped ones).
 
-Tensor parallelism (a later slice of the port) scales one model copy
+Tensor parallelism (``ServingEngine(tp=N)``) scales one model copy
 across devices; the router scales *throughput* across model copies. It
 is deliberately dumb about models — it never tokenizes, never touches
 a device, and holds no request state beyond in-flight counters — so a

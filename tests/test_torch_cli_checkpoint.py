@@ -84,8 +84,11 @@ def test_error_exits(tmp_path, capsys):
     empty.mkdir()
     assert cli.main(["generate", "--checkpoint-dir", str(empty),
                      "--device", "cpu"]) == 1
+    # npz across processes: refused before the rendezvous and the mkdir
     assert cli.main(TRAIN + ["--checkpoint-dir", str(tmp_path / "o"),
-                             "--checkpoint-backend", "orbax"]) == 2
+                             "--coordinator", "127.0.0.1:1",
+                             "--num-processes", "2",
+                             "--process-id", "0"]) == 2
     assert "orbax" in capsys.readouterr().err
     assert not (tmp_path / "o").exists()
     assert cli.main(["serve", "--device", "cpu"]) == 2

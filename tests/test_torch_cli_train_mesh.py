@@ -119,9 +119,11 @@ def test_reference_mesh_checkpoint_restores_in_the_port(devices, tmp_path,
 @pytest.mark.parametrize("flags,msg", [
     (["--tp", "3"], "--n-heads (2) must be divisible by --tp (3)"),
     (["--tp", "2", "--n-experts", "3"], "must equal --tp (2)"),
-    (["--coordinator", "localhost:1"], "cluster slice"),
-    (["--checkpoint-dir", "ck", "--checkpoint-backend", "orbax"],
-     "cluster slice"),
+    (["--coordinator", "localhost:1"],
+     "--coordinator needs --num-processes and --process-id"),
+    (["--checkpoint-dir", "ck", "--coordinator", "localhost:1",
+      "--num-processes", "2", "--process-id", "0"],
+     "use --checkpoint-backend orbax for distributed runs"),
 ])
 def test_train_flag_checks_exit_2(flags, msg, capsys):
     args = ["train", "--model", "transformer", "--device", "cpu",

@@ -68,7 +68,8 @@ def test_port_imports_no_jax_in_a_fresh_process():
 
 
 _FLEET = ("serving.disagg", "serving.rpc", "serving.netfaults",
-          "serving.router", "serving.controller", "utils.httpjson")
+          "serving.router", "serving.controller", "utils.httpjson",
+          "parallel.cluster", "parallel.registry")
 
 _IMPORT_FLEET = """
 import importlib, sys
@@ -83,10 +84,11 @@ assert not bad, bad
 
 
 def test_fleet_modules_import_no_torch_in_a_fresh_process():
-    """The KV wire, the RPC primitives, the chaos proxy, the router and
-    the controller (the port's own copies of the reference's stdlib
-    modules) load no model stack: no ``torch``, no JAX, nothing of the JAX
-    package, and so does the CLI module their commands run from."""
+    """The KV wire, the RPC primitives, the chaos proxy, the router, the
+    controller, the cluster service and the network registry (the port's
+    own copies of the reference's stdlib modules) load no model stack: no
+    ``torch``, no JAX, nothing of the JAX package, and so does the CLI
+    module their commands run from."""
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
     out = subprocess.run([sys.executable, "-c", _IMPORT_FLEET, *_FLEET,

@@ -223,11 +223,17 @@ def test_train_cli_runs_on_cpu():
 
 
 @pytest.mark.parametrize("flag", [["--coordinator", "localhost:1"],
-                                  ["--status-port", "8081"],
+                                  ["--status-port", "-1"],
                                   ["--checkpoint-dir", "ck",
-                                   "--checkpoint-backend", "orbax"],
+                                   "--coordinator", "localhost:1",
+                                   "--num-processes", "2",
+                                   "--process-id", "1"],
                                   ["--model", "lenet"]])
 def test_train_cli_names_the_later_slice(flag):
+    """The flags of the cluster slice run now (tests/test_torch_cli_cluster
+    .py); what still exits 2 is a flag combination the reference refuses
+    (a coordinator without its process count, an invalid status port, npz
+    checkpoints across processes) and the DL4J-era models."""
     from deeplearning4j_tpu_torch import cli
 
     args = ["train", "--model", "transformer", "--device", "cpu", *flag]
