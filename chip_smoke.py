@@ -284,6 +284,26 @@ Phases, in order; any failure exits non-zero without printing a result:
    specs), the two processes' checkpoint restored onto the (2, 3) layout
    (every leaf within 2e-3 of the one-process params, |a - b| / |b|), and
    ``generate --checkpoint-backend orbax`` on it.
+16. the DL4J-era core (none of it reaches kernels #1-#5, whose launches
+   must stay 0 here): (a) ``cli.main(["train", "--model", "lenet",
+   "--examples", "4096", "--batch", "256", "--epochs", "2"])`` (32 steps on
+   synthetic MNIST, f32; the losses finite and falling) and the same at
+   bench.py's batch of 1,024 (8 steps): ms a step over steps 2-N and
+   samples a second as the CLI prints them, peak memory; (b) from LeNet's
+   seed-0 weights carried as the reference's numpy arrays: the
+   probabilities on the card within 1e-4 of the port's on the CPU, 5
+   ``DataParallelTrainer`` steps' losses within rel 1e-4 of the CPU's, two
+   seeded card runs bitwise, and, measured only, the same with TF32
+   allowed and one MIXED_BF16 run's ms a step; (c) the reference's DBN on
+   LFW (784-600-250-100-5 RBMs and an MCXENT softmax, 500 synthetic faces in
+   one batch): CD-1 pretraining (20 iterations a layer, the first layer's
+   reconstruction score must fall; ms a CD iteration), a CG finetune with
+   full backprop (10 iterations; the score must fall), then GD, CG, L-BFGS
+   and Hessian-free for 5 iterations each from the pretrained params: ms an
+   iteration, the solvers' counted host reads and the CUDA syncs PyTorch's
+   sync debug mode sees; (d) a LeNet npz checkpoint written on the card
+   restored bitwise into a fresh network, and ``to_bytes`` of the card's
+   net holding the CPU net's vector and config.
 
 The last lines are the kernel table as one JSON object, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -6691,6 +6711,417 @@ def phase_mesh_cluster(card: str) -> dict[str, dict[str, int]]:
     return out
 
 
+# -- phase 16: the DL4J-era core ----------------------------------------------
+
+P16_DIR = ROOT / ".scratch" / "chip_smoke_phase16"
+#: the card phase 16 runs on (against the CPU)
+P16_DEVICE = "cuda"
+#: LeNet's probabilities, card vs CPU from the same carried weights (f32, no
+#: TF32: the layers run cuDNN and cuBLAS with TF32 off). The bars lie
+#: between f32's readings (5.96e-08 abs, rel 1.02e-07) and TF32's (4.25e-05
+#: abs, rel 1.27e-05), and the TF32 control must fail them
+P16_PROB_ATOL = 1e-6
+#: DataParallelTrainer losses over P16_STEPS steps, card vs CPU
+P16_LOSS_RTOL = 1e-6
+P16_STEPS = 5
+#: Hessian-free on LeNet (its Gauss-Newton products through torch.func):
+#: iterations on one batch of 256, card vs CPU from the carried weights;
+#: scores and params rel, between f32's readings (1.03e-07, 1.36e-08) and
+#: TF32's (7.74e-06, 2.66e-05)
+P16_HF_ITERS = 2
+P16_HF_RTOL = 1e-6
+#: 16a: the CLI at the reference's flags (32 steps of 256), then at
+#: bench.py's batch of 1,024
+P16_CLI = [["--examples", "4096", "--batch", "256", "--epochs", "2"],
+           ["--examples", "8192", "--batch", "1024", "--epochs", "1"]]
+#: 16c: the reference's DBN on LFW (BASELINE.md: 600/250/100 hidden RBMs,
+#: an MCXENT softmax output) on the synthetic 28x28 faces
+P16_DBN_SIZES = (600, 250, 100)
+P16_CD_ITERS = 20
+P16_FT_ITERS = 10
+P16_SOLVER_ITERS = 5
+
+
+def _p16_lenet_cli(card: str, total: dict) -> None:
+    """16a: ``train --model lenet`` through ``cli.main`` on the card."""
+    import math
+    import re
+
+    import torch
+
+    for flags in P16_CLI:
+        # the run's own peak: above what earlier phases still hold
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        launches, out = _cli("phase 16a", ["train", "--model", "lenet",
+                                           *flags])
+        _add(total, launches)
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**20
+        steps = [float(v) for v in re.findall(r"^epoch \d+ step \d+ loss "
+                                              r"(\S+)$", out, re.M)]
+        final = re.search(r"^final loss (\S+)$", out, re.M)
+        timing = re.search(r"^([0-9.]+) ms a step over steps (\d+)-(\d+) "
+                           r"\(batch (\d+).*\), (\d+) samples/s$", out, re.M)
+        _must("phase 16a", final is not None and timing is not None,
+              "no final loss or timing line")
+        losses = steps + [float(final.group(1))]
+        _must("phase 16a", all(math.isfinite(v) for v in losses),
+              f"a loss is not finite: {losses}")
+        # falling: the last loss under the first printed (step 10), where
+        # the run prints one
+        _must("phase 16a", len(losses) == 1 or losses[-1] < losses[0],
+              f"the loss did not fall: {losses}")
+        log(f"phase 16a lenet batch {timing.group(4)}: {timing.group(1)} ms "
+            f"a step over steps {timing.group(2)}-{timing.group(3)} (host "
+            f"clock, device synced by the loss read each step), "
+            f"{timing.group(5)} samples/s; losses {losses}; peak memory "
+            f"{peak:.1f} MiB above the {held / 2**20:.1f} MiB held before "
+            f"[{card}]")
+
+
+def _p16_carried():
+    """LeNet from seed 0 as the reference's numpy params (the carried
+    weights), its config, and 5 batches of synthetic MNIST."""
+    from deeplearning4j_tpu_torch.datasets import fetchers
+    from deeplearning4j_tpu_torch.models import lenet
+    from deeplearning4j_tpu_torch.models.multilayer import params_to_jax
+
+    net, params = lenet.build_lenet(0, device="cpu")
+    ds = fetchers.mnist(n=256 * P16_STEPS)
+    batches = [(d.features, d.labels) for d in ds.batches(256)]
+    return params_to_jax(params, net.conf), net.conf, batches
+
+
+def _p16_train(np_params, conf, batches, device, policy=None):
+    """P16_STEPS DataParallelTrainer steps of LeNet on ``device`` from the
+    carried weights: (losses, final params, ms a step over steps 2..N)."""
+    import torch
+
+    from deeplearning4j_tpu_torch import dtypes, rng
+    from deeplearning4j_tpu_torch.models import lenet
+    from deeplearning4j_tpu_torch.models.multilayer import (
+        MultiLayerNetwork,
+        params_from_jax,
+    )
+    from deeplearning4j_tpu_torch.parallel.data_parallel import (
+        DataParallelTrainer,
+    )
+    from deeplearning4j_tpu_torch.parallel.mesh import data_parallel_mesh
+
+    net = MultiLayerNetwork(conf, device=device)
+    trainer = DataParallelTrainer(lenet.lenet_loss(net),
+                                  mesh=data_parallel_mesh(devices=[device]))
+    state = trainer.init(params_from_jax(np_params, conf, device=device))
+    losses, secs = [], []
+    with dtypes.policy(policy or dtypes.FLOAT32):
+        for i, (x, y) in enumerate(batches):
+            t0 = time.perf_counter()
+            state, loss = trainer.step(state, *trainer.shard_batch(x, y),
+                                       rng.key_for(i))
+            if torch.device(device).type == "cuda":
+                torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            losses.append(loss)
+    return ([v.item() for v in losses], state.params,
+            1e3 * sum(secs[1:]) / max(1, len(secs) - 1))
+
+
+def _p16_parity(card: str) -> tuple:
+    """16b: card vs CPU from the same carried weights, two seeded card runs
+    bitwise, TF32 measured, one MIXED_BF16 step."""
+    import torch
+
+    from deeplearning4j_tpu_torch import dtypes
+    from deeplearning4j_tpu_torch.models.multilayer import (
+        MultiLayerNetwork,
+        params_from_jax,
+    )
+
+    np_params, conf, batches = _p16_carried()
+    x = batches[0][0]
+    probs = {}
+    for dev, policy in ((P16_DEVICE, dtypes.FLOAT32), ("cpu", dtypes.FLOAT32),
+                        ("tf32", dtypes.Policy(allow_tf32=True))):
+        on = P16_DEVICE if dev == "tf32" else dev
+        net = MultiLayerNetwork(conf, params_from_jax(np_params, conf,
+                                                      device=on), device=on)
+        with dtypes.policy(policy):
+            probs[dev] = net.output(x).cpu()
+    err = (probs[P16_DEVICE] - probs["cpu"]).abs().max().item()
+    err32 = (probs["tf32"] - probs["cpu"]).abs().max().item()
+    log(f"phase 16b LeNet probabilities, card vs CPU from the carried "
+        f"weights (batch 256): max |a - b| {err:.3e} (bar {P16_PROB_ATOL}); "
+        f"with TF32 allowed (the control, must fail the bar) {err32:.3e} "
+        f"[{card}]")
+    _must("phase 16b", err <= P16_PROB_ATOL, "card and CPU probabilities "
+          "differ")
+    _must("phase 16b", err32 > P16_PROB_ATOL, "the TF32 control's "
+          "probabilities pass the f32 bar: the bar cannot see TF32")
+    cpu_losses, _, cpu_ms = _p16_train(np_params, conf, batches, "cpu")
+    runs = [_p16_train(np_params, conf, batches, P16_DEVICE) for _ in range(2)]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(runs[0][0], cpu_losses))
+    same = runs[0][0] == runs[1][0] and all(
+        torch.equal(a, b) for la, lb in zip(runs[0][1], runs[1][1])
+        for a, b in zip(la.values(), lb.values()))
+    log(f"phase 16b {P16_STEPS} DataParallelTrainer steps (batch 256, SGD "
+        f"0.01 momentum 0.9): card {runs[0][0]} vs CPU {cpu_losses}; max "
+        f"rel {rel:.3e} (bar {P16_LOSS_RTOL}); two seeded card runs bitwise "
+        f"{same}; ms a step over steps 2-{P16_STEPS}: card {runs[0][2]:.3f} "
+        f"/ {runs[1][2]:.3f}, CPU {cpu_ms:.3f} [{card}]")
+    _must("phase 16b", rel <= P16_LOSS_RTOL, "card losses leave the CPU's")
+    _must("phase 16b", same, "two seeded card runs differ")
+    tf32, _, tf32_ms = _p16_train(np_params, conf, batches, P16_DEVICE,
+                                  dtypes.Policy(allow_tf32=True))
+    rel32 = max(abs(a - b) / abs(b) for a, b in zip(tf32, cpu_losses))
+    log(f"phase 16b the same steps with TF32 allowed (the control, must "
+        f"fail the bar): max rel {rel32:.3e} against the CPU (bar "
+        f"{P16_LOSS_RTOL}), {tf32_ms:.3f} ms a step [{card}]")
+    _must("phase 16b", rel32 > P16_LOSS_RTOL, "the TF32 control's losses "
+          "pass the f32 bar: the bar cannot see TF32")
+    _p16_hf(card, np_params, conf, x, batches[0][1])
+    bf16, _, bf16_ms = _p16_train(np_params, conf, batches, P16_DEVICE,
+                                  dtypes.MIXED_BF16)
+    _must("phase 16b", all(v == v for v in bf16), "a MIXED_BF16 loss is NaN")
+    log(f"phase 16b MIXED_BF16 steps: losses {bf16}; {bf16_ms:.3f} ms a step "
+        f"over steps 2-{P16_STEPS} [{card}]")
+    return np_params, conf, runs[0][1]
+
+
+def _p16_hf(card: str, np_params, conf, x, y) -> None:
+    """16b: Hessian-free on LeNet (conv backward through ``torch.func``),
+    card vs CPU from the carried weights; the TF32 control must fail the
+    bar."""
+    import torch
+
+    from deeplearning4j_tpu_torch import dtypes, rng
+    from deeplearning4j_tpu_torch.models.multilayer import (
+        MultiLayerNetwork,
+        params_from_jax,
+    )
+    from deeplearning4j_tpu_torch.nn import conf as C
+    from deeplearning4j_tpu_torch.optimize import solvers
+    from deeplearning4j_tpu_torch.optimize.api import ScoreIterationListener
+
+    hf = conf.confs[-1].replace(
+        optimization_algo=C.OptimizationAlgorithm.HESSIAN_FREE,
+        num_iterations=P16_HF_ITERS)
+    runs = {}
+    for name, dev, policy in (("card", P16_DEVICE, dtypes.FLOAT32),
+                              ("cpu", "cpu", dtypes.FLOAT32),
+                              ("tf32", P16_DEVICE,
+                               dtypes.Policy(allow_tf32=True))):
+        net = MultiLayerNetwork(conf, device=dev)
+        model = net._full_model_fns(net._tensor(x), net._tensor(y))
+        listener = ScoreIterationListener(1000)
+        t0 = time.perf_counter()
+        with dtypes.policy(policy):
+            params, _, iters = solvers.optimize(
+                hf, model, params_from_jax(np_params, conf, device=dev),
+                rng.key_for(11), listeners=[listener])
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        runs[name] = (listener.history, params, iters,
+                      time.perf_counter() - t0)
+    cpu_scores, cpu_params = runs["cpu"][0], runs["cpu"][1]
+
+    def off(name):
+        scores, params = runs[name][0], runs[name][1]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(scores, cpu_scores))
+        num = sum(float(torch.sum((a.cpu() - b) ** 2)) for la, lb in zip(
+            params, cpu_params) for a, b in zip(la.values(), lb.values()))
+        den = sum(float(torch.sum(b ** 2)) for lb in cpu_params
+                  for b in lb.values())
+        return rel, (num / den) ** 0.5
+
+    rel, prel = off("card")
+    rel32, prel32 = off("tf32")
+    log(f"phase 16b Hessian-free on LeNet ({P16_HF_ITERS} iterations, "
+        f"batch {x.shape[0]}), card vs CPU from the carried weights: scores card "
+        f"{runs['card'][0]} CPU {cpu_scores}, max rel {rel:.3e}, params "
+        f"rel {prel:.3e} (bar {P16_HF_RTOL}); TF32 allowed (the control, "
+        f"must fail the bar): scores rel {rel32:.3e}, params rel "
+        f"{prel32:.3e}; s a solve card {runs['card'][3]:.3f}, CPU "
+        f"{runs['cpu'][3]:.3f} [{card}]")
+    _must("phase 16b", runs["card"][2] == runs["cpu"][2] == P16_HF_ITERS,
+          "Hessian-free ran another number of iterations on the card")
+    _must("phase 16b", max(rel, prel) <= P16_HF_RTOL, "Hessian-free on the "
+          "card leaves the CPU's")
+    _must("phase 16b", max(rel32, prel32) > P16_HF_RTOL, "the TF32 "
+          "control's Hessian-free passes the f32 bar: the bar cannot see "
+          "TF32")
+
+
+def _p16_dbn(card: str) -> None:
+    """16c: the DBN on LFW: CD-1 pretraining, a CG finetune with full
+    backprop, then each solver's ms and host syncs an iteration."""
+    import torch
+
+    from deeplearning4j_tpu_torch import rng
+    from deeplearning4j_tpu_torch.datasets import ListDataSetIterator, fetchers
+    from deeplearning4j_tpu_torch.models.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn import conf as C
+    from deeplearning4j_tpu_torch.optimize import api, solvers
+    from deeplearning4j_tpu_torch.optimize.api import ScoreIterationListener
+    from deeplearning4j_tpu_torch.utils import tree_math as tm
+
+    ds = fetchers.lfw()
+    base = C.LayerConfig(layer_type="rbm", activation="sigmoid",
+                         visible_unit=C.VisibleUnit.BINARY,
+                         hidden_unit=C.HiddenUnit.BINARY, lr=0.1, k=1,
+                         num_iterations=P16_CD_ITERS,
+                         optimization_algo=C.OptimizationAlgorithm.CONJUGATE_GRADIENT)
+    mc = C.list_builder(base, sizes=list(P16_DBN_SIZES), n_in=784,
+                        n_out=ds.num_outcomes(), hidden_layer_type="rbm",
+                        backward=True,
+                        overrides={len(P16_DBN_SIZES): lambda c: c.replace(
+                            num_iterations=P16_FT_ITERS)})
+    net = MultiLayerNetwork(mc, seed=3, device=P16_DEVICE)
+    params = net.init()
+    it = ListDataSetIterator(ds, ds.num_examples())
+    x = net._tensor(ds.features)
+    rbm, c0 = net.modules[0], mc.confs[0]
+    before = rbm.score(params[0], c0, x, None).item()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net.pretrain(it)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    after = rbm.score(net.params[0], c0, x, None).item()
+    n_cd = P16_CD_ITERS * len(P16_DBN_SIZES)
+    log(f"phase 16c DBN 784-{'-'.join(map(str, P16_DBN_SIZES))}-"
+        f"{ds.num_outcomes()} on LFW ({ds.num_examples()} synthetic faces, "
+        f"one batch): CD-1 pretraining {n_cd} iterations in {secs:.3f} s, "
+        f"{1e3 * secs / n_cd:.3f} ms a CD iteration; layer 0 reconstruction "
+        f"score {before:.4f} -> {after:.4f} [{card}]")
+    _must("phase 16c", after < before, "pretraining did not lower the "
+          "reconstruction score")
+    pretrained = tm.tree_map(torch.clone, net.params)
+    listener = ScoreIterationListener(1000)
+    net.set_listeners([listener])
+    s0 = net.score(ds)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net.finetune(it)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    s1 = net.score(ds)
+    log(f"phase 16c CG finetune (full backprop, {len(listener.history)} "
+        f"iterations, listener on): score {s0:.4f} -> {s1:.4f}, "
+        f"{secs:.3f} s; scores {[round(v, 4) for v in listener.history]} "
+        f"[{card}]")
+    _must("phase 16c", s1 < s0, "the finetune did not lower the score")
+    y = net._tensor(ds.labels)
+    model = net._full_model_fns(x, y)
+    for algo in (C.OptimizationAlgorithm.GRADIENT_DESCENT,
+                 C.OptimizationAlgorithm.CONJUGATE_GRADIENT,
+                 C.OptimizationAlgorithm.LBFGS,
+                 C.OptimizationAlgorithm.HESSIAN_FREE):
+        conf = mc.confs[-1].replace(optimization_algo=algo,
+                                    num_iterations=P16_SOLVER_ITERS)
+
+        def run():
+            return solvers.optimize(conf, model,
+                                    tm.tree_map(torch.clone, pretrained),
+                                    rng.key_for(11))
+
+        run()  # warm-up
+        torch.cuda.synchronize()
+        api.reset_host_syncs()
+        t0 = time.perf_counter()
+        _, score, iters = run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        reads = api.host_syncs
+        (_, score2, iters2), syncs, where = _count_syncs(run)
+        _must("phase 16c", iters2 == iters and score2.item() == score.item(),
+              f"{algo}: the counted run differs")
+        log(f"phase 16c solver {algo} on the DBN finetune: {iters} "
+            f"iterations, {1e3 * secs / iters:.3f} ms an iteration, "
+            f"{reads / iters:.2f} host reads an iteration (api.host_reads), "
+            f"{syncs / iters:.2f} CUDA syncs an iteration (sync debug "
+            f"mode); score {score.item():.4f} [{card}]")
+
+
+def _p16_checkpoints(card: str, np_params, conf, trained) -> None:
+    """16d: an npz checkpoint written on the card restores bitwise in a
+    fresh network; ``to_bytes`` of the card's net holds the CPU net's."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.models.multilayer import (
+        MultiLayerNetwork,
+        params_from_jax,
+    )
+    from deeplearning4j_tpu_torch.parallel.checkpoint import CheckpointManager
+
+    shutil.rmtree(P16_DIR, ignore_errors=True)
+    try:
+        net = MultiLayerNetwork(conf, trained, device=P16_DEVICE)
+        mgr = CheckpointManager(P16_DIR)
+        mgr.maybe_save(P16_STEPS, net.checkpoint_tree(), {"loss": 0.0})
+        fresh = MultiLayerNetwork(conf, device=P16_DEVICE)
+        tree, meta = mgr.restore_latest(fresh.checkpoint_tree(fresh.init()),
+                                        device=P16_DEVICE)
+        fresh.params = fresh.from_checkpoint_tree(tree)
+        same = all(torch.equal(a, b) for la, lb in zip(trained, fresh.params)
+                   for a, b in zip(la.values(), [lb[k] for k in la]))
+        log(f"phase 16d LeNet npz checkpoint on the card -> fresh network: "
+            f"bitwise {same}; step {meta['step']}")
+        _must("phase 16d", same, "the restored params differ")
+        blobs = {}
+        for dev in (P16_DEVICE, "cpu"):
+            blob = MultiLayerNetwork(conf, params_from_jax(np_params, conf,
+                                                           device=dev),
+                                     device=dev).to_bytes()
+            with np.load(io.BytesIO(blob), allow_pickle=False) as z:
+                blobs[dev] = (z["params"], str(z["conf"]))
+        equal = (np.array_equal(blobs[P16_DEVICE][0], blobs["cpu"][0])
+                 and blobs[P16_DEVICE][1] == blobs["cpu"][1])
+        log(f"phase 16d to_bytes card vs CPU from the carried weights: "
+            f"params vector ({blobs['cpu'][0].size}) and config equal "
+            f"{equal}")
+        _must("phase 16d", equal, "to_bytes differs between card and CPU")
+    finally:
+        shutil.rmtree(P16_DIR, ignore_errors=True)
+
+
+def phase_dl4j_core(card: str) -> dict[str, dict[str, int]]:
+    """Phase 16: LeNet through ``train --model lenet``, card vs CPU, the
+    DBN and its solvers, checkpoints; none of it reaches kernels #1-#5."""
+    import torch
+
+    t0 = time.perf_counter()
+    total: dict[str, int] = {}
+
+    def timed(name, fn):
+        t1 = time.perf_counter()
+        out = fn()
+        log(f"phase 16{name}: {time.perf_counter() - t1:.1f} s")
+        torch.cuda.empty_cache()
+        return out
+
+    # TF32 on for the whole process, as PyTorch leaves cuDNN out of the
+    # box (cuBLAS too): FLOAT32 must hold by the port's own scoping
+    mm, dnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    prev = (mm.allow_tf32, dnn.allow_tf32, dnn.deterministic)
+    mm.allow_tf32, dnn.allow_tf32, dnn.deterministic = True, True, False
+    try:
+        timed("a", lambda: _p16_lenet_cli(card, total))  # counts its own
+        reset_launches()
+        carried = timed("b", lambda: _p16_parity(card))
+        timed("c", lambda: _p16_dbn(card))
+        timed("d", lambda: _p16_checkpoints(card, *carried))
+    finally:
+        mm.allow_tf32, dnn.allow_tf32, dnn.deterministic = prev
+    _add(total, read_launches())
+    _must("phase 16", not any(total.values()),
+          f"a kernel of #1-#5 launched on the DL4J-era path: {total}")
+    log(f"phase 16: {time.perf_counter() - t0:.1f} s wall [{card}]")
+    return {"dl4j_core": {name: total.get(name, 0) for name in KERNELS}}
+
+
 def main() -> int:
     try:
         import torch
@@ -6748,6 +7179,7 @@ def main() -> int:
         shutil.rmtree(TP_PROBES.parent, ignore_errors=True)
     by_phase.update(phase_moe_mesh(card))
     by_phase.update(phase_mesh_cluster(card))
+    by_phase.update(phase_dl4j_core(card))
     kernels = [
         dict(name=name, route="cuda", **KERNELS[name],
              launches=sum(p[name] for p in by_phase.values()),

@@ -15,9 +15,13 @@ the router), with attention on hand-written CUDA kernels (``ops/``,
 sources in ``csrc/``): the flash forward and backward for training and
 prefill, flash decode (slab and paged, bf16 and int8) for serving. It
 also trains Word2Vec and ParagraphVectors (the fused embedding-dot
-kernel). Later slices: the DL4J-era framework (``nn/``, the solvers, the
-DL4J nets and their parallel training), GloVe and the rest of the NLP
-models, the tools and ``analysis/``.
+kernel), and the DL4J-era framework: the layers (``nn/``), the solvers
+(``optimize/``), ``MultiLayerNetwork`` with LeNet and the DBN
+(``models/multilayer.py``, ``models/lenet.py``), the datasets and
+evaluation, and ``DataParallelTrainer`` (``python -m
+deeplearning4j_tpu_torch train --model lenet``). Later slices: the DL4J
+nets' other parallel modes, the model zoo (AlexNet, ResNet, char-LSTM),
+GloVe and the rest of the NLP models, the tools and ``analysis/``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no GPU and no explicit CPU device they raise. CPU tensors take each

@@ -138,9 +138,18 @@ def _start_status_rest(svc, args) -> None:
 def _train_checks(args) -> str | None:
     """The flag checks ``train`` makes before it loads anything, as the
     reference's; the message of the first that fails, or None."""
-    if args.model != "transformer":
-        return (f"--model {args.model} comes with the DL4J-era slice of the "
-                "port; this slice trains --model transformer")
+    if args.model == "alexnet":
+        return ("--model alexnet comes with the DL4J model zoo (AlexNet, "
+                "ResNet, the char-LSTM: ROADMAP Queue 1 item 6); this port "
+                "trains --model lenet and --model transformer")
+    if args.status_port is not None and not 0 <= args.status_port <= 65535:
+        return f"--status-port ({args.status_port}) must be in [0, 65535]"
+    if args.model == "lenet":
+        if args.coordinator:
+            return ("--model lenet across processes comes with the DL4J "
+                    "nets' parallel training (ROADMAP Queue 1 item 5); it "
+                    "trains over the cards of one process")
+        return None
     tp = max(1, args.tp)
     if args.d_model % args.n_heads:
         return (f"--d-model ({args.d_model}) must be divisible by --n-heads "
@@ -153,8 +162,6 @@ def _train_checks(args) -> str | None:
     if args.coordinator and (args.num_processes is None
                              or args.process_id is None):
         return "--coordinator needs --num-processes and --process-id"
-    if args.status_port is not None and not 0 <= args.status_port <= 65535:
-        return f"--status-port ({args.status_port}) must be in [0, 65535]"
     if (args.checkpoint_dir and args.checkpoint_backend == "npz"
             and args.coordinator and args.num_processes > 1):
         # the reference's refusal (its npz backend cannot address a
@@ -162,6 +169,80 @@ def _train_checks(args) -> str | None:
         return ("npz checkpoints cannot address multi-process shardings; "
                 "use --checkpoint-backend orbax for distributed runs")
     return None
+
+
+def _train_lenet(args) -> int:
+    """``train --model lenet``, as the reference's ``cmd_train``: LeNet from
+    seed 0 on ``fetchers.mnist(n=--examples)`` (the synthetic stand-in when
+    no idx files are present), ``DataParallelTrainer`` over the data axis
+    (every card, or ``--device``), ``--epochs`` passes of ``--batch``-row
+    steps (the last partial batch dropped), step ``i``'s key
+    ``rng.key_for(i)``, ``epoch e step i loss`` every 10 steps and ``final
+    loss``; npz checkpoints on ``--checkpoint-dir`` every ``--save-every``
+    steps in the reference's keys and layout; ``--status-port`` serves the
+    ClusterService status. Closes with the ms a step over steps 2..N (the
+    loss read back at each step's end) and the samples a second."""
+    from deeplearning4j_tpu_torch import rng
+    from deeplearning4j_tpu_torch.datasets import fetchers
+    from deeplearning4j_tpu_torch.device import resolve_device
+    from deeplearning4j_tpu_torch.models.lenet import build_lenet, lenet_loss
+    from deeplearning4j_tpu_torch.parallel import mesh as mesh_lib
+    from deeplearning4j_tpu_torch.parallel.checkpoint import CheckpointManager
+    from deeplearning4j_tpu_torch.parallel.cluster import ClusterService
+    from deeplearning4j_tpu_torch.parallel.data_parallel import (
+        DataParallelTrainer,
+    )
+
+    dev = resolve_device(args.device)
+    net, params = build_lenet(device=dev)
+    ds = fetchers.mnist(n=args.examples)
+    svc = ClusterService()
+    svc.model_description = ("lenet (conv 6, conv 16, dense 120, dense 84, "
+                             "softmax 10)")
+    _start_status_rest(svc, args)
+    mesh = mesh_lib.data_parallel_mesh(
+        devices=[dev] if args.device else None)
+    trainer = DataParallelTrainer(lenet_loss(net), mesh=mesh)
+    state = trainer.init(params)
+    mgr = (CheckpointManager(args.checkpoint_dir, save_every=args.save_every)
+           if args.checkpoint_dir else None)
+
+    svc.phase = "train"
+    b = min(args.batch, ds.num_examples())
+    step_idx, loss, step_s = 0, None, []
+    for epoch in range(args.epochs):
+        for batch in ds.batches(b, drop_last=True):
+            t0 = time.perf_counter()
+            x, y = trainer.shard_batch(batch.features, batch.labels)
+            state, loss = trainer.step(state, x, y, rng.key_for(step_idx))
+            step_idx += 1
+            svc.batches_so_far = step_idx
+            # the reference reads every step's loss (its early-stop rule)
+            loss = float(loss)
+            step_s.append(time.perf_counter() - t0)
+            if step_idx % 10 == 0:
+                print(f"epoch {epoch} step {step_idx} loss {loss:.4f}",
+                      flush=True)
+            if svc.report_loss(loss):
+                # ends the epoch, as the reference's loop does
+                print("early stop triggered", flush=True)
+                break
+            if mgr is not None:
+                mgr.maybe_save(step_idx, net.checkpoint_tree(state.params),
+                               {"loss": loss})
+    svc.phase = "done"
+    svc.stop_rest_api()
+    if loss is None:
+        print("no full batch to train on", file=sys.stderr)
+        return 2
+    print(f"final loss {loss:.4f}", flush=True)
+    first = 2 if len(step_s) > 1 else 1
+    ms = 1e3 * sum(step_s[first - 1:]) / (len(step_s) - first + 1)
+    print(f"{ms:.3f} ms a step over steps {first}-{len(step_s)} (batch {b}, "
+          f"{trainer.dp} data rank(s) on {trainer.device}, host clock, the "
+          f"loss read back each step), {1e3 * b / ms:.0f} samples/s",
+          flush=True)
+    return 0
 
 
 def cmd_train(args) -> int:
@@ -189,6 +270,8 @@ def cmd_train(args) -> int:
     if msg is not None:
         print(msg, file=sys.stderr)
         return 2
+    if args.model == "lenet":
+        return _train_lenet(args)
     tp = max(1, args.tp)
     if args.text:
         try:
@@ -895,17 +978,22 @@ def _add_model_flags(ap) -> None:
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="deeplearning4j_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
-    t = sub.add_parser("train", help="train the transformer LM (one device "
-                       "or a (data, model) mesh)")
+    t = sub.add_parser("train", help="train LeNet (data-parallel over the "
+                       "cards) or the transformer LM (one device or a "
+                       "(data, model) mesh)")
     t.add_argument("--model", default="lenet",
                    choices=["lenet", "alexnet", "transformer"],
-                   help="only transformer in this slice")
+                   help="lenet or transformer (alexnet comes with the DL4J "
+                   "model zoo)")
     t.add_argument("--device", default=None,
                    help="torch device (default cuda; 'cpu' runs the plain "
                    "versions of the kernels)")
+    t.add_argument("--epochs", type=int, default=1, help="lenet: passes")
+    t.add_argument("--examples", type=int, default=4096,
+                   help="lenet: MNIST examples")
+    t.add_argument("--batch", type=int, default=256)
     t.add_argument("--text", default=None, help="path to a byte-level corpus")
     t.add_argument("--steps", type=int, default=200)
-    t.add_argument("--batch", type=int, default=256)
     t.add_argument("--preset", choices=sorted(PRESETS), default=None,
                    help="model geometry preset (overrides the flags below)")
     t.add_argument("--seq-len", type=int, default=128)

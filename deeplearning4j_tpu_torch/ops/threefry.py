@@ -111,12 +111,16 @@ def uniform_from_bits(bits: torch.Tensor, minval: float = 0.0,
                       maxval: float = 1.0) -> torch.Tensor:
     """f32 uniforms from int64-held 32-bit draws, as ``_uniform`` computes
     them: ``bits >> 9 | 0x3F800000`` viewed as f32, minus 1, times
-    ``maxval - minval`` (in f32), plus ``minval``, at least ``minval``."""
+    ``maxval - minval`` (in f32), plus ``minval``, at least ``minval``.
+    XLA fuses the scale and shift into one multiply-add (one rounding);
+    the product and sum of these f32 operands are exact in f64, so they
+    are formed there and rounded once to f32. Over ``[0, 1)`` and the
+    Gumbel draw's ``[tiny, 1)`` the product is exact in f32 as well, so
+    the draw kernel's f32 arithmetic gives the same values."""
     f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
     lo, hi = np.float32(minval), np.float32(maxval)
-    # f32 values as host numbers: both are exact in f32, and the product
-    # and sum round as f32 operations do
-    return (f * float(hi - lo) + float(lo)).clamp_min(float(lo))
+    u = f.double() * float(hi - lo) + float(lo)
+    return u.float().clamp_min(float(lo))
 
 
 def gumbel_from_bits(bits: torch.Tensor) -> torch.Tensor:
@@ -174,22 +178,29 @@ def fold_in(k, data: int) -> Key:
     return threefry2x32(k0, k1, 0, data)
 
 
-def random_bits(k, shape, device=None) -> torch.Tensor:
+def random_bits(k, shape, device=None, offset: int = 0) -> torch.Tensor:
     """``jax.random.bits(k, shape)`` (32-bit, in int64): ``bits1 ^ bits2``
     over the row-major flat index as counter, computed on ``device`` (the
-    CPU by default; integer math, the same bits anywhere)."""
+    CPU by default; integer math, the same bits anywhere). The key's words
+    enter the cipher as host numbers, so a draw uploads nothing. With
+    ``offset`` the counters start there: the draw is that stretch of a
+    larger one (partitionable counters depend on the index alone)."""
     shape = ((int(shape),) if np.isscalar(shape)
              else tuple(int(s) for s in shape))
-    n = int(np.prod(shape, dtype=np.int64))
-    keys = torch.tensor([as_key(k)], dtype=torch.int64, device=device)
-    return random_bits_rows(keys, n).reshape(shape)
+    k0, k1 = as_key(k)
+    idx = torch.arange(int(offset), int(offset) + int(np.prod(
+        shape, dtype=np.int64)), dtype=torch.int64, device=device)
+    y0, y1 = threefry2x32(k0, k1, idx >> 32, idx & _M32)
+    return (y0 ^ y1).reshape(shape)
 
 
 def uniform(k, shape, minval: float = 0.0, maxval: float = 1.0,
-            device=None) -> torch.Tensor:
+            device=None, offset: int = 0) -> torch.Tensor:
     """``jax.random.uniform(k, shape, float32, minval, maxval)`` on
-    ``device`` (the CPU by default)."""
-    return uniform_from_bits(random_bits(k, shape, device), minval, maxval)
+    ``device`` (the CPU by default), bit for bit; ``offset`` as
+    :func:`random_bits`'s."""
+    return uniform_from_bits(random_bits(k, shape, device, offset), minval,
+                             maxval)
 
 
 def _row_keys(logits, keys, pos):

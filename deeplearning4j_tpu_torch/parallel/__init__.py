@@ -5,6 +5,8 @@
   processes, whose gradient bucket ``all_reduce_mean`` averages);
 - ``expert_parallel``: MoE routing and the expert FFNs;
 - ``sequence_parallel``: ring attention over the data axis;
+- ``data_parallel``: ``DataParallelTrainer``, the DL4J-era nets' per-step
+  gradient averaging over a data axis;
 - ``checkpoint``: npz checkpoints (both packages' format) and
   ``AsyncShardedCheckpointManager`` on ``torch.distributed.checkpoint``;
 - ``cluster``: ``ClusterService`` (heartbeats, eviction, early stop, the
@@ -25,8 +27,10 @@ _EXPORTS = {
     "FileRegistry": "cluster",
     "WorkerInfo": "cluster",
     "initialize_distributed": "cluster",
+    "DataParallelTrainer": "data_parallel",
     "DeviceMesh": "mesh",
     "all_reduce_mean": "mesh",
+    "data_parallel_mesh": "mesh",
     "dp_mp_mesh": "mesh",
     "hybrid_mesh": "mesh",
     "LeaseLostError": "registry",

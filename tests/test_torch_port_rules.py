@@ -218,6 +218,36 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     toks = transformer_speculative_generate(cfg)(params, params, prompt, 2,
                                                  temperature=0.0)
     assert toks.device.type == "cpu" and toks.shape == (1, 5)
+    # the DL4J-era core: the network, LeNet, the carried params, a layer's
+    # init, the data-parallel trainer and train --model lenet
+    from deeplearning4j_tpu_torch import cli
+    from deeplearning4j_tpu_torch.models import lenet, multilayer
+    from deeplearning4j_tpu_torch.nn import layers
+    from deeplearning4j_tpu_torch.parallel.data_parallel import (
+        DataParallelTrainer,
+    )
+
+    conf = lenet.lenet_config()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        multilayer.MultiLayerNetwork(conf)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lenet.build_lenet()
+    net, lp = lenet.build_lenet(device="cpu")
+    assert net.device.type == "cpu" and lp[0]["convweights"].device.type == "cpu"
+    np_lp = multilayer.params_to_jax(lp, conf)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        multilayer.params_from_jax(np_lp, conf)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        multilayer.MultiLayerNetwork.from_bytes(net.to_bytes())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        layers.get("dense").init((0, 0), conf.confs[2])
+    assert layers.get("dense").init((0, 0), conf.confs[2],
+                                    device="cpu")["W"].shape == (256, 120)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DataParallelTrainer(lenet.lenet_loss(net))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["train", "--model", "lenet", "--examples", "64",
+                  "--batch", "32"])
 
 
 _IMPORT_MESH = """

@@ -228,12 +228,13 @@ def test_train_cli_runs_on_cpu():
                                    "--coordinator", "localhost:1",
                                    "--num-processes", "2",
                                    "--process-id", "1"],
-                                  ["--model", "lenet"]])
+                                  ["--model", "alexnet"]])
 def test_train_cli_names_the_later_slice(flag):
     """The flags of the cluster slice run now (tests/test_torch_cli_cluster
     .py); what still exits 2 is a flag combination the reference refuses
     (a coordinator without its process count, an invalid status port, npz
-    checkpoints across processes) and the DL4J-era models."""
+    checkpoints across processes) and the model-zoo models (``--model
+    lenet`` trains: tests/test_torch_cli_lenet.py)."""
     from deeplearning4j_tpu_torch import cli
 
     args = ["train", "--model", "transformer", "--device", "cpu", *flag]
