@@ -304,6 +304,30 @@ Phases, in order; any failure exits non-zero without printing a result:
    sync debug mode sees; (d) a LeNet npz checkpoint written on the card
    restored bitwise into a fresh network, and ``to_bytes`` of the card's
    net holding the CPU net's vector and config.
+17. the DL4J nets across devices and processes, and the rest of the zoo
+   (kernels #1-#5 must launch 0 times; the draw launches once a sampled
+   character in (e), at the shape phase 2 holds): (a) ``train --model
+   alexnet`` at batch 256 (32 steps) and 1,024 (24 steps) on synthetic
+   CIFAR, the losses finite and falling, ms a step, samples a second and
+   peak memory; AlexNet from its seed-0 weights carried as numpy: the
+   probabilities on the card within 1e-6 of the CPU's, 5 trainer steps'
+   losses within rel 1e-6, two seeded card runs bitwise; (b) ResNet-20 at
+   full width (16/32/64 channels, 3 blocks a stage): 20 MIXED_BF16 steps
+   at batch 1,024 (finite, falling, ms a step), one f32 step at batch 128
+   card vs CPU (the loss rel 1e-5; params and BN state leaf by leaf within
+   1e-4 of the leaf's max plus 5e-5), sync-BN dp 2 on ``["cuda:0"] * 2``
+   against dp 1 (loss and BN state within 1e-5); (c) two ``train --model lenet
+   --coordinator`` processes over gloo on the card, the final loss within
+   rel 1e-5 of the one-process run's; (d) a 4-stage pipeline on
+   ``["cuda:0"] * 4`` (width 512, 8 microbatches of 128: the output
+   bitwise the sequential stack's microbatch by microbatch, gradients
+   within 1e-6, 5 train steps falling), ``tp_mlp_block`` at tp 2 at
+   AlexNet's dense widths against the dense block (1e-5),
+   ``local_sgd_step`` on LeNet at dp 2 with 2 local steps against the CPU
+   (rel 1e-5) with ``replica_consensus`` 0, ``sequence_sharded_lstm`` over
+   4 ranks at T 128 bitwise ``scan_hidden``; (e) the char-LSTM on a built
+   text: 2 epochs (the loss falls, ms an epoch), 50 sampled characters,
+   the device beam equal to the host oracle (scores within 1e-5).
 
 The last lines are the kernel table as one JSON object, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -1301,6 +1325,8 @@ def phase_draw() -> list[dict]:
             # phase 15a's sampled generate over 8 prompts
             _draw_case(P15_PROMPTS, vocab, flat=True),
             _draw_case(1, vocab, flat=True, spec=True),
+            # phase 17e's char-LSTM samples over its text's characters
+            _draw_case(1, p17_vocab(), flat=True),
             _draw_case(8, vocab, flat=False)]
 
 
@@ -7122,6 +7148,544 @@ def phase_dl4j_core(card: str) -> dict[str, dict[str, int]]:
     return {"dl4j_core": {name: total.get(name, 0) for name in KERNELS}}
 
 
+# -- phase 17: the DL4J nets across devices and processes, and the zoo -------
+
+#: the card phase 17 runs on (against the CPU)
+P17_DEVICE = "cuda"
+#: 17a: AlexNet through the CLI at the reference's batch of 256 (32 steps)
+#: and at 1,024 (24 steps), synthetic CIFAR
+P17_CLI = [["--examples", "4096", "--batch", "256", "--epochs", "2"],
+           ["--examples", "12288", "--batch", "1024", "--epochs", "2"]]
+#: 17a: AlexNet from the carried weights, card vs CPU (16b's bars)
+P17_BATCH, P17_STEPS = 128, 5
+P17_PROB_ATOL, P17_LOSS_RTOL = 1e-6, 1e-6
+#: 17b: ResNet-20 at full width: the reference bench's batch and dtype
+P17_RESNET_BATCH, P17_RESNET_STEPS = 1024, 20
+#: 17b: one f32 step card vs CPU (batch 128): the loss rel
+#: (P17_RESNET_LOSS_RTOL), and leaf by leaf over params and BN state |a -
+#: b| <= RTOL * max|b| + ATOL. The BN scales' and biases' gradients are sums
+#: over N*H*W = 131,072 terms that nearly cancel, so the card's and the
+#: CPU's summation orders leave up to 1.97e-05 between them after one step
+#: of lr 0.1 (a scale near 1; 8.3e-06 on a bias near 9e-3, where that is
+#: 2.5e-3 of the leaf's max, also with cuDNN off), while the loss agrees to
+#: rel 6.6e-08 and the tree to 6.0e-06 by norm; the bar leaves ~6x room over
+#: both readings. Sync-BN dp 2 vs dp 1 at the same global batch
+P17_RESNET_F32, P17_RESNET_LOSS_RTOL = 128, 1e-5
+P17_RESNET_RTOL, P17_RESNET_ATOL = 1e-4, 5e-5
+P17_SYNC_TOL = 1e-5
+#: 17c: LeNet over two processes against one (unrounded final loss)
+P17_PROC_RTOL = 1e-5
+P17_LENET = ["--model", "lenet", "--examples", "4096", "--batch", "256",
+             "--device", "cuda:0"]
+#: 17d: the parallel modes' shapes and bars
+P17_PIPE_STAGES, P17_PIPE_WIDTH, P17_PIPE_MICRO, P17_PIPE_MB = 4, 512, 8, 128
+P17_PIPE_GRAD_TOL = 1e-6
+P17_TP_WIDTHS, P17_TP_BATCH, P17_TP_TOL = (1024, 512, 256), 256, 1e-5
+P17_LOCAL_RTOL = 1e-5
+P17_LSTM_RANKS, P17_LSTM_T, P17_LSTM_V, P17_LSTM_B = 4, 128, 64, 32
+#: 17e: the char-LSTM: 2 epochs on the built text, 50 sampled characters,
+#: the device beam against the host oracle
+P17_CHAR_EPOCHS, P17_SAMPLE, P17_BEAM_TOL = 2, 50, 1e-5
+
+
+def p17_text() -> str:
+    """The char-LSTM's corpus: 600 words drawn (seed 17) from a fixed list
+    of English words, lower case and spaced, with a full stop every 12
+    words."""
+    import numpy as np
+
+    words = ("the of and to in is was that for it with as his on be at by "
+             "had are but from or have an they which one you were her all "
+             "she there would their we him been has when who will more no "
+             "if out so said what up its about into than them can only "
+             "other new some could time these two may then do first any "
+             "my now such like our over man me even most made after also "
+             "did many before must through back years where much your way "
+             "well down should because each just those people how too "
+             "little state good very make world still own see men work "
+             "long get here between both life being under never day same "
+             "another know while last might us great old year off come "
+             "since against go came right used take three").split()
+    rs = np.random.default_rng(17)
+    out = []
+    for i, w in enumerate(rs.choice(words, 600)):
+        out.append(w + (". " if i % 12 == 11 else " "))
+    return "".join(out)
+
+
+def p17_vocab() -> int:
+    """The draw's V in 17e: the text's distinct characters."""
+    return len(set(p17_text()))
+
+
+def _p17_alexnet_cli(card: str, total: dict) -> None:
+    """17a: ``train --model alexnet`` through ``cli.main`` on the card."""
+    import math
+    import re
+
+    import torch
+
+    for flags in P17_CLI:
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        launches, out = _cli("phase 17a", ["train", "--model", "alexnet",
+                                           *flags])
+        _add(total, launches)
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**20
+        steps = [float(v) for v in re.findall(r"^epoch \d+ step \d+ loss "
+                                              r"(\S+)$", out, re.M)]
+        final = re.search(r"^final loss (\S+)$", out, re.M)
+        timing = re.search(r"^([0-9.]+) ms a step over steps (\d+)-(\d+) "
+                           r"\(batch (\d+).*\), (\d+) samples/s$", out, re.M)
+        _must("phase 17a", final is not None and timing is not None,
+              "no final loss or timing line")
+        losses = steps + [float(final.group(1))]
+        _must("phase 17a", all(math.isfinite(v) for v in losses),
+              f"a loss is not finite: {losses}")
+        _must("phase 17a", len(losses) > 1 and losses[-1] < losses[0],
+              f"the loss did not fall: {losses}")
+        log(f"phase 17a alexnet batch {timing.group(4)}: {timing.group(1)} "
+            f"ms a step over steps {timing.group(2)}-{timing.group(3)} (host "
+            f"clock, device synced by the loss read each step), "
+            f"{timing.group(5)} samples/s; losses {losses}; peak memory "
+            f"{peak:.1f} MiB above the {held / 2**20:.1f} MiB held before "
+            f"[{card}]")
+
+
+def _p17_alexnet_train(np_params, conf, x, y, device):
+    """P17_STEPS DataParallelTrainer steps of AlexNet on one batch from
+    the carried weights: (losses, params)."""
+    from deeplearning4j_tpu_torch import rng
+    from deeplearning4j_tpu_torch.models import lenet
+    from deeplearning4j_tpu_torch.models.multilayer import (
+        MultiLayerNetwork,
+        params_from_jax,
+    )
+    from deeplearning4j_tpu_torch.parallel.data_parallel import (
+        DataParallelTrainer,
+    )
+    from deeplearning4j_tpu_torch.parallel.mesh import data_parallel_mesh
+
+    net = MultiLayerNetwork(conf, device=device)
+    trainer = DataParallelTrainer(lenet.lenet_loss(net),
+                                  mesh=data_parallel_mesh(devices=[device]))
+    state = trainer.init(params_from_jax(np_params, conf, device=device))
+    losses = []
+    for i in range(P17_STEPS):
+        state, loss = trainer.step(state, *trainer.shard_batch(x, y),
+                                   rng.key_for(i))
+        losses.append(loss)
+    return [v.item() for v in losses], state.params
+
+
+def _p17_alexnet_parity(card: str) -> None:
+    """17a: AlexNet from its seed-0 weights carried as the reference's
+    numpy arrays: card vs CPU probabilities and 5 trainer steps, two
+    seeded card runs bitwise."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models import alexnet
+    from deeplearning4j_tpu_torch.models.multilayer import (
+        MultiLayerNetwork,
+        params_from_jax,
+        params_to_jax,
+    )
+
+    net, params = alexnet.build_alexnet(0, device="cpu")
+    np_params, conf = params_to_jax(params, net.conf), net.conf
+    ds = alexnet.synthetic_cifar(P17_BATCH, seed=1)
+    card_probs, cpu_probs = (MultiLayerNetwork(conf, params_from_jax(
+        np_params, conf, device=dev), device=dev).output(ds.features).cpu()
+        for dev in (P17_DEVICE, "cpu"))
+    err = (card_probs - cpu_probs).abs().max().item()
+    cpu, _ = _p17_alexnet_train(np_params, conf, ds.features, ds.labels,
+                                "cpu")
+    runs = [_p17_alexnet_train(np_params, conf, ds.features, ds.labels,
+                               P17_DEVICE) for _ in range(2)]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(runs[0][0], cpu))
+    same = runs[0][0] == runs[1][0] and all(
+        torch.equal(a, b) for la, lb in zip(runs[0][1], runs[1][1])
+        for a, b in zip(la.values(), lb.values()))
+    log(f"phase 17a AlexNet from the carried weights (batch {P17_BATCH}): "
+        f"probabilities card vs CPU max |a - b| {err:.3e} (bar "
+        f"{P17_PROB_ATOL}); {P17_STEPS} trainer steps card {runs[0][0]} vs "
+        f"CPU {cpu}: max rel {rel:.3e} (bar {P17_LOSS_RTOL}); two seeded card "
+        f"runs bitwise {same} [{card}]")
+    _must("phase 17a", err <= P17_PROB_ATOL, "card and CPU probabilities "
+          "differ")
+    _must("phase 17a", rel <= P17_LOSS_RTOL, "card losses leave the CPU's")
+    _must("phase 17a", same, "two seeded card runs differ")
+
+
+def _p17_resnet(card: str) -> None:
+    """17b: ResNet-20 at full width on synthetic CIFAR: MIXED_BF16 steps at
+    the bench's batch, one f32 step card vs CPU, sync-BN dp 2 vs dp 1."""
+    import math
+
+    import torch
+
+    from deeplearning4j_tpu_torch import dtypes, rng
+    from deeplearning4j_tpu_torch.device import synchronize
+    from deeplearning4j_tpu_torch.models import resnet
+    from deeplearning4j_tpu_torch.models.alexnet import synthetic_cifar
+    from deeplearning4j_tpu_torch.parallel.data_parallel import SGD
+    from deeplearning4j_tpu_torch.parallel.mesh import data_parallel_mesh
+    from deeplearning4j_tpu_torch.utils import tree_math as tm
+
+    cfg = resnet.ResNetConfig()  # ResNet-20: 3 blocks a stage, 16/32/64
+    ds = synthetic_cifar(P17_RESNET_BATCH, seed=2)
+    x = ds.features.reshape(-1, 32, 32, 3)
+    y = ds.labels
+    step, init = resnet.resnet_train_step(cfg, device=P17_DEVICE)
+    with dtypes.policy(dtypes.MIXED_BF16):
+        params, state, opt = init(rng.key_for(0))
+        xd, yd = (torch.from_numpy(a).to(P17_DEVICE) for a in (x, y))
+        losses, secs = [], []
+        for _ in range(P17_RESNET_STEPS):
+            t0 = time.perf_counter()
+            params, state, opt, loss = step(params, state, opt, xd, yd)
+            synchronize(torch.device(P17_DEVICE))
+            secs.append(time.perf_counter() - t0)
+            losses.append(loss.item())
+    ms = 1e3 * sum(secs[1:]) / (len(secs) - 1)
+    log(f"phase 17b ResNet-20 MIXED_BF16 batch {P17_RESNET_BATCH}: "
+        f"{ms:.3f} ms a step over steps 2-{P17_RESNET_STEPS} (host clock, "
+        f"device synced), {1e3 * P17_RESNET_BATCH / ms:.0f} samples/s; "
+        f"losses {[round(v, 4) for v in losses]} [{card}]")
+    _must("phase 17b", all(math.isfinite(v) for v in losses),
+          "a MIXED_BF16 loss is not finite")
+    _must("phase 17b", losses[-1] < losses[0], "the loss did not fall")
+    # one f32 step, card vs CPU, from the same init (drawn on the CPU)
+    p0, s0 = resnet.init_resnet(rng.key_for(1), cfg, device="cpu")
+    xb, yb = x[:P17_RESNET_F32], y[:P17_RESNET_F32]
+    card_out, cpu_out = (
+        tm.tree_map(lambda t: t.cpu(), resnet.resnet_train_step(
+            cfg, device=dev)[0](*tm.tree_map(lambda t: t.to(dev), (p0, s0)),
+                                SGD(0.1, 0.9).init(tm.tree_map(
+                                    lambda t: t.to(dev), p0)), xb, yb))
+        for dev in (P17_DEVICE, "cpu"))
+    rel = abs(card_out[3].item() - cpu_out[3].item()) / abs(
+        cpu_out[3].item())
+    pairs = list(zip(tm.leaves(card_out[:2]), tm.leaves(cpu_out[:2])))
+    # each leaf's |a - b| over its allowance (<= 1 passes)
+    worst = max(((a - b).abs().max() / (P17_RESNET_RTOL * b.abs().max()
+                                        + P17_RESNET_ATOL)).item()
+                for a, b in pairs)
+    maxabs = max((a - b).abs().max().item() for a, b in pairs)
+    flat = [torch.cat([t.reshape(-1) for t in ts]) for ts in zip(*pairs)]
+    norm = ((flat[0] - flat[1]).norm() / flat[1].norm()).item()
+    log(f"phase 17b ResNet-20 f32 batch {P17_RESNET_F32}, one step card vs "
+        f"CPU: loss {card_out[3].item()!r} vs {cpu_out[3].item()!r} "
+        f"(rel {rel:.3e}, bar {P17_RESNET_LOSS_RTOL}); params and BN state "
+        f"max |a - b| {maxabs:.3e}, the worst leaf at {worst:.3f} of its "
+        f"allowance ({P17_RESNET_RTOL} max|b| + {P17_RESNET_ATOL}), the tree "
+        f"by norm rel {norm:.3e} [{card}]")
+    _must("phase 17b", rel <= P17_RESNET_LOSS_RTOL and worst <= 1.0,
+          "the card's step leaves the CPU's")
+    # sync-BN: dp 2 on one card against dp 1 at the same global batch
+    sync = {}
+    for dp in (1, 2):
+        st, _ = resnet.resnet_train_step(cfg, mesh=data_parallel_mesh(
+            devices=[P17_DEVICE] * dp))
+        p, s = tm.tree_map(lambda t: t.to(P17_DEVICE), (p0, s0))
+        sync[dp] = st(p, s, SGD(0.1, 0.9).init(p), xb, yb)
+    lrel = abs(sync[2][3].item() - sync[1][3].item()) / abs(
+        sync[1][3].item())
+    srel = max((a - b).abs().max().item() for a, b in zip(
+        tm.leaves(sync[2][1]), tm.leaves(sync[1][1])))
+    log(f"phase 17b sync-BN dp 2 on [cuda:0] * 2 vs dp 1 (batch "
+        f"{P17_RESNET_F32}): loss rel {lrel:.3e}, BN state max |a - b| "
+        f"{srel:.3e} (bar {P17_SYNC_TOL}) [{card}]")
+    _must("phase 17b", lrel <= P17_SYNC_TOL and srel <= P17_SYNC_TOL,
+          "sync-BN over two ranks leaves the one-rank step")
+
+
+def _p17_lenet_processes(card: str, total: dict) -> None:
+    """17c: two ``train --model lenet --coordinator`` processes over gloo on
+    the card against the one-process run."""
+    import re
+    import socket
+
+    launches, one = _cli("phase 17c one process", ["train", *P17_LENET])
+    _add(total, launches)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs, outs = [], []
+    t0 = time.perf_counter()
+    try:
+        for i in range(2):
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "deeplearning4j_tpu_torch", "train",
+                 *P17_LENET, "--coordinator", f"127.0.0.1:{port}",
+                 "--num-processes", "2", "--process-id", str(i)], cwd=ROOT,
+                text=True, stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+        for p in procs:
+            outs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    secs = time.perf_counter() - t0
+
+    def final(text):
+        m = re.search(r"^final loss unrounded (\S+)$", text, re.M)
+        return float(m.group(1)) if m else float("nan")
+
+    want = final(one)
+    for i, (p, out) in enumerate(zip(procs, outs)):
+        log(f"phase 17c process {i}: exit {p.returncode} in {secs:.1f} s "
+            f"(both)")
+        for line in out.splitlines():
+            log(f"  | {_printable(line)}")
+        _must("phase 17c", p.returncode == 0, f"process {i} failed")
+        rel = abs(final(out) - want) / abs(want)
+        log(f"phase 17c process {i}: final loss {final(out)!r} vs one "
+            f"process {want!r}: rel {rel:.3e} (bar {P17_PROC_RTOL}) [{card}]")
+        _must("phase 17c", rel <= P17_PROC_RTOL,
+              "two processes' loss leaves the one-process run's")
+
+
+def _p17_pipeline(card: str) -> None:
+    import torch
+
+    from deeplearning4j_tpu_torch.parallel import pipeline_parallel as pp
+    from deeplearning4j_tpu_torch.parallel.data_parallel import SGD
+    from deeplearning4j_tpu_torch.utils import tree_math as tm
+
+    n, d = P17_PIPE_STAGES, P17_PIPE_WIDTH
+    dev = P17_DEVICE
+    gen = torch.Generator(device=dev).manual_seed(1700)
+    stages = [{"w": torch.randn((d, d), generator=gen, device=dev)
+               / d ** 0.5, "b": torch.randn((d,), generator=gen,
+                                            device=dev) * 0.1}
+              for _ in range(n)]
+
+    def stage_fn(p, h):
+        return torch.tanh(h @ p["w"] + p["b"])
+
+    mesh = pp.pipeline_mesh(n, devices=[dev] * n)
+    x = torch.randn((P17_PIPE_MICRO, P17_PIPE_MB, d), generator=gen,
+                    device=dev)
+    tgt = torch.randn(x.shape, generator=gen, device=dev)
+    stacked = tm.tree_map(lambda a: a.requires_grad_(True),
+                          pp.stack_stage_params(stages))
+    y = pp.pipeline_apply(mesh, stage_fn)(stacked, x)
+    seq = []
+    for m in range(P17_PIPE_MICRO):
+        h = x[m]
+        for s in range(n):
+            h = stage_fn(tm.tree_map(lambda a: a[s], stacked), h)
+        seq.append(h)
+    seq = torch.stack(seq)
+    bitwise = torch.equal(y, seq)
+    g_pipe = torch.autograd.grad(((y - tgt) ** 2).mean(),
+                                 list(stacked.values()))
+    g_seq = torch.autograd.grad(((seq - tgt) ** 2).mean(),
+                                list(stacked.values()))
+    gerr = max((a - b).abs().max().item() for a, b in zip(g_pipe, g_seq))
+    head = {"w": torch.zeros((d, 4), device=dev),
+            "b": torch.zeros((4,), device=dev)}
+    labels = torch.eye(4, device=dev)[torch.randint(
+        0, 4, (P17_PIPE_MICRO, P17_PIPE_MB), generator=gen, device=dev)]
+
+    def head_loss(hp, h, yy):
+        logits = h @ hp["w"] + hp["b"]
+        return -(yy * torch.log_softmax(logits, dim=-1)).sum(-1).mean()
+
+    step, opt_init, place = pp.pipeline_train_step(mesh, stage_fn, head_loss,
+                                                   SGD(0.05, momentum=0.9))
+    params = place((pp.stack_stage_params([tm.tree_map(
+        lambda a: a.detach(), s) for s in stages]), head))
+    opt = opt_init(params)
+    losses = []
+    for _ in range(5):
+        params, opt, loss = step(params, opt, x, labels)
+        losses.append(loss.item())
+    log(f"phase 17d pipeline {n} stages on [cuda:0] * {n}, width {d}, "
+        f"{P17_PIPE_MICRO} microbatches of {P17_PIPE_MB}: output bitwise the "
+        f"sequential stack's (microbatch by microbatch) {bitwise}; gradients "
+        f"max |a - b| {gerr:.3e} (bar {P17_PIPE_GRAD_TOL}); 5 train steps "
+        f"{[round(v, 5) for v in losses]} [{card}]")
+    _must("phase 17d", bitwise, "the pipeline's output is not the stack's")
+    _must("phase 17d", gerr <= P17_PIPE_GRAD_TOL, "pipeline gradients differ")
+    _must("phase 17d", losses[-1] < losses[0], "the pipeline loss did not "
+          "fall")
+
+
+def _p17_tp(card: str) -> None:
+    import torch
+
+    from deeplearning4j_tpu_torch import dtypes
+    from deeplearning4j_tpu_torch.parallel import tensor_parallel as tp
+    from deeplearning4j_tpu_torch.parallel.mesh import model_parallel_mesh
+
+    d_in, hidden, d_out = P17_TP_WIDTHS
+    gen = torch.Generator(device=P17_DEVICE).manual_seed(1701)
+    w1, b1, w2, b2 = (torch.randn(s, generator=gen, device=P17_DEVICE)
+                      * 0.05 for s in ((d_in, hidden), (hidden,),
+                                       (hidden, d_out), (d_out,)))
+    x = torch.randn((P17_TP_BATCH, d_in), generator=gen, device=P17_DEVICE)
+    mesh = model_parallel_mesh(2, devices=[P17_DEVICE] * 2)
+    y = tp.tp_mlp_block(mesh, torch.relu)(x, *tp.shard_dense_params(
+        mesh, w1, b1, w2, b2))
+    with dtypes.precision():
+        ref = torch.relu(x @ w1 + b1) @ w2 + b2
+    err = (y - ref).abs().max().item()
+    log(f"phase 17d tp_mlp_block tp 2 on [cuda:0] * 2 at {d_in} -> {hidden} "
+        f"-> {d_out} (relu, batch {P17_TP_BATCH}) vs the dense block: max "
+        f"|a - b| {err:.3e} (bar {P17_TP_TOL}); psums {mesh.psums} [{card}]")
+    _must("phase 17d", err <= P17_TP_TOL and mesh.psums == 1,
+          "the TP block leaves the dense block")
+
+
+def _p17_local_sgd(card_line: str) -> None:
+    import torch
+
+    from deeplearning4j_tpu_torch import rng
+    from deeplearning4j_tpu_torch.datasets import fetchers
+    from deeplearning4j_tpu_torch.models import lenet
+    from deeplearning4j_tpu_torch.parallel.data_parallel import (
+        local_sgd_step,
+        replica_consensus,
+    )
+    from deeplearning4j_tpu_torch.parallel.mesh import data_parallel_mesh
+    from deeplearning4j_tpu_torch.utils import tree_math as tm
+
+    ds = fetchers.mnist(n=512)
+    out = []
+    for dev in (P17_DEVICE, "cpu"):
+        net, params = lenet.build_lenet(0, device=dev)
+        step = local_sgd_step(lenet.lenet_loss(net), data_parallel_mesh(
+            devices=[dev] * 2), local_steps=2, lr=0.05)
+        x, y = (torch.from_numpy(a).to(dev) for a in (ds.features,
+                                                      ds.labels))
+        losses = []
+        for i in range(3):
+            params, loss = step(params, x, y, rng.key_for(i))
+            losses.append(loss.item())
+        stacked = tm.tree_map(lambda *ts: torch.stack(ts), *step.replicas)
+        out.append((losses, params, replica_consensus(stacked).item()))
+    card, cpu = out
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card[0], cpu[0]))
+    prel = max(((a.cpu() - b).norm() / b.norm()).item() for a, b in zip(
+        tm.leaves(card[1]), tm.leaves(cpu[1])))
+    log(f"phase 17d local_sgd_step LeNet dp 2 on [cuda:0] * 2, 2 local "
+        f"steps, 3 rounds (batch 512): losses {card[0]} vs CPU {cpu[0]}, "
+        f"max rel {rel:.3e}, params rel {prel:.3e} (bar {P17_LOCAL_RTOL}); "
+        f"replica_consensus {card[2]} [{card_line}]")
+    _must("phase 17d", rel <= P17_LOCAL_RTOL and prel <= P17_LOCAL_RTOL,
+          "local SGD on the card leaves the CPU's")
+    _must("phase 17d", card[2] == 0.0, "the replicas differ after "
+          "averaging")
+
+
+def _p17_lstm(card: str) -> None:
+    import torch
+
+    from deeplearning4j_tpu_torch import rng
+    from deeplearning4j_tpu_torch.nn import conf as C
+    from deeplearning4j_tpu_torch.nn import layers as L
+    from deeplearning4j_tpu_torch.parallel.mesh import data_parallel_mesh
+    from deeplearning4j_tpu_torch.parallel.sequence_parallel import (
+        sequence_sharded_lstm,
+    )
+
+    v = P17_LSTM_V
+    cfg = C.LayerConfig(layer_type="lstm", n_in=v, n_out=v, activation="tanh")
+    mod = L.get("lstm")
+    params = mod.init(rng.key_for(17), cfg, device=P17_DEVICE)
+    x = rng.normal(rng.key_for(18), (P17_LSTM_B, P17_LSTM_T, v),
+                   device=P17_DEVICE)
+    with torch.no_grad():
+        hs, cs = sequence_sharded_lstm(data_parallel_mesh(
+            devices=[P17_DEVICE] * P17_LSTM_RANKS), mod, cfg)(params, x)
+        hr, cr = mod.scan_hidden(params, cfg, x)
+    same = torch.equal(hs, hr) and torch.equal(cs, cr)
+    log(f"phase 17d sequence_sharded_lstm over {P17_LSTM_RANKS} ranks at T "
+        f"{P17_LSTM_T} (B {P17_LSTM_B}, hidden {v}): bitwise scan_hidden "
+        f"{same} [{card}]")
+    _must("phase 17d", same, "the sharded LSTM leaves scan_hidden")
+
+
+def _p17_char_lstm(card: str) -> None:
+    """17e: the char-LSTM on the card: fit, sample (the draw kernel at R 1,
+    V the vocabulary), the device beam against the host oracle."""
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.device import synchronize
+    from deeplearning4j_tpu_torch.models.char_lstm import CharLSTM
+
+    text = p17_text()
+    m = CharLSTM(seed=0, device=P17_DEVICE)
+    t0 = time.perf_counter()
+    losses = m.fit(text, epochs=P17_CHAR_EPOCHS)
+    synchronize(m.device)
+    ms = 1e3 * (time.perf_counter() - t0) / P17_CHAR_EPOCHS
+    sample = m.sample("t", length=P17_SAMPLE, temperature=0.8, rng_seed=1)
+    emb = torch.eye(len(m.chars), device=P17_DEVICE)
+    seed = emb[m.char_to_ix["t"]]
+    dev = m.mod.beam_search(m.params, m.conf, seed, emb, beam_size=4,
+                            n_steps=12)
+    host = m.mod.beam_search_host(m.params, m.conf, seed, emb, beam_size=4,
+                                  n_steps=12)
+    same = [t for t, _ in dev] == [t for t, _ in host]
+    err = max(abs(a - b) for (_, a), (_, b) in zip(dev, host))
+    log(f"phase 17e char-LSTM ({len(text)} chars, V {len(m.chars)}, seq "
+        f"{m.seq_len}, batch 16): epoch losses {losses}, {ms:.1f} ms an "
+        f"epoch; sample {sample!r}; device beam (W 4, 12 steps) vs host "
+        f"oracle: tokens equal {same}, scores max |a - b| {err:.3e} (bar "
+        f"{P17_BEAM_TOL}) [{card}]")
+    _must("phase 17e", bool(np.isfinite(losses).all())
+          and losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    _must("phase 17e", len(sample) == P17_SAMPLE + 1
+          and set(sample) <= set(text), "the sample is not of the text")
+    _must("phase 17e", same and err <= P17_BEAM_TOL,
+          "the device beam leaves the host oracle")
+
+
+def phase_dl4j_parallel(card: str) -> dict[str, dict[str, int]]:
+    """Phase 17: AlexNet, ResNet-20 and the char-LSTM, LeNet over two
+    processes, the pipeline, TP, local SGD and the sequence-sharded LSTM;
+    kernels #1-#5 launch 0 times, the draw in 17e's sampling."""
+    import torch
+
+    from deeplearning4j_tpu_torch.ops import threefry
+
+    t0 = time.perf_counter()
+    total: dict[str, int] = {}
+
+    def timed(name, fn):
+        t1 = time.perf_counter()
+        fn()
+        log(f"phase 17{name}: {time.perf_counter() - t1:.1f} s")
+        torch.cuda.empty_cache()
+
+    timed("a cli", lambda: _p17_alexnet_cli(card, total))  # counts its own
+    timed("c", lambda: _p17_lenet_processes(card, total))  # counts its own
+    reset_launches()
+    timed("a parity", lambda: _p17_alexnet_parity(card))
+    timed("b", lambda: _p17_resnet(card))
+    timed("d", lambda: (_p17_pipeline(card), _p17_tp(card),
+                        _p17_local_sgd(card), _p17_lstm(card)))
+    draws = threefry.launches
+    timed("e", lambda: _p17_char_lstm(card))
+    sampled = threefry.launches - draws
+    _add(total, read_launches())
+    log(f"phase 17: launches {total}; the draw {sampled} times in 17e's "
+        f"sampling (R 1, V {p17_vocab()})")
+    _must("phase 17", not any(total[k] for k in KERNELS
+                              if k != "threefry_draw"),
+          f"a kernel of #1-#5 launched on the DL4J nets' path: {total}")
+    _must("phase 17", sampled == P17_SAMPLE and total["threefry_draw"]
+          == P17_SAMPLE, f"the draw launched {sampled} times in sampling, "
+          f"{total['threefry_draw']} in the phase")
+    log(f"phase 17: {time.perf_counter() - t0:.1f} s wall [{card}]")
+    return {"dl4j_parallel": {name: total.get(name, 0) for name in KERNELS}}
+
+
 def main() -> int:
     try:
         import torch
@@ -7180,6 +7744,9 @@ def main() -> int:
     by_phase.update(phase_moe_mesh(card))
     by_phase.update(phase_mesh_cluster(card))
     by_phase.update(phase_dl4j_core(card))
+    with launched_shapes() as late:
+        by_phase.update(phase_dl4j_parallel(card))
+    check_launched("phase 17", late)
     kernels = [
         dict(name=name, route="cuda", **KERNELS[name],
              launches=sum(p[name] for p in by_phase.values()),

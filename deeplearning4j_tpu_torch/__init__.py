@@ -16,12 +16,14 @@ sources in ``csrc/``): the flash forward and backward for training and
 prefill, flash decode (slab and paged, bf16 and int8) for serving. It
 also trains Word2Vec and ParagraphVectors (the fused embedding-dot
 kernel), and the DL4J-era framework: the layers (``nn/``), the solvers
-(``optimize/``), ``MultiLayerNetwork`` with LeNet and the DBN
-(``models/multilayer.py``, ``models/lenet.py``), the datasets and
-evaluation, and ``DataParallelTrainer`` (``python -m
-deeplearning4j_tpu_torch train --model lenet``). Later slices: the DL4J
-nets' other parallel modes, the model zoo (AlexNet, ResNet, char-LSTM),
-GloVe and the rest of the NLP models, the tools and ``analysis/``.
+(``optimize/``), ``MultiLayerNetwork`` with LeNet, AlexNet and the DBN,
+ResNet-20 with BatchNorm and the char-LSTM (``models/``), the datasets and
+evaluation, and the DL4J nets' parallel modes (``parallel/``:
+``DataParallelTrainer`` with batch statistics over the data axis, also
+across processes, local SGD, the GPipe pipeline, the Megatron block, the
+sequence-sharded LSTM; ``python -m deeplearning4j_tpu_torch train --model
+lenet|alexnet``). Later slices: GloVe and the rest of the NLP models, the
+tools and ``analysis/``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no GPU and no explicit CPU device they raise. CPU tensors take each

@@ -1,6 +1,11 @@
 """Command line of the port: ``python -m deeplearning4j_tpu_torch train
 --model transformer``, ``... generate`` and ``... serve``.
 
+``train --model lenet`` (the default) and ``--model alexnet`` train the
+DL4J-era conv nets (LeNet on MNIST or its synthetic stand-in, AlexNet on
+the reference's synthetic CIFAR) with ``DataParallelTrainer`` over every
+card's data axis, or across processes with ``--coordinator``.
+
 ``train`` trains the byte-level char LM on ``--text`` (or an offline demo
 corpus) with the reference's flags and recipe (``lm_optimizer``, a loss line
 every 20 steps, ``final loss``, a sampled continuation), on one device or,
@@ -138,17 +143,12 @@ def _start_status_rest(svc, args) -> None:
 def _train_checks(args) -> str | None:
     """The flag checks ``train`` makes before it loads anything, as the
     reference's; the message of the first that fails, or None."""
-    if args.model == "alexnet":
-        return ("--model alexnet comes with the DL4J model zoo (AlexNet, "
-                "ResNet, the char-LSTM: ROADMAP Queue 1 item 6); this port "
-                "trains --model lenet and --model transformer")
     if args.status_port is not None and not 0 <= args.status_port <= 65535:
         return f"--status-port ({args.status_port}) must be in [0, 65535]"
-    if args.model == "lenet":
-        if args.coordinator:
-            return ("--model lenet across processes comes with the DL4J "
-                    "nets' parallel training (ROADMAP Queue 1 item 5); it "
-                    "trains over the cards of one process")
+    if args.coordinator and (args.num_processes is None
+                             or args.process_id is None):
+        return "--coordinator needs --num-processes and --process-id"
+    if args.model in DL4J_MODELS:
         return None
     tp = max(1, args.tp)
     if args.d_model % args.n_heads:
@@ -159,9 +159,6 @@ def _train_checks(args) -> str | None:
     if args.n_experts and args.n_experts != tp:
         return (f"--n-experts ({args.n_experts}) must equal --tp ({tp}): "
                 "experts live one-per-device on the model axis")
-    if args.coordinator and (args.num_processes is None
-                             or args.process_id is None):
-        return "--coordinator needs --num-processes and --process-id"
     if (args.checkpoint_dir and args.checkpoint_backend == "npz"
             and args.coordinator and args.num_processes > 1):
         # the reference's refusal (its npz backend cannot address a
@@ -171,59 +168,112 @@ def _train_checks(args) -> str | None:
     return None
 
 
-def _train_lenet(args) -> int:
-    """``train --model lenet``, as the reference's ``cmd_train``: LeNet from
-    seed 0 on ``fetchers.mnist(n=--examples)`` (the synthetic stand-in when
-    no idx files are present), ``DataParallelTrainer`` over the data axis
-    (every card, or ``--device``), ``--epochs`` passes of ``--batch``-row
-    steps (the last partial batch dropped), step ``i``'s key
-    ``rng.key_for(i)``, ``epoch e step i loss`` every 10 steps and ``final
-    loss``; npz checkpoints on ``--checkpoint-dir`` every ``--save-every``
-    steps in the reference's keys and layout; ``--status-port`` serves the
-    ClusterService status. Closes with the ms a step over steps 2..N (the
-    loss read back at each step's end) and the samples a second."""
+#: the DL4J-era nets ``train`` fits with ``DataParallelTrainer``
+DL4J_MODELS = ("lenet", "alexnet")
+
+
+def _dl4j_model(name: str, n: int, device):
+    """(net, params, dataset, description) of ``train --model name``: the
+    reference's seed-0 init and data."""
+    if name == "lenet":
+        from deeplearning4j_tpu_torch.datasets import fetchers
+        from deeplearning4j_tpu_torch.models.lenet import build_lenet
+
+        net, params = build_lenet(device=device)
+        return (net, params, fetchers.mnist(n=n),
+                "lenet (conv 6, conv 16, dense 120, dense 84, softmax 10)")
+    from deeplearning4j_tpu_torch.models.alexnet import (
+        build_alexnet,
+        synthetic_cifar,
+    )
+
+    net, params = build_alexnet(device=device)
+    return (net, params, synthetic_cifar(n),
+            "alexnet (conv 64, conv 128, conv 256, dense 512, dense 256, "
+            "softmax 10)")
+
+
+def _train_dl4j(args) -> int:
+    """``train --model lenet|alexnet``, as the reference's ``cmd_train``:
+    the net from seed 0 on ``fetchers.mnist(n=--examples)`` (the synthetic
+    stand-in when no idx files are present) or ``synthetic_cifar
+    (--examples)``, ``DataParallelTrainer`` over the data axis (every card,
+    or ``--device``) with ``lenet_loss``, ``--epochs`` passes of
+    ``--batch``-row steps (the last partial batch dropped), step ``i``'s
+    key ``rng.key_for(i)``, ``epoch e step i loss`` every 10 steps and
+    ``final loss``; npz checkpoints on ``--checkpoint-dir`` every
+    ``--save-every`` steps in the reference's keys and layout;
+    ``--status-port`` serves the ClusterService status. With
+    ``--coordinator`` the data axis spans ``--num-processes`` processes
+    (``hybrid_mesh``): every process reads the same data and keeps its rows
+    of each global batch (``shard_global_batch``), and the gradients and
+    the loss are averaged over the processes in one bucket a step. Closes
+    with the unrounded final loss, the ms a step over steps 2..N (the loss
+    read back at each step's end) and the samples a second, and across
+    processes the bucket and its all-reduce time."""
     from deeplearning4j_tpu_torch import rng
-    from deeplearning4j_tpu_torch.datasets import fetchers
     from deeplearning4j_tpu_torch.device import resolve_device
-    from deeplearning4j_tpu_torch.models.lenet import build_lenet, lenet_loss
+    from deeplearning4j_tpu_torch.models.lenet import lenet_loss
     from deeplearning4j_tpu_torch.parallel import mesh as mesh_lib
     from deeplearning4j_tpu_torch.parallel.checkpoint import CheckpointManager
-    from deeplearning4j_tpu_torch.parallel.cluster import ClusterService
+    from deeplearning4j_tpu_torch.parallel.cluster import (
+        ClusterService,
+        initialize_distributed,
+    )
     from deeplearning4j_tpu_torch.parallel.data_parallel import (
         DataParallelTrainer,
     )
 
     dev = resolve_device(args.device)
-    net, params = build_lenet(device=dev)
-    ds = fetchers.mnist(n=args.examples)
+    nproc = args.num_processes if args.coordinator else 1
+    if args.coordinator:
+        initialize_distributed(args.coordinator, args.num_processes,
+                               args.process_id, device=args.device)
+    net, params, ds, description = _dl4j_model(args.model, args.examples, dev)
     svc = ClusterService()
-    svc.model_description = ("lenet (conv 6, conv 16, dense 120, dense 84, "
-                             "softmax 10)")
+    svc.model_description = description
     _start_status_rest(svc, args)
-    mesh = mesh_lib.data_parallel_mesh(
-        devices=[dev] if args.device else None)
+    devices = [dev] if args.device else None
+    if nproc > 1:
+        import torch
+
+        dp = 1 if args.device else max(1, torch.cuda.device_count())
+        mesh = mesh_lib.hybrid_mesh({mesh_lib.DATA_AXIS: dp},
+                                    {mesh_lib.DATA_AXIS: nproc}, devices)
+        print(f"training on a data axis of {mesh.global_data_size} across "
+              f"{nproc} processes (process {args.process_id}: data rows "
+              f"{args.process_id * dp}-{(args.process_id + 1) * dp - 1})",
+              flush=True)
+    else:
+        mesh = mesh_lib.data_parallel_mesh(devices=devices)
     trainer = DataParallelTrainer(lenet_loss(net), mesh=mesh)
     state = trainer.init(params)
+    # across processes the params are the same everywhere: process 0 saves
     mgr = (CheckpointManager(args.checkpoint_dir, save_every=args.save_every)
-           if args.checkpoint_dir else None)
+           if args.checkpoint_dir and (nproc == 1 or args.process_id == 0)
+           else None)
 
     svc.phase = "train"
     b = min(args.batch, ds.num_examples())
-    step_idx, loss, step_s = 0, None, []
+    step_idx, loss, step_s, reduce_s = 0, None, [], []
     for epoch in range(args.epochs):
         for batch in ds.batches(b, drop_last=True):
             t0 = time.perf_counter()
-            x, y = trainer.shard_batch(batch.features, batch.labels)
+            x, y = trainer.shard_global_batch(batch.features, batch.labels)
             state, loss = trainer.step(state, x, y, rng.key_for(step_idx))
             step_idx += 1
             svc.batches_so_far = step_idx
             # the reference reads every step's loss (its early-stop rule)
             loss = float(loss)
             step_s.append(time.perf_counter() - t0)
+            reduce_s.append(trainer.stats["allreduce_s"])
             if step_idx % 10 == 0:
                 print(f"epoch {epoch} step {step_idx} loss {loss:.4f}",
                       flush=True)
-            if svc.report_loss(loss):
+            stop = svc.report_loss(loss)
+            if nproc > 1:
+                stop = bool(mesh_lib.broadcast_ints([stop], mesh)[0])
+            if stop:
                 # ends the epoch, as the reference's loop does
                 print("early stop triggered", flush=True)
                 break
@@ -236,12 +286,27 @@ def _train_lenet(args) -> int:
         print("no full batch to train on", file=sys.stderr)
         return 2
     print(f"final loss {loss:.4f}", flush=True)
+    print(f"final loss unrounded {loss!r}", flush=True)
     first = 2 if len(step_s) > 1 else 1
-    ms = 1e3 * sum(step_s[first - 1:]) / (len(step_s) - first + 1)
+    n = len(step_s) - first + 1
+    ms = 1e3 * sum(step_s[first - 1:]) / n
     print(f"{ms:.3f} ms a step over steps {first}-{len(step_s)} (batch {b}, "
           f"{trainer.dp} data rank(s) on {trainer.device}, host clock, the "
           f"loss read back each step), {1e3 * b / ms:.0f} samples/s",
           flush=True)
+    if nproc > 1:
+        import torch.distributed as dist
+
+        print(f"data axis across {nproc} processes ({dist.get_backend()}): "
+              f"one bucket of {trainer.stats['bucket_bytes']} bytes "
+              f"all-reduced a step, {trainer.stats['host_bytes']} bytes "
+              f"through the host; "
+              f"{1e3 * sum(reduce_s[first - 1:]) / n:.2f} ms a step in "
+              f"all_reduce_mean", flush=True)
+    if args.coordinator:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
     return 0
 
 
@@ -270,8 +335,8 @@ def cmd_train(args) -> int:
     if msg is not None:
         print(msg, file=sys.stderr)
         return 2
-    if args.model == "lenet":
-        return _train_lenet(args)
+    if args.model in DL4J_MODELS:
+        return _train_dl4j(args)
     tp = max(1, args.tp)
     if args.text:
         try:
@@ -978,19 +1043,18 @@ def _add_model_flags(ap) -> None:
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="deeplearning4j_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
-    t = sub.add_parser("train", help="train LeNet (data-parallel over the "
-                       "cards) or the transformer LM (one device or a "
-                       "(data, model) mesh)")
+    t = sub.add_parser("train", help="train LeNet or AlexNet (data-parallel "
+                       "over the cards or processes) or the transformer LM "
+                       "(one device or a (data, model) mesh)")
     t.add_argument("--model", default="lenet",
-                   choices=["lenet", "alexnet", "transformer"],
-                   help="lenet or transformer (alexnet comes with the DL4J "
-                   "model zoo)")
+                   choices=["lenet", "alexnet", "transformer"])
     t.add_argument("--device", default=None,
                    help="torch device (default cuda; 'cpu' runs the plain "
                    "versions of the kernels)")
-    t.add_argument("--epochs", type=int, default=1, help="lenet: passes")
+    t.add_argument("--epochs", type=int, default=1,
+                   help="lenet, alexnet: passes")
     t.add_argument("--examples", type=int, default=4096,
-                   help="lenet: MNIST examples")
+                   help="lenet: MNIST examples; alexnet: synthetic CIFAR")
     t.add_argument("--batch", type=int, default=256)
     t.add_argument("--text", default=None, help="path to a byte-level corpus")
     t.add_argument("--steps", type=int, default=200)

@@ -7,8 +7,11 @@ for a non-tanh activation); the decoder ``y = h @ decoderweights +
 decoderbias``. The reference's ``lax.scan`` over time is a Python loop and
 BPTT is autodiff through it.
 
-Beam-search decoding (the reference's ``beam_search`` and
-``beam_search_host``) comes with the char-LSTM model in a later slice.
+Beam search (the reference's :149-297): :meth:`LSTMLayer.beam_search` runs
+the W beams as one batch a step on the params' device and takes the global
+top W of the W x V candidates, ties to the lower index as ``lax.top_k``
+(a stable sort on the scores, descending); :meth:`LSTMLayer.beam_search_host`
+is the reference-shaped host loop, kept as its oracle.
 """
 
 from __future__ import annotations
@@ -122,3 +125,97 @@ class LSTMLayer:
         h2 = self._hout(conf, o[0], c2)
         y = self.decode(params, conf, h2[None, :])[0]
         return y, h2, c2
+
+    def _batch_tick(self, params: Params, conf: LayerConfig, x, h, c):
+        i, f, o, g = self._gates(conf, params[RECURRENT_WEIGHTS], x, h)
+        c2 = i * g + f * c
+        h2 = self._hout(conf, o, c2)
+        return self.decode(params, conf, h2), h2, c2
+
+    @torch.no_grad()
+    def beam_search(self, params: Params, conf: LayerConfig,
+                    seed: torch.Tensor, embeddings: torch.Tensor,
+                    beam_size: int = 5, n_steps: int = 20
+                    ) -> list[tuple[list[int], float]]:
+        """Beam-search decode: ``seed`` is the first input row,
+        ``embeddings[i]`` the input row fed after token i is emitted.
+        Each step the W beams tick as one batch, the top W continuations
+        come from the W x V pool (ties to the lower flat index), and the
+        hidden state and token history follow the surviving parents; a
+        finished beam (stop token 0) offers one candidate, the stop token
+        again at an unchanged score. Beam 0 starts live and the rest dead,
+        so the first step takes W distinct tokens from it. Returns (tokens,
+        logp) best first, each trimmed after its stop token."""
+        w, v = beam_size, conf.n_out
+        d = self.hidden_size(conf)
+        dev = seed.device
+        with dtypes.precision():
+            zeros = torch.zeros((1, d), dtype=seed.dtype, device=dev)
+            _, h0, c0 = self._batch_tick(params, conf, seed[None, :], zeros,
+                                         zeros)
+            h, c = h0.repeat(w, 1), c0.repeat(w, 1)
+            scores = torch.full((w,), float("-inf"), device=dev)
+            scores[0] = 0.0
+            prev = torch.zeros((w,), dtype=torch.long, device=dev)
+            finished = torch.zeros((w,), dtype=torch.bool, device=dev)
+            tokens = torch.zeros((w, n_steps), dtype=torch.long, device=dev)
+            fin_row = torch.full((v,), float("-inf"), device=dev)
+            fin_row[0] = 0.0
+            for i in range(n_steps):
+                y, h2, c2 = self._batch_tick(params, conf, embeddings[prev],
+                                             h, c)
+                logp = torch.log_softmax(y, dim=-1)
+                cand = scores[:, None] + torch.where(finished[:, None],
+                                                     fin_row[None, :], logp)
+                # lax.top_k's order: descending, the lower index first
+                # among equals
+                top, flat = torch.sort(cand.reshape(-1), descending=True,
+                                       stable=True)
+                scores, flat = top[:w], flat[:w]
+                parent, tok = flat // v, flat % v
+                keep = finished[parent][:, None]
+                h = torch.where(keep, h[parent], h2[parent])
+                c = torch.where(keep, c[parent], c2[parent])
+                tokens = tokens[parent]
+                tokens[:, i] = tok
+                finished = finished[parent] | (tok == 0)
+                prev = tok
+        out = []
+        for idxs, logp in zip(tokens.tolist(), scores.tolist()):
+            if 0 in idxs:  # trim the re-emitted stops
+                idxs = idxs[:idxs.index(0) + 1]
+            out.append((idxs, float(logp)))
+        return out
+
+    @torch.no_grad()
+    def beam_search_host(self, params: Params, conf: LayerConfig,
+                         seed: torch.Tensor, embeddings: torch.Tensor,
+                         beam_size: int = 5, n_steps: int = 20
+                         ) -> list[tuple[list[int], float]]:
+        """The reference-shaped host loop (a Python list of beams, one tick
+        a beam, a host sort; scores summed as Python floats), kept as the
+        oracle of :meth:`beam_search`."""
+        d = self.hidden_size(conf)
+        zeros = torch.zeros((d,), dtype=seed.dtype, device=seed.device)
+        with dtypes.precision():
+            _, h, c = self.tick(params, conf, seed, zeros, zeros)
+            beams = [(0.0, [], h, c)]
+            for _ in range(n_steps):
+                candidates = []
+                for logp, idxs, h, c in beams:
+                    prev = idxs[-1] if idxs else 0
+                    if idxs and prev == 0:  # finished beam
+                        candidates.append((logp, idxs, h, c))
+                        continue
+                    y, h2, c2 = self.tick(params, conf, embeddings[prev], h,
+                                          c)
+                    logp_tok = torch.log_softmax(y, dim=-1)
+                    top = torch.argsort(-logp_tok, stable=True)[:beam_size]
+                    for t in top.tolist():
+                        candidates.append((logp + float(logp_tok[t]),
+                                           idxs + [t], h2, c2))
+                candidates.sort(key=lambda b: -b[0])
+                beams = candidates[:beam_size]
+                if all(b[1] and b[1][-1] == 0 for b in beams):
+                    break
+        return [(idxs, logp) for logp, idxs, _, _ in beams]

@@ -1,7 +1,10 @@
 """Inter-layer activation pre/post processors (the JAX package's
 ``nn/preprocessors.py``), configured per layer index on
 ``MultiLayerConfig.preprocessors``; the binomial sampler draws on the
-reference's key stream."""
+reference's key stream. The statistics of the ``zero_mean`` and
+``unit_variance`` processors are the whole batch's over a data axis
+(``parallel.lockstep.batch_moments``), as the reference's sharded step
+takes them."""
 
 from __future__ import annotations
 
@@ -10,6 +13,7 @@ from typing import Callable
 import torch
 
 from deeplearning4j_tpu_torch import rng
+from deeplearning4j_tpu_torch.parallel.lockstep import batch_moments
 
 Processor = Callable[..., torch.Tensor]
 
@@ -48,21 +52,17 @@ def binomial_sampling(x, key=None):
                          batch=True).to(x.dtype)
 
 
-def _std(x):
-    return torch.std(x, dim=0, keepdim=True, unbiased=False)
-
-
 @register("zero_mean_unit_variance")
 def zero_mean_unit_variance(x, key=None):
-    mean = torch.mean(x, dim=0, keepdim=True)
-    return (x - mean) / (_std(x) + 1e-8)
+    mean, std = batch_moments(x, (0,), std=True)
+    return (x - mean) / (std + 1e-8)
 
 
 @register("zero_mean")
 def zero_mean(x, key=None):
-    return x - torch.mean(x, dim=0, keepdim=True)
+    return x - batch_moments(x, (0,))[0]
 
 
 @register("unit_variance")
 def unit_variance(x, key=None):
-    return x / (_std(x) + 1e-8)
+    return x / (batch_moments(x, (0,), std=True)[1] + 1e-8)

@@ -8,10 +8,12 @@ every shard, so the serving engine's host logic runs once. A :class:`Mesh`
 is the tuple of devices on the model axis, rank order; a device may repeat
 (``["cpu"] * tp`` in the tests, ``["cuda:0"] * tp`` to run the sharded
 programs on one card). A tensor split over the axis is a :class:`Shards`,
-its ranks' parts in rank order, each on its rank's device. The one
-collective is :meth:`Mesh.gather`, an exact concatenation on the first
+its ranks' parts in rank order, each on its rank's device. The
+collectives are :meth:`Mesh.gather`, an exact concatenation on the first
 device, which counts its calls (``gathers``) so a test can hold a program
-to ``tp_collective_contract``.
+to ``tp_collective_contract``, and :meth:`Mesh.psum`, the ranks' partial
+sums added in rank order on the first device (``psums``), for the
+Megatron row-parallel half of ``parallel/tensor_parallel.py``.
 
 Training lays one program over a :class:`DeviceMesh`, devices on named
 axes (``dp_mp_mesh``: ``(data, model)``; ``data_parallel_mesh`` and
@@ -76,8 +78,10 @@ class Mesh:
         self.devices = tuple(torch.device(d) for d in devices)
         if not self.devices:
             raise ValueError("a mesh needs at least one device")
-        #: gathers since construction (or the caller's last reset)
+        #: gathers and psums since construction (or the caller's last
+        #: reset)
         self.gathers = 0
+        self.psums = 0
 
     @property
     def size(self) -> int:
@@ -90,6 +94,16 @@ class Mesh:
         self.gathers += 1
         dev = self.devices[0]
         return torch.cat([p.to(dev) for p in parts], dim=dim)
+
+    def psum(self, parts) -> torch.Tensor:
+        """The all-reduce of partial sums: ``parts`` (rank order) added one
+        after another on the first device, the same order on every call."""
+        self.psums += 1
+        dev = self.devices[0]
+        total = parts[0].to(dev)
+        for p in parts[1:]:
+            total = total + p.to(dev)
+        return total
 
     def __repr__(self) -> str:
         return f"Mesh({[str(d) for d in self.devices]})"

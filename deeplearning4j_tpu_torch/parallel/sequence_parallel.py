@@ -10,7 +10,10 @@ the next rank's device. ``head_axis`` keeps the heads split over a second
 mesh axis (tensor parallelism): the ring then runs within each head
 shard's column of ranks.
 
-``sequence_sharded_lstm`` waits for the port's ``nn/`` LSTM.
+``sequence_sharded_lstm`` (the reference's :88-153) runs an LSTM with T
+split over the data ranks: each rank scans its chunk from the carry the
+previous rank hands over, so the chunks run one after another, as the
+reference's ring of ``ppermute`` rounds serializes them.
 """
 
 from __future__ import annotations
@@ -72,5 +75,39 @@ def ring_attention(mesh, causal: bool = False, head_axis: str | None = None):
             cols.append(torch.cat([o.to(q.device) for o in ring_blocks(
                 *blocks, causal)], dim=1))
         return torch.cat(cols, dim=2)
+
+    return fn
+
+
+def sequence_sharded_lstm(mesh, lstm_module, conf):
+    """``fn(params, x) -> (hs, cs)`` with x (B, T, F) and T split over the
+    mesh's data axis: rank ``d`` scans time chunk ``d`` on its device,
+    starting from rank ``d - 1``'s final ``(h, c)`` (zeros on rank 0),
+    with the params' ``recurrentweights`` as they are (the reference's
+    chunk scan); ``hs`` and ``cs`` (B, T, hidden) are the chunks' outputs
+    in time order, whole on x's device, as the reference's T-sharded
+    output gathers."""
+    axis = mesh_lib.DATA_AXIS
+    n = mesh.shape[axis]
+
+    def fn(params, x):
+        if x.shape[1] % n:
+            raise ValueError(f"T ({x.shape[1]}) does not split over {n} "
+                             f"data ranks")
+        b, d = x.shape[0], lstm_module.hidden_size(conf)
+        h = torch.zeros((b, d), dtype=x.dtype, device=x.device)
+        c = torch.zeros_like(h)
+        hs, cs = [], []
+        for rank, chunk in enumerate(torch.tensor_split(x, n, dim=1)):
+            dev = mesh.device_at(**{axis: rank})
+            wr = params["recurrentweights"].to(dev)
+            chunk, h, c = chunk.to(dev), h.to(dev), c.to(dev)
+            for t in range(chunk.shape[1]):
+                i, f, o, g = lstm_module._gates(conf, wr, chunk[:, t], h)
+                c = i * g + f * c
+                h = lstm_module._hout(conf, o, c)
+                hs.append(h.to(x.device))
+                cs.append(c.to(x.device))
+        return torch.stack(hs, dim=1), torch.stack(cs, dim=1)
 
     return fn

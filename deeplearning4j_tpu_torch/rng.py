@@ -23,6 +23,7 @@ over the counters on the tensor's device and reproduce ``jax.random``'s:
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Iterator
 
 import numpy as np
@@ -67,9 +68,10 @@ def _shape(shape) -> tuple[int, ...]:
     return (int(shape),) if np.isscalar(shape) else tuple(int(s) for s in shape)
 
 
-#: (first row, rows of the whole batch) while a data rank computes its
-#: share of a batch (:func:`batch_rows`)
-_batch_rows: tuple[int, int] | None = None
+#: ``rows``: (first row, rows of the whole batch) while a data rank
+#: computes its share of a batch (:func:`batch_rows`), per thread: the data
+#: ranks of a lock-step step run in threads of their own
+_state = threading.local()
 
 
 @contextlib.contextmanager
@@ -78,21 +80,23 @@ def batch_rows(first: int, total: int) -> Iterator[None]:
     axis the batch's rows) gives rows ``first..`` of the same draw over the
     whole batch of ``total`` rows: the share of one whole-batch draw (a
     dropout mask, a sample) that a data rank holding those rows takes, as
-    the reference draws it over the batch sharded across its mesh."""
-    global _batch_rows
-    prev, _batch_rows = _batch_rows, (int(first), int(total))
+    the reference draws it over the batch sharded across its mesh. The
+    setting is the calling thread's."""
+    prev = getattr(_state, "rows", None)
+    _state.rows = (int(first), int(total))
     try:
         yield
     finally:
-        _batch_rows = prev
+        _state.rows = prev
 
 
 def _offset(shape, batch: bool) -> int:
     """The counter offset of a draw over ``shape``: its rows' place in the
     whole batch's draw under :func:`batch_rows`, else 0."""
-    if not batch or _batch_rows is None:
+    rows = getattr(_state, "rows", None)
+    if not batch or rows is None:
         return 0
-    first, total = _batch_rows
+    first, total = rows
     if first + shape[0] > total:
         raise ValueError(f"rows {first}..{first + shape[0]} of a draw over "
                          f"a batch of {total}")

@@ -1,7 +1,9 @@
 """``train --model lenet`` and ``DataParallelTrainer`` of the port held
 against the JAX package's on the CPU: the trainer's losses step by step
 from the reference's params, its multi-step forms, its data axis split
-over two ranks (with and without dropout), and the CLI's final loss, checkpoints and refusals."""
+over two ranks (with and without dropout), and the CLI's final loss,
+checkpoints and refusals (``tests/test_torch_zoo.py`` holds ``--model
+alexnet`` and the data axis across processes)."""
 
 import dataclasses
 import os
@@ -219,9 +221,9 @@ def test_train_cli_lenet_checkpoints_and_status(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,named", [
-    (["--model", "alexnet"], "Queue 1 item 6"),
+    (["--model", "alexnet", "--status-port", "-1"], "--status-port"),
     (["--model", "lenet", "--coordinator", "localhost:1",
-      "--num-processes", "2", "--process-id", "0"], "Queue 1 item 5"),
+      "--num-processes", "2"], "--process-id"),
     (["--model", "lenet", "--status-port", "70000"], "--status-port"),
 ])
 def test_train_cli_refusals(flags, named, capsys):

@@ -250,6 +250,47 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
                   "--batch", "32"])
 
 
+def test_zoo_and_parallel_entry_points_follow_the_rules(monkeypatch):
+    """The DL4J nets' parallel modes and the rest of the zoo import no JAX
+    in a fresh process, and without a card their entry points raise
+    unless the CPU is named."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run(
+        [sys.executable, "-c", _IMPORT_MESH, "parallel.lockstep",
+         "parallel.data_parallel", "parallel.pipeline_parallel",
+         "parallel.tensor_parallel", "parallel.sequence_parallel",
+         "models.alexnet", "models.resnet", "models.char_lstm"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr + out.stdout
+    from deeplearning4j_tpu_torch import cli
+    from deeplearning4j_tpu_torch.models import alexnet, lenet, resnet
+    from deeplearning4j_tpu_torch.models.char_lstm import CharLSTM
+    from deeplearning4j_tpu_torch.parallel import data_parallel as dpar
+    from deeplearning4j_tpu_torch.parallel import pipeline_parallel as pp
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = resnet.ResNetConfig(num_classes=2, blocks_per_stage=1,
+                              stage_channels=(4,))
+    for call in (alexnet.build_alexnet, lambda: resnet.init_resnet(0, cfg),
+                 lambda: resnet.resnet_train_step(cfg), CharLSTM,
+                 lambda: pp.pipeline_mesh(2),
+                 lambda: dpar.local_sgd_step(lambda *a: 0.0),
+                 lambda: cli.main(["train", "--model", "alexnet",
+                                   "--examples", "64", "--batch", "32"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    net, _ = alexnet.build_alexnet(device="cpu")
+    assert net.device.type == "cpu"
+    assert resnet.init_resnet(0, cfg, device="cpu")[0]["stem"]["w"].device \
+        .type == "cpu"
+    assert CharLSTM(device="cpu").device.type == "cpu"
+    assert pp.pipeline_mesh(2, devices=["cpu"] * 2).size == 2
+    lnet, _ = lenet.build_lenet(device="cpu")
+    dpar.local_sgd_step(lenet.lenet_loss(lnet),
+                        dpar.mesh_lib.data_parallel_mesh(devices=["cpu"]))
+
+
 _IMPORT_MESH = """
 import importlib, sys
 for n in sys.argv[1:]:

@@ -228,13 +228,15 @@ def test_train_cli_runs_on_cpu():
                                    "--coordinator", "localhost:1",
                                    "--num-processes", "2",
                                    "--process-id", "1"],
-                                  ["--model", "alexnet"]])
+                                  ["--model", "alexnet", "--coordinator",
+                                   "localhost:1"]])
 def test_train_cli_names_the_later_slice(flag):
     """The flags of the cluster slice run now (tests/test_torch_cli_cluster
     .py); what still exits 2 is a flag combination the reference refuses
     (a coordinator without its process count, an invalid status port, npz
-    checkpoints across processes) and the model-zoo models (``--model
-    lenet`` trains: tests/test_torch_cli_lenet.py)."""
+    checkpoints across processes), for the model-zoo nets too (``--model
+    lenet`` and ``--model alexnet`` train: tests/test_torch_cli_lenet.py,
+    tests/test_torch_zoo.py)."""
     from deeplearning4j_tpu_torch import cli
 
     args = ["train", "--model", "transformer", "--device", "cpu", *flag]
