@@ -32,8 +32,10 @@ Phases, in order; any failure exits non-zero without printing a result:
    dot alone is printed beside it); and in its fused mode (the HS step's
    gathers, dots, g, grad_in and delta rows, written at the scatter
    plan's positions) at the same batch for L 16, for the longest path with
-   planted dots and masked rows, and on phase 6's first batch, each also
-   timed on the device alone (``graph_ms``) and run twice, bitwise; and
+   planted dots and masked rows, on phase 6's first batch and at phase
+   18's per-rank batches (B 2,048 and 1,024 over the longest path), each
+   also timed on the device alone (``graph_ms``) and run twice, bitwise;
+   and
    the threefry draw kernel the port adds (``csrc/sample.cu``, the
    reference's ``jax.random.categorical``) against ``categorical_plain``,
    tokens and winning values bitwise, in engine mode (8 slot keys folded with
@@ -328,6 +330,33 @@ Phases, in order; any failure exits non-zero without printing a result:
    4 ranks at T 128 bitwise ``scan_hidden``; (e) the char-LSTM on a built
    text: 2 epochs (the loss falls, ms an epoch), 50 sampled characters,
    the device beam equal to the host oracle (scores within 1e-5).
+18. the NLP models and the vector tools (kernel #5 launches in 18a alone,
+   at the per-rank shapes phase 2 holds): (a) ``Word2Vec.fit_distributed``
+   at phase 6's width (D 100, window 5, batches of 4,096 pairs, HS) over
+   phase 6's vocabulary on its first 500 sentences, over 2 and 4 data
+   ranks on ``["cuda:0"] * n``: pairs/s, ms a batch, #5's launches exactly
+   batches x ranks, the tables bounded; two seeded runs over 2 ranks on 250
+   sentences bitwise; the first sentences' batches (at least 8) on the card
+   within 1e-4 of the CPU's from the same tables; (b) GloVe at the
+   reference's defaults (D 50, window 5, x_max 100, alpha 0.75, lr 0.05,
+   batches of 4,096) for 2 epochs on phase 6's whole corpus: the count's
+   seconds, the triples, V, ms a batch, triples/s, the loss per epoch
+   (falling); the first 8 batches on the card within rel 1e-5 of the CPU's;
+   on the first 500 sentences for 1 epoch, two seeded runs bitwise and
+   ``fit_distributed`` over 2 ranks (the epoch's loss finite and under the
+   first batch's); (c) the RNTN at d 25 with the
+   tensor, batches of 27: the simplified model on 2,000 synthetic 5-class
+   trees of 8-20 words, the untied one on the bundled treebank relabelled
+   by category, each first step on the card within 1e-5 of the CPU's
+   (loss rel, gradients of a leaf's max), ms a batch, the loss per epoch
+   (falling); (d) on (b)'s vectors: PCA of the 2,000 most frequent words
+   to 10 (card vs CPU up to sign, rel 1e-4), k-means with k 20
+   (assignments equal off near ties), t-SNE of 1,000 words with
+   ``use_pca`` (ms for 500 iterations; the first 10 on the card against
+   the CPU's within 1e-4 of the map or 10x the CPU run's own one-ulp
+   movement); (e) ``serve --demo --embed-models word2vec,glove`` in a
+   process of its own: ``POST /v1/embeddings`` with ``model: glove``
+   returns the CPU demo model's vectors within 1e-5.
 
 The last lines are the kernel table as one JSON object, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -1147,7 +1176,7 @@ def _emb_dot_hs_batch(kind: str, model, corpus, gen, shape=None):
 
 
 def _emb_dot_hs_case(kind: str, model, corpus, iters: int = 50,
-                     shape=None) -> dict:
+                     shape=None, timed: bool = False) -> dict:
     """Kernel #5's fused mode as the HS step calls it (``dest`` from the
     scatter plan) against its plain version: every kept entry (grad_in and
     the delta rows of valid path entries) within EMB_TOL, written into a
@@ -1159,7 +1188,8 @@ def _emb_dot_hs_case(kind: str, model, corpus, iters: int = 50,
     bound with each row read per use, which the result line leaves out as
     it holds only measured numbers and ``bound_ms``). With ``shape``, a
     random batch at one (B, L, D) a phase-6 fit launches #5 at
-    (``phase6_emb_dot_keys``), checked and not timed."""
+    (``phase6_emb_dot_keys``), checked and not timed (timed too with
+    ``timed``: phase 18's per-rank shapes)."""
     import torch
 
     from deeplearning4j_tpu_torch.models import word2vec as w2v
@@ -1196,7 +1226,7 @@ def _emb_dot_hs_case(kind: str, model, corpus, iters: int = 50,
         flags_equal = flags_equal and torch.equal(zero, want)
     ok = (bool(torch.isfinite(out[at]).all()) and err <= EMB_TOL
           and unwritten and bitwise and flags_equal)
-    if shape is not None:
+    if shape is not None and not timed:
         log(f"kernel emb_dot fused HS rows, phase 6 shape B={b} L={L} "
             f"D={d}: max_abs_err {err:.3e} at dest (tol {EMB_TOL}), masked "
             f"entries unwritten {unwritten}, range flags equal "
@@ -1220,7 +1250,8 @@ def _emb_dot_hs_case(kind: str, model, corpus, iters: int = 50,
     use_ms, use_by = bound(4 * d * kept + idx_bytes + out_bytes, flops,
                            F32_FLOPS)
     saturated = int(zero.sum())
-    log(f"kernel emb_dot fused HS rows ({kind}) B={b} L={L} D={d}: "
+    label = "a phase 18 rank's shape" if shape is not None else kind
+    log(f"kernel emb_dot fused HS rows ({label}) B={b} L={L} D={d}: "
         f"{n_valid} valid path entries of {b * L}, {distinct} distinct rows; "
         f"max_abs_err {err:.3e} at dest (tol {EMB_TOL}), masked entries "
         f"unwritten {unwritten}, range flags equal {flags_equal} ({saturated} "
@@ -1460,6 +1491,11 @@ def phase_kernels(w2v_model, w2v_corpus) -> dict[str, dict]:
     # every shape phase 6's fits launch the fused mode at, first
     emb += [_emb_dot_hs_case("L16", w2v_model, w2v_corpus, shape=key)
             for key in phase6_emb_dot_keys(w2v_model, w2v_corpus)]
+    # phase 18a's data ranks: the fused mode at B 4,096 / n over the full
+    # vocabulary's longest path, checked and timed
+    emb += [_emb_dot_hs_case("L16", w2v_model, w2v_corpus, shape=key,
+                             timed=True)
+            for key in p18_emb_dot_keys(w2v_model)]
     emb += [_emb_dot_hs_case(kind, w2v_model, w2v_corpus)
             for kind in ("L16", "planted", "phase6")]
     draws = phase_draw()
@@ -2098,9 +2134,8 @@ def _w2v_run(tag: str, fn):
     return launches, secs, out
 
 
-def _counted_fit(model, sentences) -> int:
-    """``model.fit(sentences)``; returns the number of skip-gram pairs its
-    pair enumerator produced."""
+def _count_pairs(fn) -> int:
+    """Runs ``fn``; returns the skip-gram pairs its enumerator produced."""
     from deeplearning4j_tpu_torch import native_io
 
     real = native_io.sg_pairs_chunk
@@ -2114,7 +2149,7 @@ def _counted_fit(model, sentences) -> int:
 
     native_io.sg_pairs_chunk = counted
     try:
-        model.fit(sentences)
+        fn()
     finally:
         native_io.sg_pairs_chunk = real
     return pairs
@@ -2136,8 +2171,8 @@ def _bounded(tag: str, model) -> float:
 
 
 def _w2v_fit_run(tag: str, model, sentences, card: str) -> dict[str, int]:
-    launches, secs, pairs = _w2v_run(tag, lambda: _counted_fit(model,
-                                                              sentences))
+    launches, secs, pairs = _w2v_run(tag, lambda: _count_pairs(
+        lambda: model.fit(sentences)))
     top = _bounded(tag, model)
     log(f"{tag}: V {len(model.cache)}, max code length "
         f"{model.cache.max_code_length}, {pairs} pairs, "
@@ -7686,6 +7721,599 @@ def phase_dl4j_parallel(card: str) -> dict[str, dict[str, int]]:
     return {"dl4j_parallel": {name: total.get(name, 0) for name in KERNELS}}
 
 
+# -- phase 18 ----------------------------------------------------------------
+
+#: 18a: the data ranks of Word2Vec.fit_distributed (one card, repeated)
+P18_RANKS = (2, 4)
+#: 18a's sentences (phase 6's corpus cut from 4,000 to 500, and to 250 for
+#: the seeded repeat, to keep the phase's time; the vocabulary is the whole
+#: corpus's, so the widths and the longest Huffman path are phase 6's)
+P18_W2V_SENTENCES, P18_W2V_REPEAT_SENTENCES = 500, 250
+#: the card-vs-CPU runs of 18a (the first sentences, at least
+#: P18_CPU_BATCHES batches at 2 ranks) and of 18b (the first batches)
+P18_W2V_CPU_SENTENCES = 7
+P18_CPU_BATCHES = 8
+#: 18b: the reference's GloVe defaults, 2 epochs on phase 6's corpus; the
+#: seeded repeat and the 2-rank fit take 1 epoch on its first 500
+#: sentences (the phase's time)
+P18_GLOVE = dict(layer_size=50, window=5, x_max=100.0, alpha=0.75, lr=0.05,
+                 batch=4096, epochs=2)
+P18_GLOVE_SUB_SENTENCES = 500
+#: GloVe card vs CPU after the first batches, of each table's largest entry
+P18_GLOVE_RTOL = 1e-5
+#: 18c: the RNTN paper's width with the tensor (Socher et al. 2013) and
+#: CoreNLP's sentiment trainer's batch; 2,000 synthetic 5-class trees of
+#: 8-20 words (the simplified model), the bundled treebank (untied)
+P18_RNTN_DIM, P18_RNTN_BATCH, P18_RNTN_EPOCHS = 25, 27, 2
+P18_RNTN_TREES, P18_RNTN_CLASSES = 2000, 5
+#: the first step on the card vs the CPU: the loss (rel) and each gradient
+#: leaf (of its largest |g|)
+P18_RNTN_TOL = 1e-5
+#: 18d: on 18b's vectors
+P18_PCA_WORDS, P18_PCA_DIMS, P18_PCA_RTOL = 2000, 10, 1e-4
+P18_KMEANS_K, P18_KMEANS_TIE = 20, 1e-5
+P18_TSNE_WORDS, P18_TSNE_ITERS, P18_TSNE_CHECK = 1000, 500, 10
+#: the first t-SNE iterations, card vs CPU: within this of the map's
+#: largest coordinate, or within P18_TSNE_ULPS_X times what one ulp in y0
+#: moves the CPU run itself (t-SNE is chaotic; tests/test_torch_viz_
+#: clustering.py)
+P18_TSNE_RTOL, P18_TSNE_ULPS_X = 1e-4, 10
+#: 18e: the served GloVe demo vs the CPU demo model
+P18_EMBED_TOL = 1e-5
+P18_DIR = ROOT / ".scratch" / "chip_smoke_phase18"
+#: the card (and each data rank's view of it)
+P18_DEVICE, P18_RANK_DEVICE = "cuda", "cuda:0"
+
+
+def p18_emb_dot_keys(model) -> list[tuple[int, int, int]]:
+    """(B, L, D) of #5's fused launches in 18a: a rank's share of a batch
+    of 4,096 pairs, over the full vocabulary's longest Huffman path."""
+    L = model.cache.max_code_length
+    return [(W2V_BATCH // n, L, W2V_DIM) for n in P18_RANKS]
+
+
+def _p18_w2v_model(src, device):
+    """A full-width Word2Vec with phase 6's vocabulary, its table drawn
+    from the seed on ``device``."""
+    from deeplearning4j_tpu_torch.models.word2vec import Word2Vec
+
+    m = Word2Vec(layer_size=W2V_DIM, window=W2V_WINDOW,
+                 batch_pairs=W2V_BATCH, lr=W2V_LR, device=device)
+    m.cache = src.cache
+    m._codes, m._points, m._mask = src._codes, src._points, src._mask
+    m.reset_weights()
+    return m
+
+
+def _p18_w2v_fit(src, sents, n: int, device=None):
+    """fit_distributed over ``n`` ranks on ``device``: (model, pairs
+    enumerated, seconds on the host clock, launches)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.nlp.sentence_iterator import (
+        CollectionSentenceIterator,
+    )
+    from deeplearning4j_tpu_torch.parallel.mesh import data_parallel_mesh
+
+    device = device or P18_DEVICE
+    dev = P18_RANK_DEVICE if device == P18_DEVICE else device
+    m = _p18_w2v_model(src, device)
+    mesh = data_parallel_mesh(devices=[dev] * n)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    pairs = _count_pairs(lambda: m.fit_distributed(
+        CollectionSentenceIterator(sents), mesh=mesh))
+    torch.cuda.synchronize()
+    return m, pairs, time.perf_counter() - t0, read_launches()
+
+
+def p18_word2vec(card: str, src, corpus, runs: dict) -> None:
+    """18a: Word2Vec.fit_distributed at phase 6's width over 2 and 4 data
+    ranks: pairs/s, ms a batch, #5's launches exactly batches x ranks, the
+    tables bounded; two seeded card runs bitwise; at least 8 batches card
+    vs CPU."""
+    import torch
+
+    sents = corpus[:P18_W2V_SENTENCES]
+    for n in P18_RANKS:
+        tag = f"phase 18a w2v fit_distributed over {n} ranks"
+        m, pairs, secs, launches = _p18_w2v_fit(src, sents, n)
+        b = W2V_BATCH - W2V_BATCH % n
+        batches = pairs // b
+        top = _bounded(tag, m)
+        log(f"{tag}: {len(sents)} sentences, V {len(m.cache)}, max code "
+            f"length {m.cache.max_code_length}, {pairs} pairs, {batches} "
+            f"batches of {b} ({b // n} a rank); {secs:.2f} s -> "
+            f"{batches * b / secs:.1f} pairs/s trained, "
+            f"{secs * 1e3 / max(batches, 1):.3f} ms a batch (host clock, "
+            f"tokenizing and pair enumeration included); #5 launches "
+            f"{launches['emb_dot']} (batches x ranks {batches * n}); max "
+            f"|syn0| {top:.4f} [{card}]")
+        _must(tag, launches["emb_dot"] == batches * n,
+              f"#5 launched {launches['emb_dot']} times, not {batches * n}")
+        runs[f"w2v_dist_{n}"] = launches
+        del m
+    tag = "phase 18a repeat"
+    rep = corpus[:P18_W2V_REPEAT_SENTENCES]
+    one, _, _, runs["w2v_dist_repeat"] = _p18_w2v_fit(src, rep, P18_RANKS[0])
+    two, _, _, again = _p18_w2v_fit(src, rep, P18_RANKS[0])
+    _add(runs["w2v_dist_repeat"], again)
+    bitwise = all(torch.equal(getattr(one, k), getattr(two, k))
+                  for k in ("syn0", "syn1"))
+    del one, two
+    sub = corpus[:P18_W2V_CPU_SENTENCES]
+    card_m, pairs, _, runs["w2v_dist_cpu"] = _p18_w2v_fit(src, sub,
+                                                         P18_RANKS[0])
+    host_m, _, _, _ = _p18_w2v_fit(src, sub, P18_RANKS[0], device="cpu")
+    batches = pairs // (W2V_BATCH - W2V_BATCH % P18_RANKS[0])
+    _must(tag, runs["w2v_dist_cpu"]["emb_dot"] == batches * P18_RANKS[0],
+          f"#5 launched {runs['w2v_dist_cpu']['emb_dot']} times, not "
+          f"{batches * P18_RANKS[0]}")
+    errs = {k: (getattr(card_m, k).cpu() - getattr(host_m, k)).abs().max()
+            .item() for k in ("syn0", "syn1")}
+    log(f"{tag}: two seeded card runs over {P18_RANKS[0]} ranks "
+        f"({len(rep)} sentences) bitwise {bitwise}; card vs CPU over "
+        f"{P18_RANKS[0]} ranks from the same tables, {len(sub)} sentences, "
+        f"{batches} batches: max |card - cpu| syn0 {errs['syn0']:.3e}, syn1 "
+        f"{errs['syn1']:.3e} (tol {W2V_TOL}) [{card}]")
+    _must(tag, bitwise, "two seeded card runs differ")
+    _must(tag, batches >= P18_CPU_BATCHES,
+          f"{batches} batches, fewer than {P18_CPU_BATCHES}")
+    _must(tag, max(errs.values()) <= W2V_TOL, "the card left the CPU")
+
+
+def _p18_glove_batches(model, data, k: int):
+    """The first ``k`` batches of a GloVe fit's first epoch (the model's
+    permutation from its seed) by ``_glove_math``, from the model's
+    initial tables; returns the four merged tables ([w | b], [wc | bc] and
+    their accumulators)."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.device import upload
+    from deeplearning4j_tpu_torch.models import glove as glove_mod
+
+    rows, cols, vals = data
+    logx, fx = model._init_weights(vals)
+    dev = model.device
+    arrays = [upload(np.ascontiguousarray(a, dt), dev) for a, dt in
+              ((rows, np.int64), (cols, np.int64), (logx, np.float32),
+               (fx, np.float32))]
+    order = upload(np.random.default_rng(model.seed).permutation(len(rows)),
+                   dev)
+    tables = model._tables
+    bsz = model.batch
+    for s in range(0, k * bsz, bsz):
+        idx = order[s:s + bsz]
+        *tables, _ = glove_mod._glove_math(*tables, *(a[idx] for a in arrays),
+                                           float(np.float32(model.lr)))
+    return tables
+
+
+def p18_glove(card: str, corpus, runs: dict):
+    """18b: GloVe at the reference's defaults on phase 6's corpus: the
+    count's seconds, the triples, V, ms a batch, triples/s, the loss per
+    epoch (falling); the first batches card vs CPU from the fit's triples;
+    two seeded card runs bitwise and fit_distributed over 2 ranks, both for
+    1 epoch on the corpus's first sentences. Returns the fitted model
+    (18d's vectors)."""
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.models import glove as glove_mod
+    from deeplearning4j_tpu_torch.models.glove import Glove
+    from deeplearning4j_tpu_torch.nlp.sentence_iterator import (
+        CollectionSentenceIterator,
+    )
+    from deeplearning4j_tpu_torch.parallel.mesh import data_parallel_mesh
+
+    tag = "phase 18b GloVe"
+    real_count = glove_mod.count_cooccurrences
+    counted = []
+
+    def count(encoded, window):
+        t0 = time.perf_counter()
+        out = real_count(encoded, window)
+        counted.append((out, time.perf_counter() - t0))
+        return out
+
+    def timed_epochs(model):
+        run, spent = model._run_epochs, {}
+
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(*a, **k)
+            torch.cuda.synchronize()
+            spent["s"] = time.perf_counter() - t0
+
+        model._run_epochs = timed
+        return spent
+
+    def fitted(sentences, **kw):
+        m = Glove(device=P18_DEVICE, **dict(P18_GLOVE, **kw))
+        m.fit(CollectionSentenceIterator(sentences))
+        return m
+
+    glove_mod.count_cooccurrences = count
+    try:
+        g = Glove(device=P18_DEVICE, **P18_GLOVE)
+        spent = timed_epochs(g)
+        reset_launches()
+        t0 = time.perf_counter()
+        g.fit(CollectionSentenceIterator(corpus))
+        fit_s = time.perf_counter() - t0
+        (rows, cols, vals), count_s = counted[0]
+        n = len(rows)
+        batches = n // g.batch * g.epochs
+        losses = g.loss_history
+        log(f"{tag} (D {g.layer_size}, window {g.window}, x_max {g.x_max}, "
+            f"alpha {g.alpha}, lr {g.lr}, batches of {g.batch}, "
+            f"{g.epochs} epochs) on {len(corpus)} sentences: count "
+            f"{count_s:.2f} s, {n} triples, V {len(g.cache)}; fit "
+            f"{fit_s:.2f} s, of it the epochs {spent['s']:.2f} s: "
+            f"{spent['s'] * 1e3 / batches:.4f} ms a batch, "
+            f"{batches * g.batch / spent['s']:.1f} triples/s; loss per "
+            f"epoch {losses} [{card}]")
+        _must(tag, np.isfinite(losses).all() and losses[-1] < losses[0],
+              f"the loss did not fall: {losses}")
+        # the first batches, card vs CPU, from the same initial tables
+        outs = []
+        for dev in (P18_DEVICE, "cpu"):
+            m = Glove(device=dev, **P18_GLOVE)
+            m.cache = g.cache
+            outs.append(_p18_glove_batches(m, (rows, cols, vals),
+                                           P18_CPU_BATCHES))
+        errs = [((a.cpu() - b).abs().max() / b.abs().max()).item()
+                for a, b in zip(*outs)]
+        del outs
+        # two seeded runs, 1 epoch on the first sentences
+        sub = corpus[:P18_GLOVE_SUB_SENTENCES]
+        a, b = (fitted(sub, epochs=1) for _ in range(2))
+        bitwise = all(torch.equal(x, y) for x, y in zip(a._tables,
+                                                         b._tables))
+        log(f"{tag}: the first {P18_CPU_BATCHES} batches card vs CPU from "
+            f"the same tables, max |card - cpu| / max |cpu| per table ([w | "
+            f"b], [wc | bc], [hw | hb], [hwc | hbc]) "
+            f"{[f'{e:.3e}' for e in errs]} (tol {P18_GLOVE_RTOL}); two "
+            f"seeded card runs (1 epoch, {len(sub)} sentences, "
+            f"{len(counted[1][0][0])} triples) bitwise {bitwise} [{card}]")
+        _must(tag, bitwise, "two seeded card runs differ")
+        _must(tag, max(errs) <= P18_GLOVE_RTOL, "the card left the CPU")
+        del a, b
+        runs["glove"] = read_launches()
+        # the data axis: 2 ranks, 1 epoch
+        gd = Glove(device=P18_DEVICE, **dict(P18_GLOVE, epochs=1))
+        step, batch_losses = gd._distributed_step, []
+
+        def recorded(*a):
+            out = step(*a)
+            batch_losses.append(out[-1])
+            return out
+
+        gd._distributed_step = recorded
+        spent = timed_epochs(gd)
+        reset_launches()
+        gd.fit_distributed(CollectionSentenceIterator(sub),
+                           mesh=data_parallel_mesh(
+                               devices=[P18_RANK_DEVICE] * 2))
+        runs["glove_dist"] = read_launches()
+        first = float(batch_losses[0])
+        log(f"{tag} fit_distributed over 2 ranks, 1 epoch, {len(sub)} "
+            f"sentences: {len(batch_losses)} batches, "
+            f"{spent['s'] * 1e3 / len(batch_losses):.4f} ms a batch; first "
+            f"batch's loss {first:.6f}, the epoch's mean "
+            f"{gd.loss_history[0]:.6f} [{card}]")
+        _must(tag, np.isfinite(gd.loss_history[0])
+              and gd.loss_history[0] < first,
+              "the distributed loss did not fall against the first batch's")
+        del gd
+    finally:
+        glove_mod.count_cooccurrences = real_count
+    return g
+
+
+def _p18_sentiment_trees(n: int, seed: int = 0):
+    """``n`` trees of 8-20 words over P18_RNTN_CLASSES classes, built as
+    the reference's test_rntn_learns_sentiment builds its 2-class ones:
+    each class has its own words, half of a tree's words its class's and
+    half filler words, shuffled; every node carries the root's label."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.nlp.tree import (
+        binarize,
+        right_branching_tree,
+    )
+
+    rng = np.random.default_rng(seed)
+    vocab = [[f"c{c}w{i}" for i in range(6)]
+             for c in range(P18_RNTN_CLASSES)]
+    fill = ["movie", "film", "plot", "was", "the", "a", "and", "it", "very",
+            "scene", "actor", "story"]
+    trees = []
+    for _ in range(n):
+        c = int(rng.integers(P18_RNTN_CLASSES))
+        length = int(rng.integers(8, 21))
+        k = length // 2
+        words = list(rng.choice(vocab[c], k)) + list(
+            rng.choice(fill, length - k))
+        rng.shuffle(words)
+        t = binarize(right_branching_tree(words, label=str(c)))
+        for node in t.subtrees():
+            node.label = t.label
+        trees.append(t)
+    return trees
+
+
+def _p18_treebank():
+    """The bundled treebank, binarized, each node relabelled by its
+    category's index (the reference's untied-table test); the class
+    count."""
+    import copy
+
+    from deeplearning4j_tpu_torch.models.rntn import basic_category
+    from deeplearning4j_tpu_torch.nlp.parser import bundled_treebank
+    from deeplearning4j_tpu_torch.nlp.tree import binarize
+
+    trees = [binarize(t) for t in bundled_treebank()]
+    cats = sorted({basic_category(x.label, False)
+                   for t in trees for x in t.subtrees()})
+    cat_id = {c: i for i, c in enumerate(cats)}
+
+    def relabel(t):
+        cat = basic_category(t.label, False)
+        for c in t.children:
+            relabel(c)
+        t.label = str(cat_id[cat])
+
+    out = [copy.deepcopy(t) for t in trees]
+    for t in out:
+        relabel(t)
+    return out, len(cats)
+
+
+def _p18_rntn_run(card: str, tag: str, trees, **kw):
+    """The first step card vs CPU from the same tables, then the fit on
+    the card: ms a batch, the loss per epoch (falling)."""
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.models import rntn
+
+    m = rntn.RNTN(dim=P18_RNTN_DIM, batch_size=P18_RNTN_BATCH, seed=0,
+                  device=P18_DEVICE, **kw)
+    m.cache.fit([t.words() for t in trees])
+    m.discover_productions(trees)
+    m.init_params()
+    host = rntn.RNTN(dim=P18_RNTN_DIM, batch_size=P18_RNTN_BATCH, seed=0,
+                     device="cpu", **kw)
+    host.cache, host.prod_index, host.unary_index = (
+        m.cache, m.prod_index, m.unary_index)
+    host.params = rntn.params_from_jax(rntn.params_to_jax(m.params), "cpu")
+    cols = [np.stack(c) for c in zip(*[m._pack_padded(t)
+                                       for t in trees[:P18_RNTN_BATCH]])]
+    w = np.ones(P18_RNTN_BATCH, np.float32)
+    loss, grads = m._batch_loss_and_grads(m.params, m._upload(cols),
+                                          torch.tensor(w, device=P18_DEVICE))
+    hloss, hgrads = host._batch_loss_and_grads(host.params,
+                                               host._upload(cols),
+                                               torch.tensor(w))
+    loss_rel = abs(float(loss) - float(hloss)) / abs(float(hloss))
+    grad_rel = max(((grads[k].cpu() - g).abs().max()
+                    / g.abs().max().clamp_min(1e-30)).item()
+                   for k, g in hgrads.items() if g.abs().max() > 0)
+    del host, hgrads, grads
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = m.fit_trees(trees, epochs=P18_RNTN_EPOCHS)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    batches = -(-len(trees) // P18_RNTN_BATCH) * P18_RNTN_EPOCHS
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    ev = rntn.RNTNEval()
+    ev.eval(m, trees[:200])
+    log(f"{tag}: {len(trees)} trees, d {P18_RNTN_DIM} with the tensor, "
+        f"batch {P18_RNTN_BATCH}, max_nodes {m.max_nodes}, "
+        f"{len(m.prod_index)} productions, {m.num_classes} classes; first "
+        f"step card vs CPU: loss rel {loss_rel:.3e}, gradients "
+        f"{grad_rel:.3e} of a leaf's max (tol {P18_RNTN_TOL}); "
+        f"{P18_RNTN_EPOCHS} epochs {secs:.2f} s -> "
+        f"{secs * 1e3 / batches:.2f} ms a batch, peak memory {peak:.1f} "
+        f"MiB; loss per epoch {losses}; root accuracy on the first 200 "
+        f"trees {ev.accuracy():.3f} [{card}]")
+    _must(tag, loss_rel <= P18_RNTN_TOL and grad_rel <= P18_RNTN_TOL,
+          "the first step on the card left the CPU's")
+    _must(tag, np.isfinite(losses).all() and losses[-1] < losses[0],
+          f"the loss did not fall: {losses}")
+
+
+def p18_rntn(card: str, runs: dict) -> None:
+    """18c: the simplified RNTN on synthetic 5-class trees, the untied one
+    on the relabelled treebank."""
+    reset_launches()
+    trees = _p18_sentiment_trees(P18_RNTN_TREES)
+    _p18_rntn_run(card, "phase 18c RNTN simplified", trees,
+                  num_classes=P18_RNTN_CLASSES,
+                  max_nodes=max(2 * len(t.words()) - 1 for t in trees))
+    bank, n_cats = _p18_treebank()
+    _p18_rntn_run(card, "phase 18c RNTN untied (bundled treebank)", bank,
+                  num_classes=n_cats, simplified_model=False,
+                  combine_classification=False,
+                  max_nodes=max(sum(1 for _ in t.subtrees()) for t in bank))
+    runs["rntn"] = read_launches()
+
+
+def p18_vectors(card: str, glove, runs: dict) -> None:
+    """18d: PCA, k-means and t-SNE on 18b's vectors, card vs CPU."""
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.clustering.kmeans import KMeans
+    from deeplearning4j_tpu_torch.ops.pca import pca_factor
+    from deeplearning4j_tpu_torch.plot import tsne as tsne_mod
+
+    reset_launches()
+    vecs = glove.syn0[:P18_PCA_WORDS].cpu().numpy()
+    tag = "phase 18d"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    proj, comps = pca_factor(vecs, P18_PCA_DIMS, device=P18_DEVICE)
+    pca_ms = (time.perf_counter() - t0) * 1e3
+    hproj, hcomps = pca_factor(vecs, P18_PCA_DIMS, device="cpu")
+    sign = np.sign((comps * hcomps).sum(1))
+    pca_err = np.abs(proj * sign - hproj).max() / np.abs(hproj).max()
+    log(f"{tag} PCA of the {P18_PCA_WORDS} most frequent words' vectors "
+        f"(D {vecs.shape[1]}) to {P18_PCA_DIMS}: {pca_ms:.2f} ms on the "
+        f"card; up to sign, max |card - cpu| / max |cpu| {pca_err:.3e} (tol "
+        f"{P18_PCA_RTOL}); signs {sign.astype(int).tolist()} [{card}]")
+    _must(tag, pca_err <= P18_PCA_RTOL, "PCA on the card left the CPU's")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    km = KMeans(k=P18_KMEANS_K, seed=0, device=P18_DEVICE).fit(vecs)
+    km_ms = (time.perf_counter() - t0) * 1e3
+    hk = KMeans(k=P18_KMEANS_K, seed=0, device="cpu").fit(vecs)
+    d2 = ((vecs[:, None, :] - hk.centroids[None]) ** 2).sum(-1)
+    two = np.sort(d2, axis=1)[:, :2]
+    clear = (two[:, 1] - two[:, 0]) > P18_KMEANS_TIE
+    same = int((km.labels_ == hk.labels_)[clear].sum())
+    log(f"{tag} k-means k {P18_KMEANS_K}: {km_ms:.2f} ms on the card "
+        f"(k-means++ on the host included), inertia {km.inertia:.4f} (CPU "
+        f"{hk.inertia:.4f}); assignments equal on {same} of {int(clear.sum())} "
+        f"points farther than {P18_KMEANS_TIE} from a tie "
+        f"({int((~clear).sum())} near ties) [{card}]")
+    _must(tag, same == int(clear.sum()), "k-means on the card left the CPU's")
+
+    x = glove.syn0[:P18_TSNE_WORDS].cpu().numpy()
+    ts = tsne_mod.Tsne(use_pca=True, n_iter=P18_TSNE_ITERS, seed=0,
+                       device=P18_DEVICE)
+    t0 = time.perf_counter()
+    p, y0 = ts.prepare(x)
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    args = (ts.learning_rate, ts.initial_momentum, ts.final_momentum)
+    t0 = time.perf_counter()
+    y = tsne_mod._tsne_loop(p, y0, *args, P18_TSNE_ITERS, ts.stop_lying_iter)
+    torch.cuda.synchronize()
+    loop_ms = (time.perf_counter() - t0) * 1e3
+    hp, hy0 = p.cpu(), y0.cpu()
+    hy0_ulp = torch.from_numpy(np.nextafter(hy0.numpy(), np.float32(1)))
+    k = P18_TSNE_CHECK
+    got = tsne_mod._tsne_loop(p, y0, *args, k, ts.stop_lying_iter).cpu()
+    want = tsne_mod._tsne_loop(hp, hy0, *args, k, ts.stop_lying_iter)
+    moved = tsne_mod._tsne_loop(hp, hy0_ulp, *args, k, ts.stop_lying_iter)
+    err = (got - want).abs().max().item()
+    noise = (moved - want).abs().max().item()
+    bar = max(P18_TSNE_RTOL * want.abs().max().item(),
+              P18_TSNE_ULPS_X * noise)
+    finite = bool(torch.isfinite(y).all())
+    log(f"{tag} t-SNE of {P18_TSNE_WORDS} words (use_pca, PCA to "
+        f"{ts.pca_dims}): P and y0 {prep_s:.2f} s (the perplexity search on "
+        f"the host); {P18_TSNE_ITERS} iterations {loop_ms:.1f} ms on the "
+        f"card, finite {finite}; after {k} iterations max |card - cpu| "
+        f"{err:.3e} (bar {bar:.3e}: {P18_TSNE_RTOL} of the map's max "
+        f"{want.abs().max().item():.4f}, or {P18_TSNE_ULPS_X} x the CPU "
+        f"run's own one-ulp movement {noise:.3e}) [{card}]")
+    _must(tag, finite and err <= bar, "t-SNE on the card left the CPU's")
+    runs["vectors"] = read_launches()
+
+
+def p18_serve(card: str) -> None:
+    """18e: ``serve --embed-models word2vec,glove`` through the CLI in a
+    process of its own: ``POST /v1/embeddings`` with ``model: glove``
+    returns the CPU demo model's vectors within P18_EMBED_TOL."""
+    import os
+    import signal
+
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import cli
+
+    tag = "phase 18e"
+    shutil.rmtree(P18_DIR, ignore_errors=True)
+    P18_DIR.mkdir(parents=True)
+    port_file = P18_DIR / "port.json"
+    out = open(P18_DIR / "serve.log", "w")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-u", "-m", "deeplearning4j_tpu_torch", "serve",
+         "--demo", "--embed-models", "word2vec,glove", "--port", "0",
+         "--port-file", str(port_file)], cwd=ROOT, stdout=out,
+        stderr=subprocess.STDOUT, env=dict(os.environ))
+    try:
+        while not port_file.exists():
+            _must(tag, proc.poll() is None and time.perf_counter() - t0 < 240,
+                  f"serve did not start: {(P18_DIR / 'serve.log').read_text()}")
+            time.sleep(0.2)
+        time.sleep(0.2)
+        addr = json.loads(port_file.read_text())
+        up_s = time.perf_counter() - t0
+        base = f"http://{addr['host']}:{addr['port']}"
+        host = cli._demo_embedders(["glove"], device="cpu")["glove"]
+        words = [host.cache.index_to_word[i] for i in range(len(host.cache))]
+        code, res = _post_status(base + "/v1/embeddings",
+                                 {"words": words + ["zebra"],
+                                  "model": "glove"})
+        w2v_code, _ = _post_status(base + "/v1/embeddings",
+                                   {"words": words[:3], "model": "word2vec"})
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        out.close()
+    vec = res.get("vectors", {})
+    err = max(float(np.abs(np.asarray(vec.get(w), np.float32)
+                           - host.get_word_vector(w)).max())
+              if vec.get(w) is not None else float("inf") for w in words)
+    log(f"{tag}: serve --embed-models word2vec,glove up in {up_s:.1f} s; "
+        f"POST /v1/embeddings model glove {code}: {len(words)} vectors, max "
+        f"|served - CPU demo model| {err:.3e} (tol {P18_EMBED_TOL}), unknown "
+        f"word {vec.get('zebra', 'missing')}; model word2vec {w2v_code}; "
+        f"serve exit {proc.returncode} [{card}]")
+    shutil.rmtree(P18_DIR, ignore_errors=True)
+    _must(tag, code == 200 and res.get("model") == "glove"
+          and err <= P18_EMBED_TOL and vec.get("zebra", 0) is None
+          and w2v_code == 200, "the GloVe demo served through the CLI")
+
+
+def phase_nlp_vectors(card: str, w2v_src, corpus) -> dict[str, dict[str, int]]:
+    """Phase 18: the embedding models over a data axis, GloVe, the RNTN,
+    the vector tools and GloVe served; #5 launches in 18a alone."""
+    import torch
+
+    t0 = time.perf_counter()
+    runs: dict[str, dict[str, int]] = {}
+
+    def timed(name, fn):
+        t1 = time.perf_counter()
+        out = fn()
+        log(f"phase 18{name}: {time.perf_counter() - t1:.1f} s")
+        torch.cuda.empty_cache()
+        return out
+
+    timed("a", lambda: p18_word2vec(card, w2v_src, corpus, runs))
+    glove = timed("b", lambda: p18_glove(card, corpus, runs))
+    timed("c", lambda: p18_rntn(card, runs))
+    timed("d", lambda: p18_vectors(card, glove, runs))
+    timed("e", lambda: p18_serve(card))
+    total: dict[str, int] = {}
+    for r in runs.values():
+        _add(total, r)
+    log(f"phase 18: launches {total}")
+    _must("phase 18", not any(total[k] for k in KERNELS if k != "emb_dot"),
+          f"a kernel other than #5 launched: {total}")
+    _must("phase 18", all(runs[k]["emb_dot"] == 0 for k in runs
+                          if not k.startswith("w2v_")),
+          "#5 launched outside Word2Vec's distributed fits")
+    log(f"phase 18: {time.perf_counter() - t0:.1f} s wall [{card}]")
+    return {k: {name: r.get(name, 0) for name in KERNELS}
+            for k, r in runs.items()}
+
+
 def main() -> int:
     try:
         import torch
@@ -7724,7 +8352,9 @@ def main() -> int:
         by_phase["train"] = phase_train(card)
         by_phase.update(phase_word2vec(w2v_model, w2v_corpus, card))
     check_launched("phases 3-6", early)
-    del w2v_model
+    # phase 18 trains again over phase 6's vocabulary: keep it, free the
+    # tables
+    w2v_model.syn0 = w2v_model.syn1 = w2v_model.syn1neg = None
     by_phase.update(phase_decode_variants(card))
     by_phase.update(phase_serving_features(card))
     by_phase.update(phase_surface(card))
@@ -7747,6 +8377,9 @@ def main() -> int:
     with launched_shapes() as late:
         by_phase.update(phase_dl4j_parallel(card))
     check_launched("phase 17", late)
+    with launched_shapes() as last:
+        by_phase.update(phase_nlp_vectors(card, w2v_model, w2v_corpus))
+    check_launched("phase 18", last)
     kernels = [
         dict(name=name, route="cuda", **KERNELS[name],
              launches=sum(p[name] for p in by_phase.values()),

@@ -15,15 +15,19 @@ the router), with attention on hand-written CUDA kernels (``ops/``,
 sources in ``csrc/``): the flash forward and backward for training and
 prefill, flash decode (slab and paged, bf16 and int8) for serving. It
 also trains Word2Vec and ParagraphVectors (the fused embedding-dot
-kernel), and the DL4J-era framework: the layers (``nn/``), the solvers
-(``optimize/``), ``MultiLayerNetwork`` with LeNet, AlexNet and the DBN,
-ResNet-20 with BatchNorm and the char-LSTM (``models/``), the datasets and
-evaluation, and the DL4J nets' parallel modes (``parallel/``:
-``DataParallelTrainer`` with batch statistics over the data axis, also
-across processes, local SGD, the GPipe pipeline, the Megatron block, the
-sequence-sharded LSTM; ``python -m deeplearning4j_tpu_torch train --model
-lenet|alexnet``). Later slices: GloVe and the rest of the NLP models, the
-tools and ``analysis/``.
+kernel), GloVe and the RNTN, Word2Vec and GloVe also over a data axis
+(``models/``), with the text tools (``nlp/``: trees, the PCFG-CKY parser,
+the HMM tagger on ``utils/viterbi.py``, the stemmer, sentiment,
+vectorizers, the inverted index) and the vector tools (``ops/pca.py``,
+``clustering/``: k-means and the search trees, ``plot/``: t-SNE); and the
+DL4J-era framework: the layers (``nn/``), the solvers (``optimize/``),
+``MultiLayerNetwork`` with LeNet, AlexNet and the DBN, ResNet-20 with
+BatchNorm and the char-LSTM (``models/``), the datasets and evaluation,
+and the DL4J nets' parallel modes (``parallel/``: ``DataParallelTrainer``
+with batch statistics over the data axis, also across processes, local
+SGD, the GPipe pipeline, the Megatron block, the sequence-sharded LSTM;
+``python -m deeplearning4j_tpu_torch train --model lenet|alexnet``). Later
+slices: the rest of the datasets and ``utils/``, and ``analysis/``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no GPU and no explicit CPU device they raise. CPU tensors take each

@@ -645,12 +645,13 @@ class HostTable:
 
 
 def _demo_embedders(names: list[str], device=None) -> dict:
-    """The reference's ``/v1/embeddings`` demo (its ``_demo_embedders``):
-    ``word2vec`` is ``Word2Vec(layer_size=16, seed=0)`` over
-    :data:`_DEMO_SENTENCES`, its vocabulary built and its table drawn
-    (the reference's bits), no training, on ``device``; served from a
-    host copy. Raises ``ValueError`` on another name (``glove`` comes with
-    a later slice of the port)."""
+    """The reference's ``/v1/embeddings`` demo (its ``_demo_embedders``)
+    over :data:`_DEMO_SENTENCES`, on ``device``, each served from a host
+    copy: ``word2vec`` is ``Word2Vec(layer_size=16, seed=0)``, its
+    vocabulary built and its table drawn (the reference's bits), no
+    training; ``glove`` is ``Glove(layer_size=16, epochs=1, seed=0)``
+    fitted on the corpus. Raises ``ValueError`` on another name."""
+    from deeplearning4j_tpu_torch.models.glove import Glove
     from deeplearning4j_tpu_torch.models.word2vec import Word2Vec
 
     out = {}
@@ -658,15 +659,16 @@ def _demo_embedders(names: list[str], device=None) -> dict:
         name = name.strip().lower()
         if not name:
             continue
-        if name == "glove":
-            raise ValueError("--embed-models glove comes with a later slice "
-                             "of the port (GloVe); this slice serves "
-                             "word2vec")
-        if name != "word2vec":
-            raise ValueError(f"unknown embed model {name!r} (word2vec)")
-        m = Word2Vec(layer_size=16, seed=0, device=device)
-        m.build_vocab(_DEMO_SENTENCES)
-        m.reset_weights()
+        if name == "word2vec":
+            m = Word2Vec(layer_size=16, seed=0, device=device)
+            m.build_vocab(_DEMO_SENTENCES)
+            m.reset_weights()
+        elif name == "glove":
+            m = Glove(layer_size=16, epochs=1, seed=0, device=device)
+            m.fit(_DEMO_SENTENCES)
+        else:
+            raise ValueError(
+                f"unknown embed model {name!r} (word2vec|glove)")
         out[name] = HostTable(m)
     return out
 
@@ -1190,8 +1192,7 @@ def build_parser() -> argparse.ArgumentParser:
                    "disables")
     v.add_argument("--embed-models", default=None, metavar="M[,M]",
                    help="embedding models to serve at POST /v1/embeddings "
-                   "over a small demo vocabulary (word2vec; glove comes "
-                   "with a later slice)")
+                   "over a small demo vocabulary (word2vec, glove)")
     v.add_argument("--drain-s", type=float, default=5.0)
     _add_model_flags(v)
     _add_int8_flag(v)

@@ -29,7 +29,8 @@ The grad_in and g ⊗ h products are elementwise products summed in f32, so no
 TF32 matrix product is reached whatever the caller's
 ``torch.backends.cuda.matmul.allow_tf32`` says. The WordVectors queries
 (``similarity``, ``words_nearest``, ``accuracy``) run on a host copy of
-syn0, as in the reference. ``fit_distributed`` (a mesh) is a later slice.
+syn0, as in the reference. ``fit_distributed`` runs the HS update over a
+mesh's data ranks and averages their tables.
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ from deeplearning4j_tpu_torch.nlp.tokenization import DefaultTokenizer
 from deeplearning4j_tpu_torch.nlp.vocab import VocabCache
 from deeplearning4j_tpu_torch.ops import threefry
 from deeplearning4j_tpu_torch.ops.emb_dot import MAX_EXP, fused_hs_rows
+from deeplearning4j_tpu_torch.parallel import mesh as mesh_lib
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -492,11 +494,72 @@ class Word2Vec:
             _ns_math_merged(S, v + n1, ins, tgts, negatives, lr)
 
     def fit_distributed(self, sentences: SentenceIterator, mesh=None) -> None:
-        raise NotImplementedError(
-            "Word2Vec.fit_distributed (data-parallel delta averaging over a "
-            "mesh) is a later slice of the port, on torch.distributed "
-            "(ROADMAP Queue 1); use fit on one device"
+        """Data-parallel Word2Vec over ``mesh``'s data axis (every card by
+        default; ``data_parallel_mesh(devices=[...])`` names them, and a
+        device may repeat), ≙ Word2VecPerformer and the delta merge of
+        Word2VecJobAggregator: each batch of pairs splits into equal
+        contiguous shares, one a data rank; each rank runs the HS update
+        (:func:`_hs_math_merged`: kernel #5 in fused mode on the card, at B
+        = the share) on its own copy of syn0 and syn1, and the ranks'
+        tables are averaged in rank order (``parallel/mesh.rank_mean``), as
+        the reference's ``pmean``. The mean is of whole tables, not of the
+        touched rows' deltas: it rounds as the reference's, and its cost
+        (the ranks' copies and one pass over them) is small beside the
+        batch's host path.
+
+        The reference's quirks are kept: HS only (no negative sampling) at
+        the constant ``lr`` (no decay), no subsampling, one pass over the
+        sentences whatever ``epochs`` says; the batch is ``batch_pairs``
+        less its remainder modulo the ranks, and the tail of pairs that
+        does not fill one is dropped. Across processes (``hybrid_mesh``)
+        every process enumerates the same pairs, runs its ranks' shares of
+        each batch and joins the average through ``all_reduce_mean``."""
+        mesh = mesh or mesh_lib.device_data_mesh(self.device)
+        n_ranks = mesh.global_data_size
+        n_local = mesh.axis_size(mesh_lib.DATA_AXIS)
+        if len(self.cache) == 0:
+            self.build_vocab(sentences)
+        if self.syn0 is None:
+            self.reset_weights()
+        codes, points, mask = self._huffman()
+        v = self.syn0.shape[0]
+        S = torch.cat([self.syn0, self.syn1])
+        lr = _f32(self.lr)
+        b = self.batch_pairs - self.batch_pairs % n_ranks
+        per = b // n_ranks
+        first = mesh.process_index * n_local * per
+        buf = _PairBuffer(
+            self.window, self.seed, _PairBuffer.words_per_chunk(b, self.window)
         )
+
+        def rank_step(r, copies, batch_i, batch_t):
+            lo = first + r * per
+            dev = copies[0].device
+            ins = batch_i[lo:lo + per].to(dev)
+            tg = batch_t[lo:lo + per]
+            return [_hs_math_merged(copies[0], v, ins, codes[tg].to(dev),
+                                    points[tg].to(dev), mask[tg].to(dev),
+                                    lr)]
+
+        def train_full_batches():
+            nonlocal S
+            while buf.count >= b:
+                allin, alltg = buf.take_all()
+                buf.put_back(allin[b:], alltg[b:])
+                batch = (upload(allin[:b].astype(np.int64), self.device),
+                         upload(alltg[:b].astype(np.int64), self.device))
+                S = mesh_lib.rank_mean(
+                    mesh, [S], lambda r, c: rank_step(r, c, *batch))[0].to(
+                        self.device)
+
+        sentences.reset()
+        for sent in sentences:
+            if buf.add(self.cache.encode(self.tokenize(sent))):
+                buf.drain()
+            train_full_batches()
+        buf.drain()
+        train_full_batches()  # a tail under b pairs is dropped
+        self.syn0, self.syn1 = S[:v], S[v:]
 
     # -- WordVectors API ---------------------------------------------------
     def get_word_vector(self, word: str) -> np.ndarray | None:

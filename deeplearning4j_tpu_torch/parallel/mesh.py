@@ -277,6 +277,14 @@ def data_parallel_mesh(n_devices: int | None = None,
     return _mesh_1d(DATA_AXIS, n_devices, devices)
 
 
+def device_data_mesh(device: torch.device) -> DeviceMesh:
+    """The default data axis of a model on ``device``: every card when it
+    is a card, else the one device."""
+    if device.type == "cuda":
+        return data_parallel_mesh()
+    return data_parallel_mesh(devices=[device])
+
+
 def expert_mesh(n_devices: int | None = None, devices=None) -> DeviceMesh:
     """A 1-D expert-axis mesh (the GShard layout ``moe_apply`` runs on:
     tokens split over the devices that hold the experts)."""
@@ -400,3 +408,32 @@ def broadcast_ints(values, mesh: DeviceMesh) -> list[int]:
     t = torch.tensor([int(v) for v in values], dtype=torch.int64, device=dev)
     dist.broadcast(t, src=0)
     return [int(v) for v in t.tolist()]
+
+
+def rank_mean(mesh: DeviceMesh, tables, rank_step) -> list[torch.Tensor]:
+    """One data-parallel step over replicated tables, averaged: for every
+    data rank ``r`` of ``mesh`` in rank order, ``rank_step(r, copies)``
+    gets its own copies of ``tables`` on its device (the rank's step may
+    update them in place) and returns its updated tensors (the tables, and
+    anything else to average, such as its loss). The ranks' results are
+    summed in rank order on the first device, one rank at a time, and
+    divided by the rank count (a device scalar: CUDA divides by a host
+    number as a product with its reciprocal), as the reference's ``pmean``
+    over a ``shard_map``; across processes (``hybrid_mesh``) the local
+    means then go through :func:`all_reduce_mean`, one bucket a step. The
+    embedding models' ``fit_distributed`` (GloVe, Word2Vec) share it."""
+    dev = mesh.devices[0]
+    n = mesh.axis_size(DATA_AXIS)
+    total = None
+    for r in range(n):
+        rdev = mesh.device_at(**{DATA_AXIS: r})
+        out = rank_step(r, [t.detach().to(rdev, copy=True) for t in tables])
+        if total is None:
+            total = [o.to(dev) for o in out]
+        else:
+            for acc, o in zip(total, out):
+                acc.add_(o.to(dev))
+    div = torch.full((), float(n), device=dev)
+    total = [acc / div for acc in total]
+    all_reduce_mean(total, mesh)
+    return total

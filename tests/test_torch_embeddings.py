@@ -13,7 +13,8 @@ held against the reference.
   an empty or non-string ``words``, 503 on an engine without models, 500
   for an unknown model; embedding requests interleaved with generation
   leave the generated streams byte-identical; ``--embed-models glove``
-  exits 2 (a later slice).
+  serves the reference's GloVe demo (its one-epoch fit, within 1e-5), and an
+  unknown model beside it exits 2.
 """
 
 import json
@@ -160,8 +161,15 @@ def test_demo_model_is_the_references():
         a, b = ours.get_word_vector(w), np.asarray(ref.get_word_vector(w))
         assert a.dtype == np.float32 and np.array_equal(a, b), w
     assert ours.get_word_vector("zebra") is None
-    with pytest.raises(ValueError, match="later slice"):
-        cli._demo_embedders(["glove"], device="cpu")
+    # glove: the reference's one-epoch fit over the same corpus, vector for
+    # vector within the fit's f32 rounding
+    ours = cli._demo_embedders(["glove"], device="cpu")["glove"]
+    ref = jcli._demo_embedders(["glove"])["glove"]
+    assert len(ours.cache) == len(ref.cache) == 27
+    for w in words:
+        a, b = ours.get_word_vector(w), np.asarray(ref.get_word_vector(w))
+        assert a.dtype == np.float32
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-5, err_msg=w)
     with pytest.raises(ValueError, match="unknown"):
         cli._demo_embedders(["fasttext"], device="cpu")
 
@@ -181,7 +189,7 @@ def test_embeddings_endpoint(params):
     """200 with the demo model's vectors (null for an unknown word), 400
     on an empty or non-string ``words``, 500 for an unknown model, 503
     without models; a tenant's request is counted under it."""
-    emb = cli._demo_embedders(["word2vec"], device="cpu")
+    emb = cli._demo_embedders(["word2vec", "glove"], device="cpu")
     tenancy = TenantRegistry([TenantConfig("t1", api_key="k1")])
     engine = ServingEngine(CFG, params, n_slots=2, temperature=0.0,
                            device="cpu", embedders=emb, tenancy=tenancy,
@@ -203,13 +211,19 @@ def test_embeddings_endpoint(params):
         assert _post(base, "/v1/embeddings", {"words": [1, 2]}, k)[0] == 400
         code, out = _post(base, "/v1/embeddings",
                           {"words": ["fox"], "model": "glove"}, k)
-        assert code == 500 and "glove" in out["error"]
+        assert code == 200 and out["model"] == "glove"
+        np.testing.assert_array_equal(
+            np.asarray(out["vectors"]["fox"], np.float32),
+            emb["glove"].get_word_vector("fox"))
+        code, out = _post(base, "/v1/embeddings",
+                          {"words": ["fox"], "model": "fasttext"}, k)
+        assert code == 500 and "fasttext" in out["error"]
         assert _post(base, "/v1/embeddings", {"words": ["fox"]},
                      {"X-API-Key": "nope"})[0] == 401
     finally:
         srv.stop()
     t = engine.metrics.summary()["tenants"]["t1"]
-    assert t["n_finished"] == 2
+    assert t["n_finished"] == 3
     bare = ServingServer(ServingEngine(CFG, params, n_slots=1,
                                        device="cpu"), port=0).start()
     try:
@@ -247,9 +261,11 @@ def test_interleaved_embeddings_keep_the_generate_streams(params):
 
 
 def test_cli_glove_exits_2(capsys):
-    """``serve --embed-models glove`` exits 2 with the later-slice
-    message, before any model is built."""
+    """``serve --embed-models glove,...`` accepts glove (its demo model is
+    fitted) and exits 2 on an unknown model beside it, naming it, before
+    the server starts."""
     rc = cli.main(["serve", "--demo", "--device", "cpu", "--port", "0",
-                   "--embed-models", "glove"])
+                   "--embed-models", "glove,fasttext"])
     assert rc == 2
-    assert "later slice" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "fasttext" in err and "word2vec|glove" in err

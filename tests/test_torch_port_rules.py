@@ -302,6 +302,42 @@ assert not bad, bad
 """
 
 
+def test_nlp_models_and_vector_tools_follow_the_rules(monkeypatch):
+    """The NLP models, the text tools and the vector tools import no JAX in
+    a fresh process, and without a card their entry points raise unless
+    the CPU is named."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run(
+        [sys.executable, "-c", _IMPORT_MESH, "models.glove", "models.rntn",
+         "nlp.tree", "nlp.parser", "nlp.pos", "nlp.sentiment", "nlp.stemmer",
+         "nlp.vectorizers", "nlp.inverted_index", "utils.viterbi", "ops.pca",
+         "clustering", "plot", "plot.barnes_hut", "plot.plotter"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr + out.stdout
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.clustering import KMeans
+    from deeplearning4j_tpu_torch.models.glove import Glove
+    from deeplearning4j_tpu_torch.models.rntn import RNTN
+    from deeplearning4j_tpu_torch.nlp.pos import PosTagger, default_tagger
+    from deeplearning4j_tpu_torch.ops.pca import pca
+    from deeplearning4j_tpu_torch.plot.tsne import Tsne
+    from deeplearning4j_tpu_torch.utils.viterbi import Viterbi
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = np.ones((4, 3), np.float32)
+    for call in (Glove, RNTN, PosTagger, default_tagger, Tsne,
+                 lambda: KMeans(2), lambda: pca(x, 2),
+                 lambda: Viterbi(np.eye(2))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    for cls in (Glove, RNTN, PosTagger, Tsne):
+        assert cls(device="cpu").device.type == "cpu"
+    assert KMeans(2, device="cpu").device.type == "cpu"
+    assert pca(x, 2, device="cpu").shape == (4, 2)
+
+
 def test_mesh_and_moe_follow_the_rules(monkeypatch, capsys):
     """The expert-parallel, sequence-parallel and mesh modules import no
     JAX in a fresh process; without a card, the mesh and MoE entry points

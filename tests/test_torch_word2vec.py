@@ -468,9 +468,37 @@ def test_state_from_jax_and_distributed_slice():
         np.testing.assert_array_equal(st[name].numpy(), x)
     syn0[0, 0] = 99.0  # the tensors own their memory
     assert st["syn0"][0, 0] != 99.0
-    m = Word2Vec(device="cpu")
-    with pytest.raises(NotImplementedError, match="torch.distributed"):
-        m.fit_distributed(CollectionSentenceIterator(["a b c"]))
+    # the distributed fit runs (one rank on the CPU by default); a corpus
+    # under one batch of pairs trains nothing, as the reference's
+    m = Word2Vec(device="cpu", layer_size=4, batch_pairs=64)
+    m.fit_distributed(CollectionSentenceIterator(["a b c"]))
+    assert m.syn0.shape == (3, 4) and not m.syn1.any()
+
+
+@pytest.mark.parametrize("n", [2, 8])
+def test_fit_distributed_matches_reference(ref, n):
+    """``fit_distributed`` over ``["cpu"] * n`` against the reference's over
+    ``data_parallel_mesh(n)`` from the same initial tables (the reference
+    test's configuration): HS at a constant lr, one pass, the batch split
+    over the ranks and their tables averaged."""
+    from deeplearning4j_tpu.parallel import data_parallel_mesh as jmesh
+
+    from deeplearning4j_tpu_torch.parallel.mesh import data_parallel_mesh
+
+    sents = _synthetic_corpus(200)
+    kw = dict(layer_size=16, window=3, epochs=4, lr=0.05, seed=3,
+              batch_pairs=1024)
+    port = Word2Vec(device="cpu", **kw)
+    port.build_vocab(CollectionSentenceIterator(sents))
+    port.reset_weights()
+    port.fit_distributed(CollectionSentenceIterator(sents),
+                         mesh=data_parallel_mesh(devices=["cpu"] * n))
+    r = ref.w2v.Word2Vec(**kw)
+    r.build_vocab(ref.Sentences(sents))
+    r.reset_weights()
+    r.fit_distributed(ref.Sentences(sents), mesh=jmesh(n))
+    _assert_tables(port, r, ("syn0", "syn1"), STEP_ATOL)
+    assert np.abs(port.syn0.numpy()).max() > 1e-4  # actually trained
 
 
 def test_reset_weights_shapes_and_range():
