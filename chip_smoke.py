@@ -357,6 +357,20 @@ Phases, in order; any failure exits non-zero without printing a result:
    movement); (e) ``serve --demo --embed-models word2vec,glove`` in a
    process of its own: ``POST /v1/embeddings`` with ``model: glove``
    returns the CPU demo model's vectors within 1e-5.
+19. the correctness tooling, the loader and provision: (a) ``serve
+   --sanitize`` at GPT-2-small width (the serve phases' geometry, with the
+   sampling surface), slab and paged, each beside the same run without
+   ``--sanitize`` (four processes at once): four greedy requests together,
+   then one sampled; ``sanitizers: clean``, no ``dispatch`` entry in the
+   sync counts, process-phase syncs within the horizons, streams
+   byte-identical to the run without it; #1, #3 (#4 paged) and the draw
+   launch in the sanitized process, which reports its counts and shapes;
+   (b) ``audit --strict`` exits 0, and the sanitized slab run's
+   ``/metrics`` gives the decode family's ``serve_mfu``/``serve_mbu``; (c)
+   ``lint --strict`` exits 0; (d) ``PrefetchingLoader`` on the card at
+   MNIST's size (60,000 x 784 uint8, batch 256, 3 epochs) bitwise the CPU
+   loader in order, epoch labels and content, and the ms a batch; (e) a
+   ``provision`` dry run prints the rendered commands.
 
 The last lines are the kernel table as one JSON object, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -8314,6 +8328,281 @@ def phase_nlp_vectors(card: str, w2v_src, corpus) -> dict[str, dict[str, int]]:
             for k, r in runs.items()}
 
 
+# -- phase 19 ------------------------------------------------------------------
+
+#: phase 19's serve processes: GPT-2-small (the serve phases' geometry: 8
+#: slots, 640 tokens a slot, K 4) with the sampling surface, so one request
+#: samples (the draw kernel) while the rest decode greedily
+P19_DIR = ROOT / ".scratch" / "chip_smoke_phase19"
+P19_SERVE = ["serve", "--demo", "--preset", "gpt2s", "--flash", "--slots", "8",
+             "--max-total", "640", "--decode-horizon", "4", "--temperature",
+             "0", "--top-k", "0", "--sampling-surface", "--probe-cache",
+             "off", "--port", "0"]
+#: the concurrent greedy requests' prompt lengths (one bucketed and
+#: batched, one chunked past the 128-row bucket) and the sampled request's
+P19_GREEDY = (16, 40, 77, 130)
+P19_SAMPLED = 60
+P19_MAX_NEW = 24
+#: the MNIST-sized table of 19d: 60,000 rows of 784 uint8, batch 256,
+#: three epochs
+P19_ROWS, P19_ROW_LEN, P19_BATCH, P19_EPOCHS = 60000, 784, 256, 3
+#: the serve process's launch report: the counts and the launched shapes,
+#: printed after the CLI returns (the counters live in that process)
+P19_WRAPPER = (
+    "import json, sys\n"
+    "sys.path.insert(0, {root!r})\n"
+    "import chip_smoke\n"
+    "from deeplearning4j_tpu_torch import cli\n"
+    "chip_smoke.reset_launches()\n"
+    "with chip_smoke.launched_shapes() as seen:\n"
+    "    rc = cli.main(sys.argv[1:])\n"
+    "print('P19_LAUNCHES ' + json.dumps({{'launches': "
+    "chip_smoke.read_launches(), 'shapes': sorted(seen, key=str)}}), "
+    "flush=True)\n"
+    "sys.exit(rc)\n")
+
+
+def _tuples(x):
+    return tuple(_tuples(v) for v in x) if isinstance(x, list) else x
+
+
+def _p19_start(tag: str, extra: list[str]):
+    """One ``serve`` process of phase 19 through the launch-reporting
+    wrapper; returns (process, log path, port file)."""
+    import os
+
+    log_path = P19_DIR / f"{tag}.log"
+    port_file = P19_DIR / f"{tag}.port"
+    proc = subprocess.Popen(
+        [sys.executable, "-u", "-c", P19_WRAPPER.format(root=str(ROOT)),
+         *P19_SERVE, "--port-file", str(port_file), *extra],
+        cwd=ROOT, stdout=open(log_path, "w"), stderr=subprocess.STDOUT,
+        env=dict(os.environ))
+    return proc, log_path, port_file
+
+
+def _p19_drive(tag: str, proc, log_path: Path, port_file: Path,
+               metrics: bool) -> dict:
+    """Wait for the server, send the greedy requests together and then the
+    sampled one alone (its key is the next split either way), read
+    ``/metrics``, stop the server with SIGTERM and parse its report."""
+    import signal
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    t0 = time.perf_counter()
+    while not port_file.exists():
+        _must(tag, proc.poll() is None and time.perf_counter() - t0 < 300,
+              f"serve did not start: {log_path.read_text()[-3000:]}")
+        time.sleep(0.2)
+    time.sleep(0.2)
+    up_s = time.perf_counter() - t0
+    addr = json.loads(port_file.read_text())
+    base = f"http://{addr['host']}:{addr['port']}"
+    rng = np.random.default_rng(19)
+    prompts = [rng.integers(0, 50304, n).tolist() for n in P19_GREEDY]
+    sampled = rng.integers(0, 50304, P19_SAMPLED).tolist()
+    try:
+        with ThreadPoolExecutor(len(prompts)) as ex:
+            greedy = list(ex.map(lambda p: _post_status(
+                base + "/v1/generate", {"prompt": p,
+                                        "max_new": P19_MAX_NEW}), prompts))
+        drawn = _post_status(base + "/v1/generate", {
+            "prompt": sampled, "max_new": P19_MAX_NEW, "temperature": 0.8,
+            "top_k": 40})
+        prom = ""
+        if metrics:
+            with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+                prom = r.read().decode()
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    text = log_path.read_text()
+    codes = [c for c, _ in greedy] + [drawn[0]]
+    _must(tag, all(c == 200 for c in codes),
+          f"requests answered {codes}: {text[-3000:]}")
+    report = next((json.loads(line.split(" ", 1)[1])
+                   for line in text.splitlines()
+                   if line.startswith("P19_LAUNCHES ")), None)
+    _must(tag, report is not None and proc.returncode is not None,
+          f"no launch report: {text[-3000:]}")
+    return dict(streams=[r["tokens"] for _, r in greedy] + [
+        drawn[1]["tokens"]], launches=report["launches"],
+        shapes={_tuples(k) for k in report["shapes"]}, text=text,
+        rc=proc.returncode, up_s=up_s, prom=prom)
+
+
+def _p19_sanitizer_report(tag: str, run: dict) -> dict:
+    """The sanitized run's summary: clean, no ``dispatch`` entry, process
+    syncs within the horizons."""
+    import ast
+
+    line = next((x for x in run["text"].splitlines()
+                 if x.startswith("sanitizers: ") and "locks tracked" in x), "")
+    _must(tag, "sync counts {" in line, f"no sanitizer summary: "
+          f"{run['text'][-3000:]}")
+    counts = ast.literal_eval(line.split("sync counts ", 1)[1].split("}")[0]
+                              + "}")
+    horizons = int(line.rsplit("horizons ", 1)[1])
+    clean = "sanitizers: clean" in run["text"]
+    log(f"{tag}: {line}; {'clean' if clean else 'VIOLATIONS'}; exit "
+        f"{run['rc']}")
+    _must(tag, clean and run["rc"] == 0,
+          f"sanitizer violations: {run['text'][-3000:]}")
+    _must(tag, "dispatch" not in counts,
+          f"a sync inside dispatch: {counts}")
+    _must(tag, counts.get("process", 0) <= horizons,
+          f"process-phase syncs {counts.get('process', 0)} over {horizons} "
+          f"horizons")
+    return counts
+
+
+def p19_serve(card: str) -> dict[str, dict[str, int]]:
+    """19a-b: ``serve --sanitize`` (slab and paged) against the same runs
+    without it; the sanitized slab run's ``/metrics`` gives the decode
+    family's ``serve_mfu``/``serve_mbu``."""
+    runs = {}
+    procs = {}
+    for layout, extra in (("slab", []), ("paged", ["--paged",
+                                                   "--block-size", "8"])):
+        for sanitize in (True, False):
+            tag = f"phase 19a {layout}{' --sanitize' if sanitize else ''}"
+            procs[tag] = (layout, sanitize, _p19_start(
+                f"{layout}_{'san' if sanitize else 'plain'}",
+                extra + (["--sanitize"] if sanitize else [])))
+    for tag, (layout, sanitize, (proc, log_path, pf)) in procs.items():
+        runs[(layout, sanitize)] = _p19_drive(
+            tag, proc, log_path, pf, metrics=sanitize and layout == "slab")
+    launches = {}
+    for layout in ("slab", "paged"):
+        tag = f"phase 19a {layout}"
+        san, plain = runs[(layout, True)], runs[(layout, False)]
+        _p19_sanitizer_report(tag + " --sanitize", san)
+        same = san["streams"] == plain["streams"]
+        log(f"{tag}: {len(san['streams'])} streams ({len(P19_GREEDY)} "
+            f"greedy together, 1 sampled), --sanitize vs without: "
+            f"{'byte-identical' if same else 'DIFFER'}; up in "
+            f"{san['up_s']:.1f} / {plain['up_s']:.1f} s; launches "
+            f"{san['launches']} [{card}]")
+        _must(tag, same, f"streams differ: {san['streams']} vs "
+              f"{plain['streams']}")
+        want = ["flash_attn_fwd", "threefry_draw",
+                "flash_decode_paged" if layout == "paged" else "flash_decode"]
+        _launch_check(tag, san["launches"], want)
+        check_launched(tag, san["shapes"])
+        launches[f"sanitize_{layout}"] = san["launches"]
+    prom = runs[("slab", True)]["prom"]
+    fam = "masked_step"
+    mfu = _prom_value(prom, f'serve_mfu{{family="{fam}"}}')
+    mbu = _prom_value(prom, f'serve_mbu{{family="{fam}"}}')
+    n = _prom_value(prom, f'serve_program_dispatches_total{{family="{fam}"}}')
+    secs = _prom_value(prom, f'serve_program_seconds_total{{family="{fam}"}}')
+    log(f"phase 19b: /metrics of the sanitized slab run, decode family "
+        f"{fam}: serve_mfu {mfu!r}, serve_mbu {mbu!r} over {n!r} dispatches "
+        f"in {secs!r} s (budgets: the audit geometry's envelope, a scale "
+        f"reference at GPT-2-small) [{card}]")
+    _must("phase 19b", mfu == mfu and mbu == mbu and 0 < mfu <= 1
+          and 0 < mbu <= 1, "serve_mfu/serve_mbu missing or out of (0, 1]")
+    return launches
+
+
+def p19_tools(card: str) -> None:
+    """19b-c, 19e: ``audit --strict``, ``lint --strict`` and a
+    ``provision`` dry run through the CLI."""
+    for tag, args in (("phase 19b audit", ["audit", "--strict"]),
+                      ("phase 19c lint", ["lint", "--strict"]),
+                      ("phase 19e provision",
+                       ["provision", "p19", "--num-workers", "1",
+                        "--zone", "us-central1-a"])):
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "deeplearning4j_tpu_torch", *args],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        lines = out.stdout.strip().splitlines()
+        shown = lines if tag.endswith("provision") else lines[-1:]
+        for line in shown:
+            log(f"{tag}: {line}")
+        log(f"{tag}: exit {out.returncode} in "
+            f"{time.perf_counter() - t0:.1f} s")
+        _must(tag, out.returncode == 0, f"{out.stdout[-3000:]}"
+              f"{out.stderr[-3000:]}")
+    _must("phase 19e provision", any(
+        "gcloud compute instances create p19-master" in x for x in lines),
+        "no rendered create command")
+
+
+def p19_loader(card: str) -> None:
+    """19d: ``PrefetchingLoader`` on the card at MNIST's size against the
+    CPU loader, bitwise in order, epoch labels and content, over three
+    epochs; the ms a batch."""
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.native_io import PrefetchingLoader
+
+    rng = np.random.default_rng(1919)
+    feats = rng.integers(0, 256, (P19_ROWS, P19_ROW_LEN), dtype=np.uint8)
+    labels = rng.integers(0, 10, P19_ROWS, dtype=np.uint8)
+    steps = P19_EPOCHS * P19_ROWS // P19_BATCH
+    card_l = PrefetchingLoader(feats, labels, 10, P19_BATCH, seed=7)
+    host_l = PrefetchingLoader(feats, labels, 10, P19_BATCH, seed=7,
+                               device="cpu")
+    same, epochs = True, set()
+    for _ in range(steps):
+        x, y, e = card_l.next_batch()
+        hx, hy, he = host_l.next_batch()
+        epochs.add(e)
+        same = (same and e == he and torch.equal(x.cpu(), hx)
+                and torch.equal(y.cpu(), hy))
+    card_l.close()
+    host_l.close()
+    timed = PrefetchingLoader(feats, labels, 10, P19_BATCH, seed=7)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        timed.next_batch()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    timed.close()
+    log(f"phase 19d: PrefetchingLoader {P19_ROWS} x {P19_ROW_LEN} uint8, "
+        f"batch {P19_BATCH}, {steps} batches ({P19_EPOCHS} epochs, labels "
+        f"{sorted(epochs)}): card vs CPU {'bitwise' if same else 'DIFFER'} "
+        f"(order, epoch labels, content); {ms:.4f} ms a batch on the card "
+        f"(host clock, {steps} batches, depth 4) [{card}]")
+    _must("phase 19d", same and epochs == set(range(P19_EPOCHS)),
+          "the card's loader left the CPU loader")
+
+
+def phase_tooling(card: str) -> dict[str, dict[str, int]]:
+    """Phase 19: the correctness tooling (serve --sanitize, audit, lint),
+    the loader and provision."""
+    t0 = time.perf_counter()
+    shutil.rmtree(P19_DIR, ignore_errors=True)
+    P19_DIR.mkdir(parents=True)
+    try:
+        tools = subprocess.Popen(
+            [sys.executable, "-c",
+             f"import sys; sys.path.insert(0, {str(ROOT)!r}); "
+             f"import chip_smoke; chip_smoke.p19_tools({card!r})"],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+        launches = p19_serve(card)
+        p19_loader(card)
+        out, _ = tools.communicate(timeout=600)
+        for line in out.strip().splitlines():
+            log(line)
+        _must("phase 19", tools.returncode == 0, "19b/c/e failed")
+    finally:
+        shutil.rmtree(P19_DIR, ignore_errors=True)
+    log(f"phase 19: {time.perf_counter() - t0:.1f} s wall [{card}]")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -8380,6 +8669,7 @@ def main() -> int:
     with launched_shapes() as last:
         by_phase.update(phase_nlp_vectors(card, w2v_model, w2v_corpus))
     check_launched("phase 18", last)
+    by_phase.update(phase_tooling(card))
     kernels = [
         dict(name=name, route="cuda", **KERNELS[name],
              launches=sum(p[name] for p in by_phase.values()),

@@ -26,8 +26,11 @@ BatchNorm and the char-LSTM (``models/``), the datasets and evaluation,
 and the DL4J nets' parallel modes (``parallel/``: ``DataParallelTrainer``
 with batch statistics over the data axis, also across processes, local
 SGD, the GPipe pipeline, the Megatron block, the sequence-sharded LSTM;
-``python -m deeplearning4j_tpu_torch train --model lenet|alexnet``). Later
-slices: the rest of the datasets and ``utils/``, and ``analysis/``.
+``python -m deeplearning4j_tpu_torch train --model lenet|alexnet``); the
+correctness tooling (``analysis/``: ``lint``, ``audit``, the sanitizers
+behind ``serve/router/controller --sanitize``), the rest of ``datasets/``
+and ``utils/``, the data loaders of ``native_io.py`` on the card and
+``provision`` (GPU VMs).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no GPU and no explicit CPU device they raise. CPU tensors take each

@@ -59,8 +59,13 @@ and ``--profile-steps N`` (``torch.profiler`` captures, also armed by
 ``--trace-out`` exports into one Perfetto document. ``router --replica
 HOST:PORT ...`` runs the prefix-affinity replica router and ``controller
 --replica HOST:PORT=ROLE ...`` the disaggregated fleet controller (the
-reference's flags but ``--sanitize``; ``--port-file PATH`` writes the bound
-address); neither loads a model or imports ``torch``. Sampling takes the
+reference's flags; ``--port-file PATH`` writes the bound address); neither
+loads a model or imports ``torch``. ``serve``, ``router`` and ``controller``
+take ``--sanitize`` (the runtime sanitizers, reported at shutdown, exit 1 on
+a violation); ``lint`` and ``audit`` run graftlint and graftaudit
+(``analysis/``) against the port's baselines, and ``provision NAME`` prints
+(or with ``--execute`` runs) the gcloud commands of a GPU-VM cluster.
+Sampling takes the
 reference's threefry key stream: ``generate --seed S`` is ``key(S)``,
 ``serve --seed S`` the engine's master key. Every command runs on
 ``cuda`` unless ``--device cpu`` is given.
@@ -674,6 +679,79 @@ def _demo_embedders(names: list[str], device=None) -> dict:
 
 
 def cmd_serve(args) -> int:
+    """``serve``; with ``--sanitize`` under the lock and sync sanitizers,
+    installed before the engine, the server and their locks are built and
+    reported (``_report_sanitizers``) when the server stops."""
+    sans = (_install_sanitizers(args.device, serving=True)
+            if args.sanitize else None)
+    try:
+        rc, engine = _serve(args, sans)
+    finally:
+        if sans is not None:
+            sans[1].uninstall()
+            sans[0].uninstall()
+    if sans is not None and rc == 0:
+        return _report_sanitizers(engine, *sans)
+    return rc
+
+
+def _install_sanitizers(device=None, serving: bool = False):
+    """Install the lock and sync sanitizers (development mode) before any
+    lock is built: ``wrap_lock`` instruments only the locks created while
+    one is active. The sync sanitizer watches readbacks of tensors on the
+    serving device type (the card unless ``device`` is the CPU);
+    ``serving`` imports torch first (the router and the controller import
+    none, and their sync sanitizer patches nothing)."""
+    from deeplearning4j_tpu_torch.analysis.sanitizers import (
+        LockSanitizer,
+        SyncSanitizer,
+    )
+
+    devices = ("cpu",) if str(device or "cuda").startswith("cpu") else (
+        "cuda",)
+    if serving:
+        import torch  # noqa: F401  (the sync sanitizer patches torch)
+    sans = (LockSanitizer().install(),
+            SyncSanitizer(devices=devices).install())
+    print("sanitizers: lock + sync active (development mode)", flush=True)
+    return sans
+
+
+def _report_sanitizers(engine, lock_san, sync_san) -> int:
+    """Uninstall the sanitizers, run the compile-count guard, print one
+    summary line per detector (the reference's lines), and return 1 when
+    any violation was recorded. ``engine`` is None for processes that run
+    no engine (the router, the controller): the lock/sync detectors still
+    apply, the compile-count guard does not."""
+    from deeplearning4j_tpu_torch.analysis.sanitizers import (
+        CompileCountGuard,
+    )
+
+    sync_san.uninstall()
+    lock_san.uninstall()
+    compile_viol = (
+        CompileCountGuard(engine).check() if engine is not None else []
+    )
+    print(f"sanitizers: {lock_san.n_wrapped} locks tracked, "
+          f"sync counts {dict(sorted(sync_san.counts.items()))}"
+          + (f", horizons {sync_san.horizons}" if engine is not None
+             else ""), flush=True)
+    violations = (
+        [f"[lock] {m}" for m in lock_san.violations]
+        + [f"[sync] {m}" for m in sync_san.violations]
+        + [f"[compile] {m}" for m in compile_viol]
+    )
+    for msg in violations:
+        print(f"sanitizer violation: {msg}", file=sys.stderr)
+    if violations:
+        print(f"sanitizers: {len(violations)} violation(s)",
+              file=sys.stderr, flush=True)
+        return 1
+    print("sanitizers: clean", flush=True)
+    return 0
+
+
+def _serve(args, sans) -> tuple[int, object]:
     import logging
 
     from deeplearning4j_tpu_torch.models.transformer import init_lora_bank
@@ -693,7 +771,7 @@ def cmd_serve(args) -> int:
 
     if not (args.demo or args.checkpoint_dir):
         print("serve needs --checkpoint-dir (or --demo)", file=sys.stderr)
-        return 2
+        return 2, None
     tp_devices = None
     if args.tp > 1:
         from deeplearning4j_tpu_torch.parallel.mesh import (
@@ -707,7 +785,7 @@ def cmd_serve(args) -> int:
                 else None).devices)
         except ValueError as e:
             print(f"--tp {args.tp}: {e}", file=sys.stderr)
-            return 2
+            return 2, None
     embedders = None
     if args.embed_models:
         try:
@@ -715,7 +793,7 @@ def cmd_serve(args) -> int:
                                         device=args.device)
         except ValueError as e:
             print(str(e), file=sys.stderr)
-            return 2
+            return 2, None
         print(f"embeddings: POST /v1/embeddings over "
               f"{', '.join(sorted(embedders))} (demo vocab)")
     if args.log_json:
@@ -727,7 +805,7 @@ def cmd_serve(args) -> int:
               f"({', '.join(tenancy.tenant_ids())})")
     model = _decode_model(args)
     if isinstance(model, int):
-        return model
+        return model, None
     cfg, params = model
     lora_bank = None
     if args.lora_adapters > 0:
@@ -779,6 +857,8 @@ def cmd_serve(args) -> int:
             args.tp_parity],
         tp_devices=tp_devices,
     )
+    if sans is not None:
+        engine.attach_sanitizer(sans[1])
     if args.tp > 1:
         if engine.tp == args.tp:
             print(f"tensor parallel: serving sharded over {engine.tp} "
@@ -847,7 +927,7 @@ def cmd_serve(args) -> int:
             out = tracer.export(args.trace_out)
             print(f"trace: {tracer.n_events} events "
                   f"({tracer.dropped} dropped) -> {out}", flush=True)
-    return 0
+    return 0, engine
 
 
 def _write_port_file(path: str, host: str, port: int) -> None:
@@ -898,6 +978,7 @@ def cmd_router(args) -> int:
         configure_json_logging()
     tracer = Tracer(enabled=args.trace_out is not None,
                     capacity=args.trace_capacity, process_name="router")
+    sans = _install_sanitizers() if args.sanitize else None
     try:
         router = ReplicaRouter(
             args.replica, host=args.host, port=args.port,
@@ -913,7 +994,8 @@ def cmd_router(args) -> int:
     print(f"routing on http://{host}:{port} -> [{names}]  "
           f"(affinity >= {args.affinity_min_match} tokens, "
           f"health poll {args.health_interval:g}s)", flush=True)
-    return _announce_and_serve(router, args, "router", tracer)
+    rc = _announce_and_serve(router, args, "router", tracer)
+    return _report_sanitizers(None, *sans) if sans is not None else rc
 
 
 def cmd_controller(args) -> int:
@@ -934,6 +1016,7 @@ def cmd_controller(args) -> int:
         configure_json_logging()
     tracer = Tracer(enabled=args.trace_out is not None,
                     capacity=args.trace_capacity, process_name="controller")
+    sans = _install_sanitizers() if args.sanitize else None
     try:
         controller = FleetController(
             args.replica, host=args.host, port=args.port,
@@ -956,7 +1039,8 @@ def cmd_controller(args) -> int:
     print(f"fleet control on http://{host}:{port} -> [{roles}]  "
           f"(disagg >= {args.disagg_threshold} tokens, "
           f"health poll {args.health_interval:g}s)", flush=True)
-    return _announce_and_serve(controller, args, "controller", tracer)
+    rc = _announce_and_serve(controller, args, "controller", tracer)
+    return _report_sanitizers(None, *sans) if sans is not None else rc
 
 
 def _add_fleet_flags(ap, what: str) -> None:
@@ -982,6 +1066,83 @@ def _add_fleet_flags(ap, what: str) -> None:
     ap.add_argument("--port-file", default=None, metavar="PATH",
                     help="write the bound address as JSON to PATH once "
                     "listening (for harnesses using --port 0)")
+    ap.add_argument("--sanitize", action="store_true",
+                    help=f"development mode: run the {what} under the "
+                    "runtime sanitizers (lock-order and lockset tracking); "
+                    "prints a summary at shutdown and exits 1 on a "
+                    "violation")
+
+
+def cmd_lint(args) -> int:
+    """Static analysis for the port's serving bug classes (host-sync,
+    zero-copy-alias, prng-reuse, lock-discipline, retrace-hazard; their
+    PyTorch meanings are in ``analysis/__init__.py``). Pure stdlib — never
+    imports the linted code. Exits 1 on findings not accepted in the
+    baseline (``analysis/lint_baseline.json``)."""
+    from deeplearning4j_tpu_torch.analysis import lint as graftlint
+
+    argv = list(args.paths)
+    if args.rules:
+        argv += ["--rules", args.rules]
+    if args.baseline:
+        argv += ["--baseline", args.baseline]
+    for flag in ("no_baseline", "write_baseline", "strict"):
+        if getattr(args, flag):
+            argv.append("--" + flag.replace("_", "-"))
+    return graftlint.main(argv)
+
+
+def cmd_audit(args) -> int:
+    """The serving program surface audited on ``meta`` tensors
+    (graftaudit: dtype promotion, the in-place cache update, collective
+    signatures, host syncs, the surface, flop/byte budgets against
+    ``analysis/audit_baseline.json``). Exits 1 on findings."""
+    from deeplearning4j_tpu_torch.analysis import audit as graftaudit
+
+    argv = []
+    if args.baseline:
+        argv += ["--baseline", args.baseline]
+    if args.json_out:
+        argv += ["--json-out", args.json_out]
+    for flag in ("no_baseline", "write_baseline", "strict", "full_budgets"):
+        if getattr(args, flag):
+            argv.append("--" + flag.replace("_", "-"))
+    return graftaudit.main(argv)
+
+
+def cmd_provision(args) -> int:
+    """Render or EXECUTE cluster provisioning (≙ ClusterSetup.java:24,
+    which actually SSHes): GPU VMs with H100s on GCP. The default is the
+    dry run — every command that would execute is printed; ``--execute``
+    runs them."""
+    import shlex
+
+    from deeplearning4j_tpu_torch.utils.provision import (
+        ClusterSetup,
+        ClusterSpec,
+        RecordingRunner,
+        SubprocessRunner,
+    )
+
+    spec = ClusterSpec(
+        name=args.name, num_workers=args.num_workers,
+        machine_type=args.machine_type, zone=args.zone,
+        image_family=args.image_family, image_project=args.image_project,
+        master_script=args.master_script, worker_script=args.worker_script)
+    runner = SubprocessRunner() if args.execute else RecordingRunner()
+    try:
+        names = ClusterSetup(spec, runner=runner).provision()
+    except Exception as e:  # ProvisionError / subprocess timeouts
+        print(f"provisioning failed: {e}", file=sys.stderr)
+        return 1
+    if not args.execute:
+        for cmd in runner.commands:
+            print(shlex.join(cmd))  # paste-safe: spaced args stay quoted
+        print(f"# dry run: {len(runner.commands)} commands for "
+              f"{', '.join(names)} (pass --execute to run)")
+    else:
+        print(f"provisioned: {', '.join(names)}")
+    return 0
 
 
 def cmd_trace_merge(args) -> int:
@@ -1282,6 +1443,12 @@ def build_parser() -> argparse.ArgumentParser:
     v.add_argument("--lora-seed", type=int, default=0,
                    help="seed of the demo LoRA bank (threefry key(seed), "
                    "the reference's bank up to erfinv's last ulps)")
+    v.add_argument("--sanitize", action="store_true",
+                   help="development mode: serve under the runtime "
+                   "sanitizers (lock-order and lockset tracking, "
+                   "device->host syncs per engine phase with none allowed "
+                   "in dispatch, the program-key contract); prints a "
+                   "summary at shutdown and exits 1 on a violation")
     v.set_defaults(fn=cmd_serve)
 
     r = sub.add_parser(
@@ -1350,6 +1517,70 @@ def build_parser() -> argparse.ArgumentParser:
     m.add_argument("-o", "--out", required=True, metavar="PATH",
                    help="merged Perfetto JSON output path")
     m.set_defaults(fn=cmd_trace_merge)
+
+    L = sub.add_parser(
+        "lint",
+        help="static analysis for the serving stack's bug classes "
+        "(graftlint); exits 1 on non-baselined findings")
+    L.add_argument("paths", nargs="*",
+                   help="files/dirs to lint (default: the "
+                   "deeplearning4j_tpu_torch package)")
+    L.add_argument("--rules", default=None, metavar="R1,R2",
+                   help="comma-separated rule subset")
+    L.add_argument("--baseline", default=None, metavar="PATH",
+                   help="baseline JSON (default: analysis/"
+                   "lint_baseline.json in the package)")
+    L.add_argument("--no-baseline", action="store_true",
+                   help="report every finding, ignoring the baseline")
+    L.add_argument("--write-baseline", action="store_true",
+                   help="accept the current findings into the baseline")
+    L.add_argument("--strict", action="store_true",
+                   help="also fail on stale baseline entries and TODO "
+                   "reasons")
+    L.set_defaults(fn=cmd_lint)
+
+    A = sub.add_parser(
+        "audit",
+        help="audit every program family the serving engine can dispatch "
+        "on meta tensors (graftaudit: dtype, in-place update, "
+        "collectives, host syncs, surface, flop/byte budgets); exits 1 on "
+        "findings")
+    A.add_argument("--baseline", default=None, metavar="PATH",
+                   help="budget baseline JSON (default: analysis/"
+                   "audit_baseline.json in the package)")
+    A.add_argument("--no-baseline", action="store_true",
+                   help="skip baseline comparison entirely")
+    A.add_argument("--write-baseline", action="store_true",
+                   help="(re)write the baseline from this run")
+    A.add_argument("--strict", action="store_true",
+                   help="also fail on stale baseline entries")
+    A.add_argument("--full-budgets", action="store_true",
+                   help="record budgets for every program, not just each "
+                   "family's envelope")
+    A.add_argument("--json-out", default=None, metavar="PATH",
+                   help="write the full report as JSON")
+    A.set_defaults(fn=cmd_audit)
+
+    p = sub.add_parser(
+        "provision",
+        help="provision a GPU-VM cluster on GCP (dry run by default; "
+        "--execute runs the gcloud commands)")
+    p.add_argument("name")
+    p.add_argument("--machine-type", default="a3-highgpu-1g",
+                   help="GCP machine type (A3: H100s; -1g one card, -8g "
+                   "eight)")
+    p.add_argument("--zone", default="us-central1-a")
+    p.add_argument("--image-family", default="pytorch-latest-gpu")
+    p.add_argument("--image-project", default="deeplearning-platform-release")
+    p.add_argument("--num-workers", type=int, default=0,
+                   help="worker VMs besides the master")
+    p.add_argument("--master-script", default=None,
+                   help="setup script run on the master after create")
+    p.add_argument("--worker-script", default=None,
+                   help="setup script run on each worker after create")
+    p.add_argument("--execute", action="store_true",
+                   help="actually run the commands (default: print them)")
+    p.set_defaults(fn=cmd_provision)
     return ap
 
 

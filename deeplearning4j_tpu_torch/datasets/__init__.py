@@ -6,6 +6,7 @@ from deeplearning4j_tpu_torch.datasets.iterators import (  # noqa: F401
     BaseDatasetIterator,
     ListDataSetIterator,
     MultipleEpochsIterator,
+    PrefetchDataSetIterator,
     ReconstructionDataSetIterator,
     SamplingDataSetIterator,
     TestDataSetIterator,

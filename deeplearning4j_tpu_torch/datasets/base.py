@@ -3,13 +3,15 @@
 
 ≙ ND4J's ``DataSet``/``FeatureUtil``/``SplitTestAndTrain`` as consumed by
 the reference (59 uses, SURVEY §1-L0).  Host-side data stays in numpy —
-device transfer happens once per batch at the jit boundary, keeping the
-input pipeline off the TPU's critical path.
+device transfer happens once per batch where a network takes it. A batch
+that a device loader made (``native_io.PrefetchingLoader``) holds torch
+tensors on its device and keeps them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import sys
 from typing import Iterator
 
 import numpy as np
@@ -23,9 +25,9 @@ class DataSet:
     labels: np.ndarray | None = None
 
     def __post_init__(self):
-        self.features = np.asarray(self.features)
+        self.features = _array(self.features)
         if self.labels is not None:
-            self.labels = np.asarray(self.labels)
+            self.labels = _array(self.labels)
 
     def num_examples(self) -> int:
         return int(self.features.shape[0])
@@ -83,6 +85,15 @@ class DataSet:
             ((self.features - lo) / np.maximum(hi - lo, 1e-8)).astype(np.float32),
             self.labels,
         )
+
+
+def _array(x):
+    """A numpy array of ``x``, or ``x`` itself when it is a torch tensor
+    (a device batch stays on its device)."""
+    torch = sys.modules.get("torch")
+    if torch is not None and isinstance(x, torch.Tensor):
+        return x
+    return np.asarray(x)
 
 
 def to_one_hot(labels: np.ndarray, num_classes: int) -> np.ndarray:

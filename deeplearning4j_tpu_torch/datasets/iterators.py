@@ -1,6 +1,6 @@
 """DataSet iterators: the port's copy of the JAX package's
-``datasets/iterators.py`` (numpy only), without its
-``PrefetchDataSetIterator`` (the native loader's bridge).
+``datasets/iterators.py`` (numpy only), with its ``PrefetchDataSetIterator``
+over the port's device loader (``native_io.PrefetchingLoader``).
 
 ≙ reference ``datasets/iterator`` — DataSetIterator interface
 (DataSetIterator.java), BaseDatasetIterator.java:104,
@@ -253,3 +253,63 @@ def moving_window(
         for j in range(0, c - window_cols + 1):
             out.append(matrix[i : i + window_rows, j : j + window_cols])
     return np.stack(out)
+
+
+class PrefetchDataSetIterator:
+    """DataSetIterator over the device batch pipeline (the reference's
+    bridge to its native prefetching loader, with its interface).
+
+    Wraps :class:`deeplearning4j_tpu_torch.native_io.PrefetchingLoader`:
+    the next shuffled minibatches are assembled on the device, queued
+    ``depth`` ahead, while the consumer (the training step) runs — the
+    overlap the reference got from its BatchActor job dispenser
+    (BatchActor.java:31,56). One pass of the iterator yields ``n //
+    batch_size`` full batches, each a DataSet of device tensors; the
+    underlying loader is a continuous stream whose shuffle cursor wraps
+    across epoch boundaries (with a reshuffle), so no row is ever dropped
+    and repeated iteration sees freshly reshuffled data. ``device`` is
+    the loader's (the card unless the caller names the CPU).
+    """
+
+    def __init__(
+        self,
+        features_u8: np.ndarray,
+        labels_u8: np.ndarray,
+        num_classes: int,
+        batch_size: int,
+        seed: int = 0,
+        depth: int = 4,
+        device=None,
+    ):
+        from deeplearning4j_tpu_torch import native_io
+
+        self._loader = native_io.PrefetchingLoader(
+            features_u8, labels_u8, num_classes, batch_size, seed, depth,
+            device=device)
+        self.batch_size = batch_size
+        self.n = int(features_u8.shape[0])
+        self.num_classes = num_classes
+        self._row_shape = features_u8.shape[1:]
+
+    def __iter__(self) -> Iterator[DataSet]:
+        for _ in range(self.n // self.batch_size):
+            x, y, _ = self._loader.next_batch()
+            yield DataSet(x, y)
+
+    def reset(self) -> None:  # the loader is a stream; nothing to rewind
+        pass
+
+    def batch(self) -> int:
+        return self.batch_size
+
+    def total_examples(self) -> int:
+        return self.n
+
+    def input_columns(self) -> int:
+        return int(np.prod(self._row_shape))
+
+    def total_outcomes(self) -> int:
+        return self.num_classes
+
+    def close(self) -> None:
+        self._loader.close()

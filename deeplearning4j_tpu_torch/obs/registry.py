@@ -36,6 +36,8 @@ import random
 import re
 import threading
 
+from deeplearning4j_tpu_torch.analysis.sanitizers import wrap_lock
+
 
 _NAME_RE = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
 _LABEL_RE = re.compile(r"^[a-zA-Z_][a-zA-Z0-9_]*$")
@@ -94,7 +96,7 @@ class _Instrument:
         self.name = name
         self.help = help
         self.labelnames = tuple(labelnames)
-        self._lock = threading.Lock()
+        self._lock = wrap_lock(threading.Lock(), f"metrics.{name}")
 
     def _header(self) -> list[str]:
         return [
@@ -271,7 +273,7 @@ class MetricsRegistry:
 
     def __init__(self):
         self._instruments: dict[str, _Instrument] = {}  # guarded-by: _lock
-        self._lock = threading.Lock()
+        self._lock = wrap_lock(threading.Lock(), "metrics.registry")
 
     def _get_or_create(self, cls, name, help, labelnames, **kw):
         with self._lock:

@@ -33,7 +33,7 @@ import math
 
 import torch
 
-from deeplearning4j_tpu_torch.ops import _build
+from deeplearning4j_tpu_torch.ops import _build, _leaf
 from deeplearning4j_tpu_torch.ops.attention import dtype_scalar
 
 #: forward / backward kernel launches since the last reset (counted where
@@ -175,6 +175,10 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """(BH, T, D) flash forward -> (O, lse (BH, T, 1)). CPU tensors take the
     plain version; CUDA tensors launch the kernel."""
+    hook = _leaf.HOOK
+    if hook is not None:
+        return hook("flash_attn_fwd", flash_attention_fwd_plain, q, k, v,
+                    causal)
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, causal)
     if q.device.type == "cuda":

@@ -47,7 +47,7 @@ import math
 
 import torch
 
-from deeplearning4j_tpu_torch.ops import _build
+from deeplearning4j_tpu_torch.ops import _build, _leaf
 
 #: launches since the last reset, counted where each kernel launches:
 #: kernel #3 in bf16/f32 mode, kernel #3 in int8 mode, kernel #4 (both
@@ -416,6 +416,10 @@ def flash_decode_attention(q: torch.Tensor, kvcache: torch.Tensor, pos,
     cache (the reference's public layouts; see the module doc). ``pos`` is
     an int, a 0-d tensor, or a (B,) int tensor of per-row positions;
     ``kv_scales`` selects int8 mode."""
+    hook = _leaf.HOOK
+    if hook is not None:
+        return hook("flash_decode", flash_decode_attention_plain, q, kvcache,
+                    pos, n_kv_heads, layer, block_t, kv_scales)
     if q.device.type == "cpu":
         return flash_decode_attention_plain(q, kvcache, pos, n_kv_heads,
                                             layer, block_t, kv_scales)
@@ -435,6 +439,11 @@ def flash_decode_attention_paged(q: torch.Tensor, blocks: torch.Tensor,
     all-zero sentinel), ``block_scales`` (n_layers, 2, n_blocks, bs, 1) f32
     in int8 mode. The same function as :func:`flash_decode_attention` over
     the gathered slab."""
+    hook = _leaf.HOOK
+    if hook is not None:
+        return hook("flash_decode_paged", flash_decode_attention_paged_plain,
+                    q, blocks, tables, pos, n_kv_heads, layer, block_t,
+                    block_scales)
     if q.device.type == "cpu":
         return flash_decode_attention_paged_plain(
             q, blocks, tables, pos, n_kv_heads, layer, block_t, block_scales)

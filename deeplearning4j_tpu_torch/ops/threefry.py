@@ -48,7 +48,7 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.device import upload
-from deeplearning4j_tpu_torch.ops import _build
+from deeplearning4j_tpu_torch.ops import _build, _leaf
 
 #: kernel launches since the last reset
 launches = 0
@@ -303,6 +303,9 @@ def draw(logits: torch.Tensor, keys: torch.Tensor,
     winning perturbed value: see :func:`categorical_plain` for the modes.
     logits f32 (R, V) contiguous (already filtered and scaled by the
     caller), keys int64 words, pos int32."""
+    hook = _leaf.HOOK
+    if hook is not None:
+        return hook("threefry_draw", categorical_plain, logits, keys, pos)
     if logits.device.type == "cpu":
         return categorical_plain(logits, keys, pos)
     if logits.device.type == "cuda":

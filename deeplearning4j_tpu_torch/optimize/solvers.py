@@ -213,7 +213,7 @@ def _make_first_order_step(conf: LayerConfig, model: ModelFunctions,
         if post_fn is not None:
             # the curvature pair g(new) - g(old) wants correlated sampling,
             # so the second evaluation reuses k_grad on purpose
-            _, new_raw_grad = model.score_and_grad(new_params, k_grad)
+            _, new_raw_grad = model.score_and_grad(new_params, k_grad)  # lint: prng-ok correlated on purpose
             extra = post_fn(extra, new_params, new_raw_grad)
 
         done = _converged(score, new_score) | (tm.norm2(raw_grad) < 1e-8)

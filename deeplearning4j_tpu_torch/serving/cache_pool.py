@@ -29,6 +29,10 @@ import threading
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.analysis.sanitizers import (
+    note_access,
+    wrap_lock,
+)
 from deeplearning4j_tpu_torch.device import upload
 from deeplearning4j_tpu_torch.models.transformer import (
     TransformerConfig,
@@ -68,7 +72,7 @@ class KVSlotPool:
         self.caches = self._alloc_caches()
         # acquire/release run on the engine thread while the gauges read
         # from HTTP threads: the free list moves under the lock
-        self._lock = threading.Lock()
+        self._lock = wrap_lock(threading.Lock(), "pool._lock")
         self._free = list(range(n_slots))  # a heap; guarded-by: _lock
         self._in_use: set[int] = set()  # guarded-by: _lock
         self._gen = [0] * n_slots  # guarded-by: _lock
@@ -99,6 +103,7 @@ class KVSlotPool:
     def acquire(self) -> int:
         """Claim the lowest free slot index."""
         with self._lock:
+            note_access("pool.freelist", write=True)
             if not self._free:
                 raise RuntimeError("no free KV slots")
             slot = heapq.heappop(self._free)
@@ -113,6 +118,7 @@ class KVSlotPool:
 
     def release(self, slot: int) -> None:
         with self._lock:
+            note_access("pool.freelist", write=True)
             if slot not in self._in_use:
                 raise ValueError(f"slot {slot} is not in use")
             self._in_use.remove(slot)
@@ -342,12 +348,12 @@ class PagedKVPool(KVSlotPool):
 
     # -- allocation / sharing --------------------------------------------------
 
-    def _pop_block_unlocked(self) -> int:
+    def _pop_block_unlocked(self) -> int:  # lint: holds _lock
         bid = heapq.heappop(self._free_blocks)
         self._refs[bid] = 1
         return bid
 
-    def _drop_unlocked(self, bid: int) -> None:
+    def _drop_unlocked(self, bid: int) -> None:  # lint: holds _lock
         self._refs[bid] -= 1
         if self._refs[bid] == 0:
             heapq.heappush(self._free_blocks, int(bid))
@@ -364,6 +370,7 @@ class PagedKVPool(KVSlotPool):
             raise RuntimeError(f"{n_tokens} rows need {k} blocks, slot "
                                f"tables hold {self.blocks_per_slot}")
         with self._lock:
+            note_access("pool.blockmap", write=True)
             if max(0, k - start) > len(self._free_blocks):
                 raise RuntimeError("no free KV blocks")
             out = []
@@ -379,6 +386,7 @@ class PagedKVPool(KVSlotPool):
         ``[start, start + len(block_ids))``: a refcount bump, no device
         work."""
         with self._lock:
+            note_access("pool.blockmap", write=True)
             for j, bid in enumerate(block_ids):
                 self._refs[bid] += 1
                 self._tables[slot, start + j] = bid
@@ -388,12 +396,14 @@ class PagedKVPool(KVSlotPool):
         """Allocate ``k`` blocks owned by no slot (refcount 1); freed by
         :meth:`decref`."""
         with self._lock:
+            note_access("pool.blockmap", write=True)
             if k > len(self._free_blocks):
                 raise RuntimeError("no free KV blocks")
             return [self._pop_block_unlocked() for _ in range(k)]
 
     def incref(self, block_ids) -> None:
         with self._lock:
+            note_access("pool.blockmap", write=True)
             for bid in block_ids:
                 self._refs[bid] += 1
 
@@ -401,6 +411,7 @@ class PagedKVPool(KVSlotPool):
         """Drop one reference per id; blocks reaching zero return to the
         free heap."""
         with self._lock:
+            note_access("pool.blockmap", write=True)
             for bid in block_ids:
                 self._drop_unlocked(bid)
 
@@ -410,6 +421,7 @@ class PagedKVPool(KVSlotPool):
         the table row resets to the sentinel."""
         super().release(slot)
         with self._lock:
+            note_access("pool.blockmap", write=True)
             for bid in self._tables[slot]:
                 if bid:
                     self._drop_unlocked(bid)

@@ -95,6 +95,10 @@ from http.server import ThreadingHTTPServer
 from pathlib import Path
 from urllib.parse import urlparse
 
+from deeplearning4j_tpu_torch.analysis.sanitizers import (
+    note_access,
+    wrap_lock,
+)
 from deeplearning4j_tpu_torch.obs.flight import FlightRecorder
 from deeplearning4j_tpu_torch.obs.logs import log_event
 from deeplearning4j_tpu_torch.obs.registry import MetricsRegistry
@@ -334,7 +338,8 @@ class FleetController:
                            else os.environ.get("DL4J_TPU_FLIGHT_DIR")
                            or None)
         self._stop = threading.Event()
-        self._route_lock = threading.Lock()
+        self._route_lock = wrap_lock(threading.Lock(),
+                                     "controller._route_lock")
         self._rr = 0  # round-robin tie-break cursor
         # session id -> decode replica name, LRU-bounded; a session
         # whose replica died just falls back to shadow affinity
@@ -513,6 +518,7 @@ class FleetController:
             return
         key = str(session)
         with self._route_lock:
+            note_access("controller._sessions", write=True)
             self._sessions[key] = name
             self._sessions.move_to_end(key)
             while len(self._sessions) > self._session_cap:
@@ -544,6 +550,7 @@ class FleetController:
                 raise _ReplicaDown("no usable decode replica")
             chosen, how = None, "load"
             if session:
+                note_access("controller._sessions", write=True)
                 want = self._sessions.get(str(session))
                 if want:
                     for m in candidates:
@@ -868,6 +875,7 @@ class FleetController:
         draining = path == "/fleet/drain"
         ok, info = self._relay_drain(member, draining)
         with self._route_lock:
+            note_access(f"controller.{name}.draining", write=True)
             if ok:
                 member.draining = draining
             now_draining = member.draining
@@ -966,6 +974,7 @@ class FleetController:
 
     def _apply_role(self, member: _Member, role: str, why: str) -> None:
         with self._route_lock:
+            note_access(f"controller.{member.name}.role", write=True)
             old, member.role = member.role, role
             member.role_since = time.monotonic()
         self._m_rebalance.inc(role=role)
@@ -1021,6 +1030,7 @@ class FleetController:
     def _mark_unhealthy(self, member: _Member, why: str) -> None:
         member.breaker.record_failure()
         with self._route_lock:
+            note_access(f"controller.{member.name}.healthy", write=True)
             flipped = member.healthy
             if flipped:
                 member.healthy = False
@@ -1071,6 +1081,9 @@ class FleetController:
             cfg = hp.get("config_hash")
             if cfg:
                 with self._route_lock:
+                    note_access(
+                        f"controller.{member.name}.config_hash",
+                        write=True)
                     if member.config_hash is None:
                         member.config_hash = str(cfg)
                         newly_bad = False
@@ -1089,12 +1102,16 @@ class FleetController:
             except (TypeError, ValueError):
                 member.hit_grain = 0
             with self._route_lock:
+                note_access(f"controller.{member.name}.draining",
+                            write=True)
                 member.draining = bool(hp.get("draining"))
                 member.queue_depth = int(hp.get("queue_depth") or 0)
                 if burn is not None:
                     member.slo_burn = burn
         if ok:
             with self._route_lock:
+                note_access(f"controller.{member.name}.healthy",
+                            write=True)
                 flipped = not member.healthy
                 if flipped:
                     member.healthy = True
@@ -1132,6 +1149,7 @@ class FleetController:
         if self.journal_path is None:
             return
         with self._route_lock:
+            note_access("controller._sessions", write=True)
             self._journal_seq += 1
             state = {
                 "seq": self._journal_seq,
@@ -1171,6 +1189,7 @@ class FleetController:
                       level=logging.ERROR)
             return False
         with self._route_lock:
+            note_access("controller._sessions", write=True)
             for name, role in (state.get("roles") or {}).items():
                 m = self._member(str(name))
                 if m is not None and role in ROLES:

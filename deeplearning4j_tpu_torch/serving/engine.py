@@ -216,6 +216,15 @@ has work (an idle server loop's polls are no engine steps). Probes and
 recovery replay count toward none of it. Log lines are
 :func:`~..obs.logs.log_event` records with the reference's event names.
 
+Sanitizers (development mode, ``serve --sanitize``; the reference's):
+``attach_sanitizer`` takes a ``SyncSanitizer``, whose thread-local phase
+the engine stamps (sweep, admit, dispatch, process, piggyback), which it
+tells of each horizon it processes and whose alias tripwire checks each
+dispatch's host key words at the readback; every dispatch adds its shape
+key to ``program_keys`` (one set-add) for ``CompileCountGuard``; the
+results lock comes from ``wrap_lock``. Each hook is one ``None`` check
+when nothing is installed.
+
 The KV wire and live migration (the reference's; frames in
 :mod:`.disagg`): a ``KVExportRequest`` prefills a prompt into a slot held
 for the export (kernel #1 or the chunk windows, the admission programs a
@@ -270,11 +279,15 @@ import dataclasses
 import logging
 import threading
 import time
-from collections import deque
+from collections import defaultdict, deque
 
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.analysis.sanitizers import (
+    note_access,
+    wrap_lock,
+)
 from deeplearning4j_tpu_torch.device import resolve_device, upload
 from deeplearning4j_tpu_torch.models.transformer import (
     TransformerConfig,
@@ -366,7 +379,7 @@ def build_step_program(fwd1, horizon: int, temperature: float,
     rows (None: no bank, or adapter 0 everywhere)."""
     # a device scalar: a true division (CUDA multiplies by the reciprocal
     # of a host number), as the reference's and the masked step's
-    temp = torch.full((), float(temperature), dtype=torch.float32,
+    temp = torch.full((), float(temperature), dtype=torch.float32,  # lint: sync-ok a Python number
                       device=device)
 
     def step(params, caches, logits, pos, active, budget, eos, keys,
@@ -818,7 +831,7 @@ def _pow2(n: int) -> int:
 
 
 def _eos_of(req: Request) -> int:
-    return _NO_EOS if req.eos_token is None else int(req.eos_token)
+    return _NO_EOS if req.eos_token is None else int(req.eos_token)  # lint: sync-ok host int
 
 
 class ServingEngine:
@@ -955,6 +968,11 @@ class ServingEngine:
         self.probes_run: list[str] = []
         self.probes_from_cache: list[str] = []
         self._steps = 0
+        #: the attached SyncSanitizer (``attach_sanitizer``), or None
+        self._san = None
+        #: every dispatched program's shape key by family (one set-add a
+        #: dispatch), for ``CompileCountGuard``
+        self.program_keys: defaultdict[str, set] = defaultdict(set)
         self.faults = faults
         self.max_retries = max_retries
         self.retry_backoff_s = retry_backoff_s
@@ -1022,6 +1040,7 @@ class ServingEngine:
             self.scheduler.max_total_tokens = self.max_total
         self.metrics = metrics if metrics is not None else ServingMetrics()
         self.metrics.decode_horizon = self.decode_horizon
+        self.metrics.device = self.device
         if self.n_adapters and lora_parity is not True:
             if not self._probe_verdict(
                     "lora_zero", self._probe_lora_zero,
@@ -1081,7 +1100,7 @@ class ServingEngine:
 
         self._slots: list[_SlotState | None] = [None] * n_slots
         self._inflight: _Inflight | None = None
-        self._results_lock = threading.Lock()
+        self._results_lock = wrap_lock(threading.Lock(), "engine.results")
         self._results: dict[str, np.ndarray] = {}  # guarded-by: _results_lock
         self._admitting = 0
         #: programs that computed prompt rows (bucketed prefills + chunks);
@@ -1532,8 +1551,9 @@ class ServingEngine:
     # -- retirement ----------------------------------------------------------
 
     def _store_result(self, req: Request, tokens: list[int]) -> None:
-        stream = np.concatenate([req.prompt, np.asarray(tokens, np.int32)])
+        stream = np.concatenate([req.prompt, np.asarray(tokens, np.int32)])  # lint: sync-ok host token list
         with self._results_lock:
+            note_access("engine.results", write=True)
             self._results[req.id] = stream
             while len(self._results) > self.results_cap:
                 self._results.pop(next(iter(self._results)))
@@ -2099,6 +2119,7 @@ class ServingEngine:
                 return slot
         return None
 
+    # lint: hot-path
     def _sweep_lifecycle(self, now: float) -> None:
         for slot, st in enumerate(self._slots):
             if st is None:
@@ -2149,9 +2170,12 @@ class ServingEngine:
         n = int(len(seq))
         ad = self._adapter_row(adapter)
         if start == 0 and 0 < n <= self._max_bucket:
-            pad = np.zeros((1, self._bucket_for(n)), np.int64)
+            b = self._bucket_for(n)
+            pad = np.zeros((1, b), np.int64)
             pad[0, :n] = seq
-            self._attr("paged_prefill" if self._paged else "prefill")
+            fam = "paged_prefill" if self._paged else "prefill"
+            self.program_keys[fam].add(b)
+            self._attr(fam)
             slab, lg = self._prefill_fn(self.params, slab, self._upload(pad),
                                         n - 1, ad)
             self.prefill_dispatches += 1
@@ -2161,6 +2185,7 @@ class ServingEngine:
         for t0, ln, b in (self._chunk_schedule(n, start) if n else ()):
             pad = np.zeros((1, b), np.int64)
             pad[0, :ln] = seq[t0:t0 + ln]
+            self.program_keys["chunk"].add(b)
             self._attr("chunk")
             slab, lg = self._chunk_fn(self.params, slab, self._upload(pad),
                                       t0, ln - 1, ad)
@@ -2171,7 +2196,7 @@ class ServingEngine:
         """Grow ``slot``'s block coverage to ``n_tokens`` rows (clamped to
         Tpad) with fresh private blocks; a no-op when covered (aliased
         prefix entries stay)."""
-        n_tokens = min(int(n_tokens), self.pool.tpad)
+        n_tokens = min(int(n_tokens), self.pool.tpad)  # lint: sync-ok host int
         need = self.pool.blocks_needed(n_tokens)
         have = int(np.count_nonzero(self.pool.table(slot)))
         if need > have:
@@ -2331,7 +2356,7 @@ class ServingEngine:
             full, tail = divmod(n, self.pool.block_size)
             row = self.pool.table(pl.slot)
             if tail:
-                self.pool.copy_block(pl.seg.block_ids[full], int(row[full]))
+                self.pool.copy_block(pl.seg.block_ids[full], int(row[full]))  # lint: sync-ok host block table
             self.pool.zero_blocks(row[full + (tail > 0):])
             self._insert_fn(*self._state(), pl.seg.logits, pl.slot, n,
                             req.max_new, _eos_of(req))
@@ -2401,15 +2426,16 @@ class ServingEngine:
             tail_ids = self.pool.alloc_blocks(1) if tail else []
         except RuntimeError:
             return False
-        ids = [int(b) for b in row[:full]]
+        ids = [int(b) for b in row[:full]]  # lint: sync-ok host block table
         self.pool.incref(ids)
         if tail:  # the reference's build_block_copy_program
-            self.pool.copy_block(int(row[full]), tail_ids[0])
+            self.pool.copy_block(int(row[full]), tail_ids[0])  # lint: sync-ok host block table
         seg.block_ids = ids + tail_ids
         return True
 
     # -- admission -------------------------------------------------------------
 
+    # lint: hot-path
     def _seat(self, pl: _AdmitPlan) -> None:
         """Host bookkeeping that makes an executed plan a live slot (the
         sampling key is split here, in admission order, unless piggyback
@@ -2489,9 +2515,9 @@ class ServingEngine:
                 self._dactive = self._deact_fn(self._dactive, slot)
                 log_event(_log, "grammar_seat_failed", level=logging.WARNING,
                           req_id=req.id, error=str(e))
-        st.gstate0 = int(start)
+        st.gstate0 = int(start)  # lint: sync-ok host int
         self._slot_gstate[slot] = start
-        self._dgstate = self._gstate_set_fn(self._dgstate, slot, int(start))
+        self._dgstate = self._gstate_set_fn(self._dgstate, slot, int(start))  # lint: sync-ok host int
         st.stop_matcher = StopMatcher(req.stop) if req.stop else None
         st.lp_out = [] if req.logprobs else None
 
@@ -2577,6 +2603,7 @@ class ServingEngine:
 
         return admissible, reserved, used
 
+    # lint: hot-path
     def _admit(self, now: float) -> None:
         """Pop queued requests into free slots (with prefix affinity, the
         previous prompt as hint), classify each against the prefix cache,
@@ -2639,6 +2666,7 @@ class ServingEngine:
         finally:
             self._admitting -= 1
 
+    # lint: hot-path
     def _execute_plans(self, plans: list[_AdmitPlan]) -> None:
         # the fault boundary first, in admission order
         live: list[_AdmitPlan] = []
@@ -2762,6 +2790,7 @@ class ServingEngine:
         last_idx = np.array([len(pl.req.prompt) - 1 for pl in rows],
                             np.int64)
         self.prefill_dispatches += 1
+        self.program_keys["batch_prefill"].add((bucket, len(rows)))
         self._attr("batch_prefill")
         self._batch_prefill_fn(self.params, *self._state(),
                                self._upload(prompts), self._upload(last_idx),
@@ -2780,6 +2809,7 @@ class ServingEngine:
         last_idx = np.array([len(pl.req.prompt) - L - 1 for pl in rows],
                             np.int64)
         self.prefill_dispatches += 1
+        self.program_keys["batch_hit"].add((bucket, len(rows)))
         self._attr("batch_hit")
         self._batch_hit_fn(self.params, *self._state(),
                            self.prefix_cache.region, self._upload(seg_idx),
@@ -2825,6 +2855,7 @@ class ServingEngine:
         t0, ln, b = rec.chunks[0]
         pad = np.zeros((1, b), np.int64)
         pad[0, :ln] = rec.plan.req.prompt[t0:t0 + ln]
+        self.program_keys["chunk"].add(b)
         self._attr("chunk")
         rec.slab, rec.lg = self._chunk_fn(
             self.params, rec.slab, self._upload(pad), t0, ln - 1,
@@ -3078,7 +3109,7 @@ class ServingEngine:
         keys = threefry.device_keys(
             np.arange(2 * n).reshape(n, 2), dev)
         out_a = self._step_fn(self.params, *state(), keys)
-        out_b = self._masked_fn(
+        out_b = self._masked_fn(  # lint: prng-ok the probe draws both sides from one key
             self.params, *state(),
             torch.zeros((n,), dtype=torch.int32, device=dev), keys,
             torch.full((n,), self.temperature, dtype=torch.float32,
@@ -3383,6 +3414,7 @@ class ServingEngine:
         event.record()
         return host, event
 
+    # lint: hot-path
     def _dispatch(self) -> _Inflight | None:
         """Dispatch one K-substep horizon for every occupied slot under
         transient-retry supervision and start its token block's copy to the
@@ -3500,10 +3532,11 @@ class ServingEngine:
         masked step when the surface is armed. Returns the (slots, k)
         token block, or the masked step's aux block."""
         adapters = self._adapter_operand()
+        fam = "masked_step" if self._surface else "step"
+        self.program_keys[("paged_" + fam) if self._paged else fam].add(k)
         if not self._surface:
             # greedy steps draw nothing: no key upload
-            keys = (None if self.temperature == 0
-                    else threefry.device_keys(self._slot_keys, self.device))
+            keys = None if self.temperature == 0 else self._key_words()
             (_, self._logits, self._dpos, self._dactive, self._dbudget,
              toks) = self._step_fn_for(k)(
                 self.params, self.pool.operand(), self._logits, self._dpos,
@@ -3516,6 +3549,15 @@ class ServingEngine:
             self._dactive, self._dbudget, self._deos, self._dgstate,
             *self._surface_operands(use), use, adapters)
         return aux
+
+    def _key_words(self) -> torch.Tensor:
+        """The slots' key words on the device; the host snapshot is what
+        an attached sanitizer's alias tripwire tracks (checked at the
+        horizon's readback)."""
+        words = np.asarray(self._slot_keys, dtype=np.int64)  # lint: sync-ok host key list
+        if self._san is not None:
+            self._san.track("dispatch.slot_keys", words)
+        return self._upload(words)
 
     def _adapter_operand(self):
         """The slots' (S,) LoRA rows on the device, or None when every
@@ -3530,8 +3572,7 @@ class ServingEngine:
         """The masked step's per-slot operands for ``use``: a stage left
         out gets None (nothing uploaded for it)."""
         up = self._upload
-        keys = (threefry.device_keys(self._slot_keys, self.device)
-                if use.sample else None)
+        keys = self._key_words() if use.sample else None
         mask_tab, trans_tab = (self._grammar_device_tables() if use.mask
                                else (None, None))
         return (keys,
@@ -3542,21 +3583,28 @@ class ServingEngine:
                 up(self._slot_bias_val.copy()) if use.bias else None,
                 mask_tab, trans_tab)
 
+    # lint: hot-path
     def _process(self, horizon: _Inflight) -> None:
         """Wait for a horizon's token block and do the host bookkeeping:
         append tokens (replaying the device's EOS/budget stopping rule),
         stamp first tokens, retire finished slots. Blocks of slots retired
         or re-acquired since dispatch are dropped."""
         t_sync = time.perf_counter()
+        if self._san is not None:
+            self._san.note_horizon()
         if horizon.event is not None:
-            horizon.event.synchronize()
-        toks_host = horizon.toks.numpy()
+            horizon.event.synchronize()  # lint: sync-ok THE designated readback, 1/horizon
+        toks_host = horizon.toks.numpy()  # lint: sync-ok the block is on the host (CPU: the readback)
         aux_host = None
         if toks_host.ndim == 3:
             # the masked step's aux block: [:, :, 0] the tokens, then the
             # bit patterns of the logprob rows (one readback all the same)
             aux_host = toks_host if toks_host.shape[2] > 1 else None
             toks_host = toks_host[:, :, 0]
+        if self._san is not None:
+            # the horizon that read the tracked buffers has completed:
+            # verify nothing mutated them while it was in flight
+            self._san.check("dispatch.slot_keys")
         now = time.perf_counter()
         self.metrics.record_readback(
             sync_wait_s=now - t_sync,
@@ -3581,10 +3629,10 @@ class ServingEngine:
             req = st.req
             self.tracer.span(slot_track(slot), "decode", horizon.t_dispatch,
                              t_span_end - horizon.t_dispatch, req_id=req.id,
-                             k=int(toks_host.shape[1]))
+                             k=int(toks_host.shape[1]))  # lint: sync-ok host shape
             finished = False
             for k in range(toks_host.shape[1]):
-                tok = int(toks_host[slot, k])
+                tok = int(toks_host[slot, k])  # lint: sync-ok host token block
                 if st.t_first_token is None:
                     st.t_first_token = now
                     self.tracer.instant(slot_track(slot), "first_token",
@@ -3626,14 +3674,15 @@ class ServingEngine:
         """One token's logprob record from its aux row: the chosen token's
         logprob and, with ``n_top``, the top alternatives."""
         nl = self._n_logprobs
-        rec = {"token": tok, "logprob": float(row[1:2].view(np.float32)[0])}
+        rec = {"token": tok, "logprob": float(row[1:2].view(np.float32)[0])}  # lint: sync-ok host aux row
         if n_top:
             ids = row[2:2 + nl][:n_top]
             vals = row[2 + nl:2 + 2 * nl].view(np.float32)[:n_top]
-            rec["top_logprobs"] = [{"token": int(i), "logprob": float(v)}
+            rec["top_logprobs"] = [{"token": int(i), "logprob": float(v)}  # lint: sync-ok host aux row
                                    for i, v in zip(ids, vals)]
         return rec
 
+    # lint: hot-path
     @torch.no_grad()
     def step(self) -> bool:
         """One horizon boundary: sweep, admit, dispatch the next horizon,
@@ -3649,20 +3698,26 @@ class ServingEngine:
             prof.step_start()
         now = time.perf_counter()
         try:
+            self._set_phase("sweep")
             self._sweep_lifecycle(now)
+            self._set_phase("admit")
             self._admit(now)
             self._pb_did_work = False
+            self._set_phase("dispatch")
             prev, self._inflight = self._inflight, self._dispatch()
             if self._inflight is not None:
                 self._steps += 1
+            self._set_phase("process")
             if prev is not None:
                 self._process(prev)
             # deferred prefills behind the new horizon: its token copy
             # does not wait on their chunks, and a failure here loses no
             # horizon
             if self._pending:
+                self._set_phase("piggyback")
                 self._advance_piggyback(decoding=self._inflight is not None)
         finally:
+            self._set_phase(None)
             if prof is not None:
                 prof.step_end()
         progressed = (prev is not None or self._inflight is not None
@@ -3676,6 +3731,20 @@ class ServingEngine:
             self.tracer.counter(ENGINE_TRACK, "kv_slots_active",
                                 self.pool.n_active, ts=t_end)
         return progressed
+
+    def attach_sanitizer(self, san) -> None:
+        """Attach an opt-in :class:`~..analysis.sanitizers.SyncSanitizer`:
+        the engine stamps its phase (sweep/admit/dispatch/process/
+        piggyback) onto the sanitizer's thread-local so syncs are
+        attributed and budgeted, notes each horizon it processes, and
+        registers each dispatch's host key words for the in-flight
+        mutation check. Detach with ``attach_sanitizer(None)``."""
+        self._san = san
+
+    def _set_phase(self, phase: str | None) -> None:
+        san = self._san
+        if san is not None:
+            san.set_phase(phase)
 
     def run(self, *, max_restarts: int = 5) -> dict[str, np.ndarray]:
         """Step until every queued/active request is terminal, recovering

@@ -43,7 +43,12 @@ admission boundary get ``serve_embeddings_total{model}`` and the
 ``serve_program_dispatches_total{family}``: the wall seconds from a
 program's dispatch call to the horizon readback that proves it complete,
 an upper bound on its device time, with no sync of its own (the
-reference's definition).
+reference's definition). Against the audit's per-family flop and byte
+budgets (``analysis/audit_baseline.json``, ``family_budgets``), a render
+publishes ``serve_mfu{family}`` and ``serve_mbu{family}`` — budget x
+dispatches / seconds / the card's peak — for a card whose peaks are known
+by name (``_DEVICE_PEAKS``: the H100); any other device, the CPU
+included, publishes seconds only.
 
 The KV wire and live migration (the reference's families):
 ``serve_kv_exports_total``, ``serve_kv_export_bytes_total``,
@@ -63,11 +68,36 @@ import threading
 
 import numpy as np
 
+from deeplearning4j_tpu_torch.analysis.sanitizers import (
+    note_access,
+    wrap_lock,
+)
 from deeplearning4j_tpu_torch.obs.registry import MetricsRegistry, Reservoir
 
 RESERVOIR_CAP = 4096
+#: (name fragment, dense bf16 FLOP/s, HBM bytes/s) of the cards whose peaks
+#: the MFU/MBU gauges divide by: the H100 SXM's published dense rates (its
+#: name, "NVIDIA H100 80GB HBM3") and the H100 PCIe's
+_DEVICE_PEAKS = (
+    ("H100 80GB HBM3", 989e12, 3.35e12),
+    ("H100 PCIe", 756e12, 2.0e12),
+)
 #: the request phases the per-phase breakdown attributes time to
 PHASES = ("queue", "prefill", "decode", "sync")
+
+
+def device_peaks(device) -> tuple[float, float] | None:
+    """``(dense bf16 FLOP/s, HBM bytes/s)`` of a CUDA device whose name
+    ``_DEVICE_PEAKS`` knows, else None (the CPU, an unknown card)."""
+    if device is None or getattr(device, "type", str(device)) != "cuda":
+        return None
+    import torch
+
+    name = torch.cuda.get_device_name(device)
+    for frag, flops, bw in _DEVICE_PEAKS:
+        if frag in name:
+            return flops, bw
+    return None
 
 
 def _pct(res: Reservoir, p: float) -> float:
@@ -108,6 +138,11 @@ class ServingMetrics:
         # at readback (no lock, like phase_seconds)
         self.program_seconds: dict[str, float] = {}
         self.program_dispatches: dict[str, int] = {}
+        #: the device the programs run on (the engine sets it): its name
+        #: picks the peaks the MFU/MBU gauges divide by
+        self.device = None
+        self._family_budgets: dict | None = None  # lazy, from the audit
+        self._peaks: tuple[float, float] | None = None
         self.n_batched_admissions = 0
         self.n_embeddings = 0
         self.embed_latency = Reservoir(reservoir_cap)
@@ -141,7 +176,7 @@ class ServingMetrics:
         # per-tenant state, made on the first event with a tenant id;
         # handler threads record rejections while the engine thread
         # records outcomes, so it moves under a lock
-        self._tlock = threading.Lock()
+        self._tlock = wrap_lock(threading.Lock(), "metrics._tlock")
         self._tenants: dict[str, dict] = {}  # guarded-by: _tlock
         self.n_rejections: dict[str, int] = {}  # guarded-by: _tlock
         self._tenant_slos: dict[str, float] = {}  # guarded-by: _tlock
@@ -302,11 +337,24 @@ class ServingMetrics:
             "serve_program_dispatches_total",
             "Program dispatches by family.", ("family",),
         )
+        self._g_mfu = reg.gauge(
+            "serve_mfu",
+            "Live model-flop utilization per program family: audited "
+            "envelope flops x dispatches / measured seconds / the card's "
+            "peak, clamped to 1. Exact at the audit geometry; a scale "
+            "reference otherwise.", ("family",))
+        self._g_mbu = reg.gauge(
+            "serve_mbu",
+            "Live memory-bandwidth utilization per program family: "
+            "audited arg+out bytes x dispatches / measured seconds / the "
+            "card's peak HBM bandwidth, clamped to 1. Exact at the audit "
+            "geometry; a scale reference otherwise.", ("family",))
 
     def _tenant(self, tenant_id: str) -> dict:  # lint: holds _tlock
         """Per-tenant counters and reservoirs (call holding ``_tlock``)."""
         st = self._tenants.get(tenant_id)
         if st is None:
+            note_access("metrics.tenants", write=True)
             st = self._tenants[tenant_id] = {
                 "tpot": Reservoir(self._reservoir_cap),
                 "queue_delay": Reservoir(self._reservoir_cap),
@@ -577,8 +625,42 @@ class ServingMetrics:
         elif s == "expired":
             self.n_expired += 1
 
+    def _update_program_util(self) -> None:
+        """Refresh the per-family MFU/MBU gauges: measured seconds
+        (``record_program``) divided into the audit's flop/byte budgets.
+        Render-time only: the hot path never touches this. Nothing is
+        published without budgets or without the card's peaks."""
+        if not self.program_dispatches:
+            return
+        if self._family_budgets is None:
+            try:
+                from deeplearning4j_tpu_torch.analysis.programs import (
+                    family_budgets,
+                )
+
+                self._family_budgets = family_budgets()
+            except Exception:
+                self._family_budgets = {}
+        if self._peaks is None:
+            self._peaks = device_peaks(self.device) or ()
+        if not self._family_budgets or not self._peaks:
+            return  # seconds-only attribution
+        peak_flops, peak_bw = self._peaks
+        for family, n in list(self.program_dispatches.items()):
+            budget = self._family_budgets.get(family)
+            secs = self.program_seconds.get(family, 0.0)
+            if budget is None or secs <= 0.0:
+                continue
+            self._g_mfu.set(
+                min(1.0, budget["flops"] * n / secs / peak_flops),
+                family=family)
+            self._g_mbu.set(
+                min(1.0, budget["bytes"] * n / secs / peak_bw),
+                family=family)
+
     def render_prometheus(self) -> str:
         self._update_slo_burn()
+        self._update_program_util()
         return self.registry.render()
 
     def summary(self) -> dict:

@@ -71,6 +71,10 @@ from http.server import ThreadingHTTPServer
 from pathlib import Path
 from urllib.parse import urlparse
 
+from deeplearning4j_tpu_torch.analysis.sanitizers import (
+    note_access,
+    wrap_lock,
+)
 from deeplearning4j_tpu_torch.obs.flight import FlightRecorder
 from deeplearning4j_tpu_torch.obs.logs import log_event
 from deeplearning4j_tpu_torch.obs.registry import MetricsRegistry
@@ -260,7 +264,8 @@ class ReplicaRouter:
                            else os.environ.get("DL4J_TPU_FLIGHT_DIR")
                            or None)
         self._stop = threading.Event()
-        self._route_lock = threading.Lock()
+        self._route_lock = wrap_lock(threading.Lock(),
+                                     "router._route_lock")
         self._rr = 0  # round-robin tie-break cursor
 
         reg = self.registry = MetricsRegistry()
@@ -598,6 +603,7 @@ class ReplicaRouter:
     def _mark_unhealthy(self, replica: _Replica, why: str) -> None:
         replica.breaker.record_failure()
         with self._route_lock:
+            note_access(f"router.{replica.name}.healthy", write=True)
             flipped = replica.healthy
             if flipped:
                 replica.healthy = False
@@ -636,6 +642,8 @@ class ReplicaRouter:
             cfg = hp.get("config_hash")
             if cfg:
                 with self._route_lock:
+                    note_access(
+                        f"router.{replica.name}.config_hash", write=True)
                     if replica.config_hash is None:
                         replica.config_hash = str(cfg)
                         newly_bad = False
@@ -652,6 +660,7 @@ class ReplicaRouter:
                               got=str(cfg)[:12], level=logging.ERROR)
             draining = bool(hp.get("draining"))
             with self._route_lock:
+                note_access(f"router.{replica.name}.draining", write=True)
                 moved = draining != replica.draining
                 if moved:
                     replica.draining = draining
@@ -663,6 +672,7 @@ class ReplicaRouter:
                           replica=replica.name)
         if ok:
             with self._route_lock:
+                note_access(f"router.{replica.name}.healthy", write=True)
                 flipped = not replica.healthy
                 if flipped:
                     replica.healthy = True

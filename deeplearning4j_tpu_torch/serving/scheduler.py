@@ -40,6 +40,10 @@ from collections import deque
 
 import numpy as np
 
+from deeplearning4j_tpu_torch.analysis.sanitizers import (
+    note_access,
+    wrap_lock,
+)
 from deeplearning4j_tpu_torch.serving.grammar import (
     MAX_LOGIT_BIAS,
     MAX_STOP_LEN,
@@ -361,7 +365,7 @@ class RequestScheduler:
         if drr_quantum < 1:
             raise ValueError(f"drr_quantum must be >= 1, got {drr_quantum}")
         self.drr_quantum = drr_quantum
-        self._lock = threading.Lock()
+        self._lock = wrap_lock(threading.Lock(), "scheduler._lock")
         # per class: tenant_id -> deque (FIFO within a tenant)
         self._queues = [{} for _ in range(n_priorities)]  # guarded-by: _lock
         # per class, the DRR rotation: tenant order, the current index,
@@ -397,8 +401,8 @@ class RequestScheduler:
         with self._lock:
             return any(req.kind == kind for req in self._queued_unlocked())
 
-    def _enqueue_unlocked(self, req: Request,
-                          front: bool) -> None:  # lint: holds _lock
+    # lint: holds _lock
+    def _enqueue_unlocked(self, req: Request, front: bool) -> None:
         per_class = self._queues[req.priority]
         drr = self._drr[req.priority]
         tid = req.tenant_id
@@ -420,8 +424,8 @@ class RequestScheduler:
         else:
             q.append(req)
 
-    def _remove_tenant_if_empty(self, ci: int,
-                                tid: str) -> None:  # lint: holds _lock
+    # lint: holds _lock
+    def _remove_tenant_if_empty(self, ci: int, tid: str) -> None:
         per_class = self._queues[ci]
         if per_class.get(tid):
             return
@@ -455,6 +459,7 @@ class RequestScheduler:
                 f"priority {req.priority} outside [0, {self.n_priorities})"
             )
         with self._lock:
+            note_access("scheduler.queues", write=True)
             if self._depth_unlocked() >= self.max_queue_depth:
                 raise Backpressure(
                     f"queue at max depth ({self.max_queue_depth})"
@@ -473,6 +478,7 @@ class RequestScheduler:
         tenant's queue (it must never be dropped between pop and
         admission), refunding the cost its pop charged."""
         with self._lock:
+            note_access("scheduler.queues", write=True)
             req.status = RequestStatus.QUEUED
             self._enqueue_unlocked(req, front=True)
             drr = self._drr[req.priority]
@@ -484,6 +490,7 @@ class RequestScheduler:
         (positive a refund, negative a charge); into the carry bank while
         the tenant is out of the rotation."""
         with self._lock:
+            note_access("scheduler.queues", write=True)
             drr = self._drr[req.priority]
             tid = req.tenant_id
             if tid in drr["deficit"]:
@@ -611,6 +618,7 @@ class RequestScheduler:
                if k > 0 and affinity_hint is not None
                and len(affinity_hint) >= k else None)
         with self._lock:
+            note_access("scheduler.queues", write=True)
             for ci in range(self.n_priorities):
                 if not any(self._queues[ci].values()):
                     continue

@@ -1179,7 +1179,7 @@ class ServingServer:
         while not self._stop.is_set():
             self._last_beat = time.monotonic()
             box = None
-            if self._migrate_box is not None:
+            if self._migrate_box is not None:  # lint: lock-ok peek, swapped under the lock
                 with self._box_lock:
                     box, self._migrate_box = self._migrate_box, None
             if box is not None:

@@ -27,6 +27,10 @@ import dataclasses
 import json
 import threading
 
+from deeplearning4j_tpu_torch.analysis.sanitizers import (
+    note_access,
+    wrap_lock,
+)
 from deeplearning4j_tpu_torch.serving.scheduler import Backpressure
 
 
@@ -135,7 +139,7 @@ class TenantRegistry:
                 self._by_key[t.api_key] = t
         if not self._by_id:
             raise ValueError("registry needs at least one tenant")
-        self._lock = threading.Lock()
+        self._lock = wrap_lock(threading.Lock(), "tenancy._lock")
         # token buckets move under the lock: HTTP handler threads
         # charge concurrently
         self._buckets = {  # guarded-by: _lock
@@ -208,6 +212,7 @@ class TenantRegistry:
             return
         now = self._clock()
         with self._lock:
+            note_access("tenancy.buckets", write=True)
             b = self._buckets[tenant_id]
             b["level"] = min(
                 float(t.burst), b["level"] + (now - b["t_last"]) * t.rate

@@ -1037,8 +1037,9 @@ def test_cli_router_over_two_serve_subprocesses(tmp_path):
     its
     address, routes (``X-Served-By`` one of the two), reports both
     replicas healthy under /replicas with their config hash, and exits 0
-    on SIGINT; ``controller`` rejects a bad role with exit 2 and argparse
-    rejects ``--sanitize``."""
+    on SIGINT; ``controller`` rejects a bad role with exit 2, and ``router
+    --sanitize`` runs under the sanitizers and reports them clean at
+    shutdown."""
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
     serve = ["serve", "--demo", "--device", "cpu", "--port", "0",
@@ -1085,8 +1086,15 @@ def test_cli_router_over_two_serve_subprocesses(tmp_path):
          "--replica", "127.0.0.1:1=chef", "--port", "0"],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 2 and "controller:" in out.stderr
-    out = subprocess.run(
-        [sys.executable, "-m", "deeplearning4j_tpu_torch", "router",
-         "--replica", "127.0.0.1:1", "--sanitize"],
-        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
-    assert out.returncode == 2
+    pf = tmp_path / "router_san.json"
+    router = _spawn(["router", "--replica", "127.0.0.1:1", "--port", "0",
+                     "--port-file", str(pf), "--sanitize"], env)
+    try:
+        _wait_port_file(pf, router)
+    finally:
+        router.send_signal(signal.SIGINT)
+        assert router.wait(timeout=30) == 0
+    out = router.stdout.read()
+    assert "sanitizers: lock + sync active" in out
+    assert "locks tracked, sync counts {}" in out
+    assert "sanitizers: clean" in out

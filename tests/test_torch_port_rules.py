@@ -338,6 +338,67 @@ def test_nlp_models_and_vector_tools_follow_the_rules(monkeypatch):
     assert pca(x, 2, device="cpu").shape == (4, 2)
 
 
+_TOOLING_STDLIB = ("analysis", "analysis.core", "analysis.baseline",
+                   "analysis.rules", "analysis.lint", "analysis.sanitizers",
+                   "utils.counters", "utils.collections_util", "utils.dedup",
+                   "utils.disk_queue", "utils.string_utils",
+                   "utils.cloud_io", "utils.provision")
+
+
+def test_tooling_follows_the_rules(monkeypatch):
+    """The lint, its baseline, the sanitizers and the stdlib utils import
+    no torch (``lint`` runs before torch is installed; the router's
+    ``--sanitize`` patches nothing); the audit, the loaders, the datasets
+    and the rest of ``utils/`` import no JAX; and without a card the new
+    entry points raise unless the CPU is named: the loaders, their
+    iterator, the distributions and ``serve --sanitize`` (whose sanitizers
+    are uninstalled on the way out)."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "-c", _IMPORT_FLEET,
+                          *_TOOLING_STDLIB], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr + out.stdout
+    out = subprocess.run(
+        [sys.executable, "-c", _IMPORT_MESH, "analysis.audit",
+         "analysis.programs", "native_io", "datasets.records",
+         "datasets.cloud", "datasets.image_loader", "datasets.iterators",
+         "utils.distributions", "utils.profiling", "utils.metrics",
+         "utils.math_utils", "ops._leaf"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr + out.stdout
+
+    from deeplearning4j_tpu_torch import cli, native_io, rng
+    from deeplearning4j_tpu_torch.datasets import PrefetchDataSetIterator
+    from deeplearning4j_tpu_torch.ops import _leaf
+    from deeplearning4j_tpu_torch.utils import distributions
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    feats = np.zeros((8, 4), np.uint8)
+    labels = np.zeros(8, np.uint8)
+    for call in (
+            lambda: native_io.PrefetchingLoader(feats, labels, 2, 4),
+            lambda: native_io.NativeBatchAssembler(feats, labels, 2),
+            lambda: PrefetchDataSetIterator(feats, labels, 2, 4),
+            lambda: distributions.get("uniform")(rng.key_for(0), (2,))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    loader = native_io.PrefetchingLoader(feats, labels, 2, 4, device="cpu")
+    assert loader.next_batch()[0].device.type == "cpu"
+    pristine = (torch.Tensor.item, torch.Tensor.tolist, torch.Tensor.cpu)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["serve", "--demo", "--sanitize", "--d-model", "16",
+                  "--n-layers", "1", "--n-heads", "2", "--seq-len", "16",
+                  "--port", "0"])
+    assert (torch.Tensor.item, torch.Tensor.tolist,
+            torch.Tensor.cpu) == pristine
+    from deeplearning4j_tpu_torch.analysis import sanitizers
+
+    assert sanitizers.lock_sanitizer() is None
+    assert sanitizers.sync_sanitizer() is None
+    assert _leaf.HOOK is None
+
+
 def test_mesh_and_moe_follow_the_rules(monkeypatch, capsys):
     """The expert-parallel, sequence-parallel and mesh modules import no
     JAX in a fresh process; without a card, the mesh and MoE entry points
