@@ -253,7 +253,7 @@ Phases, in order; any failure exits non-zero without printing a result:
    (b) ``transformer_train_step`` on a (data, model) = (2, 3) mesh over
    ``["cuda:0"] * 6``: those widths with 3 experts (one a model rank, top
    2), seq 1024, batch 8, flash, remat, bf16, replicated and FSDP, one
-   warm-up and 6 timed steps each on one fixed batch from one init:
+   warm-up and 4 timed steps each on one fixed batch from one init:
    finite falling losses, FSDP within 2e-3 of replicated, #1 and #2 once
    a layer on every rank (BH 8: 4 rows x 2 heads), ms a step and each
    rank's parameter + AdamW bytes from the layout; (c) ``train --tp 3
@@ -371,6 +371,23 @@ Phases, in order; any failure exits non-zero without printing a result:
    MNIST's size (60,000 x 784 uint8, batch 256, 3 epochs) bitwise the CPU
    loader in order, epoch labels and content, and the ms a batch; (e) a
    ``provision`` dry run prints the rendered commands.
+20. a model axis across processes and the int8 KV cache over the training
+   layout: (a) int8-cache generate (``decode_int8``, quantized weights) from
+   GPT-2-small laid out on the (2, 3) mesh over ``cuda:0`` x 6, 8 prompts
+   of 128 and 32 new, greedy, against single-device int8-cache generate
+   (identical, or a reported near-tie under 0.1), #3 in int8 mode once a
+   step, layer and rank; (b) two ``train --coordinator ... --tp 2``
+   processes without ``--device`` (15b's widths and recipe): the
+   processes find that they share the card and pick gloo, the model axis
+   spans them, their final losses are equal and within 2e-3 of the
+   one-process (1, 2) run, #1/#2 launch once a step and layer, and each
+   prints its ms a step, its cross-process collectives' ms and bytes
+   through the host; (c) ZeRO-3 over a data axis across two processes (2
+   layers): equal losses, the one-process (2, 2) FSDP run's, and the
+   split leaves' params and AdamW bytes a process half of HSDP's; (d) MoE
+   (2 experts, one a process) and the ring over a data axis across two
+   processes (2 layers), against the one-process runs. Every process
+   reports the shapes it launched #1-#3 at, held in phase 2.
 
 The last lines are the kernel table as one JSON object, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -1417,6 +1434,10 @@ def phase_kernels(w2v_model, w2v_corpus) -> dict[str, dict]:
     # the CLI's 16-byte prompt over a rank's 2 heads
     attn.append(_attn_case(GEN_PROMPT, True, bh=6 // MESH_TP))
     attn.append(_attn_case(P15_SEQ, True, bh=P15_RANK_BH, iters=20))
+    # phase 20's ranks at T 256: 20b's and 20d's model axis of 2 across
+    # the processes (8 rows x 3 heads), 20c's ZeRO-3 (4 rows x 3 heads)
+    attn += [_attn_case(P15_SEQ, True, bh=bh, iters=20)
+             for bh in P20_RANK_BH]
     attn.append(_attn_case(TRAIN_SEQ, True, bh=2 * 6, iters=20))
     attn.append(_attn_case(TRAIN_SEQ, True, bh=CKPT_BATCH * 6, iters=20))
     attn.append(_attn_case(TRAIN_SEQ, True, bh=TRAIN_BATCH * 6, iters=20))
@@ -1425,6 +1446,7 @@ def phase_kernels(w2v_model, w2v_corpus) -> dict[str, dict]:
                          bh=CLI_MESH_BATCH * (6 // MESH_TP)))
     bwd.append(_bwd_case(TRAIN_SEQ, True, bh=rank_bh, iters=20))
     bwd.append(_bwd_case(P15_SEQ, True, bh=P15_RANK_BH, iters=20))
+    bwd += [_bwd_case(P15_SEQ, True, bh=bh, iters=20) for bh in P20_RANK_BH]
     bwd.append(_bwd_case(TRAIN_SEQ, True, bh=2 * 6, iters=20))
     bwd.append(_bwd_case(TRAIN_SEQ, True, bh=CKPT_BATCH * 6, iters=20))
     bwd.append(_bwd_case(TRAIN_SEQ, True, bh=TRAIN_BATCH * 6, iters=20))
@@ -1486,6 +1508,14 @@ def phase_kernels(w2v_model, w2v_corpus) -> dict[str, dict]:
         _decode_int8_case(4, 1, 6, 128, 12, beam_t, 7, [BEAM_PROMPT] * 4),
         _decode_int8_case(4, 1, 6, 128, 12, beam1_t, 7, [BEAM_PROMPT] * 4),
         _decode_int8_case(8, 1, 6, 128, 12, 640, 7, SPLIT_EDGE_POS),
+        # phase 20a: a (2, 3) mesh rank's int8 decode (4 rows, its 2 KV
+        # heads: Hkv*K 256) and the single-device int8-cache generate it
+        # is held against (8 rows, Hkv*K 768), Tpad 160, the default tile
+        _decode_int8_case(P15_PROMPTS // MESH_DP, 1, 6 // MESH_TP, 128, 12,
+                          P15_TOTAL, 7,
+                          [P15_TOTAL - 1] * (P15_PROMPTS // MESH_DP)),
+        _decode_int8_case(P15_PROMPTS, 1, 6, 128, 12, P15_TOTAL, 7,
+                          [P15_TOTAL - 1] * P15_PROMPTS),
         _decode_int8_case(8, 1, 6, 128, 12, 640, 7, pos, block_t=64),
         # one 1,592-row tile (the rule's cap at Hkv*K 768) over 48 lanes:
         # 200 rows a block, whose scores go to the wrapper's scratch tensor
@@ -6076,7 +6106,9 @@ def phase_tp(card: str) -> dict[str, dict[str, int]]:
 #: 14b: the mesh, experts (one a model rank) and steps; 14c: the CLI run's
 #: widths and depth
 MOE_EXPERTS, MOE_K = 8, 2
-MESH_DP, MESH_TP, MESH_BATCH, MESH_STEPS, MESH_WARMUP = 2, 3, 8, 6, 1
+# 14b's timed steps: 4 (cut from 6 when phase 20 joined; the losses fall
+# from the first step on)
+MESH_DP, MESH_TP, MESH_BATCH, MESH_STEPS, MESH_WARMUP = 2, 3, 8, 4, 1
 MESH_FSDP_RTOL = 2e-3
 CLI_MESH_LAYERS, CLI_MESH_SEQ, CLI_MESH_BATCH = 2, 64, 8
 CLI_MESH_DIR = ROOT / ".scratch" / "chip_smoke_phase14"
@@ -6256,7 +6288,7 @@ def phase14_mesh_train(card: str) -> dict[str, int]:
     """14b: the training step on a (data, model) = (2, 3) mesh over
     ``["cuda:0"] * 6``, MoE (3 experts, top 2) at GPT-2-small's widths,
     seq 1024, batch 8, flash, remat, bf16, with the replicated layout and
-    with FSDP, one warm-up and 6 timed steps each on one fixed batch from
+    with FSDP, one warm-up and 4 timed steps each on one fixed batch from
     one init: finite falling losses, FSDP's within MESH_FSDP_RTOL of
     replicated, #1 and #2 launched once a layer on every rank (BH 8: 4
     rows x 2 heads), ms a step and each rank's parameter + optimizer bytes
@@ -6532,11 +6564,13 @@ def phase15_mesh_generate(card: str, total: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def _p15_one_process(card: str):
+def _p15_one_process(card: str, dp: int = MESH_DP, tp: int = MESH_TP,
+                     tag: str = "phase 15b"):
     """15b's one-process run: the CLI's model, corpus and batch recipe
     (``default_rng(0)``, batch 8) through ``transformer_train_step`` on
-    ``dp_mp_mesh(2, 3, ["cuda:0"] * 6)``. Returns (losses, params, ms a
-    step over the steps after the first, launches)."""
+    ``dp_mp_mesh(dp, tp, ["cuda:0"] * (dp * tp))``, (2, 3) by default.
+    Returns (losses, params, ms a step over the steps after the first,
+    launches)."""
     import numpy as np
     import torch
 
@@ -6551,7 +6585,7 @@ def _p15_one_process(card: str):
     cfg = TransformerConfig(vocab_size=256, d_model=768, n_heads=6,
                             n_layers=12, d_ff=3072, max_len=P15_SEQ + 1,
                             use_flash=True, compute_dtype=torch.bfloat16)
-    mesh = dp_mp_mesh(MESH_DP, MESH_TP, ["cuda:0"] * (MESH_DP * MESH_TP))
+    mesh = dp_mp_mesh(dp, tp, ["cuda:0"] * (dp * tp))
     step, init_state, shard_tokens = transformer_train_step(
         mesh, cfg, optimizer=lm_optimizer(total_steps=P15_STEPS))
     params, opt_state = init_state(0)
@@ -6567,7 +6601,8 @@ def _p15_one_process(card: str):
         marks.append(time.perf_counter())
     launches = read_launches()
     ms = (marks[-1] - marks[0]) / (P15_STEPS - 1) * 1e3
-    log(f"phase 15b one process: (2, 3) mesh on cuda:0 x 6, {cfg.d_model}d "
+    log(f"{tag} one process: ({dp}, {tp}) mesh on cuda:0 x {dp * tp}, "
+        f"{cfg.d_model}d "
         f"x {cfg.n_layers}L, vocab {cfg.vocab_size}, seq {P15_SEQ}, batch "
         f"{P15_BATCH}, flash, bf16: losses "
         f"{' '.join(f'{x:.4f}' for x in losses)}; {ms:.2f} ms a step "
@@ -8603,6 +8638,410 @@ def phase_tooling(card: str) -> dict[str, dict[str, int]]:
     return launches
 
 
+# -- phase 20: a model axis across processes, int8 cache on the layout -------
+
+#: the card every rank of 20b-20d runs on
+P20_DEVICE = "cuda:0"
+#: #1/#2's rank BH at T 256 in 20b-20d: 8 rows x 3 heads (a model axis of
+#: 2), 4 rows x 3 heads (20c's (2, 2) ZeRO-3)
+P20_RANK_BH = (P15_BATCH * 6 // 2, P15_BATCH // 2 * 6 // 2)
+#: 20c/20d's depth (cut from 12: the steps' collectives and the
+#: one-process references fit the phase's budget) and steps
+P20_LAYERS, P20_STEPS = 2, 3
+#: the processes' launch and result report, after each one's work
+P20_CLI_WRAPPER = (
+    "import json, sys\n"
+    "sys.path.insert(0, {root!r})\n"
+    "import chip_smoke\n"
+    "from deeplearning4j_tpu_torch import cli\n"
+    "chip_smoke.reset_launches()\n"
+    "with chip_smoke.launched_shapes() as seen:\n"
+    "    rc = cli.main(sys.argv[1:])\n"
+    "print('P20_SHAPES ' + json.dumps(sorted(seen, key=str)), flush=True)\n"
+    "sys.exit(rc)\n")
+
+
+def p20_config(**kw):
+    """The trainers' model (15b's: GPT-2-small widths, the byte
+    vocabulary, flash, bf16) at ``P20_LAYERS``, with ``kw``."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models.transformer import TransformerConfig
+
+    base = dict(vocab_size=256, d_model=768, n_heads=6, n_layers=P20_LAYERS,
+                d_ff=3072, max_len=P15_SEQ + 1, use_flash=True,
+                compute_dtype=torch.bfloat16)
+    return TransformerConfig(**{**base, **kw})
+
+
+def _p20_batches(t: int):
+    """15b's batch recipe (the demo corpus, ``default_rng(0)``, batch 8):
+    ``P20_STEPS`` (8, t) token arrays."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import cli
+
+    arr = np.frombuffer(cli._DEMO_TEXT, np.uint8).astype(np.int64)
+    rng = np.random.default_rng(0)
+    out = []
+    for _ in range(P20_STEPS):
+        starts = rng.integers(0, len(arr) - t, P15_BATCH)
+        out.append(np.stack([arr[s:s + t] for s in starts]))
+    return out
+
+
+def _p20_train(mesh, cfg, fsdp: bool = False):
+    """``P20_STEPS`` steps of ``lm_optimizer`` from ``init_params(seed 0)``
+    on ``mesh``: (losses, params, opt_state, ms a step over the steps
+    after the first, the last step's stats)."""
+    from deeplearning4j_tpu_torch.device import synchronize
+    from deeplearning4j_tpu_torch.models.transformer import (
+        init_params,
+        lm_optimizer,
+        place_transformer_params,
+        transformer_train_step,
+    )
+
+    opt = lm_optimizer(total_steps=P20_STEPS)
+    step, _, shard_tokens = transformer_train_step(mesh, cfg, optimizer=opt,
+                                                   fsdp=fsdp)
+    params = place_transformer_params(
+        mesh, init_params(cfg, seed=0, device=mesh.devices[0]), cfg, fsdp)
+    state = opt.init(params)
+    t = P15_SEQ if cfg.sequence_parallel else P15_SEQ + 1
+    losses, marks = [], []
+    for toks in _p20_batches(t):
+        params, state, loss = step(params, state, shard_tokens(toks))
+        losses.append(float(loss))
+        synchronize(mesh.devices[0])
+        marks.append(time.perf_counter())
+    ms = (marks[-1] - marks[0]) / (len(marks) - 1) * 1e3
+    return losses, params, state, ms, dict(step.stats)
+
+
+def _p20_split_bytes(params, state) -> dict[str, int]:
+    """Bytes this process holds of each leaf the data axis splits (params
+    and both AdamW moments), by path."""
+    from deeplearning4j_tpu_torch.models.transformer import (
+        _leaves,
+        layout_bytes,
+    )
+
+    out = {}
+    for tree in (params, state["mu"], state["nu"]):
+        for path, leaf in _leaves(tree):
+            if leaf.dim_of("data") is not None:
+                key = "/".join(path)
+                out[key] = out.get(key, 0) + sum(layout_bytes(
+                    {"leaf": leaf}).values())
+    return out
+
+
+#: 20c/20d in each worker process: name -> (ici, dcn, config kw, fsdp)
+P20_RUNS = {
+    "zero3": ({"data": 1, "model": 2}, {"data": 2}, {}, True),
+    "moe": ({"data": 1, "model": 1}, {"model": 2}, {"n_experts": 2}, False),
+    "ring": ({"data": 1, "model": 1}, {"data": 2},
+             {"sequence_parallel": True, "use_flash": False}, False),
+}
+#: the one-process mesh each is held against: (dp, tp)
+P20_ONE = {"zero3": (2, 2), "moe": (1, 2), "ring": (2, 1)}
+
+
+def p20_worker(coordinator: str, pid: int) -> None:
+    """One of 20c/20d's two processes on ``cuda:0`` (gloo): each run of
+    ``P20_RUNS`` on its cross-process mesh; prints ``P20_RESULT`` (losses,
+    ms a step, the last step's collectives; for ZeRO-3 the split leaves'
+    bytes held here and under HSDP) and ``P20_SHAPES``."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models.transformer import (
+        init_params,
+        place_transformer_params,
+        lm_optimizer,
+    )
+    from deeplearning4j_tpu_torch.parallel import mesh as mesh_lib
+    from deeplearning4j_tpu_torch.parallel.cluster import (
+        initialize_distributed,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_distributed(coordinator, 2, pid, device=P20_DEVICE)
+    out = {}
+    reset_launches()
+    with launched_shapes() as seen:
+        for name, (ici, dcn, kw, fsdp) in P20_RUNS.items():
+            n = ici["data"] * ici["model"]
+            mesh = mesh_lib.hybrid_mesh(ici, dcn, [P20_DEVICE] * n)
+            cfg = p20_config(**kw)
+            losses, params, state, ms, stats = _p20_train(mesh, cfg, fsdp)
+            res = dict(losses=losses, ms=ms, mesh=repr(mesh),
+                       bucket=stats["bucket_bytes"],
+                       bucket_host=stats["host_bytes"],
+                       allreduce_ms=stats["allreduce_s"] * 1e3,
+                       collectives=stats["collectives"])
+            if fsdp:
+                # HSDP: every process held the (1, 2) layout's shards, its
+                # local data axis being 1
+                local = mesh_lib.dp_mp_mesh(1, 2, [P20_DEVICE] * 2)
+                hp = place_transformer_params(
+                    local, init_params(cfg, seed=0, device=P20_DEVICE), cfg,
+                    True)
+                hs = lm_optimizer(total_steps=P20_STEPS).init(hp)
+                res["held"] = _p20_split_bytes(params, state)
+                res["hsdp"] = _p20_split_bytes(hp, hs)
+                del hp, hs
+            out[name] = res
+            del params, state
+            torch.cuda.empty_cache()
+    print("P20_RESULT " + json.dumps(out), flush=True)
+    print("P20_SHAPES " + json.dumps(sorted(seen, key=str)), flush=True)
+    print("P20_LAUNCHES " + json.dumps(read_launches()), flush=True)
+    import torch.distributed as dist
+
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _p20_pair(tag: str, argvs) -> list[str]:
+    """Two processes from ``argvs`` (one argv each), run together to the
+    end; their output, logged. Fails unless both exit 0."""
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(a, cwd=ROOT, text=True, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT) for a in argvs]
+    try:
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    secs = time.perf_counter() - t0
+    for i, (p, out) in enumerate(zip(procs, outs)):
+        log(f"{tag} process {i}: exit {p.returncode} in {secs:.1f} s (both)")
+        for line in out.splitlines():
+            if not line.startswith(("P20_SHAPES ", "P20_RESULT ")):
+                log(f"  | {_printable(line)}")
+        _must(tag, p.returncode == 0, f"process {i} failed")
+    return outs
+
+
+def _p20_report(tag: str, out: str, key: str):
+    line = next((x for x in out.splitlines() if x.startswith(key + " ")),
+                None)
+    _must(tag, line is not None, f"no {key} line")
+    return json.loads(line.split(" ", 1)[1])
+
+
+def phase20_mesh_int8(card: str, total: dict) -> None:
+    """20a: int8-cache generate (``decode_int8``, quantized weights) from
+    GPT-2-small on the (2, 3) layout over ``["cuda:0"] * 6`` against
+    single-device int8-cache generate; #3 in int8 mode once a step, layer
+    and rank; ms a generate."""
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.models.transformer import (
+        init_params,
+        place_transformer_params,
+        quantize_decode_params,
+        transformer_generate,
+    )
+    from deeplearning4j_tpu_torch.parallel.mesh import dp_mp_mesh
+
+    tag = "phase 20a"
+    cfg = gpt2s_config(decode_int8=True)
+    params = quantize_decode_params(init_params(cfg, seed=0), cfg)
+    mesh = dp_mp_mesh(MESH_DP, MESH_TP, ["cuda:0"] * (MESH_DP * MESH_TP))
+    laid = place_transformer_params(mesh, params, cfg)
+    prompts = torch.from_numpy(np.random.default_rng(15).integers(
+        0, cfg.vocab_size, (P15_PROMPTS, P15_PROMPT))).cuda()
+    gen = transformer_generate(cfg)
+    ranks = MESH_DP * MESH_TP
+    times = {}
+    for where, p in (("single device", params), ("(2, 3) layout", laid)):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = gen(p, prompts, P15_NEW, temperature=0.0,
+                  return_logits=where == "single device")
+        torch.cuda.synchronize()
+        times[where] = (time.perf_counter() - t0) * 1e3
+        launches = read_launches()
+        if where == "single device":
+            ref, ref_logits = out
+        else:
+            toks = out
+            _add(total, launches)
+    log(f"{tag}: launches on the layout {launches}")
+    for kname, want_n in (("flash_attn_fwd", cfg.n_layers * ranks),
+                          ("flash_decode_int8",
+                           cfg.n_layers * ranks * P15_NEW),
+                          ("flash_decode", 0)):
+        _must(tag, launches[kname] == want_n,
+              f"{kname} launched {launches[kname]} times, not {want_n} "
+              f"(once a layer{' and step' if 'decode' in kname else ''} on "
+              f"each of the {ranks} ranks)")
+    log(f"{tag}: int8-cache greedy on the layout vs single-device "
+        f"int8-cache generate: {_p15_parity(tag, toks, ref, ref_logits)}; "
+        f"ms a generate (8 x {P15_PROMPT} + {P15_NEW}) "
+        f"{times['(2, 3) layout']:.1f} on the layout, "
+        f"{times['single device']:.1f} single device [{card}]")
+    del laid, params
+    torch.cuda.empty_cache()
+
+
+def phase20_cli(card: str) -> dict[str, int]:
+    """20b: two ``train --coordinator ... --tp 2`` processes with no
+    ``--device`` (15b's widths and recipe, every process on the one
+    card): gloo picked from the shared card, the model axis across the
+    processes, equal final losses within ``P15_REL`` of the one-process
+    (1, 2) run, #1/#2 once a step and layer, ms a step, collective ms and
+    bytes through the host."""
+    import re
+
+    tag = "phase 20b"
+    argv = ["train", "--model", "transformer", "--coordinator",
+            f"127.0.0.1:{_free_port()}", "--num-processes", "2", "--tp", "2",
+            *P15_MODEL, "--batch", str(P15_BATCH), "--steps",
+            str(P15_STEPS), "--bf16", "--flash"]
+    wrapper = [sys.executable, "-u", "-c",
+               P20_CLI_WRAPPER.format(root=str(ROOT))]
+    outs = _p20_pair(tag, [[*wrapper, *argv, "--process-id", str(i)]
+                           for i in range(2)])
+    finals, stats, seen = [], [], set()
+    for i, out in enumerate(outs):
+        _must(tag, re.search(r"backend gloo \(processes share a card", out)
+              is not None, f"process {i} did not pick gloo for the shared "
+              f"card")
+        _must(tag, re.search(rf"\(1, 2\) mesh across 2 processes \(process "
+                             rf"{i}: model ranks {i}-{i}\)", out) is not None,
+              f"process {i}: the model axis does not span the processes")
+        m = re.search(r"^final loss ([0-9.]+)$", out, re.M)
+        _must(tag, m is not None, f"process {i}: no final loss")
+        finals.append(m.group(1))
+        m = re.search(r"model axis across 2 processes \(gloo\): (\d+) "
+                      r"collectives a step, (\d+) bytes received, (\d+) "
+                      r"bytes through the host; ([0-9.]+) ms a step over "
+                      r"steps 2-\d+ .*, ([0-9.]+) ms of it in the "
+                      r"cross-process collectives; kernel launches "
+                      r"flash_attn_fwd (\d+) flash_attn_bwd (\d+)", out)
+        _must(tag, m is not None, f"process {i}: no collectives line")
+        stats.append(m.groups())
+        want = P15_STEPS * 12
+        _must(tag, int(m.group(6)) == want and int(m.group(7)) == want,
+              f"process {i}: #1/#2 launched {m.group(6)}/{m.group(7)} "
+              f"times, not once a layer a step on its rank ({want})")
+        seen |= {_tuples(k) for k in _p20_report(tag, out, "P20_SHAPES")}
+    check_launched(tag + " processes", seen)
+    _must(tag, finals[0] == finals[1],
+          f"the processes' final losses differ: {finals}")
+    losses, _, ms, launches = _p15_one_process(card, 1, 2, tag)
+    rel = abs(float(finals[0]) - losses[-1]) / abs(losses[-1])
+    log(f"{tag}: final loss {finals[0]} in both processes; one process "
+        f"(1, 2) {losses[-1]:.4f}; rel {rel:.3e} (bar {P15_REL}); ms a step "
+        f"over steps 2-{P15_STEPS} (host clock): two processes {stats[0][3]} "
+        f"/ {stats[1][3]}, of it in the cross-process collectives "
+        f"{stats[0][4]} / {stats[1][4]}; one process {ms:.2f}; a step "
+        f"{stats[0][0]} collectives, {stats[0][1]} bytes received, "
+        f"{stats[0][2]} bytes through the host [{card}]")
+    _must(tag, rel <= P15_REL,
+          "the two processes' loss leaves the one-process run's")
+    return launches
+
+
+def phase20_workers(card: str) -> dict[str, int]:
+    """20c and 20d: ``p20_worker`` in two processes on the card, each run
+    against its one-process counterpart."""
+    port = _free_port()
+    return _p20_check(card, _p20_pair("phase 20c-d", [[
+        sys.executable, "-u", "-c",
+        f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; "
+        f"chip_smoke.p20_worker('127.0.0.1:{port}', {i})"] for i in range(2)]))
+
+
+def _p20_check(card: str, outs: list[str]) -> dict[str, int]:
+    """20c and 20d's checks on the two workers' output."""
+    import torch
+
+    from deeplearning4j_tpu_torch.parallel.mesh import dp_mp_mesh
+
+    tag = "phase 20c-d"
+    res = [_p20_report(tag, out, "P20_RESULT") for out in outs]
+    seen = set()
+    for out in outs:
+        seen |= {_tuples(k) for k in _p20_report(tag, out, "P20_SHAPES")}
+        log(f"{tag} process launches {_p20_report(tag, out, 'P20_LAUNCHES')}")
+    check_launched(tag + " processes", seen)
+    reset_launches()
+    for name, (_, _, kw, fsdp) in P20_RUNS.items():
+        sub = "phase 20c" if name == "zero3" else f"phase 20d {name}"
+        a, b = (r[name] for r in res)
+        _must(sub, a["losses"] == b["losses"],
+              f"the processes' losses differ: {a['losses']} / "
+              f"{b['losses']}")
+        dp, tp = P20_ONE[name]
+        one = _p20_train(dp_mp_mesh(dp, tp, [P20_DEVICE] * (dp * tp)),
+                         p20_config(**kw), fsdp)
+        rel = abs(a["losses"][-1] - one[0][-1]) / abs(one[0][-1])
+        c = a["collectives"]
+        log(f"{sub}: {a['mesh']}; losses {a['losses']} in both processes; "
+            f"one process ({dp}, {tp}) {one[0]}; rel {rel:.3e} (bar "
+            f"{P15_REL}); ms a step {a['ms']:.2f} / {b['ms']:.2f} (one "
+            f"process {one[3]:.2f}); a step: {c['calls']} collectives, "
+            f"{c['bytes']} bytes received, {c['host_bytes']} through the "
+            f"host in {c['seconds'] * 1e3:.2f} ms, the data bucket "
+            f"{a['bucket']} bytes ({a['bucket_host']} through the host) in "
+            f"{a['allreduce_ms']:.2f} ms [{card}]")
+        _must(sub, rel <= P15_REL, "the loss leaves the one-process run's")
+        if fsdp:
+            both = sorted(set(a["held"]) & set(a["hsdp"]))
+            mine = [sum(r[name]["held"][k] for k in both) for r in res]
+            hsdp = sum(a["hsdp"][k] for k in both)
+            log(f"{sub}: params + AdamW bytes a process of the {len(both)} "
+                f"leaves the global data axis splits: {mine[0]} / {mine[1]}"
+                f", HSDP {hsdp} (the (1, 2) layout in every process)")
+            _must(sub, len(both) == len(a["held"]) and mine[0] == mine[1]
+                  and 2 * mine[0] == hsdp,
+                  "ZeRO-3 does not hold half of HSDP's bytes")
+        del one
+        torch.cuda.empty_cache()
+    return read_launches()
+
+
+def phase_model_axis(card: str) -> dict[str, dict[str, int]]:
+    """Phase 20: the int8 cache over the training layout and a model axis
+    across processes; fails on a launch at a shape phase 2 did not
+    hold."""
+    import torch
+
+    t0 = time.perf_counter()
+    out: dict[str, dict[str, int]] = {"mesh_int8": {}}
+    with launched_shapes() as seen:
+        for name, fn in (
+                ("a", lambda: phase20_mesh_int8(card, out["mesh_int8"])),
+                ("b", lambda: out.__setitem__("model_axis_cli",
+                                              phase20_cli(card))),
+                ("c-d", lambda: out.__setitem__("model_axis_workers",
+                                                phase20_workers(card)))):
+            t1 = time.perf_counter()
+            fn()
+            log(f"phase 20{name}: {time.perf_counter() - t1:.1f} s")
+            torch.cuda.empty_cache()
+    check_launched("phase 20", seen)
+    log(f"phase 20: {time.perf_counter() - t0:.1f} s wall [{card}]")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -8670,6 +9109,7 @@ def main() -> int:
         by_phase.update(phase_nlp_vectors(card, w2v_model, w2v_corpus))
     check_launched("phase 18", last)
     by_phase.update(phase_tooling(card))
+    by_phase.update(phase_model_axis(card))
     kernels = [
         dict(name=name, route="cuda", **KERNELS[name],
              launches=sum(p[name] for p in by_phase.values()),

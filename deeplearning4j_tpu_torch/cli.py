@@ -17,12 +17,18 @@ every ``--save-every`` steps with the loss and the model config in their
 meta, as the reference does, or with ``--checkpoint-backend orbax`` (the
 reference's flag value) sharded ``torch.distributed.checkpoint``
 directories, written off the training thread. ``--coordinator HOST:PORT
---num-processes N --process-id I`` trains over a data axis across N
-processes (``torch.distributed``; npz is refused there, as the
-reference refuses it); ``--status-port P`` serves the trainer's
-``/statetracker`` status and control (a POSTed minibatch or early stop
-takes effect at the next step), and ``status --port P`` prints it. The
-closing sample is drawn straight from the training layout.
+--num-processes N --process-id I`` trains across N processes
+(``torch.distributed``; npz is refused there, as the reference refuses
+it) on the reference's mesh over the global device list
+(:func:`train_mesh_layout`): a ``--tp`` within a process's cards puts
+the data axis across the processes, a larger one the model axis (two
+one-card processes with ``--tp 2``: one model row over both);
+``--device D`` keeps every rank of a process on D. ``--status-port P``
+serves the trainer's ``/statetracker`` status and control (a POSTed
+minibatch or early stop takes effect at the next step), and ``status
+--port P`` prints it. The closing sample is drawn straight from the
+training layout (gathered whole first where the layout spans the
+processes).
 
 ``generate --checkpoint-dir`` restores the newest checkpoint (its config
 from the meta) and samples, or beam-searches with ``--beam W``, a
@@ -171,6 +177,36 @@ def _train_checks(args) -> str | None:
         return ("npz checkpoints cannot address multi-process shardings; "
                 "use --checkpoint-backend orbax for distributed runs")
     return None
+
+
+def train_mesh_layout(nproc: int, cards: int, tp: int, device=None):
+    """``train``'s transformer mesh as ``(ici, dcn, devices)`` for
+    ``mesh_lib.hybrid_mesh`` (``dcn`` None in one process), the
+    reference's rule (its cli.py:136-138): ``dp = devices // tp`` over the
+    global device list, process-major, rank ``(d, m)`` on device ``d * tp
+    + m``. ``cards`` is each process's count. ``--device D`` puts every
+    rank of a process on D: ``(1, tp)`` a process, the data axis across
+    the processes. Without it, ``tp`` within a process's cards keeps the
+    model axis inside it (data across the processes); a ``tp`` that spans
+    ``tp // cards`` processes puts the model axis across them (two
+    one-card processes with ``--tp 2``: one model row over both).
+    ``ValueError`` for a ``tp`` the cards cannot lay out so."""
+    data, model = "data", "model"
+    if device:
+        return ({data: 1, model: tp}, {data: nproc} if nproc > 1 else None,
+                [device] * tp)
+    if nproc == 1 or cards == 0:
+        return ({data: max(1, cards // tp), model: tp},
+                {data: nproc} if nproc > 1 else None, None)
+    if cards % tp == 0:
+        return {data: cards // tp, model: tp}, {data: nproc}, None
+    if tp % cards == 0 and nproc % (tp // cards) == 0:
+        return ({data: 1, model: cards},
+                {data: nproc // (tp // cards), model: tp // cards}, None)
+    raise ValueError(f"--tp {tp} does not lay out over {nproc} processes of "
+                     f"{cards} cards each: it must divide a process's cards "
+                     f"or be a multiple of them that divides the "
+                     f"{nproc * cards} cards")
 
 
 #: the DL4J-era nets ``train`` fits with ``DataParallelTrainer``
@@ -370,23 +406,17 @@ def cmd_train(args) -> int:
         mgr = (AsyncShardedCheckpointManager
                if args.checkpoint_backend == "orbax" else CheckpointManager)(
             args.checkpoint_dir, save_every=args.save_every)
-    # a mesh whenever a mesh feature is asked for: dp = cards // tp, as the
-    # reference (--device D: every rank on D, dp = 1); across processes
-    # the data axis is the processes' local axes end to end
-    mesh, dp = None, 1
+    # a mesh whenever a mesh feature is asked for: the reference's rule
+    # over the global device list (train_mesh_layout)
+    mesh = None
     if tp > 1 or args.fsdp or cfg.n_experts or nproc > 1:
-        if args.device:
-            devices = [args.device] * tp
-        else:
-            have = torch.cuda.device_count() if (
-                torch.cuda.is_available()) else 0
-            dp, devices = max(1, have // tp), None
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
         try:
-            mesh = (mesh_lib.hybrid_mesh({mesh_lib.DATA_AXIS: dp,
-                                          mesh_lib.MODEL_AXIS: tp},
-                                         {mesh_lib.DATA_AXIS: nproc},
-                                         devices)
-                    if nproc > 1 else mesh_lib.dp_mp_mesh(dp, tp, devices))
+            ici, dcn, devices = train_mesh_layout(nproc, have, tp,
+                                                  args.device)
+            mesh = (mesh_lib.hybrid_mesh(ici, dcn, devices) if nproc > 1
+                    else mesh_lib.dp_mp_mesh(ici[mesh_lib.DATA_AXIS], tp,
+                                             devices))
         except ValueError as e:
             print(f"--tp {tp}: {e}", file=sys.stderr)
             return 2
@@ -397,9 +427,13 @@ def cmd_train(args) -> int:
     params, opt_state = init_state(0)
     gdp = mesh.global_data_size if mesh is not None else 1
     if mesh is not None:
+        span = [f"{name} {mesh.offset(axis)}-"
+                f"{mesh.offset(axis) + mesh.axis_size(axis) - 1}"
+                for name, axis in (("data rows", mesh_lib.DATA_AXIS),
+                                   ("model ranks", mesh_lib.MODEL_AXIS))
+                if mesh.spans(axis)]
         across = (f" across {nproc} processes (process {args.process_id}: "
-                  f"data rows {args.process_id * dp}-"
-                  f"{(args.process_id + 1) * dp - 1})" if nproc > 1 else "")
+                  f"{', '.join(span)})" if nproc > 1 else "")
         print(f"training on a (data, model) = ({gdp}, {tp}) mesh"
               f"{' with fsdp' if args.fsdp else ''}"
               f"{f', {cfg.n_experts} experts' if cfg.n_experts else ''}"
@@ -417,8 +451,9 @@ def cmd_train(args) -> int:
     loss = step_loss = None
     fa.reset_launches()
     # across processes: each step's host clock (the device synced at its
-    # end, the save after it left out) and its all-reduce's
-    step_s, reduce_s = [], []
+    # end, the save after it left out), its all-reduce's and its other
+    # collectives' (calls, bytes through the host, seconds)
+    step_s, reduce_s, coll = [], [], []
     for i in range(args.steps):
         t_step = time.perf_counter()
         # live batch-size control: POST /statetracker/minibatch changes the
@@ -438,6 +473,7 @@ def cmd_train(args) -> int:
             synchronize(mesh.devices[0])
             step_s.append(time.perf_counter() - t_step)
             reduce_s.append(step.stats["allreduce_s"])
+            coll.append(step.stats["collectives"])
         svc.batches_so_far = i + 1
         # read the loss (a host sync) only on the print and save cadence
         on_cadence = (i + 1) % 20 == 0 or (
@@ -476,14 +512,31 @@ def cmd_train(args) -> int:
         n = len(step_s) - first + 1
         ms = 1e3 * sum(step_s[first - 1:]) / n
         ms_reduce = 1e3 * sum(reduce_s[first - 1:]) / n
-        print(f"data axis across {nproc} processes ({dist.get_backend()}): "
-              f"one bucket of {stats['bucket_bytes']} bytes all-reduced a "
-              f"step, {stats['host_bytes']} bytes through the host; "
-              f"{ms:.2f} ms a step over steps {first}-{len(step_s)} (host "
-              f"clock, device synced, saves left out), "
-              f"{ms_reduce:.2f} ms of it in all_reduce_mean; kernel "
-              f"launches flash_attn_fwd {fa.launches} flash_attn_bwd "
-              f"{fa.bwd_launches}", flush=True)
+        steps = f"steps {first}-{len(step_s)}"
+        if mesh.spans(mesh_lib.DATA_AXIS):
+            print(f"data axis across {mesh.dcn[mesh_lib.DATA_AXIS]} "
+                  f"processes ({dist.get_backend()}): one bucket of "
+                  f"{stats['bucket_bytes']} bytes all-reduced a step, "
+                  f"{stats['host_bytes']} bytes through the host; "
+                  f"{ms:.2f} ms a step over {steps} (host clock, device "
+                  f"synced, saves left out), {ms_reduce:.2f} ms of it in "
+                  f"all_reduce_mean; kernel launches flash_attn_fwd "
+                  f"{fa.launches} flash_attn_bwd {fa.bwd_launches}",
+                  flush=True)
+        c = stats["collectives"]
+        if c["calls"]:
+            ms_coll = 1e3 * sum(x["seconds"] for x in coll[first - 1:]) / n
+            where = ("model axis" if mesh.spans(mesh_lib.MODEL_AXIS)
+                     else "ZeRO-3 shards")
+            print(f"{where} across {nproc} processes "
+                  f"({dist.get_backend()}): {c['calls']} collectives a "
+                  f"step, {c['bytes']} bytes received, {c['host_bytes']} "
+                  f"bytes through the host; {ms:.2f} ms a step over "
+                  f"{steps} (host clock, device synced, saves left out), "
+                  f"{ms_coll:.2f} ms of it in the cross-process "
+                  f"collectives; kernel launches flash_attn_fwd "
+                  f"{fa.launches} flash_attn_bwd {fa.bwd_launches}",
+                  flush=True)
 
     if cfg.max_len >= 32:
         # sampled straight from the training layout (no gather)
@@ -1239,7 +1292,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="MoE experts, one a model rank (must equal --tp)")
     t.add_argument("--tp", type=int, default=1,
                    help="model-axis ways of the (data, model) training "
-                   "mesh; dp = visible cards // tp (1 with --device)")
+                   "mesh; dp = cards // tp over every process's cards, "
+                   "the model axis across processes when tp exceeds a "
+                   "process's cards (1 data row a process with --device)")
     t.add_argument("--fsdp", action="store_true",
                    help="also split params and optimizer state over the "
                    "data axis (ZeRO-3)")

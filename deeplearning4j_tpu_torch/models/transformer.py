@@ -121,10 +121,15 @@ reference's decode from its placed tree), float or int8
 (:func:`place_transformer_params` lays the ``*_scale`` leaves out after
 their weights): each data row decodes its prompt rows, each model rank
 projects, caches and attends over its own heads (kernels #1 and #3 per
-rank), the row-parallel partial products are summed in rank order and the
-vocab-split logits gathered before the draw. A data axis may span
-processes (``parallel/mesh.hybrid_mesh``): the train step then averages
-its gradients and loss over the processes in one bucket.
+rank; with ``decode_int8`` an int8 cache a rank under the row's one
+scale), the row-parallel partial products are summed in rank order and
+the vocab-split logits gathered before the draw. Either axis may span
+processes (``parallel/mesh.hybrid_mesh``): each process runs its own
+ranks, a model axis across processes goes through the mesh module's
+collectives inside the forward and backward, a leaf the data axis splits
+is held in one process (ZeRO-3) and gathered at use, the ring crosses
+the processes, and the train step averages the data column's gradients
+and loss in one bucket. Generate gathers such a layout whole first.
 """
 
 from __future__ import annotations
@@ -941,10 +946,10 @@ def _check_trainable(cfg: TransformerConfig, mesh) -> None:
             f"unknown remat_policy {cfg.remat_policy!r} "
             "(expected 'dots_no_batch' or 'full')"
         )
-    if cfg.n_experts and cfg.n_experts != mesh.axis_size(_MODEL):
+    if cfg.n_experts and cfg.n_experts != mesh.global_size(_MODEL):
         raise ValueError(
             f"n_experts ({cfg.n_experts}) must equal the mesh's model "
-            f"axis size ({mesh.axis_size(_MODEL)})"
+            f"axis size ({mesh.global_size(_MODEL)})"
         )
 
 
@@ -1038,8 +1043,9 @@ def transformer_shardings(mesh: DeviceMesh, cfg: TransformerConfig):
     the axis (else whole on every rank), wo and w2 row-parallel, w1 and b1
     on d_ff, embed and pos on d_model, the head on the vocab, the experts
     one a rank with the router whole. Raises ``ValueError`` unless the
-    axis divides n_heads."""
-    tp = mesh.axis_size(_MODEL)
+    axis divides n_heads. Sizes are the global axes' (a model axis across
+    processes splits over every process of the row)."""
+    tp = mesh.global_size(_MODEL)
     if cfg.n_heads % tp:
         raise ValueError(f"n_heads ({cfg.n_heads}) must be divisible by "
                          f"the mesh's model axis ({tp})")
@@ -1061,8 +1067,9 @@ def fsdp_shardings(mesh: DeviceMesh, cfg: TransformerConfig):
     data axis on its first dim that the axis divides and the model axis
     leaves whole (ZeRO-3; the reference's ``fsdp_shardings``,
     transformer.py:2074). A leaf of fewer than ``2 * dp`` elements stays
-    whole."""
-    dp = mesh.axis_size(_DATA)
+    whole. ``dp`` is the global data axis: across processes a split leaf's
+    shards and their AdamW state live in one process each (ZeRO-3)."""
+    dp = mesh.global_size(_DATA)
     base = transformer_shardings(mesh, cfg)
 
     def augment(spec, shape):
@@ -1135,25 +1142,32 @@ def gather_transformer_params(params, device=None):
 def layout_bytes(tree) -> dict[tuple[int, int], int]:
     """Bytes rank ``(d, m)`` holds of a laid-out tree (params or an
     optimizer moment): its part of a split leaf, the whole of a leaf the
-    layout keeps whole on it."""
+    layout keeps whole on it. The ranks are this process's, keyed by
+    their global coordinates: the values' sum is what the process
+    holds."""
     out: dict[tuple[int, int], int] = {}
     for _, leaf in _leaves(tree):
         mesh = leaf.mesh
         dp, tp = mesh.axis_size(_DATA), mesh.axis_size(_MODEL)
+        d0, m0 = mesh.offset(_DATA), mesh.offset(_MODEL)
         ds = leaf.dim_of(_DATA) is not None
         ms = leaf.dim_of(_MODEL) is not None
         for d in range(dp):
             for m in range(tp):
                 p = leaf.parts[d if ds else 0][m if ms else 0]
-                out[d, m] = out.get((d, m), 0) + p.numel() * p.element_size()
+                key = (d0 + d, m0 + m)
+                out[key] = out.get(key, 0) + p.numel() * p.element_size()
     return out
 
 
 def _held(mt: MeshTensor):
     """A leaf as ``(rows, data_dim, model_split)``: its parts
-    ``rows[data part][model part]``, the dim its data parts concatenate on
-    (None: one row) and whether the model axis splits it."""
-    return mt.parts, mt.dim_of(_DATA), mt.dim_of(_MODEL) is not None
+    ``rows[data part][model part]`` (every global data part: a data axis
+    across processes gathers the others' shards here, ZeRO-3's gather at
+    use), the dim its data parts concatenate on (None: one row) and
+    whether the model axis splits it."""
+    return (mesh_lib.global_rows(mt), mt.dim_of(_DATA),
+            mt.dim_of(_MODEL) is not None)
 
 
 def _layer_leaves(mt: MeshTensor, n_layers: int) -> list:
@@ -1213,17 +1227,25 @@ def _mesh_layer(cfg: TransformerConfig, mesh: DeviceMesh, xs: dict,
     partial products are added in rank order on the row's device. The FFN
     is each rank's d_ff columns, or ``moe(h_in, wg, experts, devices) ->
     (y, aux)`` over the ranks' experts (aux None when it has none).
-    Returns ``(xs, auxes)``."""
-    tp = mesh.axis_size(_MODEL)
+    Returns ``(xs, auxes)``.
+
+    The model ranks are this process's (``m`` local, global rank
+    ``mesh.offset("model") + m``); where the model axis spans processes
+    the replicated inputs of the column-parallel products and the
+    row-parallel sums go through ``mesh_lib.model_inputs`` and
+    ``mesh_lib.model_sum``, which keep the one-process order."""
+    tp = mesh.global_size(_MODEL)
+    tpl, m0 = mesh.axis_size(_MODEL), mesh.offset(_MODEL)
     hs = cfg.n_heads // tp
-    lps = {(d, m): rank_lp(d, m) for d in xs for m in range(tp)}
+    lps = {(d, m): rank_lp(d, m) for d in xs for m in range(tpl)}
     rows = {d: row_lp(d) for d in xs}
     heads = {}
     for d, x in xs.items():
         h_in = _layer_norm(x, rows[d]["ln1_scale"], rows[d]["ln1_bias"])
-        for m in range(tp):
-            dev = mesh.device(d, m)
-            q, k, v = _project_qkv(cfg, lps[d, m], h_in.to(dev))
+        devs = [mesh.device(d, m) for m in range(tpl)]
+        for m, h_m in enumerate(mesh_lib.model_inputs(mesh, h_in, devs)):
+            dev = devs[m]
+            q, k, v = _project_qkv(cfg, lps[d, m], h_m)
             if cfg.rope:
                 cos, sin = _rope_tables(positions[d].to(dev), cfg.head_dim,
                                         q.dtype, dev)
@@ -1232,36 +1254,35 @@ def _mesh_layer(cfg: TransformerConfig, mesh: DeviceMesh, xs: dict,
             if k.shape[1] > cfg.kv_heads // tp:
                 # a whole wkv projects every KV head: keep rank m's query
                 # heads' expanded KV
+                g = m0 + m
                 k, v = _expand_kv(cfg, k, v)
-                k = k[:, m * hs:(m + 1) * hs].contiguous()
-                v = v[:, m * hs:(m + 1) * hs].contiguous()
+                k = k[:, g * hs:(g + 1) * hs].contiguous()
+                v = v[:, g * hs:(g + 1) * hs].contiguous()
             heads[d, m] = (q, k, v)
     outs = attend(heads)
     new_xs, auxes = {}, []
     for d, x in xs.items():
         dev0, dt, row = x.device, x.dtype, rows[d]
-        devs = [mesh.device(d, m) for m in range(tp)]
-        acc = None
-        for m in range(tp):
+        devs = [mesh.device(d, m) for m in range(tpl)]
+        parts = []
+        for m in range(tpl):
             wo = _w(lps[d, m], "wo", dt)
-            part = (outs[d, m] @ wo.reshape(-1, wo.shape[-1])).to(dev0)
-            acc = part if acc is None else acc + part
-        x = x + acc
+            parts.append(outs[d, m] @ wo.reshape(-1, wo.shape[-1]))
+        x = x + mesh_lib.model_sum(mesh, parts, dev0)
         h_in = _layer_norm(x, row["ln2_scale"], row["ln2_bias"])
         if cfg.n_experts:
             y, aux = moe(h_in, row["wg"].to(dt),
-                         [lps[d, m]["experts"] for m in range(tp)], devs)
+                         [lps[d, m]["experts"] for m in range(tpl)], devs)
             if aux is not None:
                 auxes.append(aux)
         else:
-            y = None
-            for m, dev in enumerate(devs):
+            parts = []
+            for m, h_m in enumerate(mesh_lib.model_inputs(mesh, h_in,
+                                                          devs)):
                 lp = lps[d, m]
-                hid = gelu(h_in.to(dev) @ _w(lp, "w1", dt)
-                           + lp["b1"].to(dt))
-                part = (hid @ _w(lp, "w2", dt)).to(dev0)
-                y = part if y is None else y + part
-            y = y + row["b2"].to(dt)
+                hid = gelu(h_m @ _w(lp, "w1", dt) + lp["b1"].to(dt))
+                parts.append(hid @ _w(lp, "w2", dt))
+            y = mesh_lib.model_sum(mesh, parts, dev0) + row["b2"].to(dt)
         new_xs[d] = x + y
     return new_xs, auxes
 
@@ -1303,7 +1324,8 @@ def _mesh_block(cfg: TransformerConfig, mesh: DeviceMesh, xs, lp,
                 per = [(q, *_group_kv(q, k, v)) for q, k, v in
                        (heads[d, m] for d in range(len(xs)))]
                 qkv = [[t[j].transpose(1, 2) for t in per] for j in range(3)]
-                for d, o in enumerate(ring_blocks(*qkv, causal=True)):
+                for d, o in enumerate(ring_blocks(*qkv, causal=True,
+                                                  mesh=mesh)):
                     outs[d, m] = o.reshape(*o.shape[:2], -1)
             return outs
         for (d, m), (q, k, v) in heads.items():
@@ -1321,7 +1343,7 @@ def _mesh_block(cfg: TransformerConfig, mesh: DeviceMesh, xs, lp,
     def moe(h_in, wg, experts, devs):
         return moe_ffn_shard(h_in, wg, experts, devs, k=cfg.moe_k,
                              capacity_factor=cfg.moe_capacity_factor,
-                             activation=gelu)
+                             activation=gelu, mesh=mesh)
 
     out, auxes = _mesh_layer(cfg, mesh, dict(enumerate(xs)), rank_lp, row_lp,
                              positions, attend, moe)
@@ -1351,13 +1373,12 @@ def _token_dim(cfg: TransformerConfig) -> int:
 def _token_rows(cfg: TransformerConfig, mesh: DeviceMesh, tokens):
     """Each data row's tokens on its first rank's device: the parts of a
     ``shard_tokens`` MeshTensor, or a whole (B, T) array split."""
-    if isinstance(tokens, MeshTensor):
-        return [row[0] for row in tokens.parts]
-    tokens = torch.as_tensor(tokens)
-    dp = mesh.axis_size(_DATA)
-    return [part.to(device=mesh.device(d, 0), dtype=torch.long)
-            for d, part in enumerate(torch.tensor_split(
-                tokens, dp, dim=_token_dim(cfg)))]
+    if not isinstance(tokens, MeshTensor):
+        spec = [None, None]
+        spec[_token_dim(cfg)] = _DATA
+        tokens = mesh_lib.place(mesh, torch.as_tensor(tokens).to(
+            device=mesh.devices[0], dtype=torch.long), spec)
+    return [row[0] for row in tokens.parts]
 
 
 def _laid_out(mesh: DeviceMesh, params, cfg: TransformerConfig):
@@ -1383,16 +1404,20 @@ def _mesh_forward(cfg: TransformerConfig, mesh: DeviceMesh,
     def run(params, rows):
         params = _laid_out(mesh, params, cfg)
         embed, pos = _held(params["embed"]), _held(params["pos"])
+        dsizes = params["embed"].sizes(_MODEL) if embed[2] else None
         xs, positions = [], []
         for d, tok in enumerate(rows):
             devs = mesh.model_row(d).devices
             dev0 = devs[0]
             t = tok.shape[1]
-            off = d * t if cfg.sequence_parallel else 0
-            emb = _cat([F.embedding(tok.to(dv), _local(embed, m, dv)).to(
-                dev0) for m, dv in enumerate(devs)], -1)
-            prow = _cat([_local(pos, m, dv)[off:off + t].to(dev0)
-                         for m, dv in enumerate(devs)], -1)
+            off = ((mesh.offset(_DATA) + d) * t if cfg.sequence_parallel
+                   else 0)
+            emb = mesh_lib.model_cat(mesh, [
+                F.embedding(tok.to(dv), _local(embed, m, dv)).to(dev0)
+                for m, dv in enumerate(devs)], -1, dsizes)
+            prow = mesh_lib.model_cat(mesh, [
+                _local(pos, m, dv)[off:off + t].to(dev0)
+                for m, dv in enumerate(devs)], -1, dsizes)
             xs.append((emb + prow).to(cfg.compute_dtype))
             positions.append(off + torch.arange(t, device=dev0))
         layers = [(path, _layer_leaves(mt, cfg.n_layers))
@@ -1406,13 +1431,17 @@ def _mesh_forward(cfg: TransformerConfig, mesh: DeviceMesh,
                                         ).mean().float()
         head, lnf_s, lnf_b = (_held(params[n]) for n in
                               ("head", "lnf_scale", "lnf_bias"))
+        vsizes = params["head"].sizes(_MODEL) if head[2] else None
         logits = []
         for d, x in enumerate(xs):
             dev0 = x.device
             x = _layer_norm(x, _local(lnf_s, 0, dev0), _local(lnf_b, 0, dev0))
-            lg = _cat([(x.to(dv) @ _local(head, m, dv).to(x.dtype)).to(dev0)
-                       for m, dv in enumerate(mesh.model_row(d).devices)],
-                      -1)
+            devs = mesh.model_row(d).devices
+            lg = mesh_lib.model_cat(mesh, [
+                (h_m @ _local(head, m, dv).to(x.dtype)).to(dev0)
+                for m, (dv, h_m) in enumerate(zip(
+                    devs, mesh_lib.model_inputs(mesh, x, devs)))], -1,
+                vsizes)
             logits.append(lg.float() if upcast_logits else lg)
         return logits, aux
 
@@ -1470,9 +1499,16 @@ def _mesh_loss(cfg: TransformerConfig, mesh: DeviceMesh):
     rows' sums added in rank order and divided by the token count.
     Sequence parallelism keeps the model's T equal to the (divisible)
     input length: targets are the tokens rolled by one and the last
-    position is masked (the reference's branch, transformer.py:913)."""
+    position is masked (the reference's branch, transformer.py:913).
+
+    Across processes each process sums its own rows: a batch-split loss
+    is its rows' mean (the processes' mean is the global mean, rows being
+    equal); a sequence-split one is its share of the global sum times the
+    process count, so that the mean over the processes (the data bucket's
+    average, ``all_reduce_mean``) is the global loss and gradient."""
     run = _mesh_forward(cfg, mesh, upcast_logits=False)
-    dp = mesh.axis_size(_DATA)
+    dp = mesh.global_size(_DATA)
+    d0, n_proc = mesh.offset(_DATA), mesh.dcn.get(_DATA, 1)
 
     def loss(params, tokens):
         dev = mesh.devices[0]
@@ -1490,11 +1526,13 @@ def _mesh_loss(cfg: TransformerConfig, mesh: DeviceMesh):
             for d, (lg, tg) in enumerate(zip(logits, targets)):
                 tl = tg.shape[1]
                 ce_tok = cross_entropy_with_integer_labels(lg, tg)
-                mask = (d * tl + torch.arange(tl, device=lg.device)
+                mask = ((d0 + d) * tl + torch.arange(tl, device=lg.device)
                         < t - 1).to(ce_tok.dtype)[None]
                 s = (ce_tok * mask).sum().to(dev)
                 total = s if total is None else total + s
             ce = total / ((t - 1) * b)
+            if n_proc > 1:
+                ce = ce * n_proc
         else:
             rows = _token_rows(cfg, mesh, tokens)
             logits, aux = run(params, [r[:, :-1] for r in rows])
@@ -1620,6 +1658,36 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
     return schedule
 
 
+def _global_sq_sums(grads, sq) -> list[torch.Tensor]:
+    """Every global part's squared sum, in the one-process order (leaf by
+    leaf, each leaf's parts data-major), from this process's ``sq`` (its
+    parts' sums, in its :func:`_parts` order): one all-gather over every
+    process of the values and of which it holds; each part's value taken
+    from the first process that holds it. Every process gets the same
+    list, so the same norm, bit for bit."""
+    slots, base = [], 0
+    for _, g in _leaves(grads):
+        cd, cm = g.counts()
+        slots.extend(base + gi * cm + gj for gi, gj in (
+            g.index(i, j) for i, row in enumerate(g.parts)
+            for j in range(len(row))))
+        base += cd * cm
+    dev = sq[0].device
+    val = torch.zeros(base, dtype=torch.float32, device=dev)
+    have = torch.zeros(base, dtype=torch.float32, device=dev)
+    idx = torch.tensor(slots, device=dev)
+    val[idx] = torch.stack(sq).float()
+    have[idx] = 1.0
+    mesh = next(g for _, g in _leaves(grads)).mesh
+    every = mesh_lib.process_gather(torch.stack([val, have]), mesh, None)
+    out = [None] * base
+    for blk in every:
+        for k in torch.nonzero(blk[1] > 0).flatten().tolist():
+            if out[k] is None:
+                out[k] = blk[0, k]
+    return out
+
+
 #: optax.adamw's moment decays and epsilon (the reference never sets them)
 _ADAM_B1, _ADAM_B2, _ADAM_EPS = 0.9, 0.999, 1e-8
 
@@ -1666,7 +1734,11 @@ class AdamW:
             # optax scales by max_norm / g_norm only at g_norm >= max_norm,
             # with no epsilon (torch's clip_grad_norm_ adds 1e-6)
             dev = gs[0].device
-            g_norm = torch.sqrt(sum(g.square().sum().to(dev) for g in gs))
+            sq = [g.square().sum().to(dev) for g in gs]
+            if any(isinstance(g, MeshTensor) and g.mesh.num_processes > 1
+                   for _, g in _leaves(grads)):
+                sq = _global_sq_sums(grads, sq)
+            g_norm = torch.sqrt(sum(sq))
             keep = g_norm < self.clip_norm
             gs = [torch.where(keep.to(g.device), g,
                               (g / g_norm.to(g.device)) * self.clip_norm)
@@ -1719,18 +1791,26 @@ def transformer_train_step(mesh: DeviceMesh | None, cfg: TransformerConfig,
       splits it over the mesh's data axis (by batch, or by sequence under
       sequence parallelism).
 
-    On a mesh whose data axis spans processes (``parallel/mesh.
-    hybrid_mesh`` under ``torch.distributed``) every process passes the
-    same global batch to ``shard_tokens``, which keeps the process's rows
-    (B divisible by the global data axis); each process computes its rows'
-    gradients on its local mesh, then the gradients and the loss are
-    averaged over the processes in one flattened bucket
-    (``mesh_lib.all_reduce_mean``) before the AdamW update, so every
-    process holds the same params. ``step.stats`` then holds the last
-    step's ``bucket_bytes``, ``host_bytes`` (gloo on a card goes through
-    the host) and ``allreduce_s``, the host clock over the averaging with
-    the device synced on both sides. Every process draws the same init
-    from ``seed``.
+    On a mesh that spans processes (``parallel/mesh.hybrid_mesh`` under
+    ``torch.distributed``) every process passes the same global batch to
+    ``shard_tokens``, which keeps the process's rows (B, or T under
+    sequence parallelism, divisible by the global data axis), and every
+    process draws the same init from ``seed`` and keeps its own parts.
+    A model axis across processes runs its collectives inside the
+    forward and backward (``mesh_lib.model_sum`` and its kin), so the
+    processes of a model row compute the same replicated gradients. Over
+    a data axis across processes the gradients of the parts every process
+    of a data column holds, and the loss, are averaged in one flattened
+    bucket (``mesh_lib.all_reduce_mean``) before the AdamW update; a
+    ZeRO-3 shard's gradient was already added over the column by the
+    gather's backward and is divided by the column's size. AdamW's global
+    norm adds every part's squares in the one-process order
+    (:func:`_global_sq_sums`). ``step.stats`` then holds the last step's
+    ``bucket_bytes``, ``host_bytes`` (gloo on a card goes through the
+    host) and ``allreduce_s``, the host clock over the averaging with the
+    device synced on both sides, and ``collectives``: the calls, bytes,
+    bytes through the host and host seconds of the other cross-process
+    collectives (``mesh_lib.collectives``) over the step.
 
     The default optimizer is ``AdamW(3e-4)``, as the reference defaults to
     ``optax.adamw(3e-4)``."""
@@ -1739,10 +1819,6 @@ def transformer_train_step(mesh: DeviceMesh | None, cfg: TransformerConfig,
     optimizer = optimizer or AdamW(3e-4)
     loss_fn = transformer_loss(cfg, mesh)
     nproc = mesh.num_processes if mesh is not None else 1
-    if nproc > 1 and cfg.sequence_parallel:
-        raise ValueError("sequence parallelism rings over a data axis "
-                         "inside one process; across processes it is not "
-                         "ported")
     if mesh is not None:
         tspec = (None, _DATA) if cfg.sequence_parallel else (_DATA, None)
 
@@ -1754,15 +1830,12 @@ def transformer_train_step(mesh: DeviceMesh | None, cfg: TransformerConfig,
 
         def shard_tokens(tokens):
             whole = torch.as_tensor(tokens)
-            if nproc > 1:
-                if whole.shape[0] % mesh.global_data_size:
-                    raise ValueError(
-                        f"the batch ({whole.shape[0]}) must divide over the "
-                        f"data axis across processes "
-                        f"({mesh.global_data_size})")
-                per = whole.shape[0] // nproc
-                whole = whole[mesh.process_index * per:
-                              (mesh.process_index + 1) * per]
+            dim = _token_dim(cfg)
+            if nproc > 1 and whole.shape[dim] % mesh.global_data_size:
+                raise ValueError(
+                    f"the {'sequence' if dim else 'batch'} "
+                    f"({whole.shape[dim]}) must divide over the data axis "
+                    f"across processes ({mesh.global_data_size})")
             whole = whole.to(device=mesh.devices[0], dtype=torch.long)
             return mesh_lib.place(mesh, whole, tspec)
     else:
@@ -1780,21 +1853,32 @@ def transformer_train_step(mesh: DeviceMesh | None, cfg: TransformerConfig,
                 isinstance(p, MeshTensor) for _, p in _leaves(params)):
             raise TypeError("a mesh step takes params laid out on its mesh "
                             "(init_state or place_transformer_params)")
+        if nproc > 1:
+            mesh_lib.reset_collectives()
         loss, grads = value_and_grad(loss_fn, params, tokens)
         if nproc > 1:
             loss = loss.clone()
-            parts = ([q for _, g in _leaves(grads) for q in _parts(g)]
-                     + [loss.reshape(1)])
+            zero3 = mesh.spans(_DATA)
+            shards, parts = [], [loss.reshape(1)]
+            for _, g in _leaves(grads):
+                (shards if zero3 and g.dim_of(_DATA) is not None
+                 else parts).extend(_parts(g))
             synchronize(loss.device)
             t0 = time.perf_counter()
-            bucket, host = mesh_lib.all_reduce_mean(parts, mesh)
+            bucket, host = mesh_lib.all_reduce_mean(parts[1:] + parts[:1],
+                                                    mesh)
+            for g in shards:
+                g.div_(mesh.dcn[_DATA])
             synchronize(loss.device)
             step.stats = {"bucket_bytes": bucket, "host_bytes": host,
                           "allreduce_s": time.perf_counter() - t0}
         optimizer.update_(params, grads, opt_state)
+        if nproc > 1:
+            step.stats["collectives"] = dict(mesh_lib.collectives)
         return params, opt_state, loss
 
-    step.stats = {"bucket_bytes": 0, "host_bytes": 0, "allreduce_s": 0.0}
+    step.stats = {"bucket_bytes": 0, "host_bytes": 0, "allreduce_s": 0.0,
+                  "collectives": dict(mesh_lib.collectives)}
     return step, init_state, shard_tokens
 
 
@@ -2429,13 +2513,19 @@ class _MeshDecode:
     vocab parts are concatenated. A leaf split over the data axis (FSDP)
     is gathered at its rank (an exact concatenation), as the reference's
     CLI gathers an FSDP tree before it samples. The leaves are cast once
-    as ``cast_params`` casts them."""
+    as ``cast_params`` casts them.
+
+    With ``decode_int8`` each rank's cache is int8 beside f32 scales (nl,
+    2, b, Tpad, 1). The reference quantizes a written row over its whole
+    Hkv*K, one scale for every head; a rank holds only some heads, so each
+    row's amax is the max of the ranks' amaxes (exact in any order) and
+    every rank quantizes its part with that one scale row
+    (:func:`_row_values`, as exact-TP serving does). The ranks' parts
+    cover every KV head whether the layout splits wkv or keeps it whole
+    (a rank's expanded KV holds its query heads' KV heads), so the scale
+    is the single-device cache's, and so are the int8 rows."""
 
     def __init__(self, cfg: TransformerConfig, params):
-        if cfg.decode_int8:
-            raise ValueError("generate over the training layout keeps a "
-                             "float KV cache: decode_int8 is not ported "
-                             "there (quantize the weights only)")
         leaves = dict(_leaves(params))
         self.cfg, self.mesh = cfg, next(iter(leaves.values())).mesh
         if not all(isinstance(v, MeshTensor) and v.mesh is self.mesh
@@ -2513,17 +2603,27 @@ class _MeshDecode:
         return p
 
     def init_caches(self, sizes, total: int):
-        """Per data row with ``sizes[d]`` rows (None for an empty row), each
-        rank's zeroed (nl, 2, b_d, Tpad, kv_r*K) cache at the compute dtype
-        (Tpad as ``init_caches``'s)."""
+        """Per data row with ``sizes[d]`` rows (None for an empty row), its
+        ranks' zeroed (nl, 2, b_d, Tpad, kv_r*K) caches (Tpad as
+        ``init_caches``'s): a :class:`Shards` at the compute dtype, or with
+        ``decode_int8`` the dict ``{"kv": int8 Shards, "scale": f32 Shards
+        (nl, 2, b_d, Tpad, 1)}``."""
         cfg = self.cfg
         tpad = _cache_rows(total)
-        return [[torch.zeros((cfg.n_layers, 2, b, tpad,
-                              self.kv_r * cfg.head_dim),
-                             dtype=cfg.compute_dtype,
-                             device=self.mesh.device(d, m))
-                 for m in range(self.tp)] if b else None
-                for d, b in enumerate(sizes)]
+
+        def row(d, b):
+            shape = (cfg.n_layers, 2, b, tpad, self.kv_r * cfg.head_dim)
+            devs = [self.mesh.device(d, m) for m in range(self.tp)]
+            if not cfg.decode_int8:
+                return Shards(torch.zeros(shape, dtype=cfg.compute_dtype,
+                                          device=dv) for dv in devs)
+            return {"kv": Shards(torch.zeros(shape, dtype=torch.int8,
+                                             device=dv) for dv in devs),
+                    "scale": Shards(torch.zeros(shape[:4] + (1,),
+                                                dtype=torch.float32,
+                                                device=dv) for dv in devs)}
+
+        return [row(d, b) if b else None for d, b in enumerate(sizes)]
 
     def _head(self, d: int, x):
         """Row d's logits (b, V) f32: each rank's vocab part, gathered."""
@@ -2559,11 +2659,25 @@ class _MeshDecode:
                 self.cfg, self.mesh, {d: x},
                 lambda dd, m: self.rank_layer(dd, m, i),
                 lambda dd: self.row_layer(dd, i), {d: positions},
-                lambda heads: {k: attend(i, k[1], *qkv)
-                               for k, qkv in heads.items()},
+                lambda heads: attend(i, [heads[d, m]
+                                         for m in range(self.tp)]),
                 self._moe)
             x = out[d]
         return self._final(d, x[:, -1])
+
+    @staticmethod
+    def _write(caches, i: int, at, heads) -> None:
+        """Each rank's new K and V rows of layer ``i`` (``heads[m] = (q, k,
+        v)``, k and v (b, kv_r, C, K)) written at rows ``at`` (a slice or
+        a position) of its cache: cast, or quantized under the rows' one
+        scale over every rank (:func:`_row_values`)."""
+        rows = [torch.stack([k.transpose(1, 2).flatten(2),
+                             v.transpose(1, 2).flatten(2)])
+                for _, k, v in heads]
+        for pairs in _row_values(caches, rows):
+            for buf, vals in pairs:
+                buf[i][:, :, at] = (vals if isinstance(at, slice)
+                                    else vals[:, :, 0])
 
     def prefill(self, d: int, caches, prompt):
         """Row d's prompt (b, Tp) through every layer, each rank writing
@@ -2574,18 +2688,18 @@ class _MeshDecode:
         x = self._embed(d, prompt, self.whole(("pos",), dev0)[:tp_len])
         use_flash = cfg.use_flash and _flash_seq_ok(tp_len)
 
-        def attend(i, m, q, k, v):
-            cache = caches[m]
-            cache[i, 0, :, :tp_len] = k.transpose(1, 2).reshape(b, tp_len,
-                                                                -1)
-            cache[i, 1, :, :tp_len] = v.transpose(1, 2).reshape(b, tp_len,
-                                                                -1)
-            k, v = _group_kv(q, k, v)
-            if use_flash:
-                o = flash_attention(q, k, v, causal=True)
-            else:
-                o = attention(q, k, v, causal=True, layout="bhtd")
-            return o.transpose(1, 2).reshape(b, tp_len, -1)
+        def attend(i, heads):
+            # the float k and v attend; the cache keeps their rows
+            self._write(caches, i, slice(0, tp_len), heads)
+            outs = {}
+            for m, (q, k, v) in enumerate(heads):
+                k, v = _group_kv(q, k, v)
+                if use_flash:
+                    o = flash_attention(q, k, v, causal=True)
+                else:
+                    o = attention(q, k, v, causal=True, layout="bhtd")
+                outs[d, m] = o.transpose(1, 2).reshape(b, tp_len, -1)
+            return outs
 
         return self._layers(d, x, torch.arange(tp_len, device=dev0), attend)
 
@@ -2606,21 +2720,26 @@ class _MeshDecode:
         x = self._embed(d, token, _pos_rows(
             {"pos": self.whole(("pos",), dev0)}, pos, cfg.max_len))
 
-        def attend(i, m, q, k, v):
-            cache = caches[m]
-            cache[i, 0, :, int(pos)] = k[:, :, 0].reshape(b, -1)
-            cache[i, 1, :, int(pos)] = v[:, :, 0].reshape(b, -1)
-            if not cfg.decode_kernel:
-                return _chunk_attention(q, cache, i, pos_t.to(q.device),
-                                        False, kd, q.dtype)
-            # query head h = kv*G + g: (b, G, kv_r*K), each group packed
-            # head-major, as the single-device decode
-            qp = (q[:, :, 0].reshape(b, self.kv_r, self.grp, kd)
-                  .transpose(1, 2).reshape(b, self.grp, -1).contiguous())
-            o = flash_decode_attention(qp, cache, int(pos), self.kv_r,
-                                       layer=i)
-            return (o.reshape(b, self.grp, self.kv_r, kd).transpose(1, 2)
-                    .reshape(b, 1, -1))
+        def attend(i, heads):
+            self._write(caches, i, int(pos), heads)
+            outs = {}
+            for m, (q, _, _) in enumerate(heads):
+                cache = _rank(caches, m)
+                if not cfg.decode_kernel:
+                    outs[d, m] = _chunk_attention(
+                        q, cache, i, pos_t.to(q.device), False, kd, q.dtype)
+                    continue
+                # query head h = kv*G + g: (b, G, kv_r*K), each group
+                # packed head-major, as the single-device decode
+                qp = (q[:, :, 0].reshape(b, self.kv_r, self.grp, kd)
+                      .transpose(1, 2).reshape(b, self.grp, -1)
+                      .contiguous())
+                kv_buf, sc_buf = _kv_planes(cache)
+                o = flash_decode_attention(qp, kv_buf, int(pos), self.kv_r,
+                                           layer=i, kv_scales=sc_buf)
+                outs[d, m] = (o.reshape(b, self.grp, self.kv_r, kd)
+                              .transpose(1, 2).reshape(b, 1, -1))
+            return outs
 
         return self._layers(d, x[:, None], pos_t, attend)
 
@@ -2696,7 +2815,9 @@ def transformer_generate(cfg: TransformerConfig):
     not), as the reference decodes straight from its placed tree: the
     programs then run over the layout (:class:`_MeshDecode`) and the
     tokens come back on the mesh's first device, drawn with the same key
-    stream over the whole batch."""
+    stream over the whole batch. A layout that spans processes is
+    gathered whole in every process first (every process must call it)
+    and decoded on one device."""
     forward_one, init_caches, do_prefill, cast_params = _decode_builder(cfg)
 
     @torch.no_grad()
@@ -2704,8 +2825,17 @@ def transformer_generate(cfg: TransformerConfig):
                  top_k: int | None = None, key=None,
                  return_logits: bool = False, approx_top_k: bool = False):
         if _is_laid_out(params):
-            return _mesh_generate(cfg, params, prompt, max_new, temperature,
-                                  top_k, key, return_logits)
+            if any(leaf.spans() for _, leaf in _leaves(params)):
+                # a layout across processes: every process gathers the
+                # tree whole and decodes on its mesh's first device, as
+                # the reference's CLI gathers an FSDP tree
+                dev = next(leaf for _, leaf in _leaves(params)
+                           ).mesh.devices[0]
+                params = gather_transformer_params(params, dev)
+            else:
+                return _mesh_generate(cfg, params, prompt, max_new,
+                                      temperature, top_k, key,
+                                      return_logits)
         b, tp = prompt.shape
         total = _check_decode_len(cfg, tp, max_new)
         params = cast_params(params)

@@ -235,27 +235,51 @@ def _dist_group():
     return dist.new_group(backend="gloo"), dist.get_rank()
 
 
+def _global_parts(leaf: MeshTensor) -> dict[tuple[int, int], list[int]]:
+    """Every global part's shape, by its global (data, model) index: the
+    ``torch.tensor_split`` pieces of the leaf's shape, whichever process
+    holds them."""
+    cd, cm = leaf.counts()
+    dd = leaf.dim_of(mesh_lib.DATA_AXIS)
+    md = leaf.dim_of(mesh_lib.MODEL_AXIS)
+    rows = leaf.sizes(mesh_lib.DATA_AXIS) if dd is not None else [None]
+    cols = leaf.sizes(mesh_lib.MODEL_AXIS) if md is not None else [None]
+    out = {}
+    for i in range(cd):
+        for j in range(cm):
+            shape = list(leaf.shape)
+            if dd is not None:
+                shape[dd] = rows[i]
+            if md is not None:
+                shape[md] = cols[j]
+            out[i, j] = shape
+    return out
+
+
 def _staged(params):
     """This process's parts as host copies under their global keys, and
-    the manifest's entry of every leaf (shape, dtype, spec, the part count
-    along each split axis, each part's key and shape). Copied before the
-    call returns, so training may update the params in place while the
-    write runs."""
+    the manifest's entry of every leaf (shape, dtype, spec, the global
+    part count along each split axis, every global part's key and shape,
+    whichever process holds it). Copied before the call returns, so
+    training may update the params in place while the write runs."""
     state, leaves = {}, {}
     for key, leaf in flat_leaves(params):
-        if isinstance(leaf, MeshTensor):
-            spec, rows = list(leaf.spec), leaf.parts
-        else:
-            spec, rows = [None] * leaf.dim(), [[leaf]]
-        parts = {}
-        for i, row in enumerate(rows):
+        if not isinstance(leaf, MeshTensor):
+            state[_part_key(key, 0, 0)] = leaf.detach().to("cpu", copy=True)
+            leaves[key] = {
+                "shape": list(leaf.shape), "dtype": str(leaf.dtype),
+                "spec": [None] * leaf.dim(), "dims": [1, 1],
+                "parts": {_part_key(key, 0, 0): list(leaf.shape)}}
+            continue
+        for i, row in enumerate(leaf.parts):
             for j, part in enumerate(row):
-                pk = _part_key(key, i, j)
-                state[pk] = part.detach().to("cpu", copy=True)
-                parts[pk] = list(part.shape)
+                state[_part_key(key, *leaf.index(i, j))] = (
+                    part.detach().to("cpu", copy=True))
         leaves[key] = {
-            "shape": list(leaf.shape), "dtype": str(rows[0][0].dtype),
-            "spec": spec, "dims": [len(rows), len(rows[0])], "parts": parts,
+            "shape": list(leaf.shape), "dtype": str(leaf.parts[0][0].dtype),
+            "spec": list(leaf.spec), "dims": list(leaf.counts()),
+            "parts": {_part_key(key, i, j): shape for (i, j), shape in
+                      _global_parts(leaf).items()},
         }
     return state, leaves
 
@@ -284,8 +308,10 @@ class AsyncShardedCheckpointManager:
     checkpoint of every process's parts of a laid-out tree
     (``parallel/mesh.MeshTensor`` leaves; a whole tensor is one part)
     under keys that name the global part (``blocks//wqkv[0,1]``: data part
-    0, model part 1), so a part held by several processes (the data axis
-    across processes keeps the same shards in each) is written once, plus
+    0, model part 1), so a part held by several processes (a leaf the
+    data axis does not split, across processes of a data column) is
+    written once and each process writes only the parts it holds (a
+    model axis across processes, ZeRO-3's shards), plus
     ``manifest.json`` (process 0 writes it last: a step without one is not
     a checkpoint), holding each leaf's shape, dtype, spec and part counts
     and the meta.

@@ -303,7 +303,8 @@ class FileRegistry:
         )
 
 
-def distributed_backend(device=None) -> tuple[str, str]:
+def distributed_backend(device=None, shared_card: bool = False
+                        ) -> tuple[str, str]:
     """The collective backend of a multi-process run and why, a rule on
     the process's device (no fallback):
 
@@ -312,10 +313,13 @@ def distributed_backend(device=None) -> tuple[str, str]:
       process of the run is given the same flags, so they share that card,
       and NCCL refuses two ranks on one card; gloo stages the CUDA
       buckets through the host, and the port counts those bytes
-      (``parallel/mesh.all_reduce_mean``);
+      (``parallel/mesh.all_reduce_mean``, ``parallel/mesh.collectives``);
     - no device named: each process owns the cards it sees (a launcher
       sets ``CUDA_VISIBLE_DEVICES`` per process): ``nccl`` when a card is
-      visible, else ``gloo``."""
+      visible, unless ``shared_card`` (two processes see one card, found
+      by :func:`cards_shared` through the rendezvous store): then
+      ``gloo``, for the same reason as a named card; ``gloo`` when no card
+      is visible."""
     import torch
 
     if device is not None:
@@ -325,8 +329,39 @@ def distributed_backend(device=None) -> tuple[str, str]:
         return "gloo", (f"processes share {dev}: NCCL takes one rank a card; "
                         f"gloo stages CUDA buckets through the host")
     if torch.cuda.is_available():
+        if shared_card:
+            return "gloo", ("processes share a card (the same device UUID "
+                            "in the rendezvous store): NCCL takes one rank a "
+                            "card; gloo stages CUDA tensors through the host")
         return "nccl", "each process owns its cards"
     return "gloo", "no card visible: processes on the CPU"
+
+
+def card_ids() -> list[str]:
+    """The visible cards' UUIDs (their PCI addresses where the build does
+    not report one)."""
+    import torch
+
+    out = []
+    for i in range(torch.cuda.device_count()):
+        p = torch.cuda.get_device_properties(i)
+        uuid = getattr(p, "uuid", None)
+        out.append(str(uuid) if uuid is not None else
+                   f"pci:{p.pci_domain_id}:{p.pci_bus_id}:{p.pci_device_id}")
+    return out
+
+
+def cards_shared(store, rank: int, world: int, ids) -> bool:
+    """Whether any two of the ``world`` processes see one card: each
+    publishes its cards' ``ids`` under its rank in the rendezvous
+    ``store`` and reads every other's."""
+    store.set(str(rank), json.dumps(list(ids)))
+    seen: dict[str, int] = {}
+    for r in range(world):
+        for card in json.loads(store.get(str(r))):
+            if seen.setdefault(card, r) != r:
+                return True
+    return False
 
 
 def initialize_distributed(
@@ -335,27 +370,40 @@ def initialize_distributed(
     process_id: int | None = None,
     device=None,
 ) -> str:
-    """Multi-process bring-up: ``torch.distributed.init_process_group`` at
-    ``tcp://<coordinator>`` (``host:port`` of process 0's rendezvous; with
-    no coordinator, ``env://`` reads ``MASTER_ADDR``, ``MASTER_PORT``,
-    ``WORLD_SIZE`` and ``RANK``) with ``num_processes`` ranks, this one
-    ``process_id``, on the backend :func:`distributed_backend` picks for
-    ``device``, which it prints. Returns the backend. After this call every
-    process runs the same training program over a data axis that spans
-    the processes (``parallel/mesh.hybrid_mesh``)."""
+    """Multi-process bring-up: ``torch.distributed.init_process_group`` on
+    the store of torch's rendezvous at ``tcp://<coordinator>`` (``host:port``
+    of process 0's store; with no coordinator, ``env://`` reads
+    ``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE`` and ``RANK``) with
+    ``num_processes`` ranks, this one ``process_id``, on the backend
+    :func:`distributed_backend` picks for ``device`` (with no device and
+    a card visible, after the processes compare their cards through the
+    store), which it prints. Returns the backend. After this call every
+    process runs the same training program over a mesh whose data axis,
+    model axis or both span the processes (``parallel/mesh.hybrid_mesh``)."""
+    from datetime import timedelta
+
+    import torch
     import torch.distributed as dist
 
-    backend, why = distributed_backend(device)
     if coordinator is not None:
         if num_processes is None or process_id is None:
             raise ValueError("a coordinator needs num_processes and "
                              "process_id")
-        dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
-                                world_size=num_processes, rank=process_id)
         where = f"tcp://{coordinator}"
+        kw = dict(rank=process_id, world_size=num_processes)
     else:
-        dist.init_process_group(backend, init_method="env://")
-        where = "env://"
+        where, kw = "env://", {}
+    # torch's own rendezvous, as init_process_group makes it (its store
+    # keys under "default_pg"): the store serves the card comparison first
+    store, rank, world = next(dist.rendezvous(
+        where, timeout=timedelta(minutes=10), **kw))
+    shared = (device is None and torch.cuda.is_available()
+              and cards_shared(dist.PrefixStore("dl4j_cards", store), rank,
+                               world, card_ids()))
+    backend, why = distributed_backend(device, shared)
+    dist.init_process_group(backend, store=dist.PrefixStore("default_pg",
+                                                            store),
+                            rank=rank, world_size=world)
     print(f"torch.distributed: process {dist.get_rank()} of "
           f"{dist.get_world_size()} at {where}, backend {backend} ({why})",
           flush=True)

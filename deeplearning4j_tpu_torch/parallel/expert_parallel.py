@@ -256,25 +256,50 @@ def _expert_views(params: MoEParams, n_exp: int, axis: str):
 
 
 def moe_ffn_shard(x: torch.Tensor, wg: torch.Tensor, experts, devices, *,
-                  k: int, capacity_factor: float, activation=gelu):
+                  k: int, capacity_factor: float, activation=gelu,
+                  mesh=None):
     """One data shard of :func:`moe_ffn`: ``x`` (b, t, D) whole on every
     model rank (held on the shard's first device), ``experts`` the ranks'
     ``(w1, b1, w2, b2)`` on ``devices``. Routes the shard's tokens, runs
     each rank's expert over its bucket and sums the partial outputs in
-    rank order. Returns ``(y (b, t, D), aux)``, aux this shard's."""
+    rank order. Returns ``(y (b, t, D), aux)``, aux this shard's.
+
+    Given a ``mesh`` whose model axis spans processes, ``experts`` are
+    this process's (global experts ``mesh.offset("model")`` on) and every
+    process of the row routes alike from the replicated stream; the
+    tokens and the combine weights reach the local experts through
+    ``mesh_lib.model_inputs`` (so their gradients add over every expert)
+    and the partial outputs are summed through ``mesh_lib.model_sum``,
+    in global expert order."""
     b, t, d = x.shape
-    n_exp = len(experts)
+    spans = mesh is not None and mesh.spans(mesh_lib.MODEL_AXIS)
+    n_exp = mesh.global_size(mesh_lib.MODEL_AXIS) if spans else len(experts)
+    first = mesh.offset(mesh_lib.MODEL_AXIS) if spans else 0
     xt = x.reshape(b * t, d)
     capacity = max(1, int(capacity_factor * k * b * t / n_exp))
     gates = torch.softmax(xt @ wg.to(xt.device), dim=-1)
     route = _top_k_route(gates, k, capacity)
     aux = _aux(route, gates, n_exp)
-    y = None
-    for e, (ex, dev) in enumerate(zip(experts, devices)):
-        out = _expert(*ex, _bucket(xt, route, e, capacity).to(dev),
-                      activation)
-        ye = _combine(out.to(xt.device), route, e)
-        y = ye if y is None else y + ye
+    here = [xt.device] * len(experts)
+    if spans:
+        xts = mesh_lib.model_inputs(mesh, xt, here)
+        weights = mesh_lib.model_inputs(mesh, torch.stack(route.weight),
+                                        here)
+        routes = [route._replace(weight=list(w.unbind(0)))
+                  for w in weights]
+    else:
+        xts, routes = [xt] * len(experts), [route] * len(experts)
+    parts = []
+    for e, (ex, dev, xe, r) in enumerate(zip(experts, devices, xts, routes),
+                                         start=first):
+        out = _expert(*ex, _bucket(xe, r, e, capacity).to(dev), activation)
+        parts.append(_combine(out.to(xt.device), r, e))
+    if spans:
+        y = mesh_lib.model_sum(mesh, parts, xt.device)
+    else:
+        y = None
+        for ye in parts:
+            y = ye if y is None else y + ye
     return y.reshape(b, t, d), aux
 
 

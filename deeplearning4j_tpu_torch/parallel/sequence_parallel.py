@@ -6,9 +6,12 @@ data rank keeps its Q block and every K/V block passes it around the ring,
 one step a block, accumulating exact attention by online softmax
 (``ops/attention.online_softmax_block``); the causal mask comes from the
 blocks' global positions. On one controller the ring's hop is a copy to
-the next rank's device. ``head_axis`` keeps the heads split over a second
-mesh axis (tensor parallelism): the ring then runs within each head
-shard's column of ranks.
+the next rank's device; where the data axis spans processes, the hops
+that cross a process are one all-gather of the column's K and V blocks
+(``parallel/mesh.data_parts``), whose backward returns each block's
+gradient, added over every process, to its owner. ``head_axis`` keeps
+the heads split over a second mesh axis (tensor parallelism): the ring
+then runs within each head shard's column of ranks.
 
 ``sequence_sharded_lstm`` (the reference's :88-153) runs an LSTM with T
 split over the data ranks: each rank scans its chunk from the carry the
@@ -28,14 +31,23 @@ from deeplearning4j_tpu_torch.ops.attention import (
 from deeplearning4j_tpu_torch.parallel import mesh as mesh_lib
 
 
-def ring_blocks(qs, ks, vs, causal: bool):
+def ring_blocks(qs, ks, vs, causal: bool, mesh=None):
     """The ring over one column of data ranks: ``qs``, ``ks``, ``vs`` the
     ranks' (B, T/n, H, D) blocks, rank order, each on its rank's device.
     Step ``i`` rank ``me`` holds the K/V block of rank ``(me - i) % n``.
-    Returns the ranks' output blocks."""
-    n = len(qs)
+    Returns the ranks' output blocks. Given a ``mesh`` whose data axis
+    spans processes, the blocks are this process's ranks' (global ranks
+    ``mesh.offset("data")`` on) and the other processes' K/V blocks are
+    gathered first."""
+    first = 0
+    if mesh is not None and mesh.spans(mesh_lib.DATA_AXIS):
+        sizes = [ks[0].shape[1]] * mesh.global_size(mesh_lib.DATA_AXIS)
+        first = mesh.offset(mesh_lib.DATA_AXIS)
+        ks = mesh_lib.data_parts(mesh, ks, 1, sizes)
+        vs = mesh_lib.data_parts(mesh, vs, 1, sizes)
+    n = len(ks)
     outs = []
-    for me, q in enumerate(qs):
+    for me, q in enumerate(qs, start=first):
         b, t_local, h, _ = q.shape
         dev = q.device
         m = torch.full((b, h, t_local), float("-inf"), dtype=q.dtype,

@@ -53,7 +53,7 @@ def _port(jcfg, jparams):
                                     device="cpu")
 
 
-def _held(toks, ref, logits):
+def _held(toks, ref, logits, near_tie=NEAR_TIE):
     """Each row identical to ``ref``, or its first mismatch at a near-tie
     of ``logits`` (max_new, B, V) there."""
     toks, ref = np.asarray(toks), np.asarray(ref)
@@ -62,7 +62,7 @@ def _held(toks, ref, logits):
         if diff.size:
             i = int(diff[0])
             top2 = torch.topk(logits[i, r], 2).values
-            assert float(top2[0] - top2[1]) < NEAR_TIE, (r, i, toks, ref)
+            assert float(top2[0] - top2[1]) < near_tie, (r, i, toks, ref)
 
 
 @pytest.fixture(scope="module")
@@ -221,12 +221,114 @@ def test_moe_tree_decodes_with_experts_on_their_ranks(devices):
     assert torch.equal(toks, gen(p, prompt, NEW, temperature=0.0))
 
 
-def test_layout_refuses_the_int8_cache():
-    tcfg, p = _port(CFG, jt.init_transformer(jax.random.key(0), CFG))
-    q = dataclasses.replace(tcfg, decode_int8=True)
-    laid = pt.place_transformer_params(_port_mesh(), pt.quantize_decode_params(
-        p, q), q)
-    with pytest.raises(ValueError, match="decode_int8"):
-        pt.transformer_generate(q)(laid, torch.zeros((4, 4),
-                                                     dtype=torch.long), 2,
-                                   temperature=0.0)
+#: the int8 cache's near-tie (``chip_smoke.py``'s NEAR_TIE): kernel #3's
+#: int8 mode quantizes q and the softmax weights under scales over the
+#: heads of one launch, a rank's on the layout, every head on one device;
+#: the two functions' logits part by up to 0.044 (measured on this file's
+#: weights), where f32 sums in other orders part by 1e-6
+INT8_NEAR_TIE = 0.1
+#: an int8 cache's scale rows against the single-device cache's: the same
+#: amax up to the f32 sums' order (measured 1.1e-8 absolute)
+SCALE_RTOL = 1e-6
+
+#: layouts of the int8 KV cache: KV heads split (wkv split over 2 ranks),
+#: wkv whole (2 KV heads over 4 ranks: each rank its query heads'
+#: expanded KV) and FSDP (the (4, 2) layout split over the data axis too)
+INT8_LAYOUTS = {"split wkv": (2, 2, False), "whole wkv": (1, 4, False),
+                "fsdp": (4, 2, True)}
+
+
+def _int8_port(seed=0):
+    q = dataclasses.replace(CFG, decode_int8=True)
+    tcfg, p = _port(q, jt.quantize_decode_params(
+        jt.init_transformer(jax.random.key(seed), q), q))
+    return tcfg, p
+
+
+@pytest.mark.parametrize("layout", sorted(INT8_LAYOUTS))
+def test_int8_cache_on_the_layout_matches_single_device(layout):
+    """``decode_int8`` over the layout against single-device int8-cache
+    generate on the same quantized weights: greedy tokens identical, or
+    the first mismatch at a near-tie of the single-device logits."""
+    dp, tp, fsdp = INT8_LAYOUTS[layout]
+    tcfg, p = _int8_port()
+    gen = pt.transformer_generate(tcfg)
+    prompt = torch.from_numpy(_prompt(4, seed=11)).long()
+    ref, ref_logits = gen(p, prompt, NEW, temperature=0.0,
+                          return_logits=True)
+    laid = pt.place_transformer_params(_port_mesh(dp, tp), p, tcfg, fsdp)
+    toks = gen(laid, prompt, NEW, temperature=0.0)
+    _held(toks, ref, ref_logits, INT8_NEAR_TIE)
+
+
+def test_int8_cache_on_the_layout_matches_reference(reference):
+    """The port's int8-cache generate over its (4, 2) layout against the
+    reference's jitted ``decode_int8`` generate over its placed quantized
+    tree."""
+    q = dataclasses.replace(CFG, decode_int8=True)
+    jparams = jt.quantize_decode_params(reference[0], q)
+    jgen = jax.jit(functools.partial(jt.transformer_generate(q),
+                                     max_new=NEW, temperature=0.0))
+    ref = np.asarray(jgen(jt.place_transformer_params(
+        jmesh.dp_mp_mesh(4, 2), jparams, q), _prompt(), jax.random.key(1)))
+    tcfg, p = _port(q, jparams)
+    laid = pt.place_transformer_params(_port_mesh(), p, tcfg)
+    toks, logits = pt.transformer_generate(tcfg)(
+        laid, torch.from_numpy(_prompt()).long(), NEW, temperature=0.0,
+        return_logits=True)
+    _held(toks, ref, logits, INT8_NEAR_TIE)
+
+
+@pytest.mark.parametrize("layout", ["split wkv", "whole wkv", "fsdp"])
+def test_every_ranks_scale_row_is_the_whole_rows(layout):
+    """After a prefill and one decode step on the layout, every rank of a
+    row holds the same scale plane, bitwise: one scale over the row's
+    whole Hkv*K, the max of the ranks' amaxes, so each written row's
+    largest |int8| over the ranks is 127 (a rank's own amax would give
+    127 on every rank). The prompt's rows, and layer 0's decode row, are
+    the single-device cache's: scales up to the f32 sums' order, int8
+    rows equal (a rank's KV heads, or its query heads' expanded KV). The
+    decode row of a later layer follows the int8 attention below it,
+    which quantizes over a rank's heads (``INT8_NEAR_TIE``)."""
+    dp, tp, fsdp = INT8_LAYOUTS[layout]
+    tcfg, p = _int8_port(seed=0)
+    prompt = torch.from_numpy(_prompt(4, seed=3)).long()
+    fwd, init, prefill, cast = pt._decode_builder(tcfg)
+    params = cast(p)
+    total = PROMPT + 2
+    caches, logits = prefill(params, init(4, total, "cpu"), prompt)
+    _, caches = fwd(params, caches, logits.argmax(-1), PROMPT)
+    md = pt._MeshDecode(tcfg, pt.place_transformer_params(
+        _port_mesh(dp, tp), p, tcfg, fsdp))
+    sizes = [len(r) for r in torch.tensor_split(torch.arange(4), dp)]
+    rows = torch.split(prompt, sizes)
+    mine = md.init_caches(sizes, total)
+    kd, grp = tcfg.head_dim, tcfg.n_heads // tcfg.kv_heads
+    b0 = 0
+    for d in range(dp):
+        lg = md.prefill(d, mine[d], rows[d])
+        md.step(d, mine[d], lg.argmax(-1), pos=PROMPT)
+        # the prompt's rows of every layer, then layer 0's decode row
+        picks = [(slice(None), slice(0, PROMPT)), (slice(0, 1), PROMPT)]
+        want = [(caches["kv"][li, :, b0:b0 + sizes[d], ti],
+                 caches["scale"][li, :, b0:b0 + sizes[d], ti])
+                for li, ti in picks]
+        top = torch.stack([mine[d]["kv"][m][:, :, :, :PROMPT + 1].abs()
+                           .amax(-1) for m in range(tp)]).amax(0)
+        assert (top == 127).all(), (layout, d)
+        for m in range(tp):
+            assert torch.equal(mine[d]["scale"][m][:, :, :, :PROMPT + 1],
+                               mine[d]["scale"][0][:, :, :, :PROMPT + 1]), (
+                layout, d, m)
+            for (li, ti), (want_kv, want_sc) in zip(picks, want):
+                torch.testing.assert_close(mine[d]["scale"][m][li, :, :, ti],
+                                           want_sc, rtol=SCALE_RTOL, atol=0)
+                got = mine[d]["kv"][m][li, :, :, ti]
+                if md.kv_split:
+                    w = want_kv[..., m * md.kv_r * kd:(m + 1) * md.kv_r * kd]
+                else:
+                    heads = want_kv.unflatten(-1, (tcfg.kv_heads, kd))
+                    w = heads.repeat_interleave(grp, dim=-2)[
+                        ..., m * md.hs:(m + 1) * md.hs, :].flatten(-2)
+                assert torch.equal(got, w), (layout, d, m, li)
+        b0 += sizes[d]
