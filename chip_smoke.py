@@ -53,7 +53,17 @@ Phases, in order; any failure exits non-zero without printing a result:
    single-device generate it is held against (B 8, Hkv*K 768), both Tpad
    160, and the draw over 8 rows; and ``train --tp 3``'s closing sample
    from its layout (#1 BH 2 at T 16, #3 B 1 over Hkv*K 256 at Tpad 64, 2
-   and 12 layers);
+   and 12 layers); and phase 21's long-context shapes: #1 and #2 at T
+   8,192 (BH 8 and 4) and 32,768 (BH 4), #1 at T 8,192 over BH 96, 6
+   and 24 and at T 512 over BH 120, all past T 1,024 held against the
+   row-blocked plain versions (query rows in blocks against every key row:
+   no (BH, T, T) tensor), and the reference's own flash gate
+   (bench.py:339: f32 gradients of sum(o sin o) through #1/#2 against
+   dense autograd at T 2,048 and 4,096, err < 0.02 scale + 0.01); #3 in
+   bf16 and int8 (its default tile, 4,352 rows: two tiles) at B 16, G 3,
+   Hkv*K 256, Tpad 8,704 at positions 0, 4,351, 4,352, 8,191 and 8,447,
+   at B 1 and 4 there and at B 20 over Tpad 584; #4 in both modes at B 4
+   over bs-8 tables of 1,088 entries, bitwise #3 over the gathered slab;
 3. serve the GPT-2-small configuration (random weights from a seed) through
    ``ServingEngine``: about eight greedy requests, some past the 128-token
    prefill bucket, with every kernel's launch count set to 0 just before and
@@ -339,8 +349,9 @@ Phases, in order; any failure exits non-zero without printing a result:
    sentences bitwise; the first sentences' batches (at least 8) on the card
    within 1e-4 of the CPU's from the same tables; (b) GloVe at the
    reference's defaults (D 50, window 5, x_max 100, alpha 0.75, lr 0.05,
-   batches of 4,096) for 2 epochs on phase 6's whole corpus: the count's
-   seconds, the triples, V, ms a batch, triples/s, the loss per epoch
+   batches of 4,096) for 2 epochs on the first 2,000 of phase 6's
+   sentences: the count's seconds, the triples, V, ms a batch, triples/s,
+   the loss per epoch
    (falling); the first 8 batches on the card within rel 1e-5 of the CPU's;
    on the first 500 sentences for 1 epoch, two seeded runs bitwise and
    ``fit_distributed`` over 2 ranks (the epoch's loss finite and under the
@@ -388,6 +399,24 @@ Phases, in order; any failure exits non-zero without printing a result:
    (2 experts, one a process) and the ring over a data axis across two
    processes (2 layers), against the one-process runs. Every process
    reports the shapes it launched #1-#3 at, held in phase 2.
+21. long context at the reference's widths: (a) bench.py's
+   transformer-flash-8k (d 512, 8 layers, 4 heads of 128, d_ff 2,048, V
+   8,192, T 8,192, B 2) and transformer-flash-32k (T 32,768, B 1) through
+   ``transformer_train_step`` with AdamW(3e-4), flash, no remat, bf16: a
+   warm-up and 4 timed steps each (losses finite and falling, #1/#2 once a
+   layer and step, ms a step, tokens/s, peak memory), and flash vs dense
+   on a 2-layer cut at T 8,192, B 1 (phase 5's bars); (b) the -gqa-8kctx
+   rows (GPT-2-small widths, 6 query heads over 2 KV heads, RoPE): greedy
+   ``transformer_generate`` of 256 tokens after 8,192-token prompts at B
+   16, bf16 and int8 full (prefill ms, decode tokens/s, the int8 tokens'
+   agreement with bf16), and at B 1 flash prefill against dense prefill
+   (identical or a near-tie); (c) the serving engine on bench.py:1051's
+   trace (4 slots, 24 requests, 4 of 8,192 tokens and 20 of 512, half
+   behind a 448-token prefix, 64 new, prefix cache on, bucket 512,
+   arrivals every 20 ms on average), slab and paged (bs 8), piggyback
+   off and on: streams byte-identical across the four, every paged block
+   back, each stream against ``transformer_generate`` (identical or a
+   near-tie), the long prompts' TTFT and the short streams' TPOT p99.
 
 The last lines are the kernel table as one JSON object, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -687,6 +716,18 @@ def check_launched(tag: str, seen: set[tuple]) -> None:
                          f"against the plain version: {unchecked}")
 
 
+def _plain_attn(t: int):
+    """The plain versions phase 2 holds #1 and #2 to at T: the row-blocked
+    ones from :data:`LONG_T` on (the unblocked ones build (BH, T, T) f32
+    tensors: 17 GB a tensor at BH 4, T 32,768)."""
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+
+    if t >= LONG_T:
+        return (fa.flash_attention_fwd_plain_blocked,
+                fa.flash_attention_bwd_plain_blocked)
+    return fa.flash_attention_fwd_plain, fa.flash_attention_bwd_plain
+
+
 def _attn_case(t: int, causal: bool, bh: int = 6, d: int = 128,
                iters: int = 50) -> dict:
     import torch
@@ -694,26 +735,29 @@ def _attn_case(t: int, causal: bool, bh: int = 6, d: int = 128,
 
     from deeplearning4j_tpu_torch.ops import flash_attention as fa
 
+    fwd_plain = _plain_attn(t)[0]
+    warmup = min(5, iters)
     g = torch.Generator(device="cuda").manual_seed(1000 + t)
     q, k, v = (torch.randn((bh, t, d), generator=g, device="cuda",
                            dtype=torch.bfloat16) for _ in range(3))
     o, lse = fa.flash_attention_fwd(q, k, v, causal)
-    o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, causal)
+    o_ref, lse_ref = fwd_plain(q, k, v, causal)
     CHECKED_SHAPES.add(_attn_key("flash_attn_fwd", q, causal))
     torch.cuda.synchronize()
     err = (o.float() - o_ref.float()).abs().max().item()
     lse_err = (lse - lse_ref).abs().max().item()
     finite = bool(torch.isfinite(o.float()).all())
     ok = finite and err <= ATTN_TOL and lse_err <= LSE_TOL
-    ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, causal), iters)
-    plain_ms = time_ms(lambda: fa.flash_attention_fwd_plain(q, k, v, causal),
-                       iters)
+    ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, causal), iters,
+                 warmup)
+    plain_ms = time_ms(lambda: fwd_plain(q, k, v, causal), iters, warmup)
     q4, k4, v4 = (x.view(1, bh, t, d) for x in (q, k, v))
     lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q4, k4, v4, is_causal=causal), iters)
+        q4, k4, v4, is_causal=causal), iters, warmup)
     pairs = t * (t + 1) // 2 if causal else t * t
     b_ms, b_by = bound(4 * bh * t * d * 2 + bh * t * 4, 4 * bh * pairs * d)
-    log(f"kernel flash_attn_fwd BH={bh} T={t} D={d} causal={causal}: "
+    log(f"kernel flash_attn_fwd BH={bh} T={t} D={d} causal={causal}"
+        f"{' (row-blocked plain)' if t >= LONG_T else ''}: "
         f"max_abs_err {err:.3e} (tol {ATTN_TOL}), lse err {lse_err:.3e} "
         f"(tol {LSE_TOL}), ms {ms:.4f}, plain_ms {plain_ms:.4f}, "
         f"bound_ms {b_ms:.6f} ({b_by}), library_ms {lib_ms:.4f} "
@@ -813,13 +857,15 @@ def _bwd_case(t: int, causal: bool, bh: int = 6, d: int = 128,
 
     from deeplearning4j_tpu_torch.ops import flash_attention as fa
 
+    bwd_plain = _plain_attn(t)[1]
+    warmup = min(5, iters)
     g = torch.Generator(device="cuda").manual_seed(3000 + t + bh)
     q, k, v, do = (torch.randn((bh, t, d), generator=g, device="cuda",
                                dtype=torch.bfloat16) for _ in range(4))
     o, lse = fa.flash_attention_fwd(q, k, v, causal)
     grads = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
     again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
-    refs = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+    refs = bwd_plain(q, k, v, o, lse, do, causal)
     CHECKED_SHAPES.add(_attn_key("flash_attn_bwd", q, causal))
     torch.cuda.synchronize()
     ok, worst, same = True, 0.0, True
@@ -830,10 +876,9 @@ def _bwd_case(t: int, causal: bool, bh: int = 6, d: int = 128,
         worst = max(worst, err)
         same = same and torch.equal(x, x2)
     ms = time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, causal),
-                 iters)
-    plain_ms = time_ms(
-        lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal),
-        iters)
+                 iters, warmup)
+    plain_ms = time_ms(lambda: bwd_plain(q, k, v, o, lse, do, causal), iters,
+                       warmup)
     q4, k4, v4 = (x.view(1, bh, t, d).detach().requires_grad_()
                   for x in (q, k, v))
     do4 = do.view(1, bh, t, d)
@@ -842,13 +887,14 @@ def _bwd_case(t: int, causal: bool, bh: int = 6, d: int = 128,
         return F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
 
     lib_ms = (time_ms(lambda: torch.autograd.grad(sdpa(), (q4, k4, v4), do4),
-                      iters)
-              - time_ms(sdpa, iters))
+                      iters, warmup)
+              - time_ms(sdpa, iters, warmup))
     pairs = t * (t + 1) // 2 if causal else t * t
     # reads q, k, v, O, dO and lse, writes dQ, dK, dV; the 5 products the
     # backward needs (the kernel recomputes S and dP: 7)
     b_ms, b_by = bound(8 * bh * t * d * 2 + bh * t * 4, 10 * bh * pairs * d)
-    log(f"kernel flash_attn_bwd BH={bh} T={t} D={d} causal={causal}: "
+    log(f"kernel flash_attn_bwd BH={bh} T={t} D={d} causal={causal}"
+        f"{' (row-blocked plain)' if t >= LONG_T else ''}: "
         f"max_abs_err {worst:.3e} (tol {GRAD_REL} * max|ref| + {GRAD_ABS} "
         f"per gradient), deterministic {same}, ms {ms:.4f}, plain_ms "
         f"{plain_ms:.4f}, bound_ms {b_ms:.6f} ({b_by}), library_ms "
@@ -934,9 +980,12 @@ def _int8_bytes(rows: int, hk: int, b: int, g: int) -> int:
 
 def _decode_int8_case(b: int, g: int, hkv: int, kd: int, nl: int, tpad: int,
                       layer: int, pos: list[int],
-                      block_t: int | None = None) -> dict:
+                      block_t: int | None = None,
+                      bitwise: bool = False) -> dict:
     """Kernel #3 in int8 mode against its plain version, at ``block_t``
-    (default: the reference's tile for this cache)."""
+    (default: the reference's tile for this cache). Reports whether the
+    output is bitwise the plain version's; ``bitwise`` makes that the
+    bar."""
     import torch
 
     from deeplearning4j_tpu_torch.ops import flash_decode as fd
@@ -958,7 +1007,9 @@ def _decode_int8_case(b: int, g: int, hkv: int, kd: int, nl: int, tpad: int,
     CHECKED_SHAPES.add(_decode_key(q, cache, hkv, block_t, scales))
     torch.cuda.synchronize()
     err, steps = _int8_err(out, ref)
-    ok = bool(torch.isfinite(out.float()).all()) and steps <= INT8_STEPS
+    same = torch.equal(out, ref)
+    ok = (bool(torch.isfinite(out.float()).all()) and steps <= INT8_STEPS
+          and (same or not bitwise))
     run = lambda: fd.flash_decode_attention(  # noqa: E731
         q, cache, p, hkv, layer, block_t, kv_scales=scales)
     ms, dev_ms = time_ms(run), graph_ms(run)
@@ -971,6 +1022,7 @@ def _decode_int8_case(b: int, g: int, hkv: int, kd: int, nl: int, tpad: int,
         f"Tpad={tpad} layer={layer} pos={pos} block_t={bt}"
         f"{' (the reference default)' if block_t is None else ''}: "
         f"max_abs_err {err:.3e}, {steps:.3f} bf16 steps (tol {INT8_STEPS}), "
+        f"bitwise {same}{' (required)' if bitwise else ''}, "
         f"ms {ms:.4f} (graph_ms {dev_ms:.4f}; grid {grid}, cluster "
         f"{cluster}; scores in {scores}), plain_ms {plain_ms:.4f}, bound_ms "
         f"{b_ms:.6f} ({b_by}), library_ms none -> {'ok' if ok else 'FAIL'}")
@@ -1016,7 +1068,7 @@ def _batch_case(int8: bool, pos: list[int], hkv: int = 6, kd: int = 128,
 
 def _paged_case(int8: bool, bs: int, pos: list[int], b: int = 8,
                 hkv: int = 6, kd: int = 128, nl: int = 12, tpad: int = 640,
-                layer: int = 7) -> dict:
+                layer: int = 7, g: int = 1) -> dict:
     """Kernel #4 against its plain version and BITWISE against kernel #3
     over the gathered slab: shuffled tables over a pool with spare blocks,
     one block aliased by rows 0 and 1, the sentinel zeroed."""
@@ -1027,7 +1079,7 @@ def _paged_case(int8: bool, bs: int, pos: list[int], b: int = 8,
     hk = hkv * kd
     bps = tpad // bs
     gen = torch.Generator(device="cuda").manual_seed(5000 + bs + int8)
-    q = torch.randn((b, 1, hk), generator=gen, device="cuda",
+    q = torch.randn((b, g, hk), generator=gen, device="cuda",
                     dtype=torch.bfloat16)
     n_blocks = b * bps + 9
     perm = torch.randperm(n_blocks - 1, generator=gen, device="cuda") + 1
@@ -1076,14 +1128,15 @@ def _paged_case(int8: bool, bs: int, pos: list[int], b: int = 8,
     rows = sum(min(x + 1, tpad) for x in pos)
     tab = 4 * sum(-(-min(x + 1, tpad) // bs) for x in pos)
     if int8:
-        nbytes = _int8_bytes(rows, hk, b, 1) + tab
-        b_ms, b_by = bound(nbytes, 4 * rows * hk, INT8_OPS)
+        nbytes = _int8_bytes(rows, hk, b, g) + tab
+        b_ms, b_by = bound(nbytes, 4 * rows * hk * g, INT8_OPS)
     else:
-        b_ms, b_by = bound(2 * rows * hk * 2 + 2 * b * hk * 2 + 4 * b + tab,
-                           4 * rows * hk)
+        b_ms, b_by = bound(2 * rows * hk * 2 + 2 * b * g * hk * 2 + 4 * b
+                           + tab, 4 * rows * hk * g)
     ok = ok and bitwise
     log(f"kernel flash_decode_paged {'int8' if int8 else 'bf16'} bs={bs} "
-        f"B={b} Hkv*K={hk} nl={nl} Tpad={tpad} layer={layer}: max_abs_err "
+        f"B={b} G={g} Hkv*K={hk} nl={nl} Tpad={tpad} layer={layer}: "
+        f"max_abs_err "
         f"{err:.3e} ({tol}), bitwise == slab kernel on the gathered slab "
         f"{bitwise}, ms {ms:.4f} (graph_ms {dev_ms:.4f}; grid {grid}, "
         f"cluster {cluster}), plain_ms {plain_ms:.4f}, bound_ms {b_ms:.6f} "
@@ -1401,6 +1454,8 @@ def phase_kernels(w2v_model, w2v_corpus) -> dict[str, dict]:
     shape for the flash kernels, GPT-2-small serving for the decode
     kernels, int8 at block size 8 for the paged one, the fused mode on
     phase 6's first batch for the fused embedding dot)."""
+    import numpy as np
+
     attn = [_attn_case(t, True) for t in (8, 64)]
     attn.append(_attn_case(128, False))
     attn.append(_attn_case(128, True))
@@ -1440,6 +1495,23 @@ def phase_kernels(w2v_model, w2v_corpus) -> dict[str, dict]:
              for bh in P20_RANK_BH]
     attn.append(_attn_case(TRAIN_SEQ, True, bh=2 * 6, iters=20))
     attn.append(_attn_case(TRAIN_SEQ, True, bh=CKPT_BATCH * 6, iters=20))
+    # phase 21, against the row-blocked plain version: 21a's training rows
+    # (B 2 x 4 heads at T 8,192, B 1 x 4 at 32,768) and their 2-layer
+    # parity cut (B 1 at 8,192); 21b's prefill over the expanded KV heads
+    # (B 16 x 6 heads) and its B 1 check; 21c's generate on the 4 long
+    # prompts (B 4 x 6), then on the 20 short ones at T 512 (unblocked)
+    attn += [_attn_case(t, True, bh=bh, iters=3) for t, bh in (
+        (8192, 8), (32768, 4), (8192, 4), (P21_PROMPT, P21_BATCH * 6),
+        (P21_PROMPT, 6), (P21_PROMPT, P21_LONG * 6))]
+    attn.append(_attn_case(P21_SHORT, True,
+                           bh=(P21_REQS - P21_LONG) * 6, iters=20))
+    # 21c's batched admission of 2 and 4 of its 512-token prompts (4 slots)
+    attn += [_attn_case(P21_SHORT, True, bh=6 * nb, iters=20)
+             for nb in (2, 4)]
+    # the reference's own flash gate (bench.py:339), f32 at T 2,048 and
+    # 4,096
+    gate_rng = np.random.default_rng(0)
+    attn += [_flash_gate_case(t, h, d, gate_rng) for t, h, d in P21_GATE]
     attn.append(_attn_case(TRAIN_SEQ, True, bh=TRAIN_BATCH * 6, iters=20))
     bwd = [_bwd_case(128, causal) for causal in (True, False)]
     bwd.append(_bwd_case(CLI_MESH_SEQ, True,
@@ -1449,9 +1521,15 @@ def phase_kernels(w2v_model, w2v_corpus) -> dict[str, dict]:
     bwd += [_bwd_case(P15_SEQ, True, bh=bh, iters=20) for bh in P20_RANK_BH]
     bwd.append(_bwd_case(TRAIN_SEQ, True, bh=2 * 6, iters=20))
     bwd.append(_bwd_case(TRAIN_SEQ, True, bh=CKPT_BATCH * 6, iters=20))
+    bwd += [_bwd_case(t, True, bh=bh, iters=3)
+            for t, bh in ((8192, 8), (32768, 4), (8192, 4))]
     bwd.append(_bwd_case(TRAIN_SEQ, True, bh=TRAIN_BATCH * 6, iters=20))
     rng = random.Random(0)
     pos = [0, 639] + [rng.randrange(1, 639) for _ in range(6)]
+    # phase 21's B 16 decode positions, and the Tpad of 21c's short
+    # prompts' generate (512 + 64 rows)
+    p21_pos = P21_POS * 3 + [P21_POS[-1]]
+    p21_short_t = P21_SHORT + P21_SERVE_NEW
     # phase 7's decode shapes on GPT-2-small (Hkv 6, K 128, 12 layers):
     # Tpad 64 (the CLI's 16-byte prompt and 48 new: train's closing sample
     # and greedy generate at B 1, generate --beam 4 at B 4) and Tpad 160
@@ -1492,6 +1570,16 @@ def phase_kernels(w2v_model, w2v_corpus) -> dict[str, dict]:
                      [gen_t - 1]),
         _decode_case(1, 1, 6 // MESH_TP, 128, 12, gen_t, 7, [gen_t - 1]),
         _decode_case(8, 1, 6, 128, 12, 640, 7, SPLIT_EDGE_POS),
+        # phase 21 (G 3 over Hkv*K 256, Tpad 8,704): 21b's B 16 and its B 1
+        # check, 21c's 4 slots; 21c's generate on the short prompts (B 20,
+        # Tpad 584)
+        _decode_case(P21_BATCH, 3, 2, 128, 12, P21_TPAD, 7, p21_pos),
+        _decode_case(1, 3, 2, 128, 12, P21_TPAD, 7, [P21_POS[-1]]),
+        _decode_case(P21_SLOTS, 3, 2, 128, 12, P21_TPAD, 7, P21_POS[1:]),
+        _decode_case(P21_REQS - P21_LONG, 3, 2, 128, 12, p21_short_t, 7,
+                     [P21_SHORT, p21_short_t - 1] * 10),
+        # the paged-parity probe of 21c's engines (B 2, Tpad 32) at G 3
+        _decode_case(2, 3, 2, 128, 12, 32, 7, [8, 10]),
         _batch_case(False, pos),
         _decode_case(8, 1, 6, 128, 12, 640, 7, pos),
     ]
@@ -1520,12 +1608,22 @@ def phase_kernels(w2v_model, w2v_corpus) -> dict[str, dict]:
         # one 1,592-row tile (the rule's cap at Hkv*K 768) over 48 lanes:
         # 200 rows a block, whose scores go to the wrapper's scratch tensor
         _decode_int8_case(2, 4, 12, 64, 2, 1592, 1, [1591, 700]),
+        # phase 21b's int8 full generate at its default tile (4,352 rows:
+        # two tiles over Tpad 8,704)
+        _decode_int8_case(P21_BATCH, 3, 2, 128, 12, P21_TPAD, 7, p21_pos,
+                          bitwise=True),
         _batch_case(True, pos),
         _decode_int8_case(8, 1, 6, 128, 12, 640, 7, pos),
     ]
-    # the probe's paged leg (B 2, Tpad 32), then the serve shape
+    # the probe's paged leg (B 2, Tpad 32; phase 21c's at G 3 over Hkv*K
+    # 256), then the serve shape
     paged = [_paged_case(int8, 8, [8, 10], b=2, tpad=32)
              for int8 in (False, True)]
+    paged.append(_paged_case(False, 8, [8, 10], b=2, hkv=2, tpad=32, g=3))
+    # phase 21c's 4 slots over bs-8 tables of 1,088 entries (G 3, Hkv*K
+    # 256, Tpad 8,704), both modes
+    paged += [_paged_case(int8, BLOCK_SIZE, P21_POS[1:], b=P21_SLOTS, hkv=2,
+                          tpad=P21_TPAD, g=3) for int8 in (False, True)]
     paged += [_paged_case(int8, bs, pos) for bs in (64, 8)
               for int8 in (False, True)]
     code_len = w2v_model.cache.max_code_length
@@ -7782,11 +7880,13 @@ P18_W2V_SENTENCES, P18_W2V_REPEAT_SENTENCES = 500, 250
 #: P18_CPU_BATCHES batches at 2 ranks) and of 18b (the first batches)
 P18_W2V_CPU_SENTENCES = 7
 P18_CPU_BATCHES = 8
-#: 18b: the reference's GloVe defaults, 2 epochs on phase 6's corpus; the
-#: seeded repeat and the 2-rank fit take 1 epoch on its first 500
-#: sentences (the phase's time)
+#: 18b: the reference's GloVe defaults, 2 epochs on the first 2,000 of
+#: phase 6's 4,000 sentences (cut from all of them in PR 22, for phase
+#: 21's time); the seeded repeat and the 2-rank fit take 1 epoch on its
+#: first 500 sentences (the phase's time)
 P18_GLOVE = dict(layer_size=50, window=5, x_max=100.0, alpha=0.75, lr=0.05,
                  batch=4096, epochs=2)
+P18_GLOVE_SENTENCES = 2000
 P18_GLOVE_SUB_SENTENCES = 500
 #: GloVe card vs CPU after the first batches, of each table's largest entry
 P18_GLOVE_RTOL = 1e-5
@@ -7984,6 +8084,7 @@ def p18_glove(card: str, corpus, runs: dict):
         m.fit(CollectionSentenceIterator(sentences))
         return m
 
+    corpus = corpus[:P18_GLOVE_SENTENCES]
     glove_mod.count_cooccurrences = count
     try:
         g = Glove(device=P18_DEVICE, **P18_GLOVE)
@@ -9042,6 +9143,493 @@ def phase_model_axis(card: str) -> dict[str, dict[str, int]]:
     return out
 
 
+# -- phase 21: long context --------------------------------------------------
+
+#: from this T on, phase 2 holds #1 and #2 to the row-blocked plain
+#: versions
+LONG_T = 8192
+#: bench.py's transformer-flash-8k (:219) and -32k (:229): the widths, then
+#: (seq, batch) a row; flash, no remat, bf16, AdamW 3e-4, tokens from
+#: default_rng(0)
+P21_TRAIN_WIDTHS = dict(vocab_size=8192, d_model=512, n_heads=4, n_layers=8,
+                        d_ff=2048)
+P21_TRAIN = {"transformer-flash-8k": (8192, 2),
+             "transformer-flash-32k": (32768, 1)}
+P21_WARMUP, P21_STEPS, P21_LR = 1, 4, 3e-4
+#: the flash-vs-dense cut: 2 layers at T 8,192, B 1 (phase 5's bars)
+P21_PARITY_LAYERS, P21_PARITY_SEQ = 2, 8192
+#: bench.py's -gqa-8kctx rows (``_decode_bench_cfg(gqa=True, prompt_len=
+#: 8192, new=256)``, :579): GPT-2-small widths, 6 query heads over 2 KV
+#: heads, RoPE, flash prefill, B 16
+P21_PROMPT, P21_NEW, P21_BATCH = 8192, 256, 16
+#: the B 1 flash-vs-dense prefill check's new tokens (cut from 256)
+P21_B1_NEW = 64
+#: the serve row with 8k prompts (bench.py:1051): 4 slots, 24 requests, 4
+#: of them 8,192-token prompts, the rest 512 tokens (the even ones a
+#: 448-token shared prefix and 64 of their own), 64 new, prefix cache on,
+#: prefill_max_bucket 512, exponential arrivals of mean 20 ms; greedy
+P21_SLOTS, P21_REQS, P21_LONG = 4, 24, 4
+P21_SHORT, P21_SUFFIX, P21_SERVE_NEW = 512, 64, 64
+P21_BUCKET, P21_INTERARRIVAL = 512, 0.02
+#: every cache of the slice: 8,192 + 256 + 1 positions (and the serve
+#: row's 8,192 + 64 + 1) rounded up to 512 rows
+P21_TPAD = 8704
+#: decode positions phase 2 holds #3/#4 at over P21_TPAD: the first row,
+#: either side of the int8 default tile's edge (4,352 rows), the last
+#: prompt row and the last decode position
+P21_POS = [0, 4351, 4352, 8191, 8447]
+#: the reference's on-device gate for its flash backward (bench.py:339):
+#: (T, heads, head dim) of its two f32 checks at B 1
+P21_GATE = ((2048, 2, 64), (4096, 2, 128))
+
+
+def _flash_gate_case(t: int, heads: int, d: int, rng) -> dict:
+    """The reference's gate (bench.py:339) on the card: gradients of
+    sum(o * sin(o)) through #1/#2 (f32 inputs: the FMA bodies) against
+    dense attention's autograd in f32 (TF32 off), ``err < 0.02 * scale +
+    0.01`` per gradient, inputs 0.5 * N(0, 1) from the shared generator."""
+    import torch
+
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.ops.attention import attention
+
+    xs = [torch.from_numpy(rng.normal(size=(1, t, heads, d)).astype(
+        "float32") * 0.5).cuda() for _ in range(3)]
+
+    def grads(fn):
+        leaves = [x.clone().requires_grad_() for x in xs]
+        o = fn(*leaves)
+        (o * torch.sin(o)).sum().backward()
+        return [x.grad for x in leaves]
+
+    got = grads(lambda q, k, v: fa.flash_attention_trainable(
+        q, k, v, causal=True))
+    ref = grads(lambda q, k, v: attention(q, k, v, causal=True))
+    flat = torch.empty((heads, t, d), device="meta")
+    CHECKED_SHAPES.add(_attn_key("flash_attn_fwd", flat, True))
+    CHECKED_SHAPES.add(_attn_key("flash_attn_bwd", flat, True))
+    ok, worst = True, []
+    for name, a, b in zip(("dQ", "dK", "dV"), got, ref):
+        err = (a - b).abs().max().item()
+        scale = b.abs().max().item()
+        ok = ok and err < 0.02 * scale + 0.01
+        worst.append(f"{name} {err:.3e} (scale {scale:.3e})")
+    log(f"kernel flash gate (bench.py:339) T={t} heads={heads} D={d} f32 "
+        f"(bodies {fa.fwd_body(torch.float32, d)}/"
+        f"{fa.bwd_body(torch.float32, d)}): {', '.join(worst)}, tol 0.02 * "
+        f"scale + 0.01 -> {'ok' if ok else 'FAIL'}")
+    return dict(ok=ok)
+
+
+def p21_gqa_config(int8: bool = False, use_flash: bool = True,
+                   max_len: int = P21_PROMPT + P21_NEW + 1):
+    """The -gqa-8kctx model: GPT-2-small widths, n_kv_heads 2 of 6, RoPE,
+    bf16; ``int8`` the ``--int8 full`` row (int8 weights and cache)."""
+    import dataclasses
+
+    return dataclasses.replace(
+        gpt2s_config(n_kv_heads=2, rope=True, decode_int8=int8),
+        max_len=max_len, use_flash=use_flash)
+
+
+def p21_train_config(seq: int, n_layers: int = 8):
+    import torch
+
+    from deeplearning4j_tpu_torch.models.transformer import TransformerConfig
+
+    return TransformerConfig(**{**P21_TRAIN_WIDTHS, "n_layers": n_layers},
+                             max_len=seq + 1, use_flash=True, remat=False,
+                             scan_layers=False, compute_dtype=torch.bfloat16)
+
+
+def p21_train(card: str) -> dict[str, int]:
+    """(A): bench.py's long-context training rows through
+    ``transformer_train_step`` with AdamW(3e-4), a warm-up and 4 timed
+    steps each; then flash vs dense on a 2-layer cut at T 8,192, B 1."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.models.transformer import (
+        AdamW,
+        _leaves,
+        _tree,
+        init_params,
+        transformer_loss,
+        transformer_train_step,
+        value_and_grad,
+    )
+
+    total: dict[str, int] = {}
+    for name, (seq, batch) in P21_TRAIN.items():
+        cfg = p21_train_config(seq)
+        t0 = time.perf_counter()
+        step, init_state, shard_tokens = transformer_train_step(
+            None, cfg, optimizer=AdamW(P21_LR))
+        params, opt_state = init_state(0)
+        toks = shard_tokens(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (batch, seq + 1)))
+        losses = []
+        for _ in range(P21_WARMUP):
+            params, opt_state, loss = step(params, opt_state, toks)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(P21_STEPS):
+            params, opt_state, loss = step(params, opt_state, toks)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        _add(total, launches)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        losses = [float(x) for x in losses]
+        ms = wall / P21_STEPS * 1e3
+        tok_s = batch * seq / (wall / P21_STEPS)
+        share = lm_flops_per_token(cfg.d_model, cfg.n_layers, cfg.d_ff,
+                                   cfg.vocab_size, seq) * tok_s / BF16_FLOPS
+        tag = f"phase 21a {name}"
+        log(f"{tag}: {cfg.d_model}d x {cfg.n_layers}L, {cfg.n_heads}x"
+            f"{cfg.head_dim} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+            f"seq {seq}, batch {batch}, flash, no remat, bf16, AdamW("
+            f"{P21_LR}); set-up and {P21_WARMUP} warm-up step "
+            f"{setup:.1f} s; launches in the {P21_STEPS} timed steps "
+            f"{launches}")
+        log(f"{tag}: losses {' '.join(f'{x:.4f}' for x in losses)}; {ms:.2f} "
+            f"ms/step, {tok_s:.1f} tokens/s, {share:.4f} of "
+            f"{BF16_FLOPS / 1e12:.0f} TFLOP/s bf16, peak memory {peak:.2f} "
+            f"GiB [{card}]")
+        _launch_check(tag, launches, ("flash_attn_fwd", "flash_attn_bwd"))
+        _must(tag, launches["flash_attn_fwd"] == P21_STEPS * cfg.n_layers
+              and launches["flash_attn_bwd"] == P21_STEPS * cfg.n_layers,
+              "#1/#2 did not launch once a layer and step")
+        _must(tag, all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"losses not finite or not falling: {losses}")
+        del params, opt_state, step
+        torch.cuda.empty_cache()
+
+    cfg = p21_train_config(P21_PARITY_SEQ, P21_PARITY_LAYERS)
+    params = init_params(cfg, seed=0)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (1, P21_PARITY_SEQ + 1))).cuda()
+
+    def run(c):
+        fresh = _tree((path, p.detach().clone())
+                      for path, p in _leaves(params))
+        loss, grads = value_and_grad(transformer_loss(c), fresh, toks)
+        return float(loss), dict(_leaves(grads))
+
+    reset_launches()
+    flash = run(cfg)
+    _add(total, read_launches())
+    dense = run(dataclasses.replace(cfg, use_flash=False))
+    rel = abs(flash[0] - dense[0]) / abs(dense[0])
+    cos = {}
+    for path, g in flash[1].items():
+        a, b = g.double().flatten(), dense[1][path].double().flatten()
+        cos["/".join(path)] = (a @ b / (a.norm() * b.norm())).item()
+    worst = min(cos, key=cos.get)
+    log(f"phase 21a parity ({P21_PARITY_LAYERS} layers, T {P21_PARITY_SEQ}, "
+        f"B 1): loss flash {flash[0]:.6f} dense {dense[0]:.6f} (rel "
+        f"{rel:.2e}, tol {PARITY_LOSS_RTOL}); min grad cosine "
+        f"{cos[worst]:.6f} at {worst} (tol {PARITY_COSINE})")
+    _must("phase 21a parity", rel <= PARITY_LOSS_RTOL
+          and cos[worst] >= PARITY_COSINE,
+          "flash training disagrees with dense attention")
+    del params, flash, dense
+    torch.cuda.empty_cache()
+    return total
+
+
+def _first_diff(a, b) -> int | None:
+    import numpy as np
+
+    d = np.nonzero(a != b)[0]
+    return int(d[0]) if d.size else None
+
+
+def _near_tie_rows(tag: str, got, ref, logits, n_prompt: int) -> list[str]:
+    """Rows of ``got`` (B, T) held against ``ref``: identical, or the first
+    mismatch at a near-tie of ``logits`` (new, B, V), the side ``ref``
+    came from; fails otherwise."""
+    import torch
+
+    verdicts = []
+    for row in range(got.shape[0]):
+        i = _first_diff(got[row, n_prompt:], ref[row, n_prompt:])
+        if i is None:
+            verdicts.append("identical")
+            continue
+        top2 = torch.topk(logits[i, row].float(), 2).values.tolist()
+        gap = top2[0] - top2[1]
+        _must(tag, gap < NEAR_TIE, f"row {row} leaves the reference at "
+              f"generated position {i} with a top-2 gap {gap:.4g}")
+        verdicts.append(f"near-tie at {i} (gap {gap:.4g})")
+    return verdicts
+
+
+def p21_generate(card: str) -> dict[str, int]:
+    """(B): ``transformer_generate`` at 8k context, B 16, bf16 and int8
+    full; prefill ms (a generate of one token) and decode tokens/s; then
+    at B 1 flash prefill against dense prefill."""
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.models.transformer import (
+        init_params,
+        quantize_decode_params,
+        transformer_generate,
+    )
+
+    total: dict[str, int] = {}
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, p21_gqa_config().vocab_size, (P21_BATCH, P21_PROMPT))).cuda()
+    runs = {}
+    for int8 in (False, True):
+        cfg = p21_gqa_config(int8)
+        params = init_params(cfg, seed=0)
+        if int8:
+            params = quantize_decode_params(params, cfg)
+        gen = transformer_generate(cfg)
+        mode = "int8 full" if int8 else "bf16"
+        tag = f"phase 21b {mode}"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen(params, prompt, 1, temperature=0.0)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        toks, logits = gen(params, prompt, P21_NEW, temperature=0.0,
+                           return_logits=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        _add(total, launches)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        toks = toks.cpu().numpy()
+        decode_tok_s = P21_BATCH * (P21_NEW - 1) / max(wall - prefill_s,
+                                                       1e-9)
+        log(f"{tag}: GPT-2-small widths, {cfg.n_heads} query heads over "
+            f"{cfg.kv_heads} KV heads of {cfg.head_dim}, RoPE, max_len "
+            f"{cfg.max_len}; B {P21_BATCH}, prompt {P21_PROMPT}, "
+            f"{P21_NEW} new (Tpad {P21_TPAD}); launches {launches}")
+        log(f"{tag}: prefill (a generate of 1 token) {prefill_s * 1e3:.1f} "
+            f"ms, generate of {P21_NEW} {wall * 1e3:.1f} ms, decode "
+            f"{decode_tok_s:.1f} tokens/s, peak memory {peak:.2f} GiB "
+            f"[{card}]")
+        decode = "flash_decode_int8" if int8 else "flash_decode"
+        _launch_check(tag, launches, ("flash_attn_fwd", decode),
+                      ("flash_decode_int8",) if not int8 else
+                      ("flash_decode",))
+        _must(tag, toks.shape == (P21_BATCH, P21_PROMPT + P21_NEW)
+              and ((toks >= 0) & (toks < cfg.vocab_size)).all()
+              and bool(torch.isfinite(logits).all()),
+              "tokens out of range or logits not finite")
+        runs[int8] = toks
+        del params, gen, logits
+        torch.cuda.empty_cache()
+    agree = runs[True][:, P21_PROMPT:] == runs[False][:, P21_PROMPT:]
+    firsts = [_first_diff(runs[True][r, P21_PROMPT:],
+                          runs[False][r, P21_PROMPT:])
+              for r in range(P21_BATCH)]
+    log(f"phase 21b: int8 full vs bf16 tokens: {agree.mean():.4f} of the "
+        f"generated tokens equal, rows identical "
+        f"{sum(f is None for f in firsts)}/{P21_BATCH}, first divergence "
+        f"per row {firsts}")
+
+    # B 1: flash prefill vs dense prefill, the dense side's logits judge
+    cfg = p21_gqa_config(False)
+    params = init_params(cfg, seed=0)
+    one = prompt[:1]
+    reset_launches()
+    flash_toks, _ = transformer_generate(cfg)(
+        params, one, P21_B1_NEW, temperature=0.0, return_logits=True)
+    _add(total, read_launches())
+    dense_toks, dense_logits = transformer_generate(
+        p21_gqa_config(False, use_flash=False))(
+        params, one, P21_B1_NEW, temperature=0.0, return_logits=True)
+    verdict = _near_tie_rows("phase 21b B 1", flash_toks.cpu().numpy(),
+                             dense_toks.cpu().numpy(), dense_logits,
+                             P21_PROMPT)
+    log(f"phase 21b B 1: flash prefill vs dense prefill, {P21_B1_NEW} new: "
+        f"{verdict[0]}")
+    del params
+    torch.cuda.empty_cache()
+    return total
+
+
+def p21_requests(vocab: int):
+    """bench.py:1051's trace: (arrival s, prompt) of 24 requests, the 4
+    long prompts spread through the middle."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    arrivals = np.cumsum(rng.exponential(P21_INTERARRIVAL, P21_REQS))
+    shared = rng.integers(0, vocab, (P21_SHORT - P21_SUFFIX,))
+    uniq = rng.integers(0, vocab, (P21_REQS, P21_SHORT))
+    longs = rng.integers(0, vocab, (P21_LONG, P21_PROMPT))
+    long_at = sorted(set(np.linspace(P21_REQS // 4, 3 * P21_REQS // 4,
+                                     P21_LONG).astype(int).tolist()))
+    out = []
+    for i in range(P21_REQS):
+        if i in long_at:
+            prompt = longs[long_at.index(i)]
+        elif i % 2 == 0:
+            prompt = np.concatenate([shared, uniq[i, :P21_SUFFIX]])
+        else:
+            prompt = uniq[i]
+        out.append((float(arrivals[i]), prompt))
+    return out
+
+
+def _p21_serve_run(tag: str, cfg, params, trace, *, paged: bool,
+                   piggyback: bool, card: str):
+    """One engine over the trace, requests submitted at their arrival
+    times; returns (streams, launches, TTFT of the long prompts, TPOT p99
+    of the short streams, engine)."""
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.serving import Request, ServingEngine
+
+    engine = ServingEngine(
+        cfg, params, n_slots=P21_SLOTS,
+        max_total=P21_PROMPT + P21_SERVE_NEW + 1, temperature=0.0,
+        prefix_cache=True, prefill_max_bucket=P21_BUCKET,
+        piggyback=piggyback, paged=paged, block_size=BLOCK_SIZE)
+    _must(tag, engine._paged == paged and engine._piggyback == piggyback
+          and engine.pool.tpad == P21_TPAD,
+          f"engine came up paged {engine._paged}, piggyback "
+          f"{engine._piggyback}, Tpad {engine.pool.tpad}")
+    reqs = [Request(prompt=p, max_new=P21_SERVE_NEW) for _, p in trace]
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    i = 0
+    while i < len(reqs) or not engine.idle:
+        now = time.perf_counter() - t0
+        while i < len(reqs) and trace[i][0] <= now:
+            engine.submit(reqs[i])
+            i += 1
+        if engine.idle:
+            time.sleep(max(0.0, trace[i][0] - now))
+            continue
+        engine.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    for r in reqs:
+        out = engine.results[r.id]
+        _must(tag, r.status.value == "finished"
+              and out.shape == (len(r.prompt) + P21_SERVE_NEW,),
+              f"request {r.id} came back {r.status}")
+    longs = [r for r in reqs if len(r.prompt) == P21_PROMPT]
+    shorts = [r for r in reqs if len(r.prompt) != P21_PROMPT]
+    ttft = [r.timing["ttft_s"] for r in longs]
+    tpot = [r.timing["decode_s"] / (P21_SERVE_NEW - 1) for r in shorts]
+    m = engine.metrics
+    s = m.summary()
+    log(f"{tag}: {len(reqs)} requests in {wall:.2f} s, "
+        f"{s['n_generated'] / wall:.1f} generated tok/s; TTFT of the "
+        f"{P21_PROMPT}-token prompts {' '.join(f'{x * 1e3:.1f}' for x in ttft)}"
+        f" ms; short streams' TPOT p50 {np.percentile(tpot, 50) * 1e3:.3f} "
+        f"p99 {np.percentile(tpot, 99) * 1e3:.3f} ms; {m.n_prefill_chunks} "
+        f"chunks deferred, decode stall {m.decode_stall_seconds:.4f} s; "
+        f"prefix hits {s.get('prefix_hits', 0)}; launches {launches} "
+        f"[{card}]")
+    return ([engine.results[r.id] for r in reqs], launches, ttft,
+            float(np.percentile(tpot, 99)), engine)
+
+
+def p21_serve(card: str) -> dict[str, int]:
+    """(C): the serving engine on bench.py:1051's trace, slab and paged
+    (bs 8), piggyback off and on: streams byte-identical across the four
+    runs, paged blocks all back, and every stream against
+    ``transformer_generate`` on its prompt (identical, or a near-tie)."""
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.models.transformer import (
+        init_params,
+        transformer_generate,
+    )
+
+    total: dict[str, int] = {}
+    cfg = p21_gqa_config(False, max_len=P21_PROMPT + P21_SERVE_NEW + 1)
+    params = init_params(cfg, seed=0)
+    trace = p21_requests(cfg.vocab_size)
+    runs = {}
+    for paged in (False, True):
+        for pb in (False, True):
+            layout = "paged bs 8" if paged else "slab"
+            tag = f"phase 21c {layout}, piggyback {'on' if pb else 'off'}"
+            streams, launches, _, _, engine = _p21_serve_run(
+                tag, cfg, params, trace, paged=paged, piggyback=pb,
+                card=card)
+            decode = "flash_decode_paged" if paged else "flash_decode"
+            _launch_check(tag, launches, ("flash_attn_fwd", decode))
+            _add(total, launches)
+            if pb:
+                _must(tag, engine.metrics.n_prefill_chunks > 0,
+                      "no chunk was deferred")
+            if paged:
+                held = engine.pool.n_blocks_in_use
+                while engine.prefix_cache.reclaim():
+                    pass
+                log(f"{tag}: blocks in use after the run {held} (the "
+                    f"prefix cache's), after evicting it "
+                    f"{engine.pool.n_blocks_in_use}")
+                _must(tag, engine.pool.n_blocks_in_use == 0,
+                      "blocks did not come back")
+            runs[(paged, pb)] = streams
+            del engine
+            torch.cuda.empty_cache()
+    base = runs[(False, False)]
+    for key, streams in runs.items():
+        same = [np.array_equal(a, b) for a, b in zip(base, streams)]
+        _must(f"phase 21c {key}", all(same), f"streams differ from the "
+              f"blocking slab run ({sum(same)}/{len(same)} identical)")
+    log("phase 21c: every run's streams byte-identical to the blocking slab "
+        "run's")
+    # the engine's streams against generate, the long prompts and the
+    # short ones each as one batch
+    gen = transformer_generate(cfg)
+    for want in (P21_PROMPT, P21_SHORT):
+        rows = [i for i, (_, p) in enumerate(trace) if len(p) == want]
+        prompts = torch.from_numpy(np.stack([trace[i][1] for i in rows]))
+        toks, logits = gen(params, prompts.cuda(), P21_SERVE_NEW,
+                           temperature=0.0, return_logits=True)
+        got = np.stack([base[i] for i in rows])
+        verdict = _near_tie_rows(f"phase 21c vs generate ({want})", got,
+                                 toks.cpu().numpy(), logits, want)
+        log(f"phase 21c: engine vs transformer_generate on the {len(rows)} "
+            f"prompts of {want} tokens: {verdict}")
+    del params
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_long_context(card: str) -> dict[str, dict[str, int]]:
+    """Phase 21: long context at the reference's widths: training at T
+    8,192 and 32,768, generate at 8k context in bf16 and int8 full, the
+    serving engine with 8,192-token prompts; fails on a launch at a shape
+    phase 2 did not hold."""
+    t0 = time.perf_counter()
+    with launched_shapes() as seen:
+        out = {"long_train": p21_train(card),
+               "long_generate": p21_generate(card),
+               "long_serve": p21_serve(card)}
+    check_launched("phase 21", seen)
+    log(f"phase 21: {time.perf_counter() - t0:.1f} s wall [{card}]")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -9110,6 +9698,7 @@ def main() -> int:
     check_launched("phase 18", last)
     by_phase.update(phase_tooling(card))
     by_phase.update(phase_model_axis(card))
+    by_phase.update(phase_long_context(card))
     kernels = [
         dict(name=name, route="cuda", **KERNELS[name],
              launches=sum(p[name] for p in by_phase.values()),

@@ -724,15 +724,30 @@ def _w(p, name: str, dtype):
     return w.to(dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def _rope_freqs(half: int, base: float, device: str) -> torch.Tensor:
+    """``base ** (-i / half)`` for i < half in f32 on ``device``: the f32
+    exponent's power taken in f64 and rounded once to f32, which is what
+    XLA's f32 power gives (the reference's tables, bitwise). An f32
+    ``torch.pow`` is off by an ulp at some i, and the angle multiplies that
+    error by the position: at position 32,767 it moved cos and sin by up
+    to ~1e-5. Built once per device on the host (no device f64 op); the
+    upload does not block."""
+    x = -np.arange(half, dtype=np.float32) / np.float32(half)
+    freqs = (float(base) ** x.astype(np.float64)).astype(np.float32)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return upload(freqs, dev)
+    return torch.from_numpy(freqs).to(dev)
+
+
 def _rope_tables(positions, head_dim: int, dtype, device,
                  base: float = 10000.0):
     """(cos, sin) tables for RoPE at the given positions: (..., head_dim/2)."""
     if not isinstance(positions, torch.Tensor):
         # an int position, made on the device (no blocking upload)
         positions = torch.full((), int(positions), device=device)
-    half = head_dim // 2
-    freqs = base ** (-torch.arange(half, dtype=torch.float32, device=device)
-                     / half)
+    freqs = _rope_freqs(head_dim // 2, float(base), str(torch.device(device)))
     ang = positions[..., None].float() * freqs
     return torch.cos(ang).to(dtype), torch.sin(ang).to(dtype)
 

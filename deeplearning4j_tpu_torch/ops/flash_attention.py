@@ -24,6 +24,12 @@ see the sources for the tile layouts.
 
 Dispatch: a CPU tensor runs the plain version; a CUDA tensor launches the
 kernel or raises. There is no fallback from one to the other.
+
+The plain versions build (BH, T, T) f32 tensors, 17 GB each at BH 4 and T
+32,768. Their row-blocked forms (``flash_attention_fwd_plain_blocked``,
+``flash_attention_bwd_plain_blocked``) take the query rows in blocks and
+build no such tensor; ``chip_smoke.py`` holds the kernels to them at long
+T. No path of the port calls them.
 """
 
 from __future__ import annotations
@@ -61,19 +67,63 @@ def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,
     dtype (by the scale cast to that dtype), the scores and the softmax are
     f32, and the probabilities are cast to V's dtype for the PV product with
     f32 accumulation."""
+    return _fwd_rows(q, k, v, causal, 0)
+
+
+def _causal_mask(s: torch.Tensor, row0: int) -> torch.Tensor:
+    """-inf where key j lies past query row ``row0 + i`` of the (..., rows,
+    T) scores."""
+    rows = torch.arange(row0, row0 + s.shape[-2], device=s.device)
+    cols = torch.arange(s.shape[-1], device=s.device)
+    return s.masked_fill(cols[None, :] > rows[:, None], float("-inf"))
+
+
+def _fwd_rows(q, k, v, causal: bool, row0: int):
+    """The plain forward of query rows ``row0 ..`` (the rows of ``q``)
+    against every row of k and v."""
     d = q.shape[-1]
     qs = (q * dtype_scalar(1.0 / math.sqrt(d), q.dtype)).float()
     s = qs @ k.float().transpose(-1, -2)
     if causal:
-        t = q.shape[-2]
-        mask = torch.ones((t, t), dtype=torch.bool, device=q.device).tril()
-        s = s.masked_fill(~mask, float("-inf"))
+        s = _causal_mask(s, row0)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
     o = (p.to(v.dtype).float() @ v.float()) / l.clamp_min(1e-30)
     lse = m + torch.log(l.clamp_min(1e-30))
     return o.to(q.dtype), lse
+
+
+#: f32 elements of one (BH, rows, T) score block of the row-blocked plain
+#: versions (1 GiB)
+PLAIN_BLOCK_ELEMS = 1 << 28
+
+
+def plain_block_rows(bh: int, t: int) -> int:
+    """Query rows a block of the row-blocked plain versions takes: as many
+    as keep a (BH, rows, T) f32 block within :data:`PLAIN_BLOCK_ELEMS`."""
+    return max(1, min(t, PLAIN_BLOCK_ELEMS // (bh * t)))
+
+
+def flash_attention_fwd_plain_blocked(q: torch.Tensor, k: torch.Tensor,
+                                      v: torch.Tensor, causal: bool = True
+                                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_attention_fwd_plain` over blocks of
+    :func:`plain_block_rows` query rows, so no (BH, T, T) tensor is built:
+    the plain version at long T (T 32,768 at BH 4 would need 17 GB a
+    score tensor). Each block takes every key row, masked, so its PV
+    product contracts over the same T rows as the whole one: a row's
+    output and lse are bitwise the unblocked function's wherever the
+    matmul's rows do not depend on how many rows it is given (true of the
+    CPU's; on the card a library may pick another kernel by shape)."""
+    bh, t, _ = q.shape
+    step = plain_block_rows(bh, t)
+    o = torch.empty_like(q)
+    lse = torch.empty((bh, t, 1), dtype=torch.float32, device=q.device)
+    for r0 in range(0, t, step):
+        o[:, r0:r0 + step], lse[:, r0:r0 + step] = _fwd_rows(
+            q[:, r0:r0 + step], k, v, causal, r0)
+    return o, lse
 
 
 def _check_cuda_args(what: str, **xs):
@@ -223,21 +273,57 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     product of the cast P and the cast (dp - delta) taken in the input dtype,
     dK contracts ds with the scaled Q, dQ is scaled after its f32 sum, and
     each gradient is cast once."""
+    delta = flash_attention_bwd_delta(o, do)
+    dq, dk, dv = _bwd_rows(q, k, v, lse, do, delta, causal, 0)
+    dt = q.dtype
+    return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
+def _bwd_rows(q, k, v, lse, do, delta, causal: bool, row0: int):
+    """The plain backward of query rows ``row0 ..`` (the rows of q, lse,
+    do and delta) against every row of k and v: their dQ rows (f32, scaled)
+    and their f32 parts of dK and dV."""
     dt = q.dtype
     scale = 1.0 / math.sqrt(q.shape[-1])
     qs = q * dtype_scalar(scale, dt)
     s = qs.float() @ k.float().transpose(-1, -2)
     if causal:
-        t = q.shape[-2]
-        mask = torch.ones((t, t), dtype=torch.bool, device=q.device).tril()
-        s = s.masked_fill(~mask, float("-inf"))
+        s = _causal_mask(s, row0)
     p = torch.exp(s - lse).to(dt)
     dv = p.float().transpose(-1, -2) @ do.float()
     dp = do.float() @ v.float().transpose(-1, -2)
-    ds = p * (dp - flash_attention_bwd_delta(o, do)).to(dt)
+    ds = p * (dp - delta).to(dt)
     dk = ds.float().transpose(-1, -2) @ qs.float()
     dq = (ds.float() @ k.float()) * scale
-    return dq.to(dt), dk.to(dt), dv.to(dt)
+    return dq, dk, dv
+
+
+def flash_attention_bwd_plain_blocked(q: torch.Tensor, k: torch.Tensor,
+                                      v: torch.Tensor, o: torch.Tensor,
+                                      lse: torch.Tensor, do: torch.Tensor,
+                                      causal: bool = True
+                                      ) -> tuple[torch.Tensor, torch.Tensor,
+                                                 torch.Tensor]:
+    """:func:`flash_attention_bwd_plain` over blocks of
+    :func:`plain_block_rows` query rows: no (BH, T, T) tensor is built. Each
+    block takes every key row, masked, so dQ is bitwise the unblocked
+    function's wherever the matmul's rows do not depend on how many rows
+    it is given (as the forward); dK and dV sum the blocks' f32 parts in
+    block order, which only reassociates the unblocked sums."""
+    bh, t, _ = q.shape
+    step = plain_block_rows(bh, t)
+    delta = flash_attention_bwd_delta(o, do)
+    dq = torch.empty_like(q)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    for r0 in range(0, t, step):
+        rows = slice(r0, r0 + step)
+        dq_r, dk_r, dv_r = _bwd_rows(q[:, rows], k, v, lse[:, rows],
+                                     do[:, rows], delta[:, rows], causal, r0)
+        dq[:, rows] = dq_r
+        dk += dk_r
+        dv += dv_r
+    return dq, dk.to(q.dtype), dv.to(q.dtype)
 
 
 def _bwd_kernel():
@@ -341,7 +427,10 @@ def flash_attention_trainable(q: torch.Tensor, k: torch.Tensor,
         flat = [x.reshape(b * h, t, d).contiguous() for x in (q, k, v)]
     elif layout == "bthd":
         b, t, h, d = q.shape
-        flat = [x.transpose(1, 2).reshape(b * h, t, d) for x in (q, k, v)]
+        # at B 1 the reshape of the transpose is a strided view, which the
+        # kernels do not take
+        flat = [x.transpose(1, 2).reshape(b * h, t, d).contiguous()
+                for x in (q, k, v)]
     else:
         raise ValueError(f"layout must be 'bthd' or 'bhtd', got {layout!r}")
     o = FlashAttentionFn.apply(*flat, causal).reshape(b, h, t, d)
