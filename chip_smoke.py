@@ -64,6 +64,14 @@ Phases, in order; any failure exits non-zero without printing a result:
    Hkv*K 256, Tpad 8,704 at positions 0, 4,351, 4,352, 8,191 and 8,447,
    at B 1 and 4 there and at B 20 over Tpad 584; #4 in both modes at B 4
    over bs-8 tables of 1,088 entries, bitwise #3 over the gathered slab;
+   and #3 int8 over a row's ranks as phase 20a runs it, at 20a's (2, 3)
+   rank (B 4, 2 of 6 KV heads, Tpad 160) and over 21b's two-tile row in 2
+   ranks: the maxima pass and the full pass under the row's scales from
+   outside bitwise their plain versions, the ranks' rows bitwise the
+   single launch's; over the whole row under q scales that differ
+   across every (group, KV head) lane, the maxima pass bitwise plain,
+   the full pass within one bf16 step of plain and each lane bitwise its
+   KV head launched alone; both modes timed at rank 0's shape;
 3. serve the GPT-2-small configuration (random weights from a seed) through
    ``ServingEngine``: about eight greedy requests, some past the 128-token
    prefill bucket, with every kernel's launch count set to 0 just before and
@@ -386,8 +394,11 @@ Phases, in order; any failure exits non-zero without printing a result:
    layout: (a) int8-cache generate (``decode_int8``, quantized weights) from
    GPT-2-small laid out on the (2, 3) mesh over ``cuda:0`` x 6, 8 prompts
    of 128 and 32 new, greedy, against single-device int8-cache generate
-   (identical, or a reported near-tie under 0.1), #3 in int8 mode once a
-   step, layer and rank; (b) two ``train --coordinator ... --tp 2``
+   at the float layout's bar (15a's: identical, or a reported near-tie
+   under 0.1), with the layout's max |dlogit|; each rank's #3 launch takes
+   the row's q and softmax-weight scales (the max of the ranks' maxima
+   passes); #3 in int8 mode and its maxima pass once a step, layer and
+   rank; (b) two ``train --coordinator ... --tp 2``
    processes without ``--device`` (15b's widths and recipe): the
    processes find that they share the card and pick gloo, the model axis
    spans them, their final losses are equal and within 2e-3 of the
@@ -603,15 +614,25 @@ def _attn_key(name: str, q, causal: bool) -> tuple:
     return (name, tuple(q.shape), str(q.dtype), bool(causal))
 
 
-def _decode_key(q, kvcache, n_kv_heads: int, block_t, kv_scales) -> tuple:
-    """A decode launch's kernel mode, q and cache shapes, dtype, KV heads
-    and tile (``_tile``: the int8 tile; 0 for the bf16/f32 mode)."""
+def _decode_key(q, kvcache, n_kv_heads: int, block_t, kv_scales,
+                outside: bool = False) -> tuple:
+    """A decode launch's kernel mode (int8 with its scales from outside a
+    mode of its own), q and cache shapes, dtype, KV heads and tile
+    (``_tile``: the int8 tile; 0 for the bf16/f32 mode)."""
     from deeplearning4j_tpu_torch.ops import flash_decode as fd
 
     int8 = kv_scales is not None
-    return ("flash_decode_int8" if int8 else "flash_decode", tuple(q.shape),
-            tuple(kvcache.shape), str(q.dtype), int(n_kv_heads),
+    name = "flash_decode_int8" if int8 else "flash_decode"
+    return (name + (" (scales from outside)" if outside else ""),
+            tuple(q.shape), tuple(kvcache.shape), str(q.dtype),
+            int(n_kv_heads),
             fd._tile(block_t, kvcache, kvcache.shape[3], int8))
+
+
+def _maxima_key(q, kvcache, n_kv_heads: int, block_t) -> tuple:
+    """A launch of int8 mode's maxima pass: as :func:`_decode_key`."""
+    return ("flash_decode_int8_maxima",) + _decode_key(
+        q, kvcache, n_kv_heads, block_t, True)[1:]
 
 
 def _paged_key(q, blocks, tables, n_kv_heads: int, block_t,
@@ -643,8 +664,9 @@ def _draw_key(logits, pos) -> tuple:
 @contextlib.contextmanager
 def launched_shapes():
     """Yields a set that gathers the key (``_attn_key``, ``_decode_key``,
-    ``_paged_key``, ``_emb_key``, ``_draw_key``) of every launch of kernels
-    #1-#5 (both decode modes, both #5 modes) and of the threefry draw made
+    ``_maxima_key``, ``_paged_key``, ``_emb_key``, ``_draw_key``) of every
+    launch of kernels #1-#5 (both decode modes and int8's maxima pass, both
+    #5 modes) and of the threefry draw made
     inside the block: the wrappers' launch functions are wrapped, the
     launches and their counts left as they are."""
     from deeplearning4j_tpu_torch.ops import emb_dot
@@ -654,7 +676,7 @@ def launched_shapes():
 
     seen: set[tuple] = set()
     fwd, bwd, dec = fa._launch, fa._launch_bwd, fd._launch
-    paged = fd._launch_paged
+    paged, maxima = fd._launch_paged, fd._launch_maxima
     dense, fused = emb_dot._launch, emb_dot._launch_hs
     draw = threefry._launch
 
@@ -667,9 +689,17 @@ def launched_shapes():
         return bwd(q, k, v, o, lse, do, causal)
 
     def on_dec(q, kvcache, pos, n_kv_heads, layer, block_t=None,
-               kv_scales=None):
-        seen.add(_decode_key(q, kvcache, n_kv_heads, block_t, kv_scales))
-        return dec(q, kvcache, pos, n_kv_heads, layer, block_t, kv_scales)
+               kv_scales=None, q_scales=None, p_scales=None):
+        seen.add(_decode_key(q, kvcache, n_kv_heads, block_t, kv_scales,
+                             q_scales is not None or p_scales is not None))
+        return dec(q, kvcache, pos, n_kv_heads, layer, block_t, kv_scales,
+                   q_scales, p_scales)
+
+    def on_maxima(q, kvcache, pos, n_kv_heads, layer, block_t, kv_scales,
+                  q_scales=None):
+        seen.add(_maxima_key(q, kvcache, n_kv_heads, block_t))
+        return maxima(q, kvcache, pos, n_kv_heads, layer, block_t,
+                      kv_scales, q_scales)
 
     def on_paged(q, blocks, tables, pos, n_kv_heads, layer, block_t=None,
                  block_scales=None):
@@ -691,14 +721,14 @@ def launched_shapes():
         return draw(logits, keys, pos)
 
     fa._launch, fa._launch_bwd, fd._launch = on_fwd, on_bwd, on_dec
-    fd._launch_paged = on_paged
+    fd._launch_paged, fd._launch_maxima = on_paged, on_maxima
     emb_dot._launch, emb_dot._launch_hs = on_dense, on_fused
     threefry._launch = on_draw
     try:
         yield seen
     finally:
         fa._launch, fa._launch_bwd, fd._launch = fwd, bwd, dec
-        fd._launch_paged = paged
+        fd._launch_paged, fd._launch_maxima = paged, maxima
         emb_dot._launch, emb_dot._launch_hs = dense, fused
         threefry._launch = draw
 
@@ -1029,6 +1059,138 @@ def _decode_int8_case(b: int, g: int, hkv: int, kd: int, nl: int, tpad: int,
     return dict(ok=ok, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=None,
                 graph_ms=dev_ms)
+
+
+def _decode_int8_outside_case(b: int, g: int, hkv: int, tp: int, kd: int,
+                              nl: int, tpad: int, layer: int,
+                              pos: list[int]) -> dict[str, dict]:
+    """int8 mode over ``tp`` ranks of a row of ``hkv`` KV heads, each rank
+    launching over its ``hkv // tp`` heads at the row's default tile, as
+    ``_MeshDecode.decode_ranks`` does: each rank's maxima pass, then the
+    full pass under the row's q scales and the max of the ranks' maxima
+    over 127. Both modes bitwise their plain versions, and the ranks'
+    rows bitwise a single launch over the row. Over the whole row under
+    random q scales that differ across every (group, KV head) lane: the
+    maxima pass bitwise plain, the full pass within ``INT8_STEPS`` of
+    plain (as every int8 case: l is summed in another order), and each
+    lane bitwise its KV head launched alone under its own scale. Times
+    both at rank 0's shape; returns {"maxima": ..., "outside": ...}."""
+    import torch
+
+    from deeplearning4j_tpu_torch.ops import flash_decode as fd
+
+    hk, kv_r = hkv * kd, hkv // tp
+    gen = torch.Generator(device="cuda").manual_seed(9000 + hk + g)
+    q = torch.randn((b, g, hk), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    cache, scales = _int8_store(gen, (nl, 2, b, tpad, hk))
+    p = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    bt = fd.default_block_t(tpad, hk, 1)
+    want = fd.flash_decode_attention(q, cache, p, hkv, layer, bt,
+                                     kv_scales=scales)
+    qsc = fd._div127(q.float().abs().amax(-1).clamp_min(1e-8))
+    ranks = [(q.view(b, g, hkv, kd)[:, :, m * kv_r:(m + 1) * kv_r]
+              .reshape(b, g, -1).contiguous(),
+              cache.view(nl, 2, b, tpad, hkv, kd)[..., m * kv_r:
+                                                  (m + 1) * kv_r, :]
+              .reshape(nl, 2, b, tpad, -1).contiguous()) for m in range(tp)]
+    q_scales = qsc[..., None].expand(b, g, kv_r).contiguous()
+    maxima = [fd.flash_decode_int8_maxima(qm, km, p, kv_r, layer, bt,
+                                          scales, q_scales)
+              for qm, km in ranks]
+    max_plain = [fd.flash_decode_int8_maxima_plain(qm, km, p, kv_r, layer,
+                                                   bt, scales, q_scales)
+                 for qm, km in ranks]
+    max_same = sum(map(torch.equal, maxima, max_plain))
+    p_scales = fd._div127(torch.stack(maxima).amax(0).clamp_min(1e-30))
+    outs = [fd.flash_decode_attention(qm, km, p, kv_r, layer, bt, scales,
+                                      q_scales, p_scales)
+            for qm, km in ranks]
+    out_plain = [fd.flash_decode_attention_plain(qm, km, p, kv_r, layer, bt,
+                                                 scales, q_scales, p_scales)
+                 for qm, km in ranks]
+    out_same = sum(map(torch.equal, outs, out_plain))
+    errs = {mode: max((x.float() - y.float()).abs().max().item()
+                      for x, y in zip(got, ref))
+            for mode, got, ref in (("maxima", maxima, max_plain),
+                                   ("outside", outs, out_plain))}
+    rows_same = torch.equal(torch.stack(outs, 2).reshape(b, g, hk), want)
+    # one launch over the whole row under q scales that differ across
+    # every (group, KV head) lane: the maxima pass bitwise plain, the full
+    # pass within INT8_STEPS of plain (l's sum order), and each lane
+    # bitwise its KV head launched alone under that lane's scale, so each
+    # lane reads its own
+    lane_sc = (qsc[..., None] * (0.5 + torch.rand(
+        (b, g, hkv), generator=gen, device="cuda"))).contiguous()
+    lane_max = fd.flash_decode_int8_maxima(q, cache, p, hkv, layer, bt,
+                                           scales, lane_sc)
+    lane_psc = fd._div127(lane_max.clamp_min(1e-30))
+    lane_out = fd.flash_decode_attention(q, cache, p, hkv, layer, bt, scales,
+                                         lane_sc, lane_psc)
+    lane_steps = _int8_err(lane_out, fd.flash_decode_attention_plain(
+        q, cache, p, hkv, layer, bt, scales, lane_sc, lane_psc))[1]
+    heads = cache[layer:layer + 1].view(1, 2, b, tpad, hkv, kd)
+    alone = all(torch.equal(
+        lane_out.view(b, g, hkv, kd)[:, :, h], fd.flash_decode_attention(
+            q.view(b, g, hkv, kd)[:, :, h].contiguous(),
+            heads[..., h, :].contiguous(), p, 1, 0, bt,
+            scales[layer:layer + 1], lane_sc[:, :, h:h + 1].contiguous(),
+            lane_psc)) for h in range(hkv))
+    lanes_ok = (torch.equal(lane_max, fd.flash_decode_int8_maxima_plain(
+        q, cache, p, hkv, layer, bt, scales, lane_sc))
+        and lane_steps <= INT8_STEPS and alone)
+    q0, k0 = ranks[0]
+    CHECKED_SHAPES.add(_maxima_key(q0, k0, kv_r, bt))
+    CHECKED_SHAPES.add(_decode_key(q0, k0, kv_r, bt, scales, True))
+    torch.cuda.synchronize()
+    ok = max_same == tp and out_same == tp and rows_same and lanes_ok
+    hk_r = kv_r * kd
+    verdict = (f"kernel flash_decode_int8 over {tp} ranks of a row (B={b} "
+               f"G={g} Hkv*K={hk}, a rank's {hk_r}) nl={nl} Tpad={tpad} "
+               f"layer={layer} pos={pos} block_t={bt} (the row's default): "
+               f"maxima pass bitwise plain on {max_same}/{tp} ranks, scales "
+               f"from outside bitwise plain on {out_same}/{tp}, the ranks' "
+               f"rows bitwise the single launch's {rows_same}; over the "
+               f"row under a q scale a lane (G {g} x Hkv {hkv}, each "
+               f"different): maxima pass bitwise plain, the full pass "
+               f"{lane_steps:.3f} bf16 steps from plain (tol {INT8_STEPS}), "
+               f"each lane bitwise its KV head alone {alone} -> "
+               f"{'ok' if lanes_ok else 'FAIL'}")
+    rows = sum(min(x + 1, tpad) for x in pos)
+    n_t = -(-tpad // bt)
+    res = {}
+    for mode, run, plain, nbytes, ops in (
+            ("maxima",
+             lambda: fd.flash_decode_int8_maxima(q0, k0, p, kv_r, layer, bt,
+                                                 scales, q_scales),
+             lambda: fd.flash_decode_int8_maxima_plain(
+                 q0, k0, p, kv_r, layer, bt, scales, q_scales),
+             # the K rows with both scales, q and its scales, the maxima
+             rows * (hk_r + 8) + b * g * hk_r * 2 + b * g * kv_r * 4
+             + b * n_t * 4 + 4 * b, 2 * rows * hk_r * g),
+            ("outside",
+             lambda: fd.flash_decode_attention(q0, k0, p, kv_r, layer, bt,
+                                               scales, q_scales, p_scales),
+             lambda: fd.flash_decode_attention_plain(
+                 q0, k0, p, kv_r, layer, bt, scales, q_scales, p_scales),
+             _int8_bytes(rows, hk_r, b, g) + b * g * kv_r * 4 + b * n_t * 4,
+             4 * rows * hk_r * g)):
+        ms, dev_ms = time_ms(run), graph_ms(run)
+        plain_ms = time_ms(plain, iters=10)
+        b_ms, b_by = bound(nbytes, ops, INT8_OPS)
+        res[mode] = dict(ok=ok, max_abs_err=errs[mode], ms=ms,
+                         plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=None, graph_ms=dev_ms)
+    log(f"{verdict}; at rank 0's shape maxima ms "
+        f"{res['maxima']['ms']:.4f} (graph_ms {res['maxima']['graph_ms']:.4f}"
+        f"), plain_ms {res['maxima']['plain_ms']:.4f}, bound_ms "
+        f"{res['maxima']['bound_ms']:.6f} ({res['maxima']['bound_by']}); "
+        f"scales from outside ms {res['outside']['ms']:.4f} (graph_ms "
+        f"{res['outside']['graph_ms']:.4f}), plain_ms "
+        f"{res['outside']['plain_ms']:.4f}, bound_ms "
+        f"{res['outside']['bound_ms']:.6f} ({res['outside']['bound_by']}), "
+        f"library_ms none -> {'ok' if ok else 'FAIL'}")
+    return res
 
 
 def _batch_case(int8: bool, pos: list[int], hkv: int = 6, kd: int = 128,
@@ -1615,6 +1777,17 @@ def phase_kernels(w2v_model, w2v_corpus) -> dict[str, dict]:
         _batch_case(True, pos),
         _decode_int8_case(8, 1, 6, 128, 12, 640, 7, pos),
     ]
+    # the row's scales from outside: 21b's two-tile shape over 2 ranks of
+    # one KV head, then phase 20a's (2, 3) rank (4 rows, 2 of the 6 KV
+    # heads, Tpad 160), the maxima pass's row in the kernels line
+    outside = [
+        _decode_int8_outside_case(P21_BATCH, 3, 2, 2, 128, 12, P21_TPAD, 7,
+                                  p21_pos),
+        _decode_int8_outside_case(P15_PROMPTS // MESH_DP, 1, 6, MESH_TP, 128,
+                                  12, P15_TOTAL, 7,
+                                  [P15_TOTAL - 1] * (P15_PROMPTS // MESH_DP)),
+    ]
+    maxima = [c["maxima"] for c in outside]
     # the probe's paged leg (B 2, Tpad 32; phase 21c's at G 3 over Hkv*K
     # 256), then the serve shape
     paged = [_paged_case(int8, 8, [8, 10], b=2, tpad=32)
@@ -1642,7 +1815,10 @@ def phase_kernels(w2v_model, w2v_corpus) -> dict[str, dict]:
             for kind in ("L16", "planted", "phase6")]
     draws = phase_draw()
     for name, cases in (("flash_attn_fwd", attn), ("flash_attn_bwd", bwd),
-                        ("flash_decode", dec), ("flash_decode_int8", dec8),
+                        ("flash_decode", dec),
+                        ("flash_decode_int8",
+                         dec8 + [c["outside"] for c in outside]),
+                        ("flash_decode_int8_maxima", maxima),
                         ("flash_decode_paged", paged), ("emb_dot", emb),
                         ("threefry_draw", draws)):
         if not all(c["ok"] for c in cases):
@@ -1650,6 +1826,7 @@ def phase_kernels(w2v_model, w2v_corpus) -> dict[str, dict]:
                              f"version")
     return {"flash_attn_fwd": attn[-1], "flash_attn_bwd": bwd[-1],
             "flash_decode": dec[-1], "flash_decode_int8": dec8[-1],
+            "flash_decode_int8_maxima": maxima[-1],
             "flash_decode_paged": paged[-1], "emb_dot": emb[-1],
             "threefry_draw": draws[-1]}
 
@@ -1668,6 +1845,11 @@ KERNELS = {
         source="deeplearning4j_tpu_torch/csrc/flash_decode.cu",
         replaces="deeplearning4j_tpu/ops/pallas_kernels.py:502"),
     "flash_decode_int8": dict(
+        source="deeplearning4j_tpu_torch/csrc/flash_decode.cu",
+        replaces="deeplearning4j_tpu/ops/pallas_kernels.py:502"),
+    # int8 mode's maxima pass: the reference's per-tile max of p * vsc
+    # (pallas_kernels.py:610-611) on its own, for the scales from outside
+    "flash_decode_int8_maxima": dict(
         source="deeplearning4j_tpu_torch/csrc/flash_decode.cu",
         replaces="deeplearning4j_tpu/ops/pallas_kernels.py:502"),
     "flash_decode_paged": dict(
@@ -1706,6 +1888,7 @@ def read_launches() -> dict[str, int]:
     return {"flash_attn_fwd": fa.launches, "flash_attn_bwd": fa.bwd_launches,
             "flash_decode": fd.launches,
             "flash_decode_int8": fd.int8_launches,
+            "flash_decode_int8_maxima": fd.maxima_launches,
             "flash_decode_paged": fd.paged_launches,
             "emb_dot": emb_dot.launches, "threefry_draw": threefry.launches}
 
@@ -6572,6 +6755,19 @@ def _p15_parity(tag: str, toks, ref, ref_logits) -> str:
             + (f"; {'; '.join(notes)}" if notes else ""))
 
 
+def _logit_gap(toks, ref, logits, ref_logits) -> float:
+    """max |logit - single-device logit| over each row's new positions up
+    to and including its first token mismatch (after it the two runs
+    condition on other tokens)."""
+    gap = 0.0
+    for r in range(toks.shape[0]):
+        diff = (toks[r, P15_PROMPT:] != ref[r, P15_PROMPT:]).nonzero()
+        end = int(diff[0]) + 1 if len(diff) else P15_NEW
+        gap = max(gap, (logits[:end, r].float() - ref_logits[:end, r].float())
+                  .abs().max().item())
+    return gap
+
+
 def phase15_mesh_generate(card: str, total: dict) -> None:
     """15a: GPT-2-small (phase 3's geometry, bf16, flash) laid out by
     ``place_transformer_params`` on a (2, 3) mesh over ``["cuda:0"] * 6``,
@@ -6620,14 +6816,14 @@ def phase15_mesh_generate(card: str, total: dict) -> None:
             reset_launches()
             t0 = time.perf_counter()
             out = gen(p, prompts, P15_NEW, temperature=0.0,
-                      return_logits=where == "single device")
+                      return_logits=True)
             torch.cuda.synchronize()
             times[where] = (time.perf_counter() - t0) * 1e3
             launches = read_launches()
             if where == "single device":
                 ref, ref_logits = out
             else:
-                toks = out
+                toks, logits = out
                 _add(total, launches)
         log(f"{tag}: launches on the layout {launches}")
         for kname, want_n in (("flash_attn_fwd", cfg.n_layers * ranks),
@@ -6637,7 +6833,9 @@ def phase15_mesh_generate(card: str, total: dict) -> None:
                   f"{kname} launched {launches[kname]} times, not once a "
                   f"layer on each of the {ranks} ranks ({want_n})")
         log(f"{tag}: greedy on the layout vs single-device generate: "
-            f"{_p15_parity(tag, toks, ref, ref_logits)}; ms a generate "
+            f"{_p15_parity(tag, toks, ref, ref_logits)}; max |dlogit| "
+            f"{_logit_gap(toks, ref, logits, ref_logits):.6g} up to each "
+            f"row's first mismatch; ms a generate "
             f"(8 x {P15_PROMPT} + {P15_NEW}) {times['(2, 3) layout']:.1f} "
             f"on the layout, {times['single device']:.1f} single device "
             f"[{card}]")
@@ -8946,8 +9144,10 @@ def _p20_report(tag: str, out: str, key: str):
 def phase20_mesh_int8(card: str, total: dict) -> None:
     """20a: int8-cache generate (``decode_int8``, quantized weights) from
     GPT-2-small on the (2, 3) layout over ``["cuda:0"] * 6`` against
-    single-device int8-cache generate; #3 in int8 mode once a step, layer
-    and rank; ms a generate."""
+    single-device int8-cache generate, at the float layout's bar (15a's
+    ``_p15_parity``): each rank's #3 launch takes the row's q and
+    softmax-weight scales. #3 in int8 mode and its maxima pass once a step,
+    layer and rank; the layout's max |dlogit|; ms a generate."""
     import numpy as np
     import torch
 
@@ -8973,19 +9173,22 @@ def phase20_mesh_int8(card: str, total: dict) -> None:
         torch.cuda.synchronize()
         reset_launches()
         t0 = time.perf_counter()
-        out = gen(p, prompts, P15_NEW, temperature=0.0,
-                  return_logits=where == "single device")
+        out = gen(p, prompts, P15_NEW, temperature=0.0, return_logits=True)
         torch.cuda.synchronize()
         times[where] = (time.perf_counter() - t0) * 1e3
         launches = read_launches()
         if where == "single device":
             ref, ref_logits = out
+            _must(tag, launches["flash_decode_int8_maxima"] == 0,
+                  "the single device ran the maxima pass")
         else:
-            toks = out
+            toks, logits = out
             _add(total, launches)
     log(f"{tag}: launches on the layout {launches}")
     for kname, want_n in (("flash_attn_fwd", cfg.n_layers * ranks),
                           ("flash_decode_int8",
+                           cfg.n_layers * ranks * P15_NEW),
+                          ("flash_decode_int8_maxima",
                            cfg.n_layers * ranks * P15_NEW),
                           ("flash_decode", 0)):
         _must(tag, launches[kname] == want_n,
@@ -8994,7 +9197,9 @@ def phase20_mesh_int8(card: str, total: dict) -> None:
               f"each of the {ranks} ranks)")
     log(f"{tag}: int8-cache greedy on the layout vs single-device "
         f"int8-cache generate: {_p15_parity(tag, toks, ref, ref_logits)}; "
-        f"ms a generate (8 x {P15_PROMPT} + {P15_NEW}) "
+        f"max |dlogit| {_logit_gap(toks, ref, logits, ref_logits):.6g} up "
+        f"to each row's first mismatch; ms a generate "
+        f"(8 x {P15_PROMPT} + {P15_NEW}) "
         f"{times['(2, 3) layout']:.1f} on the layout, "
         f"{times['single device']:.1f} single device [{card}]")
     del laid, params

@@ -36,6 +36,13 @@
 //   psc = max(max_{t, g, h} p * vsc[t], 1e-30) / 127 over ALL rows and lanes,
 //   p8 = rint(p * vsc / psc), acc = acc * corr + float(sum_t p8 v8) * psc
 //   o = acc / max(l, 1e-30), l summing the unquantized p.
+// Scales from outside (slab int8 only): `q_scales` (B, G, Hkv) replaces
+// qsc_g per (g, h) lane and `p_scales` (B, n_t) replaces each tile's psc,
+// both already divided by 127; a launch over some heads of a row (a mesh
+// rank's) then computes the whole row's function on its lanes. The maxima
+// pass (`dl4j_flash_decode_int8_maxima`) is the same body up to the tile's
+// max of p * vsc, which it writes per (row, tile) instead of dividing it by
+// 127: no V rows, no output.
 //
 // Bound on the H100: bytes. A call must read the visible K and V rows of one
 // layer (bf16: 2 bytes an element; int8: 1 byte plus a 4-byte scale a row)
@@ -461,8 +468,8 @@ __host__ __device__ inline bool smem_scores8(int g, int hkv, int block_t,
 // then 2 f32 scales a row), packed q (G x hk int8), int32 P V partials
 // (G x hk), this block's slice of acc, the stage's p8 (RS x gh), the scores
 // of the block's rows of a tile (when they fit), the lane state (m, l,
-// corr, lane max, lane sum: 5 x gh), q scales (G), block-max scratch, the
-// block's max of p * vsc, and (paged) the table row
+// corr, lane max, lane sum: 5 x gh), q scales (one a lane: gh), block-max
+// scratch, the block's max of p * vsc, and (paged) the table row
 __host__ __device__ inline Int8Layout int8_layout(int g, int hkv, int kd,
                                                   int block_t, int t,
                                                   int tab_ints) {
@@ -479,17 +486,22 @@ __host__ __device__ inline Int8Layout int8_layout(int g, int hkv, int kd,
              ? up16((size_t)block_rows8(block_t, t) * (gh + 1) * 4)
              : 0;
   L.total = L.ring + L.q8 + L.ipart + L.acc + L.p8 + L.sc +
-            4 * (5 * gh + g + NWARPS8 + 1 + (size_t)tab_ints);
+            4 * (6 * gh + NWARPS8 + 1 + (size_t)tab_ints);
   return L;
 }
 
-template <typename TQ, bool PAGED>
+// MAXIMA: the maxima pass (K side only; writes pmax (B, n_t), not out).
+// qsc_in (B, G*hkv) and psc_in (B, n_t), where not null, are the scales
+// from outside
+template <typename TQ, bool PAGED, bool MAXIMA>
 __global__ void __launch_bounds__(NTHREADS8, MINB8)
     flash_decode_int8_cluster_kernel(
         const TQ* __restrict__ q, const int8_t* __restrict__ cache,
         const float* __restrict__ scales, const int* __restrict__ pos,
-        float* __restrict__ scr, TQ* __restrict__ out, RowMap map, int G,
-        int hkv, int kd, int layer, float scale, int block_t, int gran) {
+        float* __restrict__ scr, TQ* __restrict__ out,
+        const float* __restrict__ qsc_in, const float* __restrict__ psc_in,
+        float* __restrict__ pmax, RowMap map, int G, int hkv, int kd,
+        int layer, float scale, int block_t, int n_t, int gran) {
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -512,8 +524,8 @@ __global__ void __launch_bounds__(NTHREADS8, MINB8)
   float* c_s = l_s + gh;
   float* xm_s = c_s + gh;  // this block's lane maxima (exchange 1)
   float* ls_s = xm_s + gh; // this block's lane sums of p (exchange 2)
-  float* qsc_s = ls_s + gh;
-  float* red_s = qsc_s + G;
+  float* qsc_s = ls_s + gh;  // the q scale of each lane
+  float* red_s = qsc_s + gh;
   float* pm_s = red_s + NWARPS8;  // this block's max of p * vsc (exchange 2)
   int* tab_s = reinterpret_cast<int*>(pm_s + 1);  // paged: the table row
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -544,7 +556,7 @@ __global__ void __launch_bounds__(NTHREADS8, MINB8)
     const int rows = max(r1 - r0, 0);
     const int sbase = in_smem ? r0 : 0;
     const int nsub = (rows + rs - 1) / rs;
-    const int total = 2 * nsub;  // K stages, then V stages
+    const int total = MAXIMA ? nsub : 2 * nsub;  // K stages, then V stages
     for (int i = tid; i < G * hk; i += NTHREADS8) ipart[i] = 0;
 
     // ring item i: the K rows (i < nsub, with both rows' scales) or the V
@@ -577,18 +589,24 @@ __global__ void __launch_bounds__(NTHREADS8, MINB8)
     for (int i = 0; i < NST8 - 1; ++i) fetch(i);
     if (t0 == 0) {
       // q quantization (while the first rows are in flight): one scale per
-      // group over all heads
-      for (int g = warp; g < G; g += NWARPS8) {
-        float mx = 0.f;
-        for (int j = lane; j < hk; j += 32)
-          mx = fmaxf(mx, fabsf(to_f(qb[(size_t)g * hk + j])));
-        mx = dl4j::warp_max(mx);
-        if (lane == 0) qsc_s[g] = fmaxf(mx, 1e-8f) / 127.f;
+      // group over all heads, or each lane's from outside
+      if (qsc_in != nullptr) {
+        for (int i = tid; i < gh; i += NTHREADS8)
+          qsc_s[i] = qsc_in[(size_t)b * gh + i];
+      } else {
+        for (int g = warp; g < G; g += NWARPS8) {
+          float mx = 0.f;
+          for (int j = lane; j < hk; j += 32)
+            mx = fmaxf(mx, fabsf(to_f(qb[(size_t)g * hk + j])));
+          mx = dl4j::warp_max(mx);
+          const float sc = fmaxf(mx, 1e-8f) / 127.f;
+          for (int h = lane; h < hkv; h += 32) qsc_s[g * hkv + h] = sc;
+        }
       }
       __syncthreads();
       for (int i = tid; i < G * hk4; i += NTHREADS8) {
         const int g = i / hk4, w = i % hk4;
-        const float sc = qsc_s[g];
+        const float sc = qsc_s[g * hkv + (4 * w) / kd];
         unsigned word = 0;
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
@@ -658,8 +676,14 @@ __global__ void __launch_bounds__(NTHREADS8, MINB8)
         float m = 0.f;
 #pragma unroll
         for (int j = 0; j < CL8; ++j) m = fmaxf(m, pms[j]);
-        psc = fmaxf(m, 1e-30f) / 127.f;
-        if (tid < gh) {
+        if (MAXIMA) {
+          if (rank == 0 && tid == 0) pmax[(size_t)b * n_t + t0 / block_t] = m;
+        } else if (psc_in != nullptr) {
+          psc = psc_in[(size_t)b * n_t + t0 / block_t];
+        } else {
+          psc = fmaxf(m, 1e-30f) / 127.f;
+        }
+        if (!MAXIMA && tid < gh) {
           float lss[CL8];
 #pragma unroll
           for (int j = 0; j < CL8; ++j)
@@ -697,7 +721,7 @@ __global__ void __launch_bounds__(NTHREADS8, MINB8)
               dot = __dp4a(krow[w], qg[w], dot);
               if (++w == kd4) w = 0;
             }
-            e[g * hkv + h] = (float)dot * ksc * qsc_s[g];
+            e[g * hkv + h] = (float)dot * ksc * qsc_s[g * hkv + h];
           }
           if (h == 0) e[gh] = sc[2 * r + 1];  // vsc of the row
         }
@@ -737,8 +761,8 @@ __global__ void __launch_bounds__(NTHREADS8, MINB8)
 
     // -- exchange 3: the int32 partials (exact in any order); this block
     // updates its slice of acc
-    cluster.sync();
-    for (int i = e0 + tid; i < e1; i += NTHREADS8) {
+    if (!MAXIMA) cluster.sync();
+    for (int i = e0 + tid; !MAXIMA && i < e1; i += NTHREADS8) {
       int is[CL8];
 #pragma unroll
       for (int j = 0; j < CL8; ++j) is[j] = cluster.map_shared_rank(ipart, j)[i];
@@ -752,6 +776,14 @@ __global__ void __launch_bounds__(NTHREADS8, MINB8)
     cluster.sync();  // partials and maxima stay alive until all have read
   }
 
+  if (MAXIMA) {
+    // tiles past pos[b] are never read: their maximum is 0
+    if (rank == 0)
+      for (int ti = tid + (max(n, 0) + block_t - 1) / block_t; ti < n_t;
+           ti += NTHREADS8)
+        pmax[(size_t)b * n_t + ti] = 0.f;
+    return;
+  }
   for (int i = e0 + tid; i < e1; i += NTHREADS8) {
     const int ln = (i / hk) * hkv + (i % hk) / kd;
     const float l = fmaxf(l_s[ln], 1e-30f);
@@ -759,47 +791,68 @@ __global__ void __launch_bounds__(NTHREADS8, MINB8)
   }
 }
 
-template <typename TQ, bool PAGED>
+// the scales from outside and the maxima pass's output (all null: the
+// reference's function over this launch's lanes)
+struct Int8Outside {
+  const float* qsc;  // (B, G*hkv) or null
+  const float* psc;  // (B, n_t) or null
+  float* pmax;       // MAXIMA: (B, n_t)
+};
+
+template <typename TQ, bool PAGED, bool MAXIMA>
 cudaError_t launch_int8(const void* q, const void* cache, const float* scales,
                         const int* pos, float* scr, void* out,
-                        const RowMap& map, int B, int G, int hkv, int kd,
-                        int layer, float scale, int block_t,
+                        const Int8Outside& x, const RowMap& map, int B, int G,
+                        int hkv, int kd, int layer, float scale, int block_t,
                         cudaStream_t stream) {
   const Int8Layout L =
       int8_layout(G, hkv, kd, block_t, map.t, PAGED ? map.bps : 0);
   const int gran = granule(cache, (size_t)hkv * kd, (size_t)hkv * kd);
-  return launch_cluster(flash_decode_int8_cluster_kernel<TQ, PAGED>,
+  const int n_t = (map.t + block_t - 1) / block_t;
+  return launch_cluster(flash_decode_int8_cluster_kernel<TQ, PAGED, MAXIMA>,
                         dim3(CL8, B), NTHREADS8, L.total, CL8, stream,
                         static_cast<const TQ*>(q),
                         static_cast<const int8_t*>(cache), scales, pos, scr,
-                        static_cast<TQ*>(out), map, G, hkv, kd, layer, scale,
-                        block_t, gran);
+                        static_cast<TQ*>(out), x.qsc, x.psc, x.pmax, map, G,
+                        hkv, kd, layer, scale, block_t, n_t, gran);
+}
+
+template <bool PAGED, bool MAXIMA>
+int dispatch_int8(const void* q, const void* cache, const void* scales,
+                  const int* pos, void* scratch, void* out,
+                  const Int8Outside& x, const RowMap& map, int B, int G,
+                  int hkv, int kd, int layer, float scale, int block_t,
+                  int dtype, cudaStream_t s) {
+  if (B <= 0 || G <= 0 || hkv <= 0 || kd <= 0 || kd > MAXKD || map.t <= 0 ||
+      kd % 4 || G * hkv > MAXGH || scales == nullptr || block_t <= 0 ||
+      block_t % 8 || (MAXIMA && x.pmax == nullptr) ||
+      (scratch == nullptr && !smem_scores8(G, hkv, block_t, map.t)))
+    return (int)cudaErrorInvalidValue;
+  const float* sc = static_cast<const float*>(scales);
+  float* scr = static_cast<float*>(scratch);
+  if (dtype == dl4j::kF32)
+    return (int)launch_int8<float, PAGED, MAXIMA>(
+        q, cache, sc, pos, scr, out, x, map, B, G, hkv, kd, layer, scale,
+        block_t, s);
+  if (dtype == dl4j::kBF16)
+    return (int)launch_int8<__nv_bfloat16, PAGED, MAXIMA>(
+        q, cache, sc, pos, scr, out, x, map, B, G, hkv, kd, layer, scale,
+        block_t, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 template <bool PAGED>
 int dispatch(const void* q, const void* cache, const void* scales,
-             const int* pos, void* scratch, void* out, const RowMap& map,
-             int B, int G, int hkv, int kd, int layer, float scale,
-             int block_t, int dtype, int int8, cudaStream_t s) {
-  if (B <= 0 || G <= 0 || hkv <= 0 || kd <= 0 || kd > MAXKD || map.t <= 0)
+             const int* pos, void* scratch, void* out, const Int8Outside& x,
+             const RowMap& map, int B, int G, int hkv, int kd, int layer,
+             float scale, int block_t, int dtype, int int8, cudaStream_t s) {
+  if (int8)
+    return dispatch_int8<PAGED, false>(q, cache, scales, pos, scratch, out,
+                                       x, map, B, G, hkv, kd, layer, scale,
+                                       block_t, dtype, s);
+  if (B <= 0 || G <= 0 || hkv <= 0 || kd <= 0 || kd > MAXKD || map.t <= 0 ||
+      x.qsc != nullptr || x.psc != nullptr)
     return (int)cudaErrorInvalidValue;
-  if (int8) {
-    if (kd % 4 || G * hkv > MAXGH || scales == nullptr || block_t <= 0 ||
-        block_t % 8 || (scratch == nullptr && !smem_scores8(G, hkv, block_t,
-                                                             map.t)))
-      return (int)cudaErrorInvalidValue;
-    const float* sc = static_cast<const float*>(scales);
-    float* scr = static_cast<float*>(scratch);
-    if (dtype == dl4j::kF32)
-      return (int)launch_int8<float, PAGED>(q, cache, sc, pos, scr, out, map,
-                                            B, G, hkv, kd, layer, scale,
-                                            block_t, s);
-    if (dtype == dl4j::kBF16)
-      return (int)launch_int8<__nv_bfloat16, PAGED>(
-          q, cache, sc, pos, scr, out, map, B, G, hkv, kd, layer, scale,
-          block_t, s);
-    return (int)cudaErrorInvalidValue;
-  }
   if (dtype == dl4j::kF32)
     return (int)launch<float, PAGED>(q, cache, pos, out, map, B, G, hkv, kd,
                                      layer, scale, s);
@@ -830,18 +883,42 @@ extern "C" int dl4j_flash_decode_int8_scratch(int g, int hkv, int block_t,
 // (n_layers, 2, B, t, 1) f32 and `scratch` (B, t, G*hkv + 1) f32 where
 // dl4j_flash_decode_int8_scratch says so (else null); block_t:
 // the int8 tile (a positive multiple of 8; unused in bf16/f32 mode); pos:
-// (B,) int32 on the device. Returns the launch's error.
+// (B,) int32 on the device. int8 mode may take scales from outside:
+// q_scales (B, G, hkv) f32 and p_scales (B, ceil(t / block_t)) f32, each
+// already divided by 127, or null. Returns the launch's error.
 extern "C" int dl4j_flash_decode(const void* q, const void* cache,
                                  const void* scales, const void* pos,
-                                 void* scratch, void* out, int B, int G,
-                                 int hkv, int kd, int t, int layer,
-                                 int block_t, float scale, int dtype,
-                                 int int8, void* stream) {
+                                 void* scratch, void* out,
+                                 const void* q_scales, const void* p_scales,
+                                 int B, int G, int hkv, int kd, int t,
+                                 int layer, int block_t, float scale,
+                                 int dtype, int int8, void* stream) {
   RowMap map{nullptr, 0, 0, -1, t, (long long)B * t};
+  const Int8Outside x{static_cast<const float*>(q_scales),
+                      static_cast<const float*>(p_scales), nullptr};
   return dispatch<false>(q, cache, scales, static_cast<const int*>(pos),
-                         scratch, out, map, B, G, hkv, kd, layer, scale,
+                         scratch, out, x, map, B, G, hkv, kd, layer, scale,
                          block_t, dtype, int8,
                          static_cast<cudaStream_t>(stream));
+}
+
+// The maxima pass of slab kernel #3's int8 mode: pmax (B, ceil(t /
+// block_t)) f32 gets each tile's max of p * vsc over this launch's lanes
+// (0 past pos[b]), q quantized under q_scales where not null; every other
+// operand as dl4j_flash_decode's.
+extern "C" int dl4j_flash_decode_int8_maxima(
+    const void* q, const void* cache, const void* scales, const void* pos,
+    void* scratch, void* pmax, const void* q_scales, int B, int G, int hkv,
+    int kd, int t, int layer, int block_t, float scale, int dtype,
+    void* stream) {
+  RowMap map{nullptr, 0, 0, -1, t, (long long)B * t};
+  const Int8Outside x{static_cast<const float*>(q_scales), nullptr,
+                      static_cast<float*>(pmax)};
+  return dispatch_int8<false, true>(q, cache, scales,
+                                    static_cast<const int*>(pos), scratch,
+                                    nullptr, x, map, B, G, hkv, kd, layer,
+                                    scale, block_t, dtype,
+                                    static_cast<cudaStream_t>(stream));
 }
 
 // Paged kernel #4. blocks: (n_layers, 2, n_blocks, bs, hkv*kd) (scales:
@@ -860,7 +937,7 @@ extern "C" int dl4j_flash_decode_paged(const void* q, const void* blocks,
   RowMap map{static_cast<const int*>(tables), bps, bs, shift, bps * bs,
              (long long)n_blocks * bs};
   return dispatch<true>(q, blocks, scales, static_cast<const int*>(pos),
-                        scratch, out, map, B, G, hkv, kd, layer, scale,
-                        block_t, dtype, int8,
+                        scratch, out, Int8Outside{}, map, B, G, hkv, kd,
+                        layer, scale, block_t, dtype, int8,
                         static_cast<cudaStream_t>(stream));
 }

@@ -122,8 +122,9 @@ reference's decode from its placed tree), float or int8
 their weights): each data row decodes its prompt rows, each model rank
 projects, caches and attends over its own heads (kernels #1 and #3 per
 rank; with ``decode_int8`` an int8 cache a rank under the row's one
-scale), the row-parallel partial products are summed in rank order and
-the vocab-split logits gathered before the draw. Either axis may span
+scale, and #3 under the row's q and softmax-weight scales), the
+row-parallel partial products are summed in rank order and the
+vocab-split logits gathered before the draw. Either axis may span
 processes (``parallel/mesh.hybrid_mesh``): each process runs its own
 ranks, a model axis across processes goes through the mesh module's
 collectives inside the forward and backward, a leaf the data axis splits
@@ -166,8 +167,11 @@ from deeplearning4j_tpu_torch.ops.fused_ce import (
 )
 from deeplearning4j_tpu_torch.ops.flash_decode import (
     _div127,
+    _pos_vector,
+    default_block_t,
     flash_decode_attention,
     flash_decode_attention_paged,
+    flash_decode_int8_maxima,
 )
 from deeplearning4j_tpu_torch.parallel import mesh as mesh_lib
 from deeplearning4j_tpu_torch.parallel.expert_parallel import (
@@ -2538,7 +2542,10 @@ class _MeshDecode:
     (:func:`_row_values`, as exact-TP serving does). The ranks' parts
     cover every KV head whether the layout splits wkv or keeps it whole
     (a rank's expanded KV holds its query heads' KV heads), so the scale
-    is the single-device cache's, and so are the int8 rows."""
+    is the single-device cache's, and so are the int8 rows. The int8
+    attention over them takes the row's scales too
+    (:meth:`decode_ranks`), so a rank's lanes are the single-device
+    launch's lanes."""
 
     def __init__(self, cfg: TransformerConfig, params):
         leaves = dict(_leaves(params))
@@ -2724,6 +2731,70 @@ class _MeshDecode:
                         self.whole(("lnf_bias",), dev0))
         return self._head(d, x)
 
+    def _lane_groups(self, dev) -> torch.Tensor:
+        """The row's group of each rank's lanes, (tp * grp * kv_r,) on
+        ``dev``: rank m's lane (g, j) is its query head j*grp + g, the
+        row's head m*hs + j*grp + g, in the row's group (that) % G. With
+        wkv whole a rank's one group holds lanes of every group of the
+        row."""
+        key = ("lane groups", torch.device(dev))
+        if key not in self._memo:
+            m, g, j = torch.meshgrid(torch.arange(self.tp),
+                                     torch.arange(self.grp),
+                                     torch.arange(self.kv_r), indexing="ij")
+            g_row = self.cfg.n_heads // self.cfg.kv_heads
+            self._memo[key] = ((m * self.hs + j * self.grp + g) % g_row
+                               ).flatten().to(dev)
+        return self._memo[key]
+
+    def _q_scales(self, qps):
+        """Each rank's (b, grp, kv_r) q scales from outside: the
+        single-device launch's one scale per group over ALL heads, the max
+        of the row's lanes in that group over the ranks (exact in any
+        order), divided by 127 as kernel #3 divides it, on each lane of
+        that group (:meth:`_lane_groups`)."""
+        cfg = self.cfg
+        b, dev0 = qps[0].shape[0], qps[0].device
+        # |q| amax per (rank, b, g, j) lane, exact in q's dtype
+        lanes = (torch.stack([qp.to(dev0) for qp in qps])
+                 .unflatten(-1, (self.kv_r, cfg.head_dim)).abs().amax(-1))
+        # the row's head h = kv*G + g, in order
+        heads = lanes.permute(1, 0, 3, 2).reshape(b, cfg.kv_heads, -1)
+        groups = _div127(heads.amax(1).float().clamp_min(1e-8))  # (b, G)
+        per_lane = (groups.index_select(1, self._lane_groups(dev0))
+                    .view(b, self.tp, self.grp, self.kv_r).transpose(0, 1)
+                    .contiguous())
+        return [s.to(qp.device) for s, qp in zip(per_lane, qps)]
+
+    def decode_ranks(self, caches, layer: int, pos, qps) -> list:
+        """Kernel #3 on each rank of a row at layer ``layer``, ``qps[m]``
+        rank m's packed (b, grp, kv_r*K) queries -> each rank's output.
+        int8: the row's q scales (:meth:`_q_scales`) and its weight scale
+        a tile (the max of the ranks' maxima passes, divided by 127), over
+        the single device's tile (the reference's default for the row's
+        whole Hkv*K: a rank's narrower cache would default to fewer,
+        longer tiles), so each rank's lanes are the single-device
+        launch's."""
+        kv, sc = _kv_planes(caches)
+        if sc is None:
+            return [flash_decode_attention(qp, kv[m], pos, self.kv_r,
+                                           layer=layer)
+                    for m, qp in enumerate(qps)]
+        b, dev0 = qps[0].shape[0], qps[0].device
+        bt = default_block_t(kv[0].shape[3],
+                             self.cfg.kv_heads * self.cfg.head_dim, 1)
+        # one position vector for the row's launches
+        p = _pos_vector(pos, b, dev0)
+        q_scales = self._q_scales(qps)
+        pmax = torch.stack([flash_decode_int8_maxima(
+            qp, kv[m], p, self.kv_r, layer, bt, sc[m], q_scales[m]
+        ).to(dev0) for m, qp in enumerate(qps)]).amax(0)
+        p_scales = _div127(pmax.clamp_min(1e-30))
+        return [flash_decode_attention(qp, kv[m], p, self.kv_r, layer, bt,
+                                       sc[m], q_scales[m],
+                                       p_scales.to(qp.device))
+                for m, qp in enumerate(qps)]
+
     def step(self, d: int, caches, token, *, pos: int):
         """Row d's tokens (b,) at position ``pos`` through every layer
         against the ranks' caches (written in place) -> logits (b, V)."""
@@ -2737,24 +2808,19 @@ class _MeshDecode:
 
         def attend(i, heads):
             self._write(caches, i, int(pos), heads)
-            outs = {}
-            for m, (q, _, _) in enumerate(heads):
-                cache = _rank(caches, m)
-                if not cfg.decode_kernel:
-                    outs[d, m] = _chunk_attention(
-                        q, cache, i, pos_t.to(q.device), False, kd, q.dtype)
-                    continue
-                # query head h = kv*G + g: (b, G, kv_r*K), each group
-                # packed head-major, as the single-device decode
-                qp = (q[:, :, 0].reshape(b, self.kv_r, self.grp, kd)
-                      .transpose(1, 2).reshape(b, self.grp, -1)
-                      .contiguous())
-                kv_buf, sc_buf = _kv_planes(cache)
-                o = flash_decode_attention(qp, kv_buf, int(pos), self.kv_r,
-                                           layer=i, kv_scales=sc_buf)
-                outs[d, m] = (o.reshape(b, self.grp, self.kv_r, kd)
-                              .transpose(1, 2).reshape(b, 1, -1))
-            return outs
+            if not cfg.decode_kernel:
+                return {(d, m): _chunk_attention(
+                    q, _rank(caches, m), i, pos_t.to(q.device), False, kd,
+                    q.dtype) for m, (q, _, _) in enumerate(heads)}
+            # query head h = kv*G + g: (b, G, kv_r*K), each group packed
+            # head-major, as the single-device decode
+            qps = [q[:, :, 0].reshape(b, self.kv_r, self.grp, kd)
+                   .transpose(1, 2).reshape(b, self.grp, -1).contiguous()
+                   for q, _, _ in heads]
+            outs = self.decode_ranks(caches, i, int(pos), qps)
+            return {(d, m): o.reshape(b, self.grp, self.kv_r, kd)
+                    .transpose(1, 2).reshape(b, 1, -1)
+                    for m, o in enumerate(outs)}
 
         return self._layers(d, x[:, None], pos_t, attend)
 

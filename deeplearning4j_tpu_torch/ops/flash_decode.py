@@ -28,6 +28,16 @@ every head and row of a tile). Split boundaries depend on ``pos[b]`` and
 the paged kernel over a pool is bitwise the slab kernel over the gathered
 slab.
 
+int8 mode can take its two scales from outside (the slab kernel only):
+``q_scales`` for each (group, KV head) lane and ``p_scales`` for each
+(batch row, tile), both already divided by 127. A launch over some of a
+row's heads (a mesh rank's, ``models/transformer._MeshDecode``) then
+computes the whole row's function on its lanes: the caller takes the
+q scale's maximum over the row's lanes, and the weight scale's from each
+launch's maxima pass (:func:`flash_decode_int8_maxima`, the same body up to
+each tile's max of p * vsc, K side only). Without them the function is
+unchanged.
+
 The tile is part of the function in int8 mode (one softmax-weight scale per
 tile). Its default is the reference's (:func:`default_block_t`, a copy of
 ``pallas_kernels.py:682-712``): at GPT-2-small's width one tile over the
@@ -50,10 +60,11 @@ import torch
 from deeplearning4j_tpu_torch.ops import _build, _leaf
 
 #: launches since the last reset, counted where each kernel launches:
-#: kernel #3 in bf16/f32 mode, kernel #3 in int8 mode, kernel #4 (both
-#: modes)
+#: kernel #3 in bf16/f32 mode, kernel #3 in int8 mode (scales from outside
+#: or not), its int8 maxima pass, kernel #4 (both modes)
 launches = 0
 int8_launches = 0
+maxima_launches = 0
 paged_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -63,8 +74,8 @@ _MAX_INT8_LANES = 64
 
 
 def reset_launches() -> None:
-    global launches, int8_launches, paged_launches
-    launches = int8_launches = paged_launches = 0
+    global launches, int8_launches, maxima_launches, paged_launches
+    launches = int8_launches = maxima_launches = paged_launches = 0
 
 
 def _pos_vector(pos, b: int, device) -> torch.Tensor:
@@ -116,28 +127,45 @@ def _quant8(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(x), -127, 127)
 
 
+#: the divisor 127 as a 0-d tensor on each device
+_N127: dict = {}
+
+
 def _div127(x: torch.Tensor) -> torch.Tensor:
     """x / 127 rounded as one IEEE division, on every device. On CUDA,
-    PyTorch divides by a Python number by multiplying with its reciprocal,
-    which is off in the last bit for some x; the scales then quantize q and
-    the softmax weights differently from the kernel (and the reference)."""
-    return x / torch.full((), 127.0, device=x.device)
+    PyTorch divides by a Python number (or a CPU scalar) by multiplying
+    with its reciprocal, which is off in the last bit for some x; the
+    scales then quantize q and the softmax weights differently from the
+    kernel (and the reference). The divisor is made once a device (not
+    kept when made inside a CUDA graph's capture, where its fill only
+    runs on replay)."""
+    n = _N127.get(x.device)
+    if n is None:
+        n = torch.full((), 127.0, device=x.device)
+        if not (x.is_cuda and torch.cuda.is_current_stream_capturing()):
+            _N127[x.device] = n
+    return x / n
 
 
 def _plain_int8(q, kv8, scales, p, n_kv_heads: int, layer: int,
-                block_t: int) -> torch.Tensor:
+                block_t: int, q_scales=None, p_scales=None,
+                maxima: bool = False) -> torch.Tensor:
     """The reference's quantized arithmetic (pallas_kernels.py:576-642),
     tile by tile. Integer dot products are exact (summed in f64, cast to
-    f32 as the reference casts its int32 sums)."""
+    f32 as the reference casts its int32 sums). ``q_scales`` (B, G, Hkv)
+    and ``p_scales`` (B, n_t) replace the two scales; ``maxima`` returns
+    each tile's max of p * vsc (B, n_t) instead of the output."""
     b, g, hk = q.shape
     t = kv8.shape[3]
     kd = hk // n_kv_heads
     scale = torch.tensor(1.0 / math.sqrt(kd), dtype=torch.float32)
-    qf = q.float()
-    # one q scale per group over ALL heads
-    qsc = _div127(qf.abs().amax(-1, keepdim=True).clamp_min(1e-8))
-    qi = _quant8(qf / qsc).reshape(b, g, n_kv_heads, kd).double()
-    qsc = qsc[..., None]  # (B, G, 1, 1)
+    qf = q.float().reshape(b, g, n_kv_heads, kd)
+    if q_scales is None:
+        # one q scale per group over ALL heads
+        q_scales = _div127(qf.abs().amax((2, 3)).clamp_min(1e-8))[
+            ..., None].expand(b, g, n_kv_heads)
+    qsc = q_scales[..., None]  # (B, G, Hkv, 1)
+    qi = _quant8(qf / qsc).double()
     k8 = kv8[layer, 0].reshape(b, t, n_kv_heads, kd)
     v8 = kv8[layer, 1].reshape(b, t, n_kv_heads, kd)
     ksc = scales[layer, 0, :, :, 0] * scale  # (B, T): ksc * scale
@@ -146,6 +174,7 @@ def _plain_int8(q, kv8, scales, p, n_kv_heads: int, layer: int,
     l = torch.zeros((b, g, n_kv_heads), device=q.device)
     acc = torch.zeros((b, g, n_kv_heads, kd), device=q.device)
     rows = torch.arange(t, device=q.device)
+    tile_max = []
     for t0 in range(0, t, block_t):
         t1 = min(t0 + block_t, t)
         dots = torch.einsum("bghk,bthk->bght", qi,
@@ -160,17 +189,27 @@ def _plain_int8(q, kv8, scales, p, n_kv_heads: int, layer: int,
         # one softmax-weight scale per (batch row, tile) over every row
         # and every (g, h) lane
         pv = pr * vsc[:, None, None, t0:t1]
-        psc = _div127(pv.amax(dim=(1, 2, 3)).clamp_min(1e-30))[
-            :, None, None, None]
+        # tiles past pos[b] are never read
+        live = (t0 <= p)[:, None, None]
+        pmax = pv.amax(dim=(1, 2, 3))
+        if maxima:
+            tile_max.append(pmax)
+            m = torch.where(live, m_new, m)
+            continue
+        if p_scales is None:
+            psc = _div127(pmax.clamp_min(1e-30))
+        else:
+            psc = p_scales[:, t0 // block_t]
+        psc = psc[:, None, None, None]
         p8 = _quant8(pv / psc)
         o = torch.einsum("bght,bthk->bghk", p8.double(),
                          v8[:, t0:t1].double()).float()
         acc_new = acc * corr[..., None] + o * psc
-        # tiles past pos[b] are never read
-        live = (t0 <= p)[:, None, None]
         m = torch.where(live, m_new, m)
         l = torch.where(live, l_new, l)
         acc = torch.where(live[..., None], acc_new, acc)
+    if maxima:
+        return torch.stack(tile_max, 1)
     o = acc / l.clamp_min(1e-30)[..., None]
     return o.reshape(b, g, hk).to(q.dtype)
 
@@ -178,7 +217,9 @@ def _plain_int8(q, kv8, scales, p, n_kv_heads: int, layer: int,
 def flash_decode_attention_plain(q: torch.Tensor, kvcache: torch.Tensor,
                                  pos, n_kv_heads: int, layer: int = 0,
                                  block_t: int | None = None,
-                                 kv_scales: torch.Tensor | None = None
+                                 kv_scales: torch.Tensor | None = None,
+                                 q_scales: torch.Tensor | None = None,
+                                 p_scales: torch.Tensor | None = None
                                  ) -> torch.Tensor:
     """Plain version of kernel #3, same signature and layouts: q
     (B, G, Hkv*K), kvcache (n_layers, 2, B, T, Hkv*K), pos scalar or (B,)
@@ -190,14 +231,17 @@ def flash_decode_attention_plain(q: torch.Tensor, kvcache: torch.Tensor,
     f32 accumulation (``block_t`` changes nothing here). int8 mode
     (``kv_scales`` (n_layers, 2, B, T, 1) f32 beside an int8 cache): the
     reference's quantized online softmax over ``block_t``-row tiles, by
-    default :func:`default_block_t` of this cache."""
+    default :func:`default_block_t` of this cache, under the scales from
+    outside where given (``q_scales`` (B, G, Hkv), ``p_scales`` (B, n_t)
+    f32, already divided by 127)."""
     b, g, hk = q.shape
     t = kvcache.shape[3]
     kd = hk // n_kv_heads
     bt = _tile(block_t, kvcache, t, kv_scales is not None)
     p = _pos_vector(pos, b, q.device).long()
     if kv_scales is not None:
-        return _plain_int8(q, kvcache, kv_scales, p, n_kv_heads, layer, bt)
+        return _plain_int8(q, kvcache, kv_scales, p, n_kv_heads, layer, bt,
+                           q_scales, p_scales)
     k = kvcache[layer, 0].reshape(b, t, n_kv_heads, kd).float()
     v = kvcache[layer, 1].reshape(b, t, n_kv_heads, kd)
     qh = q.reshape(b, g, n_kv_heads, kd).float()
@@ -211,6 +255,22 @@ def flash_decode_attention_plain(q: torch.Tensor, kvcache: torch.Tensor,
     o = torch.einsum("bght,bthk->bghk", w.to(v.dtype).float(), v.float())
     o = o / l.clamp_min(1e-30)
     return o.reshape(b, g, hk).to(q.dtype)
+
+
+def flash_decode_int8_maxima_plain(q: torch.Tensor, kvcache: torch.Tensor,
+                                   pos, n_kv_heads: int, layer: int,
+                                   block_t: int | None,
+                                   kv_scales: torch.Tensor,
+                                   q_scales: torch.Tensor | None = None
+                                   ) -> torch.Tensor:
+    """Plain version of int8 mode's maxima pass: :func:`_plain_int8` up to
+    each tile's p * vsc, then its max over the tile's rows and every (g, h)
+    lane -> (B, n_t) f32 (0 for a tile past pos[b])."""
+    b = q.shape[0]
+    bt = _tile(block_t, kvcache, kvcache.shape[3], True)
+    p = _pos_vector(pos, b, q.device).long()
+    return _plain_int8(q, kvcache, kv_scales, p, n_kv_heads, layer, bt,
+                       q_scales, maxima=True)
 
 
 def _gather_rows(x: torch.Tensor, tables: torch.Tensor, layer: int):
@@ -291,12 +351,38 @@ def _check_store(q, store, scales, what: str) -> None:
         raise ValueError(f"{what} needs a contiguous q")
 
 
-def _kernel(name: str, n_ptrs: int, n_ints: int):
+def _check_outside(q, store, n_kv_heads: int, block_t, kv_scales, q_scales,
+                   p_scales, what: str) -> None:
+    """The scales from outside: int8 mode only; q_scales (B, G, Hkv) and
+    p_scales (B, n_t) f32, contiguous, on q's device."""
+    if q_scales is None and p_scales is None:
+        return
+    if kv_scales is None:
+        raise ValueError(f"{what}: scales from outside need int8 mode "
+                         f"(kv_scales)")
+    b, g, _ = q.shape
+    t = store.shape[3]
+    n_t = -(-t // _tile(block_t, store, t, True))
+    for name, x, shape in (("q_scales", q_scales, (b, g, n_kv_heads)),
+                           ("p_scales", p_scales, (b, n_t))):
+        if x is None:
+            continue
+        if (tuple(x.shape) != shape or x.dtype != torch.float32
+                or x.device != q.device or not x.is_contiguous()):
+            raise ValueError(f"{what} needs {name} {shape} contiguous f32 on "
+                             f"{q.device}, got {tuple(x.shape)} {x.dtype} "
+                             f"on {x.device}")
+
+
+def _kernel(name: str, n_ptrs: int, n_ints: int, n_flags: int = 2):
+    """The library's entry ``name``: pointers, ints, the f32 scale, then
+    ``n_flags`` ints (dtype, and the int8 switch) and the stream."""
     lib = _build.library("flash_decode")
     fn = getattr(lib, name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+                       + [ctypes.c_float] + [ctypes.c_int] * n_flags
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib, fn
 
@@ -335,31 +421,38 @@ def _scratch(q, n_kv_heads: int, t: int, block_t: int, int8: bool, store):
                        device=q.device)
 
 
-def _launch(q, kvcache, pos, n_kv_heads, layer, block_t=None,
-            kv_scales=None):
-    global launches, int8_launches
-    what = "flash_decode_attention"
+def _check_slab(q, kvcache, n_kv_heads, layer, kv_scales, what: str) -> None:
     _check_common(q, n_kv_heads, kv_scales, what)
     _check_store(q, kvcache, kv_scales, what)
-    b, g, hk = q.shape
-    if kvcache.shape[2] != b:
+    if kvcache.shape[2] != q.shape[0]:
         raise ValueError(f"{what}: cache batch {kvcache.shape[2]} != q batch "
-                         f"{b}")
+                         f"{q.shape[0]}")
     if not 0 <= layer < kvcache.shape[0]:
         raise ValueError(f"layer {layer} outside the {kvcache.shape[0]}-layer "
                          f"cache")
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
+def _launch(q, kvcache, pos, n_kv_heads, layer, block_t=None,
+            kv_scales=None, q_scales=None, p_scales=None):
+    global launches, int8_launches
+    what = "flash_decode_attention"
+    _check_slab(q, kvcache, n_kv_heads, layer, kv_scales, what)
+    b, g, hk = q.shape
     int8 = kv_scales is not None
     t = kvcache.shape[3]
     bt = _tile(block_t, kvcache, t, int8)
-    lib, fn = _kernel("dl4j_flash_decode", 6, 7)
+    lib, fn = _kernel("dl4j_flash_decode", 8, 7)
     kd = hk // n_kv_heads
     p = _pos_vector(pos, b, q.device)
     scr = _scratch(q, n_kv_heads, t, bt, int8, kvcache)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), kvcache.data_ptr(),
-             kv_scales.data_ptr() if int8 else None, p.data_ptr(),
-             None if scr is None else scr.data_ptr(), out.data_ptr(), b, g,
+    err = fn(q.data_ptr(), kvcache.data_ptr(), _ptr(kv_scales), p.data_ptr(),
+             _ptr(scr), out.data_ptr(), _ptr(q_scales), _ptr(p_scales), b, g,
              n_kv_heads, kd, t, layer, bt, 1.0 / math.sqrt(kd),
              _DTYPES[q.dtype], int(int8), stream)
     _build.check(lib, err, what)
@@ -367,6 +460,29 @@ def _launch(q, kvcache, pos, n_kv_heads, layer, block_t=None,
         int8_launches += 1
     else:
         launches += 1
+    return out
+
+
+def _launch_maxima(q, kvcache, pos, n_kv_heads, layer, block_t, kv_scales,
+                   q_scales=None):
+    global maxima_launches
+    what = "flash_decode_int8_maxima"
+    _check_slab(q, kvcache, n_kv_heads, layer, kv_scales, what)
+    b, g, hk = q.shape
+    t = kvcache.shape[3]
+    bt = _tile(block_t, kvcache, t, True)
+    lib, fn = _kernel("dl4j_flash_decode_int8_maxima", 7, 7, n_flags=1)
+    kd = hk // n_kv_heads
+    p = _pos_vector(pos, b, q.device)
+    scr = _scratch(q, n_kv_heads, t, bt, True, kvcache)
+    out = torch.empty((b, -(-t // bt)), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(q.data_ptr(), kvcache.data_ptr(), kv_scales.data_ptr(),
+             p.data_ptr(), _ptr(scr), out.data_ptr(), _ptr(q_scales), b, g,
+             n_kv_heads, kd, t, layer, bt, 1.0 / math.sqrt(kd),
+             _DTYPES[q.dtype], stream)
+    _build.check(lib, err, what)
+    maxima_launches += 1
     return out
 
 
@@ -395,10 +511,8 @@ def _launch_paged(q, blocks, tables, pos, n_kv_heads, layer, block_t=None,
     scr = _scratch(q, n_kv_heads, t, bt, int8, blocks)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), blocks.data_ptr(),
-             block_scales.data_ptr() if int8 else None, tables.data_ptr(),
-             p.data_ptr(), None if scr is None else scr.data_ptr(),
-             out.data_ptr(),
+    err = fn(q.data_ptr(), blocks.data_ptr(), _ptr(block_scales),
+             tables.data_ptr(), p.data_ptr(), _ptr(scr), out.data_ptr(),
              b, g, n_kv_heads, kd, blocks.shape[2], blocks.shape[3],
              tables.shape[1], layer, bt, 1.0 / math.sqrt(kd),
              _DTYPES[q.dtype], int(int8), stream)
@@ -410,23 +524,50 @@ def _launch_paged(q, blocks, tables, pos, n_kv_heads, layer, block_t=None,
 def flash_decode_attention(q: torch.Tensor, kvcache: torch.Tensor, pos,
                            n_kv_heads: int, layer: int = 0,
                            block_t: int | None = None,
-                           kv_scales: torch.Tensor | None = None
+                           kv_scales: torch.Tensor | None = None,
+                           q_scales: torch.Tensor | None = None,
+                           p_scales: torch.Tensor | None = None
                            ) -> torch.Tensor:
     """One decode step of causal attention against the packed stacked
     cache (the reference's public layouts; see the module doc). ``pos`` is
     an int, a 0-d tensor, or a (B,) int tensor of per-row positions;
-    ``kv_scales`` selects int8 mode."""
+    ``kv_scales`` selects int8 mode, which takes the q scales (B, G, Hkv)
+    and the weight scales (B, n_t) from outside where given."""
+    args = (q, kvcache, pos, n_kv_heads, layer, block_t, kv_scales,
+            q_scales, p_scales)
+    _check_outside(q, kvcache, n_kv_heads, block_t, kv_scales, q_scales,
+                   p_scales, "flash_decode_attention")
     hook = _leaf.HOOK
     if hook is not None:
-        return hook("flash_decode", flash_decode_attention_plain, q, kvcache,
-                    pos, n_kv_heads, layer, block_t, kv_scales)
+        return hook("flash_decode", flash_decode_attention_plain, *args)
     if q.device.type == "cpu":
-        return flash_decode_attention_plain(q, kvcache, pos, n_kv_heads,
-                                            layer, block_t, kv_scales)
+        return flash_decode_attention_plain(*args)
     if q.device.type == "cuda":
-        return _launch(q, kvcache, pos, n_kv_heads, layer, block_t,
-                       kv_scales)
+        return _launch(*args)
     raise ValueError(f"flash_decode_attention: unsupported device {q.device}")
+
+
+def flash_decode_int8_maxima(q: torch.Tensor, kvcache: torch.Tensor, pos,
+                             n_kv_heads: int, layer: int,
+                             block_t: int | None, kv_scales: torch.Tensor,
+                             q_scales: torch.Tensor | None = None
+                             ) -> torch.Tensor:
+    """int8 mode's maxima pass over the same operands as
+    :func:`flash_decode_attention` (``q_scales`` from outside where given):
+    (B, n_t) f32, each tile's max of p * vsc over this launch's rows and
+    lanes, before the clamp and the division by 127 (0 for a tile past
+    pos[b])."""
+    what = "flash_decode_int8_maxima"
+    if kv_scales is None:
+        raise ValueError(f"{what} needs kv_scales (int8 mode)")
+    _check_outside(q, kvcache, n_kv_heads, block_t, kv_scales, q_scales,
+                   None, what)
+    args = (q, kvcache, pos, n_kv_heads, layer, block_t, kv_scales, q_scales)
+    if q.device.type == "cpu":
+        return flash_decode_int8_maxima_plain(*args)
+    if q.device.type == "cuda":
+        return _launch_maxima(*args)
+    raise ValueError(f"{what}: unsupported device {q.device}")
 
 
 def flash_decode_attention_paged(q: torch.Tensor, blocks: torch.Tensor,

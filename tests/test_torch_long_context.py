@@ -13,7 +13,10 @@ inputs and weights:
   reference's ``_flash_blocks`` geometry;
 - kernel #3's int8 plain version at the long-context serving width (Hkv*K
   256, G 3) over Tpad 8,704 and its two-tile default against the
-  reference's Pallas kernel (interpret mode);
+  reference's Pallas kernel (interpret mode), and where the one lane that
+  parts from it at a rounding tie comes from: not the scale divisions,
+  which the reference's compiled body takes as reciprocal products, but
+  XLA's fused exp;
 - a small GQA + RoPE model (2 layers, 6 query heads over 2 KV heads,
   max_len 2,200): greedy ``transformer_generate`` from a 2,048-token
   prompt against the reference's, and the serving engine with that prompt
@@ -352,6 +355,116 @@ def test_int8_plain_two_tile_default_matches_reference(pk, pos):
         assert err[lane].max() <= INT8_TIE_ATOL
         err[lane] = 0.0
     assert err.max() <= INT8_ATOL
+
+
+#: the tied weight: row 3,956 of the first tile, lane (2, 0), at position
+#: 4,351
+TIE_POS, TIE_ROW = 4351, 3956
+
+
+def _ref_int8_long(pk):
+    """The reference's int8 decode at the long-context shape, its default
+    tile, interpret mode."""
+    def ref(q, kv, p, scales):
+        return pk.flash_decode_attention(q, kv, p, LONG_HKV, interpret=True,
+                                         kv_scales=scales)
+    return ref
+
+
+@pytest.mark.parametrize("pos", [4351, 4352, 8447])
+def test_int8_tie_reference_eager_is_jitted(pk, pos):
+    """The reference's int8 decode body runs compiled whether it is called
+    eagerly or under ``jax.jit`` (interpret mode lowers it through XLA):
+    the two calls give the same bits."""
+    import jax
+    import jax.numpy as jnp
+
+    q, kv, scales = _int8_long(pos)
+    args = [jnp.asarray(x) for x in (q, kv, np.array([pos], np.int32),
+                                     scales)]
+    ref = _ref_int8_long(pk)
+    assert np.array_equal(np.asarray(ref(*args)),
+                          np.asarray(jax.jit(ref)(*args)))
+
+
+def test_int8_tie_reference_takes_scales_as_reciprocal_products(pk):
+    """XLA's optimized body takes both scales, q's and the softmax
+    weights', as max * f32(1/127), a multiplication by the reciprocal."""
+    import re
+
+    import jax
+    import jax.numpy as jnp
+
+    q, kv, scales = _int8_long(0)
+    hlo = jax.jit(_ref_int8_long(pk)).lower(
+        jnp.asarray(q), jnp.asarray(kv), jnp.zeros(1, jnp.int32),
+        jnp.asarray(scales)).compile().as_text()
+    assert "0.00787401572" in hlo
+    assert len(re.findall(r"multiply\(%max[.\d]*, %constant[.\d]*\)",
+                          hlo)) == 2
+
+
+@pytest.mark.parametrize("pos", [4351, 4352, 8447])
+def test_int8_tie_reciprocal_scales_change_no_bit(monkeypatch, pos):
+    """The port's plain int8 decode with its two scales as x * f32(1/127),
+    the reference's compiled form, is bitwise the port's IEEE division
+    (``_div127``): the division does not decide the tie, and
+    :data:`INT8_TIE_LANES` stays."""
+    q, kv, scales = (torch.from_numpy(x) for x in _int8_long(pos))
+    p = torch.tensor([pos])
+    div = fd.flash_decode_attention(q, kv, p, LONG_HKV, kv_scales=scales)
+    r127 = torch.tensor(np.float32(1 / 127))
+    monkeypatch.setattr(fd, "_div127", lambda x: x * r127)
+    mul = fd.flash_decode_attention(q, kv, p, LONG_HKV, kv_scales=scales)
+    assert torch.equal(mul, div)
+
+
+def test_int8_tie_is_decided_by_xlas_fused_exp():
+    """At position 4,351 the first tile's largest p * vsc sits where
+    s - m is 0 in PyTorch and -1.02e-7 in XLA's fusion of the scores with
+    the max and exp (the kernel body's fusion), so XLA's psc is one ulp
+    lower and the tied weight's p * vsc / psc exactly 1.5 (rounded to 2),
+    where the port's is 1.4999999 (rounded to 1)."""
+    import math
+
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    tile = fd.default_block_t(LONG_TPAD, LONG_HKV * LONG_KD, 1)
+    q, kv, sc = (torch.from_numpy(x) for x in _int8_long(TIE_POS))
+    qf = q.float()
+    qsc = fd._div127(qf.abs().amax(-1, keepdim=True).clamp_min(1e-8))
+    qi = fd._quant8(qf / qsc).reshape(1, LONG_G, LONG_HKV, LONG_KD).double()
+    k8 = kv[0, 0].reshape(1, LONG_TPAD, LONG_HKV, LONG_KD)[:, :tile]
+    ksc = sc[0, 0, :, :tile, 0] * torch.tensor(1 / math.sqrt(LONG_KD),
+                                               dtype=torch.float32)
+    vsc = sc[0, 1, 0, :tile, 0].numpy()[:, None]
+    dots = torch.einsum("bghk,bthk->bght", qi, k8.double())
+    s = (dots.float() * ksc[:, None, None, :] * qsc[..., None])[0]
+    p_torch = torch.exp(s - s.amax(-1, keepdim=True)).permute(2, 0, 1) \
+        .reshape(tile, -1).numpy()
+    lanes = LONG_G * LONG_HKV
+    d_i = dots[0].permute(2, 0, 1).reshape(tile, lanes).numpy()
+
+    @jax.jit
+    def fused(d, ksc, qmax):
+        lane = jnp.repeat(jnp.maximum(qmax, 1e-8) / 127.0, LONG_HKV)
+        s = d.astype(jnp.float32) * (ksc * (1.0 / LONG_KD ** 0.5)) * lane
+        s = jnp.where(jnp.arange(tile)[:, None] > TIE_POS, -jnp.inf, s)
+        return jnp.exp(s - jnp.max(s, axis=0, keepdims=True))
+
+    p_xla = np.asarray(fused(jnp.asarray(d_i.astype(np.int32)),
+                             jnp.asarray(sc[0, 0, 0, :tile].numpy()),
+                             jnp.asarray(qf.abs().amax(-1)[0].numpy())))
+    lane = INT8_TIE_LANES[TIE_POS][0] * LONG_HKV + INT8_TIE_LANES[TIE_POS][1]
+    tied = {}
+    for name, pr in (("xla", p_xla), ("torch", p_torch)):
+        pv = pr * vsc
+        psc = np.float32(np.float32(pv.max()) / np.float32(127))
+        tied[name] = np.float32(pv[TIE_ROW, lane] / psc)
+    assert tied["xla"] == np.float32(1.5)
+    assert tied["torch"] == np.nextafter(np.float32(1.5), np.float32(0))
+    assert np.rint(tied["xla"]) == 2 and np.rint(tied["torch"]) == 1
 
 
 @pytest.mark.cuda

@@ -449,9 +449,9 @@ def test_mesh_and_moe_follow_the_rules(monkeypatch, capsys):
 def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
     """A CUDA tensor goes to the kernel wrapper, never to the plain version:
     with the wrapper's launch replaced, the dispatcher must call it (the
-    decode kernel in its bf16 and int8 modes, the paged decode kernel, the
-    fused embedding dot in its dense and fused modes, the threefry draw in
-    both of its modes)."""
+    decode kernel in its bf16 and int8 modes and its int8 maxima pass, the
+    paged decode kernel, the fused embedding dot in its dense and fused
+    modes, the threefry draw in both of its modes)."""
     from deeplearning4j_tpu_torch.ops import emb_dot
     from deeplearning4j_tpu_torch.ops import flash_attention as fa
     from deeplearning4j_tpu_torch.ops import flash_decode as fd
@@ -461,7 +461,9 @@ def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
     monkeypatch.setattr(fa, "_launch", lambda *a: calls.append("fa"))
     monkeypatch.setattr(fa, "_launch_bwd", lambda *a: calls.append("fa_bwd"))
     monkeypatch.setattr(fd, "_launch", lambda *a: calls.append(
-        "fd" if a[-1] is None else "fd_int8"))
+        "fd" if a[6] is None else "fd_int8"))
+    monkeypatch.setattr(fd, "_launch_maxima",
+                        lambda *a: calls.append("fd_maxima"))
     monkeypatch.setattr(fd, "_launch_paged", lambda *a: calls.append(
         "fd_paged" if a[-1] is None else "fd_paged_int8"))
     monkeypatch.setattr(emb_dot, "_launch",
@@ -473,6 +475,8 @@ def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
     monkeypatch.setattr(fd, "flash_decode_attention_plain",
                         lambda *a: pytest.fail("plain path on CUDA"))
     monkeypatch.setattr(fd, "flash_decode_attention_paged_plain",
+                        lambda *a: pytest.fail("plain path on CUDA"))
+    monkeypatch.setattr(fd, "flash_decode_int8_maxima_plain",
                         lambda *a: pytest.fail("plain path on CUDA"))
     monkeypatch.setattr(emb_dot, "_launch_hs",
                         lambda *a: calls.append("emb_dot_hs"))
@@ -492,6 +496,8 @@ def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
     with pytest.raises(ValueError, match="unsupported device"):
         fd.flash_decode_attention_paged(q, q, q, 0, 1)
     with pytest.raises(ValueError, match="unsupported device"):
+        fd.flash_decode_int8_maxima(q, q, 0, 1, 0, None, q)
+    with pytest.raises(ValueError, match="unsupported device"):
         emb_dot.fused_embedding_dot(q, q, q)
     with pytest.raises(ValueError, match="unsupported device"):
         emb_dot.fused_hs_rows(q, 0, q, q, q, q, 0.1)
@@ -505,6 +511,7 @@ def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
     fa.flash_attention_bwd(FakeCuda(), None, None, None, None, None, True)
     fd.flash_decode_attention(FakeCuda(), None, 0, 1)
     fd.flash_decode_attention(FakeCuda(), None, 0, 1, kv_scales=object())
+    fd.flash_decode_int8_maxima(FakeCuda(), None, 0, 1, 0, None, object())
     fd.flash_decode_attention_paged(FakeCuda(), None, None, 0, 1)
     fd.flash_decode_attention_paged(FakeCuda(), None, None, 0, 1,
                                     block_scales=object())
@@ -513,9 +520,9 @@ def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
     emb_dot.fused_hs_rows(FakeCuda(), 0, None, None, None, None, 0.1)
     threefry.draw(FakeCuda(), None)
     threefry.categorical(FakeCuda(), None, object())
-    assert calls == ["fa", "fa_bwd", "fd", "fd_int8", "fd_paged",
-                     "fd_paged_int8", "emb_dot", "emb_dot", "emb_dot_hs",
-                     "draw", "draw_rows"]
+    assert calls == ["fa", "fa_bwd", "fd", "fd_int8", "fd_maxima",
+                     "fd_paged", "fd_paged_int8", "emb_dot", "emb_dot",
+                     "emb_dot_hs", "draw", "draw_rows"]
 
 
 def test_chip_smoke_alone_fails(tmp_path):
