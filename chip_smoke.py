@@ -71,7 +71,10 @@ Phases, in order; any failure exits non-zero without printing a result:
    single launch's; over the whole row under q scales that differ
    across every (group, KV head) lane, the maxima pass bitwise plain,
    the full pass within one bf16 step of plain and each lane bitwise its
-   KV head launched alone; both modes timed at rank 0's shape;
+   KV head launched alone; both modes timed at rank 0's shape; and phase
+   22's: #1 at T 512 over BH 48 and 96 (groups of 8 and 16), #3 at B
+   16, G 3, Hkv*K 256 over Tpad 584 (the engine) and 576 (generate), #4
+   at B 16 over bs-8 tables of 73 entries, the draw over 16 rows;
 3. serve the GPT-2-small configuration (random weights from a seed) through
    ``ServingEngine``: about eight greedy requests, some past the 128-token
    prefill bucket, with every kernel's launch count set to 0 just before and
@@ -357,14 +360,14 @@ Phases, in order; any failure exits non-zero without printing a result:
    sentences bitwise; the first sentences' batches (at least 8) on the card
    within 1e-4 of the CPU's from the same tables; (b) GloVe at the
    reference's defaults (D 50, window 5, x_max 100, alpha 0.75, lr 0.05,
-   batches of 4,096) for 2 epochs on the first 2,000 of phase 6's
+   batches of 4,096) for 2 epochs on the first 1,000 of phase 6's
    sentences: the count's seconds, the triples, V, ms a batch, triples/s,
    the loss per epoch
    (falling); the first 8 batches on the card within rel 1e-5 of the CPU's;
    on the first 500 sentences for 1 epoch, two seeded runs bitwise and
    ``fit_distributed`` over 2 ranks (the epoch's loss finite and under the
    first batch's); (c) the RNTN at d 25 with the
-   tensor, batches of 27: the simplified model on 2,000 synthetic 5-class
+   tensor, batches of 27: the simplified model on 1,000 synthetic 5-class
    trees of 8-20 words, the untied one on the bundled treebank relabelled
    by category, each first step on the card within 1e-5 of the CPU's
    (loss rel, gradients of a leaf's max), ms a batch, the loss per epoch
@@ -427,7 +430,26 @@ Phases, in order; any failure exits non-zero without printing a result:
    arrivals every 20 ms on average), slab and paged (bs 8), piggyback
    off and on: streams byte-identical across the four, every paged block
    back, each stream against ``transformer_generate`` (identical or a
-   near-tie), the long prompts' TTFT and the short streams' TPOT p99.
+   near-tie), the long prompts' TTFT and the short streams' TPOT p99;
+   the trace is replayed through ``run_request_trace``.
+22. the serve trace: bench.py's serve row (``_bench_decode_serve``,
+   bench.py:784, at GPT-2-small widths with 6 query heads over 2 KV heads,
+   RoPE, bf16, flash prefill; 48 requests of 512 random prompt tokens and
+   64 new, exponential arrivals of mean 10 ms, 16 slots, a queue of 48)
+   through the port's ``run_request_trace``: (a) greedy at
+   ``time_scale=0``, K 1, K 4 and paged (bs 8): streams byte-identical, 0
+   blocks in use after, each stream against ``transformer_generate``
+   (identical or a near-tie), #1 and #3 (#4 paged) launched; (b) sampled
+   (T 1.0, top-k 40) under bench.py's seeded transient faults (rate 0.02)
+   byte-identical to a clean sampled engine, retries > 0; (c) greedy under
+   seeded crashes: restarts >= 1, (a)'s streams, and with
+   ``max_restarts=0`` the crash propagates; (d) 8 requests into 1 slot
+   behind a queue of 2 all finish; (e) ``run(max_steps=20)`` on the first
+   16 requests returns with the engine not idle and ``run()`` then gives
+   (a)'s streams; (f) (a)'s K
+   1 run writes its metrics as JSONL (the reference's tags, one occupancy
+   record a step, each <= 16); (g) K 1 and K 4 replayed at the trace's
+   own times: generated tok/s, TTFT and TPOT p50/p99, mean occupancy.
 
 The last lines are the kernel table as one JSON object, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -1527,7 +1549,7 @@ DRAW_TIE_ROW, DRAW_TIE = 2, (100, 4000)
 
 
 def _draw_case(r: int, v: int, flat: bool, spec: bool = False,
-               iters: int = 50) -> dict:
+               iters: int = 50, positions: list[int] = DRAW_POS) -> dict:
     """The threefry draw kernel against ``categorical_plain`` on the same
     card tensors: tokens and winning values bitwise. Engine mode (``flat``
     False): R slot keys split from key(s) for s < R, folded with
@@ -1552,7 +1574,7 @@ def _draw_case(r: int, v: int, flat: bool, spec: bool = False,
     else:
         keys = threefry.device_keys(
             [threefry.split(s)[1] for s in range(r)], dev)
-        pos = torch.tensor(DRAW_POS[:r], dtype=torch.int32, device=dev)
+        pos = torch.tensor(positions[:r], dtype=torch.int32, device=dev)
         allowed = torch.tensor(DRAW_ALLOWED, device=dev)
         row = torch.full((v,), float("-inf"), device=dev)
         row[allowed] = logits[DRAW_MASKED_ROW, allowed]
@@ -1581,7 +1603,7 @@ def _draw_case(r: int, v: int, flat: bool, spec: bool = False,
         pos is not None) + 8 * r
     b_ms, b_by = bound(nbytes, DRAW_OPS * r * v, F32_FLOPS)
     what = ("flat, one key" + (" (spec: log(p + 1e-30))" if spec else "")
-            if flat else f"rows, pos {DRAW_POS[:r]}, masked row "
+            if flat else f"rows, pos {positions[:r]}, masked row "
             f"{DRAW_MASKED_ROW}, tie at {DRAW_TIE}")
     log(f"kernel threefry_draw R={r} V={v} {what}: tokens equal {same_tok}, "
         f"values bitwise {same_val} (max_abs_err {err:.3e}), ms {ms:.4f} "
@@ -1604,6 +1626,9 @@ def phase_draw() -> list[dict]:
             _draw_case(1, vocab, flat=True, spec=True),
             # phase 17e's char-LSTM samples over its text's characters
             _draw_case(1, p17_vocab(), flat=True),
+            # phase 22b's sampled engines: 16 slots
+            _draw_case(P22_SLOTS, vocab, flat=False,
+                       positions=DRAW_POS + P22_POS[::2]),
             _draw_case(8, vocab, flat=False)]
 
 
@@ -1670,6 +1695,11 @@ def phase_kernels(w2v_model, w2v_corpus) -> dict[str, dict]:
     # 21c's batched admission of 2 and 4 of its 512-token prompts (4 slots)
     attn += [_attn_case(P21_SHORT, True, bh=6 * nb, iters=20)
              for nb in (2, 4)]
+    # phase 22's admissions of its 512-token prompts in groups of 8 and of
+    # 16 (its 16 slots; one alone is the spec cell's case above, groups of
+    # 2 and 4 21c's)
+    attn += [_attn_case(P22_PROMPT, True, bh=6 * nb, iters=20)
+             for nb in (8, P22_SLOTS)]
     # the reference's own flash gate (bench.py:339), f32 at T 2,048 and
     # 4,096
     gate_rng = np.random.default_rng(0)
@@ -1742,6 +1772,11 @@ def phase_kernels(w2v_model, w2v_corpus) -> dict[str, dict]:
                      [P21_SHORT, p21_short_t - 1] * 10),
         # the paged-parity probe of 21c's engines (B 2, Tpad 32) at G 3
         _decode_case(2, 3, 2, 128, 12, 32, 7, [8, 10]),
+        # phase 22 (G 3 over Hkv*K 256): the engine's 16 slots over Tpad
+        # 584, and generate on 16 of its prompts (Tpad 576)
+        _decode_case(P22_SLOTS, 3, 2, 128, 12, P22_TPAD, 7, P22_POS),
+        _decode_case(P22_SLOTS, 3, 2, 128, 12, P22_PROMPT + P22_NEW, 7,
+                     P22_POS),
         _batch_case(False, pos),
         _decode_case(8, 1, 6, 128, 12, 640, 7, pos),
     ]
@@ -1797,6 +1832,9 @@ def phase_kernels(w2v_model, w2v_corpus) -> dict[str, dict]:
     # 256, Tpad 8,704), both modes
     paged += [_paged_case(int8, BLOCK_SIZE, P21_POS[1:], b=P21_SLOTS, hkv=2,
                           tpad=P21_TPAD, g=3) for int8 in (False, True)]
+    # phase 22's paged engine: 16 slots over bs-8 tables of 73 entries
+    paged.append(_paged_case(False, BLOCK_SIZE, P22_POS, b=P22_SLOTS, hkv=2,
+                             tpad=P22_TPAD, g=3))
     paged += [_paged_case(int8, bs, pos) for bs in (64, 8)
               for int8 in (False, True)]
     code_len = w2v_model.cache.max_code_length
@@ -8078,21 +8116,22 @@ P18_W2V_SENTENCES, P18_W2V_REPEAT_SENTENCES = 500, 250
 #: P18_CPU_BATCHES batches at 2 ranks) and of 18b (the first batches)
 P18_W2V_CPU_SENTENCES = 7
 P18_CPU_BATCHES = 8
-#: 18b: the reference's GloVe defaults, 2 epochs on the first 2,000 of
-#: phase 6's 4,000 sentences (cut from all of them in PR 22, for phase
-#: 21's time); the seeded repeat and the 2-rank fit take 1 epoch on its
-#: first 500 sentences (the phase's time)
+#: 18b: the reference's GloVe defaults, 2 epochs on the first 1,000 of
+#: phase 6's 4,000 sentences (cut to keep the script's time with phases 21
+#: and 22); the seeded repeat and the 2-rank fit take 1 epoch on its first
+#: 500 sentences (the phase's time)
 P18_GLOVE = dict(layer_size=50, window=5, x_max=100.0, alpha=0.75, lr=0.05,
                  batch=4096, epochs=2)
-P18_GLOVE_SENTENCES = 2000
+P18_GLOVE_SENTENCES = 1000
 P18_GLOVE_SUB_SENTENCES = 500
 #: GloVe card vs CPU after the first batches, of each table's largest entry
 P18_GLOVE_RTOL = 1e-5
 #: 18c: the RNTN paper's width with the tensor (Socher et al. 2013) and
-#: CoreNLP's sentiment trainer's batch; 2,000 synthetic 5-class trees of
-#: 8-20 words (the simplified model), the bundled treebank (untied)
+#: CoreNLP's sentiment trainer's batch; 1,000 synthetic 5-class trees of
+#: 8-20 words (the simplified model; cut from 2,000 for the script's
+#: time), the bundled treebank (untied)
 P18_RNTN_DIM, P18_RNTN_BATCH, P18_RNTN_EPOCHS = 25, 27, 2
-P18_RNTN_TREES, P18_RNTN_CLASSES = 2000, 5
+P18_RNTN_TREES, P18_RNTN_CLASSES = 1000, 5
 #: the first step on the card vs the CPU: the loss (rel) and each gradient
 #: leaf (of its largest |g|)
 P18_RNTN_TOL = 1e-5
@@ -9695,13 +9734,17 @@ def p21_requests(vocab: int):
 
 def _p21_serve_run(tag: str, cfg, params, trace, *, paged: bool,
                    piggyback: bool, card: str):
-    """One engine over the trace, requests submitted at their arrival
-    times; returns (streams, launches, TTFT of the long prompts, TPOT p99
-    of the short streams, engine)."""
+    """One engine over the trace through ``run_request_trace``, requests
+    submitted at their arrival times; returns (streams, launches, TTFT of
+    the long prompts, TPOT p99 of the short streams, engine)."""
     import numpy as np
     import torch
 
-    from deeplearning4j_tpu_torch.serving import Request, ServingEngine
+    from deeplearning4j_tpu_torch.serving import (
+        Request,
+        ServingEngine,
+        run_request_trace,
+    )
 
     engine = ServingEngine(
         cfg, params, n_slots=P21_SLOTS,
@@ -9716,16 +9759,8 @@ def _p21_serve_run(tag: str, cfg, params, trace, *, paged: bool,
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
-    i = 0
-    while i < len(reqs) or not engine.idle:
-        now = time.perf_counter() - t0
-        while i < len(reqs) and trace[i][0] <= now:
-            engine.submit(reqs[i])
-            i += 1
-        if engine.idle:
-            time.sleep(max(0.0, trace[i][0] - now))
-            continue
-        engine.step()
+    run_request_trace(engine, [(t, r) for (t, _), r in zip(trace, reqs)],
+                      time_scale=1.0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()
@@ -9835,6 +9870,350 @@ def phase_long_context(card: str) -> dict[str, dict[str, int]]:
     return out
 
 
+# -- phase 22: the serve trace -----------------------------------------------
+
+#: bench.py's serve row (``_bench_decode_serve``, :784, on
+#: ``_decode_bench_cfg(gqa=True)``, :579): GPT-2-small widths, 6 query heads
+#: over 2 KV heads, RoPE, bf16, flash prefill; 48 requests of 512 prompt
+#: tokens from default_rng(0) and 64 new, exponential arrivals of mean 10
+#: ms, 16 slots, a queue of 48, top-k 40 (approx, as the bench asks)
+P22_SLOTS, P22_REQS, P22_PROMPT, P22_NEW = 16, 48, 512, 64
+P22_INTERARRIVAL = 0.01
+#: the engine's largest prefill bucket: at the default 128 a 512-token
+#: prompt goes through four dense chunk windows, at 512 through #1
+P22_BUCKET = 512
+#: (b): bench.py:829-845's faults row, sampled at T 1.0
+P22_FAULT_SEED, P22_TRANSIENT_RATE = 1234, 0.02
+P22_BACKOFF, P22_MAX_BACKOFF = 0.002, 0.05
+#: (c): crashes drawn at rate 0.02 from seed 1 (the 62nd and 94th fault
+#: checks), capped at 2
+P22_CRASH_SEED, P22_CRASH_RATE, P22_CRASH_MAX = 1, 0.02, 2
+#: (d): 8 of the trace's requests flooded into 1 slot behind a queue of 2
+P22_BP_REQS, P22_BP_DEPTH = 8, 2
+#: (e): the steps ``run(max_steps=...)`` stops after, on (a)'s first 16
+#: requests
+P22_MAX_STEPS = 20
+#: the engine's rows a slot: 512 + 64 + 1 positions rounded up to 8
+P22_TPAD = 584
+#: decode positions phase 2 holds #3/#4 at for phase 22's 16 slots: the
+#: first decode position, every 4th after it, the last
+P22_POS = [P22_PROMPT + 4 * i for i in range(15)] + [P22_PROMPT + P22_NEW - 1]
+P22_DEVICE = "cuda"
+P22_DIR = ROOT / ".scratch" / "chip_smoke_phase22"
+
+
+def p22_config():
+    return p21_gqa_config(False, max_len=P22_PROMPT + P22_NEW + 1)
+
+
+def p22_trace(vocab: int):
+    """bench.py:871-875: arrival offsets (s) and prompts, from
+    default_rng(0)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    arrivals = np.cumsum(rng.exponential(P22_INTERARRIVAL, P22_REQS))
+    prompts = rng.integers(0, vocab, (P22_REQS, P22_PROMPT)).astype(np.int32)
+    return arrivals, prompts
+
+
+def _p22_sync() -> None:
+    import torch
+
+    if P22_DEVICE != "cpu":
+        torch.cuda.synchronize()
+
+
+def _p22_engine(cfg, params, *, temperature: float = 0.0, horizon: int = 1,
+                faults=None, paged: bool = False, metrics=None,
+                n_slots: int = P22_SLOTS, depth: int = P22_REQS):
+    """bench.py:877-889's ``make_engine``, with the 512-token bucket."""
+    from deeplearning4j_tpu_torch.serving import (
+        RequestScheduler,
+        ServingEngine,
+    )
+
+    return ServingEngine(
+        cfg, params, n_slots=n_slots, temperature=temperature, top_k=40,
+        approx_top_k=True, decode_horizon=horizon,
+        scheduler=RequestScheduler(max_queue_depth=depth), faults=faults,
+        retry_backoff_s=P22_BACKOFF, max_backoff_s=P22_MAX_BACKOFF,
+        prefill_max_bucket=P22_BUCKET, paged=paged, block_size=BLOCK_SIZE,
+        metrics=metrics, device=P22_DEVICE)
+
+
+def _p22_requests(trace, n: int = P22_REQS):
+    from deeplearning4j_tpu_torch.serving import Request
+
+    arrivals, prompts = trace
+    return [(float(arrivals[i]), Request(prompt=prompts[i], max_new=P22_NEW))
+            for i in range(n)]
+
+
+def _p22_fresh_metrics(engine) -> None:
+    """A warm engine's metrics started over, as bench.py:917-919 does
+    before its timed replay."""
+    from deeplearning4j_tpu_torch.serving import ServingMetrics
+
+    engine.metrics = ServingMetrics()
+    engine.metrics.decode_horizon = engine.decode_horizon
+    engine.metrics.device = engine.device
+
+
+def _p22_replay(tag: str, engine, trace, *, time_scale: float = 0.0,
+                n: int = P22_REQS, **kw):
+    """One ``run_request_trace`` of the trace's first ``n`` requests, every
+    launch count set to 0 just before and read just after; every request
+    must finish with its 64 tokens. Returns (streams, launches, wall s)."""
+    from deeplearning4j_tpu_torch.serving import run_request_trace
+
+    reqs = _p22_requests(trace, n)
+    _p22_sync()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = run_request_trace(engine, reqs, time_scale=time_scale, **kw)
+    _p22_sync()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    for _, r in reqs:
+        out = res[r.id]
+        _must(tag, r.status.value == "finished"
+              and out.shape == (P22_PROMPT + P22_NEW,),
+              f"request {r.id} came back {r.status}, {out.shape}")
+    return [res[r.id] for _, r in reqs], launches, wall
+
+
+def _p22_same(tag: str, got, want, what: str) -> None:
+    import numpy as np
+
+    same = [np.array_equal(a, b) for a, b in zip(got, want)]
+    _must(tag, all(same), f"streams differ from {what} ({sum(same)}/"
+          f"{len(same)} identical)")
+
+
+def _p22_figures(tag: str, engine, wall: float, card: str) -> None:
+    s = engine.metrics.summary()
+    fig = dict(tok_s=s["n_generated"] / wall,
+               ttft_p50_ms=s["ttft_p50_s"] * 1e3,
+               ttft_p99_ms=s["ttft_p99_s"] * 1e3,
+               tpot_p50_ms=s["tpot_p50_s"] * 1e3,
+               tpot_p99_ms=s["tpot_p99_s"] * 1e3,
+               occupancy_mean=s["occupancy_mean"])
+    log(f"{tag}: {s['n_finished']} requests, {s['n_generated']} tokens in "
+        f"{wall:.3f} s -> {fig['tok_s']:.1f} generated tok/s; TTFT p50 "
+        f"{fig['ttft_p50_ms']:.2f} ms p99 {fig['ttft_p99_ms']:.2f} ms; TPOT "
+        f"p50 {fig['tpot_p50_ms']:.3f} ms p99 {fig['tpot_p99_ms']:.3f} ms; "
+        f"occupancy {fig['occupancy_mean']:.2f} of {P22_SLOTS} slots; "
+        f"{s['steps']} horizons [{card}]")
+
+
+def p22_greedy(card: str, cfg, params, trace, total: dict):
+    """(a) greedy at ``time_scale=0``: K 1 (its metrics through the JSONL
+    writer, (f)), K 4 and paged (bs 8), byte-identical, every paged block
+    back, each stream against ``transformer_generate`` on its prompt
+    (identical, or a near-tie); (e) ``run(max_steps)`` on the K 1 engine.
+    Returns the K 1 and K 4 engines (warm, for (g)) and the K 1 streams."""
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.models.transformer import (
+        transformer_generate,
+    )
+    from deeplearning4j_tpu_torch.serving import ServingMetrics
+    from deeplearning4j_tpu_torch.utils.metrics import MetricsWriter
+
+    shutil.rmtree(P22_DIR, ignore_errors=True)
+    path = P22_DIR / "serve.jsonl"
+    writer = MetricsWriter(path)
+    k1 = _p22_engine(cfg, params, metrics=ServingMetrics(writer=writer))
+    tag = "phase 22a K 1"
+    _must(tag, k1.pool.tpad == P22_TPAD and k1.n_slots == P22_SLOTS,
+          f"the engine came up with Tpad {k1.pool.tpad}")
+    streams, launches, _ = _p22_replay(tag, k1, trace)
+    writer.close()
+    _launch_check(tag, launches, ("flash_attn_fwd", "flash_decode"))
+    _add(total, launches)
+    # (f): the reference's four checked tags, one occupancy record a step
+    records = MetricsWriter.read(path)
+    shutil.rmtree(P22_DIR, ignore_errors=True)
+    tags = {r["tag"] for r in records}
+    s = k1.metrics.summary()
+    occ = [r["value"] for r in records if r["tag"] == "serve/occupancy"]
+    want = {"serve/ttft_seconds", "serve/tpot_seconds", "serve/occupancy",
+            "serve/queue_depth"}
+    _must("phase 22f", want <= tags, f"tags missing: {want - tags}")
+    _must("phase 22f", len(occ) == s["steps"] and max(occ) <= P22_SLOTS,
+          f"{len(occ)} occupancy records for {s['steps']} steps, max "
+          f"{max(occ)}")
+    log(f"phase 22f: {len(records)} JSONL records, tags {sorted(tags)}; "
+        f"{len(occ)} serve/occupancy records = {s['steps']} steps, max "
+        f"{max(occ):g} <= {P22_SLOTS}")
+    _p22_fresh_metrics(k1)  # the writer is closed
+
+    k4 = _p22_engine(cfg, params, horizon=4)
+    tag = "phase 22a K 4"
+    got, launches, _ = _p22_replay(tag, k4, trace)
+    _launch_check(tag, launches, ("flash_attn_fwd", "flash_decode"))
+    _add(total, launches)
+    _p22_same(tag, got, streams, "K 1's")
+
+    paged = _p22_engine(cfg, params, paged=True)
+    tag = "phase 22a paged bs 8"
+    _must(tag, paged._paged, "the engine did not come up paged")
+    got, launches, _ = _p22_replay(tag, paged, trace)
+    _launch_check(tag, launches, ("flash_attn_fwd", "flash_decode_paged"),
+                  ("flash_decode",))
+    _add(total, launches)
+    _p22_same(tag, got, streams, "the slab K 1 run's")
+    _must(tag, paged.pool.n_blocks_in_use == 0,
+          f"{paged.pool.n_blocks_in_use} blocks still in use")
+    del paged
+    log("phase 22a: K 1, K 4 and paged streams byte-identical; 0 blocks "
+        "in use after the paged run")
+
+    gen = transformer_generate(cfg)
+    verdicts = []
+    for lo in range(0, P22_REQS, P22_SLOTS):
+        rows = range(lo, lo + P22_SLOTS)
+        prompts = torch.from_numpy(trace[1][lo:lo + P22_SLOTS]).long()
+        toks, logits = gen(params, prompts.to(P22_DEVICE), P22_NEW,
+                           temperature=0.0, return_logits=True)
+        verdicts += _near_tie_rows(
+            "phase 22a vs generate", np.stack([streams[i] for i in rows]),
+            toks.cpu().numpy(), logits, P22_PROMPT)
+    log(f"phase 22a: engine vs transformer_generate (B {P22_SLOTS} a "
+        f"call), {sum(v == 'identical' for v in verdicts)}/{P22_REQS} "
+        f"identical, others {[v for v in verdicts if v != 'identical']}")
+
+    # (e): run(max_steps) stops with work left; run() finishes the same.
+    # The first wave of (a) alone: the same 16 prompts admitted together
+    tag = "phase 22e"
+    reqs = [r for _, r in _p22_requests(trace, P22_SLOTS)]
+    reset_launches()
+    for r in reqs:
+        k1.submit(r)
+    k1.run(max_steps=P22_MAX_STEPS)
+    _must(tag, not k1.idle, f"the engine went idle within "
+          f"{P22_MAX_STEPS} steps")
+    left = sum(r.status.value != "finished" for r in reqs)
+    res = k1.run()
+    _p22_sync()
+    _add(total, read_launches())
+    _p22_same(tag, [res[r.id] for r in reqs], streams, "(a)'s")
+    log(f"{tag}: run(max_steps={P22_MAX_STEPS}) returned with the engine "
+        f"not idle ({left} of {len(reqs)} requests open); run() then gave "
+        f"(a)'s streams")
+    return k1, k4, streams
+
+
+def p22_faults(card: str, cfg, params, trace, total: dict,
+               streams) -> None:
+    """(b) sampled under seeded transient faults vs a clean sampled engine;
+    (c) greedy under seeded crashes vs (a), and with ``max_restarts=0``."""
+    from deeplearning4j_tpu_torch.serving import EngineCrash, FaultInjector
+
+    tag = "phase 22b"
+    clean, launches, _ = _p22_replay(
+        tag + " clean", _p22_engine(cfg, params, temperature=1.0), trace)
+    _launch_check(tag + " clean", launches,
+                  ("flash_attn_fwd", "flash_decode", "threefry_draw"))
+    _add(total, launches)
+    faulted = _p22_engine(cfg, params, temperature=1.0,
+                          faults=FaultInjector(
+                              seed=P22_FAULT_SEED,
+                              transient_rate=P22_TRANSIENT_RATE))
+    got, launches, _ = _p22_replay(tag + " faults", faulted, trace)
+    _add(total, launches)
+    m = faulted.metrics
+    _p22_same(tag, got, clean, "the clean sampled run's")
+    _must(tag, m.n_retries > 0, "no transient fault was retried")
+    log(f"{tag}: sampled (T 1.0, top-k 40) under transient faults at rate "
+        f"{P22_TRANSIENT_RATE} (seed {P22_FAULT_SEED}): {m.n_retries} "
+        f"retries, {m.n_restarts} restarts; streams byte-identical to the "
+        f"clean run's")
+    del faulted
+
+    def crashing():
+        return _p22_engine(cfg, params, faults=FaultInjector(
+            seed=P22_CRASH_SEED, crash_rate=P22_CRASH_RATE,
+            max_faults=P22_CRASH_MAX))
+
+    tag = "phase 22c"
+    engine = crashing()
+    got, launches, _ = _p22_replay(tag, engine, trace)
+    _add(total, launches)
+    n = engine.metrics.n_restarts
+    _must(tag, n >= 1, "the engine never crashed")
+    _p22_same(tag, got, streams, "(a)'s K 1 run's")
+    mode = engine.last_recover_mode or "no slot live"
+    del engine
+    engine = crashing()
+    try:
+        _p22_replay(tag + " max_restarts 0", engine, trace, max_restarts=0)
+    except EngineCrash as e:
+        raised = str(e)
+    else:
+        raised = None
+    _p22_sync()
+    _add(total, read_launches())
+    _must(tag, raised is not None, "max_restarts=0 did not raise")
+    log(f"{tag}: {n} crashes recovered by replay (the last: {mode}), streams "
+        f"byte-identical to (a)'s; with max_restarts=0 EngineCrash "
+        f"propagated ({raised})")
+
+
+def p22_backpressure(card: str, cfg, params, trace, total: dict) -> None:
+    """(d): 8 requests flooded into 1 slot behind a queue of 2."""
+    tag = "phase 22d"
+    engine = _p22_engine(cfg, params, horizon=4, n_slots=1,
+                         depth=P22_BP_DEPTH)
+    _, launches, wall = _p22_replay(tag, engine, trace, n=P22_BP_REQS)
+    _add(total, launches)
+    m = engine.metrics
+    _must(tag, m.n_backpressure > 0, "no submit was refused")
+    log(f"{tag}: {P22_BP_REQS} requests into 1 slot behind a queue of "
+        f"{P22_BP_DEPTH}: {m.n_backpressure} submits refused and retried, "
+        f"all {m.n_finished} finished in {wall:.2f} s")
+
+
+def phase_serve_trace(card: str) -> dict[str, dict[str, int]]:
+    """Phase 22: bench.py's serve trace at GPT-2-small width through the
+    port's ``run_request_trace``: (a) greedy K 1 / K 4 / paged, (b)
+    faults, (c) crashes, (d) backpressure, (e) ``run(max_steps)``, (f) the
+    JSONL writer, (g) the timed replays at ``time_scale=1``; fails on a
+    launch at a shape phase 2 did not hold."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models.transformer import init_params
+
+    t0 = time.perf_counter()
+    cfg = p22_config()
+    params = init_params(cfg, seed=0, device=P22_DEVICE)
+    trace = p22_trace(cfg.vocab_size)
+    total: dict[str, int] = {}
+    with launched_shapes() as seen:
+        k1, k4, streams = p22_greedy(card, cfg, params, trace, total)
+        # (g): the warm K 1 and K 4 engines, metrics started over, replay
+        # at the trace's own arrival times
+        for k, engine in ((1, k1), (4, k4)):
+            _p22_fresh_metrics(engine)
+            tag = f"phase 22g K {k}"
+            _, launches, wall = _p22_replay(tag, engine, trace,
+                                            time_scale=1.0)
+            _add(total, launches)
+            _p22_figures(tag, engine, wall, card)
+        del k1, k4
+        p22_faults(card, cfg, params, trace, total, streams)
+        p22_backpressure(card, cfg, params, trace, total)
+    check_launched("phase 22", seen)
+    del params
+    if P22_DEVICE != "cpu":
+        torch.cuda.empty_cache()
+    log(f"phase 22: launches {total}; {time.perf_counter() - t0:.1f} s wall "
+        f"[{card}]")
+    return {"serve_trace": total}
+
+
 def main() -> int:
     try:
         import torch
@@ -9904,6 +10283,7 @@ def main() -> int:
     by_phase.update(phase_tooling(card))
     by_phase.update(phase_model_axis(card))
     by_phase.update(phase_long_context(card))
+    by_phase.update(phase_serve_trace(card))
     kernels = [
         dict(name=name, route="cuda", **KERNELS[name],
              launches=sum(p[name] for p in by_phase.values()),

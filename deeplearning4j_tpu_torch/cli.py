@@ -56,11 +56,14 @@ persists probe verdicts (``off`` disables), ``--embed-models word2vec``
 serves ``POST /v1/embeddings`` over the reference's demo vocabulary, and
 ``--tp N [--tp-parity auto|trust|off]`` serves tensor-parallel over the
 first N cards (exits 2 with fewer; with ``--device``, N ranks on that
-device), and the observability flags are the reference's: ``--trace-out PATH``
-[``--trace-capacity N``] (a Chrome trace written at shutdown),
-``--flight-dir DIR`` (postmortem bundles), ``--log-json`` (JSON log
-lines), ``--metrics-port P`` (the scrape sidecar), ``--profile-dir DIR``
-and ``--profile-steps N`` (``torch.profiler`` captures, also armed by
+device), ``--max-restarts N`` and ``--hang-threshold S`` set the
+supervision (crash recoveries before the engine is declared dead, the
+heartbeat age ``/healthz`` calls hung), ``--run-seconds N`` serves for N
+seconds then drains (``--drain-s``) and exits 0, and the observability
+flags are the reference's: ``--trace-out PATH`` [``--trace-capacity N``]
+(a Chrome trace written at shutdown), ``--flight-dir DIR`` (postmortem
+bundles), ``--log-json`` (JSON log lines), ``--metrics-port P`` (the
+scrape sidecar), ``--profile-dir DIR`` and ``--profile-steps N`` (``torch.profiler`` captures, also armed by
 ``POST /profile?s=N``). ``trace-merge A.json B.json -o OUT`` stitches
 ``--trace-out`` exports into one Perfetto document. ``router --replica
 HOST:PORT ...`` runs the prefix-affinity replica router and ``controller
@@ -947,6 +950,8 @@ def _serve(args, sans) -> tuple[int, object]:
                   "will 400", file=sys.stderr)
     server = ServingServer(engine, host=args.host, port=args.port,
                            request_timeout_s=args.request_timeout,
+                           max_restarts=args.max_restarts,
+                           hang_threshold_s=args.hang_threshold,
                            metrics_port=args.metrics_port,
                            flight_dir=args.flight_dir,
                            migrate_targets=tuple(args.migrate_target or ()))
@@ -970,11 +975,20 @@ def _serve(args, sans) -> tuple[int, object]:
           f"{' (adaptive)' if args.adaptive_horizon else ''}, "
           f"queue depth {args.max_queue})", flush=True)
     try:
-        kw = {}
-        if args.port_file:
-            kw["on_start"] = lambda: _write_port_file(args.port_file, host,
-                                                      port)
-        server.serve_forever(drain_s=args.drain_s, **kw)
+        if args.run_seconds is not None:
+            # a timed run: start, publish the bound address, serve for N
+            # seconds, then drain
+            server.start()
+            if args.port_file:
+                _write_port_file(args.port_file, host, port)
+            time.sleep(args.run_seconds)
+            server.stop(drain_s=args.drain_s)
+        else:
+            kw = {}
+            if args.port_file:
+                kw["on_start"] = lambda: _write_port_file(args.port_file,
+                                                          host, port)
+            server.serve_forever(drain_s=args.drain_s, **kw)
     finally:
         if args.trace_out:
             out = tracer.export(args.trace_out)
@@ -1409,7 +1423,21 @@ def build_parser() -> argparse.ArgumentParser:
     v.add_argument("--embed-models", default=None, metavar="M[,M]",
                    help="embedding models to serve at POST /v1/embeddings "
                    "over a small demo vocabulary (word2vec, glove)")
-    v.add_argument("--drain-s", type=float, default=5.0)
+    v.add_argument("--drain-s", type=float, default=5.0,
+                   help="graceful-drain window at shutdown: admission stops "
+                   "and requests in flight get this many seconds before "
+                   "the stragglers are cancelled")
+    v.add_argument("--hang-threshold", type=float, default=120.0,
+                   help="seconds without an engine-loop heartbeat (while "
+                   "work is pending) before /healthz reports the engine "
+                   "hung and answers 503")
+    v.add_argument("--max-restarts", type=int, default=5,
+                   help="consecutive engine-crash recoveries before the "
+                   "server declares the engine dead (/healthz 503)")
+    v.add_argument("--run-seconds", type=float, default=None,
+                   help="serve for N seconds, then drain and exit 0 (smoke "
+                   "runs, timed captures; default: until Ctrl-C or "
+                   "SIGTERM)")
     _add_model_flags(v)
     _add_int8_flag(v)
     v.add_argument("--tp", type=int, default=1,

@@ -18,7 +18,7 @@ _WHERE = {
     "WIRE_VERSION": "disagg", "WireError": "disagg",
     "decode_segment": "disagg", "encode_segment": "disagg",
     "model_config_hash": "disagg",
-    "ServingEngine": "engine",
+    "ServingEngine": "engine", "run_request_trace": "engine",
     "EngineCrash": "faults", "FaultInjector": "faults",
     "PermanentFault": "faults", "TransientFault": "faults",
     "GrammarCache": "grammar", "GrammarError": "grammar",

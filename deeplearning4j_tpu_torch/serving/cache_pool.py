@@ -192,23 +192,26 @@ class PagedKVPool(KVSlotPool):
       reaches zero.
 
     Block ids are handed out lowest-id-first (a heap), so tables are
-    deterministic. ``block_size`` is a power of two dividing Tpad; the pool
-    holds what the slab pool holds (``n_slots * Tpad / block_size`` blocks)
-    plus the sentinel. ``version`` counts table changes, so the device copy
-    of the tables in :meth:`operand` is uploaded again exactly when they
-    changed.
+    deterministic. ``block_size`` is a power of two dividing Tpad; by
+    default the pool holds what the slab pool holds (``n_slots * Tpad /
+    block_size`` blocks) plus the sentinel, and ``n_blocks`` (sentinel
+    included, at least 2) sizes it otherwise: fewer blocks oversubscribe
+    the slots, and ``can_admit`` then gates admission. ``version`` counts
+    table changes, so the device copy of the tables in :meth:`operand` is
+    uploaded again exactly when they changed.
     """
 
     is_paged = True
 
     def __init__(self, cfg: TransformerConfig, n_slots: int, max_total: int,
                  device: torch.device, *, block_size: int = 8,
-                 tp_mesh: Mesh | None = None):
+                 n_blocks: int | None = None, tp_mesh: Mesh | None = None):
         bs = int(block_size)
         if bs < 1 or bs & (bs - 1):
             raise ValueError(
                 f"block_size must be a power of two, got {block_size}")
         self.block_size = bs
+        self._requested_blocks = n_blocks
         super().__init__(cfg, n_slots, max_total, device, tp_mesh=tp_mesh)
         self._tables = np.zeros((n_slots, self.blocks_per_slot),
                                 np.int32)  # guarded-by: _lock
@@ -227,7 +230,13 @@ class PagedKVPool(KVSlotPool):
                 f"block_size {self.block_size} does not divide the slab row "
                 f"count Tpad={self.tpad}")
         self.blocks_per_slot = self.tpad // self.block_size
-        self.n_blocks = self.n_slots * self.blocks_per_slot + 1
+        self.n_blocks = (
+            self._requested_blocks if self._requested_blocks is not None
+            else self.n_slots * self.blocks_per_slot + 1)
+        if self.n_blocks < 2:
+            raise ValueError(
+                f"n_blocks must be >= 2 (sentinel + one allocatable "
+                f"block), got {self.n_blocks}")
         # an empty (batch 0) cache on the real devices names each leaf's
         # dtype, width and device
         return kv_map(

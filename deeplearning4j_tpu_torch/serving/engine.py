@@ -3480,7 +3480,8 @@ class ServingEngine:
         now = time.perf_counter()
         snaps = [(s, st) for s, st in enumerate(self._slots)
                  if st is not None]
-        self.metrics.record_step(len(snaps), len(self.scheduler))
+        self.metrics.record_step(len(snaps), self.n_slots,
+                                 len(self.scheduler))
         self.tracer.span(ENGINE_TRACK, "dispatch", t_call, now - t_call,
                          n_active=len(snaps))
         fam = "masked_step" if self._surface else "step"
@@ -3746,10 +3747,12 @@ class ServingEngine:
         if san is not None:
             san.set_phase(phase)
 
-    def run(self, *, max_restarts: int = 5) -> dict[str, np.ndarray]:
-        """Step until every queued/active request is terminal, recovering
-        from up to ``max_restarts`` crashes by replay before one
-        propagates."""
+    def run(self, max_steps: int | None = None, *,
+            max_restarts: int = 5) -> dict[str, np.ndarray]:
+        """Step until every queued/active request is terminal, or until
+        ``max_steps`` steps that did not crash have run, recovering from
+        up to ``max_restarts`` crashes by replay before one propagates."""
+        steps = 0
         restarts = 0
         while not self.idle:
             try:
@@ -3759,6 +3762,10 @@ class ServingEngine:
                     raise
                 restarts += 1
                 self.recover()
+                continue
+            steps += 1
+            if max_steps is not None and steps >= max_steps:
+                break
         return self.results
 
     # -- crash recovery --------------------------------------------------------
@@ -3871,3 +3878,52 @@ class ServingEngine:
         self._dbudget = self._upload(budget)
         self._deos = self._upload(eos)
         return len(live)
+
+
+def run_request_trace(
+    engine: ServingEngine,
+    trace: list[tuple[float, Request]],
+    *,
+    time_scale: float = 1.0,
+    max_restarts: int = 5,
+) -> dict[str, np.ndarray]:
+    """Replay an arrival trace against a live engine (the reference's
+    ``run_request_trace``).
+
+    ``trace`` holds (arrival offset in seconds, request) pairs; offsets are
+    relative to the replay's start and scaled by ``time_scale`` (0 floods
+    the engine with every request at once). The engine steps while it
+    waits, as a serving loop would, so admissions interleave with decodes
+    in flight. A submit refused with ``Backpressure`` is tried again on the
+    next iteration (a step frees queue room), and an ``EngineCrash`` is
+    recovered by replay up to ``max_restarts`` times before it propagates.
+    Returns ``engine.results``."""
+    order = sorted(range(len(trace)), key=lambda j: trace[j][0])
+    t0 = time.perf_counter()
+    i = 0
+    pending: deque[Request] = deque()
+    restarts = 0
+    while i < len(order) or pending or not engine.idle:
+        now = time.perf_counter() - t0
+        while i < len(order) and trace[order[i]][0] * time_scale <= now:
+            pending.append(trace[order[i]][1])
+            i += 1
+        while pending:
+            try:
+                engine.submit(pending[0])
+            except Backpressure:
+                break  # the queue is full: a step below frees room
+            pending.popleft()
+        try:
+            progressed = engine.step()
+        except EngineCrash:
+            if restarts >= max_restarts:
+                raise
+            restarts += 1
+            engine.recover()
+            continue
+        if not progressed and not pending and i < len(order):
+            # an idle engine, the next arrival still ahead
+            time.sleep(min(0.001, max(
+                0.0, trace[order[i]][0] * time_scale - now)))
+    return engine.results

@@ -59,12 +59,25 @@ The KV wire and live migration (the reference's families):
 transfer and seat histograms; ``summary()`` gains ``disagg`` and
 ``migration`` blocks once either moved.
 
+With a ``writer`` (a :class:`~deeplearning4j_tpu_torch.utils.metrics.
+MetricsWriter`), every record also goes out as a JSONL scalar tagged
+``f"{prefix}/{name}"``, as the reference's: ``occupancy``,
+``occupancy_frac`` and ``queue_depth`` at the step counter, and
+``ttft_seconds``, ``tpot_seconds``, ``queue_delay_seconds``,
+``sync_wait_seconds``, ``overlap_seconds``, ``retries_total``,
+``restarts_total``, ``failed_total``, ``cancelled_total``,
+``expired_total``, ``prefix_tokens_saved_total``, ``embedding_seconds``,
+the KV wire's ``kv_export_seconds``, ``kv_ingest_seconds`` and
+``transfer_seconds``, and the migration's ``migration_export_seconds`` and
+``migration_seat_seconds``. Without a writer nothing is written.
+
 Series names are the reference's, so its dashboards carry over.
 """
 
 from __future__ import annotations
 
 import threading
+from typing import TYPE_CHECKING
 
 import numpy as np
 
@@ -73,6 +86,9 @@ from deeplearning4j_tpu_torch.analysis.sanitizers import (
     wrap_lock,
 )
 from deeplearning4j_tpu_torch.obs.registry import MetricsRegistry, Reservoir
+
+if TYPE_CHECKING:
+    from deeplearning4j_tpu_torch.utils.metrics import MetricsWriter
 
 RESERVOIR_CAP = 4096
 #: (name fragment, dense bf16 FLOP/s, HBM bytes/s) of the cards whose peaks
@@ -106,7 +122,11 @@ def _pct(res: Reservoir, p: float) -> float:
 
 class ServingMetrics:
     def __init__(self, registry: MetricsRegistry | None = None,
-                 reservoir_cap: int = RESERVOIR_CAP):
+                 reservoir_cap: int = RESERVOIR_CAP, *,
+                 writer: MetricsWriter | None = None,
+                 prefix: str = "serve"):
+        self.writer = writer
+        self.prefix = prefix
         self.registry = registry if registry is not None else MetricsRegistry()
         self.ttft = Reservoir(reservoir_cap)
         self.tpot = Reservoir(reservoir_cap)
@@ -350,6 +370,10 @@ class ServingMetrics:
             "card's peak HBM bandwidth, clamped to 1. Exact at the audit "
             "geometry; a scale reference otherwise.", ("family",))
 
+    def _emit(self, tag: str, value: float, step: int | None = None) -> None:
+        if self.writer is not None:
+            self.writer.scalar(f"{self.prefix}/{tag}", value, step)
+
     def _tenant(self, tenant_id: str) -> dict:  # lint: holds _tlock
         """Per-tenant counters and reservoirs (call holding ``_tlock``)."""
         st = self._tenants.get(tenant_id)
@@ -392,6 +416,7 @@ class ServingMetrics:
         self.embed_latency.add(float(seconds))
         self._c_embeddings.inc(model=model)
         self._h_embed.observe(float(seconds))
+        self._emit("embedding_seconds", seconds)
         if tenant:
             self._c_tenant_requests.inc(tenant=tenant, outcome="embedding")
             with self._tlock:
@@ -406,6 +431,7 @@ class ServingMetrics:
         self._c_kv_exports.inc()
         self._c_kv_export_bytes.inc(int(nbytes))
         self._h_kv_export.observe(seconds)
+        self._emit("kv_export_seconds", seconds)
         if tenant:
             self._c_tenant_requests.inc(tenant=tenant, outcome="kv_export")
             with self._tlock:
@@ -424,6 +450,7 @@ class ServingMetrics:
         self._c_kv_ingests.inc(result="stored" if stored else "declined")
         self._c_kv_ingest_bytes.inc(int(nbytes))
         self._h_kv_ingest.observe(seconds)
+        self._emit("kv_ingest_seconds", seconds)
         if tenant:
             self._c_tenant_requests.inc(tenant=tenant, outcome="kv_ingest")
             with self._tlock:
@@ -438,6 +465,7 @@ class ServingMetrics:
         self.transfer_seconds += float(seconds)
         self._c_transfers.inc(result="ok" if ok else "failed")
         self._h_transfer.observe(seconds)
+        self._emit("transfer_seconds", seconds)
         if ok:
             self.transfer_bytes += int(nbytes)
             self._c_transfer_bytes.inc(int(nbytes))
@@ -449,6 +477,7 @@ class ServingMetrics:
         """One live slot exported (parked) for migration."""
         self.n_migrations_out += 1
         self._c_migrations_out.inc()
+        self._emit("migration_export_seconds", seconds)
 
     def record_migration_in(self, n_generated: int, seconds: float, *,
                             seated: bool, tenant: str = "") -> None:
@@ -461,6 +490,7 @@ class ServingMetrics:
         self.migration_seat_latency.add(float(seconds))
         self._c_migrations_in.inc(result="seated" if seated else "declined")
         self._h_migration_seat.observe(seconds)
+        self._emit("migration_seat_seconds", seconds)
         if tenant and seated:
             self._c_tenant_requests.inc(tenant=tenant, outcome="migrated_in")
 
@@ -473,16 +503,22 @@ class ServingMetrics:
             self.n_migrations_settled_failed += 1
         self._c_migrations_settled.inc(result="ok" if ok else "failed")
 
-    def record_step(self, n_active: int, queue_depth: int) -> None:
-        """One dispatched horizon with ``n_active`` slots decoding."""
+    def record_step(self, n_active: int, n_slots: int,
+                    queue_depth: int) -> None:
+        """One dispatched horizon with ``n_active`` of ``n_slots`` slots
+        decoding."""
         self.occupancy.add(float(n_active))
         self.queue_depth.add(int(queue_depth))
         self._c_steps.inc()
+        self._emit("occupancy", n_active, self._step)
+        self._emit("occupancy_frac", n_active / n_slots, self._step)
+        self._emit("queue_depth", queue_depth, self._step)
         self._step += 1
 
     def record_admitted(self, delay_s: float, tenant: str = "") -> None:
         self.queue_delay.add(float(delay_s))
         self.record_phase("queue", delay_s)
+        self._emit("queue_delay_seconds", delay_s)
         if tenant:
             with self._tlock:
                 self._tenant(tenant)["queue_delay"].add(float(delay_s))
@@ -495,10 +531,13 @@ class ServingMetrics:
         self.overlap.add(float(overlap_s))
         self.record_phase("decode", float(sync_wait_s) + float(overlap_s))
         self.record_phase("sync", sync_wait_s)
+        self._emit("sync_wait_seconds", sync_wait_s)
+        self._emit("overlap_seconds", overlap_s)
 
     def record_first_token(self, ttft_s: float) -> None:
         self.ttft.add(float(ttft_s))
         self._h_ttft.observe(ttft_s)
+        self._emit("ttft_seconds", ttft_s)
 
     def record_finished(self, n_tokens: int, decode_s: float,
                         tenant: str = "") -> None:
@@ -513,6 +552,7 @@ class ServingMetrics:
             tpot = decode_s / (n_tokens - 1)
             self.tpot.add(tpot)
             self._h_tpot.observe(tpot)
+            self._emit("tpot_seconds", tpot)
         if tenant:
             self._c_tenant_requests.inc(tenant=tenant, outcome="finished")
             self._c_tenant_tokens.inc(n_tokens, tenant=tenant)
@@ -569,11 +609,13 @@ class ServingMetrics:
         """One transient-fault retry at an engine boundary."""
         self.n_retries += 1
         self._c_retries.inc()
+        self._emit("retries_total", self.n_retries)
 
     def record_restart(self) -> None:
         """One engine-state rebuild by deterministic replay."""
         self.n_restarts += 1
         self._c_restarts.inc()
+        self._emit("restarts_total", self.n_restarts)
 
     def record_prefix_lookup(self, result: str, saved_tokens: int) -> None:
         """One admission-time prefix-cache lookup: ``result`` is
@@ -589,6 +631,7 @@ class ServingMetrics:
         if saved_tokens:
             self.prefix_tokens_saved += int(saved_tokens)
             self._c_prefix_saved.inc(int(saved_tokens))
+            self._emit("prefix_tokens_saved_total", self.prefix_tokens_saved)
 
     def record_prefix_insert(self) -> None:
         self.n_prefix_inserts += 1
@@ -620,10 +663,13 @@ class ServingMetrics:
                 self._tenant(tenant)["n_other"] += 1
         if s == "failed":
             self.n_failed += 1
+            self._emit("failed_total", self.n_failed)
         elif s == "cancelled":
             self.n_cancelled += 1
+            self._emit("cancelled_total", self.n_cancelled)
         elif s == "expired":
             self.n_expired += 1
+            self._emit("expired_total", self.n_expired)
 
     def _update_program_util(self) -> None:
         """Refresh the per-family MFU/MBU gauges: measured seconds

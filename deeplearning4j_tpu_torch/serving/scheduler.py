@@ -394,6 +394,11 @@ class RequestScheduler:
         with self._lock:
             return self._depth_unlocked()
 
+    @property
+    def depth(self) -> int:
+        """Queued requests (``len(self)``, the reference's property)."""
+        return len(self)
+
     def has_kind(self, kind: str) -> bool:
         """Any queued request of ``kind``? The engine's admission entry
         check: embedding requests stay admissible with no free KV slot, so

@@ -5,10 +5,13 @@ CUDA card.
     python3 scripts/torch_serve_profile.py [--horizons 12] [--out PATH]
         [--int8 off|weights|full] [--paged [--block-size 8]]
         [--temperature 0] [--top-k 0] [--sampling-surface]
-        [--lora-adapters N [--lora-rank 4]] [--tp N] [--dense]
+        [--lora-adapters N [--lora-rank 4]] [--tp N] [--dense] [--gqa]
+        [--slots 8]
 
 Builds the GPT-2-small serving engine of ``chip_smoke.py`` (bf16, 8 slots,
-max_total 640, K = 4, random weights from seed 0; greedy unless
+max_total 640, K = 4, random weights from seed 0; ``--gqa`` the geometry
+of bench.py's serve rows instead, phase 22's: 6 query heads over 2 KV
+heads, RoPE, max_len 577; ``--slots`` the slot count; greedy unless
 ``--temperature`` and ``--top-k`` ask for sampled decode, which draws
 through the threefry draw kernel; ``--sampling-surface`` dispatches the
 masked step; ``--int8`` quantizes the weights, ``full`` also the KV cache;
@@ -22,7 +25,7 @@ fills every slot with a 128-token prompt and a budget long enough to stay
 in decode, then:
 
 - times ``--horizons`` engine steps on the host clock (each step dispatches
-  one K-substep horizon for 8 slots and reads back the previous one) and
+  one K-substep horizon for every slot and reads back the previous one) and
   reports steady-state decode tokens/s and ms per substep;
 - traces the same number of steps with ``torch.profiler`` and reports the
   device time by kernel, grouped (flash decode, matmuls, everything else),
@@ -83,6 +86,10 @@ def main() -> int:
                     help="tensor-parallel width, every rank on cuda:0")
     ap.add_argument("--dense", action="store_true",
                     help="the dense decode and prefill (no kernel) at tp 1")
+    ap.add_argument("--gqa", action="store_true",
+                    help="6 query heads over 2 KV heads, RoPE, max_len 577 "
+                    "(chip_smoke.py phase 22's model)")
+    ap.add_argument("--slots", type=int, default=8)
     args = ap.parse_args()
 
     import numpy as np
@@ -92,7 +99,7 @@ def main() -> int:
         print("torch_serve_profile: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from chip_smoke import gpt2s_config
+    from chip_smoke import gpt2s_config, p22_config
     from deeplearning4j_tpu_torch.models.transformer import (
         init_params,
         quantize_decode_params,
@@ -103,7 +110,13 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
-    cfg = gpt2s_config(decode_int8=args.int8 == "full")
+    if args.gqa:
+        import dataclasses
+
+        cfg = dataclasses.replace(p22_config(),
+                                  decode_int8=args.int8 == "full")
+    else:
+        cfg = gpt2s_config(decode_int8=args.int8 == "full")
     if args.dense:
         import dataclasses
 
@@ -122,7 +135,9 @@ def main() -> int:
             threefry.key(0), cfg, args.lora_adapters, args.lora_rank)
     if args.tp > 1:
         surface.update(tp=args.tp, tp_devices=["cuda:0"] * args.tp)
-    engine = ServingEngine(cfg, params, n_slots=8, max_total=640,
+    max_total = min(640, cfg.max_len)
+    engine = ServingEngine(cfg, params, n_slots=args.slots,
+                           max_total=max_total,
                            decode_horizon=4, temperature=args.temperature,
                            top_k=args.top_k or None,
                            paged=args.paged, block_size=args.block_size,
@@ -151,10 +166,12 @@ def main() -> int:
             + (f", LoRA {args.lora_adapters} x rank {args.lora_rank}"
                if args.lora_adapters else "")
             + (f", tp {args.tp} on cuda:0" if args.tp > 1 else "")
-            + (", dense" if args.dense else ""))
+            + (", dense" if args.dense else "")
+            + (", GQA 6 over 2 + RoPE" if args.gqa else ""))
     rng = np.random.default_rng(0)
     budget = 4 * (3 * args.horizons + 8)
-    for i in range(8):
+    n = args.slots
+    for i in range(n):
         # the adapter only when asked, as the surface flag above
         lora = ({"adapter": 1 + i % (args.lora_adapters - 1)}
                 if args.lora_adapters else {})
@@ -163,7 +180,7 @@ def main() -> int:
     for _ in range(4):  # admissions + warm-up horizons
         engine.step()
     torch.cuda.synchronize()
-    assert engine.pool.n_active == 8
+    assert engine.pool.n_active == n
 
     t0 = time.perf_counter()
     for _ in range(args.horizons):
@@ -171,7 +188,7 @@ def main() -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     k = engine.decode_horizon
-    tok_s = 8 * k * args.horizons / wall
+    tok_s = n * k * args.horizons / wall
     ms_substep = wall / (args.horizons * k) * 1e3
 
     from torch.autograd import DeviceType
@@ -203,8 +220,8 @@ def main() -> int:
     n_sub = args.horizons * k
     out = {
         "card": card,
-        "config": f"GPT-2-small bf16 ({mode}), 8 slots, max_total 640, K=4, "
-                  f"prompts 128",
+        "config": f"GPT-2-small bf16 ({mode}), {n} slots, max_total "
+                  f"{max_total}, K=4, prompts 128",
         "horizons": args.horizons,
         "decode_tok_per_s": tok_s,
         "ms_per_substep": ms_substep,
@@ -222,7 +239,8 @@ def main() -> int:
     print(f"card: {card}")
     print(f"mode: {mode}")
     print(f"steady decode: {tok_s:.1f} tok/s, {ms_substep:.3f} ms per "
-          f"substep (8 slots, K={k}, {args.horizons} horizons, host clock)")
+          f"substep ({n} slots, K={k}, {args.horizons} horizons, host "
+          f"clock)")
     print(f"device busy share of the traced steps: "
           f"{out['device_busy_share']:.3f}; "
           f"{out['device_records_per_substep']:.0f} kernels/copies per "

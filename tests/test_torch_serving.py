@@ -269,6 +269,59 @@ def test_cli_serve_demo_on_cpu():
     assert proc.returncode == 0
 
 
+def test_cli_serve_timed_run_on_cpu(tmp_path, monkeypatch):
+    """``serve --run-seconds N`` publishes its port file, answers a request,
+    hands ``--max-restarts`` and ``--hang-threshold`` to the server
+    (``/healthz`` reports the threshold), then drains and returns 0 after N
+    seconds with no signal."""
+    import time
+
+    from deeplearning4j_tpu_torch import cli, serving
+
+    run_s = 6.0
+    servers = []
+
+    class Recorded(ServingServer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            servers.append(self)
+
+    monkeypatch.setattr(serving, "ServingServer", Recorded)
+    port_file = tmp_path / "port.json"
+    out = {}
+
+    def run():
+        out["rc"] = cli.main([
+            "serve", "--demo", "--device", "cpu", "--port", "0",
+            "--port-file", str(port_file), "--run-seconds", str(run_s),
+            "--drain-s", "2", "--max-restarts", "3", "--hang-threshold",
+            "7", "--d-model", "32", "--n-layers", "1", "--n-heads", "2",
+            "--seq-len", "32", "--slots", "2", "--temperature", "0",
+            "--probe-cache", "off"])
+        out["end"] = time.monotonic()
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    deadline = time.monotonic() + 120
+    while not port_file.exists() and time.monotonic() < deadline:
+        time.sleep(0.05)
+    assert port_file.exists(), "serve never wrote its port file"
+    started = time.monotonic()
+    addr = json.loads(port_file.read_text())
+    base = f"http://{addr['host']}:{addr['port']}"
+    code, body = _post(base + "/v1/generate", {"prompt": "abc", "max_new": 4})
+    assert code == 200 and len(body["tokens"]) == 7
+    with urllib.request.urlopen(base + "/healthz", timeout=30) as r:
+        health = json.loads(r.read())
+    assert r.status == 200 and health["hang_threshold_s"] == 7.0
+    t.join(timeout=120)
+    assert not t.is_alive(), "serve did not stop on its own"
+    assert out["rc"] == 0
+    assert out["end"] - started >= run_s - 1.0
+    assert len(servers) == 1 and servers[0].max_restarts == 3
+    assert servers[0].hang_threshold_s == 7.0
+
+
 @pytest.mark.parametrize("decode_kernel", [True, False])
 def test_slot_filling_the_whole_cache(params, decode_kernel):
     """A request with prompt + max_new == Tpad finishes while another
